@@ -1,0 +1,39 @@
+"""Carry weights between the JAX package and the port.
+
+`from_jax_params` takes dnn_tpu's GPT param pytree — {"wte", "wpe",
+"h_i", "ln_f", "lm_head"}, leaves as numpy arrays (np.asarray of the
+JAX arrays) — and returns the port's prepared tensors, so both packages
+run the very same weights. `load_npz` reads the same tree from a flat
+.npz whose keys are the "/"-joined paths ("h_0/attn/qkv/kernel")."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dnn_tpu_torch.models.gpt import GPTConfig, prepare_stacked
+
+
+def from_jax_params(tree, cfg: GPTConfig, device):
+    """JAX-layout param tree (numpy leaves) -> prepared tensors on
+    `device`. Validates the layer count and the tied-head shape."""
+    missing = [f"h_{i}" for i in range(cfg.n_layer) if f"h_{i}" not in tree]
+    if missing:
+        raise ValueError(f"param tree lacks blocks {missing[:3]}...")
+    want = (cfg.n_embd, cfg.vocab_size)
+    got = tuple(np.shape(tree["lm_head"]["kernel"]))
+    if got != want:
+        raise ValueError(f"lm_head kernel is {got}, expected {want}")
+    return prepare_stacked(tree, cfg, device)
+
+
+def load_npz(path: str):
+    """Flat .npz with "/"-joined keys -> the nested JAX-layout tree."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree

@@ -1,0 +1,117 @@
+"""Build the CUDA kernels on first use and load them with ctypes.
+
+Each source under csrc/ compiles with nvcc, for sm_90a, into its own
+shared library with a plain C interface — no PyTorch headers, so a build
+takes seconds. All missing libraries build in parallel (one nvcc per
+source, started together). The library's file name carries a hash of its
+source and flags, so an edited source rebuilds. Output goes to build/
+beside this file (listed in .gitignore); nothing outside the checkout is
+read or written apart from the CUDA toolkit itself.
+
+Nothing here runs at import: the tests import every module on hosts with
+no nvcc and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# kernel name -> (source file, C symbol, argtypes). Every pointer and the
+# stream are c_void_p: a default ctypes int would cut them to 32 bits.
+KERNELS = {
+    "cached_attention": (
+        "cached_attention.cu", "dnn_cached_attention",
+        # q k v pos out | BH H T S D kv_bf16 | scale stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "paged_decode": (
+        "paged_decode.cu", "dnn_paged_decode_attention",
+        # q kp vp tables pos out | B Hk R D bp nb_max kv_bf16 | scale stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    if shutil.which("nvcc"):
+        cands.append(shutil.which("nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/"
+        "bin): the CUDA kernels build from source on first use")
+
+
+def lib_path(name: str) -> Path:
+    src, _sym, _args = KERNELS[name]
+    h = hashlib.sha1((CSRC / src).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile every listed kernel whose library is missing, all nvcc
+    processes in parallel. Returns {name: compiler output} for the ones
+    built now. Raises RuntimeError naming each failed build."""
+    names = list(KERNELS) if names is None else list(names)
+    missing = [n for n in names if not lib_path(n).exists()]
+    if not missing:
+        return {}
+    compiler = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in missing:
+        out = lib_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name: str):
+    """The kernel's C entry point, building its library if needed."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is None:
+            build([name])
+            _src, sym, argtypes = KERNELS[name]
+            fn = getattr(ctypes.CDLL(str(lib_path(name))), sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return fn

@@ -1,0 +1,165 @@
+"""Paged KV cache: a shared block pool plus per-slot block tables (port
+of dnn_tpu/runtime/paged_kvcache.py:59-363).
+
+Layout (per K and per V):
+
+    pool   (L, n_blocks, H, block_len, D)   f32 or bf16
+    tables (B, nb_max)                      int32
+
+The JAX layout replicates the tables over L so its layer scan can peel
+them beside the pool; the port loops over layers in Python and keeps
+one table. Block 0 is the reserved junk block: unowned table entries
+point at it, gated decode writes and unowned install targets land on
+it, and it is never attended live (the position mask stops at each
+slot's length). All pool updates are in place.
+
+Decode attention (`attend_rows`) runs the K7 paged-decode wrapper: the
+CUDA kernel chases each slot's table straight into the pool on the card,
+the plain gather-view version on the CPU.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import List, Optional
+
+import torch
+
+from dnn_tpu_torch.ops.cuda.cached_attention import paged_decode_attention
+
+__all__ = ["PagedKV", "BlockAllocator", "InsufficientBlocks",
+           "init_paged_cache"]
+
+
+class InsufficientBlocks(RuntimeError):
+    """The pool cannot satisfy an admission right now — TRANSIENT
+    (blocks free as running requests retire), unlike the permanent
+    never-fits error: the LM daemon's worker holds such a request back
+    instead of failing it."""
+
+
+class BlockAllocator:
+    """Host-side free list over pool block ids, with reference counts
+    and a high-water mark. Block 0 is reserved (the junk target)."""
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 2:
+            raise ValueError("need at least 2 blocks (block 0 is reserved)")
+        self.n_blocks = n_blocks
+        self._free: List[int] = list(range(1, n_blocks))
+        self._rc: dict = {}
+        self.high_water = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        """Blocks currently held; n_used + n_free == n_blocks - 1."""
+        return self.n_blocks - 1 - len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n fresh block ids at refcount 1, or None when the pool can't
+        satisfy the request."""
+        if n > len(self._free):
+            return None
+        taken, self._free = self._free[:n], self._free[n:]
+        for b in taken:
+            self._rc[b] = 1
+        self.high_water = max(self.high_water, self.n_used)
+        return taken
+
+    def ref(self, blocks: List[int]):
+        """One more reference on live blocks; validates the whole list
+        before changing anything."""
+        for b in blocks:
+            if self._rc.get(b, 0) < 1:
+                raise ValueError(f"ref on non-live block {b}")
+        for b in blocks:
+            self._rc[b] += 1
+
+    def free(self, blocks: List[int]):
+        """Drop one reference per listed occurrence; a block whose last
+        reference goes returns to the free list. Validates the whole
+        list first, so a bad id never leaves the allocator half-freed."""
+        counts = Counter(blocks)
+        for b, n in counts.items():
+            if b == 0 or b >= self.n_blocks or self._rc.get(b, 0) < n:
+                raise ValueError(f"free of non-live block {b}")
+        for b, n in counts.items():
+            rc = self._rc[b] - n
+            if rc == 0:
+                del self._rc[b]
+                self._free.append(b)
+            else:
+                self._rc[b] = rc
+
+
+def init_paged_cache(cfg, slots: int, max_len: int, *, n_blocks: int,
+                     block_len: int, dtype, device):
+    """Pool + table for `slots` decode rows of up to `max_len` positions
+    sharing `n_blocks` physical blocks of `block_len` positions."""
+    if max_len % block_len:
+        raise ValueError(f"max_len {max_len} must tile block_len {block_len}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"paged pool dtype {dtype}: int8/int4 pools wait for their "
+            "kernels (ROADMAP, PyTorch/CUDA port item 2)")
+    shape = (cfg.n_layer, n_blocks, cfg.n_head, block_len,
+             cfg.n_embd // cfg.n_head)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "tables": torch.zeros((slots, max_len // block_len),
+                              dtype=torch.int32, device=device),
+    }
+
+
+class PagedKV:
+    """Codec over the block pool. `write_rows`/`attend_rows` take one
+    layer's view — {"k","v"} (n_blocks, H, bp, D) and the shared
+    "tables" (B, nb_max); `install_row` takes the whole cache."""
+
+    def __init__(self, block_len: int):
+        self.block_len = block_len
+
+    def write_rows(self, c, k, v, pos, write_gate):
+        """k/v (B, H, 1, D) land at each slot's position pos (B,):
+        physical block tables[b, pos // bp], row pos % bp. Gated-off
+        slots are ROUTED TO the junk block (0, row 0) rather than
+        restored in place: a retired slot's stale table may point at a
+        block since reallocated to another request, and restoring it
+        would write the old request's K/V into the new owner's cache.
+        Collisions between gated slots on the junk block are harmless."""
+        bp = self.block_len
+        slot = torch.arange(pos.shape[0], device=pos.device)
+        live_pos = torch.where(write_gate, pos, 0).long()
+        blk = c["tables"][slot, live_pos // bp].long()
+        blk = torch.where(write_gate, blk, 0)
+        row = torch.where(write_gate, live_pos % bp, 0)
+        c["k"][blk, :, row] = k[:, :, 0].to(c["k"].dtype)
+        c["v"][blk, :, row] = v[:, :, 0].to(c["v"].dtype)
+
+    def attend_rows(self, q, c, pos):
+        """q (B, H, R, D); every row of slot b attends its logical
+        positions <= pos[b]. Returns (B, H, R, D) in the pool dtype."""
+        out = paged_decode_attention(q.contiguous(), c["k"], c["v"],
+                                     c["tables"], pos)
+        return out.to(c["v"].dtype)
+
+    def install_row(self, cache, row, blk_ids):
+        """Scatter a finished transient row cache (leaves (L, 1, H,
+        row_len, D)) into the physical blocks `blk_ids` (nb_max,). ALL
+        nb_max logical blocks install unconditionally: entries the
+        request does not own are routed to junk block 0 (duplicate
+        targets there, never on a live block), so one code path serves
+        every prompt length."""
+        bp = self.block_len
+        nb_max = blk_ids.shape[0]
+        idx = blk_ids.long()
+        for kk in ("k", "v"):
+            r = row[kk][:, 0]  # (L, H, row_len, D)
+            n_l, h, rl = r.shape[:3]
+            blocks = r.reshape(n_l, h, rl // bp, bp, r.shape[3])[:, :, :nb_max]
+            cache[kk][:, idx] = blocks.transpose(1, 2).to(cache[kk].dtype)

@@ -1,0 +1,194 @@
+"""The port's paged ContinuousBatcher on the CPU against the JAX
+package's ContinuousBatcher(kv="paged") on the same weights and the same
+submit/step script, plus the pool's block accounting, back-pressure and
+the options this slice leaves out.
+
+Weights: the JAX init with every matrix scaled by 15, so that greedy
+decoding on a 4-layer random model produces varied tokens instead of
+one repeated id — the identity check then means something. Greedy
+tokens must be IDENTICAL."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dnn_tpu.models import gpt as jgpt
+from dnn_tpu.runtime.serving import ContinuousBatcher as JaxBatcher
+from dnn_tpu_torch.convert import from_jax_params
+from dnn_tpu_torch.models import gpt as tgpt
+from dnn_tpu_torch.runtime.paged_kvcache import (
+    BlockAllocator,
+    InsufficientBlocks,
+)
+from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+CFG_J = jgpt.PRESETS["gpt2-test"]
+CFG_T = tgpt.PRESETS["gpt2-test"]
+POOL = dict(slots=3, max_len=64, prompt_pad=16, block_len=8)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    tree = jax.tree.map(
+        lambda a: np.asarray(a) * (15.0 if a.ndim >= 2 else 1.0),
+        jgpt.init(jax.random.PRNGKey(0), CFG_J))
+    jprep = jgpt.prepare_stacked(jax.tree.map(jnp.asarray, tree), CFG_J)
+    return jprep, from_jax_params(tree, CFG_T, "cpu")
+
+
+def _prompt(seed, n):
+    return np.random.default_rng(seed).integers(0, CFG_T.vocab_size, n)
+
+
+def _script(b):
+    """Three requests of lengths 5 / 20 / 37 (one chunk, two, three with
+    a padded tail); the third is admitted mid-decode."""
+    r0 = b.submit(_prompt(0, 5), 10)
+    r1 = b.submit(_prompt(1, 20), 12)
+    for _ in range(3):
+        b.step()
+    r2 = b.submit(_prompt(2, 37), 9)
+    res = b.drain()
+    return [np.asarray(res[r]) for r in (r0, r1, r2)]
+
+
+def test_greedy_tokens_identical_to_jax(weights):
+    jprep, tprep = weights
+    want = _script(JaxBatcher(CFG_J, jprep, kv="paged", **POOL))
+    got = _script(ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert len(set(got[1].tolist())) > 3  # varied tokens, not one id
+
+
+def test_bf16_pool_serves(weights):
+    """A bf16 pool runs the same path (the JAX package rounds bf16 at
+    other places, so tokens are only checked for shape and range)."""
+    _, tprep = weights
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", kv_dtype="bf16", **POOL)
+    assert b.cache["k"].dtype == torch.bfloat16
+    for out in _script(b):
+        assert out.dtype == np.int32 and out.min() >= 0
+        assert out.max() < CFG_T.vocab_size
+
+
+def test_block_accounting(weights):
+    """Admission holds ceil((prompt + budget) / block_len) blocks for
+    the request's lifetime; retirement returns them; high water stays."""
+    _, tprep = weights
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL)
+    alloc = b.allocator
+    assert alloc.n_blocks == 3 * (64 // 8) + 1  # auto-sized + junk block
+    total = alloc.n_blocks - 1
+    r0 = b.submit(_prompt(0, 5), 10)    # 15 positions -> 2 blocks
+    r1 = b.submit(_prompt(1, 20), 12)   # 32 positions -> 4 blocks
+    assert (alloc.n_used, alloc.n_free) == (6, total - 6)
+    tables = b.cache["tables"]
+    assert (tables[0, :2] > 0).all() and (tables[0, 2:] == 0).all()
+    assert (tables[1, :4] > 0).all() and (tables[1, 4:] == 0).all()
+    b.drain()
+    assert set(b.results) == {r0, r1}
+    assert (alloc.n_used, alloc.n_free, alloc.high_water) == (0, total, 6)
+
+
+def test_insufficient_blocks_back_pressure(weights):
+    """A pool short of blocks raises the TRANSIENT InsufficientBlocks
+    (nothing leaks); once a request retires the same submit fits. A
+    request larger than the whole pool is a permanent ValueError."""
+    _, tprep = weights
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", paged_blocks=9, **POOL)
+    r0 = b.submit(_prompt(0, 30), 30)          # 60 positions -> 8 blocks
+    with pytest.raises(InsufficientBlocks):
+        b.submit(_prompt(1, 5), 3)
+    assert b.allocator.n_used == 8 and b.free_slots() == 2
+    b.drain()
+    r1 = b.submit(_prompt(1, 5), 3)
+    assert r1 == r0 + 1
+    with pytest.raises(ValueError, match="allocatable"):
+        ContinuousBatcher(CFG_T, tprep, device="cpu", paged_blocks=4,
+                          **POOL).submit(_prompt(2, 30), 30)
+
+
+def test_allocator_refcounts():
+    a = BlockAllocator(4)
+    blocks = a.alloc(2)
+    a.ref(blocks[:1])
+    a.free(blocks)
+    assert a.n_used == 1          # the extra reference keeps one alive
+    with pytest.raises(ValueError):
+        a.free([0])               # the junk block is never owned
+    a.free(blocks[:1])
+    assert a.n_used == 0 and a.high_water == 2
+    assert a.alloc(4) is None     # only 3 allocatable
+
+
+def test_cancel_stop_and_sampling(weights):
+    """cancel frees the slot and blocks; a stop sequence trims the
+    match; a seeded sampled request reproduces itself across pools."""
+    _, tprep = weights
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL)
+    greedy = b.submit(_prompt(3, 9), 8)
+    b.drain()
+    toks = b.claim(greedy)[0].tolist()
+    stop_at = b.submit(_prompt(3, 9), 8, stop=[toks[2:4]])
+    victim = b.submit(_prompt(4, 9), 8)
+    assert b.cancel(victim) and b.allocator.n_used == 3
+    b.drain()
+    stop = toks[2:4]
+    end = next(n for n in range(2, 5) if toks[n - 2:n] == stop)
+    tokens, reason = b.claim(stop_at)
+    assert (tokens.tolist(), reason) == (toks[:end - 2], "stop")
+    assert b.claim(victim) == (None, "cancelled")
+
+    def sampled():
+        p = ContinuousBatcher(CFG_T, tprep, device="cpu", seed=7, **POOL)
+        p.submit(_prompt(5, 6), 4)  # a different neighbour each time
+        rid = p.submit(_prompt(3, 9), 10, seed=11, temperature=0.9, top_k=20,
+                       top_p=0.9)
+        return p.drain()[rid]
+
+    np.testing.assert_array_equal(sampled(), sampled())
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"kv": "dense"}, {"prefix_cache": 4}, {"prefill_chunk_tokens": 16},
+    {"overlap": True}, {"logprobs_k": 2}, {"kv_dtype": "int8"}])
+def test_out_of_scope_options_raise(weights, kwargs):
+    _, tprep = weights
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousBatcher(CFG_T, tprep, device="cpu", **{**POOL, **kwargs})
+
+
+@pytest.mark.parametrize("opt", [{"logit_bias": {1: 2.0}}, {"adapter": 0},
+                                 {"json_depth": 1}])
+def test_out_of_scope_request_options_raise(weights, opt):
+    _, tprep = weights
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b.submit(_prompt(0, 5), 3, **opt)
+    assert b.free_slots() == 3 and b.allocator.n_used == 0
+
+
+def test_penalty_and_eos_match_jax(weights):
+    """Greedy with a repetition penalty (both sides apply the HF rule
+    over prompt + generated tokens) and retirement on eos: tokens and
+    finish reasons identical to the JAX batcher's."""
+    jprep, tprep = weights
+    probe = ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL)
+    rid = probe.submit(_prompt(6, 11), 12)
+    eos = int(probe.drain()[rid][4])  # a token the greedy stream emits
+
+    def run(b):
+        r0 = b.submit(_prompt(6, 11), 12, repetition_penalty=1.3)
+        r1 = b.submit(_prompt(6, 11), 12)
+        res = b.drain()
+        return [(res[r].tolist(), b.finish_reasons[r]) for r in (r0, r1)]
+
+    want = run(JaxBatcher(CFG_J, jprep, kv="paged", eos_id=eos, **POOL))
+    got = run(ContinuousBatcher(CFG_T, tprep, device="cpu", eos_id=eos,
+                                **POOL))
+    assert got == want
+    assert got[1][1] == "eos" and got[1][0][-1] == eos
