@@ -1,32 +1,50 @@
 #!/usr/bin/env python
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch version on the card, then serves
-GPT-2 at full width through the LM daemon over gRPC and checks the
-greedy tokens against an independent no-cache reference.
+GPT-2 at full width through the LM daemon over gRPC in three cache
+configurations, runs the solo decoder, and checks every greedy stream
+against an independent reference.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi); TF32 off; kernel build
   2. K5 cached_attention at the prefill shape (B=1 H=12 T=64 S=1024 D=64),
-     bases {0, 64, 448, 960}, f32 and bf16 caches
-  3. K7 paged_decode_attention at the decode shape (B=4 Hk=12 R=1 D=64,
-     bp=16, nb_max=64, 257 pool blocks), permuted table, pos {0,15,16,1023}
-  4. the LM daemon in-process (gpt2, random weights from seed 0, 4 slots,
-     max_len 1024, prompt_pad 64, paged pool): 4 concurrent gRPC generate
-     calls, greedy, checked against a no-cache greedy loop on the card,
-     with both kernels' launch counts read over that run
-  5. information: a torch.profiler view of a decode step and of one
+     bases {0, 64, 448, 960}, f32, bf16 and int8 caches
+  3. K6 decode_attention at the dense decode shape (B=4 Hk=12 R=1 D=64
+     S=1024), pos {0,15,16,1023}, f32/bf16/int8; also a stale slot at
+     pos = S and an R=2 case (checked only)
+  4. K7 paged_decode_attention at the decode shape (B=4 Hk=12 R=1 D=64,
+     bp=16, nb_max=64, 257 pool blocks), permuted table, pos
+     {0,15,16,1023}, f32/bf16/int8 pools
+  5. the main path (gpt2, random weights from seed 0, 4 slots, max_len
+     1024, prompt_pad 64; prompts of 5/70/130/300 tokens, 16 new tokens,
+     greedy, 4 concurrent gRPC clients), each run with the launch counts
+     zeroed just before and read just after:
+       A. kv="paged", f32 — against a no-cache greedy loop (K5, K7)
+       B. kv="dense", decode_buckets, f32 — the same reference (K5, K6)
+       C. kv="paged", kv_dtype="int8" — against an independent int8
+          greedy loop: plain attention over a dense int8 cache quantized
+          with the port's _quantize_rows, no batcher, no kernel (K5, K7
+          int8)
+       solo make_generate on the 300-token prompt, f32 and int8 caches,
+          against the same two references (K5, K6)
+  6. information: a torch.profiler view of a decode step and of one
      prompt's admission (wall, device busy, top kernels)
-  6. one JSON line describing the kernels, then the result line.
+  7. one JSON line describing the kernels, then the result line.
 
+Tolerances against the plain versions: 1e-4 for f32 and int8 caches
+(both sides read the same values; only the summation order differs),
+2e-2 for bf16. A served token may differ from its reference only where
+the reference's top-2 logit gap is below 1e-4 (a near-tie).
 Timings: warm-up, then the calls are captured in a CUDA graph and the
 graph is replayed between CUDA events (device time, no host overhead).
 Kernel timings cycle over the 12 layers' slices of a full-model cache,
 so each launch reads K/V the previous launches did not leave in the
 50 MB L2 — as on the serving path.
 Bounds: bytes moved (each input read once, each output written once,
-live columns only) at 3.35 TB/s, or f32 FMA work at 67 TFLOP/s.
+live columns only, int8 scales included) at 3.35 TB/s, or f32 FMA work
+at 67 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -112,58 +130,151 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
 
+KV_CASES = (("f32", F32_TOL), ("bf16", BF16_TOL), ("int8", F32_TOL))
+
+
+def kv_cache(gen, shape, name, dev):
+    """(k, v, ks, vs) of `shape` for cache type `name`: f32 draws, cast
+    to bf16, or quantized to int8 with the port's own quantizer (then
+    ks/vs are its per-row scales; None for the float types)."""
+    from dnn_tpu_torch.runtime.kvcache import _quantize_rows
+
+    k = torch.randn(*shape, generator=gen, device=dev)
+    v = torch.randn(*shape, generator=gen, device=dev)
+    if name == "int8":
+        (kq, ks), (vq, vs) = _quantize_rows(k), _quantize_rows(v)
+        return kq, vq, ks, vs
+    dt = torch.float32 if name == "f32" else torch.bfloat16
+    return k.to(dt), v.to(dt), None, None
+
+
+def scales_at(ks, vs, i):
+    """The ks/vs keyword arguments for layer i of stacked int8 scales;
+    none for a float cache."""
+    return {} if ks is None else {"ks": ks[i], "vs": vs[i]}
+
+
+def kv_bytes(name: str, positions: int, d: int) -> int:
+    """Bytes of K plus V at `positions` (position, head) rows of width d,
+    int8 scales included."""
+    el = {"f32": 4, "bf16": 2, "int8": 1}[name]
+    return 2 * positions * (d * el + (4 if name == "int8" else 0))
+
+
+def check(label: str, got, want, tol: float) -> float:
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite output")
+    err = (got - want).abs().max().item()
+    if not math.isfinite(err) or err > tol:
+        fail(f"{label}: max abs err {err} > {tol}")
+    return err
+
+
+def report(tag, label, row, nbytes, byte_ms, op_ms):
+    lib = row["library_ms"]
+    print(f"[{tag}] {label}: err {row['max_abs_err']:.3e} kernel_ms "
+          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
+          f"{row['bound_ms']:.5f} ({row['bound_by']}; bytes {byte_ms:.5f} "
+          f"for {nbytes / 1e6:.3f} MB at 3.35 TB/s, f32 ops {op_ms:.5f})",
+          flush=True)
+
+
 def phase_k5(dev, gen):
-    """K5 against its plain version at the prefill-chunk shape."""
+    """K5 against its plain version at the prefill-chunk shape, f32,
+    bf16 and int8 caches. Returns {(dtype, base): row}."""
     from dnn_tpu_torch.ops.cuda.cached_attention import (
         cached_attention, reference_cached_attention)
 
     B, H, T, S, D = 1, 12, 64, 1024, 64
-    rows, max_err = {}, 0.0
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+    rows = {}
+    for name, tol in KV_CASES:
         q = torch.randn(LAYERS, B, H, T, D, generator=gen, device=dev)
-        k = torch.randn(LAYERS, B, H, S, D, generator=gen, device=dev).to(dtype)
-        v = torch.randn(LAYERS, B, H, S, D, generator=gen, device=dev).to(dtype)
-        el = k.element_size()
+        k, v, ks, vs = kv_cache(gen, (LAYERS, B, H, S, D), name, dev)
         for base in (0, 64, 448, 960):
             pos = torch.full((B,), base, dtype=torch.int32, device=dev)
-            got = cached_attention(q[0], k[0], v[0], pos)
-            want = reference_cached_attention(q[0], k[0], v[0], pos)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            if not math.isfinite(err) or err > tol:
-                fail(f"K5 {dtype} base {base}: max abs err {err} > {tol}")
-            max_err = max(max_err, err)
+            sc = scales_at(ks, vs, 0)
+            err = check(f"K5 {name} base {base}",
+                        cached_attention(q[0], k[0], v[0], pos, **sc),
+                        reference_cached_attention(q[0], k[0], v[0], pos, **sc),
+                        tol)
             live = min(S, base + T)
-            nbytes = (2 * B * H * T * D * 4 + 2 * B * H * live * D * el
+            nbytes = (2 * B * H * T * D * 4 + B * H * kv_bytes(name, live, D)
                       + B * 4)
             flops = 4 * D * B * H * sum(min(S, base + t + 1) for t in range(T))
             b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops)
-            ms = time_ms(cycling(
-                lambda i: cached_attention(q[i], k[i], v[i], pos), LAYERS))
-            plain = time_ms(cycling(
-                lambda i: reference_cached_attention(q[i], k[i], v[i], pos),
-                LAYERS))
+            ms = time_ms(cycling(lambda i: cached_attention(
+                q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+            plain = time_ms(cycling(lambda i: reference_cached_attention(
+                q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
             lib = None
-            if dtype == torch.float32:
+            if name != "int8":  # no one-call library counterpart for int8
                 cols = torch.arange(S, device=dev)
                 mask = cols[None, :] <= (base + torch.arange(T, device=dev))[:, None]
+                qd = q.to(k.dtype)
                 lib = time_ms(cycling(
                     lambda i: torch.nn.functional.scaled_dot_product_attention(
-                        q[i], k[i], v[i], attn_mask=mask), LAYERS))
-            rows[(str(dtype), base)] = dict(
+                        qd[i], k[i], v[i], attn_mask=mask), LAYERS))
+            row = rows[(name, base)] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err)
-            print(f"[K5] {str(dtype):14s} base {base:4d}: err {err:.3e} "
-                  f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                  f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
-                  f"{b_ms:.5f} ({b_by}; bytes {byte_ms:.5f} for "
-                  f"{nbytes / 1e6:.2f} MB at 3.35 TB/s, f32 ops {op_ms:.5f})",
-                  flush=True)
-    return rows, max_err
+            report("K5", f"{name:4s} base {base:4d}", row, nbytes, byte_ms,
+                   op_ms)
+    return rows
+
+
+def phase_k6(dev, gen):
+    """K6 against its plain version at the dense decode-step shape
+    (B=4 Hk=12 R=1 D=64 S=1024, pos {0, 15, 16, 1023}), f32, bf16 and
+    int8 caches; plus, checked only, a stale inactive slot at pos = S and
+    an R=2 case. Returns {dtype: row}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        decode_attention, reference_decode_attention)
+
+    B, Hk, R, D, S = 4, 12, 1, 64, 1024
+    pos_list = [0, 15, 16, 1023]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    stale = torch.tensor([0, 15, S, 1023], dtype=torch.int32, device=dev)
+    cols = torch.arange(S, device=dev)
+    mask = cols[None, None, None, :] <= pos[:, None, None, None]
+    rows = {}
+    for name, tol in KV_CASES:
+        q = torch.randn(LAYERS, B, Hk, R, D, generator=gen, device=dev)
+        k, v, ks, vs = kv_cache(gen, (LAYERS, B, Hk, S, D), name, dev)
+        q2 = torch.randn(B, Hk, 2, D, generator=gen, device=dev)
+        err = 0.0
+        for label, i, qq, pp in (("", 0, q[0], pos),
+                                 (" stale pos = S", 1, q[1], stale),
+                                 (" R=2", 2, q2, pos)):
+            sc = scales_at(ks, vs, i)
+            err = max(err, check(
+                f"K6 {name}{label}",
+                decode_attention(qq, k[i], v[i], pp, **sc),
+                reference_decode_attention(qq, k[i], v[i], pp, **sc), tol))
+        live = sum(p + 1 for p in pos_list)
+        nbytes = 2 * B * Hk * R * D * 4 + Hk * kv_bytes(name, live, D) + B * 4
+        flops = 4 * D * Hk * R * live
+        b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops)
+        ms = time_ms(cycling(lambda i: decode_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        plain = time_ms(cycling(lambda i: reference_decode_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        lib = None
+        if name != "int8":  # no one-call library counterpart for int8
+            qd = q.to(k.dtype)
+            lib = time_ms(cycling(
+                lambda i: torch.nn.functional.scaled_dot_product_attention(
+                    qd[i], k[i], v[i], attn_mask=mask), LAYERS))
+        row = rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        report("K6", f"{name:4s} pos {pos_list}", row, nbytes, byte_ms, op_ms)
+    return rows
 
 
 def phase_k7(dev, gen):
-    """K7 against its plain version at the decode-step shape."""
+    """K7 against its plain version at the paged decode-step shape, f32,
+    bf16 and int8 pools. Returns {dtype: row}."""
     from dnn_tpu_torch.ops.cuda.cached_attention import (
         paged_decode_attention, reference_paged_decode_attention)
 
@@ -172,42 +283,33 @@ def phase_k7(dev, gen):
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(0))
     tables = (perm[:B * nb_max] + 1).reshape(B, nb_max).to(torch.int32).to(dev)
-    rows, max_err = {}, 0.0
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+    rows = {}
+    for name, tol in KV_CASES:
         q = torch.randn(LAYERS, B, Hk, R, D, generator=gen, device=dev)
-        kp = torch.randn(LAYERS, n_blocks, Hk, bp, D, generator=gen,
-                         device=dev).to(dtype)
-        vp = torch.randn(LAYERS, n_blocks, Hk, bp, D, generator=gen,
-                         device=dev).to(dtype)
-        got = paged_decode_attention(q[0], kp[0], vp[0], tables, pos)
-        want = reference_paged_decode_attention(q[0], kp[0], vp[0], tables, pos)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not math.isfinite(err) or err > tol:
-            fail(f"K7 {dtype}: max abs err {err} > {tol}")
-        max_err = max(max_err, err)
-        el = kp.element_size()
+        kp, vp, ks, vs = kv_cache(gen, (LAYERS, n_blocks, Hk, bp, D), name,
+                                  dev)
+        sc = scales_at(ks, vs, 0)
+        err = check(f"K7 {name}",
+                    paged_decode_attention(q[0], kp[0], vp[0], tables, pos,
+                                           **sc),
+                    reference_paged_decode_attention(q[0], kp[0], vp[0],
+                                                     tables, pos, **sc), tol)
         live = sum(p + 1 for p in pos_list)
-        nbytes = (2 * B * Hk * R * D * 4 + 2 * Hk * live * D * el
+        nbytes = (2 * B * Hk * R * D * 4 + Hk * kv_bytes(name, live, D)
                   + sum(p // bp + 1 for p in pos_list) * 4 + B * 4)
         flops = 4 * D * Hk * R * live
         b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops)
-        ms = time_ms(cycling(
-            lambda i: paged_decode_attention(q[i], kp[i], vp[i], tables, pos),
+        ms = time_ms(cycling(lambda i: paged_decode_attention(
+            q[i], kp[i], vp[i], tables, pos, **scales_at(ks, vs, i)),
             LAYERS))
-        plain = time_ms(cycling(
-            lambda i: reference_paged_decode_attention(
-                q[i], kp[i], vp[i], tables, pos), LAYERS))
-        rows[str(dtype)] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=err)
-        print(f"[K7] {str(dtype):14s} pos {pos_list}: err {err:.3e} "
-              f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms none "
-              f"(no single PyTorch call computes paged attention) bound_ms "
-              f"{b_ms:.5f} ({b_by}; bytes {byte_ms:.5f} for "
-              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s, f32 ops {op_ms:.5f})",
-              flush=True)
-    return rows, max_err
+        plain = time_ms(cycling(lambda i: reference_paged_decode_attention(
+            q[i], kp[i], vp[i], tables, pos, **scales_at(ks, vs, i)),
+            LAYERS))
+        row = rows[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        report("K7", f"{name:4s} pos {pos_list} (no one-call library "
+               "equivalent)", row, nbytes, byte_ms, op_ms)
+    return rows
 
 
 def free_port() -> int:
@@ -234,37 +336,128 @@ def reference_greedy(prepared, cfg, prompt, n_new, dev):
     return toks, gaps
 
 
-def phase_main_path(dev, card: str):
-    from dnn_tpu_torch.comm.client import NodeClient
-    from dnn_tpu_torch.convert import from_jax_params
-    from dnn_tpu_torch.models.gpt import PRESETS, init
+def reference_greedy_int8(prepared, cfg, prompt, n_new, dev):
+    """Independent int8-cache greedy loop: no batcher and no kernel. A
+    dense int8 cache of prompt + n_new positions, K/V quantized with the
+    port's _quantize_rows, attention through the plain version with the
+    scales. Returns (tokens, top-2 logit gap at each step)."""
+    from dnn_tpu_torch.models.gpt import head, layer_params
+    from dnn_tpu_torch.ops.attention import merge_heads
     from dnn_tpu_torch.ops.cuda.cached_attention import (
-        cached_attention, paged_decode_attention)
+        reference_cached_attention)
+    from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
+    from dnn_tpu_torch.runtime.generate import _mlp, _qkv_heads
+    from dnn_tpu_torch.runtime.kvcache import _quantize_rows
+
+    n_l, h, d = cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head
+    s_len = len(prompt) + n_new
+    kv = {"k": torch.zeros(n_l, 1, h, s_len, d, dtype=torch.int8, device=dev),
+          "v": torch.zeros(n_l, 1, h, s_len, d, dtype=torch.int8, device=dev),
+          "ks": torch.ones(n_l, 1, h, s_len, device=dev),
+          "vs": torch.ones(n_l, 1, h, s_len, device=dev)}
+
+    def last_logits(ids, start):
+        t = ids.shape[1]
+        x = (embedding(prepared["wte"], ids) + embedding(
+            prepared["wpe"], torch.arange(start, start + t, device=dev)))
+        pos = torch.full((1,), start, dtype=torch.int32, device=dev)
+        for i in range(n_l):
+            bp = layer_params(prepared["blocks"], i)
+            q, k, v = _qkv_heads(bp, layer_norm(bp["ln_1"], x, eps=cfg.ln_eps),
+                                 cfg=cfg)
+            for name, new in (("k", k), ("v", v)):
+                payload, scale = _quantize_rows(new)
+                kv[name][i, :, :, start:start + t] = payload
+                kv[name + "s"][i, :, :, start:start + t] = scale
+            y = reference_cached_attention(q, kv["k"][i], kv["v"][i], pos,
+                                           ks=kv["ks"][i], vs=kv["vs"][i])
+            x = x + linear(bp["attn"]["proj"], merge_heads(y))
+            x = x + _mlp(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps))
+        return head(prepared, x, cfg=cfg)[0, -1]
+
+    with torch.no_grad():
+        ids = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
+        logits, start, toks, gaps = last_logits(ids, 0), len(prompt), [], []
+        for _ in range(n_new):
+            top2 = torch.topk(logits, 2).values
+            gaps.append((top2[0] - top2[1]).item())
+            toks.append(int(logits.argmax()))
+            logits = last_logits(torch.tensor([[toks[-1]]], device=dev), start)
+            start += 1
+    return toks, gaps
+
+
+def compare_tokens(label, got, want, gaps):
+    """Served tokens against a reference's; a divergence is accepted only
+    at a near-tie of the reference (top-2 gap < 1e-4), and the rest of
+    the stream is then not compared."""
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} tokens, expected {len(want)}")
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            if gaps[j] < 1e-4:
+                print(f"[main] {label}: near-tie at step {j} (top-2 gap "
+                      f"{gaps[j]:.2e}), served {a} vs reference {b}; rest "
+                      "not compared", flush=True)
+                return
+            fail(f"{label} step {j}: served {a} != reference {b} (top-2 gap "
+                 f"{gaps[j]:.3e})\nserved    {got}\nreference {want}")
+    print(f"[main] {label}: {got[:8]}... matches the reference", flush=True)
+
+
+KERNEL_FNS = ("cached_attention", "decode_attention", "paged_decode_attention")
+
+
+def _wrappers():
+    from dnn_tpu_torch.ops.cuda import cached_attention as tca
+
+    return {name: getattr(tca, name) for name in KERNEL_FNS}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+        for dt in fn.launches_by_dtype:
+            fn.launches_by_dtype[dt] = 0
+
+
+def read_counts():
+    """{kernel: {cache dtype: launches}} since the last reset."""
+    return {name: dict(fn.launches_by_dtype)
+            for name, fn in _wrappers().items()}
+
+
+def require(label, counts, needed):
+    print(f"[main] {label} launches: {counts}", flush=True)
+    for name, dt in needed:
+        if counts[name][dt] <= 0:
+            fail(f"{label}: {name} ({dt}) was never launched")
+
+
+def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
+              card, **kv):
+    """One main-path run: the LM daemon in-process (4 slots, max_len
+    1024, prompt_pad 64) with the cache options `kv`, 4 concurrent gRPC
+    generate calls, greedy; tokens checked against `refs` (tokens, gaps)
+    per prompt, and every (kernel, dtype) of `needed` launched in the
+    run. Returns the run's launch counts."""
+    from dnn_tpu_torch.comm.client import NodeClient
     from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
 
-    cfg = PRESETS["gpt2"]
-    t0 = time.perf_counter()
-    prepared = from_jax_params(init(0, cfg), cfg, dev)
-    torch.cuda.synchronize()
-    print(f"[main] gpt2 weights (seed 0) on {dev} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     port = free_port()
     _thread, stop = start_lm_server_in_background(
         cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
-        block_len=16, seed=0, device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in (5, 70, 130, 300)]
-    n_new = 16
+        block_len=16, seed=0, device=dev, **kv)
+    batcher = stop.servicer.batcher
     results, errors = {}, []
     try:
         client = NodeClient(f"127.0.0.1:{port}")
         if not client.wait_healthy(deadline=60):
-            fail("LM daemon never became healthy")
+            fail(f"{label}: LM daemon never became healthy")
         client.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
         torch.cuda.synchronize()
-        cached_attention.launches = 0
-        paged_decode_attention.launches = 0
+        grows0 = batcher.bucket_grows
+        reset_counts()
 
         def call(i):
             try:
@@ -281,10 +474,10 @@ def phase_main_path(dev, card: str):
         for t in threads:
             t.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = {"cached_attention": cached_attention.launches,
-                    "paged_decode_attention": paged_decode_attention.launches}
+        counts = read_counts()
+        grows = batcher.bucket_grows - grows0
         if errors or len(results) != len(prompts):
-            fail(f"generate calls failed: {errors or 'timed out'}")
+            fail(f"{label}: generate calls failed: {errors or 'timed out'}")
         # TTFT, as information: one streamed request on the idle daemon
         t1 = time.perf_counter()
         stream = client.generate_stream(prompts[3], max_new_tokens=n_new,
@@ -295,41 +488,101 @@ def phase_main_path(dev, card: str):
         client.close()
     finally:
         stop()
-    print(f"[main] launches over the 4-request run: {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name} was never launched on the main path")
     if len(rest) != n_new - 1:
-        fail(f"stream returned {len(rest) + 1} tokens, expected {n_new}")
+        fail(f"{label}: stream returned {len(rest) + 1} tokens, expected {n_new}")
+    layout = "paged" if batcher.paged else "dense"
+    print(f"[main] run {label} ({layout} pool, kv_dtype "
+          f"{kv.get('kv_dtype') or 'f32'}"
+          + (f", {grows} bucket grows, final bucket "
+             f"{batcher.cache['k'].shape[3]}"
+             if kv.get("decode_buckets") else "") + ")", flush=True)
+    require(f"run {label}", counts, needed)
     n_tokens = sum(len(r) for r in results.values())
-    print(f"[main] 4 concurrent requests, {n_tokens} tokens in {wall:.3f} s "
-          f"= {n_tokens / wall:.1f} tokens/s; TTFT (300-token prompt, idle "
-          f"daemon) {ttft * 1e3:.1f} ms; on {card}", flush=True)
-
+    print(f"[main] run {label}: 4 concurrent requests, {n_tokens} tokens in "
+          f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT (300-token "
+          f"prompt, idle daemon) {ttft * 1e3:.1f} ms; on {card}", flush=True)
     for i, prompt in enumerate(prompts):
-        want, gaps = reference_greedy(prepared, cfg, prompt, n_new, dev)
-        got = results[i]
-        if len(got) != n_new:
-            fail(f"request {i}: {len(got)} tokens, expected {n_new}")
-        for j, (a, b) in enumerate(zip(got, want)):
-            if a != b:
-                if gaps[j] < 1e-4:
-                    print(f"[main] request {i} (prompt {len(prompt)}): "
-                          f"near-tie at step {j} (top-2 gap {gaps[j]:.2e}), "
-                          f"served {a} vs reference {b}; rest not compared",
-                          flush=True)
-                    break
-                fail(f"request {i} (prompt {len(prompt)}) step {j}: served "
-                     f"{a} != reference {b} (top-2 gap {gaps[j]:.3e})\n"
-                     f"served    {got}\nreference {want}")
-        print(f"[main] request {i} (prompt {len(prompt)}): {got[:8]}... "
-              f"matches the no-cache reference", flush=True)
+        compare_tokens(f"run {label} request {i} (prompt {len(prompt)})",
+                       results[i], *refs[i])
+    return counts
+
+
+def phase_solo(cfg, prepared, prompt, n_new, refs, dev):
+    """Solo make_generate on the card, f32 and int8 caches, greedy,
+    against the no-cache and the int8 reference. Returns launches."""
+    from dnn_tpu_torch.runtime.generate import make_generate
+
+    total = {}
+    for kv_dtype, ref in (("f32", refs["f32"]), ("int8", refs["int8"])):
+        gen = make_generate(cfg, max_new_tokens=n_new, kv_dtype=kv_dtype,
+                            device=dev)
+        gen(prepared, [prompt[:8]])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = gen(prepared, [prompt])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        require(f"make_generate {kv_dtype}", counts,
+                [("cached_attention", kv_dtype),
+                 ("decode_attention", kv_dtype)])
+        print(f"[main] make_generate {kv_dtype}: {n_new} tokens after a "
+              f"{len(prompt)}-token prompt in {wall * 1e3:.1f} ms", flush=True)
+        compare_tokens(f"make_generate {kv_dtype}", out[0].tolist(), *ref)
+        for name, by in counts.items():
+            for dt, n in by.items():
+                total.setdefault(name, {}).setdefault(dt, 0)
+                total[name][dt] += n
+    return total
+
+
+def phase_main_path(dev, card: str):
+    """Every main-path run: A paged f32, B dense + buckets f32, C paged
+    int8, then solo make_generate f32 and int8. Returns the launches of
+    all runs summed per (kernel, dtype), and what the profile needs."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import PRESETS, init
+
+    cfg = PRESETS["gpt2"]
+    t0 = time.perf_counter()
+    prepared = from_jax_params(init(0, cfg), cfg, dev)
+    torch.cuda.synchronize()
+    print(f"[main] gpt2 weights (seed 0) on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    n_new = 16
+    t0 = time.perf_counter()
+    ref_f32 = [reference_greedy(prepared, cfg, p, n_new, dev) for p in prompts]
+    ref_i8 = [reference_greedy_int8(prepared, cfg, p, n_new, dev)
+              for p in prompts]
+    print(f"[main] references (no-cache f32, plain int8 loop) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = [
+        serve_run("A", cfg, prepared, prompts, n_new, ref_f32,
+                  [("cached_attention", "f32"),
+                   ("paged_decode_attention", "f32")], dev, card, kv="paged"),
+        serve_run("B", cfg, prepared, prompts, n_new, ref_f32,
+                  [("cached_attention", "f32"), ("decode_attention", "f32")],
+                  dev, card, kv="dense", decode_buckets=True),
+        serve_run("C", cfg, prepared, prompts, n_new, ref_i8,
+                  [("cached_attention", "int8"),
+                   ("paged_decode_attention", "int8")], dev, card,
+                  kv="paged", kv_dtype="int8"),
+        phase_solo(cfg, prepared, prompts[3], n_new,
+                   {"f32": ref_f32[3], "int8": ref_i8[3]}, dev),
+    ]
+    launches = {name: {dt: sum(r[name][dt] for r in runs)
+                       for dt in ("f32", "bf16", "int8")}
+                for name in KERNEL_FNS}
     return launches, prepared, cfg, prompts
 
 
 def _profiled(fn):
-    """(wall ms, device ms, top kernels) of fn() under torch.profiler:
-    device ms sums the kernels' own device time."""
+    """(wall ms, device ms, kernel launches, top kernels) of fn() under
+    torch.profiler: device ms sums the kernels' own device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -343,48 +596,74 @@ def _profiled(fn):
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    n_kernels = sum(e.count for e in evs)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
-    return wall, dev_ms, [(e.key[:60], e.self_device_time_total / 1e3,
-                           e.count) for e in top]
+    return wall, dev_ms, n_kernels, [(e.key[:60], e.self_device_time_total
+                                      / 1e3, e.count) for e in top]
+
+
+PROFILED_POOLS = (("A paged f32", {"kv": "paged"}),
+                  ("B dense+buckets f32", {"kv": "dense",
+                                           "decode_buckets": True}),
+                  ("C paged int8", {"kv": "paged", "kv_dtype": "int8"}))
 
 
 def phase_profile(prepared, cfg, prompts, dev):
     """Information only: where a decode step's and a prefill's time goes
-    (the batcher driven directly, as the daemon's worker drives it)."""
+    on each main-path pool (the batcher driven directly, as the daemon's
+    worker drives it): wall, device busy, kernel launches, top kernels."""
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
-    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
-                          prompt_pad=64, block_len=16, device=dev)
-    for p in prompts[:3]:
-        b.submit(p, 64)
-    for _ in range(4):
-        b.step()
-    torch.cuda.synchronize()
     steps = 8
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        b.step()
-    torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t0) * 1e3 / steps
-
-    def decode():
+    for label, kv in PROFILED_POOLS:
+        b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                              prompt_pad=64, block_len=16, device=dev, **kv)
+        for p in prompts[:3]:
+            b.submit(p, 64)
+        for _ in range(4):
+            b.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(steps):
             b.step()
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3 / steps
 
-    wall, dev_ms, top = _profiled(decode)
-    print(f"[profile] decode step (3 active slots): {plain_wall:.3f} ms "
-          f"wall; under the profiler {wall / steps:.3f} ms wall, "
-          f"{dev_ms / steps:.3f} ms device busy "
-          f"({100 * dev_ms / wall:.1f}% of wall)", flush=True)
-    for name, ms, n in top:
-        print(f"[profile]   decode {ms / steps:.4f} ms/step  x{n // steps}"
-              f"  {name}", flush=True)
-    wall, dev_ms, top = _profiled(lambda: b.submit(prompts[3], 2))
-    print(f"[profile] admission of a {len(prompts[3])}-token prompt "
-          f"(5 chunks + install): {wall:.3f} ms wall, {dev_ms:.3f} ms "
-          f"device busy ({100 * dev_ms / wall:.1f}%)", flush=True)
-    for name, ms, n in top:
-        print(f"[profile]   prefill {ms:.4f} ms  x{n}  {name}", flush=True)
+        def decode():
+            for _ in range(steps):
+                b.step()
+
+        wall, dev_ms, n_kern, top = _profiled(decode)
+        print(f"[profile] {label}: decode step (3 active slots) "
+              f"{plain_wall:.3f} ms wall; under the profiler "
+              f"{wall / steps:.3f} ms wall, {dev_ms / steps:.3f} ms device "
+              f"busy ({100 * dev_ms / wall:.1f}% of wall), "
+              f"{n_kern / steps:.0f} kernel launches per step", flush=True)
+        for name, ms, n in top:
+            print(f"[profile]   decode {ms / steps:.4f} ms/step  "
+                  f"x{n // steps}  {name}", flush=True)
+        wall, dev_ms, n_kern, top = _profiled(lambda: b.submit(prompts[3], 2))
+        print(f"[profile] {label}: admission of a {len(prompts[3])}-token "
+              f"prompt (5 chunks + install): {wall:.3f} ms wall, "
+              f"{dev_ms:.3f} ms device busy ({100 * dev_ms / wall:.1f}%), "
+              f"{n_kern} kernel launches", flush=True)
+        for name, ms, n in top[:3]:
+            print(f"[profile]   prefill {ms:.4f} ms  x{n}  {name}", flush=True)
+
+
+def kernel_record(name, source, replaces, rows, main_row, launches):
+    """One entry of the kernels line: the f32 case at the main-path shape
+    on top, every cache type under by_dtype, launches summed over the
+    main-path runs."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    by = {dt: {"launches": launches[dt], **{k: rows[dt][k] for k in keys}}
+          for dt in rows}
+    top = {k: rows[main_row][k] for k in keys}
+    top["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            **top, "by_dtype": by}
 
 
 def main():
@@ -404,28 +683,25 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
 
     phase_build()
-    k5_rows, k5_err = phase_k5(dev, gen)
-    k7_rows, k7_err = phase_k7(dev, gen)
+    k5 = phase_k5(dev, gen)
+    k6 = phase_k6(dev, gen)
+    k7 = phase_k7(dev, gen)
     launches, prepared, cfg, prompts = phase_main_path(dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
 
-    k5 = k5_rows[(str(torch.float32), 960)]
-    k7 = k7_rows[str(torch.float32)]
+    src = "dnn_tpu_torch/ops/cuda/csrc/"
+    pallas = "dnn_tpu/ops/pallas/cached_attention.py"
     kernels = [
-        {"name": "cached_attention", "route": "cuda",
-         "source": "dnn_tpu_torch/ops/cuda/csrc/cached_attention.cu",
-         "replaces": "dnn_tpu/ops/pallas/cached_attention.py:77",
-         "launches": launches["cached_attention"], "max_abs_err": k5_err,
-         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
-         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-         "library_ms": k5["library_ms"]},
-        {"name": "paged_decode_attention", "route": "cuda",
-         "source": "dnn_tpu_torch/ops/cuda/csrc/paged_decode.cu",
-         "replaces": "dnn_tpu/ops/pallas/cached_attention.py:459",
-         "launches": launches["paged_decode_attention"],
-         "max_abs_err": k7_err, "ms": k7["ms"], "plain_ms": k7["plain_ms"],
-         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
-         "library_ms": None},
+        kernel_record("cached_attention", src + "cached_attention.cu",
+                      pallas + ":77",
+                      {dt: k5[(dt, 960)] for dt, _ in KV_CASES}, "f32",
+                      launches["cached_attention"]),
+        kernel_record("decode_attention", src + "decode_attention.cu",
+                      pallas + ":296", k6, "f32",
+                      launches["decode_attention"]),
+        kernel_record("paged_decode_attention", src + "paged_decode.cu",
+                      pallas + ":459", k7, "f32",
+                      launches["paged_decode_attention"]),
     ]
     print(f"{smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

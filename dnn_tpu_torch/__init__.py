@@ -1,8 +1,10 @@
-"""dnn_tpu_torch: the PyTorch/CUDA port of dnn_tpu's GPT-2 LM daemon.
+"""dnn_tpu_torch: the PyTorch/CUDA port of dnn_tpu's GPT-2 LM daemon and
+solo decoder.
 
 The JAX package (`dnn_tpu`) stays the reference; this package serves the
-same model over the same gRPC wire on an NVIDIA H100, with the two
-Pallas cache-attention kernels of that path rewritten as hand-written
+same model over the same gRPC wire on an NVIDIA H100, with the three
+Pallas cache-attention kernels of that path (chunked prefill, dense
+decode, paged decode; float and int8 caches) rewritten as hand-written
 CUDA kernels (ops/cuda). It imports torch, numpy, grpc and protobuf —
 never jax, and nothing of dnn_tpu.
 

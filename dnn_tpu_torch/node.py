@@ -2,8 +2,9 @@
 
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         --serve_lm [--slots 4] [--max_len 1024] [--prompt_pad 64] \\
-        [--block_len 16] [--seed 0] [--weights_npz params.npz] \\
-        [--device cuda]
+        [--kv {paged,dense,auto}] [--kv_dtype {f32,bf16,int8}] \\
+        [--decode_buckets] [--paged_blocks 0] [--block_len 16] \\
+        [--seed 0] [--weights_npz params.npz] [--device cuda]
 
 The config is the JAX daemon's schema: `nodes[].{id, address,
 part_index}` and a top-level `model` naming a GPT preset
@@ -57,7 +58,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max_len", type=int, default=None)
     p.add_argument("--prompt_pad", type=int, default=None)
-    p.add_argument("--block_len", type=int, default=16)
+    p.add_argument("--kv", choices=["paged", "dense", "auto"],
+                   default="auto",
+                   help="KV cache layout: 'auto' serves the paged block "
+                        "pool whenever this configuration can page and "
+                        "falls back to the dense per-slot pool otherwise "
+                        "(logged); 'dense' opts out; 'paged' fails loud "
+                        "when paging is impossible")
+    p.add_argument("--kv_dtype", choices=["f32", "bf16", "int8", "int4"],
+                   default=None,
+                   help="KV cache storage (default f32). int8 quantizes "
+                        "with per-(position, head) scales: 4x less cache "
+                        "traffic than f32. int4 is not ported yet")
+    p.add_argument("--decode_buckets", action="store_true",
+                   help="length-aware bucketed decode: the dense pool "
+                        "grows bucket by bucket with the live context "
+                        "(dense pools only)")
+    p.add_argument("--paged_blocks", type=int, default=0,
+                   help="paged pool size in blocks (0 with --kv paged/"
+                        "auto sizes it to the dense pool's capacity)")
+    p.add_argument("--block_len", type=int, default=16,
+                   help="positions per paged-pool block")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--weights_npz", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -87,10 +108,17 @@ def main(argv=None) -> int:
     except (OSError, ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
-    return asyncio.run(serve_lm(
-        cfg, prepared, port=port, slots=args.slots, max_len=args.max_len,
-        prompt_pad=args.prompt_pad, block_len=args.block_len,
-        seed=args.seed, device=device))
+    try:
+        return asyncio.run(serve_lm(
+            cfg, prepared, port=port, slots=args.slots,
+            max_len=args.max_len, prompt_pad=args.prompt_pad,
+            kv=args.kv, kv_dtype=args.kv_dtype,
+            decode_buckets=args.decode_buckets,
+            paged_blocks=args.paged_blocks, block_len=args.block_len,
+            seed=args.seed, device=device))
+    except (NotImplementedError, ValueError) as e:
+        log.error("%s", e)  # e.g. --kv_dtype int4 (ROADMAP item 2)
+        return 2
 
 
 if __name__ == "__main__":

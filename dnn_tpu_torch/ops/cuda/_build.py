@@ -31,16 +31,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # kernel name -> (source file, C symbol, argtypes). Every pointer and the
-# stream are c_void_p: a default ctypes int would cut them to 32 bits.
+# stream are c_void_p (the scale pointers too, None for a float cache):
+# a default ctypes int would cut them to 32 bits. kv_kind is 0 = f32,
+# 1 = bf16, 2 = int8 with scales. Each source is self-contained (no
+# shared header), so its own bytes name its library.
 KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
-        # q k v pos out | BH H T S D kv_bf16 | scale stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # q k v ks vs pos out | BH H T S D kv_kind | scale stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "decode_attention": (
+        "decode_attention.cu", "dnn_decode_attention",
+        # q k v ks vs pos out | B Hk R S D kv_kind | scale stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "paged_decode": (
         "paged_decode.cu", "dnn_paged_decode_attention",
-        # q kp vp tables pos out | B Hk R D bp nb_max kv_bf16 | scale stream
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # q kp vp ks vs tables pos out | B Hk R D bp nb_max kv_kind |
+        # scale stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
 }
 
 _lock = threading.Lock()

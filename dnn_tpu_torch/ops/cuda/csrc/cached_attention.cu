@@ -31,7 +31,16 @@
 // per key against the query held in registers; P@V uses one lane per
 // output dim with the probabilities broadcast by shuffle.
 //
-// Numerics: f32 accumulation and f32 output for f32 or bf16 caches.
+// int8 caches carry one f32 scale per (position, head) for K and for V;
+// each step stages its keys' two scales in shared memory beside the
+// widened payload. The K scale multiplies the score before 1/sqrt(D);
+// the V scale is folded into the probability that is broadcast for the
+// P@V product only -- the row sum l adds the unscaled probability, as
+// the reference's softmax denominator never sees the V scales. The
+// payload is read at 1 byte an element (4-byte loads) and widened once,
+// in the staging step; an int8 cache moves a quarter of the f32 bytes.
+//
+// Numerics: f32 accumulation and f32 output for every cache type.
 // Masked scores sit at -1e30 (not -inf) as in the reference, and a
 // masked column adds exactly 0 to l and acc; a warp that has seen no
 // live column yet keeps m = -1e30, l = 0, acc = 0, and weighs
@@ -42,6 +51,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -73,6 +83,14 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   o[3] = b.y;
 }
 
+__device__ __forceinline__ void load4(const int8_t* p, float* o) {
+  const char4 x = *reinterpret_cast<const char4*>(p);
+  o[0] = static_cast<float>(x.x);
+  o[1] = static_cast<float>(x.y);
+  o[2] = static_cast<float>(x.z);
+  o[3] = static_cast<float>(x.w);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
@@ -85,22 +103,26 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q (BH, T, D) f32; k, v (BH, S, D) KV; pos (B,) int32 with B = BH / H;
-// out (BH, T, D) f32; all 16-byte aligned. Grid (BH, ceil(T / kBQ)),
-// block kThreads. Warp (r, h) owns query row q0 + r and, of every
-// kKeys-key step, the h-th 32-key tile; the kSplit partial softmax
-// states of a row merge at the end.
-template <typename KV, int D>
+// q (BH, T, D) f32; k, v (BH, S, D) KV; k_scale, v_scale (BH, S) f32
+// (kQuant only); pos (B,) int32 with B = BH / H; out (BH, T, D) f32;
+// q/k/v/out 16-byte aligned. Grid (BH, ceil(T / kBQ)), block kThreads.
+// Warp (r, h) owns query row q0 + r and, of every kKeys-key step, the
+// h-th 32-key tile; the kSplit partial softmax states of a row merge at
+// the end.
+template <typename KV, int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 cached_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                   const KV* __restrict__ v, const int* __restrict__ pos,
-                   float* __restrict__ out, int H, int T, int S,
-                   float scale) {
+                   const KV* __restrict__ v,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ pos, float* __restrict__ out,
+                   int H, int T, int S, float scale) {
   constexpr int DL = D / 32;   // output dims owned by each lane
   constexpr int KS = D + 4;    // padded K row: float4 reads by lane-per-key
                                // hit every bank once per quarter warp
   __shared__ __align__(16) float ks[kKeys][KS];
   __shared__ __align__(16) float vs[kKeys][D];
+  __shared__ float kss[kKeys], vss[kKeys];  // int8 scales of the step
   __shared__ float sm[kSplit][kBQ], sl[kSplit][kBQ];
   __shared__ float sacc[kSplit][kBQ][D];
 
@@ -114,6 +136,7 @@ cached_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   const int base = pos[bh / H];
   const size_t q_off = (size_t)bh * T * D;
   const size_t kv_off = (size_t)bh * S * D;
+  const size_t sc_off = (size_t)bh * S;
 
   // the row's query, in registers (the same values in every lane)
   float qreg[D];
@@ -149,6 +172,13 @@ cached_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       *reinterpret_cast<float4*>(&vs[j][d]) =
           make_float4(vx[0], vx[1], vx[2], vx[3]);
     }
+    if constexpr (kQuant) {
+      if (tid < kKeys) {
+        const int col = c0 + tid;
+        kss[tid] = col <= last_col ? k_scale[sc_off + col] : 0.f;
+        vss[tid] = col <= last_col ? v_scale[sc_off + col] : 0.f;
+      }
+    }
     __syncthreads();
 
     const int jj = h * kBK + lane;  // this lane's key in the staged step
@@ -163,16 +193,19 @@ cached_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       s = fmaf(qreg[d + 3], kk.w, s);
     }
     const bool live = (t < T) && (col <= base + t) && (col < S);
+    if constexpr (kQuant) s *= kss[jj];
     s = live ? s * scale : kNegBig;
     const float m_new = fmaxf(m, warp_max(s));
     const float alpha = expf(m - m_new);
     const float p = live ? expf(s - m_new) : 0.f;
     l = l * alpha + warp_sum(p);
+    float pv = p;
+    if constexpr (kQuant) pv *= vss[jj];
 #pragma unroll
     for (int dd = 0; dd < DL; ++dd) acc[dd] *= alpha;
 #pragma unroll 8
     for (int j = 0; j < kBK; ++j) {
-      const float pj = __shfl_sync(kFull, p, j);
+      const float pj = __shfl_sync(kFull, pv, j);
 #pragma unroll
       for (int dd = 0; dd < DL; ++dd)
         acc[dd] = fmaf(pj, vs[h * kBK + j][lane + 32 * dd], acc[dd]);
@@ -210,21 +243,22 @@ cached_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-template <typename KV>
+template <typename KV, bool kQuant>
 cudaError_t launch(const float* q, const void* k, const void* v,
-                   const int* pos, float* out, int BH, int H, int T, int S,
-                   int D, float scale, cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* pos,
+                   float* out, int BH, int H, int T, int S, int D,
+                   float scale, cudaStream_t stream) {
   const dim3 grid(BH, (T + kBQ - 1) / kBQ);
   const KV* kk = static_cast<const KV*>(k);
   const KV* vv = static_cast<const KV*>(v);
   switch (D) {
     case 32:
-      cached_attn_kernel<KV, 32><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, pos, out, H, T, S, scale);
+      cached_attn_kernel<KV, 32, kQuant><<<grid, kThreads, 0, stream>>>(
+          q, kk, vv, ks, vs, pos, out, H, T, S, scale);
       break;
     case 64:
-      cached_attn_kernel<KV, 64><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, pos, out, H, T, S, scale);
+      cached_attn_kernel<KV, 64, kQuant><<<grid, kThreads, 0, stream>>>(
+          q, kk, vv, ks, vs, pos, out, H, T, S, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -234,22 +268,38 @@ cudaError_t launch(const float* q, const void* k, const void* v,
 
 }  // namespace
 
-// C entry point (loaded with ctypes). kv_bf16: 0 = f32 cache, 1 = bf16.
-// Returns the launch's cudaError_t (0 = launched).
+// C entry point (loaded with ctypes). kv_kind: 0 = f32 cache, 1 = bf16,
+// 2 = int8 with ks/vs scales (null for the float kinds). Returns the
+// launch's cudaError_t (0 = launched).
 extern "C" int dnn_cached_attention(const void* q, const void* k,
-                                    const void* v, const void* pos,
+                                    const void* v, const void* ks,
+                                    const void* vs, const void* pos,
                                     void* out, int BH, int H, int T, int S,
-                                    int D, int kv_bf16, float scale,
+                                    int D, int kv_kind, float scale,
                                     void* stream) {
   if (BH <= 0 || H <= 0 || T <= 0 || S <= 0 || BH % H != 0 ||
       (T + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
+  if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
+                   : (ks != nullptr || vs != nullptr))
+    return (int)cudaErrorInvalidValue;
   const float* qq = static_cast<const float*>(q);
+  const float* kss = static_cast<const float*>(ks);
+  const float* vss = static_cast<const float*>(vs);
   const int* pp = static_cast<const int*>(pos);
   float* oo = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      kv_bf16 ? launch<__nv_bfloat16>(qq, k, v, pp, oo, BH, H, T, S, D, scale, st)
-              : launch<float>(qq, k, v, pp, oo, BH, H, T, S, D, scale, st);
-  return (int)err;
+  switch (kv_kind) {
+    case 0:
+      return (int)launch<float, false>(qq, k, v, kss, vss, pp, oo, BH, H, T,
+                                       S, D, scale, st);
+    case 1:
+      return (int)launch<__nv_bfloat16, false>(qq, k, v, kss, vss, pp, oo,
+                                               BH, H, T, S, D, scale, st);
+    case 2:
+      return (int)launch<int8_t, true>(qq, k, v, kss, vss, pp, oo, BH, H, T,
+                                       S, D, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -26,7 +26,15 @@
 // score one warp reduction, and a chunk of 8 keys is loaded into
 // registers before any of it is used.
 //
-// Numerics: f32 accumulation and f32 output for f32 or bf16 pools,
+// int8 pools carry one f32 scale per (position, head) for K and for V,
+// in (n_blocks, Hk, bp) scale blocks read through the same table entry
+// as their payload block. The K scale multiplies the score before
+// 1/sqrt(D); the V scale is folded into the probability for the P.V
+// product only -- the row sum l adds the unscaled probability, as the
+// reference's softmax denominator never sees the V scales. The payload
+// is read at 1 byte an element and widened in registers.
+//
+// Numerics: f32 accumulation and f32 output for every pool type,
 // masked scores at -1e30 (not -inf) as the reference does. Each warp's
 // first key is the first column of a live block, hence live, so a
 // warp's running max is a real score before a masked column counts;
@@ -35,6 +43,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -48,6 +57,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -55,13 +67,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q (B, Hk, R, D) f32; kp, vp (n_blocks, Hk, bp, D) KV; tables
-// (B, nb_max) int32; pos (B,) int32; out (B, Hk, R, D) f32.
-// Grid (B * Hk, R), block kThreads.
-template <typename KV, int D>
+// q (B, Hk, R, D) f32; kp, vp (n_blocks, Hk, bp, D) KV; ks, vs
+// (n_blocks, Hk, bp) f32 (kQuant only); tables (B, nb_max) int32; pos
+// (B,) int32; out (B, Hk, R, D) f32. Grid (B * Hk, R), block kThreads.
+template <typename KV, int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
                     const KV* __restrict__ vp,
+                    const float* __restrict__ ks,
+                    const float* __restrict__ vs,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, float* __restrict__ out,
                     int Hk, int R, int bp, int nb_max, float scale) {
@@ -88,9 +102,10 @@ paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
 
   for (int j = warp; j <= last_blk; j += kWarps) {
     const int phys = tables[(size_t)b * nb_max + j];
-    const size_t blk_off = ((size_t)phys * Hk + hk) * bp * D;
+    const size_t sc_off = ((size_t)phys * Hk + hk) * bp;
+    const size_t blk_off = sc_off * D;
     for (int i0 = 0; i0 < bp; i0 += kChunk) {
-      float kr[kChunk][DL], vr[kChunk][DL];
+      float kr[kChunk][DL], vr[kChunk][DL], ksc[kChunk], vsc[kChunk];
       bool ok[kChunk];
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) {
@@ -101,6 +116,10 @@ paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
           kr[i][dd] = ok[i] ? to_f32(kp[off + 32 * dd]) : 0.f;
           vr[i][dd] = ok[i] ? to_f32(vp[off + 32 * dd]) : 0.f;
         }
+        if constexpr (kQuant) {
+          ksc[i] = ok[i] ? ks[sc_off + i0 + i] : 0.f;
+          vsc[i] = ok[i] ? vs[sc_off + i0 + i] : 0.f;
+        }
       }
       float s[kChunk];
       float cmax = kNegBig;
@@ -110,6 +129,7 @@ paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
 #pragma unroll
         for (int dd = 0; dd < DL; ++dd) x += qv[dd] * kr[i][dd];
         x = warp_sum(x);
+        if constexpr (kQuant) x *= ksc[i];
         s[i] = ok[i] ? x * scale : kNegBig;
         cmax = fmaxf(cmax, s[i]);
       }
@@ -122,8 +142,10 @@ paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
       for (int i = 0; i < kChunk; ++i) {
         const float p = ok[i] ? expf(s[i] - m_new) : 0.f;
         l += p;
+        float pv = p;
+        if constexpr (kQuant) pv *= vsc[i];
 #pragma unroll
-        for (int dd = 0; dd < DL; ++dd) acc[dd] += p * vr[i][dd];
+        for (int dd = 0; dd < DL; ++dd) acc[dd] += pv * vr[i][dd];
       }
       m = m_new;
     }
@@ -156,26 +178,26 @@ paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
   }
 }
 
-template <typename KV>
+template <typename KV, bool kQuant>
 cudaError_t launch(const float* q, const void* kp, const void* vp,
-                   const int* tables, const int* pos, float* out, int B,
-                   int Hk, int R, int D, int bp, int nb_max, float scale,
-                   cudaStream_t stream) {
+                   const float* ks, const float* vs, const int* tables,
+                   const int* pos, float* out, int B, int Hk, int R, int D,
+                   int bp, int nb_max, float scale, cudaStream_t stream) {
   const dim3 grid(B * Hk, R);
   const KV* kk = static_cast<const KV*>(kp);
   const KV* vv = static_cast<const KV*>(vp);
   switch (D) {
     case 32:
-      paged_decode_kernel<KV, 32><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, tables, pos, out, Hk, R, bp, nb_max, scale);
+      paged_decode_kernel<KV, 32, kQuant><<<grid, kThreads, 0, stream>>>(
+          q, kk, vv, ks, vs, tables, pos, out, Hk, R, bp, nb_max, scale);
       break;
     case 64:
-      paged_decode_kernel<KV, 64><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, tables, pos, out, Hk, R, bp, nb_max, scale);
+      paged_decode_kernel<KV, 64, kQuant><<<grid, kThreads, 0, stream>>>(
+          q, kk, vv, ks, vs, tables, pos, out, Hk, R, bp, nb_max, scale);
       break;
     case 128:
-      paged_decode_kernel<KV, 128><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, tables, pos, out, Hk, R, bp, nb_max, scale);
+      paged_decode_kernel<KV, 128, kQuant><<<grid, kThreads, 0, stream>>>(
+          q, kk, vv, ks, vs, tables, pos, out, Hk, R, bp, nb_max, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -185,23 +207,38 @@ cudaError_t launch(const float* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// C entry point (loaded with ctypes). kv_bf16: 0 = f32 pool, 1 = bf16.
-// Returns the launch's cudaError_t (0 = launched).
+// C entry point (loaded with ctypes). kv_kind: 0 = f32 pool, 1 = bf16,
+// 2 = int8 with ks/vs scale blocks (null for the float kinds). Returns
+// the launch's cudaError_t (0 = launched).
 extern "C" int dnn_paged_decode_attention(
-    const void* q, const void* kp, const void* vp, const void* tables,
-    const void* pos, void* out, int B, int Hk, int R, int D, int bp,
-    int nb_max, int kv_bf16, float scale, void* stream) {
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* pos, void* out, int B,
+    int Hk, int R, int D, int bp, int nb_max, int kv_kind, float scale,
+    void* stream) {
   if (B <= 0 || Hk <= 0 || R <= 0 || R > 65535 || bp <= 0 || nb_max <= 0)
     return (int)cudaErrorInvalidValue;
+  if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
+                   : (ks != nullptr || vs != nullptr))
+    return (int)cudaErrorInvalidValue;
   const float* qq = static_cast<const float*>(q);
+  const float* kss = static_cast<const float*>(ks);
+  const float* vss = static_cast<const float*>(vs);
   const int* tt = static_cast<const int*>(tables);
   const int* pp = static_cast<const int*>(pos);
   float* oo = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      kv_bf16 ? launch<__nv_bfloat16>(qq, kp, vp, tt, pp, oo, B, Hk, R, D, bp,
-                                      nb_max, scale, st)
-              : launch<float>(qq, kp, vp, tt, pp, oo, B, Hk, R, D, bp, nb_max,
-                              scale, st);
-  return (int)err;
+  switch (kv_kind) {
+    case 0:
+      return (int)launch<float, false>(qq, kp, vp, kss, vss, tt, pp, oo, B,
+                                       Hk, R, D, bp, nb_max, scale, st);
+    case 1:
+      return (int)launch<__nv_bfloat16, false>(qq, kp, vp, kss, vss, tt, pp,
+                                               oo, B, Hk, R, D, bp, nb_max,
+                                               scale, st);
+    case 2:
+      return (int)launch<int8_t, true>(qq, kp, vp, kss, vss, tt, pp, oo, B,
+                                       Hk, R, D, bp, nb_max, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

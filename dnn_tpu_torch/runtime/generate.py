@@ -1,39 +1,57 @@
-"""Cached forward and sampling for the GPT family (port of
-dnn_tpu/runtime/generate.py:50-124,149-255).
+"""Cached forward, sampling and solo generation for the GPT family (port
+of dnn_tpu/runtime/generate.py:50-255, 474-566).
 
 `forward_with_cache` runs one chunk of tokens at positions
 [start_pos, start_pos + T) through every layer — a Python loop over the
 stacked blocks — writing each layer's K/V into the cache in place and
-attending through the K5 wrapper. `forward_no_cache` is the plain
-full-sequence forward the cached paths are held against.
+attending through the cache's codec (runtime/kvcache.py: K5 for a chunk,
+K6 for a one-token step). `forward_no_cache` is the plain full-sequence
+forward the cached paths are held against. `make_generate` is the solo
+decoder: the prompt in one forward, then one forward per token.
 
-Sampling (`_sample_rows`) keeps the JAX package's filter arithmetic —
-per-row temperature, top-k, min-p and nucleus over the same top-256
-prefilter with the full-vocabulary denominator — but draws with one
-torch.Generator per row. A sampled token therefore differs from the JAX
-package's threefry stream for the same seed; greedy rows (temperature 0)
-take the argmax and are identical.
+Sampling (`_sample`, `_sample_rows`) keeps the JAX package's filter
+arithmetic — temperature, top-k, min-p and nucleus over the same top-256
+prefilter with the full-vocabulary denominator — but draws from a
+torch.Generator. A sampled token therefore differs from the JAX
+package's threefry stream for the same seed; greedy draws (temperature
+0) take the argmax and are identical.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 
+from dnn_tpu_torch import resolve_device
 from dnn_tpu_torch.models.gpt import GPTConfig, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads, split_heads
 from dnn_tpu_torch.ops.nn import embedding, gelu, layer_norm, linear
-from dnn_tpu_torch.runtime.kvcache import FloatKV, band_keep
+from dnn_tpu_torch.runtime.kvcache import (
+    FloatKV,
+    Int8KV,
+    band_keep,
+    codec_for_cache,
+)
 
 _NEG_BIG = -1e30
 
-# nucleus sampling ranks this many candidates per step (see _sample_rows)
+# nucleus sampling ranks this many candidates per step (see _sample)
 TOP_P_PREFILTER_K = 256
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype, device):
-    """Preallocated float cache {"k","v"}: (L, B, H, S, D)."""
+    """Preallocated cache, one leading layer axis: {"k","v"}
+    (L, B, H, S, D) in torch.float32 / torch.bfloat16, or dtype="int8"
+    for the quantized cache (int8 K/V plus (L, B, H, S) f32 scales)."""
+    if dtype == "int8":
+        return Int8KV().init(cfg, batch, max_len, device)
+    if dtype == "int4":
+        raise NotImplementedError(
+            "int4 KV caches are not ported to dnn_tpu_torch yet (ROADMAP "
+            "PyTorch/CUDA port item 2)")
     return FloatKV(dtype).init(cfg, batch, max_len, device)
 
 
@@ -67,12 +85,13 @@ def _embed_at(prepared, ids, start_pos: int):
 def forward_with_cache(prepared, ids, cache, start_pos: int, *,
                        cfg: GPTConfig):
     """ids (B, T) at positions [start_pos, start_pos + T) -> logits
-    (B, T, V) f32; the cache {"k","v"} (L, B, H, S, D) is updated in
-    place and returned."""
-    codec = FloatKV(cache["k"].dtype)
+    (B, T, V) f32; the cache — float {"k","v"} or int8 {"k","v","ks",
+    "vs"}, every leaf (L, B, H, S[, D]) — is updated in place and
+    returned."""
+    codec = codec_for_cache(cache)
     x = _embed_at(prepared, ids, start_pos)
     for i in range(cfg.n_layer):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = _block_with_cache(layer_params(prepared["blocks"], i), x,
                               layer_cache, start_pos, cfg=cfg, codec=codec)
     return head(prepared, x.float(), cfg=cfg), cache
@@ -102,12 +121,60 @@ def forward_no_cache(prepared, ids, *, cfg: GPTConfig):
     return head(prepared, x, cfg=cfg)
 
 
+def logit_bias_row(logit_bias, vocab_size: int, device):
+    """{token_id: additive bias} -> a dense (V,) f32 row (None -> None);
+    ids are checked against the vocabulary and values must be finite."""
+    if not logit_bias:
+        return None
+    row = np.zeros((vocab_size,), np.float32)
+    for tok, val in logit_bias.items():
+        t = int(tok)
+        if not 0 <= t < vocab_size:
+            raise ValueError(
+                f"logit_bias token id {t} outside [0, {vocab_size})")
+        v = float(val)
+        if not np.isfinite(v):
+            raise ValueError(f"logit_bias value for {t} not finite: {v}")
+        row[t] = v
+    return torch.from_numpy(row).to(device)
+
+
 def apply_repetition_penalty(logits, seen, penalty):
     """CTRL-style penalty on raw logits (HF semantics): for tokens in
     `seen` (..., V) bool, a positive logit is divided by `penalty` and a
     negative one multiplied."""
     pen = torch.where(logits > 0, logits / penalty, logits * penalty)
     return torch.where(seen, pen, logits)
+
+
+def _sample(logits, generator, *, temperature: float, top_k: Optional[int],
+            top_p: Optional[float] = None, min_p: Optional[float] = None):
+    """logits (B, V) -> token ids (B,) int64. temperature 0 is greedy;
+    top_k keeps the k highest logits, min_p drops tokens below min_p x
+    the top token's probability, top_p keeps the smallest set reaching
+    mass p (ranked over the top-256 prefilter with the full-vocabulary
+    denominator) — applied in that order, as the JAX `_sample` does; the
+    draw comes from `generator`."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits / temperature
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, _NEG_BIG, logits)
+    if min_p is not None:
+        mx = logits.max(dim=-1, keepdim=True).values
+        logits = torch.where(logits < mx + math.log(min_p), _NEG_BIG, logits)
+    if top_p is not None:
+        k = min(TOP_P_PREFILTER_K, logits.shape[-1])
+        vals = torch.topk(logits, k, dim=-1).values
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        probs = torch.exp(vals - lse)
+        cum = probs.cumsum(dim=-1)
+        n_keep = ((cum - probs) < top_p).sum(dim=-1).clamp(min=1)
+        thresh = vals.gather(-1, (n_keep - 1)[..., None])
+        logits = torch.where(logits < thresh, _NEG_BIG, logits)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 def _sample_rows(logits, generators, *, temperature, top_k, top_p, min_p):
@@ -146,3 +213,113 @@ def _sample_rows(logits, generators, *, temperature, top_k, top_p, min_p):
         probs_i = torch.softmax(lg[i], dim=-1)
         out[i] = torch.multinomial(probs_i, 1, generator=generators[i])[0]
     return out
+
+
+def _cache_dtype(kv_dtype):
+    """kv_dtype spec -> init_cache's dtype: None/"f32" -> torch.float32,
+    "bf16" -> torch.bfloat16, "int8" as is; torch dtypes pass."""
+    if kv_dtype in (None, "f32", torch.float32):
+        return torch.float32
+    if kv_dtype in ("bf16", torch.bfloat16):
+        return torch.bfloat16
+    if kv_dtype == "int8":
+        return "int8"
+    if kv_dtype == "int4":
+        raise NotImplementedError(
+            "kv_dtype 'int4': int4 KV caches are not ported to dnn_tpu_torch "
+            "yet (ROADMAP PyTorch/CUDA port item 2)")
+    raise ValueError(f"kv_dtype must be f32, bf16 or int8, got {kv_dtype!r}")
+
+
+def make_generate(cfg: GPTConfig, *, max_new_tokens: int,
+                  temperature: float = 0.0, top_k: Optional[int] = None,
+                  top_p: Optional[float] = None,
+                  min_p: Optional[float] = None,
+                  repetition_penalty: Optional[float] = None,
+                  logit_bias=None, compute_dtype=None, ffn=None,
+                  kv_dtype=None, device=None):
+    """Build generate(prepared, ids, seed=0) -> (B, max_new_tokens) int32
+    token ids on the device.
+
+    The prompt ids (B, T) prefill in one forward (K5), then each token
+    decodes in one forward against the cache (K6), in a Python loop.
+    `kv_dtype` picks the cache: None or "f32", "bf16", or "int8"
+    (per-(position, head) scales). `temperature`/`top_k`/`top_p`/`min_p`
+    sample as the JAX `_sample` does; `repetition_penalty` (HF/CTRL
+    semantics) penalizes every token already in the sequence;
+    `logit_bias` ({token_id: additive bias}) applies after the penalty,
+    before the filters, binding for greedy too. Sampled draws come from a
+    torch.Generator seeded with `seed` and differ from JAX's threefry
+    stream; greedy draws are identical to JAX's `make_generate`.
+
+    Runs on CUDA unless `device="cpu"` is given (without a card the
+    default raises); `prepared` must live on that device. JAX's
+    `attn_kernel` (a TPU crossover knob) has no counterpart: on CUDA the
+    kernels always run. `compute_dtype` (bf16 compute, ROADMAP
+    PyTorch/CUDA port item 4) and `ffn` (MoE blocks, item 7) raise."""
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype: bf16 compute is not ported to dnn_tpu_torch yet "
+            "(ROADMAP PyTorch/CUDA port item 4)")
+    if ffn is not None:
+        raise NotImplementedError(
+            "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
+            "(ROADMAP PyTorch/CUDA port item 7)")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if repetition_penalty is not None and repetition_penalty <= 0:
+        raise ValueError(
+            f"repetition_penalty must be > 0, got {repetition_penalty}")
+    if min_p is not None and not 0.0 <= min_p <= 1.0:
+        raise ValueError(f"min_p must be in [0, 1], got {min_p}")
+    dev = resolve_device(device)
+    cache_dtype = _cache_dtype(kv_dtype)
+    bias_row = logit_bias_row(logit_bias, cfg.vocab_size, dev)
+    pen_on = repetition_penalty is not None and repetition_penalty != 1.0
+    if dev.type == "cuda":
+        # the JAX reference computes in f32: no TF32 on the served path
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    @torch.no_grad()
+    def generate(prepared, ids, seed: int = 0):
+        if prepared["wte"]["embedding"].device.type != dev.type:
+            raise ValueError(
+                f"prepared weights are on "
+                f"{prepared['wte']['embedding'].device}, generate on {dev}")
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(dev)
+        b, t = ids.shape
+        if t + max_new_tokens > cfg.block_size:
+            raise ValueError(
+                f"prompt {t} + max_new_tokens {max_new_tokens} exceeds "
+                f"block_size {cfg.block_size}")
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        cache = init_cache(cfg, b, t + max_new_tokens, cache_dtype, dev)
+        logits, cache = forward_with_cache(prepared, ids, cache, 0, cfg=cfg)
+        rows = torch.arange(b, device=dev)
+        seen = None
+        if pen_on:
+            seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool,
+                               device=dev)
+            seen[rows[:, None], ids] = True
+
+        def pick(lg):
+            if pen_on:
+                lg = apply_repetition_penalty(lg, seen, repetition_penalty)
+            if bias_row is not None:
+                lg = lg + bias_row
+            tok = _sample(lg, gen, temperature=temperature, top_k=top_k,
+                          top_p=top_p, min_p=min_p)
+            if pen_on:
+                seen[rows, tok] = True
+            return tok
+
+        toks = [pick(logits[:, -1])]
+        for i in range(max_new_tokens - 1):
+            # token i sits at sequence position t + i
+            logits, cache = forward_with_cache(
+                prepared, toks[-1][:, None], cache, t + i, cfg=cfg)
+            toks.append(pick(logits[:, -1]))
+        return torch.stack(toks, dim=1).to(torch.int32)
+
+    return generate

@@ -1,5 +1,5 @@
-"""LM serving daemon: the paged ContinuousBatcher behind the gRPC edge
-(port of dnn_tpu/runtime/lm_server.py, the serving core).
+"""LM serving daemon: the ContinuousBatcher behind the gRPC edge (port
+of dnn_tpu/runtime/lm_server.py, the serving core).
 
 SendTensor takes a prompt (1-D int token ids) and answers with the
 generated tokens; GenerateStream answers one message per token as it
@@ -274,8 +274,10 @@ class LMServer:
     """NodeService servicer: SendTensor(prompt) -> generated tokens,
     GenerateStream, HealthCheck, SendMessage (declines the JAX client's
     transport hello; answers anything else with pool stats). Batcher
-    keyword arguments pass through — `device` defaults to "cuda" and
-    raises without a card."""
+    keyword arguments pass through — the cache layout and storage (`kv`
+    "paged"/"dense"/"auto", the default; `kv_dtype` f32/bf16/int8;
+    `decode_buckets`; `paged_blocks`, `block_len`) among them; `device`
+    defaults to "cuda" and raises without a card."""
 
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
                  request_timeout: float = 120.0, **batcher_kwargs):
@@ -431,7 +433,8 @@ async def _start(cfg, prepared, port: int, server_kwargs):
 
 async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
     """Start the LM daemon and block until termination (SIGTERM stops it
-    cleanly, rc 0)."""
+    cleanly, rc 0). `server_kwargs` go to LMServer and on to the
+    batcher (kv, kv_dtype, decode_buckets, paged_blocks, ...)."""
     servicer, server = await _start(cfg, prepared, port, server_kwargs)
     log.info("gRPC LM server listening on [::]:%d (%d slots, %s)", port,
              servicer.batcher.slots, servicer.batcher.device)

@@ -3,7 +3,8 @@ of dnn_tpu/runtime/paged_kvcache.py:59-363).
 
 Layout (per K and per V):
 
-    pool   (L, n_blocks, H, block_len, D)   f32 or bf16
+    pool   (L, n_blocks, H, block_len, D)   f32, bf16 or int8
+    scales (L, n_blocks, H, block_len)      f32, int8 pools only ("ks"/"vs")
     tables (B, nb_max)                      int32
 
 The JAX layout replicates the tables over L so its layer scan can peel
@@ -15,7 +16,10 @@ slot's length). All pool updates are in place.
 
 Decode attention (`attend_rows`) runs the K7 paged-decode wrapper: the
 CUDA kernel chases each slot's table straight into the pool on the card,
-the plain gather-view version on the CPU.
+the plain gather-view version on the CPU. An int8 pool quantizes each
+written row (kvcache._quantize_rows) and passes its scale blocks to K7;
+its attention output is f32, a float pool's the pool dtype (the JAX
+codec's output dtypes).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import List, Optional
 import torch
 
 from dnn_tpu_torch.ops.cuda.cached_attention import paged_decode_attention
+from dnn_tpu_torch.runtime.kvcache import _quantize_rows
 
 __all__ = ["PagedKV", "BlockAllocator", "InsufficientBlocks",
            "init_paged_cache"]
@@ -99,27 +104,37 @@ class BlockAllocator:
 def init_paged_cache(cfg, slots: int, max_len: int, *, n_blocks: int,
                      block_len: int, dtype, device):
     """Pool + table for `slots` decode rows of up to `max_len` positions
-    sharing `n_blocks` physical blocks of `block_len` positions."""
+    sharing `n_blocks` physical blocks of `block_len` positions. `dtype`
+    is torch.float32, torch.bfloat16 or "int8" (int8 K/V blocks plus
+    (L, n_blocks, H, block_len) f32 scale blocks initialised to ones)."""
     if max_len % block_len:
         raise ValueError(f"max_len {max_len} must tile block_len {block_len}")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"paged pool dtype {dtype}: int8/int4 pools wait for their "
-            "kernels (ROADMAP, PyTorch/CUDA port item 2)")
     shape = (cfg.n_layer, n_blocks, cfg.n_head, block_len,
              cfg.n_embd // cfg.n_head)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "tables": torch.zeros((slots, max_len // block_len),
-                              dtype=torch.int32, device=device),
-    }
+    tables = torch.zeros((slots, max_len // block_len), dtype=torch.int32,
+                         device=device)
+    if dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            "vs": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            "tables": tables,
+        }
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"paged pool dtype {dtype!r}: the port has f32, bf16 and int8 "
+            "pools (int4 waits for ROADMAP PyTorch/CUDA port item 2)")
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "tables": tables}
 
 
 class PagedKV:
     """Codec over the block pool. `write_rows`/`attend_rows` take one
-    layer's view — {"k","v"} (n_blocks, H, bp, D) and the shared
-    "tables" (B, nb_max); `install_row` takes the whole cache."""
+    layer's view — {"k","v"} (n_blocks, H, bp, D), int8 pools' {"ks",
+    "vs"} (n_blocks, H, bp), and the shared "tables" (B, nb_max);
+    `install_row` takes the whole cache."""
 
     def __init__(self, block_len: int):
         self.block_len = block_len
@@ -131,35 +146,50 @@ class PagedKV:
         restored in place: a retired slot's stale table may point at a
         block since reallocated to another request, and restoring it
         would write the old request's K/V into the new owner's cache.
-        Collisions between gated slots on the junk block are harmless."""
+        Collisions between gated slots on the junk block are harmless.
+        An int8 pool quantizes the rows first and scatters their scales
+        alongside."""
         bp = self.block_len
         slot = torch.arange(pos.shape[0], device=pos.device)
         live_pos = torch.where(write_gate, pos, 0).long()
         blk = c["tables"][slot, live_pos // bp].long()
         blk = torch.where(write_gate, blk, 0)
         row = torch.where(write_gate, live_pos % bp, 0)
-        c["k"][blk, :, row] = k[:, :, 0].to(c["k"].dtype)
-        c["v"][blk, :, row] = v[:, :, 0].to(c["v"].dtype)
+        if "ks" in c:
+            kq, ks = _quantize_rows(k[:, :, 0])  # (B, H, D), (B, H)
+            vq, vs = _quantize_rows(v[:, :, 0])
+            new = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        else:
+            new = {"k": k[:, :, 0], "v": v[:, :, 0]}
+        for name, val in new.items():
+            c[name][blk, :, row] = val.to(c[name].dtype)
 
     def attend_rows(self, q, c, pos):
         """q (B, H, R, D); every row of slot b attends its logical
-        positions <= pos[b]. Returns (B, H, R, D) in the pool dtype."""
+        positions <= pos[b]. Returns (B, H, R, D): f32 for an int8 pool,
+        the pool dtype for a float one."""
+        if "ks" in c:
+            return paged_decode_attention(q.contiguous(), c["k"], c["v"],
+                                          c["tables"], pos, ks=c["ks"],
+                                          vs=c["vs"])
         out = paged_decode_attention(q.contiguous(), c["k"], c["v"],
                                      c["tables"], pos)
         return out.to(c["v"].dtype)
 
     def install_row(self, cache, row, blk_ids):
         """Scatter a finished transient row cache (leaves (L, 1, H,
-        row_len, D)) into the physical blocks `blk_ids` (nb_max,). ALL
-        nb_max logical blocks install unconditionally: entries the
-        request does not own are routed to junk block 0 (duplicate
-        targets there, never on a live block), so one code path serves
-        every prompt length."""
+        row_len[, D]) — K/V and int8 scales alike) into the physical
+        blocks `blk_ids` (nb_max,). ALL nb_max logical blocks install
+        unconditionally: entries the request does not own are routed to
+        junk block 0 (duplicate targets there, never on a live block),
+        so one code path serves every prompt length."""
         bp = self.block_len
         nb_max = blk_ids.shape[0]
         idx = blk_ids.long()
-        for kk in ("k", "v"):
-            r = row[kk][:, 0]  # (L, H, row_len, D)
+        for kk, leaf in cache.items():
+            if kk == "tables":
+                continue
+            r = row[kk][:, 0]  # (L, H, row_len[, D])
             n_l, h, rl = r.shape[:3]
-            blocks = r.reshape(n_l, h, rl // bp, bp, r.shape[3])[:, :, :nb_max]
-            cache[kk][:, idx] = blocks.transpose(1, 2).to(cache[kk].dtype)
+            blocks = r.reshape(n_l, h, rl // bp, bp, *r.shape[3:])[:, :, :nb_max]
+            leaf[:, idx] = blocks.transpose(1, 2).to(leaf.dtype)

@@ -1,14 +1,28 @@
-"""Continuous-batching decode server for the GPT family over the paged
-KV pool (port of the paged convoy path of dnn_tpu/runtime/serving.py).
+"""Continuous-batching decode server for the GPT family (port of the
+convoy path of dnn_tpu/runtime/serving.py).
 
-A fixed pool of decode slots shares one block pool
-(runtime/paged_kvcache.py). A request enters by `submit`: its prompt
-prefills in `prompt_pad`-sized chunks (full chunks plus one right-padded
-tail) into a transient dense row cache, the first token is sampled from
-the true last prompt row, and the row installs into the request's pool
-blocks. Every `step` then advances all active slots one token; requests
-retire on eos, a stop sequence or their token budget, independently of
-each other.
+A fixed pool of decode slots holds its KV cache in one of two layouts,
+chosen by `kv` as the JAX batcher chooses it:
+  * "paged": one shared block pool with per-slot block tables
+    (runtime/paged_kvcache.py); admission by actual request length.
+    Decode attention is K7.
+  * "dense": one (L, slots, H, S, D) cache, a row per slot; decode
+    attention is K6. With `decode_buckets` the dense cache is allocated
+    at the smallest rung of a length ladder covering the live positions
+    and grown rung by rung (runtime/decode_buckets.py).
+  * "auto" (the default): paged whenever the configuration can page,
+    else dense — the reason is logged, where the JAX batcher records a
+    `kv_fallback_dense` flight event.
+`kv_dtype` stores either layout as f32, bf16 or int8 (per-(position,
+head) scales; the kernels' int8 variants).
+
+A request enters by `submit`: its prompt prefills in `prompt_pad`-sized
+chunks (full chunks plus one right-padded tail) into a transient dense
+row cache of the pool's dtype (K5), the first token is sampled from the
+true last prompt row, and the row installs into the request's pool
+blocks or dense slot. Every `step` then advances all active slots one
+token; requests retire on eos, a stop sequence or their token budget,
+independently of each other.
 
 Against the JAX batcher:
   * the cache is updated IN PLACE (torch has no donation — where the
@@ -20,9 +34,8 @@ Against the JAX batcher:
   * sampled requests draw from a per-request torch.Generator seeded from
     (server seed, request id or seed), so a sampled stream matches the
     JAX package's only in distribution; greedy streams are identical.
-  * only the paged pool is ported. The dense pool, prefix cache, decode
-    buckets, interleaved prefill/overlap, constraints, LoRA, logprobs,
-    logit bias and int8/int4 KV raise NotImplementedError (ROADMAP,
+  * the prefix cache, interleaved prefill/overlap, constraints, LoRA,
+    logprobs, logit bias and int4 KV raise NotImplementedError (ROADMAP,
     "PyTorch/CUDA port").
 
 The server runs on CUDA unless constructed with device="cpu"; without a
@@ -32,6 +45,7 @@ reference computes in f32.
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -41,8 +55,15 @@ from dnn_tpu_torch import resolve_device
 from dnn_tpu_torch.models.gpt import GPTConfig, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads
 from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
+from dnn_tpu_torch.runtime.decode_buckets import (
+    bucket_for,
+    bucket_ladder,
+    normalize_ladder,
+    pad_cache_to,
+)
 from dnn_tpu_torch.runtime.generate import (
     TOP_P_PREFILTER_K,
+    _cache_dtype,
     _mlp,
     _qkv_heads,
     _sample_rows,
@@ -50,6 +71,7 @@ from dnn_tpu_torch.runtime.generate import (
     forward_with_cache,
     init_cache,
 )
+from dnn_tpu_torch.runtime.kvcache import codec_for_cache
 from dnn_tpu_torch.runtime.paged_kvcache import (
     BlockAllocator,
     InsufficientBlocks,
@@ -57,12 +79,13 @@ from dnn_tpu_torch.runtime.paged_kvcache import (
     init_paged_cache,
 )
 
+log = logging.getLogger("dnn_tpu_torch.serving")
+
 # JAX-batcher options this port leaves out, with the ROADMAP item each
 # waits on. Passing one at its "off" value is accepted (it changes
 # nothing); any other value raises NotImplementedError.
 _UNPORTED = {
     "prefix_cache": "item 4 (prefix cache)",
-    "decode_buckets": "item 1 (dense pool)",
     "prefill_chunk_tokens": "item 4 (interleaved prefill)",
     "overlap": "item 4 (overlap)",
     "allow_constraints": "item 4 (constraints)",
@@ -100,14 +123,14 @@ def _reject_unported(table, given: dict, *, zero_is_off: bool):
                 f"{k} (ROADMAP PyTorch/CUDA port {table[k]})" for k in live))
 
 
-def _kv_dtype(kv_dtype):
-    if kv_dtype in (None, "f32", torch.float32):
-        return torch.float32
-    if kv_dtype in ("bf16", torch.bfloat16):
-        return torch.bfloat16
-    raise NotImplementedError(
-        f"kv_dtype {kv_dtype!r}: int8/int4 KV waits for its kernels "
-        "(ROADMAP PyTorch/CUDA port item 2)")
+def install_dense_row(cache, row, slot: int):
+    """Copy a finished transient row cache (leaves (L, 1, H, row_len[,
+    D])) into `slot` of a dense pool, in place, CLAMPED at the pool's own
+    position count: the row is chunk-rounded and may overhang the pool
+    (a bucketed pool especially); the overhang holds only tail-pad
+    garbage."""
+    for kk, leaf in cache.items():
+        leaf[:, slot] = row[kk][:, 0, :, :leaf.shape[3]]
 
 
 class GPTFamilyRows:
@@ -128,14 +151,16 @@ class GPTFamilyRows:
     def decode_rows(self, prepared, cache, tok, pos, active, codec):
         """One step of every slot: tok/pos/active (B,) device tensors ->
         logits (B, V). Inactive slots run too (their writes go to the
-        junk block); their rows are discarded by the caller."""
+        paged pool's junk block, or re-write a dense row's own value);
+        their rows are discarded by the caller. Per-layer views are taken
+        here, each step: a bucket grow replaces the cache tensors."""
         cfg = self.cfg
         x = (embedding(prepared["wte"], tok)
              + embedding(prepared["wpe"], pos.long()))[:, None, :]
         for i in range(cfg.n_layer):
             bp = layer_params(prepared["blocks"], i)
-            c = {"k": cache["k"][i], "v": cache["v"][i],
-                 "tables": cache["tables"]}
+            c = {kk: leaf if kk == "tables" else leaf[i]
+                 for kk, leaf in cache.items()}
             h = layer_norm(bp["ln_1"], x, eps=cfg.ln_eps)
             q, k, v = _qkv_heads(bp, h, cfg=cfg)
             codec.write_rows(c, k, v, pos, active)
@@ -147,7 +172,7 @@ class GPTFamilyRows:
 
 
 class ContinuousBatcher:
-    """Slot-pool decode server over the paged KV pool.
+    """Slot-pool decode server over the paged or the dense KV pool.
 
     Usage:
         srv = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024)
@@ -166,7 +191,7 @@ class ContinuousBatcher:
                  eos_id: Optional[int] = None, seed: int = 0,
                  kv_dtype=None, kv: Optional[str] = "auto",
                  paged_blocks: int = 0, block_len: int = 16,
-                 device=None, **unported):
+                 decode_buckets=False, device=None, **unported):
         _reject_unported(_UNPORTED, unported, zero_is_off=True)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -178,23 +203,13 @@ class ContinuousBatcher:
                 f"prepared weights are on "
                 f"{prepared['wte']['embedding'].device}, the server on "
                 f"{self.device}")
-        if kv not in (None, "auto", "paged", "dense"):
-            raise ValueError(f"kv must be 'paged', 'dense' or 'auto', got {kv!r}")
-        if kv == "dense":
-            raise NotImplementedError(
-                "kv='dense': the dense per-slot pool waits for the K6 "
-                "decode kernel (ROADMAP PyTorch/CUDA port item 1)")
         self.cfg = cfg
         self.prepared = prepared
         self.slots = slots
         self.max_len = min(max_len or cfg.block_size, cfg.block_size)
         self.prompt_pad = prompt_pad or min(64, self.max_len)
-        if self.max_len % block_len or self.prompt_pad % block_len:
-            raise NotImplementedError(
-                f"max_len {self.max_len} / prompt_pad {self.prompt_pad} "
-                f"must tile block_len {block_len} for the paged pool; the "
-                "dense pool those shapes fall back to waits for K6 "
-                "(ROADMAP PyTorch/CUDA port item 1)")
+        self.paged, paged_blocks = self._choose_layout(
+            kv, paged_blocks, block_len, decode_buckets)
         self.eos_id = eos_id
         self._seed = int(seed)
         self._default_temp = float(temperature)
@@ -204,23 +219,40 @@ class ContinuousBatcher:
         self._default_rep = (float(repetition_penalty)
                              if repetition_penalty else 1.0)
         self.family = GPTFamilyRows(cfg)
-        self._cache_dtype = _kv_dtype(kv_dtype)
+        self._cache_dtype = _cache_dtype(kv_dtype)
 
-        if not paged_blocks:
-            # auto-size to the dense pool's capacity plus the junk block,
-            # so paging never shrinks admission capacity
-            paged_blocks = slots * (self.max_len // block_len) + 1
+        # decode bucketing (dense pool only): the pool starts at the
+        # ladder's first rung and grows (_ensure_cache_len) before a
+        # prompt's install and before each step that needs it
+        self._buckets = None
+        self._cache_len = self.max_len
+        self.bucket_grows = 0
+        if decode_buckets:
+            self._buckets = (bucket_ladder(self.max_len)
+                             if decode_buckets is True
+                             else normalize_ladder(decode_buckets,
+                                                   self.max_len))
+            self._cache_len = self._buckets[0]
         self._block_len = block_len
-        self.allocator = BlockAllocator(paged_blocks)
-        self.cache = init_paged_cache(
-            cfg, slots, self.max_len, n_blocks=paged_blocks,
-            block_len=block_len, dtype=self._cache_dtype, device=self.device)
-        self._codec = PagedKV(block_len)
+        self.allocator = None
+        if self.paged:
+            self.allocator = BlockAllocator(paged_blocks)
+            self.cache = init_paged_cache(
+                cfg, slots, self.max_len, n_blocks=paged_blocks,
+                block_len=block_len, dtype=self._cache_dtype,
+                device=self.device)
+            self._codec = PagedKV(block_len)
+        else:
+            self.cache = init_cache(cfg, slots, self._cache_len,
+                                    self._cache_dtype, self.device)
+            self._codec = codec_for_cache(self.cache)
         # No donation in torch: where the JAX batcher donates the pool
         # cache, the transient row and the per-slot state to its jitted
         # programs and reassigns their outputs, the port updates
         # self.cache and self._row IN PLACE (write_rows, install_row,
-        # FloatKV.write) and keeps the per-slot vectors on the host.
+        # install_dense_row, the codecs' write) and keeps the per-slot
+        # vectors on the host. A bucket grow is the one exception: it
+        # replaces self.cache with a longer copy.
         # The transient prefill row rounds max_len UP to whole chunks, so
         # a tail chunk's write never overhangs it. One buffer serves every
         # admission: positions a chunk attends were all written by the
@@ -247,6 +279,57 @@ class ContinuousBatcher:
         self._slot_req: List[Optional[dict]] = [None] * slots
         self.results: Dict[int, np.ndarray] = {}
         self.finish_reasons: Dict[int, str] = {}
+
+    def _choose_layout(self, kv, paged_blocks: int, block_len: int,
+                       decode_buckets):
+        """(paged?, pool block count) from `kv` as the JAX batcher decides
+        it (serving.py:346-417). "auto" pages unless something blocks it,
+        and then logs why."""
+        if kv not in (None, "auto", "paged", "dense"):
+            raise ValueError(f"kv must be 'paged', 'dense' or 'auto', got {kv!r}")
+        if kv == "dense" and paged_blocks:
+            raise ValueError(f"kv='dense' contradicts paged_blocks="
+                             f"{paged_blocks}; drop one of them")
+        paged = bool(paged_blocks)  # kv=None: paged iff blocks given
+        if kv in ("paged", "auto"):
+            blocker = None
+            if decode_buckets:
+                blocker = ("decode_buckets is a dense-pool feature (the "
+                           "paged pool is already length-proportional)")
+            elif self.max_len % block_len or self.prompt_pad % block_len:
+                blocker = (f"max_len {self.max_len} / prompt_pad "
+                           f"{self.prompt_pad} must tile block_len "
+                           f"{block_len}")
+            if blocker is None:
+                paged = True
+                if not paged_blocks:
+                    # auto-size to the dense pool's capacity plus the junk
+                    # block, so paging never shrinks admission capacity
+                    paged_blocks = self.slots * (self.max_len // block_len) + 1
+            elif kv == "paged" or paged_blocks:
+                raise ValueError(
+                    f"kv={kv!r}"
+                    + (f" with paged_blocks={paged_blocks}" if paged_blocks
+                       else "")
+                    + f" is not available: {blocker}")
+            else:
+                log.warning("kv_fallback_dense: %s", blocker)
+        if decode_buckets and paged:
+            raise ValueError(
+                "decode_buckets applies to the dense per-slot cache; the "
+                "paged pool is already length-proportional")
+        return paged, (paged_blocks if paged else 0)
+
+    def _ensure_cache_len(self, need: int):
+        """Grow the bucketed dense pool to the smallest ladder rung
+        covering `need` live positions (no-op when already covered, or on
+        unbucketed pools). Grow-only, as in the JAX batcher."""
+        if self._buckets is None or need <= self._cache_len:
+            return
+        target = bucket_for(self._buckets, need)
+        self.cache = pad_cache_to(self.cache, target)
+        self._cache_len = target
+        self.bucket_grows += 1
 
     # ------------------------------------------------------------------
 
@@ -285,8 +368,8 @@ class ContinuousBatcher:
         (default: its request id). Per-request options default to the
         constructor's; `stop` is a list of token-id sequences that end
         generation (the match is not returned). Raises RuntimeError
-        without a free slot and InsufficientBlocks while the pool lacks
-        blocks for prompt + budget."""
+        without a free slot and, on the paged pool, InsufficientBlocks
+        while it lacks blocks for prompt + budget."""
         _reject_unported(_UNPORTED_SUBMIT, unported, zero_is_off=False)
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) == 0:
@@ -328,28 +411,31 @@ class ContinuousBatcher:
         except ValueError:
             raise RuntimeError("no free slot; call step()/drain() first") from None
 
-        # admission by ACTUAL length: the request holds
-        # ceil((prompt + budget) / block_len) blocks for its lifetime
-        bp = self._block_len
-        n_need = -(-(len(prompt) + max_new_tokens) // bp)
-        if n_need > self.allocator.n_blocks - 1:
-            raise ValueError(
-                f"request needs {n_need} blocks but the pool only has "
-                f"{self.allocator.n_blocks - 1} allocatable")
-        taken = self.allocator.alloc(n_need)
-        if taken is None:
-            raise InsufficientBlocks(
-                f"insufficient free cache blocks: need {n_need}, have "
-                f"{self.allocator.n_free} (pool "
-                f"{self.allocator.n_blocks}, block {bp} pos)")
+        taken = []
+        if self.paged:
+            # admission by ACTUAL length: the request holds
+            # ceil((prompt + budget) / block_len) blocks for its lifetime
+            bp = self._block_len
+            n_need = -(-(len(prompt) + max_new_tokens) // bp)
+            if n_need > self.allocator.n_blocks - 1:
+                raise ValueError(
+                    f"request needs {n_need} blocks but the pool only has "
+                    f"{self.allocator.n_blocks - 1} allocatable")
+            taken = self.allocator.alloc(n_need)
+            if taken is None:
+                raise InsufficientBlocks(
+                    f"insufficient free cache blocks: need {n_need}, have "
+                    f"{self.allocator.n_free} (pool "
+                    f"{self.allocator.n_blocks}, block {bp} pos)")
         try:
             return self._admit(slot, prompt, max_new_tokens, seed, taken,
                                temp, tk, tp, mp, rp, stop_seqs)
         except BaseException:
             # a failure anywhere in prefill returns the blocks and the
             # slot, or the pool shrinks on every such failure
-            self.allocator.free(taken)
-            self.cache["tables"][slot] = 0
+            if self.paged:
+                self.allocator.free(taken)
+                self.cache["tables"][slot] = 0
             self._slot_req[slot] = None
             self.active[slot] = False
             raise
@@ -357,11 +443,16 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _admit(self, slot, prompt, max_new_tokens, seed, taken, temp, tk,
                tp, mp, rp, stop_seqs) -> int:
-        nb_max = self.cache["tables"].shape[-1]
-        ids_row = np.zeros((nb_max,), np.int32)
-        ids_row[:len(taken)] = taken
-        install_ids = self._upload(ids_row, torch.int32)
-        self.cache["tables"][slot] = install_ids
+        if self.paged:
+            nb_max = self.cache["tables"].shape[-1]
+            ids_row = np.zeros((nb_max,), np.int32)
+            ids_row[:len(taken)] = taken
+            install_ids = self._upload(ids_row, torch.int32)
+            self.cache["tables"][slot] = install_ids
+        else:
+            # the installed prompt must fit the pool AND the first decode
+            # write (at position len(prompt)) must have a column
+            self._ensure_cache_len(len(prompt) + 1)
 
         rid = self._next_rid
         self._next_rid += 1
@@ -394,7 +485,10 @@ class ContinuousBatcher:
             top_k=torch.tensor([tk], device=self.device),
             top_p=torch.tensor([tp], device=self.device),
             min_p=torch.tensor([mp], device=self.device))[0])
-        self._codec.install_row(self.cache, self._row, install_ids)
+        if self.paged:
+            self._codec.install_row(self.cache, self._row, install_ids)
+        else:
+            install_dense_row(self.cache, self._row, slot)
 
         self.pos[slot] = len(prompt)
         self.tok[slot] = first
@@ -423,7 +517,8 @@ class ContinuousBatcher:
 
     def _release(self, slot: int):
         req = self._slot_req[slot]
-        self.allocator.free(req["blocks"])
+        if self.paged:
+            self.allocator.free(req["blocks"])
         self._slot_req[slot] = None
         self.active[slot] = False
         self._gens[slot] = None
@@ -486,6 +581,8 @@ class ContinuousBatcher:
         .results."""
         if self.n_active == 0:
             return {}
+        # this step writes each active slot's next position
+        self._ensure_cache_len(int(self.pos[self.active].max()) + 1)
         active_d = self._upload(self.active, torch.bool)
         pos_d = self._upload(self.pos, torch.int32)
         tok_d = self._upload(self.tok, torch.int64)

@@ -7,10 +7,11 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Shapes here are deliberately ragged (T not a multiple of the 8-row
-query tile, S not a multiple of the 64-key step, block_len 8, two query
-rows per KV head) — the serving shapes are covered by chip_smoke.py.
-Tolerance: atol 1e-4 for f32 and bf16 caches alike (both sides read the
-same rounded values and accumulate in f32)."""
+query tile, S not a multiple of the 64-key step or the 8-key chunk,
+block_len 8, two query rows per KV head) — the serving shapes are
+covered by chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16 and int8
+caches alike (both sides read the same rounded or quantized values and
+accumulate in f32; only the summation order differs)."""
 
 import pytest
 import torch
@@ -19,6 +20,7 @@ from dnn_tpu_torch.ops.cuda import cached_attention as tca
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+KV_DTYPES = ["f32", "bf16", "int8"]
 
 
 @pytest.fixture
@@ -28,44 +30,80 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _cache(g, shape, kind, dev):
+    """(k, v, ks, vs) of `shape` in cache type `kind` (int8 with random
+    positive per-row scales, the float kinds with none)."""
+    k = torch.randn(*shape, generator=g, device=dev)
+    v = torch.randn(*shape, generator=g, device=dev)
+    if kind == "int8":
+        def q8():
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+
+        def sc():
+            return torch.rand(*shape[:-1], generator=g, device=dev) * 0.05 + 1e-3
+        return q8(), q8(), sc(), sc()
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    return k.to(dt), v.to(dt), None, None
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
 @pytest.mark.parametrize("d", [32, 64])
-def test_cached_attention_kernel(dev, dtype, d):
+def test_cached_attention_kernel(dev, kind, d):
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(2, 3, 40, d, generator=g, device=dev)
-    k = torch.randn(2, 3, 200, d, generator=g, device=dev).to(dtype)
-    v = torch.randn(2, 3, 200, d, generator=g, device=dev).to(dtype)
+    k, v, ks, vs = _cache(g, (2, 3, 200, d), kind, dev)
     for base in ([0, 160], [7, 100], [199, 0]):
         pos = torch.tensor(base, dtype=torch.int32, device=dev)
-        before = tca.cached_attention.launches
-        got = tca.cached_attention(q, k, v, pos)
-        want = tca.reference_cached_attention(q, k, v, pos)
+        before = tca.cached_attention.launches_by_dtype[kind]
+        got = tca.cached_attention(q, k, v, pos, ks=ks, vs=vs)
+        want = tca.reference_cached_attention(q, k, v, pos, ks=ks, vs=vs)
         torch.cuda.synchronize()
-        assert tca.cached_attention.launches == before + 1
+        assert tca.cached_attention.launches_by_dtype[kind] == before + 1
         assert (got - want).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KV_DTYPES)
 @pytest.mark.parametrize("d", [32, 64, 128])
-def test_paged_decode_kernel(dev, dtype, d):
+@pytest.mark.parametrize("rows", [1, 2])
+def test_decode_kernel(dev, kind, d, rows):
+    """K6 at a ragged S, with a slot whose stale pos equals S (it attends
+    the whole cache and reads nothing past it)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(4, 3, rows, d, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (4, 3, 77, d), kind, dev)
+    pos = torch.tensor([0, 9, 76, 77], dtype=torch.int32, device=dev)
+    before = tca.decode_attention.launches_by_dtype[kind]
+    got = tca.decode_attention(q, k, v, pos, ks=ks, vs=vs)
+    want = tca.reference_decode_attention(q, k, v, pos, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert tca.decode_attention.launches_by_dtype[kind] == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_decode_kernel(dev, kind, d):
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn(3, 2, 2, d, generator=g, device=dev)
-    kp = torch.randn(40, 2, 8, d, generator=g, device=dev).to(dtype)
-    vp = torch.randn(40, 2, 8, d, generator=g, device=dev).to(dtype)
+    kp, vp, ks, vs = _cache(g, (40, 2, 8, d), kind, dev)
     perm = torch.randperm(39, generator=torch.Generator().manual_seed(2)) + 1
     tables = perm[:36].reshape(3, 12).to(torch.int32).to(dev)
     pos = torch.tensor([0, 57, 95], dtype=torch.int32, device=dev)
-    before = tca.paged_decode_attention.launches
-    got = tca.paged_decode_attention(q, kp, vp, tables, pos)
-    want = tca.reference_paged_decode_attention(q, kp, vp, tables, pos)
+    before = tca.paged_decode_attention.launches_by_dtype[kind]
+    got = tca.paged_decode_attention(q, kp, vp, tables, pos, ks=ks, vs=vs)
+    want = tca.reference_paged_decode_attention(q, kp, vp, tables, pos,
+                                                 ks=ks, vs=vs)
     torch.cuda.synchronize()
-    assert tca.paged_decode_attention.launches == before + 1
+    assert tca.paged_decode_attention.launches_by_dtype[kind] == before + 1
     assert (got - want).abs().max().item() <= ATOL
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
-    """A non-contiguous or unsupported-dim CUDA tensor raises; it never
-    falls back to the plain version."""
+    """A non-contiguous or unsupported-dim CUDA tensor, or an int8 cache
+    without its scales, raises; it never falls back to the plain
+    version."""
     q = torch.randn(1, 2, 8, 64, device=dev).transpose(2, 3).contiguous()
     k = torch.randn(1, 2, 64, 64, device=dev)
     pos = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -75,3 +113,9 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     k16 = torch.randn(1, 2, 64, 16, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tca.cached_attention(q16, k16, k16, pos)
+    with pytest.raises(ValueError, match="head dim"):
+        tca.decode_attention(q16[:, :, :1].contiguous(), k16, k16, pos)
+    k8 = torch.zeros(1, 2, 64, 64, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="scale"):
+        tca.decode_attention(torch.randn(1, 2, 1, 64, device=dev), k8, k8,
+                             pos)

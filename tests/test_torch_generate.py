@@ -1,0 +1,92 @@
+"""The port's solo decoder (runtime/generate.make_generate) on the CPU
+against the JAX package's make_generate(attn_kernel=False) on the same
+weights and prompts. Greedy tokens must be IDENTICAL.
+
+Weights: the JAX init with every matrix scaled by 15, so that greedy
+decoding on a 4-layer random model produces varied tokens instead of
+one repeated id."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dnn_tpu.models import gpt as jgpt
+from dnn_tpu.runtime import generate as jgen
+from dnn_tpu_torch.convert import from_jax_params
+from dnn_tpu_torch.models import gpt as tgpt
+from dnn_tpu_torch.runtime import generate as tgen
+
+CFG_J = jgpt.PRESETS["gpt2-test"]
+CFG_T = tgpt.PRESETS["gpt2-test"]
+N_NEW = 12
+
+
+@pytest.fixture(scope="module")
+def weights():
+    tree = jax.tree.map(
+        lambda a: np.asarray(a) * (15.0 if a.ndim >= 2 else 1.0),
+        jgpt.init(jax.random.PRNGKey(0), CFG_J))
+    return (jgpt.prepare_stacked(jax.tree.map(jnp.asarray, tree), CFG_J),
+            from_jax_params(tree, CFG_T, "cpu"))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, {"kv_dtype": "int8"},
+    {"repetition_penalty": 1.3, "logit_bias": {5: 3.0, 7: -100.0}},
+    {"kv_dtype": "int8", "repetition_penalty": 1.3, "logit_bias": {9: 2.5}},
+], ids=["f32", "int8", "f32-penalty-bias", "int8-penalty-bias"])
+def test_greedy_tokens_identical_to_jax(weights, kwargs):
+    """Two prompts of 11 tokens, 12 new tokens: the prefill runs K5's
+    plain version, every decode step K6's."""
+    jprep, tprep = weights
+    ids = np.random.default_rng(0).integers(0, CFG_T.vocab_size, (2, 11))
+    want = jgen.make_generate(CFG_J, max_new_tokens=N_NEW, attn_kernel=False,
+                              **kwargs)(jprep, jnp.asarray(ids),
+                                        jax.random.PRNGKey(0))
+    got = tgen.make_generate(CFG_T, max_new_tokens=N_NEW, device="cpu",
+                             **kwargs)(tprep, ids)
+    assert got.dtype == torch.int32 and got.shape == (2, N_NEW)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(set(got[0].tolist())) > 3  # varied tokens, not one id
+
+
+def test_sampling_is_seeded_and_filtered(weights):
+    """Sampled draws come from a torch.Generator: the same seed repeats
+    the stream, and top_k=1 collapses sampling onto the greedy tokens."""
+    _, tprep = weights
+    ids = np.random.default_rng(1).integers(0, CFG_T.vocab_size, (1, 7))
+    gen = tgen.make_generate(CFG_T, max_new_tokens=8, temperature=0.9,
+                             top_p=0.9, min_p=0.01, device="cpu")
+    np.testing.assert_array_equal(gen(tprep, ids, seed=3),
+                                  gen(tprep, ids, seed=3))
+    greedy = tgen.make_generate(CFG_T, max_new_tokens=8, device="cpu")
+    top1 = tgen.make_generate(CFG_T, max_new_tokens=8, temperature=0.7,
+                              top_k=1, device="cpu")
+    np.testing.assert_array_equal(top1(tprep, ids, seed=5),
+                                  greedy(tprep, ids))
+
+
+@pytest.mark.parametrize("kwargs,exc,match", [
+    ({"compute_dtype": "bf16"}, NotImplementedError, "ROADMAP .* item 4"),
+    ({"ffn": object()}, NotImplementedError, "ROADMAP .* item 7"),
+    ({"kv_dtype": "int4"}, NotImplementedError, "ROADMAP .* item 2"),
+    ({"kv_dtype": "fp8"}, ValueError, "kv_dtype"),
+    ({"min_p": 1.5}, ValueError, "min_p"),
+    ({"repetition_penalty": 0.0}, ValueError, "repetition_penalty"),
+    ({"logit_bias": {CFG_T.vocab_size: 1.0}}, ValueError, "logit_bias"),
+])
+def test_make_generate_rejects(kwargs, exc, match):
+    """Options this slice leaves out raise naming their ROADMAP item;
+    bad values raise ValueError."""
+    with pytest.raises(exc, match=match):
+        tgen.make_generate(CFG_T, max_new_tokens=4, device="cpu", **kwargs)
+
+
+def test_prompt_past_block_size_raises(weights):
+    _, tprep = weights
+    gen = tgen.make_generate(CFG_T, max_new_tokens=8, device="cpu")
+    with pytest.raises(ValueError, match="block_size"):
+        gen(tprep, np.zeros((1, CFG_T.block_size - 4), np.int64))

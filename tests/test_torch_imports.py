@@ -63,21 +63,29 @@ def test_source_imports_no_jax(path):
 
 
 def test_entry_points_need_a_card_unless_told_otherwise():
-    """Without device=, ContinuousBatcher and LMServer run on CUDA — on
-    a host without a card they raise instead of serving on the CPU."""
+    """Without device=, ContinuousBatcher (every cache layout), LMServer
+    and make_generate run on CUDA — on a host without a card they raise
+    instead of serving on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card; the default is satisfiable")
     from dnn_tpu_torch import resolve_device
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models.gpt import PRESETS, init
+    from dnn_tpu_torch.runtime.generate import make_generate
     from dnn_tpu_torch.runtime.lm_server import LMServer
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
     cfg = PRESETS["gpt2-test"]
     prepared = from_jax_params(init(0, cfg), cfg, "cpu")
     for ctor in (ContinuousBatcher, LMServer):
+        for layout in ({}, {"kv": "dense", "kv_dtype": "int8"},
+                       {"kv": "dense", "decode_buckets": True}):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ctor(cfg, prepared, slots=2, max_len=32, prompt_pad=16,
+                     **layout)
+    for kv_dtype in (None, "int8"):
         with pytest.raises(RuntimeError, match="CUDA"):
-            ctor(cfg, prepared, slots=2, max_len=32, prompt_pad=16)
+            make_generate(cfg, max_new_tokens=4, kv_dtype=kv_dtype)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"

@@ -120,6 +120,49 @@ def test_bad_requests_get_grpc_errors(served):
     jc.close()
 
 
+def test_dense_int8_daemon_matches_jax_batcher():
+    """A daemon on the dense int8 pool (kv="dense", kv_dtype="int8":
+    K5 int8 prefill, K6 int8 decode), driven concurrently by the JAX
+    client: the same tokens as the JAX batcher on that configuration."""
+    tree = jax.tree.map(
+        lambda a: np.asarray(a) * (15.0 if a.ndim >= 2 else 1.0),
+        jgpt.init(jax.random.PRNGKey(2), CFG_J))
+    layout = dict(kv="dense", kv_dtype="int8", **POOL)
+    jb = JaxBatcher(CFG_J, jgpt.prepare_stacked(
+        jax.tree.map(jnp.asarray, tree), CFG_J), **layout)
+    rids = [jb.submit(p, N_NEW) for p in PROMPTS]
+    res = jb.drain()
+    port = _free_port()
+    thread, stop = start_lm_server_in_background(
+        CFG_T, from_jax_params(tree, CFG_T, "cpu"), port=port,
+        device="cpu", **layout)
+    try:
+        assert not stop.servicer.batcher.paged
+        client = JaxClient(f"127.0.0.1:{port}")
+        assert client.wait_healthy(deadline=30)
+        got, errors = {}, []
+
+        def call(i):
+            try:
+                got[i] = client.generate(PROMPTS[i], max_new_tokens=N_NEW,
+                                         timeout=60)
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errors and not any(t.is_alive() for t in threads)
+        for i, rid in enumerate(rids):
+            np.testing.assert_array_equal(got[i], res[rid])
+        client.close()
+    finally:
+        stop()
+    assert not thread.is_alive()
+
+
 def test_parse_gen_options_grammar():
     assert parse_gen_options("gen:7:3:t=0.5:k=4:dl=2.000", 32) == \
         (7, 3, {"temperature": 0.5, "top_k": 4})
@@ -193,3 +236,28 @@ def test_node_cli_daemon_serves_and_drains_on_sigterm(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
+
+
+def test_node_cli_kv_flags(tmp_path, caplog):
+    """The JAX daemon's cache flags parse with its spellings; --kv_dtype
+    int4 exits with the ROADMAP item-2 message instead of serving."""
+    import json
+
+    from dnn_tpu_torch.node import build_parser, main
+
+    args = build_parser().parse_args(
+        ["--node_id", "n", "--config", "c", "--serve_lm", "--kv", "dense",
+         "--kv_dtype", "int8", "--decode_buckets", "--paged_blocks", "0"])
+    assert (args.kv, args.kv_dtype, args.decode_buckets,
+            args.paged_blocks) == ("dense", "int8", True, 0)
+    assert build_parser().parse_args(
+        ["--node_id", "n", "--config", "c"]).kv == "auto"
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"model": "gpt2-test", "nodes": [
+        {"id": "node1", "part_index": 0,
+         "address": f"127.0.0.1:{_free_port()}"}]}))
+    with caplog.at_level("ERROR", logger="dnn_tpu_torch.node"):
+        assert main(["--node_id", "node1", "--config", str(cfg),
+                     "--serve_lm", "--device", "cpu", "--kv_dtype",
+                     "int4"]) == 2
+    assert "item 2" in caplog.text

@@ -1,7 +1,8 @@
-"""The port's paged ContinuousBatcher on the CPU against the JAX
-package's ContinuousBatcher(kv="paged") on the same weights and the same
-submit/step script, plus the pool's block accounting, back-pressure and
-the options this slice leaves out.
+"""The port's ContinuousBatcher on the CPU against the JAX package's on
+the same weights and the same submit/step script — the paged pool, the
+dense pool (plain and bucketed), int8 KV on both, and the kv="auto"
+dense fallback — plus the pool's block accounting, back-pressure and the
+options this slice leaves out.
 
 Weights: the JAX init with every matrix scaled by 15, so that greedy
 decoding on a 4-layer random model produces varied tokens instead of
@@ -62,6 +63,52 @@ def test_greedy_tokens_identical_to_jax(weights):
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
     assert len(set(got[1].tolist())) > 3  # varied tokens, not one id
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"kv": "dense"},
+    {"kv": "dense", "decode_buckets": (16, 32)},
+    {"kv": "paged", "kv_dtype": "int8"},
+    {"kv": "dense", "kv_dtype": "int8"},
+    {"kv": "auto", "prompt_pad": 12},
+], ids=["dense", "dense-buckets", "paged-int8", "dense-int8",
+        "auto-dense-fallback"])
+def test_layout_greedy_tokens_identical_to_jax(weights, kwargs, caplog):
+    """The same script through every other cache layout/dtype the JAX
+    batcher serves. The bucketed pool starts at 16 positions and grows
+    twice (a 37-token prompt needs 38 columns); prompt_pad 12 does not
+    tile block_len 8, so kv="auto" falls back to the dense pool — the
+    shape the first slice refused — and logs why."""
+    jprep, tprep = weights
+    pool = {**POOL, **kwargs}
+    want = _script(JaxBatcher(CFG_J, jprep, **pool))
+    with caplog.at_level("WARNING", logger="dnn_tpu_torch.serving"):
+        b = ContinuousBatcher(CFG_T, tprep, device="cpu", **pool)
+    got = _script(b)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert b.paged == (kwargs["kv"] == "paged")
+    if kwargs.get("kv_dtype") == "int8":
+        assert b.cache["k"].dtype == torch.int8 and "ks" in b.cache
+    if "decode_buckets" in kwargs:
+        assert b.bucket_grows == 2 and b.cache["k"].shape[3] == 64
+    fell_back = "kv_fallback_dense" in caplog.text
+    assert fell_back == (kwargs["kv"] == "auto")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"kv": "paged", "prompt_pad": 12},
+    {"kv": "paged", "decode_buckets": True},
+    {"kv": "dense", "paged_blocks": 9},
+    {"kv": "auto", "prompt_pad": 12, "paged_blocks": 9},
+    {"kv": "pool"},
+])
+def test_layout_validation(weights, kwargs):
+    """Contradictory or impossible layouts fail loud instead of serving
+    a layout the caller did not ask for."""
+    _, tprep = weights
+    with pytest.raises(ValueError):
+        ContinuousBatcher(CFG_T, tprep, device="cpu", **{**POOL, **kwargs})
 
 
 def test_bf16_pool_serves(weights):
@@ -154,8 +201,8 @@ def test_cancel_stop_and_sampling(weights):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"kv": "dense"}, {"prefix_cache": 4}, {"prefill_chunk_tokens": 16},
-    {"overlap": True}, {"logprobs_k": 2}, {"kv_dtype": "int8"}])
+    {"kv_dtype": "int4"}, {"prefix_cache": 4}, {"prefill_chunk_tokens": 16},
+    {"overlap": True}, {"logprobs_k": 2}, {"kv": "dense", "kv_dtype": "int4"}])
 def test_out_of_scope_options_raise(weights, kwargs):
     _, tprep = weights
     with pytest.raises(NotImplementedError, match="ROADMAP"):
