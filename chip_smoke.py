@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch version on the card, then serves
 GPT-2 at full width through the LM daemon over gRPC in three cache
-configurations, runs the solo decoder, and checks every greedy stream
-against an independent reference.
+configurations, runs the solo decoder, checks every greedy stream
+against an independent reference, and trains full-width GPT-2 through
+the flash-attention kernels.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
 
@@ -17,6 +18,15 @@ Phases (any failure exits non-zero and prints no result):
   4. K7 paged_decode_attention at the decode shape (B=4 Hk=12 R=1 D=64,
      bp=16, nb_max=64, 257 pool blocks), permuted table, pos
      {0,15,16,1023}, f32/bf16/int8 pools
+  4b. K1 flash_attention and K2 flash_attention_lse, then K3
+     flash_bwd_dq and K4 flash_bwd_dkv, at the training shape (B=8 H=12
+     T=S=512 D=64, causal), f32 and bf16; also T=S=500 and a T=128 S=512
+     bottom-right case (checked only). K1/K2 against the plain forward
+     (and logsumexp), K3/K4 against torch.autograd.grad through the plain
+     reference_attention; bf16 against the plain version in f32 on the
+     same bf16 values. Library yardstick: scaled_dot_product_attention
+     (its backward: the profiler's device time of autograd.grad of SDPA
+     minus that of its forward)
   5. the main path (gpt2, random weights from seed 0, 4 slots, max_len
      1024, prompt_pad 64; prompts of 5/70/130/300 tokens, 16 new tokens,
      greedy, 4 concurrent gRPC clients), each run with the launch counts
@@ -31,6 +41,26 @@ Phases (any failure exits non-zero and prints no result):
           against the same two references (K5, K6)
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission (wall, device busy, top kernels)
+  6b. the training main path (gpt2 at full width, seed-0 weights, B=8
+     T=512, make_apply_stacked(use_flash=True), next_token_loss, the
+     port's adamw(1e-4), batches from a seeded token file through
+     TokenDataset), each run with the launch counts zeroed just before
+     and read just after, and the exact flash launches required
+     (per step: K2 = K3 = K4 = 12, K1 = 0; K2 = 24 under remat):
+       T-a loss and per-leaf gradients of one step, kernels against the
+           einsum formula (loss within 1e-5 relative, every leaf's
+           max|dg| <= 1e-4 x its max|g|)
+       T-b 8 fit steps on one batch: the loss falls at every step
+       remat 2 steps: K2 twice per layer; losses and params within 1e-6
+           of T-b's first two steps
+       T-c 6 fit steps, checkpoints every 3; resume_or_init from step 3
+           and 3 more steps equal the uninterrupted params bit for bit
+       T-d evaluate on 2 held-out batches: K1 = 12 per batch, no K2-K4
+       T-e bf16 compute, 3 steps + evaluate: first loss within 2e-2 of
+           the f32 one, finite gradients, K1-K4 launched in bf16
+     plus information: step wall (f32: T-b's warm steps; bf16: 6 more
+     steps), tokens/s, peak memory, MFU, and a torch.profiler view of
+     one f32 and one bf16 step (flash share of device time)
   7. one JSON line describing the kernels, then the result line.
 
 Tolerances against the plain versions: 1e-4 for f32 and int8 caches
@@ -43,8 +73,9 @@ Kernel timings cycle over the 12 layers' slices of a full-model cache,
 so each launch reads K/V the previous launches did not leave in the
 50 MB L2 — as on the serving path.
 Bounds: bytes moved (each input read once, each output written once,
-live columns only, int8 scales included) at 3.35 TB/s, or f32 FMA work
-at 67 TFLOP/s.
+live columns only, int8 scales included) at 3.35 TB/s, or the work at
+the inputs' type's peak: f32 FMAs at 67 TFLOP/s, bf16 at the tensor
+cores' 989 TFLOP/s (the f32 CUDA-core bound is printed beside it).
 """
 
 from __future__ import annotations
@@ -62,6 +93,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 LAYERS = 12
 
@@ -109,10 +141,11 @@ def cycling(fn, n: int):
     return call
 
 
-def bound(nbytes: float, flops: float):
-    """(bound ms, "bytes" | "operations", bytes ms, operations ms)."""
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S):
+    """(bound ms, "bytes" | "operations", bytes ms, operations ms), the
+    operations priced at `peak` FLOP/s (the inputs' type's peak)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, t_bytes, t_ops
 
@@ -312,6 +345,176 @@ def phase_k7(dev, gen):
     return rows
 
 
+FLASH_B, FLASH_H, FLASH_T, FLASH_D = 8, 12, 512, 64
+FLASH_TYPES = (("f32", torch.float32, F32_TOL), ("bf16", torch.bfloat16,
+                                                 BF16_TOL))
+# (T, S, label): the training shape, then two shapes checked only
+FLASH_SHAPES = ((FLASH_T, FLASH_T, ""), (500, 500, " ragged T=S=500"),
+                (128, FLASH_T, " bottom-right T=128 S=512"))
+
+
+def flash_tensors(gen, dev, dtype, *lengths):
+    """(B, H, n, D) normal draws, one per length, in `dtype`."""
+    return [torch.randn(FLASH_B, FLASH_H, n, FLASH_D, generator=gen,
+                        device=dev).to(dtype) for n in lengths]
+
+
+def live_pairs(t: int, s: int) -> int:
+    """(query, key) pairs a causal (bottom-right) call computes, per
+    (batch, head)."""
+    return sum(min(s, r + 1 + s - t) for r in range(t))
+
+
+def flash_bound(nbytes, flops, dtype):
+    """bound() at the inputs' type's peak; also the f32 CUDA-core
+    operations bound (what this PR's kernels can reach)."""
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    b_ms, by, byte_ms, op_ms = bound(nbytes, flops, peak)
+    return b_ms, by, byte_ms, op_ms, flops / F32_FLOPS_PER_S * 1e3
+
+
+def flash_report(tag, label, row, nbytes, byte_ms, op_ms, core_ms, dtype):
+    lib = row["library_ms"]
+    peak = "f32 67" if dtype == torch.float32 else "bf16 tensor-core 989"
+    print(f"[{tag}] {label}: err {row['max_abs_err']:.3e} kernel_ms "
+          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
+          f"{row['bound_ms']:.5f} ({row['bound_by']}; bytes {byte_ms:.5f} "
+          f"for {nbytes / 1e6:.1f} MB at 3.35 TB/s, ops {op_ms:.5f} at "
+          f"{peak} TFLOP/s; f32 CUDA-core ops bound {core_ms:.5f})",
+          flush=True)
+
+
+def yardstick_ms(label, fn):
+    """time_ms of a library call used only as a yardstick; None (and a
+    note) where this torch build does not run it."""
+    try:
+        return time_ms(fn)
+    except Exception as e:  # noqa: BLE001 — a yardstick, not the port
+        print(f"[yardstick] {label}: not timed ({type(e).__name__}: "
+              f"{str(e)[:120]})", flush=True)
+        return None
+
+
+def phase_flash_fwd(dev, gen):
+    """K1 (flash_attention without a gradient) and K2 (with the
+    logsumexp) against the plain versions at the training shape (B=8
+    H=12 T=S=512 D=64, causal), f32 and bf16, plus the ragged and the
+    bottom-right shape (checked only). bf16 is held against the plain
+    version run in f32 on the same bf16 values. Returns {kernel: {dtype:
+    row}}."""
+    from dnn_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_lse, reference_attention,
+        reference_attention_lse)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_attention": {}, "flash_attention_lse": {}}
+    for name, dt, tol in FLASH_TYPES:
+        err1 = err2 = 0.0
+        for t, s, label in FLASH_SHAPES:
+            q, k, v = flash_tensors(gen, dev, dt, t, s, s)
+            qf, kf, vf = q.float(), k.float(), v.float()
+            want2, want_lse = reference_attention_lse(qf, kf, vf)
+            err1 = max(err1, check(f"K1 {name}{label}",
+                                   flash_attention(q, k, v).float(),
+                                   reference_attention(qf, kf, vf), tol))
+            out, lse = flash_attention_lse(q, k, v)
+            err2 = max(err2, check(f"K2 {name}{label} out", out.float(),
+                                   want2, tol),
+                       check(f"K2 {name}{label} lse", lse, want_lse,
+                             F32_TOL))
+            if (t, s) == (FLASH_T, FLASH_T):
+                main = (q, k, v)
+        q, k, v = main
+        bh = FLASH_B * FLASH_H
+        nbytes = 4 * q.numel() * q.element_size()  # q, k, v in; out
+        flops = 4 * FLASH_D * bh * live_pairs(FLASH_T, FLASH_T)
+        lib1 = time_ms(lambda: sdpa(q, k, v, is_causal=True))
+        lib2 = yardstick_ms(
+            "SDPA with logsumexp (aten efficient attention)",
+            lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                q, k, v, None, True, is_causal=True))
+        for kname, fn, plain, extra, err, lib in (
+                ("flash_attention", lambda: flash_attention(q, k, v),
+                 lambda: reference_attention(q, k, v), 0, err1, lib1),
+                ("flash_attention_lse", lambda: flash_attention_lse(q, k, v),
+                 lambda: reference_attention_lse(q, k, v), bh * FLASH_T * 4,
+                 err2, lib2)):
+            b_ms, by, byte_ms, op_ms, core_ms = flash_bound(nbytes + extra,
+                                                            flops, dt)
+            row = rows[kname][name] = dict(
+                ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
+                bound_ms=b_ms, bound_by=by, max_abs_err=err)
+            flash_report("K1" if kname == "flash_attention" else "K2",
+                         f"{name:4s} B=8 H=12 T=S=512 D=64 causal", row,
+                         nbytes + extra, byte_ms, op_ms, core_ms, dt)
+    return rows
+
+
+def phase_flash_bwd(dev, gen):
+    """K3 (dQ) and K4 (dK, dV) at the same shapes, held against
+    torch.autograd.grad through the plain reference_attention (in f32 on
+    the same values for bf16). Tolerance relative to each gradient's max
+    |value|: 1e-4 for f32 (sums of up to 512 products in another order),
+    2e-2 for bf16 (outputs rounded to bf16). Returns {kernel: {dtype:
+    row}}."""
+    from dnn_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_lse, flash_bwd_dkv, flash_bwd_dq, reference_attention,
+        reference_flash_bwd_dkv, reference_flash_bwd_dq)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for name, dt, tol in FLASH_TYPES:
+        err3 = err4 = 0.0
+        for t, s, label in FLASH_SHAPES:
+            q, k, v, do = flash_tensors(gen, dev, dt, t, s, s, t)
+            qf, kf, vf = (x.float().requires_grad_(True) for x in (q, k, v))
+            gq, gk, gv = torch.autograd.grad(reference_attention(qf, kf, vf),
+                                             (qf, kf, vf), do.float())
+            out, lse = flash_attention_lse(q, k, v)
+            di = (do.float() * out.float()).sum(-1)
+            dq = flash_bwd_dq(q, k, v, do, lse, di)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, di)
+            err3 = max(err3, check(f"K3 {name}{label} dq", dq.float(), gq,
+                                   tol * gq.abs().max().item()))
+            err4 = max(err4,
+                       check(f"K4 {name}{label} dk", dk.float(), gk,
+                             tol * gk.abs().max().item()),
+                       check(f"K4 {name}{label} dv", dv.float(), gv,
+                             tol * gv.abs().max().item()))
+            if (t, s) == (FLASH_T, FLASH_T):
+                main = (q, k, v, do, lse, di)
+        q, k, v, do, lse, di = main
+        bh = FLASH_B * FLASH_H
+        tensor_bytes = q.numel() * q.element_size()
+        stat_bytes = 2 * bh * FLASH_T * 4
+        pairs = bh * live_pairs(FLASH_T, FLASH_T)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        # SDPA's backward: the device time of autograd.grad of SDPA
+        # minus that of its forward (a backward is not captured into a
+        # graph here; eager event timing would count host overhead)
+        lib = (device_ms(lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+            - device_ms(lambda: sdpa(q, k, v, is_causal=True)))
+        for kname, fn, plain, nbytes, flops, err in (
+                ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, di),
+                 lambda: reference_flash_bwd_dq(q, k, v, do, lse, di),
+                 5 * tensor_bytes + stat_bytes, 6 * FLASH_D * pairs, err3),
+                ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, di),
+                 lambda: reference_flash_bwd_dkv(q, k, v, do, lse, di),
+                 6 * tensor_bytes + stat_bytes, 8 * FLASH_D * pairs, err4)):
+            b_ms, by, byte_ms, op_ms, core_ms = flash_bound(nbytes, flops, dt)
+            row = rows[kname][name] = dict(
+                ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
+                bound_ms=b_ms, bound_by=by, max_abs_err=err)
+            flash_report("K3" if kname == "flash_bwd_dq" else "K4",
+                         f"{name:4s} B=8 H=12 T=S=512 D=64 causal (library: "
+                         "SDPA's whole backward, dQ dK dV)", row, nbytes,
+                         byte_ms, op_ms, core_ms, dt)
+    return rows
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -405,13 +608,19 @@ def compare_tokens(label, got, want, gaps):
     print(f"[main] {label}: {got[:8]}... matches the reference", flush=True)
 
 
-KERNEL_FNS = ("cached_attention", "decode_attention", "paged_decode_attention")
+CACHE_KERNELS = ("cached_attention", "decode_attention",
+                 "paged_decode_attention")
+FLASH_KERNELS = ("flash_attention", "flash_attention_lse", "flash_bwd_dq",
+                 "flash_bwd_dkv")
 
 
 def _wrappers():
     from dnn_tpu_torch.ops.cuda import cached_attention as tca
+    from dnn_tpu_torch.ops.cuda import flash_attention as tfa
 
-    return {name: getattr(tca, name) for name in KERNEL_FNS}
+    out = {name: getattr(tca, name) for name in CACHE_KERNELS}
+    out.update({name: getattr(tfa, name) for name in FLASH_KERNELS})
+    return out
 
 
 def reset_counts():
@@ -576,13 +785,15 @@ def phase_main_path(dev, card: str):
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in ("f32", "bf16", "int8")}
-                for name in KERNEL_FNS}
+                for name in CACHE_KERNELS}
     return launches, prepared, cfg, prompts
 
 
-def _profiled(fn):
-    """(wall ms, device ms, kernel launches, top kernels) of fn() under
-    torch.profiler: device ms sums the kernels' own device time."""
+def _kernel_events(fn):
+    """(wall ms, the device-side events of fn()) under torch.profiler:
+    kernels and copies only — an operator's row repeats the time of its
+    kernels, and a user annotation (Optimizer.step) the time of the
+    kernels inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -592,9 +803,32 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # kernels only: an operator's row repeats the time of its kernels
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return wall, [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one fn() call: the profiler's sum of its
+    kernels' own time over `iters` calls, after a warm-up. For library
+    calls that are not captured into a graph (an autograd backward): host
+    overhead between kernels does not count."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    _, evs = _kernel_events(run)
+    return sum(e.self_device_time_total for e in evs) / 1e3 / iters
+
+
+def _profiled(fn):
+    """(wall ms, device ms, kernel launches, top kernels) of fn() under
+    torch.profiler: device ms sums the kernels' own device time."""
+    wall, evs = _kernel_events(fn)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
     n_kernels = sum(e.count for e in evs)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
@@ -651,6 +885,311 @@ def phase_profile(prepared, cfg, prompts, dev):
             print(f"[profile]   prefill {ms:.4f} ms  x{n}  {name}", flush=True)
 
 
+TRAIN_B, TRAIN_T, TRAIN_LAYERS = 8, 512, 12
+
+
+def require_exact(label, counts, expected):
+    """Every (kernel, dtype) of `expected` launched exactly that many
+    times in the run; prints the run's flash counts."""
+    flash = {n: {dt: c for dt, c in counts[n].items() if c}
+             for n in FLASH_KERNELS}
+    print(f"[train] {label} flash launches: {flash}", flush=True)
+    for (name, dt), n in expected.items():
+        if counts[name][dt] != n:
+            fail(f"{label}: {name} ({dt}) launched {counts[name][dt]} times, "
+                 f"expected {n}")
+
+
+def per_step(n_steps: int, dt: str = "f32", remat: bool = False):
+    """The exact flash launches of n train steps (no eval): K2 once per
+    layer (twice under remat: the recompute), K3 and K4 once, K1 never."""
+    n, k2 = n_steps * TRAIN_LAYERS, (2 if remat else 1)
+    return {("flash_attention", dt): 0, ("flash_attention_lse", dt): k2 * n,
+            ("flash_bwd_dq", dt): n, ("flash_bwd_dkv", dt): n}
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def add_counts(total, counts):
+    for name in FLASH_KERNELS:
+        for dt in ("f32", "bf16"):
+            total[name][dt] += counts[name][dt]
+
+
+def _flash_share(fn):
+    """(wall ms, device ms, flash-kernel share of device time, top
+    kernels) of fn() under torch.profiler."""
+    wall, evs = _kernel_events(fn)
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in evs
+                   if "flash_" in e.key) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    return wall, dev_ms, flash_ms, [(e.key[:70], e.self_device_time_total
+                                     / 1e3, e.count) for e in top]
+
+
+def phase_train(dev, card):
+    """The training main path: full-width gpt2 (seed-0 weights, nothing
+    cut), B=8 T=512, make_apply_stacked(use_flash=True), next_token_loss,
+    the port's adamw(1e-4), batches from a seeded token file through
+    TokenDataset. Runs T-a..T-e, each with the launch counts zeroed just
+    before and read just after. Returns the flash launches summed over
+    the runs, {kernel: {dtype: n}}."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+
+    from dnn_tpu_torch import optim, train
+    from dnn_tpu_torch.data.tokens import TokenDataset, write_tokens
+    from dnn_tpu_torch.models.gpt import (PRESETS, init, make_apply_stacked,
+                                          prepare_stacked)
+    from dnn_tpu_torch.utils.flops import gpt_train_step_flops
+
+    cfg = PRESETS["gpt2"]
+    t0 = time.perf_counter()
+    tree = init(0, cfg)
+    total = {n: {"f32": 0, "bf16": 0} for n in FLASH_KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        path = os.path.join(tmp, "tokens.bin")
+        write_tokens(path, np.random.default_rng(1).integers(
+            0, cfg.vocab_size, 2_000_000))
+        ds = TokenDataset(path)
+        batch0 = next(ds.batches(TRAIN_B, TRAIN_T, seed=0))
+        held = list(itertools.islice(ds.batches(TRAIN_B, TRAIN_T, seed=99), 2))
+        print(f"[train] gpt2 tree (seed 0) and a {len(ds)}-token file in "
+              f"{time.perf_counter() - t0:.1f} s; B={TRAIN_B} T={TRAIN_T}",
+              flush=True)
+
+        def fresh():
+            prepared = prepare_stacked(tree, cfg, dev)
+            opt = optim.adamw(1e-4)
+            return (prepared, opt.init(prepared)), opt
+
+        def fit_fn(opt, **kw):
+            apply = make_apply_stacked(cfg, **kw)
+            step = train.make_train_step(
+                lambda p, b: train.next_token_loss(apply, p, b), opt)
+
+            def fn(state, batch):
+                params, opt_state, loss = step(*state, batch)
+                return (params, opt_state), loss
+            return fn
+
+        def run(label, fn, state, batches, n, hook=None, **fit_kw):
+            """fit n steps with the counts zeroed before and read after
+            (hook(step) after each); returns (state, losses, per-step
+            walls, counts)."""
+            losses, stamps = [], []
+
+            def on_step(step, loss):
+                losses.append(loss.item())
+                stamps.append(time.perf_counter())
+                if hook is not None:
+                    hook(step)
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            stamps.append(time.perf_counter())
+            state, _ = train.fit(fn, state, batches, num_steps=n,
+                                 on_step=on_step, **fit_kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            add_counts(total, counts)
+            walls = [b - a for a, b in zip(stamps, stamps[1:])]
+            print(f"[train] {label}: losses {[round(x, 5) for x in losses]}",
+                  flush=True)
+            return state, losses, walls, counts
+
+        # T-a: loss and per-leaf gradients, kernels against the einsum
+        tokens0 = torch.as_tensor(batch0, device=dev)
+        grads = {}
+        for use_flash in (True, False):
+            (prepared, _), _ = fresh()
+            apply = make_apply_stacked(cfg, use_flash=use_flash)
+            torch.cuda.synchronize()
+            reset_counts()
+            loss = train.next_token_loss(apply, prepared, tokens0)
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if use_flash:
+                add_counts(total, counts)
+                require_exact("T-a one step", counts, per_step(1))
+            else:
+                require_exact("T-a einsum step", counts, {
+                    (n, "f32"): 0 for n in FLASH_KERNELS})
+            grads[use_flash] = (loss.item(), {
+                k: leaf.grad for k, leaf in named_leaves(prepared)})
+            del prepared
+        (lf, gf), (le, ge) = grads[True], grads[False]
+        if not abs(lf - le) <= 1e-5 * abs(le):
+            fail(f"T-a: loss {lf} (kernels) vs {le} (einsum)")
+        worst = max(((gf[k] - ge[k]).abs().max().item()
+                     / max(ge[k].abs().max().item(), 1e-30), k) for k in ge)
+        if not worst[0] <= 1e-4:
+            fail(f"T-a: leaf {worst[1]} max|dg| = {worst[0]:.3e} x max|g|")
+        print(f"[train] T-a: loss {lf:.6f} (kernels) vs {le:.6f} (einsum), "
+              f"rel {abs(lf - le) / le:.2e}; worst leaf {worst[1]} max|dg| "
+              f"{worst[0]:.2e} x its max|g| (limit 1e-4)", flush=True)
+        del grads, gf, ge
+
+        # T-b: 8 steps on one repeated batch; the loss falls at every step
+        state, opt = fresh()
+        after2 = {}
+
+        def keep_step2(step):
+            if step == 2:
+                after2.update({k: t.detach().clone()
+                               for k, t in named_leaves(state[0])})
+        _, losses_b, walls_b, counts = run(
+            "T-b 8 steps, one batch", fit_fn(opt, use_flash=True), state,
+            itertools.repeat(batch0), 8, hook=keep_step2)
+        del state
+        require_exact("T-b", counts, per_step(8))
+        if any(b >= a for a, b in zip(losses_b, losses_b[1:])):
+            fail(f"T-b: the loss did not fall at every step: {losses_b}")
+        peak_f32 = torch.cuda.max_memory_allocated()
+
+        # remat: 2 steps; K2 twice per layer, loss and params as without
+        state_r, opt_r = fresh()
+        state_r, losses_r, _, counts = run(
+            "remat 2 steps", fit_fn(opt_r, use_flash=True, remat=True),
+            state_r, itertools.repeat(batch0), 2)
+        require_exact("remat", counts, per_step(2, remat=True))
+        d_loss = max(abs(a - b) for a, b in zip(losses_r, losses_b[:2]))
+        d_par = max((t - after2[k]).abs().max().item()
+                    for k, t in named_leaves(state_r[0]))
+        if d_loss > 1e-6 or d_par > 1e-6:
+            fail(f"remat: loss differs by {d_loss}, params by {d_par}")
+        print(f"[train] remat: losses within {d_loss:.1e}, params within "
+              f"{d_par:.1e} of the run without it (limit 1e-6)", flush=True)
+        del state_r, after2
+
+        # T-c: 6 steps with checkpoints every 3; resume from 3, 3 more
+        ck, ck3 = os.path.join(tmp, "ck"), os.path.join(tmp, "ck3")
+        state, opt = fresh()
+        fn = fit_fn(opt, use_flash=True)
+        state, _, _, counts = run(
+            "T-c 6 steps, checkpoint every 3", fn, state,
+            ds.batches(TRAIN_B, TRAIN_T, seed=2), 6, ckpt_dir=ck,
+            ckpt_every=3, keep_checkpoints=2)
+        require_exact("T-c", counts, per_step(6))
+        whole = {k: t.detach().clone() for k, t in named_leaves(state[0])}
+        os.makedirs(ck3)
+        for name in ("step_00000003.npz", "step_00000003.npz.manifest.json"):
+            os.replace(os.path.join(ck, name), os.path.join(ck3, name))
+        del state
+        fresh_state, opt = fresh()
+        state, start = train.resume_or_init(ck3, fresh_state)
+        if start != 3:
+            fail(f"T-c: resumed at step {start}, expected 3")
+        state, _, _, counts = run(
+            "T-c resumed at 3, to 6", fit_fn(opt, use_flash=True), state,
+            ds.batches(TRAIN_B, TRAIN_T, seed=2), 6, start_step=3)
+        require_exact("T-c resume", counts, per_step(3))
+        d_res = max((t - whole[k]).abs().max().item()
+                    for k, t in named_leaves(state[0]))
+        if d_res != 0.0:
+            fail(f"T-c: resumed params differ by {d_res} (expected "
+                 "bit-equal: the kernels and the step are deterministic)")
+        print(f"[train] T-c: resumed run == uninterrupted run, max|d| "
+              f"{d_res} (bit-equal)", flush=True)
+        del whole
+
+        # T-d: evaluate, K1's path
+        apply = make_apply_stacked(cfg, use_flash=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        ev = train.evaluate(apply, state[0], held)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(total, counts)
+        require_exact("T-d evaluate", counts, {
+            ("flash_attention", "f32"): TRAIN_LAYERS * len(held),
+            ("flash_attention_lse", "f32"): 0, ("flash_bwd_dq", "f32"): 0,
+            ("flash_bwd_dkv", "f32"): 0})
+        if not math.isfinite(ev["loss"]):
+            fail(f"T-d: evaluate loss {ev['loss']}")
+        print(f"[train] T-d: evaluate on {ev['batches']} held-out batches "
+              f"({ev['tokens']} tokens): loss {ev['loss']:.5f} perplexity "
+              f"{ev['perplexity']:.2f}", flush=True)
+
+        # information: one profiled f32 step
+        wall, dev_ms, flash_ms, top = _flash_share(
+            lambda: fn(state, batch0))
+        print(f"[profile] train step f32: {wall:.1f} ms wall, {dev_ms:.1f} ms "
+              f"device busy; flash kernels {flash_ms:.2f} ms = "
+              f"{100 * flash_ms / dev_ms:.1f}% of device time", flush=True)
+        for name, ms, n in top:
+            print(f"[profile]   {ms:8.3f} ms  x{n}  {name}", flush=True)
+        del state
+
+        # T-e: bf16 compute, 3 steps, then evaluate
+        state, opt = fresh()
+        fn_e = fit_fn(opt, use_flash=True, compute_dtype=torch.bfloat16)
+        state, losses_e, _, counts = run(
+            "T-e bf16 3 steps", fn_e, state, itertools.repeat(batch0), 3)
+        if abs(losses_e[0] - lf) > 2e-2:
+            fail(f"T-e: first bf16 loss {losses_e[0]} vs f32 {lf}")
+        if not all(torch.isfinite(t.grad).all() for _, t in
+                   named_leaves(state[0])):
+            fail("T-e: non-finite gradients")
+        apply_bf16 = make_apply_stacked(cfg, use_flash=True,
+                                        compute_dtype=torch.bfloat16)
+        reset_counts()
+        ev_bf16 = train.evaluate(apply_bf16, state[0], held[:1])
+        torch.cuda.synchronize()
+        counts_e = read_counts()
+        add_counts(total, counts_e)
+        for name in FLASH_KERNELS:
+            counts_e[name]["bf16"] += counts[name]["bf16"]
+        require_exact("T-e steps + evaluate", counts_e, {
+            **per_step(3, "bf16"),
+            ("flash_attention", "bf16"): TRAIN_LAYERS})
+        print(f"[train] T-e: first bf16 loss {losses_e[0]:.5f} vs f32 "
+              f"{lf:.5f} (limit 2e-2); evaluate loss {ev_bf16['loss']:.5f}",
+              flush=True)
+
+        # information: 6 more bf16 steps for the step time, one profiled
+        state, _, walls_e, counts = run(
+            "bf16 timing, 6 more steps", fn_e, state,
+            itertools.repeat(batch0), 6)
+        require_exact("bf16 timing", counts, per_step(6, "bf16"))
+        peak_bf16 = torch.cuda.max_memory_allocated()
+        wall, dev_ms, flash_ms, top = _flash_share(
+            lambda: fn_e(state, batch0))
+        print(f"[profile] train step bf16: {wall:.1f} ms wall, {dev_ms:.1f} "
+              f"ms device busy; flash kernels {flash_ms:.2f} ms = "
+              f"{100 * flash_ms / dev_ms:.1f}% of device time", flush=True)
+        for name, ms, n in top:
+            print(f"[profile]   {ms:8.3f} ms  x{n}  {name}", flush=True)
+
+        flops = gpt_train_step_flops(cfg, TRAIN_B, TRAIN_T)
+        for label, walls, peak_mem, peak, pname in (
+                ("f32", walls_b[1:], peak_f32, F32_FLOPS_PER_S,
+                 "67 TFLOP/s f32 CUDA-core peak"),
+                ("bf16", walls_e, peak_bf16, BF16_FLOPS_PER_S,
+                 "989 TFLOP/s bf16 tensor-core peak")):
+            step_s = float(np.median(walls))
+            print(f"[train] {label} step (median of {len(walls)} warm "
+                  f"steps): {step_s * 1e3:.1f} ms wall, "
+                  f"{TRAIN_B * TRAIN_T / step_s:.0f} tokens/s, peak "
+                  f"{peak_mem / 2**30:.2f} GiB allocated, MFU "
+                  f"{100 * flops / step_s / peak:.2f}% of the {pname} "
+                  f"({flops / 1e12:.3f} TFLOP/step); on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def kernel_record(name, source, replaces, rows, main_row, launches):
     """One entry of the kernels line: the f32 case at the main-path shape
     on top, every cache type under by_dtype, launches summed over the
@@ -686,8 +1225,11 @@ def main():
     k5 = phase_k5(dev, gen)
     k6 = phase_k6(dev, gen)
     k7 = phase_k7(dev, gen)
+    flash = {**phase_flash_fwd(dev, gen), **phase_flash_bwd(dev, gen)}
     launches, prepared, cfg, prompts = phase_main_path(dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
+    del prepared
+    launches.update(phase_train(dev, smi))
 
     src = "dnn_tpu_torch/ops/cuda/csrc/"
     pallas = "dnn_tpu/ops/pallas/cached_attention.py"
@@ -703,6 +1245,14 @@ def main():
                       pallas + ":459", k7, "f32",
                       launches["paged_decode_attention"]),
     ]
+    flash_py = "dnn_tpu/ops/pallas/flash_attention.py"
+    for name, source, line in (
+            ("flash_attention", "flash_attention.cu", 50),
+            ("flash_attention_lse", "flash_attention.cu", 102),
+            ("flash_bwd_dq", "flash_backward.cu", 149),
+            ("flash_bwd_dkv", "flash_backward.cu", 181)):
+        kernels.append(kernel_record(name, src + source, f"{flash_py}:{line}",
+                                     flash[name], "f32", launches[name]))
     print(f"{smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
-"""dnn_tpu_torch: the PyTorch/CUDA port of dnn_tpu's GPT-2 LM daemon and
-solo decoder.
+"""dnn_tpu_torch: the PyTorch/CUDA port of dnn_tpu's GPT-2 LM daemon,
+solo decoder and single-card training.
 
 The JAX package (`dnn_tpu`) stays the reference; this package serves the
-same model over the same gRPC wire on an NVIDIA H100, with the three
-Pallas cache-attention kernels of that path (chunked prefill, dense
-decode, paged decode; float and int8 caches) rewritten as hand-written
-CUDA kernels (ops/cuda). It imports torch, numpy, grpc and protobuf —
-never jax, and nothing of dnn_tpu.
+same model over the same gRPC wire on an NVIDIA H100 and trains it
+(train.py), with every Pallas kernel of the JAX package — the three
+cache-attention kernels of serving (chunked prefill, dense decode, paged
+decode; float and int8 caches) and the four flash-attention kernels of
+training (forward, forward with logsumexp, dQ, dK/dV) — rewritten as
+hand-written CUDA kernels (ops/cuda). It imports torch, numpy, grpc and
+protobuf — never jax, and nothing of dnn_tpu.
 
 Device policy: every entry point runs on the card unless the caller
 asks for the CPU by name. There is no quiet fallback — `resolve_device`

@@ -6,6 +6,12 @@ one set of weights feeds both packages (dnn_tpu_torch/convert.py).
 `prepare_stacked` turns that tree into the served form: per-block
 tensors stacked along a leading layer axis, on one device. The layer
 loop is plain Python (`layer_params` takes one layer's views).
+
+The stateless forward (`make_apply`, `make_apply_stacked`: embed ->
+blocks -> head) is the training path's model; with `use_flash=True` its
+attention runs the flash kernels (ops/cuda/flash_attention.py).
+Training sets requires_grad on the stacked leaves; the layers' gradients
+reach each (L, ...) leaf through `unstack`.
 """
 
 from __future__ import annotations
@@ -14,8 +20,10 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from dnn_tpu_torch.ops.nn import layer_norm, linear
+from dnn_tpu_torch.ops.attention import causal_self_attention
+from dnn_tpu_torch.ops.nn import embedding, gelu, layer_norm, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +104,12 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def tensors(params, device):
+    """JAX-layout tree (numpy leaves) -> the same per-layer tree of
+    float32 tensors on `device` (the layout `make_apply` takes)."""
+    return _map(lambda a: _to_tensor(a, device), params)
+
+
 def prepare_stacked(params, cfg: GPTConfig, device):
     """JAX-layout tree (numpy leaves) -> the served form: every block
     leaf stacked along a leading (L,) axis, all leaves float32 tensors
@@ -127,8 +141,113 @@ def layer_params(blocks, i: int):
     return _map(lambda t: t[i], blocks)
 
 
-def head(prepared, x, *, cfg: GPTConfig):
-    """Final LayerNorm + lm_head -> f32 logits."""
+def unstack(blocks, n_layer: int):
+    """Every layer's parameter views, through one unbind per stacked
+    leaf: under autograd its backward stacks the layers' gradients into
+    the (L, ...) leaf in one op (n_layer separate `t[i]` views would
+    each scatter into a zero tensor of the whole leaf)."""
+    split = _map(lambda t: t.unbind(0), blocks)
+    return [_map(lambda parts: parts[i], split) for i in range(n_layer)]
+
+
+def head(prepared, x, *, cfg: GPTConfig, compute_dtype=None):
+    """Final LayerNorm + lm_head -> f32 logits (JAX's head :213). With
+    `compute_dtype` the lm_head product reads operands rounded to it and
+    accumulates in f32."""
     x = layer_norm(prepared["ln_f"], x, eps=cfg.ln_eps)
-    return linear(prepared["lm_head"], x)
+    if compute_dtype is None:
+        return linear(prepared["lm_head"], x)
+    return linear(prepared["lm_head"], x, compute_dtype=compute_dtype,
+                  accum_dtype=torch.float32)
+
+
+def embed(params, idx, *, cfg: GPTConfig):
+    """Token + position embedding of idx (B, T) (JAX's embed :202),
+    with its T <= block_size guard."""
+    t = idx.shape[-1]
+    if t > cfg.block_size:
+        raise ValueError(f"Cannot forward: sequence length {t} > block_size "
+                         f"{cfg.block_size}")
+    pos = torch.arange(t, device=idx.device)
+    return embedding(params["wte"], idx.long()) + embedding(params["wpe"], pos)
+
+
+def block_apply(block_params, x, *, cfg: GPTConfig, use_flash=False,
+                compute_dtype=None):
+    """Pre-LN transformer block (JAX's block_apply :138): every matmul in
+    `compute_dtype` when given, residuals and layer norms in x's
+    dtype."""
+    h = layer_norm(block_params["ln_1"], x, eps=cfg.ln_eps)
+    x = x + causal_self_attention(block_params["attn"], h, n_head=cfg.n_head,
+                                  use_flash=use_flash,
+                                  compute_dtype=compute_dtype)
+    h = layer_norm(block_params["ln_2"], x, eps=cfg.ln_eps)
+    mlp = block_params["mlp"]
+    m = linear(mlp["proj"],
+               gelu(linear(mlp["fc"], h, compute_dtype=compute_dtype)),
+               compute_dtype=compute_dtype)
+    return x + m
+
+
+def _run_blocks(layers, x, *, cfg, use_flash, compute_dtype, remat):
+    """The layer loop. `remat=True` wraps each block in a non-reentrant
+    activation checkpoint (JAX's jax.checkpoint): the backward recomputes
+    the block's forward instead of keeping its intermediates."""
+    def block(bp, h):
+        return block_apply(bp, h, cfg=cfg, use_flash=use_flash,
+                           compute_dtype=compute_dtype)
+
+    for bp in layers:
+        x = checkpoint(block, bp, x, use_reentrant=False) if remat \
+            else block(bp, x)
+    return x
+
+
+def blocks_scan(stacked, x, *, cfg: GPTConfig, use_flash=False,
+                compute_dtype=None, remat=False):
+    """Every block of the (L, ...)-stacked tree over x, in order (JAX's
+    blocks_scan :171; a Python loop in place of lax.scan)."""
+    return _run_blocks(unstack(stacked, cfg.n_layer), x, cfg=cfg,
+                       use_flash=use_flash, compute_dtype=compute_dtype,
+                       remat=remat)
+
+
+def _apply_from(params, idx, layers, *, cfg, use_flash, compute_dtype,
+                remat):
+    x = embed(params, idx, cfg=cfg)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    x = _run_blocks(layers, x, cfg=cfg, use_flash=use_flash,
+                    compute_dtype=compute_dtype, remat=remat)
+    return head(params, x.float(), cfg=cfg, compute_dtype=compute_dtype)
+
+
+def make_apply(cfg: GPTConfig, *, use_flash=False, compute_dtype=None,
+               remat=False):
+    """Full forward over the per-layer tree {"wte", "wpe", "h_i", "ln_f",
+    "lm_head"} of tensors (JAX's make_apply :243): apply(params, idx)
+    -> f32 logits (B, T, V)."""
+
+    def apply(params, idx):
+        layers = (params[f"h_{i}"] for i in range(cfg.n_layer))
+        return _apply_from(params, idx, layers, cfg=cfg, use_flash=use_flash,
+                           compute_dtype=compute_dtype, remat=remat)
+
+    return apply
+
+
+def make_apply_stacked(cfg: GPTConfig, *, use_flash=False, compute_dtype=None,
+                       remat=False):
+    """Full forward over `prepare_stacked` params (JAX's
+    make_apply_stacked :281): embed -> cast to `compute_dtype` -> blocks
+    -> head on f32 activations (bf16 operands, f32 accumulation when
+    `compute_dtype` is set)."""
+
+    def apply(prepared, idx):
+        layers = unstack(prepared["blocks"], cfg.n_layer)
+        return _apply_from(prepared, idx, layers, cfg=cfg,
+                           use_flash=use_flash, compute_dtype=compute_dtype,
+                           remat=remat)
+
+    return apply
 

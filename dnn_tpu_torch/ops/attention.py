@@ -1,6 +1,13 @@
-"""Head split/merge (port of dnn_tpu/ops/attention.py:26-40)."""
+"""Multi-head causal self-attention and head split/merge (port of
+dnn_tpu/ops/attention.py)."""
 
 from __future__ import annotations
+
+from dnn_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention,
+    reference_attention,
+)
+from dnn_tpu_torch.ops.nn import linear
 
 
 def split_heads(x, n_head):
@@ -13,3 +20,25 @@ def merge_heads(x):
     """(B, H, T, D) -> (B, T, H*D)."""
     b, h, t, d = x.shape
     return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+def causal_self_attention(params, x, *, n_head, use_flash=False,
+                          compute_dtype=None):
+    """Fused qkv matmul -> per-head causal attention -> out projection
+    (JAX's causal_self_attention :43). `use_flash=True` runs the flash
+    kernels (ops/cuda/flash_attention.py: K1 without a gradient, K2-K4
+    with one); False the einsum formula, as JAX's XLA path. "auto" means
+    True: on CUDA the kernel always runs (JAX's FLASH_AUTO_THRESHOLD, a
+    TPU crossover, is not carried over). `compute_dtype` casts the
+    matmul operands."""
+    qkv = linear(params["qkv"], x, compute_dtype=compute_dtype)  # (B, T, 3C)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = (split_heads(t, n_head) for t in (q, k, v))
+    if use_flash:  # True or "auto"
+        # split_heads returns a transposed view; the kernels take
+        # contiguous (B, H, T, D) tensors
+        y = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True)
+    else:
+        y = reference_attention(q, k, v, causal=True)
+    return linear(params["proj"], merge_heads(y), compute_dtype=compute_dtype)

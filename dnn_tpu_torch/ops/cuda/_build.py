@@ -31,10 +31,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # kernel name -> (source file, C symbol, argtypes). Every pointer and the
-# stream are c_void_p (the scale pointers too, None for a float cache):
-# a default ctypes int would cut them to 32 bits. kv_kind is 0 = f32,
-# 1 = bf16, 2 = int8 with scales. Each source is self-contained (no
-# shared header), so its own bytes name its library.
+# stream are c_void_p (the scale and lse pointers too, None where
+# absent): a default ctypes int would cut them to 32 bits. kv_kind is
+# 0 = f32, 1 = bf16, 2 = int8 with scales. Each source is self-contained
+# (no shared header), so its own bytes name its library; a source may
+# export several entry points (flash_backward.cu: K3 and K4), and then
+# one library serves them all.
 KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
@@ -50,6 +52,18 @@ KERNELS = {
         # scale stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
          _P]),
+    "flash_attention": (
+        "flash_attention.cu", "dnn_flash_attention",
+        # q k v out lse | BH T S D causal kind | scale stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_bwd_dq": (
+        "flash_backward.cu", "dnn_flash_bwd_dq",
+        # q k v do lse di dq | BH T S D causal kind | scale stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_bwd_dkv": (
+        "flash_backward.cu", "dnn_flash_bwd_dkv",
+        # q k v do lse di dk dv | BH T S D causal kind | scale stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()
@@ -73,18 +87,22 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src, _sym, _args = KERNELS[name]
+    """The library of kernel `name`: named by its source and a hash of
+    the source's bytes and the flags."""
+    src = KERNELS[name][0]
     h = hashlib.sha1((CSRC / src).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict:
     """Compile every listed kernel whose library is missing, all nvcc
     processes in parallel. Returns {name: compiler output} for the ones
-    built now. Raises RuntimeError naming each failed build."""
+    built now (one per source). Raises RuntimeError naming each failed
+    build."""
     names = list(KERNELS) if names is None else list(names)
-    missing = [n for n in names if not lib_path(n).exists()]
+    by_lib = {lib_path(n): n for n in names}
+    missing = [n for p, n in by_lib.items() if not p.exists()]
     if not missing:
         return {}
     compiler = nvcc()

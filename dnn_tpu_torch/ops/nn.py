@@ -13,14 +13,39 @@ import torch
 import torch.nn.functional as F
 
 
-def linear(params, x):
-    """x @ kernel + bias with the (in, out) kernel layout. The product
-    is a plain torch.matmul: a large dense product outside any kernel,
-    as the JAX package left it to XLA."""
-    out = x @ params["kernel"]
+def linear(params, x, *, compute_dtype=None, accum_dtype=None):
+    """x @ kernel + bias with the (in, out) kernel layout (JAX's
+    ops/nn.linear :66). The product is a plain torch.matmul: a large
+    dense product outside any kernel, as the JAX package left it to XLA.
+
+    `compute_dtype` casts both operands (e.g. bf16); the bias is added in
+    the product's dtype and the result cast back to x's dtype.
+    `accum_dtype` instead keeps the accumulator dtype as the output: the
+    operands are rounded to `compute_dtype` and multiplied in
+    `accum_dtype` — the exact value of JAX's bf16 dot with
+    preferred_element_type=f32 (a product of two bf16 values is exact in
+    f32), at the cost of an f32 matmul on the card."""
+    if "q" in params:
+        raise NotImplementedError(
+            "int8/int4 weight-quantized linears are not ported to "
+            "dnn_tpu_torch yet (ROADMAP Queue 1 item 8, quant.py)")
+    if "lora" in params:
+        raise NotImplementedError(
+            "LoRA adapters are not ported to dnn_tpu_torch yet (ROADMAP "
+            "Queue 1 item 8, lora.py)")
+    kernel = params["kernel"]
+    orig_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        kernel = kernel.to(compute_dtype)
+    if accum_dtype is not None:
+        x, kernel = x.to(accum_dtype), kernel.to(accum_dtype)
+    out = x @ kernel
     bias = params.get("bias")
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
+    if accum_dtype is None and compute_dtype is not None:
+        out = out.to(orig_dtype)
     return out
 
 

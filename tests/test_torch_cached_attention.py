@@ -174,11 +174,15 @@ def test_build_fails_loudly_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
-    # library names are content-addressed and stable, one per kernel
+    # library names are content-addressed and stable, one per source
     assert _build.lib_path("paged_decode") == _build.lib_path("paged_decode")
     assert _build.lib_path("cached_attention").name.startswith(
         "libcached_attention-")
     assert _build.lib_path("decode_attention").name.startswith(
         "libdecode_attention-")
     assert set(_build.KERNELS) == {"cached_attention", "decode_attention",
-                                   "paged_decode"}
+                                   "paged_decode", "flash_attention",
+                                   "flash_bwd_dq", "flash_bwd_dkv"}
+    # K3 and K4 come from one source, hence one library
+    assert _build.lib_path("flash_bwd_dq") == _build.lib_path("flash_bwd_dkv")
+    assert _build.lib_path("flash_bwd_dq").name.startswith("libflash_backward-")

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from dnn_tpu_torch.ops.cuda import cached_attention as tca
+from dnn_tpu_torch.ops.cuda import flash_attention as tfa
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -119,3 +120,84 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError, match="scale"):
         tca.decode_attention(torch.randn(1, 2, 1, 64, device=dev), k8, k8,
                              pos)
+
+
+# --- flash attention (K1-K4) ------------------------------------------
+# Ragged T/S, S > T (bottom-right mask), full attention, every head dim
+# and both input types. K1 and K2 against the plain forward with the
+# logsumexp on the same inputs; K3/K4 against the plain backward on the
+# same (q, k, v, dO, lse, D). Tolerances: f32 outputs 1e-4 absolute, f32
+# gradients 1e-4 x the tensor's max |value| (sums of up to S products
+# in another order); bf16 2e-2 (the outputs are rounded to bf16 on both
+# sides, and a rounding step of bf16 near 1 is 2^-8).
+
+FLASH_SHAPES = [(True, 100, 100), (True, 37, 150), (False, 64, 90),
+                (True, 128, 128)]
+
+
+def _flash_inputs(g, dev, t, s, d, dtype):
+    q, k, v, do = (torch.randn(2, 3, n, d, generator=g, device=dev).to(dtype)
+                   for n in (t, s, s, t))
+    return q, k, v, do
+
+
+def _tol(dtype, ref):
+    scale = max(ref.abs().max().item(), 1.0)
+    return 1e-4 * scale if dtype == torch.float32 else 2e-2 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,t,s", FLASH_SHAPES)
+def test_flash_kernels(dev, dtype, d, causal, t, s):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = _flash_inputs(g, dev, t, s, d, dtype)
+    name = "f32" if dtype == torch.float32 else "bf16"
+    wrappers = (tfa.flash_attention, tfa.flash_attention_lse,
+                tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [w.launches_by_dtype[name] for w in wrappers]
+    out1 = tfa.flash_attention(q, k, v, causal=causal)
+    out2, lse = tfa.flash_attention_lse(q, k, v, causal=causal)
+    ref, ref_lse = tfa.reference_attention_lse(q, k, v, causal=causal)
+    di = (do.float() * out2.float()).sum(-1)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, di, causal=causal)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal)
+    rdq = tfa.reference_flash_bwd_dq(q, k, v, do, lse, di, causal=causal)
+    rdk, rdv = tfa.reference_flash_bwd_dkv(q, k, v, do, lse, di,
+                                           causal=causal)
+    torch.cuda.synchronize()
+    assert [w.launches_by_dtype[name] for w in wrappers] == \
+        [b + 1 for b in before]
+    assert out1.dtype == dtype and dq.dtype == dtype and dk.dtype == dtype
+    for got, want in ((out1, ref), (out2, ref), (lse, ref_lse), (dq, rdq),
+                      (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _tol(dtype, want.float()), err
+
+
+def test_flash_autograd_on_the_card(dev):
+    """The Function: K2 forward, K3/K4 backward, against autograd through
+    the plain reference_attention."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, w = _flash_inputs(g, dev, 200, 200, 64, torch.float32)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    got = torch.autograd.grad(
+        (tfa.flash_attention(q, k, v) * w).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (tfa.reference_attention(q, k, v) * w).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= _tol(torch.float32, b)
+
+
+def test_flash_refuses_what_it_does_not_take(dev):
+    q = torch.randn(1, 2, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 64, 8, device=dev).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q, q, q, causal=False)
+    q = torch.randn(1, 2, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="S=8 < T=16"):
+        tfa.flash_attention(q, q[:, :, :8], q[:, :, :8])
