@@ -24,9 +24,11 @@ Phases (any failure exits non-zero and prints no result):
      bottom-right case (checked only). K1/K2 against the plain forward
      (and logsumexp), K3/K4 against torch.autograd.grad through the plain
      reference_attention; bf16 against the plain version in f32 on the
-     same bf16 values. Library yardstick: scaled_dot_product_attention
-     (its backward: the profiler's device time of autograd.grad of SDPA
-     minus that of its forward)
+     same bf16 values. Library yardsticks: scaled_dot_product_attention
+     for K1; for K2 a call that also returns the logsumexp (bf16: the
+     flash backend, aten._scaled_dot_product_flash_attention; f32: the
+     efficient-attention backend); for K3/K4 the profiler's device time
+     of autograd.grad of SDPA minus that of its forward
   5. the main path (gpt2, random weights from seed 0, 4 slots, max_len
      1024, prompt_pad 64; prompts of 5/70/130/300 tokens, 16 new tokens,
      greedy, 4 concurrent gRPC clients), each run with the launch counts
@@ -75,13 +77,16 @@ so each launch reads K/V the previous launches did not leave in the
 Bounds: bytes moved (each input read once, each output written once,
 live columns only, int8 scales included) at 3.35 TB/s, or the work at
 the inputs' type's peak: f32 FMAs at 67 TFLOP/s, bf16 at the tensor
-cores' 989 TFLOP/s (the f32 CUDA-core bound is printed beside it).
+cores' 989 TFLOP/s. Each flash line also prints the operations bound of
+the units its kernel runs the products on: the tensor cores for the
+bf16 forward (K1/K2), the CUDA cores in f32 for the rest.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import socket
 import subprocess
 import sys
@@ -150,6 +155,28 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S):
     return max(t_bytes, t_ops), by, t_bytes, t_ops
 
 
+def kernel_label(mangled: str) -> str:
+    """`flash_fwd_tc_kernel<64>` from a mangled kernel name: the
+    length-prefixed identifier that ends in "kernel", then its template
+    arguments (the element type, then the ints)."""
+    # a length prefix may follow digits of a hash: try every tail of a run
+    starts = [i for m in re.finditer(r"\d+", mangled)
+              for i in range(m.start(), m.end())]
+    for i in starts:
+        end = re.match(r"\d+", mangled[i:]).end() + i
+        word = mangled[end:end + int(mangled[i:end])]
+        if not word.endswith("kernel"):
+            continue
+        targs = mangled[end + len(word):].split("EE")[0]
+        if not targs.startswith("I"):
+            return word
+        types = {"If": "f32", "I13__nv_bfloat16": "bf16", "Ia": "int8"}
+        names = [t for pre, t in types.items() if targs.startswith(pre)]
+        names += re.findall(r"L[ib](-?\d+)", targs)
+        return f"{word}<{', '.join(names)}>"
+    return mangled
+
+
 def phase_build():
     from dnn_tpu_torch.ops.cuda import _build
 
@@ -158,9 +185,15 @@ def phase_build():
     print(f"[build] {len(logs)} kernel libraries built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:
+                kernel = kernel_label(entry.group(1))
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
+                print(f"[build] {name}: {kernel}: {line.strip()}",
+                      flush=True)
 
 
 KV_CASES = (("f32", F32_TOL), ("bf16", BF16_TOL), ("int8", F32_TOL))
@@ -366,23 +399,28 @@ def live_pairs(t: int, s: int) -> int:
 
 
 def flash_bound(nbytes, flops, dtype):
-    """bound() at the inputs' type's peak; also the f32 CUDA-core
-    operations bound (what this PR's kernels can reach)."""
+    """bound() at the inputs' type's peak."""
     peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-    b_ms, by, byte_ms, op_ms = bound(nbytes, flops, peak)
-    return b_ms, by, byte_ms, op_ms, flops / F32_FLOPS_PER_S * 1e3
+    return bound(nbytes, flops, peak)
 
 
-def flash_report(tag, label, row, nbytes, byte_ms, op_ms, core_ms, dtype):
+def flash_report(tag, label, row, nbytes, flops, dtype, tensor_cores):
+    """One kernel's line: its time beside the plain version, the library
+    yardstick and the bound, and the operations bound of the units it
+    runs its products on (the tensor cores at 989 TFLOP/s, or the CUDA
+    cores in f32 at 67)."""
     lib = row["library_ms"]
+    _, _, byte_ms, op_ms = flash_bound(nbytes, flops, dtype)
     peak = "f32 67" if dtype == torch.float32 else "bf16 tensor-core 989"
+    units = (f"products on the tensor cores: ops bound {op_ms:.5f}"
+             if tensor_cores else "products on the CUDA cores: f32 ops "
+             f"bound {flops / F32_FLOPS_PER_S * 1e3:.5f}")
     print(f"[{tag}] {label}: err {row['max_abs_err']:.3e} kernel_ms "
           f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
           f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
           f"{row['bound_ms']:.5f} ({row['bound_by']}; bytes {byte_ms:.5f} "
           f"for {nbytes / 1e6:.1f} MB at 3.35 TB/s, ops {op_ms:.5f} at "
-          f"{peak} TFLOP/s; f32 CUDA-core ops bound {core_ms:.5f})",
-          flush=True)
+          f"{peak} TFLOP/s; {units})", flush=True)
 
 
 def yardstick_ms(label, fn):
@@ -430,24 +468,34 @@ def phase_flash_fwd(dev, gen):
         nbytes = 4 * q.numel() * q.element_size()  # q, k, v in; out
         flops = 4 * FLASH_D * bh * live_pairs(FLASH_T, FLASH_T)
         lib1 = time_ms(lambda: sdpa(q, k, v, is_causal=True))
-        lib2 = yardstick_ms(
+        # K2's yardstick: a call that also returns the logsumexp. In bf16
+        # the flash backend (the backend of K1's SDPA yardstick); the
+        # efficient-attention backend, which takes f32 too, beside it.
+        lib2 = eff2 = yardstick_ms(
             "SDPA with logsumexp (aten efficient attention)",
             lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
                 q, k, v, None, True, is_causal=True))
+        if dt == torch.bfloat16:
+            lib2 = yardstick_ms(
+                "SDPA with logsumexp (aten flash attention)",
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                    q, k, v, 0.0, True))
+            print(f"[K2] {name} yardsticks with the logsumexp (ms): flash "
+                  f"backend {lib2} (library_ms), efficient attention "
+                  f"{eff2}", flush=True)
         for kname, fn, plain, extra, err, lib in (
                 ("flash_attention", lambda: flash_attention(q, k, v),
                  lambda: reference_attention(q, k, v), 0, err1, lib1),
                 ("flash_attention_lse", lambda: flash_attention_lse(q, k, v),
                  lambda: reference_attention_lse(q, k, v), bh * FLASH_T * 4,
                  err2, lib2)):
-            b_ms, by, byte_ms, op_ms, core_ms = flash_bound(nbytes + extra,
-                                                            flops, dt)
+            b_ms, by, _, _ = flash_bound(nbytes + extra, flops, dt)
             row = rows[kname][name] = dict(
                 ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
                 bound_ms=b_ms, bound_by=by, max_abs_err=err)
             flash_report("K1" if kname == "flash_attention" else "K2",
                          f"{name:4s} B=8 H=12 T=S=512 D=64 causal", row,
-                         nbytes + extra, byte_ms, op_ms, core_ms, dt)
+                         nbytes + extra, flops, dt, dt == torch.bfloat16)
     return rows
 
 
@@ -504,14 +552,14 @@ def phase_flash_bwd(dev, gen):
                 ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, di),
                  lambda: reference_flash_bwd_dkv(q, k, v, do, lse, di),
                  6 * tensor_bytes + stat_bytes, 8 * FLASH_D * pairs, err4)):
-            b_ms, by, byte_ms, op_ms, core_ms = flash_bound(nbytes, flops, dt)
+            b_ms, by, _, _ = flash_bound(nbytes, flops, dt)
             row = rows[kname][name] = dict(
                 ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
                 bound_ms=b_ms, bound_by=by, max_abs_err=err)
             flash_report("K3" if kname == "flash_bwd_dq" else "K4",
                          f"{name:4s} B=8 H=12 T=S=512 D=64 causal (library: "
                          "SDPA's whole backward, dQ dK dV)", row, nbytes,
-                         byte_ms, op_ms, core_ms, dt)
+                         flops, dt, False)
     return rows
 
 

@@ -15,6 +15,9 @@ dnn_tpu/ops/pallas/flash_attention.py).
     :_bwd_dkv_kernel) — dQ and dK/dV from (q, k, v, dO, lse, D) with
     D = rowsum(dO * O) computed outside the kernels, as JAX does.
 
+In bf16, K1/K2 run both products on the tensor cores (wgmma); the f32
+forward and K3/K4 run theirs as f32 FMAs on the CUDA cores.
+
 Shapes: q (B, H, T, D); k, v (B, H, S, D); causal masking aligned
 bottom-right (query t sees keys <= t + S - T). Inputs f32 or bf16, all
 one dtype; outputs in that dtype; lse and D f32. Any T and S (ragged

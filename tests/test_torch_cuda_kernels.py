@@ -125,14 +125,19 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 # --- flash attention (K1-K4) ------------------------------------------
 # Ragged T/S, S > T (bottom-right mask), full attention, every head dim
 # and both input types. K1 and K2 against the plain forward with the
-# logsumexp on the same inputs; K3/K4 against the plain backward on the
+# logsumexp on the same inputs (in bf16 K1's output also equals K2's bit
+# for bit: one kernel); K3/K4 against the plain backward on the
 # same (q, k, v, dO, lse, D). Tolerances: f32 outputs 1e-4 absolute, f32
 # gradients 1e-4 x the tensor's max |value| (sums of up to S products
 # in another order); bf16 2e-2 (the outputs are rounded to bf16 on both
 # sides, and a rounding step of bf16 near 1 is 2^-8).
 
+# T=S=1 (one row, one key); T=65 S=1000 (a ragged last key tile, the
+# ring of K/V stages wrapped, bottom-right mask); T=S=1024 (the ring
+# wraps many times); T=64 S=65 full (one live key in the last tile).
 FLASH_SHAPES = [(True, 100, 100), (True, 37, 150), (False, 64, 90),
-                (True, 128, 128)]
+                (True, 128, 128), (True, 1, 1), (True, 65, 1000),
+                (True, 1024, 1024), (False, 64, 65)]
 
 
 def _flash_inputs(g, dev, t, s, d, dtype):
@@ -170,6 +175,8 @@ def test_flash_kernels(dev, dtype, d, causal, t, s):
     assert [w.launches_by_dtype[name] for w in wrappers] == \
         [b + 1 for b in before]
     assert out1.dtype == dtype and dq.dtype == dtype and dk.dtype == dtype
+    if dtype == torch.bfloat16:  # K1 and K2 are one kernel
+        assert torch.equal(out1, out2)
     for got, want in ((out1, ref), (out2, ref), (lse, ref_lse), (dq, rdq),
                       (dk, rdk), (dv, rdv)):
         assert torch.isfinite(got).all()

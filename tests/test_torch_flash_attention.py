@@ -5,8 +5,10 @@ the port's autograd Function (the plain twins of K2/K3/K4) against
 jax.grad through the interpret-mode kernels. Inputs are drawn with numpy
 from a seed and handed to both packages.
 
-Tolerances are JAX's own (tests/test_flash_attention.py): 2e-5 on the
-forward, atol 2e-4 / rtol 1e-4 on gradients."""
+The forward runs in f32 and in bf16 (the same draws, cast to bf16 on
+both sides). Tolerances are JAX's own (tests/test_flash_attention.py)
+in f32: 2e-5 on the forward, atol 2e-4 / rtol 1e-4 on gradients; in
+bf16 2e-2 on outputs and 1e-4 on the logsumexp."""
 
 import jax
 import jax.numpy as jnp
@@ -33,31 +35,48 @@ def _qkv(seed, t, s, b=1, h=2, d=32, dtype=np.float32):
 CASES = [(True, 128, 128), (False, 128, 128), (True, 128, 256)]
 
 
-@pytest.mark.parametrize("causal,t,s", CASES)
+# (numpy/JAX/torch dtype, output tolerance, lse tolerance). bf16: both
+# sides round the output to bf16 (a step of 2^-8 near 1) and JAX's
+# reference also rounds the scores and p to bf16, so 2e-2; the lse is
+# f32 from the same bf16 values, so 1e-4.
+DTYPES = {"f32": (jnp.float32, torch.float32, FWD_TOL, FWD_TOL),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2, 1e-4)}
+
+
+# f32 cases keep the ids of the cases before bf16 joined them
+FWD_CASES = [pytest.param(*c, dt, id="-".join(map(str, c))
+                          + ("" if dt == "f32" else f"-{dt}"))
+             for dt in DTYPES for c in CASES]
+
+
+@pytest.mark.parametrize("causal,t,s,dtype", FWD_CASES)
 def test_plain_forward_matches_jax_reference_and_interpret_kernel(causal, t,
-                                                                  s):
+                                                                  s, dtype):
+    jdt, tdt, tol, lse_tol = DTYPES[dtype]
     q, k, v = _qkv(0, t, s)
-    jref = np.asarray(jref_attn(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
-    jker = np.asarray(jflash(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        block_q=64, block_k=64, interpret=True))
-    tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    plain = tfa.reference_attention(tq, tk, tv, causal=causal).numpy()
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    jref = np.asarray(jref_attn(jq, jk, jv, causal=causal), np.float32)
+    jker = np.asarray(jflash(jq, jk, jv, causal=causal, block_q=64,
+                             block_k=64, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    plain = tfa.reference_attention(tq, tk, tv, causal=causal)
     with_lse, lse = tfa.flash_attention_lse(tq, tk, tv, causal=causal)
-    no_grad = tfa.flash_attention(tq, tk, tv, causal=causal).numpy()
-    for got in (plain, with_lse.numpy(), no_grad):
-        np.testing.assert_allclose(got, jref, atol=FWD_TOL, rtol=FWD_TOL)
-        np.testing.assert_allclose(got, jker, atol=FWD_TOL, rtol=FWD_TOL)
-    # the logsumexp against the f64 formula, bottom-right mask
-    s64 = np.einsum("bhtd,bhsd->bhts", q.astype(np.float64),
-                    k.astype(np.float64)) / np.sqrt(q.shape[-1])
+    no_grad = tfa.flash_attention(tq, tk, tv, causal=causal)
+    for got in (plain, with_lse, no_grad):
+        assert got.dtype == tdt
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, jref, atol=tol, rtol=tol)
+        np.testing.assert_allclose(got, jker, atol=tol, rtol=tol)
+    # the logsumexp against the f64 formula on the same (rounded) values,
+    # bottom-right mask
+    s64 = np.einsum("bhtd,bhsd->bhts", tq.double().numpy(),
+                    tk.double().numpy()) / np.sqrt(q.shape[-1])
     if causal:
         s64 = np.where(np.tril(np.ones((t, s), bool), s - t), s64, -1e30)
     want = np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1)) \
         + s64.max(-1)
     assert lse.dtype == torch.float32 and lse.shape == (1, 2, t)
-    np.testing.assert_allclose(lse.numpy(), want, atol=FWD_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want, atol=lse_tol, rtol=0)
 
 
 @pytest.mark.parametrize("causal,t,s", CASES)
