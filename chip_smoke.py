@@ -27,8 +27,12 @@ Phases (any failure exits non-zero and prints no result):
      same bf16 values. Library yardsticks: scaled_dot_product_attention
      for K1; for K2 a call that also returns the logsumexp (bf16: the
      flash backend, aten._scaled_dot_product_flash_attention; f32: the
-     efficient-attention backend); for K3/K4 the profiler's device time
-     of autograd.grad of SDPA minus that of its forward
+     efficient-attention backend); for K3/K4 SDPA's whole backward: in
+     bf16 the flash backend's backward
+     (aten._scaled_dot_product_flash_attention_backward on the residuals
+     of its forward), timed like the kernels; in f32, which the flash
+     backend does not take, the profiler's device time of autograd.grad
+     of SDPA minus that of its forward (in bf16 printed beside the other)
   5. the main path (gpt2, random weights from seed 0, 4 slots, max_len
      1024, prompt_pad 64; prompts of 5/70/130/300 tokens, 16 new tokens,
      greedy, 4 concurrent gRPC clients), each run with the launch counts
@@ -79,7 +83,7 @@ live columns only, int8 scales included) at 3.35 TB/s, or the work at
 the inputs' type's peak: f32 FMAs at 67 TFLOP/s, bf16 at the tensor
 cores' 989 TFLOP/s. Each flash line also prints the operations bound of
 the units its kernel runs the products on: the tensor cores for the
-bf16 forward (K1/K2), the CUDA cores in f32 for the rest.
+bf16 kernels (K1-K4), the CUDA cores in f32 for the f32 ones.
 """
 
 from __future__ import annotations
@@ -523,13 +527,19 @@ def phase_flash_bwd(dev, gen):
             di = (do.float() * out.float()).sum(-1)
             dq = flash_bwd_dq(q, k, v, do, lse, di)
             dk, dv = flash_bwd_dkv(q, k, v, do, lse, di)
-            err3 = max(err3, check(f"K3 {name}{label} dq", dq.float(), gq,
-                                   tol * gq.abs().max().item()))
-            err4 = max(err4,
-                       check(f"K4 {name}{label} dk", dk.float(), gk,
-                             tol * gk.abs().max().item()),
-                       check(f"K4 {name}{label} dv", dv.float(), gv,
-                             tol * gv.abs().max().item()))
+            errs = {}
+            for g, got, want in (("dq", dq, gq), ("dk", dk, gk),
+                                 ("dv", dv, gv)):
+                top = want.abs().max().item()
+                errs[g] = check(f"K{3 if g == 'dq' else 4} {name}{label} "
+                                f"{g}", got.float(), want, tol * top), top
+            print(f"[K3/K4] {name}{label or ' T=S=512'} max abs err / the "
+                  "gradient's max |value| (limit "
+                  f"{tol:g}): " + ", ".join(
+                      f"{g} {e:.3e} / {top:.3f} = {e / top:.2e}"
+                      for g, (e, top) in errs.items()), flush=True)
+            err3 = max(err3, errs["dq"][0])
+            err4 = max(err4, errs["dk"][0], errs["dv"][0])
             if (t, s) == (FLASH_T, FLASH_T):
                 main = (q, k, v, do, lse, di)
         q, k, v, do, lse, di = main
@@ -545,6 +555,31 @@ def phase_flash_bwd(dev, gen):
         lib = (device_ms(lambda: torch.autograd.grad(
             sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
             - device_ms(lambda: sdpa(q, k, v, is_causal=True)))
+        if dt == torch.bfloat16:
+            # bf16: the flash backend's backward alone, on the residuals
+            # of its forward, replayed from a CUDA graph as the kernels
+            # are (the difference above spreads from run to run)
+            res = []
+
+            def sdpa_backward():
+                if not res:  # the forward's residuals, once, in the warm-up
+                    res.extend(torch.ops.aten
+                               ._scaled_dot_product_flash_attention(
+                                   q, k, v, 0.0, True))
+                o, l, cq, ck, mq, mk, seed, offset, _ = res
+                return (torch.ops.aten
+                        ._scaled_dot_product_flash_attention_backward(
+                            do, q, k, v, o, l, cq, ck, mq, mk, 0.0, True,
+                            seed, offset))
+            graphed = yardstick_ms(
+                "SDPA's backward (aten flash attention backward)",
+                sdpa_backward)
+            print(f"[K3/K4] {name} SDPA's whole backward (ms): flash "
+                  f"backend's backward, graph-timed, {graphed} "
+                  f"(library_ms); autograd.grad minus forward, profiled, "
+                  f"{lib}", flush=True)
+            if graphed is not None:
+                lib = graphed
         for kname, fn, plain, nbytes, flops, err in (
                 ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, di),
                  lambda: reference_flash_bwd_dq(q, k, v, do, lse, di),
@@ -559,7 +594,7 @@ def phase_flash_bwd(dev, gen):
             flash_report("K3" if kname == "flash_bwd_dq" else "K4",
                          f"{name:4s} B=8 H=12 T=S=512 D=64 causal (library: "
                          "SDPA's whole backward, dQ dK dV)", row, nbytes,
-                         flops, dt, False)
+                         flops, dt, dt == torch.bfloat16)
     return rows
 
 

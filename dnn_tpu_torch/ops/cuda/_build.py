@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,10 +34,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source file, C symbol, argtypes). Every pointer and the
 # stream are c_void_p (the scale and lse pointers too, None where
 # absent): a default ctypes int would cut them to 32 bits. kv_kind is
-# 0 = f32, 1 = bf16, 2 = int8 with scales. Each source is self-contained
-# (no shared header), so its own bytes name its library; a source may
-# export several entry points (flash_backward.cu: K3 and K4), and then
-# one library serves them all.
+# 0 = f32, 1 = bf16, 2 = int8 with scales. A source and the csrc/
+# headers it includes name its library (lib_path); a source may export
+# several entry points (flash_backward.cu: K3 and K4), and then one
+# library serves them all.
 KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
@@ -86,11 +87,34 @@ def nvcc() -> str:
         "bin): the CUDA kernels build from source on first use")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _inputs(src: str) -> list:
+    """`src` and every csrc/ header it includes with #include "...",
+    transitively, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        try:
+            text = (CSRC / name).read_text()
+        except FileNotFoundError:  # not a csrc/ header: nvcc finds it
+            continue
+        seen.append(name)
+        todo += _INCLUDE.findall(text)
+    return seen
+
+
 def lib_path(name: str) -> Path:
     """The library of kernel `name`: named by its source and a hash of
-    the source's bytes and the flags."""
+    the bytes of the source and of the csrc/ headers it includes, and of
+    the flags."""
     src = KERNELS[name][0]
-    h = hashlib.sha1((CSRC / src).read_bytes())
+    h = hashlib.sha1()
+    for part in _inputs(src):
+        h.update(part.encode() + b"\0" + (CSRC / part).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:12]}.so"
 

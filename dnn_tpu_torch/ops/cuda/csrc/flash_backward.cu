@@ -10,43 +10,89 @@
 //   K3:  dQ = scale * dS . K
 //   K4:  dV = P^T . dO,   dK = scale * dS^T . Q
 // with the forward's bottom-right causal mask (query t sees keys
-// <= t + S - T). Outputs in the inputs' dtype, accumulation in f32.
-//
-// What bounds them on an H100: the f32 arithmetic. Per live (row, key)
-// pair K3 does 3 products of length D (scores, dP, dS.K) and K4 four
-// (scores, dP, P^T.dO, dS^T.Q): 14 T S D / 2 flops over both at causal,
-// ~11.3 GFLOP at BH=96, T=S=512, D=64, 0.17 ms at 67 TFLOP/s, against
-// ~100 MB of inputs and outputs (0.03 ms at 3.35 TB/s). As in the
-// forward the products are f32 FMAs on the CUDA cores with operands
-// staged in shared memory; tensor cores are a later redesign.
-//
-// Design. The JAX split is kept, so neither kernel needs atomics and
+// <= t + S - T). Outputs in the inputs' dtype, accumulation in f32. The
+// JAX split is kept in both paths, so neither kernel needs atomics and
 // both are deterministic (a resumed training run reproduces an
-// uninterrupted one bit for bit):
-//   * K3: one block per (b*h, 64-row query tile), looping over the key
-//     tiles up to the tile of the block's last live column;
-//   * K4: one block per (b*h, 64-key tile), looping over the query tiles
-//     from the first one that can see it: for causal the first live row
-//     is max(0, k0 - (S - T)).
-// Both rebuild P and dS through ONE device function, recompute_pds (as
-// _recompute_pds is shared in JAX), so the two kernels cannot disagree
-// on masking or scaling. Thread layout as in the forward: 16 x 16
-// threads, thread (ty, tx) owns the 4 x 4 patch of query rows 4ty.. and
-// keys 4tx.. of a 64 x 64 tile; the operands of both products of the
-// recompute are staged d-major, so each dot-product step is two 16-byte
-// shared loads for 16 FMAs. The patches of P and dS then go through
-// shared memory to the accumulation product, where the thread owns 4
-// rows (K3: query rows; K4: keys) x D/16 dims. dQ and dK are multiplied
-// by `scale` once, at the end.
+// uninterrupted one bit for bit): K3 accumulates dQ over key tiles, K4
+// dK and dV over query tiles. In each path ONE device function rebuilds
+// P and dS for both kernels (as _recompute_pds is shared in JAX), so K3
+// and K4 cannot disagree on masking or scaling. Ragged T and S: rows
+// past T and keys past S are loaded as zeros, masked out of P and never
+// stored.
 //
-// Ragged T and S: rows past T and keys past S are staged as zeros,
-// masked out of P (so they add nothing) and never stored.
+// bf16 (tc::flash_bwd_dq_tc_kernel, tc::flash_bwd_dkv_tc_kernel). What
+// bounds them on an H100: bytes. At the training shape (BH=96, T=S=512,
+// D=64, causal) K3 reads q, k, v, dO and writes dQ, 31.5 MB in bf16 plus
+// 0.4 MB of lse and D: 0.0095 ms at 3.35 TB/s; K4 moves one tensor more,
+// 0.0114 ms. Their products, 6 and 8 x D flops per live (row, key) pair
+// (4.8 and 6.5 GFLOP), take 0.0049 / 0.0065 ms at the tensor cores' 989
+// TFLOP/s. What the design does about it (the forward's, csrc/
+// flash_attention.cu, with the building blocks of hopper_tc.cuh):
+//  * All five products run on the tensor cores as wgmma m64nNk16 (f32 +=
+//    bf16 x bf16), two warpgroups (256 threads) a block, each owning 64
+//    rows of the product, so a streamed tile is read from L2 once per 128
+//    rows. K3: a block owns 128 query rows; S = Q.K^T and dP = dO.V^T
+//    read both operands from shared memory (K-major) and are issued
+//    together; dQ += dS.K takes dS from registers and K's tile MN-major,
+//    the same copy as S read K-major, so K needs no transposed copy.
+//  * K4 computes the transposed tile, so that P and dS never leave
+//    registers: a block owns 128 keys; S^T = K.Q^T and dP^T = V.dO^T give
+//    an accumulator whose rows are keys and columns query rows, which is,
+//    pair by pair, the A fragment of dV += P^T.dO and dK += dS^T.Q (dO and
+//    Q read MN-major). lse and D are indexed by column there, from a row
+//    of 64 f32 each staged beside the query tile.
+//  * P and dS are formed in f32 registers by pds() under the one mask
+//    predicate live(), and rounded to bf16 in place as A fragments.
+//  * The streamed tiles (K3: K and V; K4: Q, dO, lse and D) arrive by
+//    cp.async into a ring of kStages = 2 in wgmma's swizzled layout (zeros
+//    past T or S): tile j + 1 is in flight while tile j is multiplied.
+//    Every wgmma of tile j is waited for within its iteration, so two
+//    stages suffice. (Overlapping tile j's element work with tile j - 1's
+//    accumulation, as the forward does, and rings of 3 or 4 stages
+//    prefetching further ahead timed no faster on an H100 at the training
+//    shape, so the plain loop stays.) The resident tiles (K3: Q and dO; K4: K and V) are
+//    loaded once. Shared memory (2 + 2 kStages) x 64 x D x 2 bytes per
+//    warpgroup pair (64 KB at D = 64; K4 adds 1 KB of lse and D).
+//  * Heaviest blocks first (K3: the last query rows; K4: the first keys),
+//    each warpgroup skips the tiles it has no live pair in while keeping
+//    the block's barriers, and only tiles on the causal diagonal or past
+//    T or S take the mask.
+//  * Registers: K3 holds S, dP and dQ (96 f32 at D = 64) and runs two
+//    blocks an SM up to D = 64; K4 holds S^T, dP^T, dK and dV (128 at
+//    D = 64) and runs one block an SM above D = 32.
+// Numerics: q, k, v and dO enter the products as exact bf16 values; S, dP
+// and every accumulator are f32; the scale multiplies the f32 score (in
+// log2 units, for ex2), never a bf16 q. P and dS are rounded to bf16 to
+// feed the second products (JAX's kernel keeps them in f32): at most
+// 2^-9 relative per term, this path's only error beyond summation order.
+// dQ and dK are multiplied by `scale` once, at the end.
+//
+// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel). What bounds them: the
+// f32 arithmetic. Per live (row, key) pair K3 does 3 products of length D
+// and K4 four: 14 T S D / 2 flops over both at causal, ~11.3 GFLOP at the
+// training shape, 0.17 ms at 67 TFLOP/s on the CUDA cores, against ~100
+// MB of inputs and outputs (0.03 ms at 3.35 TB/s). The products are f32
+// FMAs with operands staged in shared memory (3xTF32 on the tensor cores
+// is a later redesign). K3: one block per (b*h, 64-row query tile),
+// looping over the key tiles up to the tile of the block's last live
+// column; K4: one block per (b*h, 64-key tile), looping over the query
+// tiles from the first one that can see it (for causal the first live
+// row is max(0, k0 - (S - T))). Both rebuild P and dS through
+// recompute_pds. Thread layout as in the f32 forward: 16 x 16 threads,
+// thread (ty, tx) owns the 4 x 4 patch of query rows 4ty.. and keys 4tx..
+// of a 64 x 64 tile; the operands of both products of the recompute are
+// staged d-major, so each dot-product step is two 16-byte shared loads
+// for 16 FMAs. The patches of P and dS then go through shared memory to
+// the accumulation product, where the thread owns 4 rows (K3: query rows;
+// K4: keys) x D/16 dims.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_tc.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kB = 64;         // query rows and keys per tile
 constexpr int kThreads = 256;  // 16 x 16, each a 4 x 4 patch of a tile
@@ -59,21 +105,7 @@ __device__ __forceinline__ void load4(const float* p, float* o) {
   o[3] = x.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
-}
-
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // N consecutive floats from shared memory, vectorised where N allows.
 template <int N>
@@ -412,55 +444,389 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename Tp>
-cudaError_t dq_d(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* di, void* dq,
-                 int BH, int T, int S, int D, int causal, float scale,
-                 cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch_dq<Tp, 32>(q, k, v, dout, lse, di, dq, BH, T, S, causal,
-                               scale, st);
-    case 64:
-      return launch_dq<Tp, 64>(q, k, v, dout, lse, di, dq, BH, T, S, causal,
-                               scale, st);
-    case 128:
-      return launch_dq<Tp, 128>(q, k, v, dout, lse, di, dq, BH, T, S, causal,
-                                scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename Tp>
-cudaError_t dkv_d(const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* di,
-                  void* dk, void* dv, int BH, int T, int S, int D, int causal,
-                  float scale, cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch_dkv<Tp, 32>(q, k, v, dout, lse, di, dk, dv, BH, T, S,
-                                causal, scale, st);
-    case 64:
-      return launch_dkv<Tp, 64>(q, k, v, dout, lse, di, dk, dv, BH, T, S,
-                                causal, scale, st);
-    case 128:
-      return launch_dkv<Tp, 128>(q, k, v, dout, lse, di, dk, dv, BH, T, S,
-                                 causal, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 bool bad_shape(int BH, int T, int S, int causal) {
   return BH <= 0 || T <= 0 || S <= 0 || BH > 65535 || (causal && S < T);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma on the tensor cores, tiles through a cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kStages = 2;  // depth of the ring of streamed tiles
+
+// THE mask of the bf16 backward, shared by K3 and K4: query row t sees
+// key c (both in range; causal aligned bottom-right, offset = S - T).
+__device__ __forceinline__ bool live(int t, int c, int T, int S, int causal,
+                                     int offset) {
+  return t < T && c < S && (!causal || c <= t + offset);
+}
+
+// THE element function of the bf16 backward, shared by K3 and K4, in
+// place: the raw score s becomes p = exp(scale * s - lse), 0 where !lv,
+// computed as 2^(s * scale2 - lse * log2 e) (scale2 = scale * log2 e),
+// and dp becomes ds = p * (dp - di).
+__device__ __forceinline__ void pds(float& s, float& dp, float lse, float di,
+                                    bool lv, float scale2) {
+  const float p = lv ? ex2(fmaf(s, scale2, -lse * kLog2e)) : 0.f;
+  s = p;
+  dp = p * (dp - di);
+}
+
+// K3's tile: rows are the thread's query rows t0 and t0 + 8 (their lse
+// and D in registers), element i sits at key k0 + 8 (i / 4) + c_lane +
+// (i & 1) of the accumulator fragment (hopper_tc.cuh, Mma).
+template <bool kMasked>
+__device__ __forceinline__ void dq_tile_pds(float (&s)[32], float (&dp)[32],
+                                            const float (&lse)[2],
+                                            const float (&di)[2], int t0,
+                                            int k0, int c_lane, int T, int S,
+                                            int causal, int offset,
+                                            float scale2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i / 2) & 1;
+    const bool lv = !kMasked || live(t0 + 8 * h, k0 + 8 * (i / 4) + c_lane +
+                                                     (i & 1),
+                                     T, S, causal, offset);
+    pds(s[i], dp[i], lse[h], di[h], lv, scale2);
+  }
+}
+
+// K4's transposed tile: rows are the thread's keys c0 and c0 + 8, element
+// 4j + u sits at query row qt0 + 8j + c_lane + (u & 1) (row c0 + 8 (u / 2));
+// lse and D of the tile's 64 query rows come from shared memory.
+template <bool kMasked>
+__device__ __forceinline__ void dkv_tile_pds(float (&s)[32], float (&dp)[32],
+                                             const float* lse_s,
+                                             const float* di_s, int c0,
+                                             int qt0, int c_lane, int T,
+                                             int S, int causal, int offset,
+                                             float scale2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + c_lane;
+    const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
+    const float2 d = *reinterpret_cast<const float2*>(di_s + col);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = u & 1;
+      const bool lv =
+          !kMasked || live(qt0 + col + e, c0 + 8 * (u / 2), T, S, causal,
+                           offset);
+      pds(s[4 * j + u], dp[4 * j + u], e ? l.y : l.x, e ? d.y : d.x, lv,
+          scale2);
+    }
+  }
+}
+
+// The 64 x D bf16 accumulator rows r0 and r0 + 8 (those < len) of `acc`
+// times `mul` into row-major `out`.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[D / 2], int r0,
+                                           int len, int c_lane, float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= len) continue;
+    __nv_bfloat16* row = out + (size_t)r * D + c_lane;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * h] * mul, acc[4 * c + 2 * h + 1] * mul);
+  }
+}
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  return (2 * kWG + 2 * kStages) * Layout<D>::kTile;
+}
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return (2 * kWG + 2 * kStages) * Layout<D>::kTile +
+         kStages * 2 * kRows * (int)sizeof(float);
+}
+
+// K3. q, do (BH, T, D); k, v (BH, S, D); lse, di (BH, T) f32; dq (BH, T,
+// D); all tensors bf16. Grid (BH, ceil(T / kBlockRows)), block kThreads,
+// dynamic shared memory dq_smem_bytes<D>(): kWG Q tiles, kWG dO tiles,
+// then kStages (K, V) tile pairs. Per key tile j a warpgroup that has a
+// live pair in it issues S = Q.K_j^T and dP = dO.V_j^T, waits, forms P
+// and dS, and adds dS.K_j to dQ; the first warpgroup on the causal
+// diagonal needs one tile fewer and only keeps the barriers for it.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di,
+                       __nv_bfloat16* __restrict__ dq, int T, int S,
+                       int causal, float scale) {
+  constexpr int kTile = Layout<D>::kTile;
+  // 1024-byte aligned: the swizzle pattern repeats every 8 rows of 128 B
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;  // heaviest first
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31;
+  const int offset = S - T;
+  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
+  auto tiles_to = [&](int first_row, int rows) {  // key tiles rows need
+    const int last_row = min(T, first_row + rows) - 1;
+    if (last_row < first_row) return 0;
+    return (causal ? min(S - 1, last_row + offset) : S - 1) / kRows + 1;
+  };
+  const int n_tiles = tiles_to(q0, kBlockRows);  // the block's
+  const int qw = q0 + kRows * wg;                // this warpgroup's rows
+  const int my_tiles = tiles_to(qw, kRows);
+  const uint32_t sq = base + kTile * wg, sdo = base + kTile * (kWG + wg);
+  const float scale2 = scale * kLog2e;
+  const int t0 = qw + 16 * warp + (lane >> 2);  // this thread's rows t0, t0 + 8
+  const int c_lane = 2 * (lane & 3);            // its first column of each 8
+
+  auto stage = [&](int j) {
+    return base + kTile * (2 * kWG + 2 * (j % kStages));
+  };
+  // Waits for tile j, then starts loading tile j + 1.
+  auto next_tile = [&](int j) {
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile j landed; every warp is past iteration j - 1
+    if (j + 1 < n_tiles) {
+      load_tile<D>(stage(j + 1), k + koff, (j + 1) * kRows, S);
+      load_tile<D>(stage(j + 1) + kTile, v + koff, (j + 1) * kRows, S);
+      cp_async_commit();
+    }
+  };
+  auto masked = [&](int j) {
+    const int k0 = j * kRows;
+    return k0 + kRows > S || qw + kRows > T ||
+           (causal && k0 + kRows - 1 > qw + offset);
+  };
+
+#pragma unroll
+  for (int w = 0; w < kWG; ++w) {
+    load_tile<D>(base + kTile * w, q + qoff, q0 + kRows * w, T);
+    load_tile<D>(base + kTile * (kWG + w), dout + qoff, q0 + kRows * w, T);
+  }
+  load_tile<D>(stage(0), k + koff, 0, S);
+  load_tile<D>(stage(0) + kTile, v + koff, 0, S);
+  cp_async_commit();
+
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + 8 * h;
+    lse_r[h] = t < T ? lse[(size_t)bh * T + t] : 0.f;
+    di_r[h] = t < T ? di[(size_t)bh * T + t] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t da[4][4];  // dS in bf16
+
+  for (int j = 0; j < n_tiles; ++j) {
+    next_tile(j);
+    if (j >= my_tiles) continue;
+    wgmma_fence();
+    qk<D>(s, sq, stage(j));
+    qk<D>(dp, sdo, stage(j) + kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(dp);
+    if (masked(j))
+      dq_tile_pds<true>(s, dp, lse_r, di_r, t0, j * kRows, c_lane, T, S,
+                        causal, offset, scale2);
+    else
+      dq_tile_pds<false>(s, dp, lse_r, di_r, t0, j * kRows, c_lane, T, S,
+                         causal, offset, scale2);
+    pack_p(dp, da);
+    wgmma_fence();
+    pv<D>(acc, da, stage(j));  // dQ += dS.K, K's tile read MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+  }
+  if (my_tiles == 0) return;
+  store_rows<D>(dq + qoff, acc, t0, T, c_lane, scale);
+}
+
+// K4. Shapes as K3; dk, dv (BH, S, D) bf16. Grid (BH, ceil(S /
+// kBlockRows)), block kThreads, dynamic shared memory dkv_smem_bytes<D>():
+// kWG K tiles, kWG V tiles, kStages (Q, dO) tile pairs, then kStages rows
+// of 64 lse and 64 D. The block's keys see query tiles j0.. (for causal
+// the first live row is max(0, k0 - (S - T))); per query tile a
+// warpgroup with a live pair in it issues S^T = K.Q^T and dP^T = V.dO^T,
+// waits, forms P^T and dS^T, and adds P^T.dO to dV and dS^T.Q to dK. On
+// the causal diagonal the second warpgroup starts a tile later and only
+// keeps the barriers until then.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 32 ? 2 : 1)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int T, int S,
+                        int causal, float scale) {
+  constexpr int kTile = Layout<D>::kTile;
+  constexpr int kStats = (2 * kWG + 2 * kStages) * kTile;  // byte offset
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  const float* stats = reinterpret_cast<const float*>(smem + kStats);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockRows;  // heaviest first: the first keys
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31;
+  const int offset = S - T;
+  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
+  auto first_tile = [&](int key) {  // the first query tile that sees key
+    return causal ? max(0, key - offset) / kRows : 0;
+  };
+  const int j0 = first_tile(k0);
+  const int n_tiles = (T + kRows - 1) / kRows - j0;  // the block's
+  const int kw = k0 + kRows * wg;                    // this warpgroup's keys
+  const int my_first = kw < S ? first_tile(kw) - j0 : n_tiles;
+  const uint32_t sk = base + kTile * wg, sv = base + kTile * (kWG + wg);
+  const float scale2 = scale * kLog2e;
+  const int c0 = kw + 16 * warp + (lane >> 2);  // this thread's keys c0, c0 + 8
+  const int c_lane = 2 * (lane & 3);  // its first query row of each 8
+
+  auto stage = [&](int i) {
+    return base + kTile * (2 * kWG + 2 * (i % kStages));
+  };
+  auto stats_at = [&](int i) { return (i % kStages) * 2 * kRows; };
+  // Query tile j0 + i: Q, dO, then 64 lse and 64 D (4-byte copies: a row
+  // of lse starts at any multiple of 4 bytes).
+  auto load_query_tile = [&](int i) {
+    const int qt0 = (j0 + i) * kRows;
+    load_tile<D>(stage(i), q + qoff, qt0, T);
+    load_tile<D>(stage(i) + kTile, dout + qoff, qt0, T);
+    if (threadIdx.x < 2 * kRows) {
+      const int r = threadIdx.x % kRows;
+      const bool in = qt0 + r < T;
+      const float* src = threadIdx.x < kRows ? lse : di;
+      cp_async4(base + kStats + 4 * (stats_at(i) + threadIdx.x),
+                src + (size_t)bh * T + (in ? qt0 + r : 0), in);
+    }
+    cp_async_commit();
+  };
+  // Waits for tile i, then starts loading tile i + 1.
+  auto next_tile = [&](int i) {
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile i landed; every warp is past iteration i - 1
+    if (i + 1 < n_tiles) load_query_tile(i + 1);
+  };
+  auto masked = [&](int i) {
+    const int qt0 = (j0 + i) * kRows;
+    return qt0 + kRows > T || kw + kRows > S ||
+           (causal && kw + kRows - 1 > qt0 + offset);
+  };
+
+#pragma unroll
+  for (int w = 0; w < kWG; ++w) {
+    load_tile<D>(base + kTile * w, k + koff, k0 + kRows * w, S);
+    load_tile<D>(base + kTile * (kWG + w), v + koff, k0 + kRows * w, S);
+  }
+  load_query_tile(0);  // commits the K and V tiles with it
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t pa[4][4], da[4][4];  // P^T and dS^T in bf16
+
+  for (int i = 0; i < n_tiles; ++i) {
+    next_tile(i);
+    if (i < my_first) continue;
+    wgmma_fence();
+    qk<D>(s, sk, stage(i));             // S^T = K.Q^T
+    qk<D>(dp, sv, stage(i) + kTile);    // dP^T = V.dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(dp);
+    const float* st = stats + stats_at(i);
+    const int qt0 = (j0 + i) * kRows;
+    if (masked(i))
+      dkv_tile_pds<true>(s, dp, st, st + kRows, c0, qt0, c_lane, T, S,
+                         causal, offset, scale2);
+    else
+      dkv_tile_pds<false>(s, dp, st, st + kRows, c0, qt0, c_lane, T, S,
+                          causal, offset, scale2);
+    pack_p(s, pa);
+    pack_p(dp, da);
+    wgmma_fence();
+    pv<D>(adv, pa, stage(i) + kTile);  // dV += P^T.dO, dO read MN-major
+    pv<D>(adk, da, stage(i));          // dK += dS^T.Q, Q read MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(adv);
+    pin(adk);
+  }
+  if (my_first >= n_tiles) return;
+  store_rows<D>(dk + koff, adk, c0, S, c_lane, scale);
+  store_rows<D>(dv + koff, adv, c0, S, c_lane, 1.f);
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* di,
+                      void* dq, int BH, int T, int S, int causal, float scale,
+                      cudaStream_t stream) {
+  constexpr int smem = dq_smem_bytes<D>();
+  static bool configured = false;
+  const cudaError_t e =
+      configure(flash_bwd_dq_tc_kernel<D>, smem, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (T + kBlockRows - 1) / kBlockRows);
+  using bf = __nv_bfloat16;
+  flash_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, di,
+      static_cast<bf*>(dq), T, S, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di,
+                       void* dk, void* dv, int BH, int T, int S, int causal,
+                       float scale, cudaStream_t stream) {
+  constexpr int smem = dkv_smem_bytes<D>();
+  static bool configured = false;
+  const cudaError_t e =
+      configure(flash_bwd_dkv_tc_kernel<D>, smem, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (S + kBlockRows - 1) / kBlockRows);
+  using bf = __nv_bfloat16;
+  flash_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, di,
+      static_cast<bf*>(dk), static_cast<bf*>(dv), T, S, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// C entry points (loaded with ctypes). kind: 0 = f32 tensors, 1 = bf16;
-// lse and di are (BH, T) f32 either way. Return the launch's cudaError_t
-// (0 = launched).
+// C entry points (loaded with ctypes). kind: 0 = f32 tensors (CUDA-core
+// kernels), 1 = bf16 (tensor-core kernels); lse and di are (BH, T) f32
+// either way. Return the launch's cudaError_t (0 = launched).
 extern "C" int dnn_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* di, void* dq, int BH, int T,
@@ -472,11 +838,15 @@ extern "C" int dnn_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
-      return (int)dq_d<float>(q, k, v, dout, l, d, dq, BH, T, S, D, causal,
-                              scale, st);
+      return (int)with_head_dim(D, [&](auto dim) {
+        return launch_dq<float, decltype(dim)::value>(
+            q, k, v, dout, l, d, dq, BH, T, S, causal, scale, st);
+      });
     case 1:
-      return (int)dq_d<__nv_bfloat16>(q, k, v, dout, l, d, dq, BH, T, S, D,
-                                      causal, scale, st);
+      return (int)with_head_dim(D, [&](auto dim) {
+        return tc::launch_dq<decltype(dim)::value>(
+            q, k, v, dout, l, d, dq, BH, T, S, causal, scale, st);
+      });
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -493,11 +863,15 @@ extern "C" int dnn_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
-      return (int)dkv_d<float>(q, k, v, dout, l, d, dk, dv, BH, T, S, D,
-                               causal, scale, st);
+      return (int)with_head_dim(D, [&](auto dim) {
+        return launch_dkv<float, decltype(dim)::value>(
+            q, k, v, dout, l, d, dk, dv, BH, T, S, causal, scale, st);
+      });
     case 1:
-      return (int)dkv_d<__nv_bfloat16>(q, k, v, dout, l, d, dk, dv, BH, T, S,
-                                       D, causal, scale, st);
+      return (int)with_head_dim(D, [&](auto dim) {
+        return tc::launch_dkv<decltype(dim)::value>(
+            q, k, v, dout, l, d, dk, dv, BH, T, S, causal, scale, st);
+      });
     default:
       return (int)cudaErrorInvalidValue;
   }

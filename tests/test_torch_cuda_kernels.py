@@ -184,18 +184,45 @@ def test_flash_kernels(dev, dtype, d, causal, t, s):
         assert err <= _tol(dtype, want.float()), err
 
 
-def test_flash_autograd_on_the_card(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_autograd_on_the_card(dev, dtype):
     """The Function: K2 forward, K3/K4 backward, against autograd through
-    the plain reference_attention."""
+    the plain reference_attention (in f32 on the same values for bf16)."""
     g = torch.Generator(device=dev).manual_seed(6)
-    q, k, v, w = _flash_inputs(g, dev, 200, 200, 64, torch.float32)
+    q, k, v, w = _flash_inputs(g, dev, 200, 200, 64, dtype)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     got = torch.autograd.grad(
         (tfa.flash_attention(q, k, v) * w).sum(), (q, k, v))
+    qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
     want = torch.autograd.grad(
-        (tfa.reference_attention(q, k, v) * w).sum(), (q, k, v))
+        (tfa.reference_attention(qf, kf, vf) * w.float()).sum(),
+        (qf, kf, vf))
     for a, b in zip(got, want):
-        assert (a - b).abs().max().item() <= _tol(torch.float32, b)
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert (a.float() - b).abs().max().item() <= _tol(dtype, b)
+
+
+# (B, H, T, S): the training shape, and a ragged one whose K/V ring wraps
+@pytest.mark.parametrize("b,h,t,s", [(8, 12, 512, 512), (2, 3, 65, 1000)],
+                         ids=["B=8-H=12-T=S=512", "T=65-S=1000"])
+def test_flash_backward_bf16_is_deterministic(dev, b, h, t, s):
+    """K3 and K4 in bf16 (causal, D=64) run twice on the same inputs give
+    dQ, dK and dV equal bit for bit: no atomics, a fixed summation
+    order, so a resumed training run can reproduce an uninterrupted one."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(b, h, n, 64, generator=g, device=dev)
+                   .to(torch.bfloat16) for n in (t, s, s, t))
+    out, lse = tfa.flash_attention_lse(q, k, v)
+    di = (do.float() * out.float()).sum(-1)
+
+    def grads():
+        return (tfa.flash_bwd_dq(q, k, v, do, lse, di),
+                *tfa.flash_bwd_dkv(q, k, v, do, lse, di))
+    first, second = grads(), grads()
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b_)
 
 
 def test_flash_refuses_what_it_does_not_take(dev):
