@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch version on the card, then serves
-GPT-2 at full width through the LM daemon over gRPC in three cache
+GPT-2 at full width through the LM daemon over gRPC in four cache
 configurations, runs the solo decoder, checks every greedy stream
 against an independent reference, and trains full-width GPT-2 through
 the flash-attention kernels.
@@ -11,7 +11,9 @@ the flash-attention kernels.
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi); TF32 off; kernel build
   2. K5 cached_attention at the prefill shape (B=1 H=12 T=64 S=1024 D=64),
-     bases {0, 64, 448, 960}, f32, bf16 and int8 caches
+     bases {0, 64, 448, 960}, f32, bf16 and int8 caches; its split-KV
+     plan (splits, kernel launches a call), and at base 960 its time
+     against SDPA's
   3. K6 decode_attention at the dense decode shape (B=4 Hk=12 R=1 D=64
      S=1024), pos {0,15,16,1023}, f32/bf16/int8; also a stale slot at
      pos = S and an R=2 case (checked only)
@@ -43,10 +45,14 @@ Phases (any failure exits non-zero and prints no result):
           greedy loop: plain attention over a dense int8 cache quantized
           with the port's _quantize_rows, no batcher, no kernel (K5, K7
           int8)
-       solo make_generate on the 300-token prompt, f32 and int8 caches,
-          against the same two references (K5, K6)
+       D. kv="paged", kv_dtype="bf16" — against the same loop over a
+          dense bf16 cache (K/V rounded to bf16, the attention's output
+          cast to bf16 as the port's FloatKV does) (K5, K7 bf16)
+       solo make_generate on the 300-token prompt, f32, bf16 and int8
+          caches, against the matching reference (K5, K6)
   6. information: a torch.profiler view of a decode step and of one
-     prompt's admission (wall, device busy, top kernels)
+     prompt's admission on each pool A-D (wall, device busy, top
+     kernels, K5's share of the admission's device time)
   6b. the training main path (gpt2 at full width, seed-0 weights, B=8
      T=512, make_apply_stacked(use_flash=True), next_token_loss, the
      port's adamw(1e-4), batches from a seeded token file through
@@ -83,7 +89,10 @@ live columns only, int8 scales included) at 3.35 TB/s, or the work at
 the inputs' type's peak: f32 FMAs at 67 TFLOP/s, bf16 at the tensor
 cores' 989 TFLOP/s. Each flash line also prints the operations bound of
 the units its kernel runs the products on: the tensor cores for the
-bf16 kernels (K1-K4), the CUDA cores in f32 for the f32 ones.
+bf16 kernels (K1-K4), the CUDA cores in f32 for the f32 ones. K5 runs
+its products on the tensor cores in every cache type: its operations
+bound is the bf16 products it issues at 989 TFLOP/s, with the f32
+CUDA-core bound of the live scores printed beside it.
 """
 
 from __future__ import annotations
@@ -253,11 +262,23 @@ def report(tag, label, row, nbytes, byte_ms, op_ms):
 
 def phase_k5(dev, gen):
     """K5 against its plain version at the prefill-chunk shape, f32,
-    bf16 and int8 caches. Returns {(dtype, base): row}."""
+    bf16 and int8 caches. Returns {(dtype, base): row}. The bound is that
+    of the units the kernel now uses: the bytes, or the tensor-core
+    operations of the products it issues (over every 64-key tile up to
+    each query tile's last live column, two bf16 products a tile for
+    Q.K^T and two for P.V, three each for an f32 cache) at 989 TFLOP/s.
+    The f32 CUDA-core bound of the live scores, the bound of the earlier
+    CUDA-core design, is printed beside it."""
     from dnn_tpu_torch.ops.cuda.cached_attention import (
-        cached_attention, reference_cached_attention)
+        K5_TILE, cached_attention, k5_split, reference_cached_attention)
 
     B, H, T, S, D = 1, 12, 64, 1024, 64
+    split_tiles, n_split = k5_split(B * H, T, S)
+    q_tiles = -(-T // K5_TILE)
+    print(f"[K5] B={B} H={H} T={T} S={S} D={D}: {n_split} splits of "
+          f"{split_tiles * K5_TILE} keys, grid ({n_split}, {q_tiles}, "
+          f"{B * H}), {2 if n_split > 1 else 1} kernel launches a call "
+          f"(split{' + merge' if n_split > 1 else ''})", flush=True)
     rows = {}
     for name, tol in KV_CASES:
         q = torch.randn(LAYERS, B, H, T, D, generator=gen, device=dev)
@@ -272,8 +293,14 @@ def phase_k5(dev, gen):
             live = min(S, base + T)
             nbytes = (2 * B * H * T * D * 4 + B * H * kv_bytes(name, live, D)
                       + B * 4)
-            flops = 4 * D * B * H * sum(min(S, base + t + 1) for t in range(T))
-            b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops)
+            scores = B * H * sum(min(S, base + t + 1) for t in range(T))
+            tiles = B * H * sum(
+                min(S - 1, base + min(T, K5_TILE * (i + 1)) - 1) // K5_TILE + 1
+                for i in range(q_tiles))
+            products = 3 if name == "f32" else 2
+            tc_flops = tiles * 2 * products * 2 * K5_TILE * K5_TILE * D
+            b_ms, b_by, byte_ms, op_ms = bound(nbytes, tc_flops,
+                                               BF16_FLOPS_PER_S)
             ms = time_ms(cycling(lambda i: cached_attention(
                 q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
             plain = time_ms(cycling(lambda i: reference_cached_attention(
@@ -289,8 +316,20 @@ def phase_k5(dev, gen):
             row = rows[(name, base)] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err)
-            report("K5", f"{name:4s} base {base:4d}", row, nbytes, byte_ms,
-                   op_ms)
+            print(f"[K5] {name:4s} base {base:4d}: err {err:.3e} kernel_ms "
+                  f"{ms:.4f} plain_ms {plain:.4f} library_ms "
+                  f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
+                  f"{b_ms:.5f} ({b_by}; bytes {byte_ms:.5f} for "
+                  f"{nbytes / 1e6:.3f} MB at 3.35 TB/s, tensor-core ops "
+                  f"{op_ms:.5f} for {tiles} tiles x {2 * products} products "
+                  f"at 989 TFLOP/s; f32 CUDA-core ops of the live scores "
+                  f"{4 * D * scores / F32_FLOPS_PER_S * 1e3:.5f}); kernel / "
+                  f"bound {ms / b_ms:.1f}", flush=True)
+        if lib is not None:
+            at = rows[(name, 960)]
+            print(f"[K5] {name} base 960: kernel {at['ms']:.4f} ms, SDPA "
+                  f"({name} q, k, v) {at['library_ms']:.4f} ms: kernel / "
+                  f"library {at['ms'] / at['library_ms']:.2f}", flush=True)
     return rows
 
 
@@ -622,11 +661,14 @@ def reference_greedy(prepared, cfg, prompt, n_new, dev):
     return toks, gaps
 
 
-def reference_greedy_int8(prepared, cfg, prompt, n_new, dev):
-    """Independent int8-cache greedy loop: no batcher and no kernel. A
-    dense int8 cache of prompt + n_new positions, K/V quantized with the
-    port's _quantize_rows, attention through the plain version with the
-    scales. Returns (tokens, top-2 logit gap at each step)."""
+def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype):
+    """Independent greedy loop over a dense cache of type `kv_dtype`
+    ("bf16" or "int8"): no batcher and no kernel. A cache of prompt +
+    n_new positions; bf16 stores K/V rounded to bf16, int8 quantizes them
+    with the port's _quantize_rows and keeps the scales; attention is the
+    plain version, its output cast to the cache's type for a bf16 cache,
+    as the port's FloatKV.attend does. Returns (tokens, top-2 logit gap at
+    each step)."""
     from dnn_tpu_torch.models.gpt import head, layer_params
     from dnn_tpu_torch.ops.attention import merge_heads
     from dnn_tpu_torch.ops.cuda.cached_attention import (
@@ -635,12 +677,17 @@ def reference_greedy_int8(prepared, cfg, prompt, n_new, dev):
     from dnn_tpu_torch.runtime.generate import _mlp, _qkv_heads
     from dnn_tpu_torch.runtime.kvcache import _quantize_rows
 
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_dtype must be bf16 or int8, got {kv_dtype!r}")
+    quant = kv_dtype == "int8"
+    store = torch.int8 if quant else torch.bfloat16
     n_l, h, d = cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head
     s_len = len(prompt) + n_new
-    kv = {"k": torch.zeros(n_l, 1, h, s_len, d, dtype=torch.int8, device=dev),
-          "v": torch.zeros(n_l, 1, h, s_len, d, dtype=torch.int8, device=dev),
-          "ks": torch.ones(n_l, 1, h, s_len, device=dev),
-          "vs": torch.ones(n_l, 1, h, s_len, device=dev)}
+    kv = {"k": torch.zeros(n_l, 1, h, s_len, d, dtype=store, device=dev),
+          "v": torch.zeros(n_l, 1, h, s_len, d, dtype=store, device=dev)}
+    if quant:
+        kv["ks"] = torch.ones(n_l, 1, h, s_len, device=dev)
+        kv["vs"] = torch.ones(n_l, 1, h, s_len, device=dev)
 
     def last_logits(ids, start):
         t = ids.shape[1]
@@ -652,12 +699,18 @@ def reference_greedy_int8(prepared, cfg, prompt, n_new, dev):
             q, k, v = _qkv_heads(bp, layer_norm(bp["ln_1"], x, eps=cfg.ln_eps),
                                  cfg=cfg)
             for name, new in (("k", k), ("v", v)):
-                payload, scale = _quantize_rows(new)
+                if quant:
+                    payload, scale = _quantize_rows(new)
+                    kv[name + "s"][i, :, :, start:start + t] = scale
+                else:
+                    payload = new.to(store)
                 kv[name][i, :, :, start:start + t] = payload
-                kv[name + "s"][i, :, :, start:start + t] = scale
+            scales = {"ks": kv["ks"][i], "vs": kv["vs"][i]} if quant else {}
             y = reference_cached_attention(q, kv["k"][i], kv["v"][i], pos,
-                                           ks=kv["ks"][i], vs=kv["vs"][i])
-            x = x + linear(bp["attn"]["proj"], merge_heads(y))
+                                           **scales)
+            if not quant:
+                y = y.to(store)
+            x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)))
             x = x + _mlp(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps))
         return head(prepared, x, cfg=cfg)[0, -1]
 
@@ -800,12 +853,13 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
 
 
 def phase_solo(cfg, prepared, prompt, n_new, refs, dev):
-    """Solo make_generate on the card, f32 and int8 caches, greedy,
-    against the no-cache and the int8 reference. Returns launches."""
+    """Solo make_generate on the card, f32, bf16 and int8 caches, greedy,
+    against the no-cache reference and the bf16 and int8 cache loops.
+    Returns launches."""
     from dnn_tpu_torch.runtime.generate import make_generate
 
     total = {}
-    for kv_dtype, ref in (("f32", refs["f32"]), ("int8", refs["int8"])):
+    for kv_dtype, ref in refs.items():
         gen = make_generate(cfg, max_new_tokens=n_new, kv_dtype=kv_dtype,
                             device=dev)
         gen(prepared, [prompt[:8]])  # warm-up
@@ -831,8 +885,9 @@ def phase_solo(cfg, prepared, prompt, n_new, refs, dev):
 
 def phase_main_path(dev, card: str):
     """Every main-path run: A paged f32, B dense + buckets f32, C paged
-    int8, then solo make_generate f32 and int8. Returns the launches of
-    all runs summed per (kernel, dtype), and what the profile needs."""
+    int8, D paged bf16, then solo make_generate f32, bf16 and int8.
+    Returns the launches of all runs summed per (kernel, dtype), and what
+    the profile needs."""
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models.gpt import PRESETS, init
 
@@ -848,10 +903,11 @@ def phase_main_path(dev, card: str):
     n_new = 16
     t0 = time.perf_counter()
     ref_f32 = [reference_greedy(prepared, cfg, p, n_new, dev) for p in prompts]
-    ref_i8 = [reference_greedy_int8(prepared, cfg, p, n_new, dev)
-              for p in prompts]
-    print(f"[main] references (no-cache f32, plain int8 loop) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ref_i8, ref_bf16 = ([reference_greedy_cache(prepared, cfg, p, n_new, dev,
+                                                kv_dtype) for p in prompts]
+                        for kv_dtype in ("int8", "bf16"))
+    print(f"[main] references (no-cache f32, plain int8 and bf16 cache "
+          f"loops) in {time.perf_counter() - t0:.1f} s", flush=True)
     runs = [
         serve_run("A", cfg, prepared, prompts, n_new, ref_f32,
                   [("cached_attention", "f32"),
@@ -863,8 +919,13 @@ def phase_main_path(dev, card: str):
                   [("cached_attention", "int8"),
                    ("paged_decode_attention", "int8")], dev, card,
                   kv="paged", kv_dtype="int8"),
+        serve_run("D", cfg, prepared, prompts, n_new, ref_bf16,
+                  [("cached_attention", "bf16"),
+                   ("paged_decode_attention", "bf16")], dev, card,
+                  kv="paged", kv_dtype="bf16"),
         phase_solo(cfg, prepared, prompts[3], n_new,
-                   {"f32": ref_f32[3], "int8": ref_i8[3]}, dev),
+                   {"f32": ref_f32[3], "bf16": ref_bf16[3],
+                    "int8": ref_i8[3]}, dev),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in ("f32", "bf16", "int8")}
@@ -909,20 +970,24 @@ def device_ms(fn, iters: int = 10) -> float:
 
 
 def _profiled(fn):
-    """(wall ms, device ms, kernel launches, top kernels) of fn() under
-    torch.profiler: device ms sums the kernels' own device time."""
+    """(wall ms, device ms, kernel launches, top kernels, K5 device ms) of
+    fn() under torch.profiler: device ms sums the kernels' own device
+    time; K5's sums its split and merge kernels (cached_attn_*)."""
     wall, evs = _kernel_events(fn)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    k5_ms = sum(e.self_device_time_total for e in evs
+                if "cached_attn" in e.key) / 1e3
     n_kernels = sum(e.count for e in evs)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
     return wall, dev_ms, n_kernels, [(e.key[:60], e.self_device_time_total
-                                      / 1e3, e.count) for e in top]
+                                      / 1e3, e.count) for e in top], k5_ms
 
 
 PROFILED_POOLS = (("A paged f32", {"kv": "paged"}),
                   ("B dense+buckets f32", {"kv": "dense",
                                            "decode_buckets": True}),
-                  ("C paged int8", {"kv": "paged", "kv_dtype": "int8"}))
+                  ("C paged int8", {"kv": "paged", "kv_dtype": "int8"}),
+                  ("D paged bf16", {"kv": "paged", "kv_dtype": "bf16"}))
 
 
 def phase_profile(prepared, cfg, prompts, dev):
@@ -950,7 +1015,7 @@ def phase_profile(prepared, cfg, prompts, dev):
             for _ in range(steps):
                 b.step()
 
-        wall, dev_ms, n_kern, top = _profiled(decode)
+        wall, dev_ms, n_kern, top, _ = _profiled(decode)
         print(f"[profile] {label}: decode step (3 active slots) "
               f"{plain_wall:.3f} ms wall; under the profiler "
               f"{wall / steps:.3f} ms wall, {dev_ms / steps:.3f} ms device "
@@ -959,11 +1024,13 @@ def phase_profile(prepared, cfg, prompts, dev):
         for name, ms, n in top:
             print(f"[profile]   decode {ms / steps:.4f} ms/step  "
                   f"x{n // steps}  {name}", flush=True)
-        wall, dev_ms, n_kern, top = _profiled(lambda: b.submit(prompts[3], 2))
+        wall, dev_ms, n_kern, top, k5_ms = _profiled(
+            lambda: b.submit(prompts[3], 2))
         print(f"[profile] {label}: admission of a {len(prompts[3])}-token "
               f"prompt (5 chunks + install): {wall:.3f} ms wall, "
               f"{dev_ms:.3f} ms device busy ({100 * dev_ms / wall:.1f}%), "
-              f"{n_kern} kernel launches", flush=True)
+              f"{n_kern} kernel launches; K5 {k5_ms:.4f} ms = "
+              f"{100 * k5_ms / dev_ms:.1f}% of device busy", flush=True)
         for name, ms, n in top[:3]:
             print(f"[profile]   prefill {ms:.4f} ms  x{n}  {name}", flush=True)
 

@@ -32,8 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # kernel name -> (source file, C symbol, argtypes). Every pointer and the
-# stream are c_void_p (the scale and lse pointers too, None where
-# absent): a default ctypes int would cut them to 32 bits. kv_kind is
+# stream are c_void_p (the scale, lse and workspace pointers too, None
+# where absent): a default ctypes int would cut them to 32 bits. kv_kind is
 # 0 = f32, 1 = bf16, 2 = int8 with scales. A source and the csrc/
 # headers it includes name its library (lib_path); a source may export
 # several entry points (flash_backward.cu: K3 and K4), and then one
@@ -41,8 +41,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
-        # q k v ks vs pos out | BH H T S D kv_kind | scale stream
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # q k v ks vs pos out ws | BH H T S D kv_kind split_tiles | scale
+        # stream (ws: the split-KV workspace, None for a single split)
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P]),
     "decode_attention": (
         "decode_attention.cu", "dnn_decode_attention",
         # q k v ks vs pos out | B Hk R S D kv_kind | scale stream

@@ -4,7 +4,9 @@ serving path and their plain PyTorch twins.
   * `cached_attention` (K5, csrc/cached_attention.cu) — a prefill
     chunk's rows attend a preallocated cache with a runtime base
     position; replaces dnn_tpu/ops/pallas/cached_attention.py
-    :_cached_attn_kernel.
+    :_cached_attn_kernel. Both products run on the tensor cores over a
+    split-KV grid (`k5_split`); one call launches the split kernel and,
+    where the keys fall into more than one split, the merge kernel.
   * `decode_attention` (K6, csrc/decode_attention.cu) — one decode step
     of every slot against its dense per-slot cache; replaces
     :_decode_attn_kernel.
@@ -20,9 +22,10 @@ softmax), a float cache with none. Every result is f32.
 Dispatch is by the tensors' device and nothing else: CPU tensors run the
 plain version (`reference_*`, the JAX package's reference math), CUDA
 tensors launch the kernel or raise. No failure falls back. Each wrapper
-counts its kernel launches in plain int attributes — `.launches` in
-total and `.launches_by_dtype[{"f32", "bf16", "int8"}]` by cache type —
-so a run can show that the serving path went through the kernels.
+counts its calls that launch kernels in plain int attributes —
+`.launches` in total and `.launches_by_dtype[{"f32", "bf16", "int8"}]`
+by cache type, one per call — so a run can show that the serving path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from dnn_tpu_torch.ops.cuda import _build
 _NEG_BIG = -1e30
 _KV_KIND = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
             torch.int8: (2, "int8")}
+K5_TILE = 64             # K5's query rows a block and keys a tile
+K5_TARGET_BLOCKS = 132   # one block for each of the H100's 132 SMs
 
 
 # ----------------------------------------------------------------------
@@ -172,12 +177,27 @@ def _counted(fn):
     return fn
 
 
+def k5_split(bh: int, t: int, s: int):
+    """K5's split of the cache's keys, from the shapes alone (the base
+    positions stay on the device): (64-key tiles per split, number of
+    splits). The grid is ceil(T / 64) query tiles per (batch, head)
+    times the splits; the splits bring it up to about K5_TARGET_BLOCKS
+    blocks, at most one split per tile of the cache."""
+    n_tiles = -(-s // K5_TILE)
+    query_tiles = bh * -(-t // K5_TILE)
+    splits = max(1, min(n_tiles, -(-K5_TARGET_BLOCKS // query_tiles)))
+    split_tiles = -(-n_tiles // splits)
+    return split_tiles, -(-n_tiles // split_tiles)
+
+
 @_counted
 def cached_attention(q, k, v, pos, *, ks=None, vs=None):
     """K5. q (B, H, T, D) f32; k/v (B, H, S, D) f32 or bf16, or int8 with
-    ks/vs (B, H, S) f32 scales; pos (B,) int32 base positions (row t
+    ks/vs (B, H, S) f32 scales; pos (B,) int32 base positions >= 0 (row t
     attends columns <= pos[b] + t). Returns (B, H, T, D) f32. CPU tensors
-    run `reference_cached_attention`."""
+    run `reference_cached_attention`. On CUDA the partial results of the
+    key splits go to an f32 workspace of n_split * B * H * T * (D + 2)
+    floats, merged in split order (deterministic)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: expected (B,H,T,D)/(B,H,S,D)")
@@ -191,13 +211,16 @@ def cached_attention(q, k, v, pos, *, ks=None, vs=None):
     dev = _same_device(q, k, v, pos, ks, vs)
     if dev.type == "cpu":
         return reference_cached_attention(q, k, v, pos, ks=ks, vs=vs)
-    _check_kernel_args((q, k, v, pos, ks, vs), d=d, dims=(32, 64),
+    _check_kernel_args((q, k, v, pos, ks, vs), d=d, dims=(32, 64, 128),
                        aligned=(q, k, v))
     out = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
+    split_tiles, n_split = k5_split(b * h, t, k.shape[2])
+    ws = None if n_split == 1 else torch.empty(
+        n_split * b * h * t * (d + 2), dtype=torch.float32, device=dev)
     _launch(cached_attention, "cached_attention", dname, dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
-            pos.data_ptr(), out.data_ptr(), b * h, h, t, k.shape[2], d,
-            kind, 1.0 / math.sqrt(d))
+            pos.data_ptr(), out.data_ptr(), _ptr(ws), b * h, h, t,
+            k.shape[2], d, kind, split_tiles, 1.0 / math.sqrt(d))
     return out
 
 

@@ -1,285 +1,567 @@
 // Cached-attention prefill kernel (K5) for Hopper, sm_90a.
 //
-// Replaces: dnn_tpu/ops/pallas/cached_attention.py:_cached_attn_kernel
+// Replaces: dnn_tpu/ops/pallas/cached_attention.py:77 _cached_attn_kernel
 // (entry cached_attention) -- a prompt chunk's queries attend a
 // preallocated K/V cache with a RUNTIME base position: row t of batch b
-// sees cache columns <= pos[b] + t.
+// sees cache columns <= pos[b] + t. q is f32; the cache is f32, bf16, or
+// int8 with one f32 scale per (position, head) for K and for V; the
+// output is f32.
 //
-// What bounds it on an H100: the live K/V bytes and the f32 work come
-// out close. Per (batch, head) the chunk's T rows read the live columns
-// 0..pos+T-1 once (q and out are small) and do 4*D flops per live
-// score. At the serving shape (T=64, D=64, f32 cache) the least time
-// from bytes at 3.35 TB/s and from f32 FMAs at 67 TFLOP/s are within
-// 1.5x of each other: bytes bound a chunk near the start of the cache,
-// the f32 arithmetic a chunk deep into it (chip_smoke.py prints both).
-// Tensor cores would lift the arithmetic bound only through TF32 or
-// bf16 operands, which the f32 reference does not allow.
+// What bounds it on an H100: bytes, and before them latency. At the
+// serving shape (B=1, H=12, one 64-row chunk, D=64, base 960: 1024 live
+// columns) the live K/V are 6.3 MB in f32, 3.1 MB in bf16 and 1.6 MB in
+// int8 with its scales, 0.0020 / 0.0010 / 0.0006 ms at 3.35 TB/s; the
+// products the kernel issues on the tensor cores take 0.0004-0.0006 ms
+// at 989 TFLOP/s. A chunk is only B * H * ceil(T/64) = 12 query tiles,
+// far too few blocks to fill 132 SMs if each walks its keys alone.
 //
-// Design. The TPU kernel carries the online-softmax state (row max m,
-// row sum l, accumulator acc) across a SEQUENTIAL grid axis in VMEM
-// scratch. Hopper blocks run in parallel in no order, so each block
-// here owns kBQ query rows of one (batch, head) and loops over the keys
-// itself, keeping m/l/acc in registers (one float each per row, not the
-// TPU's 128-lane broadcast). The loop stops at the block's last live
-// column (pos + last row): that one bound replaces both the TPU
-// kernel's pl.when(live) compute skip and its repeated-block-index DMA
-// skip -- dead cache columns are never read. Each step stages 64 keys
-// of K and V in shared memory with 16-byte loads, read once per block
-// and shared by its kBQ rows. Two warps work each row, each on its own
-// 32-key half of every step (more warps in flight to hide latency);
-// their partial (m, l, acc) merge once at the end. Scores use one lane
-// per key against the query held in registers; P@V uses one lane per
-// output dim with the probabilities broadcast by shuffle.
+// Design (one kernel per cache type and head dim, tc::cached_attn_tc_kernel):
+//  * Split-KV grid (n_split, ceil(T/64), B*H). A block is one warpgroup
+//    (128 threads) that owns a 64-row query tile -- wgmma's m64 -- and
+//    the keys [split * split_keys, (split + 1) * split_keys) of it,
+//    clipped to the tile's last live column pos + last row. The split is
+//    sized from S on the host (the positions stay on the device, no
+//    sync) so that the grid holds about one block an SM (at the serving
+//    shape 8 splits of two tiles: fewer, longer splits timed slower at
+//    base 960, more, shorter ones slower at every base); a block whose
+//    range lies wholly past the tile's last live column exits at once,
+//    and dead columns are never read, as the TPU kernel's pl.when(live)
+//    skips them.
+//  * Each block writes its partial online-softmax state -- the row max m
+//    (log2 units), the row sum l and the unnormalised accumulator -- to
+//    an f32 workspace the wrapper allocates, and a second kernel
+//    (cached_attn_merge_kernel) combines a row's partials in split order,
+//    so the result is the same bit for bit from run to run. A second
+//    kernel rather than last-block-merges: electing the last block needs
+//    a per-tile counter zeroed before every call and atomics, state that
+//    outlives a call; the merge costs one more launch and keeps a call
+//    stateless. It is launched as a programmatic dependent (PDL), so its
+//    blocks are resident before the split grid ends and only wait for its
+//    writes. A row whose live columns all lie in split 0 (a whole chunk
+//    at base 0) is divided by l and written by its split-0 block, and the
+//    merge skips it; where the cache is a single split no merge runs.
+//  * Both products run on the tensor cores as wgmma m64nNk16 (f32 +=
+//    bf16 x bf16), through the helpers of hopper_tc.cuh. f32 accuracy
+//    comes from splitting only the f32 side into bf16 hi + lo (x = hi +
+//    lo to 2^-16 relative): the cache side is exact in bf16 -- a bf16
+//    cache as stored, an int8 payload widened to bf16 exactly (|x| <=
+//    127) -- so S = Q.K^T is q_hi.k + q_lo.k and O += P.V is p_hi.v +
+//    p_lo.v, two wgmma each. An f32 cache is split too and takes three
+//    (hi.hi + hi.lo + lo.hi; lo.lo is below f32's own rounding of the
+//    sum). Q is split once into two swizzled tiles; P is split in
+//    registers: wgmma's accumulator fragment of S is, pair by pair, the A
+//    fragment of P.V.
+//  * K and V stream through a two-stage cp.async ring (16-byte copies,
+//    zero-filled past S), tile j + 1 in flight while tile j is
+//    multiplied. A bf16 cache lands straight in wgmma's 128-byte swizzled
+//    layout; an f32 or int8 cache lands raw and is converted once per
+//    tile into the swizzled operand tiles (hi and lo, or widened).
+//  * Only tiles on the diagonal (a column past the tile's first row's
+//    limit) or past S take the mask; rows at or past T are computed on
+//    zero queries and never stored.
+//  * int8: the tile's K and V scales are staged beside the payload. The
+//    K scale multiplies the f32 score column before the softmax; the V
+//    scale folds into P for P.V only, while l sums the unscaled P (the
+//    reference's softmax denominator never sees the V scales).
 //
-// int8 caches carry one f32 scale per (position, head) for K and for V;
-// each step stages its keys' two scales in shared memory beside the
-// widened payload. The K scale multiplies the score before 1/sqrt(D);
-// the V scale is folded into the probability that is broadcast for the
-// P@V product only -- the row sum l adds the unscaled probability, as
-// the reference's softmax denominator never sees the V scales. The
-// payload is read at 1 byte an element (4-byte loads) and widened once,
-// in the staging step; an int8 cache moves a quarter of the f32 bytes.
-//
-// Numerics: f32 accumulation and f32 output for every cache type.
-// Masked scores sit at -1e30 (not -inf) as in the reference, and a
-// masked column adds exactly 0 to l and acc; a warp that has seen no
-// live column yet keeps m = -1e30, l = 0, acc = 0, and weighs
-// exp(-1e30 - M) = 0 when the halves merge. Column 0 is live for every
-// row, so every row ends with a real maximum. The kernel multiplies the
-// dot by scale = 1/sqrt(D) where the reference divides by sqrt(D):
-// differences are at the ulp level.
+// Numerics: f32 statistics and accumulation, f32 output for every cache
+// type. The scale 1/sqrt(D) multiplies the f32 score in log2 units
+// (exp2 on the SFU) where the reference divides by sqrt(D); masked scores
+// sit at -1e30 and add exactly 0 to l and O. A row's live columns are a
+// prefix of the cache, so the first tile of any split the row reaches
+// holds a live column of it, and the row's m is real from there on. A
+// split a row does not reach leaves that row's partial undefined, and
+// the merge never reads it: row t reads the splits up to the one that
+// holds its last live column.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_tc.cuh"
 
 namespace {
 
 constexpr float kNegBig = -1e30f;
-constexpr int kBQ = 8;                   // query rows per block
-constexpr int kBK = 32;                  // keys per warp tile, one per lane
-constexpr int kSplit = 2;                // warps sharing one row's keys
-constexpr int kKeys = kBK * kSplit;      // keys staged per step
-constexpr int kWarps = kBQ * kSplit;     // warp (r, h): row r, tile half h
-constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  o[0] = x.x;
-  o[1] = x.y;
-  o[2] = x.z;
-  o[3] = x.w;
+namespace tc {
+
+constexpr int kWGThreads = 128;  // one warpgroup a block
+constexpr int kRing = 2;         // stages of the K/V ring
+
+// What a cache type needs beside the ring.
+template <typename KV>
+struct Kind {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  // K and V split into hi and lo (an f32 cache)
+  static constexpr bool kSplit = std::is_same<KV, float>::value;
+  // the ring holds the raw cache, converted into operand tiles per tile
+  static constexpr bool kStaged = !std::is_same<KV, __nv_bfloat16>::value;
+};
+
+// Shared memory, in bytes from the 1024-aligned base: Q hi and Q lo
+// tiles; the operand tiles K, V (hi) and K lo, V lo of a converted cache;
+// then kRing stages. A bf16 stage is a K and a V operand tile; a raw
+// stage is the K and V rows as stored, then (int8) 64 K and 64 V scales.
+template <typename KV, int D>
+struct Smem {
+  static constexpr int kTile = Layout<D>::kTile;
+  static constexpr int kRaw = kRows * D * (int)sizeof(KV);
+  static constexpr int kOps = 2 * kTile;
+  static constexpr int kOperands =
+      Kind<KV>::kStaged ? (Kind<KV>::kSplit ? 4 : 2) : 0;
+  static constexpr int kStage =
+      Kind<KV>::kStaged
+          ? (2 * kRaw + (Kind<KV>::kQuant ? 2 * kRows * 4 : 0) + 1023) / 1024 *
+                1024
+          : 2 * kTile;
+  static constexpr int kRingOff = kOps + kOperands * kTile;
+  static constexpr int kBytes = kRingOff + kRing * kStage;
+};
+
+// x = hi + lo in bf16, for a pair of values packed as wgmma takes them.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
+// Eight consecutive f32 values as one 16-byte chunk of hi and one of lo.
+__device__ __forceinline__ void split8(const float4& a, const float4& b,
+                                       uint4& hi, uint4& lo) {
+  split2(a.x, a.y, hi.x, lo.x);
+  split2(a.z, a.w, hi.y, lo.y);
+  split2(b.x, b.y, hi.z, lo.z);
+  split2(b.z, b.w, hi.w, lo.w);
 }
 
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  const char4 x = *reinterpret_cast<const char4*>(p);
-  o[0] = static_cast<float>(x.x);
-  o[1] = static_cast<float>(x.y);
-  o[2] = static_cast<float>(x.z);
-  o[3] = static_cast<float>(x.w);
+// Four int8 values (one 32-bit word) as two bf16 pairs; exact.
+__device__ __forceinline__ void widen4(uint32_t x, uint32_t& a, uint32_t& b) {
+  const char4 c = *reinterpret_cast<const char4*>(&x);
+  a = pack_bf16((float)c.x, (float)c.y);
+  b = pack_bf16((float)c.z, (float)c.w);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// Rows [r0, r0 + 64) of a row-major (len, D) cache matrix into shared
+// memory as stored (row-major, unswizzled); rows at or past len are zeros.
+template <typename KV, int D>
+__device__ __forceinline__ void load_raw(uint32_t dst, const KV* g, int r0,
+                                         int len) {
+  constexpr int kRowBytes = D * (int)sizeof(KV);
+  constexpr int kChunks = kRowBytes / 16;
+  const char* gb = reinterpret_cast<const char*>(g);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
+  for (int u = 0; u < kRows * kChunks / kWGThreads; ++u) {
+    const int i = (int)threadIdx.x + u * kWGThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r0 + r < len;
+    cp_async16(dst + r * kRowBytes + 16 * c,
+               gb + (size_t)(in ? r0 + r : 0) * kRowBytes + 16 * c, in);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// A raw stage's K and V into the operand tiles at `ops` (Layout<D>):
+// f32 split into K hi, V hi, K lo, V lo; int8 widened into K, V.
+template <typename KV, int D>
+__device__ __forceinline__ void convert(const unsigned char* raw,
+                                        unsigned char* ops) {
+  using L = Smem<KV, D>;
+  constexpr int kChunks = D / 8;  // 16-byte bf16 chunks per row
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+  for (int u = 0; u < kRows * kChunks / kWGThreads; ++u) {
+    const int i = (int)threadIdx.x + u * kWGThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const int off = Layout<D>::offset(r, c);
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {  // K, then V
+      const KV* src =
+          reinterpret_cast<const KV*>(raw + w * L::kRaw) + r * D + 8 * c;
+      if constexpr (Kind<KV>::kSplit) {
+        const float4* f = reinterpret_cast<const float4*>(src);
+        uint4 hi, lo;
+        split8(f[0], f[1], hi, lo);
+        *reinterpret_cast<uint4*>(ops + w * L::kTile + off) = hi;
+        *reinterpret_cast<uint4*>(ops + (2 + w) * L::kTile + off) = lo;
+      } else {
+        const uint2 x = *reinterpret_cast<const uint2*>(src);
+        uint4 h;
+        widen4(x.x, h.x, h.y);
+        widen4(x.y, h.z, h.w);
+        *reinterpret_cast<uint4*>(ops + w * L::kTile + off) = h;
+      }
+    }
+  }
+}
+
+// The online softmax of one 64-key tile of f32 scores at k0, in place:
+// masks columns past each row's limit (only where `masked`), moves the
+// row max m (log2 units), returns in alpha the factor 2^(m_old - m_new)
+// for O; s becomes p = 2^(s * scale2 - m), and l (this thread's part of
+// the row sum) takes alpha * l + the sum of p.
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2], bool masked,
+                                               int k0, const int (&limit)[2],
+                                               int c_lane, float scale2) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = k0 + 8 * (i / 4) + c_lane + (i & 1);
+      if (c > limit[(i / 2) & 1]) s[i] = kNegBig;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegBig;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+      mx = fmaxf(mx, fmaxf(s[4 * jn + 2 * h], s[4 * jn + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m[h], mx * scale2);
+    alpha[h] = ex2(m[h] - m_new);
+    m[h] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jn + 2 * h + e];
+        x = ex2(fmaf(x, scale2, -m_new));
+        sum += x;
+      }
+    l[h] = l[h] * alpha[h] + sum;
+  }
+}
+
+// P (f32, accumulator fragment) as the hi and lo A fragments of P.V.
+__device__ __forceinline__ void split_p(const float (&s)[32],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pin(hi[kk]);
+    pin(lo[kk]);
+  }
 }
 
 // q (BH, T, D) f32; k, v (BH, S, D) KV; k_scale, v_scale (BH, S) f32
-// (kQuant only); pos (B,) int32 with B = BH / H; out (BH, T, D) f32;
-// q/k/v/out 16-byte aligned. Grid (BH, ceil(T / kBQ)), block kThreads.
-// Warp (r, h) owns query row q0 + r and, of every kKeys-key step, the
-// h-th 32-key tile; the kSplit partial softmax states of a row merge at
-// the end.
-template <typename KV, int D, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-cached_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                   const KV* __restrict__ v,
-                   const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale,
-                   const int* __restrict__ pos, float* __restrict__ out,
-                   int H, int T, int S, float scale) {
-  constexpr int DL = D / 32;   // output dims owned by each lane
-  constexpr int KS = D + 4;    // padded K row: float4 reads by lane-per-key
-                               // hit every bank once per quarter warp
-  __shared__ __align__(16) float ks[kKeys][KS];
-  __shared__ __align__(16) float vs[kKeys][D];
-  __shared__ float kss[kKeys], vss[kKeys];  // int8 scales of the step
-  __shared__ float sm[kSplit][kBQ], sl[kSplit][kBQ];
-  __shared__ float sacc[kSplit][kBQ][D];
+// (int8 only); pos (B,) int32, B = BH / H; out (BH, T, D) f32; ws null
+// (one split: out is written here) or the workspace of n_split =
+// gridDim.x splits: acc (n_split, BH, T, D), then m and l (n_split, BH,
+// T) each (rows whose live columns all lie in split 0 go to out
+// instead). Grid (n_split, ceil(T / 64), BH), block kWGThreads, dynamic
+// shared memory Smem<KV, D>::kBytes.
+template <typename KV, int D>
+__global__ void __launch_bounds__(kWGThreads, D == 128 ? 1 : 2)
+cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                      const KV* __restrict__ v,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
+                      const int* __restrict__ pos, float* __restrict__ out,
+                      float* __restrict__ ws, int H, int T, int S,
+                      int split_keys, float scale) {
+  using K = Kind<KV>;
+  using L = Smem<KV, D>;
+  constexpr int kTile = L::kTile;
+  // 1024-byte aligned: the swizzle pattern repeats every 8 rows of 128 B
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sbase = smem_addr(smem);
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r = warp % kBQ, h = warp / kBQ;
-  const int t = q0 + r;
+  // the merge (launched as a programmatic dependent) may start its blocks
+  // now; it waits for this grid's completion before it reads a partial
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int split = blockIdx.x, q0 = blockIdx.y * kRows, bh = blockIdx.z;
   const int base = pos[bh / H];
-  const size_t q_off = (size_t)bh * T * D;
-  const size_t kv_off = (size_t)bh * S * D;
-  const size_t sc_off = (size_t)bh * S;
+  const int last_col = min(S - 1, base + min(T, q0 + kRows) - 1);
+  const int k_begin = split * split_keys;
+  if (k_begin > last_col) return;  // no live column of the tile here
+  const int n_tiles =
+      (min(last_col, k_begin + split_keys - 1) - k_begin) / kRows + 1;
 
-  // the row's query, in registers (the same values in every lane)
-  float qreg[D];
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    if (t < T) {
-      load4(q + q_off + (size_t)t * D + d, &qreg[d]);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0, r0 + 8
+  const int c_lane = 2 * (lane & 3);       // its first column of each 8
+  const int limit[2] = {min(S - 1, base + q0 + r0),
+                        min(S - 1, base + q0 + r0 + 8)};
+  // tiles wholly at or below the first row's limit need no mask
+  const int first_limit = min(S - 1, base + q0);
+  const size_t kv_row = (size_t)bh * S;
+  const KV* kb = k + kv_row * D;
+  const KV* vb = v + kv_row * D;
+
+  auto stage = [&](int j) { return L::kRingOff + L::kStage * (j % kRing); };
+  // Starts copying tile j of the split into its stage.
+  auto load = [&](int j) {
+    const int k0 = k_begin + j * kRows;
+    const uint32_t st = sbase + stage(j);
+    if constexpr (K::kStaged) {
+      load_raw<KV, D>(st, kb, k0, S);
+      load_raw<KV, D>(st + L::kRaw, vb, k0, S);
+      if constexpr (K::kQuant) {  // 64 K scales, then 64 V scales
+        const int i = threadIdx.x & (kRows - 1);
+        const float* sc = (threadIdx.x < kRows ? k_scale : v_scale) + kv_row;
+        const bool in = k0 + i < S;
+        cp_async4(st + 2 * L::kRaw + 4 * threadIdx.x, sc + (in ? k0 + i : 0),
+                  in);
+      }
     } else {
-      qreg[d] = qreg[d + 1] = qreg[d + 2] = qreg[d + 3] = 0.f;
+      load_tile<D, kWGThreads>(st, kb, k0, S);
+      load_tile<D, kWGThreads>(st + kTile, vb, k0, S);
     }
-  }
+    cp_async_commit();
+  };
 
-  // the block's last live column: its last real row's limit
-  const int last_row = min(T, q0 + kBQ) - 1;
-  const int last_col = min(S - 1, base + last_row);
-
-  float m = kNegBig, l = 0.f, acc[DL];
+  load(0);
+  {  // Q, split once into hi and lo tiles; zeros past T
+    constexpr int kChunks = D / 8;
+    const float* qb = q + (size_t)bh * T * D;
 #pragma unroll
-  for (int dd = 0; dd < DL; ++dd) acc[dd] = 0.f;
-
-  for (int c0 = 0; c0 <= last_col; c0 += kKeys) {
-    __syncthreads();  // every warp is done with the previous step's keys
-    for (int i = tid; i < kKeys * D / 4; i += kThreads) {
-      const int j = (4 * i) / D, d = (4 * i) % D;
-      const int col = c0 + j;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (col <= last_col) {
-        load4(k + kv_off + (size_t)col * D + d, kx);
-        load4(v + kv_off + (size_t)col * D + d, vx);
+    for (int u = 0; u < kRows * kChunks / kWGThreads; ++u) {
+      const int i = (int)threadIdx.x + u * kWGThreads;
+      const int r = i / kChunks, c = i % kChunks;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (q0 + r < T) {
+        const float4* g =
+            reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D + 8 * c);
+        a = g[0];
+        b = g[1];
       }
-      *reinterpret_cast<float4*>(&ks[j][d]) =
-          make_float4(kx[0], kx[1], kx[2], kx[3]);
-      *reinterpret_cast<float4*>(&vs[j][d]) =
-          make_float4(vx[0], vx[1], vx[2], vx[3]);
+      uint4 hi, lo;
+      split8(a, b, hi, lo);
+      const int off = Layout<D>::offset(r, c);
+      *reinterpret_cast<uint4*>(smem + off) = hi;
+      *reinterpret_cast<uint4*>(smem + kTile + off) = lo;
     }
-    if constexpr (kQuant) {
-      if (tid < kKeys) {
-        const int col = c0 + tid;
-        kss[tid] = col <= last_col ? k_scale[sc_off + col] : 0.f;
-        vss[tid] = col <= last_col ? v_scale[sc_off + col] : 0.f;
+  }
+
+  const uint32_t sq = sbase, sq_lo = sbase + kTile;
+  const float scale2 = scale * kLog2e;  // raw score -> log2 units
+  // m: running row max in log2 units; l: this thread's part of the row sum
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, alpha[2];
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[32];
+  uint32_t pa[4][4], pl[4][4];  // P hi, P lo
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) load(j + 1);
+    uint32_t sk, sv, sk_lo = 0, sv_lo = 0;
+    if constexpr (K::kStaged) {
+      convert<KV, D>(smem + stage(j), smem + L::kOps);
+      fence_async_smem();
+      __syncthreads();
+      sk = sbase + L::kOps;
+      sv = sk + kTile;
+      sk_lo = sk + 2 * kTile;
+      sv_lo = sk + 3 * kTile;
+    } else {
+      sk = sbase + stage(j);
+      sv = sk + kTile;
+    }
+
+    // S = q_hi.K [+ q_hi.K_lo] + q_lo.K
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Mma<64>::ss(s, Layout<D>::k_major(sq, kk), Layout<D>::k_major(sk, kk),
+                  kk);
+    if constexpr (K::kSplit) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<64>::ss(s, Layout<D>::k_major(sq, kk),
+                    Layout<D>::k_major(sk_lo, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Mma<64>::ss(s, Layout<D>::k_major(sq_lo, kk),
+                  Layout<D>::k_major(sk, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+
+    const int k0 = k_begin + j * kRows;
+    const float* scales =
+        reinterpret_cast<const float*>(smem + stage(j) + 2 * L::kRaw);
+    if constexpr (K::kQuant) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] *= scales[8 * (i / 4) + c_lane + (i & 1)];
+    }
+    online_softmax(s, m, l, alpha, k0 + kRows - 1 > first_limit, k0, limit,
+                   c_lane, scale2);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+    if constexpr (K::kQuant) {  // P.V sees P times the V scales
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s[i] *= scales[kRows + 8 * (i / 4) + c_lane + (i & 1)];
+    }
+    split_p(s, pa, pl);
+    pin(o);
+
+    // O += p_hi.V [+ p_hi.V_lo] + p_lo.V
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Mma<D>::rs(o, pa[kk], Layout<D>::mn_major(sv, kk), 1);
+    if constexpr (K::kSplit) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Mma<D>::rs(o, pa[kk], Layout<D>::mn_major(sv_lo, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Mma<D>::rs(o, pl[kk], Layout<D>::mn_major(sv, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+  const int BH = gridDim.z;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = q0 + r0 + 8 * h;
+    // rows past T, and rows with no live column in this split, are not
+    // stored; a row whose live columns all lie in split 0 is finished here
+    if (t >= T || limit[h] < k_begin) continue;
+    if (ws == nullptr || limit[h] < split_keys) {
+      const float inv = 1.f / l[h];
+      float* orow = out + ((size_t)bh * T + t) * D + c_lane;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<float2*>(orow + 8 * c) =
+            make_float2(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
+    } else {
+      const size_t rows = (size_t)BH * T;
+      const size_t row = (size_t)split * rows + (size_t)bh * T + t;
+      float* arow = ws + row * D + c_lane;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<float2*>(arow + 8 * c) =
+            make_float2(o[4 * c + 2 * h], o[4 * c + 2 * h + 1]);
+      if ((lane & 3) == 0) {
+        float* ms = ws + (size_t)gridDim.x * rows * D;
+        ms[row] = m[h];
+        ms[(size_t)gridDim.x * rows + row] = l[h];
       }
     }
-    __syncthreads();
-
-    const int jj = h * kBK + lane;  // this lane's key in the staged step
-    const int col = c0 + jj;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(&ks[jj][d]);
-      s = fmaf(qreg[d], kk.x, s);
-      s = fmaf(qreg[d + 1], kk.y, s);
-      s = fmaf(qreg[d + 2], kk.z, s);
-      s = fmaf(qreg[d + 3], kk.w, s);
-    }
-    const bool live = (t < T) && (col <= base + t) && (col < S);
-    if constexpr (kQuant) s *= kss[jj];
-    s = live ? s * scale : kNegBig;
-    const float m_new = fmaxf(m, warp_max(s));
-    const float alpha = expf(m - m_new);
-    const float p = live ? expf(s - m_new) : 0.f;
-    l = l * alpha + warp_sum(p);
-    float pv = p;
-    if constexpr (kQuant) pv *= vss[jj];
-#pragma unroll
-    for (int dd = 0; dd < DL; ++dd) acc[dd] *= alpha;
-#pragma unroll 8
-    for (int j = 0; j < kBK; ++j) {
-      const float pj = __shfl_sync(kFull, pv, j);
-#pragma unroll
-      for (int dd = 0; dd < DL; ++dd)
-        acc[dd] = fmaf(pj, vs[h * kBK + j][lane + 32 * dd], acc[dd]);
-    }
-    m = m_new;
-  }
-
-  // merge the row's kSplit partial states (a half that saw no live key
-  // holds m = -1e30, l = 0 and weighs exp(-1e30 - M) = 0)
-  if (lane == 0) {
-    sm[h][r] = m;
-    sl[h][r] = l;
-  }
-#pragma unroll
-  for (int dd = 0; dd < DL; ++dd) sacc[h][r][lane + 32 * dd] = acc[dd];
-  __syncthreads();
-  if (h == 0 && t < T) {
-    float mx = sm[0][r];
-#pragma unroll
-    for (int hh = 1; hh < kSplit; ++hh) mx = fmaxf(mx, sm[hh][r]);
-    float tot = 0.f, o[DL];
-#pragma unroll
-    for (int dd = 0; dd < DL; ++dd) o[dd] = 0.f;
-#pragma unroll
-    for (int hh = 0; hh < kSplit; ++hh) {
-      const float f = expf(sm[hh][r] - mx);
-      tot += sl[hh][r] * f;
-#pragma unroll
-      for (int dd = 0; dd < DL; ++dd) o[dd] += sacc[hh][r][lane + 32 * dd] * f;
-    }
-    const float inv = 1.f / tot;
-#pragma unroll
-    for (int dd = 0; dd < DL; ++dd)
-      out[q_off + (size_t)t * D + lane + 32 * dd] = o[dd] * inv;
   }
 }
 
-template <typename KV, bool kQuant>
+// out (rows = BH * T, D) from the n_split partials in ws (the layout
+// above): row (bh, t) reads the splits 0 .. n - 1 that hold a live column
+// of it, n = min(S - 1, pos + t) / split_keys + 1, and takes
+// sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s with M = max_s m_s, in
+// split order; a row with n = 1 was written by its split-0 block. D / 4
+// threads a row, four output dims each. Launched as a programmatic
+// dependent of the split kernel: its blocks start while that grid runs,
+// and wait for it (griddepcontrol.wait) before the first partial is read.
+template <int D>
+__global__ void __launch_bounds__(kWGThreads)
+cached_attn_merge_kernel(const float* __restrict__ ws,
+                         const int* __restrict__ pos, float* __restrict__ out,
+                         int H, int T, int S, int split_keys, int n_split,
+                         int rows) {
+  constexpr int kPer = D / 4;  // threads a row
+  const int row = blockIdx.x * (kWGThreads / kPer) + threadIdx.x / kPer;
+  if (row >= rows) return;
+  const int d = 4 * (threadIdx.x % kPer);
+  const int bh = row / T, t = row % T;
+  const int n = min(S - 1, pos[bh / H] + t) / split_keys + 1;
+  if (n == 1) return;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const size_t stride = (size_t)rows;  // one split's rows
+  const float* ms = ws + (size_t)n_split * stride * D;
+  const float* ls = ms + (size_t)n_split * stride;
+  float mx = kNegBig;
+  for (int sp = 0; sp < n; ++sp) mx = fmaxf(mx, ms[sp * stride + row]);
+  float tot = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < n; ++sp) {
+    const size_t i = sp * stride + row;
+    const float w = exp2f(ms[i] - mx);
+    tot = fmaf(ls[i], w, tot);
+    const float4 a = *reinterpret_cast<const float4*>(ws + i * D + d);
+    acc.x = fmaf(a.x, w, acc.x);
+    acc.y = fmaf(a.y, w, acc.y);
+    acc.z = fmaf(a.z, w, acc.z);
+    acc.w = fmaf(a.w, w, acc.w);
+  }
+  const float inv = 1.f / tot;
+  *reinterpret_cast<float4*>(out + (size_t)row * D + d) =
+      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+}
+
+template <typename KV, int D>
 cudaError_t launch(const float* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* pos,
-                   float* out, int BH, int H, int T, int S, int D,
-                   float scale, cudaStream_t stream) {
-  const dim3 grid(BH, (T + kBQ - 1) / kBQ);
-  const KV* kk = static_cast<const KV*>(k);
-  const KV* vv = static_cast<const KV*>(v);
-  switch (D) {
-    case 32:
-      cached_attn_kernel<KV, 32, kQuant><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, ks, vs, pos, out, H, T, S, scale);
-      break;
-    case 64:
-      cached_attn_kernel<KV, 64, kQuant><<<grid, kThreads, 0, stream>>>(
-          q, kk, vv, ks, vs, pos, out, H, T, S, scale);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+                   float* out, float* ws, int BH, int H, int T, int S,
+                   int split_keys, int n_split, float scale,
+                   cudaStream_t stream) {
+  constexpr int smem = Smem<KV, D>::kBytes;
+  static bool configured = false;
+  cudaError_t e = configure(cached_attn_tc_kernel<KV, D>, smem, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(n_split, (T + kRows - 1) / kRows, BH);
+  cached_attn_tc_kernel<KV, D><<<grid, kWGThreads, smem, stream>>>(
+      q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, pos,
+      out, ws, H, T, S, split_keys, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ws == nullptr) return e;
+  constexpr int kRowsPer = kWGThreads / (D / 4);
+  const int rows = BH * T;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rows + kRowsPer - 1) / kRowsPer);
+  cfg.blockDim = dim3(kWGThreads);
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cached_attn_merge_kernel<D>,
+                            static_cast<const float*>(ws), pos, out, H, T, S,
+                            split_keys, n_split, rows);
 }
 
+}  // namespace tc
 }  // namespace
 
 // C entry point (loaded with ctypes). kv_kind: 0 = f32 cache, 1 = bf16,
-// 2 = int8 with ks/vs scales (null for the float kinds). Returns the
-// launch's cudaError_t (0 = launched).
+// 2 = int8 with ks/vs scales (null for the float kinds). split_tiles:
+// 64-key tiles per split; the keys fall into n_split = ceil(ceil(S / 64)
+// / split_tiles) splits, and ws is null when n_split is 1, else an f32
+// workspace of n_split * BH * T * (D + 2) floats. One call launches the
+// split kernel and, with a workspace, the merge. Returns the first
+// launch error (0 = launched).
 extern "C" int dnn_cached_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, const void* pos,
-                                    void* out, int BH, int H, int T, int S,
-                                    int D, int kv_kind, float scale,
+                                    void* out, void* ws, int BH, int H,
+                                    int T, int S, int D, int kv_kind,
+                                    int split_tiles, float scale,
                                     void* stream) {
-  if (BH <= 0 || H <= 0 || T <= 0 || S <= 0 || BH % H != 0 ||
-      (T + kBQ - 1) / kBQ > 65535)
+  using tc::kRows;
+  if (BH <= 0 || H <= 0 || T <= 0 || S <= 0 || split_tiles <= 0 ||
+      BH % H != 0 || BH > 65535 || (T + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
+  const int n_tiles = (S + kRows - 1) / kRows;
+  const int n_split = (n_tiles + split_tiles - 1) / split_tiles;
+  if ((n_split > 1) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
   if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -288,18 +570,24 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
   const float* vss = static_cast<const float*>(vs);
   const int* pp = static_cast<const int*>(pos);
   float* oo = static_cast<float*>(out);
+  float* ww = static_cast<float*>(ws);
+  const int split_keys = split_tiles * kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kv_kind) {
-    case 0:
-      return (int)launch<float, false>(qq, k, v, kss, vss, pp, oo, BH, H, T,
-                                       S, D, scale, st);
-    case 1:
-      return (int)launch<__nv_bfloat16, false>(qq, k, v, kss, vss, pp, oo,
-                                               BH, H, T, S, D, scale, st);
-    case 2:
-      return (int)launch<int8_t, true>(qq, k, v, kss, vss, pp, oo, BH, H, T,
-                                       S, D, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    switch (kv_kind) {
+      case 0:
+        return tc::launch<float, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H, T,
+                                     S, split_keys, n_split, scale, st);
+      case 1:
+        return tc::launch<__nv_bfloat16, kD>(qq, k, v, kss, vss, pp, oo, ww,
+                                             BH, H, T, S, split_keys, n_split,
+                                             scale, st);
+      case 2:
+        return tc::launch<int8_t, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H,
+                                      T, S, split_keys, n_split, scale, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }

@@ -1,6 +1,7 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// flash kernels: the forward (flash_attention.cu, K1/K2) and the backward
-// (flash_backward.cu, K3/K4). Inline PTX over cuda_bf16.h only (no
+// flash kernels -- the forward (flash_attention.cu, K1/K2) and the
+// backward (flash_backward.cu, K3/K4) -- and the cached-attention prefill
+// (cached_attention.cu, K5). Inline PTX over cuda_bf16.h only (no
 // CUTLASS or CuTe headers), so a library that includes it still builds
 // in seconds. What is here: cp.async copies into shared memory, the
 // wgmma fence / commit / wait and register pins, the shared-memory matrix
@@ -267,15 +268,16 @@ struct Layout {
 // Rows [r0, r0 + 64) of a row-major (len, D) bf16 matrix into a shared
 // tile at `dst` (Layout<D>); rows at or past `len` are zeros. Consecutive
 // threads copy consecutive 16-byte chunks of a row, so 8 of them read 128
-// contiguous bytes and write one 128-byte line of the tile.
-template <int D>
+// contiguous bytes and write one 128-byte line of the tile. kThr threads
+// of the block take part (all of them by default).
+template <int D, int kThr = kThreads>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* g, int r0,
                                           int len) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int u = 0; u < kRows * kChunks / kThreads; ++u) {
-    const int i = (int)threadIdx.x + u * kThreads;
+  for (int u = 0; u < kRows * kChunks / kThr; ++u) {
+    const int i = (int)threadIdx.x + u * kThr;
     const int r = i / kChunks, c = i % kChunks;
     const bool in = r0 + r < len;
     cp_async16(dst + Layout<D>::offset(r, c),

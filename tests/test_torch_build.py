@@ -36,6 +36,13 @@ def test_both_flash_sources_include_the_tensor_core_header():
         assert _build._inputs(src) == [src, "hopper_tc.cuh"]
 
 
+def test_k5_source_includes_the_tensor_core_header():
+    """K5 runs on the tensor cores too: its library rebuilds when the
+    shared header changes."""
+    assert _build._inputs("cached_attention.cu") == ["cached_attention.cu",
+                                                     "hopper_tc.cuh"]
+
+
 @pytest.mark.parametrize("mangled,label", [
     ("_ZN12_GLOBAL__N_12tc22flash_bwd_dq_tc_kernelILi64EEEvPK13__nv_"
      "bfloat16S4_S4_S4_PKfS6_PS2_iiif", "flash_bwd_dq_tc_kernel<64>"),
@@ -45,6 +52,12 @@ def test_both_flash_sources_include_the_tensor_core_header():
      "bfloat16S4_S4_PS2_Pfiiif", "flash_fwd_tc_kernel<32>"),
     ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEvPKT_S4_S4_S4_PKfS6_"
      "PS2_iiif", "flash_bwd_dq_kernel<f32, 64>"),
+    ("_ZN12_GLOBAL__N_12tc21cached_attn_tc_kernelI13__nv_bfloat16Li64EEEvPK"
+     "fPKT_S7_S4_S4_PKiPfSA_iiiif", "cached_attn_tc_kernel<bf16, 64>"),
+    ("_ZN12_GLOBAL__N_12tc21cached_attn_tc_kernelIaLi128EEEvPKfPKT_S6_S4_"
+     "S4_PKiPfS9_iiiif", "cached_attn_tc_kernel<int8, 128>"),
+    ("_ZN12_GLOBAL__N_12tc24cached_attn_merge_kernelILi32EEEvPKfPKiPfiiiiii",
+     "cached_attn_merge_kernel<32>"),
 ])
 def test_build_lines_name_the_kernels(mangled, label):
     assert chip_smoke.kernel_label(mangled) == label

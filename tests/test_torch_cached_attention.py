@@ -44,13 +44,16 @@ def _inputs(seed, q_shape, kv_shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", KV_DTYPES)
-@pytest.mark.parametrize("pos", [(0, 0), (3, 50), (100, 112)])
-def test_cached_attention_matches_jax(pos, dtype):
+@pytest.mark.parametrize("pos,d", [((0, 0), 32), ((3, 50), 32),
+                                   ((100, 112), 32), ((3, 50), 128)],
+                         ids=["pos0", "pos1", "pos2", "d128"])
+def test_cached_attention_matches_jax(pos, d, dtype):
     """K5's plain version vs the JAX reference and the Pallas kernel in
-    interpret mode: B=2 H=2 T=16 S=128 D=32, block_s=128, runtime base
-    positions per batch row."""
+    interpret mode: B=2 H=2 T=16 S=128, D=32 (and D=128, the widest head
+    dim the CUDA kernel takes), block_s=128, runtime base positions per
+    batch row."""
     (q, k, v, ks, vs), (jq, jk, jv, jks, jvs) = _inputs(
-        1, (2, 2, 16, 32), (2, 2, 128, 32), dtype)
+        1, (2, 2, 16, d), (2, 2, 128, d), dtype)
     got = tca.cached_attention(q, k, v, torch.tensor(pos, dtype=torch.int32),
                                ks=ks, vs=vs)
     jpos = jnp.asarray(pos, jnp.int32)
@@ -59,7 +62,7 @@ def test_cached_attention_matches_jax(pos, dtype):
     pallas = np.asarray(jca.cached_attention(jq, jk, jv, jpos, ks=jks,
                                              vs=jvs, block_s=128,
                                              interpret=True))
-    assert got.dtype == torch.float32 and got.shape == (2, 2, 16, 32)
+    assert got.dtype == torch.float32 and got.shape == (2, 2, 16, d)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got.numpy(), pallas, atol=ATOL, rtol=0)
 
@@ -110,6 +113,26 @@ def test_paged_decode_attention_matches_jax(rows, dtype):
     assert got.dtype == torch.float32 and got.shape == (3, 2, rows, 32)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got.numpy(), pallas, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bh,t,s,plan", [
+    (12, 64, 1024, (2, 8)),   # the serving chunk: two 64-key tiles a split
+    (12, 300, 316, (2, 3)),   # the solo 300-token prompt
+    (24, 128, 1024, (6, 3)),  # six tiles a split, the last split of four
+    (96, 256, 300, (5, 1)),   # the query tiles fill the grid: no merge
+    (2, 1, 1, (1, 1)),
+])
+def test_k5_split_plan(bh, t, s, plan):
+    """K5's split-KV plan from the shapes alone: (tiles a split, splits).
+    Every 64-key tile of the cache falls in exactly one split, none is
+    empty, and the grid (splits x query tiles) stays within one row of
+    query tiles of K5_TARGET_BLOCKS."""
+    split_tiles, n_split = tca.k5_split(bh, t, s)
+    assert (split_tiles, n_split) == plan
+    n_tiles = -(-s // tca.K5_TILE)
+    assert (n_split - 1) * split_tiles < n_tiles <= n_split * split_tiles
+    query_tiles = bh * -(-t // tca.K5_TILE)
+    assert n_split * query_tiles < tca.K5_TARGET_BLOCKS + query_tiles
 
 
 def test_cpu_path_launches_no_kernel():

@@ -6,10 +6,12 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Shapes here are deliberately ragged (T not a multiple of the 8-row
-query tile, S not a multiple of the 64-key step or the 8-key chunk,
-block_len 8, two query rows per KV head) — the serving shapes are
-covered by chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16 and int8
+Shapes here are deliberately ragged (T not a multiple of the 64-row
+query tile, S not a multiple of the 64-key tile or the 8-key chunk,
+block_len 8, two query rows per KV head); K5 also runs at the serving
+shape, at bases beside its split edges, under each split plan, and
+twice for bit-equality — the serving path itself is covered by
+chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16 and int8
 caches alike (both sides read the same rounded or quantized values and
 accumulate in f32; only the summation order differs)."""
 
@@ -48,20 +50,88 @@ def _cache(g, shape, kind, dev):
     return k.to(dt), v.to(dt), None, None
 
 
+def _k5_check(q, k, v, pos, ks, vs, kind):
+    """One K5 call against the plain version; counts one launch."""
+    before = tca.cached_attention.launches_by_dtype[kind]
+    got = tca.cached_attention(q, k, v, pos, ks=ks, vs=vs)
+    want = tca.reference_cached_attention(q, k, v, pos, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert tca.cached_attention.launches_by_dtype[kind] == before + 1
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= ATOL, err
+    return got
+
+
 @pytest.mark.parametrize("kind", KV_DTYPES)
-@pytest.mark.parametrize("d", [32, 64])
-def test_cached_attention_kernel(dev, kind, d):
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [40, 1, 65])
+def test_cached_attention_kernel(dev, kind, d, t):
+    """B=2 rows at different base positions, S=200 (not a multiple of
+    the 64-key tile), T of one row, of 40 and of 65 (a second query tile
+    with one row)."""
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn(2, 3, 40, d, generator=g, device=dev)
+    q = torch.randn(2, 3, t, d, generator=g, device=dev)
     k, v, ks, vs = _cache(g, (2, 3, 200, d), kind, dev)
     for base in ([0, 160], [7, 100], [199, 0]):
         pos = torch.tensor(base, dtype=torch.int32, device=dev)
-        before = tca.cached_attention.launches_by_dtype[kind]
-        got = tca.cached_attention(q, k, v, pos, ks=ks, vs=vs)
-        want = tca.reference_cached_attention(q, k, v, pos, ks=ks, vs=vs)
-        torch.cuda.synchronize()
-        assert tca.cached_attention.launches_by_dtype[kind] == before + 1
-        assert (got - want).abs().max().item() <= ATOL
+        _k5_check(q, k, v, pos, ks, vs, kind)
+
+
+# the serving shape (one 64-row prompt chunk against a 1024-position row,
+# 8 splits of two 64-key tiles). The last row's limit, base + 63, falls
+# on the cache's last column (base 960), on a split's last column (base
+# 448: 511), and one column either side of that edge (447: 510, 449: 512,
+# the next split's first column).
+@pytest.mark.parametrize("kind", KV_DTYPES)
+def test_cached_attention_serving_shape(dev, kind):
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(1, 12, 64, 64, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (1, 12, 1024, 64), kind, dev)
+    assert tca.k5_split(12, 64, 1024) == (2, 8)
+    for base in (0, 447, 448, 449, 960):
+        pos = torch.tensor([base], dtype=torch.int32, device=dev)
+        _k5_check(q, k, v, pos, ks, vs, kind)
+
+
+# (B, H, T, S): the split plans the wrapper picks for these shapes are
+# single-split (B=8 H=12 T=256: 384 query tiles, the kernel normalises
+# and writes the output itself, its ring wrapping over 5 tiles) and
+# six tiles a split (B=2 H=12 T=128 S=1024: 3 splits, the last of four
+# tiles); `target` then forces one split, and one split per tile, on the
+# same inputs.
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("b,h,t,s", [(8, 12, 256, 300), (2, 12, 128, 1024)],
+                         ids=["B=8-T=256-S=300", "B=2-T=128-S=1024"])
+@pytest.mark.parametrize("target", [None, 1, 10**6],
+                         ids=["auto", "one-split", "split-per-tile"])
+def test_cached_attention_split_plans(dev, monkeypatch, kind, b, h, t, s,
+                                      target):
+    if target is not None:
+        monkeypatch.setattr(tca, "K5_TARGET_BLOCKS", target)
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(b, h, t, 64, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (b, h, s, 64), kind, dev)
+    pos = torch.tensor(([0, s - t, 17, 40, 3, 9, 30, 1] * 2)[:b],
+                       dtype=torch.int32, device=dev)
+    _k5_check(q, k, v, pos, ks, vs, kind)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("b,h,t,s,d", [(1, 12, 64, 1024, 64),
+                                       (2, 3, 65, 200, 128)],
+                         ids=["serving-shape", "ragged-D=128"])
+def test_cached_attention_is_deterministic(dev, kind, b, h, t, s, d):
+    """K5 twice on the same inputs gives the same output bit for bit: the
+    splits' partials are merged in a fixed order, with no atomics."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn(b, h, t, d, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (b, h, s, d), kind, dev)
+    pos = torch.tensor([s - t, 0][:b], dtype=torch.int32, device=dev)
+    first = tca.cached_attention(q, k, v, pos, ks=ks, vs=vs)
+    second = tca.cached_attention(q, k, v, pos, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all() and torch.equal(first, second)
 
 
 @pytest.mark.parametrize("kind", KV_DTYPES)
