@@ -34,7 +34,9 @@ Phases (any failure exits non-zero and prints no result):
      (aten._scaled_dot_product_flash_attention_backward on the residuals
      of its forward), timed like the kernels; in f32, which the flash
      backend does not take, the profiler's device time of autograd.grad
-     of SDPA minus that of its forward (in bf16 printed beside the other)
+     of SDPA minus that of its forward (in bf16 printed beside the other);
+     and, checked only, K3/K4 f32 at T=S=512 with q and k x 4 (scores of
+     tens), at 1e-4 x each gradient's max
   5. the main path (gpt2, random weights from seed 0, 4 slots, max_len
      1024, prompt_pad 64; prompts of 5/70/130/300 tokens, 16 new tokens,
      greedy, 4 concurrent gRPC clients), each run with the launch counts
@@ -86,10 +88,16 @@ so each launch reads K/V the previous launches did not leave in the
 50 MB L2 — as on the serving path.
 Bounds: bytes moved (each input read once, each output written once,
 live columns only, int8 scales included) at 3.35 TB/s, or the work at
-the inputs' type's peak: f32 FMAs at 67 TFLOP/s, bf16 at the tensor
-cores' 989 TFLOP/s. Each flash line also prints the operations bound of
-the units its kernel runs the products on: the tensor cores for the
-bf16 kernels (K1-K4), the CUDA cores in f32 for the f32 ones. K5 runs
+the inputs' type's peak. K6 and K7: f32 FMAs at 67 TFLOP/s. The flash
+kernels (K1-K4): the function's own products at the card's fastest rate
+for the inputs' type, bf16 on the tensor cores at 989 TFLOP/s and f32
+on the TF32 tensor cores at 494.7, so that a design's way of reaching
+f32 accuracy does not move its bound. Each flash line also prints the
+products on the units its kernel runs them on: the tensor cores for the
+bf16 kernels, the CUDA cores in f32 (at 67) for the f32 forward (K1,
+K2), and for K3 and K4 in f32 the split products they issue on the
+tensor cores (the score product as three TF32 products, every other as
+three bf16 products) beside the f32 CUDA-core figure. K5 runs
 its products on the tensor cores in every cache type: its operations
 bound is the bf16 products it issues at 989 TFLOP/s, with the f32
 CUDA-core bound of the live scores printed beside it.
@@ -112,6 +120,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM TF32 tensor cores, dense
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 LAYERS = 12
 
@@ -441,29 +450,70 @@ def live_pairs(t: int, s: int) -> int:
     return sum(min(s, r + 1 + s - t) for r in range(t))
 
 
-def flash_bound(nbytes, flops, dtype):
-    """bound() at the inputs' type's peak."""
-    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-    return bound(nbytes, flops, peak)
+def flash_bound(nbytes: float, flops: float, f32: bool) -> dict:
+    """The bound of a flash kernel (K1-K4): the larger of its bytes at
+    3.35 TB/s and its function's own products (`flops`) at the card's
+    fastest rate for the inputs' type -- bf16 on the tensor cores at 989
+    TFLOP/s, f32 on the TF32 tensor cores at 494.7 (a kernel that keeps
+    f32 accuracy issues more than that; what it issues does not move the
+    bound). Also the same products as f32 FMAs on the CUDA cores at 67,
+    the bound of the f32 CUDA-core designs."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / (TF32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S) * 1e3
+    return dict(nbytes=nbytes, flops=flops, f32=f32, bytes_ms=bytes_ms,
+                ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                f32_cuda_core_ms=flops / F32_FLOPS_PER_S * 1e3)
 
 
-def flash_report(tag, label, row, nbytes, flops, dtype, tensor_cores):
-    """One kernel's line: its time beside the plain version, the library
-    yardstick and the bound, and the operations bound of the units it
-    runs its products on (the tensor cores at 989 TFLOP/s, or the CUDA
-    cores in f32 at 67)."""
+def flash_report(tag, label, row, b):
+    """One flash kernel's line: its time beside the plain version, the
+    library yardstick and the bound `b` (flash_bound), and the products
+    on the units the kernel runs them on: issued on the tensor cores as
+    split f32 products where `b` has "issued", else on the tensor cores
+    in bf16 or on the CUDA cores in f32."""
     lib = row["library_ms"]
-    _, _, byte_ms, op_ms = flash_bound(nbytes, flops, dtype)
-    peak = "f32 67" if dtype == torch.float32 else "bf16 tensor-core 989"
-    units = (f"products on the tensor cores: ops bound {op_ms:.5f}"
-             if tensor_cores else "products on the CUDA cores: f32 ops "
-             f"bound {flops / F32_FLOPS_PER_S * 1e3:.5f}")
+    if "issued" in b:
+        tf32, bf16 = b["issued"]["tf32"], b["issued"]["bf16"]
+        issued_ms = (tf32 / TF32_FLOPS_PER_S + bf16 / BF16_FLOPS_PER_S) * 1e3
+        units = (f"issued on the tensor cores as split products: TF32 "
+                 f"{tf32 / 1e9:.2f} GFLOP at 494.7 + bf16 {bf16 / 1e9:.2f} "
+                 f"GFLOP at 989, {issued_ms:.5f}; as f32 FMAs on the CUDA "
+                 f"cores {b['f32_cuda_core_ms']:.5f} at 67")
+    elif b["f32"]:
+        units = (f"products on the CUDA cores: f32 ops "
+                 f"{b['f32_cuda_core_ms']:.5f} at 67")
+    else:
+        units = "products on the tensor cores"
     print(f"[{tag}] {label}: err {row['max_abs_err']:.3e} kernel_ms "
           f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
           f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
-          f"{row['bound_ms']:.5f} ({row['bound_by']}; bytes {byte_ms:.5f} "
-          f"for {nbytes / 1e6:.1f} MB at 3.35 TB/s, ops {op_ms:.5f} at "
-          f"{peak} TFLOP/s; {units})", flush=True)
+          f"{row['bound_ms']:.5f} ({row['bound_by']}; bytes "
+          f"{b['bytes_ms']:.5f} for {b['nbytes'] / 1e6:.1f} MB at 3.35 TB/s, "
+          f"ops {b['ops_ms']:.5f} for {b['flops'] / 1e9:.2f} GFLOP at "
+          f"{'TF32 494.7' if b['f32'] else 'bf16 989'} TFLOP/s; {units}); "
+          f"kernel / bound {row['ms'] / row['bound_ms']:.1f}", flush=True)
+
+
+def flash_bwd_bound(kernel: str, f32: bool, bh: int, t: int, s: int,
+                    d: int) -> dict:
+    """flash_bound of K3 (kernel "flash_bwd_dq") or K4 ("flash_bwd_dkv")
+    at (bh, t, s, d), causal. Bytes: q and dO (t rows), k and v (s rows)
+    read, dQ (t) or dK and dV (s) written, in the inputs' type, plus lse
+    and D (f32). Products: the backward's own (K3: S, dP, dQ; K4: S, dP,
+    dV, dK), 2 d flops per live pair each. In f32, "issued" also gives
+    what the split design issues (information, not the bound): each
+    product as three, the score product on TF32 and the others on bf16."""
+    el = 4 if f32 else 2
+    rows_out = t if kernel == "flash_bwd_dq" else 2 * s
+    nbytes = (2 * t + 2 * s + rows_out) * bh * d * el + 2 * bh * t * 4
+    product = 2 * d * bh * live_pairs(t, s)
+    n_products = 3 if kernel == "flash_bwd_dq" else 4
+    b = flash_bound(nbytes, n_products * product, f32)
+    if f32:
+        b["issued"] = dict(tf32=3 * product,
+                           bf16=3 * (n_products - 1) * product)
+    return b
 
 
 def yardstick_ms(label, fn):
@@ -532,13 +582,13 @@ def phase_flash_fwd(dev, gen):
                 ("flash_attention_lse", lambda: flash_attention_lse(q, k, v),
                  lambda: reference_attention_lse(q, k, v), bh * FLASH_T * 4,
                  err2, lib2)):
-            b_ms, by, _, _ = flash_bound(nbytes + extra, flops, dt)
+            b = flash_bound(nbytes + extra, flops, dt == torch.float32)
             row = rows[kname][name] = dict(
                 ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
-                bound_ms=b_ms, bound_by=by, max_abs_err=err)
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=err)
             flash_report("K1" if kname == "flash_attention" else "K2",
-                         f"{name:4s} B=8 H=12 T=S=512 D=64 causal", row,
-                         nbytes + extra, flops, dt, dt == torch.bfloat16)
+                         f"{name:4s} B=8 H=12 T=S=512 D=64 causal", row, b)
     return rows
 
 
@@ -583,9 +633,6 @@ def phase_flash_bwd(dev, gen):
                 main = (q, k, v, do, lse, di)
         q, k, v, do, lse, di = main
         bh = FLASH_B * FLASH_H
-        tensor_bytes = q.numel() * q.element_size()
-        stat_bytes = 2 * bh * FLASH_T * 4
-        pairs = bh * live_pairs(FLASH_T, FLASH_T)
         qg, kg, vg = (x.detach().clone().requires_grad_(True)
                       for x in (q, k, v))
         # SDPA's backward: the device time of autograd.grad of SDPA
@@ -619,22 +666,51 @@ def phase_flash_bwd(dev, gen):
                   f"{lib}", flush=True)
             if graphed is not None:
                 lib = graphed
-        for kname, fn, plain, nbytes, flops, err in (
+        for kname, fn, plain, err in (
                 ("flash_bwd_dq", lambda: flash_bwd_dq(q, k, v, do, lse, di),
-                 lambda: reference_flash_bwd_dq(q, k, v, do, lse, di),
-                 5 * tensor_bytes + stat_bytes, 6 * FLASH_D * pairs, err3),
+                 lambda: reference_flash_bwd_dq(q, k, v, do, lse, di), err3),
                 ("flash_bwd_dkv", lambda: flash_bwd_dkv(q, k, v, do, lse, di),
                  lambda: reference_flash_bwd_dkv(q, k, v, do, lse, di),
-                 6 * tensor_bytes + stat_bytes, 8 * FLASH_D * pairs, err4)):
-            b_ms, by, _, _ = flash_bound(nbytes, flops, dt)
+                 err4)):
+            b = flash_bwd_bound(kname, dt == torch.float32, bh, FLASH_T,
+                                FLASH_T, FLASH_D)
             row = rows[kname][name] = dict(
                 ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
-                bound_ms=b_ms, bound_by=by, max_abs_err=err)
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                max_abs_err=err)
             flash_report("K3" if kname == "flash_bwd_dq" else "K4",
                          f"{name:4s} B=8 H=12 T=S=512 D=64 causal (library: "
-                         "SDPA's whole backward, dQ dK dV)", row, nbytes,
-                         flops, dt, dt == torch.bfloat16)
+                         "SDPA's whole backward, dQ dK dV)", row, b)
+    flash_bwd_large_scores(dev, gen)
     return rows
+
+
+def flash_bwd_large_scores(dev, gen):
+    """Checked only: K3 and K4 in f32 at T=S=512 with q and k x 4, so that
+    scores reach tens, as a trained model's do; an error in the score
+    product goes through exp. Limit 1e-4 x each gradient's max |value|."""
+    from dnn_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_lse, flash_bwd_dkv, flash_bwd_dq,
+        reference_flash_bwd_dkv, reference_flash_bwd_dq)
+
+    q, k, v, do = flash_tensors(gen, dev, torch.float32, FLASH_T, FLASH_T,
+                                FLASH_T, FLASH_T)
+    q, k = 4 * q, 4 * k
+    out, lse = flash_attention_lse(q, k, v)
+    di = (do * out).sum(-1)
+    got = (flash_bwd_dq(q, k, v, do, lse, di),
+           *flash_bwd_dkv(q, k, v, do, lse, di))
+    want = (reference_flash_bwd_dq(q, k, v, do, lse, di),
+            *reference_flash_bwd_dkv(q, k, v, do, lse, di))
+    errs = []
+    for g, a, b in zip(("dq", "dk", "dv"), got, want):
+        top = b.abs().max().item()
+        e = check(f"K{3 if g == 'dq' else 4} f32 q, k x 4 {g}", a, b,
+                  F32_TOL * top)
+        errs.append(f"{g} {e:.3e} / {top:.3f} = {e / top:.2e}")
+    print("[K3/K4] f32 T=S=512 q, k x 4 (checked only) max abs err / the "
+          f"gradient's max |value| (limit {F32_TOL:g}): " + ", ".join(errs),
+          flush=True)
 
 
 def free_port() -> int:

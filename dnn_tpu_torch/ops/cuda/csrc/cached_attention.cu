@@ -116,47 +116,11 @@ struct Smem {
   static constexpr int kBytes = kRingOff + kRing * kStage;
 };
 
-// x = hi + lo in bf16, for a pair of values packed as wgmma takes them.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - f.x, x1 - f.y);
-}
-
-// Eight consecutive f32 values as one 16-byte chunk of hi and one of lo.
-__device__ __forceinline__ void split8(const float4& a, const float4& b,
-                                       uint4& hi, uint4& lo) {
-  split2(a.x, a.y, hi.x, lo.x);
-  split2(a.z, a.w, hi.y, lo.y);
-  split2(b.x, b.y, hi.z, lo.z);
-  split2(b.z, b.w, hi.w, lo.w);
-}
-
 // Four int8 values (one 32-bit word) as two bf16 pairs; exact.
 __device__ __forceinline__ void widen4(uint32_t x, uint32_t& a, uint32_t& b) {
   const char4 c = *reinterpret_cast<const char4*>(&x);
   a = pack_bf16((float)c.x, (float)c.y);
   b = pack_bf16((float)c.z, (float)c.w);
-}
-
-// Rows [r0, r0 + 64) of a row-major (len, D) cache matrix into shared
-// memory as stored (row-major, unswizzled); rows at or past len are zeros.
-template <typename KV, int D>
-__device__ __forceinline__ void load_raw(uint32_t dst, const KV* g, int r0,
-                                         int len) {
-  constexpr int kRowBytes = D * (int)sizeof(KV);
-  constexpr int kChunks = kRowBytes / 16;
-  const char* gb = reinterpret_cast<const char*>(g);
-#pragma unroll
-  for (int u = 0; u < kRows * kChunks / kWGThreads; ++u) {
-    const int i = (int)threadIdx.x + u * kWGThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool in = r0 + r < len;
-    cp_async16(dst + r * kRowBytes + 16 * c,
-               gb + (size_t)(in ? r0 + r : 0) * kRowBytes + 16 * c, in);
-  }
 }
 
 // A raw stage's K and V into the operand tiles at `ops` (Layout<D>):
@@ -233,22 +197,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
   }
 }
 
-// P (f32, accumulator fragment) as the hi and lo A fragments of P.V.
-__device__ __forceinline__ void split_p(const float (&s)[32],
-                                        uint32_t (&hi)[4][4],
-                                        uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    pin(hi[kk]);
-    pin(lo[kk]);
-  }
-}
-
 // q (BH, T, D) f32; k, v (BH, S, D) KV; k_scale, v_scale (BH, S) f32
 // (int8 only); pos (B,) int32, B = BH / H; out (BH, T, D) f32; ws null
 // (one split: out is written here) or the workspace of n_split =
@@ -300,8 +248,8 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
     const int k0 = k_begin + j * kRows;
     const uint32_t st = sbase + stage(j);
     if constexpr (K::kStaged) {
-      load_raw<KV, D>(st, kb, k0, S);
-      load_raw<KV, D>(st + L::kRaw, vb, k0, S);
+      load_raw<KV, D, kWGThreads>(st, kb, k0, S);
+      load_raw<KV, D, kWGThreads>(st + L::kRaw, vb, k0, S);
       if constexpr (K::kQuant) {  // 64 K scales, then 64 V scales
         const int i = threadIdx.x & (kRows - 1);
         const float* sc = (threadIdx.x < kRows ? k_scale : v_scale) + kv_row;

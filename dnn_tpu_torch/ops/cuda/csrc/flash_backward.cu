@@ -14,9 +14,10 @@
 // JAX split is kept in both paths, so neither kernel needs atomics and
 // both are deterministic (a resumed training run reproduces an
 // uninterrupted one bit for bit): K3 accumulates dQ over key tiles, K4
-// dK and dV over query tiles. In each path ONE device function rebuilds
-// P and dS for both kernels (as _recompute_pds is shared in JAX), so K3
-// and K4 cannot disagree on masking or scaling. Ragged T and S: rows
+// dK and dV over query tiles. ONE device function, pds() under the one
+// mask live(), rebuilds P and dS for both kernels in both types (as
+// _recompute_pds is shared in JAX), so K3 and K4 cannot disagree on
+// masking or scaling. Ragged T and S: rows
 // past T and keys past S are loaded as zeros, masked out of P and never
 // stored.
 //
@@ -50,9 +51,10 @@
 //    stages suffice. (Overlapping tile j's element work with tile j - 1's
 //    accumulation, as the forward does, and rings of 3 or 4 stages
 //    prefetching further ahead timed no faster on an H100 at the training
-//    shape, so the plain loop stays.) The resident tiles (K3: Q and dO; K4: K and V) are
-//    loaded once. Shared memory (2 + 2 kStages) x 64 x D x 2 bytes per
-//    warpgroup pair (64 KB at D = 64; K4 adds 1 KB of lse and D).
+//    shape, so the plain loop stays.) The resident tiles (K3: Q and dO;
+//    K4: K and V) are loaded once. Shared memory (2 + 2 kStages) x 64 x
+//    D x 2 bytes per warpgroup pair (64 KB at D = 64; K4 adds 1 KB of lse
+//    and D).
 //  * Heaviest blocks first (K3: the last query rows; K4: the first keys),
 //    each warpgroup skips the tiles it has no live pair in while keeping
 //    the block's barriers, and only tiles on the causal diagonal or past
@@ -67,382 +69,73 @@
 // 2^-9 relative per term, this path's only error beyond summation order.
 // dQ and dK are multiplied by `scale` once, at the end.
 //
-// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel). What bounds them: the
-// f32 arithmetic. Per live (row, key) pair K3 does 3 products of length D
-// and K4 four: 14 T S D / 2 flops over both at causal, ~11.3 GFLOP at the
-// training shape, 0.17 ms at 67 TFLOP/s on the CUDA cores, against ~100
-// MB of inputs and outputs (0.03 ms at 3.35 TB/s). The products are f32
-// FMAs with operands staged in shared memory (3xTF32 on the tensor cores
-// is a later redesign). K3: one block per (b*h, 64-row query tile),
-// looping over the key tiles up to the tile of the block's last live
-// column; K4: one block per (b*h, 64-key tile), looping over the query
-// tiles from the first one that can see it (for causal the first live
-// row is max(0, k0 - (S - T))). Both rebuild P and dS through
-// recompute_pds. Thread layout as in the f32 forward: 16 x 16 threads,
-// thread (ty, tx) owns the 4 x 4 patch of query rows 4ty.. and keys 4tx..
-// of a 64 x 64 tile; the operands of both products of the recompute are
-// staged d-major, so each dot-product step is two 16-byte shared loads
-// for 16 FMAs. The patches of P and dS then go through shared memory to
-// the accumulation product, where the thread owns 4 rows (K3: query rows;
-// K4: keys) x D/16 dims.
+// f32 (tc::flash_bwd_dq_f32_tc_kernel, tc::flash_bwd_dkv_f32_tc_kernel).
+// The same loops, on the tensor cores too, with every operand split so
+// that the products keep f32 accuracy (1e-4 x the gradient's max). What
+// bounds them on an H100: bytes. At the training shape K3 moves 63.3 MB
+// (0.0189 ms at 3.35 TB/s) and K4 75.9 MB (0.0227 ms); each product of
+// the backward is 2 D flops per live pair, 1.61 GFLOP, so K3's three
+// and K4's four take 0.0098 / 0.0130 ms at the TF32 tensor cores' 494.7
+// TFLOP/s. This design issues each product as three (the score product
+// on TF32, the others on bf16 at 989): 0.0196 ms for K3 and 0.0245 for
+// K4, above the bytes, so the split itself costs time.
+//  * The score product (S = Q.K^T in K3, S^T = K.Q^T in K4) runs as
+//    3xTF32, wgmma m64n64k8.f32.tf32.tf32 with both operands K-major from
+//    shared memory: hi = tf32(x), lo = tf32(x - hi) (round to nearest),
+//    S = hi.hi + hi.lo + lo.hi. An f32 row of D values is 4 D bytes and a
+//    k8 step 32 of them, so an f32 tile is laid out and addressed as a
+//    bf16 tile of width 2 D (Layout<2 D>).
+//  * The other products run as bf16 hi + lo (x = hi + lo to 2^-17), three
+//    products each, over the bf16 backward's helpers: dP and dP^T
+//    (K-major), and dQ += dS.K, dV += P^T.dO, dK += dS^T.Q with P and dS
+//    split in registers into hi and lo A fragments and K, dO, Q read
+//    MN-major. Why the mix: an error in S goes through exp, the others'
+//    only add up. Emulated at D = 64, T = S = 512, causal, with q and k
+//    x 4 (scores of tens), as max |error| / max |gradient| against f64
+//    for dQ / dK / dV (tools/flash_split_numerics.py): bf16 hi + lo in every product 1.4e-4 / 1.3e-4 / 1.7e-4,
+//    over the 1e-4 limit; S as 3xTF32 and the rest bf16 hi + lo (this
+//    design) 1.3e-5 / 2.0e-5 / 5.1e-6; 3xTF32 throughout 2.2e-6 /
+//    2.1e-6 / 1.8e-6. 3xTF32 throughout would need K (K3) and Q and dO
+//    (K4) again as transposed TF32 tiles, since TF32 has no transposed
+//    (MN-major) operand: more shared memory and half the rate of bf16.
+//    On the card the tensor cores add each k-step's products into the
+//    accumulator with truncation, which the emulation leaves out: issued
+//    hi.hi first, the score product's running sum took up to an ulp a
+//    step over 3 D / 8 steps, and K4 at D = 128 read dK 1.1e-4 x its max
+//    with q, k x 4; so every split product issues its small terms first
+//    and hi.hi last (D / 8 truncations of a full-size sum). So issued, on
+//    an H100 at q, k x 4 over four seeds, D 32 / 64 / 128, causal and
+//    full, T = S = 512 and T = 65 S = 1000, the worst gradient read
+//    2.9e-5 / 3.0e-5 / 4.6e-5 x its max against the plain f32 backward
+//    and 2.9e-5 / 2.6e-5 / 3.3e-5 against it in f64: the kernels' own
+//    error barely grows with D; what grows at D = 128 is the f32
+//    reference's.
+//  * Staging: cp.async cannot convert, so a streamed tile lands raw (K3:
+//    K and V; K4: Q, dO, and lse and D as in bf16) and is split once per
+//    tile into the operand tiles: the score side into TF32 hi, lo and
+//    bf16 hi, lo (K3: K; K4: Q, each read by two products), the other
+//    into bf16 hi, lo. The raw pair is split at the top of the tile's
+//    iteration, so one raw slot suffices: tile j + 1 is copied into it
+//    while tile j is multiplied. The resident tiles (K3: Q as TF32, dO as
+//    bf16; K4: K as TF32, V as bf16) are split once from global memory.
+//  * Shared memory, bytes a block (K3 / K4; K4 adds two slots of 64 lse
+//    and 64 D): D = 32, two warpgroups, raw slot: 98304 / 99328 (K3 two
+//    blocks an SM); D = 64, the same: 196608 / 197632, one block; D = 128
+//    the resident pair alone is 96 KB a warpgroup and the operand tiles
+//    128 KB, so one warpgroup a block and no raw slot (a tile is read
+//    through registers and split at the top of its iteration, its load
+//    not overlapped): 229376 / 230400 of the 232448 a block may use.
+//  * Registers (K3 / K4): D = 32 121 / 178, D = 64 161 / 231, D = 128
+//    190 / 255, no spills; K4 takes one block an SM at D = 32 too (two
+//    would cap it at 128 registers, where ptxas spilled and serialized
+//    its wgmma), and at D = 128 a thread splits two units of a tile at a
+//    time (all in flight, K3 and K4 spilled). Every wgmma of a tile is
+//    issued and waited for under the same branch, so ptxas does not
+//    serialize them.
 
 #include "hopper_tc.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32: FMAs on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kB = 64;         // query rows and keys per tile
-constexpr int kThreads = 256;  // 16 x 16, each a 4 x 4 patch of a tile
-
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  o[0] = x.x;
-  o[1] = x.y;
-  o[2] = x.z;
-  o[3] = x.w;
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-// N consecutive floats from shared memory, vectorised where N allows.
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float* o) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int u = 0; u < N; u += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + u);
-      o[u] = x.x;
-      o[u + 1] = x.y;
-      o[u + 2] = x.z;
-      o[u + 3] = x.w;
-    }
-  } else {
-    static_assert(N == 2, "D / 16 must be 2 or a multiple of 4");
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    o[0] = x.x;
-    o[1] = x.y;
-  }
-}
-
-// Rows [r0, r0 + kB) of a row-major (len, D) matrix into shared memory
-// d-major, sT[d * kB + r]; rows at or past `len` are zeros. Consecutive
-// threads take consecutive rows, so the transposed stores hit distinct
-// banks.
-template <typename T, int D>
-__device__ __forceinline__ void stage_transposed(const T* g, int r0, int len,
-                                                 float* sT) {
-  for (int i = threadIdx.x; i < kB * (D / 4); i += kThreads) {
-    const int r = i % kB, d = (i / kB) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < len) load4(g + (size_t)(r0 + r) * D + d, x);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) sT[(d + u) * kB + r] = x[u];
-  }
-}
-
-// The same rows row-major: s[r * D + d].
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(const T* g, int r0, int len,
-                                           float* s) {
-  for (int i = threadIdx.x; i < kB * (D / 4); i += kThreads) {
-    const int r = (4 * i) / D, d = (4 * i) % D;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < len) load4(g + (size_t)(r0 + r) * D + d, x);
-    *reinterpret_cast<float4*>(&s[r * D + d]) =
-        make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// The per-row statistics of query tile q0: lse and D, zero past T.
-__device__ __forceinline__ void stage_stats(const float* lse, const float* di,
-                                            int q0, int T, float* lse_s,
-                                            float* di_s) {
-  const int r = threadIdx.x;
-  if (r < kB) {
-    const bool in = q0 + r < T;
-    lse_s[r] = in ? lse[q0 + r] : 0.f;
-    di_s[r] = in ? di[q0 + r] : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d aT[d][4ty + i] * bT[d][4tx + j] over two d-major
-// tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* aT, const float* bT,
-                                         int ty, int tx, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&aT[d * kB + 4 * ty]);
-    const float4 b = *reinterpret_cast<const float4*>(&bT[d * kB + 4 * tx]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// THE backward recompute, shared by K3 and K4: for the thread's patch
-// (query rows q0 + 4ty + i, keys k0 + 4tx + j) rebuild the normalised
-// probabilities p = exp(scale * q.k - lse), 0 where masked, and
-// ds = p * (dO.v - D). qT/doT hold the query tile d-major, kT/vT the key
-// tile; lse_s/di_s the query tile's row statistics.
-template <int D>
-__device__ __forceinline__ void recompute_pds(
-    const float* qT, const float* kT, const float* doT, const float* vT,
-    const float* lse_s, const float* di_s, int q0, int k0, int T, int S,
-    int causal, float scale, int ty, int tx, float p[4][4], float ds[4][4]) {
-  const int offset = S - T;
-  float dp[4][4];
-  tile_dot<D>(qT, kT, ty, tx, p);
-  tile_dot<D>(doT, vT, ty, tx, dp);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i, t = q0 + r;
-    const float lse = lse_s[r], di = di_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = k0 + 4 * tx + j;
-      const bool live = t < T && c < S && (!causal || c <= t + offset);
-      const float pp = live ? expf(p[i][j] * scale - lse) : 0.f;
-      p[i][j] = pp;
-      ds[i][j] = pp * (dp[i][j] - di);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (5 * kB * D + kB * kB + 2 * kB);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (6 * kB * D + 2 * kB * kB + 2 * kB);
-}
-
-// K3. q, do (BH, T, D); k, v (BH, S, D); lse, di (BH, T) f32; dq
-// (BH, T, D). Grid (ceil(T / kB), BH), block kThreads.
-template <typename Tp, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const Tp* __restrict__ q, const Tp* __restrict__ k,
-                    const Tp* __restrict__ v, const Tp* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, Tp* __restrict__ dq, int T,
-                    int S, int causal, float scale) {
-  constexpr int DV = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;             // [D][kB]
-  float* doT = qT + D * kB;     // [D][kB]
-  float* kT = doT + D * kB;     // [D][kB]
-  float* vT = kT + D * kB;      // [D][kB]
-  float* ks = vT + D * kB;      // [kB][D]
-  float* dsT = ks + kB * D;     // [kB keys][kB rows]
-  float* lse_s = dsT + kB * kB;
-  float* di_s = lse_s + kB;
-
-  const int nq = (T + kB - 1) / kB;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kB;  // heaviest tiles first
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
-
-  stage_transposed<Tp, D>(q + qoff, q0, T, qT);
-  stage_transposed<Tp, D>(dout + qoff, q0, T, doT);
-  stage_stats(lse + (size_t)bh * T, di + (size_t)bh * T, q0, T, lse_s, di_s);
-  const int last_row = min(T, q0 + kB) - 1;
-  const int last_col = causal ? min(S - 1, last_row + S - T) : S - 1;
-
-  float acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < DV; ++u) acc[i][u] = 0.f;
-
-  for (int k0 = 0; k0 <= last_col; k0 += kB) {
-    __syncthreads();
-    stage_transposed<Tp, D>(k + koff, k0, S, kT);
-    stage_transposed<Tp, D>(v + koff, k0, S, vT);
-    stage_rows<Tp, D>(k + koff, k0, S, ks);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    recompute_pds<D>(qT, kT, doT, vT, lse_s, di_s, q0, k0, T, S, causal,
-                     scale, ty, tx, p, ds);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&dsT[(4 * tx + j) * kB + 4 * ty]) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      const float4 d4 = *reinterpret_cast<const float4*>(&dsT[c * kB + 4 * ty]);
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-      float kv[DV];
-      lds<DV>(&ks[c * D + DV * tx], kv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < DV; ++u) acc[i][u] = fmaf(dv[i], kv[u], acc[i][u]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + 4 * ty + i;
-    if (t >= T) continue;
-    Tp* o = dq + qoff + (size_t)t * D + DV * tx;
-#pragma unroll
-    for (int u = 0; u < DV; ++u) store1(o + u, acc[i][u] * scale);
-  }
-}
-
-// K4. Shapes as K3; dk, dv (BH, S, D). Grid (ceil(S / kB), BH), block
-// kThreads.
-template <typename Tp, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const Tp* __restrict__ q, const Tp* __restrict__ k,
-                     const Tp* __restrict__ v, const Tp* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, Tp* __restrict__ dk,
-                     Tp* __restrict__ dv, int T, int S, int causal,
-                     float scale) {
-  constexpr int DV = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* kT = smem;             // [D][kB]   the block's keys, resident
-  float* vT = kT + D * kB;      // [D][kB]
-  float* qT = vT + D * kB;      // [D][kB]   the current query tile
-  float* doT = qT + D * kB;     // [D][kB]
-  float* qs = doT + D * kB;     // [kB][D]
-  float* dos = qs + kB * D;     // [kB][D]
-  float* ps = dos + kB * D;     // [kB rows][kB keys]
-  float* dss = ps + kB * kB;    // [kB rows][kB keys]
-  float* lse_s = dss + kB * kB;
-  float* di_s = lse_s + kB;
-
-  const int k0 = blockIdx.x * kB;
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
-
-  stage_transposed<Tp, D>(k + koff, k0, S, kT);
-  stage_transposed<Tp, D>(v + koff, k0, S, vT);
-  // the first query row that sees key k0 (row t sees keys <= t + S - T)
-  const int first_row = causal ? max(0, k0 - (S - T)) : 0;
-
-  float ak[4][DV], av[4][DV];  // key rows 4ty + i, dims DV * tx + u
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int u = 0; u < DV; ++u) ak[i][u] = av[i][u] = 0.f;
-
-  for (int q0 = (first_row / kB) * kB; q0 < T; q0 += kB) {
-    __syncthreads();
-    stage_transposed<Tp, D>(q + qoff, q0, T, qT);
-    stage_transposed<Tp, D>(dout + qoff, q0, T, doT);
-    stage_rows<Tp, D>(q + qoff, q0, T, qs);
-    stage_rows<Tp, D>(dout + qoff, q0, T, dos);
-    stage_stats(lse + (size_t)bh * T, di + (size_t)bh * T, q0, T, lse_s,
-                di_s);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    recompute_pds<D>(qT, kT, doT, vT, lse_s, di_s, q0, k0, T, S, causal,
-                     scale, ty, tx, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(&ps[(4 * ty + i) * kB + 4 * tx]) =
-          make_float4(p[i][0], p[i][1], p[i][2], p[i][3]);
-      *reinterpret_cast<float4*>(&dss[(4 * ty + i) * kB + 4 * tx]) =
-          make_float4(ds[i][0], ds[i][1], ds[i][2], ds[i][3]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < kB; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&ps[r * kB + 4 * ty]);
-      const float4 d4 = *reinterpret_cast<const float4*>(&dss[r * kB + 4 * ty]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
-      float dov[DV], qv[DV];
-      lds<DV>(&dos[r * D + DV * tx], dov);
-      lds<DV>(&qs[r * D + DV * tx], qv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < DV; ++u) {
-          av[i][u] = fmaf(pv[i], dov[u], av[i][u]);
-          ak[i][u] = fmaf(dsv[i], qv[u], ak[i][u]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + 4 * ty + i;
-    if (c >= S) continue;
-    Tp* ok = dk + koff + (size_t)c * D + DV * tx;
-    Tp* ov = dv + koff + (size_t)c * D + DV * tx;
-#pragma unroll
-    for (int u = 0; u < DV; ++u) {
-      store1(ok + u, ak[i][u] * scale);
-      store1(ov + u, av[i][u]);
-    }
-  }
-}
-
-template <typename Tp, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* di,
-                      void* dq, int BH, int T, int S, int causal, float scale,
-                      cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static bool configured = false;  // the attribute is set once per kernel
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<Tp, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid((T + kB - 1) / kB, BH);
-  flash_bwd_dq_kernel<Tp, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tp*>(q), static_cast<const Tp*>(k),
-      static_cast<const Tp*>(v), static_cast<const Tp*>(dout), lse, di,
-      static_cast<Tp*>(dq), T, S, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename Tp, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
-                       void* dk, void* dv, int BH, int T, int S, int causal,
-                       float scale, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<Tp, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid((S + kB - 1) / kB, BH);
-  flash_bwd_dkv_kernel<Tp, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tp*>(q), static_cast<const Tp*>(k),
-      static_cast<const Tp*>(v), static_cast<const Tp*>(dout), lse, di,
-      static_cast<Tp*>(dk), static_cast<Tp*>(dv), T, S, causal, scale);
-  return cudaGetLastError();
-}
 
 bool bad_shape(int BH, int T, int S, int causal) {
   return BH <= 0 || T <= 0 || S <= 0 || BH > 65535 || (causal && S < T);
@@ -456,17 +149,17 @@ namespace tc {
 
 constexpr int kStages = 2;  // depth of the ring of streamed tiles
 
-// THE mask of the bf16 backward, shared by K3 and K4: query row t sees
-// key c (both in range; causal aligned bottom-right, offset = S - T).
+// THE mask of the backward, shared by K3 and K4 in both types: query row
+// t sees key c (both in range; causal aligned bottom-right, offset = S - T).
 __device__ __forceinline__ bool live(int t, int c, int T, int S, int causal,
                                      int offset) {
   return t < T && c < S && (!causal || c <= t + offset);
 }
 
-// THE element function of the bf16 backward, shared by K3 and K4, in
-// place: the raw score s becomes p = exp(scale * s - lse), 0 where !lv,
-// computed as 2^(s * scale2 - lse * log2 e) (scale2 = scale * log2 e),
-// and dp becomes ds = p * (dp - di).
+// THE element function of the backward, shared by K3 and K4 in both
+// types, in place: the raw score s becomes p = exp(scale * s - lse), 0
+// where !lv, computed as 2^(s * scale2 - lse * log2 e) (scale2 = scale *
+// log2 e), and dp becomes ds = p * (dp - di).
 __device__ __forceinline__ void pds(float& s, float& dp, float lse, float di,
                                     bool lv, float scale2) {
   const float p = lv ? ex2(fmaf(s, scale2, -lse * kLog2e)) : 0.f;
@@ -820,13 +513,468 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: split operands on the tensor cores
+// ---------------------------------------------------------------------------
+
+// A block of the f32 kernels, and its shared memory in bytes from the
+// 1024-aligned base: per warpgroup its resident tiles (one tensor as TF32
+// hi and lo, the other as bf16 hi and lo); the operand tiles of the
+// streamed tile (the first tensor as TF32 hi, lo and bf16 hi, lo, the
+// second as bf16 hi, lo); where kRaw, the streamed pair as stored, which
+// cp.async fills while the previous tile is multiplied; then (K4) two
+// slots of 64 lse and 64 D.
+template <int D>
+struct F32 {
+  static constexpr int kWG = D == 128 ? 1 : 2;  // warpgroups a block
+  static constexpr int kThr = 128 * kWG;
+  static constexpr int kBlockRows = kRows * kWG;
+  static constexpr bool kRaw = D <= 64;
+  static constexpr int kT32 = kRows * D * 4;  // a TF32 tile, Layout<2 D>
+  static constexpr int kB16 = kRows * D * 2;  // a bf16 tile, Layout<D>
+  static constexpr int kResident = 2 * kT32 + 2 * kB16;
+  static constexpr int kOps = kWG * kResident;
+  static constexpr int kRawOff = kOps + 2 * kT32 + 4 * kB16;
+  static constexpr int kStats = kRawOff + (kRaw ? 2 * kRows * D * 4 : 0);
+  static constexpr int kBytes = kStats + 2 * 2 * kRows * 4;
+};
+
+// Rows [0, 64) of a row-major (rows, D) f32 tile at src (global or shared
+// memory; rows at or past n read as zeros), split into operand tiles:
+// TF32 hi, then lo, at t32 (Layout<2 D>) when kTF32; bf16 hi, then lo, at
+// b16 (Layout<D>) when kBF16. kThr threads take part, each 8 consecutive
+// values at a time.
+template <int D, int kThr, bool kTF32, bool kBF16>
+__device__ __forceinline__ void split_tile(const float* src, int n,
+                                           unsigned char* t32,
+                                           unsigned char* b16) {
+  constexpr int kUnits = D / 8;
+  // in a one-warpgroup block (D = 128) a thread splits 8 units of a
+  // tile: two at a time, or their loads all in flight hold 64 registers
+#pragma unroll(kThr == 128 ? 2 : kRows * kUnits / kThr)
+  for (int u = 0; u < kRows * kUnits / kThr; ++u) {
+    const int i = (int)threadIdx.x + u * kThr;
+    const int r = i / kUnits, c = i % kUnits;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (r < n) {
+      const float4* p = reinterpret_cast<const float4*>(src + r * D + 8 * c);
+      a = p[0];
+      b = p[1];
+    }
+    if constexpr (kTF32) {
+      uint4 hi, lo;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        split_tf32(h ? b : a, hi, lo);
+        const int off = Layout<2 * D>::offset(r, 2 * c + h);
+        *reinterpret_cast<uint4*>(t32 + off) = hi;
+        *reinterpret_cast<uint4*>(t32 + F32<D>::kT32 + off) = lo;
+      }
+    }
+    if constexpr (kBF16) {
+      uint4 hi, lo;
+      split8(a, b, hi, lo);
+      const int off = Layout<D>::offset(r, c);
+      *reinterpret_cast<uint4*>(b16 + off) = hi;
+      *reinterpret_cast<uint4*>(b16 + F32<D>::kB16 + off) = lo;
+    }
+  }
+}
+
+// s = A.B^T over head dim D from TF32 hi and lo tiles (lo a tile after hi,
+// Layout<2 D>, both K-major): hi.lo + lo.hi + hi.hi, 3 D / 8 steps of
+// m64n64k8; lo.lo, 2^-22 relative, is dropped. The small terms go first:
+// the tensor cores add each step's products into the accumulator with
+// truncation, an error of up to an ulp of the running sum a step, so the
+// D / 8 steps of hi.hi, which bring the sum to full size, come last.
+template <int D>
+__device__ __forceinline__ void qk_tf32x3(float (&s)[32], uint32_t a,
+                                          uint32_t b) {
+  using L = Layout<2 * D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    Mma<64>::ss_tf32(s, L::k_major(a, kk), L::k_major(b + L::kTile, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    Mma<64>::ss_tf32(s, L::k_major(a + L::kTile, kk), L::k_major(b, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    Mma<64>::ss_tf32(s, L::k_major(a, kk), L::k_major(b, kk), 1);
+}
+
+// The same from bf16 hi and lo tiles (Layout<D>): 3 D / 16 steps of
+// m64n64k16, small terms first.
+template <int D>
+__device__ __forceinline__ void qk_bf16x3(float (&s)[32], uint32_t a,
+                                          uint32_t b) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Mma<64>::ss(s, L::k_major(a, kk), L::k_major(b + L::kTile, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Mma<64>::ss(s, L::k_major(a + L::kTile, kk), L::k_major(b, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Mma<64>::ss(s, L::k_major(a, kk), L::k_major(b, kk), 1);
+}
+
+// acc += P.B for one 64-key tile, P split in registers into bf16 hi and
+// lo, B's bf16 hi and lo tiles read MN-major: hi.lo + lo.hi + hi.hi.
+template <int D>
+__device__ __forceinline__ void pv_bf16x3(float (&acc)[D / 2],
+                                          uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4], uint32_t b) {
+  pv<D>(acc, hi, b + Layout<D>::kTile);
+  pv<D>(acc, lo, b);
+  pv<D>(acc, hi, b);
+}
+
+// The 64 x D f32 accumulator rows r0 and r0 + 8 (those < len) of `acc`
+// times `mul` into row-major `out`.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[D / 2], int r0,
+                                           int len, int c_lane, float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= len) continue;
+    float* row = out + (size_t)r * D + c_lane;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(row + 8 * c) = make_float2(
+          acc[4 * c + 2 * h] * mul, acc[4 * c + 2 * h + 1] * mul);
+  }
+}
+
+// K3 in f32. Shapes as the bf16 K3, all tensors f32. Grid (BH, ceil(T /
+// F32<D>::kBlockRows)), block F32<D>::kThr, dynamic shared memory
+// F32<D>::kStats. Q (TF32) and dO (bf16) are split once; per key tile the
+// block splits K into TF32 and bf16 and V into bf16, then a warpgroup with
+// a live pair in the tile issues S = Q.K^T (3xTF32) and dP = dO.V^T (bf16
+// x3), waits, forms P and dS, splits dS in registers and adds dS.K (bf16
+// x3, K read MN-major) to dQ.
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThr, D == 32 ? 2 : 1)
+flash_bwd_dq_f32_tc_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           float* __restrict__ dq, int T, int S, int causal,
+                           float scale) {
+  using C = F32<D>;
+  constexpr int kThr = C::kThr;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBlockRows;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31;
+  const int offset = S - T;
+  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
+  auto tiles_to = [&](int first_row, int rows) {  // key tiles rows need
+    const int last_row = min(T, first_row + rows) - 1;
+    if (last_row < first_row) return 0;
+    return (causal ? min(S - 1, last_row + offset) : S - 1) / kRows + 1;
+  };
+  const int n_tiles = tiles_to(q0, C::kBlockRows);  // the block's
+  const int qw = q0 + kRows * wg;                   // this warpgroup's rows
+  const int my_tiles = tiles_to(qw, kRows);
+  const uint32_t sq = base + C::kResident * wg;  // Q TF32 hi, lo
+  const uint32_t sdo = sq + 2 * C::kT32;         // dO bf16 hi, lo
+  const uint32_t sk = base + C::kOps;            // K TF32 hi, lo
+  const uint32_t sk16 = sk + 2 * C::kT32;        // K bf16 hi, lo
+  const uint32_t sv16 = sk16 + 2 * C::kB16;      // V bf16 hi, lo
+  const float* raw = reinterpret_cast<const float*>(smem + C::kRawOff);
+  const float scale2 = scale * kLog2e;
+  const int t0 = qw + 16 * warp + (lane >> 2);  // this thread's rows t0, t0 + 8
+  const int c_lane = 2 * (lane & 3);            // its first column of each 8
+
+  auto load = [&](int j) {  // starts copying K and V tile j as stored
+    const uint32_t raw_k = base + C::kRawOff, raw_v = raw_k + kRows * D * 4;
+    load_raw<float, D, kThr>(raw_k, k + koff, j * kRows, S);
+    load_raw<float, D, kThr>(raw_v, v + koff, j * kRows, S);
+    cp_async_commit();
+  };
+  // Splits key tile j into the operand tiles; then starts copying j + 1.
+  auto stage = [&](int j) {
+    const float *kt = raw, *vt = raw + kRows * D;
+    int n = kRows;
+    if constexpr (C::kRaw) {
+      cp_async_wait_all();
+    } else {
+      kt = k + koff + (size_t)j * kRows * D;
+      vt = v + koff + (size_t)j * kRows * D;
+      n = S - j * kRows;
+    }
+    __syncthreads();  // tile j landed; every warp is past iteration j - 1
+    split_tile<D, kThr, true, true>(kt, n, smem + C::kOps,
+                                    smem + C::kOps + 2 * C::kT32);
+    split_tile<D, kThr, false, true>(vt, n, nullptr,
+                                     smem + C::kOps + 2 * C::kT32 +
+                                         2 * C::kB16);
+    fence_async_smem();
+    __syncthreads();  // the operand tiles are written; the raw pair is free
+    if constexpr (C::kRaw)
+      if (j + 1 < n_tiles) load(j + 1);
+  };
+  auto masked = [&](int j) {
+    const int k0 = j * kRows;
+    return k0 + kRows > S || qw + kRows > T ||
+           (causal && k0 + kRows - 1 > qw + offset);
+  };
+
+  if constexpr (C::kRaw) load(0);
+#pragma unroll
+  for (int w = 0; w < C::kWG; ++w) {
+    const int r0 = min(q0 + kRows * w, T);
+    unsigned char* res = smem + C::kResident * w;
+    split_tile<D, kThr, true, false>(q + qoff + (size_t)r0 * D, T - r0, res,
+                                     nullptr);
+    split_tile<D, kThr, false, true>(dout + qoff + (size_t)r0 * D, T - r0,
+                                     nullptr, res + 2 * C::kT32);
+  }
+
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + 8 * h;
+    lse_r[h] = t < T ? lse[(size_t)bh * T + t] : 0.f;
+    di_r[h] = t < T ? di[(size_t)bh * T + t] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t dh[4][4], dl[4][4];  // dS as bf16 hi + lo
+
+  for (int j = 0; j < n_tiles; ++j) {
+    stage(j);
+    if (j >= my_tiles) continue;
+    wgmma_fence();
+    qk_tf32x3<D>(s, sq, sk);
+    qk_bf16x3<D>(dp, sdo, sv16);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(dp);
+    if (masked(j))
+      dq_tile_pds<true>(s, dp, lse_r, di_r, t0, j * kRows, c_lane, T, S,
+                        causal, offset, scale2);
+    else
+      dq_tile_pds<false>(s, dp, lse_r, di_r, t0, j * kRows, c_lane, T, S,
+                         causal, offset, scale2);
+    split_p(dp, dh, dl);
+    wgmma_fence();
+    pv_bf16x3<D>(acc, dh, dl, sk16);  // dQ += dS.K
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+  }
+  if (my_tiles == 0) return;
+  store_rows<D>(dq + qoff, acc, t0, T, c_lane, scale);
+}
+
+// K4 in f32. Shapes as K3; dk, dv (BH, S, D) f32. Grid (BH, ceil(S /
+// F32<D>::kBlockRows)), block F32<D>::kThr, dynamic shared memory
+// F32<D>::kBytes. K (TF32) and V (bf16) are split once; per query tile
+// the block splits Q into TF32 and bf16 and dO into bf16 and stages the
+// tile's 64 lse and D, then a warpgroup with a live pair in the tile
+// issues S^T = K.Q^T (3xTF32) and dP^T = V.dO^T (bf16 x3), waits, forms
+// P^T and dS^T, splits both in registers, and adds P^T.dO to dV and
+// dS^T.Q to dK (bf16 x3 each, dO and Q read MN-major).
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThr, 1)
+flash_bwd_dkv_f32_tc_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int T, int S, int causal, float scale) {
+  using C = F32<D>;
+  constexpr int kThr = C::kThr;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  float* stats = reinterpret_cast<float*>(smem + C::kStats);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * C::kBlockRows;  // heaviest first: the first keys
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31;
+  const int offset = S - T;
+  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
+  auto first_tile = [&](int key) {  // the first query tile that sees key
+    return causal ? max(0, key - offset) / kRows : 0;
+  };
+  const int j0 = first_tile(k0);
+  const int n_tiles = (T + kRows - 1) / kRows - j0;  // the block's
+  const int kw = k0 + kRows * wg;                    // this warpgroup's keys
+  const int my_first = kw < S ? first_tile(kw) - j0 : n_tiles;
+  const uint32_t sk = base + C::kResident * wg;  // K TF32 hi, lo
+  const uint32_t sv = sk + 2 * C::kT32;          // V bf16 hi, lo
+  const uint32_t sq = base + C::kOps;            // Q TF32 hi, lo
+  const uint32_t sq16 = sq + 2 * C::kT32;        // Q bf16 hi, lo
+  const uint32_t sdo16 = sq16 + 2 * C::kB16;     // dO bf16 hi, lo
+  const float* raw = reinterpret_cast<const float*>(smem + C::kRawOff);
+  const float scale2 = scale * kLog2e;
+  const int c0 = kw + 16 * warp + (lane >> 2);  // this thread's keys c0, c0 + 8
+  const int c_lane = 2 * (lane & 3);  // its first query row of each 8
+
+  auto stats_at = [&](int i) { return (i % 2) * 2 * kRows; };
+  // Starts copying query tile j0 + i: Q and dO as stored, then 64 lse
+  // and 64 D into stats slot i % 2.
+  auto load = [&](int i) {
+    const int qt0 = (j0 + i) * kRows;
+    const uint32_t raw_q = base + C::kRawOff, raw_do = raw_q + kRows * D * 4;
+    load_raw<float, D, kThr>(raw_q, q + qoff, qt0, T);
+    load_raw<float, D, kThr>(raw_do, dout + qoff, qt0, T);
+    if (threadIdx.x < 2 * kRows) {
+      const int r = threadIdx.x % kRows;
+      const bool in = qt0 + r < T;
+      const float* src = threadIdx.x < kRows ? lse : di;
+      cp_async4(base + C::kStats + 4 * (stats_at(i) + threadIdx.x),
+                src + (size_t)bh * T + (in ? qt0 + r : 0), in);
+    }
+    cp_async_commit();
+  };
+  // Splits query tile j0 + i into the operand tiles; then starts copying
+  // tile i + 1.
+  auto stage = [&](int i) {
+    const int qt0 = (j0 + i) * kRows;
+    const float *qt = raw, *dot = raw + kRows * D;
+    int n = kRows;
+    if constexpr (C::kRaw) {
+      cp_async_wait_all();
+    } else {
+      qt = q + qoff + (size_t)qt0 * D;
+      dot = dout + qoff + (size_t)qt0 * D;
+      n = T - qt0;
+    }
+    __syncthreads();  // tile i landed; every warp is past iteration i - 1
+    if constexpr (!C::kRaw) {
+      if (threadIdx.x < 2 * kRows) {
+        const int r = threadIdx.x % kRows;
+        const float* src = threadIdx.x < kRows ? lse : di;
+        stats[stats_at(i) + threadIdx.x] =
+            qt0 + r < T ? src[(size_t)bh * T + qt0 + r] : 0.f;
+      }
+    }
+    split_tile<D, kThr, true, true>(qt, n, smem + C::kOps,
+                                    smem + C::kOps + 2 * C::kT32);
+    split_tile<D, kThr, false, true>(dot, n, nullptr,
+                                     smem + C::kOps + 2 * C::kT32 +
+                                         2 * C::kB16);
+    fence_async_smem();
+    __syncthreads();  // the operand tiles are written; the raw pair is free
+    if constexpr (C::kRaw)
+      if (i + 1 < n_tiles) load(i + 1);
+  };
+  auto masked = [&](int i) {
+    const int qt0 = (j0 + i) * kRows;
+    return qt0 + kRows > T || kw + kRows > S ||
+           (causal && kw + kRows - 1 > qt0 + offset);
+  };
+
+  if constexpr (C::kRaw) load(0);
+#pragma unroll
+  for (int w = 0; w < C::kWG; ++w) {
+    const int r0 = min(k0 + kRows * w, S);
+    unsigned char* res = smem + C::kResident * w;
+    split_tile<D, kThr, true, false>(k + koff + (size_t)r0 * D, S - r0, res,
+                                     nullptr);
+    split_tile<D, kThr, false, true>(v + koff + (size_t)r0 * D, S - r0,
+                                     nullptr, res + 2 * C::kT32);
+  }
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];  // P^T, dS^T: hi + lo
+
+  for (int i = 0; i < n_tiles; ++i) {
+    stage(i);
+    if (i < my_first) continue;
+    wgmma_fence();
+    qk_tf32x3<D>(s, sk, sq);     // S^T = K.Q^T
+    qk_bf16x3<D>(dp, sv, sdo16);  // dP^T = V.dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(dp);
+    const float* st = stats + stats_at(i);
+    const int qt0 = (j0 + i) * kRows;
+    if (masked(i))
+      dkv_tile_pds<true>(s, dp, st, st + kRows, c0, qt0, c_lane, T, S,
+                         causal, offset, scale2);
+    else
+      dkv_tile_pds<false>(s, dp, st, st + kRows, c0, qt0, c_lane, T, S,
+                          causal, offset, scale2);
+    split_p(s, ph, pl);
+    split_p(dp, dh, dl);
+    wgmma_fence();
+    pv_bf16x3<D>(adv, ph, pl, sdo16);  // dV += P^T.dO
+    pv_bf16x3<D>(adk, dh, dl, sq16);   // dK += dS^T.Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(adv);
+    pin(adk);
+  }
+  if (my_first >= n_tiles) return;
+  store_rows<D>(dk + koff, adk, c0, S, c_lane, scale);
+  store_rows<D>(dv + koff, adv, c0, S, c_lane, 1.f);
+}
+
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* di,
+                          void* dq, int BH, int T, int S, int causal,
+                          float scale, cudaStream_t stream) {
+  using C = F32<D>;
+  static bool configured = false;
+  const cudaError_t e =
+      configure(flash_bwd_dq_f32_tc_kernel<D>, C::kStats, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (T + C::kBlockRows - 1) / C::kBlockRows);
+  flash_bwd_dq_f32_tc_kernel<D><<<grid, C::kThr, C::kStats, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      static_cast<float*>(dq), T, S, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* di, void* dk, void* dv, int BH, int T,
+                           int S, int causal, float scale,
+                           cudaStream_t stream) {
+  using C = F32<D>;
+  static bool configured = false;
+  const cudaError_t e =
+      configure(flash_bwd_dkv_f32_tc_kernel<D>, C::kBytes, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (S + C::kBlockRows - 1) / C::kBlockRows);
+  flash_bwd_dkv_f32_tc_kernel<D><<<grid, C::kThr, C::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      static_cast<float*>(dk), static_cast<float*>(dv), T, S, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
 
-// C entry points (loaded with ctypes). kind: 0 = f32 tensors (CUDA-core
-// kernels), 1 = bf16 (tensor-core kernels); lse and di are (BH, T) f32
-// either way. Return the launch's cudaError_t (0 = launched).
+// C entry points (loaded with ctypes). kind: 0 = f32 tensors, 1 = bf16
+// (tensor-core kernels either way); lse and di are (BH, T) f32 either
+// way. Return the launch's cudaError_t (0 = launched).
 extern "C" int dnn_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* di, void* dq, int BH, int T,
@@ -839,7 +987,7 @@ extern "C" int dnn_flash_bwd_dq(const void* q, const void* k, const void* v,
   switch (kind) {
     case 0:
       return (int)with_head_dim(D, [&](auto dim) {
-        return launch_dq<float, decltype(dim)::value>(
+        return tc::launch_dq_f32<decltype(dim)::value>(
             q, k, v, dout, l, d, dq, BH, T, S, causal, scale, st);
       });
     case 1:
@@ -864,7 +1012,7 @@ extern "C" int dnn_flash_bwd_dkv(const void* q, const void* k, const void* v,
   switch (kind) {
     case 0:
       return (int)with_head_dim(D, [&](auto dim) {
-        return launch_dkv<float, decltype(dim)::value>(
+        return tc::launch_dkv_f32<decltype(dim)::value>(
             q, k, v, dout, l, d, dk, dv, BH, T, S, causal, scale, st);
       });
     case 1:

@@ -1,17 +1,19 @@
-// Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// flash kernels -- the forward (flash_attention.cu, K1/K2) and the
-// backward (flash_backward.cu, K3/K4) -- and the cached-attention prefill
-// (cached_attention.cu, K5). Inline PTX over cuda_bf16.h only (no
+// Tensor-core building blocks for Hopper (sm_90a), shared by the
+// tensor-core flash kernels -- the forward (flash_attention.cu, K1/K2)
+// and the backward (flash_backward.cu, K3/K4) -- and the cached-attention
+// prefill (cached_attention.cu, K5). Inline PTX over cuda_bf16.h only (no
 // CUTLASS or CuTe headers), so a library that includes it still builds
 // in seconds. What is here: cp.async copies into shared memory, the
 // wgmma fence / commit / wait and register pins, the shared-memory matrix
 // descriptor, wgmma m64nNk16 (f32 += bf16 x bf16) with A from shared
 // memory or registers, the swizzled tile layout both operand forms read,
-// the tile copy, exp2 on the SFU, and the packing of an f32 accumulator
-// fragment into bf16 A fragments; the kernels' shared-memory attributes
-// and the dispatch over the head dims they take. The library's hash
-// (_build.lib_path) covers this header, so an edit rebuilds every source
-// that includes it.
+// the tile copies (swizzled, and raw for a kernel to convert), exp2 on
+// the SFU, and the packing of an f32 accumulator fragment into bf16 A
+// fragments; for f32 operands, wgmma m64n64k8 on TF32 and the splits of
+// an f32 value into TF32 or bf16 hi + lo (K5 and the f32 backward,
+// K3/K4); the kernels' shared-memory attributes and the dispatch over the
+// head dims they take. The library's hash (_build.lib_path) covers this
+// header, so an edit rebuilds every source that includes it.
 
 #pragma once
 
@@ -122,6 +124,44 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// x = hi + lo in bf16 (to 2^-17 relative), for a pair of values packed as
+// wgmma takes them.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+// Eight consecutive f32 values as one 16-byte chunk of hi and one of lo.
+__device__ __forceinline__ void split8(const float4& a, const float4& b,
+                                       uint4& hi, uint4& lo) {
+  split2(a.x, a.y, hi.x, lo.x);
+  split2(a.z, a.w, hi.y, lo.y);
+  split2(b.x, b.y, hi.z, lo.z);
+  split2(b.z, b.w, hi.w, lo.w);
+}
+
+// x rounded to TF32 (nearest, ties away), as the f32 bit pattern wgmma
+// reads; the 13 bits below TF32's mantissa, which cvt leaves undefined,
+// cleared.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y & 0xffffe000u;
+}
+
+// x = hi + lo in TF32 (to 2^-22 relative), four values.
+__device__ __forceinline__ void split_tf32(const float4& x, uint4& hi,
+                                           uint4& lo) {
+  hi = make_uint4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+  lo = make_uint4(tf32(x.x - __uint_as_float(hi.x)),
+                  tf32(x.y - __uint_as_float(hi.y)),
+                  tf32(x.z - __uint_as_float(hi.z)),
+                  tf32(x.w - __uint_as_float(hi.w)));
+}
+
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, on one warpgroup. The
 // accumulator fragment: thread (warp w, lane) holds rows 16w + lane/4
 // (d[4j], d[4j+1]) and 16w + lane/4 + 8 (d[4j+2], d[4j+3]) at columns
@@ -164,6 +204,30 @@ struct Mma<64> {
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
         "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+
+  // m64n64k8, f32 += tf32 x tf32: A and B from shared memory, both
+  // K-major (TF32 has no transpose). A k8 step spans 32 bytes of a row,
+  // as a bf16 k16 step does, so an f32 tile of width D reads as a bf16
+  // tile of width 2 D (Layout<2 D>).
+  static __device__ __forceinline__ void ss_tf32(float (&d)[32], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -285,6 +349,26 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
+// Rows [r0, r0 + 64) of a row-major (len, D) matrix of T into shared
+// memory at dst as stored (row-major, unswizzled), for a kernel to convert
+// (cp.async cannot); rows at or past len are zeros. kThr threads of the
+// block take part.
+template <typename T, int D, int kThr = kThreads>
+__device__ __forceinline__ void load_raw(uint32_t dst, const T* g, int r0,
+                                         int len) {
+  constexpr int kRowBytes = D * (int)sizeof(T);
+  constexpr int kChunks = kRowBytes / 16;
+  const char* gb = reinterpret_cast<const char*>(g);
+#pragma unroll
+  for (int u = 0; u < kRows * kChunks / kThr; ++u) {
+    const int i = (int)threadIdx.x + u * kThr;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r0 + r < len;
+    cp_async16(dst + r * kRowBytes + 16 * c,
+               gb + (size_t)(in ? r0 + r : 0) * kRowBytes + 16 * c, in);
+  }
+}
+
 // 2^x on the SFU; flushes results below 2^-126 to 0.
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -335,6 +419,23 @@ __device__ __forceinline__ void pack_p(const float (&s)[32],
       pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
+}
+
+// An f32 accumulator fragment (P, or dS) as the bf16 hi and lo A
+// fragments of four k16 steps.
+__device__ __forceinline__ void split_p(const float (&s)[32],
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pin(hi[kk]);
+    pin(lo[kk]);
+  }
 }
 
 }  // namespace tc

@@ -58,6 +58,17 @@ def test_k5_source_includes_the_tensor_core_header():
      "S4_PKiPfS9_iiiif", "cached_attn_tc_kernel<int8, 128>"),
     ("_ZN12_GLOBAL__N_12tc24cached_attn_merge_kernelILi32EEEvPKfPKiPfiiiiii",
      "cached_attn_merge_kernel<32>"),
+    # the f32 backward on the tensor cores, as nvcc names them (an
+    # anonymous namespace that carries the file's name and a hash)
+    ("_ZN50_GLOBAL__N__eef1f944_17_flash_backward_cu_80fae4692tc26flash_bwd_"
+     "dq_f32_tc_kernelILi64EEEvPKfS3_S3_S3_S3_S3_Pfiiif",
+     "flash_bwd_dq_f32_tc_kernel<64>"),
+    ("_ZN50_GLOBAL__N__eef1f944_17_flash_backward_cu_80fae4692tc27flash_bwd_"
+     "dkv_f32_tc_kernelILi128EEEvPKfS3_S3_S3_S3_S3_PfS4_iiif",
+     "flash_bwd_dkv_f32_tc_kernel<128>"),
+    ("_ZN50_GLOBAL__N__eef1f944_17_flash_backward_cu_80fae4692tc27flash_bwd_"
+     "dkv_f32_tc_kernelILi32EEEvPKfS3_S3_S3_S3_S3_PfS4_iiif",
+     "flash_bwd_dkv_f32_tc_kernel<32>"),
 ])
 def test_build_lines_name_the_kernels(mangled, label):
     assert chip_smoke.kernel_label(mangled) == label

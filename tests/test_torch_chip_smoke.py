@@ -80,3 +80,101 @@ def test_cache_reference_refuses_other_types(prepared):
     with pytest.raises(ValueError, match="bf16 or int8"):
         chip_smoke.reference_greedy_cache(prepared, CFG, [1, 2], 2, "cpu",
                                           "f32")
+
+
+# K3 (dQ) and K4 (dK, dV) at the training shape, B=8 H=12 T=S=512 D=64
+# causal: 131328 live (query, key) pairs per (batch, head).
+@pytest.mark.parametrize("kernel,tensors,products", [
+    ("flash_bwd_dq", 5, 3), ("flash_bwd_dkv", 6, 4)])
+def test_flash_bwd_bound_in_f32_is_the_functions_work(kernel, tensors,
+                                                      products):
+    """In f32 the bound is the larger of the bytes (63.3 MB for K3, 75.9
+    MB for K4) and the backward's own products (3 for K3, 4 for K4) at
+    the TF32 tensor cores' 494.7 TFLOP/s: the bytes, 0.0189 / 0.0227 ms.
+    What the split design issues (each product as three: the score
+    product on TF32, the others on bf16; 0.0196 / 0.0245 ms) is kept
+    beside it and does not move it."""
+    b = chip_smoke.flash_bwd_bound(kernel, True, 96, 512, 512, 64)
+    assert chip_smoke.live_pairs(512, 512) == 131328
+    product = 2 * 64 * 96 * 131328  # 1.61 GFLOP
+    assert b["nbytes"] == tensors * 96 * 512 * 64 * 4 + 2 * 96 * 512 * 4
+    assert round(b["nbytes"] / 1e6, 1) == {5: 63.3, 6: 75.9}[tensors]
+    assert b["flops"] == products * product
+    assert b["ops_ms"] == pytest.approx(products * product / 494.7e12 * 1e3)
+    assert b["bytes_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)
+    assert b["bound_ms"] == max(b["bytes_ms"], b["ops_ms"]) == b["bytes_ms"]
+    assert round(b["bound_ms"], 4) == {5: 0.0189, 6: 0.0227}[tensors]
+    assert b["bound_by"] == "bytes"
+    assert b["issued"] == dict(tf32=3 * product,
+                               bf16=3 * (products - 1) * product)
+    issued_ms = (3 * product / 494.7e12
+                 + 3 * (products - 1) * product / 989e12) * 1e3
+    assert round(issued_ms, 4) == {3: 0.0196, 4: 0.0245}[products]
+    assert b["f32_cuda_core_ms"] == pytest.approx(
+        products * product / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("kernel,tensors,products", [
+    ("flash_bwd_dq", 5, 3), ("flash_bwd_dkv", 6, 4)])
+def test_flash_bwd_bound_in_bf16_is_bytes(kernel, tensors, products):
+    """In bf16 the products run once, on bf16 at 989 TFLOP/s: the bound
+    is the bytes, as before."""
+    b = chip_smoke.flash_bwd_bound(kernel, False, 96, 512, 512, 64)
+    product = 2 * 64 * 96 * 131328
+    assert b["nbytes"] == tensors * 96 * 512 * 64 * 2 + 2 * 96 * 512 * 4
+    assert b["flops"] == products * product
+    assert "issued" not in b
+    assert b["ops_ms"] == pytest.approx(products * product / 989e12 * 1e3)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)
+
+
+def test_flash_bwd_bound_counts_ragged_and_bottom_right_shapes():
+    """T=128 against S=512, bottom-right: q and dO have T rows, k, v and
+    K4's dK, dV have S rows; the pairs are those the mask leaves."""
+    t, s, d = 128, 512, 64
+    pairs = sum(min(s, r + 1 + s - t) for r in range(t))
+    dq = chip_smoke.flash_bwd_bound("flash_bwd_dq", True, 2, t, s, d)
+    dkv = chip_smoke.flash_bwd_bound("flash_bwd_dkv", True, 2, t, s, d)
+    assert dq["nbytes"] == (3 * t + 2 * s) * 2 * d * 4 + 2 * 2 * t * 4
+    assert dkv["nbytes"] == (2 * t + 4 * s) * 2 * d * 4 + 2 * 2 * t * 4
+    assert dq["flops"] == 3 * 2 * d * 2 * pairs
+    assert dkv["flops"] == 4 * 2 * d * 2 * pairs
+    product = 2 * d * 2 * pairs
+    assert dq["issued"]["tf32"] == dkv["issued"]["tf32"] == 3 * product
+
+
+@pytest.mark.parametrize("f32,peak", [(True, 494.7e12), (False, 989e12)])
+def test_flash_bound_prices_the_products_at_the_types_fastest_rate(f32,
+                                                                    peak):
+    """The bound is the larger of bytes and products; f32 products are
+    priced at the TF32 tensor cores' rate, bf16 at 989 TFLOP/s, and the
+    f32 CUDA-core figure (67 TFLOP/s) rides beside it."""
+    small = chip_smoke.flash_bound(3.35e9, 1e9, f32)  # 1 ms of bytes
+    assert small["bound_ms"] == pytest.approx(1.0)
+    assert small["bound_by"] == "bytes"
+    big = chip_smoke.flash_bound(3.35e6, 1e12, f32)
+    assert big["bound_ms"] == pytest.approx(1e12 / peak * 1e3)
+    assert big["bound_by"] == "operations"
+    assert big["f32_cuda_core_ms"] == pytest.approx(1e12 / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("kernel,f32,units", [
+    ("flash_bwd_dq", True, "issued on the tensor cores as split products"),
+    ("flash_bwd_dkv", False, "products on the tensor cores"),
+    (None, True, "products on the CUDA cores")])
+def test_flash_report_prints_the_bound_and_the_units(capsys, kernel, f32,
+                                                     units):
+    """One line per flash kernel: time, bound, what bounds, and the
+    products on the units the kernel uses."""
+    b = (chip_smoke.flash_bwd_bound(kernel, f32, 96, 512, 512, 64) if kernel
+         else chip_smoke.flash_bound(50.3e6, 3.2e9, f32))
+    row = dict(ms=0.05, plain_ms=0.8, library_ms=None,
+               bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               max_abs_err=1e-5)
+    chip_smoke.flash_report("K3", "f32", row, b)
+    line = capsys.readouterr().out
+    assert line.startswith("[K3] f32: err 1.000e-05 kernel_ms 0.0500")
+    assert f"bound_ms {b['bound_ms']:.5f} (bytes;" in line
+    assert units in line and "library_ms none" in line
+    assert f"kernel / bound {0.05 / b['bound_ms']:.1f}" in line

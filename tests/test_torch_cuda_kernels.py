@@ -274,15 +274,18 @@ def test_flash_autograd_on_the_card(dev, dtype):
 
 
 # (B, H, T, S): the training shape, and a ragged one whose K/V ring wraps
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,t,s", [(8, 12, 512, 512), (2, 3, 65, 1000)],
                          ids=["B=8-H=12-T=S=512", "T=65-S=1000"])
-def test_flash_backward_bf16_is_deterministic(dev, b, h, t, s):
-    """K3 and K4 in bf16 (causal, D=64) run twice on the same inputs give
-    dQ, dK and dV equal bit for bit: no atomics, a fixed summation
-    order, so a resumed training run can reproduce an uninterrupted one."""
+def test_flash_backward_bf16_is_deterministic(dev, dtype, b, h, t, s):
+    """K3 and K4 (causal, D=64), in bf16 and in f32, run twice on the
+    same inputs give dQ, dK and dV equal bit for bit: no atomics, a fixed
+    summation order, so a resumed training run can reproduce an
+    uninterrupted one."""
     g = torch.Generator(device=dev).manual_seed(7)
     q, k, v, do = (torch.randn(b, h, n, 64, generator=g, device=dev)
-                   .to(torch.bfloat16) for n in (t, s, s, t))
+                   .to(dtype) for n in (t, s, s, t))
     out, lse = tfa.flash_attention_lse(q, k, v)
     di = (do.float() * out.float()).sum(-1)
 
@@ -293,6 +296,44 @@ def test_flash_backward_bf16_is_deterministic(dev, b, h, t, s):
     torch.cuda.synchronize()
     for a, b_ in zip(first, second):
         assert torch.isfinite(a).all() and torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("seed", [8, 9, 10, 11])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t,s", [(512, 512), (65, 1000)],
+                         ids=["T=S=512", "T=65-S=1000"])
+def test_flash_backward_f32_large_scores(dev, d, causal, t, s, seed):
+    """K3 and K4 in f32 with q and k x 4, so that scores reach tens (as a
+    trained model's do): an error in the score product goes through exp,
+    so this is where a split of q.k^T too coarse for f32 shows. Held
+    against the plain backward at 1e-4 x each gradient's max |value|.
+    Prints each gradient's error / max against the plain backward and,
+    beside it, against the plain backward in f64 on the same values (run
+    with -s to read the margin)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = _flash_inputs(g, dev, t, s, d, torch.float32)
+    q, k = 4 * q, 4 * k
+    out, lse = tfa.flash_attention_lse(q, k, v, causal=causal)
+    di = (do * out).sum(-1)
+    got = (tfa.flash_bwd_dq(q, k, v, do, lse, di, causal=causal),
+           *tfa.flash_bwd_dkv(q, k, v, do, lse, di, causal=causal))
+    args = (q, k, v, do, lse, di)
+    want, exact = (
+        (tfa.reference_flash_bwd_dq(*xs, causal=causal),
+         *tfa.reference_flash_bwd_dkv(*xs, causal=causal))
+        for xs in (args, [x.double() for x in args]))
+    torch.cuda.synchronize()
+    line = []
+    for name, a, b_, x in zip(("dq", "dk", "dv"), got, want, exact):
+        assert torch.isfinite(a).all()
+        err = (a - b_).abs().max().item()
+        top = b_.abs().max().item()
+        line.append(f"{name} {err / top:.2e} (f64 "
+                    f"{(a.double() - x).abs().max().item() / top:.2e})")
+        assert err <= 1e-4 * top, (name, err)
+    print(f"\n[x4] D={d} {'causal' if causal else 'full'} T={t} S={s} "
+          f"seed {seed}: err / max " + ", ".join(line))
 
 
 def test_flash_refuses_what_it_does_not_take(dev):
