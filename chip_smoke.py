@@ -35,8 +35,9 @@ Phases (any failure exits non-zero and prints no result):
      of its forward), timed like the kernels; in f32, which the flash
      backend does not take, the profiler's device time of autograd.grad
      of SDPA minus that of its forward (in bf16 printed beside the other);
-     and, checked only, K3/K4 f32 at T=S=512 with q and k x 4 (scores of
-     tens), at 1e-4 x each gradient's max
+     and, checked only, K1/K2 and K3/K4 f32 at T=S=512 with q and k x 4
+     (scores of tens), out and lse at 1e-4, gradients at 1e-4 x each
+     one's max
   5. the main path (gpt2, random weights from seed 0, 4 slots, max_len
      1024, prompt_pad 64; prompts of 5/70/130/300 tokens, 16 new tokens,
      greedy, 4 concurrent gRPC clients), each run with the launch counts
@@ -94,8 +95,7 @@ for the inputs' type, bf16 on the tensor cores at 989 TFLOP/s and f32
 on the TF32 tensor cores at 494.7, so that a design's way of reaching
 f32 accuracy does not move its bound. Each flash line also prints the
 products on the units its kernel runs them on: the tensor cores for the
-bf16 kernels, the CUDA cores in f32 (at 67) for the f32 forward (K1,
-K2), and for K3 and K4 in f32 the split products they issue on the
+bf16 kernels, and for K1-K4 in f32 the split products they issue on the
 tensor cores (the score product as three TF32 products, every other as
 three bf16 products) beside the f32 CUDA-core figure. K5 runs
 its products on the tensor cores in every cache type: its operations
@@ -470,8 +470,8 @@ def flash_report(tag, label, row, b):
     """One flash kernel's line: its time beside the plain version, the
     library yardstick and the bound `b` (flash_bound), and the products
     on the units the kernel runs them on: issued on the tensor cores as
-    split f32 products where `b` has "issued", else on the tensor cores
-    in bf16 or on the CUDA cores in f32."""
+    split f32 products where `b` has "issued" (f32), else on the tensor
+    cores in bf16."""
     lib = row["library_ms"]
     if "issued" in b:
         tf32, bf16 = b["issued"]["tf32"], b["issued"]["bf16"]
@@ -480,9 +480,6 @@ def flash_report(tag, label, row, b):
                  f"{tf32 / 1e9:.2f} GFLOP at 494.7 + bf16 {bf16 / 1e9:.2f} "
                  f"GFLOP at 989, {issued_ms:.5f}; as f32 FMAs on the CUDA "
                  f"cores {b['f32_cuda_core_ms']:.5f} at 67")
-    elif b["f32"]:
-        units = (f"products on the CUDA cores: f32 ops "
-                 f"{b['f32_cuda_core_ms']:.5f} at 67")
     else:
         units = "products on the tensor cores"
     print(f"[{tag}] {label}: err {row['max_abs_err']:.3e} kernel_ms "
@@ -493,6 +490,24 @@ def flash_report(tag, label, row, b):
           f"ops {b['ops_ms']:.5f} for {b['flops'] / 1e9:.2f} GFLOP at "
           f"{'TF32 494.7' if b['f32'] else 'bf16 989'} TFLOP/s; {units}); "
           f"kernel / bound {row['ms'] / row['bound_ms']:.1f}", flush=True)
+
+
+def flash_fwd_bound(f32: bool, bh: int, t: int, s: int, d: int,
+                    with_lse: bool) -> dict:
+    """flash_bound of K1 (with_lse False) or K2 at (bh, t, s, d), causal.
+    Bytes: q (t rows), k and v (s rows) read, out (t) written, in the
+    inputs' type, plus K2's lse (f32). Products: S and P.V, 2 d flops per
+    live pair each. In f32, "issued" also gives what the split design
+    issues (information, not the bound): S as three TF32 products, P.V as
+    three bf16 products."""
+    nbytes = (2 * t + 2 * s) * bh * d * (4 if f32 else 2)
+    if with_lse:
+        nbytes += bh * t * 4
+    product = 2 * d * bh * live_pairs(t, s)
+    b = flash_bound(nbytes, 2 * product, f32)
+    if f32:
+        b["issued"] = dict(tf32=3 * product, bf16=3 * product)
+    return b
 
 
 def flash_bwd_bound(kernel: str, f32: bool, bh: int, t: int, s: int,
@@ -558,8 +573,6 @@ def phase_flash_fwd(dev, gen):
                 main = (q, k, v)
         q, k, v = main
         bh = FLASH_B * FLASH_H
-        nbytes = 4 * q.numel() * q.element_size()  # q, k, v in; out
-        flops = 4 * FLASH_D * bh * live_pairs(FLASH_T, FLASH_T)
         lib1 = time_ms(lambda: sdpa(q, k, v, is_causal=True))
         # K2's yardstick: a call that also returns the logsumexp. In bf16
         # the flash backend (the backend of K1's SDPA yardstick); the
@@ -576,20 +589,45 @@ def phase_flash_fwd(dev, gen):
             print(f"[K2] {name} yardsticks with the logsumexp (ms): flash "
                   f"backend {lib2} (library_ms), efficient attention "
                   f"{eff2}", flush=True)
-        for kname, fn, plain, extra, err, lib in (
+        for kname, fn, plain, err, lib in (
                 ("flash_attention", lambda: flash_attention(q, k, v),
-                 lambda: reference_attention(q, k, v), 0, err1, lib1),
+                 lambda: reference_attention(q, k, v), err1, lib1),
                 ("flash_attention_lse", lambda: flash_attention_lse(q, k, v),
-                 lambda: reference_attention_lse(q, k, v), bh * FLASH_T * 4,
-                 err2, lib2)):
-            b = flash_bound(nbytes + extra, flops, dt == torch.float32)
+                 lambda: reference_attention_lse(q, k, v), err2, lib2)):
+            b = flash_fwd_bound(dt == torch.float32, bh, FLASH_T, FLASH_T,
+                                FLASH_D, kname == "flash_attention_lse")
             row = rows[kname][name] = dict(
                 ms=time_ms(fn), plain_ms=time_ms(plain), library_ms=lib,
                 bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                 max_abs_err=err)
             flash_report("K1" if kname == "flash_attention" else "K2",
                          f"{name:4s} B=8 H=12 T=S=512 D=64 causal", row, b)
+    flash_fwd_large_scores(dev, gen)
     return rows
+
+
+def flash_fwd_large_scores(dev, gen):
+    """Checked only: K1 and K2 in f32 at T=S=512 with q and k x 4, so that
+    scores reach tens, as a trained model's do; an error in the score
+    product goes through exp into out and the lse. Limit 1e-4 absolute;
+    K1's out equals K2's bit for bit."""
+    from dnn_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_lse, reference_attention_lse)
+
+    q, k, v = flash_tensors(gen, dev, torch.float32, FLASH_T, FLASH_T,
+                            FLASH_T)
+    q, k = 4 * q, 4 * k
+    out1 = flash_attention(q, k, v)
+    out, lse = flash_attention_lse(q, k, v)
+    want, want_lse = reference_attention_lse(q, k, v)
+    e1 = check("K1 f32 q, k x 4", out1, want, F32_TOL)
+    e2 = check("K2 f32 q, k x 4 out", out, want, F32_TOL)
+    el = check("K2 f32 q, k x 4 lse", lse, want_lse, F32_TOL)
+    if not torch.equal(out1, out):
+        fail("K1 f32 q, k x 4: out differs from K2's")
+    print(f"[K1/K2] f32 T=S=512 q, k x 4 (checked only) max abs err (limit "
+          f"{F32_TOL:g}): K1 out {e1:.3e}, K2 out {e2:.3e}, lse {el:.3e} "
+          f"(lse up to {want_lse.abs().max().item():.1f})", flush=True)
 
 
 def phase_flash_bwd(dev, gen):

@@ -52,35 +52,64 @@
 // The instructions are inline PTX, in hopper_tc.cuh beside the backward's
 // (no CUTLASS or CuTe headers), so the library builds in seconds.
 //
-// f32 (flash_fwd_kernel). What bounds it: the f32 arithmetic. At the
-// training shape the products are ~3.2 GFLOP, 0.048 ms at 67 TFLOP/s on
-// the CUDA cores, against ~50 MB of q, k, v and out, 0.015 ms at
-// 3.35 TB/s (3xTF32 on the tensor cores would lift that; a later
-// redesign). The products are f32 FMAs with operands in shared memory,
-// and the design aims at keeping the FMA pipes fed from there. The TPU
-// kernel carries the online-softmax state across a SEQUENTIAL k grid axis
-// in VMEM scratch and skips dead key blocks with pl.when. Hopper blocks
-// run in parallel in no order, so each block owns kBQ = 64 query rows of
-// one (batch, head) and loops over 64-key tiles itself, up to the tile
-// that holds the block's last live column: that one bound replaces both
-// the sequential axis and pl.when(live). Blocks are issued heaviest first
-// (the last query tile of a causal row sees the most keys). 256 threads
-// form a 16 x 16 grid; thread (ty, tx) owns the 4 x 4 patch of rows 4ty..
-// and keys 4tx.. of every 64 x 64 score tile. q and k are staged d-major
-// in shared memory, so each step of the dot product is one 16-byte load
-// of 4 q values and one of 4 k values for 16 FMAs. Row max and row sum
-// reduce over the 16 threads of a row by shuffles within a half warp;
-// every thread of a row keeps the same (m, l). The probabilities go
-// through shared memory (key-major) for P @ V, where the thread owns its
-// 4 rows x D/16 output dims.
+// f32 (tc::flash_fwd_f32_tc_kernel). The same loop, on the tensor cores
+// too, with the operands split so that the products keep f32 accuracy
+// (1e-4 against the plain version), as the f32 backward splits them
+// (csrc/flash_backward.cu). What bounds it on an H100: bytes. At the
+// training shape q, k, v and out are 50.3 MB, 0.0150 ms at 3.35 TB/s;
+// the two products, 1.61 GFLOP each of live work, take 0.0065 ms at the
+// TF32 tensor cores' 494.7 TFLOP/s. The design issues each product as
+// three, 4.8 GFLOP on TF32 and 4.8 on bf16, 0.0147 ms: about the bytes.
+//  * S = Q.K^T runs as 3xTF32 (wgmma m64n64k8.f32.tf32.tf32, both
+//    operands K-major from shared memory, an f32 tile laid out as a bf16
+//    tile of width 2 D): hi = tf32(x), lo = tf32(x - hi), S = hi.lo +
+//    lo.hi + hi.hi, the small terms issued first. The tensor cores
+//    truncate each step's sum, up to an ulp of the running sum a step, so
+//    the hi.hi steps, which bring S to full size, run in two chains (the
+//    first and second half of the head dim, the second into its own
+//    accumulator from zero), added on the CUDA cores: each chain reaches
+//    about half of S. O += P.V runs as bf16 hi + lo, three products over
+//    the bf16 kernel's MN-major read of V (TF32 has no MN-major operand,
+//    so V needs no transposed tile): P is split in registers from S's f32
+//    accumulator fragment, V's tile once a tile. l is summed from the f32
+//    P. Why the mix: an error in S goes through exp, and the lse inherits
+//    it (and passes it on into K3/K4's P = exp(s - lse)); P.V's only adds
+//    up. Emulated at D = 64, T = S = 512, causal, as max |error| against
+//    f64 of O / lse (tools/flash_split_numerics.py, which adds exactly):
+//    S as bf16 hi + lo, q, k x 1 1.0e-5 / 5.5e-6, x 3 1.7e-4 / 1.7e-4,
+//    x 4 3.0e-4 / 4.8e-4, over the 1e-4 limit; S as 3xTF32 (this design)
+//    x 1 1.0e-5 / 8.2e-8, x 3 1.5e-5 / 2.3e-6, x 4 1.5e-5 / 4.1e-6, the
+//    O error P.V's bf16 split. On an H100 at q, k x 4 (scores of tens,
+//    lse up to ~93) the truncation dominates the lse: with hi.hi in one
+//    chain the worst lse read 4.3e-5 against f64 at D = 128 (16 steps);
+//    in two, 2.2e-5, below the plain f32 forward's own error there.
+//  * Staging: cp.async cannot convert, so K and V tiles land raw in one
+//    slot and are split at the top of their iteration, K into TF32 hi
+//    and lo, V into bf16 hi and lo, while the next raw pair is in flight.
+//    Q is split once from global memory into TF32 hi and lo. V's operand
+//    tiles take two slots, so that tile j's split does not overwrite
+//    V_{j-1} while P_{j-1}.V_{j-1} runs beside S_j's softmax, as in bf16.
+//  * Shared memory, bytes a block: D = 32, two warpgroups, raw slot:
+//    81920; D = 64, the same: 163840; D = 128, Q alone is 64 KB a
+//    warpgroup, so one warpgroup a block and no raw slot (a tile is read
+//    through registers and split at the top of its iteration, its load
+//    not overlapped): 196608 of the 232448 a block may use.
+//  * Registers: S's two accumulators, O and P's hi and lo fragments are
+//    live across the P.V wgmma (128 at D = 64), so a block takes an SM
+//    at every D (at D = 32 two blocks would cap a thread at 128
+//    registers, where ptxas spilled and serialized the wgmma). Every
+//    wgmma of a tile is issued and waited for under the same branch, so
+//    ptxas does not serialize them; the first tile is peeled and the
+//    warpgroup's last P.V is added in finish(), as in bf16.
 //
 // Numerics (both): masked scores sit at -1e30 (not -inf) as in the
-// reference and add exactly 0 to l and acc. Key 0 is live for every row
+// reference and add exactly 0 to l and O. Key 0 is live for every row
 // (S >= T when causal, checked by the caller), and the first tile is
 // always processed, so every row ends with a real maximum. Ragged T and
 // S are masked here: rows past T and keys past S are staged as zeros and
-// never stored. The f32 score is q.k times scale, as the reference
-// divides q.k by sqrt(D): differences are at the ulp level.
+// never stored. The score is multiplied by scale (in log2 units) in f32,
+// as the reference divides q.k by sqrt(D): differences are at the ulp
+// level.
 
 #include "hopper_tc.cuh"
 
@@ -88,236 +117,6 @@ namespace {
 
 constexpr float kNegBig = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// ---------------------------------------------------------------------------
-// f32: FMAs on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16, each a 4 x 4 patch of a tile
-
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  o[0] = x.x;
-  o[1] = x.y;
-  o[2] = x.z;
-  o[3] = x.w;
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-// N consecutive floats from shared memory, vectorised where N allows.
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float* o) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int u = 0; u < N; u += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + u);
-      o[u] = x.x;
-      o[u + 1] = x.y;
-      o[u + 2] = x.z;
-      o[u + 3] = x.w;
-    }
-  } else {
-    static_assert(N == 2, "D / 16 must be 2 or a multiple of 4");
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    o[0] = x.x;
-    o[1] = x.y;
-  }
-}
-
-// Rows [r0, r0 + kRows) of a row-major (len, D) matrix into shared
-// memory d-major: sT[d * kRows + r]. Rows at or past `len` are zeros.
-// Consecutive threads take consecutive rows, so the transposed stores
-// hit distinct banks.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void stage_transposed(const T* g, int r0, int len,
-                                                 float* sT) {
-  for (int i = threadIdx.x; i < kRows * (D / 4); i += kThreads) {
-    const int r = i % kRows, d = (i / kRows) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < len) load4(g + (size_t)(r0 + r) * D + d, x);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) sT[(d + u) * kRows + r] = x[u];
-  }
-}
-
-// The same rows row-major: s[r * D + d].
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void stage_rows(const T* g, int r0, int len,
-                                           float* s) {
-  for (int i = threadIdx.x; i < kRows * (D / 4); i += kThreads) {
-    const int r = (4 * i) / D, d = (4 * i) % D;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < len) load4(g + (size_t)(r0 + r) * D + d, x);
-    *reinterpret_cast<float4*>(&s[r * D + d]) =
-        make_float4(x[0], x[1], x[2], x[3]);
-  }
-}
-
-// acc[i][j] = sum_d aT[d][4ty + i] * bT[d][4tx + j] over two d-major
-// 64-row tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* aT, const float* bT,
-                                         int ty, int tx, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&aT[d * kBQ + 4 * ty]);
-    const float4 b = *reinterpret_cast<const float4*>(&bT[d * kBK + 4 * tx]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Reductions over the 16 threads of one score row (one half warp).
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (3 * kBQ * D + kBK * kBQ);
-}
-
-// q (BH, T, D); k, v (BH, S, D); out (BH, T, D) in T's type; lse (BH, T)
-// f32 or null. Grid (ceil(T / kBQ), BH), block kThreads, dynamic shared
-// memory fwd_smem_bytes<D>().
-template <typename Tp, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Tp* __restrict__ q, const Tp* __restrict__ k,
-                 const Tp* __restrict__ v, Tp* __restrict__ out,
-                 float* __restrict__ lse, int T, int S, int causal,
-                 float scale) {
-  constexpr int DV = D / 16;  // output dims owned by each thread
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;            // [D][kBQ]
-  float* kT = qT + D * kBQ;    // [D][kBK]
-  float* vs = kT + D * kBK;    // [kBK][D]
-  float* pT = vs + kBK * D;    // [kBK][kBQ]
-
-  const int nq = (T + kBQ - 1) / kBQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int offset = S - T;
-  const Tp* qb = q + (size_t)bh * T * D;
-  const Tp* kb = k + (size_t)bh * S * D;
-  const Tp* vb = v + (size_t)bh * S * D;
-
-  stage_transposed<Tp, D, kBQ>(qb, q0, T, qT);
-  const int last_row = min(T, q0 + kBQ) - 1;
-  const int last_col = causal ? min(S - 1, last_row + offset) : S - 1;
-
-  float m[4], l[4], acc[4][DV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int u = 0; u < DV; ++u) acc[i][u] = 0.f;
-  }
-
-  for (int k0 = 0; k0 <= last_col; k0 += kBK) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage_transposed<Tp, D, kBK>(kb, k0, S, kT);
-    stage_rows<Tp, D, kBK>(vb, k0, S, vs);
-    __syncthreads();
-
-    float s[4][4];
-    tile_dot<D>(qT, kT, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = q0 + 4 * ty + i;
-      bool live[4];
-      float mx = kNegBig;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + 4 * tx + j;
-        live[j] = t < T && c < S && (!causal || c <= t + offset);
-        s[i][j] = live[j] ? s[i][j] * scale : kNegBig;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < DV; ++u) acc[i][u] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pT[(4 * tx + j) * kBQ + 4 * ty]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&pT[c * kBQ + 4 * ty]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      float vv[DV];
-      lds<DV>(&vs[c * D + DV * tx], vv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < DV; ++u) acc[i][u] = fmaf(pv[i], vv[u], acc[i][u]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + 4 * ty + i;
-    if (t >= T) continue;
-    const float inv = 1.f / l[i];
-    Tp* o = out + ((size_t)bh * T + t) * D + DV * tx;
-#pragma unroll
-    for (int u = 0; u < DV; ++u) store1(o + u, acc[i][u] * inv);
-    if (lse != nullptr && tx == 0) lse[(size_t)bh * T + t] = m[i] + logf(l[i]);
-  }
-}
-
-template <typename Tp, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int BH, int T, int S, int causal, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<D>();
-  static bool configured = false;  // the attribute is set once per kernel
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<Tp, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid((T + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<Tp, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tp*>(q), static_cast<const Tp*>(k),
-      static_cast<const Tp*>(v), static_cast<Tp*>(out), lse, T, S, causal,
-      scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on the tensor cores, K/V through a cp.async ring
@@ -539,12 +338,246 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: split operands on the tensor cores, the bf16 loop
+// ---------------------------------------------------------------------------
+
+// A block of the f32 kernel, and its shared memory in bytes from the
+// 1024-aligned base: per warpgroup its Q tile as TF32 hi and lo; the
+// key tile's K as TF32 hi and lo; two slots of V as bf16 hi and lo (tile
+// j's, and tile j - 1's, which P_{j-1}.V_{j-1} still reads); where kRaw,
+// the next K and V tiles as stored, which cp.async fills while the
+// current tile is multiplied.
+template <int D>
+struct F32 {
+  static constexpr int kWG = D == 128 ? 1 : 2;  // warpgroups a block
+  static constexpr int kThr = 128 * kWG;
+  static constexpr int kBlockRows = kRows * kWG;
+  static constexpr bool kRaw = D <= 64;
+  static constexpr int kQ = 2 * Layout<2 * D>::kTile;  // TF32 hi, lo
+  static constexpr int kV = 2 * Layout<D>::kTile;      // bf16 hi, lo
+  static constexpr int kKOff = kWG * kQ;
+  static constexpr int kVOff = kKOff + kQ;
+  static constexpr int kRawOff = kVOff + 2 * kV;
+  static constexpr int kBytes = kRawOff + (kRaw ? 2 * kRows * D * 4 : 0);
+};
+
+// s = Q.K^T as qk_tf32x3 issues it (hi.lo, lo.hi, then hi.hi, 3 D / 8
+// steps of m64n64k8), but with the hi.hi steps over the second half of
+// the head dim summed from zero into a second accumulator, s2. The tensor
+// cores truncate each step's sum, an error of up to an ulp of the running
+// sum a step; two chains that each reach about half the full sum halve
+// that error. The caller adds s2 into s on the CUDA cores (rounded to
+// nearest) once both are waited for.
+template <int D>
+__device__ __forceinline__ void qk_tf32x3_halves(float (&s)[32],
+                                                 float (&s2)[32], uint32_t a,
+                                                 uint32_t b) {
+  using L = Layout<2 * D>;
+  constexpr int kHalf = D / 16;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    Mma<64>::ss_tf32(s, L::k_major(a, kk), L::k_major(b + L::kTile, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    Mma<64>::ss_tf32(s, L::k_major(a + L::kTile, kk), L::k_major(b, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < kHalf; ++kk)
+    Mma<64>::ss_tf32(s, L::k_major(a, kk), L::k_major(b, kk), 1);
+#pragma unroll
+  for (int kk = kHalf; kk < D / 8; ++kk)
+    Mma<64>::ss_tf32(s2, L::k_major(a, kk), L::k_major(b, kk), kk > kHalf);
+}
+
+template <int N>
+__device__ __forceinline__ void add_into(float (&s)[N], const float (&s2)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] += s2[i];
+}
+
+// q (BH, T, D); k, v (BH, S, D); out (BH, T, D), all f32; lse (BH, T) or
+// null. Grid (BH, ceil(T / F32<D>::kBlockRows)), block F32<D>::kThr,
+// dynamic shared memory F32<D>::kBytes. Q is split once into TF32 hi and
+// lo; per key tile the block splits K into TF32 and V into bf16 (V into
+// slot j % 2), then each warpgroup runs the bf16 kernel's iteration with
+// split products: S_j = Q.K_j^T as 3xTF32 (qk_tf32x3_halves), then O +=
+// P_{j-1}.V_{j-1} as bf16 x3 (P split in registers into hi and lo, V
+// read MN-major); waits for S_j only and runs its softmax while the
+// tensor cores add P.V; then waits for that and rescales O by alpha_j.
+// Every warp is past iteration j - 1 at the barrier that opens iteration
+// j, so K's tile and the V slot of tile j - 2 are free to be overwritten.
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThr, 1)
+flash_fwd_f32_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ lse, int T, int S, int causal,
+                        float scale) {
+  using C = F32<D>;
+  constexpr int kThr = C::kThr;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBlockRows;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31;
+  const int offset = S - T;
+  const size_t qoff = (size_t)bh * T * D, koff = (size_t)bh * S * D;
+  auto tiles_to = [&](int first_row, int rows) {  // key tiles rows need
+    const int last_row = min(T, first_row + rows) - 1;
+    if (last_row < first_row) return 0;
+    return (causal ? min(S - 1, last_row + offset) : S - 1) / kRows + 1;
+  };
+  const int n_tiles = tiles_to(q0, C::kBlockRows);  // the block's
+  const int qw = q0 + kRows * wg;                   // this warpgroup's rows
+  const int my_tiles = tiles_to(qw, kRows);
+  const uint32_t sq = base + C::kQ * wg;  // Q TF32 hi, lo
+  const uint32_t sk = base + C::kKOff;    // K TF32 hi, lo
+  auto sv = [&](int j) { return base + C::kVOff + C::kV * (j % 2); };
+  const float* raw = reinterpret_cast<const float*>(smem + C::kRawOff);
+  const float scale2 = scale * kLog2e;  // raw score -> log2 units
+  const int t0 = qw + 16 * warp + (lane >> 2);  // this thread's rows t0, t0 + 8
+  const int c_lane = 2 * (lane & 3);            // its first column of each 8
+
+  auto load = [&](int j) {  // starts copying K and V tile j as stored
+    const uint32_t raw_k = base + C::kRawOff, raw_v = raw_k + kRows * D * 4;
+    load_raw<float, D, kThr>(raw_k, k + koff, j * kRows, S);
+    load_raw<float, D, kThr>(raw_v, v + koff, j * kRows, S);
+    cp_async_commit();
+  };
+  // Splits key tile j into the operand tiles; then starts copying j + 1.
+  auto stage = [&](int j) {
+    const float *kt = raw, *vt = raw + kRows * D;
+    int n = kRows;
+    if constexpr (C::kRaw) {
+      cp_async_wait_all();
+    } else {
+      kt = k + koff + (size_t)j * kRows * D;
+      vt = v + koff + (size_t)j * kRows * D;
+      n = S - j * kRows;
+    }
+    __syncthreads();  // tile j landed; every warp is past iteration j - 1
+    split_tile<D, kThr, true, false>(kt, n, smem + C::kKOff, nullptr);
+    split_tile<D, kThr, false, true>(vt, n, nullptr,
+                                     smem + C::kVOff + C::kV * (j % 2));
+    fence_async_smem();
+    __syncthreads();  // the operand tiles are written; the raw pair is free
+    if constexpr (C::kRaw)
+      if (j + 1 < n_tiles) load(j + 1);
+  };
+  auto masked = [&](int j) {
+    const int k0 = j * kRows;
+    return k0 + kRows > S || (causal && k0 + kRows - 1 > qw + offset);
+  };
+
+  if constexpr (C::kRaw) load(0);
+#pragma unroll
+  for (int w = 0; w < C::kWG; ++w) {
+    const int r0 = min(q0 + kRows * w, T);
+    split_tile<D, kThr, true, false>(q + qoff + (size_t)r0 * D, T - r0,
+                                     smem + C::kQ * w, nullptr);
+  }
+
+  // m: running row max in log2 units; l: this thread's part of the row sum
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, alpha[2];
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[32], s2[32];
+  uint32_t ph[4][4], pl[4][4];  // P_{j-1} as bf16 hi + lo
+  // O += P.V of the warpgroup's last tile j.
+  auto finish = [&](int j) {
+    wgmma_fence();
+    pv_bf16x3<D>(o, ph, pl, sv(j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+  };
+
+  stage(0);
+  if (my_tiles > 0) {
+    wgmma_fence();
+    qk_tf32x3_halves<D>(s, s2, sq, sk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    pin(s2);
+    add_into(s, s2);
+    softmax_tile(s, m, l, alpha, masked(0), 0, t0, c_lane, S, causal, offset,
+                 scale2);
+    split_p(s, ph, pl);
+  }
+  for (int j = 1; j < n_tiles; ++j) {
+    stage(j);
+    if (j < my_tiles) {
+      wgmma_fence();
+      qk_tf32x3_halves<D>(s, s2, sq, sk);
+      wgmma_commit();
+      pv_bf16x3<D>(o, ph, pl, sv(j - 1));
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j is in s, s2; P_{j-1}.V_{j-1} may still run
+      pin(s);
+      pin(s2);
+      add_into(s, s2);
+      softmax_tile(s, m, l, alpha, masked(j), j * kRows, t0, c_lane, S,
+                   causal, offset, scale2);
+      wgmma_wait<0>();
+      pin(o);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+      pin(o);
+      split_p(s, ph, pl);
+    } else if (j == my_tiles) {
+      finish(j - 1);  // V_{j-1} stays in its slot until the next barrier
+    }
+  }
+  if (my_tiles == 0) return;
+  if (my_tiles == n_tiles) finish(n_tiles - 1);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + 8 * h;
+    if (t >= T) continue;
+    const float inv = 1.f / l[h];
+    float* orow = out + qoff + (size_t)t * D + c_lane;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * T + t] = m[h] * kLn2 + logf(l[h]);
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int BH, int T, int S,
+                       int causal, float scale, cudaStream_t stream) {
+  using C = F32<D>;
+  static bool configured = false;
+  const cudaError_t e =
+      configure(flash_fwd_f32_tc_kernel<D>, C::kBytes, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (T + C::kBlockRows - 1) / C::kBlockRows);
+  flash_fwd_f32_tc_kernel<D><<<grid, C::kThr, C::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, T, S,
+      causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
 
-// C entry point (loaded with ctypes). kind: 0 = f32 q/k/v/out (CUDA-core
-// kernel), 1 = bf16 (tensor-core kernel). lse: null for K1, a (BH, T) f32
+// C entry point (loaded with ctypes). kind: 0 = f32 q/k/v/out, 1 = bf16
+// (tensor-core kernels either way). lse: null for K1, a (BH, T) f32
 // buffer for K2. Returns the launch's cudaError_t (0 = launched).
 extern "C" int dnn_flash_attention(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
@@ -557,8 +590,8 @@ extern "C" int dnn_flash_attention(const void* q, const void* k,
   switch (kind) {
     case 0:
       return (int)with_head_dim(D, [&](auto d) {
-        return launch<float, decltype(d)::value>(q, k, v, out, l, BH, T, S,
-                                                 causal, scale, st);
+        return tc::launch_f32<decltype(d)::value>(q, k, v, out, l, BH, T, S,
+                                                  causal, scale, st);
       });
     case 1:
       return (int)with_head_dim(D, [&](auto d) {

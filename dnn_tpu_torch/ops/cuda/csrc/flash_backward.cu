@@ -539,69 +539,6 @@ struct F32 {
   static constexpr int kBytes = kStats + 2 * 2 * kRows * 4;
 };
 
-// Rows [0, 64) of a row-major (rows, D) f32 tile at src (global or shared
-// memory; rows at or past n read as zeros), split into operand tiles:
-// TF32 hi, then lo, at t32 (Layout<2 D>) when kTF32; bf16 hi, then lo, at
-// b16 (Layout<D>) when kBF16. kThr threads take part, each 8 consecutive
-// values at a time.
-template <int D, int kThr, bool kTF32, bool kBF16>
-__device__ __forceinline__ void split_tile(const float* src, int n,
-                                           unsigned char* t32,
-                                           unsigned char* b16) {
-  constexpr int kUnits = D / 8;
-  // in a one-warpgroup block (D = 128) a thread splits 8 units of a
-  // tile: two at a time, or their loads all in flight hold 64 registers
-#pragma unroll(kThr == 128 ? 2 : kRows * kUnits / kThr)
-  for (int u = 0; u < kRows * kUnits / kThr; ++u) {
-    const int i = (int)threadIdx.x + u * kThr;
-    const int r = i / kUnits, c = i % kUnits;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < n) {
-      const float4* p = reinterpret_cast<const float4*>(src + r * D + 8 * c);
-      a = p[0];
-      b = p[1];
-    }
-    if constexpr (kTF32) {
-      uint4 hi, lo;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        split_tf32(h ? b : a, hi, lo);
-        const int off = Layout<2 * D>::offset(r, 2 * c + h);
-        *reinterpret_cast<uint4*>(t32 + off) = hi;
-        *reinterpret_cast<uint4*>(t32 + F32<D>::kT32 + off) = lo;
-      }
-    }
-    if constexpr (kBF16) {
-      uint4 hi, lo;
-      split8(a, b, hi, lo);
-      const int off = Layout<D>::offset(r, c);
-      *reinterpret_cast<uint4*>(b16 + off) = hi;
-      *reinterpret_cast<uint4*>(b16 + F32<D>::kB16 + off) = lo;
-    }
-  }
-}
-
-// s = A.B^T over head dim D from TF32 hi and lo tiles (lo a tile after hi,
-// Layout<2 D>, both K-major): hi.lo + lo.hi + hi.hi, 3 D / 8 steps of
-// m64n64k8; lo.lo, 2^-22 relative, is dropped. The small terms go first:
-// the tensor cores add each step's products into the accumulator with
-// truncation, an error of up to an ulp of the running sum a step, so the
-// D / 8 steps of hi.hi, which bring the sum to full size, come last.
-template <int D>
-__device__ __forceinline__ void qk_tf32x3(float (&s)[32], uint32_t a,
-                                          uint32_t b) {
-  using L = Layout<2 * D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    Mma<64>::ss_tf32(s, L::k_major(a, kk), L::k_major(b + L::kTile, kk), kk);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    Mma<64>::ss_tf32(s, L::k_major(a + L::kTile, kk), L::k_major(b, kk), 1);
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    Mma<64>::ss_tf32(s, L::k_major(a, kk), L::k_major(b, kk), 1);
-}
-
 // The same from bf16 hi and lo tiles (Layout<D>): 3 D / 16 steps of
 // m64n64k16, small terms first.
 template <int D>
@@ -617,17 +554,6 @@ __device__ __forceinline__ void qk_bf16x3(float (&s)[32], uint32_t a,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     Mma<64>::ss(s, L::k_major(a, kk), L::k_major(b, kk), 1);
-}
-
-// acc += P.B for one 64-key tile, P split in registers into bf16 hi and
-// lo, B's bf16 hi and lo tiles read MN-major: hi.lo + lo.hi + hi.hi.
-template <int D>
-__device__ __forceinline__ void pv_bf16x3(float (&acc)[D / 2],
-                                          uint32_t (&hi)[4][4],
-                                          uint32_t (&lo)[4][4], uint32_t b) {
-  pv<D>(acc, hi, b + Layout<D>::kTile);
-  pv<D>(acc, lo, b);
-  pv<D>(acc, hi, b);
 }
 
 // The 64 x D f32 accumulator rows r0 and r0 + 8 (those < len) of `acc`

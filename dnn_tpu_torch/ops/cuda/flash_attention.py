@@ -15,11 +15,9 @@ dnn_tpu/ops/pallas/flash_attention.py).
     :_bwd_dkv_kernel) — dQ and dK/dV from (q, k, v, dO, lse, D) with
     D = rowsum(dO * O) computed outside the kernels, as JAX does.
 
-In bf16 all four kernels run their products on the tensor cores
-(wgmma). In f32 K3/K4 do too, on operands split for f32 accuracy (the
-score product as 3xTF32, the others as bf16 hi + lo, three products
-each); the f32 forward (K1/K2) runs its products as f32 FMAs on the CUDA
-cores.
+All four kernels run their products on the tensor cores (wgmma): in
+bf16 directly, in f32 on operands split for f32 accuracy (the score
+product as 3xTF32, the others as bf16 hi + lo, three products each).
 
 Shapes: q (B, H, T, D); k, v (B, H, S, D); causal masking aligned
 bottom-right (query t sees keys <= t + S - T). Inputs f32 or bf16, all

@@ -69,6 +69,10 @@ def test_k5_source_includes_the_tensor_core_header():
     ("_ZN50_GLOBAL__N__eef1f944_17_flash_backward_cu_80fae4692tc27flash_bwd_"
      "dkv_f32_tc_kernelILi32EEEvPKfS3_S3_S3_S3_S3_PfS4_iiif",
      "flash_bwd_dkv_f32_tc_kernel<32>"),
+    # the f32 forward on the tensor cores
+    ("_ZN51_GLOBAL__N__eef1f944_18_flash_attention_cu_80fae4692tc23flash_"
+     "fwd_f32_tc_kernelILi64EEEvPKfS3_S3_PfS4_iiif",
+     "flash_fwd_f32_tc_kernel<64>"),
 ])
 def test_build_lines_name_the_kernels(mangled, label):
     assert chip_smoke.kernel_label(mangled) == label

@@ -144,6 +144,43 @@ def test_flash_bwd_bound_counts_ragged_and_bottom_right_shapes():
     assert dq["issued"]["tf32"] == dkv["issued"]["tf32"] == 3 * product
 
 
+@pytest.mark.parametrize("f32,with_lse", [(True, False), (True, True),
+                                          (False, False), (False, True)],
+                         ids=["K1-f32", "K2-f32", "K1-bf16", "K2-bf16"])
+def test_flash_fwd_bound_counts_the_forward(f32, with_lse):
+    """K1/K2 at the training shape: q, k, v read and out written (50.3 MB
+    in f32), K2's lse beside them; the two products at the fastest rate
+    for the type, so the bytes bind (0.0150 / 0.0151 ms in f32). In f32
+    what the split design issues (S as three TF32 products, P.V as three
+    bf16 products: 0.0147 ms) is kept beside it."""
+    b = chip_smoke.flash_fwd_bound(f32, 96, 512, 512, 64, with_lse)
+    el = 4 if f32 else 2
+    product = 2 * 64 * 96 * 131328
+    assert b["nbytes"] == (4 * 96 * 512 * 64 * el
+                           + (96 * 512 * 4 if with_lse else 0))
+    assert b["flops"] == 2 * product
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["nbytes"] / 3.35e12 * 1e3)
+    if f32:
+        assert round(b["bound_ms"], 4) == (0.0151 if with_lse else 0.0150)
+        assert b["issued"] == dict(tf32=3 * product, bf16=3 * product)
+        issued_ms = (3 * product / 494.7e12 + 3 * product / 989e12) * 1e3
+        assert round(issued_ms, 4) == 0.0147
+    else:
+        assert "issued" not in b
+
+
+def test_flash_fwd_bound_counts_ragged_and_bottom_right_shapes():
+    """T=128 against S=512, bottom-right: q and out have T rows, k and v
+    S rows; the pairs are those the mask leaves."""
+    t, s, d = 128, 512, 64
+    pairs = sum(min(s, r + 1 + s - t) for r in range(t))
+    b = chip_smoke.flash_fwd_bound(True, 2, t, s, d, True)
+    assert b["nbytes"] == (2 * t + 2 * s) * 2 * d * 4 + 2 * t * 4
+    assert b["flops"] == 2 * 2 * d * 2 * pairs
+    assert b["issued"]["tf32"] == b["issued"]["bf16"] == 3 * 2 * d * 2 * pairs
+
+
 @pytest.mark.parametrize("f32,peak", [(True, 494.7e12), (False, 989e12)])
 def test_flash_bound_prices_the_products_at_the_types_fastest_rate(f32,
                                                                     peak):
@@ -162,13 +199,15 @@ def test_flash_bound_prices_the_products_at_the_types_fastest_rate(f32,
 @pytest.mark.parametrize("kernel,f32,units", [
     ("flash_bwd_dq", True, "issued on the tensor cores as split products"),
     ("flash_bwd_dkv", False, "products on the tensor cores"),
-    (None, True, "products on the CUDA cores")])
+    ("flash_attention_lse", True,
+     "issued on the tensor cores as split products")])
 def test_flash_report_prints_the_bound_and_the_units(capsys, kernel, f32,
                                                      units):
     """One line per flash kernel: time, bound, what bounds, and the
     products on the units the kernel uses."""
-    b = (chip_smoke.flash_bwd_bound(kernel, f32, 96, 512, 512, 64) if kernel
-         else chip_smoke.flash_bound(50.3e6, 3.2e9, f32))
+    b = (chip_smoke.flash_fwd_bound(f32, 96, 512, 512, 64, True)
+         if kernel == "flash_attention_lse"
+         else chip_smoke.flash_bwd_bound(kernel, f32, 96, 512, 512, 64))
     row = dict(ms=0.05, plain_ms=0.8, library_ms=None,
                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                max_abs_err=1e-5)

@@ -195,8 +195,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 # --- flash attention (K1-K4) ------------------------------------------
 # Ragged T/S, S > T (bottom-right mask), full attention, every head dim
 # and both input types. K1 and K2 against the plain forward with the
-# logsumexp on the same inputs (in bf16 K1's output also equals K2's bit
-# for bit: one kernel); K3/K4 against the plain backward on the
+# logsumexp on the same inputs (K1's output also equals K2's bit for
+# bit: one kernel per type); K3/K4 against the plain backward on the
 # same (q, k, v, dO, lse, D). Tolerances: f32 outputs 1e-4 absolute, f32
 # gradients 1e-4 x the tensor's max |value| (sums of up to S products
 # in another order); bf16 2e-2 (the outputs are rounded to bf16 on both
@@ -245,8 +245,7 @@ def test_flash_kernels(dev, dtype, d, causal, t, s):
     assert [w.launches_by_dtype[name] for w in wrappers] == \
         [b + 1 for b in before]
     assert out1.dtype == dtype and dq.dtype == dtype and dk.dtype == dtype
-    if dtype == torch.bfloat16:  # K1 and K2 are one kernel
-        assert torch.equal(out1, out2)
+    assert torch.equal(out1, out2)  # K1 and K2 are one kernel
     for got, want in ((out1, ref), (out2, ref), (lse, ref_lse), (dq, rdq),
                       (dk, rdk), (dv, rdv)):
         assert torch.isfinite(got).all()
@@ -334,6 +333,58 @@ def test_flash_backward_f32_large_scores(dev, d, causal, t, s, seed):
         assert err <= 1e-4 * top, (name, err)
     print(f"\n[x4] D={d} {'causal' if causal else 'full'} T={t} S={s} "
           f"seed {seed}: err / max " + ", ".join(line))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,t,s", [(8, 12, 512, 512), (2, 3, 65, 1000)],
+                         ids=["B=8-H=12-T=S=512", "T=65-S=1000"])
+def test_flash_forward_is_deterministic(dev, dtype, b, h, t, s):
+    """K2 (causal, D=64) run twice on the same inputs gives out and lse
+    equal bit for bit, in f32 and in bf16: the lse K3/K4 read, and so a
+    resumed training run, do not depend on the launch."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(b, h, n, 64, generator=g, device=dev).to(dtype)
+               for n in (t, s, s))
+    first = tfa.flash_attention_lse(q, k, v)
+    second = tfa.flash_attention_lse(q, k, v)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("seed", [8, 9, 10, 11])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t,s", [(512, 512), (65, 1000)],
+                         ids=["T=S=512", "T=65-S=1000"])
+def test_flash_forward_f32_large_scores(dev, d, causal, t, s, seed):
+    """K1 and K2 in f32 with q and k x 4, so that scores reach tens (as a
+    trained model's do): an error in the score product goes through exp
+    into out and into the lse. Held against the plain f32 forward at 1e-4
+    absolute, out and lse; K1's out equals K2's bit for bit. Prints the
+    error against the plain forward and, beside it, against the plain
+    forward in f64 on the same values, and the plain f32 forward's own
+    error against f64 (run with -s to read the margin)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, _ = _flash_inputs(g, dev, t, s, d, torch.float32)
+    q, k = 4 * q, 4 * k
+    out1 = tfa.flash_attention(q, k, v, causal=causal)
+    out, lse = tfa.flash_attention_lse(q, k, v, causal=causal)
+    want, exact = (tfa.reference_attention_lse(*xs, causal=causal)
+                   for xs in ((q, k, v), [x.double() for x in (q, k, v)]))
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out)
+    line = []
+    for name, a, b_, x in zip(("out", "lse"), (out, lse), want, exact):
+        assert torch.isfinite(a).all()
+        err = (a - b_).abs().max().item()
+        f64, own = ((y.double() - x).abs().max().item() for y in (a, b_))
+        line.append(f"{name} {err:.2e} (f64 {f64:.2e}; the plain f32 "
+                    f"forward's own {own:.2e})")
+        assert err <= 1e-4, (name, err)
+    print(f"\n[x4 fwd] D={d} {'causal' if causal else 'full'} T={t} S={s} "
+          f"seed {seed}: max abs err " + ", ".join(line))
 
 
 def test_flash_refuses_what_it_does_not_take(dev):
