@@ -7,6 +7,11 @@ against an independent reference, and trains full-width GPT-2 through
 the flash-attention kernels.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
+    python3 chip_smoke.py --decode-turns PARENT
+        # K6/K7 of this tree against those of the tree unpacked at PARENT
+        # (e.g. a `git archive` of the parent commit), in turns: parent,
+        # this tree, this tree, parent -- each turn one process that
+        # builds the two libraries and runs that tree's phases 3 and 4
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi); TF32 off; kernel build
@@ -16,10 +21,14 @@ Phases (any failure exits non-zero and prints no result):
      against SDPA's
   3. K6 decode_attention at the dense decode shape (B=4 Hk=12 R=1 D=64
      S=1024), pos {0,15,16,1023}, f32/bf16/int8; also a stale slot at
-     pos = S and an R=2 case (checked only)
+     pos = S and an R=2 case (checked only); its split-KV plan; and at
+     the solo decoder's shape (B=1 Hk=12 R=1 S=316, pos 315), timed
+     against SDPA for the float types
   4. K7 paged_decode_attention at the decode shape (B=4 Hk=12 R=1 D=64,
      bp=16, nb_max=64, 257 pool blocks), permuted table, pos
-     {0,15,16,1023}, f32/bf16/int8 pools
+     {0,15,16,1023}, f32/bf16/int8 pools; its split-KV plan
+  4a. information: K6 at both shapes and K7 timed (and checked) under
+     splits of 64, 128 and 256 keys
   4b. K1 flash_attention and K2 flash_attention_lse, then K3
      flash_bwd_dq and K4 flash_bwd_dkv, at the training shape (B=8 H=12
      T=S=512 D=64, causal), f32 and bf16; also T=S=500 and a T=128 S=512
@@ -55,7 +64,8 @@ Phases (any failure exits non-zero and prints no result):
           caches, against the matching reference (K5, K6)
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission on each pool A-D (wall, device busy, top
-     kernels, K5's share of the admission's device time)
+     kernels, K6/K7's share of the step's device busy, K5's share of the
+     admission's)
   6b. the training main path (gpt2 at full width, seed-0 weights, B=8
      T=512, make_apply_stacked(use_flash=True), next_token_loss, the
      port's adamw(1e-4), batches from a seeded token file through
@@ -107,6 +117,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import socket
 import subprocess
@@ -181,22 +192,27 @@ def kernel_label(mangled: str) -> str:
     """`flash_fwd_tc_kernel<64>` from a mangled kernel name: the
     length-prefixed identifier that ends in "kernel", then its template
     arguments (the element type, then the ints)."""
-    # a length prefix may follow digits of a hash: try every tail of a run
+    # a length prefix may follow digits of a hash: try every tail of a run;
+    # a hash's digits can also prefix a longer run that ends in "kernel",
+    # so the identifier is the shortest such word
     starts = [i for m in re.finditer(r"\d+", mangled)
               for i in range(m.start(), m.end())]
+    words = []
     for i in starts:
         end = re.match(r"\d+", mangled[i:]).end() + i
         word = mangled[end:end + int(mangled[i:end])]
-        if not word.endswith("kernel"):
-            continue
-        targs = mangled[end + len(word):].split("EE")[0]
-        if not targs.startswith("I"):
-            return word
-        types = {"If": "f32", "I13__nv_bfloat16": "bf16", "Ia": "int8"}
-        names = [t for pre, t in types.items() if targs.startswith(pre)]
-        names += re.findall(r"L[ib](-?\d+)", targs)
-        return f"{word}<{', '.join(names)}>"
-    return mangled
+        if word.endswith("kernel"):
+            words.append((len(word), end, word))
+    if not words:
+        return mangled
+    _, end, word = min(words)
+    targs = mangled[end + len(word):].split("EE")[0]
+    if not targs.startswith("I"):
+        return word
+    types = {"If": "f32", "I13__nv_bfloat16": "bf16", "Ia": "int8"}
+    names = [t for pre, t in types.items() if targs.startswith(pre)]
+    names += re.findall(r"L[ib](-?\d+)", targs)
+    return f"{word}<{', '.join(names)}>"
 
 
 def phase_build():
@@ -342,6 +358,18 @@ def phase_k5(dev, gen):
     return rows
 
 
+def decode_plan(tag, bh, s, unit=1):
+    """Prints K6/K7's split-KV plan for `bh` (slot, KV head) pairs over
+    `s` logical columns (in whole `unit`s: K7's blocks)."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import decode_split
+
+    split_keys, n_split = decode_split(bh, s, unit)
+    print(f"[{tag}] plan for {bh} (slot, head) pairs over {s} columns: "
+          f"{n_split} splits of {split_keys} keys, grid ({n_split}, {bh}), "
+          f"{2 if n_split > 1 else 1} kernel launches a call (split"
+          f"{' + merge' if n_split > 1 else ''})", flush=True)
+
+
 def phase_k6(dev, gen):
     """K6 against its plain version at the dense decode-step shape
     (B=4 Hk=12 R=1 D=64 S=1024, pos {0, 15, 16, 1023}), f32, bf16 and
@@ -351,6 +379,7 @@ def phase_k6(dev, gen):
         decode_attention, reference_decode_attention)
 
     B, Hk, R, D, S = 4, 12, 1, 64, 1024
+    decode_plan("K6", B * Hk, S)
     pos_list = [0, 15, 16, 1023]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     stale = torch.tensor([0, 15, S, 1023], dtype=torch.int32, device=dev)
@@ -397,6 +426,7 @@ def phase_k7(dev, gen):
         paged_decode_attention, reference_paged_decode_attention)
 
     B, Hk, R, D, bp, nb_max, n_blocks = 4, 12, 1, 64, 16, 64, 257
+    decode_plan("K7", B * Hk, nb_max * bp, bp)
     pos_list = [0, 15, 16, 1023]
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     perm = torch.randperm(n_blocks - 1, generator=torch.Generator().manual_seed(0))
@@ -428,6 +458,108 @@ def phase_k7(dev, gen):
         report("K7", f"{name:4s} pos {pos_list} (no one-call library "
                "equivalent)", row, nbytes, byte_ms, op_ms)
     return rows
+
+
+SOLO_B, SOLO_HK, SOLO_S = 1, 12, 316  # make_generate: 300 + 16 rows
+
+
+def phase_k6_solo(dev, gen):
+    """K6 at the solo decoder's shape (B=1 Hk=12 R=1 D=64, a 316-row
+    cache, pos 315: the last step of a 300-token prompt's 16 new
+    tokens), f32, bf16 and int8, against its plain version, timed
+    against SDPA for the float types. Returns {dtype: row}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        decode_attention, reference_decode_attention)
+
+    B, Hk, R, D, S = SOLO_B, SOLO_HK, 1, 64, SOLO_S
+    decode_plan("K6 solo", B * Hk, S)
+    pos = torch.tensor([S - 1], dtype=torch.int32, device=dev)
+    rows = {}
+    for name, tol in KV_CASES:
+        q = torch.randn(LAYERS, B, Hk, R, D, generator=gen, device=dev)
+        k, v, ks, vs = kv_cache(gen, (LAYERS, B, Hk, S, D), name, dev)
+        sc = scales_at(ks, vs, 0)
+        err = check(f"K6 solo {name}",
+                    decode_attention(q[0], k[0], v[0], pos, **sc),
+                    reference_decode_attention(q[0], k[0], v[0], pos, **sc),
+                    tol)
+        nbytes = 2 * B * Hk * R * D * 4 + Hk * kv_bytes(name, S, D) + B * 4
+        b_ms, b_by, byte_ms, op_ms = bound(nbytes, 4 * D * Hk * R * S)
+        ms = time_ms(cycling(lambda i: decode_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        plain = time_ms(cycling(lambda i: reference_decode_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        lib = None
+        if name != "int8":  # every column is live: SDPA without a mask
+            qd = q.to(k.dtype)
+            lib = time_ms(cycling(
+                lambda i: torch.nn.functional.scaled_dot_product_attention(
+                    qd[i], k[i], v[i]), LAYERS))
+        row = rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        report("K6 solo", f"{name:4s} B={B} S={S} pos {S - 1}", row, nbytes,
+               byte_ms, op_ms)
+        if lib is not None:
+            print(f"[K6 solo] {name}: kernel / SDPA {ms / lib:.2f}",
+                  flush=True)
+    return rows
+
+
+DECODE_SWEEP = (32, 64, 128, 256)  # keys a split
+
+
+def phase_decode_splits(dev, gen):
+    """Information: K6 at the timing and solo shapes and K7 at the timing
+    shape under splits of DECODE_SWEEP keys (in place of the wrapper's
+    plan, `decode_split`), each checked against its plain version and
+    timed."""
+    from dnn_tpu_torch.ops.cuda import cached_attention as tca
+
+    def fixed(keys):
+        def plan(bh, s, unit=1):
+            split_keys = -(-keys // unit) * unit
+            return split_keys, -(-s // split_keys)
+        return plan
+
+    shapes = (("K6", 4, 1024, [0, 15, 16, 1023]),
+              ("K6 solo", SOLO_B, SOLO_S, [SOLO_S - 1]),
+              ("K7", 4, 1024, [0, 15, 16, 1023]))
+    keep = tca.decode_split
+    try:
+        for tag, B, S, pos_list in shapes:
+            paged = tag == "K7"
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+            bp = 16
+            tables = torch.arange(1, B * S // bp + 1, dtype=torch.int32,
+                                  device=dev).reshape(B, S // bp)
+            for name, tol in KV_CASES:
+                q = torch.randn(LAYERS, B, 12, 1, 64, generator=gen,
+                                device=dev)
+                shape = ((LAYERS, B * S // bp + 1, 12, bp, 64) if paged
+                         else (LAYERS, B, 12, S, 64))
+                k, v, ks, vs = kv_cache(gen, shape, name, dev)
+
+                def call(f, i):
+                    sc = scales_at(ks, vs, i)
+                    if paged:
+                        return f(q[i], k[i], v[i], tables, pos, **sc)
+                    return f(q[i], k[i], v[i], pos, **sc)
+                fn, ref = ((tca.paged_decode_attention,
+                            tca.reference_paged_decode_attention) if paged
+                           else (tca.decode_attention,
+                                 tca.reference_decode_attention))
+                times = []
+                for keys in DECODE_SWEEP:
+                    tca.decode_split = fixed(keys)
+                    check(f"{tag} {name} split {keys}", call(fn, 0),
+                          call(ref, 0), tol)
+                    times.append(time_ms(cycling(
+                        lambda i: call(fn, i), LAYERS)))
+                print(f"[splits] {tag} {name:4s} B={B} S={S}: "
+                      + ", ".join(f"{keys} keys {t:.4f} ms" for keys, t
+                                  in zip(DECODE_SWEEP, times)), flush=True)
+    finally:
+        tca.decode_split = keep
 
 
 FLASH_B, FLASH_H, FLASH_T, FLASH_D = 8, 12, 512, 64
@@ -1083,18 +1215,26 @@ def device_ms(fn, iters: int = 10) -> float:
     return sum(e.self_device_time_total for e in evs) / 1e3 / iters
 
 
+DECODE_KERNEL_NAMES = ("decode_attn_kernel", "paged_decode_kernel",
+                       "decode_merge_kernel")
+
+
 def _profiled(fn):
-    """(wall ms, device ms, kernel launches, top kernels, K5 device ms) of
-    fn() under torch.profiler: device ms sums the kernels' own device
-    time; K5's sums its split and merge kernels (cached_attn_*)."""
+    """(wall ms, device ms, kernel launches, top kernels, K5 device ms,
+    K6/K7 device ms) of fn() under torch.profiler: device ms sums the
+    kernels' own device time; K5's sums its split and merge kernels
+    (cached_attn_*), K6/K7's theirs (DECODE_KERNEL_NAMES)."""
     wall, evs = _kernel_events(fn)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
     k5_ms = sum(e.self_device_time_total for e in evs
                 if "cached_attn" in e.key) / 1e3
+    dec_ms = sum(e.self_device_time_total for e in evs
+                 if any(n in e.key for n in DECODE_KERNEL_NAMES)) / 1e3
     n_kernels = sum(e.count for e in evs)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
     return wall, dev_ms, n_kernels, [(e.key[:60], e.self_device_time_total
-                                      / 1e3, e.count) for e in top], k5_ms
+                                      / 1e3, e.count) for e in top], k5_ms, \
+        dec_ms
 
 
 PROFILED_POOLS = (("A paged f32", {"kv": "paged"}),
@@ -1129,16 +1269,18 @@ def phase_profile(prepared, cfg, prompts, dev):
             for _ in range(steps):
                 b.step()
 
-        wall, dev_ms, n_kern, top, _ = _profiled(decode)
+        wall, dev_ms, n_kern, top, _, dec_ms = _profiled(decode)
         print(f"[profile] {label}: decode step (3 active slots) "
               f"{plain_wall:.3f} ms wall; under the profiler "
               f"{wall / steps:.3f} ms wall, {dev_ms / steps:.3f} ms device "
               f"busy ({100 * dev_ms / wall:.1f}% of wall), "
-              f"{n_kern / steps:.0f} kernel launches per step", flush=True)
+              f"{n_kern / steps:.0f} kernel launches per step; K6/K7 "
+              f"{dec_ms / steps:.4f} ms/step = {100 * dec_ms / dev_ms:.1f}% "
+              "of device busy", flush=True)
         for name, ms, n in top:
             print(f"[profile]   decode {ms / steps:.4f} ms/step  "
                   f"x{n // steps}  {name}", flush=True)
-        wall, dev_ms, n_kern, top, k5_ms = _profiled(
+        wall, dev_ms, n_kern, top, k5_ms, _ = _profiled(
             lambda: b.submit(prompts[3], 2))
         print(f"[profile] {label}: admission of a {len(prompts[3])}-token "
               f"prompt (5 chunks + install): {wall:.3f} ms wall, "
@@ -1454,10 +1596,11 @@ def phase_train(dev, card):
     return total
 
 
-def kernel_record(name, source, replaces, rows, main_row, launches):
+def kernel_record(name, source, replaces, rows, main_row, launches,
+                  **extra):
     """One entry of the kernels line: the f32 case at the main-path shape
     on top, every cache type under by_dtype, launches summed over the
-    main-path runs."""
+    main-path runs; `extra` entries (rows at other shapes) beside."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     by = {dt: {"launches": launches[dt], **{k: rows[dt][k] for k in keys}}
@@ -1466,7 +1609,70 @@ def kernel_record(name, source, replaces, rows, main_row, launches):
     top["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
-            **top, "by_dtype": by}
+            **top, "by_dtype": by, **extra}
+
+
+# one turn of --decode-turns, run from a tree's root (its chip_smoke and
+# its package): that tree's phases 3 and 4, then its wrappers timed at the
+# solo decoder's shape (K6, B=1 S=316 pos 315) and at a decode step's
+# short positions (K7, B=4 pos {8, 80, 140, 0}, nb_max=64 blocks of 16);
+# prints the kernel times
+TURN_CODE = """
+import json, torch, chip_smoke as c
+from dnn_tpu_torch.ops.cuda import _build
+from dnn_tpu_torch.ops.cuda.cached_attention import (
+    decode_attention, paged_decode_attention)
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+_build.build(["decode_attention", "paged_decode"])
+ms = {kernel: {dt: r["ms"] for dt, r in by.items()} for kernel, by in
+      (("K6", c.phase_k6(dev, gen)), ("K7", c.phase_k7(dev, gen)))}
+solo = torch.tensor([315], dtype=torch.int32, device=dev)
+short = torch.tensor([8, 80, 140, 0], dtype=torch.int32, device=dev)
+tables = torch.arange(1, 257, dtype=torch.int32, device=dev).reshape(4, 64)
+ms["K6 solo"], ms["K7 short"] = {}, {}
+for dt in ("f32", "bf16", "int8"):
+    q = torch.randn(c.LAYERS, 4, 12, 1, 64, generator=gen, device=dev)
+    k, v, ks, vs = c.kv_cache(gen, (c.LAYERS, 1, 12, 316, 64), dt, dev)
+    ms["K6 solo"][dt] = c.time_ms(c.cycling(lambda i: decode_attention(
+        q[i, :1], k[i], v[i], solo, **c.scales_at(ks, vs, i)), c.LAYERS))
+    k, v, ks, vs = c.kv_cache(gen, (c.LAYERS, 257, 12, 16, 64), dt, dev)
+    ms["K7 short"][dt] = c.time_ms(c.cycling(
+        lambda i: paged_decode_attention(q[i], k[i], v[i], tables, short,
+                                         **c.scales_at(ks, vs, i)),
+        c.LAYERS))
+print("TURN " + json.dumps(ms))
+"""
+
+
+def decode_turns(parent: str, smi: str):
+    """K6/K7 of the tree at `parent` and of this one, timed in turns
+    (parent, this tree, this tree, parent) on one card, one process a
+    turn; prints each turn's kernel times and the ratio of the means."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    turns = []
+    for label, root in (("parent", parent), ("tree", here), ("tree", here),
+                        ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", TURN_CODE], cwd=root, text=True,
+            capture_output=True, timeout=900,
+            env={**os.environ, "PYTHONPATH": os.path.abspath(root)})
+        if proc.returncode != 0:
+            fail(f"decode turn in {root} failed:\n{proc.stdout[-3000:]}\n"
+                 f"{proc.stderr[-3000:]}")
+        times = json.loads([ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("TURN ")][-1][5:])
+        turns.append((label, times))
+        print(f"[turns] {label} ({root}): {json.dumps(times)}", flush=True)
+    for kernel in ("K6", "K7", "K6 solo", "K7 short"):
+        for dt, _ in KV_CASES:
+            old = [t[kernel][dt] for label, t in turns if label == "parent"]
+            new = [t[kernel][dt] for label, t in turns if label == "tree"]
+            print(f"[turns] {kernel} {dt:4s}: parent "
+                  f"{', '.join(f'{x:.4f}' for x in old)} ms, this tree "
+                  f"{', '.join(f'{x:.4f}' for x in new)} ms: parent / tree "
+                  f"{sum(old) / sum(new):.2f}; on {smi}", flush=True)
 
 
 def main():
@@ -1478,6 +1684,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     print(f"[card] {smi}", flush=True)
+    if sys.argv[1:2] == ["--decode-turns"] and len(sys.argv) == 3:
+        decode_turns(sys.argv[2], smi)
+        return
+    if len(sys.argv) > 1:
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --decode-turns "
+             "PARENT)")
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1488,7 +1700,9 @@ def main():
     phase_build()
     k5 = phase_k5(dev, gen)
     k6 = phase_k6(dev, gen)
+    k6_solo = phase_k6_solo(dev, gen)
     k7 = phase_k7(dev, gen)
+    phase_decode_splits(dev, gen)
     flash = {**phase_flash_fwd(dev, gen), **phase_flash_bwd(dev, gen)}
     launches, prepared, cfg, prompts = phase_main_path(dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
@@ -1504,7 +1718,9 @@ def main():
                       launches["cached_attention"]),
         kernel_record("decode_attention", src + "decode_attention.cu",
                       pallas + ":296", k6, "f32",
-                      launches["decode_attention"]),
+                      launches["decode_attention"],
+                      solo_shape={"B": SOLO_B, "Hk": SOLO_HK, "S": SOLO_S,
+                                  "by_dtype": k6_solo}),
         kernel_record("paged_decode_attention", src + "paged_decode.cu",
                       pallas + ":459", k7, "f32",
                       launches["paged_decode_attention"]),

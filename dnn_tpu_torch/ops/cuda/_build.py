@@ -47,14 +47,16 @@ KERNELS = {
          _P]),
     "decode_attention": (
         "decode_attention.cu", "dnn_decode_attention",
-        # q k v ks vs pos out | B Hk R S D kv_kind | scale stream
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "paged_decode": (
-        "paged_decode.cu", "dnn_paged_decode_attention",
-        # q kp vp ks vs tables pos out | B Hk R D bp nb_max kv_kind |
-        # scale stream
+        # q k v ks vs pos out ws | B Hk R S D kv_kind split_keys | scale
+        # stream (ws: the split-KV workspace, None for a single split)
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
          _P]),
+    "paged_decode": (
+        "paged_decode.cu", "dnn_paged_decode_attention",
+        # q kp vp ks vs tables pos out ws | B Hk R D bp nb_max kv_kind
+        # split_keys | scale stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _I, _F, _P]),
     "flash_attention": (
         "flash_attention.cu", "dnn_flash_attention",
         # q k v out lse | BH T S D causal kind | scale stream

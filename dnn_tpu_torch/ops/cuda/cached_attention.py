@@ -13,6 +13,10 @@ serving path and their plain PyTorch twins.
   * `paged_decode_attention` (K7, csrc/paged_decode.cu) — one decode
     step of every slot through its block table into the shared pool;
     replaces :_paged_decode_kernel.
+    K6 and K7 share one body (csrc/decode_split.cuh): a split-KV grid
+    (`decode_split`), each block all R query rows of one KV head over
+    one range of keys, and a merge kernel where the keys fall into more
+    than one split.
 
 Each takes an f32, bf16 or int8 cache; an int8 cache comes with its
 per-(position, head) f32 scales `ks`/`vs` (the K scale multiplies the
@@ -41,6 +45,9 @@ _KV_KIND = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
             torch.int8: (2, "int8")}
 K5_TILE = 64             # K5's query rows a block and keys a tile
 K5_TARGET_BLOCKS = 132   # one block for each of the H100's 132 SMs
+DECODE_MIN_SPLIT_KEYS = 64  # K6/K7's shortest split (32-256 timed: PERF.md)
+DECODE_TARGET_BLOCKS = 192  # K6/K7's grid; 256-key splits at B=4 S=1024
+DECODE_MAX_ROWS = 8      # K6/K7's query rows a KV head
 
 
 # ----------------------------------------------------------------------
@@ -190,6 +197,28 @@ def k5_split(bh: int, t: int, s: int):
     return split_tiles, -(-n_tiles // split_tiles)
 
 
+def decode_split(bh: int, s: int, unit: int = 1):
+    """K6/K7's split of a slot's `s` logical columns, from the shapes
+    alone (the positions stay on the device): (keys a split, number of
+    splits). The grid is (splits, bh). The splits bring it up to about
+    DECODE_TARGET_BLOCKS blocks, each of at least DECODE_MIN_SPLIT_KEYS
+    keys, in whole `unit`s (K7: its block length), and at most the whole
+    row. The plan cannot see which slot is long, so it lets every slot
+    spread over many SMs; the blocks past a slot's live limit return at
+    once."""
+    units = -(-s // unit)
+    per = max(-(-DECODE_MIN_SPLIT_KEYS // unit),
+              -(-units * bh // DECODE_TARGET_BLOCKS))
+    per = min(per, units)
+    return per * unit, -(-units // per)
+
+
+def _decode_rows(r):
+    if r > DECODE_MAX_ROWS:
+        raise ValueError(f"the CUDA kernel takes at most {DECODE_MAX_ROWS} "
+                         f"query rows a KV head, got {r}")
+
+
 @_counted
 def cached_attention(q, k, v, pos, *, ks=None, vs=None):
     """K5. q (B, H, T, D) f32; k/v (B, H, S, D) f32 or bf16, or int8 with
@@ -230,7 +259,10 @@ def decode_attention(q, k, v, pos, *, ks=None, vs=None):
     columns <= pos[b] (a pos at or past S attends the whole cache);
     k/v (B, Hk, S, D) f32 or bf16, or int8 with ks/vs (B, Hk, S) f32
     scales; pos (B,) int32. Returns (B, Hk, R, D) f32. CPU tensors run
-    `reference_decode_attention`."""
+    `reference_decode_attention`. On CUDA, R <= DECODE_MAX_ROWS; the
+    partial results of the key splits (`decode_split`) go to an f32
+    workspace of n_split * B * Hk * R * (D + 2) floats, merged in split
+    order (deterministic)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: expected (B,Hk,R,D)/"
@@ -247,11 +279,15 @@ def decode_attention(q, k, v, pos, *, ks=None, vs=None):
         return reference_decode_attention(q, k, v, pos, ks=ks, vs=vs)
     _check_kernel_args((q, k, v, pos, ks, vs), d=d, dims=(32, 64, 128),
                        aligned=(q, k, v))
+    _decode_rows(r)
     out = torch.empty((b, hk, r, d), dtype=torch.float32, device=dev)
+    split_keys, n_split = decode_split(b * hk, k.shape[2])
+    ws = None if n_split == 1 else torch.empty(
+        n_split * b * hk * r * (d + 2), dtype=torch.float32, device=dev)
     _launch(decode_attention, "decode_attention", dname, dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
-            pos.data_ptr(), out.data_ptr(), b, hk, r, k.shape[2], d, kind,
-            1.0 / math.sqrt(d))
+            pos.data_ptr(), out.data_ptr(), _ptr(ws), b, hk, r, k.shape[2],
+            d, kind, split_keys, 1.0 / math.sqrt(d))
     return out
 
 
@@ -262,7 +298,8 @@ def paged_decode_attention(q, kp, vp, tables, pos, *, ks=None, vs=None):
     pool, or int8 with ks/vs (n_blocks, Hk, bp) f32 scale blocks; tables
     (B, nb_max) int32 logical -> physical block; pos (B,) int32. Returns
     (B, Hk, R, D) f32. CPU tensors run
-    `reference_paged_decode_attention`."""
+    `reference_paged_decode_attention`. On CUDA, as `decode_attention`,
+    over the nb_max * bp logical columns split in whole blocks."""
     if q.dim() != 4 or kp.dim() != 4 or kp.shape != vp.shape:
         raise ValueError(f"q {tuple(q.shape)}, pool {tuple(kp.shape)}/"
                          f"{tuple(vp.shape)}: expected (B,Hk,R,D)/"
@@ -284,10 +321,18 @@ def paged_decode_attention(q, kp, vp, tables, pos, *, ks=None, vs=None):
         return reference_paged_decode_attention(q, kp, vp, tables, pos,
                                                 ks=ks, vs=vs)
     _check_kernel_args((q, kp, vp, tables, pos, ks, vs), d=d,
-                       dims=(32, 64, 128))
+                       dims=(32, 64, 128), aligned=(q, kp, vp))
+    _decode_rows(r)
+    bp, nb_max = kp.shape[2], tables.shape[1]
+    if kp.shape[0] * hk * bp >= 2**31:
+        raise ValueError(f"the CUDA kernel takes a pool of fewer than 2^31 "
+                         f"rows, got {tuple(kp.shape)}")
     out = torch.empty((b, hk, r, d), dtype=torch.float32, device=dev)
+    split_keys, n_split = decode_split(b * hk, nb_max * bp, bp)
+    ws = None if n_split == 1 else torch.empty(
+        n_split * b * hk * r * (d + 2), dtype=torch.float32, device=dev)
     _launch(paged_decode_attention, "paged_decode", dname, dev,
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, hk, r, d,
-            kp.shape[2], tables.shape[1], kind, 1.0 / math.sqrt(d))
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(ws), b,
+            hk, r, d, bp, nb_max, kind, split_keys, 1.0 / math.sqrt(d))
     return out

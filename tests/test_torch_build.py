@@ -36,6 +36,15 @@ def test_both_flash_sources_include_the_tensor_core_header():
         assert _build._inputs(src) == [src, "hopper_tc.cuh"]
 
 
+def test_both_decode_sources_include_the_split_header():
+    """K6 and K7 are one body (csrc/decode_split.cuh, which takes its
+    cp.async helpers from the tensor-core header): both libraries rebuild
+    when either header changes."""
+    for src in ("decode_attention.cu", "paged_decode.cu"):
+        assert _build._inputs(src) == [src, "decode_split.cuh",
+                                       "hopper_tc.cuh"]
+
+
 def test_k5_source_includes_the_tensor_core_header():
     """K5 runs on the tensor cores too: its library rebuilds when the
     shared header changes."""
@@ -73,6 +82,23 @@ def test_k5_source_includes_the_tensor_core_header():
     ("_ZN51_GLOBAL__N__eef1f944_18_flash_attention_cu_80fae4692tc23flash_"
      "fwd_f32_tc_kernelILi64EEEvPKfS3_S3_PfS4_iiif",
      "flash_fwd_f32_tc_kernel<64>"),
+    # the split-KV decode kernels (K6, K7; the cache type, the head dim,
+    # the rows a KV head compiled for) and their merge
+    ("_ZN52_GLOBAL__N__38fd6590_19_decode_attention_cu_0aaa63fc18decode_"
+     "attn_kernelIfLi128ELi1EEEvPKfPKT_S5_S2_S2_PKiPfS8_iiiif",
+     "decode_attn_kernel<f32, 128, 1>"),
+    ("_ZN48_GLOBAL__N__78e4dd39_15_paged_decode_cu_4f57007519paged_decode_"
+     "kernelI13__nv_bfloat16Li128ELi8EEEvPKfPKT_S6_S3_S3_PKiS8_PfS9_iiiiif",
+     "paged_decode_kernel<bf16, 128, 8>"),
+    ("_ZN48_GLOBAL__N__78e4dd39_15_paged_decode_cu_4f57007519paged_decode_"
+     "kernelIaLi32ELi2EEEvPKfPKT_S5_S2_S2_PKiS7_PfS8_iiiiif",
+     "paged_decode_kernel<int8, 32, 2>"),
+    ("_ZN52_GLOBAL__N__38fd6590_19_decode_attention_cu_0aaa63fc3dec19decode_"
+     "merge_kernelILi64EEEvPKfPKiPfiiiiii", "decode_merge_kernel<64>"),
+    # a file hash whose last digits (53) also prefix a run ending in
+    # "kernel": the identifier is the shortest one
+    ("_ZN48_GLOBAL__N__78e4dd53_15_paged_decode_cu_4f5700753dec19decode_"
+     "merge_kernelILi64EEEvPKfPKiPfiiiiii", "decode_merge_kernel<64>"),
 ])
 def test_build_lines_name_the_kernels(mangled, label):
     assert chip_smoke.kernel_label(mangled) == label

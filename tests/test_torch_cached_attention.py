@@ -135,6 +135,33 @@ def test_k5_split_plan(bh, t, s, plan):
     assert n_split * query_tiles < tca.K5_TARGET_BLOCKS + query_tiles
 
 
+@pytest.mark.parametrize("bh,s,unit,plan", [
+    (48, 1024, 1, (256, 4)),   # K6 serving: B=4 Hk=12, the 1024 bucket
+    (48, 1024, 16, (256, 4)),  # K7 serving: nb_max=64 blocks of 16
+    (12, 316, 1, (64, 5)),     # K6 solo: B=1, 300-token prompt + 16
+    (48, 64, 1, (64, 1)),      # the smallest bucket: one split, no merge
+    (96, 96, 8, (64, 2)),      # block_len 8: eight blocks a split
+    (36, 300, 10, (70, 5)),    # bp=10: 7 blocks a split, the last of 2
+    (768, 1024, 1, (1024, 1)),  # B=64: the slots alone fill the grid
+    (48, 32768, 16, (8192, 4)),  # a long pool: long splits
+    (2, 1, 1, (1, 1)),
+])
+def test_decode_split_plan(bh, s, unit, plan):
+    """K6/K7's split-KV plan from the shapes alone: (keys a split,
+    splits). A split is a whole number of units (K7's blocks); every
+    column of S (every logical block) falls in exactly one split, none is
+    empty; a split holds DECODE_MIN_SPLIT_KEYS keys or more, or the whole
+    row; and the grid (splits x bh) stays within one row of blocks of
+    DECODE_TARGET_BLOCKS, or is one split."""
+    split_keys, n_split = tca.decode_split(bh, s, unit)
+    assert (split_keys, n_split) == plan
+    assert split_keys % unit == 0
+    units, per = -(-s // unit), split_keys // unit
+    assert (n_split - 1) * per < units <= n_split * per
+    assert split_keys >= min(tca.DECODE_MIN_SPLIT_KEYS, units * unit)
+    assert n_split == 1 or n_split * bh < tca.DECODE_TARGET_BLOCKS + bh
+
+
 def test_cpu_path_launches_no_kernel():
     """CPU tensors take the plain version: no kernel launch is counted,
     in total or by cache type, and nothing is built."""

@@ -7,11 +7,13 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Shapes here are deliberately ragged (T not a multiple of the 64-row
-query tile, S not a multiple of the 64-key tile or the 8-key chunk,
-block_len 8, two query rows per KV head); K5 also runs at the serving
-shape, at bases beside its split edges, under each split plan, and
-twice for bit-equality — the serving path itself is covered by
-chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16 and int8
+query tile, S not a multiple of the 64-key tile or of a decode tile,
+block_len 8, two and four query rows per KV head); K5 also runs at the
+serving shape, at bases beside its split edges, under each split plan,
+and twice for bit-equality; K6/K7 at S=1024 with positions beside their
+split edges, twice for bit-equality, and replayed from a CUDA graph
+after the positions changed on the device — the serving path itself is
+covered by chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16 and int8
 caches alike (both sides read the same rounded or quantized values and
 accumulate in f32; only the summation order differs)."""
 
@@ -136,7 +138,7 @@ def test_cached_attention_is_deterministic(dev, kind, b, h, t, s, d):
 
 @pytest.mark.parametrize("kind", KV_DTYPES)
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("rows", [1, 2, 4])
 def test_decode_kernel(dev, kind, d, rows):
     """K6 at a ragged S, with a slot whose stale pos equals S (it attends
     the whole cache and reads nothing past it)."""
@@ -155,9 +157,11 @@ def test_decode_kernel(dev, kind, d, rows):
 
 @pytest.mark.parametrize("kind", KV_DTYPES)
 @pytest.mark.parametrize("d", [32, 64, 128])
-def test_paged_decode_kernel(dev, kind, d):
+@pytest.mark.parametrize("rows", [2, 4])
+def test_paged_decode_kernel(dev, kind, d, rows):
+    """K7 at block_len 8 through a permuted table (one split)."""
     g = torch.Generator(device=dev).manual_seed(1)
-    q = torch.randn(3, 2, 2, d, generator=g, device=dev)
+    q = torch.randn(3, 2, rows, d, generator=g, device=dev)
     kp, vp, ks, vs = _cache(g, (40, 2, 8, d), kind, dev)
     perm = torch.randperm(39, generator=torch.Generator().manual_seed(2)) + 1
     tables = perm[:36].reshape(3, 12).to(torch.int32).to(dev)
@@ -169,6 +173,111 @@ def test_paged_decode_kernel(dev, kind, d):
     torch.cuda.synchronize()
     assert tca.paged_decode_attention.launches_by_dtype[kind] == before + 1
     assert (got - want).abs().max().item() <= ATOL
+
+
+def _decode_check(paged, q, k, v, pos, ks, vs, kind, tables=None):
+    """One K6 (or K7) call against its plain version; counts one
+    launch."""
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    ref = (tca.reference_paged_decode_attention if paged
+           else tca.reference_decode_attention)
+    args = (q, k, v, tables, pos) if paged else (q, k, v, pos)
+    before = fn.launches_by_dtype[kind]
+    got = fn(*args, ks=ks, vs=vs)
+    want = ref(*args, ks=ks, vs=vs)
+    torch.cuda.synchronize()
+    assert fn.launches_by_dtype[kind] == before + 1
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= ATOL, err
+    return got
+
+
+def _decode_inputs(dev, paged, kind, d, rows, seed, b=6, hk=2):
+    """q (b, hk, rows, d) and a 1024-column cache: dense (b, hk, 1024,
+    d), or a pool of 16-row blocks behind a permuted table (b, 64) whose
+    last slot is inactive: every entry the junk block 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hk, rows, d, generator=g, device=dev)
+    if not paged:
+        return (q, *_cache(g, (b, hk, 1024, d), kind, dev), None)
+    n_blocks = b * 64 + 1
+    kp, vp, ks, vs = _cache(g, (n_blocks, hk, 16, d), kind, dev)
+    perm = torch.randperm(n_blocks - 1, generator=torch.Generator()
+                          .manual_seed(seed)) + 1
+    tables = perm[:b * 64].reshape(b, 64).to(torch.int32)
+    tables[-1] = 0
+    return q, kp, vp, ks, vs, tables.to(dev)
+
+
+def _edge_positions(paged, b, hk):
+    """Positions beside the split edges of the wrapper's plan: the last
+    column of split 0, the first and second of split 1, the last column
+    of the row; then a stale dense slot at pos = S (K6), or the inactive
+    paged slot at 0 (K7)."""
+    split_keys, n_split = tca.decode_split(b * hk, 1024, 16 if paged else 1)
+    assert n_split > 2
+    return [split_keys - 1, split_keys, split_keys + 1, 1023, 517,
+            0 if paged else 1024]
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_at_split_edges(dev, paged, kind, d, rows):
+    """K6 and K7 over S=1024 columns (16 splits of 64 keys at B=6 Hk=2):
+    slots whose live columns end on a split's last column, on the next
+    split's first and second, on the row's last column, mid-split; a
+    stale dense slot (pos = S) and an inactive paged slot (pos 0 on the
+    junk block)."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, d, rows,
+                                             seed=11)
+    pos = torch.tensor(_edge_positions(paged, 6, 2), dtype=torch.int32,
+                       device=dev)
+    _decode_check(paged, q, k, v, pos, ks, vs, kind, tables)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_are_deterministic(dev, paged, kind):
+    """K6 / K7 twice on the same inputs give the same output bit for bit:
+    the groups of a block and the splits merge in a fixed order, with no
+    atomics."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, 64, 2,
+                                             seed=12)
+    pos = torch.tensor(_edge_positions(paged, 6, 2), dtype=torch.int32,
+                       device=dev)
+    first = _decode_check(paged, q, k, v, pos, ks, vs, kind, tables)
+    second = _decode_check(paged, q, k, v, pos, ks, vs, kind, tables)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_replay_in_a_cuda_graph(dev, paged, kind):
+    """A K6 / K7 call captured in a CUDA graph, then the positions
+    changed on the device and the graph replayed: the output follows the
+    new positions (the launch reads no position on the host)."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, 64, 1,
+                                             seed=13)
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    args = (q, k, v, tables) if paged else (q, k, v)
+    pos = torch.tensor([3, 140, 700, 1023, 128, 0], dtype=torch.int32,
+                       device=dev)
+    fn(*args, pos, ks=ks, vs=vs)  # builds the library, sets its attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, pos, ks=ks, vs=vs)
+    for new in ([1023, 0, 127, 129, 640, 0], [5, 900, 255, 256, 17, 0]):
+        pos.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = (tca.reference_paged_decode_attention if paged
+               else tca.reference_decode_attention)
+        want = ref(*args, pos, ks=ks, vs=vs)
+        assert (out - want).abs().max().item() <= ATOL
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -190,6 +299,29 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError, match="scale"):
         tca.decode_attention(torch.randn(1, 2, 1, 64, device=dev), k8, k8,
                              pos)
+    with pytest.raises(ValueError, match="query rows"):
+        tca.decode_attention(torch.randn(1, 2, 9, 64, device=dev), k, k,
+                             pos)
+
+
+def test_paged_decode_refuses_a_misaligned_pool(dev):
+    """K7 reads the pool with 16-byte copies: a pool that starts 4 bytes
+    past a 16-byte boundary raises; so do more than 8 query rows."""
+    pool = torch.randn(5 * 2 * 16 * 64 + 1, device=dev)[1:].view(5, 2, 16, 64)
+    assert pool.is_contiguous() and pool.data_ptr() % 16 == 4
+    q = torch.randn(1, 2, 1, 64, device=dev)
+    tables = torch.arange(1, 5, dtype=torch.int32, device=dev).reshape(1, 4)
+    pos = torch.tensor([20], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tca.paged_decode_attention(q, pool, pool, tables, pos)
+    good = pool.clone()
+    with pytest.raises(ValueError, match="query rows"):
+        tca.paged_decode_attention(torch.randn(1, 2, 9, 64, device=dev),
+                                   good, good, tables, pos)
+    got = tca.paged_decode_attention(q, good, good, tables, pos)
+    want = tca.reference_paged_decode_attention(q, good, good, tables, pos)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= ATOL
 
 
 # --- flash attention (K1-K4) ------------------------------------------
