@@ -119,6 +119,7 @@ import json
 import math
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -1179,6 +1180,276 @@ def phase_main_path(dev, card: str):
     return launches, prepared, cfg, prompts
 
 
+PIPE_B_TOKENS = 256  # P-b: one request of B=1 T=256 int32 ids
+PIPE_C_NEW = 32      # P-c: greedy tokens after the 300-token prompt
+
+
+def pipe_config(name: str, **override) -> dict:
+    """A config of configs/ with fresh localhost ports and `override`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", name)) as f:
+        raw = json.load(f)
+    for node in raw["nodes"]:
+        node["address"] = f"127.0.0.1:{free_port()}"
+    raw.update(override)
+    return raw
+
+
+def _wait_for(path, text, procs, timeout):
+    """Poll `path` until it holds `text`; fail if a process ends first."""
+    t_end = time.monotonic() + timeout
+    while True:
+        with open(path) as f:
+            got = f.read()
+        if text in got:
+            return got
+        if time.monotonic() > t_end or any(p.poll() is not None
+                                           for p in procs):
+            fail(f"[pipe] no {text!r} in {path} (exit codes "
+                 f"{[p.poll() for p in procs]}):\n{got[-3000:]}")
+        time.sleep(0.2)
+
+
+def pipe_cifar(dev, card):
+    """P-a: cifar_cnn on configs/cifar_2stage.json. The in-process
+    engine (role full, relay) on the dummy image against the port's
+    apply on the CPU (1e-5, same argmax); then two `node --serve`
+    subprocesses on a native .npz of the same weights, node1 given a
+    missing --input_image (the dummy image): its FINAL PREDICTION must
+    equal the engine's, and each child must log its device."""
+    import shutil
+    import tempfile
+
+    from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.io.checkpoint import params_to_flat, save_npz
+    from dnn_tpu_torch.io.preprocess import dummy_image
+    from dnn_tpu_torch.parallel.pipeline import place
+    from dnn_tpu_torch.registry import get_model
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+
+    where = {"device_type": "cpu"} if dev.type == "cpu" else {}
+    raw = pipe_config("cifar_2stage.json", runtime="relay", **where)
+    spec = get_model("cifar_cnn")
+    params = spec.init(0)
+    x = dummy_image()
+    engine = PipelineEngine(TopologyConfig.from_dict(raw), params=params)
+    probs = engine.run(x).cpu()
+    pred = engine.predict(x)
+    with torch.no_grad():
+        want = spec.apply(place(params, "cpu"), torch.from_numpy(x))
+    err = (probs - want).abs().max().item()
+    if err > 1e-5 or int(want.argmax()) != pred:
+        fail(f"[pipe] P-a engine probs max abs err {err:.3e} (limit 1e-5), "
+             f"argmax {pred} vs CPU {int(want.argmax())}")
+    print(f"[pipe] P-a cifar_cnn engine (relay, 2 stages on {dev}): "
+          f"prediction {pred}, probs within {err:.2e} of the CPU apply",
+          flush=True)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    procs = []
+    try:
+        save_npz(os.path.join(tmp, "cifar.npz"), params_to_flat(params))
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump({**raw, "model_weights": os.path.join(tmp, "cifar.npz")},
+                      f)
+        outs = [os.path.join(tmp, f"node{i}.out") for i in (1, 2)]
+        env = {**os.environ, "PYTHONPATH": root}
+        for node, out, extra in (
+                ("node2", outs[1], []),
+                ("node1", outs[0], ["--input_image",
+                                    os.path.join(tmp, "missing.png")])):
+            with open(out, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "dnn_tpu_torch.node", "--node_id",
+                     node, "--config", cfg_path, "--serve", *extra],
+                    cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        text = _wait_for(outs[0], "FINAL PREDICTION", procs, 300)
+        first = time.perf_counter() - t0
+        line = [ln for ln in text.splitlines() if "FINAL PREDICTION" in ln][0]
+        if line.strip() != f"***** FINAL PREDICTION (Index): {pred} *****":
+            fail(f"[pipe] P-a node1 printed {line.strip()!r}, the engine "
+                 f"predicts {pred}")
+        for node, out in zip(("node1", "node2"), outs):
+            logged = _wait_for(out, f"device {dev.type}", procs, 60)
+            print(f"[pipe] P-a {node}: " + [
+                ln for ln in logged.splitlines()
+                if f"device {dev.type}" in ln][0].split(":", 2)[-1].strip(),
+                flush=True)
+        client = NodeClient(raw["nodes"][0]["address"])
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            status, result = client.send_tensor(x, timeout=pipeline_budget(2))
+            walls.append(time.perf_counter() - t1)
+            if result is None or int(result.argmax()) != pred:
+                fail(f"[pipe] P-a client round trip: {status}")
+        client.close()
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=60) for p in procs]
+        if rcs != [0, 0]:
+            fail(f"[pipe] P-a children exited {rcs} on SIGTERM")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[pipe] P-a two `node --serve` processes: node1 printed "
+          f"prediction {pred} {first:.1f} s after launch (process start, "
+          f"weights, health wait included); a client's round trip over "
+          f"gRPC (stage 0 on node1, stage 1 on node2) median "
+          f"{sorted(walls)[2] * 1e3:.2f} ms of 5 (min {min(walls) * 1e3:.2f})"
+          f"; on {card}", flush=True)
+
+
+def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
+    """P-b: configs/gpt2_8stage.json (gpt2-medium, 8 stages, bf16
+    compute) at full width, seeded weights drawn once and shared. Eight
+    in-process stage servers (role stage) answer one send_tensor of int32
+    ids B=1 T=n_tokens: the f32 logits must equal the in-process relay
+    engine's bit for bit (same card, same operations), and lie within
+    5e-2 x max|logit| of an f32 relay run, with the same argmax wherever
+    the f32 top-2 gap exceeds 0.1."""
+    from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
+    from dnn_tpu_torch.comm.service import start_stage_servers_in_background
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.registry import get_model
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+
+    where = {"device_type": "cpu"} if dev.type == "cpu" else {}
+    raw = pipe_config("gpt2_8stage.json", runtime="relay", **where,
+                      **({"model": model} if model else {}))
+    spec = get_model(raw["model"])
+    t0 = time.perf_counter()
+    params = spec.init(0)
+    print(f"[pipe] P-b {raw['model']} weights (seed 0, numpy) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    config = TopologyConfig.from_dict(raw)
+    ids = np.random.default_rng(1).integers(
+        0, spec.config.vocab_size, (1, n_tokens)).astype(np.int32)
+    relay = PipelineEngine(config, params=params)
+    want = relay.run(ids).cpu()
+    _, stage_s = relay.stage_times(ids)
+    last_in = torch.as_tensor(ids)  # the activation entering the last stage
+    for part in range(len(raw["nodes"]) - 1):
+        last_in = relay.run_stage(part, last_in)
+    last_in = last_in.cpu()
+    _, stop = start_stage_servers_in_background([
+        (PipelineEngine(config, params=params, role="stage"), node["id"], None)
+        for node in raw["nodes"]])
+    try:
+        client = NodeClient(raw["nodes"][0]["address"])
+        if not client.wait_healthy(deadline=60):
+            fail("[pipe] P-b stage server node1 never became healthy")
+        client.send_tensor(ids, timeout=pipeline_budget(8))  # warm-up
+        t1 = time.perf_counter()
+        status, got = client.send_tensor(ids, timeout=pipeline_budget(8))
+        wall = time.perf_counter() - t1
+        client.close()
+        # the last stage alone: one hop in, the logits back
+        last = NodeClient(raw["nodes"][-1]["address"])
+        last.send_tensor(last_in, timeout=pipeline_budget(1))
+        t1 = time.perf_counter()
+        _, got_last = last.send_tensor(last_in, timeout=pipeline_budget(1))
+        wall_last = time.perf_counter() - t1
+        last.close()
+    finally:
+        stop()
+    if got_last is None or not torch.equal(got_last, want):
+        fail("[pipe] P-b the last stage server alone returned other logits "
+             "than the relay engine's")
+    if got is None:
+        fail(f"[pipe] P-b no logits came back: {status}")
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        fail(f"[pipe] P-b logits {got.dtype} {tuple(got.shape)}, the relay "
+             f"engine's {want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        fail(f"[pipe] P-b logits over gRPC differ from the relay engine's: "
+             f"max abs {(got - want).abs().max().item():.3e}")
+    f32 = PipelineEngine(TopologyConfig.from_dict({**raw, "dtype": "float32"}),
+                         params=params)
+    ref = f32.run(ids).cpu()
+    del relay, f32
+    top = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    top2 = torch.topk(ref[0], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 0.1
+    flips = int((got[0].argmax(-1) != ref[0].argmax(-1))[decided].sum())
+    if not torch.isfinite(got).all() or err > 5e-2 * top or flips:
+        fail(f"[pipe] P-b bf16 logits against f32: max abs err {err:.3e} "
+             f"(limit 5e-2 x {top:.3f}), {flips} argmax flips where the f32 "
+             "top-2 gap > 0.1")
+    sync(dev)
+    print(f"[pipe] P-b {raw['model']} 8 stage servers, bf16 compute, "
+          f"B=1 T={n_tokens}: {status.rsplit('Next node status: ', 1)[-1]}; "
+          f"logits ({got.numel() * 4 / 1e6:.1f} MB f32) equal the relay "
+          f"engine's bit for bit; against f32: max abs err {err:.3e} = "
+          f"{err / top:.2e} x max|logit|, argmax equal at "
+          f"{int(decided.sum())} decided positions", flush=True)
+    print(f"[pipe] P-b request wall over gRPC (8 hops) {wall * 1e3:.1f} ms; "
+          f"the last stage alone (its {last_in.numel() * 2 / 1e6:.2f} MB "
+          f"bf16 input in, the logits back) {wall_last * 1e3:.1f} ms; "
+          "relay per-stage compute (record_timings) ms "
+          + " / ".join(f"{t * 1e3:.2f}" for t in stage_s)
+          + f" (sum {sum(stage_s) * 1e3:.1f}); on {card}", flush=True)
+
+
+def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW):
+    """P-c: a derived config (model, 4 parts, relay, f32):
+    engine.generate greedy, n_new tokens after `prompt`, against
+    reference_greedy on the same weights, with K5 and K6 launched
+    (counted in the run). Returns the run's launch counts."""
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import PRESETS
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+
+    cfg = PRESETS[model]
+    raw = {"nodes": [{"id": f"node{i + 1}", "part_index": i,
+                      "address": f"127.0.0.1:{free_port()}"}
+                     for i in range(4)],
+           "model": model, "num_parts": 4, "runtime": "relay",
+           "dtype": "float32",
+           "device_type": "cpu" if dev.type == "cpu" else "tpu"}
+    engine = PipelineEngine(TopologyConfig.from_dict(raw))
+    engine.generate([prompt[:8]], max_new_tokens=2)  # warm-up
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = engine.generate([prompt], max_new_tokens=n_new)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if dev.type == "cuda":
+        require("P-c engine.generate", counts,
+                [("cached_attention", "f32"), ("decode_attention", "f32")])
+    ref = reference_greedy(from_jax_params(engine.params, cfg, dev), cfg,
+                           prompt, n_new, dev)
+    compare_tokens(f"P-c engine.generate ({model}, 4 parts)",
+                   toks[0].tolist(), *ref)
+    print(f"[pipe] P-c {n_new} tokens after a {len(prompt)}-token prompt in "
+          f"{wall * 1e3:.1f} ms = {n_new / wall:.1f} tokens/s; on {card}",
+          flush=True)
+    return counts
+
+
+def phase_pipe(dev, card, prompt):
+    """The staged pipeline: P-a, P-b, P-c. Returns P-c's launches."""
+    t0 = time.perf_counter()
+    pipe_cifar(dev, card)
+    pipe_gpt_stages(dev, card)
+    counts = pipe_generate(dev, card, prompt)
+    print(f"[pipe] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def _kernel_events(fn):
     """(wall ms, the device-side events of fn()) under torch.profiler:
     kernels and copies only — an operator's row repeats the time of its
@@ -1707,6 +1978,10 @@ def main():
     launches, prepared, cfg, prompts = phase_main_path(dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
     del prepared
+    pipe = phase_pipe(dev, smi, prompts[3])
+    for name in CACHE_KERNELS:
+        for dt, n in pipe[name].items():
+            launches[name][dt] += n
     launches.update(phase_train(dev, smi))
 
     src = "dnn_tpu_torch/ops/cuda/csrc/"

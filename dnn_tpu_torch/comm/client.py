@@ -1,25 +1,38 @@
-"""Minimal synchronous client for the LM daemon (the subset of
-dnn_tpu/comm/client.NodeClient this port needs): health checks, unary
-generation and streaming generation over the same wire and the same
-request-id option grammar ("gen:max_new[:seed][:t=..][:k=..][:p=..]
-[:m=..][:r=..]")."""
+"""Synchronous client for a NodeService endpoint (the subset of
+dnn_tpu/comm/client.NodeClient this port needs): health checks,
+`send_tensor` into a stage pipeline, and unary and streaming generation
+from the LM daemon over the same wire and the same request-id option
+grammar ("gen:max_new[:seed][:t=..][:k=..][:p=..][:m=..][:r=..]")."""
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import grpc
 import numpy as np
+import torch
 
 from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
 from dnn_tpu_torch.comm.service import (
     GRPC_MSG_OPTIONS,
+    PER_STAGE_BUDGET_S,
+    RETRYABLE_CODES,
     SERVICE_NAME,
     _tensor_arr,
     _tensor_msg,
+    full_jitter_delay,
+    tag_deadline,
 )
+
+
+def pipeline_budget(num_parts: int, *, margin: float = 30.0) -> float:
+    """The edge client's budget for one traversal of a gRPC pipeline: one
+    per-stage slice per part plus a margin, so it outlasts the first
+    stage's own forward budget and a downstream timeout comes back as
+    that stage's status, not as the client's DEADLINE_EXCEEDED."""
+    return PER_STAGE_BUDGET_S * num_parts + margin
 
 
 def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
@@ -39,8 +52,9 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
 
 
 class NodeClient:
-    """Sync client for a NodeService endpoint. Plain gRPC; no transport
-    negotiation, no retries (a failed call raises grpc.RpcError)."""
+    """Sync client for a NodeService endpoint. Plain gRPC, no transport
+    negotiation; only send_tensor retries (generate raises
+    grpc.RpcError at once)."""
 
     def __init__(self, address: str):
         self.address = address
@@ -66,6 +80,42 @@ class NodeClient:
                 return False
             time.sleep(interval)
         return True
+
+    def send_tensor(self, arr, *, request_id: str = "req",
+                    timeout: float = 60.0, retries: int = 2,
+                    backoff: float = 0.2
+                    ) -> Tuple[str, Optional[torch.Tensor]]:
+        """Submit an activation (numpy array or tensor) to a stage
+        server; returns (status, final tensor or None) from the response
+        chain. UNAVAILABLE, RESOURCE_EXHAUSTED and DATA_LOSS are retried
+        up to `retries` times with full-jitter backoff; `timeout` is the
+        budget of all attempts together, and each attempt carries what is
+        left of it as the request's `dl=` deadline."""
+        call = self._channel.unary_unary(
+            f"/{SERVICE_NAME}/SendTensor",
+            request_serializer=wc.serialize_request,
+            response_deserializer=wc.parse_response)
+        request = wc.TensorRequest(request_id=request_id,
+                                   tensor=_tensor_msg(arr))
+        deadline = time.monotonic() + timeout
+        attempt = 0
+        while True:
+            remaining = deadline - time.monotonic()
+            request.request_id = tag_deadline(request_id, remaining)
+            try:
+                resp = call(request, timeout=max(remaining, 0.001))
+                result = (wc.tensor_torch(resp.result_tensor)
+                          if resp.HasField("result_tensor") else None)
+                return resp.status, result
+            except (grpc.RpcError, wc.PayloadCorruptError) as e:
+                code = (e.code() if isinstance(e, grpc.RpcError)
+                        else grpc.StatusCode.DATA_LOSS)
+                worst = backoff * (2 ** attempt)
+                if (code not in RETRYABLE_CODES or attempt >= retries
+                        or deadline - time.monotonic() <= worst):
+                    raise
+                time.sleep(full_jitter_delay(backoff, attempt))
+                attempt += 1
 
     def generate(self, prompt_ids, *, max_new_tokens: int = 32,
                  timeout: float = 120.0, **options) -> np.ndarray:

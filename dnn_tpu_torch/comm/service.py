@@ -1,21 +1,41 @@
-"""gRPC service plumbing for the NodeService wire (port of
-dnn_tpu/comm/service.py:90-105,817-853).
+"""gRPC service for the NodeService wire (port of
+dnn_tpu/comm/service.py:90-275, 568-967).
 
 Methods are registered with explicit (de)serializer callables — the
 hand-coded codec for the Tensor messages, the generated protobuf classes
 for the rest — so a peer running either package, or real protobuf,
 interoperates byte for byte.
+
+`StageServer` serves one pipeline stage: unary SendTensor decodes the
+activation, computes the stage off the event loop, and either answers
+with the last stage's result ("Processing complete. Prediction: N") or
+forwards to the next node over one shared channel, with bounded retries
+on transient codes inside a deadline that covers the rest of the
+pipeline. It declines the JAX package's transport hello, so a JAX peer
+stays on unary gRPC: the streamed `Relay` RPC and the shm/device
+transports are not ported.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
+import logging
+import random
+import signal
+import threading
+import time
+from typing import Optional
 
 import grpc
 import numpy as np
+import torch
 
 from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
+from dnn_tpu_torch.parallel.pipeline import sync
+
+log = logging.getLogger("dnn_tpu_torch.comm")
 
 SERVICE_NAME = "node_service.NodeService"
 
@@ -32,6 +52,47 @@ HELLO_SENDER = "dnn_tpu.transport.hello"
 
 def decline_hello(reason: str) -> str:
     return json.dumps({"v": 1, "ok": False, "reason": reason})
+
+
+# Transient codes worth retrying (the JAX package's RETRYABLE_CODES);
+# DEADLINE_EXCEEDED is not: a deadline spans the whole rest of the
+# pipeline, so a resend could only duplicate downstream work.
+RETRYABLE_CODES = frozenset({
+    grpc.StatusCode.UNAVAILABLE,
+    grpc.StatusCode.RESOURCE_EXHAUSTED,
+    grpc.StatusCode.DATA_LOSS,
+})
+
+# One stage's slice of a pipeline deadline: compute (first calls
+# included) plus the wire margin, as the JAX package's gRPC budget.
+PER_STAGE_BUDGET_S = 30.0
+
+_DL_PREFIX = "dl="
+
+
+def tag_deadline(request_id: str, remaining_s: float) -> str:
+    """request_id with its `dl=` segment set to the remaining budget the
+    sender grants the rest of the pipeline (the JAX wire's propagated
+    deadline; opaque to peers that do not read it)."""
+    kept = ":".join(seg for seg in (request_id or "").split(":")
+                    if not seg.startswith(_DL_PREFIX))
+    return f"{kept}:{_DL_PREFIX}{max(float(remaining_s), 0.001):.3f}"
+
+
+def extract_deadline(request_id: str) -> Optional[float]:
+    """The inbound `dl=` budget in seconds, or None when there is none."""
+    for seg in (request_id or "").split(":"):
+        if seg.startswith(_DL_PREFIX):
+            try:
+                return float(seg[len(_DL_PREFIX):])
+            except ValueError:
+                return None
+    return None
+
+
+def full_jitter_delay(backoff: float, attempt: int) -> float:
+    """Backoff uniform in (0, backoff * 2^attempt], with a small floor."""
+    return max(backoff * (2 ** attempt) * random.random(), backoff * 0.05)
 
 
 def _tensor_msg(arr) -> wc.Tensor:
@@ -72,3 +133,246 @@ def _handlers(servicer):
             response_serializer=wc.serialize_response,
         )
     return grpc.method_handlers_generic_handler(SERVICE_NAME, handlers)
+
+
+class StageServer:
+    """Serves the stage of `node_id` (its part of the topology config)
+    from `engine` (a PipelineEngine, usually role="stage")."""
+
+    def __init__(self, engine, node_id: str, transport: Optional[str] = None):
+        transport = engine.transport if transport is None else transport
+        if transport not in ("auto", "grpc"):
+            raise NotImplementedError(
+                f"transport {transport!r}: the shm and device transports are "
+                "not ported to dnn_tpu_torch yet (ROADMAP Queue 1 item 7's "
+                "remainder); use grpc or auto")
+        self.engine = engine
+        self.config = engine.config
+        self.node = self.config.node_by_id(node_id)
+        self.part_index = self.node.part_index
+        self.is_last = self.part_index == self.config.num_parts - 1
+        nxt = self.config.next_node(self.node)
+        self.next_address = nxt.address if nxt else None
+        self._next_channel: Optional[grpc.aio.Channel] = None
+
+    def _compute_stage(self, x):
+        """This stage on its device, then the result on the host (runs
+        on a worker thread)."""
+        y = self.engine.run_stage(self.part_index, x)
+        sync(y.device)
+        return y.cpu()
+
+    async def SendTensor(self, request, context):  # noqa: N802 — RPC name
+        nid = self.node.id
+        t_handler = time.perf_counter()
+        inbound_dl = extract_deadline(request.request_id)
+        result_msg = None
+        try:
+            try:
+                x = wc.tensor_torch(request.tensor)
+            except wc.PayloadCorruptError as e:
+                # fail the RPC itself so the sender's retry sees DATA_LOSS
+                log.warning("corrupt payload on %s: %s", nid, e)
+                await context.abort(grpc.StatusCode.DATA_LOSS, str(e))
+            y = await asyncio.to_thread(self._compute_stage, x)
+            if self.is_last:
+                pred = int(torch.argmax(y.float().flatten()))
+                log.info("final stage done (node %s), prediction=%d", nid,
+                         pred)
+                status = f"[{nid}] Processing complete. Prediction: {pred}"
+                result_msg = wc.make_tensor(y)
+            else:
+                budget = None
+                if inbound_dl is not None:
+                    budget = inbound_dl - (time.perf_counter() - t_handler)
+                resp = await self._forward(request.request_id, y,
+                                           inbound_budget=budget)
+                status = f"[{nid}] Forwarded. Next node status: {resp.status}"
+                result_msg = resp.result_tensor
+        except grpc.aio.AbortError:
+            raise
+        except grpc.aio.AioRpcError as e:
+            log.error("forward from %s to %s failed: %s", nid,
+                      self.next_address, e.details())
+            status = f"[{nid}] Error forwarding: {e.details()}"
+        except Exception as e:  # noqa: BLE001 — relayed as a status string
+            log.exception("error processing tensor on %s", nid)
+            status = f"[{nid}] Error: {e}"
+        return wc.TensorResponse(status=status, result_tensor=result_msg)
+
+    async def HealthCheck(self, request, context):  # noqa: N802
+        return pb.HealthCheckResponse(is_healthy=True)
+
+    async def SendMessage(self, request, context):  # noqa: N802
+        if request.sender_id.startswith(HELLO_SENDER):
+            return pb.MessageReply(confirmation_text=decline_hello(
+                "stage server serves grpc only"))
+        log.info("message for %s from %s", self.node.id, request.sender_id)
+        return pb.MessageReply(confirmation_text=(
+            f"[{self.node.id}] got msg '{request.message_text}'"))
+
+    async def _forward(self, request_id: str, y, *, retries: int = 2,
+                       backoff: float = 0.2,
+                       inbound_budget: Optional[float] = None):
+        """Send y downstream. One budget covers every attempt and backoff
+        sleep: PER_STAGE_BUDGET_S per remaining stage, capped by what the
+        sender still had; each attempt's deadline (and its dl= tag) is
+        what is left of it."""
+        timeout = PER_STAGE_BUDGET_S * max(
+            self.config.num_parts - self.part_index - 1, 1)
+        if inbound_budget is not None:
+            timeout = max(min(timeout, inbound_budget), 0.001)
+        if self._next_channel is None:
+            self._next_channel = grpc.aio.insecure_channel(
+                self.next_address, options=GRPC_MSG_OPTIONS)
+        call = self._next_channel.unary_unary(
+            f"/{SERVICE_NAME}/SendTensor",
+            request_serializer=wc.serialize_request,
+            response_deserializer=wc.parse_response)
+        request = wc.TensorRequest(request_id=request_id,
+                                   tensor=wc.make_tensor(y))
+        deadline = time.monotonic() + timeout
+        attempt = 0
+        while True:
+            remaining = deadline - time.monotonic()
+            request.request_id = tag_deadline(request_id, remaining)
+            try:
+                return await call(request, timeout=max(remaining, 0.001))
+            except grpc.RpcError as e:
+                worst = backoff * (2 ** attempt)
+                if (e.code() not in RETRYABLE_CODES or attempt >= retries
+                        or deadline - time.monotonic() <= worst):
+                    raise
+                delay = full_jitter_delay(backoff, attempt)
+                log.warning("forward %s -> %s failed (%s), retry %d/%d in "
+                            "%.2fs", self.node.id, self.next_address,
+                            e.code(), attempt + 1, retries, delay)
+                await asyncio.sleep(delay)
+                attempt += 1
+
+    async def close(self):
+        if self._next_channel is not None:
+            await self._next_channel.close()
+            self._next_channel = None
+
+
+async def _start_stage(engine, node_id, port, transport):
+    servicer = StageServer(engine, node_id, transport=transport)
+    bind_port = port if port is not None else servicer.node.port
+    if bind_port is None:
+        raise ValueError(f"node '{node_id}' has no address in the config; "
+                         "serving a stage needs nodes[].address IP:Port")
+    server = grpc.aio.server(options=GRPC_MSG_OPTIONS)
+    server.add_generic_rpc_handlers((_handlers(servicer),))
+    if server.add_insecure_port(f"[::]:{bind_port}") == 0:
+        raise RuntimeError(f"failed to bind gRPC server to [::]:{bind_port}")
+    await server.start()
+    log.info("gRPC stage server %s listening on [::]:%d (part %d)", node_id,
+             bind_port, servicer.part_index)
+    return servicer, server
+
+
+async def serve_until_terminated(server) -> int:
+    """Block until `server` terminates or this process gets SIGTERM, then
+    stop it (1 s grace). Returns 0, the exit code of a clean stop."""
+    loop = asyncio.get_running_loop()
+    stopping = asyncio.Event()
+    try:
+        loop.add_signal_handler(signal.SIGTERM, stopping.set)
+    except (NotImplementedError, RuntimeError, ValueError):
+        pass  # not the main thread
+    term = asyncio.ensure_future(server.wait_for_termination())
+    stop = asyncio.ensure_future(stopping.wait())
+    try:
+        await asyncio.wait({term, stop}, return_when=asyncio.FIRST_COMPLETED)
+        return 0
+    finally:
+        await server.stop(grace=1)
+        for t in (term, stop):
+            if not t.done():
+                t.cancel()
+            try:
+                await t
+            except asyncio.CancelledError:
+                pass
+
+
+async def serve_stage(engine, node_id: str, *, port: Optional[int] = None,
+                      transport: Optional[str] = None) -> int:
+    """Serve this node's stage until termination; SIGTERM stops it
+    cleanly (rc 0)."""
+    servicer, server = await _start_stage(engine, node_id, port, transport)
+    try:
+        return await serve_until_terminated(server)
+    finally:
+        await servicer.close()
+
+
+def start_stage_servers_in_background(stages, *,
+                                      transport: Optional[str] = None):
+    """Serve several stages, `stages` = [(engine, node_id, port or
+    None)], on one event loop on a daemon thread (one loop for all: gRPC's
+    asyncio poller floods its wake-up socket when many loops run in one
+    process). Returns (thread, stop); `stop.servicers` lists the
+    StageServers."""
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+    state: dict = {"started": []}
+
+    async def _run():
+        try:
+            for engine, node_id, port in stages:
+                state["started"].append(await _start_stage(
+                    engine, node_id, port, transport))
+            state["done"] = asyncio.Event()
+        except BaseException as e:
+            state["error"] = e
+            raise
+        finally:
+            started.set()
+        await state["done"].wait()
+
+    def _thread_main():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(_run())
+        except BaseException:  # noqa: BLE001 — recorded in state["error"]
+            if "error" not in state:
+                raise
+        finally:
+            loop.close()
+
+    names = ",".join(node_id for _, node_id, _ in stages)
+    t = threading.Thread(target=_thread_main, daemon=True,
+                         name=f"stage-{names}")
+    t.start()
+    if not started.wait(timeout=60):
+        raise RuntimeError(f"stage servers {names} failed to start")
+    if "error" in state:
+        t.join(timeout=5)
+        raise RuntimeError(f"stage servers {names} failed to start: "
+                           f"{state['error']}") from state["error"]
+
+    def stop():
+        async def _stop():
+            for servicer, server in state["started"]:
+                await servicer.close()
+                await server.stop(grace=0.2)
+            state["done"].set()
+
+        asyncio.run_coroutine_threadsafe(_stop(), loop).result(timeout=30)
+        t.join(timeout=10)
+
+    stop.servicers = [servicer for servicer, _ in state["started"]]
+    return t, stop
+
+
+def start_stage_server_in_background(engine, node_id: str, *,
+                                     port: Optional[int] = None,
+                                     transport: Optional[str] = None):
+    """One stage server on a daemon thread with its own event loop;
+    returns (thread, stop). `stop.servicer` is the StageServer."""
+    t, stop = start_stage_servers_in_background([(engine, node_id, port)],
+                                                transport=transport)
+    stop.servicer = stop.servicers[0]
+    return t, stop

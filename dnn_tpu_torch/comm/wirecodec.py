@@ -5,7 +5,9 @@ dnn_tpu/comm/wirecodec.py:34-300).
 assembled and parsed at the wire-format level, byte-compatible with
 protobuf's own encoding; the payload rides as a memoryview of the
 array's buffer on the way out and as a read-only numpy view over the
-message bytes on the way in.
+message bytes on the way in (`tensor_torch`: a torch tensor of its
+own). Torch tensors encode directly, bfloat16 included: it rides as
+raw 16-bit words under the wire name "bfloat16", as the JAX codec's.
 
 crc32c (the optional field 4): the port WRITES none — absent means
 "not checksummed" on this wire — and VERIFIES one when a peer declares
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 BytesLike = Union[bytes, memoryview]
 
@@ -240,34 +243,54 @@ def parse_response(data: bytes) -> TensorResponse:
     return resp
 
 
-_DTYPES = {"float32", "float64", "float16", "int8", "int16", "int32",
-           "int64", "uint8", "bool"}
+# wire dtype name -> numpy storage. bfloat16 rides as its raw 16-bit
+# words, byte-identical to the JAX codec's ml_dtypes payload (numpy has
+# no bfloat16; tensor_torch reads the words back as torch.bfloat16).
+_DTYPES = {name: np.dtype(name) for name in (
+    "float32", "float64", "float16", "int8", "int16", "int32", "int64",
+    "uint8", "bool")}
+_DTYPES["bfloat16"] = np.dtype(np.uint16)
+
+
+def _wire_array(arr) -> Tuple[np.ndarray, str]:
+    """array or tensor -> (C-contiguous little-endian numpy storage, wire
+    dtype name)."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        a = t.numpy()
+    else:
+        a = np.asarray(arr)
+    if a.dtype.byteorder == ">":
+        a = a.astype(a.dtype.newbyteorder("<"))
+    return a, a.dtype.name
 
 
 def make_tensor(arr) -> Tensor:
-    """array -> Tensor with a memoryview payload (copied only when the
-    array is not C-contiguous little-endian). No crc32c is written."""
-    a = np.asarray(arr)
-    if a.dtype.byteorder == ">":
-        a = a.astype(a.dtype.newbyteorder("<"))
+    """numpy array or torch tensor (any device; bf16 included) -> Tensor
+    with a memoryview payload (copied only when the array is not
+    C-contiguous little-endian host memory). No crc32c is written."""
+    a, name = _wire_array(arr)
     shape = tuple(a.shape)
     a = np.ascontiguousarray(a)
-    if a.dtype.name not in _DTYPES:
+    if name not in _DTYPES:
         raise ValueError(f"unsupported wire dtype {a.dtype}")
     view = memoryview(a.reshape(-1).view(np.uint8))
-    return Tensor(tensor_data=view, shape=shape, dtype=a.dtype.name)
+    return Tensor(tensor_data=view, shape=shape, dtype=name)
 
 
 def tensor_view(msg: Tensor) -> np.ndarray:
-    """Tensor -> read-only numpy view over the payload bytes. Verifies a
-    declared crc32c (PayloadCorruptError) and the payload length."""
+    """Tensor -> read-only numpy view over the payload bytes (bfloat16:
+    its uint16 words). Verifies a declared crc32c (PayloadCorruptError)
+    and the payload length."""
     if msg.crc32c is not None and crc32c(msg.tensor_data) != msg.crc32c:
         raise PayloadCorruptError(
             f"tensor payload corrupt: crc32c {crc32c(msg.tensor_data):#010x}"
             f" != declared {msg.crc32c:#010x}")
     if msg.dtype not in _DTYPES:
         raise ValueError(f"unsupported wire dtype {msg.dtype!r}")
-    dt = np.dtype(msg.dtype)
+    dt = _DTYPES[msg.dtype].newbyteorder("<")
     shape = tuple(int(s) for s in msg.shape)
     expect = int(np.prod(shape)) * dt.itemsize if shape else dt.itemsize
     if len(msg.tensor_data) != expect:
@@ -275,3 +298,11 @@ def tensor_view(msg: Tensor) -> np.ndarray:
             f"tensor payload is {len(msg.tensor_data)} bytes but shape "
             f"{shape} dtype {msg.dtype} needs {expect}")
     return np.frombuffer(msg.tensor_data, dtype=dt).reshape(shape)
+
+
+def tensor_torch(msg: Tensor) -> torch.Tensor:
+    """Tensor -> a CPU torch tensor of its own (a copy of the payload);
+    "bfloat16" decodes to torch.bfloat16. Checks as tensor_view."""
+    a = np.array(tensor_view(msg), dtype=_DTYPES[msg.dtype])
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if msg.dtype == "bfloat16" else t

@@ -12,6 +12,10 @@ blocks -> head) is the training path's model; with `use_flash=True` its
 attention runs the flash kernels (ops/cuda/flash_attention.py).
 Training sets requires_grad on the stacked leaves; the layers' gradients
 reach each (L, ...) leaf through `unstack`.
+
+`make_partition` splits the model into pipeline stages over the
+per-layer tree (first stage: embed, last: head), and every preset is
+registered with the model registry.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dnn_tpu_torch.ops.attention import causal_self_attention
 from dnn_tpu_torch.ops.nn import embedding, gelu, layer_norm, linear
+from dnn_tpu_torch.registry import ModelSpec, StageSpec, register_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +46,9 @@ PRESETS = {
     "gpt2-medium": GPTConfig(n_layer=24, n_head=16, n_embd=1024),
     "gpt2-large": GPTConfig(n_layer=36, n_head=20, n_embd=1280),
     "gpt2-xl": GPTConfig(n_layer=48, n_head=25, n_embd=1600),
+    # long-context variants of the JAX package's presets
+    "gpt2-4k": GPTConfig(block_size=4096, n_layer=12, n_head=12, n_embd=768),
+    "gpt2-8k": GPTConfig(block_size=8192, n_layer=12, n_head=12, n_embd=768),
     # tiny config for tests
     "gpt2-test": GPTConfig(block_size=64, vocab_size=256, n_layer=4,
                            n_head=4, n_embd=64),
@@ -251,3 +259,87 @@ def make_apply_stacked(cfg: GPTConfig, *, use_flash=False, compute_dtype=None,
 
     return apply
 
+
+
+def layer_ranges(n_layer: int, num_parts: int):
+    """Split n_layer blocks into num_parts contiguous [lo, hi) ranges,
+    earlier stages taking the remainder (JAX's layer_ranges :494)."""
+    if not 1 <= num_parts <= n_layer:
+        raise ValueError(f"num_parts must be in [1, {n_layer}], got {num_parts}")
+    base, rem = divmod(n_layer, num_parts)
+    ranges, lo = [], 0
+    for p in range(num_parts):
+        hi = lo + base + (1 if p < rem else 0)
+        ranges.append((lo, hi))
+        lo = hi
+    return ranges
+
+
+def make_partition(cfg: GPTConfig, *, use_flash=False, compute_dtype=None):
+    """partition(num_parts) -> StageSpecs over the per-layer tree (JAX's
+    make_partition :509). The first stage takes int ids and embeds them,
+    cast to `compute_dtype`; each stage runs its blocks; the last runs
+    `head` on x.float() (f32 logits)."""
+
+    def partition(num_parts):
+        stages = []
+        for p, (lo, hi) in enumerate(layer_ranges(cfg.n_layer, num_parts)):
+            first, last = p == 0, p == num_parts - 1
+            keys = tuple(f"h_{i}" for i in range(lo, hi))
+            if first:
+                keys = ("wte", "wpe") + keys
+            if last:
+                keys = keys + ("ln_f", "lm_head")
+
+            def stage_fn(params, x, _lo=lo, _hi=hi, _first=first,
+                         _last=last):
+                if _first:
+                    x = embed(params, x, cfg=cfg)
+                if compute_dtype is not None and x.is_floating_point():
+                    x = x.to(compute_dtype)
+                x = _run_blocks([params[f"h_{i}"] for i in range(_lo, _hi)],
+                                x, cfg=cfg, use_flash=use_flash,
+                                compute_dtype=compute_dtype, remat=False)
+                if _last:
+                    x = head(params, x.float(), cfg=cfg,
+                             compute_dtype=compute_dtype)
+                return x
+
+            stages.append(StageSpec(
+                name=f"gpt_blocks[{lo}:{hi}]" + ("+embed" if first else "")
+                + ("+head" if last else ""),
+                apply=stage_fn, param_keys=keys))
+        return stages
+
+    return partition
+
+
+def _register(name: str, cfg: GPTConfig):
+    def convert(sd, _cfg=cfg):
+        from dnn_tpu_torch.io.checkpoint import gpt_params_from_state_dict
+
+        return gpt_params_from_state_dict(sd, n_layer=_cfg.n_layer)
+
+    def example_input(batch_size=1, seq_len=None, seed=0, _cfg=cfg):
+        t = min(seq_len or _cfg.block_size, _cfg.block_size)
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, _cfg.vocab_size, (batch_size, t)).astype(
+            np.int32)
+
+    register_model(ModelSpec(
+        name=name,
+        init=lambda seed=0, _cfg=cfg: init(seed, _cfg),
+        apply=make_apply(cfg),
+        partition=make_partition(cfg),
+        example_input=example_input,
+        supported_parts=tuple(range(1, cfg.n_layer + 1)),
+        convert_state_dict=convert,
+        config=cfg,
+        extras={"make_partition": lambda compute_dtype=None, use_flash=False,
+                _cfg=cfg: make_partition(_cfg, compute_dtype=compute_dtype,
+                                         use_flash=use_flash)},
+    ))
+
+
+for _name, _cfg in PRESETS.items():
+    _register(_name, _cfg)

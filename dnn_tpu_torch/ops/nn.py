@@ -5,12 +5,59 @@ unchanged (dnn_tpu_torch/convert.py):
   linear:     {"kernel": (in_features, out_features), "bias": (out,)}
   layer_norm: {"scale": (dim,), "bias": (dim,)}
   embedding:  {"embedding": (vocab, dim)}
+  conv2d:     {"kernel": (kh, kw, in, out) HWIO, "bias": (out,)}, NHWC
+              activations
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def conv2d(params, x, *, stride=(1, 1), padding="SAME", compute_dtype=None):
+    """2-D convolution over NHWC activations with an HWIO kernel (JAX's
+    ops/nn.conv2d :27), returning NHWC. "SAME" pads (k - 1) // 2 on each
+    side (k3 s1: pad 1), "VALID" none. Inside it is F.conv2d on
+    NCHW/OIHW permutes: the JAX package leaves convolution to XLA,
+    outside any kernel, as `linear` leaves its product to a matmul."""
+    kernel = params["kernel"]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        kernel = kernel.to(compute_dtype)
+    kh, kw = kernel.shape[:2]
+    if padding == "SAME":
+        if tuple(stride) != (1, 1) or kh % 2 == 0 or kw % 2 == 0:
+            raise NotImplementedError(
+                "conv2d SAME padding is ported for odd kernels at stride 1")
+        pad = ((kh - 1) // 2, (kw - 1) // 2)
+    elif padding == "VALID":
+        pad = (0, 0)
+    else:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                   stride=tuple(stride), padding=pad)
+    out = out.permute(0, 2, 3, 1)
+    bias = params.get("bias")
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def max_pool2d(x, *, window=(2, 2), stride=(2, 2)):
+    """Max pooling over the spatial dims of an NHWC tensor, VALID (JAX's
+    ops/nn.max_pool2d :50)."""
+    out = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=tuple(window),
+                       stride=tuple(stride))
+    return out.permute(0, 2, 3, 1)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def softmax(x, axis=-1):
+    return torch.softmax(x, dim=axis)
 
 
 def linear(params, x, *, compute_dtype=None, accum_dtype=None):

@@ -27,7 +27,6 @@ import asyncio
 import concurrent.futures
 import logging
 import queue
-import signal
 import threading
 from typing import NamedTuple, Optional
 
@@ -39,6 +38,8 @@ from dnn_tpu_torch.comm import wirecodec as wc
 from dnn_tpu_torch.comm.service import (
     GRPC_MSG_OPTIONS,
     HELLO_SENDER,
+    extract_deadline,
+    serve_until_terminated,
     _handlers,
     _tensor_arr,
     _tensor_msg,
@@ -103,17 +104,6 @@ def parse_gen_options(request_id: str, default_max_new: int):
         except ValueError:
             pass
     return max_new, seed, opts
-
-
-def _deadline(request_id: str) -> Optional[float]:
-    """The caller's remaining budget from a `dl=` segment, if any."""
-    for seg in (request_id or "").split(":"):
-        if seg.startswith("dl="):
-            try:
-                return float(seg[3:])
-            except ValueError:
-                return None
-    return None
 
 
 def _fail_future(fut, exc):
@@ -326,7 +316,7 @@ class LMServer:
                 "to dnn_tpu_torch yet (ROADMAP PyTorch/CUDA port item 4)")
         max_new, seed, opts = parse_gen_options(request_id,
                                                 self.default_max_new)
-        dl = _deadline(request_id)
+        dl = extract_deadline(request_id)
         timeout = (self.request_timeout if dl is None
                    else max(min(self.request_timeout, dl), 0.001))
         return max_new, seed, opts, timeout
@@ -438,26 +428,9 @@ async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
     servicer, server = await _start(cfg, prepared, port, server_kwargs)
     log.info("gRPC LM server listening on [::]:%d (%d slots, %s)", port,
              servicer.batcher.slots, servicer.batcher.device)
-    loop = asyncio.get_running_loop()
-    stopping = asyncio.Event()
     try:
-        loop.add_signal_handler(signal.SIGTERM, stopping.set)
-    except (NotImplementedError, RuntimeError, ValueError):
-        pass  # not the main thread
-    term = asyncio.ensure_future(server.wait_for_termination())
-    stop = asyncio.ensure_future(stopping.wait())
-    try:
-        await asyncio.wait({term, stop}, return_when=asyncio.FIRST_COMPLETED)
-        return 0
+        return await serve_until_terminated(server)
     finally:
-        await server.stop(grace=1)
-        for t in (term, stop):
-            if not t.done():
-                t.cancel()
-            try:
-                await t
-            except asyncio.CancelledError:
-                pass
         servicer.close()
 
 

@@ -217,3 +217,33 @@ def test_flash_report_prints_the_bound_and_the_units(capsys, kernel, f32,
     assert f"bound_ms {b['bound_ms']:.5f} (bytes;" in line
     assert units in line and "library_ms none" in line
     assert f"kernel / bound {0.05 / b['bound_ms']:.1f}" in line
+
+
+def test_pipe_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke's [pipe] phase on the CPU at a small size: P-a as on the
+    card (two `node --serve` processes), P-b on an 8-layer gpt2-test-wide
+    model (8 stages need 8 layers), 16 tokens, P-c on gpt2-test, 6 tokens;
+    every check of the phase applies, except the launch counts (a CPU call
+    launches no kernel)."""
+    import torch
+
+    from dnn_tpu_torch import registry
+
+    cfg8 = tgpt.GPTConfig(block_size=64, vocab_size=256, n_layer=8,
+                          n_head=4, n_embd=64)
+    monkeypatch.setitem(tgpt.PRESETS, "gpt2-test8", cfg8)
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    tgpt._register("gpt2-test8", cfg8)
+    dev = torch.device("cpu")
+    prompt = _prompts()[2]
+    chip_smoke.pipe_cifar(dev, "cpu")
+    chip_smoke.pipe_gpt_stages(dev, "cpu", model="gpt2-test8", n_tokens=16)
+    counts = chip_smoke.pipe_generate(dev, "cpu", prompt, model="gpt2-test",
+                                      n_new=6)
+    out = capsys.readouterr().out
+    for tag in ("P-a node1: node node1: part 0/1, runtime stage",
+                "P-a node2: node node2: part 1/1, runtime stage",
+                "equal the relay engine's bit for bit",
+                "P-c 6 tokens after a 37-token prompt"):
+        assert tag in out, out
+    assert set(counts) >= set(chip_smoke.CACHE_KERNELS)
