@@ -15,6 +15,11 @@ the flash-attention kernels.
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi); TF32 off; kernel build
+  1b. [wire] the native CRC-32C on the host, on the crc32 instruction
+     and on slice-by-8: each equal to the per-byte version on
+     0/1/7/8/9/4095/65537-byte buffers with two seeds, each one's rate
+     on 64 MiB, make_tensor and tensor_view of P-b's 51.5 MB f32
+     logits timed, a flipped byte refused
   2. K5 cached_attention at the prefill shape (B=1 H=12 T=64 S=1024 D=64),
      bases {0, 64, 448, 960}, f32, bf16 and int8 caches; its split-KV
      plan (splits, kernel launches a call), and at base 960 its time
@@ -62,10 +67,24 @@ Phases (any failure exits non-zero and prints no result):
           cast to bf16 as the port's FloatKV does) (K5, K7 bf16)
        solo make_generate on the 300-token prompt, f32, bf16 and int8
           caches, against the matching reference (K5, K6)
+  5b. [text] the daemon at run A's configuration with a tokenizer that
+     encodes as ByteTokenizer does and decodes each id to a character of
+     its own: on a 282-byte UTF-8 prompt, the ids behind generate_text's
+     reply (SendMessage), GenerateStream's ids and SendTensor's tokens
+     each equal the no-cache greedy loop; the reply equals the decode of
+     SendTensor's tokens; generate_text_stream's chunks join to the
+     reply; "!stats"; launches counted (K5, K7)
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission on each pool A-D (wall, device busy, top
      kernels, K6/K7's share of the step's device busy, K5's share of the
      admission's)
+  6a. [pipe] the staged pipeline: P-a cifar_cnn as two `node --serve`
+     processes; P-b gpt2-medium (configs/gpt2_8stage.json, bf16) as 8
+     in-process stage servers, one B=1 T=256 request whose logits equal
+     the relay engine's bit for bit; P-d the same servers, 4 microbatches
+     over the streamed Relay RPC (send_tensors), each equal to the relay
+     engine's run bit for bit, beside 4 sequential unary requests; P-c
+     engine.generate gpt2 in 4 parts against the greedy loop (K5, K6)
   6b. the training main path (gpt2 at full width, seed-0 weights, B=8
      T=512, make_apply_stacked(use_flash=True), next_token_loss, the
      port's adamw(1e-4), batches from a seeded token file through
@@ -233,6 +252,81 @@ def phase_build():
                   or "Performance Loss" in line):
                 print(f"[build] {name}: {kernel}: {line.strip()}",
                       flush=True)
+
+
+WIRE_LENGTHS = (0, 1, 7, 8, 9, 4095, 65537)
+WIRE_RATE_BYTES = 64 << 20
+WIRE_LOGITS = (1, 256, 50257)  # P-b's f32 logits, 51.5 MB
+
+
+def phase_wire(card):
+    """[wire] the native CRC-32C on the host: its route (the SSE4.2
+    crc32 instruction or slice-by-8) and the slice-by-8 route both equal
+    to the per-byte version on buffers of WIRE_LENGTHS bytes, seed 0 and
+    a nonzero seed; both routes' rates on a 64 MiB buffer; make_tensor
+    and tensor_view of P-b's checksummed f32 logits timed; a flipped
+    payload byte refused."""
+    from dnn_tpu_torch import native
+    from dnn_tpu_torch.comm import wirecodec as wc
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    for n in WIRE_LENGTHS:
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        for seed in (0, 0x1234ABCD):
+            want = native.crc32c_plain(data, seed)
+            for fn in (native.crc32c, native.crc32c_sliced):
+                got = fn(data, seed)
+                if got != want:
+                    fail(f"[wire] {fn.__name__} of {n} bytes (seed "
+                         f"{seed:#x}): {got:#010x} != per-byte {want:#010x}")
+    big = rng.integers(0, 256, WIRE_RATE_BYTES, dtype=np.uint8)
+    best_s = {}
+    for fn in (native.crc32c, native.crc32c_sliced):
+        fn(big)
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn(big)
+            times.append(time.perf_counter() - t1)
+        best_s[fn.__name__] = min(times)
+    rate = WIRE_RATE_BYTES / best_s["crc32c"] / 1e9
+    rate_sliced = WIRE_RATE_BYTES / best_s["crc32c_sliced"] / 1e9
+    route = "the SSE4.2 crc32 instruction" if native.hardware() else \
+        "slice-by-8"
+    logits = rng.standard_normal(WIRE_LOGITS, dtype=np.float32)
+    t1 = time.perf_counter()
+    raw = wc.serialize_response(wc.TensorResponse(
+        status="ok", result_tensor=wc.make_tensor(logits)))
+    encode_s = time.perf_counter() - t1
+    msg = wc.parse_response(raw).result_tensor
+    t1 = time.perf_counter()
+    view = wc.tensor_view(msg)
+    verify_s = time.perf_counter() - t1
+    if not np.array_equal(view, logits):
+        fail("[wire] the logits did not survive the wire")
+    bad = bytearray(raw)
+    bad[len(bad) // 2] ^= 0x01
+    try:
+        wc.tensor_view(wc.parse_response(bytes(bad)).result_tensor)
+        fail("[wire] a flipped payload byte was not refused")
+    except wc.PayloadCorruptError:
+        pass
+    print(f"[wire] native crc32c on {route} (g++ build/load "
+          f"{build_s:.2f} s) and its slice-by-8 route equal the per-byte "
+          f"version on {len(WIRE_LENGTHS)} lengths x 2 seeds; on "
+          f"{WIRE_RATE_BYTES >> 20} MiB (best of 5) crc32c {rate:.2f} GB/s "
+          f"({best_s['crc32c'] * 1e3:.2f} ms), slice-by-8 "
+          f"{rate_sliced:.2f} GB/s ({best_s['crc32c_sliced'] * 1e3:.2f} ms)"
+          f"; the {logits.nbytes / 1e6:.1f} MB "
+          f"logits: make_tensor + serialize {encode_s * 1e3:.2f} ms, "
+          f"tensor_view (crc verify) {verify_s * 1e3:.2f} ms; a flipped "
+          f"byte raises PayloadCorruptError; on the host of {card}",
+          flush=True)
+    return {"crc32c_gb_s": rate, "crc32c_sliced_gb_s": rate_sliced,
+            "tensor_view_ms": verify_s * 1e3}
 
 
 KV_CASES = (("f32", F32_TOL), ("bf16", BF16_TOL), ("int8", F32_TOL))
@@ -1180,8 +1274,118 @@ def phase_main_path(dev, card: str):
     return launches, prepared, cfg, prompts
 
 
+TEXT_PROMPT = ("Grüße aus Zürich — naïve café, déjà vu; ∑ λ ≈ 3.14, "
+               "数据 流水线, 🙂🚀. ") * 3  # 282 UTF-8 bytes, multi-byte
+TEXT_NEW = 16
+
+
+class IdMarkedTokenizer:
+    """[text]'s tokenizer: ByteTokenizer's encode, and a decode that gives
+    every id a character of its own (U+F0000 + id, in plane 15's private
+    use area), so the ids behind a text reply read back exactly.
+    ByteTokenizer's decode maps every id of 256 or more to U+FFFD, and a
+    random-weight model generates almost only such ids, so a reply in
+    ByteTokenizer's text would pin down none of them."""
+
+    BASE = 0xF0000
+
+    def __init__(self, vocab_size):
+        from dnn_tpu_torch.io.tokenizer import ByteTokenizer
+
+        if vocab_size > 0xFFFE:  # U+FFFFE and U+FFFFF are noncharacters
+            raise ValueError(f"vocab_size {vocab_size} exceeds plane 15")
+        self.vocab_size = vocab_size
+        self.byte_tok = ByteTokenizer(vocab_size)
+
+    def encode(self, text):
+        return self.byte_tok.encode(text)
+
+    def decode(self, ids):
+        return "".join(chr(self.BASE + int(i)) for i in ids)
+
+    def ids(self, text, label):
+        """The ids `text` decodes from; fails on any other character."""
+        out = [ord(c) - self.BASE for c in text]
+        if not all(0 <= i < self.vocab_size for i in out):
+            fail(f"{label}: {text!r} holds characters no id decodes to")
+        return out
+
+
+def phase_text(cfg, prepared, dev, card):
+    """[text] the daemon at serving run A's configuration (paged f32
+    pool, 4 slots, max_len 1024, prompt_pad 64) with IdMarkedTokenizer
+    (ByteTokenizer's encode) over the model's vocab: the ids behind
+    generate_text's reply (SendMessage), the ids GenerateStream yields and
+    the tokens SendTensor returns for the prompt's bytes each equal
+    reference_greedy (near-tie rule); the reply equals the decode of
+    SendTensor's tokens; generate_text_stream's chunks join to the reply;
+    "!stats" answers with the pool's stats; K5 and K7 launched in the
+    run. Returns the run's launch counts."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    tok = IdMarkedTokenizer(cfg.vocab_size)
+    ids = tok.encode(TEXT_PROMPT)
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, kv="paged", tokenizer=tok)
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=60):
+            fail("[text] LM daemon never became healthy")
+        client.generate_text(TEXT_PROMPT[:8], max_new_tokens=2,
+                             timeout=300)  # warm-up
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        reply = client.generate_text(TEXT_PROMPT, max_new_tokens=TEXT_NEW,
+                                     timeout=300)
+        wall = time.perf_counter() - t0
+        tokens = client.generate(ids, max_new_tokens=TEXT_NEW,
+                                 timeout=300).tolist()
+        streamed = [int(t) for t in client.generate_stream(
+            ids, max_new_tokens=TEXT_NEW, timeout=300)]
+        chunks = list(client.generate_text_stream(
+            TEXT_PROMPT, tok, max_new_tokens=TEXT_NEW, timeout=300))
+        stats = client.send_message("chip_smoke", "!stats")
+        counts = read_counts()
+        client.close()
+    finally:
+        stop()
+    if reply != tok.decode(tokens):
+        fail(f"[text] generate_text's reply decodes from "
+             f"{tok.ids(reply, '[text] reply')}, SendTensor returned "
+             f"{tokens}")
+    if "".join(chunks) != reply:
+        fail(f"[text] generate_text_stream's {len(chunks)} chunks decode "
+             f"from {tok.ids(''.join(chunks), '[text] stream')}, not the "
+             f"reply's {tok.ids(reply, '[text] reply')}")
+    if not stats.startswith("[lm] pool: "):
+        fail(f"[text] '!stats' answered {stats!r}")
+    if dev.type == "cuda":
+        require("[text]", counts, [("cached_attention", "f32"),
+                                   ("paged_decode_attention", "f32")])
+    want = reference_greedy(prepared, cfg, ids, TEXT_NEW, dev)
+    for label, got in (("SendMessage", tok.ids(reply, "[text] reply")),
+                       ("GenerateStream", streamed), ("SendTensor", tokens)):
+        compare_tokens(f"[text] {len(ids)}-byte prompt, {label}", got, *want)
+    print(f"[text] IdMarkedTokenizer({cfg.vocab_size}): a "
+          f"{len(TEXT_PROMPT)}-character, {len(ids)}-byte prompt -> "
+          f"{TEXT_NEW} tokens; the reply's ids {tok.ids(reply, '[text]')} "
+          f"equal SendTensor's tokens, GenerateStream's equal them too, "
+          f"and the text stream's {len(chunks)} chunks join to the reply "
+          f"(ByteTokenizer's text: "
+          f"{tok.byte_tok.decode(tok.ids(reply, '[text]'))!r}); '!stats': "
+          f"{stats!r}; generate_text wall {wall * 1e3:.1f} ms; on {card}",
+          flush=True)
+    return counts
+
+
 PIPE_B_TOKENS = 256  # P-b: one request of B=1 T=256 int32 ids
 PIPE_C_NEW = 32      # P-c: greedy tokens after the 300-token prompt
+PIPE_D_ITEMS = 4     # P-d: microbatches of B=1 T=PIPE_B_TOKENS over Relay
 
 
 def pipe_config(name: str, **override) -> dict:
@@ -1314,7 +1518,8 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
     ids B=1 T=n_tokens: the f32 logits must equal the in-process relay
     engine's bit for bit (same card, same operations), and lie within
     5e-2 x max|logit| of an f32 relay run, with the same argmax wherever
-    the f32 top-2 gap exceeds 0.1."""
+    the f32 top-2 gap exceeds 0.1. Then P-d on the same servers
+    (pipe_relay)."""
     from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
     from dnn_tpu_torch.comm.service import start_stage_servers_in_background
     from dnn_tpu_torch.config import TopologyConfig
@@ -1335,6 +1540,10 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
         0, spec.config.vocab_size, (1, n_tokens)).astype(np.int32)
     relay = PipelineEngine(config, params=params)
     want = relay.run(ids).cpu()
+    items = [np.random.default_rng(10 + i).integers(
+        0, spec.config.vocab_size, (1, n_tokens)).astype(np.int32)
+        for i in range(PIPE_D_ITEMS)]
+    wants = [relay.run(x).cpu() for x in items]
     _, stage_s = relay.stage_times(ids)
     last_in = torch.as_tensor(ids)  # the activation entering the last stage
     for part in range(len(raw["nodes"]) - 1):
@@ -1359,6 +1568,7 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
         _, got_last = last.send_tensor(last_in, timeout=pipeline_budget(1))
         wall_last = time.perf_counter() - t1
         last.close()
+        pipe_relay(raw["nodes"][0]["address"], items, wants, card)
     finally:
         stop()
     if got_last is None or not torch.equal(got_last, want):
@@ -1398,6 +1608,49 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
           "relay per-stage compute (record_timings) ms "
           + " / ".join(f"{t * 1e3:.2f}" for t in stage_s)
           + f" (sum {sum(stage_s) * 1e3:.1f}); on {card}", flush=True)
+
+
+def pipe_relay(address, items, wants, card):
+    """P-d: the microbatches `items` through P-b's stage servers with
+    send_tensors over the streamed Relay RPC (the client's hello must say
+    relay); each result must equal the relay engine's run of its item
+    (`wants`) bit for bit. Prints the streamed wall, each item's ack
+    latency, and beside them the wall of the same items as sequential
+    unary send_tensor calls (checked alike)."""
+    from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
+
+    client = NodeClient(address)
+    neg = client.negotiated()
+    if not neg.relay_ok:
+        fail(f"[pipe] P-d the first stage's hello gave no Relay: {neg.reason}")
+    budget = pipeline_budget(8)
+    client.send_tensors(items[:1], timeout=budget)  # warm-up
+    t0 = time.perf_counter()
+    acks = []
+    streamed = client.send_tensors(items, timeout=budget, ack_s=acks)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unary = [client.send_tensor(x, timeout=budget) for x in items]
+    wall_unary = time.perf_counter() - t0
+    client.close()
+    for i, ((status, got), (_, got_u), want) in enumerate(
+            zip(streamed, unary, wants)):
+        if got is None or "Processing complete" not in status:
+            fail(f"[pipe] P-d item {i} over Relay: {status}")
+        if not torch.equal(got, want) or not torch.equal(got_u, want):
+            fail(f"[pipe] P-d item {i}: logits differ from the relay "
+                 "engine's")
+    if any(a is None for a in acks):
+        fail(f"[pipe] P-d items without an ack: {acks}")
+    n = len(items)
+    print(f"[pipe] P-d {n} microbatches of {tuple(items[0].shape)} ids over "
+          f"Relay (hello: grpc, relay): each result equals the relay "
+          f"engine's bit for bit; streamed wall {wall * 1e3:.1f} ms "
+          f"({wall * 1e3 / n:.1f} ms an item), acks after "
+          + " / ".join(f"{a * 1e3:.2f}" for a in acks)
+          + f" ms; {n} sequential unary send_tensor {wall_unary * 1e3:.1f} ms"
+          f" ({wall_unary * 1e3 / n:.1f} ms an item); streamed / unary "
+          f"{wall / wall_unary:.2f}; on {card}", flush=True)
 
 
 def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW):
@@ -1969,6 +2222,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
 
     phase_build()
+    phase_wire(smi)
     k5 = phase_k5(dev, gen)
     k6 = phase_k6(dev, gen)
     k6_solo = phase_k6_solo(dev, gen)
@@ -1976,12 +2230,14 @@ def main():
     phase_decode_splits(dev, gen)
     flash = {**phase_flash_fwd(dev, gen), **phase_flash_bwd(dev, gen)}
     launches, prepared, cfg, prompts = phase_main_path(dev, smi)
+    text = phase_text(cfg, prepared, dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
     del prepared
     pipe = phase_pipe(dev, smi, prompts[3])
-    for name in CACHE_KERNELS:
-        for dt, n in pipe[name].items():
-            launches[name][dt] += n
+    for counts in (text, pipe):
+        for name in CACHE_KERNELS:
+            for dt, n in counts[name].items():
+                launches[name][dt] += n
     launches.update(phase_train(dev, smi))
 
     src = "dnn_tpu_torch/ops/cuda/csrc/"

@@ -9,10 +9,11 @@ message bytes on the way in (`tensor_torch`: a torch tensor of its
 own). Torch tensors encode directly, bfloat16 included: it rides as
 raw 16-bit words under the wire name "bfloat16", as the JAX codec's.
 
-crc32c (the optional field 4): the port WRITES none — absent means
-"not checksummed" on this wire — and VERIFIES one when a peer declares
-it (a table-driven CRC-32C in Python; the daemon's payloads are token
-ids, a few hundred bytes).
+crc32c (the optional field 4): `make_tensor` writes the CRC-32C of
+every payload, as the JAX codec's `make_tensor(crc=True)` does, and
+`tensor_view` verifies one wherever a peer declared it (absent means
+"not checksummed"); both through the native CRC-32C of
+dnn_tpu_torch/native, which equals the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from dnn_tpu_torch.native import crc32c
 
 BytesLike = Union[bytes, memoryview]
 
@@ -32,27 +35,6 @@ _I32 = 5
 
 class PayloadCorruptError(ValueError):
     """A tensor payload failed its declared crc32c."""
-
-
-def _crc32c_table():
-    table = []
-    for n in range(256):
-        c = n
-        for _ in range(8):
-            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
-        table.append(c)
-    return table
-
-
-_CRC32C_TABLE = _crc32c_table()
-
-
-def crc32c(data) -> int:
-    """CRC-32C (Castagnoli) of a bytes-like object."""
-    crc = 0xFFFFFFFF
-    for byte in memoryview(data).cast("B"):
-        crc = _CRC32C_TABLE[(crc ^ byte) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
 
 
 def _encode_varint(n: int) -> bytes:
@@ -270,24 +252,27 @@ def _wire_array(arr) -> Tuple[np.ndarray, str]:
 def make_tensor(arr) -> Tensor:
     """numpy array or torch tensor (any device; bf16 included) -> Tensor
     with a memoryview payload (copied only when the array is not
-    C-contiguous little-endian host memory). No crc32c is written."""
+    C-contiguous little-endian host memory) and its crc32c."""
     a, name = _wire_array(arr)
     shape = tuple(a.shape)
     a = np.ascontiguousarray(a)
     if name not in _DTYPES:
         raise ValueError(f"unsupported wire dtype {a.dtype}")
     view = memoryview(a.reshape(-1).view(np.uint8))
-    return Tensor(tensor_data=view, shape=shape, dtype=name)
+    return Tensor(tensor_data=view, shape=shape, dtype=name,
+                  crc32c=crc32c(view))
 
 
 def tensor_view(msg: Tensor) -> np.ndarray:
     """Tensor -> read-only numpy view over the payload bytes (bfloat16:
-    its uint16 words). Verifies a declared crc32c (PayloadCorruptError)
-    and the payload length."""
-    if msg.crc32c is not None and crc32c(msg.tensor_data) != msg.crc32c:
-        raise PayloadCorruptError(
-            f"tensor payload corrupt: crc32c {crc32c(msg.tensor_data):#010x}"
-            f" != declared {msg.crc32c:#010x}")
+    its uint16 words). Verifies a declared crc32c, computed once
+    (PayloadCorruptError), and the payload length."""
+    if msg.crc32c is not None:
+        got = crc32c(msg.tensor_data)
+        if got != msg.crc32c:
+            raise PayloadCorruptError(
+                f"tensor payload corrupt: crc32c {got:#010x} != declared "
+                f"{msg.crc32c:#010x}")
     if msg.dtype not in _DTYPES:
         raise ValueError(f"unsupported wire dtype {msg.dtype!r}")
     dt = _DTYPES[msg.dtype].newbyteorder("<")

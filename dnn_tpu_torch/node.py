@@ -16,7 +16,7 @@
         --serve_lm [--slots 4] [--max_len 1024] [--prompt_pad 64] \\
         [--kv {paged,dense,auto}] [--kv_dtype {f32,bf16,int8}] \\
         [--decode_buckets] [--paged_blocks 0] [--block_len 16] \\
-        [--seed 0] [--weights_npz params.npz]
+        [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
@@ -103,6 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="--generate: the sampling seed; --serve_lm: also "
                         "the seed of random weights")
+    p.add_argument("--tokenizer", default=None,
+                   help="--serve_lm: the text front's tokenizer, 'bytes' "
+                        "(UTF-8 bytes as ids; any vocab >= 256) or a local "
+                        "HF tokenizer directory; SendMessage then serves "
+                        "prompt text -> generated text")
     p.add_argument("--weights_npz", default=None,
                    help="--serve_lm: a JAX GPT param tree (.npz, '/'-joined "
                         "keys) in place of the config's model_weights")
@@ -208,6 +213,20 @@ def _generate_local(engine, args) -> int:
     return 0
 
 
+def _tokenizer(spec: str, vocab_size: int):
+    """--tokenizer: "bytes" or a local HF tokenizer directory, refused
+    when its vocab exceeds the model's (its ids would index past the
+    embedding table)."""
+    from dnn_tpu_torch.io.tokenizer import ByteTokenizer, load_hf_tokenizer
+
+    tok = (ByteTokenizer(vocab_size) if spec == "bytes"
+           else load_hf_tokenizer(spec))
+    if tok.vocab_size > vocab_size:
+        raise ValueError(f"tokenizer vocab {tok.vocab_size} exceeds the "
+                         f"model's vocab_size {vocab_size}")
+    return tok
+
+
 def _serve_lm(config: TopologyConfig, me, args) -> int:
     """The LM daemon on this node's port, with the config's weights."""
     from dnn_tpu_torch.convert import from_jax_params, load_npz
@@ -233,6 +252,13 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
     except (OSError, KeyError, ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
+    tokenizer = None
+    if args.tokenizer:
+        try:
+            tokenizer = _tokenizer(args.tokenizer, cfg.vocab_size)
+        except Exception as e:  # noqa: BLE001 — CLI boundary: one line
+            log.error("tokenizer setup failed: %s", e)
+            return 1
     log.info("node %s: LM daemon, model %s, device %s", me.id, config.model,
              device)
     try:
@@ -242,7 +268,7 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             kv=args.kv, kv_dtype=args.kv_dtype,
             decode_buckets=args.decode_buckets,
             paged_blocks=args.paged_blocks, block_len=args.block_len,
-            seed=args.seed, device=device))
+            seed=args.seed, device=device, tokenizer=tokenizer))
     except (NotImplementedError, ValueError) as e:
         log.error("%s", e)  # e.g. --kv_dtype int4 (ROADMAP item 2)
         return 2

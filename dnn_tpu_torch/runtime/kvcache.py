@@ -17,8 +17,9 @@ and a chunk to K5 (cached_attention), as the JAX codecs' kernel path
 does; `attend_rows` (per-slot decode) is K6. Output dtypes follow the
 JAX codecs: a float codec returns the cache dtype, the int8 codec f32.
 
-Not ported (ROADMAP Queue 0): int4 caches, the rolling ring codecs and
-sliding windows (item 2), logit softcapping (item 7).
+Not ported (ROADMAP PyTorch/CUDA port items 2 and 7): int4 caches,
+the rolling ring codecs and sliding windows (item 2), logit softcapping
+(item 7).
 """
 
 from __future__ import annotations

@@ -3,10 +3,13 @@ of dnn_tpu/runtime/lm_server.py, the serving core).
 
 SendTensor takes a prompt (1-D int token ids) and answers with the
 generated tokens; GenerateStream answers one message per token as it
-commits; HealthCheck reports the batcher worker alive. Options ride the
-request_id as "gen[:max_new[:seed]][:t=..][:k=..][:p=..][:m=..][:r=..]"
-— the same wire, message layout and option grammar as the JAX daemon,
-so either package's client drives either server.
+commits; HealthCheck reports the batcher worker alive. With a tokenizer
+(io/tokenizer.py), SendMessage takes prompt text and answers with the
+generated text; "!stats", or any text without a tokenizer, gets the
+pool's stats. Options ride the request_id (SendMessage: the sender_id)
+as "gen[:max_new[:seed]][:t=..][:k=..][:p=..][:m=..][:r=..]" — the
+same wire, message layout and option grammar as the JAX daemon, so
+either package's client drives either server.
 
 Threading: gRPC handlers are async and never touch the device. ONE
 worker thread owns the batcher: it admits queued prompts whenever slots
@@ -15,10 +18,10 @@ concurrent.futures.Future per request. A request the paged pool cannot
 take yet (InsufficientBlocks) is held back and retried ahead of the
 queue once blocks free.
 
-Left out of this slice (ROADMAP, "PyTorch/CUDA port" items 3 and 4):
-the tokenizer text front, the observability endpoints, chaos injection,
-dedup and connection draining, the watchdog, KV handoff and the KV tier,
-and the embedding endpoint. Their request ids answer UNIMPLEMENTED.
+Left out of this slice (ROADMAP, "PyTorch/CUDA port" item 4): the
+observability endpoints, chaos injection, dedup and connection
+draining, the watchdog, KV handoff and the KV tier, and the embedding
+endpoint. Their request ids answer UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -33,17 +36,20 @@ from typing import NamedTuple, Optional
 import grpc
 import numpy as np
 
+from dnn_tpu_torch import native
 from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
 from dnn_tpu_torch.comm.service import (
     GRPC_MSG_OPTIONS,
-    HELLO_SENDER,
-    extract_deadline,
     serve_until_terminated,
     _handlers,
     _tensor_arr,
     _tensor_msg,
+)
+from dnn_tpu_torch.comm.transport import (
+    HELLO_SENDER,
     decline_hello,
+    extract_deadline,
 )
 from dnn_tpu_torch.runtime.paged_kvcache import InsufficientBlocks
 from dnn_tpu_torch.runtime.serving import ContinuousBatcher
@@ -262,18 +268,22 @@ class _BatcherWorker(threading.Thread):
 
 class LMServer:
     """NodeService servicer: SendTensor(prompt) -> generated tokens,
-    GenerateStream, HealthCheck, SendMessage (declines the JAX client's
-    transport hello; answers anything else with pool stats). Batcher
-    keyword arguments pass through — the cache layout and storage (`kv`
-    "paged"/"dense"/"auto", the default; `kv_dtype` f32/bf16/int8;
-    `decode_buckets`; `paged_blocks`, `block_len`) among them; `device`
-    defaults to "cuda" and raises without a card."""
+    GenerateStream, HealthCheck, SendMessage (declines the transport
+    hello; with `tokenizer`, prompt text -> generated text; else, and for
+    "!stats", the pool's stats). Batcher keyword arguments pass through —
+    the cache layout and storage (`kv` "paged"/"dense"/"auto", the
+    default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
+    `block_len`) among them; `device` defaults to "cuda" and raises
+    without a card."""
 
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
-                 request_timeout: float = 120.0, **batcher_kwargs):
+                 request_timeout: float = 120.0, tokenizer=None,
+                 **batcher_kwargs):
+        native.load()  # the checksum library, built before serving
         self.batcher = ContinuousBatcher(cfg, prepared, **batcher_kwargs)
         self.default_max_new = default_max_new
         self.request_timeout = request_timeout
+        self.tokenizer = tokenizer
         self.worker = _BatcherWorker(self.batcher)
         self.worker.start()
 
@@ -321,13 +331,14 @@ class LMServer:
                    else max(min(self.request_timeout, dl), 0.001))
         return max_new, seed, opts, timeout
 
-    async def SendTensor(self, request, context):
-        prompt = await self._validated_prompt(request, context)
-        max_new, seed, opts, timeout = await self._preflight(
-            request.request_id, context)
+    async def _generate(self, prompt, request_id: str, context):
+        """Generate for `prompt` (1-D ids) under `request_id`'s options;
+        the tokens, or the RPC aborted with the request's status."""
+        max_new, seed, opts, timeout = await self._preflight(request_id,
+                                                             context)
         cancel_evt = threading.Event()
-        fut = self.worker.submit(prompt.reshape(-1), max_new, seed,
-                                 opts=opts, cancel_evt=cancel_evt)
+        fut = self.worker.submit(prompt, max_new, seed, opts=opts,
+                                 cancel_evt=cancel_evt)
         try:
             tokens = await asyncio.wait_for(asyncio.wrap_future(fut), timeout)
         except asyncio.TimeoutError:
@@ -339,6 +350,12 @@ class LMServer:
             raise
         except Exception as e:  # noqa: BLE001 — mapped to a status
             await self._abort_for(e, context)
+        return tokens
+
+    async def SendTensor(self, request, context):
+        prompt = await self._validated_prompt(request, context)
+        tokens = await self._generate(prompt.reshape(-1), request.request_id,
+                                      context)
         return wc.TensorResponse(
             status=f"[lm] ok: {len(tokens)} tokens",
             result_tensor=_tensor_msg(np.asarray(tokens, np.int32)))
@@ -397,13 +414,29 @@ class LMServer:
         return pb.HealthCheckResponse(is_healthy=self.worker.is_alive())
 
     async def SendMessage(self, request, context):
+        """The text front. The transport hello is declined first (a hello
+        never reaches the tokenizer); "!stats", or any text without a
+        tokenizer, answers with the pool's stats; otherwise the text is a
+        prompt, the options ride the sender_id, and the reply is the
+        decoded continuation. Text that tokenizes to nothing answers
+        INVALID_ARGUMENT."""
         if request.sender_id.startswith(HELLO_SENDER):
             return pb.MessageReply(
                 confirmation_text=decline_hello("LM daemon serves grpc only"))
-        b = self.batcher
-        return pb.MessageReply(confirmation_text=(
-            f"[lm] pool: {b.n_active}/{b.slots} slots active, "
-            f"{len(b.results)} unclaimed results"))
+        text = request.message_text
+        if self.tokenizer is None or text == "!stats":
+            b = self.batcher
+            return pb.MessageReply(confirmation_text=(
+                f"[lm] pool: {b.n_active}/{b.slots} slots active, "
+                f"{len(b.results)} unclaimed results"))
+        ids = self.tokenizer.encode(text)
+        if not ids:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                                "prompt text tokenized to nothing")
+        tokens = await self._generate(np.asarray(ids, np.int32),
+                                      request.sender_id, context)
+        return pb.MessageReply(confirmation_text=self.tokenizer.decode(
+            [int(t) for t in tokens]))
 
     def close(self):
         self.worker.stop()
@@ -423,8 +456,9 @@ async def _start(cfg, prepared, port: int, server_kwargs):
 
 async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
     """Start the LM daemon and block until termination (SIGTERM stops it
-    cleanly, rc 0). `server_kwargs` go to LMServer and on to the
-    batcher (kv, kv_dtype, decode_buckets, paged_blocks, ...)."""
+    cleanly, rc 0). `server_kwargs` go to LMServer (tokenizer,
+    default_max_new, ...) and on to the batcher (kv, kv_dtype,
+    decode_buckets, paged_blocks, ...)."""
     servicer, server = await _start(cfg, prepared, port, server_kwargs)
     log.info("gRPC LM server listening on [::]:%d (%d slots, %s)", port,
              servicer.batcher.slots, servicer.batcher.device)

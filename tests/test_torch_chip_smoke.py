@@ -247,3 +247,58 @@ def test_pipe_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
                 "P-c 6 tokens after a 37-token prompt"):
         assert tag in out, out
     assert set(counts) >= set(chip_smoke.CACHE_KERNELS)
+
+
+def test_wire_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke's [wire] phase at small buffers: the native crc32c
+    equals the per-byte version on every listed length and seed, and the
+    phase times a checksummed payload and refuses a flipped byte."""
+    monkeypatch.setattr(chip_smoke, "WIRE_RATE_BYTES", 1 << 20)
+    monkeypatch.setattr(chip_smoke, "WIRE_LOGITS", (1, 16, 300))
+    got = chip_smoke.phase_wire("cpu")
+    out = capsys.readouterr().out
+    assert "and its slice-by-8 route equal the per-byte version on 7 " \
+        "lengths x 2 seeds" in out, out
+    assert "a flipped byte raises PayloadCorruptError" in out
+    assert got["crc32c_gb_s"] > 0 and got["crc32c_sliced_gb_s"] > 0
+    assert got["tensor_view_ms"] >= 0
+
+
+def test_text_phase_rehearsed_on_the_cpu(capsys):
+    """chip_smoke's [text] phase on the CPU with a 2-layer model of
+    block_size 1024 (run A's pool: 4 slots, max_len 1024, prompt_pad 64)
+    and vocab 512: every check applies except the launch counts (a CPU
+    call launches no kernel)."""
+    import torch
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=2,
+                         n_head=2, n_embd=32)
+    prepared = from_jax_params(tgpt.init(1, cfg), cfg, "cpu")
+    counts = chip_smoke.phase_text(cfg, prepared, torch.device("cpu"), "cpu")
+    out = capsys.readouterr().out
+    assert "[text] IdMarkedTokenizer(512): a 192-character, 282-byte " \
+        "prompt -> 16 tokens; the reply's ids" in out, out
+    assert "equal SendTensor's tokens" in out
+    for label in ("SendMessage", "GenerateStream", "SendTensor"):
+        assert f"[main] [text] 282-byte prompt, {label}: " in out
+    assert set(counts) >= set(chip_smoke.CACHE_KERNELS)
+
+
+def test_relay_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke's P-d on the CPU: P-b's 8 stage servers on an 8-layer
+    gpt2-test-wide model, 4 microbatches of 12 tokens over Relay, each
+    equal to the relay engine's run bit for bit."""
+    import torch
+
+    from dnn_tpu_torch import registry
+
+    cfg8 = tgpt.GPTConfig(block_size=64, vocab_size=256, n_layer=8,
+                          n_head=4, n_embd=64)
+    monkeypatch.setitem(tgpt.PRESETS, "gpt2-test8", cfg8)
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    tgpt._register("gpt2-test8", cfg8)
+    chip_smoke.pipe_gpt_stages(torch.device("cpu"), "cpu", model="gpt2-test8",
+                               n_tokens=12)
+    out = capsys.readouterr().out
+    assert "[pipe] P-d 4 microbatches of (1, 12) ids over Relay" in out, out
+    assert "each result equals the relay engine's bit for bit" in out

@@ -173,8 +173,9 @@ def test_parse_gen_options_grammar():
 
 def test_wirecodec_bytes_match_protobuf():
     """The hand-coded Tensor messages serialize byte-for-byte like the
-    generated protobuf classes and parse what protobuf writes; a payload
-    whose declared crc32c does not match is refused."""
+    generated protobuf classes, the payload's crc32c included, and parse
+    what protobuf writes; a payload whose declared crc32c does not match
+    is refused."""
     from dnn_tpu_torch.comm import wire_pb2 as pb
     from dnn_tpu_torch.comm import wirecodec as wc
 
@@ -182,9 +183,9 @@ def test_wirecodec_bytes_match_protobuf():
     ours = wc.serialize_request(wc.TensorRequest(
         request_id="gen:4", tensor=wc.make_tensor(arr)))
     ref = pb.TensorRequest(request_id="gen:4", tensor=pb.Tensor(
-        tensor_data=arr.tobytes(), shape=[7], dtype="int32"))
+        tensor_data=arr.tobytes(), shape=[7], dtype="int32",
+        crc32c=wc.crc32c(arr.tobytes())))
     assert ours == ref.SerializeToString()
-    ref.tensor.crc32c = wc.crc32c(arr.tobytes())
     parsed = wc.parse_request(ref.SerializeToString())
     np.testing.assert_array_equal(wc.tensor_view(parsed.tensor), arr)
     ref.tensor.crc32c ^= 1

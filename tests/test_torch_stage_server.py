@@ -153,12 +153,13 @@ def test_gpt_bf16_hop_between_packages(kinds):
 
 def test_bf16_wire_payload_byte_identical_to_jax():
     """A bf16 tensor encodes to the JAX codec's bytes (ml_dtypes there,
-    raw 16-bit words here), and each side decodes the other's."""
+    raw 16-bit words here; both with the payload's crc32c), and each side
+    decodes the other's."""
     x = torch.randn(2, 3, 5).to(torch.bfloat16)
     jx = jnp.asarray(x.float().numpy(), jnp.bfloat16)
     mine = wc.TensorRequest("r", wc.make_tensor(x))
-    theirs = jwc.TensorRequest("r", jwc.make_tensor(np.asarray(jx),
-                                                    crc=False))
+    theirs = jwc.TensorRequest("r", jwc.make_tensor(np.asarray(jx)))
+    assert theirs.tensor.crc32c is not None
     assert wc.serialize_request(mine) == jwc.serialize_request(theirs)
     back = wc.tensor_torch(wc.parse_request(
         jwc.serialize_request(theirs)).tensor)
