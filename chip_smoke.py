@@ -3,8 +3,10 @@
 holds each against its plain PyTorch version on the card, then serves
 GPT-2 at full width through the LM daemon over gRPC in four cache
 configurations, runs the solo decoder, checks every greedy stream
-against an independent reference, and trains full-width GPT-2 through
-the flash-attention kernels.
+against an independent reference, trains full-width GPT-2 through the
+flash-attention kernels, and serves llama3-8b at full width and depth
+over the paged pool (K5 with grouped heads, K6/K7 at four rows a KV
+head).
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -105,12 +107,37 @@ Phases (any failure exits non-zero and prints no result):
      plus information: step wall (f32: T-b's warm steps; bf16: 6 more
      steps), tokens/s, peak memory, MFU, and a torch.profiler view of
      one f32 and one bf16 step (flash share of device time)
+  6c. [llama] llama3-8b (32 layers, 4096 wide, 32 heads over 8 KV
+     heads, D=128, vocab 128256, rope theta 500000), f32:
+       kernel rows at its shapes, each against its plain version, f32,
+       bf16 and int8, timed against SDPA with enable_gqa for the float
+       types: K5 with grouped heads (B=1 H=32 Hk=8 T=64 S=1024, base
+       960), K7 (B=4 Hk=8 R=4, 16-row blocks), K6 solo (B=1 Hk=8 R=4
+       S=332, L-solo's cache);
+       weights drawn on the card in the JAX tree layout from a seeded
+       torch.Generator and passed through convert.from_jax_params; then,
+       each run with the launch counts zeroed just before and read just
+       after, and the exact counts of the call pattern required:
+       L-A the LM daemon (paged f32 pool, 257 blocks of 16), the four
+           prompts, 16 greedy tokens each, against the no-cache loop on
+           the llama forward (K5, K7)
+       L-C the same with int8 KV, against the plain int8 cache loop
+           prefilled in 64-token chunks as served (K5, K7 int8); a
+           divergence is accepted where the loop's top-2 gap is below
+           5e-3 (QUANT_TIE): int8 rounding flips of values at a
+           quantization boundary; the whole-prompt int8 loop's parting
+           from the chunked one is printed
+       L-solo llama.make_generate on the 300-token prompt, 32 tokens,
+           dense f32 cache, against the no-cache loop (K5, K6)
+     plus information: a decode step's and the 300-token admission's
+     wall, device busy and top kernels
   7. one JSON line describing the kernels, then the result line.
 
 Tolerances against the plain versions: 1e-4 for f32 and int8 caches
 (both sides read the same values; only the summation order differs),
 2e-2 for bf16. A served token may differ from its reference only where
-the reference's top-2 logit gap is below 1e-4 (a near-tie).
+the reference's top-2 logit gap is below 1e-4 (a near-tie); 5e-3 for
+llama3-8b over an int8 cache (QUANT_TIE).
 Timings: warm-up, then the calls are captured in a CUDA graph and the
 graph is replayed between CUDA events (device time, no host overhead).
 Kernel timings cycle over the 12 layers' slices of a full-model cache,
@@ -126,14 +153,16 @@ f32 accuracy does not move its bound. Each flash line also prints the
 products on the units its kernel runs them on: the tensor cores for the
 bf16 kernels, and for K1-K4 in f32 the split products they issue on the
 tensor cores (the score product as three TF32 products, every other as
-three bf16 products) beside the f32 CUDA-core figure. K5 runs
-its products on the tensor cores in every cache type: its operations
-bound is the bf16 products it issues at 989 TFLOP/s, with the f32
-CUDA-core bound of the live scores printed beside it.
+three bf16 products) beside the f32 CUDA-core figure. K5 likewise
+(k5_bound): its function's products over the live columns at the
+fastest tensor-core rate for its cache's type (TF32 for f32, bf16 for
+bf16 and int8), with the products it issues and the f32 CUDA-core
+figure printed beside it.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -370,25 +399,43 @@ def check(label: str, got, want, tol: float) -> float:
     return err
 
 
-def report(tag, label, row, nbytes, byte_ms, op_ms):
+def report(tag, label, row, nbytes, byte_ms, op_ms, ops="f32 ops"):
     lib = row["library_ms"]
     print(f"[{tag}] {label}: err {row['max_abs_err']:.3e} kernel_ms "
           f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
           f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
           f"{row['bound_ms']:.5f} ({row['bound_by']}; bytes {byte_ms:.5f} "
-          f"for {nbytes / 1e6:.3f} MB at 3.35 TB/s, f32 ops {op_ms:.5f})",
+          f"for {nbytes / 1e6:.3f} MB at 3.35 TB/s, {ops} {op_ms:.5f})",
           flush=True)
+
+
+def k5_bound(name, B, H, HK, T, S, base, D):
+    """K5's bound at one chunk of q (B, H, T, D) at positions base + t
+    against a cache (B, HK, S, D) of type `name`: the bytes (q read and
+    the output written in f32, the HK heads' live K/V once, int8 scales
+    included, pos) at 3.35 TB/s, or the function's own products (one
+    Q.K^T and one P.V over each row's live columns, 4 D FLOPs a live
+    score) at the fastest tensor-core rate for the cache's type: TF32 for
+    f32, bf16 for bf16 and for int8 (q stays f32, so the int8 rate does
+    not apply). Returns (nbytes, live scores, ops label, bound(...))."""
+    live = min(S, base + T)
+    nbytes = 2 * B * H * T * D * 4 + B * HK * kv_bytes(name, live, D) + B * 4
+    scores = B * H * sum(min(S, base + t + 1) for t in range(T))
+    peak, label = ((TF32_FLOPS_PER_S, "TF32 ops at 494.7 TFLOP/s")
+                   if name == "f32" else
+                   (BF16_FLOPS_PER_S, "bf16 ops at 989 TFLOP/s"))
+    return nbytes, scores, label, bound(nbytes, 4 * D * scores, peak)
 
 
 def phase_k5(dev, gen):
     """K5 against its plain version at the prefill-chunk shape, f32,
-    bf16 and int8 caches. Returns {(dtype, base): row}. The bound is that
-    of the units the kernel now uses: the bytes, or the tensor-core
-    operations of the products it issues (over every 64-key tile up to
-    each query tile's last live column, two bf16 products a tile for
-    Q.K^T and two for P.V, three each for an f32 cache) at 989 TFLOP/s.
-    The f32 CUDA-core bound of the live scores, the bound of the earlier
-    CUDA-core design, is printed beside it."""
+    bf16 and int8 caches. Returns {(dtype, base): row}. The bound is
+    k5_bound's. Printed beside it, as information: the products the
+    kernel issues on the tensor cores (over every 64-key tile up to each
+    query tile's last live column, two bf16 products a tile for Q.K^T and
+    two for P.V, three each for an f32 cache) at 989 TFLOP/s, and the f32
+    CUDA-core time of the live scores, the bound of the earlier CUDA-core
+    design."""
     from dnn_tpu_torch.ops.cuda.cached_attention import (
         K5_TILE, cached_attention, k5_split, reference_cached_attention)
 
@@ -410,17 +457,13 @@ def phase_k5(dev, gen):
                         cached_attention(q[0], k[0], v[0], pos, **sc),
                         reference_cached_attention(q[0], k[0], v[0], pos, **sc),
                         tol)
-            live = min(S, base + T)
-            nbytes = (2 * B * H * T * D * 4 + B * H * kv_bytes(name, live, D)
-                      + B * 4)
-            scores = B * H * sum(min(S, base + t + 1) for t in range(T))
+            nbytes, scores, ops, (b_ms, b_by, byte_ms, op_ms) = k5_bound(
+                name, B, H, H, T, S, base, D)
             tiles = B * H * sum(
                 min(S - 1, base + min(T, K5_TILE * (i + 1)) - 1) // K5_TILE + 1
                 for i in range(q_tiles))
             products = 3 if name == "f32" else 2
             tc_flops = tiles * 2 * products * 2 * K5_TILE * K5_TILE * D
-            b_ms, b_by, byte_ms, op_ms = bound(nbytes, tc_flops,
-                                               BF16_FLOPS_PER_S)
             ms = time_ms(cycling(lambda i: cached_attention(
                 q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
             plain = time_ms(cycling(lambda i: reference_cached_attention(
@@ -440,9 +483,10 @@ def phase_k5(dev, gen):
                   f"{ms:.4f} plain_ms {plain:.4f} library_ms "
                   f"{'none' if lib is None else f'{lib:.4f}'} bound_ms "
                   f"{b_ms:.5f} ({b_by}; bytes {byte_ms:.5f} for "
-                  f"{nbytes / 1e6:.3f} MB at 3.35 TB/s, tensor-core ops "
-                  f"{op_ms:.5f} for {tiles} tiles x {2 * products} products "
-                  f"at 989 TFLOP/s; f32 CUDA-core ops of the live scores "
+                  f"{nbytes / 1e6:.3f} MB at 3.35 TB/s, {ops} {op_ms:.5f}; "
+                  f"issued: {tiles} tiles x {2 * products} bf16 products "
+                  f"{tc_flops / BF16_FLOPS_PER_S * 1e3:.5f} at 989 TFLOP/s, "
+                  f"f32 CUDA-core ops of the live scores "
                   f"{4 * D * scores / F32_FLOPS_PER_S * 1e3:.5f}); kernel / "
                   f"bound {ms / b_ms:.1f}", flush=True)
         if lib is not None:
@@ -1002,14 +1046,20 @@ def reference_greedy(prepared, cfg, prompt, n_new, dev):
     return toks, gaps
 
 
-def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype):
+def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
+                           chunk=None):
     """Independent greedy loop over a dense cache of type `kv_dtype`
     ("bf16" or "int8"): no batcher and no kernel. A cache of prompt +
-    n_new positions; bf16 stores K/V rounded to bf16, int8 quantizes them
-    with the port's _quantize_rows and keeps the scales; attention is the
-    plain version, its output cast to the cache's type for a bf16 cache,
-    as the port's FloatKV.attend does. Returns (tokens, top-2 logit gap at
-    each step)."""
+    n_new positions (at KV heads for a LlamaConfig); bf16 stores K/V
+    rounded to bf16, int8 quantizes them with the port's _quantize_rows
+    and keeps the scales; attention is the plain version (grouped heads
+    for llama), its output cast to the cache's type for a bf16 cache, as
+    the port's FloatKV.attend does. The blocks around the attention are
+    the family's own (gpt2's, or models/llama.py's). The prompt prefills
+    in one piece or, with `chunk`, in chunk-token pieces, the last one
+    right-padded with id 0, as the batcher prefills (the padded rows'
+    K/V lie past every later query's limit). Returns (tokens, top-2
+    logit gap at each step)."""
     from dnn_tpu_torch.models.gpt import head, layer_params
     from dnn_tpu_torch.ops.attention import merge_heads
     from dnn_tpu_torch.ops.cuda.cached_attention import (
@@ -1018,64 +1068,102 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype):
     from dnn_tpu_torch.runtime.generate import _mlp, _qkv_heads
     from dnn_tpu_torch.runtime.kvcache import _quantize_rows
 
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.runtime.kvcache import cache_shape
+
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype must be bf16 or int8, got {kv_dtype!r}")
     quant = kv_dtype == "int8"
     store = torch.int8 if quant else torch.bfloat16
-    n_l, h, d = cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head
-    s_len = len(prompt) + n_new
-    kv = {"k": torch.zeros(n_l, 1, h, s_len, d, dtype=store, device=dev),
-          "v": torch.zeros(n_l, 1, h, s_len, d, dtype=store, device=dev)}
+    is_llama = isinstance(cfg, llama.LlamaConfig)
+    padded = len(prompt) if chunk is None else -(-len(prompt) // chunk) * chunk
+    shape = cache_shape(cfg, 1, max(padded, len(prompt) + n_new))
+    kv = {"k": torch.zeros(shape, dtype=store, device=dev),
+          "v": torch.zeros(shape, dtype=store, device=dev)}
     if quant:
-        kv["ks"] = torch.ones(n_l, 1, h, s_len, device=dev)
-        kv["vs"] = torch.ones(n_l, 1, h, s_len, device=dev)
+        kv["ks"] = torch.ones(shape[:-1], device=dev)
+        kv["vs"] = torch.ones(shape[:-1], device=dev)
+
+    def attend(i, q, k, v, start, pos):
+        """Writes this layer's k/v at [start, start + T) of the cache,
+        then attends it in the plain version (grouped heads for llama)."""
+        t = k.shape[2]
+        for name, new in (("k", k), ("v", v)):
+            if quant:
+                payload, scale = _quantize_rows(new)
+                kv[name + "s"][i, :, :, start:start + t] = scale
+            else:
+                payload = new.to(store)
+            kv[name][i, :, :, start:start + t] = payload
+        scales = {"ks": kv["ks"][i], "vs": kv["vs"][i]} if quant else {}
+        y = reference_cached_attention(q, kv["k"][i], kv["v"][i], pos,
+                                       **scales)
+        return y if quant else y.to(store)
 
     def last_logits(ids, start):
         t = ids.shape[1]
-        x = (embedding(prepared["wte"], ids) + embedding(
-            prepared["wpe"], torch.arange(start, start + t, device=dev)))
         pos = torch.full((1,), start, dtype=torch.int32, device=dev)
-        for i in range(n_l):
+        rows = torch.arange(start, start + t, device=dev)
+        if is_llama:  # the LLaMA block, its attention the plain version
+            x = llama._scaled_embed(prepared, ids, cfg)
+            cos, sin = llama._rope_tables(cfg, rows)
+            for i in range(cfg.n_layer):
+                bp = layer_params(prepared["blocks"], i)
+                h = llama._pre_normed(bp, x, cfg)
+                q, k, v = llama._qkv(bp, h, cfg)
+                q, k = llama._rotated(q, k, cos, sin, cfg)
+                y = attend(i, q, k, v, start, pos)
+                o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)))
+                x = llama._branches_residual(bp, x, o, h, cfg=cfg)
+            return llama.head(prepared, x, cfg=cfg)[0]
+        x = (embedding(prepared["wte"], ids)
+             + embedding(prepared["wpe"], rows))
+        for i in range(cfg.n_layer):
             bp = layer_params(prepared["blocks"], i)
             q, k, v = _qkv_heads(bp, layer_norm(bp["ln_1"], x, eps=cfg.ln_eps),
                                  cfg=cfg)
-            for name, new in (("k", k), ("v", v)):
-                if quant:
-                    payload, scale = _quantize_rows(new)
-                    kv[name + "s"][i, :, :, start:start + t] = scale
-                else:
-                    payload = new.to(store)
-                kv[name][i, :, :, start:start + t] = payload
-            scales = {"ks": kv["ks"][i], "vs": kv["vs"][i]} if quant else {}
-            y = reference_cached_attention(q, kv["k"][i], kv["v"][i], pos,
-                                           **scales)
-            if not quant:
-                y = y.to(store)
+            y = attend(i, q, k, v, start, pos)
             x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)))
             x = x + _mlp(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps))
-        return head(prepared, x, cfg=cfg)[0, -1]
+        return head(prepared, x, cfg=cfg)[0]
 
     with torch.no_grad():
-        ids = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
-        logits, start, toks, gaps = last_logits(ids, 0), len(prompt), [], []
+        ids = torch.zeros((1, padded), dtype=torch.int64, device=dev)
+        ids[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+        step = chunk or padded
+        for c0 in range(0, padded, step):
+            logits = last_logits(ids[:, c0:c0 + step], c0)
+        logits = logits[len(prompt) - 1 - c0]
+        start, toks, gaps = len(prompt), [], []
         for _ in range(n_new):
             top2 = torch.topk(logits, 2).values
             gaps.append((top2[0] - top2[1]).item())
             toks.append(int(logits.argmax()))
-            logits = last_logits(torch.tensor([[toks[-1]]], device=dev), start)
+            logits = last_logits(torch.tensor([[toks[-1]]], device=dev),
+                                 start)[-1]
             start += 1
     return toks, gaps
 
 
-def compare_tokens(label, got, want, gaps):
+NEAR_TIE = 1e-4
+# llama3-8b over an int8 cache: a K/V value within f32 rounding noise of
+# a quantization boundary rounds either way, and 32 layers carry the flip
+# to the logits. L-C's served streams are held to the plain int8 loop
+# prefilled in the served 64-token chunks; on an H100 they parted from it
+# only at a top-2 gap of 1.967e-3, so the tie is that with 2.5x headroom
+# (the [llama] lines print this run's gaps)
+QUANT_TIE = 5e-3
+
+
+def compare_tokens(label, got, want, gaps, tie=NEAR_TIE):
     """Served tokens against a reference's; a divergence is accepted only
-    at a near-tie of the reference (top-2 gap < 1e-4), and the rest of
+    at a near-tie of the reference (top-2 gap < `tie`), and the rest of
     the stream is then not compared."""
     if len(got) != len(want):
         fail(f"{label}: {len(got)} tokens, expected {len(want)}")
     for j, (a, b) in enumerate(zip(got, want)):
         if a != b:
-            if gaps[j] < 1e-4:
+            if gaps[j] < tie:
                 print(f"[main] {label}: near-tie at step {j} (top-2 gap "
                       f"{gaps[j]:.2e}), served {a} vs reference {b}; rest "
                       "not compared", flush=True)
@@ -1121,13 +1209,17 @@ def require(label, counts, needed):
 
 
 def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
-              card, **kv):
+              card, exact=None, tie=NEAR_TIE, **kv):
     """One main-path run: the LM daemon in-process (4 slots, max_len
     1024, prompt_pad 64) with the cache options `kv`, 4 concurrent gRPC
     generate calls, greedy; tokens checked against `refs` (tokens, gaps)
     per prompt, and every (kernel, dtype) of `needed` launched in the
-    run. Returns the run's launch counts."""
+    run. `exact(steps)`, where given, returns {(kernel, dtype): launches}
+    that the run must show exactly, from the number of decode steps the
+    batcher took in it (counted). `tie` is compare_tokens'. Returns the
+    run's launch counts."""
     from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.parallel.pipeline import sync
     from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
 
     port = free_port()
@@ -1135,15 +1227,23 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
         block_len=16, seed=0, device=dev, **kv)
     batcher = stop.servicer.batcher
+    step, n_steps = batcher.step, [0]
+
+    def counted_step():  # the worker steps only while a slot is active
+        n_steps[0] += 1
+        return step()
+
+    batcher.step = counted_step
     results, errors = {}, []
     try:
         client = NodeClient(f"127.0.0.1:{port}")
         if not client.wait_healthy(deadline=60):
             fail(f"{label}: LM daemon never became healthy")
         client.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
-        torch.cuda.synchronize()
+        sync(dev)
         grows0 = batcher.bucket_grows
         reset_counts()
+        n_steps[0] = 0
 
         def call(i):
             try:
@@ -1161,6 +1261,7 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         counts = read_counts()
+        steps = n_steps[0]
         grows = batcher.bucket_grows - grows0
         if errors or len(results) != len(prompts):
             fail(f"{label}: generate calls failed: {errors or 'timed out'}")
@@ -1182,14 +1283,26 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
           + (f", {grows} bucket grows, final bucket "
              f"{batcher.cache['k'].shape[3]}"
              if kv.get("decode_buckets") else "") + ")", flush=True)
-    require(f"run {label}", counts, needed)
+    if dev.type == "cuda":
+        require(f"run {label}", counts, needed)
+        if exact is not None:
+            want = exact(steps)
+            for (name, dt), n in want.items():
+                if counts[name][dt] != n:
+                    fail(f"run {label}: {name} ({dt}) launched "
+                         f"{counts[name][dt]} times, expected {n} from the "
+                         f"call pattern ({steps} decode steps)")
+            print(f"[main] run {label}: launches equal the call pattern's "
+                  f"({steps} decode steps): " + ", ".join(
+                      f"{name} {dt} {n}" for (name, dt), n in want.items()),
+                  flush=True)
     n_tokens = sum(len(r) for r in results.values())
     print(f"[main] run {label}: 4 concurrent requests, {n_tokens} tokens in "
           f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT (300-token "
           f"prompt, idle daemon) {ttft * 1e3:.1f} ms; on {card}", flush=True)
     for i, prompt in enumerate(prompts):
         compare_tokens(f"run {label} request {i} (prompt {len(prompt)})",
-                       results[i], *refs[i])
+                       results[i], *refs[i], tie=tie)
     return counts
 
 
@@ -2120,6 +2233,299 @@ def phase_train(dev, card):
     return total
 
 
+LLAMA_NEW, LLAMA_SOLO_NEW = 16, 32  # L-A / L-C tokens; L-solo tokens
+LLAMA_PROMPTS = (5, 70, 130, 300)
+LLAMA_SOLO_S = LLAMA_PROMPTS[-1] + LLAMA_SOLO_NEW  # L-solo's dense cache
+
+
+def sdpa_gqa(q, k, v, mask=None):
+    """The library yardstick: SDPA with grouped heads (enable_gqa)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def phase_llama_kernels(dev, gen):
+    """[llama] kernel rows at llama3-8b's shapes (32 query heads over 8 KV
+    heads, D=128), each against its plain version, f32, bf16 and int8:
+    K5 with grouped heads at a prefill chunk (B=1 H=32 Hk=8 T=64 S=1024,
+    base 960); K7 at the decode step (B=4 Hk=8 R=4, 16-row blocks, 64 a
+    slot, 257 pool blocks, pos {0, 15, 16, 1023}); K6 at L-solo's shape
+    (B=1 Hk=8 R=4, S=LLAMA_SOLO_S: the 300-token prompt plus its 32 new
+    tokens, so its split plan; pos S - 2, the last decode step). The
+    library time is SDPA with enable_gqa on q of (B, 32, T, 128) and the
+    same boolean mask, for the float caches; none for int8 and for paged.
+    Bounds as the gpt2 rows': bytes (the Hk heads' live K/V read once),
+    K5's function products at its type's fastest rate (k5_bound), K6/K7's
+    f32 FMAs at 67 TFLOP/s. Returns {"K5": rows, "K7": rows, "K6 solo":
+    rows}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        K5_TILE, cached_attention, decode_attention, k5_split,
+        paged_decode_attention, reference_cached_attention,
+        reference_decode_attention, reference_paged_decode_attention)
+
+    out = {"K5": {}, "K7": {}, "K6 solo": {}}
+    H, HK, D = 32, 8, 128
+    G = H // HK
+    # K5, grouped heads
+    B, T, S, base = 1, 64, 1024, 960
+    split_tiles, n_split = k5_split(B * H, T, S)
+    print(f"[llama] K5 B={B} H={H} Hk={HK} T={T} S={S} D={D} base {base}: "
+          f"{n_split} splits of {split_tiles * K5_TILE} keys, grid "
+          f"({n_split}, 1, {B * H})", flush=True)
+    pos = torch.full((B,), base, dtype=torch.int32, device=dev)
+    cols = torch.arange(S, device=dev)
+    mask = cols[None, :] <= (base + torch.arange(T, device=dev))[:, None]
+    for name, tol in KV_CASES:
+        q = torch.randn(LAYERS, B, H, T, D, generator=gen, device=dev)
+        k, v, ks, vs = kv_cache(gen, (LAYERS, B, HK, S, D), name, dev)
+        sc = scales_at(ks, vs, 0)
+        err = check(f"[llama] K5 {name} G={G}",
+                    cached_attention(q[0], k[0], v[0], pos, **sc),
+                    reference_cached_attention(q[0], k[0], v[0], pos, **sc),
+                    tol)
+        nbytes, _, ops, (b_ms, b_by, byte_ms, op_ms) = k5_bound(
+            name, B, H, HK, T, S, base, D)
+        ms = time_ms(cycling(lambda i: cached_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        plain = time_ms(cycling(lambda i: reference_cached_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        lib = None
+        if name != "int8":
+            qd = q.to(k.dtype)
+            lib = time_ms(cycling(lambda i: sdpa_gqa(qd[i], k[i], v[i], mask),
+                                  LAYERS))
+        out["K5"][name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        report("llama", f"K5 {name:4s} G={G} base {base}", out["K5"][name],
+               nbytes, byte_ms, op_ms, ops)
+    # K7 at R = G rows a KV head
+    B, bp, nb_max, n_blocks = 4, 16, 64, 257
+    decode_plan("llama K7", B * HK, nb_max * bp, bp)
+    pos_list = [0, 15, 16, 1023]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_blocks - 1,
+                          generator=torch.Generator().manual_seed(0))
+    tables = (perm[:B * nb_max] + 1).reshape(B, nb_max).to(torch.int32).to(dev)
+    for name, tol in KV_CASES:
+        q = torch.randn(LAYERS, B, HK, G, D, generator=gen, device=dev)
+        kp, vp, ks, vs = kv_cache(gen, (LAYERS, n_blocks, HK, bp, D), name,
+                                  dev)
+        sc = scales_at(ks, vs, 0)
+        err = check(f"[llama] K7 {name} R={G}",
+                    paged_decode_attention(q[0], kp[0], vp[0], tables, pos,
+                                           **sc),
+                    reference_paged_decode_attention(q[0], kp[0], vp[0],
+                                                     tables, pos, **sc), tol)
+        live = sum(p + 1 for p in pos_list)
+        nbytes = (2 * B * HK * G * D * 4 + HK * kv_bytes(name, live, D)
+                  + sum(p // bp + 1 for p in pos_list) * 4 + B * 4)
+        b_ms, b_by, byte_ms, op_ms = bound(nbytes, 4 * D * HK * G * live)
+        ms = time_ms(cycling(lambda i: paged_decode_attention(
+            q[i], kp[i], vp[i], tables, pos, **scales_at(ks, vs, i)),
+            LAYERS))
+        plain = time_ms(cycling(lambda i: reference_paged_decode_attention(
+            q[i], kp[i], vp[i], tables, pos, **scales_at(ks, vs, i)),
+            LAYERS))
+        out["K7"][name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                               bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        report("llama", f"K7 {name:4s} R={G} pos {pos_list} (no one-call "
+               "library equivalent)", out["K7"][name], nbytes, byte_ms, op_ms)
+    # K6 at L-solo's shape, R = G: its dense cache of prompt + new tokens
+    # (the split plan it launches), at its last decode step's position
+    B, S, last = 1, LLAMA_SOLO_S, LLAMA_SOLO_S - 2
+    decode_plan("llama K6 solo", B * HK, S)
+    pos = torch.tensor([last], dtype=torch.int32, device=dev)
+    for name, tol in KV_CASES:
+        q = torch.randn(LAYERS, B, HK, G, D, generator=gen, device=dev)
+        k, v, ks, vs = kv_cache(gen, (LAYERS, B, HK, S, D), name, dev)
+        sc = scales_at(ks, vs, 0)
+        err = check(f"[llama] K6 solo {name} R={G}",
+                    decode_attention(q[0], k[0], v[0], pos, **sc),
+                    reference_decode_attention(q[0], k[0], v[0], pos, **sc),
+                    tol)
+        nbytes = 2 * B * HK * G * D * 4 + HK * kv_bytes(name, last + 1, D) + 4
+        b_ms, b_by, byte_ms, op_ms = bound(nbytes, 4 * D * HK * G * (last + 1))
+        ms = time_ms(cycling(lambda i: decode_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        plain = time_ms(cycling(lambda i: reference_decode_attention(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        lib = None
+        if name != "int8":  # columns <= last; q as 32 heads
+            qd = q.reshape(LAYERS, B, H, 1, D).to(k.dtype)
+            live = torch.arange(S, device=dev)[None, :] <= last
+            lib = time_ms(cycling(lambda i: sdpa_gqa(qd[i], k[i], v[i],
+                                                     live), LAYERS))
+        out["K6 solo"][name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    max_abs_err=err)
+        report("llama", f"K6 solo {name:4s} R={G} S={S} pos {last}",
+               out["K6 solo"][name], nbytes, byte_ms, op_ms)
+    return out
+
+
+def phase_llama(dev, card, cfg=None):
+    """[llama] llama3-8b at full width and depth (or `cfg`), random
+    weights in the JAX tree layout drawn on the card from a seeded
+    torch.Generator (llama.init with device=: std 0.02, o and down at
+    0.02 / sqrt(2 n_layer), norm scales at one) and passed through
+    convert.from_jax_params; then, each run with the launch counts zeroed
+    just before and read just after:
+      L-A the LM daemon in-process (serve_run: 4 slots, max_len 1024,
+          prompt_pad 64, paged f32 pool of 257 blocks of 16), 4
+          concurrent greedy requests (prompts of 5/70/130/300 seeded
+          tokens, 16 new each) equal to reference_greedy on the llama
+          forward; K5 launched once per layer per prefill chunk (11
+          chunks), K7 once per layer per decode step, exactly;
+      L-C the same with int8 KV, against reference_greedy_cache over a
+          dense int8 cache at KV heads, prefilled in 64-token chunks as
+          served, a divergence accepted only where its top-2 gap is
+          below QUANT_TIE (K5, K7 int8, exactly); the same loop
+          prefilling each prompt whole is printed beside it, as the
+          measure of the int8 noise;
+      L-solo llama.make_generate on the 300-token prompt, dense f32
+          cache, 32 tokens, equal to reference_greedy; K5 once per layer,
+          K6 once per layer per token after the first, exactly;
+    plus, as information, a decode step's and the 300-token admission's
+    wall and device busy on the paged f32 pool. Returns the runs' launch
+    counts."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    cfg = cfg or llama.PRESETS["llama3-8b"]
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    tree = llama.init(0, cfg, device=dev)
+    prepared = from_jax_params(tree, cfg, dev)
+    del tree
+    sync(dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(prepared))
+    print(f"[llama] {cfg.n_layer} layers, {cfg.n_embd} wide, "
+          f"{cfg.n_head} heads over {cfg.n_kv_head} KV heads, D "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}: f32 weights "
+          f"{n_bytes / 1e9:.2f} GB drawn on {dev} and prepared in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LLAMA_PROMPTS]
+    t0 = time.perf_counter()
+    ref = [reference_greedy(prepared, cfg, p, LLAMA_NEW, dev)
+           for p in prompts[:3]]
+    solo_ref = reference_greedy(prepared, cfg, prompts[3], LLAMA_SOLO_NEW, dev)
+    ref.append((solo_ref[0][:LLAMA_NEW], solo_ref[1][:LLAMA_NEW]))
+    # the int8 reference prefills in the served path's 64-token chunks;
+    # the loop prefilling each prompt whole measures the quantization
+    # noise that QUANT_TIE allows for
+    ref_i8 = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "int8",
+                                     chunk=64) for p in prompts]
+    whole_i8 = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev,
+                                       "int8") for p in prompts]
+    print(f"[llama] references (no-cache f32; plain int8 cache loops, "
+          f"chunked and whole) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for p, (toks, gaps), (whole, _) in zip(prompts, ref_i8, whole_i8):
+        j = next((j for j, (a, b) in enumerate(zip(toks, whole)) if a != b),
+                 None)
+        print(f"[llama] plain int8 loops, prompt {len(p)}: chunked and whole "
+              + ("agree on every token" if j is None else
+                 f"part at step {j}, top-2 gap {gaps[j]:.3e}")
+              + f" (smallest gap {min(gaps):.3e})", flush=True)
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+
+    def exact(dt):
+        return lambda steps: {("cached_attention", dt): L * chunks,
+                              ("paged_decode_attention", dt): L * steps}
+
+    runs = [
+        serve_run("L-A", cfg, prepared, prompts, LLAMA_NEW, ref,
+                  [("cached_attention", "f32"),
+                   ("paged_decode_attention", "f32")], dev, card,
+                  exact=exact("f32"), kv="paged"),
+        serve_run("L-C", cfg, prepared, prompts, LLAMA_NEW, ref_i8,
+                  [("cached_attention", "int8"),
+                   ("paged_decode_attention", "int8")], dev, card,
+                  exact=exact("int8"), tie=QUANT_TIE, kv="paged",
+                  kv_dtype="int8"),
+    ]
+    # L-solo
+    gen = llama.make_generate(cfg, max_new_tokens=LLAMA_SOLO_NEW, device=dev)
+    gen(prepared, [prompts[3][:8]])  # warm-up
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = gen(prepared, [prompts[3]])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if dev.type == "cuda":
+        want = {("cached_attention", "f32"): L,
+                ("decode_attention", "f32"): L * (LLAMA_SOLO_NEW - 1)}
+        for (name, dt), n in want.items():
+            if counts[name][dt] != n:
+                fail(f"[llama] L-solo: {name} ({dt}) launched "
+                     f"{counts[name][dt]} times, expected {n}")
+    print(f"[llama] L-solo make_generate: {LLAMA_SOLO_NEW} tokens after a "
+          f"{len(prompts[3])}-token prompt in {wall * 1e3:.1f} ms; launches "
+          f"{ {n: {d: c for d, c in by.items() if c} for n, by in counts.items() if any(by.values())} }",
+          flush=True)
+    compare_tokens("[llama] L-solo make_generate f32", toks[0].tolist(),
+                   *solo_ref)
+    runs.append(counts)
+    # information: where a decode step's and an admission's time goes
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024, prompt_pad=64,
+                          block_len=16, device=dev, kv="paged")
+    for p in prompts[:3]:
+        b.submit(p, 64)
+    for _ in range(2):
+        b.step()
+    sync(dev)
+    steps = 4
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        b.step()
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if dev.type == "cuda":
+        def decode():
+            for _ in range(steps):
+                b.step()
+
+        wall, dev_ms, n_kern, top, _, dec_ms = _profiled(decode)
+        print(f"[llama] decode step (3 active slots, paged f32): "
+              f"{step_ms:.3f} ms wall; under the profiler "
+              f"{wall / steps:.3f} ms wall, {dev_ms / steps:.3f} ms device "
+              f"busy ({100 * dev_ms / wall:.1f}% of wall), "
+              f"{n_kern / steps:.0f} kernel launches a step; K7 "
+              f"{dec_ms / steps:.4f} ms/step = {100 * dec_ms / dev_ms:.1f}% "
+              f"of device busy; on {card}", flush=True)
+        for name, ms, n in top[:4]:
+            print(f"[llama]   decode {ms / steps:.4f} ms/step  x{n // steps}  "
+                  f"{name}", flush=True)
+        wall, dev_ms, n_kern, top, k5_ms, _ = _profiled(
+            lambda: b.submit(prompts[3], 2))
+        print(f"[llama] admission of the {len(prompts[3])}-token prompt (5 "
+              f"chunks + install): {wall:.3f} ms wall, {dev_ms:.3f} ms "
+              f"device busy ({100 * dev_ms / wall:.1f}%), {n_kern} kernel "
+              f"launches; K5 {k5_ms:.4f} ms = {100 * k5_ms / dev_ms:.1f}% of "
+              f"device busy; on {card}", flush=True)
+    else:
+        print(f"[llama] decode step (3 active slots, paged f32): "
+              f"{step_ms:.3f} ms wall on the CPU", flush=True)
+    del b, prepared
+    return {name: {dt: sum(r[name][dt] for r in runs)
+                   for dt in ("f32", "bf16", "int8")}
+            for name in CACHE_KERNELS}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def kernel_record(name, source, replaces, rows, main_row, launches,
                   **extra):
     """One entry of the kernels line: the f32 case at the main-path shape
@@ -2239,6 +2645,21 @@ def main():
             for dt, n in counts[name].items():
                 launches[name][dt] += n
     launches.update(phase_train(dev, smi))
+    gc.collect()  # the gpt2 phases' tensors go before llama3-8b's 32 GB
+    torch.cuda.empty_cache()
+    llama_rows = phase_llama_kernels(dev, gen)
+    llama_counts = phase_llama(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in CACHE_KERNELS:
+        for dt, n in llama_counts[name].items():
+            launches[name][dt] += n
+
+    def llama_extra(kernel, rows, **shape):
+        """A kernel's [llama] rows, each with the llama runs' launches."""
+        return {**shape, "by_dtype": {
+            dt: {"launches": llama_counts[kernel][dt], **row}
+            for dt, row in rows.items()}}
 
     src = "dnn_tpu_torch/ops/cuda/csrc/"
     pallas = "dnn_tpu/ops/pallas/cached_attention.py"
@@ -2246,15 +2667,25 @@ def main():
         kernel_record("cached_attention", src + "cached_attention.cu",
                       pallas + ":77",
                       {dt: k5[(dt, 960)] for dt, _ in KV_CASES}, "f32",
-                      launches["cached_attention"]),
+                      launches["cached_attention"],
+                      llama_shape=llama_extra(
+                          "cached_attention", llama_rows["K5"], B=1, H=32,
+                          Hk=8, T=64, S=1024, D=128, base=960)),
         kernel_record("decode_attention", src + "decode_attention.cu",
                       pallas + ":296", k6, "f32",
                       launches["decode_attention"],
                       solo_shape={"B": SOLO_B, "Hk": SOLO_HK, "S": SOLO_S,
-                                  "by_dtype": k6_solo}),
+                                  "by_dtype": k6_solo},
+                      llama_solo_shape=llama_extra(
+                          "decode_attention", llama_rows["K6 solo"], B=1,
+                          Hk=8, R=4, S=LLAMA_SOLO_S, D=128,
+                          pos=LLAMA_SOLO_S - 2)),
         kernel_record("paged_decode_attention", src + "paged_decode.cu",
                       pallas + ":459", k7, "f32",
-                      launches["paged_decode_attention"]),
+                      launches["paged_decode_attention"],
+                      llama_shape=llama_extra(
+                          "paged_decode_attention", llama_rows["K7"], B=4,
+                          Hk=8, R=4, D=128, bp=16, nb_max=64)),
     ]
     flash_py = "dnn_tpu/ops/pallas/flash_attention.py"
     for name, source, line in (

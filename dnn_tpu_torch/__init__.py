@@ -1,5 +1,6 @@
-"""dnn_tpu_torch: the PyTorch/CUDA port of dnn_tpu's GPT-2 LM daemon,
-solo decoder and single-card training.
+"""dnn_tpu_torch: the PyTorch/CUDA port of dnn_tpu's LM daemon and solo
+decoder (the GPT-2 and LLaMA families), single-card training and staged
+pipeline.
 
 The JAX package (`dnn_tpu`) stays the reference; this package serves the
 same model over the same gRPC wire on an NVIDIA H100 and trains it

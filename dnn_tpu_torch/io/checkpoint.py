@@ -12,8 +12,9 @@ Readers return a flat {name: numpy array} state dict:
 numpy has no bfloat16: a bf16 tensor comes back widened to float32,
 which is exact.
 
-The converters turn torch layouts (NCHW/OIHW convolutions, (out, in)
-linears, HF Conv1D) into the JAX package's tree (HWIO convolutions,
+The converters (cifar, GPT-2, and the LLaMA and Phi families' HF
+layouts) turn torch layouts (NCHW/OIHW convolutions, (out, in) linears,
+HF Conv1D) into the JAX package's tree (HWIO convolutions,
 (in, out) kernels). `params_to_flat`/`flat_to_params` are the native
 flat layout ("/"-joined keys), which `save_npz` writes.
 """
@@ -229,6 +230,111 @@ def gpt_params_from_state_dict(sd: Dict[str, np.ndarray],
     else:
         params["lm_head"] = {"kernel": np.ascontiguousarray(
             sd["wte.weight"].T)}
+    return params
+
+
+def _hf_layers(sd: Dict[str, np.ndarray], n_layer: Optional[int]):
+    """HF's "model."-prefixed names without the prefix, and the layer
+    count (from the "layers.N." names when not given)."""
+    sd = {(k[len("model."):] if k.startswith("model.") else k): v
+          for k, v in sd.items()}
+    if n_layer is None:
+        n_layer = 1 + max(
+            int(k.split(".")[1]) for k in sd
+            if k.startswith("layers.") and k.split(".")[1].isdigit())
+    return sd, n_layer
+
+
+def _hf_proj(sd: Dict[str, np.ndarray], key: str):
+    """A torch Linear -> {"kernel" (in, out)[, "bias"]}."""
+    out = {"kernel": _t_linear(sd[key + ".weight"])}
+    if key + ".bias" in sd:
+        out["bias"] = sd[key + ".bias"]
+    return out
+
+
+def llama_params_from_state_dict(sd: Dict[str, np.ndarray],
+                                 n_layer: Optional[int] = None,
+                                 post_norms: bool = False,
+                                 tied_head: str = "materialize"):
+    """An HF LlamaForCausalLM-layout state dict (LLaMA, Qwen2 with q/k/v
+    biases, Qwen3 / OLMo-2 with q/k norms, Gemma) -> the LLaMA-family
+    tree (JAX's checkpoint.llama_params_from_state_dict :312, the same
+    leaves). Projections transpose (out, in) -> (in, out); any
+    `*_proj.bias` rides along. `post_norms=True` reads Gemma-2's four
+    norms (or OLMo-2's two post norms where the block has no
+    input_layernorm). `tied_head="omit"` leaves lm_head out (the head
+    projects through wte), after checking that a stored lm_head.weight
+    equals the embedding; the default keeps lm_head.weight, or
+    materialises the embedding's transpose."""
+    sd, n_layer = _hf_layers(sd, n_layer)
+    params = {"wte": {"embedding": sd["embed_tokens.weight"]},
+              "ln_f": {"scale": sd["norm.weight"]}}
+    for i in range(n_layer):
+        p = f"layers.{i}."
+        blk = {
+            "attn": {n: _hf_proj(sd, p + f"self_attn.{n}_proj")
+                     for n in ("q", "k", "v", "o")},
+            "mlp": {n: _hf_proj(sd, p + f"mlp.{n}_proj")
+                    for n in ("gate", "up", "down")},
+        }
+        if p + "input_layernorm.weight" in sd:
+            blk["ln_1"] = {"scale": sd[p + "input_layernorm.weight"]}
+        if p + "self_attn.q_norm.weight" in sd:
+            blk["attn"]["q_norm"] = {
+                "scale": sd[p + "self_attn.q_norm.weight"]}
+            blk["attn"]["k_norm"] = {
+                "scale": sd[p + "self_attn.k_norm.weight"]}
+        if post_norms:
+            blk["post_ln_1"] = {
+                "scale": sd[p + "post_attention_layernorm.weight"]}
+            blk["post_ln_2"] = {
+                "scale": sd[p + "post_feedforward_layernorm.weight"]}
+            if "ln_1" in blk:  # Gemma-2; OLMo-2 has no pre-norms
+                blk["ln_2"] = {
+                    "scale": sd[p + "pre_feedforward_layernorm.weight"]}
+        else:
+            blk["ln_2"] = {"scale": sd[p + "post_attention_layernorm.weight"]}
+        params[f"h_{i}"] = blk
+    if tied_head == "omit":
+        if "lm_head.weight" in sd and not np.array_equal(
+                sd["lm_head.weight"], sd["embed_tokens.weight"]):
+            raise ValueError(
+                "tied_head='omit' but the checkpoint's lm_head.weight "
+                "differs from embed_tokens.weight — this model is not "
+                "tied; convert with tied_head='materialize'")
+    elif "lm_head.weight" in sd:
+        params["lm_head"] = {"kernel": _t_linear(sd["lm_head.weight"])}
+    else:
+        params["lm_head"] = {"kernel": _t_linear(sd["embed_tokens.weight"])}
+    return params
+
+
+def phi_params_from_state_dict(sd: Dict[str, np.ndarray],
+                               n_layer: Optional[int] = None):
+    """An HF PhiForCausalLM state dict -> the LLaMA-family tree of a
+    parallel-block config (JAX's checkpoint.phi_params_from_state_dict
+    :420): biased LayerNorms, `self_attn.dense` as o, `mlp.fc1/fc2` as
+    up/down, a bias on every projection, one norm a layer (ln_1)."""
+    sd, n_layer = _hf_layers(sd, n_layer)
+
+    def ln(prefix):
+        return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+    params = {"wte": {"embedding": sd["embed_tokens.weight"]},
+              "ln_f": ln("final_layernorm"),
+              "lm_head": _hf_proj(sd, "lm_head")}
+    for i in range(n_layer):
+        p = f"layers.{i}."
+        params[f"h_{i}"] = {
+            "ln_1": ln(p + "input_layernorm"),
+            "attn": {"q": _hf_proj(sd, p + "self_attn.q_proj"),
+                     "k": _hf_proj(sd, p + "self_attn.k_proj"),
+                     "v": _hf_proj(sd, p + "self_attn.v_proj"),
+                     "o": _hf_proj(sd, p + "self_attn.dense")},
+            "mlp": {"up": _hf_proj(sd, p + "mlp.fc1"),
+                    "down": _hf_proj(sd, p + "mlp.fc2")},
+        }
     return params
 
 

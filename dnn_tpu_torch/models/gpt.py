@@ -102,7 +102,11 @@ def init(seed: int, cfg: GPTConfig = PRESETS["gpt2"]):
 
 
 def _to_tensor(a, device):
-    # np.array copies: the source may be a read-only view of JAX memory
+    """A leaf -> a float32 tensor on `device`. A tensor moves (no copy
+    where it is already there); anything else goes through np.array,
+    which copies: the source may be a read-only view of JAX memory."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 
 
@@ -118,10 +122,12 @@ def tensors(params, device):
     return _map(lambda a: _to_tensor(a, device), params)
 
 
-def prepare_stacked(params, cfg: GPTConfig, device):
-    """JAX-layout tree (numpy leaves) -> the served form: every block
-    leaf stacked along a leading (L,) axis, all leaves float32 tensors
-    on `device`."""
+def prepare_stacked(params, cfg, device):
+    """JAX-layout tree -> the served form: every block leaf stacked
+    along a leading (L,) axis, all leaves float32 tensors on `device`.
+    Leaves are numpy arrays, or tensors (stacked where they lie, so a
+    tree drawn on the card never visits the host). Any config with
+    n_layer and "h_i" blocks: the GPT and LLaMA families share it."""
     blocks = [params[f"h_{i}"] for i in range(cfg.n_layer)]
 
     def stack(*path):
@@ -130,8 +136,11 @@ def prepare_stacked(params, cfg: GPTConfig, device):
             node = b
             for key in path:
                 node = node[key]
-            leaves.append(np.asarray(node, np.float32))
-        return _to_tensor(np.stack(leaves), device)
+            leaves.append(node)
+        if isinstance(leaves[0], torch.Tensor):
+            return _to_tensor(torch.stack(leaves), device)
+        return _to_tensor(np.stack([np.asarray(a, np.float32)
+                                    for a in leaves]), device)
 
     def stack_tree(node, path=()):
         if isinstance(node, dict):

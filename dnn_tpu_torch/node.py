@@ -7,7 +7,7 @@
     # the whole pipeline in this process (the single-controller default)
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         [--input_image img.png]
-    # GPT families: decode N tokens in this process
+    # GPT and LLaMA families: decode N tokens in this process
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         --generate N [--prompt_ids 1,2,3] [--temperature T] [--top_k K] \\
         [--top_p P] [--seed S]
@@ -61,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="image path (part_index 0 initiates inference; a "
                         "missing file means the dummy image)")
     p.add_argument("--generate", type=int, metavar="N", default=None,
-                   help="GPT families: decode N new tokens and print them")
+                   help="GPT and LLaMA families: decode N new tokens and "
+                   "print them")
     p.add_argument("--prompt_ids", default=None,
                    help="comma-separated prompt token ids for --generate "
                         "(default: the single token 0)")
@@ -109,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "HF tokenizer directory; SendMessage then serves "
                         "prompt text -> generated text")
     p.add_argument("--weights_npz", default=None,
-                   help="--serve_lm: a JAX GPT param tree (.npz, '/'-joined "
+                   help="--serve_lm: a JAX GPT or LLaMA param tree (.npz, "
+                   "'/'-joined "
                         "keys) in place of the config's model_weights")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="override the config's device_type")
@@ -231,15 +233,17 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
     """The LM daemon on this node's port, with the config's weights."""
     from dnn_tpu_torch.convert import from_jax_params, load_npz
     from dnn_tpu_torch.models.gpt import GPTConfig
+    from dnn_tpu_torch.models.llama import LlamaConfig
     from dnn_tpu_torch.registry import get_model
     from dnn_tpu_torch.runtime.engine import load_params
     from dnn_tpu_torch.runtime.lm_server import serve_lm
 
     try:
         spec = get_model(config.model)
-        if type(spec.config) is not GPTConfig:
-            raise ValueError(f"--serve_lm requires a GPT-family model; "
-                             f"'{config.model}' is not one")
+        if type(spec.config) not in (GPTConfig, LlamaConfig):
+            raise ValueError(f"--serve_lm requires a GPT-family or "
+                             f"LLaMA-family model; '{config.model}' is not "
+                             "one")
         if me.port is None:
             raise ValueError(f"node '{me.id}' has no IP:Port address in the "
                              "config; the LM daemon needs one to bind")
@@ -270,7 +274,8 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             paged_blocks=args.paged_blocks, block_len=args.block_len,
             seed=args.seed, device=device, tokenizer=tokenizer))
     except (NotImplementedError, ValueError) as e:
-        log.error("%s", e)  # e.g. --kv_dtype int4 (ROADMAP item 2)
+        # e.g. --kv_dtype int4, or a sliding-window preset (ROADMAP item 2)
+        log.error("%s", e)
         return 2
 
 

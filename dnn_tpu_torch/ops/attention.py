@@ -3,6 +3,8 @@ dnn_tpu/ops/attention.py)."""
 
 from __future__ import annotations
 
+import torch
+
 from dnn_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     reference_attention,
@@ -42,3 +44,30 @@ def causal_self_attention(params, x, *, n_head, use_flash=False,
     else:
         y = reference_attention(q, k, v, causal=True)
     return linear(params["proj"], merge_heads(y), compute_dtype=compute_dtype)
+
+
+def rope_cos_sin(positions, head_dim, *, theta=10000.0):
+    """cos/sin tables of the rotary position embedding at absolute
+    `positions` (any shape P...), HF half-split convention (JAX's
+    ops/attention.rope_cos_sin :72): inverse frequencies
+    1/theta^(2i/d) and the angles in f32, in JAX's order of operations,
+    tiled to the full head dim. Returns (cos, sin), each (*P, head_dim)
+    f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                            device=positions.device), exps)
+    angles = positions.float()[..., None] * inv_freq  # (*P, d/2)
+    emb = torch.cat([angles, angles], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate head vectors x (..., T, D) by per-position tables that
+    broadcast against them (JAX's apply_rope :84): the two halves of the
+    head dim are the rotation pairs (torch rotate_half), in f32, cast
+    back to x's dtype."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)

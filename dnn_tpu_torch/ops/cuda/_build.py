@@ -41,10 +41,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
-        # q k v ks vs pos out ws | BH H T S D kv_kind split_tiles | scale
-        # stream (ws: the split-KV workspace, None for a single split)
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-         _P]),
+        # q k v ks vs pos out ws | BH H G T S D kv_kind split_tiles |
+        # scale stream (G: query heads a KV head; ws: the split-KV
+        # workspace, None for a single split)
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _F, _P]),
     "decode_attention": (
         "decode_attention.cu", "dnn_decode_attention",
         # q k v ks vs pos out ws | B Hk R S D kv_kind split_keys | scale

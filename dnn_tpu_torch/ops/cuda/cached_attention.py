@@ -4,7 +4,8 @@ serving path and their plain PyTorch twins.
   * `cached_attention` (K5, csrc/cached_attention.cu) — a prefill
     chunk's rows attend a preallocated cache with a runtime base
     position; replaces dnn_tpu/ops/pallas/cached_attention.py
-    :_cached_attn_kernel. Both products run on the tensor cores over a
+    :_cached_attn_kernel. The cache may hold fewer heads than q
+    (grouped-query attention): query head h reads KV head h / G. Both products run on the tensor cores over a
     split-KV grid (`k5_split`); one call launches the split kernel and,
     where the keys fall into more than one split, the merge kernel.
   * `decode_attention` (K6, csrc/decode_attention.cu) — one decode step
@@ -70,13 +71,21 @@ def _scaled_softmax_attend(q, k, v, keep, ks, vs):
 
 
 def reference_cached_attention(q, k, v, pos, *, ks=None, vs=None):
-    """q (B, H, T, D) at absolute positions pos[b] + t; k/v (B, H, S, D)
-    cache (float, or int8 with ks/vs (B, H, S) scales); pos (B,) int32.
-    Row (b, t) attends columns <= pos[b] + t. Returns (B, H, T, D) f32."""
+    """q (B, H, T, D) at absolute positions pos[b] + t; k/v (B, Hk, S, D)
+    cache with H = G * Hk (float, or int8 with ks/vs (B, Hk, S) scales);
+    pos (B,) int32. Row (b, t) attends columns <= pos[b] + t; query head
+    h reads KV head h / G. The group folds into the row dim, as the JAX
+    LLaMA path folds it ((B, Hk, G * T, D), row limits tiled G times), so
+    the cache is never copied per query head. Returns (B, H, T, D)
+    f32."""
+    b, h, t, d = q.shape
+    hk = k.shape[1]
     cols = torch.arange(k.shape[2], device=q.device)
-    rows = torch.arange(q.shape[2], device=q.device)
+    rows = torch.arange((h // hk) * t, device=q.device) % t
     limit = pos.long()[:, None, None, None] + rows[None, None, :, None]
-    return _scaled_softmax_attend(q, k, v, cols <= limit, ks, vs)
+    out = _scaled_softmax_attend(q.reshape(b, hk, -1, d), k, v,
+                                 cols <= limit, ks, vs)
+    return out.reshape(b, h, t, d)
 
 
 def reference_decode_attention(q, k, v, pos, *, ks=None, vs=None):
@@ -221,19 +230,22 @@ def _decode_rows(r):
 
 @_counted
 def cached_attention(q, k, v, pos, *, ks=None, vs=None):
-    """K5. q (B, H, T, D) f32; k/v (B, H, S, D) f32 or bf16, or int8 with
-    ks/vs (B, H, S) f32 scales; pos (B,) int32 base positions >= 0 (row t
-    attends columns <= pos[b] + t). Returns (B, H, T, D) f32. CPU tensors
-    run `reference_cached_attention`. On CUDA the partial results of the
-    key splits go to an f32 workspace of n_split * B * H * T * (D + 2)
+    """K5. q (B, H, T, D) f32; k/v (B, Hk, S, D) f32 or bf16, or int8
+    with ks/vs (B, Hk, S) f32 scales, where H = G * Hk (G = 1: one cache
+    head per query head; query head h reads KV head h / G); pos (B,)
+    int32 base positions >= 0 (row t attends columns <= pos[b] + t).
+    Returns (B, H, T, D) f32. CPU tensors run
+    `reference_cached_attention`. On CUDA the partial results of the key
+    splits go to an f32 workspace of n_split * B * H * T * (D + 2)
     floats, merged in split order (deterministic)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: expected (B,H,T,D)/(B,H,S,D)")
+                         f"v {tuple(v.shape)}: expected (B,H,T,D)/(B,Hk,S,D)")
     b, h, t, d = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, h, d):
+    hk = k.shape[1]
+    if (k.shape[0], k.shape[3]) != (b, d) or hk < 1 or h % hk:
         raise ValueError(f"cache {tuple(k.shape)} does not match q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(q.shape)} (its heads must divide q's)")
     if tuple(pos.shape) != (b,):
         raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
     kind, dname = _check_dtypes(q, k, v, pos, ks, vs)
@@ -248,7 +260,7 @@ def cached_attention(q, k, v, pos, *, ks=None, vs=None):
         n_split * b * h * t * (d + 2), dtype=torch.float32, device=dev)
     _launch(cached_attention, "cached_attention", dname, dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
-            pos.data_ptr(), out.data_ptr(), _ptr(ws), b * h, h, t,
+            pos.data_ptr(), out.data_ptr(), _ptr(ws), b * h, h, h // hk, t,
             k.shape[2], d, kind, split_tiles, 1.0 / math.sqrt(d))
     return out
 

@@ -5,7 +5,9 @@
 // preallocated K/V cache with a RUNTIME base position: row t of batch b
 // sees cache columns <= pos[b] + t. q is f32; the cache is f32, bf16, or
 // int8 with one f32 scale per (position, head) for K and for V; the
-// output is f32.
+// output is f32. Grouped-query attention: the cache may hold fewer heads
+// than q, Hk = H / G, and query head h reads KV head h / G (G = 1 is
+// multi-head attention; llama3-8b has G = 4).
 //
 // What bounds it on an H100: bytes, and before them latency. At the
 // serving shape (B=1, H=12, one 64-row chunk, D=64, base 960: 1024 live
@@ -14,6 +16,13 @@
 // products the kernel issues on the tensor cores take 0.0004-0.0006 ms
 // at 989 TFLOP/s. A chunk is only B * H * ceil(T/64) = 12 query tiles,
 // far too few blocks to fill 132 SMs if each walks its keys alone.
+//
+// Grouped heads (llama3-8b's chunk: B=1, H=32 over Hk=8 KV heads, T=64,
+// D=128): the grid keeps one block per query head, so the G query heads
+// of a KV head read its cache rows G times -- from L2 after the first
+// (8.4 MB of live f32 K/V at base 960 against a 50 MB L2). The bytes the
+// call must move are those of the Hk heads. Nothing else changes: a
+// call with G = 1 launches the same grid as before grouping existed.
 //
 // Design (one kernel per cache type and head dim, tc::cached_attn_tc_kernel):
 //  * Split-KV grid (n_split, ceil(T/64), B*H). A block is one warpgroup
@@ -197,8 +206,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
   }
 }
 
-// q (BH, T, D) f32; k, v (BH, S, D) KV; k_scale, v_scale (BH, S) f32
-// (int8 only); pos (B,) int32, B = BH / H; out (BH, T, D) f32; ws null
+// q (BH, T, D) f32; k, v (BH / G, S, D) KV; k_scale, v_scale (BH / G, S)
+// f32 (int8 only); pos (B,) int32, B = BH / H; out (BH, T, D) f32. Query
+// head bh reads the cache's head bh / G: with H = G * Hk, b * H + h over G
+// is b * Hk + h / G. Only the cache's addressing sees G; q, the output,
+// pos and the workspace are indexed by bh as for G = 1. ws null
 // (one split: out is written here) or the workspace of n_split =
 // gridDim.x splits: acc (n_split, BH, T, D), then m and l (n_split, BH,
 // T) each (rows whose live columns all lie in split 0 go to out
@@ -211,7 +223,7 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                       const float* __restrict__ k_scale,
                       const float* __restrict__ v_scale,
                       const int* __restrict__ pos, float* __restrict__ out,
-                      float* __restrict__ ws, int H, int T, int S,
+                      float* __restrict__ ws, int H, int G, int T, int S,
                       int split_keys, float scale) {
   using K = Kind<KV>;
   using L = Smem<KV, D>;
@@ -238,7 +250,7 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                         min(S - 1, base + q0 + r0 + 8)};
   // tiles wholly at or below the first row's limit need no mask
   const int first_limit = min(S - 1, base + q0);
-  const size_t kv_row = (size_t)bh * S;
+  const size_t kv_row = (size_t)(bh / G) * S;  // this head's cache rows
   const KV* kb = k + kv_row * D;
   const KV* vb = v + kv_row * D;
 
@@ -457,8 +469,8 @@ cached_attn_merge_kernel(const float* __restrict__ ws,
 template <typename KV, int D>
 cudaError_t launch(const float* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* pos,
-                   float* out, float* ws, int BH, int H, int T, int S,
-                   int split_keys, int n_split, float scale,
+                   float* out, float* ws, int BH, int H, int G, int T,
+                   int S, int split_keys, int n_split, float scale,
                    cudaStream_t stream) {
   constexpr int smem = Smem<KV, D>::kBytes;
   static bool configured = false;
@@ -467,7 +479,7 @@ cudaError_t launch(const float* q, const void* k, const void* v,
   const dim3 grid(n_split, (T + kRows - 1) / kRows, BH);
   cached_attn_tc_kernel<KV, D><<<grid, kWGThreads, smem, stream>>>(
       q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, pos,
-      out, ws, H, T, S, split_keys, scale);
+      out, ws, H, G, T, S, split_keys, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || ws == nullptr) return e;
   constexpr int kRowsPer = kWGThreads / (D / 4);
@@ -489,7 +501,8 @@ cudaError_t launch(const float* q, const void* k, const void* v,
 }  // namespace tc
 }  // namespace
 
-// C entry point (loaded with ctypes). kv_kind: 0 = f32 cache, 1 = bf16,
+// C entry point (loaded with ctypes). G: query heads a KV head (H / Hk;
+// 1 for multi-head attention). kv_kind: 0 = f32 cache, 1 = bf16,
 // 2 = int8 with ks/vs scales (null for the float kinds). split_tiles:
 // 64-key tiles per split; the keys fall into n_split = ceil(ceil(S / 64)
 // / split_tiles) splits, and ws is null when n_split is 1, else an f32
@@ -500,12 +513,13 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, const void* pos,
                                     void* out, void* ws, int BH, int H,
-                                    int T, int S, int D, int kv_kind,
+                                    int G, int T, int S, int D, int kv_kind,
                                     int split_tiles, float scale,
                                     void* stream) {
   using tc::kRows;
-  if (BH <= 0 || H <= 0 || T <= 0 || S <= 0 || split_tiles <= 0 ||
-      BH % H != 0 || BH > 65535 || (T + kRows - 1) / kRows > 65535)
+  if (BH <= 0 || H <= 0 || G <= 0 || T <= 0 || S <= 0 || split_tiles <= 0 ||
+      BH % H != 0 || H % G != 0 || BH > 65535 ||
+      (T + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (S + kRows - 1) / kRows;
   const int n_split = (n_tiles + split_tiles - 1) / split_tiles;
@@ -525,15 +539,16 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
     constexpr int kD = decltype(d)::value;
     switch (kv_kind) {
       case 0:
-        return tc::launch<float, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H, T,
-                                     S, split_keys, n_split, scale, st);
+        return tc::launch<float, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H, G,
+                                     T, S, split_keys, n_split, scale, st);
       case 1:
         return tc::launch<__nv_bfloat16, kD>(qq, k, v, kss, vss, pp, oo, ww,
-                                             BH, H, T, S, split_keys, n_split,
-                                             scale, st);
+                                             BH, H, G, T, S, split_keys,
+                                             n_split, scale, st);
       case 2:
         return tc::launch<int8_t, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H,
-                                      T, S, split_keys, n_split, scale, st);
+                                      G, T, S, split_keys, n_split, scale,
+                                      st);
       default:
         return cudaErrorInvalidValue;
     }

@@ -97,8 +97,26 @@ def linear(params, x, *, compute_dtype=None, accum_dtype=None):
 
 
 def gelu(x):
-    """tanh-approximate GELU (the GPT-2 nonlinearity)."""
+    """tanh-approximate GELU (the GPT-2 nonlinearity; Gemma's GeGLU and
+    Phi's MLP use it too)."""
     return F.gelu(x, approximate="tanh")
+
+
+def silu(x):
+    """SiLU / swish (the LLaMA-family gate nonlinearity)."""
+    return F.silu(x)
+
+
+def rms_norm(params, x, *, eps=1e-6, plus_one=False):
+    """RMSNorm over the last dim (JAX's ops/nn.rms_norm :241): no mean
+    subtraction, no bias, f32 statistics. `plus_one=True` scales by
+    (1 + w), the Gemma convention of zero-centred scales."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    scale = params["scale"].float()
+    if plus_one:
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)
 
 
 def layer_norm(params, x, *, eps=1e-5):

@@ -6,9 +6,11 @@ is a function over the slice of the parameter tree named by its
 `param_keys`. Parameters keep the JAX package's tree layout, so one
 checkpoint feeds both packages.
 
-Registered here: `cifar_cnn`, `mlp` and the GPT-2 presets. The JAX
-package's other families (llama, the MoE families, ...) are not ported
-and `get_model` names the ROADMAP item that holds them.
+Registered here: `cifar_cnn`, `mlp`, the GPT-2 presets and every
+LLaMA-family preset (models/llama.py; those that need an unported
+switch raise when built or served, not here). The JAX package's MoE
+families are not ported and `get_model` names the ROADMAP item that
+holds them.
 """
 
 from __future__ import annotations
@@ -61,8 +63,8 @@ def get_model(name: str) -> ModelSpec:
     except KeyError:
         raise KeyError(
             f"Unknown model '{name}'. Available: {sorted(_REGISTRY)}. The "
-            "JAX package's other families (llama, MoE, ...) are not ported "
-            "to dnn_tpu_torch yet (ROADMAP Queue 1 item 9)") from None
+            "JAX package's MoE families (gpt_moe, llama_moe) are not "
+            "ported to dnn_tpu_torch yet (ROADMAP Queue 1 item 9)") from None
 
 
 def available_models():

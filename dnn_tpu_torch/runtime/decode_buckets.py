@@ -25,7 +25,8 @@ __all__ = ["DEFAULT_MIN_BUCKET", "bucket_ladder", "bucket_for",
 DEFAULT_MIN_BUCKET = 64
 
 # every dense codec leaf carries positions at axis 3: K/V (L, B, H, S, D)
-# and the int8 scales (L, B, H, S) alike (runtime/kvcache.py)
+# and the int8 scales (L, B, H, S) alike (runtime/kvcache.py), H the
+# model's KV heads, so a grouped-query pool grows at its own width
 _POS_AXIS = 3
 
 

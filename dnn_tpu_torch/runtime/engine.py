@@ -168,7 +168,7 @@ class PipelineEngine:
         """argmax over the last stage's output (flattened)."""
         return int(torch.argmax(self.run(x).float().flatten()).item())
 
-    # --- generation (dense GPT family) ---------------------------------
+    # --- generation (the GPT and LLaMA families) ------------------------
 
     def _require_full_role(self):
         if self.role == "stage":
@@ -190,16 +190,18 @@ class PipelineEngine:
                        top_p: Optional[float] = None):
         """generate(ids, seed=0) -> (B, max_new_tokens) int32 tokens on
         this engine's weights, through the port's make_generate (K5 for
-        the prompt, K6 per token on the card). Sampled draws come from a
+        the prompt, K6 per token on the card; a LLaMA-family model over a
+        KV-head cache, K5 with grouped heads). Sampled draws come from a
         torch.Generator seeded with `seed`; greedy draws equal JAX's."""
         from dnn_tpu_torch.models.gpt import GPTConfig
+        from dnn_tpu_torch.models.llama import LlamaConfig
         from dnn_tpu_torch.runtime.generate import make_generate
 
         cfg = self.spec.config
         self._require_full_role()
-        if type(cfg) is not GPTConfig:
+        if not isinstance(cfg, (GPTConfig, LlamaConfig)):
             raise ValueError(
-                f"generation requires a GPT-family model; "
+                f"generation requires a GPT-family or LLaMA-family model; "
                 f"'{self.config.model}' has config {type(cfg).__name__}")
         gen = make_generate(cfg, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_k=top_k, top_p=top_p,

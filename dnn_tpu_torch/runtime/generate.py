@@ -1,5 +1,5 @@
-"""Cached forward, sampling and solo generation for the GPT family (port
-of dnn_tpu/runtime/generate.py:50-255, 474-566).
+"""Cached forward, sampling and solo generation for the GPT and LLaMA
+families (port of dnn_tpu/runtime/generate.py:50-255, 474-566).
 
 `forward_with_cache` runs one chunk of tokens at positions
 [start_pos, start_pos + T) through every layer — a Python loop over the
@@ -7,7 +7,9 @@ stacked blocks — writing each layer's K/V into the cache in place and
 attending through the cache's codec (runtime/kvcache.py: K5 for a chunk,
 K6 for a one-token step). `forward_no_cache` is the plain full-sequence
 forward the cached paths are held against. `make_generate` is the solo
-decoder: the prompt in one forward, then one forward per token.
+decoder: the prompt in one forward, then one forward per token; given a
+LlamaConfig it runs the LLaMA family's cached forward (models/llama.py)
+over a KV-head-width cache, as JAX's make_generate for that family does.
 
 Sampling (`_sample`, `_sample_rows`) keeps the JAX package's filter
 arithmetic — temperature, top-k, min-p and nucleus over the same top-256
@@ -42,10 +44,12 @@ _NEG_BIG = -1e30
 TOP_P_PREFILTER_K = 256
 
 
-def init_cache(cfg: GPTConfig, batch: int, max_len: int, dtype, device):
+def init_cache(cfg, batch: int, max_len: int, dtype, device):
     """Preallocated cache, one leading layer axis: {"k","v"}
     (L, B, H, S, D) in torch.float32 / torch.bfloat16, or dtype="int8"
-    for the quantized cache (int8 K/V plus (L, B, H, S) f32 scales)."""
+    for the quantized cache (int8 K/V plus (L, B, H, S) f32 scales). H
+    is the config's KV heads (kvcache.cache_shape): n_head for GPT-2,
+    n_kv_head for the LLaMA family."""
     if dtype == "int8":
         return Int8KV().init(cfg, batch, max_len, device)
     if dtype == "int4":
@@ -97,11 +101,22 @@ def forward_with_cache(prepared, ids, cache, start_pos: int, *,
     return head(prepared, x.float(), cfg=cfg), cache
 
 
+def _is_llama(cfg) -> bool:
+    from dnn_tpu_torch.models.llama import LlamaConfig
+
+    return isinstance(cfg, LlamaConfig)
+
+
 @torch.no_grad()
-def forward_no_cache(prepared, ids, *, cfg: GPTConfig):
+def forward_no_cache(prepared, ids, *, cfg):
     """Plain full-sequence causal forward, no cache and no kernel:
     ids (B, T) -> logits (B, T, V). Attention is the masked softmax
-    formula (scores / sqrt(D), masked at -1e30)."""
+    formula (scores / sqrt(D), masked at -1e30); a LlamaConfig runs
+    llama.forward_no_cache (the grouped einsum)."""
+    if _is_llama(cfg):
+        from dnn_tpu_torch.models.llama import forward_no_cache as fwd
+
+        return fwd(prepared, ids, cfg=cfg)
     t = ids.shape[1]
     if t > cfg.block_size:
         raise ValueError(f"sequence length {t} > block_size {cfg.block_size}")
@@ -231,7 +246,7 @@ def _cache_dtype(kv_dtype):
     raise ValueError(f"kv_dtype must be f32, bf16 or int8, got {kv_dtype!r}")
 
 
-def make_generate(cfg: GPTConfig, *, max_new_tokens: int,
+def make_generate(cfg, *, max_new_tokens: int,
                   temperature: float = 0.0, top_k: Optional[int] = None,
                   top_p: Optional[float] = None,
                   min_p: Optional[float] = None,
@@ -252,6 +267,11 @@ def make_generate(cfg: GPTConfig, *, max_new_tokens: int,
     torch.Generator seeded with `seed` and differ from JAX's threefry
     stream; greedy draws are identical to JAX's `make_generate`.
 
+    A LlamaConfig (JAX's llama.make_generate) decodes through
+    llama.forward_with_cache: K5 with grouped heads for the prompt, K6
+    at n_head / n_kv_head rows a KV head per token; its unported
+    switches raise (llama.check_ported).
+
     Runs on CUDA unless `device="cpu"` is given (without a card the
     default raises); `prepared` must live on that device. JAX's
     `attn_kernel` (a TPU crossover knob) has no counterpart: on CUDA the
@@ -265,6 +285,12 @@ def make_generate(cfg: GPTConfig, *, max_new_tokens: int,
         raise NotImplementedError(
             "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
             "(ROADMAP PyTorch/CUDA port item 7)")
+    forward = forward_with_cache
+    if _is_llama(cfg):
+        from dnn_tpu_torch.models import llama
+
+        llama.check_ported(cfg)
+        forward = llama.forward_with_cache
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if repetition_penalty is not None and repetition_penalty <= 0:
@@ -295,7 +321,7 @@ def make_generate(cfg: GPTConfig, *, max_new_tokens: int,
                 f"block_size {cfg.block_size}")
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         cache = init_cache(cfg, b, t + max_new_tokens, cache_dtype, dev)
-        logits, cache = forward_with_cache(prepared, ids, cache, 0, cfg=cfg)
+        logits, cache = forward(prepared, ids, cache, 0, cfg=cfg)
         rows = torch.arange(b, device=dev)
         seen = None
         if pen_on:
@@ -317,7 +343,7 @@ def make_generate(cfg: GPTConfig, *, max_new_tokens: int,
         toks = [pick(logits[:, -1])]
         for i in range(max_new_tokens - 1):
             # token i sits at sequence position t + i
-            logits, cache = forward_with_cache(
+            logits, cache = forward(
                 prepared, toks[-1][:, None], cache, t + i, cfg=cfg)
             toks.append(pick(logits[:, -1]))
         return torch.stack(toks, dim=1).to(torch.int32)

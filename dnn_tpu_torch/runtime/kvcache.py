@@ -4,18 +4,22 @@
 A dense cache is {"k", "v"} of shape (L, B, H, S, D) in f32 or bf16, or
 {"k", "v", "ks", "vs"} for int8: int8 K/V plus one f32 scale per
 (position, head), (L, B, H, S), written as amax/127 of the row
-(`_quantize_rows`). The layer loop hands a codec one layer's
-(B, H, S[, D]) views. Writes are IN PLACE (torch has no donation; the
-JAX codecs return a functionally updated cache that XLA aliases onto its
-input).
+(`_quantize_rows`). H is the model's KV heads: n_head for GPT-2,
+n_kv_head for a grouped-query (LLaMA-family) config, whose G = n_head /
+n_kv_head query heads share one cached head. The layer loop hands a
+codec one layer's (B, H, S[, D]) views. Writes are IN PLACE (torch has
+no donation; the JAX codecs return a functionally updated cache that
+XLA aliases onto its input).
 
 Attention always runs a kernel wrapper: on a CUDA cache that is the
 kernel at every length (the TPU length crossovers, AUTO_KERNEL_MIN_S and
 the use_kernel policy, are not carried over), on a CPU cache its plain
 version. `attend(base=)` sends a one-row step to K6 (decode_attention)
 and a chunk to K5 (cached_attention), as the JAX codecs' kernel path
-does; `attend_rows` (per-slot decode) is K6. Output dtypes follow the
-JAX codecs: a float codec returns the cache dtype, the int8 codec f32.
+does, with grouped query heads (a one-row step folds each group into
+K6's rows); `attend_rows` (per-slot decode, R rows a cached head) is K6.
+Output dtypes follow the JAX codecs: a float codec returns the cache
+dtype, the int8 codec f32.
 
 Not ported (ROADMAP PyTorch/CUDA port items 2 and 7): int4 caches,
 the rolling ring codecs and sliding windows (item 2), logit softcapping
@@ -31,7 +35,8 @@ from dnn_tpu_torch.ops.cuda.cached_attention import (
     decode_attention,
 )
 
-__all__ = ["FloatKV", "Int8KV", "band_keep", "codec_for_cache"]
+__all__ = ["FloatKV", "Int8KV", "band_keep", "cache_shape",
+           "codec_for_cache"]
 
 
 def band_keep(cols, limit, window):
@@ -86,14 +91,28 @@ def _write_rows(c, new: dict, pos, write_gate):
         leaf[b, :, p] = torch.where(gate, val.to(leaf.dtype), leaf[b, :, p])
 
 
+def cache_shape(cfg, batch: int, max_len: int):
+    """(L, B, KV heads, S, D) of a dense cache for `cfg`: GQA configs
+    (n_kv_head, head_dim) store their KV heads, GPT-2 its n_head."""
+    heads = getattr(cfg, "n_kv_head", cfg.n_head)
+    d = getattr(cfg, "head_dim", cfg.n_embd // cfg.n_head)
+    return (cfg.n_layer, batch, heads, max_len, d)
+
+
 def _attend_from(q, c, base: int, **scales):
     """q (B, H, T, D) at positions base + arange(T) against the whole
-    cache, row t attending key positions <= base + t (the contiguous
-    limit contract of the JAX codecs' `base=` path): a one-row step runs
-    K6, a chunk K5, as the JAX codecs' kernel path does. f32 out."""
-    pos = torch.full((q.shape[0],), base, dtype=torch.int32, device=q.device)
-    kernel = decode_attention if q.shape[2] == 1 else cached_attention
-    return kernel(q.contiguous(), c["k"], c["v"], pos, **scales)
+    cache of Hk = H / G heads, row t attending key positions <= base + t
+    (the contiguous limit contract of the JAX codecs' `base=` path): a
+    chunk runs K5 with grouped heads; a one-row step runs K6 with each
+    group of G query heads folded into its KV head's rows (JAX's LLaMA
+    decode fold). f32 out."""
+    b, h, t, d = q.shape
+    pos = torch.full((b,), base, dtype=torch.int32, device=q.device)
+    if t > 1:
+        return cached_attention(q.contiguous(), c["k"], c["v"], pos, **scales)
+    hk = c["k"].shape[1]
+    return decode_attention(q.reshape(b, hk, h // hk, d).contiguous(),
+                            c["k"], c["v"], pos, **scales).reshape(b, h, 1, d)
 
 
 class FloatKV:
@@ -108,8 +127,7 @@ class FloatKV:
         self.dtype = dtype
 
     def init(self, cfg, batch: int, max_len: int, device):
-        shape = (cfg.n_layer, batch, cfg.n_head, max_len,
-                 cfg.n_embd // cfg.n_head)
+        shape = cache_shape(cfg, batch, max_len)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
 
@@ -120,8 +138,9 @@ class FloatKV:
                     start_pos)
 
     def attend(self, q, c, base: int):
-        """q (B, H, T, D) at positions base + arange(T) (see
-        _attend_from). Returns (B, H, T, D) in the cache dtype."""
+        """q (B, H, T, D) at positions base + arange(T) against a cache of
+        H / G heads (see _attend_from). Returns (B, H, T, D) in the cache
+        dtype."""
         return _attend_from(q, c, base).to(c["v"].dtype)
 
     # --- per-row variants (continuous batching: each slot at its own
@@ -132,8 +151,9 @@ class FloatKV:
         _write_rows(c, {"k": k[:, :, 0], "v": v[:, :, 0]}, pos, write_gate)
 
     def attend_rows(self, q, c, pos):
-        """q (B, H, R, D); every row of slot b attends key positions
-        <= pos[b] (K6). Returns (B, H, R, D) in the cache dtype."""
+        """q (B, Hk, R, D), R rows a cached head (1, or a GQA config's
+        folded group); every row of slot b attends key positions
+        <= pos[b] (K6). Returns (B, Hk, R, D) in the cache dtype."""
         return decode_attention(q.contiguous(), c["k"], c["v"], pos) \
             .to(c["v"].dtype)
 
@@ -146,8 +166,7 @@ class Int8KV:
     is ever made."""
 
     def init(self, cfg, batch: int, max_len: int, device):
-        shape = (cfg.n_layer, batch, cfg.n_head, max_len,
-                 cfg.n_embd // cfg.n_head)
+        shape = cache_shape(cfg, batch, max_len)
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -171,7 +190,7 @@ class Int8KV:
                     write_gate)
 
     def attend_rows(self, q, c, pos):
-        """q (B, H, R, D) shared-limit decode rows (K6); returns f32."""
+        """q (B, Hk, R, D) shared-limit decode rows (K6); returns f32."""
         return decode_attention(q.contiguous(), c["k"], c["v"], pos,
                                 ks=c["ks"], vs=c["vs"])
 

@@ -11,6 +11,10 @@ as "gen[:max_new[:seed]][:t=..][:k=..][:p=..][:m=..][:r=..]" — the
 same wire, message layout and option grammar as the JAX daemon, so
 either package's client drives either server.
 
+The model is GPT-2's or, given a LlamaConfig, the LLaMA family's: the
+batcher then serves it through `LlamaFamilyRows` (serving.default_family),
+as JAX's node `_serve_lm` does, with the pool at the model's KV heads.
+
 Threading: gRPC handlers are async and never touch the device. ONE
 worker thread owns the batcher: it admits queued prompts whenever slots
 free up, steps the pool while anything is active, and resolves a
@@ -274,7 +278,8 @@ class LMServer:
     the cache layout and storage (`kv` "paged"/"dense"/"auto", the
     default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
     `block_len`) among them; `device` defaults to "cuda" and raises
-    without a card."""
+    without a card. A LlamaConfig serves through LlamaFamilyRows(cfg)
+    unless `family` is given (serving.default_family)."""
 
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
                  request_timeout: float = 120.0, tokenizer=None,

@@ -3,7 +3,8 @@ of dnn_tpu/runtime/paged_kvcache.py:59-363).
 
 Layout (per K and per V):
 
-    pool   (L, n_blocks, H, block_len, D)   f32, bf16 or int8
+    pool   (L, n_blocks, H, block_len, D)   f32, bf16 or int8; H is the
+                                            model's KV heads
     scales (L, n_blocks, H, block_len)      f32, int8 pools only ("ks"/"vs")
     tables (B, nb_max)                      int32
 
@@ -30,7 +31,7 @@ from typing import List, Optional
 import torch
 
 from dnn_tpu_torch.ops.cuda.cached_attention import paged_decode_attention
-from dnn_tpu_torch.runtime.kvcache import _quantize_rows
+from dnn_tpu_torch.runtime.kvcache import _quantize_rows, cache_shape
 
 __all__ = ["PagedKV", "BlockAllocator", "InsufficientBlocks",
            "init_paged_cache"]
@@ -106,11 +107,12 @@ def init_paged_cache(cfg, slots: int, max_len: int, *, n_blocks: int,
     """Pool + table for `slots` decode rows of up to `max_len` positions
     sharing `n_blocks` physical blocks of `block_len` positions. `dtype`
     is torch.float32, torch.bfloat16 or "int8" (int8 K/V blocks plus
-    (L, n_blocks, H, block_len) f32 scale blocks initialised to ones)."""
+    (L, n_blocks, H, block_len) f32 scale blocks initialised to ones).
+    H and D are the dense cache's (`kvcache.cache_shape`): a grouped-query
+    family stores its KV heads, as JAX's init_paged_cache(kv_heads=)."""
     if max_len % block_len:
         raise ValueError(f"max_len {max_len} must tile block_len {block_len}")
-    shape = (cfg.n_layer, n_blocks, cfg.n_head, block_len,
-             cfg.n_embd // cfg.n_head)
+    shape = cache_shape(cfg, n_blocks, block_len)
     tables = torch.zeros((slots, max_len // block_len), dtype=torch.int32,
                          device=device)
     if dtype == "int8":
@@ -165,9 +167,10 @@ class PagedKV:
             c[name][blk, :, row] = val.to(c[name].dtype)
 
     def attend_rows(self, q, c, pos):
-        """q (B, H, R, D); every row of slot b attends its logical
-        positions <= pos[b]. Returns (B, H, R, D): f32 for an int8 pool,
-        the pool dtype for a float one."""
+        """q (B, H, R, D), R rows a pool head (a GQA config's folded
+        query group); every row of slot b attends its logical positions
+        <= pos[b]. Returns (B, H, R, D): f32 for an int8 pool, the pool
+        dtype for a float one."""
         if "ks" in c:
             return paged_decode_attention(q.contiguous(), c["k"], c["v"],
                                           c["tables"], pos, ks=c["ks"],

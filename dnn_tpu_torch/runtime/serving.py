@@ -1,5 +1,5 @@
-"""Continuous-batching decode server for the GPT family (port of the
-convoy path of dnn_tpu/runtime/serving.py).
+"""Continuous-batching decode server for the GPT and LLaMA families
+(port of the convoy path of dnn_tpu/runtime/serving.py).
 
 A fixed pool of decode slots holds its KV cache in one of two layouts,
 chosen by `kv` as the JAX batcher chooses it:
@@ -15,6 +15,14 @@ chosen by `kv` as the JAX batcher chooses it:
     `kv_fallback_dense` flight event.
 `kv_dtype` stores either layout as f32, bf16 or int8 (per-(position,
 head) scales; the kernels' int8 variants).
+
+`family` supplies the model's hooks, as in the JAX batcher; by default
+it follows the config (`default_family`): GPT-2's `GPTFamilyRows`, or
+`models/llama.LlamaFamilyRows` for the LLaMA family, which refuses the
+switches that are not ported yet (`llama.check_ported`) and whose
+decode steps fold each query group into the rows of its KV head (K6 /
+K7 at G rows). Either pool is sized at the model's KV heads
+(`kvcache.cache_shape`).
 
 A request enters by `submit`: its prompt prefills in `prompt_pad`-sized
 chunks (full chunks plus one right-padded tail) into a transient dense
@@ -93,7 +101,6 @@ _UNPORTED = {
     "lora_adapters": "item 4 (LoRA)",
     "logprobs_k": "item 4 (logprobs)",
     "compute_dtype": "item 4 (bf16 compute)",
-    "family": "item 7 (other model families)",
     "ffn": "item 7 (other model families)",
 }
 _UNPORTED_SUBMIT = {
@@ -140,6 +147,9 @@ class GPTFamilyRows:
     def __init__(self, cfg: GPTConfig):
         self.cfg = cfg
 
+    def init_cache(self, batch: int, max_len: int, dtype, device):
+        return init_cache(self.cfg, batch, max_len, dtype, device)
+
     def prefill(self, prepared, padded, row_cache, start_pos: int):
         """One (1, P) prompt chunk at [start_pos, start_pos + P) ->
         logits (1, P, V); row_cache is written in place."""
@@ -171,6 +181,17 @@ class GPTFamilyRows:
         return head(prepared, x.float(), cfg=cfg)[:, -1]
 
 
+def default_family(cfg):
+    """The family hooks a config is served with: LlamaFamilyRows for a
+    LlamaConfig (it raises for a switch that is not ported yet), else
+    GPTFamilyRows."""
+    from dnn_tpu_torch.models.llama import LlamaConfig, LlamaFamilyRows
+
+    if isinstance(cfg, LlamaConfig):
+        return LlamaFamilyRows(cfg)
+    return GPTFamilyRows(cfg)
+
+
 class ContinuousBatcher:
     """Slot-pool decode server over the paged or the dense KV pool.
 
@@ -181,7 +202,7 @@ class ContinuousBatcher:
         srv.drain()   # run to completion -> {rid: np.ndarray tokens}
     """
 
-    def __init__(self, cfg: GPTConfig, prepared, *, slots: int = 4,
+    def __init__(self, cfg, prepared, *, slots: int = 4,
                  max_len: Optional[int] = None,
                  prompt_pad: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
@@ -191,8 +212,22 @@ class ContinuousBatcher:
                  eos_id: Optional[int] = None, seed: int = 0,
                  kv_dtype=None, kv: Optional[str] = "auto",
                  paged_blocks: int = 0, block_len: int = 16,
-                 decode_buckets=False, device=None, **unported):
+                 decode_buckets=False, family=None, device=None,
+                 **unported):
+        if family is not None:
+            # JAX's batcher (serving.py:300-326): the adapter owns the
+            # model's hooks, so knobs beside it are refused
+            if unported.get("ffn") is not None:
+                raise ValueError(
+                    "pass ffn on the family adapter, not alongside family=")
+            fam_dtype = getattr(family, "compute_dtype", None)
+            if unported.get("compute_dtype") not in (None, fam_dtype):
+                raise ValueError(
+                    f"compute_dtype mismatch: batcher="
+                    f"{unported['compute_dtype']} vs family adapter="
+                    f"{fam_dtype} — set it on the adapter")
         _reject_unported(_UNPORTED, unported, zero_is_off=True)
+        self.family = family or default_family(cfg)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the JAX reference computes in f32: no TF32 on the served path
@@ -218,7 +253,6 @@ class ContinuousBatcher:
         self._default_minp = float(min_p) if min_p else 0.0
         self._default_rep = (float(repetition_penalty)
                              if repetition_penalty else 1.0)
-        self.family = GPTFamilyRows(cfg)
         self._cache_dtype = _cache_dtype(kv_dtype)
 
         # decode bucketing (dense pool only): the pool starts at the
@@ -243,8 +277,8 @@ class ContinuousBatcher:
                 device=self.device)
             self._codec = PagedKV(block_len)
         else:
-            self.cache = init_cache(cfg, slots, self._cache_len,
-                                    self._cache_dtype, self.device)
+            self.cache = self.family.init_cache(
+                slots, self._cache_len, self._cache_dtype, self.device)
             self._codec = codec_for_cache(self.cache)
         # No donation in torch: where the JAX batcher donates the pool
         # cache, the transient row and the per-slot state to its jitted
@@ -258,8 +292,8 @@ class ContinuousBatcher:
         # admission: positions a chunk attends were all written by the
         # same prompt, and later positions are never read.
         self._row_len = -(-self.max_len // self.prompt_pad) * self.prompt_pad
-        self._row = init_cache(cfg, 1, self._row_len, self._cache_dtype,
-                               self.device)
+        self._row = self.family.init_cache(1, self._row_len,
+                                           self._cache_dtype, self.device)
 
         # per-slot state, host side; uploaded to the device each step
         self.pos = np.zeros((slots,), np.int32)    # next write position

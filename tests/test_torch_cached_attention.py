@@ -236,3 +236,55 @@ def test_build_fails_loudly_without_nvcc(monkeypatch):
     # K3 and K4 come from one source, hence one library
     assert _build.lib_path("flash_bwd_dq") == _build.lib_path("flash_bwd_dkv")
     assert _build.lib_path("flash_bwd_dq").name.startswith("libflash_backward-")
+
+
+@pytest.mark.parametrize("dtype", KV_DTYPES)
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (8, 2), (7, 1), (4, 4)],
+                         ids=["G2", "G4", "G7", "G1"])
+def test_cached_attention_grouped_heads_match_jax(heads, kv_heads, dtype):
+    """K5's plain version with grouped query heads (query head h reads
+    KV head h / G) against the JAX LLaMA path's two formulas on the same
+    inputs: the codecs' folded einsum (FloatKV / Int8KV .attend without
+    `base`: q folded to (B, Hk, G * T, D), row limits tiled G times) and
+    models/llama._gqa_scores_attend. B=2 T=9 S=40 D=32, base positions
+    (0, 23).
+
+    Tolerances: 1e-5, except bf16 against FloatKV.attend at 2e-2: that
+    codec rounds the probabilities and the output to bf16, where K5 keeps
+    them in f32 (the kernels' contract: f32 out). Against
+    _gqa_scores_attend (f32 math on the bf16-rounded cache) bf16 holds at
+    1e-5 too. _gqa_scores_attend has no scales, so int8 is held against
+    Int8KV.attend alone."""
+    from dnn_tpu.models import llama as jllama
+    from dnn_tpu.runtime import kvcache as jkv
+
+    b, t, s, d, pos = 2, 9, 40, 32, (0, 23)
+    g = heads // kv_heads
+    (q, k, v, ks, vs), (jq, jk, jv, jks, jvs) = _inputs(
+        5, (b, heads, t, d), (b, kv_heads, s, d), dtype)
+    got = tca.cached_attention(q, k, v, torch.tensor(pos, dtype=torch.int32),
+                               ks=ks, vs=vs).numpy()
+    limit = jnp.asarray(pos)[:, None] + jnp.arange(t)[None, :]  # (B, T)
+    qg = jq.reshape(b, kv_heads, g * t, d)
+    # the codecs take one limit row for the batch: one call per batch row
+    codec = jkv.Int8KV() if dtype == "int8" else jkv.FloatKV(jk.dtype)
+    folded = []
+    for i in range(b):
+        c = {"k": jk[i:i + 1], "v": jv[i:i + 1]}
+        if dtype == "int8":
+            c.update(ks=jks[i:i + 1], vs=jvs[i:i + 1])
+        folded.append(np.asarray(codec.attend(
+            qg[i:i + 1], c, jnp.tile(limit[i], g)), np.float32))
+    folded = np.concatenate(folded).reshape(b, heads, t, d)
+    np.testing.assert_allclose(got, folded, rtol=0,
+                               atol=2e-2 if dtype == "bf16" else ATOL)
+    if dtype != "int8":
+        cols = jnp.arange(s)
+
+        def mask(scores):
+            keep = cols[None, None, None, None, :] <= \
+                limit[:, None, None, :, None]
+            return jnp.where(keep, scores, -1e30)
+
+        ref = np.asarray(jllama._gqa_scores_attend(jq, jk, jv, mask))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)

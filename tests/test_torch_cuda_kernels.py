@@ -529,3 +529,54 @@ def test_flash_refuses_what_it_does_not_take(dev):
     q = torch.randn(1, 2, 16, 64, device=dev)
     with pytest.raises(ValueError, match="S=8 < T=16"):
         tfa.flash_attention(q, q[:, :, :8], q[:, :, :8])
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 7, 8])
+def test_cached_attention_grouped_heads_kernel(dev, kind, d, group):
+    """K5 with grouped query heads: q of 2 * G heads against a cache of
+    2 KV heads (query head h reads KV head h / G; G = 4 is llama3-8b's,
+    7 Qwen2-7B's, 8 TinyLlama's), B=2 at different bases, S=200, T of
+    40 and 65 rows."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    k, v, ks, vs = _cache(g, (2, 2, 200, d), kind, dev)
+    for t in (40, 65):
+        q = torch.randn(2, 2 * group, t, d, generator=g, device=dev)
+        for base in ([0, 135], [99, 7]):
+            pos = torch.tensor(base, dtype=torch.int32, device=dev)
+            _k5_check(q, k, v, pos, ks, vs, kind)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+def test_cached_attention_grouped_serving_shape(dev, kind):
+    """K5 at llama3-8b's prefill chunk (B=1, 32 query heads over 8 KV
+    heads, T=64, S=1024, D=128) at bases beside the split edges and at
+    960; the same result twice, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q = torch.randn(1, 32, 64, 128, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (1, 8, 1024, 128), kind, dev)
+    split_tiles, n_split = tca.k5_split(32, 64, 1024)
+    assert n_split > 1
+    edge = split_tiles * tca.K5_TILE
+    for base in (0, edge - 64, edge - 1, edge, 960):
+        pos = torch.tensor([base], dtype=torch.int32, device=dev)
+        first = _k5_check(q, k, v, pos, ks, vs, kind)
+        second = tca.cached_attention(q, k, v, pos, ks=ks, vs=vs)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("rows", [7, 8])
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_at_seven_and_eight_rows(dev, paged, kind, d, rows):
+    """K6 and K7 at R = 7 (Qwen2-7B's query group) and R = 8 (the widest
+    the kernels take; TinyLlama's group), over S=1024 at the split edges,
+    as test_decode_kernels_at_split_edges does at R <= 4."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, d, rows,
+                                             seed=23)
+    pos = torch.tensor(_edge_positions(paged, 6, 2), dtype=torch.int32,
+                       device=dev)
+    _decode_check(paged, q, k, v, pos, ks, vs, kind, tables)

@@ -101,7 +101,10 @@ def test_registry_families():
                                   t.n_head, t.n_embd)
         assert get_model(name).supported_parts == \
             jax_get_model(name).supported_parts
-    for other in ("llama-test", "gpt-moe-test"):
+    # the LLaMA family is registered since slice 12 (its parity tests
+    # are tests/test_torch_llama.py); the MoE families are not
+    assert {"llama-test", "llama3-8b", "phi-test"} <= set(names)
+    for other in ("gpt-moe-test", "mixtral-test"):
         with pytest.raises(KeyError, match="Queue 1 item 9"):
             get_model(other)
 
@@ -223,7 +226,8 @@ def test_relay_executor_equals_the_whole_model():
 
 
 @pytest.mark.parametrize("model,n", [("cifar_cnn", 2), ("cifar_cnn", 4),
-                                     ("mlp", 3), ("gpt2-test", 2)])
+                                     ("mlp", 3), ("gpt2-test", 2),
+                                     ("llama-test", 2), ("gemma-test", 3)])
 def test_engine_roles_match_jax(model, n):
     """role full (relay) and a chain of role-stage engines give the same
     output, bit for bit, and JAX's engine's within F32_TOL; predict is
@@ -231,7 +235,8 @@ def test_engine_roles_match_jax(model, n):
     raw = _cpu_config(model, n)
     spec = get_model(model)
     params = spec.init(4)
-    x = (spec.example_input(1, seq_len=16) if model.startswith("gpt")
+    x = (spec.example_input(1, seq_len=16)
+         if model.startswith(("gpt", "llama", "gemma"))
          else spec.example_input(1, seed=6))
     full = PipelineEngine(TopologyConfig.from_dict(raw), params=params)
     assert full.runtime == "relay"
@@ -297,3 +302,23 @@ def test_engine_generate_equals_jax_engine():
         {**raw, "dtype": "bfloat16"}), params=params)
     with pytest.raises(NotImplementedError, match="item 4"):
         bf16.generate(prompt, max_new_tokens=2)
+
+
+def test_engine_generate_llama_equals_jax_engine():
+    """engine.generate greedy on llama-test in 2 parts (matrices x15, as
+    for gpt2-test) equals JAX's PipelineEngine.generate token for token:
+    the port's make_generate over a KV-head cache (K5 with grouped
+    heads, K6 at 2 rows a KV head, on the card)."""
+    params = jax.tree.map(
+        lambda a: a * np.float32(15.0 if a.ndim >= 2 else 1.0),
+        get_model("llama-test").init(2))
+    raw = _cpu_config("llama-test", 2)
+    prompt = np.random.default_rng(4).integers(0, 256, (1, 9)).astype(
+        np.int32)
+    jeng = JaxEngine(JaxConfig.from_dict(raw),
+                     params=jax.tree.map(jnp.asarray, params))
+    want = np.asarray(jeng.generate(prompt, max_new_tokens=10))
+    eng = PipelineEngine(TopologyConfig.from_dict(raw), params=params)
+    got = eng.generate(prompt, max_new_tokens=10)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(set(want[0].tolist())) > 1
