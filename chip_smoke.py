@@ -2,11 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch version on the card, then serves
 GPT-2 at full width through the LM daemon over gRPC in four cache
-configurations, runs the solo decoder, checks every greedy stream
-against an independent reference, trains full-width GPT-2 through the
-flash-attention kernels, and serves llama3-8b at full width and depth
-over the paged pool (K5 with grouped heads, K6/K7 at four rows a KV
-head).
+configurations and in bf16 compute, runs the solo decoder, checks every
+greedy stream against an independent reference, trains full-width GPT-2
+through the flash-attention kernels, and serves llama3-8b at full width
+and depth over the paged pool (K5 with grouped heads, K6/K7 at four rows
+a KV head) in f32 and in bf16 compute. The batcher's decode steps are
+captured CUDA graphs throughout.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -79,7 +80,20 @@ Phases (any failure exits non-zero and prints no result):
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission on each pool A-D (wall, device busy, top
      kernels, K6/K7's share of the step's device busy, K5's share of the
-     admission's)
+     admission's), the step captured (the default on the card) and
+     eager (the graph taken away)
+  6-bf16. [bf16] K5/K6/K7 with a bf16 q over f32, bf16 and int8 caches
+     against their plain versions (within 2e-2 of the output's scale) at
+     the gpt2 shapes of phases 2-4 and llama3-8b's of [llama], timed
+     against SDPA on bf16 q/k/v; then gpt2 in bf16 compute (matmul
+     weights held in bf16), each run with the launch counts zeroed just
+     before and read just after, every launch with a bf16 q, exact
+     counts: E paged bf16 KV (K5, K7), F paged int8 (K5, K7 int8),
+     B-bf16 dense + buckets (K5, K6, a recapture at each grow),
+     solo-bf16 make_generate, P-c-bf16 engine.generate in 4 parts; each
+     stream against the plain bf16-compute loop (bf16 or int8 cache,
+     64-token chunks) at BF16_TIE; the decode step captured and eager,
+     and one replayed step's logits bit-equal to the eager step's (E)
   6a. [pipe] the staged pipeline: P-a cifar_cnn as two `node --serve`
      processes; P-b gpt2-medium (configs/gpt2_8stage.json, bf16) as 8
      in-process stage servers, one B=1 T=256 request whose logits equal
@@ -129,15 +143,23 @@ Phases (any failure exits non-zero and prints no result):
            from the chunked one is printed
        L-solo llama.make_generate on the 300-token prompt, 32 tokens,
            dense f32 cache, against the no-cache loop (K5, K6)
-     plus information: a decode step's and the 300-token admission's
-     wall, device busy and top kernels
-  7. one JSON line describing the kernels, then the result line.
+       L-B llama3-8b in bf16 compute (16.06 GB of bf16 matmul weights,
+           drawn after the f32 weights are freed), the daemon over the
+           paged bf16 pool, against the plain bf16-compute loop at
+           BF16_TIE (K5 grouped, K7 at R=4, bf16 q, exactly); one
+           replayed step bit-equal to the eager step
+     plus information: a decode step's (captured and eager) and the
+     300-token admission's wall, device busy and top kernels; L-B's step
+     against the byte bound of its weights
+  7. one JSON line describing the kernels (the bf16-q rows as entries
+     of their own), then the result line.
 
 Tolerances against the plain versions: 1e-4 for f32 and int8 caches
 (both sides read the same values; only the summation order differs),
-2e-2 for bf16. A served token may differ from its reference only where
+2e-2 for bf16, and for a bf16 q 2e-2 of the output's largest |value|
+(at least 1). A served token may differ from its reference only where
 the reference's top-2 logit gap is below 1e-4 (a near-tie); 5e-3 for
-llama3-8b over an int8 cache (QUANT_TIE).
+llama3-8b over an int8 cache (QUANT_TIE); BF16_TIE in bf16 compute.
 Timings: warm-up, then the calls are captured in a CUDA graph and the
 graph is replayed between CUDA events (device time, no host overhead).
 Kernel timings cycle over the 12 layers' slices of a full-model cache,
@@ -409,17 +431,19 @@ def report(tag, label, row, nbytes, byte_ms, op_ms, ops="f32 ops"):
           flush=True)
 
 
-def k5_bound(name, B, H, HK, T, S, base, D):
+def k5_bound(name, B, H, HK, T, S, base, D, q_bytes=4):
     """K5's bound at one chunk of q (B, H, T, D) at positions base + t
     against a cache (B, HK, S, D) of type `name`: the bytes (q read and
-    the output written in f32, the HK heads' live K/V once, int8 scales
-    included, pos) at 3.35 TB/s, or the function's own products (one
-    Q.K^T and one P.V over each row's live columns, 4 D FLOPs a live
-    score) at the fastest tensor-core rate for the cache's type: TF32 for
-    f32, bf16 for bf16 and for int8 (q stays f32, so the int8 rate does
-    not apply). Returns (nbytes, live scores, ops label, bound(...))."""
+    the output written in q's type, `q_bytes` an element: 4 for f32, 2
+    for bf16; the HK heads' live K/V once, int8 scales included, pos) at
+    3.35 TB/s, or the function's own products (one Q.K^T and one P.V
+    over each row's live columns, 4 D FLOPs a live score) at the fastest
+    tensor-core rate for the cache's type: TF32 for f32, bf16 for bf16
+    and for int8 (the softmax's P is not int8, so the int8 rate does not
+    apply). Returns (nbytes, live scores, ops label, bound(...))."""
     live = min(S, base + T)
-    nbytes = 2 * B * H * T * D * 4 + B * HK * kv_bytes(name, live, D) + B * 4
+    nbytes = (2 * B * H * T * D * q_bytes + B * HK * kv_bytes(name, live, D)
+              + B * 4)
     scores = B * H * sum(min(S, base + t + 1) for t in range(T))
     peak, label = ((TF32_FLOPS_PER_S, "TF32 ops at 494.7 TFLOP/s")
                    if name == "f32" else
@@ -495,6 +519,180 @@ def phase_k5(dev, gen):
                   f"({name} q, k, v) {at['library_ms']:.4f} ms: kernel / "
                   f"library {at['ms'] / at['library_ms']:.2f}", flush=True)
     return rows
+
+
+def check_scaled(label: str, got, want, tol: float) -> float:
+    """check() for a bf16 output: the error against the plain version
+    within `tol` of the output's scale (its largest |value|, at least 1:
+    one bf16 rounding step is 2^-8 of a value); returns the error."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite output")
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not math.isfinite(err) or err > tol * scale:
+        fail(f"{label}: max abs err {err} > {tol} x {scale:.3f}")
+    return err
+
+
+def phase_bf16_q_kernels(dev, gen):
+    """[bf16] K5, K6 and K7 with a bf16 q (bf16 compute) against their
+    plain versions (f32 math on the same bf16 q, the output rounded to
+    bf16 once) within BF16_TOL of the output's scale, over f32, bf16 and
+    int8 caches, at the gpt2 shapes of phases 2-4 (K5 at the prefill
+    chunk, checked at bases {0, 64, 448, 960} and timed at 960; K6 at
+    the decode step and at the solo decoder's cache; K7 at the decode
+    step) and at llama3-8b's of [llama] (K5 with grouped heads, K7 and
+    K6 solo at R = 4). Bounds: the bytes with q and the output at 2
+    bytes an element, K5's products by k5_bound, K6/K7's f32 FMAs at 67
+    TFLOP/s. The library time is SDPA on q cast to the cache's float
+    type (bf16 q/k/v for a bf16 cache; enable_gqa for llama's grouped
+    heads), none for int8 and for paged. Returns {shape: {dtype: row}}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        cached_attention, decode_attention, paged_decode_attention,
+        reference_cached_attention, reference_decode_attention,
+        reference_paged_decode_attention)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+
+    def rows_for(shape, kernel, plain, make, lib, nbytes_of, flops, k5=None,
+                 checks=None):
+        out[shape] = {}
+        for name, _ in KV_CASES:
+            q, cache, ks, vs, extra = make(name)
+            err = 0.0
+            for label, args in (checks(q, cache, extra) if checks
+                                else [("", (q[0], *cache(0), *extra))]):
+                sc = scales_at(ks, vs, 0)
+                err = max(err, check_scaled(
+                    f"[bf16] {shape} {name}{label}", kernel(*args, **sc),
+                    plain(*args, **sc), BF16_TOL))
+
+            def call(fn, i):
+                return fn(q[i], *cache(i), *extra, **scales_at(ks, vs, i))
+            ms = time_ms(cycling(lambda i: call(kernel, i), LAYERS))
+            plain_ms = time_ms(cycling(lambda i: call(plain, i), LAYERS))
+            lib_ms = None
+            if lib is not None and name != "int8":
+                lib_ms = time_ms(cycling(lambda i: lib(q[i], *cache(i)),
+                                         LAYERS))
+            if k5 is not None:
+                nbytes, _, ops, (b_ms, b_by, byte_ms, op_ms) = k5_bound(
+                    name, *k5, q_bytes=2)
+            else:
+                nbytes = nbytes_of(name)
+                ops = "f32 ops"
+                b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops)
+            row = out[shape][name] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+            report("bf16", f"{shape} {name:4s} bf16 q", row, nbytes, byte_ms,
+                   op_ms, ops)
+
+    def dense_maker(b, heads, t, hk, s, d):
+        def make(name):
+            q = torch.randn(LAYERS, b, heads, t, d, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            k, v, ks, vs = kv_cache(gen, (LAYERS, b, hk, s, d), name, dev)
+            return q, lambda i: (k[i], v[i]), ks, vs, ()
+        return make
+
+    # gpt2's prefill chunk (K5), bases checked, timed at 960
+    B, H, T, S, D = 1, 12, 64, 1024, 64
+    p960 = torch.full((B,), 960, dtype=torch.int32, device=dev)
+    cols = torch.arange(S, device=dev)
+
+    def k5_make(b, h, t, hk, s, d):
+        base = dense_maker(b, h, t, hk, s, d)
+
+        def make(name):
+            q, cache, ks, vs, _ = base(name)
+            return q, cache, ks, vs, (p960,)
+        return make
+
+    def k5_checks(q, cache, extra):
+        return [(f" base {b0}", (q[0], *cache(0), torch.full(
+            (1,), b0, dtype=torch.int32, device=dev)))
+            for b0 in (0, 64, 448, 960)]
+
+    mask = cols[None, :] <= (960 + torch.arange(T, device=dev))[:, None]
+    rows_for("K5", cached_attention, reference_cached_attention,
+             k5_make(B, H, T, H, S, D),
+             lambda q, k, v: sdpa(q.to(k.dtype), k, v, attn_mask=mask),
+             None, None, k5=(B, H, H, T, S, 960, D), checks=k5_checks)
+    # gpt2's decode step (K6 dense, K7 paged) and the solo cache (K6)
+    B, Hk, D, S = 4, 12, 64, 1024
+    pos_list = [0, 15, 16, 1023]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    live = sum(p + 1 for p in pos_list)
+    step_mask = cols[None, None, None, :] <= pos[:, None, None, None]
+
+    def with_pos(make, p):
+        def wrapped(name):
+            q, cache, ks, vs, _ = make(name)
+            return q, cache, ks, vs, (p,)
+        return wrapped
+
+    rows_for("K6", decode_attention, reference_decode_attention,
+             with_pos(dense_maker(B, Hk, 1, Hk, S, D), pos),
+             lambda q, k, v: sdpa(q.to(k.dtype), k, v, attn_mask=step_mask),
+             lambda name: (2 * B * Hk * D * 2 + Hk * kv_bytes(name, live, D)
+                           + B * 4), 4 * D * Hk * live)
+    solo = torch.tensor([SOLO_S - 1], dtype=torch.int32, device=dev)
+    rows_for("K6 solo", decode_attention, reference_decode_attention,
+             with_pos(dense_maker(SOLO_B, SOLO_HK, 1, SOLO_HK, SOLO_S, D),
+                      solo),
+             lambda q, k, v: sdpa(q.to(k.dtype), k, v),
+             lambda name: (2 * SOLO_HK * D * 2
+                           + SOLO_HK * kv_bytes(name, SOLO_S, D) + 4),
+             4 * D * SOLO_HK * SOLO_S)
+
+    def paged_maker(b, hk, r, d, bp, nb_max, n_blocks, p):
+        perm = torch.randperm(n_blocks - 1,
+                              generator=torch.Generator().manual_seed(0))
+        tables = (perm[:b * nb_max] + 1).reshape(b, nb_max).to(
+            torch.int32).to(dev)
+
+        def make(name):
+            q = torch.randn(LAYERS, b, hk, r, d, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            kp, vp, ks, vs = kv_cache(gen, (LAYERS, n_blocks, hk, bp, d),
+                                      name, dev)
+            return q, lambda i: (kp[i], vp[i]), ks, vs, (tables, p)
+        return make
+
+    def paged_bytes(hk, r, d, bp):
+        return lambda name: (2 * B * hk * r * d * 2
+                             + hk * kv_bytes(name, live, d)
+                             + sum(p // bp + 1 for p in pos_list) * 4 + B * 4)
+
+    rows_for("K7", paged_decode_attention, reference_paged_decode_attention,
+             paged_maker(B, Hk, 1, D, 16, 64, 257, pos), None,
+             paged_bytes(Hk, 1, D, 16), 4 * D * Hk * live)
+    # llama3-8b: K5 grouped, K7 and K6 solo at R = 4
+    H, HK, D, G = 32, 8, 128, 4
+    lmask = cols[None, :] <= (960 + torch.arange(64, device=dev))[:, None]
+    rows_for("llama K5", cached_attention, reference_cached_attention,
+             k5_make(1, H, 64, HK, 1024, D),
+             lambda q, k, v: sdpa_gqa(q.to(k.dtype), k, v, lmask),
+             None, None, k5=(1, H, HK, 64, 1024, 960, D))
+    rows_for("llama K7", paged_decode_attention,
+             reference_paged_decode_attention,
+             paged_maker(B, HK, G, D, 16, 64, 257, pos), None,
+             paged_bytes(HK, G, D, 16), 4 * D * HK * G * live)
+    last = LLAMA_SOLO_S - 2
+    lpos = torch.tensor([last], dtype=torch.int32, device=dev)
+    llive = torch.arange(LLAMA_SOLO_S, device=dev)[None, :] <= last
+    rows_for("llama K6 solo", decode_attention, reference_decode_attention,
+             with_pos(dense_maker(1, HK, G, HK, LLAMA_SOLO_S, D), lpos),
+             lambda q, k, v: sdpa_gqa(
+                 q.reshape(1, H, 1, D).to(k.dtype), k, v, llive),
+             lambda name: (2 * HK * G * D * 2
+                           + HK * kv_bytes(name, last + 1, D) + 4),
+             4 * D * HK * G * (last + 1))
+    return out
 
 
 def decode_plan(tag, bh, s, unit=1):
@@ -1047,7 +1245,7 @@ def reference_greedy(prepared, cfg, prompt, n_new, dev):
 
 
 def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
-                           chunk=None):
+                           chunk=None, compute_dtype=None, step_rows=1):
     """Independent greedy loop over a dense cache of type `kv_dtype`
     ("bf16" or "int8"): no batcher and no kernel. A cache of prompt +
     n_new positions (at KV heads for a LlamaConfig); bf16 stores K/V
@@ -1055,11 +1253,18 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
     and keeps the scales; attention is the plain version (grouped heads
     for llama), its output cast to the cache's type for a bf16 cache, as
     the port's FloatKV.attend does. The blocks around the attention are
-    the family's own (gpt2's, or models/llama.py's). The prompt prefills
-    in one piece or, with `chunk`, in chunk-token pieces, the last one
-    right-padded with id 0, as the batcher prefills (the padded rows'
-    K/V lie past every later query's limit). Returns (tokens, top-2
-    logit gap at each step)."""
+    the family's own (gpt2's, or models/llama.py's), at `compute_dtype`
+    (torch.bfloat16: bf16 compute over weights prepared in bf16 -- the
+    residual stream and the block products in bf16, norms in f32, f32
+    logits; the plain attention then takes a bf16 q and returns bf16).
+    The prompt prefills in one piece or, with `chunk`, in chunk-token
+    pieces, the last one right-padded with id 0, as the batcher prefills
+    (the padded rows' K/V lie past every later query's limit). A decode
+    step runs `step_rows` copies of its token (the batcher's slot count),
+    so that every product and norm of the step has the batcher's row
+    count and cuBLAS picks the batcher's kernels, which sum in their
+    order; the cache and the attention see the first copy only. Returns
+    (tokens, top-2 logit gap at each step)."""
     from dnn_tpu_torch.models.gpt import head, layer_params
     from dnn_tpu_torch.ops.attention import merge_heads
     from dnn_tpu_torch.ops.cuda.cached_attention import (
@@ -1086,7 +1291,10 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
 
     def attend(i, q, k, v, start, pos):
         """Writes this layer's k/v at [start, start + T) of the cache,
-        then attends it in the plain version (grouped heads for llama)."""
+        then attends it in the plain version (grouped heads for llama);
+        of `step_rows` copies of a row, the first, its output copied."""
+        copies = q.shape[0]
+        q, k, v = q[:1], k[:1], v[:1]
         t = k.shape[2]
         for name, new in (("k", k), ("v", v)):
             if quant:
@@ -1098,7 +1306,10 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
         scales = {"ks": kv["ks"][i], "vs": kv["vs"][i]} if quant else {}
         y = reference_cached_attention(q, kv["k"][i], kv["v"][i], pos,
                                        **scales)
-        return y if quant else y.to(store)
+        y = y if quant else y.to(store)
+        return y.expand(copies, *y.shape[1:])
+
+    cdt = compute_dtype
 
     def last_logits(ids, start):
         t = ids.shape[1]
@@ -1106,26 +1317,32 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
         rows = torch.arange(start, start + t, device=dev)
         if is_llama:  # the LLaMA block, its attention the plain version
             x = llama._scaled_embed(prepared, ids, cfg)
+            x = x if cdt is None else x.to(cdt)
             cos, sin = llama._rope_tables(cfg, rows)
             for i in range(cfg.n_layer):
                 bp = layer_params(prepared["blocks"], i)
                 h = llama._pre_normed(bp, x, cfg)
-                q, k, v = llama._qkv(bp, h, cfg)
+                q, k, v = llama._qkv(bp, h, cfg, cdt)
                 q, k = llama._rotated(q, k, cos, sin, cfg)
                 y = attend(i, q, k, v, start, pos)
-                o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)))
-                x = llama._branches_residual(bp, x, o, h, cfg=cfg)
-            return llama.head(prepared, x, cfg=cfg)[0]
+                o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
+                           compute_dtype=cdt)
+                x = llama._branches_residual(bp, x, o, h, cfg=cfg,
+                                             compute_dtype=cdt)
+            return llama.head(prepared, x.float(), cfg=cfg,
+                              compute_dtype=cdt)[0]
         x = (embedding(prepared["wte"], ids)
              + embedding(prepared["wpe"], rows))
+        x = x if cdt is None else x.to(cdt)
         for i in range(cfg.n_layer):
             bp = layer_params(prepared["blocks"], i)
             q, k, v = _qkv_heads(bp, layer_norm(bp["ln_1"], x, eps=cfg.ln_eps),
-                                 cfg=cfg)
+                                 cfg=cfg, compute_dtype=cdt)
             y = attend(i, q, k, v, start, pos)
-            x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)))
-            x = x + _mlp(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps))
-        return head(prepared, x, cfg=cfg)[0]
+            x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
+                           compute_dtype=cdt)
+            x = x + _mlp(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps), cdt)
+        return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[0]
 
     with torch.no_grad():
         ids = torch.zeros((1, padded), dtype=torch.int64, device=dev)
@@ -1139,8 +1356,8 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
             top2 = torch.topk(logits, 2).values
             gaps.append((top2[0] - top2[1]).item())
             toks.append(int(logits.argmax()))
-            logits = last_logits(torch.tensor([[toks[-1]]], device=dev),
-                                 start)[-1]
+            logits = last_logits(torch.tensor(
+                [[toks[-1]]] * step_rows, device=dev), start)[-1]
             start += 1
     return toks, gaps
 
@@ -1153,6 +1370,35 @@ NEAR_TIE = 1e-4
 # only at a top-2 gap of 1.967e-3, so the tie is that with 2.5x headroom
 # (the [llama] lines print this run's gaps)
 QUANT_TIE = 5e-3
+# bf16 compute: the served streams are held to the plain loop in bf16
+# compute over a bf16 (or int8) cache, prefilled in the served 64-token
+# chunks, its decode steps at the pool's 4 rows (reference_greedy_cache's
+# step_rows), so that its products and norms have the served shapes. The
+# attention still differs (the kernels against the plain version, each
+# rounding an f32 result to bf16 after summing in its own order), and a
+# bf16 rounding that flips moves the logits: a stream may part from the
+# loop where the loop's top-2 gap is below BF16_TIE. On an H100 the
+# served streams parted at gaps of 9.3e-3 (gpt2, E and B-bf16) and
+# 2.0e-2 to 8.4e-2 (llama3-8b, L-B, all four streams), and two plain
+# llama3-8b loops that differ only in the prompt's chunking parted from
+# each other at 5.9e-2: the same noise without a kernel. The tie is 2.4x
+# the largest parting; the lines print every parting's step and gap, and
+# PERF.md section 2 keeps them
+BF16_TIE = 0.2
+
+
+def loop_partings(label, prompts, chunked, whole):
+    """Prints, per prompt, where two plain loops that differ only in the
+    prompt's chunking (and so in the order their attention sums) part:
+    the step and the chunked loop's top-2 gap there, the measure of the
+    noise a tie allows for."""
+    for p, (toks, gaps), (other, _) in zip(prompts, chunked, whole):
+        j = next((j for j, (a, b) in enumerate(zip(toks, other)) if a != b),
+                 None)
+        print(f"{label}, prompt {len(p)}: chunked and whole "
+              + ("agree on every token" if j is None else
+                 f"part at step {j}, top-2 gap {gaps[j]:.3e}")
+              + f" (smallest gap {min(gaps):.3e})", flush=True)
 
 
 def compare_tokens(label, got, want, gaps, tie=NEAR_TIE):
@@ -1193,10 +1439,16 @@ def reset_counts():
         fn.launches = 0
         for dt in fn.launches_by_dtype:
             fn.launches_by_dtype[dt] = 0
+        for dt in getattr(fn, "launches_bf16_q", ()):
+            fn.launches_bf16_q[dt] = 0
 
 
-def read_counts():
-    """{kernel: {cache dtype: launches}} since the last reset."""
+def read_counts(bf16_q=False):
+    """{kernel: {cache dtype: launches}} since the last reset; with
+    `bf16_q`, the cache kernels' launches with a bf16 q only."""
+    if bf16_q:
+        return {name: dict(_wrappers()[name].launches_bf16_q)
+                for name in CACHE_KERNELS}
     return {name: dict(fn.launches_by_dtype)
             for name, fn in _wrappers().items()}
 
@@ -1216,8 +1468,12 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     per prompt, and every (kernel, dtype) of `needed` launched in the
     run. `exact(steps)`, where given, returns {(kernel, dtype): launches}
     that the run must show exactly, from the number of decode steps the
-    batcher took in it (counted). `tie` is compare_tokens'. Returns the
-    run's launch counts."""
+    batcher took in it (counted). `tie` is compare_tokens'. Under bf16
+    compute (`compute_dtype` among `kv`) every cache-kernel launch of the
+    run must have taken a bf16 q. The decode steps are the batcher's
+    captured graph on the card: the exact counts hold only if each
+    replay counted its captured launches. Returns the run's launch
+    counts (under bf16 compute, those with a bf16 q)."""
     from dnn_tpu_torch.comm.client import NodeClient
     from dnn_tpu_torch.parallel.pipeline import sync
     from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
@@ -1242,6 +1498,8 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         client.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
         sync(dev)
         grows0 = batcher.bucket_grows
+        graph = batcher._graph_step
+        caps0 = graph.captures if graph is not None else 0
         reset_counts()
         n_steps[0] = 0
 
@@ -1261,8 +1519,10 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
             t.join(timeout=600)
         wall = time.perf_counter() - t0
         counts = read_counts()
+        counts_bf16_q = read_counts(bf16_q=True)
         steps = n_steps[0]
         grows = batcher.bucket_grows - grows0
+        captures = (graph.captures if graph is not None else 0) - caps0
         if errors or len(results) != len(prompts):
             fail(f"{label}: generate calls failed: {errors or 'timed out'}")
         # TTFT, as information: one streamed request on the idle daemon
@@ -1278,13 +1538,24 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     if len(rest) != n_new - 1:
         fail(f"{label}: stream returned {len(rest) + 1} tokens, expected {n_new}")
     layout = "paged" if batcher.paged else "dense"
-    print(f"[main] run {label} ({layout} pool, kv_dtype "
-          f"{kv.get('kv_dtype') or 'f32'}"
+    compute = "bf16" if kv.get("compute_dtype") is not None else "f32"
+    print(f"[main] run {label} ({layout} pool, {compute} compute, kv_dtype "
+          f"{kv.get('kv_dtype') or compute}"
           + (f", {grows} bucket grows, final bucket "
              f"{batcher.cache['k'].shape[3]}"
-             if kv.get("decode_buckets") else "") + ")", flush=True)
+             if kv.get("decode_buckets") else "")
+          + (f"; decode step a CUDA graph: {captures} captures and "
+             f"{steps - captures} replays in the run's {steps} steps"
+             if graph is not None else f"; {steps} eager decode steps")
+          + ")", flush=True)
     if dev.type == "cuda":
         require(f"run {label}", counts, needed)
+        if compute == "bf16":
+            cache_counts = {n: counts[n] for n in CACHE_KERNELS}
+            if counts_bf16_q != cache_counts:
+                fail(f"run {label}: launches with a bf16 q "
+                     f"{counts_bf16_q} are not all of the run's "
+                     f"{cache_counts}")
         if exact is not None:
             want = exact(steps)
             for (name, dt), n in want.items():
@@ -1303,7 +1574,7 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     for i, prompt in enumerate(prompts):
         compare_tokens(f"run {label} request {i} (prompt {len(prompt)})",
                        results[i], *refs[i], tie=tie)
-    return counts
+    return counts_bf16_q if compute == "bf16" else counts
 
 
 def phase_solo(cfg, prepared, prompt, n_new, refs, dev):
@@ -1385,6 +1656,120 @@ def phase_main_path(dev, card: str):
                        for dt in ("f32", "bf16", "int8")}
                 for name in CACHE_KERNELS}
     return launches, prepared, cfg, prompts
+
+
+def phase_bf16(dev, card, model="gpt2"):
+    """[bf16] gpt2 at full width and depth in bf16 compute: the seed-0
+    weights prepared with their matmul weights in bf16 (0.25 GB), the
+    main path's four prompts, 16 greedy tokens each, every run with the
+    launch counts zeroed just before and read just after, every launch
+    with a bf16 q, and the exact counts of the call pattern (K5 once a
+    layer a 64-token chunk, the decode kernel once a layer a step):
+      E  the LM daemon, paged pool, bf16 KV (the default under bf16
+         compute): K5, K7; against the plain bf16-compute loop over a
+         bf16 cache prefilled in 64-token chunks, its decode steps at the
+         pool's 4 rows (reference_greedy_cache's step_rows), at
+         BF16_TIE;
+      F  the same over an int8 pool: K5, K7 int8; against the loop over
+         an int8 cache;
+      B-bf16 the dense pool with decode buckets, bf16 KV: K5, K6, a
+         recapture at each bucket grow;
+      solo-bf16 make_generate on the 300-token prompt (prefilled whole):
+         K5 once a layer, K6 once a layer a token after the first;
+      P-c-bf16 engine.generate, gpt2 in 4 parts, `"dtype": "bfloat16"`;
+    then step_profile on E (one replayed step bit-equal to the eager
+    step), F and B-bf16. Returns the runs' launches with a bf16 q."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import PRESETS, init
+    from dnn_tpu_torch.ops.nn import mm_out_dtype
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.generate import make_generate
+
+    bf16 = torch.bfloat16
+    cfg = PRESETS[model]
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    prepared = from_jax_params(init(0, cfg), cfg, dev, compute_dtype=bf16)
+    sync(dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(prepared))
+    print(f"[bf16] gpt2 weights (seed 0), matmul weights in bf16: "
+          f"{n_bytes / 1e9:.3f} GB in {time.perf_counter() - t0:.1f} s; "
+          f"the head's bf16 x bf16 -> f32 product "
+          + ("one torch.mm(out_dtype=float32)" if mm_out_dtype(dev) else
+             "an f32 product of the rounded operands (no out_dtype mm)"),
+          flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    n_new = 16
+    t0 = time.perf_counter()
+    ref_bf16, ref_i8 = ([reference_greedy_cache(
+        prepared, cfg, p, n_new, dev, kv, chunk=64, compute_dtype=bf16,
+        step_rows=4) for p in prompts] for kv in ("bf16", "int8"))
+    ref_solo = reference_greedy_cache(prepared, cfg, prompts[3], n_new, dev,
+                                      "bf16", compute_dtype=bf16)
+    whole = [reference_greedy_cache(prepared, cfg, p, n_new, dev, "bf16",
+                                    compute_dtype=bf16, step_rows=4)
+             for p in prompts]
+    print(f"[bf16] references (plain bf16-compute loops over bf16 and int8 "
+          f"caches) in {time.perf_counter() - t0:.1f} s; smallest top-2 "
+          f"gaps: bf16 {min(min(g) for _, g in ref_bf16):.3e}, int8 "
+          f"{min(min(g) for _, g in ref_i8):.3e}", flush=True)
+    loop_partings("[bf16] plain bf16 loops", prompts, ref_bf16, whole)
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+
+    def exact(dt, decode):
+        return lambda steps: {("cached_attention", dt): L * chunks,
+                              (decode, dt): L * steps}
+
+    runs = []
+    for label, refs, dt, decode, kv in (
+            ("E", ref_bf16, "bf16", "paged_decode_attention",
+             {"kv": "paged"}),
+            ("F", ref_i8, "int8", "paged_decode_attention",
+             {"kv": "paged", "kv_dtype": "int8"}),
+            ("B-bf16", ref_bf16, "bf16", "decode_attention",
+             {"kv": "dense", "decode_buckets": True})):
+        runs.append(serve_run(
+            label, cfg, prepared, prompts, n_new, refs,
+            [("cached_attention", dt), (decode, dt)], dev, card,
+            exact=exact(dt, decode), tie=BF16_TIE, compute_dtype=bf16, **kv))
+    gen = make_generate(cfg, max_new_tokens=n_new, compute_dtype=bf16,
+                        device=dev)
+    gen(prepared, [prompts[3][:8]])  # warm-up
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = gen(prepared, [prompts[3]])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts(bf16_q=True)
+    want = {("cached_attention", "bf16"): L,
+            ("decode_attention", "bf16"): L * (n_new - 1)}
+    for (name, dt), n in want.items():
+        if dev.type == "cuda" and counts[name][dt] != n:
+            fail(f"[bf16] solo-bf16: {name} ({dt}) with a bf16 q launched "
+                 f"{counts[name][dt]} times, expected {n}")
+    print(f"[bf16] solo-bf16 make_generate: {n_new} tokens after a "
+          f"{len(prompts[3])}-token prompt in {wall * 1e3:.1f} ms; launches "
+          f"with a bf16 q: K5 {counts['cached_attention']['bf16']}, K6 "
+          f"{counts['decode_attention']['bf16']}", flush=True)
+    compare_tokens("solo-bf16 make_generate", out[0].tolist(), *ref_solo,
+                   tie=BF16_TIE)
+    runs.append(counts)
+    runs.append(pipe_generate(dev, card, prompts[3], model=model,
+                              dtype="bfloat16"))
+    if dev.type == "cuda":
+        step_profile("bf16", "E paged bf16", cfg, prepared, prompts, dev,
+                     bit_check=True, kv="paged", compute_dtype=bf16)
+        step_profile("bf16", "F paged int8", cfg, prepared, prompts, dev,
+                     kv="paged", kv_dtype="int8", compute_dtype=bf16)
+        step_profile("bf16", "B-bf16 dense+buckets", cfg, prepared, prompts,
+                     dev, kv="dense", decode_buckets=True,
+                     compute_dtype=bf16)
+    return {name: {dt: sum(r[name][dt] for r in runs)
+                   for dt in ("f32", "bf16", "int8")}
+            for name in CACHE_KERNELS}
 
 
 TEXT_PROMPT = ("Grüße aus Zürich — naïve café, déjà vu; ∑ λ ≈ 3.14, "
@@ -1766,11 +2151,14 @@ def pipe_relay(address, items, wants, card):
           f"{wall / wall_unary:.2f}; on {card}", flush=True)
 
 
-def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW):
-    """P-c: a derived config (model, 4 parts, relay, f32):
+def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW,
+                  dtype="float32"):
+    """P-c: a derived config (model, 4 parts, relay, `dtype`):
     engine.generate greedy, n_new tokens after `prompt`, against
-    reference_greedy on the same weights, with K5 and K6 launched
-    (counted in the run). Returns the run's launch counts."""
+    reference_greedy on the same weights (f32), or (P-c-bf16, dtype
+    "bfloat16") the plain bf16-compute loop over a bf16 cache at
+    BF16_TIE, with K5 and K6 launched (counted in the run; with a bf16 q
+    under bf16). Returns the run's launch counts."""
     from dnn_tpu_torch.config import TopologyConfig
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models.gpt import PRESETS
@@ -1782,8 +2170,10 @@ def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW):
                       "address": f"127.0.0.1:{free_port()}"}
                      for i in range(4)],
            "model": model, "num_parts": 4, "runtime": "relay",
-           "dtype": "float32",
+           "dtype": dtype,
            "device_type": "cpu" if dev.type == "cpu" else "tpu"}
+    bf16 = dtype == "bfloat16"
+    dt, label = ("bf16", "P-c-bf16") if bf16 else ("f32", "P-c")
     engine = PipelineEngine(TopologyConfig.from_dict(raw))
     engine.generate([prompt[:8]], max_new_tokens=2)  # warm-up
     sync(dev)
@@ -1792,16 +2182,21 @@ def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW):
     toks = engine.generate([prompt], max_new_tokens=n_new)
     sync(dev)
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = read_counts(bf16_q=bf16)
     if dev.type == "cuda":
-        require("P-c engine.generate", counts,
-                [("cached_attention", "f32"), ("decode_attention", "f32")])
-    ref = reference_greedy(from_jax_params(engine.params, cfg, dev), cfg,
-                           prompt, n_new, dev)
-    compare_tokens(f"P-c engine.generate ({model}, 4 parts)",
-                   toks[0].tolist(), *ref)
-    print(f"[pipe] P-c {n_new} tokens after a {len(prompt)}-token prompt in "
-          f"{wall * 1e3:.1f} ms = {n_new / wall:.1f} tokens/s; on {card}",
+        require(f"{label} engine.generate", counts,
+                [("cached_attention", dt), ("decode_attention", dt)])
+    if bf16:
+        ref = reference_greedy_cache(
+            from_jax_params(engine.params, cfg, dev, torch.bfloat16), cfg,
+            prompt, n_new, dev, "bf16", compute_dtype=torch.bfloat16)
+    else:
+        ref = reference_greedy(from_jax_params(engine.params, cfg, dev), cfg,
+                               prompt, n_new, dev)
+    compare_tokens(f"{label} engine.generate ({model}, 4 parts)",
+                   toks[0].tolist(), *ref, tie=BF16_TIE if bf16 else NEAR_TIE)
+    print(f"[pipe] {label} {n_new} tokens after a {len(prompt)}-token prompt "
+          f"in {wall * 1e3:.1f} ms = {n_new / wall:.1f} tokens/s; on {card}",
           flush=True)
     return counts
 
@@ -1881,51 +2276,86 @@ PROFILED_POOLS = (("A paged f32", {"kv": "paged"}),
                   ("D paged bf16", {"kv": "paged", "kv_dtype": "bf16"}))
 
 
-def phase_profile(prepared, cfg, prompts, dev):
-    """Information only: where a decode step's and a prefill's time goes
-    on each main-path pool (the batcher driven directly, as the daemon's
-    worker drives it): wall, device busy, kernel launches, top kernels."""
+def step_profile(tag, label, cfg, prepared, prompts, dev, bit_check=False,
+                 steps=8, **kv):
+    """Information: a decode step of the batcher driven directly (as the
+    daemon's worker drives it; 4 slots, max_len 1024, prompt_pad 64, 3
+    active slots) with the cache options `kv`: the step's wall as the
+    captured CUDA graph and eagerly (the graph taken away), each under
+    the profiler too (device busy, kernel launches, top kernels, K6/K7's
+    share), and the admission of the 300-token prompt. With `bit_check`,
+    one replay of the captured step must give the eager step's logits on
+    the same static inputs bit for bit (the step re-writes the same K/V
+    rows, so both read the same cache). Returns the walls."""
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
-    steps = 8
-    for label, kv in PROFILED_POOLS:
-        b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
-                              prompt_pad=64, block_len=16, device=dev, **kv)
-        for p in prompts[:3]:
-            b.submit(p, 64)
-        for _ in range(4):
-            b.step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, device=dev, **kv)
+    for p in prompts[:3]:
+        b.submit(p, 64)
+    for _ in range(4):
+        b.step()
+    torch.cuda.synchronize()
+
+    def decode():
         for _ in range(steps):
             b.step()
+
+    graph, walls = b._graph_step, {}
+    for mode in ("captured", "eager"):
+        b._graph_step = graph if mode == "captured" else None
+        t0 = time.perf_counter()
+        decode()
         torch.cuda.synchronize()
-        plain_wall = (time.perf_counter() - t0) * 1e3 / steps
-
-        def decode():
-            for _ in range(steps):
-                b.step()
-
+        walls[mode] = (time.perf_counter() - t0) * 1e3 / steps
         wall, dev_ms, n_kern, top, _, dec_ms = _profiled(decode)
-        print(f"[profile] {label}: decode step (3 active slots) "
-              f"{plain_wall:.3f} ms wall; under the profiler "
+        walls[mode + " device"] = dev_ms / steps
+        print(f"[{tag}] {label}: decode step (3 active slots, {mode}) "
+              f"{walls[mode]:.3f} ms wall; under the profiler "
               f"{wall / steps:.3f} ms wall, {dev_ms / steps:.3f} ms device "
               f"busy ({100 * dev_ms / wall:.1f}% of wall), "
               f"{n_kern / steps:.0f} kernel launches per step; K6/K7 "
               f"{dec_ms / steps:.4f} ms/step = {100 * dec_ms / dev_ms:.1f}% "
               "of device busy", flush=True)
-        for name, ms, n in top:
-            print(f"[profile]   decode {ms / steps:.4f} ms/step  "
-                  f"x{n // steps}  {name}", flush=True)
-        wall, dev_ms, n_kern, top, k5_ms, _ = _profiled(
-            lambda: b.submit(prompts[3], 2))
-        print(f"[profile] {label}: admission of a {len(prompts[3])}-token "
-              f"prompt (5 chunks + install): {wall:.3f} ms wall, "
-              f"{dev_ms:.3f} ms device busy ({100 * dev_ms / wall:.1f}%), "
-              f"{n_kern} kernel launches; K5 {k5_ms:.4f} ms = "
-              f"{100 * k5_ms / dev_ms:.1f}% of device busy", flush=True)
-        for name, ms, n in top[:3]:
-            print(f"[profile]   prefill {ms:.4f} ms  x{n}  {name}", flush=True)
+        if mode == "captured":
+            for name, ms, n in top[:4]:
+                print(f"[{tag}]   decode {ms / steps:.4f} ms/step  "
+                      f"x{n // steps}  {name}", flush=True)
+    b._graph_step = graph
+    print(f"[{tag}] {label}: captured / eager decode-step wall "
+          f"{walls['captured'] / walls['eager']:.2f}", flush=True)
+    if bit_check:
+        graph._graph.replay()
+        graph._log.replayed()
+        torch.cuda.synchronize()
+        replayed = graph._logits.clone()
+        eager = b._decode(b.cache, graph.tok, graph.pos, graph.active)
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, eager):
+            fail(f"[{tag}] {label}: a replayed step's logits differ from "
+                 f"the eager step's by "
+                 f"{(replayed - eager).abs().max().item():.3e}")
+        print(f"[{tag}] {label}: one replayed step's logits equal the eager "
+              f"step's on the same inputs bit for bit", flush=True)
+    wall, dev_ms, n_kern, top, k5_ms, _ = _profiled(
+        lambda: b.submit(prompts[3], 2))
+    walls["admission"] = wall
+    print(f"[{tag}] {label}: admission of a {len(prompts[3])}-token "
+          f"prompt (5 chunks + install): {wall:.3f} ms wall, "
+          f"{dev_ms:.3f} ms device busy ({100 * dev_ms / wall:.1f}%), "
+          f"{n_kern} kernel launches; K5 {k5_ms:.4f} ms = "
+          f"{100 * k5_ms / dev_ms:.1f}% of device busy", flush=True)
+    for name, ms, n in top[:3]:
+        print(f"[{tag}]   prefill {ms:.4f} ms  x{n}  {name}", flush=True)
+    return walls
+
+
+def phase_profile(prepared, cfg, prompts, dev):
+    """Information only: where a decode step's and a prefill's time goes
+    on each main-path pool (step_profile: the captured step against the
+    eager one, device busy, kernel launches, top kernels)."""
+    for label, kv in PROFILED_POOLS:
+        step_profile("profile", label, cfg, prepared, prompts, dev, **kv)
 
 
 TRAIN_B, TRAIN_T, TRAIN_LAYERS = 8, 512, 12
@@ -2385,13 +2815,12 @@ def phase_llama(dev, card, cfg=None):
       L-solo llama.make_generate on the 300-token prompt, dense f32
           cache, 32 tokens, equal to reference_greedy; K5 once per layer,
           K6 once per layer per token after the first, exactly;
-    plus, as information, a decode step's and the 300-token admission's
-    wall and device busy on the paged f32 pool. Returns the runs' launch
-    counts."""
+    plus, as information, a decode step's (captured and eager) and the
+    300-token admission's wall and device busy on the paged f32 pool
+    (step_profile). Returns the runs' launch counts."""
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models import llama
     from dnn_tpu_torch.parallel.pipeline import sync
-    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
     cfg = cfg or llama.PRESETS["llama3-8b"]
     L = cfg.n_layer
@@ -2424,13 +2853,7 @@ def phase_llama(dev, card, cfg=None):
     print(f"[llama] references (no-cache f32; plain int8 cache loops, "
           f"chunked and whole) in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for p, (toks, gaps), (whole, _) in zip(prompts, ref_i8, whole_i8):
-        j = next((j for j, (a, b) in enumerate(zip(toks, whole)) if a != b),
-                 None)
-        print(f"[llama] plain int8 loops, prompt {len(p)}: chunked and whole "
-              + ("agree on every token" if j is None else
-                 f"part at step {j}, top-2 gap {gaps[j]:.3e}")
-              + f" (smallest gap {min(gaps):.3e})", flush=True)
+    loop_partings("[llama] plain int8 loops", prompts, ref_i8, whole_i8)
     chunks = sum(-(-len(p) // 64) for p in prompts)
 
     def exact(dt):
@@ -2473,49 +2896,86 @@ def phase_llama(dev, card, cfg=None):
                    *solo_ref)
     runs.append(counts)
     # information: where a decode step's and an admission's time goes
-    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024, prompt_pad=64,
-                          block_len=16, device=dev, kv="paged")
-    for p in prompts[:3]:
-        b.submit(p, 64)
-    for _ in range(2):
-        b.step()
-    sync(dev)
-    steps = 4
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        b.step()
-    sync(dev)
-    step_ms = (time.perf_counter() - t0) * 1e3 / steps
     if dev.type == "cuda":
-        def decode():
-            for _ in range(steps):
-                b.step()
-
-        wall, dev_ms, n_kern, top, _, dec_ms = _profiled(decode)
-        print(f"[llama] decode step (3 active slots, paged f32): "
-              f"{step_ms:.3f} ms wall; under the profiler "
-              f"{wall / steps:.3f} ms wall, {dev_ms / steps:.3f} ms device "
-              f"busy ({100 * dev_ms / wall:.1f}% of wall), "
-              f"{n_kern / steps:.0f} kernel launches a step; K7 "
-              f"{dec_ms / steps:.4f} ms/step = {100 * dec_ms / dev_ms:.1f}% "
-              f"of device busy; on {card}", flush=True)
-        for name, ms, n in top[:4]:
-            print(f"[llama]   decode {ms / steps:.4f} ms/step  x{n // steps}  "
-                  f"{name}", flush=True)
-        wall, dev_ms, n_kern, top, k5_ms, _ = _profiled(
-            lambda: b.submit(prompts[3], 2))
-        print(f"[llama] admission of the {len(prompts[3])}-token prompt (5 "
-              f"chunks + install): {wall:.3f} ms wall, {dev_ms:.3f} ms "
-              f"device busy ({100 * dev_ms / wall:.1f}%), {n_kern} kernel "
-              f"launches; K5 {k5_ms:.4f} ms = {100 * k5_ms / dev_ms:.1f}% of "
-              f"device busy; on {card}", flush=True)
-    else:
-        print(f"[llama] decode step (3 active slots, paged f32): "
-              f"{step_ms:.3f} ms wall on the CPU", flush=True)
-    del b, prepared
+        step_profile("llama", "L-A paged f32", cfg, prepared, prompts, dev,
+                     kv="paged")
+    del prepared
     return {name: {dt: sum(r[name][dt] for r in runs)
                    for dt in ("f32", "bf16", "int8")}
             for name in CACHE_KERNELS}
+
+
+def phase_llama_bf16(dev, card, cfg=None):
+    """[llama] L-B: llama3-8b at full width and depth (or `cfg`) in bf16
+    compute, its weights drawn on the card as [llama] draws them (the
+    f32 weights of [llama] freed first) and prepared with the matmul
+    weights in bf16 (16.06 GB), served by the LM daemon over the paged
+    bf16 pool (the four prompts, 16 greedy tokens each, the launch
+    counts zeroed just before and read just after): K5 with grouped heads
+    and a bf16 q once a layer a 64-token chunk, K7 at R = 4 once a layer
+    a step, exactly; the streams against the plain bf16-compute loop
+    over a bf16 cache prefilled in 64-token chunks, its decode steps at
+    the pool's 4 rows, at BF16_TIE. Then
+    step_profile (the decode step captured against eager, its device
+    busy beside the byte bound of its weights, one replayed step
+    bit-equal to the eager step). Returns the run's bf16-q launches."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    bf16 = torch.bfloat16
+    cfg = cfg or llama.PRESETS["llama3-8b"]
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    tree = llama.init(0, cfg, device=dev)
+    prepared = from_jax_params(tree, cfg, dev, compute_dtype=bf16)
+    del tree
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sync(dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(prepared))
+    mm_bytes = sum(t.numel() * t.element_size() for t in _leaves(prepared)
+                   if t.dtype == bf16)
+    print(f"[llama] L-B weights: {n_bytes / 1e9:.2f} GB ({mm_bytes / 1e9:.2f} "
+          f"GB of bf16 matmul weights) drawn on {dev} and prepared in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LLAMA_PROMPTS]
+    t0 = time.perf_counter()
+    refs = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "bf16",
+                                   chunk=64, compute_dtype=bf16, step_rows=4)
+            for p in prompts]
+    whole = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "bf16",
+                                    compute_dtype=bf16, step_rows=4)
+             for p in prompts]
+    print(f"[llama] L-B references (plain bf16-compute loops over a bf16 "
+          f"cache, 64-token chunks and whole prompts) in "
+          f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
+          f"{min(min(g) for _, g in refs):.3e}", flush=True)
+    loop_partings("[llama] L-B plain bf16 loops", prompts, refs, whole)
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    counts = serve_run(
+        "L-B", cfg, prepared, prompts, LLAMA_NEW, refs,
+        [("cached_attention", "bf16"), ("paged_decode_attention", "bf16")],
+        dev, card, exact=lambda steps: {
+            ("cached_attention", "bf16"): L * chunks,
+            ("paged_decode_attention", "bf16"): L * steps},
+        tie=BF16_TIE, kv="paged", compute_dtype=bf16)
+    if dev.type == "cuda":
+        walls = step_profile("llama", "L-B paged bf16", cfg, prepared,
+                             prompts, dev, bit_check=True, kv="paged",
+                             compute_dtype=bf16)
+        bound_ms = mm_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"[llama] L-B decode step: {walls['captured device']:.3f} ms "
+              f"device busy against the {bound_ms:.2f} ms byte bound of its "
+              f"{mm_bytes / 1e9:.2f} GB of bf16 weights at 3.35 TB/s "
+              f"({mm_bytes / walls['captured device'] / 1e9:.2f} TB/s); "
+              f"captured wall {walls['captured']:.3f} ms, eager "
+              f"{walls['eager']:.3f} ms; on {card}", flush=True)
+    del prepared
+    return counts
 
 
 def _leaves(tree):
@@ -2639,6 +3099,8 @@ def main():
     text = phase_text(cfg, prepared, dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
     del prepared
+    bf16_q_rows = phase_bf16_q_kernels(dev, gen)
+    bf16_launches = phase_bf16(dev, smi)
     pipe = phase_pipe(dev, smi, prompts[3])
     for counts in (text, pipe):
         for name in CACHE_KERNELS:
@@ -2651,15 +3113,30 @@ def main():
     llama_counts = phase_llama(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    lb_counts = phase_llama_bf16(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     for name in CACHE_KERNELS:
         for dt, n in llama_counts[name].items():
             launches[name][dt] += n
 
-    def llama_extra(kernel, rows, **shape):
+    def llama_extra(kernel, rows, counts=llama_counts, **shape):
         """A kernel's [llama] rows, each with the llama runs' launches."""
         return {**shape, "by_dtype": {
-            dt: {"launches": llama_counts[kernel][dt], **row}
+            dt: {"launches": counts[kernel][dt], **row}
             for dt, row in rows.items()}}
+
+    def bf16_q_record(name, source, line, gpt2, llama_rows, key, **shapes):
+        """A kernel's bf16-q entry: the gpt2 rows (the bf16 cache on top)
+        and the launches with a bf16 q of the [bf16] gpt2 runs and L-B;
+        llama3-8b's rows under `key`, with L-B's launches."""
+        runs = {dt: bf16_launches[name][dt] + lb_counts[name][dt]
+                for dt in bf16_launches[name]}
+        return kernel_record(
+            f"{name} (bf16 q)", src + source, f"{pallas}:{line}",
+            bf16_q_rows[gpt2], "bf16", runs,
+            **{key: llama_extra(name, bf16_q_rows[llama_rows],
+                                counts=lb_counts, **shapes)})
 
     src = "dnn_tpu_torch/ops/cuda/csrc/"
     pallas = "dnn_tpu/ops/pallas/cached_attention.py"
@@ -2687,6 +3164,19 @@ def main():
                           "paged_decode_attention", llama_rows["K7"], B=4,
                           Hk=8, R=4, D=128, bp=16, nb_max=64)),
     ]
+    kernels += [
+        bf16_q_record("cached_attention", "cached_attention.cu", 77, "K5",
+                      "llama K5", "llama_shape", B=1, H=32, Hk=8, T=64,
+                      S=1024, D=128, base=960),
+        bf16_q_record("decode_attention", "decode_attention.cu", 296, "K6",
+                      "llama K6 solo", "llama_solo_shape", B=1, Hk=8, R=4,
+                      S=LLAMA_SOLO_S, D=128, pos=LLAMA_SOLO_S - 2),
+        bf16_q_record("paged_decode_attention", "paged_decode.cu", 459, "K7",
+                      "llama K7", "llama_shape", B=4, Hk=8, R=4, D=128,
+                      bp=16, nb_max=64),
+    ]
+    kernels[-2]["solo_shape"] = {"B": SOLO_B, "Hk": SOLO_HK, "S": SOLO_S,
+                                 "by_dtype": bf16_q_rows["K6 solo"]}
     flash_py = "dnn_tpu/ops/pallas/flash_attention.py"
     for name, source, line in (
             ("flash_attention", "flash_attention.cu", 50),

@@ -43,11 +43,13 @@ def _check_llama(tree, cfg):
                              f"{shape}")
 
 
-def from_jax_params(tree, cfg, device):
+def from_jax_params(tree, cfg, device, compute_dtype=None):
     """JAX-layout param tree (numpy or tensor leaves) of a GPTConfig or a
     LlamaConfig -> prepared tensors on `device` (gpt.prepare_stacked).
     Validates the layer count and the shapes a wrong config gets
-    wrong."""
+    wrong. `compute_dtype` (torch.bfloat16 for bf16 compute) holds the
+    matmul weights in that type (gpt.for_compute): the form the serving
+    entry points run at that compute type."""
     from dnn_tpu_torch.models.llama import LlamaConfig
 
     missing = [f"h_{i}" for i in range(cfg.n_layer) if f"h_{i}" not in tree]
@@ -60,7 +62,7 @@ def from_jax_params(tree, cfg, device):
         got = _shape(tree["lm_head"]["kernel"])
         if got != want:
             raise ValueError(f"lm_head kernel is {got}, expected {want}")
-    return prepare_stacked(tree, cfg, device)
+    return prepare_stacked(tree, cfg, device, compute_dtype)
 
 
 def to_jax_params(prepared, cfg):

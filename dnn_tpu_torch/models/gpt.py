@@ -122,12 +122,15 @@ def tensors(params, device):
     return _map(lambda a: _to_tensor(a, device), params)
 
 
-def prepare_stacked(params, cfg, device):
+def prepare_stacked(params, cfg, device, compute_dtype=None):
     """JAX-layout tree -> the served form: every block leaf stacked
     along a leading (L,) axis, all leaves float32 tensors on `device`.
     Leaves are numpy arrays, or tensors (stacked where they lie, so a
     tree drawn on the card never visits the host). Any config with
-    n_layer and "h_i" blocks: the GPT and LLaMA families share it."""
+    n_layer and "h_i" blocks: the GPT and LLaMA families share it.
+    With `compute_dtype` (bf16 compute) the matmul weights are held in
+    it (`for_compute`), each block leaf cast as soon as it is stacked,
+    so no f32 copy of the whole stack coexists with the tree."""
     blocks = [params[f"h_{i}"] for i in range(cfg.n_layer)]
 
     def stack(*path):
@@ -138,9 +141,12 @@ def prepare_stacked(params, cfg, device):
                 node = node[key]
             leaves.append(node)
         if isinstance(leaves[0], torch.Tensor):
-            return _to_tensor(torch.stack(leaves), device)
-        return _to_tensor(np.stack([np.asarray(a, np.float32)
-                                    for a in leaves]), device)
+            out = _to_tensor(torch.stack(leaves), device)
+        else:
+            out = _to_tensor(np.stack([np.asarray(a, np.float32)
+                                       for a in leaves]), device)
+        return out.to(compute_dtype) if _matmul_leaf(path, blocks[0]) \
+            and compute_dtype is not None else out
 
     def stack_tree(node, path=()):
         if isinstance(node, dict):
@@ -150,6 +156,48 @@ def prepare_stacked(params, cfg, device):
     out = {k: _map(lambda a: _to_tensor(a, device), v)
            for k, v in params.items() if not k.startswith("h_")}
     out["blocks"] = stack_tree(blocks[0])
+    return for_compute(out, compute_dtype)
+
+
+def _matmul_leaf(path, block) -> bool:
+    """Whether the block leaf at `path` is a linear's kernel or bias
+    (its parent holds a "kernel"), not a norm's scale or bias."""
+    parent = block
+    for key in path[:-1]:
+        parent = parent[key]
+    return "kernel" in parent and path[-1] in ("kernel", "bias")
+
+
+def for_compute(prepared, compute_dtype):
+    """The served form under bf16 compute: every block linear's kernel
+    and bias and the lm_head's kernel held in `compute_dtype`, cast here
+    once -- the operands JAX's `linear(compute_dtype=)` casts to on every
+    call -- so a served step launches no cast of a weight. Embeddings and
+    norm scales stay f32 (JAX's norms compute in f32 and its embedding
+    is cast after the lookup); the lm_head's bias stays f32 (the head
+    adds it to f32 logits). A tied head (no "lm_head" leaf: the LLaMA
+    family's tied configs read wte's transpose) gets an "lm_head" of its
+    own, wte.T in `compute_dtype`. Leaves already of the type are not
+    copied; `compute_dtype=None` returns `prepared` itself."""
+    if compute_dtype is None:
+        return prepared
+
+    def cast(node, bias: bool):
+        if not isinstance(node, dict):
+            return node
+        if "kernel" not in node:
+            return {k: cast(v, bias) for k, v in node.items()}
+        return {k: v.to(compute_dtype)
+                if k == "kernel" or (k == "bias" and bias) else v
+                for k, v in node.items()}
+
+    out = dict(prepared)
+    out["blocks"] = cast(prepared["blocks"], True)
+    if "lm_head" in prepared:
+        out["lm_head"] = cast(prepared["lm_head"], False)
+    else:
+        out["lm_head"] = {"kernel": prepared["wte"]["embedding"].T
+                          .to(compute_dtype).contiguous()}
     return out
 
 
@@ -170,7 +218,8 @@ def unstack(blocks, n_layer: int):
 def head(prepared, x, *, cfg: GPTConfig, compute_dtype=None):
     """Final LayerNorm + lm_head -> f32 logits (JAX's head :213). With
     `compute_dtype` the lm_head product reads operands rounded to it and
-    accumulates in f32."""
+    accumulates in f32 (one bf16 x bf16 -> f32 product on the card;
+    ops/nn.linear)."""
     x = layer_norm(prepared["ln_f"], x, eps=cfg.ln_eps)
     if compute_dtype is None:
         return linear(prepared["lm_head"], x)

@@ -586,38 +586,50 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype, device):
 
 
 def _block_with_cache(bp, x, layer_cache, start_pos: int, *,
-                      cfg: LlamaConfig, codec):
+                      cfg: LlamaConfig, codec, compute_dtype=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos +
     T): writes the rotated k (and v) into the KV-head cache, then
     attends it — K5 with grouped heads for a chunk, K6 with the group
     folded into the rows for a one-token step (codec.attend)."""
     h = _pre_normed(bp, x, cfg)
-    q, k, v = _qkv(bp, h, cfg)
+    q, k, v = _qkv(bp, h, cfg, compute_dtype)
     rows = torch.arange(start_pos, start_pos + x.shape[1], device=x.device)
     q, k = _rotated(q, k, *_rope_tables(cfg, rows), cfg)
     codec.write(layer_cache, k, v, start_pos)
     y = codec.attend(q, layer_cache, start_pos)
-    o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)))
-    return _branches_residual(bp, x, o, h, cfg=cfg)
+    o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
+               compute_dtype=compute_dtype)
+    return _branches_residual(bp, x, o, h, cfg=cfg,
+                              compute_dtype=compute_dtype)
+
+
+def _embedded(prepared, ids, cfg: LlamaConfig, compute_dtype):
+    """The scaled token embedding in f32, cast to `compute_dtype` (JAX's
+    x.astype(compute_dtype) after the lookup)."""
+    x = _scaled_embed(prepared, ids, cfg)
+    return x if compute_dtype is None else x.to(compute_dtype)
 
 
 @torch.no_grad()
 def forward_with_cache(prepared, ids, cache, start_pos: int, *,
-                       cfg: LlamaConfig):
+                       cfg: LlamaConfig, compute_dtype=None):
     """ids (B, T) at positions [start_pos, start_pos + T) -> f32 logits
     (B, T, V); the KV-head cache (float {"k","v"} or int8 with
     {"ks","vs"}, leaves (L, B, Hk, S[, D])) is written in place and
-    returned."""
+    returned. `compute_dtype` (bf16 compute): the residual stream and
+    the block products in it, norms and RoPE in f32, f32 logits."""
     from dnn_tpu_torch.runtime.kvcache import codec_for_cache
 
     check_ported(cfg)
     codec = codec_for_cache(cache)
-    x = _scaled_embed(prepared, ids, cfg)
+    x = _embedded(prepared, ids, cfg, compute_dtype)
     for i in range(cfg.n_layer):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = _block_with_cache(layer_params(prepared["blocks"], i), x,
-                              layer_cache, start_pos, cfg=cfg, codec=codec)
-    return head(prepared, x.float(), cfg=cfg), cache
+                              layer_cache, start_pos, cfg=cfg, codec=codec,
+                              compute_dtype=compute_dtype)
+    return head(prepared, x.float(), cfg=cfg,
+                compute_dtype=compute_dtype), cache
 
 
 def make_generate(cfg: LlamaConfig, *, max_new_tokens: int, **kwargs):
@@ -637,18 +649,16 @@ class LlamaFamilyRows:
     padded-prompt prefill and the per-slot decode with RoPE at each
     slot's own position over a KV-head-width pool; a decode step folds
     each slot's query group into G rows of its KV head (K6 dense, K7
-    paged). `compute_dtype` (bf16 compute, ROADMAP PyTorch/CUDA port
-    item 4) and `ffn` (MoE, port item 7) raise, as do the switches
-    `check_ported` names."""
+    paged). `compute_dtype=torch.bfloat16` runs both in bf16 compute
+    (K5/K6/K7 with bf16 queries). `ffn` (MoE, ROADMAP PyTorch/CUDA port
+    item 7) raises, as do the switches `check_ported` names."""
 
     def __init__(self, cfg: LlamaConfig, *, compute_dtype=None, ffn=None):
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype: bf16 compute is not ported to dnn_tpu_torch "
-                "yet (ROADMAP PyTorch/CUDA port item 4)")
+        from dnn_tpu_torch.runtime.generate import check_compute_dtype
+
         check_ported(cfg, ffn)
         self.cfg = cfg
-        self.compute_dtype = None
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     def init_cache(self, batch: int, max_len: int, dtype, device):
         return init_cache(self.cfg, batch, max_len, dtype, device)
@@ -657,7 +667,8 @@ class LlamaFamilyRows:
         """One (1, P) prompt chunk at [start_pos, start_pos + P) ->
         logits (1, P, V); row_cache is written in place (K5)."""
         logits, _ = forward_with_cache(prepared, padded, row_cache,
-                                       start_pos, cfg=self.cfg)
+                                       start_pos, cfg=self.cfg,
+                                       compute_dtype=self.compute_dtype)
         return logits
 
     @torch.no_grad()
@@ -666,10 +677,10 @@ class LlamaFamilyRows:
         logits (B, V). The codec's write_rows gates inactive slots;
         attend_rows takes q folded to (B, Hk, G, D). Per-layer views are
         taken here, each step (a bucket grow replaces the cache)."""
-        cfg = self.cfg
+        cfg, cdt = self.cfg, self.compute_dtype
         b = tok.shape[0]
         hk, d = cfg.n_kv_head, cfg.head_dim
-        x = _scaled_embed(prepared, tok[:, None], cfg)  # (B, 1, C)
+        x = _embedded(prepared, tok[:, None], cfg, cdt)  # (B, 1, C)
         cos, sin = _rope_tables(cfg, pos)  # (B, D): each slot's position
         cos, sin = cos[:, None, None, :], sin[:, None, None, :]
         for i in range(cfg.n_layer):
@@ -677,15 +688,16 @@ class LlamaFamilyRows:
             c = {kk: leaf if kk == "tables" else leaf[i]
                  for kk, leaf in cache.items()}
             h = _pre_normed(bp, x, cfg)
-            q, k, v = _qkv(bp, h, cfg)
+            q, k, v = _qkv(bp, h, cfg, cdt)
             q, k = _rotated(q, k, cos, sin, cfg)
             codec.write_rows(c, k, v, pos, active)
             y = codec.attend_rows(q.reshape(b, hk, cfg.n_head // hk, d), c,
                                   pos)
             o = linear(bp["attn"]["o"],
-                       merge_heads(y.reshape(b, cfg.n_head, 1, d).to(x.dtype)))
-            x = _branches_residual(bp, x, o, h, cfg=cfg)
-        return head(prepared, x.float(), cfg=cfg)[:, -1]
+                       merge_heads(y.reshape(b, cfg.n_head, 1, d).to(x.dtype)),
+                       compute_dtype=cdt)
+            x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt)
+        return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[:, -1]
 
 
 # --------------------------------------------------------------------------

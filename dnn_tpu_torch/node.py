@@ -230,12 +230,15 @@ def _tokenizer(spec: str, vocab_size: int):
 
 
 def _serve_lm(config: TopologyConfig, me, args) -> int:
-    """The LM daemon on this node's port, with the config's weights."""
+    """The LM daemon on this node's port, with the config's weights, at
+    the config's compute type (`"dtype": "bfloat16"` serves in bf16
+    compute, as JAX's daemon does: dnn_tpu/node.py passes the engine's
+    compute_dtype)."""
     from dnn_tpu_torch.convert import from_jax_params, load_npz
     from dnn_tpu_torch.models.gpt import GPTConfig
     from dnn_tpu_torch.models.llama import LlamaConfig
     from dnn_tpu_torch.registry import get_model
-    from dnn_tpu_torch.runtime.engine import load_params
+    from dnn_tpu_torch.runtime.engine import _DTYPES, load_params
     from dnn_tpu_torch.runtime.lm_server import serve_lm
 
     try:
@@ -247,12 +250,16 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
         if me.port is None:
             raise ValueError(f"node '{me.id}' has no IP:Port address in the "
                              "config; the LM daemon needs one to bind")
+        if config.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
+                             f"{config.dtype}")
+        compute_dtype = _DTYPES[config.dtype]
         cfg = spec.config
         device = (resolve_device(args.device) if args.device
                   else config_device(config.device_type))
         tree = (load_npz(args.weights_npz) if args.weights_npz
                 else load_params(config, spec, args.seed))
-        prepared = from_jax_params(tree, cfg, device)
+        prepared = from_jax_params(tree, cfg, device, compute_dtype)
     except (OSError, KeyError, ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
@@ -263,8 +270,8 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
         except Exception as e:  # noqa: BLE001 — CLI boundary: one line
             log.error("tokenizer setup failed: %s", e)
             return 1
-    log.info("node %s: LM daemon, model %s, device %s", me.id, config.model,
-             device)
+    log.info("node %s: LM daemon, model %s, device %s, dtype %s", me.id,
+             config.model, device, config.dtype)
     try:
         return asyncio.run(serve_lm(
             cfg, prepared, port=me.port, slots=args.slots,
@@ -272,7 +279,8 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             kv=args.kv, kv_dtype=args.kv_dtype,
             decode_buckets=args.decode_buckets,
             paged_blocks=args.paged_blocks, block_len=args.block_len,
-            seed=args.seed, device=device, tokenizer=tokenizer))
+            compute_dtype=compute_dtype, seed=args.seed, device=device,
+            tokenizer=tokenizer))
     except (NotImplementedError, ValueError) as e:
         # e.g. --kv_dtype int4, or a sliding-window preset (ROADMAP item 2)
         log.error("%s", e)

@@ -55,8 +55,10 @@ def rope_cos_sin(positions, head_dim, *, theta=10000.0):
     f32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device), exps)
+    # theta as a 0-dim CPU tensor (a scalar operand, no host-to-device
+    # copy, so the tables can be built inside a captured CUDA graph)
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32),
+                               exps)
     angles = positions.float()[..., None] * inv_freq  # (*P, d/2)
     emb = torch.cat([angles, angles], dim=-1)
     return torch.cos(emb), torch.sin(emb)

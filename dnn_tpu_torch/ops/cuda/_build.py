@@ -34,30 +34,32 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source file, C symbol, argtypes). Every pointer and the
 # stream are c_void_p (the scale, lse and workspace pointers too, None
 # where absent): a default ctypes int would cut them to 32 bits. kv_kind is
-# 0 = f32, 1 = bf16, 2 = int8 with scales. A source and the csrc/
+# 0 = f32, 1 = bf16, 2 = int8 with scales; q_kind 0 = f32, 1 = bf16. A source and the csrc/
 # headers it includes name its library (lib_path); a source may export
 # several entry points (flash_backward.cu: K3 and K4), and then one
 # library serves them all.
 KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
-        # q k v ks vs pos out ws | BH H G T S D kv_kind split_tiles |
-        # scale stream (G: query heads a KV head; ws: the split-KV
-        # workspace, None for a single split)
+        # q k v ks vs pos out ws | BH H G T S D kv_kind q_kind
+        # split_tiles | scale stream (G: query heads a KV head; q_kind: 0
+        # f32, 1 bf16 q and out; ws: the split-KV workspace, None for a
+        # single split)
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         _F, _P]),
+         _I, _F, _P]),
     "decode_attention": (
         "decode_attention.cu", "dnn_decode_attention",
-        # q k v ks vs pos out ws | B Hk R S D kv_kind split_keys | scale
-        # stream (ws: the split-KV workspace, None for a single split)
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-         _P]),
+        # q k v ks vs pos out ws | B Hk R S D kv_kind q_kind split_keys
+        # | scale stream (ws: the split-KV workspace, None for a single
+        # split)
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         _F, _P]),
     "paged_decode": (
         "paged_decode.cu", "dnn_paged_decode_attention",
         # q kp vp ks vs tables pos out ws | B Hk R D bp nb_max kv_kind
-        # split_keys | scale stream
+        # q_kind split_keys | scale stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _I, _F, _P]),
+         _I, _I, _F, _P]),
     "flash_attention": (
         "flash_attention.cu", "dnn_flash_attention",
         # q k v out lse | BH T S D causal kind | scale stream

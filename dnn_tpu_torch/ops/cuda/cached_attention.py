@@ -22,20 +22,28 @@ serving path and their plain PyTorch twins.
 Each takes an f32, bf16 or int8 cache; an int8 cache comes with its
 per-(position, head) f32 scales `ks`/`vs` (the K scale multiplies the
 scores before 1/sqrt(D), the V scale the probabilities after the
-softmax), a float cache with none. Every result is f32.
+softmax), a float cache with none. q is f32, or bf16 under bf16 compute;
+the result is of q's type (the kernels read a bf16 q as it is and write
+a bf16 output; no cast is launched for either). Scores, softmax and
+accumulation are f32 for every type.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors run the
 plain version (`reference_*`, the JAX package's reference math), CUDA
 tensors launch the kernel or raise. No failure falls back. Each wrapper
 counts its calls that launch kernels in plain int attributes —
-`.launches` in total and `.launches_by_dtype[{"f32", "bf16", "int8"}]`
-by cache type, one per call — so a run can show that the serving path
-went through the kernels.
+`.launches` in total, `.launches_by_dtype[{"f32", "bf16", "int8"}]` by
+cache type, one per call, and `.launches_bf16_q` by cache type, the
+calls among those with a bf16 q — so a run can show that the serving
+path went through the kernels. A call made while a CUDA graph is being
+captured launches nothing then: under `recording_launches(log)` it is
+written to the `LaunchLog`, and `log.replayed()` counts every recorded
+launch once per replay of the graph; without a log it is not counted.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -44,6 +52,7 @@ from dnn_tpu_torch.ops.cuda import _build
 _NEG_BIG = -1e30
 _KV_KIND = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
             torch.int8: (2, "int8")}
+_Q_KIND = {torch.float32: 0, torch.bfloat16: 1}
 K5_TILE = 64             # K5's query rows a block and keys a tile
 K5_TARGET_BLOCKS = 132   # one block for each of the H100's 132 SMs
 DECODE_MIN_SPLIT_KEYS = 64  # K6/K7's shortest split (32-256 timed: PERF.md)
@@ -71,13 +80,13 @@ def _scaled_softmax_attend(q, k, v, keep, ks, vs):
 
 
 def reference_cached_attention(q, k, v, pos, *, ks=None, vs=None):
-    """q (B, H, T, D) at absolute positions pos[b] + t; k/v (B, Hk, S, D)
-    cache with H = G * Hk (float, or int8 with ks/vs (B, Hk, S) scales);
-    pos (B,) int32. Row (b, t) attends columns <= pos[b] + t; query head
-    h reads KV head h / G. The group folds into the row dim, as the JAX
-    LLaMA path folds it ((B, Hk, G * T, D), row limits tiled G times), so
-    the cache is never copied per query head. Returns (B, H, T, D)
-    f32."""
+    """q (B, H, T, D) f32 or bf16 at absolute positions pos[b] + t; k/v
+    (B, Hk, S, D) cache with H = G * Hk (float, or int8 with ks/vs (B,
+    Hk, S) scales); pos (B,) int32. Row (b, t) attends columns <= pos[b]
+    + t; query head h reads KV head h / G. The group folds into the row
+    dim, as the JAX LLaMA path folds it ((B, Hk, G * T, D), row limits
+    tiled G times), so the cache is never copied per query head. f32
+    math; returns (B, H, T, D) in q's type, as the kernel writes it."""
     b, h, t, d = q.shape
     hk = k.shape[1]
     cols = torch.arange(k.shape[2], device=q.device)
@@ -85,16 +94,16 @@ def reference_cached_attention(q, k, v, pos, *, ks=None, vs=None):
     limit = pos.long()[:, None, None, None] + rows[None, None, :, None]
     out = _scaled_softmax_attend(q.reshape(b, hk, -1, d), k, v,
                                  cols <= limit, ks, vs)
-    return out.reshape(b, h, t, d)
+    return out.reshape(b, h, t, d).to(q.dtype)
 
 
 def reference_decode_attention(q, k, v, pos, *, ks=None, vs=None):
-    """q (B, Hk, R, D); every row of slot b attends cache columns
-    <= pos[b] of k/v (B, Hk, S, D) (float, or int8 with ks/vs (B, Hk, S)
-    scales). Returns (B, Hk, R, D) f32."""
+    """q (B, Hk, R, D) f32 or bf16; every row of slot b attends cache
+    columns <= pos[b] of k/v (B, Hk, S, D) (float, or int8 with ks/vs
+    (B, Hk, S) scales). f32 math; returns (B, Hk, R, D) in q's type."""
     cols = torch.arange(k.shape[2], device=q.device)
     keep = cols <= pos.long()[:, None, None, None]
-    return _scaled_softmax_attend(q, k, v, keep, ks, vs)
+    return _scaled_softmax_attend(q, k, v, keep, ks, vs).to(q.dtype)
 
 
 def gather_view(pool, tables):
@@ -113,7 +122,7 @@ def reference_paged_decode_attention(q, kp, vp, tables, pos, *, ks=None,
                                      vs=None):
     """Oracle for the paged kernel: gather the dense views (scale blocks
     (n_blocks, Hk, bp) too), then the dense decode reference. Returns
-    (B, Hk, R, D) f32."""
+    (B, Hk, R, D) in q's type."""
     return reference_decode_attention(
         q, gather_view(kp, tables), gather_view(vp, tables), pos,
         ks=None if ks is None else gather_view(ks, tables),
@@ -136,8 +145,8 @@ def _same_device(*ts):
 
 def _check_dtypes(q, k, v, pos, ks, vs):
     """Returns (kv_kind, dtype name) of the cache."""
-    if q.dtype != torch.float32:
-        raise TypeError(f"q must be float32, got {q.dtype}")
+    if q.dtype not in _Q_KIND:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != v.dtype or k.dtype not in _KV_KIND:
         raise TypeError(f"k/v must share float32, bfloat16 or int8, got "
                         f"{k.dtype}/{v.dtype}")
@@ -174,22 +183,78 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(wrapper, name, dtype_name, dev, *args):
+class LaunchLog:
+    """The kernel calls recorded while a CUDA graph was captured: (wrapper,
+    cache dtype name, q is bf16) each. A captured call launches nothing,
+    so it is not counted then; each replay of the graph launches every
+    recorded call once, and `replayed()` counts them."""
+
+    def __init__(self):
+        self.calls = []
+
+    def replayed(self):
+        for wrapper, dtype_name, bf16_q in self.calls:
+            _count(wrapper, dtype_name, bf16_q)
+
+
+_capture = threading.local()
+
+
+class recording_launches:
+    """Context manager: this thread's kernel calls are written to `log`
+    instead of counted (a CUDA graph being captured)."""
+
+    def __init__(self, log: LaunchLog):
+        self.log = log
+
+    def __enter__(self):
+        self._prev = getattr(_capture, "log", None)
+        _capture.log = self.log
+        return self.log
+
+    def __exit__(self, *exc):
+        _capture.log = self._prev
+        return False
+
+
+def _count(wrapper, dtype_name, bf16_q):
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype_name] += 1
+    if bf16_q:
+        wrapper.launches_bf16_q[dtype_name] += 1
+
+
+def _record(wrapper, dtype_name, bf16_q, capturing):
+    """Count a launched call, or, while a graph is captured (the call
+    launched nothing), write it to this thread's LaunchLog if there is
+    one."""
+    if not capturing:
+        _count(wrapper, dtype_name, bf16_q)
+        return
+    log = getattr(_capture, "log", None)
+    if log is not None:
+        log.calls.append((wrapper, dtype_name, bf16_q))
+
+
+def _launch(wrapper, name, dtype_name, dev, *args, bf16_q=False):
     """Call kernel `name` on the current stream of `dev`; raise on a
-    refused launch; count it."""
+    refused launch; count it (`_record`; `bf16_q`: the call took a bf16
+    q)."""
     fn = _build.load(name)
     with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev)
+        rc = fn(*args, stream.cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"cudaError {rc}")
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[dtype_name] += 1
+    _record(wrapper, dtype_name, bf16_q, capturing)
 
 
 def _counted(fn):
     fn.launches = 0
     fn.launches_by_dtype = {"f32": 0, "bf16": 0, "int8": 0}
+    fn.launches_bf16_q = {"f32": 0, "bf16": 0, "int8": 0}
     return fn
 
 
@@ -230,11 +295,11 @@ def _decode_rows(r):
 
 @_counted
 def cached_attention(q, k, v, pos, *, ks=None, vs=None):
-    """K5. q (B, H, T, D) f32; k/v (B, Hk, S, D) f32 or bf16, or int8
-    with ks/vs (B, Hk, S) f32 scales, where H = G * Hk (G = 1: one cache
-    head per query head; query head h reads KV head h / G); pos (B,)
-    int32 base positions >= 0 (row t attends columns <= pos[b] + t).
-    Returns (B, H, T, D) f32. CPU tensors run
+    """K5. q (B, H, T, D) f32 or bf16; k/v (B, Hk, S, D) f32 or bf16, or
+    int8 with ks/vs (B, Hk, S) f32 scales, where H = G * Hk (G = 1: one
+    cache head per query head; query head h reads KV head h / G); pos
+    (B,) int32 base positions >= 0 (row t attends columns <= pos[b] + t).
+    Returns (B, H, T, D) in q's type. CPU tensors run
     `reference_cached_attention`. On CUDA the partial results of the key
     splits go to an f32 workspace of n_split * B * H * T * (D + 2)
     floats, merged in split order (deterministic)."""
@@ -254,23 +319,26 @@ def cached_attention(q, k, v, pos, *, ks=None, vs=None):
         return reference_cached_attention(q, k, v, pos, ks=ks, vs=vs)
     _check_kernel_args((q, k, v, pos, ks, vs), d=d, dims=(32, 64, 128),
                        aligned=(q, k, v))
-    out = torch.empty((b, h, t, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, t, d), dtype=q.dtype, device=dev)
     split_tiles, n_split = k5_split(b * h, t, k.shape[2])
     ws = None if n_split == 1 else torch.empty(
         n_split * b * h * t * (d + 2), dtype=torch.float32, device=dev)
+    q_kind = _Q_KIND[q.dtype]
     _launch(cached_attention, "cached_attention", dname, dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
             pos.data_ptr(), out.data_ptr(), _ptr(ws), b * h, h, h // hk, t,
-            k.shape[2], d, kind, split_tiles, 1.0 / math.sqrt(d))
+            k.shape[2], d, kind, q_kind, split_tiles, 1.0 / math.sqrt(d),
+            bf16_q=q_kind == 1)
     return out
 
 
 @_counted
 def decode_attention(q, k, v, pos, *, ks=None, vs=None):
-    """K6. q (B, Hk, R, D) f32 — R rows per KV head, all attending cache
-    columns <= pos[b] (a pos at or past S attends the whole cache);
-    k/v (B, Hk, S, D) f32 or bf16, or int8 with ks/vs (B, Hk, S) f32
-    scales; pos (B,) int32. Returns (B, Hk, R, D) f32. CPU tensors run
+    """K6. q (B, Hk, R, D) f32 or bf16 — R rows per KV head, all
+    attending cache columns <= pos[b] (a pos at or past S attends the
+    whole cache); k/v (B, Hk, S, D) f32 or bf16, or int8 with ks/vs (B,
+    Hk, S) f32 scales; pos (B,) int32. Returns (B, Hk, R, D) in q's
+    type. CPU tensors run
     `reference_decode_attention`. On CUDA, R <= DECODE_MAX_ROWS; the
     partial results of the key splits (`decode_split`) go to an f32
     workspace of n_split * B * Hk * R * (D + 2) floats, merged in split
@@ -292,24 +360,26 @@ def decode_attention(q, k, v, pos, *, ks=None, vs=None):
     _check_kernel_args((q, k, v, pos, ks, vs), d=d, dims=(32, 64, 128),
                        aligned=(q, k, v))
     _decode_rows(r)
-    out = torch.empty((b, hk, r, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hk, r, d), dtype=q.dtype, device=dev)
     split_keys, n_split = decode_split(b * hk, k.shape[2])
     ws = None if n_split == 1 else torch.empty(
         n_split * b * hk * r * (d + 2), dtype=torch.float32, device=dev)
+    q_kind = _Q_KIND[q.dtype]
     _launch(decode_attention, "decode_attention", dname, dev,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
             pos.data_ptr(), out.data_ptr(), _ptr(ws), b, hk, r, k.shape[2],
-            d, kind, split_keys, 1.0 / math.sqrt(d))
+            d, kind, q_kind, split_keys, 1.0 / math.sqrt(d),
+            bf16_q=q_kind == 1)
     return out
 
 
 @_counted
 def paged_decode_attention(q, kp, vp, tables, pos, *, ks=None, vs=None):
-    """K7. q (B, Hk, R, D) f32 — R rows per KV head, all attending
-    logical columns <= pos[b]; kp/vp (n_blocks, Hk, bp, D) f32 or bf16
-    pool, or int8 with ks/vs (n_blocks, Hk, bp) f32 scale blocks; tables
-    (B, nb_max) int32 logical -> physical block; pos (B,) int32. Returns
-    (B, Hk, R, D) f32. CPU tensors run
+    """K7. q (B, Hk, R, D) f32 or bf16 — R rows per KV head, all
+    attending logical columns <= pos[b]; kp/vp (n_blocks, Hk, bp, D) f32
+    or bf16 pool, or int8 with ks/vs (n_blocks, Hk, bp) f32 scale blocks;
+    tables (B, nb_max) int32 logical -> physical block; pos (B,) int32.
+    Returns (B, Hk, R, D) in q's type. CPU tensors run
     `reference_paged_decode_attention`. On CUDA, as `decode_attention`,
     over the nb_max * bp logical columns split in whole blocks."""
     if q.dim() != 4 or kp.dim() != 4 or kp.shape != vp.shape:
@@ -339,12 +409,14 @@ def paged_decode_attention(q, kp, vp, tables, pos, *, ks=None, vs=None):
     if kp.shape[0] * hk * bp >= 2**31:
         raise ValueError(f"the CUDA kernel takes a pool of fewer than 2^31 "
                          f"rows, got {tuple(kp.shape)}")
-    out = torch.empty((b, hk, r, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hk, r, d), dtype=q.dtype, device=dev)
     split_keys, n_split = decode_split(b * hk, nb_max * bp, bp)
     ws = None if n_split == 1 else torch.empty(
         n_split * b * hk * r * (d + 2), dtype=torch.float32, device=dev)
+    q_kind = _Q_KIND[q.dtype]
     _launch(paged_decode_attention, "paged_decode", dname, dev,
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(), _ptr(ks), _ptr(vs),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(ws), b,
-            hk, r, d, bp, nb_max, kind, split_keys, 1.0 / math.sqrt(d))
+            hk, r, d, bp, nb_max, kind, q_kind, split_keys,
+            1.0 / math.sqrt(d), bf16_q=q_kind == 1)
     return out

@@ -3,9 +3,10 @@
 // Replaces: dnn_tpu/ops/pallas/cached_attention.py:77 _cached_attn_kernel
 // (entry cached_attention) -- a prompt chunk's queries attend a
 // preallocated K/V cache with a RUNTIME base position: row t of batch b
-// sees cache columns <= pos[b] + t. q is f32; the cache is f32, bf16, or
-// int8 with one f32 scale per (position, head) for K and for V; the
-// output is f32. Grouped-query attention: the cache may hold fewer heads
+// sees cache columns <= pos[b] + t. q is f32, or bf16 under bf16
+// compute; the cache is f32, bf16, or int8 with one f32 scale per
+// (position, head) for K and for V; the output is of q's type, as the
+// TPU kernel writes o in q's dtype. Grouped-query attention: the cache may hold fewer heads
 // than q, Hk = H / G, and query head h reads KV head h / G (G = 1 is
 // multi-head attention; llama3-8b has G = 4).
 //
@@ -60,6 +61,12 @@
 //    sum). Q is split once into two swizzled tiles; P is split in
 //    registers: wgmma's accumulator fragment of S is, pair by pair, the A
 //    fragment of P.V.
+//  * A bf16 q (bf16 compute) is exact in bf16: it is copied into the Q
+//    tile as it is, its lo is zero, and the q_lo products are not issued
+//    (Q.K^T is q.k, or q.k_hi + q.k_lo against an f32 cache). P keeps its
+//    hi + lo split, so the f32 statistics and accumulator are those of an
+//    f32 q; only the stored output is rounded to bf16. An f32 q runs the
+//    code it ran before bf16 q existed.
 //  * K and V stream through a two-stage cp.async ring (16-byte copies,
 //    zero-filled past S), tile j + 1 in flight while tile j is
 //    multiplied. A bf16 cache lands straight in wgmma's 128-byte swizzled
@@ -73,8 +80,8 @@
 //    scale folds into P for P.V only, while l sums the unscaled P (the
 //    reference's softmax denominator never sees the V scales).
 //
-// Numerics: f32 statistics and accumulation, f32 output for every cache
-// type. The scale 1/sqrt(D) multiplies the f32 score in log2 units
+// Numerics: f32 statistics and accumulation for every cache type; the
+// output is written in q's type (rounded to nearest once, for bf16). The scale 1/sqrt(D) multiplies the f32 score in log2 units
 // (exp2 on the SFU) where the reference divides by sqrt(D); masked scores
 // sit at -1e30 and add exactly 0 to l and O. A row's live columns are a
 // prefix of the cache, so the first tile of any split the row reaches
@@ -206,8 +213,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
   }
 }
 
-// q (BH, T, D) f32; k, v (BH / G, S, D) KV; k_scale, v_scale (BH / G, S)
-// f32 (int8 only); pos (B,) int32, B = BH / H; out (BH, T, D) f32. Query
+// q (BH, T, D) Elem<kBF16Q>; k, v (BH / G, S, D) KV; k_scale, v_scale
+// (BH / G, S) f32 (int8 only); pos (B,) int32, B = BH / H; out (BH, T, D)
+// of q's type; the workspace is f32 whatever q's type. Query
 // head bh reads the cache's head bh / G: with H = G * Hk, b * H + h over G
 // is b * Hk + h / G. Only the cache's addressing sees G; q, the output,
 // pos and the workspace are indexed by bh as for G = 1. ws null
@@ -216,15 +224,16 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
 // T) each (rows whose live columns all lie in split 0 go to out
 // instead). Grid (n_split, ceil(T / 64), BH), block kWGThreads, dynamic
 // shared memory Smem<KV, D>::kBytes.
-template <typename KV, int D>
+template <typename KV, int D, bool kBF16Q>
 __global__ void __launch_bounds__(kWGThreads, D == 128 ? 1 : 2)
-cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                      const KV* __restrict__ v,
+cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
+                      const KV* __restrict__ k, const KV* __restrict__ v,
                       const float* __restrict__ k_scale,
                       const float* __restrict__ v_scale,
-                      const int* __restrict__ pos, float* __restrict__ out,
-                      float* __restrict__ ws, int H, int G, int T, int S,
-                      int split_keys, float scale) {
+                      const int* __restrict__ pos,
+                      Elem<kBF16Q>* __restrict__ out, float* __restrict__ ws,
+                      int H, int G, int T, int S, int split_keys,
+                      float scale) {
   using K = Kind<KV>;
   using L = Smem<KV, D>;
   constexpr int kTile = L::kTile;
@@ -277,25 +286,34 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   };
 
   load(0);
-  {  // Q, split once into hi and lo tiles; zeros past T
+  {  // Q, split once into hi and lo tiles (a bf16 q as it is); zeros
+     // past T
     constexpr int kChunks = D / 8;
-    const float* qb = q + (size_t)bh * T * D;
+    const Elem<kBF16Q>* qb = q + (size_t)bh * T * D;
 #pragma unroll
     for (int u = 0; u < kRows * kChunks / kWGThreads; ++u) {
       const int i = (int)threadIdx.x + u * kWGThreads;
       const int r = i / kChunks, c = i % kChunks;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-      if (q0 + r < T) {
-        const float4* g =
-            reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D + 8 * c);
-        a = g[0];
-        b = g[1];
-      }
-      uint4 hi, lo;
-      split8(a, b, hi, lo);
       const int off = Layout<D>::offset(r, c);
-      *reinterpret_cast<uint4*>(smem + off) = hi;
-      *reinterpret_cast<uint4*>(smem + kTile + off) = lo;
+      if constexpr (kBF16Q) {
+        uint4 h = make_uint4(0u, 0u, 0u, 0u);
+        if (q0 + r < T)
+          h = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * D +
+                                              8 * c);
+        *reinterpret_cast<uint4*>(smem + off) = h;
+      } else {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+        if (q0 + r < T) {
+          const float4* g = reinterpret_cast<const float4*>(
+              qb + (size_t)(q0 + r) * D + 8 * c);
+          a = g[0];
+          b = g[1];
+        }
+        uint4 hi, lo;
+        split8(a, b, hi, lo);
+        *reinterpret_cast<uint4*>(smem + off) = hi;
+        *reinterpret_cast<uint4*>(smem + kTile + off) = lo;
+      }
     }
   }
 
@@ -328,7 +346,7 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       sv = sk + kTile;
     }
 
-    // S = q_hi.K [+ q_hi.K_lo] + q_lo.K
+    // S = q_hi.K [+ q_hi.K_lo] [+ q_lo.K: an f32 q]
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
@@ -340,10 +358,12 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
         Mma<64>::ss(s, Layout<D>::k_major(sq, kk),
                     Layout<D>::k_major(sk_lo, kk), 1);
     }
+    if constexpr (!kBF16Q) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Mma<64>::ss(s, Layout<D>::k_major(sq_lo, kk),
-                  Layout<D>::k_major(sk, kk), 1);
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<64>::ss(s, Layout<D>::k_major(sq_lo, kk),
+                    Layout<D>::k_major(sk, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     pin(s);
@@ -400,11 +420,11 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
     if (t >= T || limit[h] < k_begin) continue;
     if (ws == nullptr || limit[h] < split_keys) {
       const float inv = 1.f / l[h];
-      float* orow = out + ((size_t)bh * T + t) * D + c_lane;
+      Elem<kBF16Q>* orow = out + ((size_t)bh * T + t) * D + c_lane;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<float2*>(orow + 8 * c) =
-            make_float2(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
+        store2(orow + 8 * c, o[4 * c + 2 * h] * inv,
+               o[4 * c + 2 * h + 1] * inv);
     } else {
       const size_t rows = (size_t)BH * T;
       const size_t row = (size_t)split * rows + (size_t)bh * T + t;
@@ -427,15 +447,16 @@ cached_attn_tc_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 // of it, n = min(S - 1, pos + t) / split_keys + 1, and takes
 // sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s with M = max_s m_s, in
 // split order; a row with n = 1 was written by its split-0 block. D / 4
-// threads a row, four output dims each. Launched as a programmatic
-// dependent of the split kernel: its blocks start while that grid runs,
-// and wait for it (griddepcontrol.wait) before the first partial is read.
-template <int D>
+// threads a row, four output dims each, written in q's type. Launched as
+// a programmatic dependent of the split kernel: its blocks start while
+// that grid runs, and wait for it (griddepcontrol.wait) before the first
+// partial is read.
+template <int D, bool kBF16Q>
 __global__ void __launch_bounds__(kWGThreads)
 cached_attn_merge_kernel(const float* __restrict__ ws,
-                         const int* __restrict__ pos, float* __restrict__ out,
-                         int H, int T, int S, int split_keys, int n_split,
-                         int rows) {
+                         const int* __restrict__ pos,
+                         Elem<kBF16Q>* __restrict__ out, int H, int T, int S,
+                         int split_keys, int n_split, int rows) {
   constexpr int kPer = D / 4;  // threads a row
   const int row = blockIdx.x * (kWGThreads / kPer) + threadIdx.x / kPer;
   if (row >= rows) return;
@@ -462,24 +483,27 @@ cached_attn_merge_kernel(const float* __restrict__ ws,
     acc.w = fmaf(a.w, w, acc.w);
   }
   const float inv = 1.f / tot;
-  *reinterpret_cast<float4*>(out + (size_t)row * D + d) =
-      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  store4(out + (size_t)row * D + d,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
 }
 
-template <typename KV, int D>
-cudaError_t launch(const float* q, const void* k, const void* v,
+template <typename KV, int D, bool kBF16Q>
+cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* pos,
-                   float* out, float* ws, int BH, int H, int G, int T,
-                   int S, int split_keys, int n_split, float scale,
+                   void* out_, float* ws, int BH, int H, int G, int T, int S,
+                   int split_keys, int n_split, float scale,
                    cudaStream_t stream) {
   constexpr int smem = Smem<KV, D>::kBytes;
   static bool configured = false;
-  cudaError_t e = configure(cached_attn_tc_kernel<KV, D>, smem, configured);
+  cudaError_t e =
+      configure(cached_attn_tc_kernel<KV, D, kBF16Q>, smem, configured);
   if (e != cudaSuccess) return e;
+  Elem<kBF16Q>* out = static_cast<Elem<kBF16Q>*>(out_);
   const dim3 grid(n_split, (T + kRows - 1) / kRows, BH);
-  cached_attn_tc_kernel<KV, D><<<grid, kWGThreads, smem, stream>>>(
-      q, static_cast<const KV*>(k), static_cast<const KV*>(v), ks, vs, pos,
-      out, ws, H, G, T, S, split_keys, scale);
+  cached_attn_tc_kernel<KV, D, kBF16Q><<<grid, kWGThreads, smem, stream>>>(
+      static_cast<const Elem<kBF16Q>*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, pos, out, ws, H, G, T, S,
+      split_keys, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || ws == nullptr) return e;
   constexpr int kRowsPer = kWGThreads / (D / 4);
@@ -493,7 +517,7 @@ cudaError_t launch(const float* q, const void* k, const void* v,
   cfg.stream = stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, cached_attn_merge_kernel<D>,
+  return cudaLaunchKernelEx(&cfg, cached_attn_merge_kernel<D, kBF16Q>,
                             static_cast<const float*>(ws), pos, out, H, T, S,
                             split_keys, n_split, rows);
 }
@@ -503,7 +527,8 @@ cudaError_t launch(const float* q, const void* k, const void* v,
 
 // C entry point (loaded with ctypes). G: query heads a KV head (H / Hk;
 // 1 for multi-head attention). kv_kind: 0 = f32 cache, 1 = bf16,
-// 2 = int8 with ks/vs scales (null for the float kinds). split_tiles:
+// 2 = int8 with ks/vs scales (null for the float kinds). q_kind: 0 = f32
+// q and out, 1 = bf16 q and out. split_tiles:
 // 64-key tiles per split; the keys fall into n_split = ceil(ceil(S / 64)
 // / split_tiles) splits, and ws is null when n_split is 1, else an f32
 // workspace of n_split * BH * T * (D + 2) floats. One call launches the
@@ -514,7 +539,7 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
                                     const void* vs, const void* pos,
                                     void* out, void* ws, int BH, int H,
                                     int G, int T, int S, int D, int kv_kind,
-                                    int split_tiles, float scale,
+                                    int q_kind, int split_tiles, float scale,
                                     void* stream) {
   using tc::kRows;
   if (BH <= 0 || H <= 0 || G <= 0 || T <= 0 || S <= 0 || split_tiles <= 0 ||
@@ -527,30 +552,33 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
   if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* qq = static_cast<const float*>(q);
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
   const int* pp = static_cast<const int*>(pos);
-  float* oo = static_cast<float*>(out);
   float* ww = static_cast<float*>(ws);
   const int split_keys = split_tiles * kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    switch (kv_kind) {
-      case 0:
-        return tc::launch<float, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H, G,
-                                     T, S, split_keys, n_split, scale, st);
-      case 1:
-        return tc::launch<__nv_bfloat16, kD>(qq, k, v, kss, vss, pp, oo, ww,
-                                             BH, H, G, T, S, split_keys,
-                                             n_split, scale, st);
-      case 2:
-        return tc::launch<int8_t, kD>(qq, k, v, kss, vss, pp, oo, ww, BH, H,
-                                      G, T, S, split_keys, n_split, scale,
-                                      st);
-      default:
-        return cudaErrorInvalidValue;
-    }
+    return with_q_kind(q_kind, [&](auto qk) {
+      constexpr bool kQ = decltype(qk)::value;
+      switch (kv_kind) {
+        case 0:
+          return tc::launch<float, kD, kQ>(q, k, v, kss, vss, pp, out, ww, BH,
+                                           H, G, T, S, split_keys, n_split,
+                                           scale, st);
+        case 1:
+          return tc::launch<__nv_bfloat16, kD, kQ>(q, k, v, kss, vss, pp, out,
+                                                   ww, BH, H, G, T, S,
+                                                   split_keys, n_split, scale,
+                                                   st);
+        case 2:
+          return tc::launch<int8_t, kD, kQ>(q, k, v, kss, vss, pp, out, ww,
+                                            BH, H, G, T, S, split_keys,
+                                            n_split, scale, st);
+        default:
+          return cudaErrorInvalidValue;
+      }
+    });
   });
 }

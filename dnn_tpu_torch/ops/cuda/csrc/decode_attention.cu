@@ -75,7 +75,8 @@
 // ONLY: the row sum l adds the unscaled probability (the reference
 // scales the softmax output, whose denominator never saw the V scales).
 //
-// Numerics: f32 accumulation and f32 output for every cache type, masked
+// Numerics: f32 accumulation for every cache type, the output in q's type
+// (f32, or bf16 under bf16 compute: q is read as it is), masked
 // scores at -1e30 (not -inf) as the reference does, and their
 // probabilities set to 0. scale = 1/sqrt(D) multiplies where the
 // reference divides; the scores are kept in log2 units (exp2). A block's
@@ -86,41 +87,45 @@
 
 namespace {
 
-// q (B, Hk, R, D) f32; k, v (B, Hk, S, D) KV; ks, vs (B, Hk, S) f32
-// (int8 only); pos (B,) int32; out (B, Hk, R, D) f32; ws null or the
-// workspace of decode_split.cuh. Grid (n_split, B * Hk).
-template <typename KV, int D, int kR>
+// q and out (B, Hk, R, D) of one type, f32 or (kBF16Q) bf16; k, v (B,
+// Hk, S, D) KV; ks, vs (B, Hk, S) f32 (int8 only); pos (B,) int32; ws
+// null or the workspace of decode_split.cuh. Grid (n_split, B * Hk).
+template <typename KV, int D, int kR, bool kBF16Q>
 __global__ void __launch_bounds__(dec::kThreads, 1)
-decode_attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-                   const KV* __restrict__ v, const float* __restrict__ ks,
-                   const float* __restrict__ vs,
-                   const int* __restrict__ pos, float* __restrict__ out,
-                   float* __restrict__ ws, int Hk, int R, int S,
-                   int split_keys, float scale) {
-  dec::split_block<KV, D, kR, false>(q, k, v, ks, vs, nullptr, pos, out, ws,
-                                     Hk, R, S, 1, split_keys, scale);
+decode_attn_kernel(const Elem<kBF16Q>* __restrict__ q,
+                   const KV* __restrict__ k, const KV* __restrict__ v,
+                   const float* __restrict__ ks, const float* __restrict__ vs,
+                   const int* __restrict__ pos,
+                   Elem<kBF16Q>* __restrict__ out, float* __restrict__ ws,
+                   int Hk, int R, int S, int split_keys, float scale) {
+  dec::split_block<KV, D, kR, false, kBF16Q>(q, k, v, ks, vs, nullptr, pos,
+                                             out, ws, Hk, R, S, 1, split_keys,
+                                             scale);
 }
 
-template <typename KV, int D, int kR>
-cudaError_t launch(const float* q, const void* k, const void* v,
+template <typename KV, int D, int kR, bool kBF16Q>
+cudaError_t launch(const void* q_, const void* k, const void* v,
                    const float* ks, const float* vs, const int* pos,
-                   float* out, float* ws, int B, int Hk, int R, int S,
+                   void* out_, float* ws, int B, int Hk, int R, int S,
                    int split_keys, int n_split, float scale,
                    cudaStream_t stream) {
   static bool configured = false;
+  const Elem<kBF16Q>* q = static_cast<const Elem<kBF16Q>*>(q_);
+  Elem<kBF16Q>* out = static_cast<Elem<kBF16Q>*>(out_);
   const KV* kk = static_cast<const KV*>(k);
   const KV* vv = static_cast<const KV*>(v);
-  return dec::launch<D>(decode_attn_kernel<KV, D, kR>,
-                        dec::Cfg<KV, D>::template smem<kR>(0), configured,
-                        n_split, B * Hk, ws, pos, out, Hk, R, S, split_keys,
-                        stream, q, kk, vv, ks, vs, pos, out, ws, Hk, R, S,
-                        split_keys, scale);
+  return dec::launch<D, kBF16Q>(
+      decode_attn_kernel<KV, D, kR, kBF16Q>,
+      dec::Cfg<KV, D>::template smem<kR>(0), configured, n_split, B * Hk, ws,
+      pos, out, Hk, R, S, split_keys, stream, q, kk, vv, ks, vs, pos, out, ws,
+      Hk, R, S, split_keys, scale);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). kv_kind: 0 = f32 cache, 1 = bf16,
-// 2 = int8 with ks/vs scales (null for the float kinds). split_keys:
+// 2 = int8 with ks/vs scales (null for the float kinds). q_kind: 0 = f32
+// q and out, 1 = bf16 q and out. split_keys:
 // columns a split; the cache falls into n_split = ceil(S / split_keys)
 // splits, and ws is null when n_split is 1, else an f32 workspace of
 // n_split * B * Hk * R * (D + 2) floats. One call launches the split
@@ -131,7 +136,7 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
                                     const void* vs, const void* pos,
                                     void* out, void* ws, int B, int Hk,
                                     int R, int S, int D, int kv_kind,
-                                    int split_keys, float scale,
+                                    int q_kind, int split_keys, float scale,
                                     void* stream) {
   if (B <= 0 || Hk <= 0 || R <= 0 || R > dec::kMaxRows || S <= 0 ||
       split_keys <= 0 || (long long)B * Hk > 65535)
@@ -141,31 +146,34 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
   if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* qq = static_cast<const float*>(q);
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
   const int* pp = static_cast<const int*>(pos);
-  float* oo = static_cast<float*>(out);
   float* ww = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     return dec::with_rows(R, [&](auto rows) {
       constexpr int kR = decltype(rows)::value;
-      switch (kv_kind) {
-        case 0:
-          return launch<float, kD, kR>(qq, k, v, kss, vss, pp, oo, ww, B, Hk,
-                                       R, S, split_keys, n_split, scale, st);
-        case 1:
-          return launch<__nv_bfloat16, kD, kR>(qq, k, v, kss, vss, pp, oo, ww,
-                                               B, Hk, R, S, split_keys,
-                                               n_split, scale, st);
-        case 2:
-          return launch<int8_t, kD, kR>(qq, k, v, kss, vss, pp, oo, ww, B, Hk,
-                                        R, S, split_keys, n_split, scale, st);
-        default:
-          return cudaErrorInvalidValue;
-      }
+      return with_q_kind(q_kind, [&](auto qk) {
+        constexpr bool kQ = decltype(qk)::value;
+        switch (kv_kind) {
+          case 0:
+            return launch<float, kD, kR, kQ>(q, k, v, kss, vss, pp, out, ww,
+                                             B, Hk, R, S, split_keys, n_split,
+                                             scale, st);
+          case 1:
+            return launch<__nv_bfloat16, kD, kR, kQ>(
+                q, k, v, kss, vss, pp, out, ww, B, Hk, R, S, split_keys,
+                n_split, scale, st);
+          case 2:
+            return launch<int8_t, kD, kR, kQ>(q, k, v, kss, vss, pp, out, ww,
+                                              B, Hk, R, S, split_keys,
+                                              n_split, scale, st);
+          default:
+            return cudaErrorInvalidValue;
+        }
+      });
     });
   });
 }

@@ -6,7 +6,10 @@
 // decode_attention.cu's header. The library's hash (_build.lib_path)
 // covers this header, so an edit rebuilds both sources.
 //
-// Layouts. q and out (B, Hk, R, D) f32; a dense cache (B, Hk, S, D) with
+// Layouts. q and out (B, Hk, R, D), f32 or bf16 (Elem<kBF16Q>: bf16
+// under bf16 compute; the scores, softmax statistics, accumulator and
+// workspace stay f32 either way, and only the stored output is rounded to
+// q's type); a dense cache (B, Hk, S, D) with
 // (B, Hk, S) scales; a pool (n_blocks, Hk, bp, D) with (n_blocks, Hk, bp)
 // scales, tables (B, nb_max) int32. Both caches are read as an array of
 // D-wide rows: row (bh, col) = bh * S + col, or (tables[b, col / bp] *
@@ -113,13 +116,14 @@ __device__ __forceinline__ void load4(const int8_t* p, float* o) {
 // 0 (or ws is null: one split), the normalised rows go to out. Block
 // kThreads, dynamic shared memory Cfg<KV, D>::smem<kR>(rows), rows =
 // split_keys pool rows of 4 bytes, rounded up to 16 bytes (0 if dense);
-// a pool holds fewer than 2^31 rows (n_blocks * Hk * bp).
-template <typename KV, int D, int kR, bool kPaged>
+// a pool holds fewer than 2^31 rows (n_blocks * Hk * bp). q and out are
+// of one type, f32 or (kBF16Q) bf16.
+template <typename KV, int D, int kR, bool kPaged, bool kBF16Q>
 __device__ __forceinline__ void split_block(
-    const float* __restrict__ q, const KV* __restrict__ k,
+    const Elem<kBF16Q>* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ tables,
-    const int* __restrict__ pos, float* __restrict__ out,
+    const int* __restrict__ pos, Elem<kBF16Q>* __restrict__ out,
     float* __restrict__ ws, int Hk, int R, int len, int bp, int split_keys,
     float scale) {
   using C = Cfg<KV, D>;
@@ -325,8 +329,8 @@ __device__ __forceinline__ void split_block(
     const size_t row = (size_t)bh * R + r;
     if (direct) {
       const float inv = 1.f / tot;
-      *reinterpret_cast<float4*>(out + row * D + d) =
-          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+      store4(out + row * D + d,
+             make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
     } else {
       const size_t wrow = (size_t)split * rows + row;
       *reinterpret_cast<float4*>(ws + wrow * D + d) = a;
@@ -346,13 +350,14 @@ __device__ __forceinline__ void split_block(
 // with n = 1 was written by its split-0 block. The splits' partials are
 // loaded kMergeChunk at a time, all in flight together (one round trip
 // for up to 8 splits), the sums rescaled between chunks. D / 4 threads a
-// row, four output dims each. Launched as a programmatic dependent of
-// the split kernel: its blocks may start while that grid runs, and wait
-// for it (griddepcontrol.wait) before the first partial is read.
-template <int D>
+// row, four output dims each, written in q's type. Launched as a
+// programmatic dependent of the split kernel: its blocks may start while
+// that grid runs, and wait for it (griddepcontrol.wait) before the first
+// partial is read.
+template <int D, bool kBF16Q>
 __global__ void __launch_bounds__(kMergeThreads)
 decode_merge_kernel(const float* __restrict__ ws, const int* __restrict__ pos,
-                    float* __restrict__ out, int Hk, int R, int len,
+                    Elem<kBF16Q>* __restrict__ out, int Hk, int R, int len,
                     int split_keys, int n_split, int rows) {
   constexpr int kPer = D / 4;  // threads a row
   const int row = blockIdx.x * (kMergeThreads / kPer) + threadIdx.x / kPer;
@@ -399,8 +404,8 @@ decode_merge_kernel(const float* __restrict__ ws, const int* __restrict__ pos,
     mx = m_new;
   }
   const float inv = 1.f / tot;
-  *reinterpret_cast<float4*>(out + (size_t)row * D + d) =
-      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  store4(out + (size_t)row * D + d,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
 }
 
 // fn(std::integral_constant<int, kR>) for the smallest kR in {1, 2, 4, 8}
@@ -417,10 +422,10 @@ cudaError_t with_rows(int R, F fn) {
 // Launches a split kernel `kernel` (grid (n_split, BHk), `smem` bytes of
 // dynamic shared memory; `args` its arguments) and, with a workspace,
 // the merge as its programmatic dependent. Returns the first error.
-template <int D, typename K, typename... Args>
+template <int D, bool kBF16Q, typename K, typename... Args>
 cudaError_t launch(K kernel, int smem, bool& configured, int n_split,
-                   int BHk, const float* ws, const int* pos, float* out,
-                   int Hk, int R, int len, int split_keys,
+                   int BHk, const float* ws, const int* pos,
+                   Elem<kBF16Q>* out, int Hk, int R, int len, int split_keys,
                    cudaStream_t stream, Args... args) {
   if (!configured) {
     // all of what a block may take: the table entries grow with split_keys
@@ -444,8 +449,8 @@ cudaError_t launch(K kernel, int smem, bool& configured, int n_split,
   cfg.stream = stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_merge_kernel<D>, ws, pos, out, Hk,
-                            R, len, split_keys, n_split, rows);
+  return cudaLaunchKernelEx(&cfg, decode_merge_kernel<D, kBF16Q>, ws, pos,
+                            out, Hk, R, len, split_keys, n_split, rows);
 }
 
 }  // namespace dec

@@ -14,8 +14,10 @@
 // K1-K4), and for the f32 flash kernels the split of an f32 tile into
 // operand tiles and the split products (3xTF32 Q.K^T, bf16 x3 P.V); the
 // kernels' shared-memory attributes and the dispatch over the head dims
-// they take. The library's hash (_build.lib_path) covers this
-// header, so an edit rebuilds every source that includes it.
+// they take; and, for K5-K7, the query and output element type (f32, or
+// bf16 under bf16 compute), its dispatch and its stores. The library's
+// hash (_build.lib_path) covers this header, so an edit rebuilds every
+// source that includes it.
 
 #pragma once
 
@@ -40,6 +42,48 @@ cudaError_t with_head_dim(int D, F fn) {
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The query and output element type of the cache-attention kernels (K5,
+// K6, K7): f32, or bf16 under bf16 compute. A bool template argument, so
+// the build lines name it (kernel_label prints it as a trailing 0 / 1).
+template <bool kBF16>
+using Elem = typename std::conditional<kBF16, __nv_bfloat16, float>::type;
+
+// fn(std::integral_constant<bool, q is bf16>) for q_kind 0 (f32) or 1
+// (bf16).
+template <typename F>
+cudaError_t with_q_kind(int q_kind, F fn) {
+  switch (q_kind) {
+    case 0:
+      return fn(std::integral_constant<bool, false>{});
+    case 1:
+      return fn(std::integral_constant<bool, true>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Two and four consecutive outputs, stored in f32 or rounded to bf16.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store4(float* p, const float4& x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 namespace tc {

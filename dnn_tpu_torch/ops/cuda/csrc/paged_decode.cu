@@ -38,54 +38,58 @@
 // sees the V scales. The payload is read at 1 byte an element and
 // widened in registers.
 //
-// Numerics: as K6 -- f32 accumulation and output, masked scores at
+// Numerics: as K6 -- f32 accumulation, output in q's type, masked scores at
 // -1e30, scale = 1/sqrt(D) multiplying, log2 units inside.
 
 #include "decode_split.cuh"
 
 namespace {
 
-// q (B, Hk, R, D) f32; kp, vp (n_blocks, Hk, bp, D) KV; ks, vs
-// (n_blocks, Hk, bp) f32 (int8 only); tables (B, len / bp) int32; pos
-// (B,) int32; out (B, Hk, R, D) f32; ws null or the workspace of
+// q and out (B, Hk, R, D) of one type, f32 or (kBF16Q) bf16; kp, vp
+// (n_blocks, Hk, bp, D) KV; ks, vs (n_blocks, Hk, bp) f32 (int8 only);
+// tables (B, len / bp) int32; pos (B,) int32; ws null or the workspace of
 // decode_split.cuh. Grid (n_split, B * Hk).
-template <typename KV, int D, int kR>
+template <typename KV, int D, int kR, bool kBF16Q>
 __global__ void __launch_bounds__(dec::kThreads, 1)
-paged_decode_kernel(const float* __restrict__ q, const KV* __restrict__ kp,
-                    const KV* __restrict__ vp,
+paged_decode_kernel(const Elem<kBF16Q>* __restrict__ q,
+                    const KV* __restrict__ kp, const KV* __restrict__ vp,
                     const float* __restrict__ ks,
                     const float* __restrict__ vs,
                     const int* __restrict__ tables,
-                    const int* __restrict__ pos, float* __restrict__ out,
-                    float* __restrict__ ws, int Hk, int R, int len, int bp,
-                    int split_keys, float scale) {
-  dec::split_block<KV, D, kR, true>(q, kp, vp, ks, vs, tables, pos, out, ws,
-                                    Hk, R, len, bp, split_keys, scale);
+                    const int* __restrict__ pos,
+                    Elem<kBF16Q>* __restrict__ out, float* __restrict__ ws,
+                    int Hk, int R, int len, int bp, int split_keys,
+                    float scale) {
+  dec::split_block<KV, D, kR, true, kBF16Q>(q, kp, vp, ks, vs, tables, pos,
+                                            out, ws, Hk, R, len, bp,
+                                            split_keys, scale);
 }
 
-template <typename KV, int D, int kR>
-cudaError_t launch(const float* q, const void* kp, const void* vp,
+template <typename KV, int D, int kR, bool kBF16Q>
+cudaError_t launch(const void* q_, const void* kp, const void* vp,
                    const float* ks, const float* vs, const int* tables,
-                   const int* pos, float* out, float* ws, int B, int Hk,
+                   const int* pos, void* out_, float* ws, int B, int Hk,
                    int R, int bp, int nb_max, int split_keys, int n_split,
                    float scale, cudaStream_t stream) {
   static bool configured = false;
+  const Elem<kBF16Q>* q = static_cast<const Elem<kBF16Q>*>(q_);
+  Elem<kBF16Q>* out = static_cast<Elem<kBF16Q>*>(out_);
   const KV* kk = static_cast<const KV*>(kp);
   const KV* vv = static_cast<const KV*>(vp);
   const int len = nb_max * bp;
   const int rows = (split_keys * 4 + 15) / 16 * 16;
-  return dec::launch<D>(paged_decode_kernel<KV, D, kR>,
-                        dec::Cfg<KV, D>::template smem<kR>(rows), configured,
-                        n_split, B * Hk, ws, pos, out, Hk, R, len, split_keys,
-                        stream, q, kk, vv, ks, vs, tables, pos, out, ws, Hk,
-                        R, len, bp, split_keys, scale);
+  return dec::launch<D, kBF16Q>(
+      paged_decode_kernel<KV, D, kR, kBF16Q>,
+      dec::Cfg<KV, D>::template smem<kR>(rows), configured, n_split, B * Hk,
+      ws, pos, out, Hk, R, len, split_keys, stream, q, kk, vv, ks, vs, tables,
+      pos, out, ws, Hk, R, len, bp, split_keys, scale);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes). kv_kind: 0 = f32 pool, 1 = bf16,
-// 2 = int8 with ks/vs scale blocks (null for the float kinds).
-// split_keys: logical columns a split, a multiple of bp; the nb_max * bp
+// 2 = int8 with ks/vs scale blocks (null for the float kinds). q_kind:
+// 0 = f32 q and out, 1 = bf16 q and out. split_keys: logical columns a split, a multiple of bp; the nb_max * bp
 // columns fall into n_split = ceil(nb_max * bp / split_keys) splits, and
 // ws is null when n_split is 1, else an f32 workspace of n_split * B *
 // Hk * R * (D + 2) floats. One call launches the split kernel and, with
@@ -94,7 +98,7 @@ extern "C" int dnn_paged_decode_attention(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* tables, const void* pos, void* out,
     void* ws, int B, int Hk, int R, int D, int bp, int nb_max, int kv_kind,
-    int split_keys, float scale, void* stream) {
+    int q_kind, int split_keys, float scale, void* stream) {
   if (B <= 0 || Hk <= 0 || R <= 0 || R > dec::kMaxRows || bp <= 0 ||
       nb_max <= 0 || (long long)nb_max * bp > 0x7fffffff ||
       split_keys <= 0 || split_keys % bp != 0 ||
@@ -106,35 +110,35 @@ extern "C" int dnn_paged_decode_attention(
   if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* qq = static_cast<const float*>(q);
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
   const int* tt = static_cast<const int*>(tables);
   const int* pp = static_cast<const int*>(pos);
-  float* oo = static_cast<float*>(out);
   float* ww = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     return dec::with_rows(R, [&](auto rows) {
       constexpr int kR = decltype(rows)::value;
-      switch (kv_kind) {
-        case 0:
-          return launch<float, kD, kR>(qq, kp, vp, kss, vss, tt, pp, oo, ww,
-                                       B, Hk, R, bp, nb_max, split_keys,
-                                       n_split, scale, st);
-        case 1:
-          return launch<__nv_bfloat16, kD, kR>(qq, kp, vp, kss, vss, tt, pp,
-                                               oo, ww, B, Hk, R, bp, nb_max,
-                                               split_keys, n_split, scale,
-                                               st);
-        case 2:
-          return launch<int8_t, kD, kR>(qq, kp, vp, kss, vss, tt, pp, oo, ww,
-                                        B, Hk, R, bp, nb_max, split_keys,
-                                        n_split, scale, st);
-        default:
-          return cudaErrorInvalidValue;
-      }
+      return with_q_kind(q_kind, [&](auto qk) {
+        constexpr bool kQ = decltype(qk)::value;
+        switch (kv_kind) {
+          case 0:
+            return launch<float, kD, kR, kQ>(q, kp, vp, kss, vss, tt, pp, out,
+                                             ww, B, Hk, R, bp, nb_max,
+                                             split_keys, n_split, scale, st);
+          case 1:
+            return launch<__nv_bfloat16, kD, kR, kQ>(
+                q, kp, vp, kss, vss, tt, pp, out, ww, B, Hk, R, bp, nb_max,
+                split_keys, n_split, scale, st);
+          case 2:
+            return launch<int8_t, kD, kR, kQ>(q, kp, vp, kss, vss, tt, pp,
+                                              out, ww, B, Hk, R, bp, nb_max,
+                                              split_keys, n_split, scale, st);
+          default:
+            return cudaErrorInvalidValue;
+        }
+      });
     });
   });
 }

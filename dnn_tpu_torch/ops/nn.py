@@ -60,18 +60,42 @@ def softmax(x, axis=-1):
     return torch.softmax(x, dim=axis)
 
 
+_MM_OUT_DTYPE: dict = {}
+
+
+def mm_out_dtype(device) -> bool:
+    """Whether this torch multiplies bf16 operands into an f32 output
+    in one call on `device` (torch.mm(..., out_dtype=)), probed once per
+    device type on a 1x1 product. CUDA builds of recent torch have it;
+    the CPU kernel does not exist."""
+    key = torch.device(device).type
+    if key not in _MM_OUT_DTYPE:
+        a = torch.ones((1, 1), dtype=torch.bfloat16, device=device)
+        try:
+            torch.mm(a, a, out_dtype=torch.float32)
+            _MM_OUT_DTYPE[key] = True
+        except (RuntimeError, TypeError, NotImplementedError):
+            _MM_OUT_DTYPE[key] = False
+    return _MM_OUT_DTYPE[key]
+
+
 def linear(params, x, *, compute_dtype=None, accum_dtype=None):
     """x @ kernel + bias with the (in, out) kernel layout (JAX's
     ops/nn.linear :66). The product is a plain torch.matmul: a large
     dense product outside any kernel, as the JAX package left it to XLA.
 
     `compute_dtype` casts both operands (e.g. bf16); the bias is added in
-    the product's dtype and the result cast back to x's dtype.
+    the product's dtype and the result cast back to x's dtype. A kernel
+    already held in `compute_dtype` (the served weights,
+    gpt.for_compute) is not copied: `.to` of a tensor already of the type
+    is the tensor itself.
     `accum_dtype` instead keeps the accumulator dtype as the output: the
-    operands are rounded to `compute_dtype` and multiplied in
+    operands are rounded to `compute_dtype` and multiplied into
     `accum_dtype` — the exact value of JAX's bf16 dot with
     preferred_element_type=f32 (a product of two bf16 values is exact in
-    f32), at the cost of an f32 matmul on the card."""
+    f32). Without autograd, on a device where `mm_out_dtype` holds, that
+    is one bf16 x bf16 -> f32 product; otherwise an f32 matmul of the
+    rounded operands."""
     if "q" in params:
         raise NotImplementedError(
             "int8/int4 weight-quantized linears are not ported to "
@@ -85,9 +109,17 @@ def linear(params, x, *, compute_dtype=None, accum_dtype=None):
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         kernel = kernel.to(compute_dtype)
-    if accum_dtype is not None:
-        x, kernel = x.to(accum_dtype), kernel.to(accum_dtype)
-    out = x @ kernel
+    if accum_dtype is None:
+        out = x @ kernel
+    elif (x.dtype == kernel.dtype != accum_dtype
+          and not (torch.is_grad_enabled()
+                   and (x.requires_grad or kernel.requires_grad))
+          and mm_out_dtype(x.device)):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), kernel,
+                       out_dtype=accum_dtype).reshape(*x.shape[:-1],
+                                                      kernel.shape[-1])
+    else:
+        out = x.to(accum_dtype) @ kernel.to(accum_dtype)
     bias = params.get("bias")
     if bias is not None:
         out = out + bias.to(out.dtype)

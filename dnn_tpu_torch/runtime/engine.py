@@ -177,12 +177,14 @@ class PipelineEngine:
                 "with role='stage' (serves one part)")
 
     def _prepared(self):
-        """The stacked decode layout on the first device, built once."""
+        """The stacked decode layout on the first device, built once, its
+        matmul weights in the config's compute type (gpt.for_compute)."""
         if not hasattr(self, "_prepared_single"):
             from dnn_tpu_torch.models.gpt import prepare_stacked
 
             self._prepared_single = prepare_stacked(
-                self.params, self.spec.config, self.devices[0])
+                self.params, self.spec.config, self.devices[0],
+                self.compute_dtype)
         return self._prepared_single
 
     def make_generator(self, *, max_new_tokens: int, temperature: float = 0.0,
@@ -191,8 +193,10 @@ class PipelineEngine:
         """generate(ids, seed=0) -> (B, max_new_tokens) int32 tokens on
         this engine's weights, through the port's make_generate (K5 for
         the prompt, K6 per token on the card; a LLaMA-family model over a
-        KV-head cache, K5 with grouped heads). Sampled draws come from a
-        torch.Generator seeded with `seed`; greedy draws equal JAX's."""
+        KV-head cache, K5 with grouped heads), at the config's compute
+        type (`"dtype": "bfloat16"`: bf16 compute, a bf16 cache). Sampled
+        draws come from a torch.Generator seeded with `seed`; greedy
+        draws equal JAX's."""
         from dnn_tpu_torch.models.gpt import GPTConfig
         from dnn_tpu_torch.models.llama import LlamaConfig
         from dnn_tpu_torch.runtime.generate import make_generate

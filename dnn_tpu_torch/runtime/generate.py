@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from dnn_tpu_torch import resolve_device
-from dnn_tpu_torch.models.gpt import GPTConfig, head, layer_params
+from dnn_tpu_torch.models.gpt import GPTConfig, for_compute, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads, split_heads
 from dnn_tpu_torch.ops.nn import embedding, gelu, layer_norm, linear
 from dnn_tpu_torch.runtime.kvcache import (
@@ -59,46 +59,59 @@ def init_cache(cfg, batch: int, max_len: int, dtype, device):
     return FloatKV(dtype).init(cfg, batch, max_len, device)
 
 
-def _qkv_heads(bp, h, *, cfg: GPTConfig):
-    q, k, v = linear(bp["attn"]["qkv"], h).chunk(3, dim=-1)
+def _qkv_heads(bp, h, *, cfg: GPTConfig, compute_dtype=None):
+    q, k, v = linear(bp["attn"]["qkv"], h,
+                     compute_dtype=compute_dtype).chunk(3, dim=-1)
     return tuple(split_heads(t, cfg.n_head) for t in (q, k, v))
 
 
-def _mlp(bp, h):
-    return linear(bp["mlp"]["proj"], gelu(linear(bp["mlp"]["fc"], h)))
+def _mlp(bp, h, compute_dtype=None):
+    return linear(bp["mlp"]["proj"],
+                  gelu(linear(bp["mlp"]["fc"], h,
+                              compute_dtype=compute_dtype)),
+                  compute_dtype=compute_dtype)
 
 
-def _block_with_cache(bp, x, layer_cache, start_pos: int, *, cfg, codec):
+def _block_with_cache(bp, x, layer_cache, start_pos: int, *, cfg, codec,
+                      compute_dtype=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos+T):
     writes this layer's K/V, then attends everything cached so far."""
     h = layer_norm(bp["ln_1"], x, eps=cfg.ln_eps)
-    q, k, v = _qkv_heads(bp, h, cfg=cfg)
+    q, k, v = _qkv_heads(bp, h, cfg=cfg, compute_dtype=compute_dtype)
     codec.write(layer_cache, k, v, start_pos)
     y = codec.attend(q, layer_cache, start_pos)
-    x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)))
+    x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
+                   compute_dtype=compute_dtype)
     h = layer_norm(bp["ln_2"], x, eps=cfg.ln_eps)
-    return x + _mlp(bp, h)
+    return x + _mlp(bp, h, compute_dtype)
 
 
-def _embed_at(prepared, ids, start_pos: int):
+def _embed_at(prepared, ids, start_pos: int, compute_dtype=None):
+    """Token + position embedding at [start_pos, start_pos + T), in f32,
+    then cast to `compute_dtype` (JAX's _embed_at)."""
     pos = torch.arange(start_pos, start_pos + ids.shape[1], device=ids.device)
-    return embedding(prepared["wte"], ids) + embedding(prepared["wpe"], pos)
+    x = embedding(prepared["wte"], ids) + embedding(prepared["wpe"], pos)
+    return x if compute_dtype is None else x.to(compute_dtype)
 
 
 @torch.no_grad()
 def forward_with_cache(prepared, ids, cache, start_pos: int, *,
-                       cfg: GPTConfig):
+                       cfg: GPTConfig, compute_dtype=None):
     """ids (B, T) at positions [start_pos, start_pos + T) -> logits
     (B, T, V) f32; the cache — float {"k","v"} or int8 {"k","v","ks",
     "vs"}, every leaf (L, B, H, S[, D]) — is updated in place and
-    returned."""
+    returned. `compute_dtype` (bf16 compute, JAX's forward_with_cache):
+    the residual stream and every block product in that type, norms in
+    f32, the head's product bf16 x bf16 -> f32 logits."""
     codec = codec_for_cache(cache)
-    x = _embed_at(prepared, ids, start_pos)
+    x = _embed_at(prepared, ids, start_pos, compute_dtype)
     for i in range(cfg.n_layer):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = _block_with_cache(layer_params(prepared["blocks"], i), x,
-                              layer_cache, start_pos, cfg=cfg, codec=codec)
-    return head(prepared, x.float(), cfg=cfg), cache
+                              layer_cache, start_pos, cfg=cfg, codec=codec,
+                              compute_dtype=compute_dtype)
+    return head(prepared, x.float(), cfg=cfg,
+                compute_dtype=compute_dtype), cache
 
 
 def _is_llama(cfg) -> bool:
@@ -230,6 +243,15 @@ def _sample_rows(logits, generators, *, temperature, top_k, top_p, min_p):
     return out
 
 
+def check_compute_dtype(compute_dtype):
+    """The compute type a serving entry point takes: None (f32) or
+    torch.bfloat16; anything else raises."""
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None (f32) or "
+                         f"torch.bfloat16, got {compute_dtype!r}")
+    return compute_dtype
+
+
 def _cache_dtype(kv_dtype):
     """kv_dtype spec -> init_cache's dtype: None/"f32" -> torch.float32,
     "bf16" -> torch.bfloat16, "int8" as is; torch dtypes pass."""
@@ -258,8 +280,14 @@ def make_generate(cfg, *, max_new_tokens: int,
 
     The prompt ids (B, T) prefill in one forward (K5), then each token
     decodes in one forward against the cache (K6), in a Python loop.
-    `kv_dtype` picks the cache: None or "f32", "bf16", or "int8"
-    (per-(position, head) scales). `temperature`/`top_k`/`top_p`/`min_p`
+    `compute_dtype` (torch.bfloat16, JAX's bf16 compute) runs the
+    residual stream and every block product in it, K5/K6 with bf16
+    queries, and the head as bf16 x bf16 -> f32 logits; weights prepared
+    at that type (`from_jax_params(..., compute_dtype=)`) are used as
+    they are, f32 ones are cast once per call (gpt.for_compute).
+    `kv_dtype` picks the cache: "f32", "bf16", or "int8"
+    (per-(position, head) scales); None follows `compute_dtype` (f32
+    without it), as JAX's does. `temperature`/`top_k`/`top_p`/`min_p`
     sample as the JAX `_sample` does; `repetition_penalty` (HF/CTRL
     semantics) penalizes every token already in the sequence;
     `logit_bias` ({token_id: additive bias}) applies after the penalty,
@@ -275,12 +303,9 @@ def make_generate(cfg, *, max_new_tokens: int,
     Runs on CUDA unless `device="cpu"` is given (without a card the
     default raises); `prepared` must live on that device. JAX's
     `attn_kernel` (a TPU crossover knob) has no counterpart: on CUDA the
-    kernels always run. `compute_dtype` (bf16 compute, ROADMAP
-    PyTorch/CUDA port item 4) and `ffn` (MoE blocks, item 7) raise."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype: bf16 compute is not ported to dnn_tpu_torch yet "
-            "(ROADMAP PyTorch/CUDA port item 4)")
+    kernels always run. `ffn` (MoE blocks, ROADMAP PyTorch/CUDA port item
+    7) raises."""
+    compute_dtype = check_compute_dtype(compute_dtype)
     if ffn is not None:
         raise NotImplementedError(
             "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
@@ -299,7 +324,8 @@ def make_generate(cfg, *, max_new_tokens: int,
     if min_p is not None and not 0.0 <= min_p <= 1.0:
         raise ValueError(f"min_p must be in [0, 1], got {min_p}")
     dev = resolve_device(device)
-    cache_dtype = _cache_dtype(kv_dtype)
+    cache_dtype = _cache_dtype(kv_dtype if kv_dtype is not None
+                               else compute_dtype)
     bias_row = logit_bias_row(logit_bias, cfg.vocab_size, dev)
     pen_on = repetition_penalty is not None and repetition_penalty != 1.0
     if dev.type == "cuda":
@@ -313,6 +339,7 @@ def make_generate(cfg, *, max_new_tokens: int,
             raise ValueError(
                 f"prepared weights are on "
                 f"{prepared['wte']['embedding'].device}, generate on {dev}")
+        prepared = for_compute(prepared, compute_dtype)
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(dev)
         b, t = ids.shape
         if t + max_new_tokens > cfg.block_size:
@@ -321,7 +348,8 @@ def make_generate(cfg, *, max_new_tokens: int,
                 f"block_size {cfg.block_size}")
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         cache = init_cache(cfg, b, t + max_new_tokens, cache_dtype, dev)
-        logits, cache = forward(prepared, ids, cache, 0, cfg=cfg)
+        logits, cache = forward(prepared, ids, cache, 0, cfg=cfg,
+                                compute_dtype=compute_dtype)
         rows = torch.arange(b, device=dev)
         seen = None
         if pen_on:
@@ -344,7 +372,8 @@ def make_generate(cfg, *, max_new_tokens: int,
         for i in range(max_new_tokens - 1):
             # token i sits at sequence position t + i
             logits, cache = forward(
-                prepared, toks[-1][:, None], cache, t + i, cfg=cfg)
+                prepared, toks[-1][:, None], cache, t + i, cfg=cfg,
+                compute_dtype=compute_dtype)
             toks.append(pick(logits[:, -1]))
         return torch.stack(toks, dim=1).to(torch.int32)
 

@@ -19,7 +19,9 @@ and a chunk to K5 (cached_attention), as the JAX codecs' kernel path
 does, with grouped query heads (a one-row step folds each group into
 K6's rows); `attend_rows` (per-slot decode, R rows a cached head) is K6.
 Output dtypes follow the JAX codecs: a float codec returns the cache
-dtype, the int8 codec f32.
+dtype, the int8 codec q's type (f32, or bf16 under bf16 compute: the
+kernels take a bf16 q and write a bf16 output). Writes cast k/v to the
+cache's type (int8: quantize them).
 
 Not ported (ROADMAP PyTorch/CUDA port items 2 and 7): int4 caches,
 the rolling ring codecs and sliding windows (item 2), logit softcapping
@@ -105,7 +107,7 @@ def _attend_from(q, c, base: int, **scales):
     (the contiguous limit contract of the JAX codecs' `base=` path): a
     chunk runs K5 with grouped heads; a one-row step runs K6 with each
     group of G query heads folded into its KV head's rows (JAX's LLaMA
-    decode fold). f32 out."""
+    decode fold). Out in q's type."""
     b, h, t, d = q.shape
     pos = torch.full((b,), base, dtype=torch.int32, device=q.device)
     if t > 1:
@@ -180,7 +182,7 @@ class Int8KV:
         _write_span(c, {"k": kq, "v": vq, "ks": ks, "vs": vs}, start_pos)
 
     def attend(self, q, c, base: int):
-        """As FloatKV.attend, with the scales; returns f32."""
+        """As FloatKV.attend, with the scales; returns q's type."""
         return _attend_from(q, c, base, ks=c["ks"], vs=c["vs"])
 
     def write_rows(self, c, k, v, pos, write_gate):
@@ -190,7 +192,8 @@ class Int8KV:
                     write_gate)
 
     def attend_rows(self, q, c, pos):
-        """q (B, Hk, R, D) shared-limit decode rows (K6); returns f32."""
+        """q (B, Hk, R, D) shared-limit decode rows (K6); returns q's
+        type."""
         return decode_attention(q.contiguous(), c["k"], c["v"], pos,
                                 ks=c["ks"], vs=c["vs"])
 

@@ -277,9 +277,11 @@ class LMServer:
     "!stats", the pool's stats). Batcher keyword arguments pass through —
     the cache layout and storage (`kv` "paged"/"dense"/"auto", the
     default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
-    `block_len`) among them; `device` defaults to "cuda" and raises
-    without a card. A LlamaConfig serves through LlamaFamilyRows(cfg)
-    unless `family` is given (serving.default_family)."""
+    `block_len`) and `compute_dtype` (torch.bfloat16: bf16 compute, the
+    cache bf16 unless `kv_dtype` says otherwise) among them; `device`
+    defaults to "cuda" and raises without a card. A LlamaConfig serves
+    through LlamaFamilyRows(cfg) unless `family` is given
+    (serving.default_family)."""
 
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
                  request_timeout: float = 120.0, tokenizer=None,
@@ -463,7 +465,7 @@ async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
     """Start the LM daemon and block until termination (SIGTERM stops it
     cleanly, rc 0). `server_kwargs` go to LMServer (tokenizer,
     default_max_new, ...) and on to the batcher (kv, kv_dtype,
-    decode_buckets, paged_blocks, ...)."""
+    compute_dtype, decode_buckets, paged_blocks, ...)."""
     servicer, server = await _start(cfg, prepared, port, server_kwargs)
     log.info("gRPC LM server listening on [::]:%d (%d slots, %s)", port,
              servicer.batcher.slots, servicer.batcher.device)

@@ -169,8 +169,8 @@ class PagedKV:
     def attend_rows(self, q, c, pos):
         """q (B, H, R, D), R rows a pool head (a GQA config's folded
         query group); every row of slot b attends its logical positions
-        <= pos[b]. Returns (B, H, R, D): f32 for an int8 pool, the pool
-        dtype for a float one."""
+        <= pos[b]. Returns (B, H, R, D): q's type for an int8 pool, the
+        pool dtype for a float one."""
         if "ks" in c:
             return paged_decode_attention(q.contiguous(), c["k"], c["v"],
                                           c["tables"], pos, ks=c["ks"],

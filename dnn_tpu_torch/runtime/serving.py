@@ -14,7 +14,13 @@ chosen by `kv` as the JAX batcher chooses it:
     else dense — the reason is logged, where the JAX batcher records a
     `kv_fallback_dense` flight event.
 `kv_dtype` stores either layout as f32, bf16 or int8 (per-(position,
-head) scales; the kernels' int8 variants).
+head) scales; the kernels' int8 variants); by default it follows
+`compute_dtype`. `compute_dtype=torch.bfloat16` serves in bf16 compute,
+as the JAX batcher does: the residual stream and every block product in
+bf16 over matmul weights held in bf16 (gpt.for_compute, cast once at
+construction where they come in f32), K5/K6/K7 with bf16 queries, norms
+in f32 and f32 logits. With an explicit `family` the family's type wins
+and a different batcher-level one raises.
 
 `family` supplies the model's hooks, as in the JAX batcher; by default
 it follows the config (`default_family`): GPT-2's `GPTFamilyRows`, or
@@ -32,13 +38,24 @@ blocks or dense slot. Every `step` then advances all active slots one
 token; requests retire on eos, a stop sequence or their token budget,
 independently of each other.
 
+On the card a step's forward (`family.decode_rows` over every slot of
+the pool, inactive ones writing to the junk block) is one captured CUDA
+graph (`CapturedDecode`), the port's form of JAX's jitted decode step:
+captured after one eager step, replayed with the slots' tokens,
+positions and active flags copied into its static device buffers, and
+captured again when the cache tensors are replaced (a bucket grow), as
+JAX recompiles per bucket. Sampling and the repetition penalty run
+eagerly after it. A failed capture or replay raises; the step never
+falls back to eager. On the CPU the step is eager.
+
 Against the JAX batcher:
   * the cache is updated IN PLACE (torch has no donation — where the
     JAX batcher donates its cache and per-slot state to each jitted
     program and reassigns the outputs, the port writes into the same
     tensors);
   * the layer loop and the slot bookkeeping are plain Python; the
-    per-slot vectors live on the host and go to the device each step;
+    per-slot vectors live on the host and go to the device each step
+    (on the card, into the captured graph's static buffers);
   * sampled requests draw from a per-request torch.Generator seeded from
     (server seed, request id or seed), so a sampled stream matches the
     JAX package's only in distribution; greedy streams are identical.
@@ -60,8 +77,12 @@ import numpy as np
 import torch
 
 from dnn_tpu_torch import resolve_device
-from dnn_tpu_torch.models.gpt import GPTConfig, head, layer_params
+from dnn_tpu_torch.models.gpt import GPTConfig, for_compute, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads
+from dnn_tpu_torch.ops.cuda.cached_attention import (
+    LaunchLog,
+    recording_launches,
+)
 from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
 from dnn_tpu_torch.runtime.decode_buckets import (
     bucket_for,
@@ -76,6 +97,7 @@ from dnn_tpu_torch.runtime.generate import (
     _qkv_heads,
     _sample_rows,
     apply_repetition_penalty,
+    check_compute_dtype,
     forward_with_cache,
     init_cache,
 )
@@ -100,7 +122,6 @@ _UNPORTED = {
     "allow_logit_bias": "item 4 (logit bias)",
     "lora_adapters": "item 4 (LoRA)",
     "logprobs_k": "item 4 (logprobs)",
-    "compute_dtype": "item 4 (bf16 compute)",
     "ffn": "item 7 (other model families)",
 }
 _UNPORTED_SUBMIT = {
@@ -142,10 +163,12 @@ def install_dense_row(cache, row, slot: int):
 
 class GPTFamilyRows:
     """The GPT family's per-slot hooks: the padded-prompt prefill
-    forward and the per-row decode forward."""
+    forward and the per-row decode forward, at `compute_dtype` (None:
+    f32; torch.bfloat16: bf16 compute, JAX's GPTFamilyRows)."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, *, compute_dtype=None):
         self.cfg = cfg
+        self.compute_dtype = check_compute_dtype(compute_dtype)
 
     def init_cache(self, batch: int, max_len: int, dtype, device):
         return init_cache(self.cfg, batch, max_len, dtype, device)
@@ -154,7 +177,8 @@ class GPTFamilyRows:
         """One (1, P) prompt chunk at [start_pos, start_pos + P) ->
         logits (1, P, V); row_cache is written in place."""
         logits, _ = forward_with_cache(prepared, padded, row_cache,
-                                       start_pos, cfg=self.cfg)
+                                       start_pos, cfg=self.cfg,
+                                       compute_dtype=self.compute_dtype)
         return logits
 
     @torch.no_grad()
@@ -164,32 +188,95 @@ class GPTFamilyRows:
         paged pool's junk block, or re-write a dense row's own value);
         their rows are discarded by the caller. Per-layer views are taken
         here, each step: a bucket grow replaces the cache tensors."""
-        cfg = self.cfg
+        cfg, cdt = self.cfg, self.compute_dtype
         x = (embedding(prepared["wte"], tok)
              + embedding(prepared["wpe"], pos.long()))[:, None, :]
+        if cdt is not None:
+            x = x.to(cdt)
         for i in range(cfg.n_layer):
             bp = layer_params(prepared["blocks"], i)
             c = {kk: leaf if kk == "tables" else leaf[i]
                  for kk, leaf in cache.items()}
             h = layer_norm(bp["ln_1"], x, eps=cfg.ln_eps)
-            q, k, v = _qkv_heads(bp, h, cfg=cfg)
+            q, k, v = _qkv_heads(bp, h, cfg=cfg, compute_dtype=cdt)
             codec.write_rows(c, k, v, pos, active)
             y = codec.attend_rows(q, c, pos)
-            x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)))
+            x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
+                           compute_dtype=cdt)
             h = layer_norm(bp["ln_2"], x, eps=cfg.ln_eps)
-            x = x + _mlp(bp, h)
-        return head(prepared, x.float(), cfg=cfg)[:, -1]
+            x = x + _mlp(bp, h, cdt)
+        return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[:, -1]
 
 
-def default_family(cfg):
+def default_family(cfg, compute_dtype=None):
     """The family hooks a config is served with: LlamaFamilyRows for a
     LlamaConfig (it raises for a switch that is not ported yet), else
-    GPTFamilyRows."""
+    GPTFamilyRows; either at `compute_dtype`."""
     from dnn_tpu_torch.models.llama import LlamaConfig, LlamaFamilyRows
 
     if isinstance(cfg, LlamaConfig):
-        return LlamaFamilyRows(cfg)
-    return GPTFamilyRows(cfg)
+        return LlamaFamilyRows(cfg, compute_dtype=compute_dtype)
+    return GPTFamilyRows(cfg, compute_dtype=compute_dtype)
+
+
+def capture_cuda_graph(fn):
+    """fn() captured into one CUDA graph on the current device: returns
+    (graph, fn's output -- the graph's static output, rewritten by every
+    replay --, the LaunchLog of the kernel calls it captured). The
+    capture mode is thread-local: another thread's CUDA calls do not
+    break it. Raises whatever the capture raises."""
+    log = LaunchLog()
+    graph = torch.cuda.CUDAGraph()
+    with recording_launches(log), torch.cuda.graph(
+            graph, capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out, log
+
+
+class CapturedDecode:
+    """A batcher's decode step as one captured CUDA graph. The slots'
+    tokens, positions and active flags live in static device buffers
+    (`tok`, `pos`, `active`), refilled with copy_ every step. The first
+    call, and the first after the cache dict is replaced (a bucket grow
+    hands the batcher a new one), runs the step eagerly -- which also
+    loads each kernel library and sets each kernel's launch attributes,
+    host work a capture must not see -- and then captures it; every other
+    call replays the graph and counts the kernel launches the capture
+    recorded (LaunchLog.replayed), so the wrappers' counters keep
+    counting launches. The graph holds the cache it was captured over
+    until it is recaptured. `capture` is `capture_cuda_graph` (a test
+    may pass a stand-in with the same contract)."""
+
+    def __init__(self, slots: int, device, capture=capture_cuda_graph):
+        self.tok = torch.zeros((slots,), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((slots,), dtype=torch.int32, device=device)
+        self.active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        self._capture = capture
+        self._graph = self._logits = self._log = self._cache = None
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, decode, cache, tok, pos, active):
+        """decode(cache, tok, pos, active) -> logits (B, V), run on the
+        static buffers after copying the host arrays tok/pos/active
+        into them. Returns the logits: the graph's static output on a
+        replay, valid until the next call."""
+        self.tok.copy_(torch.from_numpy(tok))
+        self.pos.copy_(torch.from_numpy(pos))
+        self.active.copy_(torch.from_numpy(active))
+        if self._graph is None or self._cache is not cache:
+            logits = decode(cache, self.tok, self.pos, self.active)
+            # the old graph and its memory pool go before the new capture
+            self._graph = self._logits = self._log = self._cache = None
+            self._graph, self._logits, self._log = self._capture(
+                lambda: decode(cache, self.tok, self.pos, self.active))
+            self._cache = cache
+            self.captures += 1
+            return logits
+        self._graph.replay()
+        self._log.replayed()
+        self.replays += 1
+        return self._logits
 
 
 class ContinuousBatcher:
@@ -212,22 +299,25 @@ class ContinuousBatcher:
                  eos_id: Optional[int] = None, seed: int = 0,
                  kv_dtype=None, kv: Optional[str] = "auto",
                  paged_blocks: int = 0, block_len: int = 16,
-                 decode_buckets=False, family=None, device=None,
-                 **unported):
+                 decode_buckets=False, family=None, compute_dtype=None,
+                 device=None, **unported):
+        compute_dtype = check_compute_dtype(compute_dtype)
         if family is not None:
             # JAX's batcher (serving.py:300-326): the adapter owns the
-            # model's hooks, so knobs beside it are refused
+            # model's hooks, so knobs beside it are refused, and the
+            # model runs at the family's compute type
             if unported.get("ffn") is not None:
                 raise ValueError(
                     "pass ffn on the family adapter, not alongside family=")
             fam_dtype = getattr(family, "compute_dtype", None)
-            if unported.get("compute_dtype") not in (None, fam_dtype):
+            if compute_dtype is not None and fam_dtype != compute_dtype:
                 raise ValueError(
-                    f"compute_dtype mismatch: batcher="
-                    f"{unported['compute_dtype']} vs family adapter="
-                    f"{fam_dtype} — set it on the adapter")
+                    f"compute_dtype mismatch: batcher={compute_dtype} vs "
+                    f"family adapter={fam_dtype} — set it on the adapter")
+            compute_dtype = fam_dtype
         _reject_unported(_UNPORTED, unported, zero_is_off=True)
-        self.family = family or default_family(cfg)
+        self.family = family or default_family(cfg, compute_dtype)
+        self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the JAX reference computes in f32: no TF32 on the served path
@@ -239,7 +329,7 @@ class ContinuousBatcher:
                 f"{prepared['wte']['embedding'].device}, the server on "
                 f"{self.device}")
         self.cfg = cfg
-        self.prepared = prepared
+        self.prepared = for_compute(prepared, compute_dtype)
         self.slots = slots
         self.max_len = min(max_len or cfg.block_size, cfg.block_size)
         self.prompt_pad = prompt_pad or min(64, self.max_len)
@@ -253,7 +343,8 @@ class ContinuousBatcher:
         self._default_minp = float(min_p) if min_p else 0.0
         self._default_rep = (float(repetition_penalty)
                              if repetition_penalty else 1.0)
-        self._cache_dtype = _cache_dtype(kv_dtype)
+        self._cache_dtype = _cache_dtype(kv_dtype if kv_dtype is not None
+                                         else compute_dtype)
 
         # decode bucketing (dense pool only): the pool starts at the
         # ladder's first rung and grows (_ensure_cache_len) before a
@@ -308,6 +399,10 @@ class ContinuousBatcher:
         # per-slot vocabulary seen-mask for the repetition penalty
         self._seen = torch.zeros((slots, cfg.vocab_size), dtype=torch.bool,
                                  device=self.device)
+
+        # the decode step's CUDA graph (the CPU steps eagerly)
+        self._graph_step = (CapturedDecode(slots, self.device)
+                            if self.device.type == "cuda" else None)
 
         self._next_rid = 0
         self._slot_req: List[Optional[dict]] = [None] * slots
@@ -617,11 +712,16 @@ class ContinuousBatcher:
             return {}
         # this step writes each active slot's next position
         self._ensure_cache_len(int(self.pos[self.active].max()) + 1)
-        active_d = self._upload(self.active, torch.bool)
-        pos_d = self._upload(self.pos, torch.int32)
-        tok_d = self._upload(self.tok, torch.int64)
-        logits = self.family.decode_rows(self.prepared, self.cache, tok_d,
-                                         pos_d, active_d, self._codec)
+        if self._graph_step is not None:
+            logits = self._graph_step(self._decode, self.cache, self.tok,
+                                      self.pos, self.active)
+            active_d = self._graph_step.active
+        else:
+            active_d = self._upload(self.active, torch.bool)
+            logits = self._decode(self.cache,
+                                  self._upload(self.tok, torch.int64),
+                                  self._upload(self.pos, torch.int32),
+                                  active_d)
         rep = self._upload(self._rep, torch.float32)
         lg = apply_repetition_penalty(
             logits, (rep != 1.0)[:, None] & self._seen, rep[:, None])
@@ -648,6 +748,11 @@ class ContinuousBatcher:
             out[req["rid"]] = token
             self._retire_if_done(slot)
         return out
+
+    def _decode(self, cache, tok, pos, active):
+        """The forward of one step over every slot: logits (B, V)."""
+        return self.family.decode_rows(self.prepared, cache, tok, pos,
+                                       active, self._codec)
 
     def drain(self) -> Dict[int, np.ndarray]:
         """Run until every submitted request finishes; returns .results."""

@@ -4,7 +4,9 @@ in interpret mode, on the same numpy inputs.
 
 Tolerance: atol 1e-5 everywhere. Both sides read the same (f32,
 bf16-rounded, or int8 payload with f32 scales) K/V values and accumulate
-in f32; only the summation order differs."""
+in f32; only the summation order differs. With a bf16 q (bf16 compute)
+the port's output is bf16, rounded once from the f32 result: rtol 2^-7,
+one bf16 step."""
 
 import numpy as np
 import pytest
@@ -288,3 +290,53 @@ def test_cached_attention_grouped_heads_match_jax(heads, kv_heads, dtype):
 
         ref = np.asarray(jllama._gqa_scores_attend(jq, jk, jv, mask))
         np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+def _bf16_q(q, jq):
+    return q.to(torch.bfloat16), jnp.asarray(jq, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kernel", ["K5", "K6", "K7"])
+def test_plain_versions_take_a_bf16_q(kernel, dtype):
+    """Each plain version takes a bf16 q and returns a bf16 output equal
+    to JAX's reference (f32 math on the same bf16 q) and to JAX's
+    kernel entry point with interpret=True on the same inputs."""
+    if kernel == "K7":
+        (q, kp, vp, ks, vs), (jq, jkp, jvp, jks, jvs) = _inputs(
+            2, (3, 2, 2, 32), (25, 2, 16, 32), dtype)
+        q, jq = _bf16_q(q, jq)
+        tables = (np.random.default_rng(3).permutation(24) + 1).reshape(
+            3, 8).astype(np.int32)
+        pos = np.array([16, 37, 127], np.int32)
+        got = tca.paged_decode_attention(q, kp, vp, torch.from_numpy(tables),
+                                         torch.from_numpy(pos), ks=ks, vs=vs)
+        jargs = (jq, jkp, jvp, jnp.asarray(tables), jnp.asarray(pos))
+        ref = jca.reference_paged_decode_attention(*jargs, ks=jks, vs=jvs)
+        pallas = jca.paged_decode_attention(*jargs, ks=jks, vs=jvs,
+                                            interpret=True)
+    else:
+        t = 16 if kernel == "K5" else 2
+        (q, k, v, ks, vs), (jq, jk, jv, jks, jvs) = _inputs(
+            1, (2, 2, t, 32), (2, 2, 128, 32), dtype)
+        q, jq = _bf16_q(q, jq)
+        tpos = torch.tensor((3, 100), dtype=torch.int32)
+        jpos = jnp.asarray((3, 100), jnp.int32)
+        if kernel == "K5":
+            got = tca.cached_attention(q, k, v, tpos, ks=ks, vs=vs)
+            ref = jca.reference_cached_attention(jq, jk, jv, jpos, ks=jks,
+                                                 vs=jvs)
+            pallas = jca.cached_attention(jq, jk, jv, jpos, ks=jks, vs=jvs,
+                                          block_s=128, interpret=True)
+        else:
+            got = tca.decode_attention(q, k, v, tpos, ks=ks, vs=vs)
+            ref = jca.reference_decode_attention(jq, jk, jv, jpos, ks=jks,
+                                                 vs=jvs)
+            pallas = jca.decode_attention(jq, jk, jv, jpos, ks=jks, vs=jvs,
+                                          block_s=128, interpret=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref),
+                               rtol=2 ** -7, atol=1e-5)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(pallas.astype(jnp.float32)),
+        rtol=2 ** -7, atol=1e-5)

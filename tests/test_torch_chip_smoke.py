@@ -302,3 +302,47 @@ def test_relay_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "[pipe] P-d 4 microbatches of (1, 12) ids over Relay" in out, out
     assert "each result equals the relay engine's bit for bit" in out
+
+
+@pytest.fixture
+def one_torch_thread():
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_bf16_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                        one_torch_thread):
+    """chip_smoke's [bf16] phase on the CPU with a 4-layer model of
+    block_size 1024 (run E's pool: 4 slots, max_len 1024, prompt_pad 64)
+    and vocab 512: E, F, B-bf16, solo-bf16 and P-c-bf16 in bf16 compute,
+    each stream equal to its plain bf16-compute loop up to BF16_TIE;
+    every check applies except the launch counts and the profiles (a CPU
+    call launches no kernel). One torch thread: under the suite's
+    parallel workers torch's default threads slow this tiny model
+    tenfold."""
+    import torch
+
+    from dnn_tpu_torch import registry
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=4,
+                         n_head=2, n_embd=32)
+    monkeypatch.setitem(tgpt.PRESETS, "gpt2-test1k", cfg)
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    tgpt._register("gpt2-test1k", cfg)
+    counts = chip_smoke.phase_bf16(torch.device("cpu"), "cpu",
+                                   model="gpt2-test1k")
+    out = capsys.readouterr().out
+    for run, pool in (("E", "paged pool, bf16 compute, kv_dtype bf16"),
+                      ("F", "paged pool, bf16 compute, kv_dtype int8"),
+                      ("B-bf16", "dense pool, bf16 compute, kv_dtype bf16")):
+        assert f"[main] run {run} ({pool}" in out, out
+        for i, n in enumerate((5, 70, 130, 300)):
+            assert f"[main] run {run} request {i} (prompt {n}): " in out
+    assert "[main] solo-bf16 make_generate: " in out
+    assert "[main] P-c-bf16 engine.generate (gpt2-test1k, 4 parts): " in out
+    assert "an f32 product of the rounded operands" in out
+    assert set(counts) == set(chip_smoke.CACHE_KERNELS)

@@ -580,3 +580,118 @@ def test_decode_kernels_at_seven_and_eight_rows(dev, paged, kind, d, rows):
     pos = torch.tensor(_edge_positions(paged, 6, 2), dtype=torch.int32,
                        device=dev)
     _decode_check(paged, q, k, v, pos, ks, vs, kind, tables)
+
+
+# --- bf16 queries (bf16 compute) and the captured decode step ---------
+# K5, K6 and K7 read a bf16 q as it is and write a bf16 output. The plain
+# version computes in f32 on the same bf16 q and rounds its output to
+# bf16 once; the kernels round their f32 result once too, so the two
+# differ by the summation order and, at most, one bf16 rounding step of
+# the output (2^-8 of it, 2^-7 below a power of two): BF16_Q_TOL 2e-2 of
+# the output's scale, its largest |value| (at least 1). An int8 cache
+# here holds values up to 127 x 0.051, outputs up to about 6.5, where
+# one step is 0.03125 (seen on an H100).
+BF16_Q_TOL = 2e-2
+
+
+def _bf16_q_check(fn, ref, args, kind, **scales):
+    """One call with a bf16 q against the plain version on the same
+    inputs: a bf16 output, one launch counted under the cache type and
+    under launches_bf16_q."""
+    before = (fn.launches_by_dtype[kind], fn.launches_bf16_q[kind])
+    got = fn(*args, **scales)
+    want = ref(*args, **scales)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert (fn.launches_by_dtype[kind], fn.launches_bf16_q[kind]) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= BF16_Q_TOL * scale, (err, scale)
+    return got
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+def test_cached_attention_bf16_q(dev, kind, d, group):
+    """K5 with a bf16 q over f32, bf16 and int8 caches, G = 1 and 4 (2
+    KV heads), T of 40 and 65 rows, bases beside the split edges of
+    S=1024 and at 960; the same output twice, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    k, v, ks, vs = _cache(g, (2, 2, 1024, d), kind, dev)
+    split_tiles, _ = tca.k5_split(2 * 2 * group, 40, 1024)
+    edge = split_tiles * tca.K5_TILE
+    for t in (40, 65):
+        q = torch.randn(2, 2 * group, t, d, generator=g,
+                        device=dev).to(torch.bfloat16)
+        for base in ([0, edge - 1], [edge, 960]):
+            pos = torch.tensor(base, dtype=torch.int32, device=dev)
+            first = _bf16_q_check(tca.cached_attention,
+                                  tca.reference_cached_attention,
+                                  (q, k, v, pos), kind, ks=ks, vs=vs)
+            assert torch.equal(
+                first, tca.cached_attention(q, k, v, pos, ks=ks, vs=vs))
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_bf16_q(dev, paged, kind, d, rows):
+    """K6 and K7 with a bf16 q over f32, bf16 and int8 caches, R = 1 and
+    4, at S=1024 with positions beside the split edges (a stale dense
+    slot, an inactive paged one)."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, d, rows,
+                                             seed=32)
+    q = q.to(torch.bfloat16)
+    pos = torch.tensor(_edge_positions(paged, 6, 2), dtype=torch.int32,
+                       device=dev)
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    ref = (tca.reference_paged_decode_attention if paged
+           else tca.reference_decode_attention)
+    args = (q, k, v, tables, pos) if paged else (q, k, v, pos)
+    _bf16_q_check(fn, ref, args, kind, ks=ks, vs=vs)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", [{"kv": "paged"}, {"kv": "dense"},
+                                    {"kv": "paged", "kv_dtype": "int8"}],
+                         ids=["paged", "dense", "paged-int8"])
+def test_captured_decode_step_equals_eager(dev, compute, layout):
+    """The batcher's decode step on the card is a replayed CUDA graph:
+    after two admissions and two steps (one eager step and its capture,
+    then one replay), one more replay of the graph gives the eager
+    step's logits on the same static inputs bit for bit, and the
+    replays counted the captured launches (one K7 or K6 per layer a
+    step)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import GPTConfig, init
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    cfg = GPTConfig(block_size=128, vocab_size=512, n_layer=3, n_head=4,
+                    n_embd=256)
+    cdt = torch.bfloat16 if compute == "bf16" else None
+    prep = from_jax_params(init(5, cfg), cfg, dev, compute_dtype=cdt)
+    b = ContinuousBatcher(cfg, prep, slots=3, max_len=128, prompt_pad=32,
+                          block_len=16, device=dev, compute_dtype=cdt,
+                          **layout)
+    b.submit(list(range(1, 40)), 8)
+    b.submit(list(range(7, 12)), 8)
+    fn = (tca.paged_decode_attention if b.paged
+          else tca.decode_attention)
+    before = fn.launches
+    b.step()
+    b.step()
+    step = b._graph_step
+    assert (step.captures, step.replays) == (1, 1)
+    assert fn.launches == before + 2 * cfg.n_layer
+    step._graph.replay()
+    step._log.replayed()
+    torch.cuda.synchronize()
+    replayed = step._logits.clone()
+    eager = b._decode(b.cache, step.tok, step.pos, step.active)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    assert fn.launches == before + 4 * cfg.n_layer

@@ -70,7 +70,7 @@ def test_sampling_is_seeded_and_filtered(weights):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"compute_dtype": "bf16"}, NotImplementedError, "ROADMAP .* item 4"),
+    ({"compute_dtype": torch.float16}, ValueError, "compute_dtype"),
     ({"ffn": object()}, NotImplementedError, "ROADMAP .* item 7"),
     ({"kv_dtype": "int4"}, NotImplementedError, "ROADMAP .* item 2"),
     ({"kv_dtype": "fp8"}, ValueError, "kv_dtype"),
@@ -80,7 +80,9 @@ def test_sampling_is_seeded_and_filtered(weights):
 ])
 def test_make_generate_rejects(kwargs, exc, match):
     """Options this slice leaves out raise naming their ROADMAP item;
-    bad values raise ValueError."""
+    bad values raise ValueError (a compute type other than f32 or bf16
+    among them; bf16 compute is held against JAX in
+    test_torch_bf16_serving.py)."""
     with pytest.raises(exc, match=match):
         tgen.make_generate(CFG_T, max_new_tokens=4, device="cpu", **kwargs)
 

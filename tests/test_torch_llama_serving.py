@@ -291,3 +291,21 @@ def test_llama_phase_rehearsed_on_the_cpu(capsys):
     assert "[main] [llama] L-solo make_generate f32: " in out
     assert "matches the reference" in out
     assert set(counts) == set(chip_smoke.CACHE_KERNELS)
+
+
+def test_llama_bf16_phase_rehearsed_on_the_cpu(capsys):
+    """chip_smoke's L-B on the CPU with the 2-layer GQA model of the
+    [llama] rehearsal in bf16 compute: the weights prepared with their
+    matmul weights in bf16, the daemon's four streams each equal to the
+    plain bf16-compute loop up to BF16_TIE."""
+    import chip_smoke
+
+    cfg = tllama.LlamaConfig(block_size=1024, vocab_size=512, n_layer=2,
+                             n_head=4, n_kv_head=1, n_embd=64, d_ff=128,
+                             rope_theta=500000.0)
+    counts = chip_smoke.phase_llama_bf16(torch.device("cpu"), "cpu", cfg)
+    out = capsys.readouterr().out
+    assert "GB of bf16 matmul weights) drawn on cpu" in out, out
+    for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
+        assert f"[main] run L-B request {i} (prompt {n}): " in out, out
+    assert set(counts) == set(chip_smoke.CACHE_KERNELS)

@@ -285,8 +285,9 @@ def test_engine_loads_model_weights_and_declines_lora(tmp_path):
 
 def test_engine_generate_equals_jax_engine():
     """engine.generate greedy on gpt2-test (weights x15, so the argmaxes
-    are decisive) equals JAX's PipelineEngine.generate token for token;
-    bf16 compute surfaces the port's NotImplementedError."""
+    are decisive) equals JAX's PipelineEngine.generate token for token,
+    in f32 and, with `"dtype": "bfloat16"` in both configs, in bf16
+    compute (over a bf16 cache)."""
     params = _gpt_params(seed=1, scale=15.0)
     raw = _cpu_config("gpt2-test", 2)
     prompt = np.random.default_rng(3).integers(0, 256, (1, 11)).astype(
@@ -298,10 +299,14 @@ def test_engine_generate_equals_jax_engine():
     got = eng.generate(prompt, max_new_tokens=12)
     np.testing.assert_array_equal(got.numpy(), want)
     assert len(set(want[0].tolist())) > 1
-    bf16 = PipelineEngine(TopologyConfig.from_dict(
-        {**raw, "dtype": "bfloat16"}), params=params)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        bf16.generate(prompt, max_new_tokens=2)
+    raw16 = {**raw, "dtype": "bfloat16"}
+    want16 = np.asarray(JaxEngine(
+        JaxConfig.from_dict(raw16),
+        params=jax.tree.map(jnp.asarray, params)).generate(
+            prompt, max_new_tokens=12))
+    bf16 = PipelineEngine(TopologyConfig.from_dict(raw16), params=params)
+    np.testing.assert_array_equal(
+        bf16.generate(prompt, max_new_tokens=12).numpy(), want16)
 
 
 def test_engine_generate_llama_equals_jax_engine():
