@@ -7,7 +7,10 @@ greedy stream against an independent reference, trains full-width GPT-2
 through the flash-attention kernels, and serves llama3-8b at full width
 and depth over the paged pool (K5 with grouped heads, K6/K7 at four rows
 a KV head) in f32 and in bf16 compute. The batcher's decode steps are
-captured CUDA graphs throughout.
+captured CUDA graphs throughout, and so are the mixed steps of the
+interleaved runs (H, H-bf16, L-B-ilv), which also overlap each step's
+dispatch with the previous step's commit; the prefix cache (G, G-dense),
+the logit bias and logprobs run on gpt2.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -24,9 +27,10 @@ Phases (any failure exits non-zero and prints no result):
      on 64 MiB, make_tensor and tensor_view of P-b's 51.5 MB f32
      logits timed, a flipped byte refused
   2. K5 cached_attention at the prefill shape (B=1 H=12 T=64 S=1024 D=64),
-     bases {0, 64, 448, 960}, f32, bf16 and int8 caches; its split-KV
-     plan (splits, kernel launches a call), and at base 960 its time
-     against SDPA's
+     bases {0, 64, 448, 960}, f32, bf16 and int8 caches, and checked
+     only at the unaligned bases 37 and 301 (a radix prefix hit resumes
+     mid-block); its split-KV plan (splits, kernel launches a call), and
+     at base 960 its time against SDPA's
   3. K6 decode_attention at the dense decode shape (B=4 Hk=12 R=1 D=64
      S=1024), pos {0,15,16,1023}, f32/bf16/int8; also a stale slot at
      pos = S and an R=2 case (checked only); its split-KV plan; and at
@@ -70,6 +74,26 @@ Phases (any failure exits non-zero and prints no result):
           cast to bf16 as the port's FloatKV does) (K5, K7 bf16)
        solo make_generate on the 300-token prompt, f32, bf16 and int8
           caches, against the matching reference (K5, K6)
+  5a. [serve] ROADMAP item 4 b-c on the same weights, each run with the
+     launch counts zeroed just before and read just after:
+       bias and logprobs: A's daemon over gRPC with b= -- the greedy
+          stream's first token banned (-1e9) never appears, a forced one
+          (+1e9) is every token; a batcher at A's pool with logprobs_k=5,
+          each chosen logprob within 1e-4 of the no-cache loop's
+          log_softmax (K5, K7)
+       G  A's pool with prefix_cache=256 (the radix store): 8 prompts
+          sharing a 300-token prefix (5-40-token suffixes), a 320-token
+          prompt leaving the cached text mid-block (a copy-on-write) and
+          its repeat (a zero-chunk full hit), against the same schedule
+          uncached: fewer prompt chunks, every stream against the
+          no-cache loop, hits/misses/evictions and TTFTs printed (K5, K7)
+       G-dense the same on B's dense pool without buckets (the LRU; K5,
+          K6)
+       H  A's daemon with prefill_chunk_tokens=64 and overlap: the four
+          concurrent clients, every stream equal to A's token for token,
+          K5 (inside the captured mixed step) and K7 exactly; then the
+          mixed step's captured and eager walls, one replay bit-equal to
+          the eager mixed step
   5b. [text] the daemon at run A's configuration with a tokenizer that
      encodes as ByteTokenizer does and decodes each id to a character of
      its own: on a 282-byte UTF-8 prompt, the ids behind generate_text's
@@ -88,7 +112,9 @@ Phases (any failure exits non-zero and prints no result):
      against SDPA on bf16 q/k/v; then gpt2 in bf16 compute (matmul
      weights held in bf16), each run with the launch counts zeroed just
      before and read just after, every launch with a bf16 q, exact
-     counts: E paged bf16 KV (K5, K7), F paged int8 (K5, K7 int8),
+     counts: E paged bf16 KV (K5, K7), H-bf16 E under H's settings
+     (streams equal to E's; its mixed step replayed bit-equal to the
+     eager one), F paged int8 (K5, K7 int8),
      B-bf16 dense + buckets (K5, K6, a recapture at each grow),
      solo-bf16 make_generate, P-c-bf16 engine.generate in 4 parts; each
      stream against the plain bf16-compute loop (bf16 or int8 cache,
@@ -148,6 +174,7 @@ Phases (any failure exits non-zero and prints no result):
            paged bf16 pool, against the plain bf16-compute loop at
            BF16_TIE (K5 grouped, K7 at R=4, bf16 q, exactly); one
            replayed step bit-equal to the eager step
+       L-B-ilv L-B under H's settings, its streams equal to L-B's
      plus information: a decode step's (captured and eager) and the
      300-token admission's wall, device busy and top kernels; L-B's step
      against the byte bound of its weights
@@ -451,9 +478,14 @@ def k5_bound(name, B, H, HK, T, S, base, D, q_bytes=4):
     return nbytes, scores, label, bound(nbytes, 4 * D * scores, peak)
 
 
+K5_UNALIGNED = (37, 301)  # bases off the 16-position block grid
+
+
 def phase_k5(dev, gen):
     """K5 against its plain version at the prefill-chunk shape, f32,
-    bf16 and int8 caches. Returns {(dtype, base): row}. The bound is
+    bf16 and int8 caches, at bases {0, 64, 448, 960} and, checked only,
+    at the unaligned K5_UNALIGNED (the radix prefix cache resumes a
+    prefill mid-block). Returns {(dtype, base): row}. The bound is
     k5_bound's. Printed beside it, as information: the products the
     kernel issues on the tensor cores (over every 64-key tile up to each
     query tile's last live column, two bf16 products a tile for Q.K^T and
@@ -513,6 +545,15 @@ def phase_k5(dev, gen):
                   f"f32 CUDA-core ops of the live scores "
                   f"{4 * D * scores / F32_FLOPS_PER_S * 1e3:.5f}); kernel / "
                   f"bound {ms / b_ms:.1f}", flush=True)
+        for base in K5_UNALIGNED:
+            pos = torch.full((B,), base, dtype=torch.int32, device=dev)
+            sc = scales_at(ks, vs, 0)
+            err = check(f"K5 {name} base {base}",
+                        cached_attention(q[0], k[0], v[0], pos, **sc),
+                        reference_cached_attention(q[0], k[0], v[0], pos, **sc),
+                        tol)
+            print(f"[K5] {name:4s} base {base:4d} (unaligned, a radix "
+                  f"resume mid-block): err {err:.3e}", flush=True)
         if lib is not None:
             at = rows[(name, 960)]
             print(f"[K5] {name} base 960: kernel {at['ms']:.4f} ms, SDPA "
@@ -1461,7 +1502,8 @@ def require(label, counts, needed):
 
 
 def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
-              card, exact=None, tie=NEAR_TIE, **kv):
+              card, exact=None, tie=NEAR_TIE, info=None, same_as=None,
+              **kv):
     """One main-path run: the LM daemon in-process (4 slots, max_len
     1024, prompt_pad 64) with the cache options `kv`, 4 concurrent gRPC
     generate calls, greedy; tokens checked against `refs` (tokens, gaps)
@@ -1472,7 +1514,10 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     compute (`compute_dtype` among `kv`) every cache-kernel launch of the
     run must have taken a bf16 q. The decode steps are the batcher's
     captured graph on the card: the exact counts hold only if each
-    replay counted its captured launches. Returns the run's launch
+    replay counted its captured launches. `info`, where given, receives
+    the run's streams, tokens/s and TTFT; `same_as`, another run's
+    `info`, makes every stream equal that run's token for token (an
+    interleaved run against its convoy run). Returns the run's launch
     counts (under bf16 compute, those with a bf16 q)."""
     from dnn_tpu_torch.comm.client import NodeClient
     from dnn_tpu_torch.parallel.pipeline import sync
@@ -1500,6 +1545,8 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         grows0 = batcher.bucket_grows
         graph = batcher._graph_step
         caps0 = graph.captures if graph is not None else 0
+        mixed0 = list(graph.counts["mixed"]) if graph is not None else [0, 0]
+        chunks0 = batcher.prefill_chunks_run
         reset_counts()
         n_steps[0] = 0
 
@@ -1523,6 +1570,9 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         steps = n_steps[0]
         grows = batcher.bucket_grows - grows0
         captures = (graph.captures if graph is not None else 0) - caps0
+        chunks = batcher.prefill_chunks_run - chunks0
+        mixed = ([a - b for a, b in zip(graph.counts["mixed"], mixed0)]
+                 if graph is not None else [0, 0])
         if errors or len(results) != len(prompts):
             fail(f"{label}: generate calls failed: {errors or 'timed out'}")
         # TTFT, as information: one streamed request on the idle daemon
@@ -1547,6 +1597,11 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
           + (f"; decode step a CUDA graph: {captures} captures and "
              f"{steps - captures} replays in the run's {steps} steps"
              if graph is not None else f"; {steps} eager decode steps")
+          + (f", of them {sum(mixed)} mixed steps ({mixed[0]} captures, "
+             f"{mixed[1]} replays) folding {chunks} prompt chunks of "
+             f"{kv['prefill_chunk_tokens']} tokens"
+             + (", overlapped" if kv.get("overlap") else "")
+             if kv.get("prefill_chunk_tokens") else "")
           + ")", flush=True)
     if dev.type == "cuda":
         require(f"run {label}", counts, needed)
@@ -1571,6 +1626,21 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     print(f"[main] run {label}: 4 concurrent requests, {n_tokens} tokens in "
           f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT (300-token "
           f"prompt, idle daemon) {ttft * 1e3:.1f} ms; on {card}", flush=True)
+    if same_as is not None:
+        for i, prompt in enumerate(prompts):
+            if results[i] != same_as["streams"][i]:
+                fail(f"run {label} request {i} (prompt {len(prompt)}): "
+                     f"{results[i]} differs from the convoy run's "
+                     f"{same_as['streams'][i]}")
+        print(f"[main] run {label}: every stream equals run "
+              f"{same_as['label']}'s token for token; {n_tokens / wall:.1f} "
+              f"tokens/s against {same_as['tokens_per_s']:.1f}, TTFT "
+              f"{ttft * 1e3:.1f} ms against {same_as['ttft_ms']:.1f} ms; on "
+              f"{card}", flush=True)
+    if info is not None:
+        info.update(label=label, streams=[results[i]
+                                          for i in range(len(prompts))],
+                    tokens_per_s=n_tokens / wall, ttft_ms=ttft * 1e3)
     for i, prompt in enumerate(prompts):
         compare_tokens(f"run {label} request {i} (prompt {len(prompt)})",
                        results[i], *refs[i], tie=tie)
@@ -1608,6 +1678,289 @@ def phase_solo(cfg, prepared, prompt, n_new, refs, dev):
     return total
 
 
+G_PREFIX, G_SUFFIXES, G_NEW = 300, (5, 12, 19, 26, 33, 40, 9, 23), 16
+
+
+def g_prompts(vocab: int):
+    """[serve] G's schedule: 8 prompts that share a 300-token prefix, each
+    with its own 5-40-token suffix; then a 320-token prompt whose last 20
+    tokens leave the cached text in the middle of block 18 (positions
+    288-303: a copy-on-write of the boundary block), and the same
+    320-token prompt again (block-aligned and wholly cached: a full hit,
+    zero chunks)."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, vocab, G_PREFIX).tolist()
+    out = [base + rng.integers(0, vocab, n).tolist() for n in G_SUFFIXES]
+    cow = base + rng.integers(0, vocab, 320 - G_PREFIX).tolist()
+    return out + [cow, cow]
+
+
+def run_schedule(b, prompts, n_new, dev):
+    """Drive a batcher directly as the daemon's worker does: each prompt
+    admitted as a slot frees, in order, steps while anything is active.
+    Returns (streams, each admission's wall in ms: for convoy admission
+    the time to the first token)."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    rids, walls, todo = {}, {}, list(enumerate(prompts))
+    while todo or b.n_active:
+        while todo and b.free_slots():
+            i, p = todo.pop(0)
+            sync(dev)
+            t0 = time.perf_counter()
+            rids[i] = b.submit(p, n_new)
+            sync(dev)
+            walls[i] = (time.perf_counter() - t0) * 1e3
+        if b.n_active:
+            b.step()
+    b.flush_overlap()
+    return [b.results[rids[i]].tolist() for i in range(len(prompts))], walls
+
+
+def phase_prefix(tag, cfg, prepared, dev, card, needed, **kv):
+    """G (kv="paged": the radix store) or G-dense (kv="dense": the exact-
+    prefix LRU): g_prompts' schedule through a batcher at run A's size
+    (4 slots, max_len 1024, prompt_pad 64), greedy, 16 tokens each, with
+    prefix_cache=256 and without; every stream of both against the
+    no-cache greedy loop (near-tie rule); with the cache the schedule
+    must run fewer prompt chunks, the copy-on-write prompt must hit, and
+    its repeat must run zero chunks. Launch counts zeroed just before the
+    cached run and read just after. Returns them."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    prompts = g_prompts(cfg.vocab_size)
+    refs = [reference_greedy(prepared, cfg, p, G_NEW, dev) for p in prompts]
+    pool = dict(slots=4, max_len=1024, prompt_pad=64, block_len=16,
+                device=dev, **kv)
+    plain = ContinuousBatcher(cfg, prepared, **pool)
+    run_schedule(plain, prompts[:1], 2, dev)  # warm-up: kernels, graph
+    chunks0 = plain.prefill_chunks_run
+    got_plain, walls_plain = run_schedule(plain, prompts, G_NEW, dev)
+    chunks_plain = plain.prefill_chunks_run - chunks0
+    del plain
+    b = ContinuousBatcher(cfg, prepared, prefix_cache=256, **pool)
+    run_schedule(b, [prompts[0][:8]], 2, dev)  # warm-up, nothing to share
+    b.prefix_hits = b.prefix_misses = b.prefill_chunks_run = 0
+    reset_counts()
+    got, walls = run_schedule(b, prompts[:-1], G_NEW, dev)
+    chunks_cow = b.prefill_chunks_run
+    hit = run_schedule(b, prompts[-1:], G_NEW, dev)
+    got.append(hit[0][0])
+    walls[len(prompts) - 1] = hit[1][0]
+    counts = read_counts()
+    chunks = b.prefill_chunks_run
+    if dev.type == "cuda":
+        require(f"[serve] {tag}", counts, needed)
+    for i, p in enumerate(prompts):
+        for run, stream in (("cached", got[i]), ("uncached", got_plain[i])):
+            compare_tokens(f"[serve] {tag} {run} request {i} (prompt "
+                           f"{len(p)})", stream, *refs[i])
+    if chunks >= chunks_plain:
+        fail(f"[serve] {tag}: {chunks} prompt chunks with the prefix cache, "
+             f"{chunks_plain} without")
+    if chunks != chunks_cow:
+        fail(f"[serve] {tag}: the repeated {len(prompts[-1])}-token prompt "
+             f"ran {chunks - chunks_cow} chunks, expected a full hit")
+    if b.prefix_misses != 1 or b.prefix_hits != len(prompts) - 1:
+        fail(f"[serve] {tag}: {b.prefix_hits} hits and {b.prefix_misses} "
+             f"misses, expected {len(prompts) - 1} and 1")
+    store = b._prefix_store
+    print(f"[serve] {tag} ({'radix store' if store else 'dense LRU'}, "
+          f"prefix_cache=256): {len(prompts)} prompts of "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens "
+          f"sharing a {G_PREFIX}-token prefix, {G_NEW} tokens each: "
+          f"{chunks} prompt chunks with the cache ({chunks_plain} without), "
+          f"{b.prefix_hits} hits, {b.prefix_misses} misses, "
+          f"{b.prefix_evictions} evictions"
+          + (f", {store.n_blocks} resident blocks, {store.block_hits} "
+             f"blocks reused" if store else
+             f", {len(b._prefix_cache)} entries")
+          + f"; every stream of both runs matches the reference", flush=True)
+    print(f"[serve] {tag}: time to first token (admission wall, idle "
+          f"pool): a miss {walls[0]:.1f} ms, a hit {walls[1]:.1f} ms, the "
+          f"copy-on-write hit {walls[len(prompts) - 2]:.1f} ms, the full "
+          f"hit {walls[len(prompts) - 1]:.1f} ms; without the cache "
+          f"{walls_plain[0]:.1f} / {walls_plain[1]:.1f} ms; launches "
+          f"{ {n: counts[n] for n in CACHE_KERNELS} }; on {card}",
+          flush=True)
+    return counts
+
+
+def phase_bias_logprobs(cfg, prepared, prompts, refs, dev, card):
+    """[serve] bias and logprobs: run A's daemon (paged f32) over gRPC
+    with b= (the per-request logit bias): the greedy stream's first token
+    banned (-1e9) never appears, and a token forced (+1e9) is every
+    token; then a batcher at A's pool with logprobs_k=5: each chosen
+    token's logprob within 1e-4 of the log_softmax of the no-cache
+    loop's logits at that step, first token included, the stream equal
+    to the reference. Launch counts zeroed before and read after.
+    Returns them."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.runtime.generate import forward_no_cache
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    reset_counts()
+    n_new = len(refs[0][0])
+    banned, forced = refs[0][0][0], (refs[0][0][0] + 1) % cfg.vocab_size
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, kv="paged")
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=60):
+            fail("[serve] bias: LM daemon never became healthy")
+        no_ban = client.generate(prompts[0], max_new_tokens=n_new,
+                                 logit_bias={banned: -1e9},
+                                 timeout=300).tolist()
+        all_forced = client.generate(prompts[1], max_new_tokens=n_new,
+                                     logit_bias={forced: 1e9},
+                                     timeout=300).tolist()
+        client.close()
+    finally:
+        stop()
+    if banned in no_ban:
+        fail(f"[serve] bias: banned token {banned} appears in {no_ban}")
+    if set(all_forced) != {forced}:
+        fail(f"[serve] bias: forced token {forced}, served {all_forced}")
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, device=dev,
+                          kv="paged", logprobs_k=5)
+    rid = b.submit(prompts[1], n_new, logprobs=True)
+    b.drain()
+    tokens, _reason, lps = b.claim(rid)
+    tokens = tokens.tolist()
+    compare_tokens("[serve] logprobs_k=5 stream", tokens, *refs[1])
+    ids = torch.tensor(prompts[1], dtype=torch.int64, device=dev)[None]
+    want = []
+    for t in tokens:
+        lsm = torch.log_softmax(forward_no_cache(prepared, ids, cfg=cfg)
+                                [0, -1].float(), dim=-1)
+        want.append(float(lsm[t]))
+        ids = torch.cat([ids, torch.tensor([[t]], device=dev)], dim=1)
+    err = float(np.abs(np.asarray(want) - lps["chosen"]).max())
+    if err > 1e-4:
+        fail(f"[serve] logprobs: chosen logprobs {lps['chosen']} differ "
+             f"from the plain loop's {want} by {err:.3e}")
+    counts = read_counts()
+    if dev.type == "cuda":
+        require("[serve] bias/logprobs", counts,
+                [("cached_attention", "f32"),
+                 ("paged_decode_attention", "f32")])
+    print(f"[serve] bias over gRPC (b=): banned token {banned} (the greedy "
+          f"stream's first) never served in {n_new} tokens, forced token "
+          f"{forced} served {len(all_forced)} of {len(all_forced)} times; "
+          f"logprobs_k=5: {len(tokens)} chosen logprobs (first token "
+          f"included) within {err:.2e} of the plain loop's log_softmax, "
+          f"top-5 ids {lps['top_ids'].shape}; on {card}", flush=True)
+    return counts
+
+
+def mixed_profile(tag, label, cfg, prepared, prompts, dev, **kv):
+    """Information, and one check: the mixed step of a batcher at run A's
+    size with prefill_chunk_tokens=64 and overlap, 3 slots decoding while
+    the 300-token prompt folds in 5 chunks: its wall a step as the
+    captured graph and eagerly (the graph taken away), device busy under
+    the profiler; then one replay of the mixed graph must give the eager
+    mixed step's decode and chunk logits on the same static inputs bit
+    for bit."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, device=dev,
+                          prefill_chunk_tokens=64, overlap=True, **kv)
+    for p in prompts[:3]:
+        b.submit(p, 200)
+    while b._pending_q:
+        b.step()
+    b.step()
+    torch.cuda.synchronize()
+    graph, walls = b._graph_step, {}
+
+    def admit():
+        rid = b.submit(prompts[3], 2)
+        n = 0
+        while b._pending_q:
+            b.step()
+            n += 1
+        while rid not in b.results:
+            b.step()
+        return n
+
+    for mode in ("captured", "eager"):
+        b._graph_step = graph if mode == "captured" else None
+        t0 = time.perf_counter()
+        n = admit()
+        torch.cuda.synchronize()
+        walls[mode] = (time.perf_counter() - t0) * 1e3
+        wall, dev_ms, n_kern, _, k5_ms, dec_ms = _profiled(admit)
+        print(f"[{tag}] {label}: admission of a {len(prompts[3])}-token "
+              f"prompt as {n} mixed steps (3 slots decoding, {mode}) "
+              f"{walls[mode]:.3f} ms wall to its 2nd token; under the "
+              f"profiler {wall:.3f} ms wall, {dev_ms:.3f} ms device busy "
+              f"({100 * dev_ms / wall:.1f}%), {n_kern} kernel launches, "
+              f"K5 {k5_ms:.3f} ms, K6/K7 {dec_ms:.3f} ms", flush=True)
+    b._graph_step = graph
+    print(f"[{tag}] {label}: mixed graph {graph.counts['mixed'][0]} "
+          f"captures, {graph.counts['mixed'][1]} replays; captured / eager "
+          f"admission wall {walls['captured'] / walls['eager']:.2f}",
+          flush=True)
+    g_mixed, static, log, _ = graph._graphs["mixed"]
+    g_mixed.replay()
+    log.replayed()
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in static]
+    eager = b._mixed(b.cache, graph.tok, graph.pos, graph.active, b._row,
+                     graph.chunk, graph.start)
+    torch.cuda.synchronize()
+    for what, r, e in zip(("decode", "chunk"), replayed, eager):
+        if not torch.equal(r, e):
+            fail(f"[{tag}] {label}: a replayed mixed step's {what} logits "
+                 f"differ from the eager step's by "
+                 f"{(r - e).abs().max().item():.3e}")
+    print(f"[{tag}] {label}: one replayed mixed step's decode and chunk "
+          f"logits equal the eager mixed step's on the same inputs bit for "
+          f"bit", flush=True)
+    b.drain()
+
+
+def phase_serve(cfg, prepared, prompts, refs, a_info, dev, card):
+    """[serve] ROADMAP item 4 b-c on the main path's gpt2 (seed 0): the
+    bias and logprobs run; G the radix prefix store over A's pool and
+    G-dense the dense LRU over B's pool without buckets; H the LM daemon
+    at A's configuration with prefill_chunk_tokens=64 and overlap=True,
+    the four concurrent clients of A, every stream equal to A's convoy
+    stream token for token and to the reference, K5 once a layer a
+    chunk (inside the mixed graph) and K7 once a layer a step, exactly;
+    then (on the card) mixed_profile. Returns the launches."""
+    L = cfg.n_layer
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    runs = [
+        phase_bias_logprobs(cfg, prepared, prompts, refs, dev, card),
+        phase_prefix("G", cfg, prepared, dev, card,
+                     [("cached_attention", "f32"),
+                      ("paged_decode_attention", "f32")], kv="paged"),
+        phase_prefix("G-dense", cfg, prepared, dev, card,
+                     [("cached_attention", "f32"),
+                      ("decode_attention", "f32")], kv="dense"),
+        serve_run("H", cfg, prepared, prompts, len(refs[0][0]), refs,
+                  [("cached_attention", "f32"),
+                   ("paged_decode_attention", "f32")], dev, card,
+                  exact=lambda steps: {
+                      ("cached_attention", "f32"): L * chunks,
+                      ("paged_decode_attention", "f32"): L * steps},
+                  same_as=a_info, kv="paged", prefill_chunk_tokens=64,
+                  overlap=True),
+    ]
+    if dev.type == "cuda":
+        mixed_profile("serve", "H paged f32", cfg, prepared, prompts, dev,
+                      kv="paged")
+    return {name: {dt: sum(r[name][dt] for r in runs)
+                   for dt in ("f32", "bf16", "int8")}
+            for name in CACHE_KERNELS}
+
+
 def phase_main_path(dev, card: str):
     """Every main-path run: A paged f32, B dense + buckets f32, C paged
     int8, D paged bf16, then solo make_generate f32, bf16 and int8.
@@ -1633,10 +1986,12 @@ def phase_main_path(dev, card: str):
                         for kv_dtype in ("int8", "bf16"))
     print(f"[main] references (no-cache f32, plain int8 and bf16 cache "
           f"loops) in {time.perf_counter() - t0:.1f} s", flush=True)
+    a_info = {}
     runs = [
         serve_run("A", cfg, prepared, prompts, n_new, ref_f32,
                   [("cached_attention", "f32"),
-                   ("paged_decode_attention", "f32")], dev, card, kv="paged"),
+                   ("paged_decode_attention", "f32")], dev, card,
+                  info=a_info, kv="paged"),
         serve_run("B", cfg, prepared, prompts, n_new, ref_f32,
                   [("cached_attention", "f32"), ("decode_attention", "f32")],
                   dev, card, kv="dense", decode_buckets=True),
@@ -1651,6 +2006,7 @@ def phase_main_path(dev, card: str):
         phase_solo(cfg, prepared, prompts[3], n_new,
                    {"f32": ref_f32[3], "bf16": ref_bf16[3],
                     "int8": ref_i8[3]}, dev),
+        phase_serve(cfg, prepared, prompts, ref_f32, a_info, dev, card),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in ("f32", "bf16", "int8")}
@@ -1670,6 +2026,8 @@ def phase_bf16(dev, card, model="gpt2"):
          bf16 cache prefilled in 64-token chunks, its decode steps at the
          pool's 4 rows (reference_greedy_cache's step_rows), at
          BF16_TIE;
+      H-bf16 E with prefill_chunk_tokens=64 and overlap (the mixed step
+         a captured graph): its streams equal E's token for token;
       F  the same over an int8 pool: K5, K7 int8; against the loop over
          an int8 cache;
       B-bf16 the dense pool with decode buckets, bf16 KV: K5, K6, a
@@ -1678,7 +2036,8 @@ def phase_bf16(dev, card, model="gpt2"):
          K5 once a layer, K6 once a layer a token after the first;
       P-c-bf16 engine.generate, gpt2 in 4 parts, `"dtype": "bfloat16"`;
     then step_profile on E (one replayed step bit-equal to the eager
-    step), F and B-bf16. Returns the runs' launches with a bf16 q."""
+    step), mixed_profile on H-bf16, step_profile on F and B-bf16.
+    Returns the runs' launches with a bf16 q."""
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models.gpt import PRESETS, init
     from dnn_tpu_torch.ops.nn import mm_out_dtype
@@ -1722,10 +2081,13 @@ def phase_bf16(dev, card, model="gpt2"):
         return lambda steps: {("cached_attention", dt): L * chunks,
                               (decode, dt): L * steps}
 
-    runs = []
+    runs, e_info = [], {}
     for label, refs, dt, decode, kv in (
             ("E", ref_bf16, "bf16", "paged_decode_attention",
-             {"kv": "paged"}),
+             {"kv": "paged", "info": e_info}),
+            ("H-bf16", ref_bf16, "bf16", "paged_decode_attention",
+             {"kv": "paged", "same_as": e_info, "prefill_chunk_tokens": 64,
+              "overlap": True}),
             ("F", ref_i8, "int8", "paged_decode_attention",
              {"kv": "paged", "kv_dtype": "int8"}),
             ("B-bf16", ref_bf16, "bf16", "decode_attention",
@@ -1762,6 +2124,8 @@ def phase_bf16(dev, card, model="gpt2"):
     if dev.type == "cuda":
         step_profile("bf16", "E paged bf16", cfg, prepared, prompts, dev,
                      bit_check=True, kv="paged", compute_dtype=bf16)
+        mixed_profile("bf16", "H-bf16 paged bf16", cfg, prepared, prompts,
+                      dev, kv="paged", compute_dtype=bf16)
         step_profile("bf16", "F paged int8", cfg, prepared, prompts, dev,
                      kv="paged", kv_dtype="int8", compute_dtype=bf16)
         step_profile("bf16", "B-bf16 dense+buckets", cfg, prepared, prompts,
@@ -2915,10 +3279,11 @@ def phase_llama_bf16(dev, card, cfg=None):
     and a bf16 q once a layer a 64-token chunk, K7 at R = 4 once a layer
     a step, exactly; the streams against the plain bf16-compute loop
     over a bf16 cache prefilled in 64-token chunks, its decode steps at
-    the pool's 4 rows, at BF16_TIE. Then
+    the pool's 4 rows, at BF16_TIE; L-B-ilv the same with
+    prefill_chunk_tokens=64 and overlap, its streams equal to L-B's. Then
     step_profile (the decode step captured against eager, its device
     busy beside the byte bound of its weights, one replayed step
-    bit-equal to the eager step). Returns the run's bf16-q launches."""
+    bit-equal to the eager step). Returns the runs' bf16-q launches."""
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models import llama
     from dnn_tpu_torch.parallel.pipeline import sync
@@ -2956,13 +3321,22 @@ def phase_llama_bf16(dev, card, cfg=None):
           f"{min(min(g) for _, g in refs):.3e}", flush=True)
     loop_partings("[llama] L-B plain bf16 loops", prompts, refs, whole)
     chunks = sum(-(-len(p) // 64) for p in prompts)
-    counts = serve_run(
-        "L-B", cfg, prepared, prompts, LLAMA_NEW, refs,
-        [("cached_attention", "bf16"), ("paged_decode_attention", "bf16")],
-        dev, card, exact=lambda steps: {
-            ("cached_attention", "bf16"): L * chunks,
-            ("paged_decode_attention", "bf16"): L * steps},
-        tie=BF16_TIE, kv="paged", compute_dtype=bf16)
+    lb_info, counts = {}, {}
+    for label, kv in (("L-B", {"info": lb_info}),
+                      ("L-B-ilv", {"same_as": lb_info,
+                                   "prefill_chunk_tokens": 64,
+                                   "overlap": True})):
+        run = serve_run(
+            label, cfg, prepared, prompts, LLAMA_NEW, refs,
+            [("cached_attention", "bf16"),
+             ("paged_decode_attention", "bf16")],
+            dev, card, exact=lambda steps: {
+                ("cached_attention", "bf16"): L * chunks,
+                ("paged_decode_attention", "bf16"): L * steps},
+            tie=BF16_TIE, kv="paged", compute_dtype=bf16, **kv)
+        counts = {name: {dt: counts.get(name, {}).get(dt, 0) + n
+                         for dt, n in by.items()}
+                  for name, by in run.items()}
     if dev.type == "cuda":
         walls = step_profile("llama", "L-B paged bf16", cfg, prepared,
                              prompts, dev, bit_check=True, kv="paged",

@@ -585,15 +585,19 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype, device):
     return _init(cfg, batch, max_len, dtype, device)
 
 
-def _block_with_cache(bp, x, layer_cache, start_pos: int, *,
+def _block_with_cache(bp, x, layer_cache, start_pos, *,
                       cfg: LlamaConfig, codec, compute_dtype=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos +
     T): writes the rotated k (and v) into the KV-head cache, then
     attends it — K5 with grouped heads for a chunk, K6 with the group
-    folded into the rows for a one-token step (codec.attend)."""
+    folded into the rows for a one-token step (codec.attend).
+    `start_pos` is an int or a (1,) int32 device tensor
+    (kvcache.span_positions)."""
+    from dnn_tpu_torch.runtime.kvcache import span_positions
+
     h = _pre_normed(bp, x, cfg)
     q, k, v = _qkv(bp, h, cfg, compute_dtype)
-    rows = torch.arange(start_pos, start_pos + x.shape[1], device=x.device)
+    rows = span_positions(start_pos, x.shape[1], x.device)
     q, k = _rotated(q, k, *_rope_tables(cfg, rows), cfg)
     codec.write(layer_cache, k, v, start_pos)
     y = codec.attend(q, layer_cache, start_pos)
@@ -611,12 +615,13 @@ def _embedded(prepared, ids, cfg: LlamaConfig, compute_dtype):
 
 
 @torch.no_grad()
-def forward_with_cache(prepared, ids, cache, start_pos: int, *,
+def forward_with_cache(prepared, ids, cache, start_pos, *,
                        cfg: LlamaConfig, compute_dtype=None):
     """ids (B, T) at positions [start_pos, start_pos + T) -> f32 logits
     (B, T, V); the KV-head cache (float {"k","v"} or int8 with
     {"ks","vs"}, leaves (L, B, Hk, S[, D])) is written in place and
-    returned. `compute_dtype` (bf16 compute): the residual stream and
+    returned. `start_pos` is an int or a (1,) int32 device tensor (the
+    batcher's captured mixed step). `compute_dtype` (bf16 compute): the residual stream and
     the block products in it, norms and RoPE in f32, f32 logits."""
     from dnn_tpu_torch.runtime.kvcache import codec_for_cache
 
@@ -663,9 +668,10 @@ class LlamaFamilyRows:
     def init_cache(self, batch: int, max_len: int, dtype, device):
         return init_cache(self.cfg, batch, max_len, dtype, device)
 
-    def prefill(self, prepared, padded, row_cache, start_pos: int):
+    def prefill(self, prepared, padded, row_cache, start_pos):
         """One (1, P) prompt chunk at [start_pos, start_pos + P) ->
-        logits (1, P, V); row_cache is written in place (K5)."""
+        logits (1, P, V); row_cache is written in place (K5). `start_pos`
+        is an int or a (1,) int32 device tensor."""
         logits, _ = forward_with_cache(prepared, padded, row_cache,
                                        start_pos, cfg=self.cfg,
                                        compute_dtype=self.compute_dtype)

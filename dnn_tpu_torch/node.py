@@ -16,6 +16,7 @@
         --serve_lm [--slots 4] [--max_len 1024] [--prompt_pad 64] \\
         [--kv {paged,dense,auto}] [--kv_dtype {f32,bf16,int8}] \\
         [--decode_buckets] [--paged_blocks 0] [--block_len 16] \\
+        [--prefix_cache N] [--prefill_chunk_tokens N] [--overlap] \\
         [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
@@ -101,6 +102,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto sizes it to the dense pool's capacity)")
     p.add_argument("--block_len", type=int, default=16,
                    help="positions per paged-pool block")
+    p.add_argument("--prefix_cache", type=int, default=0,
+                   help="--serve_lm: prefix-cache capacity (dense pools: "
+                        "LRU entries, each one transient row; paged "
+                        "pools: resident blocks of the radix store); "
+                        "requests sharing a prompt prefix skip its "
+                        "chunks. 0 disables (default)")
+    p.add_argument("--prefill_chunk_tokens", type=int, default=0,
+                   metavar="N",
+                   help="--serve_lm: interleaved chunked prefill — fold "
+                        "one N-token chunk of an admitting prompt into "
+                        "each decode step (the mixed step) instead of "
+                        "prefilling the whole prompt at admission. 0 "
+                        "(default) keeps the convoy path")
+    p.add_argument("--overlap", action="store_true",
+                   help="--serve_lm: dispatch step N+1 before committing "
+                        "step N's tokens, so the host's bookkeeping runs "
+                        "under the device step (tokens surface one step "
+                        "later)")
     p.add_argument("--seed", type=int, default=0,
                    help="--generate: the sampling seed; --serve_lm: also "
                         "the seed of random weights")
@@ -279,6 +298,9 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             kv=args.kv, kv_dtype=args.kv_dtype,
             decode_buckets=args.decode_buckets,
             paged_blocks=args.paged_blocks, block_len=args.block_len,
+            prefix_cache=args.prefix_cache,
+            prefill_chunk_tokens=args.prefill_chunk_tokens,
+            overlap=args.overlap,
             compute_dtype=compute_dtype, seed=args.seed, device=device,
             tokenizer=tokenizer))
     except (NotImplementedError, ValueError) as e:

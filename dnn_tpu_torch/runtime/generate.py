@@ -36,6 +36,7 @@ from dnn_tpu_torch.runtime.kvcache import (
     Int8KV,
     band_keep,
     codec_for_cache,
+    span_positions,
 )
 
 _NEG_BIG = -1e30
@@ -72,10 +73,11 @@ def _mlp(bp, h, compute_dtype=None):
                   compute_dtype=compute_dtype)
 
 
-def _block_with_cache(bp, x, layer_cache, start_pos: int, *, cfg, codec,
+def _block_with_cache(bp, x, layer_cache, start_pos, *, cfg, codec,
                       compute_dtype=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos+T):
-    writes this layer's K/V, then attends everything cached so far."""
+    writes this layer's K/V, then attends everything cached so far.
+    `start_pos` is an int or a (1,) int32 device tensor (span_positions)."""
     h = layer_norm(bp["ln_1"], x, eps=cfg.ln_eps)
     q, k, v = _qkv_heads(bp, h, cfg=cfg, compute_dtype=compute_dtype)
     codec.write(layer_cache, k, v, start_pos)
@@ -86,21 +88,24 @@ def _block_with_cache(bp, x, layer_cache, start_pos: int, *, cfg, codec,
     return x + _mlp(bp, h, compute_dtype)
 
 
-def _embed_at(prepared, ids, start_pos: int, compute_dtype=None):
+def _embed_at(prepared, ids, start_pos, compute_dtype=None):
     """Token + position embedding at [start_pos, start_pos + T), in f32,
     then cast to `compute_dtype` (JAX's _embed_at)."""
-    pos = torch.arange(start_pos, start_pos + ids.shape[1], device=ids.device)
+    pos = span_positions(start_pos, ids.shape[1], ids.device)
     x = embedding(prepared["wte"], ids) + embedding(prepared["wpe"], pos)
     return x if compute_dtype is None else x.to(compute_dtype)
 
 
 @torch.no_grad()
-def forward_with_cache(prepared, ids, cache, start_pos: int, *,
+def forward_with_cache(prepared, ids, cache, start_pos, *,
                        cfg: GPTConfig, compute_dtype=None):
     """ids (B, T) at positions [start_pos, start_pos + T) -> logits
     (B, T, V) f32; the cache — float {"k","v"} or int8 {"k","v","ks",
     "vs"}, every leaf (L, B, H, S[, D]) — is updated in place and
-    returned. `compute_dtype` (bf16 compute, JAX's forward_with_cache):
+    returned. `start_pos` is an int, or a (1,) int32 device tensor that
+    a captured CUDA graph reads at each replay (the batcher's mixed
+    step): the same values either way, so the same bits.
+    `compute_dtype` (bf16 compute, JAX's forward_with_cache):
     the residual stream and every block product in that type, norms in
     f32, the head's product bf16 x bf16 -> f32 logits."""
     codec = codec_for_cache(cache)
@@ -150,8 +155,15 @@ def forward_no_cache(prepared, ids, *, cfg):
 
 
 def logit_bias_row(logit_bias, vocab_size: int, device):
-    """{token_id: additive bias} -> a dense (V,) f32 row (None -> None);
-    ids are checked against the vocabulary and values must be finite."""
+    """{token_id: additive bias} -> a dense (V,) f32 row on `device`
+    (None -> None); ids are checked against the vocabulary and values
+    must be finite."""
+    row = logit_bias_array(logit_bias, vocab_size)
+    return None if row is None else torch.from_numpy(row).to(device)
+
+
+def logit_bias_array(logit_bias, vocab_size: int):
+    """logit_bias_row's (V,) f32 row as a numpy array, or None."""
     if not logit_bias:
         return None
     row = np.zeros((vocab_size,), np.float32)
@@ -164,7 +176,7 @@ def logit_bias_row(logit_bias, vocab_size: int, device):
         if not np.isfinite(v):
             raise ValueError(f"logit_bias value for {t} not finite: {v}")
         row[t] = v
-    return torch.from_numpy(row).to(device)
+    return row
 
 
 def apply_repetition_penalty(logits, seen, penalty):
@@ -205,16 +217,21 @@ def _sample(logits, generator, *, temperature: float, top_k: Optional[int],
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def _sample_rows(logits, generators, *, temperature, top_k, top_p, min_p):
+def _sample_rows(logits, generators, *, temperature, top_k, top_p, min_p,
+                 rows):
     """Per-row sampling for the slot pool. logits (B, V) f32;
     generators: a list of B torch.Generators (None for greedy rows);
     temperature (B,) f32 (0 = greedy); top_k (B,) int (0 = off, capped
     at TOP_P_PREFILTER_K); top_p (B,) f32 (outside (0, 1) = off); min_p
-    (B,) f32 (outside (0, 1] = off). Returns (B,) int64 token ids."""
+    (B,) f32 (outside (0, 1] = off); `rows`, the host's list of the rows
+    that sample (temperature > 0): the batcher knows each slot's
+    temperature on the host, so no device value is read back here, and
+    a greedy pool (no rows) costs one argmax. Returns (B,) int64 token
+    ids, greedy for every row not in `rows`."""
     greedy = logits.argmax(dim=-1)
-    on = temperature > 0
-    if not bool(on.any()):
+    if not rows:
         return greedy
+    on = temperature > 0
     k_cap = min(TOP_P_PREFILTER_K, logits.shape[-1])
     safe_t = torch.where(on, temperature, torch.ones_like(temperature))
     lg = logits / safe_t[:, None]
@@ -237,10 +254,21 @@ def _sample_rows(logits, generators, *, temperature, top_k, top_p, min_p):
     p_on = (top_p > 0) & (top_p < 1.0)
     lg = torch.where(p_on[:, None] & (lg < thresh), _NEG_BIG, lg)
     out = greedy.clone()
-    for i in torch.nonzero(on).flatten().tolist():
+    for i in rows:
         probs_i = torch.softmax(lg[i], dim=-1)
         out[i] = torch.multinomial(probs_i, 1, generator=generators[i])[0]
     return out
+
+
+def logprob_outputs(logits, chosen, k: int):
+    """The logprob record of a step (JAX's _lp_outputs): the f32
+    log_softmax of the raw model logits (B, V) — before the repetition
+    penalty and the bias, the usual serving convention — at the chosen
+    ids (B,), and its top `k` (logprobs (B, k) f32, ids (B, k) int32)."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = lsm.gather(-1, chosen.long()[:, None])[:, 0]
+    top_lp, top_ids = torch.topk(lsm, k, dim=-1)
+    return chosen_lp, top_lp, top_ids.to(torch.int32)
 
 
 def check_compute_dtype(compute_dtype):

@@ -38,7 +38,7 @@ from dnn_tpu_torch.ops.cuda.cached_attention import (
 )
 
 __all__ = ["FloatKV", "Int8KV", "band_keep", "cache_shape",
-           "codec_for_cache"]
+           "codec_for_cache", "span_positions"]
 
 
 def band_keep(cols, limit, window):
@@ -63,13 +63,29 @@ def _quantize_rows(x):
     return q.to(torch.int8), scale
 
 
-def _write_span(c, new: dict, start_pos: int):
+def span_positions(start, t: int, device):
+    """The positions [start, start + t) as an int64 tensor. `start` is an
+    int, or a (1,) int32 device tensor: the base a captured CUDA graph
+    reads at each replay (the batcher's mixed step), so that no host
+    value is baked into the graph."""
+    if isinstance(start, torch.Tensor):
+        return start.long() + torch.arange(t, device=device)
+    return torch.arange(start, start + t, device=device)
+
+
+def _write_span(c, new: dict, start_pos):
     """new[name] (B, H, T[, D]) lands at positions [start_pos,
     start_pos + T) of every leaf, in place. The JAX codec's
     dynamic_update_slice clamps an overhanging write back onto real
-    positions; here it is an error."""
+    positions; here it is an error (for a device-tensor start, an index
+    error of index_copy_)."""
     t = next(iter(new.values())).shape[2]
     s_len = c["k"].shape[2]
+    if isinstance(start_pos, torch.Tensor):
+        idx = span_positions(start_pos, t, c["k"].device)
+        for name, val in new.items():
+            c[name].index_copy_(2, idx, val)
+        return
     if not 0 <= start_pos <= s_len - t:
         raise ValueError(f"write of {t} positions at {start_pos} "
                          f"overhangs a {s_len}-position cache")
@@ -101,15 +117,19 @@ def cache_shape(cfg, batch: int, max_len: int):
     return (cfg.n_layer, batch, heads, max_len, d)
 
 
-def _attend_from(q, c, base: int, **scales):
+def _attend_from(q, c, base, **scales):
     """q (B, H, T, D) at positions base + arange(T) against the whole
     cache of Hk = H / G heads, row t attending key positions <= base + t
     (the contiguous limit contract of the JAX codecs' `base=` path): a
     chunk runs K5 with grouped heads; a one-row step runs K6 with each
     group of G query heads folded into its KV head's rows (JAX's LLaMA
-    decode fold). Out in q's type."""
+    decode fold). `base` is an int or a (1,) int32 device tensor. Out in
+    q's type."""
     b, h, t, d = q.shape
-    pos = torch.full((b,), base, dtype=torch.int32, device=q.device)
+    if isinstance(base, torch.Tensor):
+        pos = base.to(torch.int32).expand(b).contiguous()
+    else:
+        pos = torch.full((b,), base, dtype=torch.int32, device=q.device)
     if t > 1:
         return cached_attention(q.contiguous(), c["k"], c["v"], pos, **scales)
     hk = c["k"].shape[1]
@@ -133,13 +153,14 @@ class FloatKV:
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
 
-    def write(self, c, k, v, start_pos: int):
+    def write(self, c, k, v, start_pos):
         """c: one layer's {"k","v"} (B, H, S, D); k/v (B, H, T, D) land at
-        positions [start_pos, start_pos + T), in place."""
+        positions [start_pos, start_pos + T), in place (`start_pos` an
+        int or a (1,) int32 device tensor)."""
         _write_span(c, {"k": k.to(c["k"].dtype), "v": v.to(c["v"].dtype)},
                     start_pos)
 
-    def attend(self, q, c, base: int):
+    def attend(self, q, c, base):
         """q (B, H, T, D) at positions base + arange(T) against a cache of
         H / G heads (see _attend_from). Returns (B, H, T, D) in the cache
         dtype."""
@@ -176,12 +197,12 @@ class Int8KV:
             "vs": torch.ones(shape[:-1], dtype=torch.float32, device=device),
         }
 
-    def write(self, c, k, v, start_pos: int):
+    def write(self, c, k, v, start_pos):
         kq, ks = _quantize_rows(k)
         vq, vs = _quantize_rows(v)
         _write_span(c, {"k": kq, "v": vq, "ks": ks, "vs": vs}, start_pos)
 
-    def attend(self, q, c, base: int):
+    def attend(self, q, c, base):
         """As FloatKV.attend, with the scales; returns q's type."""
         return _attend_from(q, c, base, ks=c["ks"], vs=c["vs"])
 

@@ -22,7 +22,15 @@ concurrent.futures.Future per request. A request the paged pool cannot
 take yet (InsufficientBlocks) is held back and retried ahead of the
 queue once blocks free.
 
-Left out of this slice (ROADMAP, "PyTorch/CUDA port" item 4): the
+The batcher's serving features ride the same worker: the daemon's
+batcher takes per-request logit biases (b=, allow_logit_bias, as JAX's
+node builds it), and `prefix_cache`, `prefill_chunk_tokens` and
+`overlap` pass through. Under interleaved admission a request's first
+token arrives with a later step's commit (a step may then commit two
+tokens of one request); under overlap the worker commits the trailing
+step when the pool empties (flush_overlap).
+
+Left out (ROADMAP, "PyTorch/CUDA port" items 4 d-e and 12): the
 observability endpoints, chaos injection, dedup and connection
 draining, the watchdog, KV handoff and the KV tier, and the embedding
 endpoint. Their request ids answer UNIMPLEMENTED.
@@ -74,9 +82,9 @@ def parse_gen_options(request_id: str, default_max_new: int):
     opts). Only the literal 'gen' prefix carries options; any other id
     gets the server defaults. Positional segments are max_new then
     seed; unparseable segments fall back to defaults; unknown named
-    segments (the JAX client's dl=/tr= tags) are skipped. The b/a/d/h/j
-    options parse as in the JAX daemon and are refused at admission
-    (not ported)."""
+    segments (the JAX client's dl=/tr= tags) are skipped. b= is the
+    logit bias ("tok~val,tok~val"); the a/d/h/j options parse as in the
+    JAX daemon and are refused at admission (not ported)."""
     max_new, seed, opts = default_max_new, None, {}
     parts = (request_id or "").split(":")
     if parts[0] != "gen":
@@ -193,12 +201,15 @@ class _BatcherWorker(threading.Thread):
             self._emit(rid, first)
         return True
 
-    def _emit(self, rid: int, tok: int):
+    def _emit(self, rid: int, tok):
+        """Stream a committed token — or a list of them: an interleaved
+        admission's deferred first token commits with the step's own."""
         item = self._futures.get(rid)
         if item is None or item.on_token is None:
             return
         try:
-            item.on_token(int(tok))
+            for t in (tok if isinstance(tok, list) else [tok]):
+                item.on_token(int(t))
         except Exception:  # noqa: BLE001 — a dead stream consumer must
             log.exception("on_token callback failed for rid %d", rid)
 
@@ -213,7 +224,7 @@ class _BatcherWorker(threading.Thread):
     def _publish_done(self):
         b = self.batcher
         for rid in [r for r in self._futures if r in b.results]:
-            tokens, _reason = b.claim(rid)
+            tokens, _reason, _logprobs = b.claim(rid)
             fut = self._futures.pop(rid).fut
             if not fut.done():
                 try:
@@ -243,6 +254,10 @@ class _BatcherWorker(threading.Thread):
             while not self._stop_evt.is_set():
                 self._process_cancels()
                 if b.n_active == 0 and self._held is None:
+                    # overlap: the pool emptied with one dispatched step
+                    # uncommitted (its rows are past every retirement);
+                    # commit it before waiting for work
+                    b.flush_overlap()
                     try:
                         item = self.q.get(timeout=0.05)
                     except queue.Empty:
@@ -277,8 +292,10 @@ class LMServer:
     "!stats", the pool's stats). Batcher keyword arguments pass through —
     the cache layout and storage (`kv` "paged"/"dense"/"auto", the
     default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
-    `block_len`) and `compute_dtype` (torch.bfloat16: bf16 compute, the
-    cache bf16 unless `kv_dtype` says otherwise) among them; `device`
+    `block_len`), `compute_dtype` (torch.bfloat16: bf16 compute, the
+    cache bf16 unless `kv_dtype` says otherwise), `prefix_cache`,
+    `prefill_chunk_tokens` and `overlap` among them; the batcher takes
+    logit biases (allow_logit_bias) unless told otherwise. `device`
     defaults to "cuda" and raises without a card. A LlamaConfig serves
     through LlamaFamilyRows(cfg) unless `family` is given
     (serving.default_family)."""
@@ -287,6 +304,9 @@ class LMServer:
                  request_timeout: float = 120.0, tokenizer=None,
                  **batcher_kwargs):
         native.load()  # the checksum library, built before serving
+        # the daemon's clients choose options per request (b=), as the
+        # JAX node builds its batcher
+        batcher_kwargs.setdefault("allow_logit_bias", True)
         self.batcher = ContinuousBatcher(cfg, prepared, **batcher_kwargs)
         self.default_max_new = default_max_new
         self.request_timeout = request_timeout
@@ -465,7 +485,8 @@ async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
     """Start the LM daemon and block until termination (SIGTERM stops it
     cleanly, rc 0). `server_kwargs` go to LMServer (tokenizer,
     default_max_new, ...) and on to the batcher (kv, kv_dtype,
-    compute_dtype, decode_buckets, paged_blocks, ...)."""
+    compute_dtype, decode_buckets, paged_blocks, prefix_cache,
+    prefill_chunk_tokens, overlap, ...)."""
     servicer, server = await _start(cfg, prepared, port, server_kwargs)
     log.info("gRPC LM server listening on [::]:%d (%d slots, %s)", port,
              servicer.batcher.slots, servicer.batcher.device)

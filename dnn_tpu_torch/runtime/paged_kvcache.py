@@ -179,13 +179,41 @@ class PagedKV:
                                      c["tables"], pos)
         return out.to(c["v"].dtype)
 
+    def gather_row(self, cache, row, blk_ids):
+        """Rebuild a transient row cache from pool blocks, in place (JAX's
+        serving gather_row): the first nb_max * block_len positions of
+        every leaf of `row` ((L, 1, H, row_len[, D]), K/V and int8 scales
+        alike) take the blocks `blk_ids` (nb_max,) in order. The radix
+        prefix hit's resume: later chunks attend the shared prefix
+        through this row; positions past it are overwritten by those
+        chunks before anything attends them."""
+        idx = blk_ids.long()
+        for kk, leaf in cache.items():
+            if kk == "tables":
+                continue
+            g = leaf[:, idx]  # (L, nb_max, H, bp[, D])
+            n_l, nb, h, bl = g.shape[:4]
+            row[kk][:, 0, :, :nb * bl] = g.transpose(1, 2).reshape(
+                n_l, h, nb * bl, *g.shape[4:])
+
+    @staticmethod
+    def copy_block(cache, src: int, dst: int):
+        """The copy-on-write of one physical block: every leaf's block
+        `src` (K/V and, on an int8 pool, the scales) copied to `dst`, in
+        place (JAX's cow_copy)."""
+        for kk, leaf in cache.items():
+            if kk != "tables":
+                leaf[:, dst] = leaf[:, src]
+
     def install_row(self, cache, row, blk_ids):
         """Scatter a finished transient row cache (leaves (L, 1, H,
         row_len[, D]) — K/V and int8 scales alike) into the physical
         blocks `blk_ids` (nb_max,). ALL nb_max logical blocks install
-        unconditionally: entries the request does not own are routed to
-        junk block 0 (duplicate targets there, never on a live block),
-        so one code path serves every prompt length."""
+        unconditionally: entries the request does not own — past its
+        length, and the shared prefix blocks of a radix hit, which other
+        requests attend — are routed to junk block 0 by the caller
+        (duplicate targets there, never on a live block), so one code
+        path serves every prompt length."""
         bp = self.block_len
         nb_max = blk_ids.shape[0]
         idx = blk_ids.long()

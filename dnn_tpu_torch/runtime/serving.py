@@ -30,38 +30,72 @@ decode steps fold each query group into the rows of its KV head (K6 /
 K7 at G rows). Either pool is sized at the model's KV heads
 (`kvcache.cache_shape`).
 
-A request enters by `submit`: its prompt prefills in `prompt_pad`-sized
-chunks (full chunks plus one right-padded tail) into a transient dense
-row cache of the pool's dtype (K5), the first token is sampled from the
-true last prompt row, and the row installs into the request's pool
-blocks or dense slot. Every `step` then advances all active slots one
-token; requests retire on eos, a stop sequence or their token budget,
-independently of each other.
+A request enters by `submit`. On the convoy path (the default) its
+prompt prefills in `prompt_pad`-sized chunks (full chunks plus one
+right-padded tail) into a transient dense row cache of the pool's dtype
+(K5), the first token is sampled from the true last prompt row, and the
+row installs into the request's pool blocks or dense slot. Every `step`
+then advances all active slots one token; requests retire on eos, a stop
+sequence or their token budget, independently of each other.
+
+The JAX batcher's serving features of ROADMAP item 4 b-c:
+  * `allow_logit_bias` / `submit(logit_bias=)`: a per-slot (B, V) bias
+    added after the repetition penalty, in the step and in the
+    first-token finish; `logprobs_k` / `submit(logprobs=True)`: the
+    chosen token's logprob and the top k of the raw model logits per
+    token, first token included, in `token_logprobs[rid]`;
+  * `prefix_cache=N`: on a dense pool the exact-prefix LRU of row copies
+    at full-chunk boundaries; on a paged pool the radix store
+    (dnn_tpu_torch/kvtier) — shared blocks by reference, the boundary
+    block copied on write, the chunk loop resumed at the first uncached
+    position (mid-block: K5 at an unaligned base), insertion at
+    admission and at retirement;
+  * `prefill_chunk_tokens=N`: interleaved admission — `submit` only
+    validates, allocates and queues; each step then runs the MIXED step,
+    the decode leg exactly as the plain step plus one N-token chunk of
+    the queue head's prompt, and the chunk that ends the prompt runs
+    the fused finish (install, first token with the request's own
+    parameters, the slot's state) with the first token read back at the
+    next commit;
+  * `overlap=True`: `step` dispatches step N and then commits step N-1,
+    so the host's bookkeeping of N-1 runs while the card computes N;
+    `flush_overlap`/`drain` commit the trailing step. A slot that
+    retires at a commit has run one more masked step, whose row the
+    commit discards.
 
 On the card a step's forward (`family.decode_rows` over every slot of
-the pool, inactive ones writing to the junk block) is one captured CUDA
-graph (`CapturedDecode`), the port's form of JAX's jitted decode step:
-captured after one eager step, replayed with the slots' tokens,
-positions and active flags copied into its static device buffers, and
-captured again when the cache tensors are replaced (a bucket grow), as
-JAX recompiles per bucket. Sampling and the repetition penalty run
-eagerly after it. A failed capture or replay raises; the step never
-falls back to eager. On the CPU the step is eager.
+the pool, inactive ones writing to the junk block — and for a mixed step
+also `family.prefill` of the chunk into the transient row) is one
+captured CUDA graph (`CapturedDecode`), the port's form of JAX's jitted
+decode and mixed steps: captured after one eager run, replayed over
+static device buffers (the slots' tokens, positions and active flags;
+the chunk's ids and its start position), and captured again when the
+cache tensors are replaced (a bucket grow), as JAX recompiles per
+bucket. Sampling, the penalty, the bias and the logprobs run eagerly
+after it. A failed capture or replay raises; the step never falls back
+to eager. On the CPU the step is eager. The slots' state lives on the
+device, updated there by each step, with host mirrors for bookkeeping:
+a greedy step reads nothing back before its tokens, and those come
+through pinned memory after a CUDA event, so under overlap the host
+never waits on the step it has just dispatched.
 
 Against the JAX batcher:
   * the cache is updated IN PLACE (torch has no donation — where the
     JAX batcher donates its cache and per-slot state to each jitted
     program and reassigns the outputs, the port writes into the same
     tensors);
-  * the layer loop and the slot bookkeeping are plain Python; the
-    per-slot vectors live on the host and go to the device each step
-    (on the card, into the captured graph's static buffers);
+  * the layer loop and the slot bookkeeping are plain Python;
+  * one transient row serves every admission (JAX builds one a
+    request): only the queue head folds chunks, and it finishes before
+    the next begins; positions an earlier prompt left behind lie past
+    every later query's limit and are overwritten before decode attends
+    them;
   * sampled requests draw from a per-request torch.Generator seeded from
     (server seed, request id or seed), so a sampled stream matches the
-    JAX package's only in distribution; greedy streams are identical.
-  * the prefix cache, interleaved prefill/overlap, constraints, LoRA,
-    logprobs, logit bias and int4 KV raise NotImplementedError (ROADMAP,
-    "PyTorch/CUDA port").
+    JAX package's only in distribution; greedy streams are identical;
+  * constraints, LoRA, speculative serving, the KV handoff and the fleet
+    KV tier (item 4 d-e), the observability gauges (item 12) and int4 KV
+    (item 2) raise NotImplementedError (ROADMAP, "PyTorch/CUDA port").
 
 The server runs on CUDA unless constructed with device="cpu"; without a
 card the default raises. TF32 is switched off for the matmuls: the JAX
@@ -71,6 +105,7 @@ reference computes in f32.
 from __future__ import annotations
 
 import logging
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -100,6 +135,8 @@ from dnn_tpu_torch.runtime.generate import (
     check_compute_dtype,
     forward_with_cache,
     init_cache,
+    logit_bias_array,
+    logprob_outputs,
 )
 from dnn_tpu_torch.runtime.kvcache import codec_for_cache
 from dnn_tpu_torch.runtime.paged_kvcache import (
@@ -115,23 +152,16 @@ log = logging.getLogger("dnn_tpu_torch.serving")
 # waits on. Passing one at its "off" value is accepted (it changes
 # nothing); any other value raises NotImplementedError.
 _UNPORTED = {
-    "prefix_cache": "item 4 (prefix cache)",
-    "prefill_chunk_tokens": "item 4 (interleaved prefill)",
-    "overlap": "item 4 (overlap)",
-    "allow_constraints": "item 4 (constraints)",
-    "allow_logit_bias": "item 4 (logit bias)",
-    "lora_adapters": "item 4 (LoRA)",
-    "logprobs_k": "item 4 (logprobs)",
+    "allow_constraints": "item 4 d (constraints)",
+    "lora_adapters": "item 4 d (LoRA)",
     "ffn": "item 7 (other model families)",
 }
 _UNPORTED_SUBMIT = {
-    "logit_bias": "item 4 (logit bias)",
-    "adapter": "item 4 (LoRA)",
-    "constraint": "item 4 (constraints)",
-    "logprobs": "item 4 (logprobs)",
-    "prefilled": "item 4 (KV handoff)",
-    "kv_handle": "item 4 (KV handoff)",
-    "json_depth": "item 4 (constraints)",
+    "adapter": "item 4 d (LoRA)",
+    "constraint": "item 4 d (constraints)",
+    "prefilled": "item 4 e (KV handoff)",
+    "kv_handle": "item 4 e (KV handoff)",
+    "json_depth": "item 4 d (constraints)",
 }
 
 
@@ -173,9 +203,10 @@ class GPTFamilyRows:
     def init_cache(self, batch: int, max_len: int, dtype, device):
         return init_cache(self.cfg, batch, max_len, dtype, device)
 
-    def prefill(self, prepared, padded, row_cache, start_pos: int):
+    def prefill(self, prepared, padded, row_cache, start_pos):
         """One (1, P) prompt chunk at [start_pos, start_pos + P) ->
-        logits (1, P, V); row_cache is written in place."""
+        logits (1, P, V); row_cache is written in place. `start_pos` is
+        an int or a (1,) int32 device tensor (the captured mixed step)."""
         logits, _ = forward_with_cache(prepared, padded, row_cache,
                                        start_pos, cfg=self.cfg,
                                        compute_dtype=self.compute_dtype)
@@ -219,6 +250,8 @@ def default_family(cfg, compute_dtype=None):
     return GPTFamilyRows(cfg, compute_dtype=compute_dtype)
 
 
+
+
 def capture_cuda_graph(fn):
     """fn() captured into one CUDA graph on the current device: returns
     (graph, fn's output -- the graph's static output, rewritten by every
@@ -234,49 +267,123 @@ def capture_cuda_graph(fn):
 
 
 class CapturedDecode:
-    """A batcher's decode step as one captured CUDA graph. The slots'
-    tokens, positions and active flags live in static device buffers
-    (`tok`, `pos`, `active`), refilled with copy_ every step. The first
-    call, and the first after the cache dict is replaced (a bucket grow
-    hands the batcher a new one), runs the step eagerly -- which also
-    loads each kernel library and sets each kernel's launch attributes,
-    host work a capture must not see -- and then captures it; every other
-    call replays the graph and counts the kernel launches the capture
-    recorded (LaunchLog.replayed), so the wrappers' counters keep
-    counting launches. The graph holds the cache it was captured over
-    until it is recaptured. `capture` is `capture_cuda_graph` (a test
-    may pass a stand-in with the same contract)."""
+    """A batcher's step forwards as captured CUDA graphs: the decode step
+    (`__call__`) and the mixed step (`mixed`: the decode leg plus one
+    prompt chunk into the transient row), one graph each. They read the
+    static device buffers `tok`, `pos`, `active` and, for the mixed step,
+    `chunk` (the chunk's ids) and `start` (its first position), which a
+    call refills with copy_ from the tensors or host arrays it is given
+    (nothing is copied when it is given the buffers themselves, as the
+    batcher that built it does). The first call of a kind, and the first
+    after the cache dict (or the row) it was captured over is replaced (a
+    bucket grow hands the batcher a new cache), runs the step eagerly --
+    which also loads each kernel library and sets each kernel's launch
+    attributes, host work a capture must not see -- and then captures
+    it; every other call replays the graph and counts the kernel
+    launches the capture recorded (LaunchLog.replayed), so the wrappers'
+    counters keep counting launches. A graph holds the tensors it was
+    captured over until it is recaptured; a capture over a new cache
+    drops every graph over the old one. `capture` is `capture_cuda_graph`
+    (a test may pass a stand-in with the same contract)."""
 
-    def __init__(self, slots: int, device, capture=capture_cuda_graph):
+    def __init__(self, slots: int, device, capture=capture_cuda_graph,
+                 chunk_tokens: int = 0):
         self.tok = torch.zeros((slots,), dtype=torch.int64, device=device)
         self.pos = torch.zeros((slots,), dtype=torch.int32, device=device)
         self.active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        self.chunk = (torch.zeros((1, chunk_tokens), dtype=torch.int64,
+                                  device=device) if chunk_tokens else None)
+        self.start = torch.zeros((1,), dtype=torch.int32, device=device)
         self._capture = capture
-        self._graph = self._logits = self._log = self._cache = None
-        self.captures = 0
-        self.replays = 0
+        self._graphs: dict = {}  # kind -> (graph, output, LaunchLog, key)
+        self.counts = {"decode": [0, 0], "mixed": [0, 0]}  # captures, replays
+
+    captures = property(lambda self: sum(c[0] for c in self.counts.values()))
+    replays = property(lambda self: sum(c[1] for c in self.counts.values()))
+
+    @staticmethod
+    def _load(buf, src):
+        if src is not buf:
+            buf.copy_(torch.from_numpy(src) if isinstance(src, np.ndarray)
+                      else src)
 
     def __call__(self, decode, cache, tok, pos, active):
         """decode(cache, tok, pos, active) -> logits (B, V), run on the
-        static buffers after copying the host arrays tok/pos/active
-        into them. Returns the logits: the graph's static output on a
-        replay, valid until the next call."""
-        self.tok.copy_(torch.from_numpy(tok))
-        self.pos.copy_(torch.from_numpy(pos))
-        self.active.copy_(torch.from_numpy(active))
-        if self._graph is None or self._cache is not cache:
-            logits = decode(cache, self.tok, self.pos, self.active)
-            # the old graph and its memory pool go before the new capture
-            self._graph = self._logits = self._log = self._cache = None
-            self._graph, self._logits, self._log = self._capture(
-                lambda: decode(cache, self.tok, self.pos, self.active))
-            self._cache = cache
-            self.captures += 1
-            return logits
-        self._graph.replay()
-        self._log.replayed()
-        self.replays += 1
-        return self._logits
+        static buffers after loading tok/pos/active into them. Returns the
+        logits: the graph's static output on a replay, valid until the
+        next call."""
+        for buf, src in ((self.tok, tok), (self.pos, pos),
+                         (self.active, active)):
+            self._load(buf, src)
+        return self._run("decode", lambda: decode(
+            cache, self.tok, self.pos, self.active), (cache,))
+
+    def mixed(self, mixed, cache, row, tok, pos, active, chunk, start):
+        """mixed(cache, tok, pos, active, row, chunk, start) -> (logits
+        (B, V), the chunk's logits (1, N, V)), run on the static buffers
+        after loading the inputs into them; as __call__."""
+        if self.chunk is None:
+            self.chunk = torch.zeros_like(chunk)
+        for buf, src in ((self.tok, tok), (self.pos, pos),
+                         (self.active, active), (self.chunk, chunk),
+                         (self.start, start)):
+            self._load(buf, src)
+        return self._run("mixed", lambda: mixed(
+            cache, self.tok, self.pos, self.active, row, self.chunk,
+            self.start), (cache, row))
+
+    def _run(self, kind, fn, key):
+        g = self._graphs.get(kind)
+        if g is None or any(a is not b for a, b in zip(g[3], key)):
+            out = fn()
+            # the graphs over an old cache, and their memory pools, go
+            # before the new capture
+            for k in [k for k, v in self._graphs.items()
+                      if k == kind or v[3][0] is not key[0]]:
+                del self._graphs[k]
+            graph, static, log = self._capture(fn)
+            self._graphs[kind] = (graph, static, log, key)
+            self.counts[kind][0] += 1
+            return out
+        graph, static, log, _ = g
+        graph.replay()
+        log.replayed()
+        self.counts[kind][1] += 1
+        return static
+
+    def _part(self, i):
+        g = self._graphs.get("decode")
+        return None if g is None else g[i]
+
+    # the decode graph's parts, by the names the card tests read
+    _graph = property(lambda self: self._part(0))
+    _logits = property(lambda self: self._part(1))
+    _log = property(lambda self: self._part(2))
+    _cache = property(lambda self: (self._part(3) or (None,))[0])
+
+
+class _Readback:
+    """Device tensors copied to the host without blocking the host: into
+    pinned buffers, non_blocking, behind a CUDA event that `wait` waits
+    on (the CPU copies at once). The commit of a step reads its tokens
+    through this, so the host never waits on work it dispatched later."""
+
+    def __init__(self, tensors):
+        if tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                          for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = [t.clone() for t in tensors]
+            self._event = None
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
 
 
 class ContinuousBatcher:
@@ -300,6 +407,9 @@ class ContinuousBatcher:
                  kv_dtype=None, kv: Optional[str] = "auto",
                  paged_blocks: int = 0, block_len: int = 16,
                  decode_buckets=False, family=None, compute_dtype=None,
+                 prefix_cache: int = 0, logprobs_k: int = 0,
+                 allow_logit_bias: bool = False,
+                 prefill_chunk_tokens: int = 0, overlap: bool = False,
                  device=None, **unported):
         compute_dtype = check_compute_dtype(compute_dtype)
         if family is not None:
@@ -343,6 +453,12 @@ class ContinuousBatcher:
         self._default_minp = float(min_p) if min_p else 0.0
         self._default_rep = (float(repetition_penalty)
                              if repetition_penalty else 1.0)
+        # logprobs_k > 0: every step (and first-token finish) also yields
+        # the chosen token's logprob and the top k — a construction-time
+        # choice, as in JAX
+        self._logprobs_k = int(logprobs_k)
+        if self._logprobs_k < 0:
+            raise ValueError(f"logprobs_k must be >= 0, got {logprobs_k}")
         self._cache_dtype = _cache_dtype(kv_dtype if kv_dtype is not None
                                          else compute_dtype)
 
@@ -371,43 +487,119 @@ class ContinuousBatcher:
             self.cache = self.family.init_cache(
                 slots, self._cache_len, self._cache_dtype, self.device)
             self._codec = codec_for_cache(self.cache)
+
+        # prefix cache (`prefix_cache` = capacity; 0 disables), by layout
+        # as in JAX: a dense pool keeps the exact-prefix LRU (keys: the
+        # int32 bytes of the adapter id 0 and of the prompt at each
+        # completed full-chunk boundary; values: copies of the transient
+        # row and of that chunk's last logit row); a paged pool the radix
+        # store, whose capacity counts resident blocks
+        self._prefix_cache: Optional[OrderedDict] = None
+        self._prefix_store = None
+        if prefix_cache < 0:
+            raise ValueError(f"prefix_cache must be >= 0, got {prefix_cache}")
+        if prefix_cache:
+            if self.paged:
+                from dnn_tpu_torch.kvtier import PrefixStore
+
+                self._prefix_store = PrefixStore(self.allocator, block_len,
+                                                 prefix_cache)
+            else:
+                self._prefix_cache = OrderedDict()
+        self._prefix_cap = int(prefix_cache)
+        self.prefix_hits = 0       # lookups that reused >= 1 chunk/block
+        self.prefix_misses = 0     # lookups that reused nothing
+        self.prefix_evictions = 0
+        self.prefill_chunks_run = 0  # prompt chunks actually computed
+
+        # interleaved admission (JAX serving.py:1006-1035): the mixed
+        # step folds one `prefill_chunk_tokens` chunk of the queue head's
+        # prompt into each step
+        self._ilv = int(prefill_chunk_tokens or 0)
+        if self._ilv < 0:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 0, got "
+                f"{prefill_chunk_tokens}")
+        if self._ilv:
+            if self._ilv > self.max_len:
+                raise ValueError(
+                    f"prefill_chunk_tokens {self._ilv} exceeds max_len "
+                    f"{self.max_len} — a chunk wider than the pool can "
+                    "never install")
+            if self.paged and self._ilv % block_len:
+                raise ValueError(
+                    f"prefill_chunk_tokens {self._ilv} must tile "
+                    f"block_len {block_len} (prefill rows install whole "
+                    "blocks)")
+            if prefix_cache:
+                raise ValueError(
+                    "prefill_chunk_tokens does not compose with the "
+                    "prefix cache (its lookup, copy-on-write and insert "
+                    "live on the convoy admission path) — prefix-heavy "
+                    "workloads keep convoy admission")
+        self._overlap = bool(overlap)
+        self._pending_q: List[int] = []  # slots awaiting interleaved
+        # prefill, FIFO (one chunk folds per step)
+        self._inflight = None  # overlap: (step index, _Readback) of the
+        # dispatched, not yet committed step
+        self._step_idx = 0  # counts dispatches; a slot's decode tokens
+        # exist only in steps dispatched after its install
+
         # No donation in torch: where the JAX batcher donates the pool
         # cache, the transient row and the per-slot state to its jitted
-        # programs and reassigns their outputs, the port updates
-        # self.cache and self._row IN PLACE (write_rows, install_row,
-        # install_dense_row, the codecs' write) and keeps the per-slot
-        # vectors on the host. A bucket grow is the one exception: it
-        # replaces self.cache with a longer copy.
-        # The transient prefill row rounds max_len UP to whole chunks, so
-        # a tail chunk's write never overhangs it. One buffer serves every
+        # programs and reassigns their outputs, the port updates them IN
+        # PLACE. A bucket grow is the one exception: it replaces
+        # self.cache with a longer copy.
+        # The transient prefill row rounds max_len UP to whole chunks of
+        # the admission width (prompt_pad, or prefill_chunk_tokens), so a
+        # tail chunk's write never overhangs it. One buffer serves every
         # admission: positions a chunk attends were all written by the
         # same prompt, and later positions are never read.
-        self._row_len = -(-self.max_len // self.prompt_pad) * self.prompt_pad
+        width = self._ilv or self.prompt_pad
+        self._row_len = -(-self.max_len // width) * width
         self._row = self.family.init_cache(1, self._row_len,
                                            self._cache_dtype, self.device)
 
-        # per-slot state, host side; uploaded to the device each step
+        dev, v = self.device, cfg.vocab_size
+        # the step forwards' CUDA graphs (the CPU steps eagerly); their
+        # static buffers ARE the slots' device state below
+        self._graph_step = (CapturedDecode(slots, dev, chunk_tokens=self._ilv)
+                            if dev.type == "cuda" else None)
+        g = self._graph_step
+        # per-slot state on the device, updated there by every step (the
+        # tokens a step samples feed the next without a trip through the
+        # host), with host mirrors for the bookkeeping
+        self._tok_d = g.tok if g else torch.zeros((slots,), dtype=torch.int64)
+        self._pos_d = g.pos if g else torch.zeros((slots,), dtype=torch.int32)
+        self._active_d = (g.active if g else
+                          torch.zeros((slots,), dtype=torch.bool))
+        self._chunk_d = g.chunk if g else (
+            torch.zeros((1, self._ilv), dtype=torch.int64)
+            if self._ilv else None)
+        self._start_d = g.start if g else torch.zeros((1,), dtype=torch.int32)
+        self._temp_d = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._topk_d = torch.zeros((slots,), dtype=torch.int64, device=dev)
+        self._topp_d = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._minp_d = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._rep_d = torch.ones((slots,), dtype=torch.float32, device=dev)
+        self._slot_ids = torch.arange(slots, device=dev)
+        # per-slot vocabulary seen-mask for the repetition penalty
+        self._seen = torch.zeros((slots, v), dtype=torch.bool, device=dev)
+        # per-slot additive logit bias: the (B, V) buffer exists only
+        # when allowed (a construction-time capability, as in JAX)
+        self._bias = (torch.zeros((slots, v), dtype=torch.float32, device=dev)
+                      if allow_logit_bias else None)
         self.pos = np.zeros((slots,), np.int32)    # next write position
-        self.tok = np.zeros((slots,), np.int64)    # last sampled token
+        self.tok = np.zeros((slots,), np.int64)    # last committed token
         self.active = np.zeros((slots,), bool)
         self._temp = np.zeros((slots,), np.float32)
-        self._topk = np.zeros((slots,), np.int64)
-        self._topp = np.zeros((slots,), np.float32)
-        self._minp = np.zeros((slots,), np.float32)
-        self._rep = np.ones((slots,), np.float32)
         self._gens: List[Optional[torch.Generator]] = [None] * slots
-        # per-slot vocabulary seen-mask for the repetition penalty
-        self._seen = torch.zeros((slots, cfg.vocab_size), dtype=torch.bool,
-                                 device=self.device)
-
-        # the decode step's CUDA graph (the CPU steps eagerly)
-        self._graph_step = (CapturedDecode(slots, self.device)
-                            if self.device.type == "cuda" else None)
 
         self._next_rid = 0
         self._slot_req: List[Optional[dict]] = [None] * slots
         self.results: Dict[int, np.ndarray] = {}
         self.finish_reasons: Dict[int, str] = {}
+        self.token_logprobs: Dict[int, dict] = {}
 
     def _choose_layout(self, kv, paged_blocks: int, block_len: int,
                        decode_buckets):
@@ -481,7 +673,14 @@ class ContinuousBatcher:
         return g
 
     def _upload(self, arr, dtype):
-        return torch.from_numpy(arr).to(device=self.device, dtype=dtype)
+        """A host array on the device without waiting on queued device
+        work: through pinned memory, non_blocking, on the card (an
+        ordinary host-to-device copy waits for the stream, which under
+        overlap holds the step just dispatched); a copy on the CPU."""
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
 
     def submit(self, prompt, max_new_tokens: int,
                seed: Optional[int] = None, *,
@@ -490,15 +689,22 @@ class ContinuousBatcher:
                top_p: Optional[float] = None,
                min_p: Optional[float] = None,
                repetition_penalty: Optional[float] = None,
-               stop: Optional[list] = None, **unported) -> int:
-        """Prefill `prompt` (1-D int ids) into a free slot; returns the
-        request id. The first token is sampled during prefill and counts
-        toward max_new_tokens. `seed` names the request's rng stream
-        (default: its request id). Per-request options default to the
-        constructor's; `stop` is a list of token-id sequences that end
-        generation (the match is not returned). Raises RuntimeError
-        without a free slot and, on the paged pool, InsufficientBlocks
-        while it lacks blocks for prompt + budget."""
+               logit_bias: Optional[dict] = None,
+               stop: Optional[list] = None, logprobs: bool = False,
+               **unported) -> int:
+        """Admit `prompt` (1-D int ids) into a free slot; returns the
+        request id. The first token is sampled at the end of the prefill
+        and counts toward max_new_tokens. `seed` names the request's rng
+        stream (default: its request id). Per-request options default to
+        the constructor's; `stop` is a list of token-id sequences that
+        end generation (the match is not returned); `logit_bias`
+        ({token_id: additive bias}, binding for greedy rows too) needs
+        allow_logit_bias=True, `logprobs=True` logprobs_k > 0. Convoy
+        admission prefills here; interleaved admission
+        (prefill_chunk_tokens) only queues the prompt, whose chunks the
+        following steps fold in. Raises RuntimeError without a free slot
+        and, on the paged pool, InsufficientBlocks while it lacks blocks
+        for prompt + budget (after evicting what the prefix store can)."""
         _reject_unported(_UNPORTED_SUBMIT, unported, zero_is_off=False)
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) == 0:
@@ -528,6 +734,15 @@ class ContinuousBatcher:
             raise ValueError(f"min_p must be in [0, 1], got {mp}")
         if rp <= 0:
             raise ValueError(f"repetition_penalty must be > 0, got {rp}")
+        if logit_bias and self._bias is None:
+            raise ValueError(
+                "logit_bias requires allow_logit_bias=True at construction "
+                "(the per-slot bias buffer is a construction-time choice)")
+        b_np = logit_bias_array(logit_bias, self.cfg.vocab_size)
+        if logprobs and not self._logprobs_k:
+            raise ValueError(
+                "logprobs requested but the server was constructed with "
+                "logprobs_k=0")
         tk = min(tk, TOP_P_PREFILTER_K)
         stop_seqs = []
         for s in (stop or []):
@@ -540,100 +755,339 @@ class ContinuousBatcher:
         except ValueError:
             raise RuntimeError("no free slot; call step()/drain() first") from None
 
-        taken = []
+        # the radix store's longest cached prefix (host lookup)
+        kv_hit = (self._prefix_store.lookup(prompt)
+                  if self._prefix_store is not None else None)
+        taken, n_shared, cow_tok, install_ids = [], 0, 0, None
         if self.paged:
-            # admission by ACTUAL length: the request holds
-            # ceil((prompt + budget) / block_len) blocks for its lifetime
-            bp = self._block_len
-            n_need = -(-(len(prompt) + max_new_tokens) // bp)
-            if n_need > self.allocator.n_blocks - 1:
-                raise ValueError(
-                    f"request needs {n_need} blocks but the pool only has "
-                    f"{self.allocator.n_blocks - 1} allocatable")
-            taken = self.allocator.alloc(n_need)
-            if taken is None:
-                raise InsufficientBlocks(
-                    f"insufficient free cache blocks: need {n_need}, have "
-                    f"{self.allocator.n_free} (pool "
-                    f"{self.allocator.n_blocks}, block {bp} pos)")
+            taken, n_shared, cow_tok = self._alloc_blocks(
+                slot, prompt, max_new_tokens, kv_hit)
         try:
-            return self._admit(slot, prompt, max_new_tokens, seed, taken,
-                               temp, tk, tp, mp, rp, stop_seqs)
+            if self.paged:
+                inst = np.zeros((self.cache["tables"].shape[-1],), np.int32)
+                inst[:len(taken)] = taken
+                inst[:n_shared] = 0  # the shared prefix is not the request's
+                install_ids = self._upload(inst, torch.int32)
+            if self._buckets is not None:
+                # the installed prompt must fit the pool AND the first
+                # decode write (at position len(prompt)) must have a column
+                self._ensure_cache_len(len(prompt) + 1)
+            rid = self._next_rid
+            self._next_rid += 1
+            req = {"rid": rid, "emitted": [], "budget": max_new_tokens,
+                   "stop": stop_seqs, "blocks": taken,
+                   "prompt_len": len(prompt),
+                   "logprobs": bool(logprobs and self._logprobs_k)}
+            if req["logprobs"]:
+                req["lp"], req["lp_top"] = [], []
+            par = {"gen": self._generator(rid, seed) if temp > 0 else None,
+                   "t": temp, "k": tk, "p": tp, "mp": mp, "rp": rp,
+                   "seen_row": self._seen_row(prompt),
+                   "b_row": (None if b_np is None or self._bias is None
+                             else self._upload(b_np, torch.float32)),
+                   "install_ids": install_ids}
+            if self._ilv:
+                # interleaved admission: no device work beyond the uploads
+                # above; the chunks fold into the next steps (_ilv_next)
+                p_c = self._ilv
+                n_c = -(-len(prompt) // p_c)
+                padded = np.zeros((1, n_c * p_c), np.int64)
+                padded[0, :len(prompt)] = prompt
+                par.update(padded=self._upload(padded, torch.int64),
+                           n_chunks=n_c, next=0,
+                           last_local=len(prompt) - 1 - (n_c - 1) * p_c)
+                req["pending"] = par
+                self._slot_req[slot] = req
+                self._pending_q.append(slot)
+                return rid
+            self._admit(slot, req, prompt, par, kv_hit, n_shared, cow_tok)
+            return rid
         except BaseException:
-            # a failure anywhere in prefill returns the blocks and the
-            # slot, or the pool shrinks on every such failure
+            # a failure anywhere in the admission returns the blocks and
+            # the slot, or the pool shrinks on every such failure
             if self.paged:
                 self.allocator.free(taken)
                 self.cache["tables"][slot] = 0
             self._slot_req[slot] = None
             self.active[slot] = False
+            self._active_d[slot] = False
             raise
 
+    def _seen_row(self, prompt):
+        """(V,) bool device row marking the prompt's tokens (the penalty
+        applies to the first sample too)."""
+        row = torch.zeros((self.cfg.vocab_size,), dtype=torch.bool,
+                          device=self.device)
+        row[self._upload(prompt, torch.int64)] = True
+        return row
+
+    def _alloc_blocks(self, slot, prompt, max_new_tokens, kv_hit):
+        """The paged admission's blocks (JAX serving.py:1428-1542):
+        ceil((prompt + budget) / block_len) of them, a radix hit's shared
+        run by reference (refcounted), the rest fresh — evicting LRU
+        prefix entries until they fit. The copy-on-write of the boundary
+        block goes into the first fresh one. Writes the slot's table
+        row. Returns (block ids, shared count, tokens agreed in the
+        copied boundary block)."""
+        bp = self._block_len
+        n_need = -(-(len(prompt) + max_new_tokens) // bp)
+        if n_need > self.allocator.n_blocks - 1:
+            # permanent: this request can never fit the pool
+            raise ValueError(
+                f"request needs {n_need} blocks but the pool only has "
+                f"{self.allocator.n_blocks - 1} allocatable")
+        shared, cow_src, cow_tok = [], -1, 0
+        if kv_hit is not None:
+            shared = list(kv_hit.shared)[:n_need]
+            if len(shared) == len(kv_hit.shared):
+                cow_src, cow_tok = kv_hit.cow_src, kv_hit.cow_tokens
+        n_shared = len(shared)
+        # ref the shared prefix (and the COW source) BEFORE any eviction
+        # below: the hit's own entry may be evicted while we hunt for tail
+        # blocks, and without our reference its blocks could recycle into
+        # this very allocation
+        ref_ids = shared + ([cow_src] if cow_tok > 0 else [])
+        if ref_ids:
+            self.allocator.ref(ref_ids)
+        try:
+            owned = self.allocator.alloc(n_need - n_shared)
+            while owned is None and self._evictable_prefix():
+                # entries must never starve admission: evict LRU entries
+                # until the tail fits (an entry whose blocks live slots
+                # still share frees nothing — keep evicting)
+                self._evict_prefix_entry()
+                owned = self.allocator.alloc(n_need - n_shared)
+            if owned is None:
+                raise InsufficientBlocks(
+                    f"insufficient free cache blocks: need "
+                    f"{n_need - n_shared}, have {self.allocator.n_free} "
+                    f"(pool {self.allocator.n_blocks}, block {bp} pos)")
+        except BaseException:
+            if ref_ids:
+                self.allocator.free(ref_ids)
+            raise
+        taken = shared + owned
+        ids_row = np.zeros((self.cache["tables"].shape[-1],), np.int32)
+        ids_row[:n_need] = taken
+        self.cache["tables"][slot] = self._upload(ids_row, torch.int32)
+        if cow_tok > 0:
+            # the one cached block this prompt still partly agrees with,
+            # copied into its first owned block (logical index n_shared);
+            # the prefill resumes mid-block after the agreed tokens. The
+            # temporary reference on the source drops once the copy is
+            # queued (the stream runs it before any later write could
+            # recycle the source)
+            try:
+                PagedKV.copy_block(self.cache, cow_src, owned[0])
+            finally:
+                self.allocator.free([cow_src])
+        if kv_hit is not None and (n_shared or cow_tok):
+            self._prefix_store.note_reuse(
+                n_shared + (1 if cow_tok > 0 else 0),
+                kv_hit.remote_used(n_shared, cow_tok > 0))
+        return taken, n_shared, cow_tok
+
     @torch.no_grad()
-    def _admit(self, slot, prompt, max_new_tokens, seed, taken, temp, tk,
-               tp, mp, rp, stop_seqs) -> int:
-        if self.paged:
-            nb_max = self.cache["tables"].shape[-1]
-            ids_row = np.zeros((nb_max,), np.int32)
-            ids_row[:len(taken)] = taken
-            install_ids = self._upload(ids_row, torch.int32)
-            self.cache["tables"][slot] = install_ids
+    def _admit(self, slot, req, prompt, par, kv_hit, n_shared, cow_tok):
+        """Convoy admission: the prompt's chunks (resumed after a prefix
+        hit), the first token and the slot's state, inline."""
+        if self._prefix_store is not None:
+            self._count_lookup(n_shared > 0 or cow_tok > 0)
+            boundary: dict = {}
+            last = self._radix_prefill(prompt, slot, kv_hit, n_shared,
+                                       cow_tok, boundary)
         else:
-            # the installed prompt must fit the pool AND the first decode
-            # write (at position len(prompt)) must have a column
-            self._ensure_cache_len(len(prompt) + 1)
+            last = self._prefill(prompt)
+        first, lp = self._finish(slot, req, last, par)
+        if self._prefix_store is not None:
+            # the prompt's full-block path, now that the install has
+            # filled the owned blocks; the store refs every newly resident
+            # block, the slot keeps its own references until it retires
+            n_cover = len(prompt) // self._block_len
+            borig = list(kv_hit.origins[:n_shared])
+            if n_cover:
+                self._prefix_store.insert(
+                    prompt[:n_cover * self._block_len],
+                    [int(x) for x in req["blocks"][:n_cover]],
+                    logit_rows=boundary, origin=borig)
+            req["ptoks"], req["borig"] = prompt, borig
+        host = _Readback([first] + list(lp)).wait()
+        first = int(host[0][0])  # the admission's one device -> host sync
+        self.tok[slot] = first
+        req["emitted"].append(first)
+        if req["logprobs"]:
+            req["lp"].append(float(host[1][0]))
+            req["lp_top"].append((host[3][0], host[2][0]))
+        if self._overlap and self._inflight is not None:
+            # the uncommitted step in flight was dispatched while this
+            # slot was free: its row of that step is garbage
+            req["install_step"] = self._step_idx - 1
+        self._slot_req[slot] = req
+        self._retire_if_done(slot)
 
-        rid = self._next_rid
-        self._next_rid += 1
-        gen = self._generator(rid, seed) if temp > 0 else None
+    def _count_lookup(self, hit: bool):
+        if hit:
+            self.prefix_hits += 1
+        else:
+            self.prefix_misses += 1
 
-        # chunked prefill: full prompt_pad chunks + one padded tail, each
-        # at its absolute start position, into the transient row
+    def _prefill(self, prompt):
+        """The convoy chunk loop into the transient row — full prompt_pad
+        chunks and one padded tail, each at its absolute start; on a dense
+        pool with the prefix LRU it resumes after the longest cached
+        full-chunk prefix and caches each completed chunk boundary
+        (scan-resistant: a new entry parks at the LRU end, only a hit
+        promotes). Returns the logits row (V,) of the true last prompt
+        token."""
         p_pad = self.prompt_pad
         n_chunks = -(-len(prompt) // p_pad)
+        start_chunk, last = 0, None
+        key_ns = np.int32(0).tobytes()  # the base model's adapter id
+        key_of = (lambda c: key_ns
+                  + prompt[:c * p_pad].astype(np.int32).tobytes())
+        if self._prefix_cache is not None:
+            for c in range(len(prompt) // p_pad, 0, -1):
+                entry = self._prefix_cache.get(key_of(c))
+                if entry is not None:
+                    self._prefix_cache.move_to_end(key_of(c))
+                    start_chunk = c
+                    for kk, leaf in self._row.items():
+                        leaf.copy_(entry[0][kk])
+                    if c == n_chunks:  # the whole prompt was cached
+                        last = entry[1]
+                    break
+            self._count_lookup(start_chunk > 0)
         padded = np.zeros((1, n_chunks * p_pad), np.int64)
         padded[0, :len(prompt)] = prompt
         padded_d = self._upload(padded, torch.int64)
         logits = None
-        for c in range(n_chunks):
+        for c in range(start_chunk, n_chunks):
             logits = self.family.prefill(
                 self.prepared, padded_d[:, c * p_pad:(c + 1) * p_pad],
                 self._row, c * p_pad)
-        last_local = len(prompt) - 1 - (n_chunks - 1) * p_pad
+            self.prefill_chunks_run += 1
+            if self._prefix_cache is not None \
+                    and (c + 1) * p_pad <= len(prompt):
+                while len(self._prefix_cache) >= self._prefix_cap:
+                    self._evict_prefix_entry()
+                key = key_of(c + 1)
+                self._prefix_cache[key] = (
+                    {kk: leaf.clone() for kk, leaf in self._row.items()},
+                    logits[0, -1].clone())
+                self._prefix_cache.move_to_end(key, last=False)
+        if last is None:
+            last = logits[0, len(prompt) - 1 - (n_chunks - 1) * p_pad]
+        return last
 
-        # first token from the true last prompt row; the penalty sees the
-        # prompt's tokens
-        seen_row = torch.zeros((self.cfg.vocab_size,), dtype=torch.bool,
-                               device=self.device)
-        seen_row[self._upload(prompt, torch.int64)] = True
-        lg = logits[0, last_local][None]
-        lg = apply_repetition_penalty(lg, (rp != 1.0) & seen_row[None],
-                                      torch.tensor(rp, device=self.device))
-        first = int(_sample_rows(
-            lg, [gen], temperature=torch.tensor([temp], device=self.device),
-            top_k=torch.tensor([tk], device=self.device),
-            top_p=torch.tensor([tp], device=self.device),
-            min_p=torch.tensor([mp], device=self.device))[0])
+    def _radix_prefill(self, prompt, slot, kv_hit, n_shared, cow_tok,
+                       boundary):
+        """The radix store's admission prefill (JAX serving.py:2311-2383):
+        resume the chunk loop at the first uncached position. A full hit
+        (the prompt is exactly the shared block run and its last node
+        kept its logit row) runs zero chunks; otherwise the row is
+        gathered from the slot's table (shared blocks and the copied
+        boundary block) and full-width chunks run from the resume point,
+        which may fall mid-block (K5 at an unaligned base) — backed off
+        to its chunk boundary when the remaining chunks would overhang
+        the row (recomputed shared positions install to the junk block).
+        The logits after each completed block go to `boundary` for the
+        store insert. Returns the logits row (V,) of the true last prompt
+        token."""
+        p_len, bp, p_pad = len(prompt), self._block_len, self.prompt_pad
+        if kv_hit.logit_row is not None and p_len == n_shared * bp \
+                and cow_tok == 0:
+            return kv_hit.logit_row
+        resume = min(n_shared * bp + cow_tok, p_len - 1)
+        if resume + -(-(p_len - resume) // p_pad) * p_pad > self._row_len:
+            resume = (resume // p_pad) * p_pad
+        if resume:
+            self._codec.gather_row(self.cache, self._row,
+                                   self.cache["tables"][slot])
+        n_k = -(-(p_len - resume) // p_pad)
+        padded = np.zeros((1, n_k * p_pad), np.int64)
+        padded[0, :p_len - resume] = prompt[resume:]
+        padded_d = self._upload(padded, torch.int64)
+        logits = None
+        for i in range(n_k):
+            start = resume + i * p_pad
+            logits = self.family.prefill(
+                self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
+                self._row, start)
+            self.prefill_chunks_run += 1
+            for b in range(start // bp, p_len // bp):
+                pos = (b + 1) * bp - 1
+                if pos >= start + p_pad:
+                    break
+                if pos >= start:
+                    boundary[b] = logits[0, pos - start].clone()
+        return logits[0, (p_len - resume - 1) - (n_k - 1) * p_pad]
+
+    def _finish(self, slot, req, last, par):
+        """The admission finish, all on the device (JAX's prefill_finish
+        and the fused ilv_finish): the first token from the true last
+        prompt row `last` (V,) — repetition penalty over the prompt, the
+        request's bias, its own sampling parameters and stream —, the
+        row installed into the slot's blocks or dense slot, and the
+        slot's device state scattered. Returns (first token (1,) on the
+        device, its logprob outputs or ())."""
+        dev = self.device
+        raw = last[None].float()
+        lg = apply_repetition_penalty(
+            raw, (par["rp"] != 1.0) & par["seen_row"][None], par["rp"])
+        if par["b_row"] is not None:
+            lg = lg + par["b_row"][None]
+        first = _sample_rows(
+            lg, [par["gen"]],
+            temperature=torch.full((1,), par["t"], device=dev),
+            top_k=torch.full((1,), par["k"], dtype=torch.int64, device=dev),
+            top_p=torch.full((1,), par["p"], device=dev),
+            min_p=torch.full((1,), par["mp"], device=dev),
+            rows=[0] if par["t"] > 0 else [])
         if self.paged:
-            self._codec.install_row(self.cache, self._row, install_ids)
+            self._codec.install_row(self.cache, self._row, par["install_ids"])
         else:
             install_dense_row(self.cache, self._row, slot)
-
-        self.pos[slot] = len(prompt)
-        self.tok[slot] = first
+        n = req["prompt_len"]
+        self._pos_d[slot] = n
+        self._tok_d[slot:slot + 1].copy_(first)
+        self._active_d[slot] = True
+        self._temp_d[slot] = par["t"]
+        self._topk_d[slot] = par["k"]
+        self._topp_d[slot] = par["p"]
+        self._minp_d[slot] = par["mp"]
+        self._rep_d[slot] = par["rp"]
+        self._seen[slot] = par["seen_row"]
+        self._seen[slot, first] = True
+        if self._bias is not None:
+            if par["b_row"] is None:
+                self._bias[slot] = 0.0
+            else:
+                self._bias[slot] = par["b_row"]
+        self.pos[slot] = n
         self.active[slot] = True
-        self._temp[slot], self._topk[slot] = temp, tk
-        self._topp[slot], self._minp[slot], self._rep[slot] = tp, mp, rp
-        self._gens[slot] = gen
-        seen_row[first] = True
-        self._seen[slot] = seen_row
-        self._slot_req[slot] = {
-            "rid": rid, "emitted": [first], "budget": max_new_tokens,
-            "stop": stop_seqs, "blocks": taken, "prompt_len": len(prompt)}
-        self._retire_if_done(slot)
-        return rid
+        self._temp[slot] = par["t"]
+        self._gens[slot] = par["gen"]
+        lp = (logprob_outputs(raw, first, self._logprobs_k)
+              if req["logprobs"] else ())
+        return first, lp
 
     # ------------------------------------------------------------------
+
+    def _evictable_prefix(self) -> bool:
+        if self._prefix_store is not None:
+            return self._prefix_store.n_blocks > 0
+        return bool(self._prefix_cache)
+
+    def _evict_prefix_entry(self):
+        """Drop the LRU prefix entry: the dense LRU's head, or the radix
+        store's LRU leaf (blocks live slots still share survive by their
+        reference counts)."""
+        if self._prefix_store is not None:
+            if not self._prefix_store.evict_one():
+                return
+        else:
+            self._prefix_cache.popitem(last=False)
+        self.prefix_evictions += 1
 
     @staticmethod
     def _stop_match(emitted: list, stop_seqs: list) -> int:
@@ -646,10 +1100,11 @@ class ContinuousBatcher:
 
     def _release(self, slot: int):
         req = self._slot_req[slot]
-        if self.paged:
+        if self.paged and req["blocks"]:
             self.allocator.free(req["blocks"])
         self._slot_req[slot] = None
         self.active[slot] = False
+        self._active_d[slot] = False
         self._gens[slot] = None
 
     def _retire_if_done(self, slot: int):
@@ -665,97 +1120,243 @@ class ContinuousBatcher:
             reason = "length"
         if reason is None:
             return
-        self.results[req["rid"]] = np.asarray(emitted, np.int32)
-        self.finish_reasons[req["rid"]] = reason
+        rid = req["rid"]
+        self.results[rid] = np.asarray(emitted, np.int32)
+        self.finish_reasons[rid] = reason
+        if req["logprobs"]:
+            n, k = len(emitted), self._logprobs_k
+            self.token_logprobs[rid] = {
+                "chosen": np.asarray(req["lp"][:n], np.float32),
+                "top_ids": (np.stack([t[0] for t in req["lp_top"][:n]])
+                            if n else np.zeros((0, k), np.int32)),
+                "top_logprobs": (np.stack([t[1] for t in req["lp_top"][:n]])
+                                 if n else np.zeros((0, k), np.float32)),
+            }
+        if self._prefix_store is not None and req.get("ptoks") is not None:
+            # retire-time insertion (a chat follow-up's prompt is this
+            # transcript plus a new message): the prompt and every FED
+            # decode token (the last sampled one never was) keep their
+            # full blocks resident
+            fed = req["prompt_len"] + len(req["emitted"]) - 1
+            n_cover = min(fed // self._block_len, len(req["blocks"]))
+            if n_cover:
+                toks = np.concatenate([
+                    np.asarray(req["ptoks"], np.int64),
+                    np.asarray(req["emitted"][:-1], np.int64)])
+                self._prefix_store.insert(
+                    toks[:n_cover * self._block_len],
+                    req["blocks"][:n_cover], origin=req["borig"])
         self._release(slot)
 
     def claim(self, rid: int):
-        """Pop a finished (or cancelled) request's record — (tokens or
-        None, finish_reason). KeyError for an unknown/unfinished rid."""
+        """Pop a finished (or cancelled) request's whole record — (tokens
+        or None, finish_reason, token_logprobs or None), as the JAX
+        batcher's. KeyError for an unknown/unfinished rid."""
         tokens = self.results.pop(rid, None)
         reason = self.finish_reasons.pop(rid, None)
+        lps = self.token_logprobs.pop(rid, None)
         if tokens is None and reason is None:
             raise KeyError(rid)
-        return tokens, reason or "length"
+        return tokens, reason or "length", lps
 
     def first_token(self, rid: int):
-        """The token sampled during a request's prefill, or None for an
-        unknown rid."""
+        """The request's first token, or None for an unknown rid — and for
+        an interleaved admission still prefilling or whose first token has
+        not been committed yet (a later step() returns it)."""
         if rid in self.results:
             res = self.results[rid]
             return int(res[0]) if len(res) else None
         for req in self._slot_req:
             if req is not None and req["rid"] == rid:
-                return int(req["emitted"][0])
+                return int(req["emitted"][0]) if req["emitted"] else None
         return None
 
     def cancel(self, rid: int) -> bool:
         """Retire a request without a result; its slot and blocks return
-        to the pool at once. True if it was live or finished-unclaimed."""
+        to the pool at once (a queued interleaved admission leaves the
+        queue). True if it was live or finished-unclaimed."""
         for slot, req in enumerate(self._slot_req):
             if req is not None and req["rid"] == rid:
+                if "pending" in req:
+                    self._pending_q = [s for s in self._pending_q
+                                       if s != slot]
                 self._release(slot)
                 self.finish_reasons[rid] = "cancelled"
                 return True
         if rid in self.results:
             del self.results[rid]
             self.finish_reasons.pop(rid, None)
+            self.token_logprobs.pop(rid, None)
             return True
         return False
 
+    # ------------------------------------------------------------------
+
+    def _ilv_next(self):
+        """The queue head's next chunk, or None (JAX's _ilv_next)."""
+        if not self._pending_q:
+            return None
+        slot = self._pending_q[0]
+        req = self._slot_req[slot]
+        p = req["pending"]
+        c = p["next"]
+        return {"slot": slot, "req": req, "p": p, "c": c,
+                "last": c + 1 == p["n_chunks"]}
+
+    def _ilv_after_chunk(self, ilv, pf_logits, s_idx):
+        """After a mixed step's prefill leg: the next chunk, or — on the
+        last — the fused finish, whose first token is read back at the
+        first commit past this dispatch (install_step)."""
+        req, p, slot = ilv["req"], ilv["p"], ilv["slot"]
+        self.prefill_chunks_run += 1
+        if not ilv["last"]:
+            p["next"] += 1
+            return
+        self._pending_q.pop(0)
+        first, lp = self._finish(slot, req, pf_logits[0, p["last_local"]], p)
+        req["first_dev"] = _Readback([first] + list(lp))
+        req["install_step"] = s_idx
+        del req["pending"]
+
     @torch.no_grad()
     def step(self) -> Dict[int, int]:
-        """One decode step for every active slot. Returns {rid: token}
-        for the slots that advanced; finished requests move to
-        .results."""
+        """One step for every active slot. Returns {rid: token} for the
+        slots whose tokens this call committed ({rid: [first, token]}
+        when an interleaved admission's deferred first token commits with
+        a decode token); finished requests move to .results. With
+        overlap=True the call dispatches step N and commits step N-1, so
+        tokens surface one call later (drain()/flush_overlap() commit the
+        trailing step)."""
         if self.n_active == 0:
-            return {}
-        # this step writes each active slot's next position
-        self._ensure_cache_len(int(self.pos[self.active].max()) + 1)
-        if self._graph_step is not None:
-            logits = self._graph_step(self._decode, self.cache, self.tok,
-                                      self.pos, self.active)
-            active_d = self._graph_step.active
+            return self.flush_overlap()
+        if self.active.any():
+            # this step writes each active slot's next position (the host
+            # mirror counts every dispatched step, committed or not)
+            self._ensure_cache_len(int(self.pos[self.active].max()) + 1)
+        ilv = self._ilv_next() if self._ilv else None
+        state = (self.cache, self._tok_d, self._pos_d, self._active_d)
+        g = self._graph_step
+        pf_logits = None
+        if ilv is None:
+            logits = (g(self._decode, *state) if g is not None
+                      else self._decode(*state))
         else:
-            active_d = self._upload(self.active, torch.bool)
-            logits = self._decode(self.cache,
-                                  self._upload(self.tok, torch.int64),
-                                  self._upload(self.pos, torch.int32),
-                                  active_d)
-        rep = self._upload(self._rep, torch.float32)
-        lg = apply_repetition_penalty(
-            logits, (rep != 1.0)[:, None] & self._seen, rep[:, None])
-        # inactive slots sample greedy (their result is discarded): a
-        # retired request's stale temperature must not keep the pool on
-        # the sampling branch
-        temp = np.where(self.active, self._temp, 0.0).astype(np.float32)
-        nxt = _sample_rows(
-            lg, self._gens, temperature=self._upload(temp, torch.float32),
-            top_k=self._upload(self._topk, torch.int64),
-            top_p=self._upload(self._topp, torch.float32),
-            min_p=self._upload(self._minp, torch.float32))
-        live = torch.nonzero(active_d).flatten()
-        self._seen[live, nxt[live]] = True
-        toks = nxt.cpu().numpy()  # the per-step device -> host sync
-        out = {}
-        for slot, req in enumerate(self._slot_req):
-            if req is None:
-                continue
-            token = int(toks[slot])
-            self.pos[slot] += 1
-            self.tok[slot] = token
-            req["emitted"].append(token)
-            out[req["rid"]] = token
-            self._retire_if_done(slot)
-        return out
+            n = self._ilv
+            self._chunk_d.copy_(ilv["p"]["padded"][:, ilv["c"] * n:
+                                                   (ilv["c"] + 1) * n])
+            self._start_d.fill_(ilv["c"] * n)
+            args = (self._row, self._chunk_d, self._start_d)
+            logits, pf_logits = (
+                g.mixed(self._mixed, self.cache, self._row, *state[1:],
+                        *args[1:])
+                if g is not None else self._mixed(*state, *args))
+        nxt, lp = self._sample_step(logits)
+        self.pos[self.active] += 1
+        s_idx = self._step_idx
+        self._step_idx += 1
+        if ilv is not None:
+            self._ilv_after_chunk(ilv, pf_logits, s_idx)
+        readback = _Readback([nxt] + list(lp))
+        if self._overlap:
+            prev, self._inflight = self._inflight, (s_idx, readback)
+            if prev is None:
+                return {}
+            return self._commit_step(prev[0], prev[1].wait())
+        return self._commit_step(s_idx, readback.wait())
 
     def _decode(self, cache, tok, pos, active):
         """The forward of one step over every slot: logits (B, V)."""
         return self.family.decode_rows(self.prepared, cache, tok, pos,
                                        active, self._codec)
 
+    def _mixed(self, cache, tok, pos, active, row, chunk, start):
+        """The mixed step's forward (JAX's mixed_step): the decode leg over
+        every slot, exactly as _decode, and one prompt chunk (1, N) at
+        positions [start, start + N) into the transient row — the legs
+        touch disjoint buffers. Returns (logits (B, V), the chunk's logits
+        (1, N, V))."""
+        logits = self._decode(cache, tok, pos, active)
+        return logits, self.family.prefill(self.prepared, chunk, row, start)
+
+    def _sample_step(self, logits):
+        """The step's sampling, on the device (JAX's _decode_core after the
+        forward): the repetition penalty, the bias, each active slot's own
+        sampling parameters and stream (the host's temperatures say which
+        rows sample, so a greedy pool reads nothing back), then the
+        slots' next tokens, positions and seen-masks. Inactive rows keep
+        their token. Returns (tokens (B,), logprob outputs or ())."""
+        rep = self._rep_d
+        lg = apply_repetition_penalty(
+            logits, (rep != 1.0)[:, None] & self._seen, rep[:, None])
+        if self._bias is not None:
+            lg = lg + self._bias
+        rows = [i for i in range(self.slots)
+                if self.active[i] and self._temp[i] > 0]
+        nxt = _sample_rows(lg, self._gens, temperature=self._temp_d,
+                           top_k=self._topk_d, top_p=self._topp_d,
+                           min_p=self._minp_d, rows=rows)
+        act = self._active_d
+        nxt = torch.where(act, nxt, self._tok_d)
+        ids = self._slot_ids
+        self._seen[ids, nxt] = self._seen[ids, nxt] | act
+        self._tok_d.copy_(nxt)
+        self._pos_d += act.to(torch.int32)
+        lp = (logprob_outputs(logits, nxt, self._logprobs_k)
+              if self._logprobs_k else ())
+        return nxt, lp
+
+    def _commit_step(self, s_idx, host) -> Dict[int, int]:
+        """Commit one completed step's tokens (host arrays: tokens, and the
+        chosen logprobs, top logprobs and top ids when logprobs_k) to the
+        host bookkeeping (JAX's _commit_step). A slot whose install
+        happened at or after dispatch `s_idx` had no decode leg in it, so
+        its row is skipped; the first commit past an interleaved install
+        takes its deferred first token ahead of the step's own."""
+        toks = host[0]
+        out = {}
+        for slot, req in enumerate(self._slot_req):
+            if req is None or "pending" in req:
+                continue
+            committed = []
+            inst = req.get("install_step")
+            if inst is not None:
+                if s_idx <= inst:
+                    continue  # dispatched before this slot's install
+                del req["install_step"]
+                fd = req.pop("first_dev", None)
+                if fd is not None:
+                    committed.append(self._commit_token(slot, req, fd.wait(),
+                                                        0))
+            if self._slot_req[slot] is req:
+                committed.append(self._commit_token(slot, req, host, slot))
+            if committed:
+                out[req["rid"]] = (committed[0] if len(committed) == 1
+                                   else committed)
+        return out
+
+    def _commit_token(self, slot, req, host, row) -> int:
+        token = int(host[0][row])
+        self.tok[slot] = token
+        req["emitted"].append(token)
+        if req["logprobs"]:
+            req["lp"].append(float(host[1][row]))
+            req["lp_top"].append((host[3][row], host[2][row]))
+        self._retire_if_done(slot)
+        return token
+
+    def flush_overlap(self) -> Dict[int, int]:
+        """Commit the trailing in-flight step (overlap mode); {} and a
+        no-op otherwise. drain() calls it once the pool empties, and the
+        LM daemon's idle worker too."""
+        if self._inflight is None:
+            return {}
+        s_idx, readback = self._inflight
+        self._inflight = None
+        return self._commit_step(s_idx, readback.wait())
+
     def drain(self) -> Dict[int, np.ndarray]:
         """Run until every submitted request finishes; returns .results."""
         while self.n_active:
             self.step()
+        self.flush_overlap()
         return self.results

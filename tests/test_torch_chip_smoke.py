@@ -346,3 +346,47 @@ def test_bf16_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert "[main] P-c-bf16 engine.generate (gpt2-test1k, 4 parts): " in out
     assert "an f32 product of the rounded operands" in out
     assert set(counts) == set(chip_smoke.CACHE_KERNELS)
+
+
+def test_serve_phase_rehearsed_on_the_cpu(capsys, one_torch_thread):
+    """chip_smoke's [serve] phase on the CPU with a 2-layer model of
+    block_size 1024 (run A's pool: 4 slots, max_len 1024, prompt_pad 64)
+    and vocab 512, after run A: the bias and logprobs run over gRPC and
+    on the batcher, G (radix) and G-dense (LRU) with fewer chunks than
+    without the cache, a copy-on-write hit and a zero-chunk full hit,
+    and H (64-token chunks, overlap) whose streams equal A's; every check
+    applies except the launch counts and the profile (a CPU call
+    launches no kernel)."""
+    import torch
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=2,
+                         n_head=2, n_embd=32)
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return t * np.float32(8.0) if t.ndim >= 2 else t
+    prepared = from_jax_params(scaled(tgpt.init(1, cfg)), cfg, "cpu")
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    refs = [chip_smoke.reference_greedy(prepared, cfg, p, 16, dev)
+            for p in prompts]
+    a_info = {}
+    chip_smoke.serve_run("A", cfg, prepared, prompts, 16, refs, [], dev,
+                         "cpu", info=a_info, kv="paged")
+    counts = chip_smoke.phase_serve(cfg, prepared, prompts, refs, a_info,
+                                    dev, "cpu")
+    out = capsys.readouterr().out
+    assert "[serve] bias over gRPC (b=): banned token" in out, out
+    for tag, store in (("G", "radix store"), ("G-dense", "dense LRU")):
+        assert f"[serve] {tag} ({store}, prefix_cache=256): 10 prompts" \
+            in out, out
+        assert f"[serve] {tag}: time to first token" in out
+    assert "9 hits, 1 misses" in out
+    assert "[main] run H: every stream equals run A's token for token" \
+        in out
+    for i, n in enumerate((5, 70, 130, 300)):
+        assert f"[main] run H request {i} (prompt {n}): " in out
+    assert set(counts) == set(chip_smoke.CACHE_KERNELS)

@@ -695,3 +695,93 @@ def test_captured_decode_step_equals_eager(dev, compute, layout):
     torch.cuda.synchronize()
     assert torch.equal(replayed, eager)
     assert fn.launches == before + 4 * cfg.n_layer
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("base", [37, 301, 1000])
+def test_cached_attention_at_unaligned_bases(dev, kind, base):
+    """K5 at the serving chunk (B=1 H=12 T=64 S=1024 D=64) from bases off
+    the 16-position block grid, where the radix prefix cache resumes a
+    prefill mid-block, against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(base)
+    q = torch.randn(1, 12, 64, 64, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (1, 12, 1024, 64), kind, dev)
+    pos = torch.tensor([base], dtype=torch.int32, device=dev)
+    _k5_check(q, k, v, pos, ks, vs, kind)
+
+
+def _mixed_batcher(dev, compute, layout, **kw):
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import GPTConfig, init
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    cfg = GPTConfig(block_size=128, vocab_size=512, n_layer=3, n_head=4,
+                    n_embd=256)
+    cdt = torch.bfloat16 if compute == "bf16" else None
+    prep = from_jax_params(init(5, cfg), cfg, dev, compute_dtype=cdt)
+    return ContinuousBatcher(cfg, prep, slots=3, max_len=128, prompt_pad=32,
+                             block_len=16, device=dev, compute_dtype=cdt,
+                             **layout, **kw)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", [{"kv": "paged"}, {"kv": "dense"},
+                                    {"kv": "paged", "kv_dtype": "int8"}],
+                         ids=["paged", "dense", "paged-int8"])
+def test_captured_mixed_step_equals_eager(dev, compute, layout):
+    """The mixed step on the card is a replayed CUDA graph (the decode leg
+    and one 32-token chunk at a start position held in a device buffer):
+    with one slot decoding while a 70-token prompt folds in three chunks
+    (one eager mixed step and its capture, then replays), one more
+    replay gives the eager mixed step's decode and chunk logits on the
+    same static inputs bit for bit, and the replays counted the captured
+    launches (K5 and the decode kernel once a layer a step)."""
+    b = _mixed_batcher(dev, compute, layout, prefill_chunk_tokens=32)
+    b.submit(list(range(1, 40)), 12)
+    while b._pending_q:
+        b.step()
+    b.submit(list(range(7, 77)), 8)
+    k5 = tca.cached_attention
+    dec = tca.paged_decode_attention if b.paged else tca.decode_attention
+    k5_0, dec_0 = k5.launches, dec.launches
+    while b._pending_q:
+        b.step()
+    step = b._graph_step
+    assert step.counts["mixed"] == [1, 4]  # 2 + 3 chunks: 1 capture
+    assert k5.launches == k5_0 + 3 * 3 and dec.launches == dec_0 + 3 * 3
+    graph, static, log, _ = step._graphs["mixed"]
+    graph.replay()
+    log.replayed()
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in static]
+    eager = b._mixed(b.cache, step.tok, step.pos, step.active, b._row,
+                     step.chunk, step.start)
+    torch.cuda.synchronize()
+    for r, e in zip(replayed, eager):
+        assert torch.equal(r, e)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", [{"kv": "paged"}, {"kv": "dense"},
+                                    {"kv": "dense", "decode_buckets": True}],
+                         ids=["paged", "dense", "dense-buckets"])
+def test_interleaved_and_overlapped_streams_equal_convoy(dev, compute,
+                                                         layout):
+    """On the card, interleaved admission (32-token chunks in captured
+    mixed steps) with and without the overlapped dispatch gives the
+    convoy batcher's greedy streams token for token, for prompts of one,
+    two and three chunks admitted while others decode."""
+    def run(**kw):
+        b = _mixed_batcher(dev, compute, layout, **kw)
+        rids = [b.submit(list(range(3, 8)), 20),
+                b.submit(list(range(1, 40)), 14)]
+        for _ in range(3):
+            b.step()
+        rids.append(b.submit(list(range(11, 81)), 9))
+        b.drain()
+        return [b.results[r].tolist() for r in rids]
+
+    want = run()
+    assert run(prefill_chunk_tokens=32) == want
+    assert run(prefill_chunk_tokens=32, overlap=True) == want
+    assert run(overlap=True) == want

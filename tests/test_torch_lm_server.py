@@ -103,8 +103,9 @@ def test_generate_stream_matches(served):
 
 
 def test_bad_requests_get_grpc_errors(served):
-    """Out-of-vocab prompt -> INVALID_ARGUMENT; an option this slice
-    does not serve (logit bias) -> UNIMPLEMENTED; the server lives on."""
+    """Out-of-vocab prompt -> INVALID_ARGUMENT; an option this port
+    does not serve (a LoRA adapter, a=) -> UNIMPLEMENTED; the server
+    lives on."""
     addr, want = served
     jc = JaxClient(addr, breaker=False)
     with pytest.raises(grpc.RpcError) as e:
@@ -112,8 +113,7 @@ def test_bad_requests_get_grpc_errors(served):
                     timeout=30)
     assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
     with pytest.raises(grpc.RpcError) as e:
-        jc.generate(PROMPTS[0], max_new_tokens=2, logit_bias={3: 1.0},
-                    timeout=30)
+        jc.generate(PROMPTS[0], max_new_tokens=2, adapter=0, timeout=30)
     assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
     np.testing.assert_array_equal(
         jc.generate(PROMPTS[0], max_new_tokens=N_NEW, timeout=60), want[0])

@@ -186,9 +186,9 @@ def test_cancel_stop_and_sampling(weights):
     b.drain()
     stop = toks[2:4]
     end = next(n for n in range(2, 5) if toks[n - 2:n] == stop)
-    tokens, reason = b.claim(stop_at)
-    assert (tokens.tolist(), reason) == (toks[:end - 2], "stop")
-    assert b.claim(victim) == (None, "cancelled")
+    tokens, reason, lps = b.claim(stop_at)
+    assert (tokens.tolist(), reason, lps) == (toks[:end - 2], "stop", None)
+    assert b.claim(victim) == (None, "cancelled", None)
 
     def sampled():
         p = ContinuousBatcher(CFG_T, tprep, device="cpu", seed=7, **POOL)
@@ -201,15 +201,17 @@ def test_cancel_stop_and_sampling(weights):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"kv_dtype": "int4"}, {"prefix_cache": 4}, {"prefill_chunk_tokens": 16},
-    {"overlap": True}, {"logprobs_k": 2}, {"kv": "dense", "kv_dtype": "int4"}])
+    {"kv_dtype": "int4"}, {"allow_constraints": True},
+    {"lora_adapters": [{}]}, {"kv": "dense", "allow_constraints": True},
+    {"kv": "dense", "lora_adapters": [{}]},
+    {"kv": "dense", "kv_dtype": "int4"}])
 def test_out_of_scope_options_raise(weights, kwargs):
     _, tprep = weights
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatcher(CFG_T, tprep, device="cpu", **{**POOL, **kwargs})
 
 
-@pytest.mark.parametrize("opt", [{"logit_bias": {1: 2.0}}, {"adapter": 0},
+@pytest.mark.parametrize("opt", [{"prefilled": {"row": []}}, {"adapter": 0},
                                  {"json_depth": 1}])
 def test_out_of_scope_request_options_raise(weights, opt):
     _, tprep = weights
