@@ -10,7 +10,8 @@ a KV head) in f32 and in bf16 compute. The batcher's decode steps are
 captured CUDA graphs throughout, and so are the mixed steps of the
 interleaved runs (H, H-bf16, L-B-ilv), which also overlap each step's
 dispatch with the previous step's commit; the prefix cache (G, G-dense),
-the logit bias and logprobs run on gpt2.
+the logit bias and logprobs run on gpt2, and so do grammar-constrained
+requests (JSON mode); gpt2-xl is served speculatively, drafted by gpt2.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -31,6 +32,13 @@ Phases (any failure exits non-zero and prints no result):
      only at the unaligned bases 37 and 301 (a radix prefix hit resumes
      mid-block); its split-KV plan (splits, kernel launches a call), and
      at base 960 its time against SDPA's
+  2b. [K5 verify] K5 at the speculative verify's call pattern: q (B=4,
+     H, T=5, D) at per-slot bases {4, 69, 129, 299} over S=1024, gpt2-xl
+     (H = Hk = 25, D=64) and llama3-8b (H=32 over Hk=8, D=128), an f32 q
+     over an f32 cache and a bf16 q over a bf16 cache, each against its
+     plain version and timed against SDPA with the per-row mask; and,
+     checked only, bases {1019, 1020, 1022, 1023}, whose rows reach past
+     the cache's end (an inactive slot's stale base)
   3. K6 decode_attention at the dense decode shape (B=4 Hk=12 R=1 D=64
      S=1024), pos {0,15,16,1023}, f32/bf16/int8; also a stale slot at
      pos = S and an R=2 case (checked only); its split-KV plan; and at
@@ -94,6 +102,20 @@ Phases (any failure exits non-zero and prints no result):
           K5 (inside the captured mixed step) and K7 exactly; then the
           mixed step's captured and eager walls, one replay bit-equal to
           the eager mixed step
+  5c. [constrain] ROADMAP item 4 d's constraints on the same weights,
+     each run with the launch counts zeroed just before and read just
+     after: J, A's daemon with ByteTokenizer's byte map and the default
+     constraint pools (3600 rows), 8 concurrent requests -- 4 in JSON
+     mode (j=1) over gRPC, 2 under choice_regex through the daemon's
+     worker, 2 unconstrained -- each constrained stream against the
+     masked no-cache greedy loop (the grammar's allowed tokens at the
+     host-walked DFA state), its finish reason the loop's, every
+     completed output matching its grammar, the unconstrained streams
+     equal to A's, K5 and K7 exactly; J-ilv, J on H's daemon (64-token
+     chunks, overlap), every stream equal to J's; the pools' bytes; a
+     decode step's wall with and without grammars; one replayed
+     constrained step (the captured forward, then the masked sampling
+     and the device walk) bit-equal to the eager one
   5b. [text] the daemon at run A's configuration with a tokenizer that
      encodes as ByteTokenizer does and decodes each id to a character of
      its own: on a 282-byte UTF-8 prompt, the ids behind generate_text's
@@ -127,6 +149,24 @@ Phases (any failure exits non-zero and prints no result):
      over the streamed Relay RPC (send_tensors), each equal to the relay
      engine's run bit for bit, beside 4 sequential unary requests; P-c
      engine.generate gpt2 in 4 parts against the greedy loop (K5, K6)
+  6a'. [spec] ROADMAP item 4 d's speculative decoding: gpt2-xl (48
+     layers, 1600 wide, 25 heads) drafted by gpt2, both full width with
+     seed-0 weights, the dense f32 pool (4 slots, max_len 1024,
+     prompt_pad 64), spec_k 4, the main path's prompts, 16 greedy tokens
+     each, each run with the launch counts zeroed just before and read
+     just after and exactly K5 = (48 + 12) x (steps + prompt chunks), K6
+     = 4 x 12 x steps: S over gRPC (serve_lm with draft_cfg), against
+     gpt2-xl's no-cache greedy loop, acceptance and tokens/s printed;
+     S-ilv (64-token chunks, overlap), streams equal to S's; S-solo
+     make_speculative_generate, equal to make_generate's; S-self gpt2
+     drafting itself, every proposal accepted and k+1 tokens a slot
+     every step; S-bf16 both in bf16 compute against the plain
+     bf16-compute loop at BF16_TIE. After S, S-ilv, S-self and S-bf16
+     one replayed speculative (or speculative mixed) step bit-equal to
+     the eager one, and a step's captured and eager walls beside the
+     plain batcher's gpt2-xl step. Random weights make the two models
+     agree almost never: S's acceptance is near zero, S-self is the
+     full-acceptance run
   6b. the training main path (gpt2 at full width, seed-0 weights, B=8
      T=512, make_apply_stacked(use_flash=True), next_token_loss, the
      port's adamw(1e-4), batches from a seeded token file through
@@ -467,11 +507,13 @@ def k5_bound(name, B, H, HK, T, S, base, D, q_bytes=4):
     over each row's live columns, 4 D FLOPs a live score) at the fastest
     tensor-core rate for the cache's type: TF32 for f32, bf16 for bf16
     and for int8 (the softmax's P is not int8, so the int8 rate does not
-    apply). Returns (nbytes, live scores, ops label, bound(...))."""
-    live = min(S, base + T)
-    nbytes = (2 * B * H * T * D * q_bytes + B * HK * kv_bytes(name, live, D)
-              + B * 4)
-    scores = B * H * sum(min(S, base + t + 1) for t in range(T))
+    apply). `base` is one base for every batch row, or a list of B (the
+    speculative verify's per-row bases). Returns (nbytes, live scores,
+    ops label, bound(...))."""
+    bases = list(base) if isinstance(base, (list, tuple)) else [base] * B
+    nbytes = (2 * B * H * T * D * q_bytes + B * 4 + HK * sum(
+        kv_bytes(name, min(S, b + T), D) for b in bases))
+    scores = H * sum(min(S, b + t + 1) for b in bases for t in range(T))
     peak, label = ((TF32_FLOPS_PER_S, "TF32 ops at 494.7 TFLOP/s")
                    if name == "f32" else
                    (BF16_FLOPS_PER_S, "bf16 ops at 989 TFLOP/s"))
@@ -559,6 +601,78 @@ def phase_k5(dev, gen):
             print(f"[K5] {name} base 960: kernel {at['ms']:.4f} ms, SDPA "
                   f"({name} q, k, v) {at['library_ms']:.4f} ms: kernel / "
                   f"library {at['ms'] / at['library_ms']:.2f}", flush=True)
+    return rows
+
+
+# the speculative verify's call pattern (ROADMAP item 4 d): the target's
+# (B, k+1) block at every slot's own base; the bases of the [spec] runs'
+# first verify (the prompts' last positions) and, checked only, bases
+# whose last rows reach the cache's end (an inactive slot's stale base)
+VERIFY_BASES = (4, 69, 129, 299)
+VERIFY_END_BASES = (1019, 1020, 1022, 1023)
+VERIFY_SHAPES = (("gpt2-xl", 4, 25, 25, 64), ("llama3-8b", 4, 32, 8, 128))
+
+
+def phase_k5_verify(dev, gen):
+    """K5 at the speculative verify's shapes: q (B=4, H, T=5, D) at the
+    per-slot bases VERIFY_BASES against a cache (4, Hk, S=1024, D) --
+    gpt2-xl's target (H = Hk = 25, D = 64) and llama3-8b's (H = 32 over
+    Hk = 8, D = 128) -- with an f32 q over an f32 cache and a bf16 q over
+    a bf16 cache (bf16 compute), each against its plain version (1e-4;
+    bf16 q 2e-2 of the output's scale), timed against SDPA with the
+    per-row mask (enable_gqa for llama3-8b); and, checked only, at
+    VERIFY_END_BASES, where rows reach past the cache's end. Returns
+    {(model, "f32" | "bf16 q"): row}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        cached_attention, k5_split, reference_cached_attention)
+
+    T, S = 5, 1024
+    rows = {}
+    for model, B, H, HK, D in VERIFY_SHAPES:
+        split_tiles, n_split = k5_split(B * H, T, S)
+        print(f"[K5 verify] {model}: B={B} H={H} Hk={HK} T={T} S={S} D={D}, "
+              f"bases {list(VERIFY_BASES)}: {n_split} splits of "
+              f"{split_tiles * 64} keys", flush=True)
+        cols = torch.arange(S, device=dev)
+        for label, qdt, cache in (("f32", torch.float32, "f32"),
+                                  ("bf16 q", torch.bfloat16, "bf16")):
+            q = torch.randn(LAYERS, B, H, T, D, generator=gen,
+                            device=dev).to(qdt)
+            k, v, _, _ = kv_cache(gen, (LAYERS, B, HK, S, D), cache, dev)
+            for bases in (VERIFY_END_BASES, VERIFY_BASES):
+                pos = torch.tensor(bases, dtype=torch.int32, device=dev)
+                got = cached_attention(q[0], k[0], v[0], pos)
+                want = reference_cached_attention(q[0], k[0], v[0], pos)
+                if qdt == torch.float32:
+                    err = check(f"K5 verify {model} {label} bases {bases}",
+                                got, want, F32_TOL)
+                else:
+                    err = check_scaled(f"K5 verify {model} {label} bases "
+                                       f"{bases}", got, want, BF16_TOL)
+            print(f"[K5 verify] {model} {label}: bases "
+                  f"{list(VERIFY_END_BASES)} (rows past the cache's end) "
+                  f"checked", flush=True)
+            nbytes, scores, ops, (b_ms, b_by, byte_ms, op_ms) = k5_bound(
+                cache, B, H, HK, T, S, list(VERIFY_BASES), D,
+                q_bytes=4 if qdt == torch.float32 else 2)
+            ms = time_ms(cycling(lambda i: cached_attention(
+                q[i], k[i], v[i], pos), LAYERS))
+            plain = time_ms(cycling(lambda i: reference_cached_attention(
+                q[i], k[i], v[i], pos), LAYERS))
+            mask = (cols[None, None, None, :] <= (
+                pos[:, None, None, None]
+                + torch.arange(T, device=dev)[None, None, :, None]))
+            qd = q.to(k.dtype)
+            lib = time_ms(cycling(lambda i: sdpa_gqa(qd[i], k[i], v[i],
+                                                     mask), LAYERS))
+            row = rows[(model, label)] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+            report("K5 verify", f"{model} {label} ({cache} cache)", row,
+                   nbytes, byte_ms, op_ms, ops)
+            print(f"[K5 verify] {model} {label}: kernel / SDPA "
+                  f"{ms / lib:.2f}, kernel / bound {ms / b_ms:.1f}",
+                  flush=True)
     return rows
 
 
@@ -1545,8 +1659,14 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         grows0 = batcher.bucket_grows
         graph = batcher._graph_step
         caps0 = graph.captures if graph is not None else 0
-        mixed0 = list(graph.counts["mixed"]) if graph is not None else [0, 0]
+        # a speculative batcher's mixed steps are its "spec_mixed" graph
+        mixed_kind = "spec_mixed" if hasattr(batcher, "spec_k") else "mixed"
+        mixed0 = (list(graph.counts.get(mixed_kind, [0, 0]))
+                  if graph is not None else [0, 0])
         chunks0 = batcher.prefill_chunks_run
+        spec = hasattr(batcher, "spec_steps")
+        spec0 = ((batcher.spec_steps, batcher.spec_proposed,
+                  batcher.spec_accepted) if spec else None)
         reset_counts()
         n_steps[0] = 0
 
@@ -1571,8 +1691,13 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         grows = batcher.bucket_grows - grows0
         captures = (graph.captures if graph is not None else 0) - caps0
         chunks = batcher.prefill_chunks_run - chunks0
-        mixed = ([a - b for a, b in zip(graph.counts["mixed"], mixed0)]
+        mixed = ([a - b for a, b in zip(graph.counts.get(mixed_kind, [0, 0]),
+                                        mixed0)]
                  if graph is not None else [0, 0])
+        if spec:
+            spec0 = [a - b for a, b in zip(
+                (batcher.spec_steps, batcher.spec_proposed,
+                 batcher.spec_accepted), spec0)]
         if errors or len(results) != len(prompts):
             fail(f"{label}: generate calls failed: {errors or 'timed out'}")
         # TTFT, as information: one streamed request on the idle daemon
@@ -1623,6 +1748,14 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
                       f"{name} {dt} {n}" for (name, dt), n in want.items()),
                   flush=True)
     n_tokens = sum(len(r) for r in results.values())
+    if spec:
+        print(f"[main] run {label}: speculative, spec_k "
+              f"{batcher.spec_k}, draft {batcher.draft_cfg.n_layer} layers "
+              f"x {batcher.draft_cfg.n_embd}: {steps} steps, "
+              f"{spec0[2]} of {spec0[1]} proposals accepted (acceptance "
+              f"{spec0[2] / max(spec0[1], 1):.3f}), "
+              f"{(n_tokens - len(results)) / max(steps, 1):.2f} decode "
+              f"tokens a step", flush=True)
     print(f"[main] run {label}: 4 concurrent requests, {n_tokens} tokens in "
           f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT (300-token "
           f"prompt, idle daemon) {ttft * 1e3:.1f} ms; on {card}", flush=True)
@@ -1640,7 +1773,8 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     if info is not None:
         info.update(label=label, streams=[results[i]
                                           for i in range(len(prompts))],
-                    tokens_per_s=n_tokens / wall, ttft_ms=ttft * 1e3)
+                    tokens_per_s=n_tokens / wall, ttft_ms=ttft * 1e3,
+                    steps=steps, spec=spec0)
     for i, prompt in enumerate(prompts):
         compare_tokens(f"run {label} request {i} (prompt {len(prompt)})",
                        results[i], *refs[i], tie=tie)
@@ -1961,6 +2095,283 @@ def phase_serve(cfg, prepared, prompts, refs, a_info, dev, card):
             for name in CACHE_KERNELS}
 
 
+# [constrain]: the main path's gpt2 over A's daemon with grammars live
+J_NEW = 24                # a j=1 request's budget
+J_CHOICES = ("positive", "negative", "neutral")
+J_CHOICE_NEW = 16
+J_CHOICE_PROMPTS = (0, 2)  # the main prompts the two choice requests take
+J_PLAIN = (1, 3)           # the main prompts that ride unconstrained
+
+
+def reference_constrained(prepared, cfg, prompt, n_new, c, dev):
+    """Independent greedy loop under a TokenConstraint `c`: the plain
+    no-cache forward over the whole sequence, the logits masked at -1e30
+    to the grammar's allowed tokens at the DFA state the host walks
+    (c.allowed, c.advance), the argmax; it ends where nothing can extend
+    a complete match (finish reason "constraint": the daemon has no eos)
+    or after n_new tokens ("length"). Returns (tokens, the top-2 gap among
+    the allowed tokens at each step (inf where one is allowed), reason)."""
+    from dnn_tpu_torch.runtime.generate import forward_no_cache
+
+    ids = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
+    state, toks, gaps = c.start, [], []
+    for _ in range(n_new):
+        allowed = torch.from_numpy(c.allowed[state]).to(dev)
+        logits = torch.where(allowed, forward_no_cache(prepared, ids,
+                                                       cfg=cfg)[0, -1],
+                             torch.tensor(-1e30, device=dev))
+        top2 = torch.topk(logits, 2).values
+        gaps.append(math.inf if top2[1].item() < -1e29
+                    else (top2[0] - top2[1]).item())
+        nxt = int(logits.argmax())
+        toks.append(nxt)
+        state = c.advance(state, nxt)
+        if not c.has_continuation(state):
+            return toks, gaps, "constraint"
+        ids = torch.cat([ids, torch.tensor([[nxt]], device=dev)], dim=1)
+    return toks, gaps, "length"
+
+
+def constrain_run(label, cfg, prepared, prompts, refs, a_info, dev, card,
+                  same_as=None, **kv):
+    """One [constrain] run: the LM daemon at run A's pool (paged f32, 4
+    slots, max_len 1024, prompt_pad 64) with ByteTokenizer's byte map and
+    the daemon's default constraint pools (3600 rows), eight concurrent
+    requests: four in JSON mode over gRPC (j=1, the main prompts,
+    J_NEW tokens), two under choice_regex(J_CHOICES) through the daemon's
+    worker, and two unconstrained over gRPC (prompts J_PLAIN, 16
+    tokens). Every constrained stream against `refs` (near-tie rule),
+    its finish reason the reference's, every completed one matching its
+    grammar (constrain.match); the unconstrained streams equal run A's;
+    launches exactly K5 = layers x prompt chunks and K7 = layers x steps;
+    `same_as`, another run's info, makes every stream equal that run's.
+    Returns (launch counts, info)."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.io.tokenizer import ByteTokenizer
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime import constrain
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    L = cfg.n_layer
+    tok = ByteTokenizer(cfg.vocab_size)
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, kv="paged", tokenizer=tok, **kv)
+    srv, batcher = stop.servicer, stop.servicer.batcher
+    step, n_steps, reasons = batcher.step, [0], []
+    claim = batcher.claim
+
+    def counted_step():
+        n_steps[0] += 1
+        return step()
+
+    def recorded_claim(rid):  # the worker claims every finished request
+        out = claim(rid)
+        reasons.append((None if out[0] is None else out[0].tolist(), out[1]))
+        return out
+
+    batcher.step, batcher.claim = counted_step, recorded_claim
+    json1 = srv.json_constraint(1)
+    choice = constrain.TokenConstraint.from_regex(
+        constrain.choice_regex(J_CHOICES), tok.vocab_bytes(cfg.vocab_size))
+    jobs = ([("json", i, J_NEW, json1) for i in range(4)]
+            + [("choice", i, J_CHOICE_NEW, choice) for i in J_CHOICE_PROMPTS]
+            + [("plain", i, 16, None) for i in J_PLAIN])
+    results, errors = {}, []
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=60):
+            fail(f"[constrain] {label}: LM daemon never became healthy")
+        # warm-up: the kernels, the graphs, the JSON grammar's rows
+        client.send_tensor(np.asarray(prompts[0][:8], np.int32),
+                           request_id="gen:2:j=1", timeout=300)
+        sync(dev)
+        reset_counts()
+        n_steps[0], chunks0 = 0, batcher.prefill_chunks_run
+        reasons.clear()
+
+        def call(j, kind, i, n, c):
+            try:
+                if kind == "json":
+                    out = client.send_tensor(
+                        np.asarray(prompts[i], np.int32),
+                        request_id=f"gen:{n}:j=1", timeout=300)[1]
+                elif kind == "choice":
+                    out = srv.worker.submit(np.asarray(prompts[i]), n, None,
+                                            opts={"constraint": c}
+                                            ).result(timeout=300)
+                else:
+                    out = client.generate(prompts[i], max_new_tokens=n,
+                                          timeout=300)
+                results[j] = np.asarray(out).reshape(-1).tolist()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{kind} request {i}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(j, *job))
+                   for j, job in enumerate(jobs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps, chunks = n_steps[0], batcher.prefill_chunks_run - chunks0
+        client.close()
+    finally:
+        stop()
+    if errors or len(results) != len(jobs):
+        fail(f"[constrain] {label}: requests failed: {errors or 'timed out'}")
+    pool_bytes = batcher._ctable.numel() + 4 * batcher._ctrans.numel()
+    for j, (kind, i, n, c) in enumerate(jobs):
+        name = f"[constrain] {label} {kind} request (prompt {len(prompts[i])})"
+        got = results[j]
+        if kind == "plain":
+            want = a_info["streams"][i]
+            if got != want:
+                fail(f"{name}: {got} differs from run A's {want}")
+            continue
+        want, gaps, reason = refs[j]
+        compare_tokens(name, got, want, gaps)
+        served_reason = next((r for t, r in reasons if t == got), None)
+        if got == want and served_reason != reason:
+            fail(f"{name}: finish reason {served_reason}, the reference's "
+                 f"{reason}")
+        if served_reason == "constraint" and not constrain.match(
+                c.dfa, bytes(got)):
+            fail(f"{name}: {bytes(got)!r} does not match its grammar")
+        if kind == "choice" and bytes(got).decode() not in J_CHOICES:
+            fail(f"{name}: {bytes(got)!r} is not one of {J_CHOICES}")
+    done = sum(r == "constraint" for _, r in reasons)
+    print(f"[constrain] run {label}: {len(jobs)} concurrent requests (4 j=1 "
+          f"over gRPC, 2 choice, 2 unconstrained) in {wall:.3f} s, "
+          f"{steps} decode steps, {chunks} prompt chunks; {done} finished by "
+          f"their grammar, every completed output matches it; JSON outputs "
+          + ", ".join(repr(bytes(results[j]).decode(errors="replace"))
+                      for j in range(4))
+          + f"; choices " + ", ".join(bytes(results[j]).decode()
+                                      for j in (4, 5))
+          + f"; the unconstrained streams equal run A's; constraint pools "
+          f"{batcher._ctab_rows} rows x {cfg.vocab_size}: "
+          f"{pool_bytes / 1e9:.3f} GB on the device ({batcher._ctab_rows} "
+          f"rows at llama3-8b's vocab 128256 would be "
+          f"{batcher._ctab_rows * 128256 * 5 / 1e9:.3f} GB); on {card}",
+          flush=True)
+    if dev.type == "cuda":
+        want_counts = {("cached_attention", "f32"): L * chunks,
+                       ("paged_decode_attention", "f32"): L * steps}
+        for (kname, dt), n in want_counts.items():
+            if counts[kname][dt] != n:
+                fail(f"[constrain] {label}: {kname} ({dt}) launched "
+                     f"{counts[kname][dt]} times, expected {n}")
+        print(f"[constrain] run {label}: launches equal the call pattern's: "
+              f"cached_attention f32 {L * chunks}, paged_decode_attention "
+              f"f32 {L * steps}", flush=True)
+    if same_as is not None and [results[j] for j in range(len(jobs))] \
+            != same_as["streams"]:
+        fail(f"[constrain] {label}: streams differ from run "
+             f"{same_as['label']}'s")
+    if same_as is not None:
+        print(f"[constrain] run {label}: every stream equals run "
+              f"{same_as['label']}'s token for token", flush=True)
+    return counts, {"label": label,
+                    "streams": [results[j] for j in range(len(jobs))]}
+
+
+def constrained_replay(cfg, prepared, prompts, json1, dev, card):
+    """One constrained decode step replayed against the same step taken
+    eagerly: a batcher at run A's pool with JSON mode live in every slot,
+    two steps (the graph captured), then from one saved state the
+    replayed graph and the eager forward, each followed by the step's
+    masked sampling and the device DFA walk: the logits, the tokens and
+    every slot's DFA row bit for bit. Before it, as information, the
+    wall of a decode step with JSON mode in every slot and of one
+    without constraints (10 steps each, 4 slots)."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, device=dev,
+                          kv="paged", allow_constraints=True,
+                          constraint_rows=json1.table.shape[0] + 1)
+    plain = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                              prompt_pad=64, block_len=16, device=dev,
+                              kv="paged")
+    walls = {}
+    for name, srv, opts in (("unconstrained", plain, {}),
+                            ("constrained", b, {"constraint": json1})):
+        for p in prompts:
+            srv.submit(p, 200, **opts)
+        srv.step()
+        srv.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            srv.step()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e2
+    print(f"[constrain] a decode step of 4 slots at run A's pool (captured "
+          f"forward; sampling eager): {walls['constrained']:.3f} ms wall "
+          f"with JSON mode in every slot, {walls['unconstrained']:.3f} ms "
+          f"without; on {card}", flush=True)
+    g = b._graph_step
+    if g is None or g._graph is None:
+        fail("[constrain] the decode step was not captured")
+    state = [b._tok_d, b._pos_d, b._crow_d, b._seen]
+    saved = [t.clone() for t in state]
+    outs = []
+    for mode in ("replayed", "eager"):
+        for t, s0 in zip(state, saved):
+            t.copy_(s0)
+        logits = (g(b._decode, b.cache, b._tok_d, b._pos_d, b._active_d)
+                  if mode == "replayed" else
+                  b._decode(b.cache, b._tok_d, b._pos_d, b._active_d))
+        logits = logits.clone()
+        nxt, _ = b._sample_step(logits)
+        outs.append((logits, nxt.clone(), b._crow_d.clone()))
+    torch.cuda.synchronize()
+    for what, r, e in zip(("logits", "tokens", "DFA rows"), *outs):
+        if not torch.equal(r, e):
+            fail(f"[constrain] a replayed constrained step's {what} differ "
+                 f"from the eager step's")
+    print(f"[constrain] one replayed constrained step (JSON mode in 4 slots, "
+          f"{json1.table.shape[0]} DFA states) equals the eager step bit for "
+          f"bit: logits, masked tokens {outs[0][1].tolist()}, DFA rows "
+          f"{outs[0][2].tolist()}; on {card}", flush=True)
+
+
+def phase_constrain(cfg, prepared, prompts, a_info, dev, card):
+    """[constrain] ROADMAP item 4 d's constraints on the main path's gpt2:
+    J (constrain_run on A's daemon), J-ilv (the same on H's daemon:
+    prefill_chunk_tokens=64, overlap; every stream equal to J's), and on
+    the card constrained_replay. Returns the launches."""
+    from dnn_tpu_torch.io.tokenizer import ByteTokenizer
+    from dnn_tpu_torch.runtime import constrain
+
+    vb = ByteTokenizer(cfg.vocab_size).vocab_bytes(cfg.vocab_size)
+    json1 = constrain.TokenConstraint.from_regex(constrain.json_regex(1), vb)
+    choice = constrain.TokenConstraint.from_regex(
+        constrain.choice_regex(J_CHOICES), vb)
+    t0 = time.perf_counter()
+    refs = ([reference_constrained(prepared, cfg, prompts[i], J_NEW, json1,
+                                   dev) for i in range(4)]
+            + [reference_constrained(prepared, cfg, prompts[i], J_CHOICE_NEW,
+                                     choice, dev) for i in J_CHOICE_PROMPTS])
+    print(f"[constrain] references (the masked no-cache loop) in "
+          f"{time.perf_counter() - t0:.1f} s; JSON mode depth 1: "
+          f"{json1.table.shape[0]} DFA states", flush=True)
+    j_counts, j_info = constrain_run("J", cfg, prepared, prompts, refs,
+                                     a_info, dev, card)
+    ilv_counts, _ = constrain_run("J-ilv", cfg, prepared, prompts, refs,
+                                  a_info, dev, card, same_as=j_info,
+                                  prefill_chunk_tokens=64, overlap=True)
+    if dev.type == "cuda":
+        constrained_replay(cfg, prepared, prompts, json1, dev, card)
+    return {name: {dt: j_counts[name][dt] + ilv_counts[name][dt]
+                   for dt in ("f32", "bf16", "int8")}
+            for name in CACHE_KERNELS}
+
+
 def phase_main_path(dev, card: str):
     """Every main-path run: A paged f32, B dense + buckets f32, C paged
     int8, D paged bf16, then solo make_generate f32, bf16 and int8.
@@ -2007,6 +2418,7 @@ def phase_main_path(dev, card: str):
                    {"f32": ref_f32[3], "bf16": ref_bf16[3],
                     "int8": ref_i8[3]}, dev),
         phase_serve(cfg, prepared, prompts, ref_f32, a_info, dev, card),
+        phase_constrain(cfg, prepared, prompts, a_info, dev, card),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in ("f32", "bf16", "int8")}
@@ -2563,6 +2975,328 @@ def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW,
           f"in {wall * 1e3:.1f} ms = {n_new / wall:.1f} tokens/s; on {card}",
           flush=True)
     return counts
+
+
+# [spec]: gpt2-xl drafted by gpt2 (the HF assisted-generation pair)
+SPEC_K = 4
+SPEC_NEW = 16
+SPEC_TARGET, SPEC_DRAFT = "gpt2-xl", "gpt2"
+
+
+def spec_exact(l_target, l_draft, k, chunks, dt="f32"):
+    """The launches a speculative run must show, from its step count:
+    every step the draft sync (K5, one a draft layer), k draft steps (K6,
+    one a draft layer each) and the target's verify (K5, one a target
+    layer); every prompt chunk one K5 a layer of each model (at
+    admission, or folded into a mixed step)."""
+    return lambda steps: {
+        ("cached_attention", dt): (l_target + l_draft) * (steps + chunks),
+        ("decode_attention", dt): k * l_draft * steps}
+
+
+def spec_replay(tag, b, prompts, kind="spec"):
+    """One replayed speculative step against the same step taken eagerly:
+    the four prompts in `b`'s slots (`kind` "spec_mixed": three decoding
+    while the fourth folds in), the step captured and replayed once, then
+    from one saved state the graph replayed and the step run eagerly
+    (b._spec_core, or b._spec_mixed with the next chunk): the committed
+    block, the accepted counts (and the chunk's logits), and the slots'
+    state after (tokens, positions, sync chunks) bit for bit."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    if kind == "spec":
+        for p in prompts:
+            b.submit(p, 200)
+        b.step()
+        b.step()
+        graph, walls = b._graph_step, {}
+        for mode, n in (("captured", 10), ("eager", 3)):
+            b._graph_step = graph if mode == "captured" else None
+            sync(b.device)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                b.step()
+            sync(b.device)
+            walls[mode] = (time.perf_counter() - t0) * 1e3 / n
+        b._graph_step = graph
+        wall, dev_ms, n_kern, top, k5_ms, dec_ms = _profiled(b.step)
+        print(f"[spec] {tag}: a speculative step of 4 active slots (spec_k "
+              f"{b.spec_k}: the draft sync, {b.spec_k} draft steps, the "
+              f"verify) {walls['captured']:.3f} ms wall captured, "
+              f"{walls['eager']:.3f} ms eager; one captured step under the "
+              f"profiler {wall:.3f} ms wall, {dev_ms:.3f} ms device busy "
+              f"({100 * dev_ms / wall:.1f}%), {n_kern} kernels, K5 "
+              f"{k5_ms:.3f} ms, K6 {dec_ms:.3f} ms; top {top[:3]}",
+              flush=True)
+    else:
+        for p in prompts[:3]:
+            b.submit(p, 200)
+        while b._pending_q:
+            b.step()
+        b.submit(prompts[3], 200)
+        b.step()
+        b.step()
+        ilv = b._ilv_next()
+        if ilv is None:
+            fail(f"[spec] {tag}: no chunk pending for the mixed replay")
+        n = b._ilv
+        b._chunk_d.copy_(ilv["p"]["padded"][:, ilv["c"] * n:
+                                            (ilv["c"] + 1) * n])
+        b._start_d.fill_(ilv["c"] * n)
+    g = b._graph_step
+    if g is None or kind not in g._graphs:
+        fail(f"[spec] {tag}: the {kind} step was not captured")
+    graph, static, log, _ = g._graphs[kind]
+    state = [b._tok_d, b._pos_d, b._prev_chunk, b._prev_pos]
+    saved = [t.clone() for t in state]
+    graph.replay()
+    log.replayed()
+    replayed = [t.clone() for t in static] + [t.clone() for t in state]
+    for t, s0 in zip(state, saved):
+        t.copy_(s0)
+    eager = [t.clone() for t in (b._spec_core() if kind == "spec"
+                                 else b._spec_mixed())]
+    eager += [t.clone() for t in state]
+    torch.cuda.synchronize()
+    names = (["block", "accepted"] + (["chunk logits"] if kind != "spec"
+                                      else [])
+             + ["tokens", "positions", "sync chunks", "sync bases"])
+    for what, r, e in zip(names, replayed, eager):
+        if not torch.equal(r, e):
+            fail(f"[spec] {tag}: a replayed {kind} step's {what} differ from "
+                 f"the eager step's")
+    print(f"[spec] {tag}: one replayed {kind} step equals the eager step bit "
+          f"for bit ({', '.join(names)}); accepted {replayed[1].tolist()}",
+          flush=True)
+
+
+def plain_step_wall(tag, cfg, prepared, prompts, dev, **kw):
+    """Information: the captured decode step's wall of the plain dense
+    batcher at the [spec] pool (4 slots decoding), the yardstick a
+    speculative step (one token a slot at random weights) is read
+    against."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, kv="dense", device=dev, **kw)
+    for p in prompts:
+        b.submit(p, 200)
+    b.step()
+    b.step()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        b.step()
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e2
+    wall, dev_ms, _, _, _, _ = _profiled(b.step)
+    print(f"[spec] {tag}: the plain batcher's captured decode step (4 "
+          f"slots, dense f32) {step_ms:.3f} ms wall; under the profiler "
+          f"{wall:.3f} ms wall, {dev_ms:.3f} ms device busy", flush=True)
+
+
+def spec_self(cfg, prepared, prompts, refs, dev, card):
+    """S-self: gpt2 drafted by itself, the four prompts through the
+    speculative batcher: every proposal accepted, every step committing
+    k+1 tokens for every active slot, the streams against the no-cache
+    loop, launches exactly spec_exact's; then a replay check. Returns the
+    launches."""
+    from dnn_tpu_torch.runtime.serving_spec import SpeculativeBatcher
+
+    L = cfg.n_layer
+    kw = dict(spec_k=SPEC_K, slots=4, max_len=1024, prompt_pad=64,
+              device=dev)
+    b = SpeculativeBatcher(cfg, prepared, cfg, prepared, **kw)
+    b.drain()
+    rid = b.submit(prompts[0], 2)  # warm-up: the kernels and the graph
+    b.drain()
+    b.claim(rid)
+    reset_counts()
+    steps0 = b.spec_steps
+    b.spec_proposed = b.spec_accepted = 0
+    rids = [b.submit(p, SPEC_NEW) for p in prompts]
+    commits = []
+    while b.n_active:
+        commits.append(b.step())
+    counts = read_counts()
+    steps = b.spec_steps - steps0
+    sizes = sorted({len(t) for out in commits for t in out.values()})
+    if sizes != [SPEC_K + 1]:
+        fail(f"[spec] S-self: steps committed {sizes} tokens a slot, "
+             f"expected {SPEC_K + 1} every step")
+    if b.spec_accepted != b.spec_proposed:
+        fail(f"[spec] S-self: {b.spec_accepted} of {b.spec_proposed} "
+             "proposals accepted, expected all")
+    for i, (rid, p) in enumerate(zip(rids, prompts)):
+        compare_tokens(f"[spec] S-self request {i} (prompt {len(p)})",
+                       b.results[rid].tolist(), *refs[i])
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    if dev.type == "cuda":
+        for (name, dt), n in spec_exact(L, L, SPEC_K, chunks)(steps).items():
+            if counts[name][dt] != n:
+                fail(f"[spec] S-self: {name} ({dt}) launched "
+                     f"{counts[name][dt]} times, expected {n}")
+    print(f"[spec] S-self ({cfg.n_layer}-layer gpt2 drafting itself, spec_k "
+          f"{SPEC_K}): {steps} steps, every one committing {SPEC_K + 1} "
+          f"tokens a slot, {b.spec_accepted} of {b.spec_proposed} proposals "
+          f"accepted (1.000); streams match the reference; launches "
+          f"{ {n: counts[n] for n in CACHE_KERNELS} }; on {card}",
+          flush=True)
+    if dev.type == "cuda":
+        spec_replay("S-self", SpeculativeBatcher(cfg, prepared, cfg, prepared,
+                                                 **kw), prompts)
+    return counts
+
+
+def spec_solo(t_cfg, t_prep, d_cfg, d_prep, prompt, ref, dev, card):
+    """S-solo: make_speculative_generate (the target drafted by d_cfg) on
+    the 300-token prompt, SPEC_NEW greedy tokens, against make_generate's
+    on the target (near-tie rule, the no-cache loop's gaps); launches
+    exactly: both prefills and every iteration's sync and verify on K5,
+    the draft's k steps on K6. Returns the launches and the iteration
+    count."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.generate import make_generate
+    from dnn_tpu_torch.runtime.speculative import make_speculative_generate
+
+    want = make_generate(t_cfg, max_new_tokens=SPEC_NEW, device=dev)(
+        t_prep, [prompt])[0].tolist()
+    spec = make_speculative_generate(t_cfg, d_cfg, max_new_tokens=SPEC_NEW,
+                                     k=SPEC_K, return_stats=True, device=dev)
+    spec(t_prep, d_prep, [prompt[:8]])  # warm-up
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, stats = spec(t_prep, d_prep, [prompt])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    compare_tokens("[spec] S-solo make_speculative_generate",
+                   toks[0].tolist(), want, ref[1])
+    compare_tokens("[spec] S-solo against the no-cache loop",
+                   toks[0].tolist(), *ref)
+    it = stats["iterations"]
+    if dev.type == "cuda":
+        exact = {("cached_attention", "f32"):
+                 (t_cfg.n_layer + d_cfg.n_layer) * (1 + it),
+                 ("decode_attention", "f32"): SPEC_K * d_cfg.n_layer * it}
+        for (name, dt), n in exact.items():
+            if counts[name][dt] != n:
+                fail(f"[spec] S-solo: {name} ({dt}) launched "
+                     f"{counts[name][dt]} times, expected {n}")
+    print(f"[spec] S-solo: {SPEC_NEW} tokens after a {len(prompt)}-token "
+          f"prompt in {wall * 1e3:.1f} ms, {it} iterations, "
+          f"{stats['accepted']} of {stats['proposed']} proposals accepted; "
+          f"equal to make_generate's; launches "
+          f"{ {n: counts[n] for n in CACHE_KERNELS} }; on {card}", flush=True)
+    return counts, it
+
+
+def phase_spec(dev, card, target=SPEC_TARGET, draft=SPEC_DRAFT):
+    """[spec] ROADMAP item 4 d's speculative decoding: gpt2-xl (48
+    layers, 1600 wide, 25 heads) as the target drafted by gpt2, both at
+    full width with seed-0 weights, the dense f32 pool (4 slots, max_len
+    1024, prompt_pad 64), spec_k 4, the main path's four prompts, 16
+    greedy tokens each, every run with the launch counts zeroed just
+    before and read just after and exactly spec_exact's:
+      S       the LM daemon over gRPC (draft_cfg=), streams against
+              gpt2-xl's no-cache greedy loop; acceptance and tokens/s
+      S-ilv   S with 64-token interleaved chunks and overlap, streams
+              equal to S's
+      S-solo  make_speculative_generate, equal to make_generate's
+      S-self  gpt2 drafting gpt2: every proposal accepted
+      S-bf16  both in bf16 compute (bf16 caches), against the plain
+              bf16-compute loop at BF16_TIE
+    and on the card one replayed step of each pool bit-equal to the eager
+    step. Random weights make gpt2-xl and gpt2 agree almost never: S's
+    acceptance is near zero; S-self is the full-acceptance run. Returns
+    ({"f32": launches, "bf16": launches with a bf16 q}, the verify
+    launches at gpt2-xl's shape by cache type)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import PRESETS, init
+    from dnn_tpu_torch.runtime.serving_spec import SpeculativeBatcher
+
+    t_cfg, d_cfg = PRESETS[target], PRESETS[draft]
+    t0 = time.perf_counter()
+    tree = init(0, t_cfg)
+    t_prep = from_jax_params(tree, t_cfg, dev)
+    d_tree = init(0, d_cfg)
+    d_prep = from_jax_params(d_tree, d_cfg, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"[spec] {target} ({t_cfg.n_layer} layers, {t_cfg.n_embd} wide, "
+          f"{t_cfg.n_head} heads) and {draft} weights (seed 0) on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, t_cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    t0 = time.perf_counter()
+    refs = [reference_greedy(t_prep, t_cfg, p, SPEC_NEW, dev)
+            for p in prompts]
+    d_refs = [reference_greedy(d_prep, d_cfg, p, SPEC_NEW, dev)
+              for p in prompts]
+    print(f"[spec] references (no-cache loops) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    L_t, L_d = t_cfg.n_layer, d_cfg.n_layer
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    kw = dict(kv="dense", draft_cfg=d_cfg, spec_k=SPEC_K)
+    pool = dict(spec_k=SPEC_K, slots=4, max_len=1024, prompt_pad=64,
+                device=dev)
+    f32 = [("cached_attention", "f32"), ("decode_attention", "f32")]
+    s_info, ilv_info = {}, {}
+    runs = [serve_run("S", t_cfg, t_prep, prompts, SPEC_NEW, refs, f32, dev,
+                      card, exact=spec_exact(L_t, L_d, SPEC_K, chunks),
+                      info=s_info, draft_prepared=d_prep, **kw)]
+    if dev.type == "cuda":
+        spec_replay("S", SpeculativeBatcher(t_cfg, t_prep, d_cfg, d_prep,
+                                            **pool), prompts)
+        plain_step_wall(f"plain {target}", t_cfg, t_prep, prompts, dev)
+    runs.append(serve_run("S-ilv", t_cfg, t_prep, prompts, SPEC_NEW, refs,
+                          f32, dev, card,
+                          exact=spec_exact(L_t, L_d, SPEC_K, chunks),
+                          info=ilv_info, same_as=s_info,
+                          draft_prepared=d_prep, prefill_chunk_tokens=64,
+                          overlap=True, **kw))
+    if dev.type == "cuda":
+        spec_replay("S-ilv", SpeculativeBatcher(
+            t_cfg, t_prep, d_cfg, d_prep, prefill_chunk_tokens=64,
+            overlap=True, **pool), prompts, kind="spec_mixed")
+    solo, iters = spec_solo(t_cfg, t_prep, d_cfg, d_prep, prompts[3],
+                            refs[3], dev, card)
+    runs.append(solo)
+    runs.append(spec_self(d_cfg, d_prep, prompts, d_refs, dev, card))
+    del t_prep, d_prep
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    t_b = from_jax_params(tree, t_cfg, dev, bf16)
+    d_b = from_jax_params(d_tree, d_cfg, dev, bf16)
+    del tree, d_tree
+    b_refs = [reference_greedy_cache(t_b, t_cfg, p, SPEC_NEW, dev, "bf16",
+                                     chunk=64, compute_dtype=bf16,
+                                     step_rows=4) for p in prompts]
+    b_info = {}
+    b_counts = serve_run("S-bf16", t_cfg, t_b, prompts, SPEC_NEW, b_refs,
+                         [("cached_attention", "bf16"),
+                          ("decode_attention", "bf16")], dev, card,
+                         exact=spec_exact(L_t, L_d, SPEC_K, chunks, "bf16"),
+                         tie=BF16_TIE, info=b_info, draft_prepared=d_b,
+                         compute_dtype=bf16, **kw)
+    if dev.type == "cuda":
+        spec_replay("S-bf16", SpeculativeBatcher(
+            t_cfg, t_b, d_cfg, d_b, compute_dtype=bf16, **pool), prompts)
+    del t_b, d_b
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    f32_counts = {name: {dt: sum(r[name][dt] for r in runs)
+                         for dt in ("f32", "bf16", "int8")}
+                  for name in CACHE_KERNELS}
+    verify = {"f32": L_t * (s_info["steps"] + ilv_info["steps"] + iters),
+              "bf16": L_t * b_info["steps"]}
+    return {"f32": f32_counts, "bf16": b_counts}, verify
 
 
 def phase_pipe(dev, card, prompt):
@@ -3464,6 +4198,7 @@ def main():
     phase_build()
     phase_wire(smi)
     k5 = phase_k5(dev, gen)
+    k5_verify = phase_k5_verify(dev, gen)
     k6 = phase_k6(dev, gen)
     k6_solo = phase_k6_solo(dev, gen)
     k7 = phase_k7(dev, gen)
@@ -3476,10 +4211,16 @@ def main():
     bf16_q_rows = phase_bf16_q_kernels(dev, gen)
     bf16_launches = phase_bf16(dev, smi)
     pipe = phase_pipe(dev, smi, prompts[3])
-    for counts in (text, pipe):
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec, verify_launches = phase_spec(dev, smi)
+    for counts in (text, pipe, spec["f32"]):
         for name in CACHE_KERNELS:
             for dt, n in counts[name].items():
                 launches[name][dt] += n
+    for name in CACHE_KERNELS:
+        for dt, n in spec["bf16"][name].items():
+            bf16_launches[name][dt] += n
     launches.update(phase_train(dev, smi))
     gc.collect()  # the gpt2 phases' tensors go before llama3-8b's 32 GB
     torch.cuda.empty_cache()
@@ -3511,6 +4252,18 @@ def main():
             bf16_q_rows[gpt2], "bf16", runs,
             **{key: llama_extra(name, bf16_q_rows[llama_rows],
                                 counts=lb_counts, **shapes)})
+
+    def verify_extra(model, label):
+        """K5's row at a speculative verify shape; its launches those of
+        the [spec] runs' verifies at gpt2-xl's shape (none at
+        llama3-8b's: no run serves it speculatively)."""
+        _, b, h, hk, d = next(v for v in VERIFY_SHAPES if v[0] == model)
+        dt = "f32" if label == "f32" else "bf16"
+        n = verify_launches[dt] if model == "gpt2-xl" else 0
+        return {"model": model, "B": b, "H": h, "Hk": hk, "T": SPEC_K + 1,
+                "S": 1024, "D": d, "bases": list(VERIFY_BASES),
+                "by_dtype": {dt: {"launches": n,
+                                  **k5_verify[(model, label)]}}}
 
     src = "dnn_tpu_torch/ops/cuda/csrc/"
     pallas = "dnn_tpu/ops/pallas/cached_attention.py"
@@ -3551,6 +4304,11 @@ def main():
     ]
     kernels[-2]["solo_shape"] = {"B": SOLO_B, "Hk": SOLO_HK, "S": SOLO_S,
                                  "by_dtype": bf16_q_rows["K6 solo"]}
+    for name, label in (("cached_attention", "f32"),
+                        ("cached_attention (bf16 q)", "bf16 q")):
+        next(k for k in kernels if k["name"] == name).update(
+            verify_shape=verify_extra("gpt2-xl", label),
+            llama_verify_shape=verify_extra("llama3-8b", label))
     flash_py = "dnn_tpu/ops/pallas/flash_attention.py"
     for name, source, line in (
             ("flash_attention", "flash_attention.cu", 50),

@@ -20,15 +20,16 @@ attention against it folds each group of G = n_head / n_kv_head query
 heads onto its KV head — K5 takes grouped heads for a prefill chunk, K6
 and K7 take the group as G query rows a KV head for a decode step. The
 stateless forward (`make_apply`) runs the grouped einsum, as JAX's does.
-RoPE tables are computed in f32 at each row's absolute position.
+RoPE tables are computed in f32 at each row's absolute position. The
+speculative batcher's verify block (`LlamaFamilyRows.verify_rows`: T
+rows a slot at its own base) runs K5 with grouped heads.
 
 Not ported, and raising NotImplementedError when a model that needs them
 is built or served (the presets are all registered): sliding windows and
 Gemma-2's alternating windows (ROADMAP PyTorch/CUDA port item 2, rolling
 rings and bands), attention and final logit softcapping (port item 7's
 softcapping), and an `ffn` override, the MoE families' hook (port item
-7, = Queue 1 item 9). Speculative `verify_rows` waits with speculative
-decoding (port item 4d).
+7, = Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -704,6 +705,34 @@ class LlamaFamilyRows:
                        compute_dtype=cdt)
             x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt)
         return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[:, -1]
+
+    @torch.no_grad()
+    def verify_rows(self, prepared, cache, chunk, pos, active, codec):
+        """A (B, T) token block at per-slot bases pos (B,) -> logits (B, T,
+        V) (JAX's :1301): rotated K/V written at pos .. pos + T - 1 of each
+        active slot, row t attending columns <= pos[b] + t with grouped
+        query heads (codec.attend_rows_causal: K5, query head h reading
+        KV head h / G). The speculative batcher's target verify and draft
+        sync. Windowed and soft-capped presets never get here: the
+        constructor's check_ported raises for them."""
+        cfg, cdt = self.cfg, self.compute_dtype
+        t = chunk.shape[1]
+        positions = pos.long()[:, None] + torch.arange(t, device=pos.device)
+        x = _embedded(prepared, chunk, cfg, cdt)  # (B, T, C)
+        cos, sin = _rope_tables(cfg, positions)  # (B, T, D)
+        cos, sin = cos[:, None], sin[:, None]  # over the heads
+        for i in range(cfg.n_layer):
+            bp = layer_params(prepared["blocks"], i)
+            c = {kk: leaf[i] for kk, leaf in cache.items()}
+            h = _pre_normed(bp, x, cfg)
+            q, k, v = _qkv(bp, h, cfg, cdt)
+            q, k = _rotated(q, k, cos, sin, cfg)
+            codec.write_rows(c, k, v, pos, active)
+            y = codec.attend_rows_causal(q, c, pos)
+            o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
+                       compute_dtype=cdt)
+            x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt)
+        return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)
 
 
 # --------------------------------------------------------------------------

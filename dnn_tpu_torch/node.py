@@ -17,7 +17,8 @@
         [--kv {paged,dense,auto}] [--kv_dtype {f32,bf16,int8}] \\
         [--decode_buckets] [--paged_blocks 0] [--block_len 16] \\
         [--prefix_cache N] [--prefill_chunk_tokens N] [--overlap] \\
-        [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR]
+        [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR] \\
+        [--draft_model NAME [--draft_weights CKPT] [--spec_k 4]]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
@@ -120,6 +121,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "step N's tokens, so the host's bookkeeping runs "
                         "under the device step (tokens surface one step "
                         "later)")
+    p.add_argument("--draft_model", default=None,
+                   help="--serve_lm: model-zoo name of a dense GPT-family "
+                        "DRAFT model — enables speculative continuous "
+                        "batching (each step commits up to spec_k+1 tokens "
+                        "a slot; runtime/serving_spec.py)")
+    p.add_argument("--draft_weights", default=None,
+                   help="--serve_lm: checkpoint of the draft model "
+                        "(.pth/npz/safetensors; random init if omitted)")
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="--serve_lm: draft proposals per speculative step")
     p.add_argument("--seed", type=int, default=0,
                    help="--generate: the sampling seed; --serve_lm: also "
                         "the seed of random weights")
@@ -248,11 +259,43 @@ def _tokenizer(spec: str, vocab_size: int):
     return tok
 
 
+def _draft(args, cfg, device, compute_dtype) -> dict:
+    """--draft_model's speculative-serving arguments (JAX node.py:925-967):
+    a dense GPT-family zoo entry of the target's vocabulary, its weights
+    from --draft_weights (through io/checkpoint.py and the model's
+    converter) or, without them, a random init (seed 0, logged)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import GPTConfig
+    from dnn_tpu_torch.registry import get_model
+    from dnn_tpu_torch.runtime.engine import checkpoint_params
+
+    d_spec = get_model(args.draft_model)
+    d_cfg = d_spec.config
+    if type(d_cfg) is not GPTConfig:
+        raise ValueError(f"--draft_model must name a dense GPT-family zoo "
+                         f"entry, got '{args.draft_model}'")
+    if d_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(f"draft vocab {d_cfg.vocab_size} != target vocab "
+                         f"{cfg.vocab_size}")
+    if args.draft_weights:
+        tree = checkpoint_params(args.draft_weights, d_spec)
+    else:
+        log.warning("no --draft_weights; the draft uses a random init "
+                    "(wiring and testing only: a random draft accepts "
+                    "almost nothing)")
+        tree = d_spec.init(0)
+    return {"draft_cfg": d_cfg, "spec_k": args.spec_k,
+            "draft_prepared": from_jax_params(tree, d_cfg, device,
+                                              compute_dtype)}
+
+
 def _serve_lm(config: TopologyConfig, me, args) -> int:
     """The LM daemon on this node's port, with the config's weights, at
     the config's compute type (`"dtype": "bfloat16"` serves in bf16
     compute, as JAX's daemon does: dnn_tpu/node.py passes the engine's
-    compute_dtype)."""
+    compute_dtype). With --draft_model it serves speculatively, without
+    logit biases or constraints (the speculative batcher takes neither);
+    otherwise both are on."""
     from dnn_tpu_torch.convert import from_jax_params, load_npz
     from dnn_tpu_torch.models.gpt import GPTConfig
     from dnn_tpu_torch.models.llama import LlamaConfig
@@ -282,6 +325,13 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
     except (OSError, KeyError, ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
+    spec_kwargs = {}
+    if args.draft_model:
+        try:
+            spec_kwargs = _draft(args, cfg, device, compute_dtype)
+        except (OSError, KeyError, ValueError, RuntimeError) as e:
+            log.error("draft model setup failed: %s", e)
+            return 1
     tokenizer = None
     if args.tokenizer:
         try:
@@ -302,7 +352,7 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             overlap=args.overlap,
             compute_dtype=compute_dtype, seed=args.seed, device=device,
-            tokenizer=tokenizer))
+            tokenizer=tokenizer, **spec_kwargs))
     except (NotImplementedError, ValueError) as e:
         # e.g. --kv_dtype int4, or a sliding-window preset (ROADMAP item 2)
         log.error("%s", e)

@@ -1,0 +1,612 @@
+"""Constrained (structured) decoding: regex/JSON-grammar output masks
+(port of dnn_tpu/runtime/constrain.py, all of it: pure Python and numpy,
+no device code).
+
+Force a model's COMPLETION to match a formal language -- "JSON mode",
+tool-call schemas, enum picks -- by masking disallowed tokens at every
+step:
+
+  1. A practical REGEX SUBSET compiles to a byte-level DFA at request
+     construction time (Thompson NFA -> subset construction). Supported:
+     literals (UTF-8, multi-byte ok), escapes (\\d \\w \\s \\D \\W \\S,
+     \\n \\t \\r and escaped metachars), '.', char classes [a-z0-9_],
+     [^...], groups (...), alternation |, and repetition * + ? {m} {m,}
+     {m,n}. Matches are FULL-string (anchors are implicit).
+  2. The DFA is lifted from bytes to TOKENS once per (pattern, vocab):
+     walk every vocab token's byte string through the DFA from every
+     state via one trie pass -- `table[s, t]` = end state or -1
+     (disallowed). This is the only vocab-sized work, and it is
+     per-pattern, host-side, cacheable.
+  3. The serving layer (runtime/serving.ContinuousBatcher) keeps each
+     grammar's (S, V) allowed mask (`mask_table`) and its next-state
+     table (`trans_table`) in two device pools, and walks every slot's
+     DFA state on the device inside the step that sampled its token;
+     the host walks a mirror of it (`advance`) for finish detection
+     only. EOS is allowed exactly in accepting states, so a sampled stop
+     always yields a complete match.
+
+Bounded-depth JSON ("JSON mode") ships as `json_regex(max_depth)`:
+regular languages cannot nest unboundedly, so the value grammar is
+expanded to a fixed depth -- the standard guided-decoding trade, stated
+rather than hidden.
+
+The tables are the JAX module's bit for bit: the same parser, subset
+construction and trie walk, in the same order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+NEG_BIG = -1e30
+
+# ----------------------------------------------------------------------
+# regex parser -> NFA (Thompson construction)
+# ----------------------------------------------------------------------
+
+_ANY = frozenset(range(256)) - {ord("\n")}  # '.' (newline excluded)
+_DIGIT = frozenset(range(ord("0"), ord("9") + 1))
+_WORD = (frozenset(range(ord("a"), ord("z") + 1))
+         | frozenset(range(ord("A"), ord("Z") + 1)) | _DIGIT | {ord("_")})
+_SPACE = frozenset(b" \t\n\r\f\v")
+_ESC_CLASS = {
+    "d": _DIGIT, "D": frozenset(range(256)) - _DIGIT,
+    "w": _WORD, "W": frozenset(range(256)) - _WORD,
+    "s": _SPACE, "S": frozenset(range(256)) - _SPACE,
+}
+_ESC_CHAR = {"n": ord("\n"), "t": ord("\t"), "r": ord("\r"),
+             "f": ord("\f"), "v": ord("\v"), "0": 0}
+
+
+class _Nfa:
+    """States hold edges [(byteset | None, target)]; None = epsilon."""
+
+    def __init__(self):
+        self.edges: List[List[Tuple[Optional[frozenset], int]]] = []
+
+    def state(self) -> int:
+        self.edges.append([])
+        return len(self.edges) - 1
+
+    def edge(self, a: int, sym: Optional[frozenset], b: int):
+        self.edges[a].append((sym, b))
+
+
+class _Parser:
+    """Recursive descent over the pattern; every production returns an
+    NFA fragment (start, end) with a single entry and exit state."""
+
+    def __init__(self, pattern: str, nfa: _Nfa):
+        self.p = pattern
+        self.i = 0
+        self.nfa = nfa
+
+    def _peek(self) -> Optional[str]:
+        return self.p[self.i] if self.i < len(self.p) else None
+
+    def _take(self) -> str:
+        ch = self.p[self.i]
+        self.i += 1
+        return ch
+
+    def _error(self, msg: str):
+        raise ValueError(f"regex error at offset {self.i} "
+                         f"in {self.p!r}: {msg}")
+
+    # alternation := concat ('|' concat)*
+    def alternation(self) -> Tuple[int, int]:
+        frags = [self.concat()]
+        while self._peek() == "|":
+            self._take()
+            frags.append(self.concat())
+        if len(frags) == 1:
+            return frags[0]
+        s, e = self.nfa.state(), self.nfa.state()
+        for fs, fe in frags:
+            self.nfa.edge(s, None, fs)
+            self.nfa.edge(fe, None, e)
+        return s, e
+
+    def concat(self) -> Tuple[int, int]:
+        frags = []
+        while self._peek() is not None and self._peek() not in "|)":
+            frags.append(self.repeat())
+        if not frags:  # empty branch (e.g. "a|" or "()")
+            s = self.nfa.state()
+            return s, s
+        s, e = frags[0]
+        for fs, fe in frags[1:]:
+            self.nfa.edge(e, None, fs)
+            e = fe
+        return s, e
+
+    def repeat(self) -> Tuple[int, int]:
+        frag = self.atom()
+        while self._peek() in ("*", "+", "?", "{"):
+            op = self._peek()
+            if op == "{":
+                save = self.i
+                bounds = self._try_bounds()
+                if bounds is None:
+                    self.i = save
+                    break  # literal '{' already consumed by atom? no —
+                    # atom treats '{' as literal only via escape; a bare
+                    # '{' that isn't a bound is an error below
+                lo, hi = bounds
+                frag = self._repeat_bounded(frag, lo, hi)
+            else:
+                self._take()
+                s, e = self.nfa.state(), self.nfa.state()
+                fs, fe = frag
+                self.nfa.edge(s, None, e) if op in "*?" else None
+                self.nfa.edge(s, None, fs)
+                self.nfa.edge(fe, None, e)
+                if op in "*+":
+                    self.nfa.edge(fe, None, fs)
+                frag = (s, e)
+        return frag
+
+    def _try_bounds(self) -> Optional[Tuple[int, Optional[int]]]:
+        """Parse '{m}', '{m,}', '{m,n}' after the opening brace; None if
+        the text is not a bound (caller treats '{' literally)."""
+        assert self._take() == "{"
+        j = self.i
+        digits = ""
+        while j < len(self.p) and self.p[j].isdigit():
+            digits += self.p[j]
+            j += 1
+        if not digits:
+            return None
+        lo = int(digits)
+        hi: Optional[int] = lo
+        if j < len(self.p) and self.p[j] == ",":
+            j += 1
+            d2 = ""
+            while j < len(self.p) and self.p[j].isdigit():
+                d2 += self.p[j]
+                j += 1
+            hi = int(d2) if d2 else None
+        if j >= len(self.p) or self.p[j] != "}":
+            return None
+        self.i = j + 1
+        if hi is not None and hi < lo:
+            self._error(f"bad repetition bound {{{lo},{hi}}}")
+        return lo, hi
+
+    def _clone(self, frag: Tuple[int, int]) -> Tuple[int, int]:
+        """Deep-copy a fragment's subgraph (bounded repetition expands by
+        copying — fragments are small; patterns with huge bounds should
+        restructure)."""
+        fs, fe = frag
+        # collect reachable states (fe seeded explicitly: every Thompson
+        # fragment reaches its exit, but the invariant is free to assert)
+        seen = {fs, fe}
+        stack = [fs, fe]
+        while stack:
+            s = stack.pop()
+            for _, t in self.nfa.edges[s]:
+                if t not in seen:
+                    seen.add(t)
+                    stack.append(t)
+        mapping = {s: self.nfa.state() for s in seen}
+        for s in seen:
+            for sym, t in self.nfa.edges[s]:
+                self.nfa.edge(mapping[s], sym, mapping[t])
+        return mapping[fs], mapping[fe]
+
+    def _repeat_bounded(self, frag, lo: int, hi: Optional[int]):
+        s = self.nfa.state()
+        e = s
+        for _ in range(lo):
+            fs, fe = self._clone(frag)
+            self.nfa.edge(e, None, fs)
+            e = fe
+        if hi is None:  # {m,} — a trailing star
+            fs, fe = self._clone(frag)
+            star_s, star_e = self.nfa.state(), self.nfa.state()
+            self.nfa.edge(star_s, None, star_e)
+            self.nfa.edge(star_s, None, fs)
+            self.nfa.edge(fe, None, star_e)
+            self.nfa.edge(fe, None, fs)
+            self.nfa.edge(e, None, star_s)
+            e = star_e
+        else:
+            for _ in range(hi - lo):
+                fs, fe = self._clone(frag)
+                opt_e = self.nfa.state()
+                self.nfa.edge(e, None, fs)
+                self.nfa.edge(e, None, opt_e)  # skip
+                self.nfa.edge(fe, None, opt_e)
+                e = opt_e
+        return s, e
+
+    def atom(self) -> Tuple[int, int]:
+        ch = self._peek()
+        if ch is None:
+            self._error("unexpected end of pattern")
+        if ch == "(":
+            self._take()
+            frag = self.alternation()
+            if self._peek() != ")":
+                self._error("unbalanced '('")
+            self._take()
+            return frag
+        if ch == "[":
+            return self._frag(self._char_class())
+        if ch == ".":
+            self._take()
+            return self._frag(_ANY)
+        if ch == "\\":
+            return self._frag(self._escape())
+        if ch in "*+?)|":
+            self._error(f"unexpected {ch!r}")
+        if ch == "{":
+            self._error("bare '{' (escape it as \\{ or use {m,n} after "
+                        "an atom)")
+        # literal char — non-ASCII expands to its UTF-8 byte sequence
+        self._take()
+        bs = ch.encode("utf-8")
+        s = self.nfa.state()
+        e = s
+        for b in bs:
+            nxt = self.nfa.state()
+            self.nfa.edge(e, frozenset({b}), nxt)
+            e = nxt
+        return s, e
+
+    def _frag(self, byteset: frozenset) -> Tuple[int, int]:
+        s, e = self.nfa.state(), self.nfa.state()
+        self.nfa.edge(s, byteset, e)
+        return s, e
+
+    def _escape(self) -> frozenset:
+        assert self._take() == "\\"
+        ch = self._peek()
+        if ch is None:
+            self._error("dangling backslash")
+        self._take()
+        if ch in _ESC_CLASS:
+            return _ESC_CLASS[ch]
+        if ch in _ESC_CHAR:
+            return frozenset({_ESC_CHAR[ch]})
+        if ch == "x":
+            hx = self.p[self.i:self.i + 2]
+            if len(hx) != 2:
+                self._error("\\x needs two hex digits")
+            try:
+                v = int(hx, 16)
+            except ValueError:
+                self._error(f"bad hex escape \\x{hx}")
+            self.i += 2
+            return frozenset({v})
+        if ord(ch) < 128:  # escaped metachar / punctuation
+            return frozenset({ord(ch)})
+        self._error(f"unsupported escape \\{ch}")
+
+    def _char_class(self) -> frozenset:
+        assert self._take() == "["
+        negate = False
+        if self._peek() == "^":
+            negate = True
+            self._take()
+        members: set = set()
+        first = True
+        while True:
+            ch = self._peek()
+            if ch is None:
+                self._error("unbalanced '['")
+            if ch == "]" and not first:
+                self._take()
+                break
+            first = False
+            if ch == "\\":
+                sub = self._escape()
+                if len(sub) > 1:  # class escape like \d inside [...]
+                    members |= sub
+                    continue
+                lo = next(iter(sub))
+            else:
+                self._take()
+                bs = ch.encode("utf-8")
+                if len(bs) > 1:
+                    self._error("non-ASCII in char class (use "
+                                "alternation of literals instead)")
+                lo = bs[0]
+            if self._peek() == "-" and self.i + 1 < len(self.p) \
+                    and self.p[self.i + 1] != "]":
+                self._take()  # '-'
+                hi_ch = self._take()
+                if hi_ch == "\\":
+                    sub = self._escape()
+                    if len(sub) != 1:
+                        self._error("class escape cannot end a range")
+                    hi = next(iter(sub))
+                else:
+                    hb = hi_ch.encode("utf-8")
+                    if len(hb) > 1:
+                        self._error("non-ASCII range bound")
+                    hi = hb[0]
+                if hi < lo:
+                    self._error(f"reversed range {chr(lo)}-{chr(hi)}")
+                members |= set(range(lo, hi + 1))
+            else:
+                members.add(lo)
+        if negate:
+            return frozenset(range(256)) - members
+        return frozenset(members)
+
+
+# ----------------------------------------------------------------------
+# NFA -> DFA (subset construction)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Dfa:
+    """trans (S, 256) int32 (-1 = dead), accepting (S,) bool, start 0."""
+
+    trans: np.ndarray
+    accepting: np.ndarray
+
+    @property
+    def n_states(self) -> int:
+        return self.trans.shape[0]
+
+
+def _eps_closure(nfa: _Nfa, states: frozenset) -> frozenset:
+    out = set(states)
+    stack = list(states)
+    while stack:
+        s = stack.pop()
+        for sym, t in nfa.edges[s]:
+            if sym is None and t not in out:
+                out.add(t)
+                stack.append(t)
+    return frozenset(out)
+
+
+def compile_regex(pattern: str) -> Dfa:
+    """Compile the supported regex subset to a byte-level DFA (full-match
+    semantics — the whole emitted string must match)."""
+    nfa = _Nfa()
+    parser = _Parser(pattern, nfa)
+    start, accept = parser.alternation()
+    if parser.i != len(pattern):
+        parser._error("trailing characters (unbalanced ')'?)")
+
+    d0 = _eps_closure(nfa, frozenset({start}))
+    index: Dict[frozenset, int] = {d0: 0}
+    order = [d0]
+    rows: List[np.ndarray] = []
+    i = 0
+    while i < len(order):
+        cur = order[i]
+        row = np.full((256,), -1, np.int32)
+        # group outgoing byte edges
+        targets_by_byte: Dict[int, set] = {}
+        for s in cur:
+            for sym, t in nfa.edges[s]:
+                if sym is None:
+                    continue
+                for b in sym:
+                    targets_by_byte.setdefault(b, set()).add(t)
+        # canonicalize target sets -> dfa states
+        memo: Dict[frozenset, int] = {}
+        for b, ts in targets_by_byte.items():
+            key = frozenset(ts)
+            j = memo.get(key)
+            if j is None:
+                closure = _eps_closure(nfa, key)
+                j = index.get(closure)
+                if j is None:
+                    j = len(order)
+                    index[closure] = j
+                    order.append(closure)
+                memo[key] = j
+            row[b] = j
+        rows.append(row)
+        i += 1
+    trans = np.stack(rows)
+    accepting = np.asarray([accept in st for st in order], bool)
+    return Dfa(trans=trans, accepting=accepting)
+
+
+def match(dfa: Dfa, data: bytes) -> bool:
+    """Full-match test (used by the tests to cross-check constrained
+    output against the compiled automaton)."""
+    s = 0
+    for b in data:
+        s = int(dfa.trans[s, b])
+        if s < 0:
+            return False
+    return bool(dfa.accepting[s])
+
+
+# ----------------------------------------------------------------------
+# DFA over bytes -> transition table over TOKENS
+# ----------------------------------------------------------------------
+
+def _token_table(dfa: Dfa, vocab: Sequence[bytes]) -> np.ndarray:
+    """(S, V) int32: end state of walking token t's bytes from state s,
+    -1 anywhere the walk dies. One trie pass per DFA state — O(S x trie)
+    instead of O(S x V x len)."""
+    trie: dict = {}
+    for tid, bs in enumerate(vocab):
+        node = trie
+        for b in bs:
+            node = node.setdefault(b, {})
+        node.setdefault(None, []).append(tid)
+
+    S, V = dfa.n_states, len(vocab)
+    table = np.full((S, V), -1, np.int32)
+    for s0 in range(S):
+        stack = [(trie, s0)]
+        while stack:
+            node, s = stack.pop()
+            for key, sub in node.items():
+                if key is None:
+                    for tid in sub:
+                        table[s0, tid] = s
+                    continue
+                t = int(dfa.trans[s, key])
+                if t >= 0:
+                    stack.append((sub, t))
+    # empty-byte tokens (specials) would be state-preserving no-ops the
+    # model could emit forever — ban them outright (EOS is handled
+    # separately by mask_row)
+    for tid, bs in enumerate(vocab):
+        if len(bs) == 0:
+            table[:, tid] = -1
+    return table
+
+
+class TokenConstraint:
+    """A compiled (pattern, vocab) constraint — immutable and shareable
+    across requests; per-request progress is just an int DFA state the
+    serving layer tracks.
+
+    `vocab` maps token id -> the token's BYTES as emitted (for a
+    byte-level tokenizer, its byte; for BPE, the decoded bytes of that
+    token). `advance(state, token)` -> next state or -1; `mask_row`
+    -> (V,) f32 additive row (0 allowed / -1e30 banned) with EOS allowed
+    exactly in accepting states. The eos override assumes eos_id is a
+    SPECIAL token the grammar can never consume — the serving layer
+    rejects submissions where `allowed[:, eos_id]` is true in any
+    REACHABLE state (ContinuousBatcher.submit; `reachable` below —
+    states only enterable mid-token can never host a decode step, so
+    eos aliasing there is harmless)."""
+
+    def __init__(self, dfa: Dfa, vocab: Sequence[bytes]):
+        self.dfa = dfa
+        self.vocab_size = len(vocab)
+        self.table = _token_table(dfa, vocab)
+        self.allowed = self.table >= 0  # (S, V) bool
+        self.accepting = dfa.accepting
+        self.start = 0
+        self._reachable: Optional[np.ndarray] = None
+
+    @property
+    def reachable(self) -> np.ndarray:
+        """(S,) bool: states reachable from start via TOKEN transitions.
+        The subset construction can mint byte-DFA states no whole token
+        ever lands on; guards that quantify over states (e.g. the serving
+        layer's eos check) must ignore those or they reject grammars on
+        behavior that can never occur."""
+        if self._reachable is None:
+            seen = np.zeros(self.table.shape[0], bool)
+            stack = [self.start]
+            seen[self.start] = True
+            while stack:
+                s = stack.pop()
+                row = self.table[s]
+                for t in np.unique(row[row >= 0]):
+                    if not seen[t]:
+                        seen[t] = True
+                        stack.append(int(t))
+            self._reachable = seen
+        return self._reachable
+
+    @classmethod
+    def from_regex(cls, pattern: str, vocab: Sequence[bytes]
+                   ) -> "TokenConstraint":
+        return cls(compile_regex(pattern), vocab)
+
+    def advance(self, state: int, token: int) -> int:
+        return int(self.table[state, token])
+
+    def has_continuation(self, state: int) -> bool:
+        return bool(self.allowed[state].any())
+
+    def is_accepting(self, state: int) -> bool:
+        return bool(self.accepting[state])
+
+    def mask_row(self, state: int, eos_id: Optional[int]) -> np.ndarray:
+        row = np.where(self.allowed[state], 0.0, NEG_BIG).astype(np.float32)
+        if eos_id is not None:
+            row[eos_id] = 0.0 if self.accepting[state] else NEG_BIG
+        return row
+
+    def mask_table(self, eos_id: Optional[int]) -> np.ndarray:
+        """(S, V) bool: mask_row's allowed-set for EVERY state at once —
+        the device-resident form (True = allowed; the decode program
+        turns it into 0/-1e30 after a per-slot row gather). EOS column
+        overridden exactly as mask_row does."""
+        tab = self.allowed.copy()
+        if eos_id is not None:
+            tab[:, eos_id] = self.accepting.astype(bool)
+        return tab
+
+    def trans_table(self, eos_id: Optional[int]) -> np.ndarray:
+        """(S, V) int32 LOCAL next-state table with SELF-LOOP closure —
+        the device-resident walk form: next[s, t] = advance(s, t) where
+        the grammar allows t, s otherwise. Dead transitions never index
+        out of range (masking already bans those tokens; the self-loop
+        makes the walk total), and the EOS column holds the state — a
+        sampled EOS retires on host, and under the overlap pipeline the
+        one garbage step dispatched past it must be idempotent. Both
+        closures make replaying any masked-off token a no-op, which is
+        exactly what the one-step dispatch pipeline needs: a stale step
+        can never corrupt a slot's DFA state, only re-derive it."""
+        S = self.table.shape[0]
+        hold = np.arange(S, dtype=np.int32)[:, None]
+        tab = np.where(self.allowed, self.table, hold).astype(np.int32)
+        if eos_id is not None:
+            tab[:, eos_id] = hold[:, 0]
+        return tab
+
+
+# ----------------------------------------------------------------------
+# JSON mode
+# ----------------------------------------------------------------------
+
+_JSON_WS = r"[ \t\n\r]*"
+_JSON_ESC = r"\\([\"\\/bfnrt]|u[0-9a-fA-F]{4})"
+_JSON_STR = f'"([^"\\\\]|{_JSON_ESC})*"'
+_JSON_NUM = r"-?(0|[1-9][0-9]*)(\.[0-9]+)?([eE][+-]?[0-9]+)?"
+
+
+def json_regex(max_depth: int = 2) -> str:
+    """A regex matching JSON values nested up to `max_depth` levels of
+    arrays/objects (depth 0 = scalars only). Regular languages cannot
+    nest unboundedly — bounded expansion is the standard
+    structured-output trade, made explicit here."""
+    ws = _JSON_WS
+    value = f"({_JSON_STR}|{_JSON_NUM}|true|false|null)"
+    for _ in range(max_depth):
+        arr = f"\\[{ws}({value}({ws},{ws}{value})*)?{ws}\\]"
+        obj = (f"\\{{{ws}({_JSON_STR}{ws}:{ws}{value}"
+               f"({ws},{ws}{_JSON_STR}{ws}:{ws}{value})*)?{ws}\\}}")
+        value = f"({_JSON_STR}|{_JSON_NUM}|true|false|null|{arr}|{obj})"
+    return value
+
+
+_META = set("\\.[](){}*+?|")
+
+
+def regex_escape(text: str) -> str:
+    """Escape `text` so it matches literally under this module's regex
+    subset (the analog of re.escape for compile_regex)."""
+    return "".join("\\" + ch if ch in _META else ch for ch in text)
+
+
+def choice_regex(options: Sequence[str]) -> str:
+    """A regex matching exactly one of `options` verbatim — the
+    enum/classifier constraint ("answer with one of these labels"):
+
+        c = TokenConstraint.from_regex(
+            choice_regex(["positive", "negative", "neutral"]), vocab)
+
+    Greedy decode then picks the highest-likelihood label prefix-by
+    -prefix; sampling stays proportional within the allowed set."""
+    opts = [o for o in options]
+    if not opts:
+        raise ValueError("choice_regex needs at least one option")
+    return "(" + "|".join(regex_escape(o) for o in opts) + ")"
+
+
+def byte_vocab(vocab_size: int) -> List[bytes]:
+    """The trivial byte-level vocab (token i == byte i for i < 256,
+    empty for the rest) — what the tests and byte-tokenizer models use."""
+    return [bytes([i]) if i < 256 else b"" for i in range(vocab_size)]

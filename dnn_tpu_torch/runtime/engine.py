@@ -47,6 +47,13 @@ def load_params(config: TopologyConfig, spec, rng_seed: int = 0):
         log.warning("no model_weights in config; using random init "
                     "(seed %d)", rng_seed)
         return spec.init(rng_seed)
+    return checkpoint_params(path, spec)
+
+
+def checkpoint_params(path: str, spec):
+    """The parameter tree of the checkpoint at `path` (.pth, safetensors
+    or .npz): the native flat layout as it is, a foreign one through the
+    model's converter."""
     from dnn_tpu_torch.io import checkpoint as ckpt
 
     sd = ckpt.load_checkpoint(path)

@@ -17,7 +17,12 @@ the use_kernel policy, are not carried over), on a CPU cache its plain
 version. `attend(base=)` sends a one-row step to K6 (decode_attention)
 and a chunk to K5 (cached_attention), as the JAX codecs' kernel path
 does, with grouped query heads (a one-row step folds each group into
-K6's rows); `attend_rows` (per-slot decode, R rows a cached head) is K6.
+K6's rows); `attend_rows` (per-slot decode, R rows a cached head) is K6;
+`attend_rows_causal` (the speculative verify block: T rows a slot at
+per-slot bases, row t attending columns <= pos[b] + t, grouped heads
+included) is exactly K5's contract and runs K5. `write_rows` writes one
+position a slot (decode) or T of them (the verify block) at per-slot
+bases, gated per slot.
 Output dtypes follow the JAX codecs: a float codec returns the cache
 dtype, the int8 codec q's type (f32, or bf16 under bf16 compute: the
 kernels take a bf16 q and write a bf16 output). Writes cast k/v to the
@@ -94,19 +99,36 @@ def _write_span(c, new: dict, start_pos):
 
 
 def _write_rows(c, new: dict, pos, write_gate):
-    """new[name] (B, H[, D]) lands at each slot's position pos (B,), in
-    place. A gated-off row re-writes the value it already holds at
-    min(pos, S - 1) — the JAX codec's clamped gather-select-scatter: a
-    bitwise no-op, so an inactive slot whose stale pos reaches the
-    cache length changes nothing and indexes nothing past it. No host
-    sync: gate and positions stay on the device."""
+    """new[name] (B, H, T[, D]) lands at each slot's positions pos[b] ..
+    pos[b] + T - 1 (pos (B,)), in place. The start clamps to [0, S - T],
+    as the JAX codec's dynamic slice does, and a gated-off row re-writes
+    the values it already holds there — the JAX codec's clamped
+    gather-select-scatter: a bitwise no-op, so an inactive slot whose
+    stale pos reaches the cache length changes nothing and indexes
+    nothing past it. No host sync: gate and positions stay on the
+    device (a captured step reads them at each replay)."""
     s_len = c["k"].shape[2]
+    t = next(iter(new.values())).shape[2]
     b = torch.arange(pos.shape[0], device=pos.device)
-    p = pos.long().clamp(max=s_len - 1)
+    if t == 1:  # one position a slot: the decode step
+        p = pos.long().clamp(max=s_len - 1)
+        for name, val in new.items():
+            val = val[:, :, 0]
+            leaf = c[name]
+            gate = write_gate.reshape((-1,) + (1,) * (val.dim() - 1))
+            leaf[b, :, p] = torch.where(gate, val.to(leaf.dtype),
+                                        leaf[b, :, p])
+        return
+    # (B, T) columns; the advanced index puts T before the head dim
+    idx = (pos.long().clamp(0, s_len - t)[:, None]
+           + torch.arange(t, device=pos.device))
+    b = b[:, None]
     for name, val in new.items():
         leaf = c[name]
+        val = val.transpose(1, 2)  # (B, T, H[, D])
         gate = write_gate.reshape((-1,) + (1,) * (val.dim() - 1))
-        leaf[b, :, p] = torch.where(gate, val.to(leaf.dtype), leaf[b, :, p])
+        leaf[b, :, idx] = torch.where(gate, val.to(leaf.dtype),
+                                      leaf[b, :, idx])
 
 
 def cache_shape(cfg, batch: int, max_len: int):
@@ -170,14 +192,24 @@ class FloatKV:
     # position; `write_gate` (B,) bool keeps inactive slots untouched) ---
 
     def write_rows(self, c, k, v, pos, write_gate):
-        """k/v (B, H, 1, D) at per-slot positions pos (B,)."""
-        _write_rows(c, {"k": k[:, :, 0], "v": v[:, :, 0]}, pos, write_gate)
+        """k/v (B, H, T, D) at per-slot positions pos[b] .. pos[b] + T - 1
+        (T = 1: a decode step; T = k + 1: a verify block)."""
+        _write_rows(c, {"k": k, "v": v}, pos, write_gate)
 
     def attend_rows(self, q, c, pos):
         """q (B, Hk, R, D), R rows a cached head (1, or a GQA config's
         folded group); every row of slot b attends key positions
         <= pos[b] (K6). Returns (B, Hk, R, D) in the cache dtype."""
         return decode_attention(q.contiguous(), c["k"], c["v"], pos) \
+            .to(c["v"].dtype)
+
+    def attend_rows_causal(self, q, c, pos):
+        """q (B, H, T, D), the verify block: row t of slot b attends key
+        positions <= pos[b] + t, over a cache of H / G heads (K5 at the
+        slots' own bases). Returns (B, H, T, D) in the cache dtype. (The
+        JAX codec pins its einsum here and rounds the probabilities to
+        the cache dtype; K5 keeps them in f32.)"""
+        return cached_attention(q.contiguous(), c["k"], c["v"], pos) \
             .to(c["v"].dtype)
 
 
@@ -207,8 +239,8 @@ class Int8KV:
         return _attend_from(q, c, base, ks=c["ks"], vs=c["vs"])
 
     def write_rows(self, c, k, v, pos, write_gate):
-        kq, ks = _quantize_rows(k[:, :, 0])   # (B, H, D), (B, H)
-        vq, vs = _quantize_rows(v[:, :, 0])
+        kq, ks = _quantize_rows(k)   # (B, H, T, D), (B, H, T)
+        vq, vs = _quantize_rows(v)
         _write_rows(c, {"k": kq, "v": vq, "ks": ks, "vs": vs}, pos,
                     write_gate)
 

@@ -23,17 +23,23 @@ take yet (InsufficientBlocks) is held back and retried ahead of the
 queue once blocks free.
 
 The batcher's serving features ride the same worker: the daemon's
-batcher takes per-request logit biases (b=, allow_logit_bias, as JAX's
-node builds it), and `prefix_cache`, `prefill_chunk_tokens` and
-`overlap` pass through. Under interleaved admission a request's first
+batcher takes per-request logit biases (b=, allow_logit_bias) and
+grammar constraints (allow_constraints, with 3600 constraint rows), as
+JAX's node builds it; "j=DEPTH" serves JSON mode, a depth-bounded JSON
+grammar compiled once per depth over the tokenizer's `vocab_bytes`
+(`json_constraint`). `prefix_cache`, `prefill_chunk_tokens` and
+`overlap` pass through. Given a draft model (`draft_cfg`,
+`draft_prepared`, `spec_k`) the daemon serves through the speculative
+batcher (runtime/serving_spec.SpeculativeBatcher), which takes neither
+biases nor constraints. Under interleaved admission a request's first
 token arrives with a later step's commit (a step may then commit two
 tokens of one request); under overlap the worker commits the trailing
 step when the pool empties (flush_overlap).
 
 Left out (ROADMAP, "PyTorch/CUDA port" items 4 d-e and 12): the
 observability endpoints, chaos injection, dedup and connection
-draining, the watchdog, KV handoff and the KV tier, and the embedding
-endpoint. Their request ids answer UNIMPLEMENTED.
+draining, the watchdog, KV handoff and the KV tier, LoRA adapters and
+the embedding endpoint. Their request ids answer UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -83,8 +89,10 @@ def parse_gen_options(request_id: str, default_max_new: int):
     gets the server defaults. Positional segments are max_new then
     seed; unparseable segments fall back to defaults; unknown named
     segments (the JAX client's dl=/tr= tags) are skipped. b= is the
-    logit bias ("tok~val,tok~val"); the a/d/h/j options parse as in the
-    JAX daemon and are refused at admission (not ported)."""
+    logit bias ("tok~val,tok~val"), j= the JSON mode's depth (the
+    daemon's preflight turns it into a constraint); the a/d/h options
+    parse as in the JAX daemon and are refused at admission (not
+    ported)."""
     max_new, seed, opts = default_max_new, None, {}
     parts = (request_id or "").split(":")
     if parts[0] != "gen":
@@ -289,30 +297,81 @@ class LMServer:
     """NodeService servicer: SendTensor(prompt) -> generated tokens,
     GenerateStream, HealthCheck, SendMessage (declines the transport
     hello; with `tokenizer`, prompt text -> generated text; else, and for
-    "!stats", the pool's stats). Batcher keyword arguments pass through —
+    "!stats", the pool's stats). `draft_cfg` / `draft_prepared` /
+    `spec_k` serve through the speculative batcher. Batcher keyword
+    arguments pass through —
     the cache layout and storage (`kv` "paged"/"dense"/"auto", the
     default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
     `block_len`), `compute_dtype` (torch.bfloat16: bf16 compute, the
     cache bf16 unless `kv_dtype` says otherwise), `prefix_cache`,
     `prefill_chunk_tokens` and `overlap` among them; the batcher takes
-    logit biases (allow_logit_bias) unless told otherwise. `device`
+    logit biases (allow_logit_bias) and constraints (allow_constraints,
+    constraint_rows 3600: JSON mode's depth 3 needs 3519 rows) unless
+    told otherwise, or unless it is speculative. `device`
     defaults to "cuda" and raises without a card. A LlamaConfig serves
     through LlamaFamilyRows(cfg) unless `family` is given
     (serving.default_family)."""
 
+    _MAX_JSON_DEPTH = 3  # the regex grows with the depth; bound it
+
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
                  request_timeout: float = 120.0, tokenizer=None,
+                 draft_cfg=None, draft_prepared=None, spec_k: int = 4,
                  **batcher_kwargs):
         native.load()  # the checksum library, built before serving
-        # the daemon's clients choose options per request (b=), as the
-        # JAX node builds its batcher
-        batcher_kwargs.setdefault("allow_logit_bias", True)
-        self.batcher = ContinuousBatcher(cfg, prepared, **batcher_kwargs)
+        if draft_cfg is not None:
+            # speculative serving: each step commits up to spec_k + 1
+            # tokens a slot (runtime/serving_spec.py)
+            from dnn_tpu_torch.runtime.serving_spec import SpeculativeBatcher
+
+            self.batcher = SpeculativeBatcher(
+                cfg, prepared, draft_cfg, draft_prepared, spec_k=spec_k,
+                **batcher_kwargs)
+        else:
+            # the daemon's clients choose options per request (b=, j=),
+            # as the JAX node builds its batcher
+            batcher_kwargs.setdefault("allow_logit_bias", True)
+            batcher_kwargs.setdefault("allow_constraints", True)
+            if batcher_kwargs["allow_constraints"]:
+                batcher_kwargs.setdefault("constraint_rows", 3600)
+            self.batcher = ContinuousBatcher(cfg, prepared, **batcher_kwargs)
         self.default_max_new = default_max_new
         self.request_timeout = request_timeout
         self.tokenizer = tokenizer
+        # JSON mode's constraints, one per depth, compiled at first use
+        self._constraint_cache: dict = {}
         self.worker = _BatcherWorker(self.batcher)
         self.worker.start()
+
+    def json_constraint(self, depth: int):
+        """The TokenConstraint of a JSON value nested at most `depth`
+        levels (the gen option "j=DEPTH"), compiled once per depth over
+        the model's vocabulary through the tokenizer's `vocab_bytes`.
+        None when the tokenizer has no token -> bytes map; ValueError
+        for a depth outside [0, _MAX_JSON_DEPTH]."""
+        depth = int(depth)
+        if not 0 <= depth <= self._MAX_JSON_DEPTH:
+            raise ValueError(f"json depth must be in [0, "
+                             f"{self._MAX_JSON_DEPTH}], got {depth}")
+        vb = getattr(self.tokenizer, "vocab_bytes", None)
+        if vb is None:
+            return None
+        c = self._constraint_cache.get(depth)
+        if c is None:
+            from dnn_tpu_torch.runtime.constrain import (TokenConstraint,
+                                                         json_regex)
+
+            # over the MODEL's vocab: a padded embedding table's extra
+            # ids map to b"" (banned)
+            model_v = self.batcher.cfg.vocab_size
+            try:
+                vocab = list(vb(model_v))
+            except TypeError:
+                vocab = list(vb())
+            vocab = (vocab + [b""] * (model_v - len(vocab)))[:model_v]
+            c = TokenConstraint.from_regex(json_regex(depth), vocab)
+            self._constraint_cache[depth] = c
+        return c
 
     async def _abort_for(self, exc, context):
         if isinstance(exc, NotImplementedError):
@@ -353,6 +412,20 @@ class LMServer:
                 "to dnn_tpu_torch yet (ROADMAP PyTorch/CUDA port item 4)")
         max_new, seed, opts = parse_gen_options(request_id,
                                                 self.default_max_new)
+        if "json_depth" in opts:
+            try:
+                # a depth's first use compiles a vocab-sized token table:
+                # host work that must not block the event loop
+                c = await asyncio.to_thread(self.json_constraint,
+                                            opts.pop("json_depth"))
+            except ValueError as e:
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            if c is None:
+                await context.abort(
+                    grpc.StatusCode.INVALID_ARGUMENT,
+                    "JSON mode (j=) needs a server tokenizer with a "
+                    "token->bytes map (io/tokenizer.ByteTokenizer)")
+            opts["constraint"] = c
         dl = extract_deadline(request_id)
         timeout = (self.request_timeout if dl is None
                    else max(min(self.request_timeout, dl), 0.001))

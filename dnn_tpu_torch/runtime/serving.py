@@ -63,6 +63,20 @@ The JAX batcher's serving features of ROADMAP item 4 b-c:
     retires at a commit has run one more masked step, whose row the
     commit discards.
 
+And item 4 d's constraints: `allow_constraints` / `submit(constraint=)`
+(a runtime/constrain.TokenConstraint) masks every generated token to a
+regex or JSON grammar. Two device pools of `constraint_rows` rows,
+allocated once and written in place, hold each resident grammar's mask
+rows (bool) and next-state rows (int32, global row indices; row 0 is the
+unconstrained row); every slot's DFA row lives on the device and is
+walked there by the step that sampled its token (and by the admission
+finish, for the first token), so constrained requests ride the captured
+steps, interleaved admission and overlap with no host round trip. The
+host walks a mirror at commit to retire a request whose grammar admits
+nothing more (finish reason "constraint"). Grammars are refcounted by
+live slots and evicted in LRU order when unreferenced. The speculative
+batcher (runtime/serving_spec.py) builds on this class.
+
 On the card a step's forward (`family.decode_rows` over every slot of
 the pool, inactive ones writing to the junk block — and for a mixed step
 also `family.prefill` of the chunk into the transient row) is one
@@ -71,11 +85,12 @@ decode and mixed steps: captured after one eager run, replayed over
 static device buffers (the slots' tokens, positions and active flags;
 the chunk's ids and its start position), and captured again when the
 cache tensors are replaced (a bucket grow), as JAX recompiles per
-bucket. Sampling, the penalty, the bias and the logprobs run eagerly
-after it. A failed capture or replay raises; the step never falls back
-to eager. On the CPU the step is eager. The slots' state lives on the
-device, updated there by each step, with host mirrors for bookkeeping:
-a greedy step reads nothing back before its tokens, and those come
+bucket. Sampling, the penalty, the bias, the grammar's mask and walk
+and the logprobs run eagerly after it, on the device. A failed capture
+or replay raises; the step never falls back to eager. On the CPU the
+step is eager. The slots' state lives on the device, updated there by
+each step (the DFA rows too), with host mirrors for bookkeeping: a
+greedy step reads nothing back before its tokens, and those come
 through pinned memory after a CUDA event, so under overlap the host
 never waits on the step it has just dispatched.
 
@@ -93,9 +108,9 @@ Against the JAX batcher:
   * sampled requests draw from a per-request torch.Generator seeded from
     (server seed, request id or seed), so a sampled stream matches the
     JAX package's only in distribution; greedy streams are identical;
-  * constraints, LoRA, speculative serving, the KV handoff and the fleet
-    KV tier (item 4 d-e), the observability gauges (item 12) and int4 KV
-    (item 2) raise NotImplementedError (ROADMAP, "PyTorch/CUDA port").
+  * LoRA (item 4 d), the KV handoff and the fleet KV tier (item 4 e),
+    the observability gauges (item 12) and int4 KV (item 2) raise
+    NotImplementedError (ROADMAP, "PyTorch/CUDA port").
 
 The server runs on CUDA unless constructed with device="cpu"; without a
 card the default raises. TF32 is switched off for the matmuls: the JAX
@@ -127,6 +142,7 @@ from dnn_tpu_torch.runtime.decode_buckets import (
 )
 from dnn_tpu_torch.runtime.generate import (
     TOP_P_PREFILTER_K,
+    _NEG_BIG,
     _cache_dtype,
     _mlp,
     _qkv_heads,
@@ -152,16 +168,13 @@ log = logging.getLogger("dnn_tpu_torch.serving")
 # waits on. Passing one at its "off" value is accepted (it changes
 # nothing); any other value raises NotImplementedError.
 _UNPORTED = {
-    "allow_constraints": "item 4 d (constraints)",
     "lora_adapters": "item 4 d (LoRA)",
     "ffn": "item 7 (other model families)",
 }
 _UNPORTED_SUBMIT = {
     "adapter": "item 4 d (LoRA)",
-    "constraint": "item 4 d (constraints)",
     "prefilled": "item 4 e (KV handoff)",
     "kv_handle": "item 4 e (KV handoff)",
-    "json_depth": "item 4 d (constraints)",
 }
 
 
@@ -219,9 +232,31 @@ class GPTFamilyRows:
         paged pool's junk block, or re-write a dense row's own value);
         their rows are discarded by the caller. Per-layer views are taken
         here, each step: a bucket grow replaces the cache tensors."""
+        return self._rows(prepared, cache, tok[:, None], pos, active,
+                          codec, codec.attend_rows)[:, -1]
+
+    @torch.no_grad()
+    def verify_rows(self, prepared, cache, chunk, pos, active, codec):
+        """A (B, T) token block at per-slot bases pos (B,) -> logits (B, T,
+        V): K/V written at pos .. pos + T - 1 of each active slot, row t
+        attending columns <= pos[b] + t (codec.attend_rows_causal, K5);
+        row t's logits predict the token at pos + t + 1. The speculative
+        batcher's target verify and draft sync (JAX serving.py:156-200)."""
+        return self._rows(prepared, cache, chunk, pos, active, codec,
+                          codec.attend_rows_causal)
+
+    def _rows(self, prepared, cache, ids, pos, active, codec, attend):
+        """ids (B, T) at per-slot positions pos[b] + t through every layer:
+        the shared body of decode_rows (T = 1) and verify_rows. The
+        position embedding's index clamps at the table's end, as JAX's
+        gather does: only an inactive slot's stale position reaches
+        it, and its row is discarded."""
         cfg, cdt = self.cfg, self.compute_dtype
-        x = (embedding(prepared["wte"], tok)
-             + embedding(prepared["wpe"], pos.long()))[:, None, :]
+        t = ids.shape[1]
+        positions = (pos.long()[:, None] + torch.arange(t, device=pos.device)
+                     ).clamp(max=cfg.block_size - 1)
+        x = embedding(prepared["wte"], ids) + embedding(prepared["wpe"],
+                                                        positions)
         if cdt is not None:
             x = x.to(cdt)
         for i in range(cfg.n_layer):
@@ -231,12 +266,12 @@ class GPTFamilyRows:
             h = layer_norm(bp["ln_1"], x, eps=cfg.ln_eps)
             q, k, v = _qkv_heads(bp, h, cfg=cfg, compute_dtype=cdt)
             codec.write_rows(c, k, v, pos, active)
-            y = codec.attend_rows(q, c, pos)
+            y = attend(q, c, pos)
             x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
                            compute_dtype=cdt)
             h = layer_norm(bp["ln_2"], x, eps=cfg.ln_eps)
             x = x + _mlp(bp, h, cdt)
-        return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[:, -1]
+        return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)
 
 
 def default_family(cfg, compute_dtype=None):
@@ -315,7 +350,7 @@ class CapturedDecode:
         for buf, src in ((self.tok, tok), (self.pos, pos),
                          (self.active, active)):
             self._load(buf, src)
-        return self._run("decode", lambda: decode(
+        return self.run("decode", lambda: decode(
             cache, self.tok, self.pos, self.active), (cache,))
 
     def mixed(self, mixed, cache, row, tok, pos, active, chunk, start):
@@ -328,11 +363,17 @@ class CapturedDecode:
                          (self.active, active), (self.chunk, chunk),
                          (self.start, start)):
             self._load(buf, src)
-        return self._run("mixed", lambda: mixed(
+        return self.run("mixed", lambda: mixed(
             cache, self.tok, self.pos, self.active, row, self.chunk,
             self.start), (cache, row))
 
-    def _run(self, kind, fn, key):
+    def run(self, kind, fn, key):
+        """fn() -> a tensor or a tuple of them, as the graph of `kind`:
+        eager and then captured at the first call and whenever `key` (the
+        tensors it reads that a grow may replace: the caches, the rows)
+        changes, replayed otherwise. fn must read and write only static
+        buffers (as the speculative batcher's steps do: the slots' state
+        lives in this object's buffers and the batcher's own)."""
         g = self._graphs.get(kind)
         if g is None or any(a is not b for a, b in zip(g[3], key)):
             out = fn()
@@ -343,12 +384,12 @@ class CapturedDecode:
                 del self._graphs[k]
             graph, static, log = self._capture(fn)
             self._graphs[kind] = (graph, static, log, key)
-            self.counts[kind][0] += 1
+            self.counts.setdefault(kind, [0, 0])[0] += 1
             return out
         graph, static, log, _ = g
         graph.replay()
         log.replayed()
-        self.counts[kind][1] += 1
+        self.counts.setdefault(kind, [0, 0])[1] += 1
         return static
 
     def _part(self, i):
@@ -396,6 +437,11 @@ class ContinuousBatcher:
         srv.drain()   # run to completion -> {rid: np.ndarray tokens}
     """
 
+    # variants that commit more than one token a step (the speculative
+    # batcher) set this False: a per-token grammar mask cannot gate a
+    # verified chunk
+    _constraints_ok = True
+
     def __init__(self, cfg, prepared, *, slots: int = 4,
                  max_len: Optional[int] = None,
                  prompt_pad: Optional[int] = None,
@@ -410,6 +456,8 @@ class ContinuousBatcher:
                  prefix_cache: int = 0, logprobs_k: int = 0,
                  allow_logit_bias: bool = False,
                  prefill_chunk_tokens: int = 0, overlap: bool = False,
+                 allow_constraints: bool = False,
+                 constraint_rows: int = 1024,
                  device=None, **unported):
         compute_dtype = check_compute_dtype(compute_dtype)
         if family is not None:
@@ -589,6 +637,35 @@ class ContinuousBatcher:
         # when allowed (a construction-time capability, as in JAX)
         self._bias = (torch.zeros((slots, v), dtype=torch.float32, device=dev)
                       if allow_logit_bias else None)
+        # constrained decoding (runtime/constrain.TokenConstraint) rides
+        # two device pools, allocated once here and written in place (a
+        # grammar's rows are copied in at its first submit; the tensors
+        # are never replaced): `_ctable` (rows, V) bool, the mask each
+        # slot's row gathers before sampling (row 0 all True: an
+        # unconstrained slot adds nothing), and `_ctrans` (rows, V)
+        # int32, each grammar's next-state rows in GLOBAL row indices
+        # (row 0 all zeros: the unconstrained self-loop). `_crow_d` (B,)
+        # is every slot's DFA row, walked on the device by the step that
+        # sampled its token (`crow' = ctrans[crow, token]`); the host
+        # walks a mirror at commit for finish detection only. Bytes:
+        # rows x V x (1 + 4).
+        self._allow_constraints = bool(allow_constraints)
+        if self._allow_constraints and not self._constraints_ok:
+            raise ValueError(
+                f"{type(self).__name__} does not support allow_constraints=")
+        self._ctab_rows = (int(constraint_rows) if self._allow_constraints
+                           else 0)
+        self._ctable = self._ctrans = None
+        self._ctab_entries: "OrderedDict[int, dict]" = OrderedDict()
+        if self._allow_constraints:
+            if self._ctab_rows < 2:
+                raise ValueError(
+                    f"constraint_rows must be >= 2, got {constraint_rows}")
+            self._ctable = torch.ones((self._ctab_rows, v), dtype=torch.bool,
+                                      device=dev)
+            self._ctrans = torch.zeros((self._ctab_rows, v),
+                                       dtype=torch.int32, device=dev)
+        self._crow_d = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.pos = np.zeros((slots,), np.int32)    # next write position
         self.tok = np.zeros((slots,), np.int64)    # last committed token
         self.active = np.zeros((slots,), bool)
@@ -691,7 +768,7 @@ class ContinuousBatcher:
                repetition_penalty: Optional[float] = None,
                logit_bias: Optional[dict] = None,
                stop: Optional[list] = None, logprobs: bool = False,
-               **unported) -> int:
+               constraint=None, **unported) -> int:
         """Admit `prompt` (1-D int ids) into a free slot; returns the
         request id. The first token is sampled at the end of the prefill
         and counts toward max_new_tokens. `seed` names the request's rng
@@ -699,7 +776,11 @@ class ContinuousBatcher:
         the constructor's; `stop` is a list of token-id sequences that
         end generation (the match is not returned); `logit_bias`
         ({token_id: additive bias}, binding for greedy rows too) needs
-        allow_logit_bias=True, `logprobs=True` logprobs_k > 0. Convoy
+        allow_logit_bias=True, `logprobs=True` logprobs_k > 0;
+        `constraint` (a runtime/constrain.TokenConstraint) masks every
+        generated token to the grammar, the first included, and retires
+        the request with finish reason "constraint" once nothing can
+        extend a complete match (needs allow_constraints=True). Convoy
         admission prefills here; interleaved admission
         (prefill_chunk_tokens) only queues the prompt, whose chunks the
         following steps fold in. Raises RuntimeError without a free slot
@@ -743,6 +824,8 @@ class ContinuousBatcher:
             raise ValueError(
                 "logprobs requested but the server was constructed with "
                 "logprobs_k=0")
+        if constraint is not None:
+            self._check_constraint(constraint)
         tk = min(tk, TOP_P_PREFILTER_K)
         stop_seqs = []
         for s in (stop or []):
@@ -754,16 +837,19 @@ class ContinuousBatcher:
             slot = self._slot_req.index(None)
         except ValueError:
             raise RuntimeError("no free slot; call step()/drain() first") from None
+        # the grammar's rows in the device pools (a pool hit is free); the
+        # reference drops if the admission fails below
+        c_off = (self._ctab_register(constraint)
+                 if constraint is not None else None)
 
         # the radix store's longest cached prefix (host lookup)
         kv_hit = (self._prefix_store.lookup(prompt)
                   if self._prefix_store is not None else None)
-        taken, n_shared, cow_tok, install_ids = [], 0, 0, None
-        if self.paged:
-            taken, n_shared, cow_tok = self._alloc_blocks(
-                slot, prompt, max_new_tokens, kv_hit)
+        taken, n_shared, cow_tok, install_ids, req = [], 0, 0, None, None
         try:
             if self.paged:
+                taken, n_shared, cow_tok = self._alloc_blocks(
+                    slot, prompt, max_new_tokens, kv_hit)
                 inst = np.zeros((self.cache["tables"].shape[-1],), np.int32)
                 inst[:len(taken)] = taken
                 inst[:n_shared] = 0  # the shared prefix is not the request's
@@ -780,12 +866,19 @@ class ContinuousBatcher:
                    "logprobs": bool(logprobs and self._logprobs_k)}
             if req["logprobs"]:
                 req["lp"], req["lp_top"] = [], []
+            if constraint is not None:
+                req.update(constraint=constraint, c_state=constraint.start,
+                           c_off=c_off)
             par = {"gen": self._generator(rid, seed) if temp > 0 else None,
                    "t": temp, "k": tk, "p": tp, "mp": mp, "rp": rp,
                    "seen_row": self._seen_row(prompt),
                    "b_row": (None if b_np is None or self._bias is None
                              else self._upload(b_np, torch.float32)),
-                   "install_ids": install_ids}
+                   "install_ids": install_ids,
+                   # the grammar's global start row: it masks the first
+                   # token and seeds the slot's device DFA row (0: the
+                   # unconstrained row)
+                   "c_row": 0 if c_off is None else c_off + constraint.start}
             if self._ilv:
                 # interleaved admission: no device work beyond the uploads
                 # above; the chunks fold into the next steps (_ilv_next)
@@ -803,11 +896,15 @@ class ContinuousBatcher:
             self._admit(slot, req, prompt, par, kv_hit, n_shared, cow_tok)
             return rid
         except BaseException:
-            # a failure anywhere in the admission returns the blocks and
-            # the slot, or the pool shrinks on every such failure
+            # a failure anywhere in the admission returns the blocks, the
+            # grammar's reference and the slot, or the pools shrink on
+            # every such failure
             if self.paged:
                 self.allocator.free(taken)
                 self.cache["tables"][slot] = 0
+            if c_off is not None and not (req or {}).get("c_released"):
+                self._ctab_release(constraint)
+                self._crow_d[slot] = 0
             self._slot_req[slot] = None
             self.active[slot] = False
             self._active_d[slot] = False
@@ -918,6 +1015,7 @@ class ContinuousBatcher:
         if req["logprobs"]:
             req["lp"].append(float(host[1][0]))
             req["lp_top"].append((host[3][0], host[2][0]))
+        self._constraint_advance(req, first)
         if self._overlap and self._inflight is not None:
             # the uncommitted step in flight was dispatched while this
             # slot was free: its row of that step is garbage
@@ -1036,6 +1134,8 @@ class ContinuousBatcher:
             raw, (par["rp"] != 1.0) & par["seen_row"][None], par["rp"])
         if par["b_row"] is not None:
             lg = lg + par["b_row"][None]
+        if self._allow_constraints:
+            lg = torch.where(self._ctable[par["c_row"]][None], lg, _NEG_BIG)
         first = _sample_rows(
             lg, [par["gen"]],
             temperature=torch.full((1,), par["t"], device=dev),
@@ -1058,6 +1158,11 @@ class ContinuousBatcher:
         self._rep_d[slot] = par["rp"]
         self._seen[slot] = par["seen_row"]
         self._seen[slot, first] = True
+        if self._allow_constraints:
+            # the slot's DFA row after its first token, walked on the
+            # device (the convoy path's host mirror agrees at readback)
+            self._crow_d[slot:slot + 1].copy_(
+                self._ctrans[par["c_row"]][first])
         if self._bias is not None:
             if par["b_row"] is None:
                 self._bias[slot] = 0.0
@@ -1070,6 +1175,113 @@ class ContinuousBatcher:
         lp = (logprob_outputs(raw, first, self._logprobs_k)
               if req["logprobs"] else ())
         return first, lp
+
+    # ------------------------------------------------------------------
+    # constrained decoding: the device pools' bookkeeping (JAX
+    # serving.py:1309-1362, :2393-2502, :2768-2778)
+
+    def _check_constraint(self, c):
+        """submit's checks of a constraint, as the JAX batcher makes
+        them: the capability, the vocabulary, an eos the grammar could
+        consume in a token-reachable state (the eos override would ban a
+        token it needs), and an empty language."""
+        if not self._allow_constraints:
+            raise ValueError(
+                "constraint= requires allow_constraints=True at "
+                "construction (the device mask pools are a "
+                "construction-time choice)")
+        if not self._constraints_ok:
+            raise ValueError(
+                "this batcher variant commits multiple tokens per step and "
+                "cannot honor per-token constraints")
+        if c.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"constraint compiled for vocab {c.vocab_size} != model "
+                f"vocab {self.cfg.vocab_size}")
+        if self.eos_id is not None \
+                and c.allowed[c.reachable, self.eos_id].any():
+            raise ValueError(
+                f"eos_id {self.eos_id} maps to bytes this constraint's "
+                "grammar can consume; serve constrained requests with a "
+                "dedicated special token as eos")
+        # a grammar matching only the empty string is legal when eos can
+        # express it (the first sample is then forced to eos)
+        if not (c.allowed[c.start].any()
+                or (self.eos_id is not None and c.is_accepting(c.start))):
+            raise ValueError("constraint permits no first token (empty "
+                             "language over this vocab)")
+
+    def _ctab_register(self, c) -> int:
+        """Place a constraint's (S, V) tables in the device pools,
+        returning its row offset. A pool hit bumps the refcount; a miss
+        takes the first gap of S rows after row 0 (evicting unreferenced
+        entries in LRU order while none fits) and copies the mask and
+        the next-state rows, offset to global rows, IN PLACE: the pools
+        are never replaced, so a captured step reads them where they
+        were. Raises when the grammar cannot fit even an empty pool, or
+        every row is held by live requests."""
+        key = id(c)
+        e = self._ctab_entries.get(key)
+        if e is not None:
+            e["refs"] += 1
+            self._ctab_entries.move_to_end(key)
+            return e["off"]
+        n = c.table.shape[0]
+        if n > self._ctab_rows - 1:
+            raise ValueError(
+                f"constraint has {n} DFA states but the device mask pool "
+                f"holds {self._ctab_rows - 1} rows — construct the server "
+                f"with constraint_rows >= {n + 1}")
+
+        def free_gap():
+            at = 1
+            for lo, hi in sorted((v["off"], v["off"] + v["n"])
+                                 for v in self._ctab_entries.values()):
+                if lo - at >= n:
+                    return at
+                at = max(at, hi)
+            return at if self._ctab_rows - at >= n else None
+
+        off = free_gap()
+        while off is None:
+            victim = next((k for k, v in self._ctab_entries.items()
+                           if v["refs"] == 0), None)
+            if victim is None:
+                raise ValueError(
+                    f"constraint mask pool exhausted: {n} rows needed, all "
+                    f"{self._ctab_rows - 1} allocatable rows occupied by "
+                    "live requests — construct the server with a larger "
+                    "constraint_rows")
+            del self._ctab_entries[victim]
+            off = free_gap()
+        self._ctable[off:off + n].copy_(
+            self._upload(c.mask_table(self.eos_id), torch.bool))
+        self._ctrans[off:off + n].copy_(self._upload(
+            c.trans_table(self.eos_id) + np.int32(off), torch.int32))
+        self._ctab_entries[key] = {"off": off, "n": n, "refs": 1, "c": c}
+        return off
+
+    def _ctab_release(self, c):
+        e = self._ctab_entries.get(id(c))
+        if e is not None and e["refs"] > 0:
+            e["refs"] -= 1  # the entry stays cached until evicted
+
+    def _constraint_advance(self, req, token: int):
+        """The host mirror of the device walk, for finish detection only:
+        advances the request's DFA state over a committed `token` and
+        sets `c_done` when nothing can extend the match and eos cannot
+        express the stop (the request then retires as "constraint")."""
+        c = req.get("constraint")
+        if c is None or (self.eos_id is not None and token == self.eos_id):
+            return
+        ns = c.advance(req["c_state"], token)
+        if ns < 0:
+            req["c_done"] = True  # unreachable while the mask holds
+            return
+        req["c_state"] = ns
+        if not c.has_continuation(ns) and (
+                self.eos_id is None or not c.is_accepting(ns)):
+            req["c_done"] = True
 
     # ------------------------------------------------------------------
 
@@ -1102,6 +1314,15 @@ class ContinuousBatcher:
         req = self._slot_req[slot]
         if self.paged and req["blocks"]:
             self.allocator.free(req["blocks"])
+        if "constraint" in req and not req.get("c_released"):
+            # the grammar's reference drops (its rows stay cached until
+            # evicted) and the slot's device row returns to the
+            # unconstrained row 0 -- on the stream after any step already
+            # dispatched, so under overlap the reset lands before the
+            # next dispatch reads it
+            req["c_released"] = True
+            self._ctab_release(req["constraint"])
+            self._crow_d[slot] = 0
         self._slot_req[slot] = None
         self.active[slot] = False
         self._active_d[slot] = False
@@ -1116,6 +1337,8 @@ class ContinuousBatcher:
         elif (n_stop := self._stop_match(emitted, req["stop"])):
             reason = "stop"
             emitted = emitted[:-n_stop]
+        elif req.get("c_done"):
+            reason = "constraint"
         elif len(emitted) >= req["budget"]:
             reason = "length"
         if reason is None:
@@ -1290,6 +1513,9 @@ class ContinuousBatcher:
             logits, (rep != 1.0)[:, None] & self._seen, rep[:, None])
         if self._bias is not None:
             lg = lg + self._bias
+        if self._allow_constraints:
+            crow = self._crow_d.long()
+            lg = torch.where(self._ctable[crow], lg, _NEG_BIG)
         rows = [i for i in range(self.slots)
                 if self.active[i] and self._temp[i] > 0]
         nxt = _sample_rows(lg, self._gens, temperature=self._temp_d,
@@ -1299,6 +1525,12 @@ class ContinuousBatcher:
         nxt = torch.where(act, nxt, self._tok_d)
         ids = self._slot_ids
         self._seen[ids, nxt] = self._seen[ids, nxt] | act
+        if self._allow_constraints:
+            # the device DFA walk; trans_table's self-loops make it total
+            # over masked-off tokens and eos, so a garbage overlap step
+            # re-derives the same row
+            self._crow_d.copy_(torch.where(act, self._ctrans[crow, nxt],
+                                           self._crow_d))
         self._tok_d.copy_(nxt)
         self._pos_d += act.to(torch.int32)
         lp = (logprob_outputs(logits, nxt, self._logprobs_k)
@@ -1341,6 +1573,7 @@ class ContinuousBatcher:
         if req["logprobs"]:
             req["lp"].append(float(host[1][row]))
             req["lp_top"].append((host[3][row], host[2][row]))
+        self._constraint_advance(req, token)
         self._retire_if_done(slot)
         return token
 

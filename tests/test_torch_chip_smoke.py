@@ -390,3 +390,80 @@ def test_serve_phase_rehearsed_on_the_cpu(capsys, one_torch_thread):
     for i, n in enumerate((5, 70, 130, 300)):
         assert f"[main] run H request {i} (prompt {n}): " in out
     assert set(counts) == set(chip_smoke.CACHE_KERNELS)
+
+
+def test_constrain_phase_rehearsed_on_the_cpu(capsys, one_torch_thread):
+    """chip_smoke's [constrain] phase on the CPU with a 2-layer model of
+    block_size 1024 (run A's pool) and vocab 512, after run A: J (four
+    j=1 requests over gRPC, two choice requests through the worker, two
+    unconstrained) and J-ilv (64-token chunks, overlap), every
+    constrained stream equal to the masked no-cache loop, every
+    completed output matching its grammar, the unconstrained streams
+    equal to A's, J-ilv's equal to J's; every check applies except the
+    launch counts and the replay (a CPU call launches no kernel)."""
+    import torch
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=2,
+                         n_head=2, n_embd=32)
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return t * np.float32(8.0) if t.ndim >= 2 else t
+    prepared = from_jax_params(scaled(tgpt.init(1, cfg)), cfg, "cpu")
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    refs = [chip_smoke.reference_greedy(prepared, cfg, p, 16, dev)
+            for p in prompts]
+    a_info = {}
+    chip_smoke.serve_run("A", cfg, prepared, prompts, 16, refs, [], dev,
+                         "cpu", info=a_info, kv="paged")
+    counts = chip_smoke.phase_constrain(cfg, prepared, prompts, a_info, dev,
+                                        "cpu")
+    out = capsys.readouterr().out
+    for run in ("J", "J-ilv"):
+        assert f"[constrain] run {run}: 8 concurrent requests (4 j=1 over " \
+            "gRPC, 2 choice, 2 unconstrained)" in out, out
+        assert "every completed output matches it" in out
+    assert "[constrain] run J-ilv: every stream equals run J's" in out
+    assert "constraint pools 3600 rows x 512: 0.009 GB" in out
+    assert set(counts) == set(chip_smoke.CACHE_KERNELS)
+
+
+def test_spec_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                        one_torch_thread):
+    """chip_smoke's [spec] phase on the CPU with a 2-layer target drafted
+    by a 1-layer model (block_size 1024, vocab 512) in place of gpt2-xl
+    and gpt2: S over gRPC, S-ilv equal to S, S-solo equal to
+    make_generate, S-self accepting every proposal with k+1 tokens a
+    step, S-bf16 against the plain bf16 loop; every check applies except
+    the launch counts and the replays (a CPU call launches no kernel)."""
+    import torch
+
+    init = tgpt.init
+
+    def scaled(seed, cfg):  # decisive greedy argmaxes on a tiny model
+        def x8(t):
+            if isinstance(t, dict):
+                return {k: x8(v) for k, v in t.items()}
+            return t * np.float32(8.0) if t.ndim >= 2 else t
+        return x8(init(seed, cfg))
+
+    monkeypatch.setattr(tgpt, "init", scaled)
+    monkeypatch.setitem(tgpt.PRESETS, "spec-t", tgpt.GPTConfig(
+        block_size=1024, vocab_size=512, n_layer=2, n_head=2, n_embd=32))
+    monkeypatch.setitem(tgpt.PRESETS, "spec-d", tgpt.GPTConfig(
+        block_size=1024, vocab_size=512, n_layer=1, n_head=2, n_embd=32))
+    counts, verify = chip_smoke.phase_spec(torch.device("cpu"), "cpu",
+                                           target="spec-t", draft="spec-d")
+    out = capsys.readouterr().out
+    for run in ("S", "S-ilv", "S-bf16"):
+        assert f"[main] run {run}: speculative, spec_k 4" in out, out
+        for i, n in enumerate((5, 70, 130, 300)):
+            assert f"[main] run {run} request {i} (prompt {n}): " in out
+    assert "[main] run S-ilv: every stream equals run S's" in out
+    assert "[spec] S-solo: 16 tokens after a 300-token prompt" in out
+    assert "every one committing 5 tokens a slot" in out
+    assert set(counts) == {"f32", "bf16"} and set(verify) == {"f32", "bf16"}

@@ -785,3 +785,144 @@ def test_interleaved_and_overlapped_streams_equal_convoy(dev, compute,
     assert run(prefill_chunk_tokens=32) == want
     assert run(prefill_chunk_tokens=32, overlap=True) == want
     assert run(overlap=True) == want
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16-q"])
+@pytest.mark.parametrize("shape", [(4, 25, 25, 64), (4, 32, 8, 128)],
+                         ids=["gpt2-xl", "llama3-8b"])
+@pytest.mark.parametrize("bases", [(4, 69, 129, 299), (0, 511, 512, 960),
+                                   (1019, 1020, 1022, 1023),
+                                   (1023, 2000, 0, 1021)],
+                         ids=["prompts", "split-edges", "end", "past-end"])
+def test_cached_attention_at_the_verify_shapes(dev, shape, q_dtype, bases):
+    """K5 at the speculative verify's call pattern: a (B=4, T=5) block of
+    each slot at its own base over S=1024 (gpt2-xl's 25 heads at D=64,
+    llama3-8b's 32 over 8 KV heads at D=128), f32 q over an f32 cache and
+    bf16 q over a bf16 one; bases at the prompts' ends, beside the split
+    edges, with rows reaching the cache's end, and past it (an inactive
+    slot's stale base): against the plain version, and bit-equal run to
+    run."""
+    b, h, hk, d = shape
+    g = torch.Generator(device=dev).manual_seed(sum(bases) + d)
+    kind = "f32" if q_dtype == torch.float32 else "bf16"
+    k, v, _, _ = _cache(g, (b, hk, 1024, d), kind, dev)
+    q = torch.randn(b, h, 5, d, generator=g, device=dev).to(q_dtype)
+    pos = torch.tensor(bases, dtype=torch.int32, device=dev)
+    if q_dtype == torch.float32:
+        got = _k5_check(q, k, v, pos, None, None, kind)
+    else:
+        got = _bf16_q_check(tca.cached_attention,
+                            tca.reference_cached_attention, (q, k, v, pos),
+                            kind)
+    assert torch.equal(got, tca.cached_attention(q, k, v, pos))
+
+
+def _spec_batcher(dev, compute, **kw):
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import GPTConfig, init
+    from dnn_tpu_torch.runtime.serving_spec import SpeculativeBatcher
+
+    cfg = GPTConfig(block_size=256, vocab_size=512, n_layer=3, n_head=4,
+                    n_embd=256)
+    d_cfg = GPTConfig(block_size=256, vocab_size=512, n_layer=2, n_head=4,
+                      n_embd=128)
+    cdt = torch.bfloat16 if compute == "bf16" else None
+    prep = from_jax_params(init(5, cfg), cfg, dev, compute_dtype=cdt)
+    d_prep = from_jax_params(init(6, d_cfg), d_cfg, dev, compute_dtype=cdt)
+    return SpeculativeBatcher(cfg, prep, d_cfg, d_prep, spec_k=4, slots=3,
+                              max_len=256, prompt_pad=32, device=dev,
+                              compute_dtype=cdt, **kw)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("kw", [{}, {"decode_buckets": True}],
+                         ids=["dense", "dense-buckets"])
+def test_captured_spec_step_equals_eager(dev, compute, kw):
+    """The greedy speculative step on the card is one replayed CUDA graph
+    (draft sync, 4 draft steps, the verify, acceptance, the slots' state
+    updated in place): after two steps (one eager step and its capture,
+    then one replay), one more replay from a saved state gives the eager
+    step's block, accepted counts and the slots' state after it bit for
+    bit, and the replays counted the captured launches (K5 once a draft
+    and a target layer, K6 four times a draft layer)."""
+    b = _spec_batcher(dev, compute, **kw)
+    b.submit(list(range(1, 40)), 60)
+    b.submit(list(range(7, 12)), 60)
+    k5, k6 = tca.cached_attention, tca.decode_attention
+    b.step()
+    k5_0, k6_0 = k5.launches, k6.launches
+    b.step()
+    g = b._graph_step
+    assert g.counts["spec"] == [1, 1]
+    assert k5.launches == k5_0 + 5 and k6.launches == k6_0 + 4 * 2
+    graph, static, log, _ = g._graphs["spec"]
+    state = [b._tok_d, b._pos_d, b._prev_chunk, b._prev_pos]
+    saved = [t.clone() for t in state]
+    graph.replay()
+    log.replayed()
+    replayed = [t.clone() for t in (*static, *state)]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    eager = [t.clone() for t in (*b._spec_core(), *state)]
+    torch.cuda.synchronize()
+    for r, e in zip(replayed, eager):
+        assert torch.equal(r, e)
+    assert k5.launches == k5_0 + 3 * 5 and k6.launches == k6_0 + 3 * 8
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_spec_streams_equal_the_plain_batcher(dev, compute):
+    """On the card the speculative batcher's greedy streams (captured
+    steps; interleaved and overlapped; through bucket rungs) equal the
+    plain dense batcher's token for token."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b0 = _spec_batcher(dev, compute)
+    plain = ContinuousBatcher(b0.cfg, b0.prepared, slots=3, max_len=256,
+                              prompt_pad=32, device=dev, kv="dense",
+                              compute_dtype=b0.compute_dtype)
+
+    def run(b):
+        rids = [b.submit(list(range(3, 8)), 60),
+                b.submit(list(range(1, 40)), 44)]
+        for _ in range(3):
+            b.step()
+        rids.append(b.submit(list(range(11, 81)), 29))
+        b.drain()
+        return [b.results[r].tolist() for r in rids]
+
+    want = run(plain)
+    assert run(b0) == want
+    assert run(_spec_batcher(dev, compute, prefill_chunk_tokens=32,
+                             overlap=True)) == want
+    assert run(_spec_batcher(dev, compute, decode_buckets=True)) == want
+
+
+def test_grammar_registered_after_capture_is_honoured(dev):
+    """The constraint pools are allocated once and written in place: a
+    grammar registered after the decode step was captured is honoured by
+    the replayed steps (its stream equals the same request's on a
+    batcher that never captured before it arrived), and the pools keep
+    their storage."""
+    from dnn_tpu_torch.runtime.constrain import TokenConstraint, byte_vocab
+
+    c = TokenConstraint.from_regex(r"[0-9]{3,12}", byte_vocab(512))
+
+    def run(early):
+        b = _mixed_batcher(dev, "f32", {"kv": "paged"},
+                           allow_constraints=True, constraint_rows=64)
+        ptrs = (b._ctable.data_ptr(), b._ctrans.data_ptr())
+        r0 = b.submit(list(range(1, 20)), 30)
+        if early:
+            b.step()
+            b.step()
+            assert b._graph_step.captures == 1
+        r1 = b.submit(list(range(5, 30)), 16, constraint=c)
+        b.drain()
+        assert (b._ctable.data_ptr(), b._ctrans.data_ptr()) == ptrs
+        return b.results[r0].tolist(), b.results[r1].tolist()
+
+    late, fresh = run(True), run(False)
+    assert late[1] == fresh[1]
+    assert all(48 <= t <= 57 for t in late[1])

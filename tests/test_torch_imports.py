@@ -103,3 +103,31 @@ def test_node_cli_refuses_cpu_fallback(tmp_path):
 
     assert main(["--node_id", "node1", "--config", str(cfg),
                  "--serve_lm"]) == 1
+
+
+def test_the_constraint_and_speculative_modules_are_scanned():
+    """The modules of constrained and speculative decoding are among the
+    modules the two tests above import and scan."""
+    names = {n for n, _ in _modules()}
+    assert {"dnn_tpu_torch.runtime.constrain",
+            "dnn_tpu_torch.runtime.speculative",
+            "dnn_tpu_torch.runtime.serving_spec"} <= names
+
+
+def test_speculative_entry_points_need_a_card():
+    """Without device=, the speculative batcher and the solo speculative
+    decoder run on CUDA: on a host without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default is satisfiable")
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models.gpt import PRESETS, init
+    from dnn_tpu_torch.runtime.serving_spec import SpeculativeBatcher
+    from dnn_tpu_torch.runtime.speculative import make_speculative_generate
+
+    cfg = PRESETS["gpt2-test"]
+    prepared = from_jax_params(init(0, cfg), cfg, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeculativeBatcher(cfg, prepared, cfg, prepared, slots=2, max_len=32,
+                           prompt_pad=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_speculative_generate(cfg, cfg, max_new_tokens=4)

@@ -205,8 +205,11 @@ def test_cancel_a_pending_request(weights):
      "does not compose with the prefix cache"),
     ({"prefill_chunk_tokens": 16, "kv": "dense", "prefix_cache": 4},
      ValueError, "does not compose with the prefix cache"),
-    ({"prefill_chunk_tokens": 16, "allow_constraints": True},
-     NotImplementedError, "item 4 d"),
+    # constraints compose with interleaved admission now
+    # (tests/test_torch_constrained_hotpath.py); their pool size is
+    # still checked
+    ({"prefill_chunk_tokens": 16, "allow_constraints": True,
+      "constraint_rows": 1}, ValueError, "constraint_rows must be >= 2"),
     ({"logprobs_k": -1}, ValueError, "logprobs_k"),
 ])
 def test_constructor_checks(weights, kwargs, exc, match):
