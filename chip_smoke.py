@@ -11,7 +11,10 @@ captured CUDA graphs throughout, and so are the mixed steps of the
 interleaved runs (H, H-bf16, L-B-ilv), which also overlap each step's
 dispatch with the previous step's commit; the prefix cache (G, G-dense),
 the logit bias and logprobs run on gpt2, and so do grammar-constrained
-requests (JSON mode); gpt2-xl is served speculatively, drafted by gpt2.
+requests (JSON mode); gpt2-xl is served speculatively, drafted by gpt2;
+gpt2 serves int8 and int4 weights and three LoRA adapters per request,
+runs beam search and the embedding endpoint, and llama3-8b serves int8
+weights in bf16 compute.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -105,7 +108,8 @@ Phases (any failure exits non-zero and prints no result):
   5c. [constrain] ROADMAP item 4 d's constraints on the same weights,
      each run with the launch counts zeroed just before and read just
      after: J, A's daemon with ByteTokenizer's byte map and the default
-     constraint pools (3600 rows), 8 concurrent requests -- 4 in JSON
+     constraint pools (allow_constraints: 3600 rows), 8 concurrent
+     requests -- 4 in JSON
      mode (j=1) over gRPC, 2 under choice_regex through the daemon's
      worker, 2 unconstrained -- each constrained stream against the
      masked no-cache greedy loop (the grammar's allowed tokens at the
@@ -123,6 +127,29 @@ Phases (any failure exits non-zero and prints no result):
      each equal the no-cache greedy loop; the reply equals the decode of
      SendTensor's tokens; generate_text_stream's chunks join to the
      reply; "!stats"; launches counted (K5, K7)
+  5d. ROADMAP item 4 d's second half on the same weights, each run with
+     the launch counts zeroed just before and read just after, exact
+     counts, each phase's wall printed:
+       [quant] Q8 A's daemon with weights="int8", Q4 the int4 tree
+          (quantize_gpt(bits=4)) through the daemon and make_generate,
+          each stream against the no-cache loop over the same quantized
+          tree; param_bytes at f32/int8/int4 and each tree's decode step
+          (captured and eager, device busy)
+       [lora] three rank-8 adapters (nonzero b) on A's daemon, two waves
+          of four gRPC requests mixing a=0/1/2 and the base model, each
+          stream against the no-cache loop over merge_lora(base, adapter),
+          the step captured once across the reassignment and a replay
+          bit-equal to the eager step before and after it; the dense
+          pool's prefix LRU hitting only under the same adapter
+       [beam] make_beam_generate K=4 over two 130-token rows, 32 tokens,
+          an eos the beams reach, length penalty 0.6, every beam against
+          an independent search over no-cache forwards (scores within
+          1e-4); beam_size 1 against make_generate; `node --generate 16
+          --beam 4` as a process against the library
+       [embed] make_embed mean/last/none on the four prompts padded to
+          320 tokens against the plain forward (1e-4 of the scale), K1
+          once a layer a call; the daemon's embed and embed:last replies
+          bit-equal to the library's call
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission on each pool A-D (wall, device busy, top
      kernels, K6/K7's share of the step's device busy, K5's share of the
@@ -215,11 +242,21 @@ Phases (any failure exits non-zero and prints no result):
            BF16_TIE (K5 grouped, K7 at R=4, bf16 q, exactly); one
            replayed step bit-equal to the eager step
        L-B-ilv L-B under H's settings, its streams equal to L-B's
+       Q8-L ([quant]) the f32 weights of L-A quantized to int8 on the
+           card (the f32 copy freed), bf16 compute, L-B's pool, held by
+           teacher forcing: the served path fed the plain bf16-compute
+           loop's tokens (the same int8 tree), its logprobs within
+           FORCED_RATIO times L-B's error against its own loop,
+           measured the same way (the control); one replayed step
+           bit-equal to the eager step
      plus information: a decode step's (captured and eager) and the
      300-token admission's wall, device busy and top kernels; L-B's step
      against the byte bound of its weights
   7. one JSON line describing the kernels (the bf16-q rows as entries
-     of their own), then the result line.
+     of their own; K6 at [beam]'s decode shape, B*K=8 S=162, and K1 at
+     [embed]'s, B=4 T=S=320, as extra shapes of their entries, each
+     checked against its plain version and timed beside its bound and
+     SDPA), then the result line.
 
 Tolerances against the plain versions: 1e-4 for f32 and int8 caches
 (both sides read the same values; only the summation order differs),
@@ -227,6 +264,8 @@ Tolerances against the plain versions: 1e-4 for f32 and int8 caches
 (at least 1). A served token may differ from its reference only where
 the reference's top-2 logit gap is below 1e-4 (a near-tie); 5e-3 for
 llama3-8b over an int8 cache (QUANT_TIE); BF16_TIE in bf16 compute.
+llama3-8b's int8 weights in bf16 compute are held by teacher forcing
+instead (FORCED_RATIO).
 Timings: warm-up, then the calls are captured in a CUDA graph and the
 graph is replayed between CUDA events (device time, no host overhead).
 Kernel timings cycle over the 12 layers' slices of a full-model cache,
@@ -1400,7 +1439,8 @@ def reference_greedy(prepared, cfg, prompt, n_new, dev):
 
 
 def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
-                           chunk=None, compute_dtype=None, step_rows=1):
+                           chunk=None, compute_dtype=None, step_rows=1,
+                           forced=None, logits_out=None):
     """Independent greedy loop over a dense cache of type `kv_dtype`
     ("bf16" or "int8"): no batcher and no kernel. A cache of prompt +
     n_new positions (at KV heads for a LlamaConfig); bf16 stores K/V
@@ -1418,8 +1458,10 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
     step runs `step_rows` copies of its token (the batcher's slot count),
     so that every product and norm of the step has the batcher's row
     count and cuBLAS picks the batcher's kernels, which sum in their
-    order; the cache and the attention see the first copy only. Returns
-    (tokens, top-2 logit gap at each step)."""
+    order; the cache and the attention see the first copy only.
+    `forced`, where given, is fed in place of each step's argmax (teacher
+    forcing), and `logits_out`, a list, receives each step's f32 logits
+    row. Returns (tokens, top-2 logit gap at each step)."""
     from dnn_tpu_torch.models.gpt import head, layer_params
     from dnn_tpu_torch.ops.attention import merge_heads
     from dnn_tpu_torch.ops.cuda.cached_attention import (
@@ -1507,10 +1549,13 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
             logits = last_logits(ids[:, c0:c0 + step], c0)
         logits = logits[len(prompt) - 1 - c0]
         start, toks, gaps = len(prompt), [], []
-        for _ in range(n_new):
+        for j in range(n_new):
             top2 = torch.topk(logits, 2).values
             gaps.append((top2[0] - top2[1]).item())
-            toks.append(int(logits.argmax()))
+            if logits_out is not None:
+                logits_out.append(logits.float())
+            toks.append(int(logits.argmax()) if forced is None
+                        else forced[j])
             logits = last_logits(torch.tensor(
                 [[toks[-1]]] * step_rows, device=dev), start)[-1]
             start += 1
@@ -1559,19 +1604,147 @@ def loop_partings(label, prompts, chunked, whole):
 def compare_tokens(label, got, want, gaps, tie=NEAR_TIE):
     """Served tokens against a reference's; a divergence is accepted only
     at a near-tie of the reference (top-2 gap < `tie`), and the rest of
-    the stream is then not compared."""
+    the stream is then not compared. `tie=None`: the first parting is
+    printed, not judged (a run held by teacher forcing instead,
+    forced_check)."""
     if len(got) != len(want):
         fail(f"{label}: {len(got)} tokens, expected {len(want)}")
     for j, (a, b) in enumerate(zip(got, want)):
         if a != b:
-            if gaps[j] < tie:
-                print(f"[main] {label}: near-tie at step {j} (top-2 gap "
+            if tie is None or gaps[j] < tie:
+                kind = "parts" if tie is None else "near-tie"
+                print(f"[main] {label}: {kind} at step {j} (top-2 gap "
                       f"{gaps[j]:.2e}), served {a} vs reference {b}; rest "
                       "not compared", flush=True)
                 return
             fail(f"{label} step {j}: served {a} != reference {b} (top-2 gap "
                  f"{gaps[j]:.3e})\nserved    {got}\nreference {want}")
     print(f"[main] {label}: {got[:8]}... matches the reference", flush=True)
+
+
+# teacher forcing: each token id spelled as a distinct three-letter word
+# (62 ** 3 = 238328 words, more than any served vocabulary), so that a
+# grammar spelling a token sequence allows exactly one token a step
+FORCE_ALPHABET = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                  "0123456789")
+FORCED_TOPK = 8
+# Q8-L's teacher-forced logprob error may be at most this multiple of
+# L-B's (the bf16-compute control over the f32 weights, the same prompts
+# and pool, measured in the same run). An int8 linear rounds to bf16
+# twice (the product, then the product times the scale) where a bf16
+# linear rounds once, so its noise could be up to sqrt(2) times the
+# control's. On an H100 Q8-L's error was 0.83x L-B's (largest), 1.02x
+# (rms), and each served path's about that of a second plain loop that
+# differs only in the prefill's chunking; the lines print all three
+FORCED_RATIO = 1.5
+
+
+def forcing_constraint(tokens, vocab_size):
+    """A TokenConstraint whose only sentence is `tokens`: a batcher given
+    it is fed that stream through its own grammar mask (teacher forcing);
+    the mask acts at sampling, so the forward is the served one."""
+    from dnn_tpu_torch.runtime.constrain import TokenConstraint
+
+    n = len(FORCE_ALPHABET)
+
+    def word(t):
+        return (FORCE_ALPHABET[t // (n * n)] + FORCE_ALPHABET[t // n % n]
+                + FORCE_ALPHABET[t % n])
+
+    vocab = [word(t).encode() for t in range(vocab_size)]
+    return TokenConstraint.from_regex("".join(word(t) for t in tokens), vocab)
+
+
+def forced_errors(want_rows, tokens, top_ids, top_lp, chosen_lp):
+    """Per step, the largest |logprob| difference between a forced run
+    (its top-k ids and logprobs (n, k), the forced tokens' logprobs
+    (n,)) and the log_softmax of the reference's f32 logits rows, over
+    the run's top k and the forced token. Returns an (n,) tensor."""
+    lsm = torch.log_softmax(torch.stack(want_rows), dim=-1)
+    dev = lsm.device
+    ids = torch.as_tensor(np.asarray(top_ids), device=dev).long()
+    toks = torch.as_tensor(tokens, device=dev)[:, None]
+    err = torch.cat([
+        (torch.as_tensor(np.asarray(top_lp), device=dev)
+         - lsm.gather(1, ids)).abs(),
+        (torch.as_tensor(np.asarray(chosen_lp), device=dev)[:, None]
+         - lsm.gather(1, toks)).abs()], dim=1)
+    return err.max(dim=1).values
+
+
+def forced_check(tag, label, cfg, tree, prompts, refs, ref_rows, dev,
+                 **kw):
+    """Teacher forcing: each prompt's chunked plain loop (`refs`, its
+    logits rows `ref_rows`) fed, step by step, to (1) the served path --
+    a ContinuousBatcher as the daemon builds it (4 slots, max_len 1024,
+    prompt_pad 64, blocks of 16, the options `kw`), each request held
+    to the loop's tokens by forcing_constraint, its logprobs on -- and
+    (2) a second plain loop that prefills each prompt whole. Prints, per
+    prompt, the largest logprob error of each against the loop and its
+    step, over the forced token and the top FORCED_TOPK; fails if the
+    batcher does not emit the forced stream. Returns the largest errors
+    {"served": e, "loop": e}."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    n_new = len(refs[0][0])
+    cdt = kw.get("compute_dtype")
+    t0 = time.perf_counter()
+    loop = []
+    for p, (toks, _), rows in zip(prompts, refs, ref_rows):
+        got = []
+        reference_greedy_cache(tree, cfg, p, n_new, dev, "bf16",
+                               compute_dtype=cdt, step_rows=4, forced=toks,
+                               logits_out=got)
+        lsm = torch.log_softmax(torch.stack(got), dim=-1)
+        top_lp, top_ids = torch.topk(lsm, FORCED_TOPK, dim=-1)
+        chosen = lsm.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+        loop.append(forced_errors(rows, toks, top_ids.cpu(), top_lp.cpu(),
+                                  chosen.cpu()))
+    b = ContinuousBatcher(
+        cfg, tree, slots=4, max_len=1024, prompt_pad=64, block_len=16,
+        seed=0, device=dev, allow_constraints=True,
+        constraint_rows=len(prompts) * (3 * n_new + 1) + 1,
+        logprobs_k=FORCED_TOPK, **kw)
+    rids = [b.submit(p, n_new, logprobs=True,
+                     constraint=forcing_constraint(toks, cfg.vocab_size))
+            for p, (toks, _) in zip(prompts, refs)]
+    b.drain()
+    served = []
+    for i, rid in enumerate(rids):
+        toks, _, lps = b.claim(rid)
+        if [int(t) for t in toks] != refs[i][0]:
+            fail(f"[{tag}] {label} forced run, prompt {len(prompts[i])}: emitted "
+                 f"{[int(t) for t in toks]}, not the forced "
+                 f"{refs[i][0]}")
+        served.append(forced_errors(ref_rows[i], refs[i][0], lps["top_ids"],
+                                    lps["top_logprobs"], lps["chosen"]))
+    for p, s_err, l_err in zip(prompts, served, loop):
+        print(f"[{tag}] {label} teacher-forced, prompt {len(p)}: served path "
+              f"{s_err.max().item():.3e} (step {int(s_err.argmax())}), "
+              f"whole-prompt loop {l_err.max().item():.3e} (step "
+              f"{int(l_err.argmax())}) from the chunked loop's logprobs; "
+              f"step 0 {s_err[0].item():.3e} / {l_err[0].item():.3e}",
+              flush=True)
+    out = {name: max(e.max().item() for e in errs)
+           for name, errs in (("served", served), ("loop", loop))}
+    rms = {name: torch.cat(errs).square().mean().sqrt().item()
+           for name, errs in (("served", served), ("loop", loop))}
+    print(f"[{tag}] {label} teacher-forced logprob error over {len(prompts)} x "
+          f"{n_new} steps: served {out['served']:.3e} (rms of the steps' "
+          f"maxima {rms['served']:.3e}), whole-prompt loop "
+          f"{out['loop']:.3e} ({rms['loop']:.3e}); in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def hold_forced(q8l, lb):
+    """Q8-L's teacher-forced error against its control's, L-B's."""
+    said = (f"[quant] Q8-L: teacher-forced logprob error {q8l['served']:.3e}"
+            f" against L-B's {lb['served']:.3e}")
+    if q8l["served"] > FORCED_RATIO * lb["served"]:
+        fail(f"{said}: above {FORCED_RATIO}x")
+    print(f"{said}, at most {FORCED_RATIO}x (whole-prompt loops "
+          f"{q8l['loop']:.3e} and {lb['loop']:.3e})", flush=True)
 
 
 CACHE_KERNELS = ("cached_attention", "decode_attention",
@@ -1940,7 +2113,7 @@ def phase_bias_logprobs(cfg, prepared, prompts, refs, dev, card):
     port = free_port()
     _thread, stop = start_lm_server_in_background(
         cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
-        block_len=16, seed=0, device=dev, kv="paged")
+        block_len=16, seed=0, device=dev, kv="paged", allow_logit_bias=True)
     try:
         client = NodeClient(f"127.0.0.1:{port}")
         if not client.wait_healthy(deadline=60):
@@ -2157,7 +2330,8 @@ def constrain_run(label, cfg, prepared, prompts, refs, a_info, dev, card,
     port = free_port()
     _thread, stop = start_lm_server_in_background(
         cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
-        block_len=16, seed=0, device=dev, kv="paged", tokenizer=tok, **kv)
+        block_len=16, seed=0, device=dev, kv="paged", tokenizer=tok,
+        allow_constraints=True, **kv)
     srv, batcher = stop.servicer, stop.servicer.batcher
     step, n_steps, reasons = batcher.step, [0], []
     claim = batcher.claim
@@ -3915,7 +4089,9 @@ def phase_llama(dev, card, cfg=None):
           K6 once per layer per token after the first, exactly;
     plus, as information, a decode step's (captured and eager) and the
     300-token admission's wall and device busy on the paged f32 pool
-    (step_profile). Returns the runs' launch counts."""
+    (step_profile). Then [quant]'s Q8-L over this tree quantized to int8
+    (phase_quant_llama). Returns the runs' launch counts, Q8-L's bf16-q
+    launches and its teacher-forced errors."""
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models import llama
     from dnn_tpu_torch.parallel.pipeline import sync
@@ -3997,10 +4173,27 @@ def phase_llama(dev, card, cfg=None):
     if dev.type == "cuda":
         step_profile("llama", "L-A paged f32", cfg, prepared, prompts, dev,
                      kv="paged")
+    counts = {name: {dt: sum(r[name][dt] for r in runs)
+                     for dt in ("f32", "bf16", "int8")}
+              for name in CACHE_KERNELS}
+    # [quant] Q8-L: this tree quantized on the card, the f32 copy freed
+    from dnn_tpu_torch.quant import quantize_gpt
+
+    t0 = time.perf_counter()
+    qprep = quantize_gpt(prepared, bits=8)
     del prepared
-    return {name: {dt: sum(r[name][dt] for r in runs)
-                   for dt in ("f32", "bf16", "int8")}
-            for name in CACHE_KERNELS}
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sync(dev)
+    print(f"[quant] Q8-L: llama3-8b's f32 tree quantized to int8 on {dev} "
+          f"in {time.perf_counter() - t0:.1f} s, the f32 copy freed",
+          flush=True)
+    t0 = time.perf_counter()
+    q8l, q8l_forced = phase_quant_llama(cfg, qprep, prompts, dev, card)
+    print(f"[quant] Q8-L phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return counts, q8l, q8l_forced
 
 
 def phase_llama_bf16(dev, card, cfg=None):
@@ -4014,10 +4207,13 @@ def phase_llama_bf16(dev, card, cfg=None):
     a step, exactly; the streams against the plain bf16-compute loop
     over a bf16 cache prefilled in 64-token chunks, its decode steps at
     the pool's 4 rows, at BF16_TIE; L-B-ilv the same with
-    prefill_chunk_tokens=64 and overlap, its streams equal to L-B's. Then
+    prefill_chunk_tokens=64 and overlap, its streams equal to L-B's;
+    the teacher-forced errors of the served path and of a whole-prompt
+    loop against that loop (forced_check: Q8-L's control). Then
     step_profile (the decode step captured against eager, its device
     busy beside the byte bound of its weights, one replayed step
-    bit-equal to the eager step). Returns the runs' bf16-q launches."""
+    bit-equal to the eager step). Returns the runs' bf16-q launches and
+    the teacher-forced errors."""
     from dnn_tpu_torch.convert import from_jax_params
     from dnn_tpu_torch.models import llama
     from dnn_tpu_torch.parallel.pipeline import sync
@@ -4043,17 +4239,15 @@ def phase_llama_bf16(dev, card, cfg=None):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in LLAMA_PROMPTS]
     t0 = time.perf_counter()
+    rows = [[] for _ in prompts]
     refs = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "bf16",
-                                   chunk=64, compute_dtype=bf16, step_rows=4)
-            for p in prompts]
-    whole = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "bf16",
-                                    compute_dtype=bf16, step_rows=4)
-             for p in prompts]
+                                   chunk=64, compute_dtype=bf16, step_rows=4,
+                                   logits_out=r)
+            for p, r in zip(prompts, rows)]
     print(f"[llama] L-B references (plain bf16-compute loops over a bf16 "
-          f"cache, 64-token chunks and whole prompts) in "
-          f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
-          f"{min(min(g) for _, g in refs):.3e}", flush=True)
-    loop_partings("[llama] L-B plain bf16 loops", prompts, refs, whole)
+          f"cache, 64-token chunks) in {time.perf_counter() - t0:.1f} s; "
+          f"smallest top-2 gap {min(min(g) for _, g in refs):.3e}",
+          flush=True)
     chunks = sum(-(-len(p) // 64) for p in prompts)
     lb_info, counts = {}, {}
     for label, kv in (("L-B", {"info": lb_info}),
@@ -4071,6 +4265,8 @@ def phase_llama_bf16(dev, card, cfg=None):
         counts = {name: {dt: counts.get(name, {}).get(dt, 0) + n
                          for dt, n in by.items()}
                   for name, by in run.items()}
+    forced = forced_check("llama", "L-B", cfg, prepared, prompts, refs, rows,
+                          dev, kv="paged", compute_dtype=bf16)
     if dev.type == "cuda":
         walls = step_profile("llama", "L-B paged bf16", cfg, prepared,
                              prompts, dev, bit_check=True, kv="paged",
@@ -4083,7 +4279,772 @@ def phase_llama_bf16(dev, card, cfg=None):
               f"captured wall {walls['captured']:.3f} ms, eager "
               f"{walls['eager']:.3f} ms; on {card}", flush=True)
     del prepared
+    return counts, forced
+
+
+# ----------------------------------------------------------------------
+# ROADMAP item 4 d's second half: [quant], [lora], [beam], [embed]
+
+QUANT_NEW = 16
+
+
+def counted(dev, text: str) -> str:
+    """`text` (a launch count the run was checked against) on the card;
+    on the CPU, where a call launches no kernel, a note saying so."""
+    return text if dev.type == "cuda" else "launches not counted on the CPU"
+
+
+def main_exact(cfg, prompts, decode_kernel="paged_decode_attention",
+               dt="f32"):
+    """exact(steps) of a served run over `prompts` in 64-token chunks: K5
+    once a layer a chunk, the decode kernel once a layer a step."""
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    return lambda steps: {("cached_attention", dt): cfg.n_layer * chunks,
+                          (decode_kernel, dt): cfg.n_layer * steps}
+
+
+def phase_quant(cfg, prepared, prompts, dev, card):
+    """[quant] gpt2 with quantized weights (quant.py), each run with the
+    launch counts zeroed just before and read just after, exact counts:
+    Q8 A's daemon (paged f32 KV) with weights="int8" (the tree quantized
+    once in LMServer), the four concurrent clients, 16 greedy tokens,
+    every stream against the no-cache greedy loop over the same int8
+    tree (A's near-tie rule); Q4 the tree quantized to packed int4
+    (quantize_gpt(bits=4)) through the batcher over gRPC and through
+    make_generate, against the no-cache loop over the int4 tree. As
+    information: param_bytes at f32, int8 and int4, and each tree's
+    decode step wall and device busy (step_profile). Returns the runs'
+    launches."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.quant import param_bytes, quantize_gpt
+    from dnn_tpu_torch.runtime.generate import make_generate
+
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    q8 = quantize_gpt(prepared, bits=8)
+    q4 = quantize_gpt(prepared, bits=4)
+    sync(dev)
+    sizes = {name: param_bytes(t) for name, t in
+             (("f32", prepared), ("int8", q8), ("int4", q4))}
+    print(f"[quant] gpt2 quantized on {dev} in "
+          f"{time.perf_counter() - t0:.2f} s; param_bytes f32 "
+          f"{sizes['f32']} ({sizes['f32'] / 1e6:.1f} MB), int8 "
+          f"{sizes['int8']} ({sizes['int8'] / 1e6:.1f} MB, "
+          f"{sizes['int8'] / sizes['f32']:.3f} of f32), int4 {sizes['int4']} "
+          f"({sizes['int4'] / 1e6:.1f} MB, {sizes['int4'] / sizes['f32']:.3f}"
+          f" of f32); on {card}", flush=True)
+    t0 = time.perf_counter()
+    refs8 = [reference_greedy(q8, cfg, p, QUANT_NEW, dev) for p in prompts]
+    refs4 = [reference_greedy(q4, cfg, p, QUANT_NEW, dev) for p in prompts]
+    print(f"[quant] references (no-cache greedy loops over the int8 and "
+          f"int4 trees) in {time.perf_counter() - t0:.1f} s", flush=True)
+    needed = [("cached_attention", "f32"), ("paged_decode_attention", "f32")]
+    runs = [
+        serve_run("Q8", cfg, prepared, prompts, QUANT_NEW, refs8, needed, dev,
+                  card, exact=main_exact(cfg, prompts), kv="paged",
+                  weights="int8"),
+        serve_run("Q4", cfg, q4, prompts, QUANT_NEW, refs4, needed, dev, card,
+                  exact=main_exact(cfg, prompts), kv="paged"),
+    ]
+    gen = make_generate(cfg, max_new_tokens=QUANT_NEW, device=dev)
+    gen(q4, [prompts[3][:8]])  # warm-up
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = gen(q4, [prompts[3]])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {("cached_attention", "f32"): L,
+            ("decode_attention", "f32"): L * (QUANT_NEW - 1)}
+    for (name, dt), n in want.items():
+        if counts[name][dt] != n and dev.type == "cuda":
+            fail(f"[quant] Q4 make_generate: {name} ({dt}) launched "
+                 f"{counts[name][dt]} times, expected {n}")
+    print(f"[quant] Q4 make_generate: {QUANT_NEW} tokens after a "
+          f"{len(prompts[3])}-token prompt in {wall * 1e3:.1f} ms; "
+          + counted(dev, f"launches exactly K5 {L}, K6 "
+                    f"{L * (QUANT_NEW - 1)}"), flush=True)
+    compare_tokens("[quant] Q4 make_generate", out[0].tolist(), *refs4[3])
+    runs.append(counts)
+    for label, tree in (("Q8 int8 weights, paged f32 KV", q8),
+                        ("Q4 int4 weights, paged f32 KV", q4)):
+        if dev.type == "cuda":
+            step_profile("quant", label, cfg, tree, prompts, dev, kv="paged")
+    return {name: {dt: sum(r[name][dt] for r in runs)
+                   for dt in ("f32", "bf16", "int8")}
+            for name in CACHE_KERNELS}
+
+
+def phase_quant_llama(cfg, qprep, prompts, dev, card):
+    """[quant] Q8-L: llama3-8b at full width and depth with int8 weights
+    (the f32 tree of [llama] quantized on the card, the f32 copy freed)
+    in bf16 compute, L-B's daemon (paged bf16 pool) with
+    weights="int8" -- the tree it is given is already quantized, and
+    LMServer's quantize_gpt leaves a quantized tree as it is -- the four
+    prompts, 16 greedy tokens each, exact launches (K5 grouped and K7 at
+    R = 4, bf16 q). The run is held by teacher forcing (forced_check):
+    the served path fed the plain bf16-compute loop's tokens (the same
+    int8 tree, a bf16 cache prefilled in 64-token chunks), its logprobs
+    against the loop's, the error at most FORCED_RATIO times L-B's
+    (hold_forced, once L-B has run); each free-running stream's first
+    parting from the loop is printed. Then step_profile: the decode step
+    captured and eager, one replay bit-equal to the eager step. Returns
+    the run's bf16-q launches and the teacher-forced errors."""
+    from dnn_tpu_torch.models.gpt import for_compute
+    from dnn_tpu_torch.quant import param_bytes
+
+    bf16 = torch.bfloat16
+    served = for_compute(qprep, bf16)
+    n_bytes = param_bytes(served)
+    q_bytes = sum(t.numel() * t.element_size() for t in _leaves(served)
+                  if t.dtype == torch.int8)
+    print(f"[quant] Q8-L llama3-8b int8 weights: {n_bytes / 1e9:.2f} GB "
+          f"served ({q_bytes / 1e9:.2f} GB of int8 kernels); on {card}",
+          flush=True)
+    t0 = time.perf_counter()
+    rows = [[] for _ in prompts]
+    refs = [reference_greedy_cache(served, cfg, p, LLAMA_NEW, dev, "bf16",
+                                   chunk=64, compute_dtype=bf16, step_rows=4,
+                                   logits_out=r)
+            for p, r in zip(prompts, rows)]
+    print(f"[quant] Q8-L references (plain bf16-compute loops over the int8 "
+          f"tree and a bf16 cache, 64-token chunks) in "
+          f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
+          f"{min(min(g) for _, g in refs):.3e}", flush=True)
+    counts = serve_run(
+        "Q8-L", cfg, qprep, prompts, LLAMA_NEW, refs,
+        [("cached_attention", "bf16"), ("paged_decode_attention", "bf16")],
+        dev, card, exact=main_exact(cfg, prompts, dt="bf16"), tie=None,
+        kv="paged", compute_dtype=bf16, weights="int8")
+    forced = forced_check("quant", "Q8-L", cfg, qprep, prompts, refs, rows,
+                          dev, kv="paged", compute_dtype=bf16)
+    if dev.type != "cuda":
+        return counts, forced
+    walls = step_profile("quant", "Q8-L paged bf16, int8 weights", cfg, qprep,
+                         prompts, dev, bit_check=True, kv="paged",
+                         compute_dtype=bf16)
+    print(f"[quant] Q8-L decode step: {walls['captured device']:.3f} ms "
+          f"device busy against the {q_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"byte bound of its {q_bytes / 1e9:.2f} GB of int8 kernels; "
+          f"captured wall {walls['captured']:.3f} ms, eager "
+          f"{walls['eager']:.3f} ms; on {card}", flush=True)
+    return counts, forced
+
+
+LORA_RANK, LORA_B_STD = 8, 0.02
+# [lora]'s two waves: (prompt index, adapter index or None) per request;
+# the second wave reassigns every slot's adapter
+LORA_WAVES = (((0, 0), (1, 1), (2, 2), (3, None)),
+              ((0, 2), (1, None), (2, 0), (3, 1)))
+
+
+def lora_adapters(prepared, dev, n=3):
+    """n rank-8 adapters on the default targets, drawn on the card from
+    seeds: a as init_lora draws it, b ~ N(0, 0.02) (nonzero, so that each
+    adapter changes the output)."""
+    from dnn_tpu_torch.lora import init_lora
+
+    out = []
+    for s in range(n):
+        ad = init_lora(100 + s, prepared, rank=LORA_RANK)
+        g = torch.Generator(device=dev).manual_seed(200 + s)
+        for ab in ad.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g,
+                                  device=dev) * LORA_B_STD
+        out.append(ad)
+    return out
+
+
+def lora_replay_check(cfg, prepared, ads, prompts, dev):
+    """The batcher's captured decode step over the LoRA views, replayed
+    bit-equal to the eager step before and after the slots' adapters are
+    reassigned (the one-hot buffer written in place), with no second
+    capture."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, kv="paged",
+                          lora_adapters=ads, device=dev)
+    graph = b._graph_step
+    rids = [b.submit(prompts[i], 64, adapter=a)
+            for i, a in ((0, 0), (1, 1), (2, None))]
+
+    def bit_check(when):
+        graph._graph.replay()
+        graph._log.replayed()
+        sync(dev)
+        replayed = graph._logits.clone()
+        eager = b._decode(b.cache, graph.tok, graph.pos, graph.active)
+        sync(dev)
+        if not torch.equal(replayed, eager):
+            fail(f"[lora] {when}: a replayed step's logits differ from the "
+                 f"eager step's by {(replayed - eager).abs().max().item():.3e}")
+
+    for _ in range(3):
+        b.step()
+    bit_check("before the reassignment")
+    b.cancel(rids[0])
+    b.submit(prompts[3], 64, adapter=2)  # slot 0 now serves adapter 2
+    b.step()
+    bit_check("after the reassignment")
+    if graph.captures != 1:
+        fail(f"[lora] the decode step was captured {graph.captures} times, "
+             "expected once across the reassignment")
+    print(f"[lora] captured decode step: one capture, {graph.replays} "
+          "replays across an adapter reassignment; a replay's logits equal "
+          "the eager step's bit for bit before and after it", flush=True)
+
+
+def lora_prefix_check(cfg, prepared, ads, prompts, refs, dev):
+    """The dense pool's prefix LRU keys by (adapter, tokens): the 300-token
+    prompt under adapter 1 twice (the second a hit: one chunk run), then
+    under the base model (a miss: the same tokens under another adapter
+    id); each stream against its reference."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, kv="dense", prefix_cache=8,
+                          lora_adapters=ads, device=dev)
+    p = prompts[3]
+    seq = []
+    for adapter in (1, 1, None):
+        c0 = b.prefill_chunks_run
+        rid = b.submit(p, QUANT_NEW, adapter=adapter)
+        seq.append((adapter, b.drain()[rid].tolist(),
+                    b.prefill_chunks_run - c0))
+    stats = (b.prefix_hits, b.prefix_misses)
+    print(f"[lora] dense pool, prefix LRU: the 300-token prompt under "
+          f"adapters {[a for a, _, _ in seq]} ran "
+          f"{[c for _, _, c in seq]} prompt chunks; hits/misses {stats}",
+          flush=True)
+    if stats != (1, 2) or [c for _, _, c in seq] != [5, 1, 5]:
+        fail(f"[lora] prefix cache by adapter: hits/misses {stats}, chunks "
+             f"{[c for _, _, c in seq]}; expected (1, 2) and [5, 1, 5]")
+    if seq[1][1] != seq[0][1]:
+        fail("[lora] the prefix hit's stream differs from the first run's")
+    for adapter, toks, _ in seq:
+        compare_tokens(f"[lora] dense prefix run, adapter {adapter}", toks,
+                       *refs[(3, adapter)])
+
+
+def phase_lora(cfg, prepared, prompts, dev, card):
+    """[lora] gpt2 with three rank-8 adapters served per request (A's
+    daemon, paged f32 pool, lora_adapters): two waves of four concurrent
+    gRPC requests mixing a=0, a=1, a=2 and the base model (LORA_WAVES;
+    the second reassigns every slot's adapter), the launch counts zeroed
+    before the first wave and read after the second, exact (K5 12 a
+    chunk, K7 12 a step); every stream against the no-cache greedy loop
+    over merge_lora(base, adapter i) (A's near-tie rule); the decode
+    step captured once for both waves. Then lora_replay_check and
+    lora_prefix_check. Returns the runs' launches."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.lora import merge_lora
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    ads = lora_adapters(prepared, dev)
+    t0 = time.perf_counter()
+    merged = {a: (prepared if a is None else merge_lora(prepared, ads[a]))
+              for a in (None, 0, 1, 2)}
+    refs = {(i, a): reference_greedy(merged[a], cfg, prompts[i], QUANT_NEW,
+                                     dev)
+            for wave in LORA_WAVES for i, a in wave}
+    del merged
+    print(f"[lora] 3 adapters of rank {LORA_RANK} on every default target "
+          f"({len(ads[0])} stacked sites); references (no-cache loops over "
+          f"the merged trees) in {time.perf_counter() - t0:.1f} s", flush=True)
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, kv="paged", lora_adapters=ads)
+    batcher = stop.servicer.batcher
+    step, n_steps = batcher.step, [0]
+
+    def counted_step():
+        n_steps[0] += 1
+        return step()
+
+    batcher.step = counted_step
+    streams = {}
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=60):
+            fail("[lora] LM daemon never became healthy")
+        client.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
+        sync(dev)
+        graph = batcher._graph_step
+        caps0 = graph.captures if graph is not None else 0
+        reset_counts()
+        n_steps[0] = 0
+        t0 = time.perf_counter()
+        for wave in LORA_WAVES:
+            errors, threads = [], []
+
+            def call(i, a):
+                try:
+                    streams[i, a] = client.generate(
+                        prompts[i], max_new_tokens=QUANT_NEW, adapter=a,
+                        timeout=300).tolist()
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"request {i} adapter {a}: {e!r}")
+
+            threads = [threading.Thread(target=call, args=ia) for ia in wave]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if errors or any(t.is_alive() for t in threads):
+                fail(f"[lora] generate calls failed: {errors or 'timed out'}")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = n_steps[0]
+        captures = (graph.captures if graph is not None else 1) - caps0
+        client.close()
+    finally:
+        stop()
+    chunks = 2 * sum(-(-len(p) // 64) for p in prompts)
+    want = {("cached_attention", "f32"): cfg.n_layer * chunks,
+            ("paged_decode_attention", "f32"): cfg.n_layer * steps}
+    if dev.type == "cuda":
+        require("[lora] run", counts, list(want))
+        for (name, dt), n in want.items():
+            if counts[name][dt] != n:
+                fail(f"[lora] {name} ({dt}) launched {counts[name][dt]} "
+                     f"times, expected {n} ({steps} decode steps, {chunks} "
+                     "chunks)")
+        if captures != 0 or graph.captures != 1:
+            fail(f"[lora] the decode step was captured {graph.captures} "
+                 f"times ({captures} in the waves); expected once, at the "
+                 "warm-up")
+    n_tokens = sum(len(s) for s in streams.values())
+    print(f"[lora] two waves of 4 requests (adapters "
+          f"{[[a for _, a in w] for w in LORA_WAVES]}): {n_tokens} tokens in "
+          f"{wall:.3f} s over {steps} decode steps"
+          + (f", all replays of the one capture of the warm-up; launches "
+             f"exactly K5 {want[('cached_attention', 'f32')]}, K7 "
+             f"{want[('paged_decode_attention', 'f32')]}"
+             if dev.type == "cuda" else "") + f"; on {card}", flush=True)
+    for (i, a), toks in sorted(streams.items(), key=str):
+        compare_tokens(f"[lora] prompt {len(prompts[i])} adapter {a}", toks,
+                       *refs[i, a])
+    if streams[0, 0] == streams[0, 2]:
+        fail("[lora] adapters 0 and 2 gave one stream: the deltas change "
+             "nothing")
+    if dev.type == "cuda":
+        lora_replay_check(cfg, prepared, ads, prompts, dev)
+    lora_prefix_check(cfg, prepared, ads, prompts, refs, dev)
     return counts
+
+
+BEAM_K, BEAM_NEW, BEAM_ALPHA = 4, 32, 0.6
+BEAM_T = 130  # each row's prompt length: make_beam_generate takes one T
+
+
+def beam_ids(prompts):
+    """[beam]'s B = 2 rows: the 130-token main prompt, and the 70-token one
+    followed by the 300-token prompt's tokens 70-129 (one T per call, as
+    JAX's make_beam_generate takes)."""
+    return np.asarray([prompts[2], prompts[1] + prompts[3][70:BEAM_T]],
+                      np.int64)
+
+
+def reference_beam(prepared, cfg, ids, n_new, k, eos, alpha, dev):
+    """An independent beam search: each step recomputes the plain no-cache
+    forward over every beam's whole sequence (prompt + history), sums f32
+    log-softmax scores on the host, picks the top k of each row by a
+    stable numpy sort (ties to the lower index), freezes beams at `eos`
+    (continuation eos at 0) and orders by the GNMT length penalty.
+    Returns (tokens (B, k, n_new), scores (B, k), the smallest score gap
+    between ranks k-1 and k of any step)."""
+    from dnn_tpu_torch.runtime.generate import forward_no_cache
+
+    b_rows, v = ids.shape[0], cfg.vocab_size
+
+    def logp(seqs):
+        x = torch.as_tensor(np.asarray(seqs), dtype=torch.int64, device=dev)
+        return torch.log_softmax(forward_no_cache(prepared, x, cfg=cfg)[
+            :, -1].float(), dim=-1).cpu().numpy()
+
+    lp = logp(ids)
+    order = np.argsort(-lp, axis=1, kind="stable")
+    top = order[:, :k]
+    gap = float(np.min(np.take_along_axis(lp, order[:, k - 1:k], 1)
+                       - np.take_along_axis(lp, order[:, k:k + 1], 1)))
+    scores = np.take_along_axis(lp, top, 1)
+    hist = [[[int(top[r, j])] for j in range(k)] for r in range(b_rows)]
+    fin = (top == eos) if eos is not None else np.zeros(top.shape, bool)
+    lens = np.ones(top.shape, np.int32)
+    frozen = np.full((v,), -1e30, np.float32)
+    if eos is not None:
+        frozen[eos] = 0.0
+    for _ in range(n_new - 1):
+        lp = logp([list(ids[r]) + hist[r][j] for r in range(b_rows)
+                   for j in range(k)]).reshape(b_rows, k, v)
+        if eos is not None:
+            lp = np.where(fin[:, :, None], frozen, lp)
+        total = (scores[:, :, None] + lp).reshape(b_rows, k * v)
+        order = np.argsort(-total, axis=1, kind="stable")
+        top = order[:, :k]
+        gap = min(gap, float(np.min(
+            np.take_along_axis(total, order[:, k - 1:k], 1)
+            - np.take_along_axis(total, order[:, k:k + 1], 1))))
+        parent, tok = top // v, top % v
+        scores = np.take_along_axis(total, top, 1)
+        hist = [[hist[r][parent[r, j]] + [int(tok[r, j])] for j in range(k)]
+                for r in range(b_rows)]
+        fin = np.take_along_axis(fin, parent, 1)
+        lens = np.take_along_axis(lens, parent, 1)
+        if eos is not None:
+            lens = np.where(fin, lens, lens + 1)
+            fin = fin | (tok == eos)
+        else:
+            lens = lens + 1
+    pen = (np.ones(lens.shape, np.float32) if alpha == 0.0 else
+           ((np.float32(5.0) + lens.astype(np.float32)) / np.float32(6.0))
+           ** np.float32(alpha))
+    final = (scores / pen).astype(np.float32)
+    order = np.argsort(-final, axis=1, kind="stable")
+    toks = np.asarray(hist)[np.arange(b_rows)[:, None], order]
+    return toks, np.take_along_axis(final, order, 1), gap
+
+
+def phase_beam(cfg, prepared, prompts, dev, card, model="gpt2"):
+    """[beam] gpt2 (seed-0 weights): make_beam_generate with K=4 beams over
+    B=2 rows of 130 tokens (beam_ids), 32 new tokens, length penalty 0.6
+    and an eos id the beams reach (the token at step 5 of the best beam
+    of row 0 in a search without one), every beam's tokens and scores
+    (within 1e-4) against reference_beam; exact launches: K5 once a
+    layer for the prefill, K6 once a layer a step at 8 rows; beam_size 1
+    equal to make_generate's greedy tokens; `node --generate 16 --beam 4`
+    as a process (the `model` config, seed-0 random weights; None skips
+    it) printing the library's best beam. Returns the main search's
+    launches."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.beam import make_beam_generate
+    from dnn_tpu_torch.runtime.generate import make_generate
+
+    L = cfg.n_layer
+    ids = beam_ids(prompts)
+    plain = make_beam_generate(cfg, max_new_tokens=BEAM_NEW,
+                               beam_size=BEAM_K, return_all=True, device=dev)
+    eos = int(plain(prepared, ids)[0][0, 0, 5])
+    beam = make_beam_generate(cfg, max_new_tokens=BEAM_NEW, beam_size=BEAM_K,
+                              eos_id=eos, length_penalty=BEAM_ALPHA,
+                              return_all=True, device=dev)
+    beam(prepared, ids[:, :8])  # warm-up
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, scores = beam(prepared, ids)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {("cached_attention", "f32"): L,
+            ("decode_attention", "f32"): L * (BEAM_NEW - 1)}
+    for (name, dt), n in want.items():
+        if counts[name][dt] != n and dev.type == "cuda":
+            fail(f"[beam] {name} ({dt}) launched {counts[name][dt]} times, "
+                 f"expected {n}")
+    toks, scores = toks.cpu().numpy(), scores.cpu().numpy()
+    finished = int((toks == eos).any(axis=2).sum())
+    print(f"[beam] K={BEAM_K} B=2 T={BEAM_T} {BEAM_NEW} new tokens, eos "
+          f"{eos}, length penalty {BEAM_ALPHA}: {wall * 1e3:.1f} ms; "
+          f"{finished} of {2 * BEAM_K} final beams reached eos; "
+          + counted(dev, f"launches exactly K5 {L} (prefill), K6 "
+                    f"{L * (BEAM_NEW - 1)} (8 rows a step)")
+          + f"; on {card}", flush=True)
+    if not finished:
+        fail(f"[beam] no beam reached eos {eos}")
+    t0 = time.perf_counter()
+    rtoks, rscores, gap = reference_beam(prepared, cfg, ids, BEAM_NEW,
+                                         BEAM_K, eos, BEAM_ALPHA, dev)
+    print(f"[beam] reference (no-cache forward over whole sequences a step) "
+          f"in {time.perf_counter() - t0:.1f} s; smallest gap at the top-"
+          f"{BEAM_K} boundary {gap:.3e}", flush=True)
+    if not np.array_equal(toks, rtoks):
+        if gap >= NEAR_TIE:
+            fail(f"[beam] tokens differ from the reference's (smallest "
+                 f"boundary gap {gap:.3e})\nserved    {toks.tolist()}\n"
+                 f"reference {rtoks.tolist()}")
+        print(f"[beam] tokens part from the reference at a near-tie of its "
+              f"selection (gap {gap:.3e} < {NEAR_TIE}); scores not compared",
+              flush=True)
+    else:
+        err = float(np.abs(scores - rscores).max())
+        if err > 1e-4:
+            fail(f"[beam] scores differ from the reference's by {err:.3e}")
+        print(f"[beam] every beam's tokens equal the reference's; scores "
+              f"within {err:.2e} (best {scores[:, 0].tolist()})", flush=True)
+    one = make_beam_generate(cfg, max_new_tokens=16, beam_size=1,
+                             device=dev)(prepared, ids)
+    greedy = make_generate(cfg, max_new_tokens=16, device=dev)(prepared, ids)
+    if not torch.equal(one.cpu(), greedy.cpu()):
+        fail(f"[beam] beam_size 1 {one.tolist()} != make_generate "
+             f"{greedy.tolist()}")
+    print("[beam] beam_size 1 equals make_generate's greedy tokens on both "
+          "rows", flush=True)
+    if model is not None:
+        beam_node_process(cfg, prepared, prompts, dev, card, model)
+    return counts
+
+
+def beam_node_process(cfg, prepared, prompts, dev, card, model):
+    """`node --generate 16 --beam 4` as a process: the gpt2 config with no
+    model_weights (the seed-0 random init, the weights of the main path),
+    the 70-token prompt; its printed tokens must equal the library's best
+    beam."""
+    import tempfile
+
+    from dnn_tpu_torch.runtime.beam import make_beam_generate
+
+    want = make_beam_generate(cfg, max_new_tokens=16, beam_size=BEAM_K,
+                              device=dev)(prepared, [prompts[1]])[0].tolist()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt2.json")
+        with open(path, "w") as f:
+            json.dump({"model": model, "num_parts": 1,
+                       "device_type": dev.type,
+                       "nodes": [{"id": "node1", "part_index": 0,
+                                  "address": f"127.0.0.1:{free_port()}"}]},
+                      f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dnn_tpu_torch.node", "--node_id",
+             "node1", "--config", path, "--generate", "16", "--beam",
+             str(BEAM_K), "--prompt_ids",
+             ",".join(str(t) for t in prompts[1])],
+            cwd=here, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": here})
+    if proc.returncode != 0:
+        fail(f"[beam] node --beam exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if "GENERATED TOKENS" in ln]
+    got = [int(t) for t in line[-1].split(":")[1].strip(" *").split(",")]
+    if got != want:
+        fail(f"[beam] node --beam printed {got}, the library's best beam is "
+             f"{want}")
+    print(f"[beam] node --generate 16 --beam {BEAM_K} as a process "
+          f"({time.perf_counter() - t0:.1f} s) printed the library's best "
+          f"beam {got[:8]}...", flush=True)
+
+
+EMBED_T = 320  # the four prompts (5/70/130/300 tokens) padded to 5 chunks
+
+
+def reference_hidden(prepared, cfg, ids):
+    """The plain stateless forward's final-normed hidden states: the
+    blocks with reference_attention (use_flash=False), then ln_f."""
+    from dnn_tpu_torch.models import gpt
+    from dnn_tpu_torch.ops.nn import layer_norm
+
+    with torch.no_grad():
+        x = gpt.embed(prepared, ids, cfg=cfg)
+        x = gpt.blocks_scan(prepared["blocks"], x, cfg=cfg, use_flash=False)
+        return layer_norm(prepared["ln_f"], x.float(), eps=cfg.ln_eps)
+
+
+def phase_embed(cfg, prepared, prompts, dev, card):
+    """[embed] gpt2: make_embed with pooling mean, last and none over the
+    four prompts padded to 320 tokens (B=4), each within 1e-4 of the
+    output's scale of the plain forward's (reference_hidden, pooled by
+    the true lengths), exactly K1 once a layer a call; then A's daemon:
+    embed and embed:last for each prompt over gRPC, each reply bit-equal
+    to the library's call on the daemon's padding (a prompt_pad
+    multiple), K1 once a layer a request. Returns the launches."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.runtime.embeddings import make_embed
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    L = cfg.n_layer
+    ids = torch.zeros((4, EMBED_T), dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p, device=dev)
+    lengths = torch.tensor([len(p) for p in prompts], device=dev)
+    h = reference_hidden(prepared, cfg, ids)
+    mask = (torch.arange(EMBED_T, device=dev)[None, :]
+            < lengths[:, None]).float()
+    refs = {"none": h,
+            "mean": (h * mask[..., None]).sum(1) / lengths[:, None].float(),
+            "last": h[torch.arange(4, device=dev), lengths - 1]}
+    total = None
+    for pooling in ("mean", "last", "none"):
+        fn = make_embed(cfg, pooling=pooling)
+        fn(prepared, ids[:, :64], lengths.clamp(max=64))  # warm-up
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(prepared, ids, lengths)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        total = counts if total is None else {
+            n: {d: total[n][d] + c for d, c in by.items()}
+            for n, by in counts.items()}
+        launched = {(n, d): c for n, by in counts.items()
+                    for d, c in by.items() if c}
+        if launched != {("flash_attention", "f32"): L} and \
+                dev.type == "cuda":
+            fail(f"[embed] {pooling}: launches {launched}, expected "
+                 f"flash_attention f32 {L} only")
+        want = refs[pooling]
+        if pooling == "none":  # rows past each length are padding
+            out, want = out * mask[..., None], want * mask[..., None]
+        err = (out - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        if not err <= 1e-4 * scale:
+            fail(f"[embed] {pooling}: max abs err {err:.3e} > 1e-4 x "
+                 f"{scale:.3f} against the plain forward")
+        print(f"[embed] make_embed {pooling} B=4 T={EMBED_T}: {tuple(out.shape)}"
+              f" in {wall * 1e3:.2f} ms, err {err:.3e} (scale {scale:.2f}) "
+              f"against the plain forward; "
+              + counted(dev, f"K1 exactly {L}") + f"; on {card}",
+              flush=True)
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, kv="paged")
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=60):
+            fail("[embed] LM daemon never became healthy")
+        client.send_tensor(np.asarray(prompts[0], np.int32),
+                           request_id="embed")  # warm-up
+        sync(dev)
+        reset_counts()
+        replies = {}
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            for rid in ("embed", "embed:last"):
+                status, vec = client.send_tensor(np.asarray(p, np.int32),
+                                                 request_id=rid, timeout=120)
+                replies[i, rid] = (status, vec)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        client.close()
+    finally:
+        stop()
+    n_calls = len(replies)
+    if counts["flash_attention"]["f32"] != L * n_calls and \
+            dev.type == "cuda":
+        fail(f"[embed] daemon: K1 launched "
+             f"{counts['flash_attention']['f32']} times for {n_calls} "
+             f"requests, expected {L * n_calls}")
+    for (i, rid), (status, vec) in replies.items():
+        t = len(prompts[i])
+        padded = torch.zeros((1, -(-t // 64) * 64), dtype=torch.int64,
+                             device=dev)
+        padded[0, :t] = torch.tensor(prompts[i], device=dev)
+        lib = make_embed(cfg, pooling="last" if rid.endswith("last")
+                         else "mean")(prepared, padded, [t])[0].cpu()
+        if status != f"[lm] ok: embedding dim {cfg.n_embd}" or \
+                not torch.equal(vec.float(), lib):
+            fail(f"[embed] daemon {rid} prompt {t}: {status!r}, reply "
+                 f"differs from the library's by "
+                 f"{(vec.float() - lib).abs().max().item():.3e}")
+    print(f"[embed] daemon: {n_calls} embed / embed:last replies over gRPC "
+          f"in {wall * 1e3:.1f} ms, each bit-equal to the library's; "
+          + counted(dev, f"K1 exactly {L} a request") + f"; on {card}",
+          flush=True)
+    return {n: {d: total[n][d] + c for d, c in by.items()}
+            for n, by in counts.items()}
+
+
+BEAM_S = BEAM_T + BEAM_NEW  # the beams' dense cache
+BEAM_K6_SAMPLES = 5
+
+
+def phase_beam_embed_kernels(dev, gen):
+    """K6 at the beam search's decode shape (B*K=8 rows, Hk=12, R=1, D=64,
+    a 162-column cache at pos 161: the last step), an f32 q over an f32
+    cache and a bf16 q over a bf16 cache; K1 at the embed shape (B=4,
+    H=12, T=S=320, D=64, causal) in f32 and bf16. Each against its plain
+    version, timed beside its bound and SDPA. Returns {shape: {label:
+    row}}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        decode_attention, reference_decode_attention)
+    from dnn_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, reference_attention)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Hk, D, S = 2 * BEAM_K, 12, 64, BEAM_S
+    decode_plan("K6 beam", B * Hk, S)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    out = {"K6 beam": {}, "K1 embed": {}}
+    for label, qdt, cdt in (("f32", torch.float32, "f32"),
+                            ("bf16 q", torch.bfloat16, "bf16")):
+        q = torch.randn(LAYERS, B, Hk, 1, D, generator=gen,
+                        device=dev).to(qdt)
+        k, v, _, _ = kv_cache(gen, (LAYERS, B, Hk, S, D), cdt, dev)
+        got = decode_attention(q[0], k[0], v[0], pos)
+        want = reference_decode_attention(q[0], k[0], v[0], pos)
+        err = (check(f"K6 beam {label}", got, want, F32_TOL)
+               if label == "f32" else
+               check_scaled(f"K6 beam {label}", got, want, BF16_TOL))
+        el = 4 if label == "f32" else 2
+        nbytes = 2 * B * Hk * D * el + Hk * kv_bytes(cdt, B * S, D) + B * 4
+        b_ms, b_by, byte_ms, op_ms = bound(nbytes, 4 * D * Hk * B * S)
+        # the kernel and SDPA within a few percent of each other here:
+        # each the median of BEAM_K6_SAMPLES timings, interleaved
+        ms, lib = [], []
+        for _ in range(BEAM_K6_SAMPLES):
+            ms.append(time_ms(cycling(lambda i: decode_attention(
+                q[i], k[i], v[i], pos), LAYERS)))
+            lib.append(time_ms(cycling(lambda i: sdpa(q[i], k[i], v[i]),
+                                       LAYERS)))
+        row = out["K6 beam"][label] = dict(
+            ms=float(np.median(ms)),
+            plain_ms=time_ms(cycling(lambda i: reference_decode_attention(
+                q[i], k[i], v[i], pos), LAYERS)),
+            library_ms=float(np.median(lib)), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err)
+        report("K6 beam", f"{label:6s} B*K={B} S={S} pos {S - 1}", row,
+               nbytes, byte_ms, op_ms)
+        print(f"[K6 beam] {label:6s} {BEAM_K6_SAMPLES} timings, kernel "
+              f"{', '.join(f'{t:.5f}' for t in ms)} ms, SDPA "
+              f"{', '.join(f'{t:.5f}' for t in lib)} ms: the kernel "
+              f"{row['ms'] / row['library_ms']:.3f}x SDPA (medians)",
+              flush=True)
+    for name, dt, tol in FLASH_TYPES:
+        q, k, v = (torch.randn(4, 12, EMBED_T, 64, generator=gen,
+                               device=dev).to(dt) for _ in range(3))
+        err = check(f"K1 embed {name}", flash_attention(q, k, v).float(),
+                    reference_attention(q.float(), k.float(), v.float()),
+                    tol)
+        b = flash_fwd_bound(dt == torch.float32, 48, EMBED_T, EMBED_T, 64,
+                            False)
+        row = out["K1 embed"][name] = dict(
+            ms=time_ms(lambda: flash_attention(q, k, v)),
+            plain_ms=time_ms(lambda: reference_attention(q, k, v)),
+            library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)),
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"], max_abs_err=err)
+        flash_report("K1 embed", f"{name:4s} B=4 H=12 T=S={EMBED_T} D=64 "
+                     "causal", row, b)
+    return out
+
+
+def phase_item_4d(cfg, prepared, prompts, dev, card, model="gpt2"):
+    """[quant], [lora], [beam] and [embed] on the main path's gpt2 (the
+    zoo's `model`: phase_beam's process); each phase's wall printed.
+    Returns the launches of all their runs."""
+    runs = []
+    for tag, fn in (("quant", phase_quant), ("lora", phase_lora),
+                    ("beam", lambda *a: phase_beam(*a, model=model)),
+                    ("embed", phase_embed)):
+        t0 = time.perf_counter()
+        runs.append(fn(cfg, prepared, prompts, dev, card))
+        print(f"[{tag}] phase wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    out = {}
+    for r in runs:
+        for name, by in r.items():
+            for dt, n in by.items():
+                out.setdefault(name, {}).setdefault(dt, 0)
+                out[name][dt] += n
+    return out
 
 
 def _leaves(tree):
@@ -4204,9 +5165,11 @@ def main():
     k7 = phase_k7(dev, gen)
     phase_decode_splits(dev, gen)
     flash = {**phase_flash_fwd(dev, gen), **phase_flash_bwd(dev, gen)}
+    beam_embed_rows = phase_beam_embed_kernels(dev, gen)
     launches, prepared, cfg, prompts = phase_main_path(dev, smi)
     text = phase_text(cfg, prepared, dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
+    item_4d = phase_item_4d(cfg, prepared, prompts, dev, smi)
     del prepared
     bf16_q_rows = phase_bf16_q_kernels(dev, gen)
     bf16_launches = phase_bf16(dev, smi)
@@ -4214,7 +5177,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     spec, verify_launches = phase_spec(dev, smi)
-    for counts in (text, pipe, spec["f32"]):
+    for counts in (text, pipe, spec["f32"], item_4d):
         for name in CACHE_KERNELS:
             for dt, n in counts[name].items():
                 launches[name][dt] += n
@@ -4222,13 +5185,16 @@ def main():
         for dt, n in spec["bf16"][name].items():
             bf16_launches[name][dt] += n
     launches.update(phase_train(dev, smi))
+    for dt, n in item_4d["flash_attention"].items():  # [embed]'s K1
+        launches["flash_attention"][dt] += n
     gc.collect()  # the gpt2 phases' tensors go before llama3-8b's 32 GB
     torch.cuda.empty_cache()
     llama_rows = phase_llama_kernels(dev, gen)
-    llama_counts = phase_llama(dev, smi)
+    llama_counts, q8l_counts, q8l_forced = phase_llama(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    lb_counts = phase_llama_bf16(dev, smi)
+    lb_counts, lb_forced = phase_llama_bf16(dev, smi)
+    hold_forced(q8l_forced, lb_forced)
     gc.collect()
     torch.cuda.empty_cache()
     for name in CACHE_KERNELS:
@@ -4243,15 +5209,18 @@ def main():
 
     def bf16_q_record(name, source, line, gpt2, llama_rows, key, **shapes):
         """A kernel's bf16-q entry: the gpt2 rows (the bf16 cache on top)
-        and the launches with a bf16 q of the [bf16] gpt2 runs and L-B;
-        llama3-8b's rows under `key`, with L-B's launches."""
-        runs = {dt: bf16_launches[name][dt] + lb_counts[name][dt]
+        and the launches with a bf16 q of the [bf16] gpt2 runs, L-B and
+        Q8-L; llama3-8b's rows under `key`, with L-B's and Q8-L's
+        launches."""
+        llama_runs = {name: {dt: lb_counts[name][dt] + q8l_counts[name][dt]
+                             for dt in lb_counts[name]}}
+        runs = {dt: bf16_launches[name][dt] + llama_runs[name][dt]
                 for dt in bf16_launches[name]}
         return kernel_record(
             f"{name} (bf16 q)", src + source, f"{pallas}:{line}",
             bf16_q_rows[gpt2], "bf16", runs,
             **{key: llama_extra(name, bf16_q_rows[llama_rows],
-                                counts=lb_counts, **shapes)})
+                                counts=llama_runs, **shapes)})
 
     def verify_extra(model, label):
         """K5's row at a speculative verify shape; its launches those of
@@ -4304,6 +5273,17 @@ def main():
     ]
     kernels[-2]["solo_shape"] = {"B": SOLO_B, "Hk": SOLO_HK, "S": SOLO_S,
                                  "by_dtype": bf16_q_rows["K6 solo"]}
+    # [beam]'s decode shape: f32 launches from the [beam] search (no beam
+    # search runs with a bf16 q)
+    k6_beam = beam_embed_rows["K6 beam"]
+    beam_shape = {"B": 2 * BEAM_K, "Hk": 12, "R": 1, "D": 64, "S": BEAM_S,
+                  "pos": BEAM_S - 1}
+    next(k for k in kernels if k["name"] == "decode_attention").update(
+        beam_shape={**beam_shape, "by_dtype": {"f32": {
+            "launches": LAYERS * (BEAM_NEW - 1),
+            **k6_beam["f32"]}}})
+    kernels[-2]["beam_shape"] = {**beam_shape, "by_dtype": {"bf16": {
+        "launches": 0, **k6_beam["bf16 q"]}}}
     for name, label in (("cached_attention", "f32"),
                         ("cached_attention (bf16 q)", "bf16 q")):
         next(k for k in kernels if k["name"] == name).update(
@@ -4317,6 +5297,11 @@ def main():
             ("flash_bwd_dkv", "flash_backward.cu", 181)):
         kernels.append(kernel_record(name, src + source, f"{flash_py}:{line}",
                                      flash[name], "f32", launches[name]))
+    # [embed]'s shape: K1's launches in the [embed] runs
+    kernels[-4]["embed_shape"] = {
+        "B": 4, "H": 12, "T": EMBED_T, "S": EMBED_T, "D": 64,
+        "by_dtype": {dt: {"launches": item_4d["flash_attention"][dt], **row}
+                     for dt, row in beam_embed_rows["K1 embed"].items()}}
     print(f"{smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,10 +46,12 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
                    top_p: Optional[float] = None,
                    min_p: Optional[float] = None,
                    repetition_penalty: Optional[float] = None,
-                   logit_bias: Optional[dict] = None) -> str:
+                   logit_bias: Optional[dict] = None,
+                   adapter: Optional[int] = None) -> str:
     """Encode generation options into the request_id the daemon parses
     (runtime/lm_server.parse_gen_options); `logit_bias` ({token id:
-    additive bias}) as b=tok~val,tok~val, the JAX client's spelling."""
+    additive bias}) as b=tok~val,tok~val, the JAX client's spelling;
+    `adapter` (a LoRA adapter's index on a multi-adapter daemon) as a=."""
     rid = f"gen:{max_new_tokens}" + (f":{seed}" if seed is not None else "")
     for key, val in (("t", temperature), ("k", top_k), ("p", top_p),
                      ("m", min_p), ("r", repetition_penalty)):
@@ -58,6 +60,8 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
     if logit_bias:
         rid += ":b=" + ",".join(f"{int(t)}~{float(v)}"
                                 for t, v in logit_bias.items())
+    if adapter is not None:
+        rid += f":a={adapter}"
     return rid
 
 

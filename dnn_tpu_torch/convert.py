@@ -9,7 +9,12 @@ any device, and returns the port's prepared tensors, so both packages
 run the very same weights. `load_npz` reads the same tree from a flat
 .npz whose keys are the "/"-joined paths ("h_0/attn/qkv/kernel").
 `to_jax_params` is the inverse of `from_jax_params`: trained weights go
-back to the JAX package, and tests compare trees leaf by leaf."""
+back to the JAX package, and tests compare trees leaf by leaf.
+
+Weight-quantized trees (quant.py: {"q", "scale", "bias"?} linears) cross
+too: int8 q leaves as they are, JAX's int4 q leaves (ml_dtypes int4
+numpy arrays) packed two to a byte on the way in and unpacked on the way
+out."""
 
 from __future__ import annotations
 
@@ -23,24 +28,36 @@ def _shape(a):
     return tuple(a.shape) if isinstance(a, torch.Tensor) else np.shape(a)
 
 
+def _kernel_shape(linear):
+    """The (in, out) shape of a linear's kernel, float or quantized (a
+    packed int4 tensor holds in/2 rows)."""
+    if "kernel" in linear:
+        return _shape(linear["kernel"])
+    q = linear["q"]
+    shape = _shape(q)
+    if isinstance(q, torch.Tensor) and q.dtype == torch.uint8:
+        return shape[:-2] + (2 * shape[-2], shape[-1])
+    return shape
+
+
 def _check_llama(tree, cfg):
     """The LLaMA-family tree's shapes that a wrong config gets wrong:
     the vocabulary, the head (absent when tied) and the KV width."""
     c, d = cfg.n_embd, cfg.head_dim
-    want = {"wte": ((cfg.vocab_size, c), tree["wte"]["embedding"]),
+    want = {"wte": ((cfg.vocab_size, c), _shape(tree["wte"]["embedding"])),
             "h_0.attn.q": ((c, cfg.n_head * d),
-                           tree["h_0"]["attn"]["q"]["kernel"]),
+                           _kernel_shape(tree["h_0"]["attn"]["q"])),
             "h_0.attn.k": ((c, cfg.n_kv_head * d),
-                           tree["h_0"]["attn"]["k"]["kernel"])}
+                           _kernel_shape(tree["h_0"]["attn"]["k"]))}
     if cfg.tie_word_embeddings:
         if "lm_head" in tree:
             raise ValueError("a tied config's tree carries no lm_head")
     else:
-        want["lm_head"] = ((c, cfg.vocab_size), tree["lm_head"]["kernel"])
-    for name, (shape, leaf) in want.items():
-        if _shape(leaf) != shape:
-            raise ValueError(f"{name} kernel is {_shape(leaf)}, expected "
-                             f"{shape}")
+        want["lm_head"] = ((c, cfg.vocab_size),
+                           _kernel_shape(tree["lm_head"]))
+    for name, (shape, got) in want.items():
+        if got != shape:
+            raise ValueError(f"{name} kernel is {got}, expected {shape}")
 
 
 def from_jax_params(tree, cfg, device, compute_dtype=None):
@@ -59,7 +76,7 @@ def from_jax_params(tree, cfg, device, compute_dtype=None):
         _check_llama(tree, cfg)
     else:
         want = (cfg.n_embd, cfg.vocab_size)
-        got = _shape(tree["lm_head"]["kernel"])
+        got = _kernel_shape(tree["lm_head"])
         if got != want:
             raise ValueError(f"lm_head kernel is {got}, expected {want}")
     return prepare_stacked(tree, cfg, device, compute_dtype)
@@ -74,9 +91,24 @@ def to_jax_params(prepared, cfg):
         t = t.detach().cpu()
         return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
 
-    tree = {k: _map(host, v) for k, v in prepared.items() if k != "blocks"}
+    def walk(node, pick):
+        if not isinstance(node, dict):
+            return host(pick(node))
+        out = {k: walk(v, pick) for k, v in node.items()}
+        q = node.get("q")
+        if isinstance(q, torch.Tensor) and q.dtype == torch.uint8:
+            # packed int4 -> JAX's int4 leaf (ml_dtypes ships with jax)
+            import ml_dtypes
+
+            from dnn_tpu_torch.quant import unpack_int4
+
+            out["q"] = host(unpack_int4(pick(q))).astype(ml_dtypes.int4)
+        return out
+
+    tree = {k: walk(v, lambda t: t) for k, v in prepared.items()
+            if k != "blocks"}
     for i in range(cfg.n_layer):
-        tree[f"h_{i}"] = _map(lambda t: host(t[i]), prepared["blocks"])
+        tree[f"h_{i}"] = walk(prepared["blocks"], lambda t, i=i: t[i])
     return tree
 
 

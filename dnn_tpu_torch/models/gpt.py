@@ -102,12 +102,35 @@ def init(seed: int, cfg: GPTConfig = PRESETS["gpt2"]):
 
 
 def _to_tensor(a, device):
-    """A leaf -> a float32 tensor on `device`. A tensor moves (no copy
-    where it is already there); anything else goes through np.array,
-    which copies: the source may be a read-only view of JAX memory."""
+    """A leaf -> a tensor on `device`: float leaves as float32, integer
+    leaves (a quantized linear's q) in their own type, and a numpy int4
+    leaf (ml_dtypes, JAX's int4 kernels) packed two to a byte
+    (quant.pack_int4). A tensor moves (no copy where it is already
+    there); anything else goes through np.array, which copies: the
+    source may be a read-only view of JAX memory."""
     if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
+        if a.is_floating_point():
+            return a.to(device=device, dtype=torch.float32)
+        return a.to(device)
+    if getattr(getattr(a, "dtype", None), "name", "") == "int4":
+        from dnn_tpu_torch.quant import pack_int4
+
+        return pack_int4(torch.from_numpy(
+            np.asarray(a).astype(np.int8))).to(device)
+    arr = np.asarray(a)
+    if np.issubdtype(arr.dtype, np.integer):
+        return torch.from_numpy(np.array(arr, order="C")).to(device)
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
+
+
+def _host_stack(leaves):
+    """Per-layer numpy leaves stacked on the host: floats as float32,
+    integer and int4 leaves in their own type (so `_to_tensor` packs an
+    int4 stack)."""
+    if getattr(leaves[0].dtype, "name", "") == "int4" or np.issubdtype(
+            np.asarray(leaves[0]).dtype, np.integer):
+        return np.stack([np.asarray(a) for a in leaves])
+    return np.stack([np.asarray(a, np.float32) for a in leaves])
 
 
 def _map(fn, tree):
@@ -143,8 +166,7 @@ def prepare_stacked(params, cfg, device, compute_dtype=None):
         if isinstance(leaves[0], torch.Tensor):
             out = _to_tensor(torch.stack(leaves), device)
         else:
-            out = _to_tensor(np.stack([np.asarray(a, np.float32)
-                                       for a in leaves]), device)
+            out = _to_tensor(_host_stack(leaves), device)
         return out.to(compute_dtype) if _matmul_leaf(path, blocks[0]) \
             and compute_dtype is not None else out
 
@@ -300,6 +322,24 @@ def make_apply(cfg: GPTConfig, *, use_flash=False, compute_dtype=None,
                            compute_dtype=compute_dtype, remat=remat)
 
     return apply
+
+
+def make_hidden_stacked(cfg: GPTConfig, *, compute_dtype=None):
+    """Final-normed hidden states (B, T, C) f32 over the prepare_stacked
+    layout (JAX's make_hidden_stacked :262): make_apply_stacked without
+    the lm_head, the embedding endpoint's forward. Its attention is the
+    flash forward (use_flash=True): K1 on the card, the plain version on
+    the CPU -- JAX's takes the einsum, the same function."""
+
+    def hidden(prepared, idx):
+        x = embed(prepared, idx, cfg=cfg)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        x = blocks_scan(prepared["blocks"], x, cfg=cfg, use_flash=True,
+                        compute_dtype=compute_dtype)
+        return layer_norm(prepared["ln_f"], x.float(), eps=cfg.ln_eps)
+
+    return hidden
 
 
 def make_apply_stacked(cfg: GPTConfig, *, use_flash=False, compute_dtype=None,

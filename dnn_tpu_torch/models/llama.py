@@ -565,6 +565,24 @@ def make_apply_stacked(cfg: LlamaConfig, *, compute_dtype=None):
     return apply
 
 
+def make_hidden_stacked(cfg: LlamaConfig, *, compute_dtype=None):
+    """Final-normed hidden states (B, T, C) f32 over the prepare_stacked
+    layout (JAX's make_hidden_stacked :769): make_apply_stacked without
+    the lm_head, the embedding endpoint's forward; the attention is the
+    grouped einsum of the stateless forward."""
+
+    def hidden(prepared, idx):
+        check_ported(cfg)
+        x = embed(prepared, idx, cfg=cfg)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        for bp in unstack(prepared["blocks"], cfg.n_layer):
+            x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype)
+        return _norm(prepared["ln_f"], x.float(), cfg)
+
+    return hidden
+
+
 @torch.no_grad()
 def forward_no_cache(prepared, ids, *, cfg: LlamaConfig):
     """Plain full-sequence causal forward, no cache and no kernel: ids

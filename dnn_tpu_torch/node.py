@@ -10,7 +10,8 @@
     # GPT and LLaMA families: decode N tokens in this process
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         --generate N [--prompt_ids 1,2,3] [--temperature T] [--top_k K] \\
-        [--top_p P] [--seed S]
+        [--top_p P] [--seed S] [--beam K [--eos_id E] \\
+        [--length_penalty A]] [--lora adapter.npz]
     # the LM daemon
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         --serve_lm [--slots 4] [--max_len 1024] [--prompt_pad 64] \\
@@ -18,13 +19,16 @@
         [--decode_buckets] [--paged_blocks 0] [--block_len 16] \\
         [--prefix_cache N] [--prefill_chunk_tokens N] [--overlap] \\
         [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR] \\
-        [--draft_model NAME [--draft_weights CKPT] [--spec_k 4]]
+        [--draft_model NAME [--draft_weights CKPT] [--spec_k 4]] \\
+        [--weights {f32,int8}] [--lora adapter.npz] \\
+        [--serve_adapter a.npz [--serve_adapter b.npz ...]]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
 when that is null, from a seeded random init (seed 0; the LM daemon
 draws from --seed, and --weights_npz overrides both with a JAX param
-tree). Everything runs on the CUDA card unless the config's
+tree; --lora merges an adapter artifact into them at load). Everything
+runs on the CUDA card unless the config's
 `device_type` is "cpu" or --device cpu is given; without a card the
 default raises.
 """
@@ -46,8 +50,6 @@ log = logging.getLogger("dnn_tpu_torch.node")
 
 # flags of the JAX CLI whose subsystems are not ported: each exits 2
 _UNPORTED = (
-    ("beam", "--beam: beam search", "ROADMAP PyTorch/CUDA port item 4"),
-    ("lora", "--lora: LoRA merge", "ROADMAP Queue 1 item 8"),
     ("metrics_port", "--metrics_port: the observability endpoint",
      "ROADMAP Queue 1 item 12"),
     ("supervise", "--supervise: the supervisor", "ROADMAP Queue 1 item 11"),
@@ -71,6 +73,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--top_p", type=float, default=None)
+    p.add_argument("--beam", type=int, default=None, metavar="K",
+                   help="--generate: deterministic beam search with K beams "
+                        "instead of sampling (dense GPT family; "
+                        "runtime/beam.py)")
+    p.add_argument("--eos_id", type=int, default=None,
+                   help="--beam: end-of-sequence token id (finished beams "
+                        "freeze; the output pads with it)")
+    p.add_argument("--length_penalty", type=float, default=0.0,
+                   help="--beam: GNMT length-penalty alpha (0 = off)")
+    p.add_argument("--lora", default=None, metavar="NPZ",
+                   help="a LoRA adapter artifact (lora.save_lora) merged "
+                        "into the model weights at load: every mode then "
+                        "serves the adapted model")
+    p.add_argument("--serve_adapter", action="append", default=None,
+                   metavar="NPZ",
+                   help="--serve_lm: serve this LoRA adapter per request "
+                        "beside the base model (repeatable; a request "
+                        "picks one with the a=IDX request-id option, "
+                        "0-based in flag order)")
     p.add_argument("--serve", action="store_true",
                    help="host this node's stage behind gRPC")
     p.add_argument("--transport", choices=["auto", "grpc", "shm", "device"],
@@ -143,10 +164,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--serve_lm: a JAX GPT or LLaMA param tree (.npz, "
                    "'/'-joined "
                         "keys) in place of the config's model_weights")
+    p.add_argument("--weights", choices=["f32", "int8"], default="f32",
+                   help="--serve_lm: served weight precision; int8 "
+                        "quantizes the model once at startup (symmetric "
+                        "per output channel, quant.py)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="override the config's device_type")
-    p.add_argument("--beam", type=int, default=None)
-    p.add_argument("--lora", default=None)
     p.add_argument("--metrics_port", type=int, default=None)
     p.add_argument("--supervise", action="store_true")
     p.add_argument("--chaos", default=None)
@@ -230,10 +253,19 @@ def _generate_local(engine, args) -> int:
     else:
         ids = [0]
     try:
-        toks = engine.generate(np.asarray([ids], np.int32),
-                               max_new_tokens=args.generate,
-                               temperature=args.temperature, top_k=args.top_k,
-                               top_p=args.top_p, seed=args.seed)
+        if args.beam is not None:
+            # any explicit --beam takes the deterministic path (beam 1 is
+            # greedy; a bad K surfaces beam.py's own check)
+            toks = engine.generate_beam(
+                np.asarray([ids], np.int32), max_new_tokens=args.generate,
+                beam_size=args.beam, eos_id=args.eos_id,
+                length_penalty=args.length_penalty)
+        else:
+            toks = engine.generate(np.asarray([ids], np.int32),
+                                   max_new_tokens=args.generate,
+                                   temperature=args.temperature,
+                                   top_k=args.top_k, top_p=args.top_p,
+                                   seed=args.seed)
     except NotImplementedError as e:
         log.error("generation failed: %s", e)
         return 2
@@ -289,13 +321,32 @@ def _draft(args, cfg, device, compute_dtype) -> dict:
                                               compute_dtype)}
 
 
+def _serve_adapters(args, cfg) -> dict:
+    """--serve_adapter's batcher arguments: each artifact loaded
+    (lora.load_lora), a per-layer one restacked to the served layout,
+    its alpha beside it."""
+    from dnn_tpu_torch.lora import adapters_to_stacked, load_lora
+
+    ads, alphas = [], []
+    for path in args.serve_adapter:
+        ad, alpha = load_lora(path)
+        if any(p.split("/")[0].startswith("h_") for p in ad):
+            ad = adapters_to_stacked(ad, cfg.n_layer)
+        ads.append(ad)
+        alphas.append(alpha)
+    return {"lora_adapters": ads, "lora_alphas": alphas}
+
+
 def _serve_lm(config: TopologyConfig, me, args) -> int:
-    """The LM daemon on this node's port, with the config's weights, at
-    the config's compute type (`"dtype": "bfloat16"` serves in bf16
-    compute, as JAX's daemon does: dnn_tpu/node.py passes the engine's
-    compute_dtype). With --draft_model it serves speculatively, without
-    logit biases or constraints (the speculative batcher takes neither);
-    otherwise both are on."""
+    """The LM daemon on this node's port, with the config's weights (a
+    --lora artifact merged in), at the config's compute type (`"dtype":
+    "bfloat16"` serves in bf16 compute, as JAX's daemon does:
+    dnn_tpu/node.py passes the engine's compute_dtype); --weights int8
+    quantizes the f32 tree before the cast. With --draft_model it
+    serves speculatively, without logit biases or constraints (the
+    speculative batcher takes neither); otherwise both are on, as JAX's
+    node turns them on. --serve_adapter serves LoRA adapters per
+    request (a=)."""
     from dnn_tpu_torch.convert import from_jax_params, load_npz
     from dnn_tpu_torch.models.gpt import GPTConfig
     from dnn_tpu_torch.models.llama import LlamaConfig
@@ -321,10 +372,26 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
                   else config_device(config.device_type))
         tree = (load_npz(args.weights_npz) if args.weights_npz
                 else load_params(config, spec, args.seed))
-        prepared = from_jax_params(tree, cfg, device, compute_dtype)
+        if args.lora:
+            from dnn_tpu_torch.lora import load_lora, merge_lora
+
+            adapters, alpha = load_lora(args.lora)
+            tree = merge_lora(tree, adapters, alpha=alpha)
+        # int8 weights quantize the f32 tree, as JAX's daemon does; the
+        # batcher casts the rest for compute
+        prepared = from_jax_params(
+            tree, cfg, device,
+            None if args.weights == "int8" else compute_dtype)
     except (OSError, KeyError, ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
+    lora_kwargs = {}
+    if args.serve_adapter:
+        try:
+            lora_kwargs = _serve_adapters(args, cfg)
+        except Exception as e:  # noqa: BLE001 — CLI boundary: one line
+            log.error("--serve_adapter setup failed: %s", e)
+            return 1
     spec_kwargs = {}
     if args.draft_model:
         try:
@@ -352,7 +419,11 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             overlap=args.overlap,
             compute_dtype=compute_dtype, seed=args.seed, device=device,
-            tokenizer=tokenizer, **spec_kwargs))
+            tokenizer=tokenizer,
+            **({"weights": "int8"} if args.weights == "int8" else {}),
+            allow_logit_bias=not spec_kwargs,
+            allow_constraints=not spec_kwargs,
+            **spec_kwargs, **lora_kwargs))
     except (NotImplementedError, ValueError) as e:
         # e.g. --kv_dtype int4, or a sliding-window preset (ROADMAP item 2)
         log.error("%s", e)
@@ -375,6 +446,28 @@ def main(argv=None) -> int:
         log.error("--transport applies to --serve (the gRPC edge "
                   "deployment's inter-stage hops)")
         return 1
+    # JAX node.py:547-558, :615-620
+    if args.generate is None and (args.beam is not None
+                                  or args.eos_id is not None
+                                  or args.length_penalty != 0.0):
+        log.error("--beam/--eos_id/--length_penalty only apply to "
+                  "--generate; pass --generate N")
+        return 1
+    if args.generate is not None and args.beam is None and (
+            args.eos_id is not None or args.length_penalty != 0.0):
+        log.error("--eos_id/--length_penalty apply to beam search only; "
+                  "pass --beam K alongside --generate")
+        return 1
+    if args.serve_adapter and args.weights == "int8":
+        # JAX's LMServer refuses the pair (lm_server.py:831-836); its
+        # node exits 1
+        log.error("LM serve failed: weights='int8' does not compose with "
+                  "LoRA serving (--serve_adapter)")
+        return 1
+    if args.serve_adapter and not args.serve_lm:
+        log.error("--serve_adapter applies to --serve_lm only; to serve a "
+                  "single merged fine-tune in other modes use --lora")
+        return 1
     try:
         config = TopologyConfig.from_json(args.config)
         me = config.node_by_id(args.node_id)
@@ -395,7 +488,8 @@ def main(argv=None) -> int:
     try:
         engine = PipelineEngine(
             config, role="stage" if args.serve else "full",
-            devices=[resolve_device(args.device)] if args.device else None)
+            devices=[resolve_device(args.device)] if args.device else None,
+            lora_path=args.lora)
     except NotImplementedError as e:
         log.error("%s", e)
         return 2

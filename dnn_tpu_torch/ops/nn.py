@@ -79,6 +79,21 @@ def mm_out_dtype(device) -> bool:
     return _MM_OUT_DTYPE[key]
 
 
+def _dot(x, kernel, accum_dtype):
+    """x @ kernel, both already in the compute type, into `accum_dtype`
+    when given (see `linear`)."""
+    if accum_dtype is None:
+        return x @ kernel
+    if (x.dtype == kernel.dtype != accum_dtype
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or kernel.requires_grad))
+            and mm_out_dtype(x.device)):
+        return torch.mm(x.reshape(-1, x.shape[-1]), kernel,
+                        out_dtype=accum_dtype).reshape(*x.shape[:-1],
+                                                       kernel.shape[-1])
+    return x.to(accum_dtype) @ kernel.to(accum_dtype)
+
+
 def linear(params, x, *, compute_dtype=None, accum_dtype=None):
     """x @ kernel + bias with the (in, out) kernel layout (JAX's
     ops/nn.linear :66). The product is a plain torch.matmul: a large
@@ -95,31 +110,97 @@ def linear(params, x, *, compute_dtype=None, accum_dtype=None):
     preferred_element_type=f32 (a product of two bf16 values is exact in
     f32). Without autograd, on a device where `mm_out_dtype` holds, that
     is one bf16 x bf16 -> f32 product; otherwise an f32 matmul of the
-    rounded operands."""
+    rounded operands.
+
+    Weight-only quantized params ({"q", "scale", "bias"?}, quant.py)
+    take `_linear_int8` (q int8) or `_linear_int4` (q packed uint8). A
+    "lora" entry ({a, b, sel}, lora.lora_view) adds the selected
+    adapter's low-rank delta on top of either base, float or quantized
+    (`_lora_delta`)."""
+    lora = params.get("lora")
     if "q" in params:
-        raise NotImplementedError(
-            "int8/int4 weight-quantized linears are not ported to "
-            "dnn_tpu_torch yet (ROADMAP Queue 1 item 8, quant.py)")
-    if "lora" in params:
-        raise NotImplementedError(
-            "LoRA adapters are not ported to dnn_tpu_torch yet (ROADMAP "
-            "Queue 1 item 8, lora.py)")
+        base = (_linear_int4 if params["q"].dtype == torch.uint8
+                else _linear_int8)
+        out = base(params, x, compute_dtype=compute_dtype,
+                   accum_dtype=accum_dtype)
+        if lora is not None:
+            out = out + _lora_delta(lora, x, compute_dtype).to(out.dtype)
+        return out
     kernel = params["kernel"]
     orig_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         kernel = kernel.to(compute_dtype)
-    if accum_dtype is None:
-        out = x @ kernel
-    elif (x.dtype == kernel.dtype != accum_dtype
-          and not (torch.is_grad_enabled()
-                   and (x.requires_grad or kernel.requires_grad))
-          and mm_out_dtype(x.device)):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), kernel,
-                       out_dtype=accum_dtype).reshape(*x.shape[:-1],
-                                                      kernel.shape[-1])
-    else:
-        out = x.to(accum_dtype) @ kernel.to(accum_dtype)
+    out = _dot(x, kernel, accum_dtype)
+    bias = params.get("bias")
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    if lora is not None:
+        out = out + _lora_delta(lora, x, compute_dtype).to(out.dtype)
+    if accum_dtype is None and compute_dtype is not None:
+        out = out.to(orig_dtype)
+    return out
+
+
+def _lora_delta(lora, x, compute_dtype):
+    """The per-row low-rank delta of multi-adapter serving (JAX's
+    ops/nn._lora_delta): x (B, T, C) against the adapter stacks a
+    (N, C, r) and b (N, r, O), row b taking the adapter its one-hot
+    sel (B, N) names. Every adapter's products are computed and then
+    masked by sel and summed over the adapter axis (a one-hot product
+    and a sum with zeros are exact): N times the rank-r work, but static
+    shapes and no gather of weight-sized operands, so a captured step
+    reads a new assignment from the sel buffer it was captured over."""
+    dt = compute_dtype if compute_dtype is not None else x.dtype
+    sel = lora["sel"].to(dt)[:, :, None, None]          # (B, N, 1, 1)
+    xa = torch.matmul(x.to(dt)[:, None], lora["a"].to(dt)[None])
+    xa = (xa * sel).sum(dim=1)                           # (B, T, r)
+    y = torch.matmul(xa[:, None], lora["b"].to(dt)[None])
+    return (y * sel).sum(dim=1)                          # (B, T, O)
+
+
+def _linear_int8(params, x, *, compute_dtype=None, accum_dtype=None):
+    """Weight-only int8 dense layer, in JAX's order: (x @ q) * scale +
+    bias, the product of x and q cast to the compute type into the
+    accumulator type, the per-output-channel scale on the product's
+    columns. A dequantize and a torch product: JAX computes it with an
+    XLA dot outside any kernel."""
+    q = params["q"]
+    orig_dtype = x.dtype
+    cd = compute_dtype if compute_dtype is not None else x.dtype
+    acc = accum_dtype if accum_dtype is not None else cd
+    out = _dot(x.to(cd), q.to(cd), accum_dtype)
+    out = out * params["scale"][..., 0, :].to(acc)
+    bias = params.get("bias")
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    if accum_dtype is None and compute_dtype is not None:
+        out = out.to(orig_dtype)
+    return out
+
+
+def _linear_int4(params, x, *, compute_dtype=None, accum_dtype=None):
+    """Weight-only group-wise int4 dense layer (JAX's _linear_int4): q
+    packed (in/2, out), scale (in/group, out). Group scales do not
+    commute with the whole contraction, so the product runs per group
+    and the scales apply before the group sum: out = sum_G (x_G @ q_G) *
+    scale_G + bias."""
+    from dnn_tpu_torch.quant import unpack_int4
+
+    scale = params["scale"]
+    orig_dtype = x.dtype
+    cd = compute_dtype if compute_dtype is not None else x.dtype
+    acc = accum_dtype if accum_dtype is not None else cd
+    q = unpack_int4(params["q"])
+    in_dim, out_dim = q.shape[-2], q.shape[-1]
+    g_count = scale.shape[-2]
+    gsz = in_dim // g_count
+    lead = x.shape[:-1]
+    xg = x.reshape(-1, g_count, gsz).to(cd).transpose(0, 1)  # (G, N, gsz)
+    qg = q.reshape(g_count, gsz, out_dim).to(cd)
+    out = torch.matmul(xg.to(acc), qg.to(acc))              # (G, N, out)
+    out = (out * scale.to(acc)[:, None, :]).sum(dim=0)
+    out = out.reshape(*lead, out_dim)
     bias = params.get("bias")
     if bias is not None:
         out = out + bias.to(out.dtype)

@@ -17,7 +17,8 @@ the JAX package's message, and with enough devices NotImplementedError;
 Weights come from the config's `model_weights` (`.pth`, `.safetensors`
 or `.npz`: a native flat tree, or a foreign state dict through the
 family's converter) or, when it is null, from the family's numpy init
-with `rng_seed`. The engine runs on the CUDA card unless the config's
+with `rng_seed`; `lora_path` merges a LoRA artifact into them at load
+(lora.merge_lora). The engine runs on the CUDA card unless the config's
 `device_type` is "cpu" or `devices` says otherwise.
 """
 
@@ -82,10 +83,6 @@ class PipelineEngine:
                  lora_path: Optional[str] = None):
         if role not in ("full", "stage"):
             raise ValueError(f"role must be full|stage, got {role}")
-        if lora_path:
-            raise NotImplementedError(
-                "LoRA adapters are not ported to dnn_tpu_torch yet (ROADMAP "
-                "Queue 1 item 8, lora.py)")
         self.config = config
         self.role = role
         self.transport = config.transport
@@ -112,6 +109,16 @@ class PipelineEngine:
                         if devices is not None else default_devices(config))
         self.params = (params if params is not None
                        else load_params(config, self.spec, rng_seed))
+        if lora_path:
+            # merge once (lora.merge_lora): every runtime below serves
+            # the adapted weights, as JAX's engine does
+            from dnn_tpu_torch.lora import load_lora, merge_lora
+
+            adapters, alpha = load_lora(lora_path)
+            self.params = merge_lora(self.params, adapters, alpha=alpha)
+            log.info("merged LoRA adapters from %s (%d sites%s)", lora_path,
+                     len(adapters),
+                     f", alpha={alpha}" if alpha is not None else "")
         self._stage_params = [s.slice_params(self.params)
                               for s in self.stages]
         self._stage_params_on_device: dict = {}
@@ -232,6 +239,32 @@ class PipelineEngine:
                 max_new_tokens=max_new_tokens, temperature=temperature,
                 top_k=top_k, top_p=top_p)
         return cache[key](np.asarray(ids, np.int32), seed)
+
+    def generate_beam(self, ids, *, max_new_tokens: int, beam_size: int,
+                      eos_id: Optional[int] = None,
+                      length_penalty: float = 0.0) -> torch.Tensor:
+        """Beam search on this engine's weights (runtime/beam.py), dense
+        GPT family only, as JAX's engine: the best hypothesis per row,
+        (B, max_new_tokens) int32. The search is cached per parameter
+        tuple like `generate`'s generators."""
+        from dnn_tpu_torch.models.gpt import GPTConfig
+        from dnn_tpu_torch.runtime.beam import make_beam_generate
+
+        cfg = self.spec.config
+        self._require_full_role()
+        if type(cfg) is not GPTConfig:
+            raise ValueError(
+                f"beam search requires a dense GPT-family model; "
+                f"'{self.config.model}' has config {type(cfg).__name__}")
+        key = ("beam", max_new_tokens, beam_size, eos_id, length_penalty)
+        cache = self.__dict__.setdefault("_generators", {})
+        if key not in cache:
+            gen = make_beam_generate(
+                cfg, max_new_tokens=max_new_tokens, beam_size=beam_size,
+                eos_id=eos_id, length_penalty=length_penalty,
+                compute_dtype=self.compute_dtype, device=self.devices[0])
+            cache[key] = lambda i: gen(self._prepared(), i)
+        return cache[key](np.asarray(ids, np.int32))
 
     def stage_times(self, x):
         """One instrumented relay run: (output, per-stage compute

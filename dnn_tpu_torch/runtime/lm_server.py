@@ -22,24 +22,33 @@ concurrent.futures.Future per request. A request the paged pool cannot
 take yet (InsufficientBlocks) is held back and retried ahead of the
 queue once blocks free.
 
-The batcher's serving features ride the same worker: the daemon's
-batcher takes per-request logit biases (b=, allow_logit_bias) and
-grammar constraints (allow_constraints, with 3600 constraint rows), as
-JAX's node builds it; "j=DEPTH" serves JSON mode, a depth-bounded JSON
-grammar compiled once per depth over the tokenizer's `vocab_bytes`
-(`json_constraint`). `prefix_cache`, `prefill_chunk_tokens` and
-`overlap` pass through. Given a draft model (`draft_cfg`,
-`draft_prepared`, `spec_k`) the daemon serves through the speculative
-batcher (runtime/serving_spec.SpeculativeBatcher), which takes neither
-biases nor constraints. Under interleaved admission a request's first
+The batcher's serving features ride the same worker. Per-request logit
+biases (b=) and grammar constraints need the batcher built with
+allow_logit_bias / allow_constraints (3600 constraint rows unless told
+otherwise): off by default, as in JAX's LMServer; `node --serve_lm`
+turns both on, as JAX's node does. "j=DEPTH" serves JSON mode, a
+depth-bounded JSON grammar compiled once per depth over the tokenizer's
+`vocab_bytes` (`json_constraint`). "a=I" serves the request through
+LoRA adapter I of `lora_adapters` (the batcher's multi-LoRA views).
+`weights="int8"` quantizes the served tree once at construction
+(quant.quantize_gpt; not with LoRA, as in JAX). The request id "embed"
+or "embed:mean|last" answers with the pooled final hidden state of the
+prompt (runtime/embeddings.make_embed over the served weights, the
+prompt padded to a prompt_pad multiple): the call runs on the batcher's
+worker thread between two steps, so it never meets a step's graph
+capture or a step's buffers half written. `prefix_cache`,
+`prefill_chunk_tokens` and `overlap` pass through. Given a draft model
+(`draft_cfg`, `draft_prepared`, `spec_k`) the daemon serves through the
+speculative batcher (runtime/serving_spec.SpeculativeBatcher), which
+takes neither biases nor constraints. Under interleaved admission a request's first
 token arrives with a later step's commit (a step may then commit two
 tokens of one request); under overlap the worker commits the trailing
 step when the pool empties (flush_overlap).
 
-Left out (ROADMAP, "PyTorch/CUDA port" items 4 d-e and 12): the
+Left out (ROADMAP, "PyTorch/CUDA port" items 4 e and 12): the
 observability endpoints, chaos injection, dedup and connection
-draining, the watchdog, KV handoff and the KV tier, LoRA adapters and
-the embedding endpoint. Their request ids answer UNIMPLEMENTED.
+draining, the watchdog, KV handoff and the KV tier. Their request ids
+answer UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -78,7 +87,7 @@ __all__ = ["LMServer", "serve_lm", "start_lm_server_in_background",
            "parse_gen_options"]
 
 # request ids of JAX-daemon endpoints this port does not serve yet
-_UNPORTED_ENDPOINTS = ("embed", "prefill", "kvput:", "kvstage", "kvlease",
+_UNPORTED_ENDPOINTS = ("prefill", "kvput:", "kvstage", "kvlease",
                        "kvfetch:", "kvack:", "kvpull")
 
 
@@ -90,9 +99,9 @@ def parse_gen_options(request_id: str, default_max_new: int):
     seed; unparseable segments fall back to defaults; unknown named
     segments (the JAX client's dl=/tr= tags) are skipped. b= is the
     logit bias ("tok~val,tok~val"), j= the JSON mode's depth (the
-    daemon's preflight turns it into a constraint); the a/d/h options
-    parse as in the JAX daemon and are refused at admission (not
-    ported)."""
+    daemon's preflight turns it into a constraint), a= the LoRA
+    adapter's index; the d/h options parse as in the JAX daemon and are
+    refused at admission (not ported)."""
     max_new, seed, opts = default_max_new, None, {}
     parts = (request_id or "").split(":")
     if parts[0] != "gen":
@@ -153,7 +162,8 @@ class _QueuedRequest(NamedTuple):
 
 class _BatcherWorker(threading.Thread):
     """The one thread that talks to the device. Owns the batcher; every
-    other thread submits through `submit`, which returns a Future."""
+    other thread submits through `submit` (or hands it other device work
+    through `call`), which returns a Future."""
 
     def __init__(self, batcher: ContinuousBatcher):
         super().__init__(daemon=True, name="lm-batcher")
@@ -164,6 +174,7 @@ class _BatcherWorker(threading.Thread):
         self._dead: Optional[BaseException] = None
         self._held: Optional[_QueuedRequest] = None
         self._futures: dict = {}  # rid -> _QueuedRequest
+        self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
 
     def submit(self, prompt, max_new: int, seed, *, opts=None,
                on_token=None, cancel_evt=None) -> concurrent.futures.Future:
@@ -180,6 +191,33 @@ class _BatcherWorker(threading.Thread):
                 on_token, cancel_evt or threading.Event(), fut))
         return fut
 
+    def call(self, fn) -> concurrent.futures.Future:
+        """Run fn() on this thread between two steps; its result (or
+        exception) resolves the returned Future. Device work other than
+        the batcher's (the embedding endpoint) goes this way, so it never
+        runs beside a step's graph capture."""
+        fut = concurrent.futures.Future()
+        with self._lock:
+            if self._dead is not None:
+                _fail_future(fut, self._dead)
+                return fut
+            self._calls.put((fn, fut))
+            self.q.put(None)  # wakes an idle worker
+        return fut
+
+    def _run_calls(self):
+        while True:
+            try:
+                fn, fut = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except Exception as e:  # noqa: BLE001 — the caller's error
+                fut.set_exception(e)
+
     def stop(self):
         """Shut down: queued and in-flight requests fail with "LM server
         shut down" as the worker exits."""
@@ -190,7 +228,10 @@ class _BatcherWorker(threading.Thread):
 
     def _admit(self, item: _QueuedRequest) -> bool:
         """Admit one request; False when it was HELD BACK (pool short of
-        blocks) — the caller then stops pulling more work."""
+        blocks) — the caller then stops pulling more work. A None item
+        (a `call`'s wake-up) admits nothing."""
+        if item is None:
+            return True
         if item.cancel_evt.is_set():
             item.fut.cancel()
             return True
@@ -253,13 +294,20 @@ class _BatcherWorker(threading.Thread):
                     pending.append(self.q.get_nowait())
                 except queue.Empty:
                     break
-        for item in pending:
-            _fail_future(item.fut, exc)
+            futs = [item.fut for item in pending if item is not None]
+            while True:
+                try:
+                    futs.append(self._calls.get_nowait()[1])
+                except queue.Empty:
+                    break
+        for fut in futs:
+            _fail_future(fut, exc)
 
     def run(self):
         b = self.batcher
         try:
             while not self._stop_evt.is_set():
+                self._run_calls()
                 self._process_cancels()
                 if b.n_active == 0 and self._held is None:
                     # overlap: the pool emptied with one dispatched step
@@ -304,10 +352,12 @@ class LMServer:
     default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
     `block_len`), `compute_dtype` (torch.bfloat16: bf16 compute, the
     cache bf16 unless `kv_dtype` says otherwise), `prefix_cache`,
-    `prefill_chunk_tokens` and `overlap` among them; the batcher takes
-    logit biases (allow_logit_bias) and constraints (allow_constraints,
-    constraint_rows 3600: JSON mode's depth 3 needs 3519 rows) unless
-    told otherwise, or unless it is speculative. `device`
+    `prefill_chunk_tokens`, `overlap`, `lora_adapters`/`lora_alphas`,
+    `allow_logit_bias` and `allow_constraints` among them, each off
+    unless given, as in JAX's LMServer (allow_constraints sizes
+    constraint_rows at 3600 unless told otherwise: JSON mode's depth 3
+    needs 3519 rows). `weights` is "f32" or "int8" (quantized once here;
+    refused with lora_adapters, as in JAX). `device`
     defaults to "cuda" and raises without a card. A LlamaConfig serves
     through LlamaFamilyRows(cfg) unless `family` is given
     (serving.default_family)."""
@@ -317,8 +367,26 @@ class LMServer:
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
                  request_timeout: float = 120.0, tokenizer=None,
                  draft_cfg=None, draft_prepared=None, spec_k: int = 4,
-                 **batcher_kwargs):
+                 weights: str = "f32", **batcher_kwargs):
         native.load()  # the checksum library, built before serving
+        if weights not in ("f32", "int8"):
+            raise ValueError(
+                f"weights must be 'f32' or 'int8', got {weights!r}")
+        if weights == "int8":
+            if batcher_kwargs.get("lora_adapters"):
+                raise ValueError(
+                    "weights='int8' does not compose with LoRA serving: "
+                    "lora_view applies low-rank deltas to float kernels, "
+                    "not quantized {q, scale} pairs")
+            from dnn_tpu_torch.quant import quantize_gpt
+
+            prepared = quantize_gpt(prepared, bits=8)
+        self.weights = weights
+        if (batcher_kwargs.get("allow_constraints")
+                and "constraint_rows" not in batcher_kwargs):
+            # the daemon's JSON mode goes up to depth 3, whose byte DFA
+            # has 3519 states (JAX lm_server.py:1275-1283)
+            batcher_kwargs["constraint_rows"] = 3600
         if draft_cfg is not None:
             # speculative serving: each step commits up to spec_k + 1
             # tokens a slot (runtime/serving_spec.py)
@@ -328,18 +396,13 @@ class LMServer:
                 cfg, prepared, draft_cfg, draft_prepared, spec_k=spec_k,
                 **batcher_kwargs)
         else:
-            # the daemon's clients choose options per request (b=, j=),
-            # as the JAX node builds its batcher
-            batcher_kwargs.setdefault("allow_logit_bias", True)
-            batcher_kwargs.setdefault("allow_constraints", True)
-            if batcher_kwargs["allow_constraints"]:
-                batcher_kwargs.setdefault("constraint_rows", 3600)
             self.batcher = ContinuousBatcher(cfg, prepared, **batcher_kwargs)
         self.default_max_new = default_max_new
         self.request_timeout = request_timeout
         self.tokenizer = tokenizer
         # JSON mode's constraints, one per depth, compiled at first use
         self._constraint_cache: dict = {}
+        self._embed_fns: dict = {}  # pooling -> make_embed's function
         self.worker = _BatcherWorker(self.batcher)
         self.worker.start()
 
@@ -372,6 +435,61 @@ class LMServer:
             c = TokenConstraint.from_regex(json_regex(depth), vocab)
             self._constraint_cache[depth] = c
         return c
+
+    def _embed_prompt(self, prompt: np.ndarray, pooling: str) -> np.ndarray:
+        """The pooled final hidden state (C,) f32 of one prompt
+        (runtime/embeddings.make_embed over the served weights, at the
+        batcher's compute type), the prompt padded to a prompt_pad
+        multiple as JAX's daemon pads it (padding after the real tokens
+        changes nothing). Runs on the worker thread (`_BatcherWorker.call`)."""
+        cfg = self.batcher.cfg
+        t = int(prompt.size)
+        if t < 1:
+            raise ValueError("embedding needs at least one token")
+        if t > cfg.block_size:
+            raise ValueError(
+                f"prompt length {t} > block_size {cfg.block_size}")
+        fn = self._embed_fns.get(pooling)
+        if fn is None:
+            from dnn_tpu_torch.runtime.embeddings import make_embed
+
+            fn = self._embed_fns[pooling] = make_embed(
+                cfg, pooling=pooling,
+                compute_dtype=self.batcher.family.compute_dtype)
+        p_pad = self.batcher.prompt_pad
+        padded_len = min(-(-t // p_pad) * p_pad, cfg.block_size)
+        ids = np.zeros((1, max(padded_len, t)), np.int64)
+        ids[0, :t] = prompt.reshape(-1)
+        out = fn(self.batcher.prepared, ids, np.asarray([t], np.int64))
+        return out[0].float().cpu().numpy()
+
+    async def _embed(self, prompt, rid_clean: str, context):
+        """The embed[:mean|last] endpoint (JAX lm_server.py:1913-1932):
+        the reply's status and tensor as JAX's daemon gives them."""
+        pooling = (rid_clean.split(":", 1)[1] if ":" in rid_clean
+                   else "mean")
+        if pooling not in ("mean", "last"):
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"embed pooling must be mean|last, got {pooling!r}")
+        if not self.worker.is_alive():
+            await context.abort(grpc.StatusCode.UNAVAILABLE,
+                                "LM batcher worker is not running")
+        fut = self.worker.call(
+            lambda: self._embed_prompt(np.asarray(prompt), pooling))
+        try:
+            vec = await asyncio.wait_for(asyncio.wrap_future(fut),
+                                         self.request_timeout)
+        except asyncio.TimeoutError:
+            await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
+                                f"embedding exceeded {self.request_timeout}s")
+        except ValueError as e:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        except Exception as e:  # noqa: BLE001 — mapped to a status
+            await self._abort_for(e, context)
+        return wc.TensorResponse(
+            status=f"[lm] ok: embedding dim {vec.shape[-1]}",
+            result_tensor=_tensor_msg(vec))
 
     async def _abort_for(self, exc, context):
         if isinstance(exc, NotImplementedError):
@@ -454,6 +572,10 @@ class LMServer:
 
     async def SendTensor(self, request, context):
         prompt = await self._validated_prompt(request, context)
+        rid_clean = ":".join(s for s in (request.request_id or "").split(":")
+                             if not s.startswith(("dl=", "tr=")))
+        if rid_clean == "embed" or rid_clean.startswith("embed:"):
+            return await self._embed(prompt, rid_clean, context)
         tokens = await self._generate(prompt.reshape(-1), request.request_id,
                                       context)
         return wc.TensorResponse(

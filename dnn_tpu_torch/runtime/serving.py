@@ -108,9 +108,9 @@ Against the JAX batcher:
   * sampled requests draw from a per-request torch.Generator seeded from
     (server seed, request id or seed), so a sampled stream matches the
     JAX package's only in distribution; greedy streams are identical;
-  * LoRA (item 4 d), the KV handoff and the fleet KV tier (item 4 e),
-    the observability gauges (item 12) and int4 KV (item 2) raise
-    NotImplementedError (ROADMAP, "PyTorch/CUDA port").
+  * the KV handoff and the fleet KV tier (item 4 e), the observability
+    gauges (item 12) and int4 KV (item 2) raise NotImplementedError
+    (ROADMAP, "PyTorch/CUDA port").
 
 The server runs on CUDA unless constructed with device="cpu"; without a
 card the default raises. TF32 is switched off for the matmuls: the JAX
@@ -168,11 +168,9 @@ log = logging.getLogger("dnn_tpu_torch.serving")
 # waits on. Passing one at its "off" value is accepted (it changes
 # nothing); any other value raises NotImplementedError.
 _UNPORTED = {
-    "lora_adapters": "item 4 d (LoRA)",
     "ffn": "item 7 (other model families)",
 }
 _UNPORTED_SUBMIT = {
-    "adapter": "item 4 d (LoRA)",
     "prefilled": "item 4 e (KV handoff)",
     "kv_handle": "item 4 e (KV handoff)",
 }
@@ -458,6 +456,7 @@ class ContinuousBatcher:
                  prefill_chunk_tokens: int = 0, overlap: bool = False,
                  allow_constraints: bool = False,
                  constraint_rows: int = 1024,
+                 lora_adapters=None, lora_alphas=None,
                  device=None, **unported):
         compute_dtype = check_compute_dtype(compute_dtype)
         if family is not None:
@@ -489,6 +488,38 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.prepared = for_compute(prepared, compute_dtype)
         self.slots = slots
+        # multi-LoRA serving (JAX serving.py:263-282): `lora_adapters` is
+        # a list of adapter trees against this prepared layout, stacked
+        # behind an all-zero adapter 0 (the base model); a request picks
+        # one by submit(adapter=i). The step forwards read the base
+        # weights through lora views whose per-row one-hot selections
+        # are PERSISTENT device buffers written in place at admission
+        # (where JAX rebuilds its view): `_sel_d` (slots, N+1) for the
+        # decode leg, `_row_sel_d` (1, N+1) for the prompt chunks that
+        # fill the transient row (convoy prefill and the mixed step's
+        # chunk), so a captured step reads each new assignment.
+        self._lora = None
+        self._n_adapters = 0
+        if lora_adapters:
+            from dnn_tpu_torch.lora import stack_loras, transpose_lora_stack
+
+            stacked = transpose_lora_stack(
+                stack_loras(list(lora_adapters), alphas=lora_alphas))
+            self._lora = {p: {k: t.to(self.device, torch.float32)
+                              for k, t in ab.items()}
+                          for p, ab in stacked.items()}
+            self._n_adapters = len(lora_adapters)
+        self._aid = np.zeros((slots,), np.int32)  # 0 = the base model
+        self._sel_d = self._row_sel_d = None
+        self._decode_view = self._row_view = self.prepared
+        if self._lora is not None:
+            n = self._n_adapters + 1
+            self._sel_d = torch.zeros((slots, n), device=self.device)
+            self._sel_d[:, 0] = 1.0
+            self._row_sel_d = torch.zeros((1, n), device=self.device)
+            self._row_sel_d[:, 0] = 1.0
+            self._decode_view = self._lora_view(self._sel_d)
+            self._row_view = self._lora_view(self._row_sel_d)
         self.max_len = min(max_len or cfg.block_size, cfg.block_size)
         self.prompt_pad = prompt_pad or min(64, self.max_len)
         self.paged, paged_blocks = self._choose_layout(
@@ -678,6 +709,21 @@ class ContinuousBatcher:
         self.finish_reasons: Dict[int, str] = {}
         self.token_logprobs: Dict[int, dict] = {}
 
+    def _lora_view(self, sel):
+        """The served weights with every adapted linear reading `sel`
+        (B, N+1), a view: nothing is copied (lora.lora_view)."""
+        from dnn_tpu_torch.lora import lora_view
+
+        return lora_view(self.prepared, self._lora, sel, transposed=True)
+
+    def _select_row_adapter(self, aid: int):
+        """Points the transient row's view at adapter `aid` (0: the base
+        model), writing its one-hot buffer in place; a no-op without
+        LoRA."""
+        if self._lora is not None:
+            self._row_sel_d.zero_()
+            self._row_sel_d[0, aid] = 1.0
+
     def _choose_layout(self, kv, paged_blocks: int, block_len: int,
                        decode_buckets):
         """(paged?, pool block count) from `kv` as the JAX batcher decides
@@ -768,7 +814,8 @@ class ContinuousBatcher:
                repetition_penalty: Optional[float] = None,
                logit_bias: Optional[dict] = None,
                stop: Optional[list] = None, logprobs: bool = False,
-               constraint=None, **unported) -> int:
+               constraint=None, adapter: Optional[int] = None,
+               **unported) -> int:
         """Admit `prompt` (1-D int ids) into a free slot; returns the
         request id. The first token is sampled at the end of the prefill
         and counts toward max_new_tokens. `seed` names the request's rng
@@ -780,8 +827,10 @@ class ContinuousBatcher:
         `constraint` (a runtime/constrain.TokenConstraint) masks every
         generated token to the grammar, the first included, and retires
         the request with finish reason "constraint" once nothing can
-        extend a complete match (needs allow_constraints=True). Convoy
-        admission prefills here; interleaved admission
+        extend a complete match (needs allow_constraints=True);
+        `adapter` indexes the constructor's `lora_adapters` (None: the
+        base model) and applies to the prefill and every decode step.
+        Convoy admission prefills here; interleaved admission
         (prefill_chunk_tokens) only queues the prompt, whose chunks the
         following steps fold in. Raises RuntimeError without a free slot
         and, on the paged pool, InsufficientBlocks while it lacks blocks
@@ -826,6 +875,16 @@ class ContinuousBatcher:
                 "logprobs_k=0")
         if constraint is not None:
             self._check_constraint(constraint)
+        aid = 0
+        if adapter is not None:
+            if self._lora is None:
+                raise ValueError(
+                    "adapter= requires lora_adapters at construction")
+            if not 0 <= int(adapter) < self._n_adapters:
+                raise ValueError(
+                    f"adapter {adapter} out of range "
+                    f"[0, {self._n_adapters})")
+            aid = int(adapter) + 1  # stack row 0 is the base model
         tk = min(tk, TOP_P_PREFILTER_K)
         stop_seqs = []
         for s in (stop or []):
@@ -842,9 +901,12 @@ class ContinuousBatcher:
         c_off = (self._ctab_register(constraint)
                  if constraint is not None else None)
 
-        # the radix store's longest cached prefix (host lookup)
-        kv_hit = (self._prefix_store.lookup(prompt)
-                  if self._prefix_store is not None else None)
+        # the radix store's longest cached prefix (host lookup); its
+        # entries are base-model K/V, so an adapted request bypasses it
+        # (JAX serving.py:1403-1426: it runs uncached, counted neither
+        # hit nor miss)
+        use_radix = self._prefix_store is not None and aid == 0
+        kv_hit = self._prefix_store.lookup(prompt) if use_radix else None
         taken, n_shared, cow_tok, install_ids, req = [], 0, 0, None, None
         try:
             if self.paged:
@@ -862,7 +924,7 @@ class ContinuousBatcher:
             self._next_rid += 1
             req = {"rid": rid, "emitted": [], "budget": max_new_tokens,
                    "stop": stop_seqs, "blocks": taken,
-                   "prompt_len": len(prompt),
+                   "prompt_len": len(prompt), "aid": aid,
                    "logprobs": bool(logprobs and self._logprobs_k)}
             if req["logprobs"]:
                 req["lp"], req["lp_top"] = [], []
@@ -988,15 +1050,15 @@ class ContinuousBatcher:
     def _admit(self, slot, req, prompt, par, kv_hit, n_shared, cow_tok):
         """Convoy admission: the prompt's chunks (resumed after a prefix
         hit), the first token and the slot's state, inline."""
-        if self._prefix_store is not None:
+        if kv_hit is not None:
             self._count_lookup(n_shared > 0 or cow_tok > 0)
             boundary: dict = {}
             last = self._radix_prefill(prompt, slot, kv_hit, n_shared,
                                        cow_tok, boundary)
         else:
-            last = self._prefill(prompt)
+            last = self._prefill(prompt, req["aid"])
         first, lp = self._finish(slot, req, last, par)
-        if self._prefix_store is not None:
+        if kv_hit is not None:
             # the prompt's full-block path, now that the install has
             # filled the owned blocks; the store refs every newly resident
             # block, the slot keeps its own references until it retires
@@ -1029,18 +1091,21 @@ class ContinuousBatcher:
         else:
             self.prefix_misses += 1
 
-    def _prefill(self, prompt):
+    def _prefill(self, prompt, aid: int = 0):
         """The convoy chunk loop into the transient row — full prompt_pad
-        chunks and one padded tail, each at its absolute start; on a dense
-        pool with the prefix LRU it resumes after the longest cached
-        full-chunk prefix and caches each completed chunk boundary
-        (scan-resistant: a new entry parks at the LRU end, only a hit
-        promotes). Returns the logits row (V,) of the true last prompt
-        token."""
+        chunks and one padded tail, each at its absolute start, through
+        adapter `aid`'s weights; on a dense pool with the prefix LRU it
+        resumes after the longest cached full-chunk prefix of the same
+        adapter and caches each completed chunk boundary (scan-resistant:
+        a new entry parks at the LRU end, only a hit promotes). Returns
+        the logits row (V,) of the true last prompt token."""
         p_pad = self.prompt_pad
         n_chunks = -(-len(prompt) // p_pad)
         start_chunk, last = 0, None
-        key_ns = np.int32(0).tobytes()  # the base model's adapter id
+        self._select_row_adapter(aid)
+        # K/V depend on the weights that made them: the keys carry the
+        # adapter id (JAX serving.py:1403-1406)
+        key_ns = np.int32(aid).tobytes()
         key_of = (lambda c: key_ns
                   + prompt[:c * p_pad].astype(np.int32).tobytes())
         if self._prefix_cache is not None:
@@ -1061,7 +1126,7 @@ class ContinuousBatcher:
         logits = None
         for c in range(start_chunk, n_chunks):
             logits = self.family.prefill(
-                self.prepared, padded_d[:, c * p_pad:(c + 1) * p_pad],
+                self._row_view, padded_d[:, c * p_pad:(c + 1) * p_pad],
                 self._row, c * p_pad)
             self.prefill_chunks_run += 1
             if self._prefix_cache is not None \
@@ -1156,6 +1221,13 @@ class ContinuousBatcher:
         self._topp_d[slot] = par["p"]
         self._minp_d[slot] = par["mp"]
         self._rep_d[slot] = par["rp"]
+        if self._lora is not None and self._aid[slot] != req["aid"]:
+            # the slot's adapter, written into the decode view's one-hot
+            # buffer in place (a captured step reads it at its next
+            # replay)
+            self._aid[slot] = req["aid"]
+            self._sel_d[slot] = 0.0
+            self._sel_d[slot, req["aid"]] = 1.0
         self._seen[slot] = par["seen_row"]
         self._seen[slot, first] = True
         if self._allow_constraints:
@@ -1468,6 +1540,7 @@ class ContinuousBatcher:
             self._chunk_d.copy_(ilv["p"]["padded"][:, ilv["c"] * n:
                                                    (ilv["c"] + 1) * n])
             self._start_d.fill_(ilv["c"] * n)
+            self._select_row_adapter(ilv["req"]["aid"])
             args = (self._row, self._chunk_d, self._start_d)
             logits, pf_logits = (
                 g.mixed(self._mixed, self.cache, self._row, *state[1:],
@@ -1489,7 +1562,7 @@ class ContinuousBatcher:
 
     def _decode(self, cache, tok, pos, active):
         """The forward of one step over every slot: logits (B, V)."""
-        return self.family.decode_rows(self.prepared, cache, tok, pos,
+        return self.family.decode_rows(self._decode_view, cache, tok, pos,
                                        active, self._codec)
 
     def _mixed(self, cache, tok, pos, active, row, chunk, start):
@@ -1499,7 +1572,7 @@ class ContinuousBatcher:
         touch disjoint buffers. Returns (logits (B, V), the chunk's logits
         (1, N, V))."""
         logits = self._decode(cache, tok, pos, active)
-        return logits, self.family.prefill(self.prepared, chunk, row, start)
+        return logits, self.family.prefill(self._row_view, chunk, row, start)
 
     def _sample_step(self, logits):
         """The step's sampling, on the device (JAX's _decode_core after the

@@ -34,3 +34,30 @@ def gpt_train_step_flops(cfg, batch: int, seq: int, *,
     """Training-step FLOPs for one GPT batch: factor x forward."""
     return _train_step_factor(batch, accum_steps, remat) \
         * gpt_forward_flops(cfg, batch, seq)
+
+
+def tree_weight_bytes(tree) -> float:
+    """Device bytes of a parameter tree's array leaves (a copy of the
+    pricing of dnn_tpu/utils/flops.py:169): every tensor or numpy leaf at
+    its element size, so int8 kernels at 1 byte an element and packed
+    int4 kernels (uint8, two values a byte; quant.pack_int4) at half a
+    byte an element of the unpacked kernel; f32 scales at full width. A
+    numpy int4 leaf (ml_dtypes, one value a byte on the host) counts
+    half a byte, as JAX prices it."""
+    total = 0.0
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+            continue
+        dt = getattr(node, "dtype", None)
+        if dt is None:
+            continue
+        if getattr(dt, "name", None) in ("int4", "uint4"):
+            total += node.size * 0.5
+        elif hasattr(node, "element_size"):
+            total += node.numel() * node.element_size()
+        else:
+            total += node.size * dt.itemsize
+    return float(total)

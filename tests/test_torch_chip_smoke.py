@@ -467,3 +467,49 @@ def test_spec_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert "[spec] S-solo: 16 tokens after a 300-token prompt" in out
     assert "every one committing 5 tokens a slot" in out
     assert set(counts) == {"f32", "bf16"} and set(verify) == {"f32", "bf16"}
+
+
+def test_item_4d_phases_rehearsed_on_the_cpu(capsys, one_torch_thread):
+    """chip_smoke's [quant], [lora], [beam] and [embed] phases on the CPU
+    with a 2-layer model of block_size 1024 (run A's pool) and vocab 512:
+    Q8 (weights="int8") and Q4 over gRPC and Q4's make_generate against
+    the no-cache loops over the quantized trees; the two LoRA waves
+    against the loops over the merged trees, the dense pool's prefix hit
+    keyed by adapter; the beam search against reference_beam and
+    beam_size 1 against make_generate; make_embed against the plain
+    forward and the daemon's embed replies bit-equal to the library's.
+    Every check applies except the launch counts, the captured-step
+    checks and the profiles (a CPU call launches no kernel), and the
+    node process."""
+    import torch
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=2,
+                         n_head=2, n_embd=64)
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return t * np.float32(8.0) if t.ndim >= 2 else t
+    prepared = from_jax_params(scaled(tgpt.init(1, cfg)), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    counts = chip_smoke.phase_item_4d(cfg, prepared, prompts,
+                                      torch.device("cpu"), "cpu", model=None)
+    out = capsys.readouterr().out
+    for run in ("Q8", "Q4"):
+        for i, n in enumerate((5, 70, 130, 300)):
+            assert f"[main] run {run} request {i} (prompt {n}): " in out, out
+    assert "[main] [quant] Q4 make_generate: " in out
+    assert "matches the reference" in out
+    assert "[lora] dense pool, prefix LRU: " in out
+    assert "hits/misses (1, 2)" in out
+    assert "[beam] beam_size 1 equals make_generate's greedy tokens" in out
+    assert ("[beam] every beam's tokens equal the reference's" in out
+            or "at a near-tie of its selection" in out), out
+    for pooling in ("mean", "last", "none"):
+        assert f"[embed] make_embed {pooling} B=4 T=320" in out
+    assert "each bit-equal to the library's" in out
+    for tag in ("quant", "lora", "beam", "embed"):
+        assert f"[{tag}] phase wall" in out
+    assert set(chip_smoke.CACHE_KERNELS) <= set(counts)

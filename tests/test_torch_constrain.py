@@ -478,7 +478,7 @@ def test_lm_server_json_mode_wiring():
     srv = LMServer(CFG_T, _weights()["torch"],
                    tokenizer=ByteTokenizer(CFG_T.vocab_size), slots=2,
                    max_len=CFG_T.block_size, prompt_pad=8, temperature=1.0,
-                   device="cpu")
+                   allow_constraints=True, device="cpu")
     try:
         b = srv.batcher
         assert b._allow_constraints and b._ctab_rows == 3600
@@ -519,7 +519,7 @@ def test_daemon_serves_json_mode_over_grpc():
     _, stop = start_lm_server_in_background(
         CFG_T, _weights()["torch"], port=port, slots=2, max_len=64,
         prompt_pad=8, tokenizer=ByteTokenizer(CFG_T.vocab_size),
-        device="cpu")
+        allow_constraints=True, device="cpu")
     try:
         client = NodeClient(f"127.0.0.1:{port}")
         # the client has no j= keyword (as JAX's): the option rides the

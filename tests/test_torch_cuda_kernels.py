@@ -926,3 +926,192 @@ def test_grammar_registered_after_capture_is_honoured(dev):
     late, fresh = run(True), run(False)
     assert late[1] == fresh[1]
     assert all(48 <= t <= 57 for t in late[1])
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16q"])
+@pytest.mark.parametrize("s", [162, 1024])
+def test_decode_attention_at_the_beam_shape(dev, q_dtype, s):
+    """K6 at beam search's decode rows (B*K = 8 beams, Hk = 12, R = 1,
+    D = 64), every beam at the same position (the last column, and one
+    beside the first split edge), an f32 q over an f32 cache and a bf16
+    q over a bf16 cache, against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    kind = "f32" if q_dtype == torch.float32 else "bf16"
+    k, v, _, _ = _cache(g, (8, 12, s, 64), kind, dev)
+    q = torch.randn(8, 12, 1, 64, generator=g, device=dev).to(q_dtype)
+    split_keys, _ = tca.decode_split(8 * 12, s)
+    for p in (s - 1, split_keys - 1, split_keys):
+        pos = torch.full((8,), p, dtype=torch.int32, device=dev)
+        if q_dtype == torch.bfloat16:
+            _bf16_q_check(tca.decode_attention,
+                          tca.reference_decode_attention, (q, k, v, pos),
+                          kind)
+        else:
+            _decode_check(False, q, k, v, pos, None, None, kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_forward_at_the_embed_shape(dev, dtype):
+    """K1 at the embedding endpoint's shape (B=4 H=12 T=S=320 D=64,
+    causal) against its plain version (bf16 against the plain version in
+    f32 on the same values), one launch counted."""
+    g = torch.Generator(device=dev).manual_seed(42)
+    q, k, v = (torch.randn(4, 12, 320, 64, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v).float()
+    want = tfa.reference_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert (got - want).abs().max().item() <= _tol(dtype, want)
+
+
+def _lora_batcher(dev, compute, **kw):
+    """_mixed_batcher's model and pool serving three rank-4 adapters with
+    nonzero b (a drawn from seeds on the card)."""
+    from dnn_tpu_torch.lora import init_lora
+
+    b0 = _mixed_batcher(dev, compute, {"kv": "paged"})
+    ads = []
+    for s in range(3):
+        ad = init_lora(s, b0.prepared, rank=4)
+        gen = torch.Generator(device=dev).manual_seed(10 + s)
+        for ab in ad.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen,
+                                  device=dev) * 0.05
+        ads.append(ad)
+    return _mixed_batcher(dev, compute, {"kv": "paged"}, lora_adapters=ads,
+                          **kw)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_captured_lora_step_equals_eager_across_adapter_changes(dev,
+                                                                compute):
+    """Multi-LoRA serving on the card: the decode step is captured once
+    over views that read a persistent one-hot buffer; after the slots'
+    adapters are reassigned in place (a request cancelled, another
+    admitted under another adapter) a replay still gives the eager
+    step's logits bit for bit, no second capture is taken, and the
+    interleaved mixed step's chunk runs under its request's adapter: the
+    streams equal the convoy batcher's."""
+    b = _lora_batcher(dev, compute)
+    step = b._graph_step
+    rids = [b.submit(list(range(1, 40)), 30, adapter=0),
+            b.submit(list(range(7, 12)), 30, adapter=1),
+            b.submit(list(range(20, 33)), 30)]
+
+    def bit_check():
+        step._graph.replay()
+        step._log.replayed()
+        torch.cuda.synchronize()
+        replayed = step._logits.clone()
+        eager = b._decode(b.cache, step.tok, step.pos, step.active)
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+
+    for _ in range(3):
+        b.step()
+    bit_check()
+    b.cancel(rids[0])
+    b.submit(list(range(40, 60)), 10, adapter=2)
+    b.cancel(rids[2])
+    b.submit(list(range(60, 70)), 10, adapter=0)
+    b.step()
+    bit_check()
+    assert step.captures == 1
+
+    def run(**kw):
+        bb = _lora_batcher(dev, compute, **kw)
+        r = [bb.submit(list(range(3, 8)), 12, adapter=2),
+             bb.submit(list(range(1, 40)), 10, adapter=0)]
+        for _ in range(3):
+            bb.step()
+        r.append(bb.submit(list(range(11, 81)), 9, adapter=1))
+        bb.drain()
+        r.append(bb.submit(list(range(11, 81)), 9))
+        bb.drain()
+        return [bb.results[i].tolist() for i in r]
+
+    want = run()
+    assert want[2] != want[3], "the adapter changes the stream"
+    assert run(prefill_chunk_tokens=32, overlap=True) == want
+
+
+def test_embed_during_a_capture(dev):
+    """The daemon's embed endpoint runs on the batcher's worker thread
+    between two steps: embed requests sent while generate requests are
+    being admitted and their decode step captured (on a fresh daemon)
+    neither break the capture nor read a half-written buffer -- every
+    embed reply equals the library's call bit for bit, every stream
+    equals the same requests' on a daemon that served no embed, and the
+    step was captured once."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.runtime.embeddings import make_embed
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    b0 = _mixed_batcher(dev, "f32", {"kv": "paged"})
+    cfg, prep = b0.cfg, b0.prepared
+    prompts = [list(range(1 + i, 30 + 7 * i)) for i in range(3)]
+
+    def serve(with_embeds):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        _, stop = start_lm_server_in_background(
+            cfg, prep, port=port, slots=3, max_len=128, prompt_pad=32,
+            block_len=16, device=dev, kv="paged")
+        out, embeds, errors = {}, [], []
+        try:
+            client = NodeClient(f"127.0.0.1:{port}")
+            assert client.wait_healthy(deadline=60)
+
+            def gen(i):
+                try:
+                    out[i] = client.generate(prompts[i], max_new_tokens=20,
+                                             timeout=120).tolist()
+                except Exception as e:  # noqa: BLE001 — asserted below
+                    errors.append(e)
+
+            def emb():
+                try:
+                    for i in range(12):
+                        p = prompts[i % 3]
+                        rid = "embed:last" if i % 2 else "embed"
+                        embeds.append((p, rid, client.send_tensor(
+                            np.asarray(p, np.int32), request_id=rid,
+                            timeout=120)[1]))
+                except Exception as e:  # noqa: BLE001 — asserted below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=gen, args=(i,))
+                       for i in range(3)]
+            if with_embeds:
+                threads.insert(1, threading.Thread(target=emb))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            captures = stop.servicer.batcher._graph_step.captures
+            client.close()
+        finally:
+            stop()
+        assert not errors, errors
+        return [out[i] for i in range(3)], embeds, captures
+
+    streams, embeds, captures = serve(True)
+    plain, _, _ = serve(False)
+    assert streams == plain and captures == 1 and len(embeds) == 12
+    for p, rid, vec in embeds:
+        ids = torch.zeros((1, 32 * -(-len(p) // 32)), dtype=torch.int64,
+                          device=dev)
+        ids[0, :len(p)] = torch.tensor(p, device=dev)
+        lib = make_embed(cfg, pooling="last" if rid.endswith("last")
+                         else "mean")(prep, ids, [len(p)])[0].cpu()
+        assert torch.equal(vec.float(), lib)

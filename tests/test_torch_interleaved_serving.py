@@ -390,7 +390,7 @@ def test_daemon_streams_interleaved_and_overlapped_tokens(weights):
     want = [convoy.results[r].tolist() for r in rids]
     _thread, stop = start_lm_server_in_background(
         CFG_T, tprep, port=port, device="cpu", prefill_chunk_tokens=8,
-        overlap=True, **POOL)
+        overlap=True, allow_logit_bias=True, **POOL)
     try:
         client = NodeClient(f"127.0.0.1:{port}")
         assert client.wait_healthy(deadline=30)

@@ -275,15 +275,23 @@ def test_llama_phase_rehearsed_on_the_cpu(capsys):
     """chip_smoke's [llama] phase on the CPU with a 2-layer GQA model of
     block_size 1024 (32 query heads' layout shrunk to 4 over 1 KV head,
     theta 500000, vocab 512): L-A, L-C and L-solo run and every stream
-    equals its reference; the launch counts are the card's (a CPU call
-    launches no kernel)."""
+    equals its reference; [quant]'s Q8-L (the tree quantized to int8,
+    bf16 compute) serves its four streams and, fed its plain loop's
+    tokens, emits them (teacher forcing); the launch counts are the
+    card's (a CPU call launches no kernel)."""
     import chip_smoke
 
     cfg = tllama.LlamaConfig(block_size=1024, vocab_size=512, n_layer=2,
                              n_head=4, n_kv_head=1, n_embd=64, d_ff=128,
                              rope_theta=500000.0)
-    counts = chip_smoke.phase_llama(torch.device("cpu"), "cpu", cfg)
+    counts, q8l, q8l_forced = chip_smoke.phase_llama(torch.device("cpu"),
+                                                     "cpu", cfg)
     out = capsys.readouterr().out
+    for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
+        assert f"[main] run Q8-L request {i} (prompt {n}): " in out, out
+        assert f"[quant] Q8-L teacher-forced, prompt {n}: " in out, out
+    assert set(q8l) == set(chip_smoke.CACHE_KERNELS)
+    assert set(q8l_forced) == {"served", "loop"}
     for run in ("L-A", "L-C"):
         for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
             assert (f"[main] run {run} request {i} (prompt {n}): "
@@ -297,15 +305,19 @@ def test_llama_bf16_phase_rehearsed_on_the_cpu(capsys):
     """chip_smoke's L-B on the CPU with the 2-layer GQA model of the
     [llama] rehearsal in bf16 compute: the weights prepared with their
     matmul weights in bf16, the daemon's four streams each equal to the
-    plain bf16-compute loop up to BF16_TIE."""
+    plain bf16-compute loop up to BF16_TIE, and the teacher-forced run
+    emitting the loop's tokens."""
     import chip_smoke
 
     cfg = tllama.LlamaConfig(block_size=1024, vocab_size=512, n_layer=2,
                              n_head=4, n_kv_head=1, n_embd=64, d_ff=128,
                              rope_theta=500000.0)
-    counts = chip_smoke.phase_llama_bf16(torch.device("cpu"), "cpu", cfg)
+    counts, forced = chip_smoke.phase_llama_bf16(torch.device("cpu"), "cpu",
+                                                 cfg)
     out = capsys.readouterr().out
     assert "GB of bf16 matmul weights) drawn on cpu" in out, out
     for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
         assert f"[main] run L-B request {i} (prompt {n}): " in out, out
+        assert f"[llama] L-B teacher-forced, prompt {n}: " in out, out
+    assert set(forced) == {"served", "loop"}
     assert set(counts) == set(chip_smoke.CACHE_KERNELS)

@@ -103,9 +103,10 @@ def test_generate_stream_matches(served):
 
 
 def test_bad_requests_get_grpc_errors(served):
-    """Out-of-vocab prompt -> INVALID_ARGUMENT; an option this port
-    does not serve (a LoRA adapter, a=) -> UNIMPLEMENTED; the server
-    lives on."""
+    """Out-of-vocab prompt -> INVALID_ARGUMENT; an endpoint this port
+    does not serve (the KV handoff's prefill export) -> UNIMPLEMENTED
+    (a LoRA adapter, a=, is served now: tests/test_torch_serving_lora.py);
+    the server lives on."""
     addr, want = served
     jc = JaxClient(addr, breaker=False)
     with pytest.raises(grpc.RpcError) as e:
@@ -113,7 +114,7 @@ def test_bad_requests_get_grpc_errors(served):
                     timeout=30)
     assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
     with pytest.raises(grpc.RpcError) as e:
-        jc.generate(PROMPTS[0], max_new_tokens=2, adapter=0, timeout=30)
+        jc.send_tensor(PROMPTS[0], request_id="prefill", timeout=30)
     assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
     np.testing.assert_array_equal(
         jc.generate(PROMPTS[0], max_new_tokens=N_NEW, timeout=60), want[0])
@@ -262,3 +263,82 @@ def test_node_cli_kv_flags(tmp_path, caplog):
                      "--serve_lm", "--device", "cpu", "--kv_dtype",
                      "int4"]) == 2
     assert "item 2" in caplog.text
+
+
+def test_lmserver_defaults_match_jax_and_node_turns_them_on(monkeypatch,
+                                                            tmp_path):
+    """One LMServer(cfg, prepared) call on both packages builds batchers
+    with the same allow_logit_bias, allow_constraints and
+    constraint_rows: off by default, 3600 rows once constraints are on
+    (the port once turned both on by default). `node --serve_lm` turns
+    both on, as JAX's node does, and its daemon serves a b= bias and a
+    JSON-mode (j=) constraint."""
+    import json
+
+    from dnn_tpu.runtime.lm_server import LMServer as JaxLMServer
+    from dnn_tpu_torch import node
+    from dnn_tpu_torch.runtime import lm_server
+    from dnn_tpu_torch.runtime.lm_server import LMServer
+
+    tree = jax.tree.map(np.asarray, jgpt.init(jax.random.PRNGKey(3), CFG_J))
+    jprep = jgpt.prepare_stacked(jax.tree.map(jnp.asarray, tree), CFG_J)
+
+    def flags(b, jax_side):
+        bias = b._allow_user_bias if jax_side else b._bias is not None
+        return bias, b._allow_constraints, b._ctab_rows
+
+    for kw in ({}, {"allow_constraints": True, "allow_logit_bias": True}):
+        js = JaxLMServer(CFG_J, jprep, **POOL, **kw)
+        ts = LMServer(CFG_T, from_jax_params(tree, CFG_T, "cpu"),
+                      device="cpu", **POOL, **kw)
+        try:
+            assert flags(ts.batcher, False) == flags(js.batcher, True)
+            assert flags(ts.batcher, False) == (
+                (True, True, 3600) if kw else (False, False, 0))
+        finally:
+            ts.close()
+            js.close()
+    npz = tmp_path / "w.npz"
+    flat = {}
+
+    def flatten(n, prefix):
+        for k, v in n.items():
+            if isinstance(v, dict):
+                flatten(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = v
+    flatten(tree, "")
+    np.savez(npz, **flat)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"model": "gpt2-test", "nodes": [
+        {"id": "node1", "part_index": 0,
+         "address": f"127.0.0.1:{_free_port()}"}]}))
+    seen = {}
+
+    async def fake_serve_lm(cfg, prepared, *, port, **kwargs):
+        srv = LMServer(cfg, prepared, **kwargs)
+        try:
+            b = srv.batcher
+            seen["flags"] = flags(b, False)
+            c = seen["grammar"] = srv.json_constraint(0)
+            fut = srv.worker.submit(PROMPTS[0], 6, None,
+                                    opts={"logit_bias": {7: 1e9}})
+            seen["biased"] = fut.result(timeout=120).tolist()
+            fut = srv.worker.submit(PROMPTS[1], 20, None,
+                                    opts={"constraint": c})
+            seen["json"] = bytes(int(t) for t in fut.result(timeout=120))
+        finally:
+            srv.close()
+        return 0
+
+    monkeypatch.setattr(lm_server, "serve_lm", fake_serve_lm)
+    assert node.main(["--node_id", "node1", "--config", str(cfg),
+                      "--serve_lm", "--device", "cpu", "--tokenizer",
+                      "bytes", "--weights_npz", str(npz),
+                      *[f"--{k}={v}" for k, v in POOL.items()]]) == 0
+    assert seen["flags"] == (True, True, 3600)
+    assert seen["biased"] == [7] * 6
+    c, state = seen["grammar"], seen["grammar"].start
+    for t in seen["json"]:  # every token a step of the JSON grammar
+        state = c.advance(state, t)
+        assert state >= 0, seen["json"]

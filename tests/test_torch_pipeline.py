@@ -269,6 +269,11 @@ def test_engine_spmd_on_one_device_raises_as_jax():
 
 
 def test_engine_loads_model_weights_and_declines_lora(tmp_path):
+    """The engine loads model_weights; with lora_path (an artifact of the
+    JAX package's save_lora over fc1 and fc2, alpha 3) its merged params
+    equal those of JAX's engine on the same files (the name is kept from
+    when the port refused lora_path)."""
+    from dnn_tpu import lora as jlora
     from dnn_tpu_torch.io import checkpoint as ckpt
 
     params = get_model("cifar_cnn").init(9)
@@ -277,8 +282,23 @@ def test_engine_loads_model_weights_and_declines_lora(tmp_path):
     raw = _cpu_config("cifar_cnn", 2, model_weights=str(path))
     eng = PipelineEngine(TopologyConfig.from_dict(raw))
     jax.tree.map(np.testing.assert_array_equal, eng.params, params)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PipelineEngine(TopologyConfig.from_dict(raw), lora_path="a.npz")
+    rng = np.random.default_rng(4)
+    adapters = {f"{name}/kernel": {
+        "a": jnp.asarray(rng.standard_normal((n_in, 4)), jnp.float32),
+        "b": jnp.asarray(rng.standard_normal((4, n_out)) * 0.1, jnp.float32)}
+        for name, n_in, n_out in (("fc1", 4096, 512), ("fc2", 512, 10))}
+    ad_path = str(tmp_path / "ad.npz")
+    jlora.save_lora(ad_path, adapters, alpha=3.0)
+    merged = PipelineEngine(TopologyConfig.from_dict(raw), lora_path=ad_path)
+    jeng = JaxEngine(JaxConfig.from_dict(raw), devices=jax.devices()[:1],
+                     lora_path=ad_path)
+    for name in ("fc1", "fc2"):
+        want = np.asarray(jeng.params[name]["kernel"])
+        assert not np.array_equal(want, params[name]["kernel"])
+        np.testing.assert_allclose(merged.params[name]["kernel"], want,
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(merged.params["conv1"]["kernel"],
+                                  params["conv1"]["kernel"])
     with pytest.raises(ValueError, match="GPT-family"):
         eng.generate([[1, 2]], max_new_tokens=2)
 

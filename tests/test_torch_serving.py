@@ -203,11 +203,13 @@ def test_cancel_stop_and_sampling(weights):
 # allow_constraints (once kwargs1 and kwargs3) is ported now: its
 # positive cases are tests/test_torch_constrain.py::
 # test_constructs_and_serves_on_both_pools; those places hold the MoE
-# switch, still out of scope
+# switch, still out of scope. lora_adapters (once kwargs2 and kwargs4)
+# is ported too (tests/test_torch_serving_lora.py); those places hold
+# int4 KV and the MoE switch over the paged pool
 @pytest.mark.parametrize("kwargs", [
     {"kv_dtype": "int4"}, {"ffn": "moe"},
-    {"lora_adapters": [{}]}, {"kv": "dense", "ffn": "moe"},
-    {"kv": "dense", "lora_adapters": [{}]},
+    {"kv": "paged", "kv_dtype": "int4"}, {"kv": "dense", "ffn": "moe"},
+    {"kv": "paged", "ffn": "moe"},
     {"kv": "dense", "kv_dtype": "int4"}])
 def test_out_of_scope_options_raise(weights, kwargs):
     _, tprep = weights
@@ -217,9 +219,10 @@ def test_out_of_scope_options_raise(weights, kwargs):
 
 # json_depth (once opt2) is no batcher option: the daemon turns j= into
 # a constraint (tests/test_torch_constrain.py); that place holds the KV
-# handoff's handle, still out of scope
-@pytest.mark.parametrize("opt", [{"prefilled": {"row": []}}, {"adapter": 0},
-                                 {"kv_handle": "h"}])
+# handoff's handle, still out of scope. adapter (once opt1) is served now
+# (tests/test_torch_serving_lora.py); that place holds an empty KV handle
+@pytest.mark.parametrize("opt", [{"prefilled": {"row": []}},
+                                 {"kv_handle": ""}, {"kv_handle": "h"}])
 def test_out_of_scope_request_options_raise(weights, opt):
     _, tprep = weights
     b = ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL)

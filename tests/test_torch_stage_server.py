@@ -301,8 +301,11 @@ def test_cli_generate_equals_the_jax_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flags,rc", [
     (["--serve", "--transport", "shm"], 2),
     (["--serve", "--transport", "device"], 2),
-    (["--beam", "2", "--generate", "3"], 2),
-    (["--lora", "a.npz"], 2),
+    # --beam and --lora (once these places) are ported now: their
+    # positive cases are tests/test_torch_beam.py::
+    # test_node_generate_beam_equals_the_jax_cli
+    (["--supervise"], 2),
+    (["--chaos", "plan.json"], 2),
     (["--metrics_port", "0", "--serve"], 2),
     (["--transport", "grpc"], 1),
 ])
