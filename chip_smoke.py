@@ -14,7 +14,9 @@ the logit bias and logprobs run on gpt2, and so do grammar-constrained
 requests (JSON mode); gpt2-xl is served speculatively, drafted by gpt2;
 gpt2 serves int8 and int4 weights and three LoRA adapters per request,
 runs beam search and the embedding endpoint, and llama3-8b serves int8
-weights in bf16 compute.
+weights in bf16 compute; prefill daemons hand gpt2's KV rows to decode
+daemons over the wire, and daemons pull a shared prefix's KV blocks from
+each other (llama3-8b too).
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -150,6 +152,32 @@ Phases (any failure exits non-zero and prints no result):
           320 tokens against the plain forward (1e-4 of the scale), K1
           once a layer a call; the daemon's embed and embed:last replies
           bit-equal to the library's call
+  5e. ROADMAP item 4 e's first half on the same weights, the daemons in
+     this process on one event loop, the launch counts zeroed just
+     before and read just after each step of the call pattern, exact:
+       [handoff] prefill daemons (role="prefill", paged) and decode
+          daemons (role="decode"): HO-f32 paged f32 and HO-dense dense
+          f32 at max_len 512 (the f32 row at 1024, 75.5 MB, is over the
+          64 MiB wire cap), HO-bf16 and HO-int8 paged at 1024; the four
+          prompts exported (prefill: K5 12 x 11 chunks, no decode
+          kernel), staged (kvput:KEY) and generated concurrently with
+          h=KEY (no K5 on the decode daemon, K7 -- K6 dense -- 12 a
+          step), each stream against the pool's reference ([main]'s A,
+          C or D loop) and equal to the decode daemon's own prefill of
+          the prompt; the decode graph never captured again across the
+          adoptions and an export on the decode daemon; payload bytes,
+          the export, kvput, pack and unpack walls, an adopted request's
+          TTFT beside a local one; the f32 row at max_len 1024 refused
+          with RESOURCE_EXHAUSTED
+       [kvtier] a donor and an adopter at G's settings: kvstage of the
+          300-token prompt (18 blocks, K5 12 x 5), kvpull over the shm
+          rung (no kernel; the donor's lease released by the ack), the
+          follow-up generate running the tail chunk only (K5 12, K7 12 a
+          step) against the reference and equal to the donor's stream;
+          the 130-token prompt over the grpc rung, forced; a donor
+          stopped between kvlease and the fetch: kvtier_fallback, the
+          adopter's blocks in use, high water, resident blocks and pool
+          unchanged, its own prefill against the reference
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission on each pool A-D (wall, device busy, top
      kernels, K6/K7's share of the step's device busy, K5's share of the
@@ -242,6 +270,14 @@ Phases (any failure exits non-zero and prints no result):
            BF16_TIE (K5 grouped, K7 at R=4, bf16 q, exactly); one
            replayed step bit-equal to the eager step
        L-B-ilv L-B under H's settings, its streams equal to L-B's
+       LH the row handoff on L-B's pool through the library (the 134 MB
+          bf16 row is over the wire's cap): the four prompts exported by
+          one batcher (K5 32 x 11, bf16 q), packed, unpacked and adopted
+          by another (no K5, K7 32 a step, no recapture), each stream
+          against L-B's loop at BF16_TIE
+       LK the 300-token prompt's 18 bf16 blocks (47 MB) pulled between
+          two L-B daemons and its follow-up (one tail chunk), against
+          L-B's loop at BF16_TIE
        Q8-L ([quant]) the f32 weights of L-A quantized to int8 on the
            card (the f32 copy freed), bf16 compute, L-B's pool, held by
            teacher forcing: the served path fed the plain bf16-compute
@@ -2268,6 +2304,623 @@ def phase_serve(cfg, prepared, prompts, refs, a_info, dev, card):
             for name in CACHE_KERNELS}
 
 
+# ----------------------------------------------------------------------
+# ROADMAP item 4 e's first half: [handoff] (the prefill->decode row
+# handoff between two daemons) and [kvtier] (block migration)
+
+HANDOFF_NEW = 16
+# (label, the decode replica's pool, max_len, reference, decode kernel);
+# the prefill replica of a leg is a paged pool of the same KV type and
+# max_len (the row's geometry), shared by the legs that agree on both
+HANDOFF_LEGS = (
+    ("HO-f32", {"kv": "paged"}, 512, "f32", "paged_decode_attention"),
+    ("HO-dense", {"kv": "dense"}, 512, "f32", "decode_attention"),
+    ("HO-bf16", {"kv": "paged", "kv_dtype": "bf16"}, 1024, "bf16",
+     "paged_decode_attention"),
+    ("HO-int8", {"kv": "paged", "kv_dtype": "int8"}, 1024, "int8",
+     "paged_decode_attention"),
+)
+
+
+def daemon(start, cfg, prepared, dev, max_len=1024, **kv):
+    """An LM daemon in this process at run A's size (4 slots, prompt_pad
+    64, block_len 16), served by `start` (lm_server.start_lm_server_loop's:
+    the phase's daemons share one event loop, as several loops in one
+    process flood gRPC's poller): (address, client, servicer, stop)."""
+    from dnn_tpu_torch.comm.client import NodeClient
+
+    port = free_port()
+    stop = start(cfg, prepared, port=port, slots=4, max_len=max_len,
+                 prompt_pad=64, block_len=16, seed=0, device=dev, **kv)
+    client = NodeClient(f"127.0.0.1:{port}")
+    if not client.wait_healthy(deadline=60):
+        fail("[handoff] an LM daemon never became healthy")
+    return f"127.0.0.1:{port}", client, stop.servicer, stop
+
+
+def counting_steps(batcher):
+    """Wraps batcher.step to count the decode steps it takes; returns the
+    one-element counter."""
+    step, n = batcher.step, [0]
+
+    def counted():
+        n[0] += 1
+        return step()
+
+    batcher.step = counted
+    return n
+
+
+def require_launches(tag, dev, counts, want):
+    """Exact launch counts {(kernel, dtype): n} on the card (a CPU call
+    launches none)."""
+    if dev.type != "cuda":
+        return
+    for (name, dt), n in want.items():
+        if counts[name][dt] != n:
+            fail(f"{tag}: {name} ({dt}) launched {counts[name][dt]} times, "
+                 f"expected {n}")
+    print(f"{tag}: launches exactly " + ", ".join(
+        f"{name} {dt} {n}" for (name, dt), n in want.items()), flush=True)
+
+
+def add_into(total, counts):
+    for name in CACHE_KERNELS:
+        for dt, n in counts[name].items():
+            total[name][dt] += n
+
+
+def follow_up(tag, client, batcher, prompt, chunks, L, dt, dev, total,
+              bf16_q=False):
+    """A generate of `prompt` on the paged daemon of `client` (`batcher`
+    its batcher) that must run exactly `chunks` prompt chunks: K5 once a
+    layer a chunk and K7 once a layer a decode step, exactly. Adds the
+    launches into `total`; returns the tokens."""
+    chunks0 = batcher.prefill_chunks_run
+    steps = counting_steps(batcher)
+    reset_counts()
+    toks = client.generate(prompt, max_new_tokens=HANDOFF_NEW,
+                           timeout=300).tolist()
+    counts = read_counts(bf16_q=bf16_q)
+    if batcher.prefill_chunks_run - chunks0 != chunks:
+        fail(f"{tag}: {batcher.prefill_chunks_run - chunks0} prompt chunks "
+             f"ran, expected {chunks}")
+    require_launches(tag, dev, counts,
+                     {("cached_attention", dt): L * chunks,
+                      ("paged_decode_attention", dt): L * steps[0]})
+    add_into(total, counts)
+    return toks
+
+
+def handoff_leg(start, label, cfg, prepared, prompts, refs, dev, card, pre,
+                kv, max_len, decode_kernel, total):
+    """One [handoff] leg: the four prompts exported by the prefill daemon
+    `pre` (its K5 exactly, no decode kernel), staged on a decode daemon
+    with `kv` by kvput:, and generated there concurrently with h= (no
+    K5, the decode kernel once a layer a step, exactly); every stream
+    against `refs` and equal to the decode daemon's own prefill of the
+    same prompt; the decode graph captured once across the adoptions
+    and an export on the decode daemon. Returns its walls."""
+    _, pc, _, _ = pre
+    _, dc, ds, stop = daemon(start, cfg, prepared, dev, max_len=max_len,
+                             role="decode", **kv)
+    b = ds.batcher
+    L, dt = cfg.n_layer, kv.get("kv_dtype", "f32")
+    try:
+        dc.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        payloads = [pc.prefill_kv(p, timeout=300) for p in prompts]
+        export_s = time.perf_counter() - t0
+        chunks = sum(-(-len(p) // 64) for p in prompts)
+        require_launches(f"[handoff] {label} exports", dev, read_counts(),
+                         {("cached_attention", dt): L * chunks,
+                          ("paged_decode_attention", dt): 0,
+                          ("decode_attention", dt): 0})
+        add_into(total, read_counts())
+        t0 = time.perf_counter()
+        for i, payload in enumerate(payloads):
+            if "staged" not in dc.put_kv(f"{label}-{i}", payload, timeout=300):
+                fail(f"[handoff] {label}: kvput {i} not staged")
+        kvput_s = time.perf_counter() - t0
+        graph = b._graph_step
+        caps0 = graph.captures if graph is not None else 0
+        chunks0 = b.prefill_chunks_run
+        steps = counting_steps(b)
+        results, errors = {}, []
+
+        def call(i):
+            try:
+                results[i] = dc.generate(prompts[i], max_new_tokens=HANDOFF_NEW,
+                                         timeout=300,
+                                         kv_handle=f"{label}-{i}").tolist()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+
+        reset_counts()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(results) != len(prompts):
+            fail(f"[handoff] {label}: adopted generates failed: "
+                 f"{errors or 'timed out'}")
+        counts = read_counts()
+        if b.prefill_chunks_run != chunks0:
+            fail(f"[handoff] {label}: the decode daemon ran "
+                 f"{b.prefill_chunks_run - chunks0} prompt chunks for "
+                 "adopted requests")
+        require_launches(f"[handoff] {label} adopted decode", dev, counts,
+                         {("cached_attention", dt): 0,
+                          (decode_kernel, dt): L * steps[0]})
+        add_into(total, counts)
+        for i, p in enumerate(prompts):
+            compare_tokens(f"[handoff] {label} request {i} (prompt {len(p)})",
+                           results[i], *refs[i])
+        # the decode daemon's own prefill of each prompt, and an export on
+        # it: the same streams, the decode graph never captured again
+        dc.prefill_kv(prompts[1], timeout=300)
+        for i, p in enumerate(prompts):
+            local = dc.generate(p, max_new_tokens=HANDOFF_NEW,
+                                timeout=300).tolist()
+            if local != results[i]:
+                fail(f"[handoff] {label} request {i}: adopted {results[i]} "
+                     f"!= the decode daemon's own prefill {local}")
+        caps = (graph.captures if graph is not None else 0) - caps0
+        if caps:
+            fail(f"[handoff] {label}: the decode graph was captured {caps} "
+                 "more times across the adoptions and an export")
+        # TTFT: an adopted request (its row staged before) beside a local
+        # one, each streamed on the idle daemon; the disaggregated wall
+        # adds the export and the kvput
+        t0 = time.perf_counter()
+        payload = pc.prefill_kv(prompts[3], timeout=300)
+        t1 = time.perf_counter()
+        dc.put_kv(f"{label}-ttft", payload, timeout=300)
+        t2 = time.perf_counter()
+        stream = dc.generate_stream(prompts[3], max_new_tokens=2, timeout=300,
+                                    kv_handle=f"{label}-ttft")
+        next(stream)
+        t3 = time.perf_counter()
+        list(stream)
+        stream = dc.generate_stream(prompts[3], max_new_tokens=2, timeout=300)
+        t4 = time.perf_counter()
+        next(stream)
+        ttft_local = time.perf_counter() - t4
+        list(stream)
+    finally:
+        dc.close()
+        stop()
+    walls = {"export_ms": (t1 - t0) * 1e3, "kvput_ms": (t2 - t1) * 1e3,
+             "ttft_adopted_ms": (t3 - t2) * 1e3,
+             "ttft_local_ms": ttft_local * 1e3,
+             "disaggregated_ms": (t3 - t0) * 1e3,
+             "bytes": int(payload.size)}
+    print(f"[handoff] {label} ({', '.join(f'{k}={v}' for k, v in kv.items())}"
+          f", max_len {max_len}): the four prompts exported in "
+          f"{export_s * 1e3:.1f} ms, staged in {kvput_s * 1e3:.1f} ms, every "
+          f"adopted stream equal to the reference and to the daemon's own "
+          f"prefill, {steps[0]} decode steps, {caps} captures; 300-token "
+          f"prompt: payload {payload.size} bytes, export (prefill call) "
+          f"{walls['export_ms']:.1f} ms, kvput {walls['kvput_ms']:.1f} ms, "
+          f"TTFT adopted {walls['ttft_adopted_ms']:.1f} ms against local "
+          f"{walls['ttft_local_ms']:.1f} ms, disaggregated (export + kvput + "
+          f"first token) {walls['disaggregated_ms']:.1f} ms; on {card}",
+          flush=True)
+    return walls
+
+
+def phase_handoff(start, cfg, prepared, prompts, refs, dev, card):
+    """[handoff] ROADMAP item 4 e's row handoff on the main path's gpt2:
+    prefill daemons (role="prefill") and decode daemons (role="decode")
+    in this process, each prompt through prefill -> kvput: -> gen:..:h=
+    over the wire (handoff_leg), on HANDOFF_LEGS' decode pools; the
+    library's pack/unpack walls; an f32 row at max_len 1024 (75.5 MB for
+    gpt2, over the 64 MiB wire cap) refused with a gRPC error. Returns
+    the launches."""
+    import grpc
+
+    from dnn_tpu_torch.comm.service import MAX_MESSAGE_BYTES
+    from dnn_tpu_torch.control import handoff
+    from dnn_tpu_torch.runtime.kvcache import cache_shape
+
+    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+             for name in CACHE_KERNELS}
+    pres = {}
+    try:
+        for label, kv, max_len, ref, kernel in HANDOFF_LEGS:
+            key = (kv.get("kv_dtype"), max_len)
+            if key not in pres:
+                pkv = {k: v for k, v in kv.items() if k == "kv_dtype"}
+                pres[key] = daemon(start, cfg, prepared, dev,
+                                   max_len=max_len, role="prefill",
+                                   kv="paged", **pkv)
+                pres[key][1].prefill_kv(prompts[0], timeout=300)  # warm-up
+            handoff_leg(start, label, cfg, prepared, prompts, refs[ref], dev,
+                        card, pres[key], kv, max_len, kernel, total)
+        # the library's walls on the f32 leg's prefill daemon
+        _, _, ps, _ = pres[(None, 512)]
+        payload = ps.worker.call(
+            lambda: ps.batcher.export_prefill(prompts[3])).result(timeout=300)
+        t0 = time.perf_counter()
+        wire = handoff.pack(payload)
+        t1 = time.perf_counter()
+        handoff.unpack(wire)
+        t2 = time.perf_counter()
+        print(f"[handoff] library: pack {(t1 - t0) * 1e3:.1f} ms, unpack "
+              f"{(t2 - t1) * 1e3:.1f} ms of a {wire.size}-byte f32 row "
+              f"(max_len 512); on {card}", flush=True)
+    finally:
+        for _, c, _, stop in pres.values():
+            c.close()
+            stop()
+    # an f32 row at max_len 1024: refused when it exceeds the wire's cap
+    row = 2 * math.prod(cache_shape(cfg, 1, 1024)) * 4
+    _, pc, _, stop = daemon(start, cfg, prepared, dev, max_len=1024,
+                            role="prefill", kv="paged")
+    try:
+        try:
+            got = pc.prefill_kv(prompts[3], timeout=300)
+            err = None
+        except grpc.RpcError as e:
+            got, err = None, e
+    finally:
+        pc.close()
+        stop()
+    if row > MAX_MESSAGE_BYTES:
+        if err is None or err.code() != grpc.StatusCode.RESOURCE_EXHAUSTED:
+            fail(f"[handoff] the {row}-byte f32 row at max_len 1024 was not "
+                 f"refused: {err or got.size}")
+        print(f"[handoff] f32 row at max_len 1024 ({row} bytes) refused: "
+              f"{err.code()} {err.details()[:120]}", flush=True)
+    elif err is not None:
+        fail(f"[handoff] the {row}-byte f32 row at max_len 1024 failed: {err}")
+    return total
+
+
+def phase_kvtier(start, cfg, prepared, prompts, refs, dev, card):
+    """[kvtier] ROADMAP item 4 e's block migration on the main path's gpt2:
+    a donor and an adopter daemon at G's settings (paged f32, 4 slots,
+    max_len 1024, prompt_pad 64, prefix_cache=256, blocks of 16).
+    kvstage of the 300-token prompt puts 18 blocks on the donor (K5 once
+    a layer a chunk, exactly); kvpull on the adopter adopts them over
+    the shm rung (no kernel); the follow-up generate runs the tail chunk
+    only (K5 once a layer, K7 once a layer a step, exactly), its stream
+    against the reference and equal to the donor's; the donor's lease is
+    released by the ack; the 130-token prompt the same over the grpc
+    rung, forced (no kernel in the pull; the follow-up one tail chunk,
+    its launches exact); a donor stopped between kvlease and the fetch:
+    the pull answers kvtier_fallback with no kernel launched, the
+    adopter's blocks in use, high water and resident blocks unchanged,
+    its full prefill of the prompt (two chunks, launches exact) against
+    the reference. Returns the launches."""
+    from dnn_tpu_torch.kvtier import migrate
+
+    L = cfg.n_layer
+    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+             for name in CACHE_KERNELS}
+    kv = dict(kv="paged", prefix_cache=256)
+    da, dc, ds, stop_d = daemon(start, cfg, prepared, dev, **kv)
+    aa, ac, as_, stop_a = daemon(start, cfg, prepared, dev, **kv)
+    b = as_.batcher
+    try:
+        for c in (dc, ac):
+            c.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
+        fresh = np.random.default_rng(99).integers(
+            0, cfg.vocab_size, len(prompts[3])).tolist()
+        stream = ac.generate_stream(fresh, max_new_tokens=2, timeout=300)
+        t0 = time.perf_counter()
+        next(stream)
+        ttft_local = time.perf_counter() - t0
+        list(stream)
+        p = prompts[3]
+        n_blocks = len(p) // 16
+        reset_counts()
+        t0 = time.perf_counter()
+        status = dc.kv_stage(p, timeout=300)
+        stage_s = time.perf_counter() - t0
+        if f'"staged_blocks": {n_blocks}' not in status:
+            fail(f"[kvtier] kvstage: {status}")
+        require_launches("[kvtier] kvstage", dev, read_counts(),
+                         {("cached_attention", "f32"):
+                          L * -(-n_blocks * 16 // 64)})
+        add_into(total, read_counts())
+        t0 = time.perf_counter()
+        meta = dc.kv_lease(p)
+        t1 = time.perf_counter()
+        data = dc.kv_fetch(meta["lease"])
+        t2 = time.perf_counter()
+        if "released" not in dc.kv_ack(meta["lease"]):
+            fail("[kvtier] the lease was not released by its ack")
+        if data.size != meta["bytes"] or meta["blocks"] != n_blocks:
+            fail(f"[kvtier] lease meta {meta} against {data.size} bytes")
+        reset_counts()
+        t3 = time.perf_counter()
+        status = ac.kv_pull_from(da, p, timeout=300)
+        pull_s = time.perf_counter() - t3
+        if not status.startswith(f"[lm] ok: kvpull adopted {n_blocks} blocks") \
+                or not status.endswith("over shm"):
+            fail(f"[kvtier] kvpull: {status}")
+        if ds._kvtier_leases.n_leases:
+            fail("[kvtier] the donor still holds a lease after the pull")
+        require_launches("[kvtier] kvpull", dev, read_counts(),
+                         {(name, "f32"): 0 for name in CACHE_KERNELS})
+        chunks0 = b.prefill_chunks_run
+        steps = counting_steps(b)
+        reset_counts()
+        stream = ac.generate_stream(p, max_new_tokens=HANDOFF_NEW,
+                                    timeout=300)
+        t4 = time.perf_counter()
+        toks = [next(stream)]
+        ttft_adopted = time.perf_counter() - t4
+        toks += list(stream)
+        counts = read_counts()
+        if b.prefill_chunks_run - chunks0 != 1:
+            fail(f"[kvtier] the follow-up ran {b.prefill_chunks_run - chunks0} "
+                 "prompt chunks, expected the tail's one")
+        require_launches("[kvtier] follow-up", dev, counts,
+                         {("cached_attention", "f32"): L,
+                          ("paged_decode_attention", "f32"): L * steps[0]})
+        add_into(total, counts)
+        compare_tokens(f"[kvtier] adopted prefix, prompt {len(p)}", toks,
+                       *refs[3])
+        donor_toks = dc.generate(p, max_new_tokens=HANDOFF_NEW,
+                                 timeout=300).tolist()
+        if donor_toks != toks:
+            fail(f"[kvtier] the adopter's stream {toks} != the donor's "
+                 f"{donor_toks}")
+        print(f"[kvtier] 300-token prompt: kvstage {stage_s * 1e3:.1f} ms "
+              f"({n_blocks} blocks), payload {meta['bytes']} bytes, kvlease "
+              f"{(t1 - t0) * 1e3:.1f} ms + kvfetch {(t2 - t1) * 1e3:.1f} ms "
+              f"(grpc), kvpull (lease, shm, adopt) {pull_s * 1e3:.1f} ms; "
+              f"TTFT with the adopted prefix {ttft_adopted * 1e3:.1f} ms "
+              f"(one tail chunk) against a local 300-token prefill "
+              f"{ttft_local * 1e3:.1f} ms; the stream equals the donor's; "
+              f"on {card}", flush=True)
+        # the grpc rung, forced, on the 130-token prompt
+        p2 = prompts[2]
+        dc.kv_stage(p2, timeout=300)
+        reset_counts()
+        status = ac.kv_pull_from(da, p2, timeout=300, rung="grpc")
+        if not status.startswith(f"[lm] ok: kvpull adopted {len(p2) // 16} "
+                                 "blocks") or not status.endswith("over grpc"):
+            fail(f"[kvtier] kvpull over grpc: {status}")
+        require_launches("[kvtier] kvpull over grpc", dev, read_counts(),
+                         {(name, "f32"): 0 for name in CACHE_KERNELS})
+        toks2 = follow_up("[kvtier] grpc follow-up", ac, b, p2, 1, L, "f32",
+                          dev, total)
+        compare_tokens(f"[kvtier] adopted over grpc, prompt {len(p2)}", toks2,
+                       *refs[2])
+        # the donor dies between kvlease and the fetch
+        xa, xc, _, stop_x = daemon(start, cfg, prepared, dev, **kv)
+        p1 = prompts[1]
+        xc.kv_stage(p1, timeout=300)
+        xc.close()
+        orig = migrate.pull_blocks
+
+        class DiesAfterLease:
+            def __init__(self, client):
+                self.client = client
+
+            def kv_lease(self, tokens, timeout=30.0):
+                meta = self.client.kv_lease(tokens, timeout=timeout)
+                stop_x()
+                return meta
+
+            def __getattr__(self, name):
+                return getattr(self.client, name)
+
+        migrate.pull_blocks = lambda client, tokens, **kw: orig(
+            DiesAfterLease(client), tokens, **kw)
+        alloc = b.allocator
+        before = (alloc.n_used, alloc.high_water, b._prefix_store.n_blocks,
+                  alloc.n_blocks)
+        reset_counts()
+        try:
+            status = ac.kv_pull_from(xa, p1, timeout=300)
+        finally:
+            migrate.pull_blocks = orig
+        after = (alloc.n_used, alloc.high_water, b._prefix_store.n_blocks,
+                 alloc.n_blocks)
+        if not status.startswith("[lm] kvtier_fallback"):
+            fail(f"[kvtier] the pull from a dead donor answered {status}")
+        if after != before:
+            fail(f"[kvtier] the failed pull moved the adopter's blocks: "
+                 f"{before} -> {after}")
+        require_launches("[kvtier] the failed pull", dev, read_counts(),
+                         {(name, "f32"): 0 for name in CACHE_KERNELS})
+        toks1 = follow_up("[kvtier] follow-up after the donor's death", ac, b,
+                          p1, -(-len(p1) // 64), L, "f32", dev, total)
+        compare_tokens(f"[kvtier] after the donor's death, prompt {len(p1)}",
+                       toks1, *refs[1])
+        print(f"[kvtier] donor stopped between kvlease and the fetch: "
+              f"{status.splitlines()[0][:100]}; the adopter's (blocks used, high water, "
+              f"resident, pool) {after} unchanged; its own prefill matches "
+              f"the reference; on {card}", flush=True)
+    finally:
+        for c, stop in ((dc, stop_d), (ac, stop_a)):
+            c.close()
+            stop()
+    return total
+
+
+def phase_llama_4e(cfg, prepared, prompts, refs, dev, card):
+    """[handoff] and [kvtier] on llama3-8b in bf16 compute over L-B's paged
+    bf16 pool (its row at max_len 1024 is 134 MB, over the wire's cap, so
+    the row handoff goes through the library): LH, the four prompts
+    exported by one batcher (K5 with a bf16 q once a layer a chunk,
+    exactly), packed, unpacked and adopted by another (no K5, K7 once a
+    layer a step, exactly; its decode graph captured once), every adopted
+    stream equal to the adopter's own prefill of the prompt (launches
+    exact); LK, a kvpull of the 300-token prompt's 18 blocks between two
+    daemons and its follow-up (one tail chunk, launches exact), its
+    stream equal to the donor's. Every stream also against L-B's
+    references at BF16_TIE. Returns the runs' bf16-q launches."""
+    from dnn_tpu_torch.control import handoff
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_loop
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    L, bf16 = cfg.n_layer, torch.bfloat16
+    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+             for name in CACHE_KERNELS}
+    pool = dict(slots=4, max_len=1024, prompt_pad=64, block_len=16,
+                kv="paged", compute_dtype=bf16, device=dev)
+    src = ContinuousBatcher(cfg, prepared, **pool)
+    dst = ContinuousBatcher(cfg, prepared, **pool)
+    run_schedule(dst, prompts[:1], 2, dev)  # warm-up: kernels, the graph
+    src.export_prefill(prompts[0])
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    payloads = [src.export_prefill(p) for p in prompts]
+    sync(dev)
+    export_s = time.perf_counter() - t0
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    counts = read_counts(bf16_q=True)
+    require_launches("[handoff] LH exports", dev, counts,
+                     {("cached_attention", "bf16"): L * chunks})
+    add_into(total, counts)
+    t0 = time.perf_counter()
+    wires = [handoff.pack(pl) for pl in payloads]
+    t1 = time.perf_counter()
+    adopted = [handoff.unpack(w) for w in wires]
+    t2 = time.perf_counter()
+    graph = dst._graph_step
+    caps0 = graph.captures if graph is not None else 0
+    steps = counting_steps(dst)
+    reset_counts()
+    t3 = time.perf_counter()
+    rids = [dst.submit(p, LLAMA_NEW, prefilled=pl)
+            for p, pl in zip(prompts, adopted)]
+    sync(dev)
+    adopt_s = time.perf_counter() - t3
+    res = dst.drain()
+    counts = read_counts(bf16_q=True)
+    require_launches("[handoff] LH adopted decode", dev, counts,
+                     {("cached_attention", "bf16"): 0,
+                      ("paged_decode_attention", "bf16"): L * steps[0]})
+    add_into(total, counts)
+    for i, p in enumerate(prompts):
+        compare_tokens(f"[handoff] LH request {i} (prompt {len(p)})",
+                       res[rids[i]].tolist(), *refs[i], tie=BF16_TIE)
+    # dst's own prefill of the four prompts: the same streams, exactly
+    chunks0 = dst.prefill_chunks_run
+    steps_local = counting_steps(dst)
+    reset_counts()
+    lids = [dst.submit(p, LLAMA_NEW) for p in prompts]
+    local = dst.drain()
+    counts = read_counts(bf16_q=True)
+    if dst.prefill_chunks_run - chunks0 != chunks:
+        fail(f"[handoff] LH local prefill: {dst.prefill_chunks_run - chunks0} "
+             f"prompt chunks ran, expected {chunks}")
+    require_launches("[handoff] LH local prefill", dev, counts,
+                     {("cached_attention", "bf16"): L * chunks,
+                      ("paged_decode_attention", "bf16"):
+                      L * steps_local[0]})
+    add_into(total, counts)
+    for i in range(len(prompts)):
+        if res[rids[i]].tolist() != local[lids[i]].tolist():
+            fail(f"[handoff] LH request {i}: adopted {res[rids[i]].tolist()} "
+                 f"!= dst's own prefill {local[lids[i]].tolist()}")
+    caps = (graph.captures if graph is not None else 0) - caps0
+    if caps:
+        fail(f"[handoff] LH: the decode graph was captured {caps} more times")
+    print(f"[handoff] LH llama3-8b bf16 compute, paged bf16 pool: the four "
+          f"prompts exported in {export_s * 1e3:.1f} ms, packed in "
+          f"{(t1 - t0) * 1e3:.1f} ms and unpacked in {(t2 - t1) * 1e3:.1f} "
+          f"ms ({sum(w.size for w in wires)} bytes; the 300-token prompt's "
+          f"{wires[3].size}), admitted on the adopted rows in "
+          f"{adopt_s * 1e3:.1f} ms, {steps[0]} decode steps, every adopted "
+          f"stream equal to dst's own prefill, {caps} captures; on {card}",
+          flush=True)
+    del src, dst, payloads, wires, adopted
+    gc.collect()
+    kv = dict(kv="paged", prefix_cache=256, compute_dtype=bf16)
+    start, close = start_lm_server_loop()
+    da, dc, _, stop_d = daemon(start, cfg, prepared, dev, **kv)
+    _, ac, as_, stop_a = daemon(start, cfg, prepared, dev, **kv)
+    try:
+        ac.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
+        p = prompts[3]
+        reset_counts()
+        t0 = time.perf_counter()
+        status = dc.kv_stage(p, timeout=300)
+        t1 = time.perf_counter()
+        if f'"staged_blocks": {len(p) // 16}' not in status:
+            fail(f"[kvtier] LK kvstage: {status}")
+        status = ac.kv_pull_from(da, p, timeout=300)
+        t2 = time.perf_counter()
+        if not status.startswith(f"[lm] ok: kvpull adopted {len(p) // 16} "
+                                 "blocks"):
+            fail(f"[kvtier] LK kvpull: {status}")
+        counts = read_counts(bf16_q=True)
+        require_launches("[kvtier] LK kvstage + kvpull", dev, counts,
+                         {("cached_attention", "bf16"):
+                          L * -(-(len(p) // 16 * 16) // 64),
+                          ("paged_decode_attention", "bf16"): 0})
+        add_into(total, counts)
+        b = as_.batcher
+        chunks0 = b.prefill_chunks_run
+        steps = counting_steps(b)
+        reset_counts()
+        stream = ac.generate_stream(p, max_new_tokens=LLAMA_NEW, timeout=300)
+        t3 = time.perf_counter()
+        toks = [next(stream)]
+        ttft = time.perf_counter() - t3
+        toks += list(stream)
+        counts = read_counts(bf16_q=True)
+        if b.prefill_chunks_run - chunks0 != 1:
+            fail(f"[kvtier] LK: the follow-up ran "
+                 f"{b.prefill_chunks_run - chunks0} prompt chunks")
+        require_launches("[kvtier] LK follow-up", dev, counts,
+                         {("cached_attention", "bf16"): L,
+                          ("paged_decode_attention", "bf16"): L * steps[0]})
+        add_into(total, counts)
+        compare_tokens(f"[kvtier] LK adopted prefix, prompt {len(p)}", toks,
+                       *refs[3], tie=BF16_TIE)
+        donor = dc.generate(p, max_new_tokens=LLAMA_NEW, timeout=300).tolist()
+        if donor != toks:
+            fail(f"[kvtier] LK: the adopter's stream {toks} != the donor's "
+                 f"{donor}")
+        print(f"[kvtier] LK llama3-8b bf16: kvstage {(t1 - t0) * 1e3:.1f} ms, "
+              f"kvpull {(t2 - t1) * 1e3:.1f} ms ({status.split('(')[1]}, "
+              f"TTFT with the adopted prefix {ttft * 1e3:.1f} ms; on {card}",
+              flush=True)
+    finally:
+        for c, stop in ((dc, stop_d), (ac, stop_a)):
+            c.close()
+            stop()
+        close()
+    return total
+
+
+def phase_item_4e(cfg, prepared, prompts, refs, dev, card):
+    """[handoff] and [kvtier] on the main path's gpt2; each phase's wall
+    printed. `refs` maps a KV type to the per-prompt references of its
+    pool. Returns the launches of both."""
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_loop
+
+    runs = []
+    start, close = start_lm_server_loop()
+    try:
+        for tag, fn in (("handoff", phase_handoff),
+                        ("kvtier", phase_kvtier)):
+            t0 = time.perf_counter()
+            runs.append(fn(start, cfg, prepared, prompts,
+                           refs if tag == "handoff" else refs["f32"], dev,
+                           card))
+            print(f"[{tag}] phase wall {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        close()
+    return {name: {dt: sum(r[name][dt] for r in runs)
+                   for dt in ("f32", "bf16", "int8")}
+            for name in CACHE_KERNELS}
+
+
 # [constrain]: the main path's gpt2 over A's daemon with grammars live
 J_NEW = 24                # a j=1 request's budget
 J_CHOICES = ("positive", "negative", "neutral")
@@ -2593,6 +3246,9 @@ def phase_main_path(dev, card: str):
                     "int8": ref_i8[3]}, dev),
         phase_serve(cfg, prepared, prompts, ref_f32, a_info, dev, card),
         phase_constrain(cfg, prepared, prompts, a_info, dev, card),
+        phase_item_4e(cfg, prepared, prompts,
+                      {"f32": ref_f32, "bf16": ref_bf16, "int8": ref_i8},
+                      dev, card),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in ("f32", "bf16", "int8")}
@@ -4265,6 +4921,12 @@ def phase_llama_bf16(dev, card, cfg=None):
         counts = {name: {dt: counts.get(name, {}).get(dt, 0) + n
                          for dt, n in by.items()}
                   for name, by in run.items()}
+    t0 = time.perf_counter()
+    run = phase_llama_4e(cfg, prepared, prompts, refs, dev, card)
+    print(f"[llama] LH and LK wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    counts = {name: {dt: counts[name][dt] + n for dt, n in by.items()}
+              for name, by in run.items()}
     forced = forced_check("llama", "L-B", cfg, prepared, prompts, refs, rows,
                           dev, kv="paged", compute_dtype=bf16)
     if dev.type == "cuda":

@@ -3,13 +3,17 @@ dnn_tpu/comm/client.NodeClient this port needs): health checks, the
 transport hello, `send_tensor` into a stage pipeline and `send_tensors`
 over the streamed Relay RPC, unary and streaming generation from the LM
 daemon over the same wire and the same request-id option grammar
-("gen:max_new[:seed][:t=..][:k=..][:p=..][:m=..][:r=..]"), and its text
-front over SendMessage."""
+("gen:max_new[:seed][:t=..][:k=..][:p=..][:m=..][:r=..]"), its text
+front over SendMessage, and the daemon's KV movement between replicas:
+the prefill->decode handoff (`prefill_kv`, `put_kv`, then a generate
+with `kv_handle`) and block migration (`kv_stage`, `kv_lease`,
+`kv_fetch`, `kv_ack`, `kv_pull_from`)."""
 
 from __future__ import annotations
 
 import threading
 import time
+import json
 from typing import List, Optional, Tuple
 
 import grpc
@@ -47,11 +51,14 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
                    min_p: Optional[float] = None,
                    repetition_penalty: Optional[float] = None,
                    logit_bias: Optional[dict] = None,
-                   adapter: Optional[int] = None) -> str:
+                   adapter: Optional[int] = None,
+                   kv_handle: Optional[str] = None) -> str:
     """Encode generation options into the request_id the daemon parses
     (runtime/lm_server.parse_gen_options); `logit_bias` ({token id:
     additive bias}) as b=tok~val,tok~val, the JAX client's spelling;
-    `adapter` (a LoRA adapter's index on a multi-adapter daemon) as a=."""
+    `adapter` (a LoRA adapter's index on a multi-adapter daemon) as a=;
+    `kv_handle` (the key a handoff was staged under with put_kv) as h=,
+    as the JAX router appends it."""
     rid = f"gen:{max_new_tokens}" + (f":{seed}" if seed is not None else "")
     for key, val in (("t", temperature), ("k", top_k), ("p", top_p),
                      ("m", min_p), ("r", repetition_penalty)):
@@ -62,6 +69,8 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
                                 for t, v in logit_bias.items())
     if adapter is not None:
         rid += f":a={adapter}"
+    if kv_handle is not None:
+        rid += f":h={kv_handle}"
     return rid
 
 
@@ -299,6 +308,79 @@ class NodeClient:
         tail = det.flush()
         if tail:
             yield tail
+
+    # -- KV movement between LM daemons (JAX comm/client.py:734-822) ----
+
+    def prefill_kv(self, prompt_ids, *, timeout: float = 60.0) -> np.ndarray:
+        """A PREFILL replica runs the prompt's chunk loop and answers with
+        the packed KV row (control/handoff.py): one uint8 array. Stage it
+        on a decode replica with `put_kv` and generate there with
+        kv_handle=<key>."""
+        status, result = self.send_tensor(
+            np.asarray(prompt_ids, np.int32).reshape(-1),
+            request_id="prefill", timeout=timeout)
+        if result is None:
+            raise RuntimeError(f"LM server returned no KV payload: {status}")
+        return result.numpy().astype(np.uint8, copy=False)
+
+    def put_kv(self, key: str, payload, *, timeout: float = 60.0) -> str:
+        """Stage a prefill replica's KV payload on THIS server under `key`
+        (single use: a generate with kv_handle=key consumes it). Returns
+        the status line; a geometry mismatch raises INVALID_ARGUMENT."""
+        return self.send_tensor(
+            np.asarray(payload, np.uint8).reshape(-1),
+            request_id=f"kvput:{key}", timeout=timeout)[0]
+
+    def kv_stage(self, prompt_ids, *, timeout: float = 60.0) -> str:
+        """Prefill these tokens' full blocks straight into the replica's
+        radix store (no decode slot held); the status line ends with the
+        stage's stats as JSON."""
+        return self.send_tensor(
+            np.asarray(prompt_ids, np.int32).reshape(-1),
+            request_id="kvstage", timeout=timeout)[0]
+
+    def kv_lease(self, prompt_ids, *, timeout: float = 30.0) -> dict:
+        """The donor's side of a block pull: lease the longest resident
+        block run of these tokens. Returns the offer's meta {lease, bytes,
+        blocks, n_tokens, shm?, nonce?} (kvtier/migrate.py)."""
+        status, result = self.send_tensor(
+            np.asarray(prompt_ids, np.int32).reshape(-1),
+            request_id="kvlease", timeout=timeout)
+        if result is None:
+            raise RuntimeError(f"kvlease returned no meta: {status}")
+        return json.loads(result.numpy().tobytes())
+
+    def kv_fetch(self, lease_id: str, *, timeout: float = 30.0) -> np.ndarray:
+        """The grpc rung of a block pull: a lease's staged bytes. An
+        expired lease raises NOT_FOUND (the caller prefills again)."""
+        status, result = self.send_tensor(
+            np.zeros((1,), np.int32),
+            request_id=f"kvfetch:{lease_id}", timeout=timeout)
+        if result is None:
+            raise RuntimeError(f"kvfetch returned no payload: {status}")
+        return result.numpy().astype(np.uint8, copy=False)
+
+    def kv_ack(self, lease_id: str, *, timeout: float = 10.0) -> str:
+        """Confirm a pulled lease's ingest, so the donor releases its
+        staging now rather than at the TTL."""
+        return self.send_tensor(
+            np.zeros((1,), np.int32),
+            request_id=f"kvack:{lease_id}", timeout=timeout)[0]
+
+    def kv_pull_from(self, donor_address: str, prompt_ids, *,
+                     timeout: float = 60.0, rung: Optional[str] = None) -> str:
+        """Tell THIS replica to pull the prefix's blocks from
+        `donor_address` and adopt them. Advisory: a failed pull answers a
+        kvtier_fallback status, not an error. `rung="grpc"` skips the shm
+        rung (a JAX daemon ignores the key)."""
+        spec = {"donor": donor_address,
+                "tokens": [int(x) for x in
+                           np.asarray(prompt_ids, np.int32).reshape(-1)]}
+        if rung is not None:
+            spec["rung"] = rung
+        return self.send_tensor(
+            np.frombuffer(json.dumps(spec).encode(), np.uint8),
+            request_id="kvpull", timeout=timeout)[0]
 
     def close(self):
         self._channel.close()

@@ -55,9 +55,11 @@ log = logging.getLogger("dnn_tpu_torch.comm")
 
 SERVICE_NAME = "node_service.NodeService"
 
+# the wire's message cap, both directions (the JAX package's too)
+MAX_MESSAGE_BYTES = 64 * 1024 * 1024
 GRPC_MSG_OPTIONS = [
-    ("grpc.max_receive_message_length", 64 * 1024 * 1024),
-    ("grpc.max_send_message_length", 64 * 1024 * 1024),
+    ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
+    ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
 ]
 
 # Transient codes worth retrying (the JAX package's RETRYABLE_CODES);

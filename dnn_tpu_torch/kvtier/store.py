@@ -13,8 +13,10 @@ The store is a host index and never touches device memory. The batcher
 (runtime/serving.py) owns the device work — the gather of a hit's blocks
 into the transient row, the one-block copy behind the copy-on-write
 boundary, the install after a prefill — and calls `lookup` / `insert` /
-`evict_one` from the pool's one worker thread. Readers only load ints
-(`n_blocks`, the counters).
+`evict_one` from the pool's one worker thread, and block migration
+(kvtier/migrate.py, the batcher's kvtier_export / kvtier_adopt /
+stage_prefix) reads `nodes_for` and inserts adopted runs with origin
+"adopted". Readers only load ints (`n_blocks`, the counters).
 """
 
 from __future__ import annotations
@@ -139,6 +141,11 @@ class PrefixStore:
             return False
         self._release([victim])
         return True
+
+    def nodes_for(self, tokens: np.ndarray) -> List[RadixNode]:
+        """The matched full-block nodes of `tokens`, in path order (an
+        export reads their blocks and logits rows)."""
+        return self.index.match(tokens)[0]
 
     def _release(self, nodes: List[RadixNode]):
         self.allocator.free([n.block for n in nodes])

@@ -21,7 +21,9 @@
         [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR] \\
         [--draft_model NAME [--draft_weights CKPT] [--spec_k 4]] \\
         [--weights {f32,int8}] [--lora adapter.npz] \\
-        [--serve_adapter a.npz [--serve_adapter b.npz ...]]
+        [--serve_adapter a.npz [--serve_adapter b.npz ...]] \\
+        [--role {prefill,decode,both}] [--kv_handoff_ttl_s 120] \\
+        [--kv_lease_ttl_s 30]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
@@ -100,6 +102,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto resolves to it)")
     p.add_argument("--serve_lm", action="store_true",
                    help="run the LM daemon")
+    p.add_argument("--role", choices=["prefill", "decode", "both"],
+                   default="both",
+                   help="--serve_lm: this replica's fleet role in a "
+                        "disaggregated prefill/decode split; advisory "
+                        "(every endpoint still serves)")
+    p.add_argument("--kv_handoff_ttl_s", type=float, default=120.0,
+                   help="--serve_lm: a staged prefill handoff (kvput:) "
+                        "nobody consumes is swept after this many seconds "
+                        "(<= 0 disables)")
+    p.add_argument("--kv_lease_ttl_s", type=float, default=30.0,
+                   help="--serve_lm: a staged block export (kvlease) an "
+                        "adopter never pulls or acks is reclaimed after "
+                        "this many seconds")
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max_len", type=int, default=None)
     p.add_argument("--prompt_pad", type=int, default=None)
@@ -419,7 +434,9 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             overlap=args.overlap,
             compute_dtype=compute_dtype, seed=args.seed, device=device,
-            tokenizer=tokenizer,
+            tokenizer=tokenizer, role=args.role,
+            kv_handoff_ttl_s=args.kv_handoff_ttl_s,
+            kv_lease_ttl_s=args.kv_lease_ttl_s,
             **({"weights": "int8"} if args.weights == "int8" else {}),
             allow_logit_bias=not spec_kwargs,
             allow_constraints=not spec_kwargs,
@@ -463,6 +480,11 @@ def main(argv=None) -> int:
         # node exits 1
         log.error("LM serve failed: weights='int8' does not compose with "
                   "LoRA serving (--serve_adapter)")
+        return 1
+    if args.role != "both" and not args.serve_lm:
+        # JAX node.py:470-472
+        log.error("--role applies to --serve_lm (the replica's fleet "
+                  "role; the router's own role is implicit)")
         return 1
     if args.serve_adapter and not args.serve_lm:
         log.error("--serve_adapter applies to --serve_lm only; to serve a "

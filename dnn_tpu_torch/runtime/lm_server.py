@@ -45,19 +45,47 @@ token arrives with a later step's commit (a step may then commit two
 tokens of one request); under overlap the worker commits the trailing
 step when the pool empties (flush_overlap).
 
-Left out (ROADMAP, "PyTorch/CUDA port" items 4 e and 12): the
-observability endpoints, chaos injection, dedup and connection
-draining, the watchdog, KV handoff and the KV tier. Their request ids
-answer UNIMPLEMENTED.
+KV between replicas (JAX lm_server.py:1607-1885), on the same wire:
+  * the prefill->decode row handoff: request id "prefill" answers with
+    the prompt's packed KV row (batcher.export_prefill through
+    control/handoff.pack); "kvput:KEY" stages such a payload on a decode
+    replica, checked against its geometry at once and kept under KEY
+    (single use, an LRU of `kv_handoff_cap` entries swept after
+    `kv_handoff_ttl_s` seconds); the gen option "h=KEY" then admits the
+    prompt with that row adopted (submit(prefilled=)), on the unary
+    front and on GenerateStream. Speculative and interleaved servers
+    refuse kvput, as in JAX;
+  * block migration over the radix store (kv="paged", prefix_cache>0;
+    kvtier/migrate.py): "kvstage" prefills a prompt's full blocks into
+    the store, "kvlease" stages the resident run of a prefix under a
+    lease (shm segment and nonce where the host has shm) and answers its
+    meta, "kvfetch:LEASE" the staged bytes, "kvack:LEASE" releases it;
+    "kvpull" (a JSON {"donor", "tokens"[, "rung": "grpc"]}) pulls the
+    run from a donor and adopts it. A failed pull answers a
+    "kvtier_fallback" status, not an error: the next generate prefills
+    again (the reference's protocol, advisory by design).
+The device work of these endpoints (export, stage, the export of a
+lease, adopt) runs on the worker thread through `_BatcherWorker.call`;
+the packing and parsing run off the event loop. Their payloads are not
+token ids, so kvput/kvfetch/kvack/kvpull dispatch before the prompt's
+validation. `role` ("prefill", "decode" or "both") is advisory, as in
+JAX: every replica serves every endpoint. The worker's loop runs the
+housekeeping tick (the kvput inbox's and the leases' TTL sweeps).
+
+Left out (ROADMAP, "PyTorch/CUDA port" items 4 e's second half and 12):
+the observability endpoints, chaos injection, dedup (the gen option
+"d=", refused with UNIMPLEMENTED) and connection draining, the watchdog.
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import json
 import logging
 import queue
 import threading
+import time
 from typing import NamedTuple, Optional
 
 import grpc
@@ -68,6 +96,7 @@ from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
 from dnn_tpu_torch.comm.service import (
     GRPC_MSG_OPTIONS,
+    MAX_MESSAGE_BYTES,
     serve_until_terminated,
     _handlers,
     _tensor_arr,
@@ -84,11 +113,10 @@ from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 log = logging.getLogger("dnn_tpu_torch.lm_server")
 
 __all__ = ["LMServer", "serve_lm", "start_lm_server_in_background",
-           "parse_gen_options"]
+           "start_lm_server_loop", "parse_gen_options"]
 
-# request ids of JAX-daemon endpoints this port does not serve yet
-_UNPORTED_ENDPOINTS = ("prefill", "kvput:", "kvstage", "kvlease",
-                       "kvfetch:", "kvack:", "kvpull")
+# room left in a reply for its message framing beside the payload
+_FRAME_SLACK = 4096
 
 
 def parse_gen_options(request_id: str, default_max_new: int):
@@ -100,8 +128,8 @@ def parse_gen_options(request_id: str, default_max_new: int):
     segments (the JAX client's dl=/tr= tags) are skipped. b= is the
     logit bias ("tok~val,tok~val"), j= the JSON mode's depth (the
     daemon's preflight turns it into a constraint), a= the LoRA
-    adapter's index; the d/h options parse as in the JAX daemon and are
-    refused at admission (not ported)."""
+    adapter's index, h= the key of a staged KV handoff (kvput:), d= the
+    JAX daemon's dedup key (refused: not ported)."""
     max_new, seed, opts = default_max_new, None, {}
     parts = (request_id or "").split(":")
     if parts[0] != "gen":
@@ -175,6 +203,8 @@ class _BatcherWorker(threading.Thread):
         self._held: Optional[_QueuedRequest] = None
         self._futures: dict = {}  # rid -> _QueuedRequest
         self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.tick = None  # housekeeping, called once a loop (rate-limited
+        # by itself)
 
     def submit(self, prompt, max_new: int, seed, *, opts=None,
                on_token=None, cancel_evt=None) -> concurrent.futures.Future:
@@ -307,6 +337,8 @@ class _BatcherWorker(threading.Thread):
         b = self.batcher
         try:
             while not self._stop_evt.is_set():
+                if self.tick is not None:
+                    self.tick()
                 self._run_calls()
                 self._process_cancels()
                 if b.n_active == 0 and self._held is None:
@@ -357,7 +389,11 @@ class LMServer:
     unless given, as in JAX's LMServer (allow_constraints sizes
     constraint_rows at 3600 unless told otherwise: JSON mode's depth 3
     needs 3519 rows). `weights` is "f32" or "int8" (quantized once here;
-    refused with lora_adapters, as in JAX). `device`
+    refused with lora_adapters, as in JAX). `role` (prefill, decode or
+    both; advisory), `kv_handoff_cap` and `kv_handoff_ttl_s` (the kvput
+    inbox; a ttl <= 0 keeps entries until the cap pushes them out) and
+    `kv_lease_ttl_s` (a staged block export's lease, and a pull's
+    timeout) are JAX's. `device`
     defaults to "cuda" and raises without a card. A LlamaConfig serves
     through LlamaFamilyRows(cfg) unless `family` is given
     (serving.default_family)."""
@@ -367,8 +403,23 @@ class LMServer:
     def __init__(self, cfg, prepared, *, default_max_new: int = 32,
                  request_timeout: float = 120.0, tokenizer=None,
                  draft_cfg=None, draft_prepared=None, spec_k: int = 4,
-                 weights: str = "f32", **batcher_kwargs):
+                 weights: str = "f32", role: str = "both",
+                 kv_handoff_cap: int = 64, kv_handoff_ttl_s: float = 120.0,
+                 kv_lease_ttl_s: float = 30.0, **batcher_kwargs):
         native.load()  # the checksum library, built before serving
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be prefill|decode|both, got {role!r}")
+        self.role = role
+        # the kvput inbox: key -> (payload, staged at); single use (h=
+        # consumes an entry), bounded by a cap and a TTL so an abandoned
+        # handoff never pins its row-sized payload for good
+        self._kv_handoff: dict = {}
+        self._kv_lock = threading.Lock()
+        self._kv_handoff_cap = int(kv_handoff_cap)
+        self._kv_handoff_ttl_s = float(kv_handoff_ttl_s)
+        self._kv_lease_ttl_s = float(kv_lease_ttl_s)
+        self._kvtier_leases = None
+        self._hk_last = 0.0
         if weights not in ("f32", "int8"):
             raise ValueError(
                 f"weights must be 'f32' or 'int8', got {weights!r}")
@@ -403,7 +454,13 @@ class LMServer:
         # JSON mode's constraints, one per depth, compiled at first use
         self._constraint_cache: dict = {}
         self._embed_fns: dict = {}  # pooling -> make_embed's function
+        if getattr(self.batcher, "_prefix_store", None) is not None:
+            # the KV tier is live on this replica: the donor's staging
+            from dnn_tpu_torch.kvtier.migrate import LeaseTable
+
+            self._kvtier_leases = LeaseTable(ttl_s=kv_lease_ttl_s)
         self.worker = _BatcherWorker(self.batcher)
+        self.worker.tick = self._housekeeping_tick
         self.worker.start()
 
     def json_constraint(self, depth: int):
@@ -521,15 +578,16 @@ class LMServer:
         if not self.worker.is_alive():
             await context.abort(grpc.StatusCode.UNAVAILABLE,
                                 "LM batcher worker is not running")
-        clean = ":".join(s for s in (request_id or "").split(":")
-                         if not s.startswith(("dl=", "tr=")))
-        if clean.startswith(_UNPORTED_ENDPOINTS):
-            await context.abort(
-                grpc.StatusCode.UNIMPLEMENTED,
-                f"request id {clean.split(':')[0]!r}: endpoint not ported "
-                "to dnn_tpu_torch yet (ROADMAP PyTorch/CUDA port item 4)")
         max_new, seed, opts = parse_gen_options(request_id,
                                                 self.default_max_new)
+        if "dedup" in opts:
+            await context.abort(
+                grpc.StatusCode.UNIMPLEMENTED,
+                "request option d= (dedup): not ported to dnn_tpu_torch yet "
+                "(ROADMAP PyTorch/CUDA port item 4 e, second half)")
+        if "kv_handle" in opts:
+            opts["prefilled"] = await self._resolve_kv_handle(
+                opts.pop("kv_handle"), context)
         if "json_depth" in opts:
             try:
                 # a depth's first use compiles a vocab-sized token table:
@@ -571,11 +629,25 @@ class LMServer:
         return tokens
 
     async def SendTensor(self, request, context):
-        prompt = await self._validated_prompt(request, context)
         rid_clean = ":".join(s for s in (request.request_id or "").split(":")
                              if not s.startswith(("dl=", "tr=")))
+        # KV movement: these payloads are not token ids, so they dispatch
+        # before the prompt's validation (kvstage and kvlease carry a
+        # prompt and validate it themselves)
+        head, _, arg = rid_clean.partition(":")
+        if head == "kvput":
+            return await self._kvput(arg, request, context)
+        kvtier = {"kvstage": self._kvtier_stage, "kvlease": self._kvtier_lease,
+                  "kvfetch": self._kvtier_fetch, "kvack": self._kvtier_ack,
+                  "kvpull": self._kvtier_pull}.get(head)
+        if kvtier is not None:
+            await self._kvtier_require(context)
+            return await kvtier(request, arg, context)
+        prompt = await self._validated_prompt(request, context)
         if rid_clean == "embed" or rid_clean.startswith("embed:"):
             return await self._embed(prompt, rid_clean, context)
+        if rid_clean == "prefill":
+            return await self._prefill_export(prompt, context)
         tokens = await self._generate(prompt.reshape(-1), request.request_id,
                                       context)
         return wc.TensorResponse(
@@ -632,6 +704,262 @@ class LMServer:
             cancel_evt.set()
             raise
 
+    # -- KV between replicas (JAX lm_server.py:1607-1885) --------------
+
+    async def _on_worker(self, fn, context):
+        """fn() on the batcher's worker thread between two steps (device
+        work never meets a step's graph capture); its result. A ValueError
+        aborts INVALID_ARGUMENT; anything else propagates."""
+        if not self.worker.is_alive():
+            await context.abort(grpc.StatusCode.UNAVAILABLE,
+                                "LM batcher worker is not running")
+        fut = self.worker.call(fn)
+        try:
+            return await asyncio.wait_for(asyncio.wrap_future(fut),
+                                          self.request_timeout)
+        except asyncio.TimeoutError:
+            await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
+                                f"exceeded {self.request_timeout}s")
+        except ValueError as e:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+
+    async def _reply(self, data: np.ndarray, status: str, context):
+        """A reply carrying `data` (uint8), refused RESOURCE_EXHAUSTED when
+        it would not fit the wire's message cap (a gRPC error at once,
+        never a hung or truncated reply)."""
+        if data.nbytes + _FRAME_SLACK > MAX_MESSAGE_BYTES:
+            await context.abort(
+                grpc.StatusCode.RESOURCE_EXHAUSTED,
+                f"{status}: {data.nbytes} bytes exceed the wire's "
+                f"{MAX_MESSAGE_BYTES}-byte message cap (hand off bf16 or "
+                "int8 KV, or serve a shorter max_len)")
+        return wc.TensorResponse(status=f"[lm] ok: {status}",
+                                 result_tensor=_tensor_msg(data))
+
+    async def _prefill_export(self, prompt, context):
+        """prefill: the prompt's chunk loop only, answered with the packed
+        KV row (control/handoff.py) a decode replica stages by kvput."""
+        from dnn_tpu_torch.control import handoff
+
+        payload = await self._on_worker(
+            lambda: self.batcher.export_prefill(np.asarray(prompt)), context)
+        data = await asyncio.to_thread(handoff.pack, payload)
+        return await self._reply(data, f"prefill kv {data.size} bytes",
+                                 context)
+
+    async def _kvput(self, key: str, request, context):
+        """kvput:KEY: stage a prefill replica's packed row under KEY,
+        parsed and checked against this pool's geometry now (a mismatch
+        fails here with a readable diff, not at admission)."""
+        key = key.strip()
+        if not key:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "kvput needs a nonempty handle key (kvput:<key>)")
+        if hasattr(self.batcher, "spec_k"):
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "speculative servers cannot adopt handed-off KV (the draft "
+                "cache needs its own prompt prefill)")
+        if getattr(self.batcher, "_ilv", 0):
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "interleaved-admission servers (prefill_chunk_tokens) cannot "
+                "adopt handed-off KV — adoption rides the convoy install "
+                "path")
+        from dnn_tpu_torch.control import handoff
+
+        try:
+            raw = _tensor_arr(request.tensor)
+        except wc.PayloadCorruptError as e:
+            await context.abort(grpc.StatusCode.DATA_LOSS, str(e))
+        except ValueError as e:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        try:
+            payload = await asyncio.to_thread(handoff.unpack, raw)
+        except ValueError as e:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        mine = self.batcher.handoff_fingerprint()
+        theirs = payload.get("fingerprint") or {}
+        if theirs and theirs != mine:
+            diff = {k: (theirs.get(k), mine.get(k))
+                    for k in set(theirs) | set(mine)
+                    if theirs.get(k) != mine.get(k)}
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"handoff geometry mismatch (theirs, mine): {diff} — prefill "
+                "and decode replicas must share model config, max_len, "
+                "prompt_pad and kv dtype")
+        self._sweep_kv_handoffs()
+        with self._kv_lock:
+            self._kv_handoff.pop(key, None)
+            self._kv_handoff[key] = (payload, time.monotonic())
+            while len(self._kv_handoff) > self._kv_handoff_cap:
+                self._kv_handoff.pop(next(iter(self._kv_handoff)))
+        return wc.TensorResponse(
+            status=f"[lm] ok: kv handle {key!r} staged "
+                   f"({payload['prompt_len']} prompt positions)")
+
+    async def _resolve_kv_handle(self, key: str, context) -> dict:
+        """h=KEY -> its staged payload, consumed (single use). An unknown
+        or used handle is INVALID_ARGUMENT: generating without the
+        adopted KV would prefill again and hide a broken handoff."""
+        with self._kv_lock:
+            entry = self._kv_handoff.pop(key, None)
+        if entry is None:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"unknown or already-consumed kv handle {key!r} (kvput: it "
+                "first; handles are single-use — an expired handle was "
+                "TTL-swept, re-stage it)")
+        return entry[0]
+
+    def _sweep_kv_handoffs(self, now: Optional[float] = None) -> int:
+        """Drop inbox entries older than kv_handoff_ttl_s (<= 0: never);
+        returns how many. Run by the housekeeping tick and at every
+        kvput."""
+        ttl = self._kv_handoff_ttl_s
+        if ttl <= 0:
+            return 0
+        now = time.monotonic() if now is None else now
+        with self._kv_lock:
+            old = [k for k, (_, t0) in self._kv_handoff.items()
+                   if now - t0 > ttl]
+            for k in old:
+                del self._kv_handoff[k]
+        return len(old)
+
+    def _housekeeping_tick(self):
+        """The worker loop's housekeeping, at most once a second: the kvput
+        inbox's and the leases' TTL sweeps."""
+        now = time.monotonic()
+        if now - self._hk_last < 1.0:
+            return
+        self._hk_last = now
+        self._sweep_kv_handoffs(now)
+        if self._kvtier_leases is not None:
+            self._kvtier_leases.sweep(now)
+
+    async def _kvtier_require(self, context):
+        if self._kvtier_leases is None:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "the KV tier is off on this replica: serve with kv=paged (or "
+                "paged_blocks>0) and prefix_cache>0")
+
+    async def _kvtier_stage(self, request, _arg, context):
+        """kvstage: the prompt's full blocks prefilled into the radix store
+        (no slot, no sampling); the stats as JSON in the status."""
+        prompt = await self._validated_prompt(request, context)
+        try:
+            stats = await self._on_worker(
+                lambda: self.batcher.stage_prefix(np.asarray(prompt)),
+                context)
+        except grpc.aio.AbortError:
+            raise
+        except Exception as e:  # noqa: BLE001 — InsufficientBlocks and
+            # the like: transient, the caller treats staging as advisory
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                                f"{type(e).__name__}: {e}")
+        return wc.TensorResponse(status="[lm] ok: kvstage "
+                                 + json.dumps(stats))
+
+    async def _kvtier_lease(self, request, _arg, context):
+        """kvlease: the resident block run of these tokens, exported,
+        packed (kvtier/migrate.py) and staged under a TTL'd lease; answers
+        the offer's meta (lease, bytes, blocks, n_tokens, and shm + nonce
+        where the host has shm) as a uint8 JSON tensor."""
+        from dnn_tpu_torch.kvtier import migrate
+
+        prompt = await self._validated_prompt(request, context)
+        try:
+            payload = await self._on_worker(
+                lambda: self.batcher.kvtier_export(np.asarray(prompt)),
+                context)
+        except grpc.aio.AbortError:
+            raise
+        except Exception as e:  # noqa: BLE001 — the donor's failure,
+            # reported readable
+            await context.abort(grpc.StatusCode.INTERNAL,
+                                f"{type(e).__name__}: {e}")
+        if payload is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND,
+                                "no resident prefix blocks for these tokens")
+        wire = await asyncio.to_thread(migrate.pack_blocks, payload)
+        if wire.nbytes + _FRAME_SLACK > MAX_MESSAGE_BYTES:
+            await context.abort(
+                grpc.StatusCode.RESOURCE_EXHAUSTED,
+                f"kvlease: {wire.nbytes} bytes exceed the wire's "
+                f"{MAX_MESSAGE_BYTES}-byte message cap")
+        meta = self._kvtier_leases.offer(wire.tobytes())
+        n_tok = int(payload["tokens"].size)
+        meta.update(n_tokens=n_tok, blocks=n_tok // payload["block_len"])
+        return wc.TensorResponse(
+            status=f"[lm] ok: lease {meta['lease']} offered "
+                   f"({meta['bytes']} bytes)",
+            result_tensor=_tensor_msg(np.frombuffer(
+                json.dumps(meta).encode(), np.uint8)))
+
+    async def _kvtier_fetch(self, _request, lease_id: str, context):
+        """kvfetch:LEASE: the grpc rung, the staged bytes. An unknown or
+        expired lease is NOT_FOUND (the adopter prefills again)."""
+        try:
+            data = self._kvtier_leases.fetch(lease_id)
+        except KeyError:
+            await context.abort(grpc.StatusCode.NOT_FOUND,
+                                f"unknown or expired kvtier lease {lease_id!r}")
+        return await self._reply(np.frombuffer(data, np.uint8),
+                                 f"lease {lease_id} ({len(data)} bytes)",
+                                 context)
+
+    async def _kvtier_ack(self, _request, lease_id: str, _context):
+        """kvack:LEASE: the adopter's ingest confirmed; the staging goes."""
+        ok = self._kvtier_leases.ack(lease_id)
+        return wc.TensorResponse(status=f"[lm] ok: lease {lease_id} "
+                                 + ("released" if ok else "already gone"))
+
+    async def _kvtier_pull(self, request, _arg, context):
+        """kvpull: pull a prefix's blocks FROM a donor replica and adopt
+        them here. Advisory, as in JAX: any failure (a dead donor, an
+        expired lease, a geometry mismatch, a full pool) answers a
+        "kvtier_fallback" status, and the next generate prefills again."""
+        try:
+            raw = _tensor_arr(request.tensor)
+            spec = json.loads(np.asarray(raw, np.uint8).tobytes())
+            donor = str(spec["donor"])
+            tokens = np.asarray(spec["tokens"], np.int32).reshape(-1)
+            force_grpc = spec.get("rung") == "grpc"
+        except (wc.PayloadCorruptError, ValueError, KeyError, TypeError):
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                'kvpull expects a uint8 JSON tensor {"donor": "host:port", '
+                '"tokens": [...]}')
+
+        def pull():
+            from dnn_tpu_torch.comm.client import NodeClient
+            from dnn_tpu_torch.kvtier import migrate
+
+            client = NodeClient(donor)
+            try:
+                return migrate.pull_blocks(client, tokens,
+                                           timeout=self._kv_lease_ttl_s,
+                                           shm=not force_grpc)
+            finally:
+                client.close()
+
+        try:
+            payload = await asyncio.to_thread(pull)
+            n = await asyncio.wrap_future(self.worker.call(
+                lambda: self.batcher.kvtier_adopt(payload)))
+        except Exception as e:  # noqa: BLE001 — a failed pull fails the
+            # optimization, never the request: the generate prefills
+            return wc.TensorResponse(
+                status=f"[lm] kvtier_fallback: {type(e).__name__}: {e}"[:240])
+        return wc.TensorResponse(
+            status=f"[lm] ok: kvpull adopted {n} blocks "
+                   f"({payload['_wire_bytes']} bytes) from {donor} over "
+                   f"{payload['_rung']}")
+
     async def HealthCheck(self, request, context):
         return pb.HealthCheckResponse(is_healthy=self.worker.is_alive())
 
@@ -663,6 +991,8 @@ class LMServer:
     def close(self):
         self.worker.stop()
         self.worker.join(timeout=10)
+        if self._kvtier_leases is not None:
+            self._kvtier_leases.close()  # frees staging and shm segments
 
 
 async def _start(cfg, prepared, port: int, server_kwargs):
@@ -691,54 +1021,59 @@ async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
         servicer.close()
 
 
+def start_lm_server_loop():
+    """One event loop on a daemon thread for one or more LM daemons in this
+    process (gRPC's asyncio poller floods its wake-up socket when many
+    loops run in one process): returns (start, close). `start(cfg,
+    prepared, port=, **server_kwargs)` serves a daemon on the loop and
+    returns its `stop` (with `stop.servicer`), callable from any thread
+    but the loop's; `close()` ends the loop once the daemons are stopped;
+    `close.thread` is the loop's thread."""
+    loop = asyncio.new_event_loop()
+    t = threading.Thread(target=loop.run_forever, daemon=True,
+                         name="lm-grpc-loop")
+    t.start()
+
+    def start(cfg, prepared, *, port: int, **server_kwargs):
+        try:
+            servicer, server = asyncio.run_coroutine_threadsafe(
+                _start(cfg, prepared, port, server_kwargs), loop).result(
+                    timeout=120)
+        except Exception as e:
+            raise RuntimeError(f"LM server failed to start: {e!r}") from e
+
+        def stop():
+            asyncio.run_coroutine_threadsafe(server.stop(grace=0.2),
+                                             loop).result(timeout=10)
+            servicer.close()
+
+        stop.servicer = servicer
+        return stop
+
+    def close():
+        loop.call_soon_threadsafe(loop.stop)
+        t.join(timeout=10)
+        loop.close()
+
+    close.thread = t
+    return start, close
+
+
 def start_lm_server_in_background(cfg, prepared, *, port: int,
                                   **server_kwargs):
-    """serve_lm on a daemon thread; returns (thread, stop). `stop()`
-    shuts the server down and joins the thread; `stop.servicer` is the
-    LMServer."""
-    loop = asyncio.new_event_loop()
-    started = threading.Event()
-    state: dict = {}
-
-    async def _run():
-        try:
-            state["servicer"], state["server"] = await _start(
-                cfg, prepared, port, server_kwargs)
-            state["done"] = asyncio.Event()
-        except BaseException as e:
-            state["error"] = e
-            raise
-        finally:
-            started.set()
-        await state["done"].wait()
-
-    def _thread_main():
-        asyncio.set_event_loop(loop)
-        try:
-            loop.run_until_complete(_run())
-        except BaseException:  # noqa: BLE001 — recorded in state["error"]
-            if "error" not in state:
-                raise
-        finally:
-            loop.close()
-
-    t = threading.Thread(target=_thread_main, daemon=True, name="lm-grpc")
-    t.start()
-    if not started.wait(timeout=120):
-        raise RuntimeError("LM server failed to start within 120 s")
-    if "error" in state:
-        t.join(timeout=5)
-        raise RuntimeError(
-            f"LM server failed to start: {state['error']}") from state["error"]
+    """serve_lm on a loop of its own (start_lm_server_loop); returns
+    (thread, stop). `stop()` shuts the server down and ends the loop;
+    `stop.servicer` is the LMServer."""
+    start, close = start_lm_server_loop()
+    try:
+        stop_server = start(cfg, prepared, port=port, **server_kwargs)
+    except BaseException:
+        close()
+        raise
 
     def stop():
-        async def _stop():
-            await state["server"].stop(grace=0.2)
-            state["done"].set()
+        stop_server()
+        close()
 
-        asyncio.run_coroutine_threadsafe(_stop(), loop).result(timeout=10)
-        state["servicer"].close()
-        t.join(timeout=10)
-
-    stop.servicer = state["servicer"]
-    return t, stop
+    stop.servicer = stop_server.servicer
+    return close.thread, stop

@@ -197,6 +197,25 @@ class PagedKV:
                 n_l, h, nb * bl, *g.shape[4:])
 
     @staticmethod
+    def read_block(cache, block: int) -> dict:
+        """One physical block's leaves {name: (L, H, bp[, D])} — K/V and,
+        on an int8 pool, the scales — as views of the pool (JAX's
+        kv_get_block); a block migration's export copies them off the
+        card."""
+        return {kk: leaf[:, block] for kk, leaf in cache.items()
+                if kk != "tables"}
+
+    @staticmethod
+    def write_block(cache, vals: dict, dst: int):
+        """Store one migrated block's leaves `vals` {name: (L, H, bp[,
+        D])} at physical block `dst`, IN PLACE (JAX's kv_put_block
+        rebinds the pool; a captured step reads the pool's fixed
+        addresses, so the port writes into them)."""
+        for kk, leaf in cache.items():
+            if kk != "tables":
+                leaf[:, dst].copy_(vals[kk])
+
+    @staticmethod
     def copy_block(cache, src: int, dst: int):
         """The copy-on-write of one physical block: every leaf's block
         `src` (K/V and, on an int8 pool, the scales) copied to `dst`, in

@@ -63,6 +63,22 @@ The JAX batcher's serving features of ROADMAP item 4 b-c:
     retires at a commit has run one more masked step, whose row the
     commit discards.
 
+And item 4 e's KV movement between replicas (JAX serving.py:1909-2276):
+  * the prefill->decode row handoff: `export_prefill` (a PREFILL
+    replica runs only the prompt's chunk loop and returns the row's
+    leaves on the host with the last logits row, control/handoff.py's
+    payload) and `submit(prefilled=)` (a DECODE replica copies that row
+    into its admission row in place and finishes as a local prefill
+    would: zero prompt chunks, the first token from the shipped logits
+    row); `handoff_fingerprint` is the geometry both must share;
+  * block migration over the radix store (kvtier/migrate.py):
+    `kvtier_export` reads the resident block run of a token prefix off
+    the pool, `kvtier_adopt` writes a sibling's run into fresh local
+    blocks in place and inserts it with origin "adopted", and
+    `stage_prefix` prefills a prompt's full blocks straight into the
+    store (no slot, no sampling); `kvtier_fingerprint` is their
+    geometry.
+
 And item 4 d's constraints: `allow_constraints` / `submit(constraint=)`
 (a runtime/constrain.TokenConstraint) masks every generated token to a
 regex or JSON grammar. Two device pools of `constraint_rows` rows,
@@ -108,9 +124,13 @@ Against the JAX batcher:
   * sampled requests draw from a per-request torch.Generator seeded from
     (server seed, request id or seed), so a sampled stream matches the
     JAX package's only in distribution; greedy streams are identical;
-  * the KV handoff and the fleet KV tier (item 4 e), the observability
-    gauges (item 12) and int4 KV (item 2) raise NotImplementedError
-    (ROADMAP, "PyTorch/CUDA port").
+  * an export prefills into the admission row on a convoy server and
+    into an export row of its own, allocated at first use, on an
+    interleaved one (whose admission row may hold an in-flight prompt);
+    the row's positions past the prompt are blanked (zeros, int8 scales
+    ones), as JAX's fresh row has them;
+  * the observability gauges (item 12) and int4 KV (item 2) raise
+    NotImplementedError (ROADMAP, "PyTorch/CUDA port").
 
 The server runs on CUDA unless constructed with device="cpu"; without a
 card the default raises. TF32 is switched off for the matmuls: the JAX
@@ -127,6 +147,7 @@ import numpy as np
 import torch
 
 from dnn_tpu_torch import resolve_device
+from dnn_tpu_torch.control.handoff import as_tensor, np_dtype_name
 from dnn_tpu_torch.models.gpt import GPTConfig, for_compute, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads
 from dnn_tpu_torch.ops.cuda.cached_attention import (
@@ -170,19 +191,12 @@ log = logging.getLogger("dnn_tpu_torch.serving")
 _UNPORTED = {
     "ffn": "item 7 (other model families)",
 }
-_UNPORTED_SUBMIT = {
-    "prefilled": "item 4 e (KV handoff)",
-    "kv_handle": "item 4 e (KV handoff)",
-}
 
 
-def _reject_unported(table, given: dict, *, zero_is_off: bool):
-    """Raise for any `given` option of `table` set to a live value. None
-    and False are off; so are 0 and empty containers where
-    `zero_is_off` (constructor sizes and lists — not a request's
-    adapter index, where 0 names the first adapter)."""
-    live = {k: v for k, v in given.items()
-            if not (v is None or v is False or (zero_is_off and not v))}
+def _reject_unported(table, given: dict):
+    """Raise for any `given` option of `table` set to a live value. None,
+    False, 0 and empty containers are off."""
+    live = {k: v for k, v in given.items() if v}
     unknown = sorted(set(given) - set(table))
     if unknown:
         raise TypeError(f"unexpected arguments {unknown}")
@@ -472,7 +486,7 @@ class ContinuousBatcher:
                     f"compute_dtype mismatch: batcher={compute_dtype} vs "
                     f"family adapter={fam_dtype} — set it on the adapter")
             compute_dtype = fam_dtype
-        _reject_unported(_UNPORTED, unported, zero_is_off=True)
+        _reject_unported(_UNPORTED, unported)
         self.family = family or default_family(cfg, compute_dtype)
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
@@ -638,6 +652,11 @@ class ContinuousBatcher:
         self._row_len = -(-self.max_len // width) * width
         self._row = self.family.init_cache(1, self._row_len,
                                            self._cache_dtype, self.device)
+        # the KV handoff's row is JAX's: rounded to prompt_pad. An
+        # interleaved server exports through a row of its own (_xrow,
+        # allocated at first use); a convoy server's admission row is it
+        self._handoff_len = -(-self.max_len // self.prompt_pad) * self.prompt_pad
+        self._xrow = None
 
         dev, v = self.device, cfg.vocab_size
         # the step forwards' CUDA graphs (the CPU steps eagerly); their
@@ -815,7 +834,7 @@ class ContinuousBatcher:
                logit_bias: Optional[dict] = None,
                stop: Optional[list] = None, logprobs: bool = False,
                constraint=None, adapter: Optional[int] = None,
-               **unported) -> int:
+               prefilled: Optional[dict] = None, **unknown) -> int:
         """Admit `prompt` (1-D int ids) into a free slot; returns the
         request id. The first token is sampled at the end of the prefill
         and counts toward max_new_tokens. `seed` names the request's rng
@@ -830,12 +849,18 @@ class ContinuousBatcher:
         extend a complete match (needs allow_constraints=True);
         `adapter` indexes the constructor's `lora_adapters` (None: the
         base model) and applies to the prefill and every decode step.
-        Convoy admission prefills here; interleaved admission
-        (prefill_chunk_tokens) only queues the prompt, whose chunks the
-        following steps fold in. Raises RuntimeError without a free slot
+        `prefilled` is a prefill replica's `export_prefill` payload for
+        this prompt (control/handoff.unpack's dict): the row is adopted
+        and no prompt chunk runs here (convoy admission and the base
+        model only, as in JAX). Convoy admission prefills here;
+        interleaved admission (prefill_chunk_tokens) only queues the
+        prompt, whose chunks the following steps fold in. Raises RuntimeError without a free slot
         and, on the paged pool, InsufficientBlocks while it lacks blocks
         for prompt + budget (after evicting what the prefix store can)."""
-        _reject_unported(_UNPORTED_SUBMIT, unported, zero_is_off=False)
+        if unknown:
+            # JAX's batcher takes no more (the daemon resolves h= into
+            # prefilled=; d= is refused before it gets here)
+            raise TypeError(f"unexpected arguments {sorted(unknown)}")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("prompt must have at least one token")
@@ -885,6 +910,18 @@ class ContinuousBatcher:
                     f"adapter {adapter} out of range "
                     f"[0, {self._n_adapters})")
             aid = int(adapter) + 1  # stack row 0 is the base model
+        if prefilled is not None:
+            # JAX serving.py:1384-1394
+            if self._ilv:
+                raise ValueError(
+                    "prefilled= does not compose with prefill_chunk_tokens: "
+                    "interleaved admission folds chunks into decode steps — "
+                    "KV adoption rides the convoy install path")
+            if adapter is not None:
+                raise ValueError(
+                    "prefilled= does not compose with adapter=: the "
+                    "handed-off row was computed against the prefill "
+                    "replica's base weights")
         tk = min(tk, TOP_P_PREFILTER_K)
         stop_seqs = []
         for s in (stop or []):
@@ -904,8 +941,9 @@ class ContinuousBatcher:
         # the radix store's longest cached prefix (host lookup); its
         # entries are base-model K/V, so an adapted request bypasses it
         # (JAX serving.py:1403-1426: it runs uncached, counted neither
-        # hit nor miss)
-        use_radix = self._prefix_store is not None and aid == 0
+        # hit nor miss), as does an adopted row (no lookup runs)
+        use_radix = (self._prefix_store is not None and aid == 0
+                     and prefilled is None)
         kv_hit = self._prefix_store.lookup(prompt) if use_radix else None
         taken, n_shared, cow_tok, install_ids, req = [], 0, 0, None, None
         try:
@@ -955,7 +993,8 @@ class ContinuousBatcher:
                 self._slot_req[slot] = req
                 self._pending_q.append(slot)
                 return rid
-            self._admit(slot, req, prompt, par, kv_hit, n_shared, cow_tok)
+            self._admit(slot, req, prompt, par, kv_hit, n_shared, cow_tok,
+                        prefilled)
             return rid
         except BaseException:
             # a failure anywhere in the admission returns the blocks, the
@@ -1009,18 +1048,7 @@ class ContinuousBatcher:
         if ref_ids:
             self.allocator.ref(ref_ids)
         try:
-            owned = self.allocator.alloc(n_need - n_shared)
-            while owned is None and self._evictable_prefix():
-                # entries must never starve admission: evict LRU entries
-                # until the tail fits (an entry whose blocks live slots
-                # still share frees nothing — keep evicting)
-                self._evict_prefix_entry()
-                owned = self.allocator.alloc(n_need - n_shared)
-            if owned is None:
-                raise InsufficientBlocks(
-                    f"insufficient free cache blocks: need "
-                    f"{n_need - n_shared}, have {self.allocator.n_free} "
-                    f"(pool {self.allocator.n_blocks}, block {bp} pos)")
+            owned = self._alloc_evicting(n_need - n_shared)
         except BaseException:
             if ref_ids:
                 self.allocator.free(ref_ids)
@@ -1047,10 +1075,14 @@ class ContinuousBatcher:
         return taken, n_shared, cow_tok
 
     @torch.no_grad()
-    def _admit(self, slot, req, prompt, par, kv_hit, n_shared, cow_tok):
+    def _admit(self, slot, req, prompt, par, kv_hit, n_shared, cow_tok,
+               prefilled=None):
         """Convoy admission: the prompt's chunks (resumed after a prefix
-        hit), the first token and the slot's state, inline."""
-        if kv_hit is not None:
+        hit) or an adopted row, the first token and the slot's state,
+        inline."""
+        if prefilled is not None:
+            last = self._adopt_prefilled(prefilled, prompt)
+        elif kv_hit is not None:
             self._count_lookup(n_shared > 0 or cow_tok > 0)
             boundary: dict = {}
             last = self._radix_prefill(prompt, slot, kv_hit, n_shared,
@@ -1247,6 +1279,309 @@ class ContinuousBatcher:
         lp = (logprob_outputs(raw, first, self._logprobs_k)
               if req["logprobs"] else ())
         return first, lp
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode: the row handoff (JAX
+    # serving.py:1909-2038)
+
+    def _row_spec(self):
+        """[(leaf name, shape, numpy dtype name)] of the handoff row, in
+        the JAX package's pytree order (sorted keys): the admission
+        row's leaves at JAX's row length (prompt_pad-rounded)."""
+        out = []
+        for kk in sorted(self._row):
+            shape = list(self._row[kk].shape)
+            shape[3] = self._handoff_len
+            out.append((kk, shape, np_dtype_name(self._row[kk].dtype)))
+        return out
+
+    def handoff_fingerprint(self) -> dict:
+        """The geometry both sides of a KV handoff must agree on (JAX's
+        dict, equal to it for the same geometry); the daemon checks it
+        at kvput, the adoption leaf by leaf."""
+        return {"family": type(self.family).__name__,
+                "vocab_size": int(self.cfg.vocab_size),
+                "prompt_pad": int(self.prompt_pad),
+                "row_len": int(self._handoff_len),
+                "row_leaves": [[shape, dt] for _, shape, dt in
+                               self._row_spec()]}
+
+    def _export_row(self):
+        """The row an export prefills into: the admission row on a convoy
+        server (no admission is in flight between two calls), a row of
+        its own on an interleaved one, whose admission row may hold a
+        prompt across steps and is rounded to prefill_chunk_tokens."""
+        if not self._ilv:
+            return self._row
+        if self._xrow is None:
+            self._xrow = self.family.init_cache(
+                1, self._handoff_len, self._cache_dtype, self.device)
+        return self._xrow
+
+    @torch.no_grad()
+    def export_prefill(self, prompt, *, max_new_tokens: int = 1) -> dict:
+        """The PREFILL replica's half of the handoff: the prompt's chunk
+        loop only (K5; no slot, no install, no sampling), returning
+        {"row": the row's leaves as CPU tensors in JAX's order,
+        "logits_row": the true last prompt row's logits (V,),
+        "prompt_len", "fingerprint"} — the payload control/handoff.pack
+        ships and a decode replica adopts through submit(prefilled=).
+        `max_new_tokens` only sizes the length check. Runs on the
+        worker's thread (the daemon's `_BatcherWorker.call`)."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if len(prompt) == 0:
+            raise ValueError("prompt must have at least one token")
+        if len(prompt) + max(int(max_new_tokens), 1) > self.max_len:
+            raise ValueError(
+                f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
+                f"exceeds max_len {self.max_len}")
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            raise ValueError(f"prompt ids must be in [0, {self.cfg.vocab_size})")
+        p_pad = self.prompt_pad
+        n_chunks = -(-len(prompt) // p_pad)
+        padded = np.zeros((1, n_chunks * p_pad), np.int64)
+        padded[0, :len(prompt)] = prompt
+        padded_d = self._upload(padded, torch.int64)
+        row = self._export_row()
+        logits = None
+        for c in range(n_chunks):
+            logits = self.family.prefill(
+                self.prepared, padded_d[:, c * p_pad:(c + 1) * p_pad], row,
+                c * p_pad)
+            self.prefill_chunks_run += 1
+        end = n_chunks * p_pad
+        for kk, leaf in row.items():
+            # positions past the prompt's chunks as a fresh row has them
+            leaf[:, :, :, end:] = 1 if kk in ("ks", "vs") else 0
+        last = logits[0, len(prompt) - 1 - (n_chunks - 1) * p_pad]
+        # a copy even on the CPU: the export row is reused by the next call
+        return {"row": [row[kk][:, :, :, :self._handoff_len].to(
+                            "cpu", copy=True) for kk in sorted(row)],
+                "logits_row": last.cpu(), "prompt_len": len(prompt),
+                "fingerprint": self.handoff_fingerprint()}
+
+    def _adopt_prefilled(self, prefilled, prompt):
+        """The DECODE replica's half: check the payload against this
+        pool's row geometry (every mismatch a ValueError: adopting
+        mis-shaped KV would generate plausible garbage), copy its leaves
+        into the admission row IN PLACE, and return the shipped logits
+        row on the device — the finish then samples the first token from
+        it exactly as from a local prefill's last row."""
+        got = prefilled.get("row") if isinstance(prefilled, dict) else None
+        if not isinstance(got, (list, tuple)):
+            raise ValueError("prefilled= expects an export_prefill payload "
+                             "dict with a 'row' leaf list")
+        spec = self._row_spec()
+        if len(got) != len(spec):
+            raise ValueError(
+                f"handoff row has {len(got)} leaves but this pool's row "
+                f"cache has {len(spec)} — prefill and decode replicas must "
+                "share model config and kv dtype")
+        leaves = [as_tensor(h) for h in got]
+        for i, ((_, shape, dt), h) in enumerate(zip(spec, leaves)):
+            if list(h.shape) != shape or np_dtype_name(h.dtype) != dt:
+                raise ValueError(
+                    f"handoff row leaf {i} is {np_dtype_name(h.dtype)}"
+                    f"{tuple(h.shape)} but this pool expects {dt}"
+                    f"{tuple(shape)} — prefill and decode replicas must "
+                    "share model config, max_len, prompt_pad and kv dtype")
+        plen = prefilled.get("prompt_len")
+        if plen is not None and int(plen) != len(prompt):
+            raise ValueError(
+                f"handoff was exported for a {plen}-token prompt but this "
+                f"request's prompt has {len(prompt)} tokens")
+        lr = as_tensor(prefilled.get("logits_row"))
+        if tuple(lr.shape) != (self.cfg.vocab_size,):
+            raise ValueError(f"handoff logits_row has shape "
+                             f"{tuple(lr.shape)}, expected "
+                             f"({self.cfg.vocab_size},)")
+        for (kk, _, _), h in zip(spec, leaves):
+            self._row[kk].copy_(h)
+        return lr.to(self.device)
+
+    # ------------------------------------------------------------------
+    # block migration over the radix store (JAX serving.py:2040-2276)
+
+    def _require_store(self):
+        if self._prefix_store is None:
+            raise ValueError(
+                "the KV tier needs the radix prefix store: construct with "
+                "kv='paged' (or paged_blocks>0) and prefix_cache>0")
+
+    def kvtier_fingerprint(self) -> dict:
+        """The block geometry both sides of a migration must share (JAX's
+        dict): one block's shape and dtype per pool leaf."""
+        self._require_store()
+        return {"family": type(self.family).__name__,
+                "vocab_size": int(self.cfg.vocab_size),
+                "block_len": int(self._block_len),
+                "leaves": {kk: [[leaf.shape[0]] + list(leaf.shape[2:]),
+                                np_dtype_name(leaf.dtype)]
+                           for kk, leaf in self.cache.items()
+                           if kk != "tables"}}
+
+    def _read_block(self, block_id: int) -> dict:
+        """One physical block's leaves, views of the pool."""
+        return PagedKV.read_block(self.cache, block_id)
+
+    @torch.no_grad()
+    def kvtier_export(self, tokens):
+        """The donor's half of a migration: the longest resident run of
+        full blocks matching `tokens`, copied off the pool — {"tokens",
+        "block_len", "leaves": {name: (L, n, H, bp[, D]) CPU tensors},
+        "logit_rows": {block index: (V,)}, "fingerprint"} for
+        kvtier/migrate.pack_blocks — or None when nothing is resident.
+        Worker thread only."""
+        self._require_store()
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        nodes = self._prefix_store.nodes_for(tokens)
+        if not nodes:
+            return None
+        blocks = [self._read_block(n.block) for n in nodes]
+        leaves = {kk: torch.stack([b[kk] for b in blocks], dim=1).cpu()
+                  for kk in blocks[0]}
+        return {"tokens": tokens[:len(nodes) * self._block_len],
+                "block_len": self._block_len, "leaves": leaves,
+                "logit_rows": {i: n.logit_row.float().cpu()
+                               for i, n in enumerate(nodes)
+                               if n.logit_row is not None},
+                "fingerprint": self.kvtier_fingerprint()}
+
+    def _alloc_evicting(self, n: int):
+        """n fresh blocks, evicting the prefix entries in LRU order while
+        the pool lacks them (entries must never starve admission; one
+        whose blocks live slots still share frees nothing — keep
+        evicting); InsufficientBlocks when eviction cannot make room."""
+        owned = self.allocator.alloc(n)
+        while owned is None and self._evictable_prefix():
+            self._evict_prefix_entry()
+            owned = self.allocator.alloc(n)
+        if owned is None:
+            raise InsufficientBlocks(
+                f"insufficient free cache blocks: need {n}, have "
+                f"{self.allocator.n_free} (pool {self.allocator.n_blocks}, "
+                f"block {self._block_len} pos)")
+        return owned
+
+    @torch.no_grad()
+    def kvtier_adopt(self, payload, *, origin: str = "adopted") -> int:
+        """The adopter's half: check a sibling's block run against this
+        pool's geometry, write its non-resident suffix into FRESH local
+        blocks (in place: nothing of the donor's is mapped, so a dying
+        donor cannot corrupt this pool), and insert the path into the
+        radix store with `origin`. Returns the blocks migrated (0 when
+        all were resident). Worker thread only."""
+        self._require_store()
+        mine = self.kvtier_fingerprint()
+        theirs = payload.get("fingerprint") or {}
+        if theirs and theirs != mine:
+            diff = {k: (theirs.get(k), mine.get(k))
+                    for k in set(theirs) | set(mine)
+                    if theirs.get(k) != mine.get(k)}
+            raise ValueError(
+                f"kvtier geometry mismatch (theirs, mine): {diff} — donor "
+                "and adopter must share model config, block_len and kv "
+                "dtype")
+        tokens = np.asarray(payload["tokens"], np.int32).reshape(-1)
+        bp = self._block_len
+        n_total = tokens.size // bp
+        if n_total == 0:
+            return 0
+        have = self._prefix_store.nodes_for(tokens)
+        n_have = len(have)
+        if n_have >= n_total:
+            return 0
+        n_missing = n_total - n_have
+        # ref the resident run BEFORE the eviction hunt, or it may evict
+        # those very nodes and recycle their blocks into `owned` (two trie
+        # paths over one block)
+        have_ids = [n.block for n in have]
+        if have_ids:
+            self.allocator.ref(have_ids)
+        owned = []
+        try:
+            owned = self._alloc_evicting(n_missing)
+            vals = {kk: as_tensor(v)[:, n_have:n_total].to(self.device)
+                    for kk, v in payload["leaves"].items()}
+            for j, dst in enumerate(owned):
+                PagedKV.write_block(self.cache,
+                                    {kk: v[:, j] for kk, v in vals.items()},
+                                    dst)
+            lrs = {int(i): as_tensor(r).to(self.device)
+                   for i, r in (payload.get("logit_rows") or {}).items()}
+            self._prefix_store.insert(tokens[:n_total * bp],
+                                      have_ids + owned, logit_rows=lrs,
+                                      origin=origin)
+        finally:
+            # the store holds its own reference per inserted node; ours
+            # go, freeing exactly the blocks that did not make it in
+            self.allocator.free(owned + have_ids)
+        return n_missing
+
+    @torch.no_grad()
+    def stage_prefix(self, prompt) -> dict:
+        """Prefill `prompt`'s full blocks STRAIGHT INTO the radix store
+        (no slot, no sampling, no request's table): the prefill half of
+        block migration, and a warm-up hook. Resumes at the first
+        non-resident block like an admission; a wholly resident prompt
+        runs nothing. Returns {"covered_blocks", "staged_blocks",
+        "computed_chunks"}. Worker thread only."""
+        self._require_store()
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        bp, p_pad = self._block_len, self.prompt_pad
+        n_cover = prompt.size // bp
+        stats = {"covered_blocks": n_cover, "staged_blocks": 0,
+                 "computed_chunks": 0}
+        if n_cover == 0:
+            return stats
+        nodes = self._prefix_store.nodes_for(prompt[:n_cover * bp])
+        n_shared = len(nodes)
+        if n_shared >= n_cover:
+            return stats
+        shared_ids = [n.block for n in nodes]
+        if shared_ids:
+            self.allocator.ref(shared_ids)
+        owned = []
+        try:
+            owned = self._alloc_evicting(n_cover - n_shared)
+            ids_row = np.zeros((self.cache["tables"].shape[-1],), np.int32)
+            ids_row[:n_cover] = shared_ids + owned
+            end, resume = n_cover * bp, n_shared * bp
+            if resume + -(-(end - resume) // p_pad) * p_pad > self._row_len:
+                resume = (resume // p_pad) * p_pad
+            if resume:
+                self._codec.gather_row(self.cache, self._row,
+                                       self._upload(ids_row, torch.int32))
+            n_k = -(-(end - resume) // p_pad)
+            padded = np.zeros((1, n_k * p_pad), np.int64)
+            padded[0, :end - resume] = prompt[resume:end]
+            padded_d = self._upload(padded, torch.int64)
+            boundary = {}
+            for i in range(n_k):
+                start = resume + i * p_pad
+                logits = self.family.prefill(
+                    self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
+                    self._row, start)
+                self.prefill_chunks_run += 1
+                for b in range(start // bp, n_cover):
+                    pos = (b + 1) * bp - 1
+                    if pos >= start + p_pad:
+                        break
+                    if pos >= start:
+                        boundary[b] = logits[0, pos - start].clone()
+            inst = ids_row.copy()
+            inst[:n_shared] = 0  # the resident blocks are not rewritten
+            self._codec.install_row(self.cache, self._row,
+                                    self._upload(inst, torch.int32))
+            self._prefix_store.insert(prompt[:end],
+                                      [int(x) for x in ids_row[:n_cover]],
+                                      logit_rows=boundary)
+            stats.update(staged_blocks=n_cover - n_shared,
+                         computed_chunks=n_k)
+            return stats
+        finally:
+            # transient references only: the store refs what it keeps
+            self.allocator.free(shared_ids + owned)
 
     # ------------------------------------------------------------------
     # constrained decoding: the device pools' bookkeeping (JAX

@@ -324,7 +324,10 @@ def test_serve_lm_serves_the_config_dtype(tmp_path, monkeypatch):
     seen = {}
 
     async def fake_serve_lm(cfg, prepared, *, port, tokenizer=None,
-                            **batcher_kwargs):
+                            role=None, kv_handoff_ttl_s=None,
+                            kv_lease_ttl_s=None, **batcher_kwargs):
+        # the LMServer's own arguments (the KV handoff's role and TTLs)
+        # stay out of the batcher's, as serve_lm's LMServer keeps them
         b = ContinuousBatcher(cfg, prepared, **batcher_kwargs)
         seen["batcher"] = b
         rid = b.submit(prompt, 10)

@@ -30,6 +30,9 @@ from dnn_tpu_torch.io import checkpoint as ckpt
 from dnn_tpu_torch.registry import get_model
 from dnn_tpu_torch.runtime.engine import PipelineEngine
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -41,6 +41,16 @@ def _prompts():
     return [rng.integers(0, CFG.vocab_size, n).tolist() for n in (5, 20, 37)]
 
 
+@pytest.fixture(scope="module")
+def cache_refs(prepared):
+    """reference_greedy_cache of each prompt and cache type, computed once
+    for the module: the paged and dense batchers and make_generate are
+    held to the same loops."""
+    return {(dt, i): chip_smoke.reference_greedy_cache(prepared, CFG, p,
+                                                       N_NEW, "cpu", dt)
+            for dt in ("bf16", "int8") for i, p in enumerate(_prompts())}
+
+
 def _agree(got, want, gaps):
     assert len(got) == len(want)
     for j, (a, b) in enumerate(zip(got, want)):
@@ -51,29 +61,28 @@ def _agree(got, want, gaps):
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 @pytest.mark.parametrize("kv", ["paged", "dense"])
-def test_cache_reference_matches_the_batcher(prepared, kv, kv_dtype):
+def test_cache_reference_matches_the_batcher(prepared, cache_refs, kv,
+                                            kv_dtype):
     prompts = _prompts()
     b = ContinuousBatcher(CFG, prepared, slots=3, max_len=64, prompt_pad=16,
                           block_len=8, device="cpu", kv=kv, kv_dtype=kv_dtype)
     assert b.paged == (kv == "paged")
     rids = [b.submit(p, N_NEW) for p in prompts]
     res = b.drain()
-    for rid, p in zip(rids, prompts):
-        want, gaps = chip_smoke.reference_greedy_cache(
-            prepared, CFG, p, N_NEW, "cpu", kv_dtype)
+    for i, rid in enumerate(rids):
+        want, gaps = cache_refs[kv_dtype, i]
         assert len(set(want)) > 1  # varied tokens: the check means something
         _agree(np.asarray(res[rid]).tolist(), want, gaps)
 
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-def test_cache_reference_matches_make_generate(prepared, kv_dtype):
+def test_cache_reference_matches_make_generate(prepared, cache_refs,
+                                               kv_dtype):
     prompt = _prompts()[2]
     gen = make_generate(CFG, max_new_tokens=N_NEW, kv_dtype=kv_dtype,
                         device="cpu")
     got = gen(prepared, [prompt])[0].tolist()
-    want, gaps = chip_smoke.reference_greedy_cache(prepared, CFG, prompt,
-                                                   N_NEW, "cpu", kv_dtype)
-    _agree(got, want, gaps)
+    _agree(got, *cache_refs[kv_dtype, 2])
 
 
 def test_cache_reference_refuses_other_types(prepared):
@@ -304,8 +313,11 @@ def test_relay_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert "each result equals the relay engine's bit for bit" in out
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
+    """Every test of this module on one intra-op thread: the models are
+    tiny, and under the suite's parallel workers torch's default threads
+    made them several times slower."""
     import torch
 
     n = torch.get_num_threads()
@@ -513,3 +525,51 @@ def test_item_4d_phases_rehearsed_on_the_cpu(capsys, one_torch_thread):
     for tag in ("quant", "lora", "beam", "embed"):
         assert f"[{tag}] phase wall" in out
     assert set(chip_smoke.CACHE_KERNELS) <= set(counts)
+
+
+def test_item_4e_phases_rehearsed_on_the_cpu(capsys, one_torch_thread):
+    """chip_smoke's [handoff] and [kvtier] phases on the CPU with a 2-layer
+    model of block_size 1024 (run A's pool) and vocab 512: every handoff
+    leg's adopted streams against the references and equal to the decode
+    daemon's own prefill, no prompt chunk on the decode daemon; the
+    adopted prefix's follow-up running one chunk, equal to the donor's
+    stream, the grpc rung forced, a donor stopped mid-pull answering
+    kvtier_fallback with the adopter's blocks unchanged. Every check
+    applies except the launch counts (a CPU call launches no kernel) and
+    the f32 row's refusal (this model's row fits the wire)."""
+    import torch
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=2,
+                         n_head=2, n_embd=32)
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return t * np.float32(8.0) if t.ndim >= 2 else t
+    prepared = from_jax_params(scaled(tgpt.init(1, cfg)), cfg, "cpu")
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    refs = {"f32": [chip_smoke.reference_greedy(prepared, cfg, p, 16, dev)
+                    for p in prompts]}
+    for dt in ("bf16", "int8"):
+        refs[dt] = [chip_smoke.reference_greedy_cache(prepared, cfg, p, 16,
+                                                      dev, dt, chunk=64)
+                    for p in prompts]
+    counts = chip_smoke.phase_item_4e(cfg, prepared, prompts, refs, dev,
+                                      "cpu")
+    out = capsys.readouterr().out
+    for label, _, _, _, _ in chip_smoke.HANDOFF_LEGS:
+        assert f"[handoff] {label} (" in out, out
+        for i, n in enumerate((5, 70, 130, 300)):
+            assert f"[handoff] {label} request {i} (prompt {n}): " in out
+    assert "every adopted stream equal to the reference" in out
+    assert "[handoff] library: pack" in out
+    assert "kvstage" in out and "the stream equals the donor's" in out
+    assert "[kvtier] adopted over grpc, prompt 130" in out
+    assert "[kvtier] donor stopped between kvlease and the fetch: " \
+        "[lm] kvtier_fallback" in out
+    for tag in ("handoff", "kvtier"):
+        assert f"[{tag}] phase wall" in out
+    assert set(counts) == set(chip_smoke.CACHE_KERNELS)

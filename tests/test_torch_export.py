@@ -19,6 +19,9 @@ from dnn_tpu.io.torch_export import (
     save_pth,
 )
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 torch = pytest.importorskip("torch")
 
 

@@ -17,6 +17,9 @@ from dnn_tpu_torch.convert import from_jax_params, load_npz
 from dnn_tpu_torch.models import gpt as tgpt
 from dnn_tpu_torch.runtime import generate as tgen
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 ATOL = 1e-4
 CFG_J = jgpt.PRESETS["gpt2-test"]
 CFG_T = tgpt.PRESETS["gpt2-test"]

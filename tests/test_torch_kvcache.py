@@ -22,6 +22,9 @@ from dnn_tpu_torch.runtime import decode_buckets as tdb
 from dnn_tpu_torch.runtime import kvcache as tkv
 from dnn_tpu_torch.runtime import paged_kvcache as tpk
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 ATOL = 1e-5
 CFG = types.SimpleNamespace(n_layer=2, n_head=2, n_embd=64)  # D = 32
 

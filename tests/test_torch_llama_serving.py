@@ -306,7 +306,10 @@ def test_llama_bf16_phase_rehearsed_on_the_cpu(capsys):
     [llama] rehearsal in bf16 compute: the weights prepared with their
     matmul weights in bf16, the daemon's four streams each equal to the
     plain bf16-compute loop up to BF16_TIE, and the teacher-forced run
-    emitting the loop's tokens."""
+    emitting the loop's tokens; LH (the four prompts exported by one
+    batcher and adopted by another through pack/unpack) and LK (the
+    300-token prompt's blocks pulled between two daemons), each stream
+    against the same loop."""
     import chip_smoke
 
     cfg = tllama.LlamaConfig(block_size=1024, vocab_size=512, n_layer=2,
@@ -319,5 +322,8 @@ def test_llama_bf16_phase_rehearsed_on_the_cpu(capsys):
     for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
         assert f"[main] run L-B request {i} (prompt {n}): " in out, out
         assert f"[llama] L-B teacher-forced, prompt {n}: " in out, out
+        assert f"[handoff] LH request {i} (prompt {n}): " in out, out
+    assert "[kvtier] LK adopted prefix, prompt 300: " in out, out
+    assert "[kvtier] LK llama3-8b bf16: kvstage " in out, out
     assert set(forced) == {"served", "loop"}
     assert set(counts) == set(chip_smoke.CACHE_KERNELS)

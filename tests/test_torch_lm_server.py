@@ -25,6 +25,9 @@ from dnn_tpu_torch.runtime.lm_server import (
     start_lm_server_in_background,
 )
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 CFG_J = jgpt.PRESETS["gpt2-test"]
 CFG_T = tgpt.PRESETS["gpt2-test"]
 POOL = dict(slots=3, max_len=64, prompt_pad=16, block_len=8)
@@ -103,10 +106,10 @@ def test_generate_stream_matches(served):
 
 
 def test_bad_requests_get_grpc_errors(served):
-    """Out-of-vocab prompt -> INVALID_ARGUMENT; an endpoint this port
-    does not serve (the KV handoff's prefill export) -> UNIMPLEMENTED
-    (a LoRA adapter, a=, is served now: tests/test_torch_serving_lora.py);
-    the server lives on."""
+    """Out-of-vocab prompt -> INVALID_ARGUMENT; an option this port does
+    not serve (the JAX daemon's dedup key, d=: ROADMAP item 4 e's second
+    half) -> UNIMPLEMENTED (the KV handoff's prefill export, once here,
+    is served: tests/test_torch_handoff.py); the server lives on."""
     addr, want = served
     jc = JaxClient(addr, breaker=False)
     with pytest.raises(grpc.RpcError) as e:
@@ -114,8 +117,9 @@ def test_bad_requests_get_grpc_errors(served):
                     timeout=30)
     assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
     with pytest.raises(grpc.RpcError) as e:
-        jc.send_tensor(PROMPTS[0], request_id="prefill", timeout=30)
+        jc.generate(PROMPTS[0], max_new_tokens=2, dedup="k1", timeout=30)
     assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert "item 4 e, second half" in e.value.details()
     np.testing.assert_array_equal(
         jc.generate(PROMPTS[0], max_new_tokens=N_NEW, timeout=60), want[0])
     jc.close()

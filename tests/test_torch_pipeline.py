@@ -33,6 +33,9 @@ from dnn_tpu_torch.parallel.pipeline import (
 from dnn_tpu_torch.registry import available_models, get_model
 from dnn_tpu_torch.runtime.engine import PipelineEngine
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "configs").glob("*.json"))
 F32_TOL = 1e-5

@@ -27,6 +27,9 @@ from dnn_tpu_torch.io.torch_export import (
 from dnn_tpu_torch.models import gpt as tgpt
 from dnn_tpu_torch.registry import get_model
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 SHAPE = dict(block_size=32, vocab_size=96, n_layer=3, n_head=2, n_embd=16)
 
 

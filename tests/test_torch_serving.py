@@ -26,6 +26,9 @@ from dnn_tpu_torch.runtime.paged_kvcache import (
 )
 from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 CFG_J = jgpt.PRESETS["gpt2-test"]
 CFG_T = tgpt.PRESETS["gpt2-test"]
 POOL = dict(slots=3, max_len=64, prompt_pad=16, block_len=8)
@@ -218,15 +221,18 @@ def test_out_of_scope_options_raise(weights, kwargs):
 
 
 # json_depth (once opt2) is no batcher option: the daemon turns j= into
-# a constraint (tests/test_torch_constrain.py); that place holds the KV
-# handoff's handle, still out of scope. adapter (once opt1) is served now
-# (tests/test_torch_serving_lora.py); that place holds an empty KV handle
-@pytest.mark.parametrize("opt", [{"prefilled": {"row": []}},
-                                 {"kv_handle": ""}, {"kv_handle": "h"}])
-def test_out_of_scope_request_options_raise(weights, opt):
+# a constraint (tests/test_torch_constrain.py). adapter (once opt1) is
+# served (tests/test_torch_serving_lora.py). The KV handoff is served
+# too (tests/test_torch_handoff.py): an empty prefilled= row is a
+# malformed payload, and kv_handle is no batcher argument (the daemon
+# resolves h= into prefilled=), as in JAX's batcher
+@pytest.mark.parametrize("opt,exc", [({"prefilled": {"row": []}}, ValueError),
+                                     ({"kv_handle": ""}, TypeError),
+                                     ({"kv_handle": "h"}, TypeError)])
+def test_out_of_scope_request_options_raise(weights, opt, exc):
     _, tprep = weights
     b = ContinuousBatcher(CFG_T, tprep, device="cpu", **POOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match="leaves|unexpected arguments"):
         b.submit(_prompt(0, 5), 3, **opt)
     assert b.free_slots() == 3 and b.allocator.n_used == 0
 

@@ -46,6 +46,9 @@ from dnn_tpu_torch.io.preprocess import dummy_image
 from dnn_tpu_torch.registry import get_model
 from dnn_tpu_torch.runtime.engine import PipelineEngine
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 F32_TOL = 1e-5
 BF16_REL = 2e-2

@@ -32,6 +32,9 @@ from dnn_tpu_torch.io.tokenizer import ByteTokenizer
 from dnn_tpu_torch.models import gpt as tgpt
 from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPE = dict(block_size=64, vocab_size=300, n_layer=2, n_head=2, n_embd=32)
 CFG_J, CFG_T = jgpt.GPTConfig(**SHAPE), tgpt.GPTConfig(**SHAPE)

@@ -30,6 +30,9 @@ from dnn_tpu_torch.data.tokens import TokenDataset, write_tokens
 from dnn_tpu_torch.io import train_ckpt as tckpt
 from dnn_tpu_torch.models import gpt as tgpt
 
+from test_torch_llama import one_torch_thread  # noqa: F401,E402 — autouse:
+# one intra-op thread; the suite's parallel workers oversubscribe the cores
+
 CFG_J = jgpt.PRESETS["gpt2-test"]
 CFG_T = tgpt.PRESETS["gpt2-test"]
 LOGIT_ATOL = 1e-4
