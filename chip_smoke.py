@@ -16,7 +16,9 @@ gpt2 serves int8 and int4 weights and three LoRA adapters per request,
 runs beam search and the embedding endpoint, and llama3-8b serves int8
 weights in bf16 compute; prefill daemons hand gpt2's KV rows to decode
 daemons over the wire, and daemons pull a shared prefix's KV blocks from
-each other (llama3-8b too).
+each other (llama3-8b too); the daemon survives a worker death (a
+requeue), drains on /drainz and SIGTERM, joins dedup keys, exits 43 on
+a wedged watchdog and reports through /metrics.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -178,6 +180,46 @@ Phases (any failure exits non-zero and prints no result):
           stopped between kvlease and the fetch: kvtier_fallback, the
           adopter's blocks in use, high water, resident blocks and pool
           unchanged, its own prefill against the reference
+  5f. [resilience] ROADMAP item 4 e's second half on the same weights at
+     run A's settings (paged f32, 4 slots, max_len 1024, prompt_pad 64),
+     the daemons with their observability endpoint, every leg's K5
+     exactly 12 x the prompt chunks it ran and K7 12 x its decode steps,
+     no recapture, every stream against the reference:
+       (h) the watchdog's device probe (a child process: import torch,
+          then a 64x64 matmul on the card and a synchronize under the
+          deadline) answers ok, its wall
+       obs on/off: a replayed decode step's launches and captures equal
+          with DNN_TPU_OBS on and off, its wall printed for both
+       (a) a step fault mid-decode (a chaos plan): /debugz shows
+          worker_died then worker_restart, the four unary streams equal
+          run A's, K5 counts every requeued prompt's chunks twice, the
+          successor's first replay bit-equal to its eager step; the
+          restart's wall
+       (c) on the successor: two concurrent SendTensors sharing a d= key
+          get identical replies from one admission; a dl=0.2 request
+          answers DEADLINE_EXCEEDED and its slot is cancelled
+       (b) worker_restarts=0: every caller fails fast with "worker died"
+       (d) kv_exhaust at admission over a 30-block pool with an 8-block
+          radix store: held_back, pool_exhausted and prefix_evict
+          events, the streams equal to the reference
+       (e) 2 slots, 4 requests, POST /drainz: the 2 in flight finish,
+          the 2 queued get UNAVAILABLE "draining"; meanwhile /statusz
+          says draining, /healthz answers 503 and a new request is
+          refused at preflight
+       (i) a kvpull between two daemons at G's settings adopts 18
+          blocks; the kv_migrate seam severs the next: kvtier_fallback,
+          dnn_tpu_kvtier_fallback_total +1, the next generate prefills
+       (j) a daemon at max_len 512: a handoff swept by its TTL
+          (kvput_expired) and one adopted; GET /metrics holds every
+          series of RES_METRICS (JAX's names), and the card's memory gauges
+       (f) SIGTERM to a `node --serve_lm` process during a
+          GenerateStream: the stream completes, exit code 0
+       (g) a `node --serve_lm --watchdog_s 30 --on_wedged restart
+          --chaos <wedge_device plan>` process: /statusz reads ok, then
+          wedged with the plan's detail (not a probe's timeout), and the
+          exit code is 43
+     (the two processes' launches on one 300-token request exact, read
+     from their /metrics)
   6. information: a torch.profiler view of a decode step and of one
      prompt's admission on each pool A-D (wall, device busy, top
      kernels, K6/K7's share of the step's device busy, K5's share of the
@@ -2921,6 +2963,840 @@ def phase_item_4e(cfg, prepared, prompts, refs, dev, card):
             for name in CACHE_KERNELS}
 
 
+# [resilience]: ROADMAP item 4 e's second half on the main path's gpt2 —
+# the LM daemon's resilience seams and the /metrics they report through
+RES_WEDGE_PERIOD = 30.0   # (g)'s --watchdog_s: one real probe round of
+# the card before the wedge window, the next one inside it
+RES_WEDGE_AT_S = 40.0     # (g)'s wedge window opens this long after its
+# plan is installed: after the child serves and its first probe round
+RES_WEDGE_STREAM = 900   # (g): tokens a stream, so one is in flight
+RES_STEP_FAULT_AT = 8     # (a)/(b): the pool step the fault fires at
+# (all four requests are admitted by then; each needs 15 decode steps)
+RES_METRICS = (           # the serving path's series (JAX's names), as
+    # /metrics renders them
+    "serving_queue_depth", "serving_ttft_seconds",
+    "serving_queue_wait_seconds", "serving_requests_total",
+    "serving_prefill_chunks_total", "serving_deadline_exceeded_total",
+    "serving_pool_exhausted_total", "serving_prefix_evictions_total",
+    "serving_kv_adoptions_total", "serving_kvtier_blocks_adopted_total",
+    "serving_kvput_expired_total", "dnn_tpu_kvtier_migrated_blocks_total",
+    "dnn_tpu_kvtier_migrated_bytes_total", "dnn_tpu_kvtier_fallback_total",
+    "dnn_tpu_replica_role")
+
+
+def http(url, method="GET", timeout=10.0):
+    """(status, body) of one HTTP request; an HTTP error's status too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def res_daemon(start, cfg, prepared, dev, slots=4, max_len=1024, **kv):
+    """A daemon at run A's settings (paged f32 unless `kv` says otherwise,
+    prompt_pad 64, blocks of 16) with its observability endpoint, warmed
+    up (its decode step captured): (address, client, servicer, stop,
+    the endpoint's base URL)."""
+    from dnn_tpu_torch.comm.client import NodeClient
+
+    port = free_port()
+    kv = {"kv": "paged", **kv}
+    stop = start(cfg, prepared, port=port, slots=slots, max_len=max_len,
+                 prompt_pad=64, block_len=16, seed=0, device=dev,
+                 metrics_port=0, **kv)
+    client = NodeClient(f"127.0.0.1:{port}")
+    if not client.wait_healthy(deadline=60):
+        fail("[resilience] an LM daemon never became healthy")
+    client.generate([1, 2, 3], max_new_tokens=2, timeout=300)  # warm-up
+    srv = stop.servicer
+    return (f"127.0.0.1:{port}", client, srv, stop,
+            f"http://127.0.0.1:{srv.metrics_server.port}")
+
+
+def events_since(base, seq0):
+    """The daemon's flight events (GET /debugz?format=json) after seq0."""
+    code, body = http(base + "/debugz?format=json")
+    if code != 200:
+        fail(f"[resilience] /debugz answered {code}")
+    return [e for e in json.loads(body) if e["seq"] > seq0]
+
+
+def last_seq():
+    from dnn_tpu_torch import obs
+
+    ev = obs.flight.recorder().events(last=1)
+    return ev[-1]["seq"] if ev else 0
+
+
+def concurrent(fn, n):
+    """fn(i) for i < n on n threads: ({i: result}, {i: exception})."""
+    out, errs = {}, {}
+
+    def run(i):
+        try:
+            out[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 — the caller judges it
+            errs[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, errs
+
+
+class Leg:
+    """One leg's accounting: the launch counts zeroed, the decode steps,
+    prompt chunks and captures of `batcher` counted from here; `check`
+    requires K5 = layers x chunks and the decode kernel = layers x steps
+    (plus `extra_decode` launches made outside the steps) exactly, no
+    recapture, and adds the launches into `total`."""
+
+    def __init__(self, tag, batcher, total, L):
+        self.tag, self.b, self.total, self.L = tag, batcher, total, L
+        self.steps = counting_steps(batcher)
+        graph = batcher._graph_step
+        self.caps0 = graph.captures if graph is not None else 0
+        self.chunks0 = batcher.prefill_chunks_run
+        self.seq0 = last_seq()
+        reset_counts()
+
+    def chunks(self):
+        return self.b.prefill_chunks_run - self.chunks0
+
+    def check(self, dev, extra_decode=0, dt="f32"):
+        counts = read_counts()
+        graph = self.b._graph_step
+        caps = (graph.captures if graph is not None else 0) - self.caps0
+        decode = ("paged_decode_attention" if self.b.paged
+                  else "decode_attention")
+        require_launches(f"[resilience] {self.tag}", dev, counts, {
+            ("cached_attention", dt): self.L * self.chunks(),
+            (decode, dt): self.L * (self.steps[0] + extra_decode)})
+        if caps:
+            fail(f"[resilience] {self.tag}: the decode step was captured "
+                 f"{caps} more times")
+        add_into(self.total, counts)
+        return counts
+
+
+def res_compare(tag, results, prompts, refs):
+    for i, toks in sorted(results.items()):
+        compare_tokens(f"[resilience] {tag} request {i} (prompt "
+                       f"{len(prompts[i])})", list(toks), *refs[i])
+
+
+def leg_requeue(start, cfg, prepared, prompts, refs, a_streams, dev, card,
+                total):
+    """(a) a step fault mid-decode: the worker dies, a successor requeues
+    the four unary requests, each equal to the reference and to run A's
+    stream; /debugz shows worker_died then worker_restart; K5 counts the
+    requeued prompts' chunks twice; the successor's first replay equals
+    its eager step bit for bit. (c) on the successor: a dedup key shared
+    by two concurrent SendTensors (identical replies, one prompt's
+    chunks), and a request whose propagated deadline (dl=) passes
+    (DEADLINE_EXCEEDED, serving.deadline_exceeded_total). Returns the
+    daemon's stop."""
+    from dnn_tpu_torch import chaos
+    from dnn_tpu_torch.comm import wirecodec as wc
+    from dnn_tpu_torch.comm.service import SERVICE_NAME, _tensor_msg
+
+    import grpc
+
+    addr, client, srv, stop, base = res_daemon(start, cfg, prepared, dev)
+    b, L = srv.batcher, cfg.n_layer
+    first_worker = srv.worker
+    graph = b._graph_step
+    bit = {}
+    if graph is not None:
+        orig_run = graph.run
+
+        def checked_run(kind, fn, key):
+            # the successor's first replay against its eager step on the
+            # same static buffers (the eager step rewrites the same K/V)
+            replays0 = graph.counts.get(kind, [0, 0])[1]
+            out = orig_run(kind, fn, key)
+            if (not bit and kind == "decode"
+                    and threading.current_thread() is not first_worker
+                    and graph.counts[kind][1] > replays0):
+                replayed = out.clone()
+                eager = fn()
+                torch.cuda.synchronize()
+                bit["equal"] = torch.equal(replayed, eager)
+                bit["diff"] = (replayed - eager).abs().max().item()
+            return out
+
+        graph.run = checked_run
+    leg = Leg("(a) requeue", b, total, L)
+    chaos.install({"seed": 0, "faults": [{"kind": "step_fault",
+                                          "at_n": RES_STEP_FAULT_AT}]})
+    t0 = time.perf_counter()
+    try:
+        results, errs = concurrent(lambda i: client.generate(
+            prompts[i], max_new_tokens=16, timeout=300).tolist(), 4)
+    finally:
+        chaos.uninstall()
+    wall = time.perf_counter() - t0
+    if errs:
+        fail(f"[resilience] (a): requests failed across the restart: {errs}")
+    ev = events_since(base, leg.seq0)
+    kinds = [e["kind"] for e in ev]
+    if "worker_died" not in kinds or "worker_restart" not in kinds or \
+            kinds.index("worker_died") > kinds.index("worker_restart"):
+        fail(f"[resilience] (a): /debugz shows {kinds}, not worker_died "
+             "then worker_restart")
+    died = ev[kinds.index("worker_died")]
+    restart = ev[kinds.index("worker_restart")]
+    admits = [e for e in ev if e["kind"] == "admit"]
+    again = [e for e in admits if e["seq"] > died["seq"]]
+    want_chunks = sum(-(-e["prompt_len"] // 64) for e in admits)
+    if restart["requeued"] != 4 or len(again) != 4 or \
+            leg.chunks() != want_chunks:
+        fail(f"[resilience] (a): {restart['requeued']} requeued, "
+             f"{len(again)} admitted again, {leg.chunks()} chunks run "
+             f"against {want_chunks} admitted")
+    if graph is not None and not bit.get("equal"):
+        fail(f"[resilience] (a): the successor's first replay differs from "
+             f"its eager step by {bit.get('diff')}")
+    leg.check(dev, extra_decode=1 if graph is not None else 0)
+    res_compare("(a)", results, prompts, refs)
+    if [results[i] for i in range(4)] != a_streams:
+        fail("[resilience] (a): the requeued streams differ from run A's")
+    print(f"[resilience] (a) requeue: step fault at pool step "
+          f"{RES_STEP_FAULT_AT}, {restart['requeued']} requeued, "
+          f"{len(admits)} admissions, {leg.chunks()} prompt chunks (each "
+          f"prompt's chunks twice), {leg.steps[0]} decode "
+          f"steps; restart wall (worker_died -> worker_restart) "
+          f"{(restart['ts'] - died['ts']) * 1e3:.2f} ms, to the first "
+          f"requeued admission {(again[0]['ts'] - died['ts']) * 1e3:.2f} "
+          f"ms; the 4 requests' wall {wall:.3f} s; "
+          + ("the successor's first replay equals its eager step bit for "
+             "bit; " if graph is not None else "")
+          + f"every stream equals run A's; on {card}", flush=True)
+    if graph is not None:
+        graph.run = orig_run
+    # (c) dedup on the successor
+    leg = Leg("(c) dedup", b, total, L)
+    results, errs = concurrent(lambda i: client.generate(
+        prompts[2], max_new_tokens=16, dedup="res-c", timeout=300).tolist(),
+        2)
+    ev = events_since(base, leg.seq0)
+    kinds = [e["kind"] for e in ev]
+    if errs or results[0] != results[1] or kinds.count("admit") != 1 \
+            or kinds.count("dedup_join") != 1 or leg.chunks() != 3:
+        fail(f"[resilience] (c): errors {errs}, replies equal "
+             f"{results.get(0) == results.get(1)}, events {kinds}, "
+             f"{leg.chunks()} chunks")
+    leg.check(dev)
+    compare_tokens("[resilience] (c) dedup", results[0], *refs[2])
+    print(f"[resilience] (c) dedup: two concurrent SendTensors with d=res-c "
+          f"got identical replies from one admission (3 prompt chunks, "
+          f"{leg.steps[0]} decode steps), one dedup_join; on {card}",
+          flush=True)
+    # (c) a propagated deadline that passes mid-generation
+    leg = Leg("(c) deadline", b, total, L)
+    call = client._channel.unary_unary(
+        f"/{SERVICE_NAME}/SendTensor", request_serializer=wc.serialize_request,
+        response_deserializer=wc.parse_response)
+    try:
+        call(wc.TensorRequest(request_id="gen:1000:dl=0.2", tensor=_tensor_msg(
+            np.asarray(prompts[0], np.int32))), timeout=60)
+        fail("[resilience] (c): a request past its deadline was answered")
+    except grpc.RpcError as e:
+        if e.code() != grpc.StatusCode.DEADLINE_EXCEEDED:
+            fail(f"[resilience] (c): the deadline answered {e.code()}")
+    t_end = time.monotonic() + 60
+    while (b.n_active or not srv.worker.q.empty()) and \
+            time.monotonic() < t_end:
+        time.sleep(0.01)  # the slot retires at the next step boundary
+    ev = events_since(base, leg.seq0)
+    misses = [e for e in ev if e["kind"] == "deadline_miss"]
+    retired = [e["reason"] for e in ev if e["kind"] == "retire"]
+    admitted = [e for e in ev if e["kind"] == "admit"]
+    # admitted before its deadline passed, it retires cancelled; still
+    # queued, it is dropped at admission
+    if len(misses) != 1 or retired != ["cancelled"] * len(admitted):
+        fail(f"[resilience] (c): events {[e['kind'] for e in ev]}")
+    leg.check(dev)
+    print(f"[resilience] (c) a dl=0.2 request: DEADLINE_EXCEEDED after "
+          f"{leg.steps[0]} decode steps, "
+          + ("its slot cancelled (deadline_miss, retire cancelled)"
+             if admitted else "dropped before admission (deadline_miss)")
+          + f"; on {card}", flush=True)
+    client.close()
+    return stop
+
+
+def leg_budget(start, cfg, prepared, prompts, dev, card, total):
+    """(b) worker_restarts=0: the step fault fails every caller fast with
+    "worker died"; no requeue."""
+    from dnn_tpu_torch import chaos
+
+    import grpc
+
+    addr, client, srv, stop, base = res_daemon(start, cfg, prepared, dev,
+                                               worker_restarts=0)
+    try:
+        leg = Leg("(b) budget", srv.batcher, total, cfg.n_layer)
+        chaos.install({"seed": 0, "faults": [{"kind": "step_fault",
+                                              "at_n": RES_STEP_FAULT_AT}]})
+        t0 = time.perf_counter()
+        try:
+            results, errs = concurrent(lambda i: client.generate(
+                prompts[i], max_new_tokens=16, timeout=300), 4)
+        finally:
+            chaos.uninstall()
+        wall = time.perf_counter() - t0
+        bad = {i: e for i, e in errs.items()
+               if not (isinstance(e, grpc.RpcError)
+                       and e.code() == grpc.StatusCode.UNAVAILABLE
+                       and "worker died" in e.details())}
+        if results or bad or len(errs) != 4:
+            fail(f"[resilience] (b): answers {results}, errors {errs}")
+        ev = events_since(base, leg.seq0)
+        died = [e for e in ev if e["kind"] == "worker_died"]
+        if len(died) != 1 or died[0]["requeue"] or any(
+                e["kind"].startswith("worker_restart") for e in ev):
+            fail(f"[resilience] (b): events {[e['kind'] for e in ev]}")
+        if leg.steps[0] != RES_STEP_FAULT_AT:
+            fail(f"[resilience] (b): {leg.steps[0]} steps before the fault")
+        leg.check(dev)
+        print(f"[resilience] (b) worker_restarts=0: all 4 callers failed "
+              f"fast with UNAVAILABLE \"{errs[0].details()[:60]}\" in "
+              f"{wall:.3f} s after {leg.steps[0]} decode steps and "
+              f"{leg.chunks()} prompt chunks; on {card}", flush=True)
+    finally:
+        client.close()
+        stop()
+
+
+def leg_exhaust(start, cfg, prepared, prompts, refs, dev, card, total):
+    """(d) kv_exhaust at admission, over a pool the four prompts do not
+    fit (30 blocks: 29 allocatable against their 38) with a radix store
+    of 8 blocks: held_back events, a real exhaustion (pool_exhausted)
+    and store evictions, every stream equal to the reference."""
+    from dnn_tpu_torch import chaos
+
+    addr, client, srv, stop, base = res_daemon(
+        start, cfg, prepared, dev, paged_blocks=30, prefix_cache=8)
+    try:
+        leg = Leg("(d) kv_exhaust", srv.batcher, total, cfg.n_layer)
+        chaos.install({"seed": 0, "faults": [{"kind": "kv_exhaust",
+                                              "from_n": 1, "count": 2}]})
+        try:
+            results, errs = concurrent(lambda i: client.generate(
+                prompts[i], max_new_tokens=16, timeout=300).tolist(), 4)
+        finally:
+            chaos.uninstall()
+        if errs:
+            fail(f"[resilience] (d): {errs}")
+        ev = events_since(base, leg.seq0)
+        kinds = [e["kind"] for e in ev]
+        inj = [e for e in ev if e["kind"] == "chaos_inject"
+               and e.get("fault") == "kv_exhaust"]
+        if len(inj) != 2 or "held_back" not in kinds or \
+                "pool_exhausted" not in kinds or leg.chunks() != 11:
+            fail(f"[resilience] (d): events {kinds}, {leg.chunks()} chunks")
+        leg.check(dev)
+        res_compare("(d)", results, prompts, refs)
+        print(f"[resilience] (d) kv_exhaust: {kinds.count('held_back')} "
+              f"held_back, {kinds.count('pool_exhausted')} pool_exhausted, "
+              f"{kinds.count('prefix_evict')} prefix_evict events; 11 "
+              f"prompt chunks, {leg.steps[0]} decode steps; every stream "
+              f"equals the reference; on {card}", flush=True)
+    finally:
+        client.close()
+        stop()
+
+
+def leg_drain(start, cfg, prepared, prompts, refs, dev, card, total):
+    """(e) 2 slots, 4 requests, then POST /drainz: the 2 in flight finish
+    equal to the reference, the 2 queued get UNAVAILABLE "draining";
+    meanwhile /statusz says draining, /healthz answers 503 and a new
+    request is refused at preflight."""
+    import grpc
+
+    addr, client, srv, stop, base = res_daemon(start, cfg, prepared, dev,
+                                               slots=2)
+    b = srv.batcher
+    checked = threading.Event()
+
+    def hold():
+        # with both slots busy the loop waits here until the checks are
+        # done: the two queued stay queued, the two admitted stay in
+        # flight
+        t_end = time.monotonic() + 60
+        while b.n_active == 2 and not checked.is_set() \
+                and time.monotonic() < t_end:
+            time.sleep(0.002)
+
+    try:
+        leg = Leg("(e) drain", b, total, cfg.n_layer)
+        srv.worker.heartbeat = hold
+        box = {}
+
+        def run_four():
+            box["out"], box["errs"] = concurrent(lambda i: client.generate(
+                prompts[i], max_new_tokens=16, timeout=300).tolist(), 4)
+
+        runner = threading.Thread(target=run_four)
+        runner.start()
+        t_end = time.monotonic() + 60
+        while not (b.n_active == 2 and srv.worker.q.qsize() >= 2) and \
+                time.monotonic() < t_end:
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        code, body = http(base + "/drainz", "POST")
+        state = json.loads(http(base + "/statusz")[1])["state"]
+        health = http(base + "/healthz")
+        try:
+            client.generate(prompts[0], max_new_tokens=2, timeout=60)
+            refused = None
+        except grpc.RpcError as e:
+            refused = (e.code(), e.details())
+        checked.set()
+        runner.join(timeout=600)
+        srv._drain_thread.join(timeout=120)
+        drain_s = time.perf_counter() - t0
+        out, errs = box["out"], box["errs"]
+        if code != 202 or state != "draining" or health[0] != 503 or \
+                refused is None or refused[0] != grpc.StatusCode.UNAVAILABLE \
+                or not refused[1].startswith("draining"):
+            fail(f"[resilience] (e): /drainz {code}, /statusz {state}, "
+                 f"/healthz {health}, a new request {refused}")
+        drained = {i: e for i, e in errs.items()
+                   if isinstance(e, grpc.RpcError)
+                   and e.code() == grpc.StatusCode.UNAVAILABLE
+                   and "draining" in e.details()}
+        if len(out) != 2 or len(drained) != 2:
+            fail(f"[resilience] (e): answered {sorted(out)}, errors {errs}")
+        leg.check(dev)
+        res_compare("(e)", out, prompts, refs)
+        print(f"[resilience] (e) drain over HTTP: requests {sorted(out)} "
+              f"finished equal to the reference, {sorted(drained)} came "
+              f"back UNAVAILABLE \"draining\"; /statusz draining, /healthz "
+              f"{health[0]}, a new request refused at preflight; "
+              f"{leg.chunks()} prompt chunks, {leg.steps[0]} decode steps; "
+              f"/drainz -> drained {drain_s * 1e3:.1f} ms; on {card}",
+              flush=True)
+    finally:
+        checked.set()
+        client.close()
+        stop()
+
+
+def leg_migrate(start, cfg, prepared, prompts, refs, dev, card, total):
+    """(i) a donor and an adopter at G's settings: a kvpull of the
+    300-token prompt adopts its 18 blocks; then the kv_migrate seam
+    severs a pull of the 130-token prompt: kvtier_fallback,
+    dnn_tpu_kvtier_fallback_total up by 1, and the next generate of that
+    prompt prefills it whole."""
+    from dnn_tpu_torch import chaos, obs
+
+    da, dc, ds, stop_d, _ = res_daemon(start, cfg, prepared, dev,
+                                       prefix_cache=256)
+    aa, ac, as_, stop_a, _ = res_daemon(start, cfg, prepared, dev,
+                                        prefix_cache=256)
+    L = cfg.n_layer
+    try:
+        reset_counts()
+        status = dc.kv_stage(prompts[3], timeout=300)
+        if '"staged_blocks": 18' not in status:
+            fail(f"[resilience] (i) kvstage: {status}")
+        require_launches("[resilience] (i) kvstage", dev, read_counts(),
+                         {("cached_attention", "f32"): L * 5})
+        add_into(total, read_counts())
+        m = obs.metrics()
+        snap = m.snapshot()["counters"]
+        status = ac.kv_pull_from(da, prompts[3], timeout=300)
+        if "adopted 18 blocks" not in status:
+            fail(f"[resilience] (i) kvpull: {status}")
+        after = m.snapshot()["counters"]
+        moved = {k: after.get(k, 0) - snap.get(k, 0) for k in (
+            "dnn_tpu_kvtier_migrated_blocks_total",
+            "dnn_tpu_kvtier_migrated_bytes_total",
+            "serving.kvtier_blocks_adopted_total")}
+        if moved["dnn_tpu_kvtier_migrated_blocks_total"] != 18 or \
+                moved["serving.kvtier_blocks_adopted_total"] != 18:
+            fail(f"[resilience] (i): counters moved {moved}")
+        leg = Leg("(i) kv_migrate", as_.batcher, total, L)
+        chaos.install({"seed": 0, "faults": [{"kind": "kv_migrate_fault",
+                                              "at_n": 0}]})
+        try:
+            status = ac.kv_pull_from(da, prompts[2], timeout=300)
+        finally:
+            chaos.uninstall()
+        fb = (m.snapshot()["counters"]["dnn_tpu_kvtier_fallback_total"]
+              - after.get("dnn_tpu_kvtier_fallback_total", 0))
+        if "kvtier_fallback" not in status or fb != 1:
+            fail(f"[resilience] (i): {status}; fallback counter +{fb}")
+        toks = ac.generate(prompts[2], max_new_tokens=16,
+                           timeout=300).tolist()
+        if leg.chunks() != 3:
+            fail(f"[resilience] (i): {leg.chunks()} chunks after the "
+                 "fallback, expected the whole prompt's 3")
+        leg.check(dev)
+        compare_tokens("[resilience] (i) after the fallback", toks,
+                       *refs[2])
+        print(f"[resilience] (i) kv_migrate: a pull of 18 blocks moved "
+              f"{int(moved['dnn_tpu_kvtier_migrated_bytes_total'])} bytes; the "
+              f"severed pull answered \"{status[:60]}...\", "
+              f"dnn_tpu_kvtier_fallback_total +1, the next generate "
+              f"prefilled 3 chunks; on {card}", flush=True)
+    finally:
+        for c in (dc, ac):
+            c.close()
+        stop_a()
+        stop_d()
+
+
+def leg_scrape(start, cfg, prepared, prompts, refs, dev, card, total):
+    """(j) a daemon at max_len 512 (an f32 row fits the wire): its own
+    prefill exported and staged twice under a TTL of 0.5 s (the second
+    kvput sweeps the first: kvput_expired), the second adopted by a
+    generate (kv_adoptions; no K5); then GET /metrics holds every series
+    of RES_METRICS, by JAX's names, and the memory gauges of the card."""
+    addr, client, srv, stop, base = res_daemon(
+        start, cfg, prepared, dev, max_len=512, kv_handoff_ttl_s=0.5)
+    L = cfg.n_layer
+    try:
+        leg = Leg("(j) handoff", srv.batcher, total, L)
+        payload = client.prefill_kv(prompts[1], timeout=300)
+        client.put_kv("res-j1", payload)
+        time.sleep(0.6)
+        client.put_kv("res-j2", payload)
+        toks = client.generate(prompts[1], max_new_tokens=16,
+                               kv_handle="res-j2", timeout=300).tolist()
+        ev = events_since(base, leg.seq0)
+        if [e["key"] for e in ev if e["kind"] == "kvput_expired"] != \
+                ["res-j1"]:
+            fail(f"[resilience] (j): events {[e['kind'] for e in ev]}")
+        leg.check(dev)
+        compare_tokens("[resilience] (j) adopted", toks, *refs[1])
+        code, text = http(base + "/metrics")
+        names = {ln.split("{")[0].split(" ")[0] for ln in text.splitlines()
+                 if ln and not ln.startswith("#")}
+        missing = [n for n in RES_METRICS if n not in names]
+        dev_idx = torch.cuda.current_device() if dev.type == "cuda" else 0
+        mem = [ln for ln in text.splitlines() if ln.startswith(
+            f'dnn_tpu_device_bytes_in_use{{device="cuda:{dev_idx}"}}')]
+        if code != 200 or missing or (dev.type == "cuda" and (
+                not mem or float(mem[0].split()[-1]) <= 0)):
+            fail(f"[resilience] (j): /metrics {code}, missing {missing}, "
+                 f"device memory lines {mem}")
+        print(f"[resilience] (j) /metrics: {len(text.splitlines())} lines, "
+              f"every series of RES_METRICS present, "
+              f"{mem[0] if mem else 'no device gauges (CPU)'}; the "
+              f"expired handoff res-j1 swept, res-j2 adopted; on {card}",
+              flush=True)
+    finally:
+        client.close()
+        stop()
+
+
+def obs_step_walls(cfg, prepared, prompts, dev, card, steps=16):
+    """A replayed decode step's launches, captures and wall with
+    DNN_TPU_OBS on and off (3 active slots, A's pool): the launches and
+    captures must be identical (every counter is host arithmetic)."""
+    from dnn_tpu_torch import obs
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, device=dev,
+                          kv="paged")
+    for p in prompts[:3]:
+        b.submit(p, 200)
+    for _ in range(4):
+        b.step()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    graph = b._graph_step
+    res = {}
+    try:
+        for mode in (True, False, True, False):
+            obs.set_enabled(mode)
+            reset_counts()
+            caps0 = graph.captures if graph is not None else 0
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                b.step()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+            caps = (graph.captures if graph is not None else 0) - caps0
+            key = "on" if mode else "off"
+            res.setdefault(key, []).append((wall, read_counts(), caps))
+    finally:
+        obs.set_enabled(True)
+    for a in res["on"] + res["off"]:
+        if a[1:] != res["on"][0][1:]:
+            fail(f"[resilience] obs on/off: launches or captures differ: "
+                 f"{res}")
+    print(f"[resilience] obs on/off: a replayed decode step (3 active "
+          f"slots) {', '.join(f'{w:.3f}' for w, _, _ in res['on'])} ms "
+          f"with DNN_TPU_OBS on, "
+          f"{', '.join(f'{w:.3f}' for w, _, _ in res['off'])} ms off; "
+          f"{steps} steps a turn, the same launches "
+          f"({res['on'][0][1]['paged_decode_attention']['f32']} K7) and "
+          f"{res['on'][0][2]} captures each; on {card}", flush=True)
+
+
+def node_child(cfg_name, dev, *extra):
+    """`node --serve_lm` as a process at run A's settings (the config's
+    seed-0 weights, the main path's) with its endpoint: (process,
+    address, metrics base URL, the moment it started)."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    port, mport = free_port(), free_port()
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "lm.json")
+    with open(path, "w") as f:
+        json.dump({"model": cfg_name, "device_type": dev.type, "nodes": [
+            {"id": "node1", "part_index": 0,
+             "address": f"127.0.0.1:{port}"}]}, f)
+    # its log goes to a file: a pipe nobody drains could block the child
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dnn_tpu_torch.node", "--node_id", "node1",
+         "--config", path, "--serve_lm", "--slots", "4", "--max_len",
+         "1024", "--prompt_pad", "64", "--metrics_port", str(mport),
+         *extra], cwd=here, env={**os.environ, "PYTHONPATH": here},
+        stdout=subprocess.DEVNULL,
+        stderr=open(os.path.join(tmp, "stderr.log"), "w"))
+    proc.log = os.path.join(tmp, "stderr.log")
+    return proc, f"127.0.0.1:{port}", f"http://127.0.0.1:{mport}", \
+        time.monotonic()
+
+
+def child_log(proc) -> str:
+    with open(proc.log) as f:
+        return f.read()[-3000:]
+
+
+def child_launches(base):
+    """The child daemon's cache-kernel launches from its /metrics."""
+    out = {}
+    for ln in http(base + "/metrics")[1].splitlines():
+        if ln.startswith("dnn_tpu_kernel_launches{"):
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', ln))
+            out[(labels["kernel"], labels["kv_dtype"])] = float(ln.split()[-1])
+    return out
+
+
+def child_ready(tag, proc, addr, base, prompt, L, dev, card):
+    """Wait for the child, warm it up, and hold its launches on one
+    300-token request to the call pattern (K5 12 x 5, K7 12 x 15)."""
+    from dnn_tpu_torch.comm.client import NodeClient
+
+    client = NodeClient(addr)
+    t_end = time.monotonic() + 300
+    while not client.health_check(timeout=1.0):
+        if proc.poll() is not None or time.monotonic() > t_end:
+            fail(f"[resilience] {tag}: the child never became healthy "
+                 f"(rc {proc.poll()}):\n{child_log(proc)}")
+        time.sleep(0.2)
+    client.generate(prompt[:5], max_new_tokens=2, timeout=300)  # warm-up
+    c0 = child_launches(base)
+    client.generate(prompt, max_new_tokens=16, timeout=300)
+    c1 = child_launches(base)
+    if dev.type == "cuda":
+        want = {("cached_attention", "f32"): L * -(-len(prompt) // 64),
+                ("paged_decode_attention", "f32"): L * 15}
+        got = {k: c1.get(k, 0) - c0.get(k, 0) for k in want}
+        if got != want:
+            fail(f"[resilience] {tag}: the child's launches on one request "
+                 f"{got}, expected {want}")
+        print(f"[resilience] {tag}: the child's launches on one "
+              f"{len(prompt)}-token request exactly {want} (its /metrics); "
+              f"on {card}", flush=True)
+    return client
+
+
+def leg_sigterm(proc, addr, base, t_spawn, prompts, refs, L, dev, card):
+    """(f) SIGTERM to a `node --serve_lm` process during a GenerateStream:
+    the stream completes equal to the reference, the exit code is 0."""
+    client = child_ready("(f) SIGTERM", proc, addr, base, prompts[3], L, dev,
+                         card)
+    ready_s = time.monotonic() - t_spawn
+    stream = client.generate_stream(prompts[3], max_new_tokens=16,
+                                    timeout=300)
+    got = [next(stream)]
+    t0 = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    got += list(stream)
+    client.close()
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("[resilience] (f): the daemon did not exit within 120 s of "
+             "SIGTERM")
+    exit_s = time.monotonic() - t0
+    if rc != 0:
+        fail(f"[resilience] (f): exit code {rc}:\n{child_log(proc)}")
+    compare_tokens("[resilience] (f) the stream across SIGTERM", got,
+                   *refs[3])
+    print(f"[resilience] (f) SIGTERM during a GenerateStream: the stream "
+          f"completed equal to the reference, exit code 0, SIGTERM -> exit "
+          f"{exit_s:.2f} s (the child served {ready_s:.1f} s after launch); "
+          f"on {card}", flush=True)
+
+
+def leg_wedge(proc, addr, base, t_spawn, prompts, L, dev, card):
+    """(g) a child with --watchdog_s, --on_wedged restart and a
+    wedge_device plan: /statusz reads ok while it serves, then wedged
+    once the window opens, and the exit code is 43. Streams keep an RPC
+    in flight at the escalation, so the server's stop grace holds
+    /statusz up long enough to read it."""
+    client = child_ready("(g) wedge", proc, addr, base, prompts[3], L, dev,
+                         card)
+    ready_s = time.monotonic() - t_spawn
+    if ready_s > RES_WEDGE_AT_S:
+        fail(f"[resilience] (g): the child served {ready_s:.1f} s after "
+             f"launch, past its wedge window at {RES_WEDGE_AT_S} s after "
+             "its plan's install: raise RES_WEDGE_AT_S")
+    # the first probe round (a real probe of the card) must answer ok
+    # before the window opens
+    t_end = time.monotonic() + 60
+    first = {}
+    while proc.poll() is None:
+        try:
+            first = json.loads(http(base + "/statusz")[1])
+        except Exception:  # noqa: BLE001 — judged below
+            pass
+        if "device" in first.get("components", {}) or \
+                time.monotonic() > t_end:
+            break
+        time.sleep(0.1)
+    if first.get("state") != "ok" or \
+            first["components"].get("device", {}).get("state") != "ok":
+        fail(f"[resilience] (g): /statusz {first} before the window (rc "
+             f"{proc.poll()}):\n{child_log(proc)}")
+    probed_s = time.monotonic() - t_spawn
+    seen = []
+    done = threading.Event()
+
+    details = []
+
+    def poll():
+        while not done.is_set():
+            try:
+                st = json.loads(http(base + "/statusz", timeout=2)[1])
+                seen.append(st["state"])
+                if st["state"] == "wedged":
+                    details.append(st["components"]["device"]["detail"])
+            except Exception:  # noqa: BLE001 — the child may be gone
+                pass
+            time.sleep(0.02)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    t_end = t_spawn + RES_WEDGE_AT_S + RES_WEDGE_PERIOD + 60
+    while proc.poll() is None and time.monotonic() < t_end:
+        try:  # long streams: an RPC in flight when the policy fires
+            list(client.generate_stream(prompts[0],
+                                        max_new_tokens=RES_WEDGE_STREAM,
+                                        timeout=60))
+        except Exception:  # noqa: BLE001 — cut by the exit
+            time.sleep(0.05)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("[resilience] (g): the wedged daemon did not exit")
+    done.set()
+    poller.join(timeout=5)
+    client.close()
+    # the wedge must be the plan's, not a probe that timed out
+    injected = f"chaos: injected device wedge (plan@{RES_WEDGE_AT_S:g}s)"
+    if rc != 43 or "wedged" not in seen or details[:1] != [injected]:
+        fail(f"[resilience] (g): exit code {rc}, /statusz states seen "
+             f"{sorted(set(seen))}, the device's detail "
+             f"{sorted(set(details))}:\n{child_log(proc)}")
+    print(f"[resilience] (g) --watchdog_s {RES_WEDGE_PERIOD:g}, "
+          f"wedge_device at {RES_WEDGE_AT_S:g} s: /statusz ok while "
+          f"serving ({ready_s:.1f} s after launch; the first probe round "
+          f"ok by {probed_s:.1f} s), then wedged "
+          f"(\"{injected}\"); exit code 43 (EXIT_RESTART) "
+          f"{time.monotonic() - t_spawn:.1f} s after launch; on {card}",
+          flush=True)
+
+
+def phase_resilience(cfg, prepared, prompts, refs, a_streams, dev, card,
+                     model="gpt2"):
+    """[resilience] ROADMAP item 4 e's second half on the main path's gpt2
+    at run A's settings, every leg with exact K5/K7 launches, no
+    recapture, and every stream against A's reference: (a) requeue after
+    a step fault, (b) a spent restart budget, (c) dedup and a passed
+    deadline, (d) kv_exhaust over a short pool, (e) a drain over HTTP,
+    (f) SIGTERM to a `node --serve_lm` process, (g) a wedged child's exit
+    43, (h) the real device probe, (i) kv_migrate's fallback, (j) the
+    /metrics scrape; and a step's launches and walls with DNN_TPU_OBS on
+    and off. The two children start first and warm up while the
+    in-process legs run. Returns the launches."""
+    from dnn_tpu_torch.obs.watchdog import subprocess_device_probe
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_loop
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layer
+    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+             for name in CACHE_KERNELS}
+    t0 = time.perf_counter()
+    ok, detail, timed_out = subprocess_device_probe(
+        60.0, "cuda" if dev.type == "cuda" else "cpu")
+    probe_s = time.perf_counter() - t0
+    if not ok:
+        fail(f"[resilience] (h): the device probe answered {detail} "
+             f"(timed out: {timed_out})")
+    print(f"[resilience] (h) the watchdog's probe (a child: import torch, "
+          f"then a 64x64 matmul on {dev.type} and a synchronize under the "
+          f"deadline) answered ok in {probe_s:.2f} s; on {card}",
+          flush=True)
+    obs_step_walls(cfg, prepared, prompts, dev, card)
+    plan = json.dumps({"seed": 0, "faults": [
+        {"kind": "wedge_device", "at_s": RES_WEDGE_AT_S}]})
+    # the SIGTERM child starts now and warms up while the in-process legs
+    # run; the wedge child after its leg
+    f_child = node_child(model, dev)
+    g_child = None
+    try:
+        start, close = start_lm_server_loop()
+        try:
+            stop = leg_requeue(start, cfg, prepared, prompts, refs,
+                               a_streams, dev, card, total)
+            stop()
+            leg_budget(start, cfg, prepared, prompts, dev, card, total)
+            leg_exhaust(start, cfg, prepared, prompts, refs, dev, card,
+                        total)
+            leg_drain(start, cfg, prepared, prompts, refs, dev, card, total)
+            leg_migrate(start, cfg, prepared, prompts, refs, dev, card,
+                        total)
+            leg_scrape(start, cfg, prepared, prompts, refs, dev, card, total)
+        finally:
+            close()
+        print(f"[resilience] in-process legs done "
+              f"{time.monotonic() - f_child[3]:.1f} s after the SIGTERM "
+              "child's launch", flush=True)
+        leg_sigterm(*f_child, prompts, refs, L, dev, card)
+        g_child = node_child(model, dev, "--watchdog_s",
+                             f"{RES_WEDGE_PERIOD:g}", "--on_wedged",
+                             "restart", "--chaos", plan)
+        leg_wedge(*g_child, prompts, L, dev, card)
+    finally:
+        for child in (f_child, g_child):
+            if child is not None and child[0].poll() is None:
+                child[0].kill()
+                child[0].wait()
+    print(f"[resilience] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 # [constrain]: the main path's gpt2 over A's daemon with grammars live
 J_NEW = 24                # a j=1 request's budget
 J_CHOICES = ("positive", "negative", "neutral")
@@ -3249,6 +4125,8 @@ def phase_main_path(dev, card: str):
         phase_item_4e(cfg, prepared, prompts,
                       {"f32": ref_f32, "bf16": ref_bf16, "int8": ref_i8},
                       dev, card),
+        phase_resilience(cfg, prepared, prompts, ref_f32,
+                         a_info["streams"], dev, card),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in ("f32", "bf16", "int8")}

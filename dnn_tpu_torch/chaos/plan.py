@@ -1,0 +1,201 @@
+"""FaultPlan: a deterministic, seeded schedule of injected faults (port
+of dnn_tpu/chaos/plan.py, copied whole: `decide` gives the JAX
+package's schedule for the same plan).
+
+A plan is data, not behavior: the process-level faults (`kill_stage`,
+`hang_stage`) are executed by whoever supervises the processes (a
+harness; the port's supervisor is ROADMAP Queue 1 item 11); the in-process
+faults are installed as an `inject.Injector` and consulted at the
+seams (comm client/service, relay assembler, LM batcher worker,
+watchdog probe).
+
+Determinism contract: in-process faults fire on CALL COUNTERS through
+`decide(seed, seam, n)` — a pure hash of (plan seed, seam name, call
+index) — so a plan replays the identical injection sequence on every
+run regardless of thread timing, and no `random`/wall-clock call ever
+lands in a hot path or traced code. Process-level faults carry `at_s`
+offsets (harness wall clock — the harness is not traced code).
+
+Schema (JSON object or file; the `--chaos` CLI flag takes either a
+path or inline JSON):
+
+    {"seed": 0, "faults": [
+      {"kind": "kill_stage",   "target": "node2", "at_s": 15},
+      {"kind": "hang_stage",   "target": "node1", "at_s": 40},
+      {"kind": "wedge_device", "at_s": 5, "duration_s": 8},
+      {"kind": "rpc_drop",     "seam": "client", "p": 0.1, "count": 3},
+      {"kind": "rpc_delay",    "seam": "stage",  "p": 0.05,
+       "delay_s": 0.2, "count": 5},
+      {"kind": "rpc_corrupt",  "seam": "client", "p": 0.1, "count": 2},
+      {"kind": "relay_corrupt","p": 0.2, "count": 2},
+      {"kind": "kv_exhaust",   "from_n": 4, "count": 3},
+      {"kind": "step_fault",   "at_n": 10, "count": 1},
+      {"kind": "train_fault",  "target": "nan", "at_n": 6, "count": 1},
+      {"kind": "train_fault",  "target": "sleep", "at_n": 3,
+       "count": 4, "delay_s": 0.05},
+      {"kind": "ckpt_corrupt", "target": "/path/ckpt.npz"}
+    ]}
+
+`p` faults fire when decide() < p for a consulted call, up to `count`
+times; `at_n`/`from_n` faults fire on exact counter positions. `kind`
+values outside the known set fail loud at parse (a typo'd plan that
+silently injects nothing would "pass" every chaos assertion).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+from typing import List, Optional
+
+__all__ = ["Fault", "FaultPlan", "decide", "KINDS"]
+
+# process-level (driven by the harness/supervisor) vs in-process
+# (installed as an Injector) — partitioned so each consumer takes only
+# the faults it can execute
+PROCESS_KINDS = frozenset({"kill_stage", "hang_stage", "kill_donor"})
+INPROCESS_KINDS = frozenset({
+    "wedge_device", "rpc_drop", "rpc_delay", "rpc_corrupt",
+    "relay_drop", "relay_corrupt", "kv_exhaust", "step_fault",
+    "kv_migrate_fault", "train_fault",
+})
+FILE_KINDS = frozenset({"ckpt_corrupt"})
+KINDS = PROCESS_KINDS | INPROCESS_KINDS | FILE_KINDS
+
+
+def decide(seed: int, seam: str, n: int) -> float:
+    """Pure, seeded decision value in [0, 1) for the n-th consultation
+    of `seam` — the only 'randomness' an in-process fault may use.
+    blake2s over the triple: stable across processes and Python runs
+    (hash() is salted per process and would break replay)."""
+    h = hashlib.blake2s(
+        f"{seed}:{seam}:{n}".encode(), digest_size=8).digest()
+    return int.from_bytes(h, "big") / 2.0 ** 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """One scheduled fault. Unused fields stay at their defaults; see
+    the module docstring for which fields each kind reads."""
+
+    kind: str
+    target: str = ""          # stage id / address / file path
+    seam: str = ""            # rpc faults: "client" | "stage" | "" (any)
+    at_s: float = 0.0         # process faults: offset from plan start
+    duration_s: float = 0.0   # hang_stage / wedge_device window
+    p: float = 0.0            # probabilistic in-process faults
+    delay_s: float = 0.05     # rpc_delay sleep
+    count: int = 1            # max firings for counter/probability faults
+    at_n: int = -1            # step_fault: exact counter position
+    from_n: int = -1          # kv_exhaust: first counter position
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(
+                f"unknown fault kind {self.kind!r} (known: "
+                f"{sorted(KINDS)})")
+        if not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"fault p must be in [0, 1], got {self.p}")
+        if self.count < 1:
+            raise ValueError(f"fault count must be >= 1, got {self.count}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """A seeded list of faults. `from_json` / `from_cli` parse the
+    schema; `process_faults()` / `inprocess_faults()` partition it for
+    the two executors."""
+
+    faults: tuple
+    seed: int = 0
+
+    @classmethod
+    def from_dict(cls, obj: dict) -> "FaultPlan":
+        if not isinstance(obj, dict) or "faults" not in obj:
+            raise ValueError(
+                "a fault plan is an object with a 'faults' list "
+                "(and an optional 'seed')")
+        faults = []
+        for f in obj["faults"]:
+            known = {fld.name for fld in dataclasses.fields(Fault)}
+            extra = set(f) - known
+            if extra:
+                raise ValueError(
+                    f"unknown fault fields {sorted(extra)} in {f!r}")
+            faults.append(Fault(**f))
+        return cls(faults=tuple(faults), seed=int(obj.get("seed", 0)))
+
+    @classmethod
+    def from_json(cls, text: str) -> "FaultPlan":
+        return cls.from_dict(json.loads(text))
+
+    @classmethod
+    def from_file(cls, path: str) -> "FaultPlan":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+    @classmethod
+    def from_cli(cls, arg: str) -> "FaultPlan":
+        """The --chaos flag: a file path, or inline JSON (starts with
+        '{')."""
+        arg = arg.strip()
+        if arg.startswith("{"):
+            return cls.from_json(arg)
+        if not os.path.exists(arg):
+            raise ValueError(
+                f"--chaos: {arg!r} is neither a readable file nor "
+                "inline JSON")
+        return cls.from_file(arg)
+
+    def process_faults(self) -> List[Fault]:
+        """kill/hang entries, sorted by at_s — the harness's timeline."""
+        return sorted((f for f in self.faults if f.kind in PROCESS_KINDS),
+                      key=lambda f: f.at_s)
+
+    def inprocess_faults(self) -> List[Fault]:
+        return [f for f in self.faults if f.kind in INPROCESS_KINDS]
+
+    def file_faults(self) -> List[Fault]:
+        return [f for f in self.faults if f.kind in FILE_KINDS]
+
+    def to_dict(self) -> dict:
+        return {"seed": self.seed,
+                "faults": [dataclasses.asdict(f) for f in self.faults]}
+
+
+def standard_plan(*, kill_target: str = "node2",
+                  hang_target: str = "node1",
+                  kill_at_s: float = 15.0,
+                  hang_at_s: float = 40.0,
+                  hang_duration_s: float = 120.0,
+                  donor_kill_at_s: Optional[float] = None,
+                  donor_target: str = "") -> FaultPlan:
+    """THE standard FaultPlan the acceptance contract names: one stage
+    kill plus one injected wedge (a hang the supervisor must detect and
+    recover) during an open-loop run. `hang_duration_s` outlives any
+    plausible health-poll detection window, so recovery always comes
+    from the supervisor's kill+restart, never from the hang expiring.
+
+    `donor_kill_at_s` (the KV-tier leg, kvtier/) appends a
+    `kill_donor` fault: the harness SIGKILLs the replica currently
+    acting as a block-migration DONOR at that offset — mid-migration
+    by construction when the driver times it inside a pull window.
+    The asserted outcome (kv_tier probe / tests/test_kvtier.py): the
+    donor's lease expires, the adopter re-prefills via its
+    `kvtier_fallback` path with ZERO token divergence, and the pool
+    high-water returns to baseline (zero leaked blocks)."""
+    faults = [
+        Fault(kind="kill_stage", target=kill_target, at_s=kill_at_s),
+        Fault(kind="hang_stage", target=hang_target, at_s=hang_at_s,
+              duration_s=hang_duration_s),
+    ]
+    if donor_kill_at_s is not None:
+        faults.append(Fault(kind="kill_donor", target=donor_target,
+                            at_s=float(donor_kill_at_s)))
+    return FaultPlan(faults=tuple(faults))
+
+
+__all__ += ["standard_plan", "PROCESS_KINDS", "INPROCESS_KINDS",
+            "FILE_KINDS"]

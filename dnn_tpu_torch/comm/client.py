@@ -7,20 +7,31 @@ daemon over the same wire and the same request-id option grammar
 front over SendMessage, and the daemon's KV movement between replicas:
 the prefill->decode handoff (`prefill_kv`, `put_kv`, then a generate
 with `kv_handle`) and block migration (`kv_stage`, `kv_lease`,
-`kv_fetch`, `kv_ack`, `kv_pull_from`)."""
+`kv_fetch`, `kv_ack`, `kv_pull_from`).
+
+Resilience (JAX comm/client.py:63-157, :218-292): a per-client
+`CircuitBreaker` sheds send_tensor calls fast (CircuitOpenError)
+after consecutive failures, with one half-open probe
+a cooldown; a channel that answered UNAVAILABLE `REBUILD_AFTER` times in
+a row is replaced by a fresh one (a channel parked in gRPC's reconnect
+backoff can miss a server that has since come up); `dedup=` makes a
+generate exactly-once on the daemon (d=). send_tensor consults the chaos
+seam perturb_rpc("client") before each attempt."""
 
 from __future__ import annotations
 
+import json
+import logging
 import threading
 import time
-import json
 from typing import List, Optional, Tuple
 
 import grpc
 import numpy as np
 import torch
 
-from dnn_tpu_torch import native
+from dnn_tpu_torch import native, obs
+from dnn_tpu_torch.chaos import inject as _chaos_inject
 from dnn_tpu_torch.comm import transport as tx
 from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
@@ -34,6 +45,9 @@ from dnn_tpu_torch.comm.service import (
     full_jitter_delay,
 )
 from dnn_tpu_torch.comm.transport import tag_deadline
+from dnn_tpu_torch.utils.metrics import labeled
+
+log = logging.getLogger("dnn_tpu_torch.comm")
 
 
 def pipeline_budget(num_parts: int, *, margin: float = 30.0) -> float:
@@ -44,6 +58,83 @@ def pipeline_budget(num_parts: int, *, margin: float = 30.0) -> float:
     return PER_STAGE_BUDGET_S * num_parts + margin
 
 
+class CircuitOpenError(RuntimeError):
+    """Raised by a client whose breaker is OPEN: the target failed
+    `threshold` calls in a row and the cooldown has not passed. Callers
+    treat it like UNAVAILABLE without paying a connect timeout and a
+    retry ladder per request."""
+
+
+class CircuitBreaker:
+    """Per-target circuit breaker (JAX comm/client.py:70-157): closed ->
+    (threshold consecutive failures) -> open -> (cooldown) -> half-open
+    (ONE probe call) -> closed on success, or open again with the
+    cooldown doubled. Thread-safe; transitions land in the flight ring
+    and the `comm.circuit_state{target=}` gauge (0 closed, 1 half-open,
+    2 open)."""
+
+    _STATE_VAL = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+    def __init__(self, target: str = "", *, threshold: int = 5,
+                 cooldown_s: float = 1.0, max_cooldown_s: float = 30.0):
+        self.target = target
+        self.threshold = int(threshold)
+        self.cooldown_s = float(cooldown_s)
+        self.max_cooldown_s = float(max_cooldown_s)
+        self._lock = threading.Lock()
+        self._state = "closed"
+        self._failures = 0
+        self._opened_at = 0.0
+        self._cooldown = self.cooldown_s
+        if (m := obs.metrics()) is not None:
+            m.set_fn(labeled("comm.circuit_state", target=target),
+                     lambda: self._STATE_VAL[self._state])
+
+    @property
+    def state(self) -> str:
+        return self._state
+
+    def allow(self) -> bool:
+        """True when a call may proceed. Open turns half-open (one probe)
+        once the cooldown has passed."""
+        with self._lock:
+            if self._state == "closed":
+                return True
+            if self._state == "open":
+                if time.monotonic() - self._opened_at < self._cooldown:
+                    return False
+                self._state = "half_open"
+                obs.flight.record("circuit_half_open", target=self.target)
+                return True
+            return False  # half-open: the one probe is in flight
+
+    def record(self, ok: bool):
+        with self._lock:
+            if ok:
+                if self._state != "closed":
+                    obs.flight.record("circuit_close", target=self.target)
+                self._state = "closed"
+                self._failures = 0
+                self._cooldown = self.cooldown_s
+                return
+            self._failures += 1
+            if self._state == "half_open":
+                # the probe failed: open again, for longer
+                self._state = "open"
+                self._opened_at = time.monotonic()
+                self._cooldown = min(self._cooldown * 2,
+                                     self.max_cooldown_s)
+                obs.flight.record("circuit_reopen", target=self.target,
+                                  cooldown_s=round(self._cooldown, 3))
+            elif self._state == "closed" \
+                    and self._failures >= self.threshold:
+                self._state = "open"
+                self._opened_at = time.monotonic()
+                obs.flight.record("circuit_open", target=self.target,
+                                  failures=self._failures,
+                                  cooldown_s=round(self._cooldown, 3))
+
+
 def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
                    temperature: Optional[float] = None,
                    top_k: Optional[int] = None,
@@ -52,11 +143,14 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
                    repetition_penalty: Optional[float] = None,
                    logit_bias: Optional[dict] = None,
                    adapter: Optional[int] = None,
+                   dedup: Optional[str] = None,
                    kv_handle: Optional[str] = None) -> str:
     """Encode generation options into the request_id the daemon parses
     (runtime/lm_server.parse_gen_options); `logit_bias` ({token id:
     additive bias}) as b=tok~val,tok~val, the JAX client's spelling;
     `adapter` (a LoRA adapter's index on a multi-adapter daemon) as a=;
+    `dedup` (an opaque key: the daemon joins a repeated key to the first
+    request's generation) as d=, after a= as the JAX client writes it;
     `kv_handle` (the key a handoff was staged under with put_kv) as h=,
     as the JAX router appends it."""
     rid = f"gen:{max_new_tokens}" + (f":{seed}" if seed is not None else "")
@@ -69,6 +163,8 @@ def gen_request_id(max_new_tokens: int, seed: Optional[int] = None,
                                 for t, v in logit_bias.items())
     if adapter is not None:
         rid += f":a={adapter}"
+    if dedup is not None:
+        rid += f":d={dedup}"
     if kv_handle is not None:
         rid += f":h={kv_handle}"
     return rid
@@ -78,15 +174,71 @@ class NodeClient:
     """Sync client for a NodeService endpoint of either package (or a
     reference node). The first `send_tensors` sends the transport hello,
     which tells whether the peer speaks Relay. Only send_tensor retries
-    (generate and send_tensors raise grpc.RpcError at once)."""
+    (generate and send_tensors raise grpc.RpcError at once).
 
-    def __init__(self, address: str):
+    `breaker=True` (the default) runs a CircuitBreaker over send_tensor
+    (send_tensors' unary fallback included); False disables it, a CircuitBreaker instance is
+    used as given. After `rebuild_after` (default REBUILD_AFTER)
+    consecutive UNAVAILABLE outcomes of send_tensor or health_check the
+    channel is rebuilt; health probes bypass the breaker (they are the
+    recovery probe)."""
+
+    REBUILD_AFTER = 2  # consecutive UNAVAILABLEs before a fresh channel
+
+    def __init__(self, address: str, *, breaker=True,
+                 rebuild_after: Optional[int] = None):
         native.load()  # the checksum library, built before the first call
         self.address = address
         self._channel = grpc.insecure_channel(address,
                                               options=GRPC_MSG_OPTIONS)
+        self._chan_lock = threading.Lock()
+        self._conn_fail_streak = 0
+        self._last_rebuild = 0.0
+        self.rebuild_after = (self.REBUILD_AFTER if rebuild_after is None
+                              else int(rebuild_after))
+        self.channel_rebuilds = 0
+        if breaker is True:
+            self.breaker: Optional[CircuitBreaker] = CircuitBreaker(address)
+        else:
+            self.breaker = breaker or None
         self._negotiated: Optional[tx.Negotiated] = None
         self._neg_lock = threading.Lock()
+
+    def _note_conn_result(self, code):
+        """Count consecutive UNAVAILABLEs (a refused connect, or a channel
+        in reconnect backoff); any other outcome proves the connection
+        and resets the streak. At `rebuild_after` the channel is
+        replaced."""
+        if code != grpc.StatusCode.UNAVAILABLE:
+            self._conn_fail_streak = 0
+            return
+        self._conn_fail_streak += 1
+        if self._conn_fail_streak >= self.rebuild_after:
+            self._rebuild_channel()
+
+    def _rebuild_channel(self):
+        with self._chan_lock:
+            now = time.monotonic()
+            if now - self._last_rebuild < 1.0:
+                # concurrent failing calls cross the streak together in
+                # an outage: one fresh channel a second, not a storm
+                self._conn_fail_streak = 0
+                return
+            self._last_rebuild = now
+            old, self._channel = self._channel, grpc.insecure_channel(
+                self.address, options=GRPC_MSG_OPTIONS)
+            self._conn_fail_streak = 0
+            self.channel_rebuilds += 1
+        try:
+            old.close()  # its straggler calls were failing anyway
+        except Exception:  # noqa: BLE001 — already closed
+            pass
+        if (m := obs.metrics()) is not None:
+            m.inc(labeled("comm.channel_rebuilds_total", target=self.address))
+        obs.flight.record("channel_rebuild", target=self.address,
+                          rebuilds=self.channel_rebuilds)
+        log.info("rebuilt gRPC channel to %s after %d consecutive connect "
+                 "failures", self.address, self.rebuild_after)
 
     def health_check(self, timeout: float = 5.0) -> bool:
         call = self._channel.unary_unary(
@@ -94,9 +246,14 @@ class NodeClient:
             request_serializer=pb.Empty.SerializeToString,
             response_deserializer=pb.HealthCheckResponse.FromString)
         try:
-            return bool(call(pb.Empty(), timeout=timeout).is_healthy)
-        except grpc.RpcError:
+            healthy = bool(call(pb.Empty(), timeout=timeout).is_healthy)
+        except grpc.RpcError as e:
+            # a probe that cannot connect advances the rebuild streak, so
+            # polling a late server heals out of gRPC's backoff
+            self._note_conn_result(e.code())
             return False
+        self._note_conn_result(None)
+        return healthy
 
     def send_message(self, sender_id: str, text: str,
                      timeout: float = 5.0) -> str:
@@ -147,32 +304,48 @@ class NodeClient:
         chain. UNAVAILABLE, RESOURCE_EXHAUSTED and DATA_LOSS are retried
         up to `retries` times with full-jitter backoff; `timeout` is the
         budget of all attempts together, and each attempt carries what is
-        left of it as the request's `dl=` deadline."""
-        call = self._channel.unary_unary(
-            f"/{SERVICE_NAME}/SendTensor",
-            request_serializer=wc.serialize_request,
-            response_deserializer=wc.parse_response)
+        left of it as the request's `dl=` deadline. An open breaker
+        raises CircuitOpenError before any attempt."""
+        if self.breaker is not None and not self.breaker.allow():
+            raise CircuitOpenError(
+                f"circuit open for {self.address}: shedding fast "
+                f"(cooldown {self.breaker._cooldown:.1f}s)")
         request = wc.TensorRequest(request_id=request_id,
                                    tensor=_tensor_msg(arr))
         deadline = time.monotonic() + timeout
         attempt = 0
-        while True:
-            remaining = deadline - time.monotonic()
-            request.request_id = tag_deadline(request_id, remaining)
-            try:
-                resp = call(request, timeout=max(remaining, 0.001))
-                result = (wc.tensor_torch(resp.result_tensor)
-                          if resp.HasField("result_tensor") else None)
-                return resp.status, result
-            except (grpc.RpcError, wc.PayloadCorruptError) as e:
-                code = (e.code() if isinstance(e, grpc.RpcError)
-                        else grpc.StatusCode.DATA_LOSS)
-                worst = backoff * (2 ** attempt)
-                if (code not in RETRYABLE_CODES or attempt >= retries
-                        or deadline - time.monotonic() <= worst):
-                    raise
-                time.sleep(full_jitter_delay(backoff, attempt))
-                attempt += 1
+        completed = False
+        try:
+            while True:
+                remaining = deadline - time.monotonic()
+                request.request_id = tag_deadline(request_id, remaining)
+                # per attempt: a rebuild between attempts takes effect on
+                # the next one
+                call = self._channel.unary_unary(
+                    f"/{SERVICE_NAME}/SendTensor",
+                    request_serializer=wc.serialize_request,
+                    response_deserializer=wc.parse_response)
+                try:
+                    _chaos_inject.perturb_rpc("client", self.address)
+                    resp = call(request, timeout=max(remaining, 0.001))
+                    result = (wc.tensor_torch(resp.result_tensor)
+                              if resp.HasField("result_tensor") else None)
+                    completed = True
+                    self._note_conn_result(None)
+                    return resp.status, result
+                except (grpc.RpcError, wc.PayloadCorruptError) as e:
+                    code = (e.code() if isinstance(e, grpc.RpcError)
+                            else grpc.StatusCode.DATA_LOSS)
+                    self._note_conn_result(code)
+                    worst = backoff * (2 ** attempt)
+                    if (code not in RETRYABLE_CODES or attempt >= retries
+                            or deadline - time.monotonic() <= worst):
+                        raise
+                    time.sleep(full_jitter_delay(backoff, attempt))
+                    attempt += 1
+        finally:
+            if self.breaker is not None:
+                self.breaker.record(completed)
 
     def send_tensors(self, arrs, *, request_id: str = "req",
                      timeout: float = 120.0,

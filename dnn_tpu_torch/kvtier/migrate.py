@@ -34,9 +34,9 @@ Three layers, per block rather than one packed row:
     donor, a stale segment, a nonce mismatch) falls back to the grpc
     fetch rung.
 
-Where the JAX module records a flight event (lease_pull, lease_adopt,
-lease_release, lease_expire, lease_reclaim, kvtier_shm_fallback), the
-port records nothing: the flight recorder is ROADMAP Queue 1 item 12.
+Every lease transition lands in the flight recorder under the JAX
+module's kinds (lease_pull, lease_adopt, lease_release, lease_expire,
+lease_reclaim), and so does a failed shm rung (kvtier_shm_fallback).
 Host code only; no device work.
 """
 
@@ -52,6 +52,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dnn_tpu_torch import obs
 from dnn_tpu_torch.control.handoff import _TORCH, host_bytes, np_dtype_name
 
 __all__ = ["pack_blocks", "unpack_blocks", "MigrateFormatError",
@@ -366,6 +367,8 @@ class LeaseTable:
                 raise KeyError(lease_id)
             if lease.state == "offered":
                 lease.move("lease_pull")
+                obs.flight.record("lease_pull", lease=lease_id,
+                                  bytes=lease.nbytes)
             return lease.data
 
     def ack(self, lease_id: str) -> bool:
@@ -378,15 +381,23 @@ class LeaseTable:
             if lease is None or lease.state in ("expired", "released"):
                 return False
             lease.move("lease_adopt")
+            obs.flight.record("lease_adopt", lease=lease_id)
             lease._free()
             lease.move("lease_release")
+            obs.flight.record("lease_release", lease=lease_id)
             return True
 
     def _expire(self, lease: Lease):
         # under _lock: expired, then reclaimed at once
         lease.move("lease_expire")
+        obs.flight.record("lease_expire", lease=lease.lease_id,
+                          bytes=lease.nbytes,
+                          age_s=round(time.monotonic() - lease.t_offer, 2),
+                          cause="lease_reclaim")
         lease._free()
         lease.move("lease_reclaim")
+        obs.flight.record("lease_reclaim", lease=lease.lease_id,
+                          cause="lease_reclaim")
         self._leases.pop(lease.lease_id, None)
 
     def sweep(self, now: Optional[float] = None) -> int:
@@ -425,9 +436,10 @@ def pull_blocks(client, tokens, *, timeout: float = 30.0,
     comm/client.NodeClient pointed at the donor): lease the export, move
     the bytes over the best rung that proves itself (shm when the nonce
     checks out, else the grpc fetch; `shm=False` goes straight to the
-    grpc rung), ack, unpack. The payload's "_wire_bytes" is the bytes moved and "_rung"
-    the rung that moved them. Raises on any failure — the caller falls
-    back to a prefill; this function never fabricates blocks."""
+    grpc rung), ack, unpack. The payload's "_wire_bytes" is the bytes
+    moved and "_rung" the rung that moved them. Raises on any failure —
+    the caller falls back to a prefill; this function never fabricates
+    blocks."""
     meta = client.kv_lease(tokens, timeout=timeout)
     lease_id = meta["lease"]
     data, rung = None, "grpc"
@@ -436,8 +448,11 @@ def pull_blocks(client, tokens, *, timeout: float = 30.0,
             data = attach_shm(meta["shm"], meta.get("nonce", ""),
                               int(meta["bytes"]))
             rung = "shm"
-        except Exception:  # noqa: BLE001 — cross-host, stale segment or a
-            data = None    # nonce mismatch: the grpc rung below
+        except Exception as e:  # noqa: BLE001 — cross-host, stale segment
+            # or a nonce mismatch: the grpc rung below, loud
+            obs.flight.record("kvtier_shm_fallback",
+                              error=f"{type(e).__name__}: {e}"[:160])
+            data = None
     if data is None:
         data = client.kv_fetch(lease_id, timeout=timeout).tobytes()
     payload = unpack_blocks(np.frombuffer(data, np.uint8))

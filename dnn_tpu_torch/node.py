@@ -23,7 +23,9 @@
         [--weights {f32,int8}] [--lora adapter.npz] \\
         [--serve_adapter a.npz [--serve_adapter b.npz ...]] \\
         [--role {prefill,decode,both}] [--kv_handoff_ttl_s 120] \\
-        [--kv_lease_ttl_s 30]
+        [--kv_lease_ttl_s 30] [--min_p P] [--repetition_penalty R] \\
+        [--metrics_port PORT] [--watchdog_s S \\
+        [--on_wedged {503,restart,drain}]] [--chaos PLAN]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
@@ -32,7 +34,9 @@ draws from --seed, and --weights_npz overrides both with a JAX param
 tree; --lora merges an adapter artifact into them at load). Everything
 runs on the CUDA card unless the config's
 `device_type` is "cpu" or --device cpu is given; without a card the
-default raises.
+default raises. The LM daemon drains on SIGTERM (exit 0) and exits 43
+when its watchdog's wedged policy escalates; --metrics_port serves GET
+/metrics /healthz /statusz /debugz and POST /drainz.
 """
 
 from __future__ import annotations
@@ -52,10 +56,7 @@ log = logging.getLogger("dnn_tpu_torch.node")
 
 # flags of the JAX CLI whose subsystems are not ported: each exits 2
 _UNPORTED = (
-    ("metrics_port", "--metrics_port: the observability endpoint",
-     "ROADMAP Queue 1 item 12"),
     ("supervise", "--supervise: the supervisor", "ROADMAP Queue 1 item 11"),
-    ("chaos", "--chaos: fault plans", "ROADMAP Queue 1 item 11"),
 )
 
 
@@ -75,6 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--top_p", type=float, default=None)
+    p.add_argument("--min_p", type=float, default=None,
+                   help="--serve_lm: drop tokens below min_p x the top "
+                        "token's probability (per-request m= overrides)")
+    p.add_argument("--repetition_penalty", type=float, default=None,
+                   help="--serve_lm: HF-style repetition penalty over each "
+                        "request's tokens (per-request r= overrides)")
     p.add_argument("--beam", type=int, default=None, metavar="K",
                    help="--generate: deterministic beam search with K beams "
                         "instead of sampling (dense GPT family; "
@@ -185,9 +192,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "per output channel, quant.py)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="override the config's device_type")
-    p.add_argument("--metrics_port", type=int, default=None)
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="--serve_lm: also serve the observability endpoint "
+                        "on this port over plain HTTP: GET /metrics "
+                        "(Prometheus text), /healthz, /statusz (the "
+                        "watchdog's per-component state), /debugz (the "
+                        "flight recorder's ring), POST /drainz (0 = an "
+                        "ephemeral port)")
+    p.add_argument("--watchdog_s", type=float, default=None, metavar="S",
+                   help="--serve_lm: run the hung-device watchdog with this "
+                        "probe period in seconds (a subprocess-bounded probe "
+                        "of the daemon's device and the decode heartbeat; "
+                        "/healthz degrades ok|degraded|wedged). Off unless "
+                        "given")
+    p.add_argument("--on_wedged", choices=["503", "restart", "drain"],
+                   default="503",
+                   help="--serve_lm: the policy when the watchdog declares "
+                        "wedged. '503' (default): /healthz answers 503. "
+                        "'restart': exit 43 at once, so a supervisor "
+                        "relaunches the process. 'drain': finish in-flight "
+                        "decodes within the drain grace, hand queued work "
+                        "back retriable, then exit 43. Needs --watchdog_s")
     p.add_argument("--supervise", action="store_true")
-    p.add_argument("--chaos", default=None)
+    p.add_argument("--chaos", default=None, metavar="PLAN",
+                   help="--serve_lm: install a fault-injection plan in this "
+                        "process (dnn_tpu_torch/chaos; a JSON file path or "
+                        "inline JSON); each injection is a chaos_inject "
+                        "flight event")
     p.add_argument("--log_level", default="INFO")
     return p
 
@@ -352,6 +383,16 @@ def _serve_adapters(args, cfg) -> dict:
     return {"lora_adapters": ads, "lora_alphas": alphas}
 
 
+def _resilience_kwargs(args) -> dict:
+    """LMServer's resilience arguments the flags set (the rest keep
+    LMServer's defaults: no endpoint, no watchdog, a passive 503)."""
+    out = {k: v for k, v in (("metrics_port", args.metrics_port),
+                             ("watchdog", args.watchdog_s)) if v is not None}
+    if args.on_wedged != "503":
+        out["on_wedged"] = args.on_wedged
+    return out
+
+
 def _serve_lm(config: TopologyConfig, me, args) -> int:
     """The LM daemon on this node's port, with the config's weights (a
     --lora artifact merged in), at the config's compute type (`"dtype":
@@ -361,7 +402,8 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
     serves speculatively, without logit biases or constraints (the
     speculative batcher takes neither); otherwise both are on, as JAX's
     node turns them on. --serve_adapter serves LoRA adapters per
-    request (a=)."""
+    request (a=). Returns serve_lm's code: 0 after a SIGTERM drain, 43
+    (lm_server.EXIT_RESTART) after a wedged-policy escalation."""
     from dnn_tpu_torch.convert import from_jax_params, load_npz
     from dnn_tpu_torch.models.gpt import GPTConfig
     from dnn_tpu_torch.models.llama import LlamaConfig
@@ -437,14 +479,22 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             tokenizer=tokenizer, role=args.role,
             kv_handoff_ttl_s=args.kv_handoff_ttl_s,
             kv_lease_ttl_s=args.kv_lease_ttl_s,
+            min_p=args.min_p, repetition_penalty=args.repetition_penalty,
+            **_resilience_kwargs(args),
             **({"weights": "int8"} if args.weights == "int8" else {}),
             allow_logit_bias=not spec_kwargs,
             allow_constraints=not spec_kwargs,
-            **spec_kwargs, **lora_kwargs))
+            **spec_kwargs, **lora_kwargs)) or 0
     except (NotImplementedError, ValueError) as e:
         # e.g. --kv_dtype int4, or a sliding-window preset (ROADMAP item 2)
         log.error("%s", e)
         return 2
+    except KeyboardInterrupt:
+        log.info("shutting down")
+        return 0
+    except Exception as e:  # noqa: BLE001 — CLI boundary (a bind failure)
+        log.error("LM serve failed: %s", e)
+        return 1
 
 
 def main(argv=None) -> int:
@@ -454,6 +504,43 @@ def main(argv=None) -> int:
         if getattr(args, attr) is not None and getattr(args, attr) is not False:
             log.error("%s is not ported to dnn_tpu_torch yet (%s)", what, tag)
             return 2
+    if args.serve and (args.metrics_port is not None
+                       or args.chaos is not None):
+        log.error("--metrics_port/--chaos with --serve are not ported to "
+                  "dnn_tpu_torch yet (ROADMAP Queue 1 item 7's remainder: "
+                  "the stage servers' metrics and chaos seams)")
+        return 2
+    if args.watchdog_s is not None and not args.serve_lm:
+        log.error("--watchdog_s applies to --serve_lm only (the watchdog "
+                  "monitors the LM daemon's decode loop)")
+        return 1
+    if (args.min_p is not None or args.repetition_penalty is not None) \
+            and not args.serve_lm:
+        log.error("--min_p/--repetition_penalty apply to --serve_lm only")
+        return 1
+    if args.on_wedged != "503" and not args.serve_lm:
+        log.error("--on_wedged applies to --serve_lm (the watchdog's "
+                  "escalation policy)")
+        return 1
+    if args.on_wedged != "503" and args.watchdog_s is None:
+        log.error("--on_wedged %s needs --watchdog_s (the watchdog is what "
+                  "declares wedged)", args.on_wedged)
+        return 1
+    if args.chaos is not None:
+        if not args.serve_lm:
+            log.error("--chaos applies to the serving modes (--serve / "
+                      "--serve_lm)")
+            return 1
+        from dnn_tpu_torch import chaos
+
+        try:
+            chaos.install(chaos.FaultPlan.from_cli(args.chaos))
+        except (ValueError, OSError) as e:
+            log.error("--chaos plan invalid: %s", e)
+            return 1
+        log.warning("chaos fault plan INSTALLED (%s): injected faults are "
+                    "recorded as chaos_inject flight events",
+                    args.chaos[:120])
     if args.transport in ("shm", "device"):
         log.error("--transport %s is not ported to dnn_tpu_torch yet (ROADMAP "
                   "Queue 1 item 7's remainder); this port speaks grpc",

@@ -1,0 +1,212 @@
+"""Flight recorder: a bounded ring of structured serving events (port of
+dnn_tpu/obs/flight.py, copied whole: the same ring, event schema, kinds
+and crash dump, so the JAX package's tools read the port's events).
+
+The black box: every notable serving event (admissions, held-back
+requests, evictions, deadline misses, worker errors, watchdog firings)
+lands in one process-wide bounded ring, cheap enough to feed from hot
+paths (one gate check + one lock + one deque append), and dumpable
+three ways:
+
+  * on demand: `GET /debugz` on the obs HTTP endpoint (obs/http.py);
+  * on unhandled crash: `install_crash_dump()` chains sys.excepthook /
+    threading.excepthook and writes the ring (plus the crash itself as a
+    final event) to a JSONL file before the process dies — the LM daemon
+    and the node CLI install it at startup;
+  * programmatically: `recorder().jsonl()` / `.dump(path)`.
+
+Event schema (one JSON object per line): {"seq": monotonically
+increasing int, "ts": wall-clock epoch seconds, "kind": str, **fields}.
+`seq` orders events even when ts ties; ring overflow keeps the newest
+events. Producers call the module-level `record(kind, **fields)`, which
+degrades to one boolean check when observability is off (DNN_TPU_OBS).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+from collections import deque
+from typing import List, Optional
+
+__all__ = ["FlightRecorder", "recorder", "record", "install_crash_dump",
+           "default_dump_dir"]
+
+
+class FlightRecorder:
+    """Bounded, thread-safe event ring. Capacity bounds memory on a
+    week-long daemon; the newest events win on overflow."""
+
+    def __init__(self, capacity: int = 4096):
+        self._lock = threading.Lock()
+        self._ring: "deque[dict]" = deque(maxlen=int(capacity))
+        self._seq = 0
+
+    def record(self, kind: str, **fields):
+        """Append one event. Fields must be JSON-able plain values (the
+        dump serializes with default=str as a last resort, so a stray
+        object degrades to its repr instead of killing the dump)."""
+        with self._lock:
+            self._seq += 1
+            ev = {"seq": self._seq, "ts": time.time(), "kind": kind}
+            ev.update(fields)
+            self._ring.append(ev)
+        return ev
+
+    def clear(self):
+        with self._lock:
+            self._ring.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def events(self, *, kind: Optional[str] = None,
+               trace_id: Optional[str] = None,
+               last: Optional[int] = None) -> List[dict]:
+        """Snapshot, oldest first. `kind`/`trace_id` filter; `last` keeps
+        only the newest N (applied AFTER filtering)."""
+        with self._lock:
+            out = list(self._ring)
+        if kind is not None:
+            out = [e for e in out if e["kind"] == kind]
+        if trace_id is not None:
+            out = [e for e in out if e.get("trace_id") == trace_id]
+        if last is not None:
+            out = out[-int(last):]
+        return out
+
+    def window(self, ts: float, before_s: float = 30.0,
+               after_s: float = 5.0) -> List[dict]:
+        """Events in [ts - before_s, ts + after_s] — the context window a
+        post-mortem wants around one incident (a deadline miss, a
+        watchdog firing)."""
+        lo, hi = ts - before_s, ts + after_s
+        return [e for e in self.events() if lo <= e["ts"] <= hi]
+
+    # -- exports --------------------------------------------------------
+
+    def jsonl(self, **filters) -> str:
+        return "".join(
+            json.dumps(e, sort_keys=True, default=str) + "\n"
+            for e in self.events(**filters))
+
+    def dump(self, path: str, **filters) -> str:
+        with open(path, "w") as f:
+            f.write(self.jsonl(**filters))
+        return path
+
+
+try:
+    _cap = int(os.environ["DNN_TPU_OBS_FLIGHT_CAP"])
+    if _cap <= 0:
+        raise ValueError(_cap)
+except (KeyError, ValueError):
+    # a garbage env knob must degrade to the default, not crash every
+    # entry point at import (obs is imported by lm_server, node, bench)
+    _cap = 4096
+_recorder = FlightRecorder(_cap)
+
+
+def recorder() -> FlightRecorder:
+    return _recorder
+
+
+_obs = None  # lazy: breaks the obs<->flight import cycle once, not
+# per call — record() sits on per-admission/retirement hot paths
+
+
+def record(kind: str, **fields):
+    """The producer entry point: appends to the shared ring when
+    observability is on, else a single boolean check and out."""
+    global _obs
+    if _obs is None:
+        from dnn_tpu_torch import obs as _o
+
+        _obs = _o
+    if not _obs.enabled():
+        return None
+    return _recorder.record(kind, **fields)
+
+
+# ----------------------------------------------------------------------
+# crash dump: the ring survives the process
+# ----------------------------------------------------------------------
+
+def default_dump_dir() -> str:
+    """Where crash dumps (and profile spools, obs/profile.py) land:
+    $DNN_TPU_OBS_DIR, else <tmp>/dnn_tpu_obs."""
+    import tempfile
+
+    return os.environ.get("DNN_TPU_OBS_DIR") or os.path.join(
+        tempfile.gettempdir(), "dnn_tpu_obs")
+
+
+_install_lock = threading.Lock()
+_installed_dir: Optional[str] = None
+
+
+def _dump_crash(origin: str, exc_type, exc, tb) -> Optional[str]:
+    """Write the ring + the crash event to a fresh JSONL file. Never
+    raises — a failing dump must not mask the original exception."""
+    try:
+        import traceback
+
+        _recorder.record(
+            "crash", origin=origin, exc_type=getattr(
+                exc_type, "__name__", str(exc_type)),
+            message=str(exc),
+            traceback="".join(
+                traceback.format_exception(exc_type, exc, tb))[-4000:])
+        path = os.path.join(
+            _installed_dir or default_dump_dir(),
+            f"flight-crash-{os.getpid()}-{int(time.time())}.jsonl")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _recorder.dump(path)
+        print(f"[dnn_tpu_torch.obs] flight recorder dumped to {path}",
+              file=sys.stderr)
+        return path
+    except Exception:  # noqa: BLE001 — never mask the real crash
+        return None
+
+
+def install_crash_dump(dump_dir: Optional[str] = None) -> str:
+    """Chain sys.excepthook and threading.excepthook so an unhandled
+    exception anywhere in the process writes the flight ring to
+    `dump_dir` (default `default_dump_dir()`) before dying. Idempotent;
+    returns the dump directory in effect. KeyboardInterrupt/SystemExit
+    are normal shutdowns, not crashes — they pass through undumped."""
+    global _installed_dir
+    with _install_lock:
+        if _installed_dir is not None:
+            return _installed_dir
+        _installed_dir = dump_dir or default_dump_dir()
+        prev_sys = sys.excepthook
+        prev_thread = threading.excepthook
+
+        def _sys_hook(exc_type, exc, tb):
+            try:
+                if not issubclass(exc_type,
+                                  (KeyboardInterrupt, SystemExit)):
+                    _dump_crash("main", exc_type, exc, tb)
+            except BaseException:  # interpreter teardown: modules may be
+                pass               # gone — never shadow the real report
+            prev_sys(exc_type, exc, tb)
+
+        def _thread_hook(args):
+            try:
+                if not issubclass(args.exc_type,
+                                  (KeyboardInterrupt, SystemExit)):
+                    _dump_crash(
+                        f"thread:{args.thread.name if args.thread else '?'}",
+                        args.exc_type, args.exc_value, args.exc_traceback)
+            except BaseException:
+                pass
+            prev_thread(args)
+
+        sys.excepthook = _sys_hook
+        threading.excepthook = _thread_hook
+        return _installed_dir

@@ -72,9 +72,31 @@ validation. `role` ("prefill", "decode" or "both") is advisory, as in
 JAX: every replica serves every endpoint. The worker's loop runs the
 housekeeping tick (the kvput inbox's and the leases' TTL sweeps).
 
-Left out (ROADMAP, "PyTorch/CUDA port" items 4 e's second half and 12):
-the observability endpoints, chaos injection, dedup (the gen option
-"d=", refused with UNIMPLEMENTED) and connection draining, the watchdog.
+Resilience (JAX lm_server.py:1129-1262, :2108-2195), with the
+observability it reports through (obs/, utils/metrics.py):
+  * dedup: the gen option "d=KEY" joins a repeated key to the first
+    request's future (a bounded table of 512 keys), so a client's retry
+    after a drain or a requeue never generates twice; GenerateStream
+    drops the key;
+  * draining: `drain` / POST /drainz / SIGTERM close admission
+    (preflight answers UNAVAILABLE "draining", retriable), let in-flight
+    decodes finish within `drain_grace_s` and hand queued (and held-back)
+    work back with the same status;
+  * worker restart: a step that raises hands the survivors to
+    `_on_worker_death`, which spawns a successor worker over the same
+    batcher and requeues the idempotent ones (unary, unretried, inside
+    their deadline; `max_request_retries`), at most `worker_restarts`
+    times in 300 s — past that, every caller fails fast;
+  * the watchdog (`watchdog`: True, a period in seconds or a Watchdog):
+    a subprocess device probe on the daemon's own device and the
+    worker's heartbeat -> ok|degraded|wedged; `on_wedged` "restart" or
+    "drain" escalates a wedged episode, and serve_lm then returns
+    EXIT_RESTART (43);
+  * `metrics_port` serves GET /metrics /healthz /statusz /debugz and
+    POST /drainz (obs/http.py); the chaos seams (chaos/inject.py)
+    kv_exhaust, step_fault and kv_migrate are consulted at admission,
+    before each pool step and in kvpull.
+Request spans, /profilez, /stepz and goodput are ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -84,6 +106,7 @@ import concurrent.futures
 import json
 import logging
 import queue
+import signal
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -91,13 +114,13 @@ from typing import NamedTuple, Optional
 import grpc
 import numpy as np
 
-from dnn_tpu_torch import native
+from dnn_tpu_torch import native, obs
+from dnn_tpu_torch.chaos import inject as _chaos_inject
 from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
 from dnn_tpu_torch.comm.service import (
     GRPC_MSG_OPTIONS,
     MAX_MESSAGE_BYTES,
-    serve_until_terminated,
     _handlers,
     _tensor_arr,
     _tensor_msg,
@@ -113,7 +136,12 @@ from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 log = logging.getLogger("dnn_tpu_torch.lm_server")
 
 __all__ = ["LMServer", "serve_lm", "start_lm_server_in_background",
-           "start_lm_server_loop", "parse_gen_options"]
+           "start_lm_server_loop", "parse_gen_options", "DrainingError",
+           "EXIT_RESTART"]
+
+#: serve_lm's exit code when a wedged-policy escalation asks a supervisor
+#: to restart the process (distinct from a crash and from a clean 0)
+EXIT_RESTART = 43
 
 # room left in a reply for its message framing beside the payload
 _FRAME_SLACK = 4096
@@ -129,7 +157,7 @@ def parse_gen_options(request_id: str, default_max_new: int):
     logit bias ("tok~val,tok~val"), j= the JSON mode's depth (the
     daemon's preflight turns it into a constraint), a= the LoRA
     adapter's index, h= the key of a staged KV handoff (kvput:), d= the
-    JAX daemon's dedup key (refused: not ported)."""
+    dedup key (a repeated key joins the first request's generation)."""
     max_new, seed, opts = default_max_new, None, {}
     parts = (request_id or "").split(":")
     if parts[0] != "gen":
@@ -178,6 +206,13 @@ def _fail_future(fut, exc):
             pass
 
 
+class DrainingError(RuntimeError):
+    """A request refused because the daemon is DRAINING: admission is
+    closed, in-flight decodes are finishing, and the request should go to
+    another replica. It maps to gRPC UNAVAILABLE, which clients retry, so
+    queued work is handed back, never lost."""
+
+
 class _QueuedRequest(NamedTuple):
     prompt: np.ndarray
     max_new: int
@@ -185,24 +220,43 @@ class _QueuedRequest(NamedTuple):
     opts: dict
     on_token: object
     cancel_evt: threading.Event
+    t_q: float  # perf_counter at enqueue: the queue-wait and TTFT clock
     fut: concurrent.futures.Future
+    attempts: int = 0  # worker-death requeues consumed (the retry budget)
 
 
 class _BatcherWorker(threading.Thread):
     """The one thread that talks to the device. Owns the batcher; every
     other thread submits through `submit` (or hands it other device work
-    through `call`), which returns a Future."""
+    through `call`), which returns a Future.
+
+    Resilience (JAX lm_server.py:170-766): `begin_drain` closes admission
+    and lets in-flight decodes finish while queued work is handed back
+    with the retriable DrainingError; a step that raises hands the
+    surviving work to `on_death` (LMServer._on_worker_death requeues it
+    into a successor worker) or, without a hook, fails every caller fast.
+    `heartbeat` and `step_done` feed the watchdog (one None check a loop
+    iteration when off); `tick` is the owner's housekeeping."""
 
     def __init__(self, batcher: ContinuousBatcher):
         super().__init__(daemon=True, name="lm-batcher")
         self.batcher = batcher
-        self.q: "queue.Queue[_QueuedRequest]" = queue.Queue()
+        self.q: "queue.Queue[Optional[_QueuedRequest]]" = queue.Queue()
         self._stop_evt = threading.Event()
+        self._abandon = False
+        self._draining = False
+        # a lock orders submit against the dead-marking of the exits: a
+        # request enqueued after the final drain would never resolve
         self._lock = threading.Lock()
         self._dead: Optional[BaseException] = None
         self._held: Optional[_QueuedRequest] = None
+        self._held_logged = None  # the held item already in the flight ring
         self._futures: dict = {}  # rid -> _QueuedRequest
+        self._ttft_t0: dict = {}  # rid -> t_q, first token not yet committed
         self._calls: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.on_death = None
+        self.heartbeat = None
+        self.step_done = None
         self.tick = None  # housekeeping, called once a loop (rate-limited
         # by itself)
 
@@ -213,19 +267,29 @@ class _BatcherWorker(threading.Thread):
         request at the next step boundary (its future is cancelled)."""
         fut = concurrent.futures.Future()
         with self._lock:
+            if self._draining and self._dead is None:
+                _fail_future(fut, DrainingError(
+                    "LM server draining: admission closed; retry against "
+                    "another replica"))
+                return fut
             if self._dead is not None:
                 _fail_future(fut, self._dead)
                 return fut
             self.q.put(_QueuedRequest(
                 np.asarray(prompt), max_new, seed, dict(opts or {}),
-                on_token, cancel_evt or threading.Event(), fut))
+                on_token, cancel_evt or threading.Event(),
+                time.perf_counter(), fut))
+            if (m := obs.metrics()) is not None:
+                # callable: the exits drain the queue without a gauge
+                # update, so the depth is read at scrape time
+                m.set_fn("serving.queue_depth", self.q.qsize)
         return fut
 
     def call(self, fn) -> concurrent.futures.Future:
         """Run fn() on this thread between two steps; its result (or
         exception) resolves the returned Future. Device work other than
-        the batcher's (the embedding endpoint) goes this way, so it never
-        runs beside a step's graph capture."""
+        the batcher's (the embedding endpoint, the KV endpoints) goes
+        this way, so it never runs beside a step's graph capture."""
         fut = concurrent.futures.Future()
         with self._lock:
             if self._dead is not None:
@@ -248,34 +312,127 @@ class _BatcherWorker(threading.Thread):
             except Exception as e:  # noqa: BLE001 — the caller's error
                 fut.set_exception(e)
 
-    def stop(self):
-        """Shut down: queued and in-flight requests fail with "LM server
-        shut down" as the worker exits."""
+    def _fail_calls(self, exc):
+        """Fail every queued `call` (death, drain's end, shutdown): they
+        mutate this replica's pool and are never requeued."""
+        while True:
+            try:
+                _fail_future(self._calls.get_nowait()[1], exc)
+            except queue.Empty:
+                return
+
+    def _resubmit(self, item: _QueuedRequest) -> bool:
+        """Requeue a survivor of a dead predecessor worker, keeping its
+        future, queue clock and attempt count. False when this worker is
+        dead or draining (the caller then fails the item)."""
         with self._lock:
-            if self._dead is None:
-                self._dead = RuntimeError("LM server shut down")
+            if self._dead is not None or self._draining:
+                return False
+            self.q.put(item)
+        return True
+
+    def begin_drain(self):
+        """Close admission now; the loop hands queued work back with the
+        retriable DrainingError, steps the in-flight decodes to their
+        end and exits."""
+        with self._lock:
+            self._draining = True
+        self._stop_evt.set()
+        obs.flight.record("drain_begin", queued=self.q.qsize(),
+                          active=self.batcher.n_active)
+
+    def _drain_handback(self):
+        """Fail every queued (never admitted) item with the retriable
+        DrainingError. A held-back item never prefilled, so it is handed
+        back too."""
+        exc = DrainingError(
+            "LM server draining: request was queued but not admitted; "
+            "retry against another replica")
+        n = 0
+        with self._lock:
+            if self._held is not None:
+                held, self._held = self._held, None
+                _fail_future(held.fut, exc)
+                n += 1
+            while True:
+                try:
+                    item = self.q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    _fail_future(item.fut, exc)
+                    n += 1
+        if n:
+            obs.flight.record("drain_handback", requests=n)
+
+    def stop(self, *, drain: bool = True):
+        """Signal shutdown. drain=True: the loop exits once the pool and
+        the queue are empty. drain=False: abandon in-flight decodes too —
+        queued futures are cancelled here, admitted ones by the loop at
+        its next iteration."""
+        with self._lock:
+            if not drain:
+                self._abandon = True
+                if self._dead is None:
+                    self._dead = RuntimeError("LM server shut down")
+                while True:
+                    try:
+                        item = self.q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if item is not None:
+                        item.fut.cancel()
+            elif self._dead is None:
+                # dead before the stop signal: a submit racing the loop's
+                # last empty-queue check fails fast instead of hanging
+                self._dead = RuntimeError("LM server shutting down")
         self._stop_evt.set()
 
-    def _admit(self, item: _QueuedRequest) -> bool:
+    def _admit(self, item: Optional[_QueuedRequest]) -> bool:
         """Admit one request; False when it was HELD BACK (pool short of
-        blocks) — the caller then stops pulling more work. A None item
-        (a `call`'s wake-up) admits nothing."""
+        blocks, or an injected kv_exhaust) — the caller then stops
+        pulling more work. A None item (a `call`'s wake-up) admits
+        nothing."""
         if item is None:
             return True
         if item.cancel_evt.is_set():
             item.fut.cancel()
             return True
+        wait = time.perf_counter() - item.t_q
         try:
+            if _chaos_inject.kv_exhaust():
+                raise InsufficientBlocks("chaos: injected KV pool exhaustion")
             rid = self.batcher.submit(item.prompt, item.max_new,
                                       seed=item.seed, **item.opts)
         except InsufficientBlocks:
+            # once an item, not once a retry: the held item is retried
+            # every step
+            if item is not self._held_logged:
+                obs.flight.record("held_back", queue_depth=self.q.qsize())
+                self._held_logged = item
             self._held = item
             return False
-        except (ValueError, TypeError, NotImplementedError) as e:
-            _fail_future(item.fut, e)  # the request's error, not the loop's
+        except Exception as e:  # noqa: BLE001 — the request's error, not
+            # the loop's
+            obs.flight.record("admit_rejected", error=str(e)[:200])
+            _fail_future(item.fut, e)
             return True
-        self._futures[rid] = item
+        obs.flight.record("admit", rid=rid,
+                          queue_wait_ms=round(wait * 1e3, 3),
+                          prompt_len=int(item.prompt.size),
+                          max_new=item.max_new, trace_id=None)
+        # the convoy path samples the first token during submit();
+        # interleaved admission defers it to a later step's commit
         first = self.batcher.first_token(rid)
+        if (m := obs.metrics()) is not None:
+            m.observe("serving.queue_wait_seconds", wait)
+            m.set_fn("serving.queue_depth", self.q.qsize)
+            if first is not None:
+                m.observe("serving.ttft_seconds",
+                          time.perf_counter() - item.t_q)
+        if first is None:
+            self._ttft_t0[rid] = item.t_q
+        self._futures[rid] = item
         if first is not None:
             self._emit(rid, first)
         return True
@@ -298,6 +455,7 @@ class _BatcherWorker(threading.Thread):
                 if self.batcher.cancel(rid):
                     self.batcher.claim(rid)
                 del self._futures[rid]
+                self._ttft_t0.pop(rid, None)
                 item.fut.cancel()
 
     def _publish_done(self):
@@ -305,72 +463,198 @@ class _BatcherWorker(threading.Thread):
         for rid in [r for r in self._futures if r in b.results]:
             tokens, _reason, _logprobs = b.claim(rid)
             fut = self._futures.pop(rid).fut
+            self._ttft_t0.pop(rid, None)
             if not fut.done():
                 try:
                     fut.set_result(tokens)
                 except concurrent.futures.InvalidStateError:
                     pass  # the caller cancelled meanwhile
 
-    def _shutdown(self):
-        exc = self._dead or RuntimeError("LM server shut down")
+    def _shutdown_drain_queue(self):
+        """The drain exit's last step: mark dead, and fail what slipped
+        into the queue between the loop's last empty check and now."""
         with self._lock:
-            pending = list(self._futures.values())
-            self._futures.clear()
+            if self._dead is None:
+                self._dead = RuntimeError("LM server shutting down")
             if self._held is not None:
-                pending.append(self._held)
+                held, self._held = self._held, None
+                _fail_future(held.fut, self._dead)
+            while True:
+                try:
+                    item = self.q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    _fail_future(item.fut, self._dead)
+        self._fail_calls(self._dead)
+
+    def _collect_for_requeue(self):
+        """The death path's hand-over: mark this worker dead (racing
+        submits fail fast) and return the surviving work — [(rid, item)]
+        admitted but unfinished, [item] queued or held. Their futures stay
+        unresolved: the on_death hook decides their fate."""
+        with self._lock:
+            if self._dead is None:
+                self._dead = RuntimeError("LM batcher worker died")
+        self._fail_calls(self._dead)
+        with self._lock:
+            inflight = list(self._futures.items())
+            self._futures.clear()
+            self._ttft_t0.clear()
+            queued = []
+            if self._held is not None:
+                queued.append(self._held)
                 self._held = None
             while True:
                 try:
-                    pending.append(self.q.get_nowait())
+                    item = self.q.get_nowait()
                 except queue.Empty:
                     break
-            futs = [item.fut for item in pending if item is not None]
+                if item is not None:
+                    queued.append(item)
+        return inflight, queued
+
+    def _fail_all(self, exc):
+        self._fail_calls(exc)
+        with self._lock:
+            self._dead = exc  # submits from here on fail at once
+            for item in self._futures.values():
+                _fail_future(item.fut, exc)
+            self._futures.clear()
+            self._ttft_t0.clear()
+            if self._held is not None:
+                held, self._held = self._held, None
+                _fail_future(held.fut, exc)
             while True:
                 try:
-                    futs.append(self._calls.get_nowait()[1])
+                    item = self.q.get_nowait()
                 except queue.Empty:
                     break
-        for fut in futs:
-            _fail_future(fut, exc)
+                if item is not None:
+                    _fail_future(item.fut, exc)
+
+    def _abandon_all(self):
+        """stop(drain=False)'s exit: cancel every admitted and held
+        future (queued ones were cancelled by stop)."""
+        self._fail_calls(RuntimeError("LM server shut down"))
+        with self._lock:
+            for item in self._futures.values():
+                item.fut.cancel()
+            self._futures.clear()
+            if self._held is not None:
+                held, self._held = self._held, None
+                held.fut.cancel()
+
+    def _step_pool(self, b):
+        """One pool step. The chaos seam fires first: before the step
+        dispatches, so never inside a graph capture."""
+        _chaos_inject.step_fault()
+        return b.step()
+
+    def _died(self, e: Exception):
+        """A step raised: hand the survivors to on_death, or fail every
+        caller fast (HealthCheck then reports the worker dead)."""
+        handler = self.on_death
+        obs.flight.record("worker_died", error=str(e)[:500],
+                          pending=len(self._futures),
+                          requeue=handler is not None)
+        if handler is None:
+            log.exception("batcher worker died; failing %d pending "
+                          "requests", len(self._futures))
+            self._fail_all(RuntimeError(f"LM batcher worker died: {e}"))
+            return
+        log.exception("batcher worker died; handing %d in-flight and "
+                      "queued requests to the requeue hook",
+                      len(self._futures))
+        inflight, queued = self._collect_for_requeue()
+        try:
+            handler(e, inflight, queued)
+        except Exception:  # noqa: BLE001 — a broken hook must not strand
+            # the collected futures
+            log.exception("worker-death requeue hook failed; failing "
+                          "survivors")
+            exc = RuntimeError(f"LM batcher worker died: {e}")
+            for _rid, item in inflight:
+                _fail_future(item.fut, exc)
+            for item in queued:
+                _fail_future(item.fut, exc)
+
+    def _commit(self, stepped: dict):
+        """Stream a step's committed tokens and record the deferred TTFTs
+        of interleaved admissions (their first committed token)."""
+        for rid, tok in stepped.items():
+            t0 = self._ttft_t0.pop(rid, None)
+            if t0 is not None and (m := obs.metrics()) is not None:
+                m.observe("serving.ttft_seconds", time.perf_counter() - t0)
+            self._emit(rid, tok)
 
     def run(self):
         b = self.batcher
         try:
-            while not self._stop_evt.is_set():
-                if self.tick is not None:
-                    self.tick()
-                self._run_calls()
-                self._process_cancels()
-                if b.n_active == 0 and self._held is None:
-                    # overlap: the pool emptied with one dispatched step
-                    # uncommitted (its rows are past every retirement);
-                    # commit it before waiting for work
-                    b.flush_overlap()
-                    try:
-                        item = self.q.get(timeout=0.05)
-                    except queue.Empty:
-                        continue
-                    self._admit(item)
-                while b.free_slots():
-                    if self._held is not None:
-                        item, self._held = self._held, None
-                    else:
-                        try:
-                            item = self.q.get_nowait()
-                        except queue.Empty:
-                            break
-                    if not self._admit(item):
-                        break
-                for rid, tok in (b.step() if b.n_active else {}).items():
-                    self._emit(rid, tok)
-                self._publish_done()
-        except Exception as e:  # noqa: BLE001 — a device error must fail
-            # every waiting caller fast instead of hanging them
+            self._loop(b)
+        except Exception as e:  # noqa: BLE001 — outside a step (a flush,
+            # a call's wake-up): fail every waiting caller fast
             log.exception("batcher worker died")
-            with self._lock:
-                self._dead = RuntimeError(f"LM batcher worker died: {e}")
-        finally:
-            self._shutdown()
+            self._fail_all(RuntimeError(f"LM batcher worker died: {e}"))
+
+    def _loop(self, b):
+        while True:
+            if (hb := self.heartbeat) is not None:
+                hb()
+            if self.tick is not None:
+                self.tick()
+            self._run_calls()
+            if self._abandon:
+                self._abandon_all()
+                return
+            self._process_cancels()
+            if self._draining:
+                # queued work handed back, in-flight decodes stepped to
+                # their end below, then a clean exit (submit refuses)
+                self._drain_handback()
+                if b.n_active == 0:
+                    b.flush_overlap()
+                    with self._lock:
+                        if self._dead is None:
+                            self._dead = DrainingError(
+                                "LM server drained and exited")
+                    self._fail_calls(self._dead)
+                    obs.flight.record("drain_done")
+                    return
+            elif b.n_active == 0 and self._held is None and self.q.empty():
+                # overlap: the pool emptied with one dispatched step
+                # uncommitted (its rows are past every retirement);
+                # commit it before waiting for work
+                b.flush_overlap()
+                if self._stop_evt.is_set():
+                    self._shutdown_drain_queue()
+                    return
+                try:
+                    item = self.q.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                self._admit(item)
+            while not self._draining and b.free_slots():
+                if self._held is not None:
+                    item, self._held = self._held, None
+                else:
+                    try:
+                        item = self.q.get_nowait()
+                    except queue.Empty:
+                        break
+                if not self._admit(item):
+                    break
+            had_active = bool(b.n_active)
+            try:
+                stepped = self._step_pool(b) if had_active else {}
+            except Exception as e:  # noqa: BLE001 — a device-side error
+                # must not leave callers hanging for request_timeout
+                self._died(e)
+                return
+            if had_active and (sd := self.step_done) is not None:
+                sd()  # a real step completed: the watchdog is warmed
+            self._commit(stepped)
+            self._publish_done()
 
 
 class LMServer:
@@ -405,11 +689,57 @@ class LMServer:
                  draft_cfg=None, draft_prepared=None, spec_k: int = 4,
                  weights: str = "f32", role: str = "both",
                  kv_handoff_cap: int = 64, kv_handoff_ttl_s: float = 120.0,
-                 kv_lease_ttl_s: float = 30.0, **batcher_kwargs):
+                 kv_lease_ttl_s: float = 30.0,
+                 metrics_port: Optional[int] = None, watchdog=None,
+                 on_wedged: str = "503", worker_restarts: int = 2,
+                 max_request_retries: int = 1, drain_grace_s: float = 30.0,
+                 **batcher_kwargs):
         native.load()  # the checksum library, built before serving
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"role must be prefill|decode|both, got {role!r}")
+        if on_wedged not in ("503", "restart", "drain"):
+            raise ValueError(
+                f"on_wedged must be 503|restart|drain, got {on_wedged!r}")
         self.role = role
+        # resilience state, before anything can serve a request or a
+        # scrape: the drain flag, the wedged policy's escalation latch,
+        # the dedup table, the restart bookkeeping
+        self.on_wedged = on_wedged
+        self.worker_restarts = int(worker_restarts)
+        self.max_request_retries = int(max_request_retries)
+        self.drain_grace_s = float(drain_grace_s)
+        self._draining = False
+        self._drain_thread = None
+        self._drain_lock = threading.Lock()
+        self._escalated = threading.Event()
+        self._escalate_reason: Optional[str] = None
+        self._restart_lock = threading.Lock()
+        self._restart_times: list = []
+        self._restart_window_s = 300.0
+        self._dedup_lock = threading.Lock()
+        self._dedup: dict = {}  # key -> worker future, oldest first
+        self._DEDUP_CAP = 512
+        self.metrics_server = None
+        self._watchdog = None
+        if (m := obs.metrics()) is not None:
+            from dnn_tpu_torch.ops.cuda import cached_attention as _k
+            from dnn_tpu_torch.utils.metrics import labeled
+
+            m.set(labeled("dnn_tpu_replica_role", role=self.role), 1.0)
+            # the cache kernels' launch counters (host ints the wrappers
+            # keep; a captured step's replay counts its launches), read
+            # at scrape: a process serving the daemon is checked from
+            # outside by them
+            for name in ("cached_attention", "decode_attention",
+                         "paged_decode_attention"):
+                fn = getattr(_k, name)
+                for dt in fn.launches_by_dtype:
+                    m.set_fn(labeled("dnn_tpu_kernel_launches", kernel=name,
+                                     kv_dtype=dt),
+                             lambda fn=fn, dt=dt: fn.launches_by_dtype[dt])
+        if obs.enabled():
+            # an unhandled crash anywhere in the process dumps the ring
+            obs.flight.install_crash_dump()
         # the kvput inbox: key -> (payload, staged at); single use (h=
         # consumes an entry), bounded by a cap and a TTL so an abandoned
         # handoff never pins its row-sized payload for good
@@ -459,9 +789,219 @@ class LMServer:
             from dnn_tpu_torch.kvtier.migrate import LeaseTable
 
             self._kvtier_leases = LeaseTable(ttl_s=kv_lease_ttl_s)
-        self.worker = _BatcherWorker(self.batcher)
-        self.worker.tick = self._housekeeping_tick
+        self.worker = self._spawn_worker()
         self.worker.start()
+        try:
+            if metrics_port is not None:
+                # /healthz: the worker alive and not draining, then the
+                # watchdog's ok|degraded|wedged through /statusz
+                self.metrics_server = obs.serve_metrics(
+                    metrics_port,
+                    healthy=lambda: (self.worker.is_alive()
+                                     and not self._draining),
+                    status=self._statusz, drain=self._drainz,
+                    device=self.batcher.device)
+            if watchdog:
+                self._start_watchdog(watchdog)
+        except BaseException:
+            # a failed construction (a port in use) must not leave the
+            # worker or the endpoint running
+            self.close()
+            raise
+
+    def _spawn_worker(self) -> _BatcherWorker:
+        """A batcher worker wired to this server: at construction and by
+        the worker-death restart, so a successor never drifts from the
+        first one's hooks."""
+        worker = _BatcherWorker(self.batcher)
+        worker.tick = self._housekeeping_tick
+        if self.worker_restarts > 0:
+            worker.on_death = self._on_worker_death
+        return worker
+
+    def _start_watchdog(self, watchdog):
+        """The hung-device watchdog (obs/watchdog.py): `watchdog` is True
+        (a 30 s period), a period in seconds, or a prebuilt Watchdog
+        (tests stub its probe). It probes THIS daemon's device — a CPU
+        daemon never touches the card, a CUDA one never the CPU — with
+        JAX's deadline, min(10, max(6, period / 3)) seconds, on the
+        probe's device work; the probe child's import of torch is bounded
+        apart (PROBE_IMPORT_BUDGET_S, the join's slack)."""
+        import functools
+
+        from dnn_tpu_torch.obs.watchdog import (PROBE_DEADLINE_FLOOR_S,
+                                                PROBE_IMPORT_BUDGET_S,
+                                                Watchdog,
+                                                subprocess_device_probe)
+
+        if isinstance(watchdog, Watchdog):
+            self._watchdog = watchdog
+        else:
+            period = 30.0 if watchdog is True else float(watchdog)
+            self._watchdog = Watchdog(
+                period_s=period,
+                probe_deadline_s=min(10.0, max(PROBE_DEADLINE_FLOOR_S,
+                                               period / 3)),
+                device_probe=functools.partial(
+                    subprocess_device_probe,
+                    platform=str(self.batcher.device)),
+                probe_slack_s=PROBE_IMPORT_BUDGET_S + 2.0)
+        if self._watchdog.alive_check is None:
+            # a lambda over self.worker: a restart swaps in a successor
+            self._watchdog.alive_check = lambda: self.worker.is_alive()
+        self.worker.heartbeat = self._watchdog.beat
+        self.worker.step_done = self._watchdog.step_done
+        if self.on_wedged != "503":
+            self._watchdog.on_wedged = self._wedged_escalate
+        if not self._watchdog._thread.is_alive():
+            self._watchdog.start()
+
+    def _statusz(self) -> dict:
+        """/statusz: the watchdog's state when one runs, else the worker's
+        liveness; the replica's role; the KV tier's residency when the
+        radix store is on; a draining daemon reads `draining` (unless
+        wedged)."""
+        if self._watchdog is not None:
+            s = dict(self._watchdog.status())
+        else:
+            alive = self.worker.is_alive()
+            s = {"state": "ok" if alive else "wedged",
+                 "components": {"worker": {
+                     "state": "ok" if alive else "wedged",
+                     "detail": "serving worker thread liveness"}}}
+        s["role"] = self.role
+        comps = dict(s.get("components") or {})
+        if self._kvtier_leases is not None:
+            st = self.batcher._prefix_store
+            comps["kvtier"] = {
+                "state": "ok",
+                "detail": (f"resident_blocks={st.n_blocks} "
+                           f"block_hits={st.block_hits} "
+                           f"remote_hits={st.remote_block_hits} "
+                           f"leases={self._kvtier_leases.n_leases}"),
+                "kvtier_blocks": st.n_blocks,
+            }
+        if self._draining:
+            comps["drain"] = {"state": "draining",
+                              "detail": "admission closed; finishing "
+                                        "in-flight decodes"}
+            if s.get("state") != "wedged":
+                s["state"] = "draining"
+        s["components"] = comps
+        return s
+
+    # -- resilience: drain, requeue, the wedged policy -------------------
+
+    def _wedged_escalate(self, detail: str):
+        """The watchdog's once-an-episode wedged hook: "restart" asks the
+        process to exit at once (serve_lm returns EXIT_RESTART), "drain"
+        finishes in-flight work first, within the drain grace."""
+        obs.flight.record("wedged_policy", policy=self.on_wedged,
+                          detail=str(detail)[:300])
+        if self.on_wedged == "drain":
+            self._drainz()  # the drain thread escalates when done
+        else:
+            self._escalate(f"wedged: {detail}")
+
+    def _escalate(self, reason: str):
+        self._escalate_reason = reason
+        self._escalated.set()
+
+    def drain(self, grace_s: Optional[float] = None) -> dict:
+        """Connection draining, blocking: close admission, let in-flight
+        decodes finish, hand queued work back, let the worker exit.
+        Bounded by `grace_s` (default drain_grace_s): work still running
+        then is abandoned (its futures cancel)."""
+        grace = self.drain_grace_s if grace_s is None else float(grace_s)
+        self._draining = True
+        self.worker.begin_drain()
+        self.worker.join(timeout=grace)
+        clean = not self.worker.is_alive()
+        if not clean:
+            self.worker.stop(drain=False)
+            self.worker.join(timeout=5)
+        obs.flight.record("drain_exit", clean=clean, grace_s=round(grace, 3))
+        return {"drained": True, "clean": clean}
+
+    def _drainz(self) -> dict:
+        """POST /drainz, SIGTERM and the drain policy: start one
+        background drain (idempotent) and report its state."""
+        with self._drain_lock:
+            if self._drain_thread is None:
+                def run():
+                    self.drain()
+                    self._escalate("drained")
+
+                obs.flight.record("drainz", source="http_or_policy")
+                self._drain_thread = threading.Thread(
+                    target=run, daemon=True, name="lm-drain")
+                self._draining = True  # refuse admissions at once
+                self._drain_thread.start()
+        return {"draining": True, "active": self.batcher.n_active,
+                "queued": self.worker.q.qsize(),
+                "worker_alive": self.worker.is_alive()}
+
+    def _on_worker_death(self, exc, inflight, queued):
+        """The worker died mid-step (a device fault, injected or real).
+        Spawn a successor over the same batcher and requeue the
+        idempotent survivors: unary requests (nothing streamed yet) with
+        retries left and time before their deadline; the rest fail fast.
+        At most `worker_restarts` restarts in 300 s: past that, a broken
+        device fails every caller fast instead of looping. Runs on the
+        dying worker's thread, which owns the batcher until it returns."""
+        now = time.perf_counter()
+        with self._restart_lock:
+            self._restart_times = [t for t in self._restart_times
+                                   if now - t <= self._restart_window_s]
+            can_restart = (len(self._restart_times) < self.worker_restarts
+                           and not self._draining)
+            if can_restart:
+                self._restart_times.append(now)
+        items = [(rid, it) for rid, it in inflight] + [(None, it)
+                                                       for it in queued]
+        fail_exc = RuntimeError(f"LM batcher worker died: {exc}")
+        if not can_restart:
+            obs.flight.record("worker_restart_exhausted",
+                              window_s=self._restart_window_s,
+                              budget=self.worker_restarts, failed=len(items))
+            for _rid, it in items:
+                _fail_future(it.fut, fail_exc)
+            return
+        # retire the dead requests' slots (their static graph buffers go
+        # inactive) and drop a dispatched but uncommitted overlap step:
+        # the successor starts from a clean pool and never commits a
+        # token of the dead step into a requeued request
+        for rid, _it in inflight:
+            try:
+                if self.batcher.cancel(rid):
+                    self.batcher.claim(rid)
+            except Exception:  # noqa: BLE001 — the slot already retired
+                pass
+        self.batcher.drop_inflight()
+        new_worker = self._spawn_worker()
+        old = self.worker
+        new_worker.heartbeat = old.heartbeat
+        new_worker.step_done = old.step_done
+        self.worker = new_worker
+        new_worker.start()
+        requeued = failed = 0
+        for _rid, it in items:
+            ok = (it.on_token is None and not it.cancel_evt.is_set()
+                  and it.attempts < self.max_request_retries
+                  and now - it.t_q < self.request_timeout)
+            if ok:
+                ok = new_worker._resubmit(
+                    it._replace(attempts=it.attempts + 1))
+            if ok:
+                requeued += 1
+            else:
+                failed += 1
+                _fail_future(it.fut, fail_exc)
+        obs.flight.record("worker_restart", restarts=len(self._restart_times),
+                          requeued=requeued, failed=failed,
+                          error=str(exc)[:300])
+        log.warning("batcher worker restarted after death (%s): %d requests "
+                    "requeued, %d failed", exc, requeued, failed)
 
     def json_constraint(self, depth: int):
         """The TokenConstraint of a JSON value nested at most `depth`
@@ -530,8 +1070,9 @@ class LMServer:
                 grpc.StatusCode.INVALID_ARGUMENT,
                 f"embed pooling must be mean|last, got {pooling!r}")
         if not self.worker.is_alive():
-            await context.abort(grpc.StatusCode.UNAVAILABLE,
-                                "LM batcher worker is not running")
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE,
+                "LM batcher worker is not running (died or shut down)")
         fut = self.worker.call(
             lambda: self._embed_prompt(np.asarray(prompt), pooling))
         try:
@@ -575,16 +1116,18 @@ class LMServer:
         return prompt
 
     async def _preflight(self, request_id: str, context):
+        """Both fronts' preflight: the drain gate (UNAVAILABLE, which
+        clients retry elsewhere), the worker's liveness, the options."""
+        if self._draining:
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE,
+                "draining: admission closed; retry against another replica")
         if not self.worker.is_alive():
-            await context.abort(grpc.StatusCode.UNAVAILABLE,
-                                "LM batcher worker is not running")
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE,
+                "LM batcher worker is not running (died or shut down)")
         max_new, seed, opts = parse_gen_options(request_id,
                                                 self.default_max_new)
-        if "dedup" in opts:
-            await context.abort(
-                grpc.StatusCode.UNIMPLEMENTED,
-                "request option d= (dedup): not ported to dnn_tpu_torch yet "
-                "(ROADMAP PyTorch/CUDA port item 4 e, second half)")
         if "kv_handle" in opts:
             opts["prefilled"] = await self._resolve_kv_handle(
                 opts.pop("kv_handle"), context)
@@ -609,19 +1152,51 @@ class LMServer:
 
     async def _generate(self, prompt, request_id: str, context):
         """Generate for `prompt` (1-D ids) under `request_id`'s options;
-        the tokens, or the RPC aborted with the request's status."""
+        the tokens, or the RPC aborted with the request's status. A
+        repeated dedup key (d=) joins the first request's future: its
+        wait is shielded, so this caller's deadline or disconnect never
+        cancels the original's generation."""
         max_new, seed, opts, timeout = await self._preflight(request_id,
                                                              context)
+        dkey = opts.pop("dedup", None)
         cancel_evt = threading.Event()
-        fut = self.worker.submit(prompt, max_new, seed, opts=opts,
-                                 cancel_evt=cancel_evt)
+        fut = None
+        if dkey is not None:
+            # a failed or cancelled entry is replaced: retrying after a
+            # real failure is the point of retrying
+            with self._dedup_lock:
+                cached = self._dedup.get(dkey)
+                if cached is not None and not cached.cancelled() and not (
+                        cached.done() and cached.exception() is not None):
+                    fut = cached
+        joined = fut is not None
+        if joined:
+            obs.flight.record("dedup_join", key=str(dkey)[:80],
+                              trace_id=None)
+        else:
+            fut = self.worker.submit(prompt, max_new, seed, opts=opts,
+                                     cancel_evt=cancel_evt)
+            if dkey is not None:
+                with self._dedup_lock:
+                    self._dedup[dkey] = fut
+                    while len(self._dedup) > self._DEDUP_CAP:
+                        self._dedup.pop(next(iter(self._dedup)))
+        wrapped = asyncio.wrap_future(fut)
         try:
-            tokens = await asyncio.wait_for(asyncio.wrap_future(fut), timeout)
+            tokens = await asyncio.wait_for(
+                asyncio.shield(wrapped) if joined else wrapped, timeout)
         except asyncio.TimeoutError:
             cancel_evt.set()
+            if (m := obs.metrics()) is not None:
+                m.inc("serving.deadline_exceeded_total")
+            obs.flight.record("deadline_miss", method="SendTensor",
+                              timeout_s=timeout, trace_id=None)
             await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
                                 f"generation exceeded {timeout}s")
         except asyncio.CancelledError:
+            if fut.cancelled():  # the server abandoned it (shutdown)
+                await context.abort(grpc.StatusCode.UNAVAILABLE,
+                                    "LM server shut down")
             cancel_evt.set()  # the client went away: free the slot
             raise
         except Exception as e:  # noqa: BLE001 — mapped to a status
@@ -661,6 +1236,9 @@ class LMServer:
         prompt = await self._validated_prompt(request, context)
         max_new, seed, opts, timeout = await self._preflight(
             request.request_id, context)
+        # a stream cannot join another request (its tokens go to one
+        # consumer): the dedup key is dropped
+        opts.pop("dedup", None)
         loop = asyncio.get_running_loop()
         q: "asyncio.Queue" = asyncio.Queue()
         cancel_evt = threading.Event()
@@ -682,6 +1260,12 @@ class LMServer:
                 remaining = deadline - loop.time()
                 if remaining <= 0:
                     cancel_evt.set()
+                    if (m := obs.metrics()) is not None:
+                        m.inc("serving.deadline_exceeded_total")
+                    obs.flight.record("deadline_miss",
+                                      method="GenerateStream",
+                                      timeout_s=timeout, tokens=n,
+                                      trace_id=None)
                     await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
                                         f"generation exceeded {timeout}s")
                 try:
@@ -711,8 +1295,9 @@ class LMServer:
         work never meets a step's graph capture); its result. A ValueError
         aborts INVALID_ARGUMENT; anything else propagates."""
         if not self.worker.is_alive():
-            await context.abort(grpc.StatusCode.UNAVAILABLE,
-                                "LM batcher worker is not running")
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE,
+                "LM batcher worker is not running (died or shut down)")
         fut = self.worker.call(fn)
         try:
             return await asyncio.wait_for(asyncio.wrap_future(fut),
@@ -823,10 +1408,17 @@ class LMServer:
             return 0
         now = time.monotonic() if now is None else now
         with self._kv_lock:
-            old = [k for k, (_, t0) in self._kv_handoff.items()
+            old = [(k, payload.get("prompt_len"))
+                   for k, (payload, t0) in self._kv_handoff.items()
                    if now - t0 > ttl]
-            for k in old:
+            for k, _ in old:
                 del self._kv_handoff[k]
+        m = obs.metrics()
+        for k, plen in old:
+            if m is not None:
+                m.inc("serving.kvput_expired_total")
+            obs.flight.record("kvput_expired", key=str(k)[:80],
+                              prompt_len=plen, ttl_s=ttl, cause="kvput_ttl")
         return len(old)
 
     def _housekeeping_tick(self):
@@ -947,21 +1539,36 @@ class LMServer:
             finally:
                 client.close()
 
+        m = obs.metrics()
         try:
+            _chaos_inject.kv_migrate()  # the donor-death-mid-pull seam
             payload = await asyncio.to_thread(pull)
             n = await asyncio.wrap_future(self.worker.call(
                 lambda: self.batcher.kvtier_adopt(payload)))
         except Exception as e:  # noqa: BLE001 — a failed pull fails the
             # optimization, never the request: the generate prefills
+            if m is not None:
+                m.inc("dnn_tpu_kvtier_fallback_total")
+            obs.flight.record("kvtier_fallback", donor=donor,
+                              error=f"{type(e).__name__}: {e}"[:200])
             return wc.TensorResponse(
                 status=f"[lm] kvtier_fallback: {type(e).__name__}: {e}"[:240])
+        nbytes = int(payload.get("_wire_bytes", 0))
+        if m is not None and n:
+            m.inc("dnn_tpu_kvtier_migrated_blocks_total", n)
+            if nbytes:
+                m.inc("dnn_tpu_kvtier_migrated_bytes_total", nbytes)
+        obs.flight.record("kvtier_adopted", donor=donor, blocks=n,
+                          bytes=nbytes)
         return wc.TensorResponse(
             status=f"[lm] ok: kvpull adopted {n} blocks "
-                   f"({payload['_wire_bytes']} bytes) from {donor} over "
+                   f"({nbytes} bytes) from {donor} over "
                    f"{payload['_rung']}")
 
     async def HealthCheck(self, request, context):
-        return pb.HealthCheckResponse(is_healthy=self.worker.is_alive())
+        # a draining daemon reports unhealthy, so balancers stop routing
+        return pb.HealthCheckResponse(
+            is_healthy=self.worker.is_alive() and not self._draining)
 
     async def SendMessage(self, request, context):
         """The text front. The transport hello is declined first (a hello
@@ -989,8 +1596,14 @@ class LMServer:
             [int(t) for t in tokens]))
 
     def close(self):
-        self.worker.stop()
+        self.worker.stop(drain=False)
         self.worker.join(timeout=10)
+        if self._watchdog is not None:
+            self._watchdog.close()
+            self._watchdog = None
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
         if self._kvtier_leases is not None:
             self._kvtier_leases.close()  # frees staging and shm segments
 
@@ -1007,17 +1620,70 @@ async def _start(cfg, prepared, port: int, server_kwargs):
 
 
 async def serve_lm(cfg, prepared, *, port: int, **server_kwargs) -> int:
-    """Start the LM daemon and block until termination (SIGTERM stops it
-    cleanly, rc 0). `server_kwargs` go to LMServer (tokenizer,
-    default_max_new, ...) and on to the batcher (kv, kv_dtype,
-    compute_dtype, decode_buckets, paged_blocks, prefix_cache,
-    prefill_chunk_tokens, overlap, ...)."""
+    """Start the LM daemon and block until termination. `server_kwargs`
+    go to LMServer (tokenizer, default_max_new, metrics_port, watchdog,
+    on_wedged, ...) and on to the batcher (kv, kv_dtype, compute_dtype,
+    decode_buckets, paged_blocks, prefix_cache, prefill_chunk_tokens,
+    overlap, ...).
+
+    SIGTERM DRAINS (JAX lm_server.py:2108-2195): admission closes
+    (UNAVAILABLE "draining", retriable), in-flight decodes finish within
+    the drain grace, queued work is handed back, and the daemon returns
+    0. A wedged-policy escalation (on_wedged "restart" or "drain")
+    returns EXIT_RESTART (43), so a supervisor relaunches the process;
+    so does a drain through POST /drainz."""
     servicer, server = await _start(cfg, prepared, port, server_kwargs)
     log.info("gRPC LM server listening on [::]:%d (%d slots, %s)", port,
              servicer.batcher.slots, servicer.batcher.device)
+    loop = asyncio.get_running_loop()
+    sigterm_drained = False
+
+    def on_sigterm():
+        nonlocal sigterm_drained
+        sigterm_drained = True
+        obs.flight.record("sigterm_drain")
+        log.info("SIGTERM: draining (admission closed, finishing in-flight "
+                 "decodes)")
+        servicer._drainz()  # a background drain, which escalates
+
     try:
-        return await serve_until_terminated(server)
+        loop.add_signal_handler(signal.SIGTERM, on_sigterm)
+    except (NotImplementedError, ValueError, RuntimeError):
+        pass  # not the main thread
+
+    async def wait_escalated():
+        # bounded waits: a cancelled task never strands a thread in wait()
+        while not await asyncio.to_thread(servicer._escalated.wait, 1.0):
+            pass
+
+    esc_task = asyncio.ensure_future(wait_escalated())
+    term_task = asyncio.ensure_future(server.wait_for_termination())
+    try:
+        await asyncio.wait({esc_task, term_task},
+                           return_when=asyncio.FIRST_COMPLETED)
+        if servicer._escalated.is_set():
+            reason = servicer._escalate_reason or "escalated"
+            log.warning("serve_lm exiting on escalation: %s", reason)
+            return 0 if sigterm_drained else EXIT_RESTART
+        return 0
     finally:
+        # the server stops FIRST (wait_for_termination then completes on
+        # its own) and the watcher tasks are reaped after: cancelling
+        # wait_for_termination while stop() runs makes grpc.aio raise
+        # CancelledError out of this finally, and the exit code comes
+        # back 1 instead of 0 or 43
+        esc_task.cancel()
+        try:
+            await server.stop(grace=1)
+        except asyncio.CancelledError:
+            pass
+        for t in (esc_task, term_task):
+            if not t.done():
+                t.cancel()
+            try:
+                await t
+            except BaseException:  # noqa: BLE001 — reaped, not consulted
+                pass
         servicer.close()
 
 

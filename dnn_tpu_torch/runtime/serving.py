@@ -146,7 +146,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dnn_tpu_torch import resolve_device
+from dnn_tpu_torch import obs, resolve_device
 from dnn_tpu_torch.control.handoff import as_tensor, np_dtype_name
 from dnn_tpu_torch.models.gpt import GPTConfig, for_compute, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads
@@ -182,6 +182,7 @@ from dnn_tpu_torch.runtime.paged_kvcache import (
     PagedKV,
     init_paged_cache,
 )
+from dnn_tpu_torch.utils.metrics import labeled
 
 log = logging.getLogger("dnn_tpu_torch.serving")
 
@@ -603,6 +604,8 @@ class ContinuousBatcher:
         self.prefix_hits = 0       # lookups that reused >= 1 chunk/block
         self.prefix_misses = 0     # lookups that reused nothing
         self.prefix_evictions = 0
+        self._pool_exhausted_episode = False  # latch: one flight event
+        # a shortage, not one a retry
         self.prefill_chunks_run = 0  # prompt chunks actually computed
 
         # interleaved admission (JAX serving.py:1006-1035): the mixed
@@ -1123,6 +1126,13 @@ class ContinuousBatcher:
         else:
             self.prefix_misses += 1
 
+    def _chunk_ran(self):
+        """One prompt chunk computed (every prefill path): the host
+        counter and serving.prefill_chunks_total."""
+        self.prefill_chunks_run += 1
+        if (m := obs.metrics()) is not None:
+            m.inc("serving.prefill_chunks_total")
+
     def _prefill(self, prompt, aid: int = 0):
         """The convoy chunk loop into the transient row — full prompt_pad
         chunks and one padded tail, each at its absolute start, through
@@ -1160,7 +1170,7 @@ class ContinuousBatcher:
             logits = self.family.prefill(
                 self._row_view, padded_d[:, c * p_pad:(c + 1) * p_pad],
                 self._row, c * p_pad)
-            self.prefill_chunks_run += 1
+            self._chunk_ran()
             if self._prefix_cache is not None \
                     and (c + 1) * p_pad <= len(prompt):
                 while len(self._prefix_cache) >= self._prefix_cap:
@@ -1208,7 +1218,7 @@ class ContinuousBatcher:
             logits = self.family.prefill(
                 self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
                 self._row, start)
-            self.prefill_chunks_run += 1
+            self._chunk_ran()
             for b in range(start // bp, p_len // bp):
                 pos = (b + 1) * bp - 1
                 if pos >= start + p_pad:
@@ -1348,7 +1358,7 @@ class ContinuousBatcher:
             logits = self.family.prefill(
                 self.prepared, padded_d[:, c * p_pad:(c + 1) * p_pad], row,
                 c * p_pad)
-            self.prefill_chunks_run += 1
+            self._chunk_ran()
         end = n_chunks * p_pad
         for kk, leaf in row.items():
             # positions past the prompt's chunks as a fresh row has them
@@ -1397,6 +1407,8 @@ class ContinuousBatcher:
                              f"({self.cfg.vocab_size},)")
         for (kk, _, _), h in zip(spec, leaves):
             self._row[kk].copy_(h)
+        if (m := obs.metrics()) is not None:
+            m.inc("serving.kv_adoptions_total")
         return lr.to(self.device)
 
     # ------------------------------------------------------------------
@@ -1457,6 +1469,15 @@ class ContinuousBatcher:
             self._evict_prefix_entry()
             owned = self.allocator.alloc(n)
         if owned is None:
+            # once an episode (until blocks come free): the held-back
+            # request is retried every step
+            if not self._pool_exhausted_episode:
+                self._pool_exhausted_episode = True
+                if (m := obs.metrics()) is not None:
+                    m.inc("serving.pool_exhausted_total")
+                obs.flight.record("pool_exhausted", need=n,
+                                  free=self.allocator.n_free,
+                                  high_water=self.allocator.high_water)
             raise InsufficientBlocks(
                 f"insufficient free cache blocks: need {n}, have "
                 f"{self.allocator.n_free} (pool {self.allocator.n_blocks}, "
@@ -1516,6 +1537,8 @@ class ContinuousBatcher:
             # the store holds its own reference per inserted node; ours
             # go, freeing exactly the blocks that did not make it in
             self.allocator.free(owned + have_ids)
+        if (m := obs.metrics()) is not None:
+            m.inc("serving.kvtier_blocks_adopted_total", n_missing)
         return n_missing
 
     @torch.no_grad()
@@ -1562,7 +1585,7 @@ class ContinuousBatcher:
                 logits = self.family.prefill(
                     self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
                     self._row, start)
-                self.prefill_chunks_run += 1
+                self._chunk_ran()
                 for b in range(start // bp, n_cover):
                     pos = (b + 1) * bp - 1
                     if pos >= start + p_pad:
@@ -1697,16 +1720,24 @@ class ContinuousBatcher:
             return self._prefix_store.n_blocks > 0
         return bool(self._prefix_cache)
 
-    def _evict_prefix_entry(self):
+    def _evict_prefix_entry(self, cause: str = "capacity"):
         """Drop the LRU prefix entry: the dense LRU's head, or the radix
         store's LRU leaf (blocks live slots still share survive by their
-        reference counts)."""
+        reference counts). `cause` labels the eviction ("capacity":
+        admission pressure)."""
         if self._prefix_store is not None:
             if not self._prefix_store.evict_one():
                 return
+            left = self._prefix_store.n_blocks
         else:
             self._prefix_cache.popitem(last=False)
+            left = len(self._prefix_cache)
         self.prefix_evictions += 1
+        if (m := obs.metrics()) is not None:
+            m.inc("serving.prefix_evictions_total")
+            m.inc(labeled("serving.prefix_evictions_cause_total",
+                          cause=cause))
+        obs.flight.record("prefix_evict", entries_left=left, cause=cause)
 
     @staticmethod
     def _stop_match(emitted: list, stop_seqs: list) -> int:
@@ -1721,6 +1752,7 @@ class ContinuousBatcher:
         req = self._slot_req[slot]
         if self.paged and req["blocks"]:
             self.allocator.free(req["blocks"])
+            self._pool_exhausted_episode = False  # blocks came free
         if "constraint" in req and not req.get("c_released"):
             # the grammar's reference drops (its rows stay cached until
             # evicted) and the slot's device row returns to the
@@ -1753,6 +1785,7 @@ class ContinuousBatcher:
         rid = req["rid"]
         self.results[rid] = np.asarray(emitted, np.int32)
         self.finish_reasons[rid] = reason
+        self._obs_retire(req, reason)
         if req["logprobs"]:
             n, k = len(emitted), self._logprobs_k
             self.token_logprobs[rid] = {
@@ -1777,6 +1810,22 @@ class ContinuousBatcher:
                     toks[:n_cover * self._block_len],
                     req["blocks"][:n_cover], origin=req["borig"])
         self._release(slot)
+
+    @staticmethod
+    def _obs_retire(req, reason: str):
+        """A leaving request's outcome counter and flight event (host
+        bookkeeping only), shared by retirement and cancel."""
+        if (m := obs.metrics()) is not None:
+            m.inc(labeled("serving.requests_total", outcome=reason))
+        obs.flight.record("retire", rid=req["rid"], reason=reason,
+                          tokens=len(req["emitted"]), trace_id=None)
+
+    def drop_inflight(self):
+        """Forget a dispatched but uncommitted overlap step (the LM
+        daemon's worker-death path, after cancelling the dead requests):
+        its tokens belong to requests that no longer hold slots, and are
+        never committed into a successor's requests."""
+        self._inflight = None
 
     def claim(self, rid: int):
         """Pop a finished (or cancelled) request's whole record — (tokens
@@ -1812,6 +1861,7 @@ class ContinuousBatcher:
                                        if s != slot]
                 self._release(slot)
                 self.finish_reasons[rid] = "cancelled"
+                self._obs_retire(req, "cancelled")
                 return True
         if rid in self.results:
             del self.results[rid]
@@ -1838,7 +1888,7 @@ class ContinuousBatcher:
         last — the fused finish, whose first token is read back at the
         first commit past this dispatch (install_step)."""
         req, p, slot = ilv["req"], ilv["p"], ilv["slot"]
-        self.prefill_chunks_run += 1
+        self._chunk_ran()
         if not ilv["last"]:
             p["next"] += 1
             return

@@ -1,0 +1,358 @@
+"""Step metrics and observability counters (port of
+dnn_tpu/utils/metrics.py: the registry and its Prometheus rendering
+copied whole, so the same calls render the same text byte for byte and
+the JAX package's scrapers and dashboards read the port's daemon
+unchanged; JAX's Throughput window, which nothing here uses, is left
+out).
+
+Named counters/gauges plus a latency reservoir with percentiles and
+fixed-bucket histograms, as plain dicts / JSON lines and, for the
+serving stack's `/metrics` endpoint (dnn_tpu_torch/obs/http.py), as
+Prometheus text exposition format (`render_prometheus`).
+
+Label convention: a metric name may carry Prometheus-style labels inline —
+`labeled("comm.retries_total", stage="node1")` ->
+'comm.retries_total{stage="node1"}'. The renderer groups lines of one
+family under a single # TYPE header; dots in family names become
+underscores on the way out (Prometheus names allow [a-zA-Z0-9_:] only).
+"""
+
+from __future__ import annotations
+
+import bisect
+import json
+import re
+import threading
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence
+
+
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile, q in [0, 100]."""
+    if not values:
+        raise ValueError("no samples")
+    s = sorted(values)
+    k = max(0, min(len(s) - 1, int(round(q / 100.0 * (len(s) - 1)))))
+    return s[k]
+
+
+def labeled(name: str, **labels) -> str:
+    """Canonical labeled metric key: name{k="v",...}, keys sorted so the
+    same label set always maps to the same registry entry. Values are
+    stringified; '"' and '\\' are escaped per the exposition format."""
+    if not labels:
+        return name
+    def esc(v):
+        return str(v).replace("\\", r"\\").replace('"', r'\"')
+    inner = ",".join(f'{k}="{esc(v)}"' for k, v in sorted(labels.items()))
+    return f"{name}{{{inner}}}"
+
+
+class LatencyReservoir:
+    """Bounded sample buffer for latency percentiles (seconds)."""
+
+    def __init__(self, capacity: int = 4096):
+        self.capacity = capacity
+        self._samples: List[float] = []
+        self._count = 0
+        self._sum = 0.0
+
+    def record(self, seconds: float):
+        self._count += 1
+        self._sum += seconds
+        if len(self._samples) < self.capacity:
+            self._samples.append(seconds)
+        else:  # deterministic ring replacement; keeps a sliding window
+            self._samples[(self._count - 1) % self.capacity] = seconds
+
+    def record_many(self, values):
+        """Batch form for Metrics.bulk — one call per step instead of
+        one per sample (the per-step obs budget prices the difference)."""
+        for v in values:
+            self._count += 1
+            self._sum += v
+            if len(self._samples) < self.capacity:
+                self._samples.append(v)
+            else:
+                self._samples[(self._count - 1) % self.capacity] = v
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def quantiles(self, qs=(50, 90, 99)) -> Dict[str, float]:
+        """Empty-safe: no samples -> {} (a snapshot of a just-created
+        reservoir must not raise; the /metrics endpoint scrapes whatever
+        exists at that instant)."""
+        if not self._samples:
+            return {}
+        return {f"p{q}": percentile(self._samples, q) for q in qs}
+
+
+# Default latency buckets (seconds): µs-scale RPC hops up through
+# multi-second generation calls — the le= upper bounds of the exported
+# cumulative histogram.
+DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                   0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+class Histogram:
+    """Fixed-bucket cumulative histogram (Prometheus `histogram` type):
+    per-bucket counts plus sum/count, so a scraper can derive rates and
+    approximate quantiles without the reservoir's per-sample memory."""
+
+    def __init__(self, buckets: Sequence[float] = DEFAULT_BUCKETS):
+        self.bounds = tuple(sorted(float(b) for b in buckets))
+        if not self.bounds:
+            raise ValueError("histogram needs at least one bucket bound")
+        self.counts = [0] * (len(self.bounds) + 1)  # last = +Inf overflow
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float):
+        self.counts[bisect.bisect_left(self.bounds, value)] += 1
+        self.sum += value
+        self.count += 1
+
+    def snapshot(self) -> dict:
+        cum, out = 0, {}
+        for b, c in zip(self.bounds, self.counts):
+            cum += c
+            out[b] = cum
+        return {"buckets": out, "sum": self.sum, "count": self.count}
+
+
+class Metrics:
+    """Thread-safe named counters, gauges, latency reservoirs, and
+    histograms."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counters: Dict[str, float] = defaultdict(float)
+        self.gauges: Dict[str, float] = {}
+        self.latencies: Dict[str, LatencyReservoir] = {}
+        self.histograms: Dict[str, Histogram] = {}
+        # last gauge_fns dict registered via bulk(): a producer passing
+        # the SAME dict every step (the serving hot path) skips the
+        # re-register until something could have changed ownership —
+        # a clear(), a set()/set_fn() from any producer, a different
+        # dict, or new entries in the same dict. Held STRONGLY so a
+        # recycled id() can never alias a dead producer's dict (the
+        # entries themselves are weak-bound closures by convention, so
+        # this pins a small dict, never the producer).
+        self._gauge_src = None
+        self._gauge_src_len = -1
+
+    def inc(self, name: str, value: float = 1.0):
+        with self._lock:
+            self.counters[name] += value
+
+    def set(self, name: str, value: float):
+        with self._lock:
+            self.gauges[name] = value
+            self._gauge_src = None  # may overwrite a bulk-owned series
+
+    def set_fn(self, name: str, fn):
+        """Register a CALLABLE gauge, evaluated at snapshot/render time —
+        for values that must be fresh at scrape (a windowed rate decays
+        while the producer is idle; a stored float would go stale)."""
+        with self._lock:
+            self.gauges[name] = fn
+            self._gauge_src = None  # may overwrite a bulk-owned series
+
+    def observe(self, name: str, seconds: float):
+        with self._lock:
+            if name not in self.latencies:
+                self.latencies[name] = LatencyReservoir()
+            self.latencies[name].record(seconds)
+
+    def observe_hist(self, name: str, value: float,
+                     buckets: Sequence[float] = DEFAULT_BUCKETS):
+        with self._lock:
+            h = self.histograms.get(name)
+            if h is None:
+                h = self.histograms[name] = Histogram(buckets)
+            h.observe(value)
+
+    def bulk(self, counters: Optional[Dict[str, float]] = None,
+             gauges: Optional[Dict[str, float]] = None,
+             observations: Optional[Dict[str, List[float]]] = None,
+             gauge_fns: Optional[Dict[str, object]] = None,
+             hists: Optional[Dict[str, List[float]]] = None,
+             hist_buckets: Optional[Sequence[float]] = None):
+        """Apply many updates under ONE lock acquisition — the hot-path
+        form (a serving decode step updates ~10 series; per-call locking
+        would cost 3-5x this). Semantics match inc/set/observe/set_fn;
+        `gauge_fns` re-registers callable gauges idempotently, so the
+        most recently active producer owns the series even across
+        registry clear()s or multiple producers — but the re-register
+        is SKIPPED when the same unchanged dict was already the most
+        recent registrant (a hot-path producer passes its gauge dict
+        every step; the N-entry update would be pure re-hashing).
+        `hists` observe into
+        fixed-bucket histograms (created with `hist_buckets`, default
+        DEFAULT_BUCKETS — only consulted at first creation)."""
+        with self._lock:
+            if counters:
+                for k, v in counters.items():
+                    self.counters[k] += v
+            if gauges:
+                self.gauges.update(gauges)
+            if gauge_fns:
+                if (gauge_fns is not self._gauge_src
+                        or len(gauge_fns) != self._gauge_src_len):
+                    self.gauges.update(gauge_fns)
+                    self._gauge_src = gauge_fns
+                    self._gauge_src_len = len(gauge_fns)
+            if observations:
+                for k, vals in observations.items():
+                    r = self.latencies.get(k)
+                    if r is None:
+                        r = self.latencies[k] = LatencyReservoir()
+                    r.record_many(vals)
+            if hists:
+                for k, vals in hists.items():
+                    h = self.histograms.get(k)
+                    if h is None:
+                        h = self.histograms[k] = Histogram(
+                            hist_buckets or DEFAULT_BUCKETS)
+                    for v in vals:
+                        h.observe(v)
+
+    def timer(self, name: str) -> "_Timer":
+        return _Timer(self, name)
+
+    @staticmethod
+    def _gauge_val(v) -> float:
+        if not callable(v):
+            return v
+        try:
+            return float(v())
+        except Exception:  # noqa: BLE001 — a dying producer must not
+            return 0.0     # break every scrape
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = {"counters": dict(self.counters),
+                   "gauges": {k: self._gauge_val(v)
+                              for k, v in self.gauges.items()}}
+            out["latency"] = {
+                k: {"count": r.count, **r.quantiles()} for k, r in self.latencies.items()
+            }
+            if self.histograms:
+                out["histogram"] = {k: h.snapshot()
+                                    for k, h in self.histograms.items()}
+            return out
+
+    def json_line(self) -> str:
+        return json.dumps(self.snapshot(), sort_keys=True)
+
+    def clear(self):
+        """Reset every series (tests / benchmark legs)."""
+        with self._lock:
+            self.counters.clear()
+            self.gauges.clear()
+            self.latencies.clear()
+            self.histograms.clear()
+            self._gauge_src = None  # producers must re-register
+
+
+class _Timer:
+    def __init__(self, metrics: Metrics, name: str):
+        self.metrics, self.name = metrics, name
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.metrics.observe(self.name, time.perf_counter() - self._t0)
+        return False
+
+
+# ----------------------------------------------------------------------
+# Prometheus text exposition (version 0.0.4)
+# ----------------------------------------------------------------------
+
+_NAME_OK = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _split_key(key: str):
+    """'fam{k="v"}' -> (sanitized_family, '{k="v"}'); bare names pass
+    through with an empty label part."""
+    base, _, rest = key.partition("{")
+    fam = _NAME_OK.sub("_", base)
+    return fam, ("{" + rest) if rest else ""
+
+
+def _fmt(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def render_prometheus(m: Metrics) -> str:
+    """Render a Metrics registry as Prometheus text format: counters ->
+    `counter`, gauges -> `gauge`, latency reservoirs -> `summary`
+    (quantile 0.5/0.9/0.99 + _count/_sum), histograms -> `histogram`
+    (cumulative _bucket{le=...} + _sum/_count). One # TYPE header per
+    family, label sets preserved from `labeled()` keys."""
+    snap_lock_free: Dict[str, list] = defaultdict(list)
+
+    with m._lock:
+        counters = dict(m.counters)
+        gauges = {k: m._gauge_val(v) for k, v in m.gauges.items()}
+        lats = {k: (r.count, r.sum, r.quantiles((50, 90, 99)))
+                for k, r in m.latencies.items()}
+        hists = {k: h.snapshot() for k, h in m.histograms.items()}
+
+    fam_type: Dict[str, str] = {}
+
+    def emit(key, kind, lines):
+        fam, labels = _split_key(key)
+        fam_type.setdefault(fam, kind)
+        for suffix, extra, v in lines:
+            lab = labels
+            if extra:  # merge extra label into the existing set
+                k2, v2 = extra
+                pair = f'{k2}="{v2}"'
+                lab = (labels[:-1] + "," + pair + "}") if labels \
+                    else "{" + pair + "}"
+            snap_lock_free[fam].append(f"{fam}{suffix}{lab} {_fmt(v)}")
+
+    for k, v in sorted(counters.items()):
+        emit(k, "counter", [("", None, v)])
+    for k, v in sorted(gauges.items()):
+        emit(k, "gauge", [("", None, v)])
+    for k, (count, total, qs) in sorted(lats.items()):
+        lines = [("", ("quantile", {"p50": "0.5", "p90": "0.9",
+                                    "p99": "0.99"}[q]), v)
+                 for q, v in qs.items()]
+        lines += [("_sum", None, total), ("_count", None, count)]
+        emit(k, "summary", lines)
+    for k, snap in sorted(hists.items()):
+        lines = [("_bucket", ("le", _fmt(b)), c)
+                 for b, c in snap["buckets"].items()]
+        lines += [("_bucket", ("le", "+Inf"), snap["count"]),
+                  ("_sum", None, snap["sum"]),
+                  ("_count", None, snap["count"])]
+        emit(k, "histogram", lines)
+
+    out = []
+    for fam in sorted(snap_lock_free):
+        out.append(f"# TYPE {fam} {fam_type[fam]}")
+        out.extend(snap_lock_free[fam])
+    return "\n".join(out) + ("\n" if out else "")
+
+
+# module-level default registry (imports are cheap; tests can make their
+# own). This is also the registry the obs layer (dnn_tpu_torch/obs)
+# exports at /metrics.
+default_metrics = Metrics()

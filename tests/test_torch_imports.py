@@ -114,6 +114,19 @@ def test_the_constraint_and_speculative_modules_are_scanned():
             "dnn_tpu_torch.runtime.serving_spec"} <= names
 
 
+def test_the_resilience_modules_are_scanned():
+    """The observability and chaos modules the LM daemon's resilience
+    seams report through are among the modules scanned above (the
+    watchdog's probe child is held to the same rule in
+    tests/test_torch_obs.py)."""
+    names = {n for n, _ in _modules()}
+    assert {"dnn_tpu_torch.obs", "dnn_tpu_torch.obs.flight",
+            "dnn_tpu_torch.obs.http", "dnn_tpu_torch.obs.mem",
+            "dnn_tpu_torch.obs.watchdog", "dnn_tpu_torch.chaos",
+            "dnn_tpu_torch.chaos.plan", "dnn_tpu_torch.chaos.inject",
+            "dnn_tpu_torch.utils.metrics"} <= names
+
+
 def test_speculative_entry_points_need_a_card():
     """Without device=, the speculative batcher and the solo speculative
     decoder run on CUDA: on a host without a card they raise."""

@@ -106,23 +106,61 @@ def test_generate_stream_matches(served):
 
 
 def test_bad_requests_get_grpc_errors(served):
-    """Out-of-vocab prompt -> INVALID_ARGUMENT; an option this port does
-    not serve (the JAX daemon's dedup key, d=: ROADMAP item 4 e's second
-    half) -> UNIMPLEMENTED (the KV handoff's prefill export, once here,
-    is served: tests/test_torch_handoff.py); the server lives on."""
+    """Out-of-vocab prompt -> INVALID_ARGUMENT; the JAX client's dedup key
+    (d=) joins: a repeated key answers the first request's tokens without
+    generating again (tests/test_torch_resilience.py holds the join
+    over concurrent calls); the server lives on."""
     addr, want = served
     jc = JaxClient(addr, breaker=False)
     with pytest.raises(grpc.RpcError) as e:
         jc.generate(np.array([1, 999], np.int32), max_new_tokens=2,
                     timeout=30)
     assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
-    with pytest.raises(grpc.RpcError) as e:
-        jc.generate(PROMPTS[0], max_new_tokens=2, dedup="k1", timeout=30)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    assert "item 4 e, second half" in e.value.details()
+    first = jc.generate(PROMPTS[0], max_new_tokens=N_NEW, dedup="k1",
+                        timeout=60)
+    np.testing.assert_array_equal(first, want[0])
+    # the same key with another prompt still answers the first request's
+    # generation: it joined, it did not generate
+    np.testing.assert_array_equal(
+        jc.generate(PROMPTS[1], max_new_tokens=N_NEW, dedup="k1",
+                    timeout=60), want[0])
     np.testing.assert_array_equal(
         jc.generate(PROMPTS[0], max_new_tokens=N_NEW, timeout=60), want[0])
     jc.close()
+
+
+def test_node_serve_lm_passes_min_p_and_repetition_penalty(tmp_path,
+                                                           monkeypatch):
+    """`node --serve_lm --min_p 0.05 --repetition_penalty 1.1` reaches the
+    batcher as its defaults (JAX node.py:108-111, :1018-1019); with
+    another mode the flags exit 1, as JAX's node does."""
+    import asyncio
+    import json
+
+    from dnn_tpu_torch import node
+    from dnn_tpu_torch.runtime import lm_server
+
+    seen = {}
+
+    async def fake_serve_lm(cfg, prepared, *, port, **kw):
+        srv = lm_server.LMServer(cfg, prepared, **kw)
+        seen.update(minp=srv.batcher._default_minp,
+                    rep=srv.batcher._default_rep)
+        srv.close()
+        return 0
+
+    monkeypatch.setattr(lm_server, "serve_lm", fake_serve_lm)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"model": "gpt2-test", "nodes": [
+        {"id": "node1", "part_index": 0, "address": "127.0.0.1:1"}]}))
+    base = ["--node_id", "node1", "--config", str(cfg)]
+    assert node.main(base + ["--serve_lm", "--device", "cpu", "--slots", "1",
+                             "--max_len", "32", "--prompt_pad", "16",
+                             "--min_p", "0.05",
+                             "--repetition_penalty", "1.1"]) == 0
+    assert seen == {"minp": 0.05, "rep": 1.1}
+    assert node.main(base + ["--generate", "2", "--min_p", "0.05"]) == 1
+    assert asyncio.iscoroutinefunction(lm_server.serve_lm)
 
 
 def test_dense_int8_daemon_matches_jax_batcher():
@@ -205,7 +243,9 @@ def test_wirecodec_bytes_match_protobuf():
 def test_node_cli_daemon_serves_and_drains_on_sigterm(tmp_path):
     """`python -m dnn_tpu_torch.node --serve_lm --device cpu` as a real
     process: it answers the same tokens as an in-process batcher on the
-    same seeded weights, and SIGTERM stops it with rc 0."""
+    same seeded weights, and a SIGTERM during a GenerateStream drains it
+    (JAX lm_server.py:2108-2195): the stream completes with the same
+    tokens and the process exits with rc 0."""
     import json
     import pathlib
     import signal
@@ -229,14 +269,21 @@ def test_node_cli_daemon_serves_and_drains_on_sigterm(tmp_path):
         client = NodeClient(f"127.0.0.1:{port}")
         assert client.wait_healthy(deadline=90)
         got = client.generate(PROMPTS[1], max_new_tokens=6)
-        client.close()
         b = ContinuousBatcher(CFG_T, from_jax_params(tgpt.init(3, CFG_T),
                                                       CFG_T, "cpu"),
                               device="cpu", slots=2, max_len=64,
                               prompt_pad=16, block_len=8)
         rid = b.submit(PROMPTS[1], 6)
-        np.testing.assert_array_equal(got, b.drain()[rid])
+        rid_long = b.submit(PROMPTS[0], 48)
+        res = b.drain()
+        np.testing.assert_array_equal(got, res[rid])
+        stream = client.generate_stream(PROMPTS[0], max_new_tokens=48,
+                                        timeout=60)
+        streamed = [next(stream)]
         proc.send_signal(signal.SIGTERM)
+        streamed += list(stream)
+        client.close()
+        assert streamed == res[rid_long].tolist()
         assert proc.wait(timeout=30) == 0
     finally:
         if proc.poll() is None:

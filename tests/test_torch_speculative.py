@@ -169,6 +169,24 @@ def _exact_row(prep, cfg, ids):
     return _probs(logits[0, -1], temperature=1.0, top_k=None).numpy()
 
 
+_DIST = {}  # same_draft -> (the target's prepared, the draft's, ids,
+# the 2000-draw histogram): the draws are seeded, so the distribution
+# tests share one set instead of drawing it twice
+
+
+def _dist_draws(same_draft):
+    if same_draft not in _DIST:
+        (_, tt), (_, dt) = _gpt(ST_TJ, 11, head_scale=6.0), _gpt(ST_DJ, 12)
+        d_cfg, d_prep = (ST_TJ, tt) if same_draft else (ST_DJ, dt)
+        ids = _ids(12, 8, 32)
+        spec = make_speculative_generate(_t(ST_TJ), _t(d_cfg),
+                                         max_new_tokens=1, k=2,
+                                         temperature=1.0, device="cpu")
+        _DIST[same_draft] = (tt, dt, ids, _first_token_hist(
+            spec, tt, d_prep, ids, 2000, 32))
+    return _DIST[same_draft]
+
+
 @pytest.mark.parametrize("same_draft", [False, True])
 def test_sampled_matches_target_distribution(same_draft):
     """The first token's histogram over 2000 seeded draws against the
@@ -177,28 +195,20 @@ def test_sampled_matches_target_distribution(same_draft):
     rejection and residual resample, True pure acceptance and the bonus
     row. One new token a draw: the first token's distribution is the
     same whatever follows it."""
-    (_, tt), (_, dt) = _gpt(ST_TJ, 11, head_scale=6.0), _gpt(ST_DJ, 12)
-    d_cfg, d_prep = (ST_TJ, tt) if same_draft else (ST_DJ, dt)
-    ids = _ids(12, 8, 32)
-    spec = make_speculative_generate(_t(ST_TJ), _t(d_cfg), max_new_tokens=1,
-                                     k=2, temperature=1.0, device="cpu")
-    hist = _first_token_hist(spec, tt, d_prep, ids, 2000, 32)
+    tt, _, ids, hist = _dist_draws(same_draft)
     tv = 0.5 * np.abs(hist - _exact_row(tt, _t(ST_TJ), ids)).sum()
     assert tv < 0.12, f"TV(spec, target) = {tv:.3f}"
 
 
 def test_sampled_distribution_differs_from_draft():
     """The negative control: the histogram tracks the TARGET, not the
-    draft, on models whose distributions differ."""
-    (_, tt), (_, dt) = _gpt(ST_TJ, 11, head_scale=6.0), _gpt(ST_DJ, 12)
-    ids = _ids(12, 8, 32)
+    draft, on models whose distributions differ (the draws of
+    test_sampled_matches_target_distribution[False], shared)."""
+    tt, dt, ids, hist = _dist_draws(False)
     t_exact = _exact_row(tt, _t(ST_TJ), ids)
     d_exact = _exact_row(dt, _t(ST_DJ), ids)
     tv_models = 0.5 * np.abs(t_exact - d_exact).sum()
     assert tv_models > 0.2, "fixture degenerate: the models agree"
-    spec = make_speculative_generate(_t(ST_TJ), _t(ST_DJ), max_new_tokens=1,
-                                     k=2, temperature=1.0, device="cpu")
-    hist = _first_token_hist(spec, tt, dt, ids, 2000, 32)
     assert 0.5 * np.abs(hist - d_exact).sum() > 0.5 * tv_models
 
 

@@ -308,7 +308,9 @@ def test_cli_generate_equals_the_jax_cli(tmp_path, capsys):
     # positive cases are tests/test_torch_beam.py::
     # test_node_generate_beam_equals_the_jax_cli
     (["--supervise"], 2),
-    (["--chaos", "plan.json"], 2),
+    # the stage servers' chaos and metrics seams: Queue 1 item 7's
+    # remainder (with --serve_lm both are served)
+    (["--chaos", "plan.json", "--serve"], 2),
     (["--metrics_port", "0", "--serve"], 2),
     (["--transport", "grpc"], 1),
 ])
