@@ -18,7 +18,10 @@ weights in bf16 compute; prefill daemons hand gpt2's KV rows to decode
 daemons over the wire, and daemons pull a shared prefix's KV blocks from
 each other (llama3-8b too); the daemon survives a worker death (a
 requeue), drains on /drainz and SIGTERM, joins dedup keys, exits 43 on
-a wedged watchdog and reports through /metrics.
+a wedged watchdog and reports through /metrics; and the kernels' sliding
+-window band, softcap and head dim 256 serve mistral-7b (streams past
+its 4096 window, the windowed paged pool reclaiming blocks, the solo
+rolling ring), gemma2-9b and gemma-2b at full width and depth.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --decode-turns PARENT
@@ -330,6 +333,43 @@ Phases (any failure exits non-zero and prints no result):
      plus information: a decode step's (captured and eager) and the
      300-token admission's wall, device busy and top kernels; L-B's step
      against the byte bound of its weights
+  6d. sliding windows, softcaps and head dim 256: [K5 band], [K6 band],
+     [K7 band] and [D256] hold each variant (WIN_ROWS: mistral-7b's last
+     prefill chunk and decode step, gemma2-9b's even layer with its
+     softcap, gemma-2b's chunk and steps at D = 256; K7 over a table whose
+     entries before the band point at the junk block) against its plain
+     version, an f32 q and a bf16 q over f32, bf16 and int8 caches
+     (softcapped rows with q drawn 2x / 4x wider so that the cap bends), the
+     plain version without the band / the cap as a control that must
+     miss by more than the tolerance, timed beside its bound (bytes
+     inside the band) and SDPA on q's own type with the band as a mask;
+     then, each model drawn on the card and freed before the next, each
+     run with the launch counts (by type and by variant) zeroed just
+     before and read just after, exact:
+       [mistral] mistral-7b in bf16 compute, the daemon at 2 slots x 4608
+          positions, 512-token chunks, prompts of 4150 and 4290 tokens, 32
+          greedy tokens each (every row from 4096 bands): W-paged (the
+          windowed paged pool, bf16 KV; each request's reclaimed blocks =
+          floor((limit - 4096 + 1) / 16)), W-int8, W-dense, W-solo
+          (make_generate on the rolling ring: K5 banded over the prompt,
+          K6 over the 4096-slot ring); each stream held by teacher forcing
+          against the plain banded recompute (window_ref_logits) at
+          BF16_TIE, near-ties parting at most a quarter of the steps, the
+          unbanded recompute (the control) missing the served tokens by
+          more than 4x as much; the decode step's walls and
+          device busy; W-f32 (the model again in f32 on the windowed
+          paged pool, logprobs on: within FORCED_F32_TOL of the f32
+          banded recompute, and the unbanded recompute, the control, at
+          least 10x that away)
+       [gemma2] gemma2-9b in bf16 compute (D = 256, softcaps 50 / 30, the
+          window on its 21 even layers), kv="auto" -> the dense pool,
+          prompts of 4200 and 1000 tokens; K5 / K6 with the softcap, at D
+          = 256, banded on the even layers; teacher forcing as [mistral]
+       [gemma] gemma-2b in f32 (D = 256, 8 query heads over one KV head):
+          G1-paged (serve_run, the main path's prompts, K5 G=8, K7 R=8)
+          and G1-solo (K6 R=8) against the no-cache loop; G1-logprobs
+          (the paged pool with logprobs on, within FORCED_F32_TOL of the
+          no-cache loop's: the streams repeat one token)
   7. one JSON line describing the kernels (the bf16-q rows as entries
      of their own; K6 at [beam]'s decode shape, B*K=8 S=162, and K1 at
      [embed]'s, B=4 T=S=320, as extra shapes of their entries, each
@@ -339,8 +379,10 @@ Phases (any failure exits non-zero and prints no result):
 Tolerances against the plain versions: 1e-4 for f32 and int8 caches
 (both sides read the same values; only the summation order differs),
 2e-2 for bf16, and for a bf16 q 2e-2 of the output's largest |value|
-(at least 1). A served token may differ from its reference only where
-the reference's top-2 logit gap is below 1e-4 (a near-tie); 5e-3 for
+(at least 1); 6d's rows: 1e-4 for every cache type with an f32 q, 2e-2
+of the output's largest |value| (no floor) with a bf16 q. A served
+token may differ from its reference only where the reference's top-2
+logit gap is below 1e-4 (a near-tie); 5e-3 for
 llama3-8b over an int8 cache (QUANT_TIE); BF16_TIE in bf16 compute.
 llama3-8b's int8 weights in bf16 compute are held by teacher forcing
 instead (FORCED_RATIO).
@@ -1498,16 +1540,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def reference_greedy(prepared, cfg, prompt, n_new, dev):
+def reference_greedy(prepared, cfg, prompt, n_new, dev, logits_out=None):
     """Independent greedy loop: the plain no-cache forward recomputed
-    over the whole sequence for every token. Returns (tokens, top-2
-    logit gap at each step)."""
+    over the whole sequence for every token; `logits_out`, a list,
+    receives each step's f32 logits row. Returns (tokens, top-2 logit gap
+    at each step)."""
     from dnn_tpu_torch.runtime.generate import forward_no_cache
 
     ids = torch.tensor(prompt, dtype=torch.int64, device=dev)[None]
     toks, gaps = [], []
     for _ in range(n_new):
         logits = forward_no_cache(prepared, ids, cfg=cfg)[0, -1]
+        if logits_out is not None:
+            logits_out.append(logits.float())
         top2 = torch.topk(logits, 2).values
         gaps.append((top2[0] - top2[1]).item())
         nxt = int(logits.argmax())
@@ -1701,7 +1746,7 @@ def compare_tokens(label, got, want, gaps, tie=NEAR_TIE):
 
 
 # teacher forcing: each token id spelled as a distinct three-letter word
-# (62 ** 3 = 238328 words, more than any served vocabulary), so that a
+# (62 ** 3 = 238328 words, more than the vocabularies forced here), so that a
 # grammar spelling a token sequence allows exactly one token a step
 FORCE_ALPHABET = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
                   "0123456789")
@@ -1847,6 +1892,17 @@ def reset_counts():
             fn.launches_by_dtype[dt] = 0
         for dt in getattr(fn, "launches_bf16_q", ()):
             fn.launches_bf16_q[dt] = 0
+        for by in getattr(fn, "launches_by_variant", {}).values():
+            for dt in by:
+                by[dt] = 0
+
+
+def read_variants():
+    """{cache kernel: {"band" | "softcap" | "d256": {cache dtype:
+    launches}}} since the last reset."""
+    return {name: {v: dict(by) for v, by in
+                   _wrappers()[name].launches_by_variant.items()}
+            for name in CACHE_KERNELS}
 
 
 def read_counts(bf16_q=False):
@@ -1888,6 +1944,7 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     from dnn_tpu_torch.parallel.pipeline import sync
     from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
 
+    gc.collect()  # earlier graphs go now, not during this daemon's capture
     port = free_port()
     _thread, stop = start_lm_server_in_background(
         cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
@@ -6587,6 +6644,1032 @@ def phase_item_4d(cfg, prepared, prompts, dev, card, model="gpt2"):
     return out
 
 
+# ----------------------------------------------------------------------
+# sliding windows, logit softcaps and head dim 256 (ROADMAP item 2's
+# bands and rings, the softcaps, Gemma's D = 256): [K5 band], [K6 band],
+# [K7 band], [D256]; [mistral], [gemma2], [gemma]
+
+WIN = 4096                 # mistral-7b's and gemma2-9b's sliding window
+WIN_SLOTS, WIN_MAX_LEN, WIN_PAD, WIN_BP = 2, 4608, 512, 16
+WIN_PROMPTS = (4150, 4290)  # mistral-7b: both streams past the window
+G2_PROMPTS = (4200, 1000)  # gemma2-9b: one stream past the window
+WIN_NEW = 32
+G1_NEW, G1_SOLO_NEW = 16, 32  # gemma-2b on the main path's prompts
+# the kernel rows: (key, kernel, shape, band / cap), each with an f32 and
+# a bf16 q (WIN_Q). The shapes are the
+# served ones: mistral-7b's last prefill chunk (rows 4096.. of a 4608
+# row: every row bands) and its decode step on both pools at the
+# streams' last positions; gemma2-9b's even (banded, soft-capped) layer
+# at the same chunk and step; gemma-2b's chunk (G = 8 over one KV head),
+# its paged step (R = 8) and its solo step (R = 8, the 300-token prompt
+# plus 32 tokens)
+WIN_ROWS = (
+    ("K5 band", "K5", dict(B=1, H=32, HK=8, T=WIN_PAD, S=WIN_MAX_LEN, D=128,
+                           base=WIN), dict(window=WIN)),
+    ("K6 band", "K6", dict(B=2, HK=8, R=4, S=WIN_MAX_LEN, D=128,
+                           pos=(4181, 4321)), dict(window=WIN)),
+    ("K7 band", "K7", dict(B=2, HK=8, R=4, bp=WIN_BP,
+                           nb=WIN_MAX_LEN // WIN_BP, D=128, pos=(4181, 4321)),
+     dict(window=WIN)),
+    ("K5 D256 gemma2", "K5", dict(B=1, H=16, HK=8, T=WIN_PAD, S=WIN_MAX_LEN,
+                                  D=256, base=WIN),
+     dict(window=WIN, softcap=50.0)),
+    ("K6 D256 gemma2", "K6", dict(B=2, HK=8, R=2, S=WIN_MAX_LEN, D=256,
+                                  pos=(4231, 1031)),
+     dict(window=WIN, softcap=50.0)),
+    ("K5 D256 gemma", "K5", dict(B=1, H=8, HK=1, T=64, S=1024, D=256,
+                                 base=960), {}),
+    ("K7 D256 gemma", "K7", dict(B=4, HK=1, R=8, bp=16, nb=64, D=256,
+                                 pos=(0, 15, 16, 1023)), {}),
+    ("K6 D256 gemma solo", "K6", dict(B=1, HK=1, R=8, S=332, D=256,
+                                      pos=(330,)), {}),
+)
+
+
+def band_lo(limit: int, window) -> int:
+    """The first live column of a row whose causal limit is `limit`."""
+    return 0 if window is None else max(0, limit - window + 1)
+
+
+# A softcapped row is checked on two draws of q: at unit scale, where the
+# band's control is read (the softmax spreads over many keys, so dropping
+# the band moves every row), and SOFTCAP_Q_SCALE[q type] times wider, where
+# the cap's is: its scores (then about N(0, 4) / N(0, 16)) reach the part
+# of cap * tanh(s / cap) that bends at cap 50 (with unit scores the cap
+# moved the output by less than the tolerance). An f32 q stays at 2x,
+# where the f32 rounding of the wider scores sits well inside 1e-4; a bf16
+# q's tolerance scales with the output, so the cap must move more of it
+SOFTCAP_Q_SCALE = {"f32": 2.0, "bf16": 4.0}
+WIN_Q = ("f32", "bf16")  # the q types of WIN_ROWS: f32 compute, bf16
+
+
+def check_rel(label: str, got, want, tol: float) -> float:
+    """check() for a bf16 output, relative to the output's own scale (its
+    largest |value|, no floor): within `tol` of it. Returns the error."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite output")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if not math.isfinite(err) or err > tol * scale:
+        fail(f"{label}: max abs err {err} > {tol} x {scale:.4f}")
+    return err
+
+
+def phase_window_kernels(dev, gen):
+    """[K5 band], [K6 band], [K7 band], [D256]: each row of WIN_ROWS
+    against its plain version with the same band and cap, with an f32 q
+    (f32 compute: [gemma], W-f32) and a bf16 q (bf16 compute: [mistral]'s
+    bf16 legs, [gemma2]) over f32, bf16 and int8 caches. An f32 q is held
+    within F32_TOL (1e-4) absolute for every cache type; a bf16 q (the
+    output bf16 on both sides) within BF16_TOL (2e-2) of the output's
+    largest |value|, no floor. Controls, in the same call: the plain
+    version without the band (on q at unit scale) and without the cap
+    (on the wider q of SOFTCAP_Q_SCALE) must miss the kernel's output by
+    more than the tolerance just applied, so that a kernel which skipped
+    either would fail. Each case is timed (on the unit-scale q) beside
+    its plain version, its bound and, where one PyTorch call computes
+    the same function on the same inputs (SDPA with the band as an
+    explicit boolean mask and enable_gqa; a float cache of q's own type,
+    no softcap), that call. The bound counts the bytes inside each row's
+    band only: q and the output in q's type, the KV heads' columns from
+    the lowest first live column to the highest limit (K7: their blocks
+    and table entries; the blocks wholly before the band, whose entries
+    point at the junk block as a windowed pool reclaims them, are never
+    read), int8 scales; or the products over the live scores (K5: at its
+    cache type's fastest tensor-core rate, as k5_bound; K6/K7: f32
+    FMAs). The launch variants, and the bf16-q count, are checked on
+    every call. Returns {key: {q type: {cache type: row}}}."""
+    from dnn_tpu_torch.ops.cuda import cached_attention as tca
+
+    fn_names = {"K5": "cached_attention", "K6": "decode_attention",
+                "K7": "paged_decode_attention"}
+    out = {}
+    for key, kernel, shp, kw in WIN_ROWS:
+        d, window, cap = shp["D"], kw.get("window"), kw.get("softcap")
+        tag = "D256" if d == 256 else key
+        variants = (("band",) if window else ()) + (
+            ("softcap",) if cap else ()) + (("d256",) if d == 256 else ())
+        fn = getattr(tca, fn_names[kernel])
+        plain_fn = getattr(tca, "reference_" + fn_names[kernel])
+        b = shp["B"]
+        if kernel == "K5":
+            h, hk, t, s_len, base = (shp[x] for x in ("H", "HK", "T", "S",
+                                                      "base"))
+            q_shape, kv_shape = (LAYERS, b, h, t, d), (LAYERS, b, hk, s_len, d)
+            pos = torch.full((b,), base, dtype=torch.int32, device=dev)
+            limits = [min(s_len - 1, base + r) for r in range(t)]
+            los = [band_lo(base + r, window) for r in range(t)]
+            scores = b * h * sum(L - lo + 1 for L, lo in zip(limits, los))
+            kv_cols = b * hk * (max(limits) - min(los) + 1)
+            extra_bytes, flops = b * 4, 4 * d * scores
+            shape = f"B={b} H={h} Hk={hk} T={t} S={s_len} base {base}"
+            lim = base + torch.arange(t, device=dev)[:, None]
+            mask = tca.band_keep(torch.arange(s_len, device=dev)[None, :],
+                                 lim, window)
+        else:
+            hk, r, pos_list = shp["HK"], shp["R"], shp["pos"]
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+            q_shape = (LAYERS, b, hk, r, d)
+            s_len = shp["S"] if kernel == "K6" else shp["nb"] * shp["bp"]
+            live = [min(p, s_len - 1) - band_lo(p, window) + 1
+                    for p in pos_list]
+            extra_bytes, flops = b * 4, 4 * d * hk * r * sum(live)
+            if kernel == "K6":
+                kv_shape = (LAYERS, b, hk, s_len, d)
+                shape = f"B={b} Hk={hk} R={r} S={s_len} pos {pos_list}"
+                mask = tca.band_keep(
+                    torch.arange(s_len, device=dev)[None, :],
+                    pos[:, None].long(), window)[:, None, None, :]
+            else:
+                bp, nb = shp["bp"], shp["nb"]
+                n_blocks = b * nb + 1
+                kv_shape = (LAYERS, n_blocks, hk, bp, d)
+                perm = torch.randperm(
+                    n_blocks - 1,
+                    generator=torch.Generator().manual_seed(1)) + 1
+                tables = perm[:b * nb].reshape(b, nb).to(torch.int32)
+                for row, p in enumerate(pos_list):  # reclaimed blocks
+                    tables[row, :band_lo(p, window) // bp] = 0
+                tables = tables.to(dev)
+                extra_bytes += 4 * sum(p // bp - band_lo(p, window) // bp + 1
+                                       for p in pos_list)
+                shape = (f"B={b} Hk={hk} R={r} bp={bp} nb_max={nb} pos "
+                         f"{pos_list}")
+        out[key] = {}
+        for qn, name in ((qn, name) for qn in WIN_Q for name, _ in KV_CASES):
+            qdt = torch.float32 if qn == "f32" else torch.bfloat16
+            q_bytes = 4 if qn == "f32" else 2
+            k, v, ks, vs = kv_cache(gen, kv_shape, name, dev)
+            lead = (pos,) if kernel != "K7" else (tables, pos)
+
+            def call(i, q, f=fn, **over):
+                return f(q[i], k[i], v[i], *lead, **scales_at(ks, vs, i),
+                         **{**kw, **over})
+
+            label = f"[{tag}] {key} {qn} q {name}"
+            draws = [(1.0, ("band",) if window else ())]
+            if cap:
+                draws.append((SOFTCAP_Q_SCALE[qn], ("softcap",)))
+            err, controls, tol_said = 0.0, {}, []
+            for widen, controlled in draws:
+                q = (widen * torch.randn(*q_shape, generator=gen,
+                                         device=dev)).to(qdt)
+                before = (read_variants(), read_counts(bf16_q=True))
+                got = call(0, q)
+                after = (read_variants(), read_counts(bf16_q=True))
+                if dev.type == "cuda":
+                    fname = fn_names[kernel]
+                    for var in ("band", "softcap", "d256"):
+                        n = (after[0][fname][var][name]
+                             - before[0][fname][var][name])
+                        if n != (var in variants):
+                            fail(f"{label}: {var} launches {n}, expected "
+                                 f"{int(var in variants)}")
+                    n = after[1][fname][name] - before[1][fname][name]
+                    if n != (qn == "bf16"):
+                        fail(f"{label}: bf16-q launches {n}, expected "
+                             f"{int(qn == 'bf16')}")
+                want = call(0, q, plain_fn)
+                if qn == "f32":
+                    err = max(err, check(f"{label} q x{widen:g}", got, want,
+                                         F32_TOL))
+                    tol = F32_TOL
+                else:
+                    err = max(err, check_rel(f"{label} q x{widen:g}", got,
+                                             want, BF16_TOL))
+                    tol = BF16_TOL * want.float().abs().max().item()
+                tol_said.append(f"q x{widen:g} tol {tol:.3e}")
+                for var in controlled:
+                    over = {"window": None} if var == "band" else {
+                        "softcap": None}
+                    miss = (got.float() - call(0, q, plain_fn, **over)
+                            .float()).abs().max().item()
+                    controls[var] = miss
+                    if not miss > tol:
+                        fail(f"{label} q x{widen:g}: the plain version "
+                             f"without the {var} misses the kernel by "
+                             f"{miss:.3e}, within the tolerance {tol:.3e}: "
+                             f"the check cannot tell the {var} from its "
+                             "absence")
+                if widen == 1.0:
+                    q_unit = q
+            lib_fn = None
+            if qn == name and not cap and kernel != "K7":
+                qh = (q_unit if kernel == "K5"
+                      else q_unit.reshape(LAYERS, b, hk * r, 1, d))
+
+                def lib_fn(i):
+                    return sdpa_gqa(qh[i], k[i], v[i], mask)
+            kv_read = (kv_bytes(name, kv_cols, d) if kernel == "K5" else
+                       hk * sum(kv_bytes(name, n, d) for n in live))
+            nbytes = (2 * math.prod(q_shape[1:]) * q_bytes + extra_bytes
+                      + kv_read)
+            peak = (F32_FLOPS_PER_S if kernel != "K5" else
+                    TF32_FLOPS_PER_S if name == "f32" else BF16_FLOPS_PER_S)
+            b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops, peak)
+            row = dict(
+                ms=time_ms(cycling(lambda i: call(i, q_unit), LAYERS)),
+                plain_ms=time_ms(cycling(
+                    lambda i: call(i, q_unit, plain_fn), LAYERS)),
+                library_ms=(None if lib_fn is None
+                            else time_ms(cycling(lib_fn, LAYERS))),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            out[key].setdefault(qn, {})[name] = row
+            report(tag, f"{key} {qn} q {name:4s} {shape} {kw or ''} ("
+                   + ", ".join(tol_said)
+                   + "".join(f"; without the {var} {m:.3e}"
+                             for var, m in controls.items())
+                   + ")", row, nbytes, byte_ms, op_ms,
+                   "TF32 ops" if peak == TF32_FLOPS_PER_S
+                   else "bf16 ops" if peak == BF16_FLOPS_PER_S else "f32 ops")
+            del q, q_unit, k, v, ks, vs
+    return out
+
+
+def window_ref_logits(prepared, cfg, ids, rows, dev, kv_dtype=None,
+                      compute_dtype=None, band=True):
+    """The independent plain banded recompute: one no-cache forward of
+    ids (1, T) through the LLaMA family's own blocks (models/llama.py's
+    norms, projections, RoPE and residuals) with an attention written
+    here — scores in f32 over K/V stored as the served cache stores them
+    (`kv_dtype` "bf16": rounded to bf16; "int8": quantized with the
+    port's _quantize_rows and dequantized; None: as computed), /
+    sqrt(D), Gemma-2's softcap, the layer's band (its alternating window
+    or the config's; none with `band` False: the control), softmax, P.V
+    — in query blocks of 1024 rows; no cache, no batcher, no kernel.
+    Returns the f32 logits (len(rows), V) of the positions `rows` (the
+    final softcap included)."""
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.models.gpt import layer_params
+    from dnn_tpu_torch.ops.attention import merge_heads
+    from dnn_tpu_torch.ops.cuda.cached_attention import band_keep, soft_cap
+    from dnn_tpu_torch.ops.nn import linear
+    from dnn_tpu_torch.runtime.kvcache import _quantize_rows
+
+    cdt = compute_dtype
+    t = ids.shape[1]
+    positions = torch.arange(t, device=dev)
+    wins = llama.layer_windows(cfg)
+
+    def stored(x):
+        if kv_dtype == "bf16":
+            return x.to(torch.bfloat16).float()
+        if kv_dtype == "int8":
+            xq, sc = _quantize_rows(x)
+            return xq.float() * sc[..., None]
+        return x.float()
+
+    with torch.no_grad():
+        x = llama._scaled_embed(prepared, ids, cfg)
+        x = x if cdt is None else x.to(cdt)
+        cos, sin = llama._rope_tables(cfg, positions)
+        for i in range(cfg.n_layer):
+            bp = layer_params(prepared["blocks"], i)
+            h = llama._pre_normed(bp, x, cfg)
+            q, k, v = llama._qkv(bp, h, cfg, cdt)
+            q, k = llama._rotated(q, k, cos, sin, cfg)
+            k, v = stored(k), stored(v)  # (1, Hk, T, D)
+            window = None if not band else (
+                wins[i] if wins is not None else cfg.sliding_window)
+            hk, d = k.shape[1], k.shape[-1]
+            qg = q.float().reshape(1, hk, -1, t, d)
+            y = torch.empty_like(qg)
+            for r0 in range(0, t, 1024):
+                r1 = min(t, r0 + 1024)
+                s = torch.einsum("bkgtd,bksd->bkgts", qg[:, :, :, r0:r1],
+                                 k) / math.sqrt(d)
+                s = soft_cap(s, cfg.attn_softcap)
+                keep = band_keep(positions[None, :],
+                                 positions[r0:r1, None], window)
+                p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
+                y[:, :, :, r0:r1] = torch.einsum("bkgts,bksd->bkgtd", p, v)
+            y = y.reshape(1, -1, t, d)
+            o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
+                       compute_dtype=cdt)
+            x = llama._branches_residual(bp, x, o, h, cfg=cfg,
+                                         compute_dtype=cdt)
+        sel = torch.as_tensor(list(rows), device=dev)
+        return llama.head(prepared, x[:, sel].float(), cfg=cfg,
+                          compute_dtype=cdt)[0]
+
+
+# a bf16 stream may part from the banded recompute at near-ties only, and
+# at no more than this share of its steps (the most seen on an H100 was
+# 4 of 32)
+WIN_MAX_PARTING_SHARE = 0.25
+# the control of a [mistral] bf16 stream, the same recompute without the
+# band, must miss the served tokens by more than this many times the
+# banded recompute does (the largest logprob gap of a served token to the
+# argmax). On an H100 80GB HBM3 at 700 W: banded 0.05-0.16, unbanded
+# 2.0-4.6, 18-28 of 32 tokens not its argmax
+WIN_CONTROL_BF16 = 4
+
+
+def hold_forced_stream(tag, label, prepared, cfg, prompt, stream, dev, tie,
+                       hold_control=False, **ref):
+    """Teacher forcing of one served stream: window_ref_logits over the
+    prompt and the stream (but its last token) gives, at every step, the
+    reference's next-token logits after the served prefix; each served
+    token must be their argmax unless their top-2 gap is below `tie`
+    (then the step is a near-tie and the rest is still checked, each
+    step on the served prefix), and near-ties may part at no more than
+    WIN_MAX_PARTING_SHARE of the steps. Where the stream reaches past
+    the window, the same recompute without the band (the control) is
+    read beside it: how often and how far the served tokens miss its
+    argmax. With `hold_control` that miss must exceed WIN_CONTROL_BF16
+    times the banded recompute's (a run without the band would fail
+    this check); without, it is information (gemma2-9b's final softcap
+    leaves its argmax where the band moves the logits). Returns the
+    number of near-tie partings."""
+    p = len(prompt)
+    ids = torch.tensor([list(prompt) + list(stream[:-1])], device=dev)
+    rows = range(p - 1, p - 1 + len(stream))
+
+    def regret(logits):
+        """(argmax ids, the served tokens' largest logprob gap to it)."""
+        lsm = torch.log_softmax(logits, dim=-1)
+        chosen = lsm[torch.arange(len(stream), device=dev),
+                     torch.tensor(stream, device=dev)]
+        return (logits.argmax(dim=-1).tolist(),
+                (lsm.max(dim=-1).values - chosen).max().item())
+
+    logits = window_ref_logits(prepared, cfg, ids, rows, dev, **ref)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    arg, lp_err = regret(logits)
+    partings = []
+    for j, (a, want) in enumerate(zip(stream, arg)):
+        if a != want:
+            if gaps[j] >= tie:
+                fail(f"[{tag}] {label} (prompt {p}) step {j}: served {a}, "
+                     f"the banded recompute's argmax {want} (top-2 gap "
+                     f"{gaps[j]:.3e} >= {tie})")
+            partings.append((j, gaps[j]))
+    if len(partings) > WIN_MAX_PARTING_SHARE * len(stream):
+        fail(f"[{tag}] {label} (prompt {p}): {len(partings)} near-tie "
+             f"partings of {len(stream)} steps, more than "
+             f"{WIN_MAX_PARTING_SHARE:.0%}: {partings}")
+    said = ""
+    window = cfg.sliding_window
+    if window is not None and p + len(stream) - 2 >= window:
+        c_arg, c_err = regret(window_ref_logits(prepared, cfg, ids, rows, dev,
+                                                band=False, **ref))
+        said = (f"; control, the recompute without the band: "
+                f"{sum(a != w for a, w in zip(stream, c_arg))} served tokens "
+                f"not its argmax, largest logprob gap {c_err:.3e}")
+        if hold_control and not c_err > WIN_CONTROL_BF16 * lp_err:
+            fail(f"[{tag}] {label} (prompt {p}){said}: not above "
+                 f"{WIN_CONTROL_BF16} x the banded recompute's {lp_err:.3e}")
+    print(f"[{tag}] {label} (prompt {p}, {len(stream)} tokens): "
+          + ("every token the banded recompute's argmax" if not partings
+             else f"near-tie partings {partings}")
+          + f"; smallest top-2 gap {min(gaps):.3e}; the served tokens' "
+          f"largest logprob gap to the argmax {lp_err:.3e}{said}",
+          flush=True)
+    return len(partings)
+
+
+def window_run(tag, label, cfg, prepared, prompts, n_new, dev, card, exact,
+               window=None, **kv):
+    """One served run of [mistral] / [gemma2]: the LM daemon in-process
+    (start_lm_server_in_background: WIN_SLOTS slots, max_len WIN_MAX_LEN,
+    prompt_pad WIN_PAD, blocks of WIN_BP, the options `kv`), the prompts
+    as concurrent greedy gRPC generate calls, the launch counts zeroed
+    just before and read just after. `exact(steps)` gives {(kernel, dtype
+    or variant): launches} the run must show exactly; under bf16 compute
+    every cache-kernel launch took a bf16 q. A windowed paged pool's
+    reclaimed blocks are read as each request's slot is released: they
+    must equal floor((limit - window + 1) / block_len), limit the last
+    attend limit. Returns (streams, counts by dtype, steps)."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    # an earlier batcher's CUDA graphs sit in reference cycles: collected
+    # now, not by a collection that some allocation triggers while this
+    # daemon's worker captures (destroying a graph during a capture
+    # invalidates it)
+    gc.collect()
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=WIN_SLOTS, max_len=WIN_MAX_LEN,
+        prompt_pad=WIN_PAD, block_len=WIN_BP, seed=0, device=dev, **kv)
+    batcher = stop.servicer.batcher
+    step, n_steps, freed = batcher.step, [0], []
+    release = batcher._release
+
+    def counted_step():
+        n_steps[0] += 1
+        return step()
+
+    def logged_release(slot):
+        req = batcher._slot_req[slot]
+        if req is not None and "pending" not in req:
+            freed.append((req["prompt_len"],
+                          req["prompt_len"] + len(req["emitted"]) - 1,
+                          req["freed"], len(req["blocks"])))
+        return release(slot)
+
+    batcher.step, batcher._release = counted_step, logged_release
+    results, errors = {}, []
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=120):
+            fail(f"[{tag}] {label}: LM daemon never became healthy")
+        client.generate(prompts[0][:40], max_new_tokens=2, timeout=600)
+        sync(dev)
+        reset_counts()
+        n_steps[0] = 0
+        freed.clear()
+
+        def call(i):
+            try:
+                results[i] = client.generate(prompts[i], max_new_tokens=n_new,
+                                             timeout=600).tolist()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        sync(dev)
+        counts, variants = read_counts(), read_variants()
+        counts_bf16_q = read_counts(bf16_q=True)
+        steps = n_steps[0]
+        client.close()
+    finally:
+        stop()
+    if errors or len(results) != len(prompts):
+        fail(f"[{tag}] {label}: generate calls failed: "
+             f"{errors or 'timed out'}")
+    graph = batcher._graph_step
+    print(f"[{tag}] run {label}: {'paged' if batcher.paged else 'dense'} "
+          f"pool, kv_dtype {kv.get('kv_dtype') or 'bf16'}; {len(prompts)} "
+          f"concurrent requests (prompts {[len(p) for p in prompts]}, "
+          f"{n_new} tokens each) in {wall:.3f} s, {steps} decode steps"
+          + (f" (a CUDA graph: {graph.captures} captures in all)"
+             if graph is not None else "") + f"; on {card}", flush=True)
+    if dev.type == "cuda":
+        cache_counts = {n: counts[n] for n in CACHE_KERNELS}
+        if kv.get("compute_dtype") is not None and \
+                counts_bf16_q != cache_counts:
+            fail(f"[{tag}] run {label}: launches with a bf16 q "
+                 f"{counts_bf16_q} are not all of the run's {cache_counts}")
+        want = exact(steps)
+        for (name, key), n in want.items():
+            got = (counts[name][key] if key in counts[name] else
+                   sum(variants[name][key].values()))
+            if got != n:
+                fail(f"[{tag}] run {label}: {name} ({key}) launched {got} "
+                     f"times, expected {n} ({steps} decode steps)")
+        print(f"[{tag}] run {label}: launches equal the call pattern's: "
+              + ", ".join(f"{name} {key} {n}"
+                          for (name, key), n in want.items()), flush=True)
+    if batcher.paged and window is not None:
+        if len(freed) != len(prompts):
+            fail(f"[{tag}] run {label}: {len(freed)} releases logged, "
+                 f"expected {len(prompts)}")
+        for p_len, limit, n_freed, n_blocks in freed:
+            want_freed = min(max(0, limit - window + 1) // WIN_BP, n_blocks)
+            if n_freed != want_freed:
+                fail(f"[{tag}] run {label}: a {p_len}-token request freed "
+                     f"{n_freed} blocks, expected floor(({limit} - {window} "
+                     f"+ 1) / {WIN_BP}) = {want_freed}")
+        print(f"[{tag}] run {label}: blocks reclaimed while running "
+              f"(prompt, limit, freed of held): {freed}, each "
+              f"floor((limit - {window} + 1) / {WIN_BP}); pool "
+              f"{batcher.allocator.n_blocks} blocks, high water "
+              f"{batcher.allocator.high_water}", flush=True)
+    return [results[i] for i in range(len(prompts))], counts, steps
+
+
+# f32 compute's served logprobs (the top FORCED_TOPK and the chosen
+# token's) against an f32 recompute on the served prefix: f32 rounding
+# through 18-32 layers moves logits of magnitude 1-40 by about 1e-5 to
+# 1e-4; 1e-3 leaves a tenfold margin. W-f32's control, the recompute
+# without the band, must miss them by WIN_CONTROL_RATIO times that
+FORCED_F32_TOL = 1e-3
+WIN_CONTROL_RATIO = 10
+
+
+def logprob_run(tag, label, cfg, prepared, prompts, n_new, dev, exact,
+                **pool):
+    """The served path with logprobs on: a ContinuousBatcher as the
+    daemon builds it (the options `pool`, greedy, seed 0, logprobs_k =
+    FORCED_TOPK), the prompts submitted together and drained, the launch
+    counts zeroed just before and read just after and held to
+    `exact(steps)` ({(kernel, dtype or variant): launches}). Returns
+    ([(tokens, top ids, top logprobs, chosen logprobs)] a prompt,
+    launches by dtype, by variant)."""
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    gc.collect()  # earlier batchers' graphs go outside this one's capture
+    b = ContinuousBatcher(cfg, prepared, seed=0, device=dev,
+                          logprobs_k=FORCED_TOPK, **pool)
+    step, n_steps = b.step, [0]
+
+    def counted_step():
+        n_steps[0] += 1
+        return step()
+
+    b.step = counted_step
+    sync(dev)
+    reset_counts()
+    rids = [b.submit(p, n_new, logprobs=True) for p in prompts]
+    b.drain()
+    sync(dev)
+    counts, variants = read_counts(), read_variants()
+    if dev.type == "cuda":
+        for (name, key), n in exact(n_steps[0]).items():
+            got = (counts[name][key] if key in counts[name] else
+                   sum(variants[name][key].values()))
+            if got != n:
+                fail(f"[{tag}] {label}: {name} ({key}) launched {got} "
+                     f"times, expected {n} ({n_steps[0]} decode steps)")
+    out = []
+    for rid in rids:
+        toks, _, lps = b.claim(rid)
+        out.append(([int(t) for t in toks], lps["top_ids"],
+                    lps["top_logprobs"], lps["chosen"]))
+    del b, step
+    gc.collect()
+    said = {n: {k: v for k, v in by.items() if v}
+            for n, by in counts.items() if any(by.values())}
+    print(f"[{tag}] {label}: {len(prompts)} requests, {n_new} tokens each "
+          f"with logprobs (top {FORCED_TOPK}), {n_steps[0]} decode steps; "
+          f"launches {said}", flush=True)
+    return out, counts, variants
+
+
+def window_f32_control(cfg, prompts, dev, card):
+    """W-f32 of [mistral]: the model drawn again in f32 and served in f32
+    over the windowed paged pool (f32 KV, logprob_run at the daemon's
+    settings: K5 and K7 with an f32 q and the band, launches exact); each
+    request's logprobs held within FORCED_F32_TOL of the f32 banded
+    recompute on its own served prefix, and the same recompute without
+    the band (the control) must miss them by at least WIN_CONTROL_RATIO x
+    FORCED_F32_TOL: an unbanded kernel would fail this check. Returns
+    (launches by dtype, by variant)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    t0 = time.perf_counter()
+    tree = llama.init(0, cfg, device=dev)
+    prepared = from_jax_params(tree, cfg, dev)
+    del tree
+    gc.collect()
+    sync(dev)
+    print(f"[mistral] W-f32: f32 weights drawn on {dev} and prepared in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    L = cfg.n_layer
+    chunks = sum(-(-len(p) // WIN_PAD) for p in prompts)
+
+    def exact(steps):
+        return {("cached_attention", "f32"): L * chunks,
+                ("cached_attention", "band"): L * chunks,
+                ("paged_decode_attention", "f32"): L * steps,
+                ("paged_decode_attention", "band"): L * steps}
+
+    runs, counts, variants = logprob_run(
+        "mistral", "W-f32", cfg, prepared, prompts, WIN_NEW, dev, exact,
+        slots=WIN_SLOTS, max_len=WIN_MAX_LEN, prompt_pad=WIN_PAD,
+        block_len=WIN_BP, kv="paged")
+    for prompt, (toks, top_ids, top_lp, chosen) in zip(prompts, runs):
+        p = len(prompt)
+        ids = torch.tensor([list(prompt) + toks[:-1]], device=dev)
+        rows = range(p - 1, p - 1 + len(toks))
+        err = {band: forced_errors(
+            list(window_ref_logits(prepared, cfg, ids, rows, dev, band=band)),
+            toks, top_ids, top_lp, chosen).max().item()
+            for band in (True, False)}
+        said = (f"[mistral] W-f32 (prompt {p}, {len(toks)} tokens): served "
+                f"logprobs {err[True]:.3e} from the banded recompute's, "
+                f"{err[False]:.3e} from the unbanded control's")
+        if err[True] > FORCED_F32_TOL:
+            fail(f"{said}: above {FORCED_F32_TOL}")
+        if err[False] < WIN_CONTROL_RATIO * FORCED_F32_TOL:
+            fail(f"{said}: the control misses by less than "
+                 f"{WIN_CONTROL_RATIO} x {FORCED_F32_TOL}")
+        print(f"{said} (tolerance {FORCED_F32_TOL}, the control at least "
+              f"{WIN_CONTROL_RATIO}x it); on {card}", flush=True)
+    del prepared
+    return counts, {f"{n} {v}": by for n, vs in variants.items()
+                    for v, by in vs.items()}
+
+
+def window_step_profile(tag, label, cfg, prepared, prompts, dev, card,
+                        n_bytes, steps=8, **kv):
+    """Information: where a decode step of a [mistral] / [gemma2] run goes
+    -- the batcher at the run's settings (WIN_SLOTS slots, max_len
+    WIN_MAX_LEN), every slot decoding past the window: the step's wall
+    as the captured graph and eagerly, each under the profiler too
+    (device busy, launches, top kernels, K6/K7's share), beside the byte
+    bound of the weights (`n_bytes` at 3.35 TB/s)."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=WIN_SLOTS, max_len=WIN_MAX_LEN,
+                          prompt_pad=WIN_PAD, block_len=WIN_BP, device=dev,
+                          **kv)
+    for p in prompts:
+        b.submit(p, 6 * steps)
+    for _ in range(4):
+        b.step()
+    torch.cuda.synchronize()
+
+    def decode():
+        for _ in range(steps):
+            b.step()
+
+    graph = b._graph_step
+    for mode in ("captured", "eager"):
+        b._graph_step = graph if mode == "captured" else None
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        p_wall, dev_ms, n_kern, top, _, dec_ms = _profiled(decode)
+        print(f"[{tag}] {label}: decode step ({len(prompts)} slots past "
+              f"position {min(len(p) for p in prompts)}, {mode}) {wall:.3f} "
+              f"ms wall; under the profiler {p_wall / steps:.3f} ms wall, "
+              f"{dev_ms / steps:.3f} ms device busy, {n_kern / steps:.0f} "
+              f"launches a step; K6/K7 {dec_ms / steps:.4f} ms/step = "
+              f"{100 * dec_ms / dev_ms:.1f}% of device busy; the weights' "
+              f"byte bound {n_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms; on "
+              f"{card}", flush=True)
+        if mode == "captured":
+            for name, ms, n in top[:5]:
+                print(f"[{tag}]   decode {ms / steps:.4f} ms/step  "
+                      f"x{n // steps}  {name}", flush=True)
+    del b, graph
+    gc.collect()  # its graphs go now, outside any later capture
+
+
+def _draw_bf16(cfg, dev):
+    """A LLaMA-family model drawn on the card in the JAX tree layout
+    (llama.init, seed 0) and prepared for bf16 compute, the f32 tree
+    freed. Returns (prepared, its bytes, the wall)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    t0 = time.perf_counter()
+    tree = llama.init(0, cfg, device=dev)
+    prepared = from_jax_params(tree, cfg, dev, compute_dtype=torch.bfloat16)
+    del tree
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sync(dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(prepared))
+    return prepared, n_bytes, time.perf_counter() - t0
+
+
+def _win_prompts(cfg, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+
+def _win_merge(total, counts):
+    for name, by in counts.items():
+        for dt, n in by.items():
+            total.setdefault(name, {}).setdefault(dt, 0)
+            total[name][dt] += n
+    return total
+
+
+def phase_mistral(dev, card, cfg=None):
+    """[mistral] mistral-7b (or `cfg`) at full width and depth in bf16
+    compute, its weights drawn on the card from seed 0, served by the LM
+    daemon as `node --serve_lm` builds it (WIN_SLOTS slots, max_len
+    WIN_MAX_LEN, prompt_pad WIN_PAD): two prompts of WIN_PROMPTS tokens,
+    WIN_NEW greedy tokens each, every stream past the 4096 window, on
+    W-paged (the windowed paged pool, bf16 KV: K5 with the band on every
+    prefill chunk, K7 with the band every step, the rolled-out blocks
+    reclaimed), W-int8 (the same over int8 KV), W-dense (the dense pool,
+    K6 with the band) and W-solo (make_generate on the rolling ring: the
+    prompt banded by K5 on a prompt-length cache, then K6 over the
+    4096-slot ring); each stream held by teacher forcing against the
+    plain banded recompute (window_ref_logits, K/V stored as the run
+    stores them) at BF16_TIE, near-ties parting at no more than
+    WIN_MAX_PARTING_SHARE of the steps, the unbanded recompute missing
+    them by more than WIN_CONTROL_BF16 times as much; launches exact.
+    Then W-f32
+    (window_f32_control): the model in f32 on the windowed paged pool,
+    its logprobs held to the f32 banded recompute and apart from the
+    unbanded one. Returns (launch counts by dtype, by variant), each
+    {q type: ...}: the bf16 legs under "bf16", W-f32 under "f32"."""
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    bf16 = torch.bfloat16
+    cfg = cfg or llama.PRESETS["mistral-7b"]
+    w, L = cfg.sliding_window, cfg.n_layer
+    prepared, n_bytes, wall = _draw_bf16(cfg, dev)
+    print(f"[mistral] {L} layers, {cfg.n_embd} wide, {cfg.n_head} heads over "
+          f"{cfg.n_kv_head} KV heads, window {w}: {n_bytes / 1e9:.2f} GB of "
+          f"weights (bf16 matmuls) drawn on {dev} and prepared in "
+          f"{wall:.1f} s", flush=True)
+    prompts = _win_prompts(cfg, WIN_PROMPTS)
+    chunks = sum(-(-len(p) // WIN_PAD) for p in prompts)
+    total, variants = {}, {}
+    for label, kv_kw, ref_kv in (
+            ("W-paged", dict(kv="paged"), "bf16"),
+            ("W-int8", dict(kv="paged", kv_dtype="int8"), "int8"),
+            ("W-dense", dict(kv="dense"), "bf16")):
+        dt = ref_kv
+        decode = ("decode_attention" if kv_kw["kv"] == "dense"
+                  else "paged_decode_attention")
+
+        def exact(steps, dt=dt, decode=decode):
+            return {("cached_attention", dt): L * chunks,
+                    ("cached_attention", "band"): L * chunks,
+                    (decode, dt): L * steps, (decode, "band"): L * steps}
+
+        reset_counts()
+        streams, counts, _ = window_run(
+            "mistral", label, cfg, prepared, prompts, WIN_NEW, dev, card,
+            exact, window=w, compute_dtype=bf16, **kv_kw)
+        _win_merge(total, counts)
+        _win_merge(variants, {f"{n} {v}": by for n, vs in
+                              read_variants().items() for v, by in vs.items()})
+        if dev.type == "cuda" and label != "W-int8":
+            window_step_profile("mistral", label, cfg, prepared, prompts,
+                                dev, card, n_bytes, compute_dtype=bf16,
+                                **kv_kw)
+        for prompt, stream in zip(prompts, streams):
+            hold_forced_stream("mistral", label, prepared, cfg, prompt,
+                               stream, dev, BF16_TIE, hold_control=True,
+                               kv_dtype=ref_kv, compute_dtype=bf16)
+    # W-solo: the rolling ring
+    gen = llama.make_generate(cfg, max_new_tokens=WIN_NEW,
+                              compute_dtype=bf16, device=dev)
+    prompt = prompts[1]
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = gen(prepared, [prompt])[0].tolist()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts, var = read_counts(), read_variants()
+    if dev.type == "cuda":
+        want = {("cached_attention", "bf16", L), ("decode_attention", "bf16",
+                                                  L * (WIN_NEW - 1))}
+        for name, dt, n in want:
+            if counts[name][dt] != n:
+                fail(f"[mistral] W-solo: {name} ({dt}) launched "
+                     f"{counts[name][dt]} times, expected {n}")
+        if (sum(var["cached_attention"]["band"].values()) != L
+                or sum(var["decode_attention"]["band"].values()) != 0):
+            fail(f"[mistral] W-solo: band launches {var}, expected K5 {L} "
+                 "(the prompt) and no K6 (the ring needs none)")
+    print(f"[mistral] W-solo make_generate on the rolling ring: {WIN_NEW} "
+          f"tokens after a {len(prompt)}-token prompt in {wall * 1e3:.1f} ms "
+          f"(K5 banded once a layer over the prompt, K6 over the {w}-slot "
+          f"ring {WIN_NEW - 1} times a layer); on {card}", flush=True)
+    hold_forced_stream("mistral", "W-solo", prepared, cfg, prompt, toks, dev,
+                       BF16_TIE, hold_control=True, kv_dtype="bf16",
+                       compute_dtype=bf16)
+    _win_merge(total, counts)
+    _win_merge(variants, {f"{n} {v}": by for n, vs in var.items()
+                          for v, by in vs.items()})
+    del prepared, gen
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    counts32, variants32 = window_f32_control(cfg, prompts, dev, card)
+    return ({"bf16": total, "f32": counts32},
+            {"bf16": variants, "f32": variants32})
+
+
+def phase_gemma2(dev, card, cfg=None):
+    """[gemma2] gemma2-9b (or `cfg`) at full width and depth in bf16
+    compute (D = 256, attention softcap 50, final softcap 30, the
+    4096-window on its even layers), its weights drawn on the card,
+    served by the LM daemon with kv="auto", which falls back to the dense
+    pool as JAX's does (a softcapped, alternating family has no paged
+    channel): prompts of G2_PROMPTS tokens, WIN_NEW greedy tokens each,
+    the first past the window so that the even layers band; K5 at D =
+    256 with the softcap on every chunk and the band on the even layers'
+    chunks, K6 likewise every step, exactly; each stream held by teacher
+    forcing against the plain banded recompute at BF16_TIE. Returns
+    (launch counts by dtype, by variant), each under "bf16" (its q)."""
+    from dnn_tpu_torch.models import llama
+
+    bf16 = torch.bfloat16
+    cfg = cfg or llama.PRESETS["gemma2-9b"]
+    L = cfg.n_layer
+    n_band = len([x for x in llama.layer_windows(cfg) if x < WIN_MAX_LEN])
+    prepared, n_bytes, wall = _draw_bf16(cfg, dev)
+    print(f"[gemma2] {L} layers, {cfg.n_embd} wide, {cfg.n_head} heads over "
+          f"{cfg.n_kv_head} KV heads, D {cfg.head_dim}, softcaps "
+          f"{cfg.attn_softcap} / {cfg.final_softcap}, window "
+          f"{cfg.sliding_window} on {n_band} of {L} layers: "
+          f"{n_bytes / 1e9:.2f} GB of weights drawn on {dev} and prepared in "
+          f"{wall:.1f} s", flush=True)
+    prompts = _win_prompts(cfg, G2_PROMPTS)
+    chunks = sum(-(-len(p) // WIN_PAD) for p in prompts)
+
+    def exact(steps):
+        out = {}
+        for name, n in (("cached_attention", chunks),
+                        ("decode_attention", steps)):
+            out.update({(name, "bf16"): L * n, (name, "softcap"): L * n,
+                        (name, "d256"): L * n, (name, "band"): n_band * n})
+        return out
+
+    reset_counts()
+    streams, counts, _ = window_run("gemma2", "G2-dense", cfg, prepared,
+                                    prompts, WIN_NEW, dev, card, exact,
+                                    compute_dtype=bf16)
+    variants = {f"{n} {v}": by for n, vs in read_variants().items()
+                for v, by in vs.items()}
+    for prompt, stream in zip(prompts, streams):
+        hold_forced_stream("gemma2", "G2-dense", prepared, cfg, prompt,
+                           stream, dev, BF16_TIE, kv_dtype="bf16",
+                           compute_dtype=bf16)
+    if dev.type == "cuda":
+        window_step_profile("gemma2", "G2-dense", cfg, prepared, prompts,
+                            dev, card, n_bytes, compute_dtype=bf16)
+    del prepared
+    return {"bf16": counts}, {"bf16": variants}
+
+
+def phase_gemma(dev, card, cfg=None):
+    """[gemma] gemma-2b (or `cfg`) at full width and depth in f32 (D =
+    256, 8 query heads over one KV head), its weights drawn on the card:
+    G1-paged the LM daemon over the paged f32 pool (serve_run: the main
+    path's four prompts, G1_NEW greedy tokens) against the no-cache loop,
+    K5 (G = 8) and K7 (R = 8) at D = 256 exactly; G1-logprobs the same
+    pool with logprobs on (logprob_run), the served logprobs (the top
+    FORCED_TOPK and the chosen token's) within FORCED_F32_TOL of the
+    no-cache loop's on the same prefix (each stream is one token
+    repeated: its tokens say little of the attention, the logprobs of
+    the others do); G1-solo make_generate on the 300-token prompt,
+    G1_SOLO_NEW tokens, K6 at R = 8. Returns (launch counts by dtype, by
+    variant), each under "f32" (its q)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import llama
+    from dnn_tpu_torch.parallel.pipeline import sync
+
+    cfg = cfg or llama.PRESETS["gemma-2b"]
+    L = cfg.n_layer
+    t0 = time.perf_counter()
+    tree = llama.init(0, cfg, device=dev)
+    prepared = from_jax_params(tree, cfg, dev)
+    del tree
+    sync(dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(prepared))
+    print(f"[gemma] {L} layers, {cfg.n_embd} wide, {cfg.n_head} heads over "
+          f"{cfg.n_kv_head} KV head, D {cfg.head_dim}: f32 weights "
+          f"{n_bytes / 1e9:.2f} GB drawn on {dev} and prepared in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = _win_prompts(cfg, LLAMA_PROMPTS)
+    t0 = time.perf_counter()
+    ref_rows = [[] for _ in prompts]
+    refs = [reference_greedy(prepared, cfg, p, G1_NEW, dev, rows)
+            for p, rows in zip(prompts[:3], ref_rows)]
+    solo_ref = reference_greedy(prepared, cfg, prompts[3], G1_SOLO_NEW, dev,
+                                ref_rows[3])
+    del ref_rows[3][G1_NEW:]
+    refs.append((solo_ref[0][:G1_NEW], solo_ref[1][:G1_NEW]))
+    print(f"[gemma] references (no-cache f32 loops) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    total = serve_run(
+        "G1-paged", cfg, prepared, prompts, G1_NEW, refs,
+        [("cached_attention", "f32"), ("paged_decode_attention", "f32")],
+        dev, card, exact=lambda steps: {
+            ("cached_attention", "f32"): L * chunks,
+            ("paged_decode_attention", "f32"): L * steps},
+        kv="paged")
+    # every launch since serve_run's reset (its TTFT stream's too) at D = 256
+    now, var = read_counts(), read_variants()
+    if dev.type == "cuda" and any(
+            var[n]["d256"] != now[n] for n in CACHE_KERNELS):
+        fail(f"[gemma] G1-paged: the D = 256 launches {var} are not all of "
+             f"the daemon's {now}")
+    variants = {f"{n} d256": dict(total[n]) for n in CACHE_KERNELS}
+    runs, counts, var = logprob_run(
+        "gemma", "G1-logprobs", cfg, prepared, prompts, G1_NEW, dev,
+        lambda steps: {("cached_attention", "d256"): L * chunks,
+                       ("paged_decode_attention", "d256"): L * steps},
+        slots=4, max_len=1024, prompt_pad=64, block_len=16, kv="paged")
+    for p, (want, gaps), rows, (toks, top_ids, top_lp, chosen) in zip(
+            prompts, refs, ref_rows, runs):
+        compare_tokens(f"[gemma] G1-logprobs (prompt {len(p)})", toks, want,
+                       gaps)
+        # the rows up to the first (near-tie) parting share the prefix
+        n = next((j + 1 for j, (a, w) in enumerate(zip(toks, want))
+                  if a != w), len(toks))
+        err = forced_errors(rows[:n], toks[:n], top_ids[:n], top_lp[:n],
+                            chosen[:n]).max().item()
+        said = (f"[gemma] G1-logprobs (prompt {len(p)}, {len(toks)} tokens): "
+                f"served logprobs {err:.3e} from the no-cache loop's")
+        if err > FORCED_F32_TOL:
+            fail(f"{said}: above {FORCED_F32_TOL}")
+        print(f"{said} (tolerance {FORCED_F32_TOL}); on {card}", flush=True)
+    _win_merge(total, counts)
+    _win_merge(variants, {f"{n} {v}": by for n, vs in var.items()
+                          for v, by in vs.items()})
+    gen = llama.make_generate(cfg, max_new_tokens=G1_SOLO_NEW, device=dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = gen(prepared, [prompts[3]])[0].tolist()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts, var = read_counts(), read_variants()
+    if dev.type == "cuda":
+        for name, n in (("cached_attention", L),
+                        ("decode_attention", L * (G1_SOLO_NEW - 1))):
+            if counts[name]["f32"] != n or sum(var[name]["d256"].values()) != n:
+                fail(f"[gemma] G1-solo: {name} launched {counts[name]} "
+                     f"({var[name]['d256']} at D = 256), expected {n}")
+    print(f"[gemma] G1-solo make_generate: {G1_SOLO_NEW} tokens after a "
+          f"{len(prompts[3])}-token prompt in {wall * 1e3:.1f} ms; on {card}",
+          flush=True)
+    compare_tokens("[gemma] G1-solo make_generate f32", toks, *solo_ref)
+    _win_merge(total, counts)
+    _win_merge(variants, {f"{n} {v}": by for n, vs in var.items()
+                          for v, by in vs.items()})
+    del prepared
+    return {"f32": total}, {"f32": variants}
+
+
+def _win_phase(key: str) -> str:
+    """The phase that serves WIN_ROWS row `key`'s shape."""
+    return ("gemma2" if "gemma2" in key else "gemma" if "gemma" in key
+            else "mistral")
+
+
+def window_records(rows, by_phase):
+    """The kernels line's entries of the band and D = 256 variants, one a
+    variant (K5 / K6 / K7 with the band; at D = 256): on top the case
+    the main path launches most (the band: mistral-7b's shape, a bf16 q,
+    the bf16 cache of W-paged; D = 256: gemma-2b's, an f32 q and cache),
+    with that q type's rows by cache type; every other (shape, q type)
+    of WIN_ROWS the variant covers beside it. Each row carries the
+    variant's launches on the main path at its shape and q type (`rows`
+    from phase_window_kernels; `by_phase` {"mistral" | "gemma2" |
+    "gemma": {q type: {"kernel variant": {cache type: launches}}}}), and
+    the entry's "launches" is their sum."""
+    src = "dnn_tpu_torch/ops/cuda/csrc/"
+    pallas = "dnn_tpu/ops/pallas/cached_attention.py"
+    zero = {"f32": 0, "bf16": 0, "int8": 0}
+    entries = []
+    for name, source, line, var, main, main_q, keys in (
+            ("cached_attention", "cached_attention.cu", 77, "band",
+             "K5 band", "bf16", ("K5 band", "K5 D256 gemma2")),
+            ("decode_attention", "decode_attention.cu", 296, "band",
+             "K6 band", "bf16", ("K6 band", "K6 D256 gemma2")),
+            ("paged_decode_attention", "paged_decode.cu", 459, "band",
+             "K7 band", "bf16", ("K7 band",)),
+            ("cached_attention", "cached_attention.cu", 77, "d256",
+             "K5 D256 gemma", "f32", ("K5 D256 gemma", "K5 D256 gemma2")),
+            ("decode_attention", "decode_attention.cu", 296, "d256",
+             "K6 D256 gemma solo", "f32",
+             ("K6 D256 gemma solo", "K6 D256 gemma2")),
+            ("paged_decode_attention", "paged_decode.cu", 459, "d256",
+             "K7 D256 gemma", "f32", ("K7 D256 gemma",))):
+
+        def launches(key, q):
+            return by_phase.get(_win_phase(key), {}).get(q, {}).get(
+                f"{name} {var}", zero)
+
+        def shape_of(key):
+            return {**next(s for k, _, s, _ in WIN_ROWS if k == key),
+                    **next(c for k, _, _, c in WIN_ROWS if k == key)}
+
+        extra, total = {}, sum(launches(main, main_q).values())
+        for key in keys:
+            for q in WIN_Q:
+                if (key, q) == (main, main_q):
+                    continue
+                n = launches(key, q)
+                total += sum(n.values())
+                extra[f"{key.replace(' ', '_').lower()}_{q}_q_shape"] = {
+                    **shape_of(key), "q": q, "by_dtype": {
+                        dt: {"launches": n[dt], **row}
+                        for dt, row in rows[key][q].items()}}
+        entry = kernel_record(
+            f"{name} ({'band' if var == 'band' else 'D = 256'})",
+            src + source, f"{pallas}:{line}", rows[main][main_q], main_q,
+            launches(main, main_q), shape={**shape_of(main), "q": main_q},
+            **extra)
+        entry["launches"] = total
+        entries.append(entry)
+    return entries
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6674,6 +7757,17 @@ def decode_turns(parent: str, smi: str):
                   f"{sum(old) / sum(new):.2f}; on {smi}", flush=True)
 
 
+T_START = time.perf_counter()
+
+
+def timed(label, fn, *args):
+    """fn(*args), its wall printed as a [wall] line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[wall] {label} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -6696,8 +7790,8 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    phase_build()
-    phase_wire(smi)
+    timed("build", phase_build)
+    timed("wire", phase_wire, smi)
     k5 = phase_k5(dev, gen)
     k5_verify = phase_k5_verify(dev, gen)
     k6 = phase_k6(dev, gen)
@@ -6706,17 +7800,19 @@ def main():
     phase_decode_splits(dev, gen)
     flash = {**phase_flash_fwd(dev, gen), **phase_flash_bwd(dev, gen)}
     beam_embed_rows = phase_beam_embed_kernels(dev, gen)
-    launches, prepared, cfg, prompts = phase_main_path(dev, smi)
+    launches, prepared, cfg, prompts = timed("main path", phase_main_path,
+                                             dev, smi)
     text = phase_text(cfg, prepared, dev, smi)
     phase_profile(prepared, cfg, prompts, dev)
-    item_4d = phase_item_4d(cfg, prepared, prompts, dev, smi)
+    item_4d = timed("item 4d", phase_item_4d, cfg, prepared, prompts, dev,
+                    smi)
     del prepared
     bf16_q_rows = phase_bf16_q_kernels(dev, gen)
-    bf16_launches = phase_bf16(dev, smi)
-    pipe = phase_pipe(dev, smi, prompts[3])
+    bf16_launches = timed("bf16", phase_bf16, dev, smi)
+    pipe = timed("pipe", phase_pipe, dev, smi, prompts[3])
     gc.collect()
     torch.cuda.empty_cache()
-    spec, verify_launches = phase_spec(dev, smi)
+    spec, verify_launches = timed("spec", phase_spec, dev, smi)
     for counts in (text, pipe, spec["f32"], item_4d):
         for name in CACHE_KERNELS:
             for dt, n in counts[name].items():
@@ -6724,22 +7820,38 @@ def main():
     for name in CACHE_KERNELS:
         for dt, n in spec["bf16"][name].items():
             bf16_launches[name][dt] += n
-    launches.update(phase_train(dev, smi))
+    launches.update(timed("train", phase_train, dev, smi))
     for dt, n in item_4d["flash_attention"].items():  # [embed]'s K1
         launches["flash_attention"][dt] += n
     gc.collect()  # the gpt2 phases' tensors go before llama3-8b's 32 GB
     torch.cuda.empty_cache()
     llama_rows = phase_llama_kernels(dev, gen)
-    llama_counts, q8l_counts, q8l_forced = phase_llama(dev, smi)
+    llama_counts, q8l_counts, q8l_forced = timed("llama", phase_llama,
+                                                 dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    lb_counts, lb_forced = phase_llama_bf16(dev, smi)
+    lb_counts, lb_forced = timed("llama bf16", phase_llama_bf16, dev, smi)
     hold_forced(q8l_forced, lb_forced)
     gc.collect()
     torch.cuda.empty_cache()
     for name in CACHE_KERNELS:
         for dt, n in llama_counts[name].items():
             launches[name][dt] += n
+    # sliding windows, softcaps, D = 256: the kernel rows, then mistral-7b
+    # and gemma2-9b in bf16 compute (their launches all with a bf16 q) and
+    # gemma-2b in f32, each model freed before the next is drawn
+    win_rows = timed("window kernels", phase_window_kernels, dev, gen)
+    win_variants = {}
+    for tag, phase in (("mistral", phase_mistral), ("gemma2", phase_gemma2),
+                       ("gemma", phase_gemma)):
+        counts, win_variants[tag] = timed(phase.__name__, phase, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for q, by_q in counts.items():  # into the f32 or the bf16-q entries
+            into = launches if q == "f32" else bf16_launches
+            for name in CACHE_KERNELS:
+                for dt, n in by_q[name].items():
+                    into[name][dt] += n
 
     def llama_extra(kernel, rows, counts=llama_counts, **shape):
         """A kernel's [llama] rows, each with the llama runs' launches."""
@@ -6842,6 +7954,8 @@ def main():
         "B": 4, "H": 12, "T": EMBED_T, "S": EMBED_T, "D": 64,
         "by_dtype": {dt: {"launches": item_4d["flash_attention"][dt], **row}
                      for dt, row in beam_embed_rows["K1 embed"].items()}}
+    kernels += window_records(win_rows, win_variants)
+    print(f"[wall] chip_smoke {time.perf_counter() - T_START:.1f} s", flush=True)
     print(f"{smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,19 @@ RoPE tables are computed in f32 at each row's absolute position. The
 speculative batcher's verify block (`LlamaFamilyRows.verify_rows`: T
 rows a slot at its own base) runs K5 with grouped heads.
 
-Not ported, and raising NotImplementedError when a model that needs them
-is built or served (the presets are all registered): sliding windows and
-Gemma-2's alternating windows (ROADMAP PyTorch/CUDA port item 2, rolling
-rings and bands), attention and final logit softcapping (port item 7's
-softcapping), and an `ffn` override, the MoE families' hook (port item
-7, = Queue 1 item 9).
+Sliding windows (Mistral: `sliding_window` on every layer; Gemma-2:
+`alt_window`, the window on even layers and none on odd ones,
+`layer_windows`) band every attention: the stateless forward's mask, and
+on a cache the codec's window (uniform) or a per-layer window handed to
+each layer's attend (alternating); the kernels take the band as a
+predicate (K5-K7). Gemma-2's attention softcap rides the codec into K5
+and K6, its final softcap caps the head's logits. The solo decoder of a
+uniformly windowed config whose stream outgrows the window decodes on a
+rolling ring (runtime/generate.py, `_ring_from_prompt`).
+
+Not ported, and raising NotImplementedError when a model that needs it
+is built or served: an `ffn` override, the MoE families' hook (ROADMAP
+PyTorch/CUDA port item 7, = Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from dnn_tpu_torch.ops.attention import (
     rope_cos_sin,
     split_heads,
 )
+from dnn_tpu_torch.ops.cuda.cached_attention import band_keep, soft_cap
 from dnn_tpu_torch.ops.nn import embedding, gelu, layer_norm, linear, rms_norm, silu
 from dnn_tpu_torch.registry import ModelSpec, StageSpec, register_model
 
@@ -235,18 +243,8 @@ def layer_windows(cfg: LlamaConfig):
 
 def check_ported(cfg: LlamaConfig, ffn=None):
     """Raise NotImplementedError, naming the ROADMAP item, for a switch
-    this port does not run. Every entry point calls it when it builds or
-    serves a model."""
-    if cfg.sliding_window is not None or cfg.alt_window:
-        raise NotImplementedError(
-            "sliding-window attention (sliding_window / alt_window) is not "
-            "ported to dnn_tpu_torch yet (ROADMAP PyTorch/CUDA port item 2, "
-            "rolling rings and bands)")
-    if cfg.attn_softcap is not None or cfg.final_softcap is not None:
-        raise NotImplementedError(
-            "attention / final logit softcapping is not ported to "
-            "dnn_tpu_torch yet (ROADMAP PyTorch/CUDA port item 7, logit "
-            "softcapping)")
+    this port does not run: an MoE `ffn`. Every entry point calls it when
+    it builds or serves a model."""
     if ffn is not None or cfg.default_ffn() is not None:
         raise NotImplementedError(
             "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
@@ -467,38 +465,53 @@ def _branches_residual(bp, x, o, h, *, cfg: LlamaConfig, compute_dtype=None):
     return x + m.to(x.dtype)
 
 
-def _gqa_scores_attend(q, k, v, keep):
+def _gqa_scores_attend(q, k, v, keep, softcap=None):
     """Grouped attention, the einsum formula (JAX :623): q (B, H, T, D)
     against k/v (B, Hk, S, D), H = G * Hk, with the group folded next to
-    the rows so the einsums run at KV heads; `keep` broadcasts against
-    the (B, Hk, G, T, S) scores. f32 out."""
+    the rows so the einsums run at KV heads; scores soft-capped
+    (`softcap`, Gemma-2) before the mask; `keep` broadcasts against the
+    (B, Hk, G, T, S) scores. f32 out."""
     b, h, t, d = q.shape
     kv = k.shape[1]
     qg = q.reshape(b, kv, h // kv, t, d).float()
-    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) / math.sqrt(d)
+    s = soft_cap(torch.einsum("bkgtd,bksd->bkgts", qg, k.float())
+                 / math.sqrt(d), softcap)
     p = torch.softmax(torch.where(keep, s, _NEG_BIG), dim=-1)
     y = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
     return y.reshape(b, h, t, d)
 
 
-def _dense_attn(bp, h, *, cfg: LlamaConfig, compute_dtype=None):
-    """Causal GQA over the whole (B, T, C) h (JAX's _dense_attn)."""
+def _dense_attn(bp, h, *, cfg: LlamaConfig, compute_dtype=None,
+                window=None):
+    """Causal GQA over the whole (B, T, C) h, banded to the layer's
+    `window` or else the config's sliding_window (JAX's _dense_attn)."""
     t = h.shape[1]
     rows = torch.arange(t, device=h.device)
     q, k, v = _qkv(bp, h, cfg, compute_dtype)
     q, k = _rotated(q, k, *_rope_tables(cfg, rows), cfg)
-    keep = rows[:, None] >= rows[None, :]
-    y = _gqa_scores_attend(q, k, v, keep)
+    keep = band_keep(rows[None, :], rows[:, None],
+                     window if window is not None else cfg.sliding_window)
+    y = _gqa_scores_attend(q, k, v, keep, softcap=cfg.attn_softcap)
     return linear(bp["attn"]["o"], merge_heads(y.to(h.dtype)),
                   compute_dtype=compute_dtype)
 
 
-def block_apply(bp, x, *, cfg: LlamaConfig, compute_dtype=None):
-    """One block of the stateless forward (JAX :643)."""
+def block_apply(bp, x, *, cfg: LlamaConfig, compute_dtype=None,
+                window=None):
+    """One block of the stateless forward (JAX :643); `window` is the
+    layer's own (alternating configs)."""
     h = _pre_normed(bp, x, cfg)
-    o = _dense_attn(bp, h, cfg=cfg, compute_dtype=compute_dtype)
+    o = _dense_attn(bp, h, cfg=cfg, compute_dtype=compute_dtype,
+                    window=window)
     return _branches_residual(bp, x, o, h, cfg=cfg,
                               compute_dtype=compute_dtype)
+
+
+def _window_of(cfg: LlamaConfig, i: int):
+    """Layer i's window override: its entry of layer_windows for an
+    alternating config, None (the codec's or the config's window) else."""
+    wins = layer_windows(cfg)
+    return None if wins is None else wins[i]
 
 
 def _scaled_embed(p, ids, cfg: LlamaConfig):
@@ -520,22 +533,26 @@ def embed(params, idx, *, cfg: LlamaConfig):
 
 
 def head(params, x, *, cfg: LlamaConfig, compute_dtype=None):
-    """Final norm + lm_head -> f32 logits; a tied config (no lm_head
-    leaf) projects through wte.embedding.T."""
+    """Final norm + lm_head -> f32 logits, soft-capped for Gemma-2
+    (final_softcap, JAX :721); a tied config (no lm_head leaf) projects
+    through wte.embedding.T."""
     x = _norm(params["ln_f"], x, cfg)
     lm = params.get("lm_head") or {"kernel": params["wte"]["embedding"].T}
     if compute_dtype is None:
-        return linear(lm, x)
-    return linear(lm, x, compute_dtype=compute_dtype,
-                  accum_dtype=torch.float32)
+        out = linear(lm, x)
+    else:
+        out = linear(lm, x, compute_dtype=compute_dtype,
+                     accum_dtype=torch.float32)
+    return soft_cap(out, cfg.final_softcap)
 
 
 def _apply_layers(params, idx, layers, *, cfg, compute_dtype):
     x = embed(params, idx, cfg=cfg)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    for bp in layers:
-        x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype)
+    for i, bp in enumerate(layers):
+        x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype,
+                        window=_window_of(cfg, i))
     return head(params, x.float(), cfg=cfg, compute_dtype=compute_dtype)
 
 
@@ -576,8 +593,9 @@ def make_hidden_stacked(cfg: LlamaConfig, *, compute_dtype=None):
         x = embed(prepared, idx, cfg=cfg)
         if compute_dtype is not None:
             x = x.to(compute_dtype)
-        for bp in unstack(prepared["blocks"], cfg.n_layer):
-            x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype)
+        for i, bp in enumerate(unstack(prepared["blocks"], cfg.n_layer)):
+            x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype,
+                            window=_window_of(cfg, i))
         return _norm(prepared["ln_f"], x.float(), cfg)
 
     return hidden
@@ -605,11 +623,13 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype, device):
 
 
 def _block_with_cache(bp, x, layer_cache, start_pos, *,
-                      cfg: LlamaConfig, codec, compute_dtype=None):
+                      cfg: LlamaConfig, codec, compute_dtype=None,
+                      window=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos +
     T): writes the rotated k (and v) into the KV-head cache, then
     attends it — K5 with grouped heads for a chunk, K6 with the group
-    folded into the rows for a one-token step (codec.attend).
+    folded into the rows for a one-token step (codec.attend), banded to
+    the layer's `window` (alternating configs) or the codec's.
     `start_pos` is an int or a (1,) int32 device tensor
     (kvcache.span_positions)."""
     from dnn_tpu_torch.runtime.kvcache import span_positions
@@ -619,7 +639,7 @@ def _block_with_cache(bp, x, layer_cache, start_pos, *,
     rows = span_positions(start_pos, x.shape[1], x.device)
     q, k = _rotated(q, k, *_rope_tables(cfg, rows), cfg)
     codec.write(layer_cache, k, v, start_pos)
-    y = codec.attend(q, layer_cache, start_pos)
+    y = codec.attend(q, layer_cache, start_pos, window=window)
     o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
                compute_dtype=compute_dtype)
     return _branches_residual(bp, x, o, h, cfg=cfg,
@@ -635,34 +655,66 @@ def _embedded(prepared, ids, cfg: LlamaConfig, compute_dtype):
 
 @torch.no_grad()
 def forward_with_cache(prepared, ids, cache, start_pos, *,
-                       cfg: LlamaConfig, compute_dtype=None):
+                       cfg: LlamaConfig, compute_dtype=None,
+                       rolling: bool = False):
     """ids (B, T) at positions [start_pos, start_pos + T) -> f32 logits
     (B, T, V); the KV-head cache (float {"k","v"} or int8 with
     {"ks","vs"}, leaves (L, B, Hk, S[, D])) is written in place and
     returned. `start_pos` is an int or a (1,) int32 device tensor (the
-    batcher's captured mixed step). `compute_dtype` (bf16 compute): the residual stream and
-    the block products in it, norms and RoPE in f32, f32 logits."""
+    batcher's captured mixed step). `compute_dtype` (bf16 compute): the
+    residual stream and the block products in it, norms and RoPE in f32,
+    f32 logits. The codec carries the config's window (uniform) and
+    attention softcap; an alternating config hands each layer its window
+    (JAX :863-900). `rolling`: the cache is a sliding_window-slot ring
+    (one-token steps only)."""
     from dnn_tpu_torch.runtime.kvcache import codec_for_cache
 
     check_ported(cfg)
-    codec = codec_for_cache(cache)
+    wins = layer_windows(cfg)
+    codec = codec_for_cache(
+        cache, window=None if wins is not None else cfg.sliding_window,
+        rolling=rolling, softcap=cfg.attn_softcap)
     x = _embedded(prepared, ids, cfg, compute_dtype)
     for i in range(cfg.n_layer):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = _block_with_cache(layer_params(prepared["blocks"], i), x,
                               layer_cache, start_pos, cfg=cfg, codec=codec,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype,
+                              window=None if wins is None else wins[i])
     return head(prepared, x.float(), cfg=cfg,
                 compute_dtype=compute_dtype), cache
+
+
+def _ring_from_prompt(prompt_cache, t: int, w: int):
+    """A prompt-length cache's live band gathered into a w-slot ring
+    (JAX :902): slot j takes position a_j = (t - 1) - ((t - 1 - j) mod
+    w), the latest prompt position congruent to j, zeros where there is
+    none (a_j < 0: a short prompt). Decode steps then write positions t,
+    t + 1, ... at pos % w. Leaves (L, B, Hk, S[, D]) -> (L, B, Hk, w[,
+    D])."""
+    from dnn_tpu_torch.runtime.kvcache import ring_positions
+
+    dev = prompt_cache["k"].device
+    a = ring_positions(torch.tensor(t - 1, device=dev), w)  # (w,)
+    src = a.clamp(0, t - 1)
+    out = {}
+    for kk, leaf in prompt_cache.items():
+        g = leaf.index_select(3, src)
+        live = (a >= 0).reshape((1, 1, 1, w) + (1,) * (leaf.dim() - 4))
+        out[kk] = torch.where(live, g, torch.zeros_like(g))
+    return out
 
 
 def make_generate(cfg: LlamaConfig, *, max_new_tokens: int, **kwargs):
     """The solo decoder (JAX's make_generate :923): generate(prepared,
     ids, seed=0) -> (B, max_new_tokens) int32 tokens, the prompt in one
     forward (K5 with grouped heads on the card), then one forward per
-    token (K6 at G rows a KV head) over a dense KV-head cache. It is
-    runtime/generate.make_generate, which dispatches on the config: the
-    same options, the same sampling."""
+    token (K6 at G rows a KV head) over a dense KV-head cache — or, for
+    a uniformly windowed config whose stream outgrows the window, over a
+    rolling ring (the prompt banded on a prompt-length cache, its live
+    band gathered into the ring). It is runtime/generate.make_generate,
+    which dispatches on the config: the same options, the same
+    sampling."""
     from dnn_tpu_torch.runtime.generate import make_generate as _make
 
     return _make(cfg, max_new_tokens=max_new_tokens, **kwargs)
@@ -675,7 +727,13 @@ class LlamaFamilyRows:
     each slot's query group into G rows of its KV head (K6 dense, K7
     paged). `compute_dtype=torch.bfloat16` runs both in bf16 compute
     (K5/K6/K7 with bf16 queries). `ffn` (MoE, ROADMAP PyTorch/CUDA port
-    item 7) raises, as do the switches `check_ported` names."""
+    item 7) raises.
+
+    The batcher reads the attributes JAX's adapter sets (:1240-1262):
+    `window`, a uniform config's window, for its codecs (the pool stays
+    full-length; a paged pool reclaims the blocks the band left behind);
+    `alt_window` and `softcap`, which no paged pool takes; `paged_ok`,
+    "attends plain causal", which the speculative batcher requires."""
 
     def __init__(self, cfg: LlamaConfig, *, compute_dtype=None, ffn=None):
         from dnn_tpu_torch.runtime.generate import check_compute_dtype
@@ -683,6 +741,12 @@ class LlamaFamilyRows:
         check_ported(cfg, ffn)
         self.cfg = cfg
         self.compute_dtype = check_compute_dtype(compute_dtype)
+        self._wins = layer_windows(cfg)
+        self.window = None if self._wins is not None else cfg.sliding_window
+        self.alt_window = cfg.alt_window
+        self.softcap = cfg.attn_softcap
+        self.paged_ok = (cfg.sliding_window is None
+                         and cfg.attn_softcap is None)
 
     def init_cache(self, batch: int, max_len: int, dtype, device):
         return init_cache(self.cfg, batch, max_len, dtype, device)
@@ -716,8 +780,9 @@ class LlamaFamilyRows:
             q, k, v = _qkv(bp, h, cfg, cdt)
             q, k = _rotated(q, k, cos, sin, cfg)
             codec.write_rows(c, k, v, pos, active)
-            y = codec.attend_rows(q.reshape(b, hk, cfg.n_head // hk, d), c,
-                                  pos)
+            y = codec.attend_rows(
+                q.reshape(b, hk, cfg.n_head // hk, d), c, pos,
+                window=None if self._wins is None else self._wins[i])
             o = linear(bp["attn"]["o"],
                        merge_heads(y.reshape(b, cfg.n_head, 1, d).to(x.dtype)),
                        compute_dtype=cdt)
@@ -731,9 +796,13 @@ class LlamaFamilyRows:
         active slot, row t attending columns <= pos[b] + t with grouped
         query heads (codec.attend_rows_causal: K5, query head h reading
         KV head h / G). The speculative batcher's target verify and draft
-        sync. Windowed and soft-capped presets never get here: the
-        constructor's check_ported raises for them."""
+        sync; windowed and soft-capped presets raise JAX's ValueError (the
+        speculative batcher refuses them at construction)."""
         cfg, cdt = self.cfg, self.compute_dtype
+        if cfg.sliding_window is not None or cfg.attn_softcap is not None:
+            raise ValueError(
+                "speculative verify supports dense-attention LLaMA-family "
+                "configs only (no sliding window / softcap)")
         t = chunk.shape[1]
         positions = pos.long()[:, None] + torch.arange(t, device=pos.device)
         x = _embedded(prepared, chunk, cfg, cdt)  # (B, T, C)
@@ -785,7 +854,8 @@ def make_partition(cfg: LlamaConfig, *, compute_dtype=None):
                     x = x.to(compute_dtype)
                 for i in range(_lo, _hi):
                     x = block_apply(params[f"h_{i}"], x, cfg=cfg,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    window=_window_of(cfg, i))
                 if _last:
                     x = head(params, x.float(), cfg=cfg,
                              compute_dtype=compute_dtype)

@@ -486,7 +486,8 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             allow_constraints=not spec_kwargs,
             **spec_kwargs, **lora_kwargs)) or 0
     except (NotImplementedError, ValueError) as e:
-        # e.g. --kv_dtype int4, or a sliding-window preset (ROADMAP item 2)
+        # e.g. --kv_dtype int4 (ROADMAP item 2), or --kv paged for a
+        # softcapped / alternating-window preset (Gemma-2)
         log.error("%s", e)
         return 2
     except KeyboardInterrupt:

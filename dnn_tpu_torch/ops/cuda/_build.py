@@ -42,24 +42,24 @@ KERNELS = {
     "cached_attention": (
         "cached_attention.cu", "dnn_cached_attention",
         # q k v ks vs pos out ws | BH H G T S D kv_kind q_kind
-        # split_tiles | scale stream (G: query heads a KV head; q_kind: 0
-        # f32, 1 bf16 q and out; ws: the split-KV workspace, None for a
-        # single split)
+        # split_tiles | scale window softcap stream (G: query heads a KV
+        # head; q_kind: 0 f32, 1 bf16 q and out; ws: the split-KV
+        # workspace, None for a single split; window 0 / softcap 0: none)
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         _I, _F, _P]),
+         _I, _F, _I, _F, _P]),
     "decode_attention": (
         "decode_attention.cu", "dnn_decode_attention",
         # q k v ks vs pos out ws | B Hk R S D kv_kind q_kind split_keys
-        # | scale stream (ws: the split-KV workspace, None for a single
-        # split)
+        # | scale window softcap stream (ws: the split-KV workspace, None
+        # for a single split)
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         _F, _P]),
+         _F, _I, _F, _P]),
     "paged_decode": (
         "paged_decode.cu", "dnn_paged_decode_attention",
         # q kp vp ks vs tables pos out ws | B Hk R D bp nb_max kv_kind
-        # q_kind split_keys | scale stream
+        # q_kind split_keys | scale window stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-         _I, _I, _F, _P]),
+         _I, _I, _F, _I, _P]),
     "flash_attention": (
         "flash_attention.cu", "dnn_flash_attention",
         # q k v out lse | BH T S D causal kind | scale stream

@@ -79,16 +79,32 @@
 //    K scale multiplies the f32 score column before the softmax; the V
 //    scale folds into P for P.V only, while l sums the unscaled P (the
 //    reference's softmax denominator never sees the V scales).
+//  * The sliding-window band (window > 0; Mistral, Gemma-2's even layers):
+//    row t keeps the columns after pos + t - window. The tile's first row
+//    has the lowest first live column, so a block starts at the 64-key
+//    tile that holds it and never reads the tiles before (a windowed
+//    paged row's reclaimed blocks among them); a split wholly before it
+//    exits at once. Tiles a row's band crosses take the mask. The merge
+//    reads only the splits that hold a live column of the row.
+//  * The softcap (softcap > 0; Gemma-2): each score, after the int8 K
+//    scale, is scaled by 1/sqrt(D) and capped at softcap * tanh(s /
+//    softcap) (tanhf) before the mask; scale2 is then log2 e alone.
+//  * D = 256 (Gemma): P.V is one m64n256k16 (128 accumulators a thread).
+//    A bf16 cache's ring (192 KB with Q) and an int8 cache's (194 KB) fit
+//    a block's 227 KB; an f32 cache's raw ring would not, so its tiles
+//    are read and split into the operand tiles straight from global
+//    memory (Direct), behind the block's barrier.
 //
 // Numerics: f32 statistics and accumulation for every cache type; the
-// output is written in q's type (rounded to nearest once, for bf16). The scale 1/sqrt(D) multiplies the f32 score in log2 units
-// (exp2 on the SFU) where the reference divides by sqrt(D); masked scores
-// sit at -1e30 and add exactly 0 to l and O. A row's live columns are a
-// prefix of the cache, so the first tile of any split the row reaches
-// holds a live column of it, and the row's m is real from there on. A
-// split a row does not reach leaves that row's partial undefined, and
-// the merge never reads it: row t reads the splits up to the one that
-// holds its last live column.
+// output is written in q's type (rounded to nearest once, for bf16). The
+// scale 1/sqrt(D) multiplies the f32 score in log2 units (exp2 on the
+// SFU) where the reference divides by sqrt(D); masked scores are -inf
+// and add exactly 0 to l and O (a banded row's first tiles may hold no
+// live column of it: its m stays at its finite start there, and its l
+// and O at 0). A split that holds no live column of a row leaves that
+// row's partial undefined, and the merge never reads it: row t reads the
+// splits from the one that holds its first live column to the one that
+// holds its last.
 
 #include "hopper_tc.cuh"
 
@@ -112,10 +128,20 @@ struct Kind {
   static constexpr bool kStaged = !std::is_same<KV, __nv_bfloat16>::value;
 };
 
+// An f32 cache at head dim 256 has no ring: two stages of raw 64-key f32
+// tiles (256 KB) beside its four operand tiles (128 KB) are past a block's
+// 227 KB, so each tile is read from global memory and split into the
+// operand tiles in one step (convert_direct), behind the block's barrier.
+template <typename KV, int D>
+struct Direct {
+  static constexpr bool value = Kind<KV>::kSplit && D > 128;
+};
+
 // Shared memory, in bytes from the 1024-aligned base: Q hi and Q lo
 // tiles; the operand tiles K, V (hi) and K lo, V lo of a converted cache;
-// then kRing stages. A bf16 stage is a K and a V operand tile; a raw
-// stage is the K and V rows as stored, then (int8) 64 K and 64 V scales.
+// then kRing stages (none for Direct). A bf16 stage is a K and a V
+// operand tile; a raw stage is the K and V rows as stored, then (int8) 64
+// K and 64 V scales. At D = 256: 192 KB (bf16, f32) and 194 KB (int8).
 template <typename KV, int D>
 struct Smem {
   static constexpr int kTile = Layout<D>::kTile;
@@ -124,12 +150,14 @@ struct Smem {
   static constexpr int kOperands =
       Kind<KV>::kStaged ? (Kind<KV>::kSplit ? 4 : 2) : 0;
   static constexpr int kStage =
-      Kind<KV>::kStaged
+      Direct<KV, D>::value ? 0
+      : Kind<KV>::kStaged
           ? (2 * kRaw + (Kind<KV>::kQuant ? 2 * kRows * 4 : 0) + 1023) / 1024 *
                 1024
           : 2 * kTile;
   static constexpr int kRingOff = kOps + kOperands * kTile;
   static constexpr int kBytes = kRingOff + kRing * kStage;
+  static_assert(kBytes <= 227 * 1024, "a block's shared memory");
 };
 
 // Four int8 values (one 32-bit word) as two bf16 pairs; exact.
@@ -172,21 +200,59 @@ __device__ __forceinline__ void convert(const unsigned char* raw,
   }
 }
 
+// Direct: rows [k0, k0 + 64) of an f32 cache's K and V straight from
+// global memory (zeros past S), split into the operand tiles at `ops` as
+// convert does: K hi, V hi, K lo, V lo.
+template <int D>
+__device__ __forceinline__ void convert_direct(const float* kb,
+                                               const float* vb, int k0, int S,
+                                               unsigned char* ops) {
+  using L = Smem<float, D>;
+  constexpr int kChunks = D / 8;
+#pragma unroll 2
+  for (int u = 0; u < kRows * kChunks / kWGThreads; ++u) {
+    const int i = (int)threadIdx.x + u * kWGThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const int off = Layout<D>::offset(r, c);
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {  // K, then V
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (k0 + r < S) {
+        const float4* f = reinterpret_cast<const float4*>(
+            (w ? vb : kb) + (size_t)(k0 + r) * D + 8 * c);
+        a = f[0];
+        b = f[1];
+      }
+      uint4 hi, lo;
+      split8(a, b, hi, lo);
+      *reinterpret_cast<uint4*>(ops + w * L::kTile + off) = hi;
+      *reinterpret_cast<uint4*>(ops + (2 + w) * L::kTile + off) = lo;
+    }
+  }
+}
+
 // The online softmax of one 64-key tile of f32 scores at k0, in place:
-// masks columns past each row's limit (only where `masked`), moves the
-// row max m (log2 units), returns in alpha the factor 2^(m_old - m_new)
-// for O; s becomes p = 2^(s * scale2 - m), and l (this thread's part of
-// the row sum) takes alpha * l + the sum of p.
+// masks columns past each row's limit and before its band's first live
+// column lo (only where `masked`), moves the row max m (log2 units),
+// returns in alpha the factor 2^(m_old - m_new) for O; s becomes p = 2^(s *
+// scale2 - m), and l (this thread's part of the row sum) takes alpha * l +
+// the sum of p. A masked score is -inf (the bits 0xff800000), so its p is
+// exactly 0 even in a tile where a row has no live column (a banded row's
+// first tiles): m stays at its finite start there, and 2^(-1e30 * scale2 -
+// m) would leave fmaf's rounding of the huge product, about 1e22, for ex2
+// to make inf (and inf * alpha = 0 a NaN).
 __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
                                                float (&l)[2],
                                                float (&alpha)[2], bool masked,
                                                int k0, const int (&limit)[2],
-                                               int c_lane, float scale2) {
+                                               const int (&lo)[2], int c_lane,
+                                               float scale2) {
   if (masked) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = k0 + 8 * (i / 4) + c_lane + (i & 1);
-      if (c > limit[(i / 2) & 1]) s[i] = kNegBig;
+      const int h = (i / 2) & 1;
+      if (c > limit[h] || c < lo[h]) s[i] = __int_as_float(0xff800000);
     }
   }
 #pragma unroll
@@ -221,11 +287,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
 // pos and the workspace are indexed by bh as for G = 1. ws null
 // (one split: out is written here) or the workspace of n_split =
 // gridDim.x splits: acc (n_split, BH, T, D), then m and l (n_split, BH,
-// T) each (rows whose live columns all lie in split 0 go to out
-// instead). Grid (n_split, ceil(T / 64), BH), block kWGThreads, dynamic
-// shared memory Smem<KV, D>::kBytes.
+// T) each (rows whose live columns all lie in one split go to out
+// instead). window > 0: row t keeps only the columns after pos + t -
+// window (the band; band_lo); softcap > 0: each score s (after the int8 K
+// scale and the 1/sqrt(D) scale) becomes softcap * tanh(s / softcap)
+// before the mask. Grid (n_split, ceil(T / 64), BH), block kWGThreads,
+// dynamic shared memory Smem<KV, D>::kBytes.
 template <typename KV, int D, bool kBF16Q>
-__global__ void __launch_bounds__(kWGThreads, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kWGThreads, D >= 128 ? 1 : 2)
 cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
                       const KV* __restrict__ k, const KV* __restrict__ v,
                       const float* __restrict__ k_scale,
@@ -233,7 +302,7 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
                       const int* __restrict__ pos,
                       Elem<kBF16Q>* __restrict__ out, float* __restrict__ ws,
                       int H, int G, int T, int S, int split_keys,
-                      float scale) {
+                      float scale, int window, float softcap) {
   using K = Kind<KV>;
   using L = Smem<KV, D>;
   constexpr int kTile = L::kTile;
@@ -248,27 +317,42 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
   const int base = pos[bh / H];
   const int last_col = min(S - 1, base + min(T, q0 + kRows) - 1);
   const int k_begin = split * split_keys;
-  if (k_begin > last_col) return;  // no live column of the tile here
-  const int n_tiles =
-      (min(last_col, k_begin + split_keys - 1) - k_begin) / kRows + 1;
+  const int k_end = min(last_col, k_begin + split_keys - 1);
+  // the band: the tile's first row has the lowest first live column, so
+  // the 64-key tiles wholly before it are skipped, never read (a windowed
+  // paged row's reclaimed blocks among them)
+  const int k_first =
+      max(k_begin, min(band_lo(base + q0, window), last_col) / kRows * kRows);
+  if (k_first > k_end) return;  // no live column of the tile here
+  const int n_tiles = (k_end - k_first) / kRows + 1;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0, r0 + 8
   const int c_lane = 2 * (lane & 3);       // its first column of each 8
   const int limit[2] = {min(S - 1, base + q0 + r0),
                         min(S - 1, base + q0 + r0 + 8)};
-  // tiles wholly at or below the first row's limit need no mask
+  // each row's first live column, never past its last (a stale base's row
+  // past the cache's end keeps its last column)
+  const int lo[2] = {min(band_lo(base + q0 + r0, window), limit[0]),
+                     min(band_lo(base + q0 + r0 + 8, window), limit[1])};
+  // tiles wholly at or below the first row's limit, and at or after the
+  // last row's first live column, need no mask
   const int first_limit = min(S - 1, base + q0);
+  const int last_lo = band_lo(base + q0 + kRows - 1, window);
   const size_t kv_row = (size_t)(bh / G) * S;  // this head's cache rows
   const KV* kb = k + kv_row * D;
   const KV* vb = v + kv_row * D;
 
   auto stage = [&](int j) { return L::kRingOff + L::kStage * (j % kRing); };
-  // Starts copying tile j of the split into its stage.
+  // Starts copying tile j of the split into its stage (Direct: nothing;
+  // the tile is read when it is converted).
   auto load = [&](int j) {
-    const int k0 = k_begin + j * kRows;
+    const int k0 = k_first + j * kRows;
     const uint32_t st = sbase + stage(j);
-    if constexpr (K::kStaged) {
+    if constexpr (Direct<KV, D>::value) {
+      (void)k0;
+      (void)st;
+    } else if constexpr (K::kStaged) {
       load_raw<KV, D, kWGThreads>(st, kb, k0, S);
       load_raw<KV, D, kWGThreads>(st + L::kRaw, vb, k0, S);
       if constexpr (K::kQuant) {  // 64 K scales, then 64 V scales
@@ -318,7 +402,8 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
   }
 
   const uint32_t sq = sbase, sq_lo = sbase + kTile;
-  const float scale2 = scale * kLog2e;  // raw score -> log2 units
+  // a raw score -> log2 units (a capped score is already scaled)
+  const float scale2 = softcap > 0.f ? kLog2e : scale * kLog2e;
   // m: running row max in log2 units; l: this thread's part of the row sum
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f}, alpha[2];
   float o[D / 2];
@@ -334,7 +419,11 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
     if (j + 1 < n_tiles) load(j + 1);
     uint32_t sk, sv, sk_lo = 0, sv_lo = 0;
     if constexpr (K::kStaged) {
-      convert<KV, D>(smem + stage(j), smem + L::kOps);
+      if constexpr (Direct<KV, D>::value) {
+        convert_direct<D>(kb, vb, k_first + j * kRows, S, smem + L::kOps);
+      } else {
+        convert<KV, D>(smem + stage(j), smem + L::kOps);
+      }
       fence_async_smem();
       __syncthreads();
       sk = sbase + L::kOps;
@@ -368,7 +457,7 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
     wgmma_wait<0>();
     pin(s);
 
-    const int k0 = k_begin + j * kRows;
+    const int k0 = k_first + j * kRows;
     const float* scales =
         reinterpret_cast<const float*>(smem + stage(j) + 2 * L::kRaw);
     if constexpr (K::kQuant) {
@@ -376,8 +465,13 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
       for (int i = 0; i < 32; ++i)
         s[i] *= scales[8 * (i / 4) + c_lane + (i & 1)];
     }
-    online_softmax(s, m, l, alpha, k0 + kRows - 1 > first_limit, k0, limit,
-                   c_lane, scale2);
+    if (softcap > 0.f) {  // scores scaled, then capped (scale2 is log2e)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = soft_cap(s[i] * scale, softcap);
+    }
+    online_softmax(s, m, l, alpha,
+                   k0 + kRows - 1 > first_limit || k0 < last_lo, k0, limit,
+                   lo, c_lane, scale2);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
     if constexpr (K::kQuant) {  // P.V sees P times the V scales
@@ -415,10 +509,13 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int t = q0 + r0 + 8 * h;
-    // rows past T, and rows with no live column in this split, are not
-    // stored; a row whose live columns all lie in split 0 is finished here
-    if (t >= T || limit[h] < k_begin) continue;
-    if (ws == nullptr || limit[h] < split_keys) {
+    // rows past T, and rows with no live column in this split (its live
+    // columns lo .. limit all before or all after it), are not stored: the
+    // merge never reads their partials; a row whose live columns all lie in
+    // this one split is finished here
+    if (t >= T || limit[h] < k_begin || lo[h] > k_begin + split_keys - 1)
+      continue;
+    if (ws == nullptr || lo[h] / split_keys == limit[h] / split_keys) {
       const float inv = 1.f / l[h];
       Elem<kBF16Q>* orow = out + ((size_t)bh * T + t) * D + c_lane;
 #pragma unroll
@@ -443,10 +540,13 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
 }
 
 // out (rows = BH * T, D) from the n_split partials in ws (the layout
-// above): row (bh, t) reads the splits 0 .. n - 1 that hold a live column
-// of it, n = min(S - 1, pos + t) / split_keys + 1, and takes
-// sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s with M = max_s m_s, in
-// split order; a row with n = 1 was written by its split-0 block. D / 4
+// above): row (bh, t) reads the splits that hold a live column of it,
+// those of its first live column lo (band_lo; 0 without a window) through
+// its last, min(S - 1, pos + t), and takes sum_s 2^(m_s - M) acc_s /
+// sum_s 2^(m_s - M) l_s with M = max_s m_s, in split order; a split
+// wholly outside the row's band is never read (its partial was not
+// written), so no empty state enters the sum; a row whose live columns lie
+// in one split was written by that split's block. D / 4
 // threads a row, four output dims each, written in q's type. Launched as
 // a programmatic dependent of the split kernel: its blocks start while
 // that grid runs, and wait for it (griddepcontrol.wait) before the first
@@ -456,23 +556,26 @@ __global__ void __launch_bounds__(kWGThreads)
 cached_attn_merge_kernel(const float* __restrict__ ws,
                          const int* __restrict__ pos,
                          Elem<kBF16Q>* __restrict__ out, int H, int T, int S,
-                         int split_keys, int n_split, int rows) {
+                         int split_keys, int n_split, int rows, int window) {
   constexpr int kPer = D / 4;  // threads a row
   const int row = blockIdx.x * (kWGThreads / kPer) + threadIdx.x / kPer;
   if (row >= rows) return;
   const int d = 4 * (threadIdx.x % kPer);
   const int bh = row / T, t = row % T;
-  const int n = min(S - 1, pos[bh / H] + t) / split_keys + 1;
-  if (n == 1) return;
+  const int limit = min(S - 1, pos[bh / H] + t);
+  const int first = min(band_lo(pos[bh / H] + t, window), limit) / split_keys;
+  const int last = limit / split_keys;
+  if (first == last) return;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t stride = (size_t)rows;  // one split's rows
   const float* ms = ws + (size_t)n_split * stride * D;
   const float* ls = ms + (size_t)n_split * stride;
   float mx = kNegBig;
-  for (int sp = 0; sp < n; ++sp) mx = fmaxf(mx, ms[sp * stride + row]);
+  for (int sp = first; sp <= last; ++sp)
+    mx = fmaxf(mx, ms[sp * stride + row]);
   float tot = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int sp = 0; sp < n; ++sp) {
+  for (int sp = first; sp <= last; ++sp) {
     const size_t i = sp * stride + row;
     const float w = exp2f(ms[i] - mx);
     tot = fmaf(ls[i], w, tot);
@@ -491,8 +594,8 @@ template <typename KV, int D, bool kBF16Q>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, const int* pos,
                    void* out_, float* ws, int BH, int H, int G, int T, int S,
-                   int split_keys, int n_split, float scale,
-                   cudaStream_t stream) {
+                   int split_keys, int n_split, float scale, int window,
+                   float softcap, cudaStream_t stream) {
   constexpr int smem = Smem<KV, D>::kBytes;
   static bool configured = false;
   cudaError_t e =
@@ -503,7 +606,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cached_attn_tc_kernel<KV, D, kBF16Q><<<grid, kWGThreads, smem, stream>>>(
       static_cast<const Elem<kBF16Q>*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ks, vs, pos, out, ws, H, G, T, S,
-      split_keys, scale);
+      split_keys, scale, window, softcap);
   e = cudaGetLastError();
   if (e != cudaSuccess || ws == nullptr) return e;
   constexpr int kRowsPer = kWGThreads / (D / 4);
@@ -519,14 +622,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, cached_attn_merge_kernel<D, kBF16Q>,
                             static_cast<const float*>(ws), pos, out, H, T, S,
-                            split_keys, n_split, rows);
+                            split_keys, n_split, rows, window);
 }
 
 }  // namespace tc
 }  // namespace
 
-// C entry point (loaded with ctypes). G: query heads a KV head (H / Hk;
-// 1 for multi-head attention). kv_kind: 0 = f32 cache, 1 = bf16,
+// C entry point (loaded with ctypes). D: 32, 64, 128 or 256. G: query
+// heads a KV head (H / Hk; 1 for multi-head attention). window: the
+// band's width (<= 0: none); softcap: the score cap (<= 0: none). kv_kind:
+// 0 = f32 cache, 1 = bf16,
 // 2 = int8 with ks/vs scales (null for the float kinds). q_kind: 0 = f32
 // q and out, 1 = bf16 q and out. split_tiles:
 // 64-key tiles per split; the keys fall into n_split = ceil(ceil(S / 64)
@@ -540,6 +645,7 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
                                     void* out, void* ws, int BH, int H,
                                     int G, int T, int S, int D, int kv_kind,
                                     int q_kind, int split_tiles, float scale,
+                                    int window, float softcap,
                                     void* stream) {
   using tc::kRows;
   if (BH <= 0 || H <= 0 || G <= 0 || T <= 0 || S <= 0 || split_tiles <= 0 ||
@@ -558,7 +664,7 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
   float* ww = static_cast<float*>(ws);
   const int split_keys = split_tiles * kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)with_head_dim(D, [&](auto d) {
+  return (int)with_cache_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     return with_q_kind(q_kind, [&](auto qk) {
       constexpr bool kQ = decltype(qk)::value;
@@ -566,16 +672,17 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
         case 0:
           return tc::launch<float, kD, kQ>(q, k, v, kss, vss, pp, out, ww, BH,
                                            H, G, T, S, split_keys, n_split,
-                                           scale, st);
+                                           scale, window, softcap, st);
         case 1:
           return tc::launch<__nv_bfloat16, kD, kQ>(q, k, v, kss, vss, pp, out,
                                                    ww, BH, H, G, T, S,
                                                    split_keys, n_split, scale,
-                                                   st);
+                                                   window, softcap, st);
         case 2:
           return tc::launch<int8_t, kD, kQ>(q, k, v, kss, vss, pp, out, ww,
                                             BH, H, G, T, S, split_keys,
-                                            n_split, scale, st);
+                                            n_split, scale, window, softcap,
+                                            st);
         default:
           return cudaErrorInvalidValue;
       }

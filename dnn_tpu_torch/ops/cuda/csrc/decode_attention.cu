@@ -75,6 +75,12 @@
 // ONLY: the row sum l adds the unscaled probability (the reference
 // scales the softmax output, whose denominator never saw the V scales).
 //
+// The band, the softcap and D = 256 (decode_split.cuh's header): a split
+// wholly before a slot's band returns without reading, a split's tiles
+// start at its first live column, the merge reads only the splits inside
+// the band; the softcap caps each score in log2 units (cap * log2 e);
+// at D = 256 a lane holds 8 head dims, so a key row is one warp.
+//
 // Numerics: f32 accumulation for every cache type, the output in q's type
 // (f32, or bf16 under bf16 compute: q is read as it is), masked
 // scores at -1e30 (not -inf) as the reference does, and their
@@ -97,18 +103,19 @@ decode_attn_kernel(const Elem<kBF16Q>* __restrict__ q,
                    const float* __restrict__ ks, const float* __restrict__ vs,
                    const int* __restrict__ pos,
                    Elem<kBF16Q>* __restrict__ out, float* __restrict__ ws,
-                   int Hk, int R, int S, int split_keys, float scale) {
+                   int Hk, int R, int S, int split_keys, float scale,
+                   int window, float softcap) {
   dec::split_block<KV, D, kR, false, kBF16Q>(q, k, v, ks, vs, nullptr, pos,
                                              out, ws, Hk, R, S, 1, split_keys,
-                                             scale);
+                                             scale, window, softcap);
 }
 
 template <typename KV, int D, int kR, bool kBF16Q>
 cudaError_t launch(const void* q_, const void* k, const void* v,
                    const float* ks, const float* vs, const int* pos,
                    void* out_, float* ws, int B, int Hk, int R, int S,
-                   int split_keys, int n_split, float scale,
-                   cudaStream_t stream) {
+                   int split_keys, int n_split, float scale, int window,
+                   float softcap, cudaStream_t stream) {
   static bool configured = false;
   const Elem<kBF16Q>* q = static_cast<const Elem<kBF16Q>*>(q_);
   Elem<kBF16Q>* out = static_cast<Elem<kBF16Q>*>(out_);
@@ -117,15 +124,17 @@ cudaError_t launch(const void* q_, const void* k, const void* v,
   return dec::launch<D, kBF16Q>(
       decode_attn_kernel<KV, D, kR, kBF16Q>,
       dec::Cfg<KV, D>::template smem<kR>(0), configured, n_split, B * Hk, ws,
-      pos, out, Hk, R, S, split_keys, stream, q, kk, vv, ks, vs, pos, out, ws,
-      Hk, R, S, split_keys, scale);
+      pos, out, Hk, R, S, split_keys, window, stream, q, kk, vv, ks, vs, pos,
+      out, ws, Hk, R, S, split_keys, scale, window, softcap);
 }
 
 }  // namespace
 
-// C entry point (loaded with ctypes). kv_kind: 0 = f32 cache, 1 = bf16,
-// 2 = int8 with ks/vs scales (null for the float kinds). q_kind: 0 = f32
-// q and out, 1 = bf16 q and out. split_keys:
+// C entry point (loaded with ctypes). D: 32, 64, 128 or 256. kv_kind: 0 =
+// f32 cache, 1 = bf16, 2 = int8 with ks/vs scales (null for the float
+// kinds). q_kind: 0 = f32 q and out, 1 = bf16 q and out. window: the
+// band's width (<= 0: none); softcap: the score cap (<= 0: none).
+// split_keys:
 // columns a split; the cache falls into n_split = ceil(S / split_keys)
 // splits, and ws is null when n_split is 1, else an f32 workspace of
 // n_split * B * Hk * R * (D + 2) floats. One call launches the split
@@ -137,7 +146,7 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
                                     void* out, void* ws, int B, int Hk,
                                     int R, int S, int D, int kv_kind,
                                     int q_kind, int split_keys, float scale,
-                                    void* stream) {
+                                    int window, float softcap, void* stream) {
   if (B <= 0 || Hk <= 0 || R <= 0 || R > dec::kMaxRows || S <= 0 ||
       split_keys <= 0 || (long long)B * Hk > 65535)
     return (int)cudaErrorInvalidValue;
@@ -151,7 +160,7 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
   const int* pp = static_cast<const int*>(pos);
   float* ww = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)with_head_dim(D, [&](auto d) {
+  return (int)with_cache_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     return dec::with_rows(R, [&](auto rows) {
       constexpr int kR = decltype(rows)::value;
@@ -161,15 +170,16 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
           case 0:
             return launch<float, kD, kR, kQ>(q, k, v, kss, vss, pp, out, ww,
                                              B, Hk, R, S, split_keys, n_split,
-                                             scale, st);
+                                             scale, window, softcap, st);
           case 1:
             return launch<__nv_bfloat16, kD, kR, kQ>(
                 q, k, v, kss, vss, pp, out, ww, B, Hk, R, S, split_keys,
-                n_split, scale, st);
+                n_split, scale, window, softcap, st);
           case 2:
             return launch<int8_t, kD, kR, kQ>(q, k, v, kss, vss, pp, out, ww,
                                               B, Hk, R, S, split_keys,
-                                              n_split, scale, st);
+                                              n_split, scale, window, softcap,
+                                              st);
           default:
             return cudaErrorInvalidValue;
         }

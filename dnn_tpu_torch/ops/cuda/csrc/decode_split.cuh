@@ -18,6 +18,15 @@
 //
 // Workspace (n_split > 1): acc (n_split, rows, D), then m and l
 // (n_split, rows) each, rows = B * Hk * R; m in log2 units.
+//
+// The band (window > 0, Mistral's and Gemma-2's sliding windows): slot b's
+// live columns are lo .. min(pos[b], len - 1), lo = band_lo(pos[b],
+// window); a split wholly before lo returns at once, as one wholly past the
+// limit does, and reads nothing (a windowed paged slot's reclaimed blocks,
+// whose table entries point at the junk block, lie there); a split's tiles
+// start at its first live column. The merge reads only the splits that
+// hold a live column of the row. The softcap (softcap > 0, Gemma-2) caps
+// each score after its scales, before the mask.
 
 #pragma once
 
@@ -42,18 +51,23 @@ constexpr int kMergeThreads = 128;
 constexpr int kMergeChunk = 8;  // the merge's splits loaded together
 constexpr int kMaxSmem = 227 * 1024;  // an H100 block's shared memory
 
-// What one (cache type, head dim) needs. A lane computes on 4 head dims,
-// so a key row is read by a group of kG = D / 4 neighbouring lanes; a
-// warp's kGroups groups take the keys of its tiles in turn, kKeys each
-// (4 in f32, 8 in the narrow types: about 4 KB of K and V a tile).
+// What one (cache type, head dim) needs. A lane computes on kVec head
+// dims (4; 8 at D = 256), so a key row is read by a group of kG = D / kVec
+// neighbouring lanes (at most the warp); a warp's kGroups groups take the
+// keys of its tiles in turn, kKeys each (4 in f32, 8 in the narrow types:
+// about 4 KB of K and V a tile; 4 at D = 256, whose lanes hold twice the
+// state a row).
 template <typename KV, int D>
 struct Cfg {
   static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   static constexpr int kRowBytes = D * (int)sizeof(KV);
   static constexpr int kChunks = kRowBytes / 16;  // 16-byte copies a row
-  static constexpr int kG = D / 4;
+  static constexpr int kVec = D > 128 ? 8 : 4;
+  static constexpr int kG = D / kVec;
+  static_assert(kG <= 32, "a key row's lanes fill at most the warp");
   static constexpr int kGroups = 32 / kG;
-  static constexpr int kKeys = std::is_same<KV, float>::value ? 4 : 8;
+  static constexpr int kKeys =
+      std::is_same<KV, float>::value || D > 128 ? 4 : 8;
   static constexpr int kTile = kKeys * kGroups;  // keys a warp's tile
   static_assert(kTile * kChunks % 32 == 0, "a tile's copies fill the warp");
   static constexpr int kKV = kTile * kRowBytes;  // a K (or V) tile
@@ -109,7 +123,8 @@ __device__ __forceinline__ void load4(const int8_t* p, float* o) {
 
 // One block of the split grid (n_split, B * Hk): all R <= kR query rows
 // of one (slot b, KV head hk), over the keys [split * split_keys,
-// (split + 1) * split_keys) clipped to the slot's live limit. kPaged
+// (split + 1) * split_keys) clipped to the slot's live columns (its band
+// lo .. limit). kPaged
 // reads the cache through `tables` (bp rows a block; split_keys is a
 // multiple of bp), else as the dense (B, Hk, len, D) array. The partial
 // state goes to ws, or, where the slot's live columns all lie in split
@@ -125,8 +140,9 @@ __device__ __forceinline__ void split_block(
     const float* __restrict__ vs, const int* __restrict__ tables,
     const int* __restrict__ pos, Elem<kBF16Q>* __restrict__ out,
     float* __restrict__ ws, int Hk, int R, int len, int bp, int split_keys,
-    float scale) {
+    float scale, int window, float softcap) {
   using C = Cfg<KV, D>;
+  constexpr int kVec = C::kVec;
   extern __shared__ __align__(16) unsigned char smem[];
   // the merge (a programmatic dependent) may start its blocks now; it
   // waits for this grid's completion before it reads a partial
@@ -135,18 +151,22 @@ __device__ __forceinline__ void split_block(
   const int b = bh / Hk, hk = bh - b * Hk;
   const int c0 = split * split_keys;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gl = lane % C::kG, grp = lane / C::kG, d0 = 4 * gl;
+  const int gl = lane % C::kG, grp = lane / C::kG, d0 = kVec * gl;
   // q, pos and (paged) the split's table entries are loaded together:
   // none of them depends on another, and the K/V copies wait for pos
   const int limit = min(pos[b], len - 1);
-  float qr[kR][4];
+  // the band's first live column, never past the last (a stale slot)
+  const int lo = min(band_lo(pos[b], window), limit);
+  float qr[kR][kVec];
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     if (r < R) {
-      load4(q + ((size_t)bh * R + r) * D + d0, qr[r]);
+#pragma unroll
+      for (int u = 0; u < kVec; u += 4)
+        load4(q + ((size_t)bh * R + r) * D + d0 + u, qr[r] + u);
     } else {
 #pragma unroll
-      for (int d = 0; d < 4; ++d) qr[r][d] = 0.f;
+      for (int d = 0; d < kVec; ++d) qr[r][d] = 0.f;
     }
   }
   // paged: the pool row of every column of the split, computed once here
@@ -164,16 +184,19 @@ __device__ __forceinline__ void split_block(
       rows_at[rel] = (entries[j] * Hk + hk) * bp + (col - j * bp);
     }
   }
-  if (c0 > limit) return;  // no live column of the slot here
-  const int n_keys = min(split_keys, limit + 1 - c0);
+  // no live column of the slot here: the split lies past its limit, or
+  // wholly before its band
+  if (c0 > limit || c0 + split_keys <= lo) return;
+  const int c1 = max(c0, lo);  // the split's first live column
+  const int n_keys = min(c0 + split_keys - 1, limit) + 1 - c1;
   const int n_tiles = (n_keys + C::kTile - 1) / C::kTile;
   if constexpr (kPaged) __syncthreads();
-  // the D-wide row of column c0 + rel
+  // the D-wide row of column c1 + rel
   auto row_of = [&](int rel) -> size_t {
     if constexpr (kPaged) {
-      return (size_t)(unsigned)rows_at[rel];
+      return (size_t)(unsigned)rows_at[c1 - c0 + rel];
     } else {
-      return (size_t)bh * len + c0 + rel;
+      return (size_t)bh * len + c1 + rel;
     }
   };
   // Warp w takes the tiles w, w + kWarps, ... of the split through its
@@ -213,13 +236,14 @@ __device__ __forceinline__ void split_block(
   for (int i = 0; i < kStages; ++i) issue(i);
 
   const float scale2 = scale * kLog2e;  // scores in log2 units
-  float m[kR], l[kR], acc[kR][4];
+  const float cap2 = softcap * kLog2e;  // the cap in log2 units
+  float m[kR], l[kR], acc[kR][kVec];
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     m[r] = kNegBig;
     l[r] = 0.f;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) acc[r][d] = 0.f;
+    for (int d = 0; d < kVec; ++d) acc[r][d] = 0.f;
   }
 
 #pragma unroll 1
@@ -240,20 +264,22 @@ __device__ __forceinline__ void split_block(
 #pragma unroll
     for (int j = 0; j < C::kKeys; ++j) {
       const int row = grp + j * C::kGroups;
-      float kr[4];
-      load4(sk + row * D + d0, kr);
+      float kr[kVec];
+#pragma unroll
+      for (int u = 0; u < kVec; u += 4) load4(sk + row * D + d0 + u, kr + u);
       // the K scale multiplies the score before 1/sqrt(D)
       const float ksc = C::kQuant ? scale2 * scales[row] : scale2;
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
         float x = qr[r][0] * kr[0];
-        x = fmaf(qr[r][1], kr[1], x);
-        x = fmaf(qr[r][2], kr[2], x);
-        x = fmaf(qr[r][3], kr[3], x);
+#pragma unroll
+        for (int d = 1; d < kVec; ++d) x = fmaf(qr[r][d], kr[d], x);
 #pragma unroll
         for (int o = C::kG / 2; o > 0; o >>= 1)
           x += __shfl_xor_sync(kFull, x, o);
-        s[r][j] = live(j) ? x * ksc : kNegBig;
+        x *= ksc;
+        if (softcap > 0.f) x = soft_cap(x, cap2);
+        s[r][j] = live(j) ? x : kNegBig;
       }
     }
 #pragma unroll
@@ -264,7 +290,7 @@ __device__ __forceinline__ void split_block(
       const float alpha = exp2f(m[r] - mx);
       l[r] *= alpha;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) acc[r][d] *= alpha;
+      for (int d = 0; d < kVec; ++d) acc[r][d] *= alpha;
 #pragma unroll
       for (int j = 0; j < C::kKeys; ++j) {
         s[r][j] = live(j) ? exp2f(s[r][j] - mx) : 0.f;
@@ -276,14 +302,15 @@ __device__ __forceinline__ void split_block(
 #pragma unroll
     for (int j = 0; j < C::kKeys; ++j) {
       const int row = grp + j * C::kGroups;
-      float vr[4];
-      load4(sv + row * D + d0, vr);
+      float vr[kVec];
+#pragma unroll
+      for (int u = 0; u < kVec; u += 4) load4(sv + row * D + d0 + u, vr + u);
       const float vsc = C::kQuant ? scales[C::kTile + row] : 1.f;
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
         const float pv = s[r][j] * vsc;
 #pragma unroll
-        for (int d = 0; d < 4; ++d) acc[r][d] = fmaf(pv, vr[d], acc[r][d]);
+        for (int d = 0; d < kVec; ++d) acc[r][d] = fmaf(pv, vr[d], acc[r][d]);
       }
     }
     __syncwarp();  // the stage is free for the warp's tile i + kStages
@@ -299,15 +326,18 @@ __device__ __forceinline__ void split_block(
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
-    *reinterpret_cast<float4*>(s_acc + (g_all * kR + r) * D + d0) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+#pragma unroll
+    for (int u = 0; u < kVec; u += 4)
+      *reinterpret_cast<float4*>(s_acc + (g_all * kR + r) * D + d0 + u) =
+          make_float4(acc[r][u], acc[r][u + 1], acc[r][u + 2], acc[r][u + 3]);
     if (gl == 0) {
       s_ml[(g_all * kR + r) * 2] = m[r];
       s_ml[(g_all * kR + r) * 2 + 1] = l[r];
     }
   }
   __syncthreads();
-  const bool direct = ws == nullptr || limit < split_keys;
+  // the slot's live columns all in this one split: finished here
+  const bool direct = ws == nullptr || lo / split_keys == limit / split_keys;
   const size_t rows = (size_t)gridDim.y * R;
   for (int o = tid; o < R * (D / 4); o += kThreads) {
     const int r = o / (D / 4), d = 4 * (o - r * (D / 4));
@@ -344,10 +374,13 @@ __device__ __forceinline__ void split_block(
 }
 
 // out (rows = B * Hk * R, D) from the n_split partials in ws: row (bh, r)
-// reads the splits 0 .. n - 1 that hold a live column of its slot, n =
-// min(pos[b], len - 1) / split_keys + 1, and takes sum_s 2^(m_s - M)
-// acc_s / sum_s 2^(m_s - M) l_s with M = max_s m_s, in split order; a row
-// with n = 1 was written by its split-0 block. The splits' partials are
+// reads the splits that hold a live column of its slot, those of its first
+// live column lo = band_lo(pos[b], window) through its last, min(pos[b],
+// len - 1), and takes sum_s 2^(m_s - M) acc_s / sum_s 2^(m_s - M) l_s
+// with M = max_s m_s, in split order; a split wholly before the band
+// returned without a partial and is never read, so no empty (m = -inf, l =
+// 0) state enters the sum; a row whose live columns lie in one split was
+// written by that split's block. The splits' partials are
 // loaded kMergeChunk at a time, all in flight together (one round trip
 // for up to 8 splits), the sums rescaled between chunks. D / 4 threads a
 // row, four output dims each, written in q's type. Launched as a
@@ -358,20 +391,23 @@ template <int D, bool kBF16Q>
 __global__ void __launch_bounds__(kMergeThreads)
 decode_merge_kernel(const float* __restrict__ ws, const int* __restrict__ pos,
                     Elem<kBF16Q>* __restrict__ out, int Hk, int R, int len,
-                    int split_keys, int n_split, int rows) {
+                    int split_keys, int n_split, int rows, int window) {
   constexpr int kPer = D / 4;  // threads a row
   const int row = blockIdx.x * (kMergeThreads / kPer) + threadIdx.x / kPer;
   if (row >= rows) return;
   const int d = 4 * (threadIdx.x % kPer);
-  const int n = min(pos[row / (Hk * R)], len - 1) / split_keys + 1;
-  if (n == 1) return;
+  const int p = pos[row / (Hk * R)];
+  const int limit = min(p, len - 1);
+  const int first = min(band_lo(p, window), limit) / split_keys;
+  const int n = limit / split_keys + 1;  // the splits up to the last
+  if (first == n - 1) return;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t stride = (size_t)rows;  // one split's rows
   const float* ms = ws + (size_t)n_split * stride * D;
   const float* ls = ms + (size_t)n_split * stride;
   float mx = kNegBig, tot = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s0 = 0; s0 < n; s0 += kMergeChunk) {
+  for (int s0 = first; s0 < n; s0 += kMergeChunk) {
     float mc[kMergeChunk], lc[kMergeChunk];
     float4 ac[kMergeChunk];
 #pragma unroll
@@ -426,7 +462,7 @@ template <int D, bool kBF16Q, typename K, typename... Args>
 cudaError_t launch(K kernel, int smem, bool& configured, int n_split,
                    int BHk, const float* ws, const int* pos,
                    Elem<kBF16Q>* out, int Hk, int R, int len, int split_keys,
-                   cudaStream_t stream, Args... args) {
+                   int window, cudaStream_t stream, Args... args) {
   if (!configured) {
     // all of what a block may take: the table entries grow with split_keys
     cudaError_t e = cudaFuncSetAttribute(
@@ -450,7 +486,8 @@ cudaError_t launch(K kernel, int smem, bool& configured, int n_split,
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, decode_merge_kernel<D, kBF16Q>, ws, pos,
-                            out, Hk, R, len, split_keys, n_split, rows);
+                            out, Hk, R, len, split_keys, n_split, rows,
+                            window);
 }
 
 }  // namespace dec

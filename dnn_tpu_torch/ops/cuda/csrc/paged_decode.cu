@@ -59,10 +59,10 @@ paged_decode_kernel(const Elem<kBF16Q>* __restrict__ q,
                     const int* __restrict__ pos,
                     Elem<kBF16Q>* __restrict__ out, float* __restrict__ ws,
                     int Hk, int R, int len, int bp, int split_keys,
-                    float scale) {
+                    float scale, int window) {
   dec::split_block<KV, D, kR, true, kBF16Q>(q, kp, vp, ks, vs, tables, pos,
                                             out, ws, Hk, R, len, bp,
-                                            split_keys, scale);
+                                            split_keys, scale, window, 0.f);
 }
 
 template <typename KV, int D, int kR, bool kBF16Q>
@@ -70,7 +70,7 @@ cudaError_t launch(const void* q_, const void* kp, const void* vp,
                    const float* ks, const float* vs, const int* tables,
                    const int* pos, void* out_, float* ws, int B, int Hk,
                    int R, int bp, int nb_max, int split_keys, int n_split,
-                   float scale, cudaStream_t stream) {
+                   float scale, int window, cudaStream_t stream) {
   static bool configured = false;
   const Elem<kBF16Q>* q = static_cast<const Elem<kBF16Q>*>(q_);
   Elem<kBF16Q>* out = static_cast<Elem<kBF16Q>*>(out_);
@@ -81,15 +81,17 @@ cudaError_t launch(const void* q_, const void* kp, const void* vp,
   return dec::launch<D, kBF16Q>(
       paged_decode_kernel<KV, D, kR, kBF16Q>,
       dec::Cfg<KV, D>::template smem<kR>(rows), configured, n_split, B * Hk,
-      ws, pos, out, Hk, R, len, split_keys, stream, q, kk, vv, ks, vs, tables,
-      pos, out, ws, Hk, R, len, bp, split_keys, scale);
+      ws, pos, out, Hk, R, len, split_keys, window, stream, q, kk, vv, ks, vs,
+      tables, pos, out, ws, Hk, R, len, bp, split_keys, scale, window);
 }
 
 }  // namespace
 
-// C entry point (loaded with ctypes). kv_kind: 0 = f32 pool, 1 = bf16,
-// 2 = int8 with ks/vs scale blocks (null for the float kinds). q_kind:
-// 0 = f32 q and out, 1 = bf16 q and out. split_keys: logical columns a split, a multiple of bp; the nb_max * bp
+// C entry point (loaded with ctypes). D: 32, 64, 128 or 256. kv_kind: 0 =
+// f32 pool, 1 = bf16, 2 = int8 with ks/vs scale blocks (null for the float
+// kinds). q_kind: 0 = f32 q and out, 1 = bf16 q and out. window: the
+// band's width (<= 0: none; no softcap: the softcapped families never
+// reach a paged pool). split_keys: logical columns a split, a multiple of bp; the nb_max * bp
 // columns fall into n_split = ceil(nb_max * bp / split_keys) splits, and
 // ws is null when n_split is 1, else an f32 workspace of n_split * B *
 // Hk * R * (D + 2) floats. One call launches the split kernel and, with
@@ -98,7 +100,7 @@ extern "C" int dnn_paged_decode_attention(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* tables, const void* pos, void* out,
     void* ws, int B, int Hk, int R, int D, int bp, int nb_max, int kv_kind,
-    int q_kind, int split_keys, float scale, void* stream) {
+    int q_kind, int split_keys, float scale, int window, void* stream) {
   if (B <= 0 || Hk <= 0 || R <= 0 || R > dec::kMaxRows || bp <= 0 ||
       nb_max <= 0 || (long long)nb_max * bp > 0x7fffffff ||
       split_keys <= 0 || split_keys % bp != 0 ||
@@ -116,7 +118,7 @@ extern "C" int dnn_paged_decode_attention(
   const int* pp = static_cast<const int*>(pos);
   float* ww = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)with_head_dim(D, [&](auto d) {
+  return (int)with_cache_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     return dec::with_rows(R, [&](auto rows) {
       constexpr int kR = decltype(rows)::value;
@@ -126,15 +128,17 @@ extern "C" int dnn_paged_decode_attention(
           case 0:
             return launch<float, kD, kR, kQ>(q, kp, vp, kss, vss, tt, pp, out,
                                              ww, B, Hk, R, bp, nb_max,
-                                             split_keys, n_split, scale, st);
+                                             split_keys, n_split, scale,
+                                             window, st);
           case 1:
             return launch<__nv_bfloat16, kD, kR, kQ>(
                 q, kp, vp, kss, vss, tt, pp, out, ww, B, Hk, R, bp, nb_max,
-                split_keys, n_split, scale, st);
+                split_keys, n_split, scale, window, st);
           case 2:
             return launch<int8_t, kD, kR, kQ>(q, kp, vp, kss, vss, tt, pp,
                                               out, ww, B, Hk, R, bp, nb_max,
-                                              split_keys, n_split, scale, st);
+                                              split_keys, n_split, scale,
+                                              window, st);
           default:
             return cudaErrorInvalidValue;
         }

@@ -326,7 +326,13 @@ def make_generate(cfg, *, max_new_tokens: int,
     A LlamaConfig (JAX's llama.make_generate) decodes through
     llama.forward_with_cache: K5 with grouped heads for the prompt, K6
     at n_head / n_kv_head rows a KV head per token; its unported
-    switches raise (llama.check_ported).
+    switches raise (llama.check_ported). A uniformly windowed config
+    (Mistral) whose stream outgrows its window decodes on a rolling ring
+    (JAX llama.py:942-990): the prompt runs banded (K5) on a transient
+    prompt-length cache, the live band moves into a sliding_window-slot
+    ring (llama._ring_from_prompt), and every step reads and writes only
+    the ring (K6); an alternating config (Gemma-2) keeps its global
+    layers, and so a full-length cache.
 
     Runs on CUDA unless `device="cpu"` is given (without a card the
     default raises); `prepared` must live on that device. JAX's
@@ -339,11 +345,14 @@ def make_generate(cfg, *, max_new_tokens: int,
             "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
             "(ROADMAP PyTorch/CUDA port item 7)")
     forward = forward_with_cache
+    window = None
     if _is_llama(cfg):
         from dnn_tpu_torch.models import llama
 
         llama.check_ported(cfg)
         forward = llama.forward_with_cache
+        if not cfg.alt_window:
+            window = cfg.sliding_window
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if repetition_penalty is not None and repetition_penalty <= 0:
@@ -375,9 +384,17 @@ def make_generate(cfg, *, max_new_tokens: int,
                 f"prompt {t} + max_new_tokens {max_new_tokens} exceeds "
                 f"block_size {cfg.block_size}")
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        cache = init_cache(cfg, b, t + max_new_tokens, cache_dtype, dev)
-        logits, cache = forward(prepared, ids, cache, 0, cfg=cfg,
-                                compute_dtype=compute_dtype)
+        rolling = window is not None and t + max_new_tokens > window
+        ring = {"rolling": True} if rolling else {}
+        if rolling:
+            cache = init_cache(cfg, b, t, cache_dtype, dev)
+            logits, cache = forward(prepared, ids, cache, 0, cfg=cfg,
+                                    compute_dtype=compute_dtype)
+            cache = llama._ring_from_prompt(cache, t, window)
+        else:
+            cache = init_cache(cfg, b, t + max_new_tokens, cache_dtype, dev)
+            logits, cache = forward(prepared, ids, cache, 0, cfg=cfg,
+                                    compute_dtype=compute_dtype)
         rows = torch.arange(b, device=dev)
         seen = None
         if pen_on:
@@ -401,7 +418,7 @@ def make_generate(cfg, *, max_new_tokens: int,
             # token i sits at sequence position t + i
             logits, cache = forward(
                 prepared, toks[-1][:, None], cache, t + i, cfg=cfg,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, **ring)
             toks.append(pick(logits[:, -1]))
         return torch.stack(toks, dim=1).to(torch.int32)
 

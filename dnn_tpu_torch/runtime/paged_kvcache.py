@@ -21,6 +21,14 @@ the plain gather-view version on the CPU. An int8 pool quantizes each
 written row (kvcache._quantize_rows) and passes its scale blocks to K7;
 its attention output is f32, a float pool's the pool dtype (the JAX
 codec's output dtypes).
+
+A windowed pool (`PagedKV(window=W)`, Mistral-class sliding windows;
+JAX :181-330) adds the band's lower bound to every decode row: K7 skips
+the blocks wholly before the band without reading them, which is what
+lets the batcher reclaim those blocks while a request still runs
+(serving.ContinuousBatcher._free_rolled_blocks) and point their table
+entries at the junk block. Band only: softcapped and alternating-window
+families never reach a paged pool.
 """
 
 from __future__ import annotations
@@ -138,8 +146,9 @@ class PagedKV:
     "vs"} (n_blocks, H, bp), and the shared "tables" (B, nb_max);
     `install_row` takes the whole cache."""
 
-    def __init__(self, block_len: int):
+    def __init__(self, block_len: int, window: Optional[int] = None):
         self.block_len = block_len
+        self.window = window
 
     def write_rows(self, c, k, v, pos, write_gate):
         """k/v (B, H, 1, D) land at each slot's position pos (B,):
@@ -166,17 +175,24 @@ class PagedKV:
         for name, val in new.items():
             c[name][blk, :, row] = val.to(c[name].dtype)
 
-    def attend_rows(self, q, c, pos):
+    def attend_rows(self, q, c, pos, window=None):
         """q (B, H, R, D), R rows a pool head (a GQA config's folded
         query group); every row of slot b attends its logical positions
-        <= pos[b]. Returns (B, H, R, D): q's type for an int8 pool, the
-        pool dtype for a float one."""
+        <= pos[b], and > pos[b] - window for a windowed pool. Returns (B,
+        H, R, D): q's type for an int8 pool, the pool dtype for a float
+        one. A per-call `window` (the dense codecs' per-layer channel)
+        raises, as JAX's: alternating-window families never get here."""
+        if window is not None:
+            raise ValueError(
+                "PagedKV has no per-layer window channel (alt-window "
+                "families are rejected for paged pools); set the codec's "
+                "window at construction")
         if "ks" in c:
             return paged_decode_attention(q.contiguous(), c["k"], c["v"],
                                           c["tables"], pos, ks=c["ks"],
-                                          vs=c["vs"])
+                                          vs=c["vs"], window=self.window)
         out = paged_decode_attention(q.contiguous(), c["k"], c["v"],
-                                     c["tables"], pos)
+                                     c["tables"], pos, window=self.window)
         return out.to(c["v"].dtype)
 
     def gather_row(self, cache, row, blk_ids):

@@ -30,6 +30,17 @@ decode steps fold each query group into the rows of its KV head (K6 /
 K7 at G rows). Either pool is sized at the model's KV heads
 (`kvcache.cache_shape`).
 
+Sliding windows and softcaps (JAX serving.py:350-503): the codecs take
+the family's `window` and `softcap` (K5-K7 band and cap); an
+alternating-window family hands each layer its window. Softcapped and
+alternating-window families have no paged channel, and a windowed pool
+does not compose with the prefix cache: kv="auto" falls back to the
+dense pool for them (logged), kv="paged" raises with JAX's message. A
+windowed paged pool reclaims each request's blocks once the band has
+left them behind (`_free_rolled_blocks`, at install and after each
+committed token), pointing their table entries at the junk block, which
+K7 never reads there: a long stream holds O(window) blocks.
+
 A request enters by `submit`. On the convoy path (the default) its
 prompt prefills in `prompt_pad`-sized chunks (full chunks plus one
 right-padded tail) into a transient dense row cache of the pool's dtype
@@ -538,7 +549,7 @@ class ContinuousBatcher:
         self.max_len = min(max_len or cfg.block_size, cfg.block_size)
         self.prompt_pad = prompt_pad or min(64, self.max_len)
         self.paged, paged_blocks = self._choose_layout(
-            kv, paged_blocks, block_len, decode_buckets)
+            kv, paged_blocks, block_len, decode_buckets, prefix_cache)
         self.eos_id = eos_id
         self._seed = int(seed)
         self._default_temp = float(temperature)
@@ -570,17 +581,23 @@ class ContinuousBatcher:
             self._cache_len = self._buckets[0]
         self._block_len = block_len
         self.allocator = None
+        # the family's band and cap (llama.LlamaFamilyRows; GPT-2 has
+        # neither): a windowed paged pool reclaims rolled-out blocks
+        window = getattr(self.family, "window", None)
+        self._paged_window = window if self.paged else None
         if self.paged:
             self.allocator = BlockAllocator(paged_blocks)
             self.cache = init_paged_cache(
                 cfg, slots, self.max_len, n_blocks=paged_blocks,
                 block_len=block_len, dtype=self._cache_dtype,
                 device=self.device)
-            self._codec = PagedKV(block_len)
+            self._codec = PagedKV(block_len, window=window)
         else:
             self.cache = self.family.init_cache(
                 slots, self._cache_len, self._cache_dtype, self.device)
-            self._codec = codec_for_cache(self.cache)
+            self._codec = codec_for_cache(
+                self.cache, window=window,
+                softcap=getattr(self.family, "softcap", None))
 
         # prefix cache (`prefix_cache` = capacity; 0 disables), by layout
         # as in JAX: a dense pool keeps the exact-prefix LRU (keys: the
@@ -747,9 +764,9 @@ class ContinuousBatcher:
             self._row_sel_d[0, aid] = 1.0
 
     def _choose_layout(self, kv, paged_blocks: int, block_len: int,
-                       decode_buckets):
+                       decode_buckets, prefix_cache: int):
         """(paged?, pool block count) from `kv` as the JAX batcher decides
-        it (serving.py:346-417). "auto" pages unless something blocks it,
+        it (serving.py:346-435). "auto" pages unless something blocks it,
         and then logs why."""
         if kv not in (None, "auto", "paged", "dense"):
             raise ValueError(f"kv must be 'paged', 'dense' or 'auto', got {kv!r}")
@@ -757,11 +774,32 @@ class ContinuousBatcher:
             raise ValueError(f"kv='dense' contradicts paged_blocks="
                              f"{paged_blocks}; drop one of them")
         paged = bool(paged_blocks)  # kv=None: paged iff blocks given
+        # what the family refuses of a paged pool, in JAX's words: the kv
+        # switch's blocker (:350-365), then kv=None's error (:419-435)
+        family_blocker = None
+        if (getattr(self.family, "softcap", None) is not None
+                or getattr(self.family, "alt_window", False)):
+            family_blocker = (
+                "softcapped / alternating-window families have no paged "
+                "channel",
+                "softcapped / alternating-window families are not "
+                "supported with the paged pool (PagedKV has no softcap or "
+                "per-layer window channel; use the dense per-slot cache)")
+        elif (getattr(self.family, "window", None) is not None
+                and prefix_cache > 0):
+            family_blocker = (
+                "windowed paged pools do not compose with the prefix cache",
+                "windowed paged pools do not compose with the prefix cache: "
+                "rolled-out blocks are reclaimed mid-request, which would "
+                "free blocks a prefix entry still shares — serve windowed "
+                "families with prefix_cache=0")
         if kv in ("paged", "auto"):
             blocker = None
             if decode_buckets:
                 blocker = ("decode_buckets is a dense-pool feature (the "
                            "paged pool is already length-proportional)")
+            elif family_blocker is not None:
+                blocker = family_blocker[0]
             elif self.max_len % block_len or self.prompt_pad % block_len:
                 blocker = (f"max_len {self.max_len} / prompt_pad "
                            f"{self.prompt_pad} must tile block_len "
@@ -784,6 +822,8 @@ class ContinuousBatcher:
             raise ValueError(
                 "decode_buckets applies to the dense per-slot cache; the "
                 "paged pool is already length-proportional")
+        if paged and family_blocker is not None:  # kv=None, paged_blocks
+            raise ValueError(family_blocker[1])
         return paged, (paged_blocks if paged else 0)
 
     def _ensure_cache_len(self, need: int):
@@ -964,7 +1004,7 @@ class ContinuousBatcher:
             rid = self._next_rid
             self._next_rid += 1
             req = {"rid": rid, "emitted": [], "budget": max_new_tokens,
-                   "stop": stop_seqs, "blocks": taken,
+                   "stop": stop_seqs, "blocks": taken, "freed": 0,
                    "prompt_len": len(prompt), "aid": aid,
                    "logprobs": bool(logprobs and self._logprobs_k)}
             if req["logprobs"]:
@@ -1004,7 +1044,11 @@ class ContinuousBatcher:
             # grammar's reference and the slot, or the pools shrink on
             # every such failure
             if self.paged:
-                self.allocator.free(taken)
+                # a windowed pool may already have reclaimed the rolled-out
+                # prefix of this request's blocks (JAX serving.py:1863-1880)
+                skip = (req["freed"] if req is not None
+                        and self._slot_req[slot] is req else 0)
+                self.allocator.free(taken[skip:])
                 self.cache["tables"][slot] = 0
             if c_off is not None and not (req or {}).get("c_released"):
                 self._ctab_release(constraint)
@@ -1118,6 +1162,8 @@ class ContinuousBatcher:
             # slot was free: its row of that step is garbage
             req["install_step"] = self._step_idx - 1
         self._slot_req[slot] = req
+        # a prompt longer than the window rolls blocks out at install
+        self._free_rolled_blocks(slot)
         self._retire_if_done(slot)
 
     def _count_lookup(self, hit: bool):
@@ -1748,10 +1794,34 @@ class ContinuousBatcher:
                 return n
         return 0
 
+    def _free_rolled_blocks(self, slot: int):
+        """A windowed paged pool's reclamation (JAX serving.py:2453-2470):
+        block j (positions [j bp, (j + 1) bp)) is dead once its last
+        position is at or before limit - window, limit the slot's next
+        attend limit — the band excludes it at this and every later step
+        — so it returns to the allocator and its table entry points at
+        the junk block 0, which K7 skips there. A long stream holds
+        O(window) blocks. No-op for dense and unwindowed pools."""
+        w = self._paged_window
+        req = self._slot_req[slot]
+        if w is None or req is None or not req["blocks"]:
+            return
+        bp = self._block_len
+        limit = req["prompt_len"] + len(req["emitted"]) - 1
+        n_dead = min(max(0, limit - w + 1) // bp, len(req["blocks"]))
+        freed = req["freed"]
+        if n_dead <= freed:
+            return
+        self.allocator.free(req["blocks"][freed:n_dead])
+        self._pool_exhausted_episode = False  # blocks came free
+        self.cache["tables"][slot, freed:n_dead] = 0
+        req["freed"] = n_dead
+
     def _release(self, slot: int):
         req = self._slot_req[slot]
         if self.paged and req["blocks"]:
-            self.allocator.free(req["blocks"])
+            # a windowed pool already reclaimed the rolled-out prefix
+            self.allocator.free(req["blocks"][req["freed"]:])
             self._pool_exhausted_episode = False  # blocks came free
         if "constraint" in req and not req.get("c_released"):
             # the grammar's reference drops (its rows stay cached until
@@ -2032,6 +2102,7 @@ class ContinuousBatcher:
             req["lp"].append(float(host[1][row]))
             req["lp_top"].append((host[3][row], host[2][row]))
         self._constraint_advance(req, token)
+        self._free_rolled_blocks(slot)  # windowed pools reclaim
         self._retire_if_done(slot)
         return token
 

@@ -128,6 +128,14 @@ class SpeculativeBatcher(ContinuousBatcher):
             draft_cfg, compute_dtype=self.family.compute_dtype)
         for fam, which in ((self.family, "target"),
                            (self._d_family, "draft")):
+            # paged_ok: "attends plain causal" (False for windowed or
+            # softcapped LLaMA-family configs; GPT-2 has no attribute),
+            # what the dense spec codecs need (JAX serving_spec.py:180)
+            if not getattr(fam, "paged_ok", True):
+                raise ValueError(
+                    f"speculative serving supports dense-attention "
+                    f"families only (the {which} family has a sliding "
+                    "window or attention softcap)")
             if not hasattr(fam, "verify_rows"):
                 raise ValueError(
                     f"the {which} family adapter has no verify_rows — "

@@ -573,3 +573,84 @@ def test_item_4e_phases_rehearsed_on_the_cpu(capsys, one_torch_thread):
     for tag in ("handoff", "kvtier"):
         assert f"[{tag}] phase wall" in out
     assert set(counts) == set(chip_smoke.CACHE_KERNELS)
+
+
+def test_window_phases_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                            one_torch_thread):
+    """chip_smoke's [mistral], [gemma2] and [gemma] phases on the CPU at
+    the *-test presets (windows of 16, gemma2-test's softcaps and
+    alternating layers; gemma-test widened to block_size 1024 for the
+    main path's prompts): slots of 64 positions in 16-token chunks and
+    blocks of 8, prompts past the window, 8 new tokens. Every served
+    stream agrees with the plain banded recompute by teacher forcing, the
+    windowed paged pools reclaim floor((limit - window + 1) / 8) blocks a
+    request, kv="auto" serves gemma2-test dense, W-f32's logprobs sit
+    within FORCED_F32_TOL of the banded recompute and its unbanded
+    control 10x that away, G1-logprobs within FORCED_F32_TOL of the
+    no-cache loop, and the kernels line's band and D = 256 entries are
+    built from rows (the card's timings stubbed) with each phase's
+    launches by q type."""
+    import dataclasses
+
+    import torch
+
+    from dnn_tpu_torch.models import llama as tllama
+
+    for name, value in (("WIN_MAX_LEN", 64), ("WIN_PAD", 16), ("WIN_BP", 8),
+                        ("WIN_PROMPTS", (20, 30)), ("G2_PROMPTS", (24, 10)),
+                        ("WIN_NEW", 8), ("G1_NEW", 4), ("G1_SOLO_NEW", 6)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    cpu = torch.device("cpu")
+    m_counts, _ = chip_smoke.phase_mistral(
+        cpu, "cpu", tllama.PRESETS["mistral-test"])
+    g2_counts, _ = chip_smoke.phase_gemma2(cpu, "cpu",
+                                           tllama.PRESETS["gemma2-test"])
+    g1_counts, _ = chip_smoke.phase_gemma(cpu, "cpu", dataclasses.replace(
+        tllama.PRESETS["gemma-test"], block_size=1024))
+    out = capsys.readouterr().out
+    for run in ("W-paged", "W-int8", "W-dense"):
+        for n in (20, 30):
+            assert f"[mistral] {run} (prompt {n}, 8 tokens): " in out, out
+        assert f"[mistral] run {run}: " in out
+    assert "[mistral] W-solo (prompt 30, 8 tokens): " in out, out
+    for run in ("W-paged", "W-int8"):
+        assert (f"[mistral] run {run}: blocks reclaimed while running "
+                "(prompt, limit, freed of held): [") in out, out
+    assert "blocks reclaimed" not in out.split("run W-dense")[1].split(
+        "[mistral] W-solo")[0]
+    assert "[gemma2] run G2-dense: dense pool" in out, out
+    for n in (24, 10):
+        assert f"[gemma2] G2-dense (prompt {n}, 8 tokens): " in out, out
+    assert "[main] [gemma] G1-solo make_generate f32: " in out, out
+    for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
+        assert f"[main] run G1-paged request {i} (prompt {n}): " in out, out
+    for n in (20, 30):
+        assert f"[mistral] W-f32 (prompt {n}, 8 tokens): served logprobs " \
+            in out, out
+    for i, n in enumerate(chip_smoke.LLAMA_PROMPTS):
+        assert f"[gemma] G1-logprobs (prompt {n}, 4 tokens): served " \
+            "logprobs " in out, out
+    assert set(m_counts) == {"bf16", "f32"}
+    assert set(g2_counts) == {"bf16"} and set(g1_counts) == {"f32"}
+    for by_q in (m_counts, g2_counts, g1_counts):
+        for counts in by_q.values():
+            assert set(chip_smoke.CACHE_KERNELS) <= set(counts)
+    row = dict(ms=1.0, plain_ms=2.0, library_ms=None, bound_ms=0.5,
+               bound_by="bytes", max_abs_err=0.0)
+    rows = {key: {q: {dt: row for dt in ("f32", "bf16", "int8")}
+                  for q in chip_smoke.WIN_Q}
+            for key, *_ in chip_smoke.WIN_ROWS}
+    band = {"bf16": {"cached_attention band": {"f32": 0, "bf16": 7,
+                                               "int8": 2}},
+            "f32": {"cached_attention band": {"f32": 3, "bf16": 0,
+                                              "int8": 0}}}
+    entries = chip_smoke.window_records(rows, {"mistral": band})
+    assert len(entries) == 6
+    assert entries[0]["launches"] == 12  # K5's band: both q types
+    assert entries[0]["by_dtype"]["bf16"]["launches"] == 7
+    assert entries[0]["k5_band_f32_q_shape"]["by_dtype"]["f32"][
+        "launches"] == 3
+    for e in entries:
+        assert {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= set(e)

@@ -1115,3 +1115,252 @@ def test_embed_during_a_capture(dev):
         lib = make_embed(cfg, pooling="last" if rid.endswith("last")
                          else "mean")(prep, ids, [len(p)])[0].cpu()
         assert torch.equal(vec.float(), lib)
+
+
+# ----------------------------------------------------------------------
+# the sliding-window band, the softcap and head dim 256 (Mistral, Gemma)
+# ----------------------------------------------------------------------
+
+def _variant_check(fn, ref, args, kind, tol=ATOL, variants=(), **kw):
+    """One wrapper call against its plain version with the same band /
+    softcap arguments; one launch, counted under each of `variants`."""
+    before = fn.launches_by_dtype[kind]
+    var0 = {name: dict(by) for name, by in fn.launches_by_variant.items()}
+    got = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_by_dtype[kind] == before + 1
+    for name, by in fn.launches_by_variant.items():
+        for dt, n in by.items():
+            assert n == var0[name][dt] + (name in variants and dt == kind), \
+                (name, dt)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+    return got
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("group,t", [(1, 65), (8, 40), (2, 1)])
+def test_cached_attention_head_dim_256(dev, kind, group, t):
+    """K5 at D = 256 (Gemma): grouped heads (gemma-2b's G = 8 over one KV
+    head), a ragged chunk, bases beside the split edges; the f32 cache's
+    tiles converted straight from global memory."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    hk = 2 if group < 8 else 1
+    q = torch.randn(3, hk * group, t, 256, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (3, hk, 700, 256), kind, dev)
+    pos = torch.tensor([0, 383, 700 - t], dtype=torch.int32, device=dev)
+    _variant_check(tca.cached_attention, tca.reference_cached_attention,
+                   (q, k, v, pos), kind, variants=("d256",), ks=ks, vs=vs)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_head_dim_256(dev, paged, kind, rows):
+    """K6 / K7 at D = 256 (8 head dims a lane, a key row a warp), over
+    1024 columns split beside their edges."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, False, kind, 256, rows,
+                                             seed=22)
+    if paged:
+        q, k, v, ks, vs, tables = _decode_inputs(dev, True, kind, 256, rows,
+                                                 seed=22)
+    pos = torch.tensor(_edge_positions(paged, 6, 2), dtype=torch.int32,
+                       device=dev)
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    ref = (tca.reference_paged_decode_attention if paged
+           else tca.reference_decode_attention)
+    args = (q, k, v, tables, pos) if paged else (q, k, v, pos)
+    _variant_check(fn, ref, args, kind, variants=("d256",), ks=ks, vs=vs)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("window,softcap", [(100, None), (1, None),
+                                            (300, 2.0), (None, 1.5)])
+def test_cached_attention_band_and_softcap(dev, kind, d, window, softcap):
+    """K5 with a window (rows whose band starts mid-split, in an earlier
+    split, or at the row itself: window 1, where a row's first tiles hold
+    no live column of it) and / or a softcap (small caps, so that unit
+    scores bend), grouped heads, a chunk at bases beside the split edges
+    of S = 1024 (several splits, so the merge reads only the splits
+    inside each row's band)."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn(4, 4, 70, d, generator=g, device=dev)
+    k, v, ks, vs = _cache(g, (4, 2, 1024, d), kind, dev)
+    pos = torch.tensor([0, 191, 500, 954], dtype=torch.int32, device=dev)
+    variants = (("band",) if window else ()) + (
+        ("softcap",) if softcap else ()) + (("d256",) if d == 256 else ())
+    _variant_check(tca.cached_attention, tca.reference_cached_attention,
+                   (q, k, v, pos), kind, variants=variants, ks=ks, vs=vs,
+                   window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_band(dev, paged, kind, d, rows):
+    """K6 / K7 with a window at positions beside the split edges: bands
+    that start in an earlier split, mid-split and on a split's first
+    column; K6 also with the softcap."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, d, rows,
+                                             seed=24)
+    split_keys, _ = tca.decode_split(12, 1024, 16 if paged else 1)
+    pos = torch.tensor([split_keys - 1, split_keys, 3 * split_keys + 5,
+                        1023, 517, 2 if paged else 1024], dtype=torch.int32,
+                       device=dev)
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    ref = (tca.reference_paged_decode_attention if paged
+           else tca.reference_decode_attention)
+    args = (q * 3, k, v, tables, pos) if paged else (q * 3, k, v, pos)
+    d256 = ("d256",) if d == 256 else ()
+    for window in (split_keys + 1, 2 * split_keys, 40):
+        _variant_check(fn, ref, args, kind, variants=("band",) + d256,
+                       ks=ks, vs=vs, window=window)
+    if not paged:
+        _variant_check(fn, ref, args, kind,
+                       variants=("band", "softcap") + d256, ks=ks, vs=vs,
+                       window=300, softcap=50.0)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+def test_paged_band_never_reads_reclaimed_blocks(dev, kind):
+    """A windowed pool points the table entries of its rolled-out blocks
+    at the junk block 0. K7 skips the blocks before the band rather than
+    reading and masking them: with NaN in block 0 the output is finite
+    and equals the plain version on a table whose dead entries point at
+    real blocks."""
+    q, kp, vp, ks, vs, tables = _decode_inputs(dev, True, kind, 128, 4,
+                                               seed=25)
+    tables[-1] = tables[0].flip(0)  # every slot live
+    pos = torch.tensor([700, 1023, 64, 300, 999, 0], dtype=torch.int32,
+                       device=dev)
+    window = 200
+    dead = tables.clone()
+    for b, p in enumerate(pos.tolist()):
+        dead[b, :max(0, p - window + 1) // 16] = 0
+    for leaf in (kp, vp) if kind != "int8" else (ks, vs):
+        leaf[0] = float("nan")
+    got = tca.paged_decode_attention(q, kp, vp, dead, pos, ks=ks, vs=vs,
+                                     window=window)
+    want = tca.reference_paged_decode_attention(q, kp, vp, tables, pos,
+                                                ks=ks, vs=vs, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_band_replays_in_a_cuda_graph(dev, paged):
+    """A banded K6 / K7 call captured in a CUDA graph (the window baked
+    into the launch), the positions moved on the device, the graph
+    replayed: the output follows the new positions' bands."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, "bf16", 128, 4,
+                                             seed=26)
+    pos = torch.tensor([5, 300, 700, 1000, 64, 129], dtype=torch.int32,
+                       device=dev)
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    ref = (tca.reference_paged_decode_attention if paged
+           else tca.reference_decode_attention)
+    args = (q, k, v, tables, pos) if paged else (q, k, v, pos)
+    fn(*args, window=256)  # loads the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, window=256)
+    pos.copy_(torch.tensor([1023, 17, 512, 256, 900, 3], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref(*args, window=256)
+    assert (out - want).abs().max().item() <= ATOL
+
+
+# --- the band, the softcap and D = 256 with a bf16 q (bf16 compute) -----
+# [mistral] and [gemma2] serve in bf16 compute, so every banded, softcapped
+# or D = 256 launch of theirs takes a bf16 q. Held as _bf16_q_check holds
+# a bf16 q, but within BF16_Q_TOL of the output's own largest |value| (no
+# floor at 1: a banded row's output can be far below 1), and with a
+# control: the plain version without the band / the cap must miss the
+# kernel by more than that tolerance, so a kernel that skipped either
+# would fail here.
+
+def _bf16_q_variant_check(fn, ref, args, kind, variants, **kw):
+    """One call with a bf16 q against the plain version with the same
+    band / cap: a bf16 output within BF16_Q_TOL of the output's scale,
+    one launch counted under the cache type, launches_bf16_q and each of
+    `variants`; the plain version without each of the band and the cap
+    that the call has misses by more than the tolerance."""
+    before = (fn.launches_by_dtype[kind], fn.launches_bf16_q[kind],
+              {name: dict(by) for name, by in fn.launches_by_variant.items()})
+    got = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert (fn.launches_by_dtype[kind], fn.launches_bf16_q[kind]) == (
+        before[0] + 1, before[1] + 1)
+    for name, by in fn.launches_by_variant.items():
+        for dt, n in by.items():
+            assert n == before[2][name][dt] + (name in variants
+                                               and dt == kind), (name, dt)
+    assert torch.isfinite(got.float()).all()
+    tol = BF16_Q_TOL * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+    for arg in ("window", "softcap"):
+        if kw.get(arg) is not None:
+            miss = (got.float() - ref(*args, **{**kw, arg: None}).float())
+            assert miss.abs().max().item() > tol, (arg, miss, tol)
+    return got
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d,window,softcap", [
+    (128, 100, None), (128, 300, 2.0), (128, None, 1.5), (256, 100, None),
+    (256, 300, 2.0), (256, None, 1.5), (256, None, None)])
+def test_cached_attention_bf16_q_band_softcap(dev, kind, d, window, softcap):
+    """K5 with a bf16 q, the band and / or the softcap, at D = 128
+    (mistral-7b) and 256 (gemma2-9b; gemma-2b without either): grouped
+    heads, a chunk at bases beside the split edges of S = 1024."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    q = torch.randn(4, 4, 70, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v, ks, vs = _cache(g, (4, 2, 1024, d), kind, dev)
+    pos = torch.tensor([0, 191, 500, 954], dtype=torch.int32, device=dev)
+    variants = (("band",) if window else ()) + (
+        ("softcap",) if softcap else ()) + (("d256",) if d == 256 else ())
+    _bf16_q_variant_check(tca.cached_attention,
+                          tca.reference_cached_attention, (q, k, v, pos),
+                          kind, variants, ks=ks, vs=vs, window=window,
+                          softcap=softcap)
+
+
+@pytest.mark.parametrize("kind", KV_DTYPES)
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("paged", [False, True], ids=["K6", "K7"])
+def test_decode_kernels_bf16_q_band_softcap(dev, paged, kind, d, rows):
+    """K6 / K7 with a bf16 q and a window at positions beside the split
+    edges (bands that start in an earlier split, mid-split, on a split's
+    first column); K6 also with the softcap; D = 256 without either."""
+    q, k, v, ks, vs, tables = _decode_inputs(dev, paged, kind, d, rows,
+                                             seed=34)
+    q = (q * 3).to(torch.bfloat16)
+    split_keys, _ = tca.decode_split(12, 1024, 16 if paged else 1)
+    pos = torch.tensor([split_keys - 1, split_keys, 3 * split_keys + 5,
+                        1023, 517, 2 if paged else 1024], dtype=torch.int32,
+                       device=dev)
+    fn = tca.paged_decode_attention if paged else tca.decode_attention
+    ref = (tca.reference_paged_decode_attention if paged
+           else tca.reference_decode_attention)
+    args = (q, k, v, tables, pos) if paged else (q, k, v, pos)
+    d256 = ("d256",) if d == 256 else ()
+    for window in (split_keys + 1, 40):
+        _bf16_q_variant_check(fn, ref, args, kind, ("band",) + d256, ks=ks,
+                              vs=vs, window=window)
+    if not paged:
+        _bf16_q_variant_check(fn, ref, args, kind,
+                              ("band", "softcap") + d256, ks=ks, vs=vs,
+                              window=300, softcap=2.0)
+    if d == 256:
+        _bf16_q_variant_check(fn, ref, args, kind, d256, ks=ks, vs=vs)

@@ -142,9 +142,25 @@ def test_output_dtypes_follow_the_jax_codecs():
 @pytest.mark.parametrize("kwargs", [{"rolling": True}, {"window": 4},
                                     {"softcap": 30.0}])
 def test_codec_for_cache_refuses_unported(kwargs):
+    """The rolling ring, the band and the softcap are ported: each builds
+    JAX's codec (codec_for_cache of the JAX package on the same
+    arguments, a rolling ring over a window); only int4 caches still
+    raise, naming ROADMAP item 2."""
+    import jax.numpy as jnp
+
+    from dnn_tpu.runtime import kvcache as jkv
+
     cache = tkv.FloatKV().init(CFG, 1, 8, "cpu")
+    kw = dict(kwargs, window=4) if "rolling" in kwargs else kwargs
+    got = tkv.codec_for_cache(cache, **kw)
+    want = jkv.codec_for_cache({"k": jnp.zeros((1, 2, 8, 32)),
+                                "v": jnp.zeros((1, 2, 8, 32))}, **kw)
+    assert type(got).__name__ == type(want).__name__
+    assert (got.window, got.softcap) == (want.window, want.softcap)
+    i4 = {**cache, "k": cache["k"].to(torch.uint8), "ks": cache["k"][..., 0],
+          "vs": cache["k"][..., 0]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.codec_for_cache(cache, **kwargs)
+        tkv.codec_for_cache(i4, **kw)
 
 
 def test_write_overhang_raises():

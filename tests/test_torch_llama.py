@@ -142,11 +142,13 @@ def test_forward_with_cache_decodes_incrementally(name):
                                 cfg.head_dim)
     jcache = jllama.init_cache(jcfg, 2, 16)
     full = tllama.make_apply_stacked(cfg)(prep, torch.from_numpy(ids))
+    # one JAX program per chunk width, the start a traced argument
+    jfwd = jax.jit(jllama.forward_with_cache, static_argnames=("cfg",))
     for start, stop in [(0, 12)] + [(t, t + 1) for t in range(12, 16)]:
         got, cache = tllama.forward_with_cache(
             prep, torch.from_numpy(ids[:, start:stop]), cache, start, cfg=cfg)
-        want, jcache = jllama.forward_with_cache(
-            jprep, jnp.asarray(ids[:, start:stop]), jcache, start, cfg=jcfg)
+        want, jcache = jfwd(jprep, jnp.asarray(ids[:, start:stop]), jcache,
+                            jnp.int32(start), cfg=jcfg)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=ATOL)
         np.testing.assert_allclose(got[:, -1].numpy(),
@@ -165,11 +167,12 @@ def round_probs_like_jax(monkeypatch):
 
     plain = tca._scaled_softmax_attend
 
-    def rounded(q, k, v, keep, ks, vs):
+    def rounded(q, k, v, keep, ks, vs, softcap=None):
         if v.dtype != torch.bfloat16:
-            return plain(q, k, v, keep, ks, vs)
-        s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) \
-            / np.sqrt(q.shape[-1])
+            return plain(q, k, v, keep, ks, vs, softcap)
+        s = tca.soft_cap(torch.einsum("bhtd,bhsd->bhts", q.float(),
+                                      k.float()) / np.sqrt(q.shape[-1]),
+                         softcap)
         p = torch.softmax(torch.where(keep, s, -1e30), dim=-1)
         return torch.einsum("bhts,bhsd->bhtd",
                             p.to(torch.bfloat16).float(), v.float())
@@ -251,10 +254,14 @@ def test_partition_stages_compose_to_the_model(name, parts):
     ("softcap", "item 7, logit softcapping"),
     ("ffn", "item 7, the MoE families")])
 def test_unported_switches_raise_naming_their_item(name, item):
-    """Sliding windows (Mistral, Gemma-2) and softcapping raise
-    NotImplementedError naming their ROADMAP item when the model is built
-    or served, not when get_model returns it; an ffn override (the MoE
-    hook) likewise."""
+    """An ffn override (the MoE hook, ROADMAP item 7's MoE families)
+    raises NotImplementedError naming its item when the model is built or
+    served, not when get_model returns it. Sliding windows (Mistral,
+    Gemma-2; item 2) and softcapping (item 7's softcapping) are ported:
+    for them every entry point builds and runs, and LlamaFamilyRows
+    carries JAX's adapter attributes (window, alt_window, softcap,
+    paged_ok) for the batcher."""
+    from dnn_tpu.models import llama as jl
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
     ffn = None
@@ -268,9 +275,9 @@ def test_unported_switches_raise_naming_their_item(name, item):
     params = tllama.init(0, cfg)
     prep = from_jax_params(params, cfg, "cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=item):
-        tllama.LlamaFamilyRows(cfg, ffn=ffn)
     if ffn is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            tllama.LlamaFamilyRows(cfg, ffn=ffn)
         with pytest.raises(NotImplementedError, match=item):
             tllama.check_ported(cfg, ffn)
         # the batcher refuses an ffn beside a family adapter, as JAX's
@@ -278,23 +285,34 @@ def test_unported_switches_raise_naming_their_item(name, item):
             ContinuousBatcher(cfg, prep, family=tllama.LlamaFamilyRows(cfg),
                               ffn=ffn, device="cpu")
         return
+    tllama.check_ported(cfg)
+    fam = tllama.LlamaFamilyRows(cfg)
+    jcfg = dataclasses.replace(jl.PRESETS["llama-test"], attn_softcap=50.0) \
+        if name == "softcap" else jl.PRESETS[name]
+    jfam = jl.LlamaFamilyRows(jcfg)
+    for attr in ("window", "alt_window", "softcap", "paged_ok"):
+        assert getattr(fam, attr) == getattr(jfam, attr), attr
     tensors = jax.tree.map(torch.from_numpy, params)
-    for build in (
-            lambda: tllama.make_generate(cfg, max_new_tokens=2,
-                                         device="cpu"),
-            lambda: tllama.make_apply(cfg)(tensors, ids),
-            lambda: tllama.make_partition(cfg)(2),
-            lambda: tllama.forward_with_cache(
-                prep, ids, tllama.init_cache(cfg, 1, 8, torch.float32, "cpu"),
-                0, cfg=cfg),
-            lambda: ContinuousBatcher(cfg, prep, device="cpu")):
-        with pytest.raises(NotImplementedError, match=item):
-            build()
+    tllama.make_generate(cfg, max_new_tokens=2, device="cpu")(prep, ids)
+    assert tllama.make_apply(cfg)(tensors, ids).shape == (1, 4,
+                                                           cfg.vocab_size)
+    assert len(tllama.make_partition(cfg)(2)) == 2
+    tllama.forward_with_cache(
+        prep, ids, tllama.init_cache(cfg, 1, 8, torch.float32, "cpu"), 0,
+        cfg=cfg)
+    b = ContinuousBatcher(cfg, prep, device="cpu", max_len=16,
+                          prompt_pad=8, block_len=8)
+    rid = b.submit(np.arange(1, 5), 3)
+    assert len(b.drain()[rid]) == 3
 
 
 HF_FAMILIES = [("llama-test", "LlamaForCausalLM"),
                ("qwen2-test", "Qwen2ForCausalLM"),
-               ("phi-test", "PhiForCausalLM")]
+               ("phi-test", "PhiForCausalLM"),
+               ("mistral-test", "MistralForCausalLM")]
+# loaded, not exported: the exporters omit a tied lm_head, as JAX's do,
+# and transformers' strict load wants one
+HF_TIED_FAMILIES = [("gemma2-test", "Gemma2ForCausalLM")]
 
 
 def _hf_model(name, cls_name, seed):
@@ -319,15 +337,17 @@ def _hf_model(name, cls_name, seed):
 
 
 @pytest.mark.parametrize("fmt", ["safetensors", "pth"])
-@pytest.mark.parametrize("name,cls_name", HF_FAMILIES)
+@pytest.mark.parametrize("name,cls_name", HF_FAMILIES + HF_TIED_FAMILIES)
 def test_hf_checkpoint_loads_through_the_registry(tmp_path, name, cls_name,
                                                   fmt):
-    """A tiny random HF LLaMA (GQA), Qwen2 (q/k/v biases) or Phi
-    (parallel block, partial rotary, LayerNorms) checkpoint, saved as
-    safetensors and as .pth, loads through the port's load_checkpoint and
-    the registry's convert_state_dict: the tree equals the JAX
-    converter's bit for bit, and the port's logits equal the HF model's
-    within 1e-4 (two f32 implementations, different sum orders)."""
+    """A tiny random HF LLaMA (GQA), Qwen2 (q/k/v biases), Phi (parallel
+    block, partial rotary, LayerNorms), Mistral (a sliding window) or
+    Gemma-2 (four norms, softcaps, the window on even layers) checkpoint,
+    saved as safetensors and as .pth, loads through the port's
+    load_checkpoint and the registry's convert_state_dict: the tree
+    equals the JAX converter's bit for bit, and the port's logits on 24
+    tokens (past the windows of 16) equal the HF model's within 1e-4 (two
+    f32 implementations, different sum orders)."""
     from dnn_tpu.io import checkpoint as jckpt
     from dnn_tpu.registry import get_model as jax_get_model
     from dnn_tpu_torch.io.checkpoint import load_checkpoint
@@ -345,7 +365,7 @@ def test_hf_checkpoint_loads_through_the_registry(tmp_path, name, cls_name,
     assert jax.tree.structure(tree) == jax.tree.structure(want)
     for g, w in zip(jax.tree.leaves(tree), jax.tree.leaves(want)):
         np.testing.assert_array_equal(g, np.asarray(w))
-    ids = _ids(cfg, 2, 14, seed=9)
+    ids = _ids(cfg, 2, 24, seed=9)
     got = tllama.make_apply_stacked(cfg)(from_jax_params(tree, cfg, "cpu"),
                                          torch.from_numpy(ids)).numpy()
     with torch.no_grad():

@@ -226,13 +226,15 @@ def test_daemon_serves_llama_as_make_generate():
 def test_node_serve_lm_accepts_a_llama_config(tmp_path, caplog):
     """`python -m dnn_tpu_torch.node --serve_lm` with a llama config (a
     real process; seeded random weights) answers a solo batcher's tokens
-    on the same weights and drains on SIGTERM; a sliding-window preset
+    on the same weights and drains on SIGTERM. The config is mistral-test,
+    a sliding-window preset: the daemon serves it on its windowed paged
+    pool, a stream past the window; an int4 KV cache, still unported,
     exits 2 naming its ROADMAP item."""
     from dnn_tpu_torch.node import main
 
     port = _free_port()
     cfg_path = tmp_path / "cfg.json"
-    cfg_path.write_text(json.dumps({"model": "llama-test", "nodes": [
+    cfg_path.write_text(json.dumps({"model": "mistral-test", "nodes": [
         {"id": "node1", "part_index": 0, "address": f"127.0.0.1:{port}"}]}))
     pool = ["--slots", "2", "--max_len", "64", "--prompt_pad", "16",
             "--block_len", "8", "--seed", "3"]
@@ -245,7 +247,7 @@ def test_node_serve_lm_accepts_a_llama_config(tmp_path, caplog):
     try:
         client = NodeClient(f"127.0.0.1:{port}")
         assert client.wait_healthy(deadline=90)
-        cfg = tllama.PRESETS["llama-test"]
+        cfg = tllama.PRESETS["mistral-test"]
         prompt = _prompt(cfg, 7, 21).astype(np.int32)
         got = client.generate(prompt, max_new_tokens=6)
         client.close()
@@ -254,6 +256,7 @@ def test_node_serve_lm_accepts_a_llama_config(tmp_path, caplog):
                               family=tllama.LlamaFamilyRows(cfg),
                               device="cpu", slots=2, max_len=64,
                               prompt_pad=16, block_len=8)
+        assert b.paged
         rid = b.submit(prompt, 6)
         np.testing.assert_array_equal(got, b.drain()[rid])
         proc.send_signal(signal.SIGTERM)
@@ -267,7 +270,8 @@ def test_node_serve_lm_accepts_a_llama_config(tmp_path, caplog):
          "address": f"127.0.0.1:{_free_port()}"}]}))
     with caplog.at_level("ERROR", logger="dnn_tpu_torch.node"):
         assert main(["--node_id", "node1", "--config", str(cfg_path),
-                     "--serve_lm", "--device", "cpu"]) == 2
+                     "--serve_lm", "--device", "cpu",
+                     "--kv_dtype", "int4"]) == 2
     assert "item 2" in caplog.text
 
 

@@ -538,11 +538,20 @@ def test_cross_family_gpt_draft_llama_target():
 
 
 def test_spec_rejects_windowed_family():
-    """A windowed preset never reaches the verify: its family adapter
-    refuses it, naming the ROADMAP item (JAX: a ValueError at the
-    speculative batcher's construction)."""
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tllama.LlamaFamilyRows(tllama.PRESETS["mistral-test"])
+    """A windowed preset never reaches the verify: the speculative batcher
+    refuses it at construction with JAX's ValueError (its paged_ok flag,
+    serving_spec.py:180), as target and as draft."""
+    cfg = tllama.PRESETS["mistral-test"]
+    prep = from_jax_params(tllama.init(0, cfg), cfg, "cpu")
+    lcfg = tllama.PRESETS["llama-test"]
+    lprep = from_jax_params(tllama.init(1, lcfg), lcfg, "cpu")
+    kw = dict(slots=1, max_len=32, prompt_pad=8, device="cpu")
+    for which, target in (("target", (cfg, prep)), ("draft", (lcfg, lprep))):
+        with pytest.raises(ValueError, match=f"the {which} family has a "
+                           "sliding window"):
+            SpeculativeBatcher(*target, cfg, prep, spec_k=2,
+                               draft_family=tllama.LlamaFamilyRows(cfg),
+                               **kw)
 
 
 def test_spec_requires_explicit_draft_family_for_non_gpt_draft():
