@@ -410,6 +410,7 @@ figure printed beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -1563,9 +1564,9 @@ def reference_greedy(prepared, cfg, prompt, n_new, dev, logits_out=None):
 
 def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
                            chunk=None, compute_dtype=None, step_rows=1,
-                           forced=None, logits_out=None):
+                           forced=None, logits_out=None, ffn=None):
     """Independent greedy loop over a dense cache of type `kv_dtype`
-    ("bf16" or "int8"): no batcher and no kernel. A cache of prompt +
+    ("f32", "bf16" or "int8"): no batcher and no kernel. A cache of prompt +
     n_new positions (at KV heads for a LlamaConfig); bf16 stores K/V
     rounded to bf16, int8 quantizes them with the port's _quantize_rows
     and keeps the scales; attention is the plain version (grouped heads
@@ -1584,22 +1585,27 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
     order; the cache and the attention see the first copy only.
     `forced`, where given, is fed in place of each step's argmax (teacher
     forcing), and `logits_out`, a list, receives each step's f32 logits
-    row. Returns (tokens, top-2 logit gap at each step)."""
+    row. The MLP is the family's: a MoE config's routed experts (a llama
+    MoE config's default_ffn; `ffn` for gpt2-moe, as the batcher takes
+    it), the step's copies routed together (a no-drop capacity routes
+    each row alone). Returns (tokens, top-2 logit gap at each step)."""
     from dnn_tpu_torch.models.gpt import head, layer_params
     from dnn_tpu_torch.ops.attention import merge_heads
     from dnn_tpu_torch.ops.cuda.cached_attention import (
         reference_cached_attention)
     from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
-    from dnn_tpu_torch.runtime.generate import _mlp, _qkv_heads
+    from dnn_tpu_torch.runtime.generate import _ffn_out, _qkv_heads
     from dnn_tpu_torch.runtime.kvcache import _quantize_rows
 
     from dnn_tpu_torch.models import llama
     from dnn_tpu_torch.runtime.kvcache import cache_shape
 
-    if kv_dtype not in ("bf16", "int8"):
-        raise ValueError(f"kv_dtype must be bf16 or int8, got {kv_dtype!r}")
+    if kv_dtype not in ("f32", "bf16", "int8"):
+        raise ValueError(f"kv_dtype must be f32, bf16 or int8, got "
+                         f"{kv_dtype!r}")
     quant = kv_dtype == "int8"
-    store = torch.int8 if quant else torch.bfloat16
+    store = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}[kv_dtype]
     is_llama = isinstance(cfg, llama.LlamaConfig)
     padded = len(prompt) if chunk is None else -(-len(prompt) // chunk) * chunk
     shape = cache_shape(cfg, 1, max(padded, len(prompt) + n_new))
@@ -1630,6 +1636,7 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
         return y.expand(copies, *y.shape[1:])
 
     cdt = compute_dtype
+    lffn = cfg.default_ffn(cdt) if is_llama else None
 
     def last_logits(ids, start):
         t = ids.shape[1]
@@ -1648,7 +1655,7 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
                 o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
                            compute_dtype=cdt)
                 x = llama._branches_residual(bp, x, o, h, cfg=cfg,
-                                             compute_dtype=cdt)
+                                             compute_dtype=cdt, ffn=lffn)
             return llama.head(prepared, x.float(), cfg=cfg,
                               compute_dtype=cdt)[0]
         x = (embedding(prepared["wte"], ids)
@@ -1661,7 +1668,8 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
             y = attend(i, q, k, v, start, pos)
             x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
                            compute_dtype=cdt)
-            x = x + _mlp(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps), cdt)
+            x = x + _ffn_out(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps),
+                             x, cdt, ffn)
         return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[0]
 
     with torch.no_grad():
@@ -1795,14 +1803,35 @@ def forced_errors(want_rows, tokens, top_ids, top_lp, chosen_lp):
     return err.max(dim=1).values
 
 
+def loop_forced_errors(tree, cfg, prompts, refs, ref_rows, dev, kv_dtype,
+                       compute_dtype=None):
+    """Teacher forcing of a plain loop (reference_greedy_cache over a
+    `kv_dtype` cache, each prompt prefilled whole) on each prompt's
+    reference tokens (`refs`): per prompt, forced_errors against the
+    reference's logits rows `ref_rows`."""
+    out = []
+    for p, (toks, _), rows in zip(prompts, refs, ref_rows):
+        got = []
+        reference_greedy_cache(tree, cfg, p, len(toks), dev, kv_dtype,
+                               compute_dtype=compute_dtype, step_rows=4,
+                               forced=toks, logits_out=got)
+        lsm = torch.log_softmax(torch.stack(got), dim=-1)
+        top_lp, top_ids = torch.topk(lsm, FORCED_TOPK, dim=-1)
+        chosen = lsm.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+        out.append(forced_errors(rows, toks, top_ids.cpu(), top_lp.cpu(),
+                                 chosen.cpu()))
+    return out
+
+
 def forced_check(tag, label, cfg, tree, prompts, refs, ref_rows, dev,
-                 **kw):
+                 loop_kv="bf16", **kw):
     """Teacher forcing: each prompt's chunked plain loop (`refs`, its
     logits rows `ref_rows`) fed, step by step, to (1) the served path --
     a ContinuousBatcher as the daemon builds it (4 slots, max_len 1024,
     prompt_pad 64, blocks of 16, the options `kw`), each request held
     to the loop's tokens by forcing_constraint, its logprobs on -- and
-    (2) a second plain loop that prefills each prompt whole. Prints, per
+    (2) a second plain loop that prefills each prompt whole (a `loop_kv`
+    cache, loop_forced_errors). Prints, per
     prompt, the largest logprob error of each against the loop and its
     step, over the forced token and the top FORCED_TOPK; fails if the
     batcher does not emit the forced stream. Returns the largest errors
@@ -1810,19 +1839,9 @@ def forced_check(tag, label, cfg, tree, prompts, refs, ref_rows, dev,
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
     n_new = len(refs[0][0])
-    cdt = kw.get("compute_dtype")
     t0 = time.perf_counter()
-    loop = []
-    for p, (toks, _), rows in zip(prompts, refs, ref_rows):
-        got = []
-        reference_greedy_cache(tree, cfg, p, n_new, dev, "bf16",
-                               compute_dtype=cdt, step_rows=4, forced=toks,
-                               logits_out=got)
-        lsm = torch.log_softmax(torch.stack(got), dim=-1)
-        top_lp, top_ids = torch.topk(lsm, FORCED_TOPK, dim=-1)
-        chosen = lsm.gather(1, torch.tensor(toks, device=dev)[:, None])[:, 0]
-        loop.append(forced_errors(rows, toks, top_ids.cpu(), top_lp.cpu(),
-                                  chosen.cpu()))
+    loop = loop_forced_errors(tree, cfg, prompts, refs, ref_rows, dev,
+                              loop_kv, kw.get("compute_dtype"))
     b = ContinuousBatcher(
         cfg, tree, slots=4, max_len=1024, prompt_pad=64, block_len=16,
         seed=0, device=dev, allow_constraints=True,
@@ -3603,10 +3622,11 @@ def obs_step_walls(cfg, prepared, prompts, dev, card, steps=16):
           f"{res['on'][0][2]} captures each; on {card}", flush=True)
 
 
-def node_child(cfg_name, dev, *extra):
+def node_child(cfg_name, dev, *extra, **config):
     """`node --serve_lm` as a process at run A's settings (the config's
     seed-0 weights, the main path's) with its endpoint: (process,
-    address, metrics base URL, the moment it started)."""
+    address, metrics base URL, the moment it started). `config` adds
+    keys to the topology config (e.g. "dtype")."""
     import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3616,7 +3636,7 @@ def node_child(cfg_name, dev, *extra):
     with open(path, "w") as f:
         json.dump({"model": cfg_name, "device_type": dev.type, "nodes": [
             {"id": "node1", "part_index": 0,
-             "address": f"127.0.0.1:{port}"}]}, f)
+             "address": f"127.0.0.1:{port}"}], **config}, f)
     # its log goes to a file: a pipe nobody drains could block the child
     proc = subprocess.Popen(
         [sys.executable, "-m", "dnn_tpu_torch.node", "--node_id", "node1",
@@ -4914,18 +4934,24 @@ def spec_self(cfg, prepared, prompts, refs, dev, card):
     return counts
 
 
-def spec_solo(t_cfg, t_prep, d_cfg, d_prep, prompt, ref, dev, card):
+def spec_solo(t_cfg, t_prep, d_cfg, d_prep, prompt, ref, dev, card,
+              tag="spec", label="S-solo"):
     """S-solo: make_speculative_generate (the target drafted by d_cfg) on
     the 300-token prompt, SPEC_NEW greedy tokens, against make_generate's
-    on the target (near-tie rule, the no-cache loop's gaps); launches
-    exactly: both prefills and every iteration's sync and verify on K5,
-    the draft's k steps on K6. Returns the launches and the iteration
-    count."""
+    on the target (make_generate_moe's for a GPT-MoE target; near-tie
+    rule, the reference's gaps) and against the reference `ref` (tokens,
+    gaps); launches exactly: both prefills and every iteration's sync
+    and verify on K5, the draft's k steps on K6. Returns the launches
+    and the iteration count."""
+    from dnn_tpu_torch.models.gpt_moe import GPTMoEConfig
     from dnn_tpu_torch.parallel.pipeline import sync
     from dnn_tpu_torch.runtime.generate import make_generate
+    from dnn_tpu_torch.runtime.generate_moe import make_generate_moe
     from dnn_tpu_torch.runtime.speculative import make_speculative_generate
 
-    want = make_generate(t_cfg, max_new_tokens=SPEC_NEW, device=dev)(
+    solo = (make_generate_moe if isinstance(t_cfg, GPTMoEConfig)
+            else make_generate)
+    want = solo(t_cfg, max_new_tokens=SPEC_NEW, device=dev)(
         t_prep, [prompt])[0].tolist()
     spec = make_speculative_generate(t_cfg, d_cfg, max_new_tokens=SPEC_NEW,
                                      k=SPEC_K, return_stats=True, device=dev)
@@ -4937,9 +4963,9 @@ def spec_solo(t_cfg, t_prep, d_cfg, d_prep, prompt, ref, dev, card):
     sync(dev)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    compare_tokens("[spec] S-solo make_speculative_generate",
+    compare_tokens(f"[{tag}] {label} make_speculative_generate",
                    toks[0].tolist(), want, ref[1])
-    compare_tokens("[spec] S-solo against the no-cache loop",
+    compare_tokens(f"[{tag}] {label} against the reference",
                    toks[0].tolist(), *ref)
     it = stats["iterations"]
     if dev.type == "cuda":
@@ -4948,9 +4974,9 @@ def spec_solo(t_cfg, t_prep, d_cfg, d_prep, prompt, ref, dev, card):
                  ("decode_attention", "f32"): SPEC_K * d_cfg.n_layer * it}
         for (name, dt), n in exact.items():
             if counts[name][dt] != n:
-                fail(f"[spec] S-solo: {name} ({dt}) launched "
+                fail(f"[{tag}] {label}: {name} ({dt}) launched "
                      f"{counts[name][dt]} times, expected {n}")
-    print(f"[spec] S-solo: {SPEC_NEW} tokens after a {len(prompt)}-token "
+    print(f"[{tag}] {label}: {SPEC_NEW} tokens after a {len(prompt)}-token "
           f"prompt in {wall * 1e3:.1f} ms, {it} iterations, "
           f"{stats['accepted']} of {stats['proposed']} proposals accepted; "
           f"equal to make_generate's; launches "
@@ -4984,9 +5010,11 @@ def phase_spec(dev, card, target=SPEC_TARGET, draft=SPEC_DRAFT):
 
     t_cfg, d_cfg = PRESETS[target], PRESETS[draft]
     t0 = time.perf_counter()
-    tree = init(0, t_cfg)
+    # drawn on the device: a numpy draw of gpt2-xl's 1.6 G weights costs
+    # tens of seconds of host time
+    tree = init(0, t_cfg, device=dev)
     t_prep = from_jax_params(tree, t_cfg, dev)
-    d_tree = init(0, d_cfg)
+    d_tree = init(0, d_cfg, device=dev)
     d_prep = from_jax_params(d_tree, d_cfg, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -7670,6 +7698,880 @@ def window_records(rows, by_phase):
     return entries
 
 
+# ---------------------------------------------------------------------
+# [moe]: the MoE families (slice 20) on the LM daemon's path
+# ---------------------------------------------------------------------
+MOE_PROMPTS = (5, 70, 130, 300)   # A's prompts (M-GA, M-GB, QM)
+MOE_NEW = 16
+MX_PROMPTS = (301, 420)           # MX-Q8: two slots, each past 300
+MOE_PROFILE_STEPS = 4             # step_profile's steps a mode (MX-Q8's
+                                  # eager step is ~0.17 s)
+MOE_LOG = 4096                    # routing calls the drop log keeps
+# MX-Q8's teacher-forced logprob error may be at most this multiple of
+# the second plain loop's (the same int8 tree, its prompts prefilled
+# whole instead of in 64-token chunks: the bf16-compute noise of a
+# different summation order, measured the same way in the same run).
+# No f32-weight control fits the card beside Mixtral-8x7B's 47 GB, so
+# the loop is the yardstick. At random weights a bf16 rounding flips
+# near-tie expert choices and each flip carries into every later layer:
+# on an H100 the two loops' prefills of the 301-token prompt routed 24%
+# of their (token, layer) selections differently (routing_flips) and
+# their logprobs differed by up to 4.8; the served path's error was
+# 1.56x the loop's. At that noise the gate cannot tell a faulty routed
+# FFN from a right one (the control below is printed, not held): MX-F32
+# holds the same model's first layers in f32, where it can
+MOE_FORCED_RATIO = 4.0
+# MX-F32: the first MX_F32_LAYERS layers of MX-Q8's model (its int8
+# blocks, the same seed), served in f32 compute over the paged f32 pool.
+# Without bf16 rounding a summation order moves no route, so the served
+# path's teacher-forced logprob error against the plain f32 loop must
+# stay under MOE_F32_FORCED nats, and the control -- the loop with the
+# router's top-k weights left unnormalised (router_norm_topk=False, Qwen's
+# rule in place of Mixtral's: a fault of the routed FFN) -- must miss by
+# more than that bound (the gate would catch it) and by more than
+# MOE_CONTROL x the served path's error
+MX_F32_LAYERS = 4
+MOE_F32_FORCED = 1e-2
+MOE_CONTROL = 10.0
+# the routed FFN against dense_moe_reference at MX-Q8's layer 0, within
+# this share of the output's scale: f32 compute (the products' order
+# only), bf16 compute (the SwiGLU product rounded to bf16 before the down
+# projection, as the served path rounds it)
+MOE_FFN_TOL = {"f32": 1e-4, "bf16": 2e-2}
+
+
+def moe_prompts(vocab: int, lengths, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).tolist() for n in lengths]
+
+
+class DropLog:
+    """Every routing call's tokens and dropped selections
+    (parallel/moe.route_topk wrapped while installed), appended on the
+    device by index ops that a captured graph replays; read after a run
+    as one (tokens, dropped) pair per call, in call order."""
+
+    def __init__(self, dev):
+        self.buf = torch.zeros((MOE_LOG, 2), dtype=torch.int64, device=dev)
+        self.idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._route = None
+
+    def __enter__(self):
+        from dnn_tpu_torch.parallel import moe
+
+        route = self._route = moe.route_topk
+
+        def logged(logits, *, top_k, capacity, normalize=True):
+            out = route(logits, top_k=top_k, capacity=capacity,
+                        normalize=normalize)
+            tokens = logits.numel() // logits.shape[-1]
+            kept = out[0].sum().long()
+            row = torch.stack([torch.full_like(kept, tokens),
+                               tokens * top_k - kept])
+            self.buf.index_copy_(0, self.idx % MOE_LOG, row[None])
+            self.idx.add_(1)
+            return out
+
+        moe.route_topk = logged
+        return self
+
+    def __exit__(self, *exc):
+        from dnn_tpu_torch.parallel import moe
+
+        moe.route_topk = self._route
+
+    def reset(self):
+        self.idx.zero_()
+
+    def forwards(self, n_layer: int):
+        """[(tokens routed, selections dropped over the layers)] per
+        forward (n_layer consecutive calls)."""
+        rows = self.buf[:int(self.idx.item())].tolist()
+        return [(rows[i][0], sum(r[1] for r in rows[i:i + n_layer]))
+                for i in range(0, len(rows), n_layer)]
+
+
+def reference_moe_batch(prepared, cfg, prompts, n_new, dev, ffn, chunk=64):
+    """Independent greedy loop of the batcher's schedule on a GPT-MoE
+    model, f32, no batcher and no kernel: the prompts admitted in order
+    into slots 0, 1, ..., each prefilled in `chunk`-token pieces (the
+    last right-padded with id 0, as the batcher pads) or whole (chunk
+    None), each piece's rows routed as one group; then every decode step
+    routes all the slots' rows together, in slot order, as the batcher's
+    step does when every slot is active. Attention is the plain version
+    over a dense f32 cache a slot. Returns ([(tokens, top-2 gaps)] a
+    prompt, [(tokens routed, selections dropped)] a routing call)."""
+    from dnn_tpu_torch.models.gpt import head, layer_params
+    from dnn_tpu_torch.ops.attention import merge_heads
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        reference_cached_attention)
+    from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
+    from dnn_tpu_torch.runtime.generate import _qkv_heads
+
+    b_n, L = len(prompts), cfg.n_layer
+    padded = [len(p) if chunk is None else -(-len(p) // chunk) * chunk
+              for p in prompts]
+    s_len = max(max(padded), max(len(p) for p in prompts) + n_new)
+    hd = cfg.n_embd // cfg.n_head
+    kc = torch.zeros((L, b_n, cfg.n_head, s_len, hd), device=dev)
+    vc = torch.zeros_like(kc)
+
+    def forward(ids, slots, starts):
+        t = ids.shape[1]
+        pos = torch.tensor(starts, device=dev)
+        x = (embedding(prepared["wte"], ids) + embedding(
+            prepared["wpe"], pos[:, None] + torch.arange(t, device=dev)))
+        for i in range(L):
+            bp = layer_params(prepared["blocks"], i)
+            q, k, v = _qkv_heads(bp, layer_norm(bp["ln_1"], x, eps=cfg.ln_eps),
+                                 cfg=cfg)
+            ys = []
+            for j, (slot, s0) in enumerate(zip(slots, starts)):
+                kc[i, slot, :, s0:s0 + t] = k[j]
+                vc[i, slot, :, s0:s0 + t] = v[j]
+                ys.append(reference_cached_attention(
+                    q[j:j + 1], kc[i, slot:slot + 1], vc[i, slot:slot + 1],
+                    pos[j:j + 1].int()))
+            x = x + linear(bp["attn"]["proj"], merge_heads(torch.cat(ys)))
+            x = x + ffn(bp, layer_norm(bp["ln_2"], x, eps=cfg.ln_eps))
+        return head(prepared, x, cfg=cfg)
+
+    toks = [[] for _ in prompts]
+    gaps = [[] for _ in prompts]
+
+    def pick(slot, logits):
+        top2 = torch.topk(logits, 2).values
+        gaps[slot].append((top2[0] - top2[1]).item())
+        toks[slot].append(int(logits.argmax()))
+
+    with DropLog(dev) as log, torch.no_grad():
+        for slot, p in enumerate(prompts):
+            ids = torch.zeros((1, padded[slot]), dtype=torch.int64,
+                              device=dev)
+            ids[0, :len(p)] = torch.tensor(p, device=dev)
+            step = chunk or padded[slot]
+            for c0 in range(0, padded[slot], step):
+                logits = forward(ids[:, c0:c0 + step], [slot], [c0])
+            pick(slot, logits[0, len(p) - 1 - c0])
+        starts = [len(p) for p in prompts]
+        for _ in range(n_new - 1):
+            ids = torch.tensor([[t[-1]] for t in toks], device=dev)
+            logits = forward(ids, list(range(b_n)), starts)
+            for slot in range(b_n):
+                pick(slot, logits[slot, -1])
+            starts = [s + 1 for s in starts]
+        forwards = log.forwards(L)
+    return list(zip(toks, gaps)), forwards
+
+
+def print_drops(tag, label, forwards, ref_forwards=None):
+    """The dropped selections of each forward of a run (prefill pieces,
+    then decode steps), beside the reference's where given."""
+    steps = [d for n, d in forwards]
+    said = (f"[{tag}] {label}: dropped selections a forward (tokens "
+            f"routed: dropped over the layers): "
+            + ", ".join(f"{n}:{d}" for n, d in forwards))
+    if ref_forwards is not None:
+        same = [a == b for a, b in zip(forwards, ref_forwards)]
+        said += (f"; the reference's in {sum(same)} of {len(same)} forwards"
+                 + ("" if len(forwards) == len(ref_forwards) else
+                    f" ({len(ref_forwards)} forwards there)"))
+    print(said + f"; {sum(steps)} in all", flush=True)
+
+
+def moe_serve(tag, label, cfg, prepared, prompts, n_new, refs, needed, dev,
+              card, exact, tie=NEAR_TIE, drops=None, **kv):
+    """One [moe] run through the LM daemon in-process (4 slots, max_len
+    1024, prompt_pad 64, blocks of 16, the options `kv`, ffn among them
+    for gpt2-moe): a 2-token warm-up request (its steps capture the
+    graphs), then the worker held at the top of its loop while the
+    prompts' gRPC generate calls queue one after another, so that it
+    admits them all, in order, into slots 0, 1, ... before its first
+    decode step (with drops the streams depend on the rows routed
+    together: reference_moe_batch's schedule). Greedy streams against
+    `refs` (compare_tokens, `tie`; None: printed, not judged), launches
+    exactly `exact(steps)`; with `drops` (a DropLog, installed) each
+    forward's drops are returned. Returns (launches -- with a bf16 q
+    under bf16 compute --, streams, forwards or None)."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+
+    gc.collect()
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, **kv)
+    batcher, worker = stop.servicer.batcher, stop.servicer.worker
+    step, n_steps = batcher.step, [0]
+
+    def counted_step():
+        n_steps[0] += 1
+        return step()
+
+    batcher.step = counted_step
+    results, errors = {}, []
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=120):
+            fail(f"[{tag}] {label}: LM daemon never became healthy")
+        client.generate(prompts[0], max_new_tokens=2, timeout=600)
+        sync(dev)
+        entered, release = threading.Event(), threading.Event()
+
+        def gate():
+            entered.set()
+            release.wait()
+
+        worker.heartbeat = gate
+        if not entered.wait(60):
+            fail(f"[{tag}] {label}: the worker never reached its gate")
+        reset_counts()
+        n_steps[0] = 0
+        if drops is not None:
+            drops.reset()
+
+        def call(i):
+            try:
+                results[i] = client.generate(prompts[i], max_new_tokens=n_new,
+                                             timeout=600).tolist()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+
+        threads = []
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=call, args=(i,)))
+            threads[-1].start()
+            t_end = time.monotonic() + 30
+            while worker.q.qsize() < i + 1:
+                if time.monotonic() > t_end:
+                    fail(f"[{tag}] {label}: request {i} never queued")
+                time.sleep(0.001)
+        t0 = time.perf_counter()
+        worker.heartbeat = None
+        release.set()
+        for t in threads:
+            t.join(timeout=900)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts, counts_bf16_q = read_counts(), read_counts(bf16_q=True)
+        steps = n_steps[0]
+        forwards = drops.forwards(cfg.n_layer) if drops is not None else None
+        client.close()
+    finally:
+        stop()
+    if errors or len(results) != len(prompts):
+        fail(f"[{tag}] {label}: generate calls failed: "
+             f"{errors or 'timed out'}")
+    bf16 = kv.get("compute_dtype") is not None
+    if dev.type == "cuda":
+        require(f"[{tag}] {label}", counts, needed)
+        if bf16 and counts_bf16_q != {n: counts[n] for n in CACHE_KERNELS}:
+            fail(f"[{tag}] {label}: launches with a bf16 q {counts_bf16_q} "
+                 f"are not all of the run's")
+        for (name, dt), n in exact(steps).items():
+            if counts[name][dt] != n:
+                fail(f"[{tag}] {label}: {name} ({dt}) launched "
+                     f"{counts[name][dt]} times, expected {n} ({steps} "
+                     "decode steps)")
+    n_tok = sum(len(r) for r in results.values())
+    print(f"[{tag}] {label}: {'paged' if batcher.paged else 'dense'} pool, "
+          f"{len(prompts)} requests admitted together, {steps} decode steps "
+          f"(captured CUDA graphs), {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s; "
+          + counted(dev, "launches " + ", ".join(
+              f"{name} {dt} {n}" for (name, dt), n in
+              exact(steps).items()) + " exactly")
+          + f"; on {card}", flush=True)
+    streams = [results[i] for i in range(len(prompts))]
+    for i, p in enumerate(prompts):
+        compare_tokens(f"[{tag}] {label} request {i} (prompt {len(p)})",
+                       streams[i], *refs[i], tie=tie)
+    return (counts_bf16_q if bf16 else counts), streams, forwards
+
+
+def routing_flips(tag, label, prepared, cfg, prompt, dev, compute_dtype,
+                  kv_dtype="bf16"):
+    """Information: the prompt's prefill through the plain loop in
+    64-token chunks and whole (reference_greedy_cache over a `kv_dtype`
+    cache, one token), each
+    routing call's selected experts recorded: how many (token, layer)
+    selections differ between the two, whose only difference is the
+    order their products sum in (the bf16 noise a MoE model's routing
+    turns into a different expert)."""
+    from dnn_tpu_torch.parallel import moe
+
+    route = moe.route_topk
+    picks = []
+
+    def recording(logits, *, top_k, capacity, normalize=True):
+        out = route(logits, top_k=top_k, capacity=capacity,
+                    normalize=normalize)
+        picks[-1].append(out[0].sum(dim=-1).reshape(-1, logits.shape[-1])
+                         > 0)
+        return out
+
+    moe.route_topk = recording
+    try:
+        for chunk in (64, None):
+            picks.append([])
+            reference_greedy_cache(prepared, cfg, prompt, 1, dev, kv_dtype,
+                                   chunk=chunk, compute_dtype=compute_dtype)
+    finally:
+        moe.route_topk = route
+    n, L = len(prompt), cfg.n_layer
+    chunked = [torch.cat(picks[0][i::L])[:n] for i in range(L)]
+    whole = [picks[1][i][:n] for i in range(L)]
+    differ = sum(int((a != b).any(dim=-1).sum())
+                 for a, b in zip(chunked, whole))
+    print(f"[{tag}] {label}: the {n}-token prompt's routing in 64-token "
+          f"chunks and whole differs at {differ} of {n * L} (token, layer) "
+          f"selections", flush=True)
+    return differ
+
+
+def moe_step_share(tag, label, cfg, prepared, ffn, rows, dev, busy_ms,
+                   compute_dtype=None):
+    """Information: the routed FFN's device time a decode step (every
+    layer's ffn on `rows` tokens, the profiler's kernel sum; the step
+    routes all its slots' rows) and its share of the step's device busy
+    `busy_ms`."""
+    from dnn_tpu_torch.models.gpt import for_compute, layer_params
+
+    served = for_compute(prepared, compute_dtype)
+    dt = compute_dtype or torch.float32
+    h = torch.randn((rows, 1, cfg.n_embd), device=dev).to(dt)
+    layers = [layer_params(served["blocks"], i) for i in range(cfg.n_layer)]
+    ms = device_ms(lambda: [ffn(bp, h) for bp in layers], iters=3)
+    print(f"[{tag}] {label}: the routed FFN {ms:.3f} ms of device time a "
+          f"step ({cfg.n_layer} layers x {rows} rows) = "
+          f"{100 * ms / busy_ms:.1f}% of the captured step's "
+          f"{busy_ms:.3f} ms device busy; on the card as printed", flush=True)
+    return ms
+
+
+def moe_gpt_legs(dev, card, cfg=None, d_cfg=None):
+    """M-GA, M-GB, M-Gsolo, M-Gspec: gpt2-moe at full width (12 x 768, 8
+    experts top-2, d_ff 3072 an expert; or `cfg`), seed-0 weights drawn
+    on the card, f32; M-Gspec drafted by gpt2 (or `d_cfg`)."""
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import gpt as tgpt
+    from dnn_tpu_torch.models import gpt_moe as tgm
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.quant import param_bytes
+    from dnn_tpu_torch.runtime.generate_moe import (make_generate_moe,
+                                                    moe_cache_ffn)
+
+    cfg = cfg or tgm.PRESETS["gpt2-moe"]
+    prepared = from_jax_params(tgm.init(0, cfg, device=dev), cfg, dev)
+    ffn = moe_cache_ffn(cfg)
+    prompts = moe_prompts(cfg.vocab_size, MOE_PROMPTS, 20)
+    print(f"[moe] gpt2-moe: {cfg.n_layer} layers x {cfg.n_embd}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}: {param_bytes(prepared) / 1e9:.3f} GB of "
+          f"f32 weights; on {card}", flush=True)
+    t0 = time.perf_counter()
+    refs, ref_fwd = reference_moe_batch(prepared, cfg, prompts, MOE_NEW, dev,
+                                        ffn)
+    print(f"[moe] M-GA/M-GB reference (the batcher's schedule, plain "
+          f"attention, f32) in {time.perf_counter() - t0:.1f} s; smallest "
+          f"top-2 gap {min(min(g) for _, g in refs):.3e}", flush=True)
+    print_drops("moe", "M-GA/M-GB reference", ref_fwd)
+    total = {n: {dt: 0 for dt in ("f32", "bf16", "int8")}
+             for n in CACHE_KERNELS}
+    streams = {}
+    for label, kv, decode in (
+            ("M-GA", {"kv": "paged"}, "paged_decode_attention"),
+            ("M-GB", {"kv": "dense", "decode_buckets": True},
+             "decode_attention")):
+        t_leg = time.perf_counter()
+        with DropLog(dev) as log:
+            counts, streams[label], fwd = moe_serve(
+                "moe", label, cfg, prepared, prompts, MOE_NEW, refs,
+                [("cached_attention", "f32"), (decode, "f32")], dev, card,
+                main_exact(cfg, prompts, decode), drops=log, ffn=ffn, **kv)
+        print_drops("moe", label, fwd, ref_fwd)
+        add_into(total, counts)
+        if dev.type == "cuda":
+            walls = step_profile("moe", f"{label} gpt2-moe", cfg, prepared,
+                                 prompts, dev, bit_check=True,
+                                 steps=MOE_PROFILE_STEPS, ffn=ffn, **kv)
+            moe_step_share("moe", f"{label} decode step", cfg, prepared,
+                           ffn, 4, dev, walls["captured device"])
+        print(f"[wall] moe {label} {time.perf_counter() - t_leg:.1f} s",
+              flush=True)
+    if streams["M-GA"] != streams["M-GB"]:
+        fail("[moe] M-GB's streams differ from M-GA's")
+    # M-Gsolo: make_generate_moe on the 300-token prompt: the prompt
+    # routed as one group, then each step's one token
+    solo_ref, solo_fwd = reference_moe_batch(prepared, cfg, prompts[3:],
+                                             MOE_NEW, dev, ffn, chunk=None)
+    gen = make_generate_moe(cfg, max_new_tokens=MOE_NEW, device=dev)
+    gen(prepared, [prompts[3][:8]])
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = gen(prepared, [prompts[3]])[0].tolist()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if dev.type == "cuda":
+        for (name, n) in (("cached_attention", cfg.n_layer),
+                          ("decode_attention", cfg.n_layer * (MOE_NEW - 1))):
+            if counts[name]["f32"] != n:
+                fail(f"[moe] M-Gsolo: {name} launched {counts[name]['f32']} "
+                     f"times, expected {n}")
+    print(f"[moe] M-Gsolo make_generate_moe: {MOE_NEW} tokens after a "
+          f"{len(prompts[3])}-token prompt in {wall * 1e3:.1f} ms; "
+          + counted(dev, f"K5 {cfg.n_layer}, K6 "
+                    f"{cfg.n_layer * (MOE_NEW - 1)} exactly")
+          + f"; on {card}", flush=True)
+    print_drops("moe", "M-Gsolo reference", solo_fwd)
+    compare_tokens("[moe] M-Gsolo", out, *solo_ref[0])
+    add_into(total, counts)
+    # M-Gspec: the solo speculative decoder, gpt2-moe at a capacity that
+    # cannot drop (its verify chunks then route as the target alone
+    # would) drafted by gpt2
+    hi = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    d_cfg = d_cfg or tgpt.PRESETS["gpt2"]
+    d_prep = from_jax_params(tgpt.init(1, d_cfg), d_cfg, dev)
+    spec_ref, _ = reference_moe_batch(prepared, hi, prompts[3:], MOE_NEW,
+                                      dev, moe_cache_ffn(hi), chunk=None)
+    counts, _ = spec_solo(hi, prepared, d_cfg, d_prep, prompts[3],
+                          spec_ref[0], dev, card, tag="moe",
+                          label="M-Gspec")
+    add_into(total, counts)
+    return total
+
+
+def dense_moe_reference(moe, x, cfg, round_to=None):
+    """The routed FFN without parallel/moe.py: every expert's SwiGLU on
+    every token in f32 from the dequantized stacks (an int8 stack times
+    its per-(expert, channel) scale), the product rounded to `round_to`
+    before the down projection where given, each token's top-k experts by
+    torch.topk of the f32 router softmax, their weights renormalised
+    (Mixtral's rule; raw for router_norm_topk=False), no capacity (at
+    capacity_factor >= n_expert nothing drops). x (N, D) -> (N, D) f32."""
+    from dnn_tpu_torch.ops.nn import silu
+
+    def stack(name):
+        w = moe[name].float()
+        scale = moe.get(name + "_scale")
+        return w if scale is None else w * scale.float()
+
+    x = x.float()
+    probs = torch.softmax(x @ moe["router"]["kernel"].float(), dim=-1)
+    w, idx = torch.topk(probs, cfg.router_top_k, dim=-1)
+    if cfg.router_norm_topk:
+        w = w / w.sum(dim=-1, keepdim=True)
+    gate = torch.zeros_like(probs).scatter(1, idx, w)         # (N, E)
+    h = silu(torch.einsum("nd,edf->enf", x, stack("wg"))) \
+        * torch.einsum("nd,edf->enf", x, stack("wu"))
+    if round_to is not None:
+        h = h.to(round_to).float()
+    return torch.einsum("ne,end->nd", gate,
+                        torch.einsum("enf,efd->end", h, stack("wd")))
+
+
+def moe_ffn_check(tag, label, cfg, prepared, dev, gen):
+    """The served routed FFN (cfg.default_ffn -> parallel/moe.moe_ffn) at
+    layer 0 of `prepared`, on a prefill chunk (1 x 64 tokens) and a decode
+    step's rows (4 x 1) of unit-normal inputs, in f32 and in bf16 compute,
+    against dense_moe_reference within MOE_FFN_TOL of the output's scale
+    (under bf16 compute the reference rounds the SwiGLU product to bf16,
+    as the served path does)."""
+    from dnn_tpu_torch.models.gpt import for_compute, layer_params
+
+    said = []
+    for name, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+        bp = layer_params(for_compute(prepared, cdt)["blocks"], 0)
+        ffn = cfg.default_ffn(cdt)
+        for shape in ((1, 64), (4, 1)):
+            x = torch.randn(shape + (cfg.n_embd,), device=dev,
+                            generator=gen).to(cdt or torch.float32)
+            with torch.no_grad():
+                got = ffn(bp, x).float().reshape(-1, cfg.n_embd)
+                want = dense_moe_reference(bp["moe"],
+                                           x.reshape(-1, cfg.n_embd), cfg,
+                                           round_to=cdt)
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not err <= MOE_FFN_TOL[name] * scale:
+                fail(f"[{tag}] {label} routed FFN, {name} compute, {shape}: "
+                     f"max |served - dense reference| {err:.3e} above "
+                     f"{MOE_FFN_TOL[name]} x its scale {scale:.3e}")
+            said.append(f"{name} {shape[0]}x{shape[1]} {err / scale:.2e}")
+            del got, want
+    print(f"[{tag}] {label} routed FFN at layer 0 against the dense "
+          f"reference (every expert on every token, dequantized in f32), "
+          f"error / scale: {', '.join(said)}", flush=True)
+
+
+def mixtral_spec(cfg=None):
+    """mixtral-8x7b's registry spec, or the spec of `cfg` (a cut for the
+    CPU rehearsal) with its init_prepared bound to that config."""
+    from dnn_tpu_torch.models import llama_moe as tlm
+    from dnn_tpu_torch.registry import get_model
+
+    spec = get_model("mixtral-8x7b")
+    if cfg is None:
+        return spec
+    return dataclasses.replace(spec, config=cfg, extras={
+        **spec.extras, "init_prepared": lambda seed, device, **kw:
+            tlm.init_prepared(seed, cfg, device, **kw)})
+
+
+def moe_mixtral(dev, card, cfg=None):
+    """MX-Q8: mixtral-8x7b at full width and depth (32 layers x 4096, 8
+    experts top-2, d_ff 14336, GQA 32/8), seed-0 weights loaded as `node
+    --serve_lm --weights int8` loads them (engine.served_params: the
+    spec's init_prepared draws, quantizes -- expert stacks included --
+    and stacks them one block at a time on the card; or `cfg`), bf16
+    compute, the paged bf16 pool, two prompts past 300 tokens, 16 greedy
+    tokens each; held by teacher forcing (forced_check) against the plain
+    bf16-compute loop over the same int8 tree. Before serving, the routed
+    FFN at layer 0 against the dense reference (moe_ffn_check); after, as
+    information, the control of MX-F32 (the router's weights left
+    unnormalised) read against the same loop. Returns the run's bf16-q
+    launches."""
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.models.gpt import for_compute
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.quant import param_bytes
+    from dnn_tpu_torch.runtime.engine import served_params
+
+    bf16 = torch.bfloat16
+    spec = mixtral_spec(cfg)
+    cfg = spec.config
+    t0 = time.perf_counter()
+    qprep = served_params(
+        TopologyConfig.from_dict({"model": spec.name,
+                                  "device_type": dev.type}),
+        spec, 0, dev, weights="int8")
+    sync(dev)
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else float("nan"))
+    served = for_compute(qprep, bf16)
+    q_bytes = sum(t.numel() for t in _leaves(served) if t.dtype == torch.int8)
+    e_bytes = sum(served["blocks"]["moe"][k].numel()
+                  for k in ("wg", "wu", "wd"))
+    print(f"[moe] MX-Q8 ({cfg.n_layer} layers x {cfg.n_embd}, "
+          f"{cfg.n_expert} experts of {cfg.d_ff}): drawn, quantized and "
+          f"stacked block by block (engine.served_params, the daemon's "
+          f"loader) in {time.perf_counter() - t0:.1f} s: "
+          f"{param_bytes(served) / 1e9:.2f} GB served ({q_bytes / 1e9:.2f} "
+          f"GB of int8, {e_bytes / 1e9:.2f} GB of it the expert stacks); "
+          f"peak device memory {peak:.1f} GB; on {card}", flush=True)
+    moe_ffn_check("moe", "MX-Q8", cfg, qprep, dev,
+                  torch.Generator(device=dev).manual_seed(20))
+    prompts = moe_prompts(cfg.vocab_size, MX_PROMPTS, 21)
+    t0 = time.perf_counter()
+    rows = [[] for _ in prompts]
+    refs = [reference_greedy_cache(served, cfg, p, MOE_NEW, dev, "bf16",
+                                   chunk=64, compute_dtype=bf16, step_rows=4,
+                                   logits_out=r)
+            for p, r in zip(prompts, rows)]
+    print(f"[moe] MX-Q8 references (plain bf16-compute loops over the int8 "
+          f"tree and a bf16 cache, 64-token chunks) in "
+          f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
+          f"{min(min(g) for _, g in refs):.3e}", flush=True)
+    counts, _, _ = moe_serve(
+        "moe", "MX-Q8", cfg, qprep, prompts, MOE_NEW, refs,
+        [("cached_attention", "bf16"), ("paged_decode_attention", "bf16")],
+        dev, card, main_exact(cfg, prompts, dt="bf16"), tie=None,
+        kv="paged", compute_dtype=bf16, weights="int8")
+    forced = forced_check("moe", "MX-Q8", cfg, qprep, prompts, refs, rows,
+                          dev, kv="paged", compute_dtype=bf16)
+    routing_flips("moe", "MX-Q8", served, cfg, prompts[0], dev, bf16)
+    ratio = forced["served"] / max(forced["loop"], 1e-30)
+    said = (f"[moe] MX-Q8: teacher-forced logprob error {forced['served']:.3e}"
+            f", {ratio:.2f}x the whole-prompt loop's {forced['loop']:.3e}")
+    if ratio > MOE_FORCED_RATIO:
+        fail(f"{said}: above {MOE_FORCED_RATIO}x")
+    print(f"{said} (at most {MOE_FORCED_RATIO}x)", flush=True)
+    ctl = dataclasses.replace(cfg, router_norm_topk=False)
+    c_err = loop_forced_errors(served, ctl, prompts[:1], refs[:1], rows[:1],
+                               dev, "bf16", bf16)[0].max().item()
+    c_ratio = c_err / max(forced["loop"], 1e-30)
+    print(f"[moe] MX-Q8 control (information; MX-F32 holds it), the loop "
+          f"with the router's top-k weights unnormalised, prompt "
+          f"{len(prompts[0])}: teacher-forced error {c_err:.3e}, "
+          f"{c_ratio:.2f}x the whole-prompt loop's: "
+          + ("beyond" if c_ratio > MOE_FORCED_RATIO else "within")
+          + f" the {MOE_FORCED_RATIO}x gate", flush=True)
+    if dev.type != "cuda":
+        return counts
+    # step_profile steps three slots, then admits a fourth prompt
+    walls = step_profile("moe", "MX-Q8 paged bf16, int8 weights", cfg, qprep,
+                         prompts + prompts, dev, bit_check=True,
+                         steps=MOE_PROFILE_STEPS, kv="paged",
+                         compute_dtype=bf16)
+    moe_step_share("moe", "MX-Q8 decode step", cfg, served,
+                   cfg.default_ffn(bf16), 4, dev, walls["captured device"],
+                   compute_dtype=bf16)
+    print(f"[moe] MX-Q8 decode step: {walls['captured device']:.3f} ms device "
+          f"busy against the {q_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms byte "
+          f"bound of its {q_bytes / 1e9:.2f} GB of int8 weights; captured "
+          f"wall {walls['captured']:.3f} ms, eager {walls['eager']:.3f} ms; "
+          f"on {card}", flush=True)
+    return counts
+
+
+def moe_mixtral_f32(dev, card, cfg=None):
+    """MX-F32: the first MX_F32_LAYERS layers of MX-Q8's model (the same
+    seed: init_layer draws each block from its own stream, so these are
+    MX-Q8's int8 blocks; or of `cfg`) served in f32 compute over the
+    paged f32 pool, MX-Q8's prompts, 16 greedy tokens each: the streams
+    against the plain f32 loop within NEAR_TIE, launches exact; teacher
+    forcing (forced_check) within MOE_F32_FORCED nats of the loop; the
+    control, the loop with the router's top-k weights unnormalised, beyond
+    that bound and beyond MOE_CONTROL x the served path's error. Returns
+    the run's f32 launches."""
+    from dnn_tpu_torch.models import llama_moe as tlm
+
+    full = cfg or tlm.PRESETS["mixtral-8x7b"]
+    cfg = dataclasses.replace(full, n_layer=min(MX_F32_LAYERS, full.n_layer))
+    t0 = time.perf_counter()
+    prep = tlm.init_prepared(0, cfg, dev, weights="int8")
+    prompts = moe_prompts(cfg.vocab_size, MX_PROMPTS, 21)
+    rows = [[] for _ in prompts]
+    refs = [reference_greedy_cache(prep, cfg, p, MOE_NEW, dev, "f32",
+                                   chunk=64, step_rows=4, logits_out=r)
+            for p, r in zip(prompts, rows)]
+    print(f"[moe] MX-F32 ({cfg.n_layer} of MX-Q8's layers, int8 weights, f32 "
+          f"compute): drawn and the plain f32 loops run in "
+          f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
+          f"{min(min(g) for _, g in refs):.3e}", flush=True)
+    counts, _, _ = moe_serve(
+        "moe", "MX-F32", cfg, prep, prompts, MOE_NEW, refs,
+        [("cached_attention", "f32"), ("paged_decode_attention", "f32")],
+        dev, card, main_exact(cfg, prompts), kv="paged", weights="int8")
+    forced = forced_check("moe", "MX-F32", cfg, prep, prompts, refs, rows,
+                          dev, loop_kv="f32", kv="paged")
+    routing_flips("moe", "MX-F32", prep, cfg, prompts[0], dev, None, "f32")
+    ctl = dataclasses.replace(cfg, router_norm_topk=False)
+    c_err = max(e.max().item() for e in loop_forced_errors(
+        prep, ctl, prompts, refs, rows, dev, "f32"))
+    said = (f"[moe] MX-F32: teacher-forced logprob error {forced['served']:.3e}"
+            f" (whole-prompt loop {forced['loop']:.3e}); the control, the "
+            f"router's top-k weights unnormalised, {c_err:.3e}")
+    if not forced["served"] <= MOE_F32_FORCED:
+        fail(f"{said}: the served path above {MOE_F32_FORCED}")
+    if not (c_err > MOE_F32_FORCED
+            and c_err > MOE_CONTROL * forced["served"]):
+        fail(f"{said}: the control not beyond {MOE_F32_FORCED} and "
+             f"{MOE_CONTROL} x the served path's error")
+    print(f"{said}: the served path within {MOE_F32_FORCED}, the control "
+          f"beyond it and {c_err / max(forced['served'], 1e-30):.3g}x the "
+          f"served path's error (at least {MOE_CONTROL}x); on {card}",
+          flush=True)
+    return counts
+
+
+def moe_qwen(dev, card, name="qwen15-moe-a2.7b"):
+    """QM: qwen15-moe-a2.7b at full width and depth (24 layers x 2048, 60
+    experts top-4 with raw softmax weights, the shared expert, vocab
+    151936) in bf16 compute, served by `node --serve_lm` as a process
+    (its seed-0 weights drawn on the card in bf16, the paged bf16 pool):
+    the four prompts one after another, 16 greedy tokens each, launches
+    from the child's /metrics exactly; the child stopped, the parent
+    draws the same weights (llama_moe.init_prepared with dtype=bf16) and
+    holds each stream to the plain bf16-compute loop within BF16_TIE;
+    then the decode step captured against eager. Returns the run's
+    bf16-q launches."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.models import llama_moe as tlm
+    from dnn_tpu_torch.quant import param_bytes
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    bf16 = torch.bfloat16
+    cfg = tlm.PRESETS[name]
+    prompts = moe_prompts(cfg.vocab_size, MOE_PROMPTS, 22)
+    t0 = time.perf_counter()
+    proc, addr, base, _ = node_child(name, dev, "--kv", "paged",
+                                     dtype="bfloat16")
+    streams, launches = [], {}
+    try:
+        client = NodeClient(addr)
+        t_end = time.monotonic() + 400
+        while not client.health_check(timeout=1.0):
+            if proc.poll() is not None or time.monotonic() > t_end:
+                fail(f"[moe] QM: the node never became healthy (rc "
+                     f"{proc.poll()}):\n{child_log(proc)}")
+            time.sleep(0.5)
+        ready = time.perf_counter() - t0
+        client.generate(prompts[0], max_new_tokens=2, timeout=600)
+        c0 = child_launches(base)
+        t1 = time.perf_counter()
+        for p in prompts:
+            streams.append(client.generate(p, max_new_tokens=MOE_NEW,
+                                           timeout=600).tolist())
+        wall = time.perf_counter() - t1
+        c1 = child_launches(base)
+        client.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    chunks = sum(-(-len(p) // 64) for p in prompts)
+    want = {("cached_attention", "bf16"): cfg.n_layer * chunks,
+            ("paged_decode_attention", "bf16"):
+                cfg.n_layer * len(prompts) * (MOE_NEW - 1)}
+    got = {k: int(c1.get(k, 0) - c0.get(k, 0)) for k in want}
+    if dev.type == "cuda" and got != want:
+        fail(f"[moe] QM: the node's launches {got}, expected {want}")
+    for (kern, dt), n in got.items():
+        launches.setdefault(kern, {})[dt] = n
+    print(f"[moe] QM node --serve_lm ({name}, bf16): healthy after "
+          f"{ready:.1f} s; 4 requests one after another, "
+          f"{sum(map(len, streams))} tokens in {wall:.3f} s; "
+          + counted(dev, f"launches {got} exactly (its /metrics)")
+          + f"; on {card}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prep = tlm.init_prepared(0, cfg, dev, compute_dtype=bf16, dtype=bf16)
+    print(f"[moe] QM weights drawn again in the parent (bf16) in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{param_bytes(prep) / 1e9:.2f} GB; on {card}", flush=True)
+    # the library's batcher in this process, the daemon's settings, the
+    # requests one after another: the node's streams bit for bit
+    lib = ContinuousBatcher(cfg, prep, slots=4, max_len=1024, prompt_pad=64,
+                            block_len=16, seed=0, device=dev, kv="paged",
+                            compute_dtype=bf16)
+    for i, p in enumerate(prompts):
+        rid = lib.submit(p, MOE_NEW)
+        got = [int(t) for t in lib.drain()[rid]]
+        if got != streams[i]:
+            fail(f"[moe] QM request {i}: the node served {streams[i]}, the "
+                 f"library's batcher {got}")
+    del lib
+    print(f"[moe] QM: the node's four streams equal the library batcher's "
+          f"on the same weights token for token", flush=True)
+    t0 = time.perf_counter()
+    refs = [reference_greedy_cache(prep, cfg, p, MOE_NEW, dev, "bf16",
+                                   chunk=64, compute_dtype=bf16, step_rows=4)
+            for p in prompts]
+    print(f"[moe] QM references (plain bf16-compute loops, 64-token chunks) "
+          f"in {time.perf_counter() - t0:.1f} s; smallest top-2 gap "
+          f"{min(min(g) for _, g in refs):.3e}", flush=True)
+    for i, p in enumerate(prompts):
+        compare_tokens(f"[moe] QM request {i} (prompt {len(p)})", streams[i],
+                       *refs[i], tie=BF16_TIE)
+    routing_flips("moe", "QM", prep, cfg, prompts[3], dev, bf16)
+    out = {k: {dt: launches.get(k, {}).get(dt, 0)
+               for dt in ("f32", "bf16", "int8")} for k in CACHE_KERNELS}
+    if dev.type != "cuda":
+        return out
+    walls = step_profile("moe", "QM paged bf16", cfg, prep, prompts, dev,
+                         bit_check=True, steps=MOE_PROFILE_STEPS, kv="paged",
+                         compute_dtype=bf16)
+    moe_step_share("moe", "QM decode step", cfg, prep,
+                   cfg.default_ffn(bf16), 4, dev, walls["captured device"],
+                   compute_dtype=bf16)
+    return out
+
+
+def phase_moe_kernels(dev, gen):
+    """[moe] K5 and K7 at qwen15-moe-a2.7b's MHA shapes (16 heads, no
+    grouping, D = 128), bf16 q over a bf16 cache, against their plain
+    versions within BF16_TOL of the output's scale: K5 at a prefill
+    chunk (B=1 H=Hk=16 T=64 S=1024, base 960), K7 at a decode step (B=4
+    Hk=16 R=1, blocks of 16, 64 a slot, 257 pool blocks, pos {0, 15, 16,
+    1023}). Library time: SDPA on the bf16 q/k/v with the same mask (K5;
+    none for paged). Bounds: k5_bound's; K7's bytes and f32 FMAs at 67
+    TFLOP/s. Returns {"K5": row, "K7": row}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        cached_attention, paged_decode_attention, reference_cached_attention,
+        reference_paged_decode_attention)
+
+    bf16 = torch.bfloat16
+    H, D, out = 16, 128, {}
+    B, T, S, base = 1, 64, 1024, 960
+    pos = torch.full((B,), base, dtype=torch.int32, device=dev)
+    q = torch.randn(LAYERS, B, H, T, D, generator=gen, device=dev).to(bf16)
+    k, v, _, _ = kv_cache(gen, (LAYERS, B, H, S, D), "bf16", dev)
+    err = check_scaled("[moe] K5 qwen bf16", cached_attention(q[0], k[0], v[0],
+                                                              pos),
+                       reference_cached_attention(q[0], k[0], v[0], pos),
+                       BF16_TOL)
+    cols = torch.arange(S, device=dev)
+    mask = cols[None, :] <= (base + torch.arange(T, device=dev))[:, None]
+    nbytes, _, ops, (b_ms, b_by, byte_ms, op_ms) = k5_bound(
+        "bf16", B, H, H, T, S, base, D, q_bytes=2)
+    out["K5"] = dict(
+        ms=time_ms(cycling(lambda i: cached_attention(q[i], k[i], v[i], pos),
+                           LAYERS)),
+        plain_ms=time_ms(cycling(lambda i: reference_cached_attention(
+            q[i], k[i], v[i], pos), LAYERS)),
+        library_ms=time_ms(cycling(lambda i: torch.nn.functional.
+                                   scaled_dot_product_attention(
+                                       q[i], k[i], v[i], attn_mask=mask),
+                                   LAYERS)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    report("moe", "K5 qwen15-moe B=1 H=Hk=16 T=64 S=1024 D=128 base 960, "
+           "bf16 q, bf16 cache", out["K5"], nbytes, byte_ms, op_ms, ops)
+    B, bp, nb_max, n_blocks = 4, 16, 64, 257
+    pos_list = [0, 15, 16, 1023]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_blocks - 1,
+                          generator=torch.Generator().manual_seed(0))
+    tables = (perm[:B * nb_max] + 1).reshape(B, nb_max).to(torch.int32).to(dev)
+    q = torch.randn(LAYERS, B, H, 1, D, generator=gen, device=dev).to(bf16)
+    kp, vp, _, _ = kv_cache(gen, (LAYERS, n_blocks, H, bp, D), "bf16", dev)
+    err = check_scaled("[moe] K7 qwen bf16",
+                       paged_decode_attention(q[0], kp[0], vp[0], tables,
+                                              pos),
+                       reference_paged_decode_attention(q[0], kp[0], vp[0],
+                                                        tables, pos),
+                       BF16_TOL)
+    live = sum(p + 1 for p in pos_list)
+    nbytes = (2 * B * H * D * 2 + H * kv_bytes("bf16", live, D)
+              + sum(p // bp + 1 for p in pos_list) * 4 + B * 4)
+    b_ms, b_by, byte_ms, op_ms = bound(nbytes, 4 * D * H * live)
+    out["K7"] = dict(
+        ms=time_ms(cycling(lambda i: paged_decode_attention(
+            q[i], kp[i], vp[i], tables, pos), LAYERS)),
+        plain_ms=time_ms(cycling(lambda i: reference_paged_decode_attention(
+            q[i], kp[i], vp[i], tables, pos), LAYERS)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    report("moe", f"K7 qwen15-moe B=4 Hk=16 R=1 D=128 pos {pos_list}, bf16 q, "
+           "bf16 cache (no one-call library equivalent)", out["K7"], nbytes,
+           byte_ms, op_ms)
+    return out
+
+
+def phase_moe(dev, card):
+    """[moe] (slice 20): the MoE families through the LM daemon's path,
+    each leg's launch counts zeroed just before it and read just after,
+    exact; every leg's decode step one replay bit-equal to its eager step
+    (step_profile); the leg's captured step wall and device busy, the
+    routed FFN's share, its weight bytes. Returns (the f32 launches of
+    the gpt2-moe legs and MX-F32, the bf16-q launches of MX-Q8 and QM,
+    QM's)."""
+    t0 = time.perf_counter()
+    f32 = timed("moe gpt2-moe", moe_gpt_legs, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = timed("moe mixtral", moe_mixtral, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_into(f32, timed("moe mixtral f32", moe_mixtral_f32, dev, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    qm = timed("moe qwen", moe_qwen, dev, card)
+    add_into(bf16, qm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe] phase wall {time.perf_counter() - t0:.1f} s; on {card}",
+          flush=True)
+    return f32, bf16, qm
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -7852,6 +8754,12 @@ def main():
             for name in CACHE_KERNELS:
                 for dt, n in by_q[name].items():
                     into[name][dt] += n
+    # the MoE families (slice 20): K5/K7 at qwen15-moe's shapes, then
+    # gpt2-moe (f32), mixtral-8x7b (int8 weights) and qwen15-moe (bf16)
+    moe_rows = timed("moe kernels", phase_moe_kernels, dev, gen)
+    moe_f32, moe_bf16, qm_counts = timed("moe", phase_moe, dev, smi)
+    add_into(launches, moe_f32)
+    add_into(bf16_launches, moe_bf16)
 
     def llama_extra(kernel, rows, counts=llama_counts, **shape):
         """A kernel's [llama] rows, each with the llama runs' launches."""
@@ -7955,6 +8863,18 @@ def main():
         "by_dtype": {dt: {"launches": item_4d["flash_attention"][dt], **row}
                      for dt, row in beam_embed_rows["K1 embed"].items()}}
     kernels += window_records(win_rows, win_variants)
+    # qwen15-moe-a2.7b's MHA shapes (D = 128, no grouping), bf16 q over a
+    # bf16 cache: the launches those of QM's node
+    for name, key, shape in (
+            ("cached_attention (bf16 q)", "K5",
+             {"B": 1, "H": 16, "Hk": 16, "T": 64, "S": 1024, "D": 128,
+              "base": 960}),
+            ("paged_decode_attention (bf16 q)", "K7",
+             {"B": 4, "Hk": 16, "R": 1, "D": 128, "bp": 16, "nb_max": 64})):
+        kern = name.split(" ")[0]
+        next(k for k in kernels if k["name"] == name)["qwen_moe_shape"] = {
+            **shape, "by_dtype": {"bf16": {
+                "launches": qm_counts[kern]["bf16"], **moe_rows[key]}}}
     print(f"[wall] chip_smoke {time.perf_counter() - T_START:.1f} s", flush=True)
     print(f"{smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,11 @@ any device, and returns the port's prepared tensors, so both packages
 run the very same weights. `load_npz` reads the same tree from a flat
 .npz whose keys are the "/"-joined paths ("h_0/attn/qkv/kernel").
 `to_jax_params` is the inverse of `from_jax_params`: trained weights go
-back to the JAX package, and tests compare trees leaf by leaf.
+back to the JAX package, and tests compare trees leaf by leaf. The MoE
+families' blocks carry a "moe" subtree ({"router", the expert stacks
+wi/bi/wo/bo or wg/wu/wd, their int8 `*_scale` leaves, Qwen2-MoE's
+"shared" and "shared_gate"}), which crosses both ways like any other
+(stacked to (L, E, ...) leaves), its expert shapes checked.
 
 Weight-quantized trees (quant.py: {"q", "scale", "bias"?} linears) cross
 too: int8 q leaves as they are, JAX's int4 q leaves (ml_dtypes int4
@@ -60,6 +64,25 @@ def _check_llama(tree, cfg):
             raise ValueError(f"{name} kernel is {got}, expected {shape}")
 
 
+def _check_moe(tree, cfg):
+    """An MoE tree's expert shapes (block 0): the router (C, E) and the
+    first expert stack, (E, C, F) -- Mixtral's gated wg at d_ff, or
+    GPT-MoE's wi at its ff_dim."""
+    moe = tree["h_0"].get("moe")
+    if moe is None:
+        raise ValueError("an MoE config's blocks carry a 'moe' subtree")
+    c = cfg.n_embd
+    if hasattr(cfg, "n_expert"):
+        e, stack, f = cfg.n_expert, "wg", cfg.d_ff
+    else:
+        e, stack, f = cfg.n_experts, "wi", cfg.ff_dim
+    want = {"h_0.moe.router": ((c, e), _kernel_shape(moe["router"])),
+            f"h_0.moe.{stack}": ((e, c, f), _shape(moe[stack]))}
+    for name, (shape, got) in want.items():
+        if got != shape:
+            raise ValueError(f"{name} is {got}, expected {shape}")
+
+
 def from_jax_params(tree, cfg, device, compute_dtype=None):
     """JAX-layout param tree (numpy or tensor leaves) of a GPTConfig or a
     LlamaConfig -> prepared tensors on `device` (gpt.prepare_stacked).
@@ -79,6 +102,8 @@ def from_jax_params(tree, cfg, device, compute_dtype=None):
         got = _kernel_shape(tree["lm_head"])
         if got != want:
             raise ValueError(f"lm_head kernel is {got}, expected {want}")
+    if hasattr(cfg, "n_expert") or hasattr(cfg, "n_experts"):
+        _check_moe(tree, cfg)
     return prepare_stacked(tree, cfg, device, compute_dtype)
 
 

@@ -12,10 +12,10 @@ Readers return a flat {name: numpy array} state dict:
 numpy has no bfloat16: a bf16 tensor comes back widened to float32,
 which is exact.
 
-The converters (cifar, GPT-2, and the LLaMA and Phi families' HF
-layouts) turn torch layouts (NCHW/OIHW convolutions, (out, in) linears,
-HF Conv1D) into the JAX package's tree (HWIO convolutions,
-(in, out) kernels). `params_to_flat`/`flat_to_params` are the native
+The converters (cifar, GPT-2, the LLaMA and Phi families' HF layouts,
+and the MoE families' HF Mixtral and Qwen2-MoE layouts) turn torch
+layouts (NCHW/OIHW convolutions, (out, in) linears, HF Conv1D) into the
+JAX package's tree (HWIO convolutions, (in, out) kernels). `params_to_flat`/`flat_to_params` are the native
 flat layout ("/"-joined keys), which `save_npz` writes.
 """
 
@@ -307,6 +307,53 @@ def llama_params_from_state_dict(sd: Dict[str, np.ndarray],
         params["lm_head"] = {"kernel": _t_linear(sd["lm_head.weight"])}
     else:
         params["lm_head"] = {"kernel": _t_linear(sd["embed_tokens.weight"])}
+    return params
+
+
+def moe_params_from_state_dict(sd: Dict[str, np.ndarray],
+                               n_layer: Optional[int] = None):
+    """An HF MixtralForCausalLM or Qwen2MoeForCausalLM state dict -> the
+    llama_moe tree (JAX's llama_moe.params_from_state_dict :580, the
+    layout told by the keys): attention, norms and embeddings as
+    llama_params_from_state_dict maps them, and each block's "mlp" in
+    place of a "moe": the router's (E, D) weight as a (D, E) kernel, the
+    experts' SwiGLU triples stacked expert-major into wg/wu/wd (E, D,
+    F)/(E, F, D) (Mixtral: block_sparse_moe.gate and experts.i.{w1, w3,
+    w2}; Qwen2-MoE: mlp.gate and mlp.experts.i.{gate, up, down}_proj,
+    with mlp.shared_expert.* and the sigmoid shared_expert_gate)."""
+    sd, n_layer = _hf_layers(sd, n_layer)
+    qwen = any(".mlp.experts." in k for k in sd)
+    moe_at, names = (("mlp.", ("gate_proj", "up_proj", "down_proj"))
+                     if qwen else ("block_sparse_moe.", ("w1", "w3", "w2")))
+    # the dense converter requires mlp.* keys: alias them to expert 0,
+    # then replace each block's "mlp" with its experts
+    base = {k: v for k, v in sd.items()
+            if f".{moe_at}" not in k}
+    for i in range(n_layer):
+        e0 = f"layers.{i}.{moe_at}experts.0."
+        for dense, hf in zip(("gate_proj", "up_proj", "down_proj"), names):
+            base[f"layers.{i}.mlp.{dense}.weight"] = sd[e0 + hf + ".weight"]
+    params = llama_params_from_state_dict(base, n_layer=n_layer)
+    for i in range(n_layer):
+        p = f"layers.{i}.{moe_at}"
+        n_expert = 1 + max(int(k[len(p + "experts."):].split(".")[0])
+                           for k in sd if k.startswith(p + "experts."))
+        moe = {"router": {"kernel": _t_linear(sd[p + "gate.weight"])}}
+        for leaf, hf in zip(("wg", "wu", "wd"), names):
+            moe[leaf] = np.stack([
+                _t_linear(sd[f"{p}experts.{e}.{hf}.weight"])
+                for e in range(n_expert)])
+        if qwen:
+            moe["shared"] = {
+                n: {"kernel": _t_linear(
+                    sd[f"{p}shared_expert.{n}_proj.weight"])}
+                for n in ("gate", "up", "down")}
+            moe["shared_gate"] = {
+                "kernel": _t_linear(sd[p + "shared_expert_gate.weight"])}
+        blk = dict(params[f"h_{i}"])
+        del blk["mlp"]
+        blk["moe"] = moe
+        params[f"h_{i}"] = blk
     return params
 
 

@@ -55,23 +55,36 @@ PRESETS = {
 }
 
 
-def init(seed: int, cfg: GPTConfig = PRESETS["gpt2"]):
-    """Random GPT-2 weights drawn with numpy from `seed`: the shapes and
-    standard deviations of dnn_tpu.models.gpt.init (0.02 normal, 0.01
-    for wpe, residual projections scaled by 1/sqrt(2 n_layer), unit
-    LayerNorm scales, zero biases, lm_head tied to wte.T). The draws
-    differ from jax.random's; tests share weights through
-    convert.from_jax_params instead. Returns the JAX-layout tree of
-    float32 numpy arrays."""
-    rng = np.random.default_rng(seed)
+def init(seed: int, cfg: GPTConfig = PRESETS["gpt2"], *, device=None):
+    """Random GPT-2 weights from `seed`: the shapes and standard
+    deviations of dnn_tpu.models.gpt.init (0.02 normal, 0.01 for wpe,
+    residual projections scaled by 1/sqrt(2 n_layer), unit LayerNorm
+    scales, zero biases, lm_head tied to wte.T). The draws differ from
+    jax.random's; tests share weights through convert.from_jax_params
+    instead. Returns the JAX-layout tree of float32 numpy arrays drawn
+    with numpy, or, with `device`, of tensors drawn there from a seeded
+    torch.Generator (gpt2-xl's 1.6 G draws take seconds on the host)."""
     c = cfg.n_embd
+    if device is None:
+        rng = np.random.default_rng(seed)
 
-    def normal(shape, std=0.02):
-        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+        def normal(shape, std=0.02):
+            return (rng.standard_normal(shape, dtype=np.float32)
+                    * np.float32(std))
+
+        def full(n, value):
+            return np.full((n,), value, np.float32)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def normal(shape, std=0.02):
+            return torch.randn(shape, generator=gen, device=device) * std
+
+        def full(n, value):
+            return torch.full((n,), float(value), device=device)
 
     def ln():
-        return {"scale": np.ones((c,), np.float32),
-                "bias": np.zeros((c,), np.float32)}
+        return {"scale": full(c, 1.0), "bias": full(c, 0.0)}
 
     proj_std = 0.02 / (2 * cfg.n_layer) ** 0.5
     params = {
@@ -84,20 +97,21 @@ def init(seed: int, cfg: GPTConfig = PRESETS["gpt2"]):
             "ln_1": ln(),
             "attn": {
                 "qkv": {"kernel": normal((c, 3 * c)),
-                        "bias": np.zeros((3 * c,), np.float32)},
+                        "bias": full(3 * c, 0.0)},
                 "proj": {"kernel": normal((c, c), proj_std),
-                         "bias": np.zeros((c,), np.float32)},
+                         "bias": full(c, 0.0)},
             },
             "ln_2": ln(),
             "mlp": {
                 "fc": {"kernel": normal((c, 4 * c)),
-                       "bias": np.zeros((4 * c,), np.float32)},
+                       "bias": full(4 * c, 0.0)},
                 "proj": {"kernel": normal((4 * c, c), proj_std),
-                         "bias": np.zeros((c,), np.float32)},
+                         "bias": full(c, 0.0)},
             },
         }
-    params["lm_head"] = {
-        "kernel": np.ascontiguousarray(params["wte"]["embedding"].T)}
+    wte = params["wte"]["embedding"]
+    params["lm_head"] = {"kernel": np.ascontiguousarray(wte.T)
+                         if device is None else wte.T.contiguous()}
     return params
 
 
@@ -123,20 +137,20 @@ def _to_tensor(a, device):
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 
 
-def _host_stack(leaves):
-    """Per-layer numpy leaves stacked on the host: floats as float32,
-    integer and int4 leaves in their own type (so `_to_tensor` packs an
-    int4 stack)."""
-    if getattr(leaves[0].dtype, "name", "") == "int4" or np.issubdtype(
-            np.asarray(leaves[0]).dtype, np.integer):
-        return np.stack([np.asarray(a) for a in leaves])
-    return np.stack([np.asarray(a, np.float32) for a in leaves])
-
-
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def cast_floats(tree, dtype):
+    """A tree's leaves cast to the torch `dtype` (numpy leaves become CPU
+    tensors); `dtype=None` returns the tree as it is (a random init's
+    `dtype`, JAX's)."""
+    if dtype is None:
+        return tree
+    return _map(lambda a: (a if isinstance(a, torch.Tensor)
+                           else torch.from_numpy(a)).to(dtype), tree)
 
 
 def tensors(params, device):
@@ -150,40 +164,69 @@ def prepare_stacked(params, cfg, device, compute_dtype=None):
     along a leading (L,) axis, all leaves float32 tensors on `device`.
     Leaves are numpy arrays, or tensors (stacked where they lie, so a
     tree drawn on the card never visits the host). Any config with
-    n_layer and "h_i" blocks: the GPT and LLaMA families share it.
+    n_layer and "h_i" blocks: the GPT, LLaMA and MoE families share it.
     With `compute_dtype` (bf16 compute) the matmul weights are held in
-    it (`for_compute`), each block leaf cast as soon as it is stacked,
-    so no f32 copy of the whole stack coexists with the tree."""
-    blocks = [params[f"h_{i}"] for i in range(cfg.n_layer)]
+    it (`for_compute`), each block leaf cast as it is copied into its
+    stack, so no f32 copy of a stack coexists with the tree."""
+    top = {k: v for k, v in params.items() if not k.startswith("h_")}
+    return prepare_streamed(top, lambda i: params[f"h_{i}"], cfg.n_layer,
+                            device, compute_dtype)
 
-    def stack(*path):
-        leaves = []
-        for b in blocks:
-            node = b
-            for key in path:
-                node = node[key]
-            leaves.append(node)
-        if isinstance(leaves[0], torch.Tensor):
-            out = _to_tensor(torch.stack(leaves), device)
-        else:
-            out = _to_tensor(_host_stack(leaves), device)
-        return out.to(compute_dtype) if _matmul_leaf(path, blocks[0]) \
-            and compute_dtype is not None else out
 
-    def stack_tree(node, path=()):
-        if isinstance(node, dict):
-            return {k: stack_tree(v, path + (k,)) for k, v in node.items()}
-        return stack(*path)
+def prepare_streamed(top, block, n_layer: int, device, compute_dtype=None):
+    """prepare_stacked over blocks handed out one at a time: `block(i)`
+    returns layer i's tree (numpy or tensor leaves), which is copied
+    into the (L, ...) stacks, allocated from layer 0's leaves in their
+    served type, and then dropped. So a model larger than the card's
+    memory twice over (Mixtral-8x7B's int8 experts) can be drawn,
+    quantized and stacked block by block: only the stacks and one
+    block are alive at a time. `top` holds the non-block leaves."""
+    first = block(0)
+    stacks = {}
 
-    out = {k: _map(lambda a: _to_tensor(a, device), v)
-           for k, v in params.items() if not k.startswith("h_")}
-    out["blocks"] = stack_tree(blocks[0])
+    def alloc(node, out, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                alloc(v, out.setdefault(k, {}), path + (k,))
+                continue
+            t = _to_tensor(v, device)
+            if _matmul_leaf(path + (k,), first) and compute_dtype is not None \
+                    and t.is_floating_point():
+                t = t.to(compute_dtype)
+            out[k] = torch.empty((n_layer,) + tuple(t.shape), dtype=t.dtype,
+                                 device=device)
+            out[k][0].copy_(t)
+
+    def fill(node, out, i):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                fill(v, out[k], i)
+            else:
+                out[k][i].copy_(_to_tensor(v, device))
+
+    alloc(first, stacks, ())
+    del first
+    for i in range(1, n_layer):
+        fill(block(i), stacks, i)
+    out = {k: _map(lambda a: _to_tensor(a, device), v) for k, v in top.items()}
+    out["blocks"] = stacks
     return for_compute(out, compute_dtype)
+
+
+# the expert stacks of an MoE block (parallel/moe.py): matmul weights
+# held in the compute type, beside the router and the expert biases,
+# which stay f32 (JAX routes in f32 and adds the biases in f32)
+_EXPERT_STACKS = ("wi", "wo", "wg", "wu", "wd")
 
 
 def _matmul_leaf(path, block) -> bool:
     """Whether the block leaf at `path` is a linear's kernel or bias
-    (its parent holds a "kernel"), not a norm's scale or bias."""
+    (its parent holds a "kernel"; a MoE router's is not one), or an MoE
+    expert stack; not a norm's scale or bias."""
+    if path[-1] in _EXPERT_STACKS and "moe" in path:
+        return True
+    if "router" in path:
+        return False
     parent = block
     for key in path[:-1]:
         parent = parent[key]
@@ -192,11 +235,13 @@ def _matmul_leaf(path, block) -> bool:
 
 def for_compute(prepared, compute_dtype):
     """The served form under bf16 compute: every block linear's kernel
-    and bias and the lm_head's kernel held in `compute_dtype`, cast here
-    once -- the operands JAX's `linear(compute_dtype=)` casts to on every
-    call -- so a served step launches no cast of a weight. Embeddings and
-    norm scales stay f32 (JAX's norms compute in f32 and its embedding
-    is cast after the lookup); the lm_head's bias stays f32 (the head
+    and bias, every float MoE expert stack, and the lm_head's kernel
+    held in `compute_dtype`, cast here once -- the operands JAX's
+    `linear(compute_dtype=)` and expert FFN cast to on every call -- so
+    a served step launches no cast of a weight. Embeddings, norm scales,
+    MoE routers and expert biases stay f32 (JAX's norms and routing
+    compute in f32, its embedding is cast after the lookup and its
+    expert biases add in f32); the lm_head's bias stays f32 (the head
     adds it to f32 logits). A tied head (no "lm_head" leaf: the LLaMA
     family's tied configs read wte's transpose) gets an "lm_head" of its
     own, wte.T in `compute_dtype`. Leaves already of the type are not
@@ -208,7 +253,10 @@ def for_compute(prepared, compute_dtype):
         if not isinstance(node, dict):
             return node
         if "kernel" not in node:
-            return {k: cast(v, bias) for k, v in node.items()}
+            return {k: v if k == "router" else
+                    v.to(compute_dtype) if k in _EXPERT_STACKS
+                    and not isinstance(v, dict) and v.is_floating_point()
+                    else cast(v, bias) for k, v in node.items()}
         return {k: v.to(compute_dtype)
                 if k == "kernel" or (k == "bias" and bias) else v
                 for k, v in node.items()}

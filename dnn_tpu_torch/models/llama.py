@@ -34,9 +34,14 @@ and K6, its final softcap caps the head's logits. The solo decoder of a
 uniformly windowed config whose stream outgrows the window decodes on a
 rolling ring (runtime/generate.py, `_ring_from_prompt`).
 
-Not ported, and raising NotImplementedError when a model that needs it
-is built or served: an `ffn` override, the MoE families' hook (ROADMAP
-PyTorch/CUDA port item 7, = Queue 1 item 9).
+The block's MLP may be overridden by an `ffn(bp, h)` hook (JAX's
+_mlp_out :565): the MoE subclass (models/llama_moe.MixtralConfig)
+resolves its routed experts through `default_ffn`, which every entry
+point here consults when no `ffn` is passed -- the stateless forwards,
+the cached forward, the batcher's family hooks (prefill chunks, decode
+rows, verify rows) and the pipeline stages -- so the solo decoder, the
+speculative decoder, beam search and the embedding endpoint route
+through the experts without MoE-specific wiring.
 """
 
 from __future__ import annotations
@@ -128,8 +133,9 @@ class LlamaConfig:
         return self.n_embd // self.n_head
 
     def default_ffn(self, compute_dtype=None):
-        """The config's MLP override (JAX: the MoE subclasses' hook);
-        None, the dense MLP, for every config here."""
+        """The config's MLP override, which every entry point picks up
+        when no `ffn` is passed (JAX :181): None, the dense MLP, here;
+        the MoE subclass returns its routed experts."""
         return None
 
 
@@ -241,22 +247,97 @@ def layer_windows(cfg: LlamaConfig):
             for i in range(cfg.n_layer)]
 
 
-def check_ported(cfg: LlamaConfig, ffn=None):
-    """Raise NotImplementedError, naming the ROADMAP item, for a switch
-    this port does not run: an MoE `ffn`. Every entry point calls it when
-    it builds or serves a model."""
-    if ffn is not None or cfg.default_ffn() is not None:
-        raise NotImplementedError(
-            "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
-            "(ROADMAP PyTorch/CUDA port item 7, the MoE families)")
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
+class Draws:
+    """Random leaves from one seeded stream: float32 numpy arrays drawn
+    with numpy, or, with `device`, tensors drawn there from a seeded
+    torch.Generator (`rng`: the numpy Generator or the torch.Generator,
+    for a caller's own draws from the same stream)."""
+
+    def __init__(self, seed, device=None):
+        self.device = device
+        if device is None:
+            self.rng = np.random.default_rng(seed)
+        else:
+            self.rng = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(self, shape, std=0.02):
+        if self.device is None:
+            return (self.rng.standard_normal(shape, dtype=np.float32)
+                    * np.float32(std))
+        return torch.randn(shape, generator=self.rng,
+                           device=self.device) * std
+
+    def full(self, n, value):
+        if self.device is None:
+            return np.full((n,), value, np.float32)
+        return torch.full((n,), float(value), device=self.device)
+
+    def proj(self, shape, std=0.02, bias=False):
+        p = {"kernel": self.normal(shape, std)}
+        if bias:
+            p["bias"] = self.full(shape[-1], 0.0)
+        return p
+
+    def norm(self, cfg: "LlamaConfig", n):
+        p = {"scale": self.full(n, 0.0 if cfg.norm_plus_one else 1.0)}
+        if cfg.layer_norm:
+            p["bias"] = self.full(n, 0.0)
+        return p
+
+
+def init_top(draw: Draws, cfg: LlamaConfig):
+    """The tree's non-block leaves: wte, ln_f and (untied) lm_head."""
+    params = {"wte": {"embedding": draw.normal((cfg.vocab_size,
+                                                 cfg.n_embd))},
+              "ln_f": draw.norm(cfg, cfg.n_embd)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = draw.proj((cfg.n_embd, cfg.vocab_size),
+                                      bias=cfg.dense_bias)
+    return params
+
+
+def init_block(draw: Draws, cfg: LlamaConfig, include_mlp: bool = True):
+    """One block's leaves (JAX's _init_block): attention, norms and,
+    with `include_mlp`, the dense MLP."""
+    c, d = cfg.n_embd, cfg.head_dim
+    out_std = 0.02 / (2 * cfg.n_layer) ** 0.5
+    attn = {
+        "q": draw.proj((c, cfg.n_head * d), bias=cfg.attn_bias),
+        "k": draw.proj((c, cfg.n_kv_head * d), bias=cfg.attn_bias),
+        "v": draw.proj((c, cfg.n_kv_head * d), bias=cfg.attn_bias),
+        "o": draw.proj((cfg.n_head * d, c), out_std, bias=cfg.dense_bias),
+    }
+    if cfg.qk_norm:
+        per_head = cfg.qk_norm_width == "head"
+        attn["q_norm"] = {"scale": draw.full(
+            d if per_head else cfg.n_head * d, 1.0)}
+        attn["k_norm"] = {"scale": draw.full(
+            d if per_head else cfg.n_kv_head * d, 1.0)}
+    blk = {"ln_1": draw.norm(cfg, c), "attn": attn}
+    if not cfg.parallel_block:
+        blk["ln_2"] = draw.norm(cfg, c)
+    if not cfg.pre_norm:
+        del blk["ln_1"], blk["ln_2"]
+    if include_mlp and cfg.mlp_gated:
+        blk["mlp"] = {"gate": draw.proj((c, cfg.d_ff)),
+                      "up": draw.proj((c, cfg.d_ff)),
+                      "down": draw.proj((cfg.d_ff, c), out_std)}
+    elif include_mlp:
+        blk["mlp"] = {"up": draw.proj((c, cfg.d_ff), bias=cfg.dense_bias),
+                      "down": draw.proj((cfg.d_ff, c), out_std,
+                                        bias=cfg.dense_bias)}
+    if cfg.post_norms:
+        blk["post_ln_1"] = draw.norm(cfg, c)
+        blk["post_ln_2"] = draw.norm(cfg, c)
+    return blk
+
+
 def init(seed: int, cfg: LlamaConfig = PRESETS["llama-test"], *,
-         device=None):
+         device=None, include_mlp: bool = True):
     """Random weights from `seed`: the tree, shapes and standard
     deviations of dnn_tpu.models.llama.init (0.02 normal, o and down
     scaled by 1/sqrt(2 n_layer), norms at one, or zero under
@@ -264,75 +345,13 @@ def init(seed: int, cfg: LlamaConfig = PRESETS["llama-test"], *,
     tests share weights through convert.from_jax_params. Returns the
     JAX-layout tree of float32 numpy arrays drawn with numpy or, with
     `device`, of tensors drawn there from a seeded torch.Generator (a
-    full-size model never visits the host)."""
-    c, d = cfg.n_embd, cfg.head_dim
-    out_std = 0.02 / (2 * cfg.n_layer) ** 0.5
-    if device is None:
-        rng = np.random.default_rng(seed)
-
-        def normal(shape, std=0.02):
-            return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
-
-        def full(n, value):
-            return np.full((n,), value, np.float32)
-    else:
-        gen = torch.Generator(device=device).manual_seed(seed)
-
-        def normal(shape, std=0.02):
-            return torch.randn(shape, generator=gen, device=device) * std
-
-        def full(n, value):
-            return torch.full((n,), float(value), device=device)
-
-    def zeros(n):
-        return full(n, 0.0)
-
-    def norm_p(n):
-        p = {"scale": full(n, 0.0 if cfg.norm_plus_one else 1.0)}
-        if cfg.layer_norm:
-            p["bias"] = zeros(n)
-        return p
-
-    def proj(shape, std=0.02, bias=False):
-        p = {"kernel": normal(shape, std)}
-        if bias:
-            p["bias"] = zeros(shape[-1])
-        return p
-
-    params = {"wte": {"embedding": normal((cfg.vocab_size, c))},
-              "ln_f": norm_p(c)}
-    if not cfg.tie_word_embeddings:
-        params["lm_head"] = proj((c, cfg.vocab_size), bias=cfg.dense_bias)
+    full-size model never visits the host). `include_mlp=False` leaves
+    the dense MLPs out (JAX :347): the MoE families add their expert
+    stacks instead."""
+    draw = Draws(seed, device)
+    params = init_top(draw, cfg)
     for i in range(cfg.n_layer):
-        attn = {
-            "q": proj((c, cfg.n_head * d), bias=cfg.attn_bias),
-            "k": proj((c, cfg.n_kv_head * d), bias=cfg.attn_bias),
-            "v": proj((c, cfg.n_kv_head * d), bias=cfg.attn_bias),
-            "o": proj((cfg.n_head * d, c), out_std, bias=cfg.dense_bias),
-        }
-        if cfg.qk_norm:
-            per_head = cfg.qk_norm_width == "head"
-            attn["q_norm"] = {"scale": full(
-                d if per_head else cfg.n_head * d, 1.0)}
-            attn["k_norm"] = {"scale": full(
-                d if per_head else cfg.n_kv_head * d, 1.0)}
-        blk = {"ln_1": norm_p(c), "attn": attn}
-        if not cfg.parallel_block:
-            blk["ln_2"] = norm_p(c)
-        if not cfg.pre_norm:
-            del blk["ln_1"], blk["ln_2"]
-        if cfg.mlp_gated:
-            blk["mlp"] = {"gate": proj((c, cfg.d_ff)),
-                          "up": proj((c, cfg.d_ff)),
-                          "down": proj((cfg.d_ff, c), out_std)}
-        else:
-            blk["mlp"] = {"up": proj((c, cfg.d_ff), bias=cfg.dense_bias),
-                          "down": proj((cfg.d_ff, c), out_std,
-                                       bias=cfg.dense_bias)}
-        if cfg.post_norms:
-            blk["post_ln_1"] = norm_p(c)
-            blk["post_ln_2"] = norm_p(c)
-        params[f"h_{i}"] = blk
+        params[f"h_{i}"] = init_block(draw, cfg, include_mlp)
     return params
 
 
@@ -436,9 +455,11 @@ def _rotated(q, k, cos, sin, cfg: LlamaConfig):
             _rope_apply(k, cos, sin, cfg))
 
 
-def _mlp_out(bp, h, *, cfg: LlamaConfig, compute_dtype=None):
-    """The MLP branch over a normed h: gated SwiGLU / GeGLU, or Phi's
-    plain two-layer MLP."""
+def _mlp_out(bp, h, *, cfg: LlamaConfig, compute_dtype=None, ffn=None):
+    """The MLP branch over a normed h: gated SwiGLU / GeGLU, Phi's plain
+    two-layer MLP, or the `ffn(bp, h)` override (the MoE hook)."""
+    if ffn is not None:
+        return ffn(bp, h)
     act = _mlp_act(cfg)
     mlp = bp["mlp"]
     up = linear(mlp["up"], h, compute_dtype=compute_dtype)
@@ -447,19 +468,20 @@ def _mlp_out(bp, h, *, cfg: LlamaConfig, compute_dtype=None):
     return linear(mlp["down"], inner, compute_dtype=compute_dtype)
 
 
-def _branches_residual(bp, x, o, h, *, cfg: LlamaConfig, compute_dtype=None):
-    """The attention output `o` and the MLP into the residual stream:
-    sequential (x + o, then ln_2 + MLP + residual, Gemma-2's post norms
-    where set) or parallel (Phi: x + o + mlp(h), both branches reading
-    ln_1's h)."""
+def _branches_residual(bp, x, o, h, *, cfg: LlamaConfig, compute_dtype=None,
+                       ffn=None):
+    """The attention output `o` and the MLP (or `ffn`) into the residual
+    stream: sequential (x + o, then ln_2 + MLP + residual, Gemma-2's
+    post norms where set) or parallel (Phi: x + o + mlp(h), both
+    branches reading ln_1's h)."""
     if cfg.parallel_block:
-        m = _mlp_out(bp, h, cfg=cfg, compute_dtype=compute_dtype)
+        m = _mlp_out(bp, h, cfg=cfg, compute_dtype=compute_dtype, ffn=ffn)
         return x + o.to(x.dtype) + m.to(x.dtype)
     if cfg.post_norms:
         o = _norm(bp["post_ln_1"], o, cfg)
     x = x + o.to(x.dtype)
     h2 = x if not cfg.pre_norm else _norm(bp["ln_2"], x, cfg)
-    m = _mlp_out(bp, h2, cfg=cfg, compute_dtype=compute_dtype)
+    m = _mlp_out(bp, h2, cfg=cfg, compute_dtype=compute_dtype, ffn=ffn)
     if cfg.post_norms:
         m = _norm(bp["post_ln_2"], m, cfg)
     return x + m.to(x.dtype)
@@ -497,14 +519,14 @@ def _dense_attn(bp, h, *, cfg: LlamaConfig, compute_dtype=None,
 
 
 def block_apply(bp, x, *, cfg: LlamaConfig, compute_dtype=None,
-                window=None):
+                window=None, ffn=None):
     """One block of the stateless forward (JAX :643); `window` is the
-    layer's own (alternating configs)."""
+    layer's own (alternating configs), `ffn` the MLP override."""
     h = _pre_normed(bp, x, cfg)
     o = _dense_attn(bp, h, cfg=cfg, compute_dtype=compute_dtype,
                     window=window)
     return _branches_residual(bp, x, o, h, cfg=cfg,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, ffn=ffn)
 
 
 def _window_of(cfg: LlamaConfig, i: int):
@@ -546,38 +568,39 @@ def head(params, x, *, cfg: LlamaConfig, compute_dtype=None):
     return soft_cap(out, cfg.final_softcap)
 
 
-def _apply_layers(params, idx, layers, *, cfg, compute_dtype):
+def _apply_layers(params, idx, layers, *, cfg, compute_dtype, ffn):
     x = embed(params, idx, cfg=cfg)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     for i, bp in enumerate(layers):
         x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype,
-                        window=_window_of(cfg, i))
+                        window=_window_of(cfg, i), ffn=ffn)
     return head(params, x.float(), cfg=cfg, compute_dtype=compute_dtype)
 
 
-def make_apply(cfg: LlamaConfig, *, compute_dtype=None):
+def make_apply(cfg: LlamaConfig, *, compute_dtype=None, ffn=None):
     """Full forward over the per-layer tree of tensors (JAX's make_apply
     :761): apply(params, idx) -> f32 logits (B, T, V). The attention is
-    the grouped einsum, as JAX's (no kernel runs)."""
+    the grouped einsum, as JAX's (no kernel runs). `ffn` overrides the
+    MLP; by default the config's (`default_ffn`)."""
+    ffn = ffn or cfg.default_ffn(compute_dtype)
 
     def apply(params, idx):
-        check_ported(cfg)
         layers = (params[f"h_{i}"] for i in range(cfg.n_layer))
         return _apply_layers(params, idx, layers, cfg=cfg,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, ffn=ffn)
 
     return apply
 
 
-def make_apply_stacked(cfg: LlamaConfig, *, compute_dtype=None):
+def make_apply_stacked(cfg: LlamaConfig, *, compute_dtype=None, ffn=None):
     """make_apply over the prepare_stacked layout."""
+    ffn = ffn or cfg.default_ffn(compute_dtype)
 
     def apply(prepared, idx):
-        check_ported(cfg)
         return _apply_layers(prepared, idx,
                              unstack(prepared["blocks"], cfg.n_layer),
-                             cfg=cfg, compute_dtype=compute_dtype)
+                             cfg=cfg, compute_dtype=compute_dtype, ffn=ffn)
 
     return apply
 
@@ -586,16 +609,17 @@ def make_hidden_stacked(cfg: LlamaConfig, *, compute_dtype=None):
     """Final-normed hidden states (B, T, C) f32 over the prepare_stacked
     layout (JAX's make_hidden_stacked :769): make_apply_stacked without
     the lm_head, the embedding endpoint's forward; the attention is the
-    grouped einsum of the stateless forward."""
+    grouped einsum of the stateless forward; the config's MLP override
+    (`default_ffn`) included."""
+    ffn = cfg.default_ffn(compute_dtype)
 
     def hidden(prepared, idx):
-        check_ported(cfg)
         x = embed(prepared, idx, cfg=cfg)
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         for i, bp in enumerate(unstack(prepared["blocks"], cfg.n_layer)):
             x = block_apply(bp, x, cfg=cfg, compute_dtype=compute_dtype,
-                            window=_window_of(cfg, i))
+                            window=_window_of(cfg, i), ffn=ffn)
         return _norm(prepared["ln_f"], x.float(), cfg)
 
     return hidden
@@ -624,14 +648,14 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype, device):
 
 def _block_with_cache(bp, x, layer_cache, start_pos, *,
                       cfg: LlamaConfig, codec, compute_dtype=None,
-                      window=None):
+                      window=None, ffn=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos +
     T): writes the rotated k (and v) into the KV-head cache, then
     attends it — K5 with grouped heads for a chunk, K6 with the group
     folded into the rows for a one-token step (codec.attend), banded to
     the layer's `window` (alternating configs) or the codec's.
     `start_pos` is an int or a (1,) int32 device tensor
-    (kvcache.span_positions)."""
+    (kvcache.span_positions); `ffn` overrides the MLP."""
     from dnn_tpu_torch.runtime.kvcache import span_positions
 
     h = _pre_normed(bp, x, cfg)
@@ -643,7 +667,7 @@ def _block_with_cache(bp, x, layer_cache, start_pos, *,
     o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
                compute_dtype=compute_dtype)
     return _branches_residual(bp, x, o, h, cfg=cfg,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, ffn=ffn)
 
 
 def _embedded(prepared, ids, cfg: LlamaConfig, compute_dtype):
@@ -656,7 +680,7 @@ def _embedded(prepared, ids, cfg: LlamaConfig, compute_dtype):
 @torch.no_grad()
 def forward_with_cache(prepared, ids, cache, start_pos, *,
                        cfg: LlamaConfig, compute_dtype=None,
-                       rolling: bool = False):
+                       rolling: bool = False, ffn=None):
     """ids (B, T) at positions [start_pos, start_pos + T) -> f32 logits
     (B, T, V); the KV-head cache (float {"k","v"} or int8 with
     {"ks","vs"}, leaves (L, B, Hk, S[, D])) is written in place and
@@ -666,10 +690,12 @@ def forward_with_cache(prepared, ids, cache, start_pos, *,
     f32 logits. The codec carries the config's window (uniform) and
     attention softcap; an alternating config hands each layer its window
     (JAX :863-900). `rolling`: the cache is a sliding_window-slot ring
-    (one-token steps only)."""
+    (one-token steps only). `ffn` overrides every block's MLP, by
+    default the config's (`default_ffn`: a MoE config routes the B*T
+    tokens of this forward)."""
     from dnn_tpu_torch.runtime.kvcache import codec_for_cache
 
-    check_ported(cfg)
+    ffn = ffn or cfg.default_ffn(compute_dtype)
     wins = layer_windows(cfg)
     codec = codec_for_cache(
         cache, window=None if wins is not None else cfg.sliding_window,
@@ -680,7 +706,8 @@ def forward_with_cache(prepared, ids, cache, start_pos, *,
         x = _block_with_cache(layer_params(prepared["blocks"], i), x,
                               layer_cache, start_pos, cfg=cfg, codec=codec,
                               compute_dtype=compute_dtype,
-                              window=None if wins is None else wins[i])
+                              window=None if wins is None else wins[i],
+                              ffn=ffn)
     return head(prepared, x.float(), cfg=cfg,
                 compute_dtype=compute_dtype), cache
 
@@ -726,8 +753,9 @@ class LlamaFamilyRows:
     slot's own position over a KV-head-width pool; a decode step folds
     each slot's query group into G rows of its KV head (K6 dense, K7
     paged). `compute_dtype=torch.bfloat16` runs both in bf16 compute
-    (K5/K6/K7 with bf16 queries). `ffn` (MoE, ROADMAP PyTorch/CUDA port
-    item 7) raises.
+    (K5/K6/K7 with bf16 queries). `ffn` overrides the MLP on every path
+    (prefill, decode rows, verify rows); by default the config's
+    (`default_ffn`: Mixtral's routed experts).
 
     The batcher reads the attributes JAX's adapter sets (:1240-1262):
     `window`, a uniform config's window, for its codecs (the pool stays
@@ -738,9 +766,9 @@ class LlamaFamilyRows:
     def __init__(self, cfg: LlamaConfig, *, compute_dtype=None, ffn=None):
         from dnn_tpu_torch.runtime.generate import check_compute_dtype
 
-        check_ported(cfg, ffn)
         self.cfg = cfg
         self.compute_dtype = check_compute_dtype(compute_dtype)
+        self.ffn = ffn or cfg.default_ffn(self.compute_dtype)
         self._wins = layer_windows(cfg)
         self.window = None if self._wins is not None else cfg.sliding_window
         self.alt_window = cfg.alt_window
@@ -757,7 +785,8 @@ class LlamaFamilyRows:
         is an int or a (1,) int32 device tensor."""
         logits, _ = forward_with_cache(prepared, padded, row_cache,
                                        start_pos, cfg=self.cfg,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       ffn=self.ffn)
         return logits
 
     @torch.no_grad()
@@ -786,7 +815,8 @@ class LlamaFamilyRows:
             o = linear(bp["attn"]["o"],
                        merge_heads(y.reshape(b, cfg.n_head, 1, d).to(x.dtype)),
                        compute_dtype=cdt)
-            x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt)
+            x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt,
+                                   ffn=self.ffn)
         return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)[:, -1]
 
     @torch.no_grad()
@@ -818,7 +848,8 @@ class LlamaFamilyRows:
             y = codec.attend_rows_causal(q, c, pos)
             o = linear(bp["attn"]["o"], merge_heads(y.to(x.dtype)),
                        compute_dtype=cdt)
-            x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt)
+            x = _branches_residual(bp, x, o, h, cfg=cfg, compute_dtype=cdt,
+                                   ffn=self.ffn)
         return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)
 
 
@@ -829,10 +860,12 @@ class LlamaFamilyRows:
 def make_partition(cfg: LlamaConfig, *, compute_dtype=None):
     """partition(num_parts) -> StageSpecs over the per-layer tree (JAX's
     make_partition :1474): the first stage embeds, the last runs the
-    head; a tied config's last stage holds wte too."""
+    head; a tied config's last stage holds wte too. The config's MLP
+    override (`default_ffn`) runs in every stage, routing the batch the
+    stage is handed."""
+    part_ffn = cfg.default_ffn(compute_dtype)
 
     def partition(num_parts):
-        check_ported(cfg)
         stages = []
         for p, (lo, hi) in enumerate(layer_ranges(cfg.n_layer, num_parts)):
             first, last = p == 0, p == num_parts - 1
@@ -855,7 +888,7 @@ def make_partition(cfg: LlamaConfig, *, compute_dtype=None):
                 for i in range(_lo, _hi):
                     x = block_apply(params[f"h_{i}"], x, cfg=cfg,
                                     compute_dtype=compute_dtype,
-                                    window=_window_of(cfg, i))
+                                    window=_window_of(cfg, i), ffn=part_ffn)
                 if _last:
                     x = head(params, x.float(), cfg=cfg,
                              compute_dtype=compute_dtype)

@@ -404,16 +404,17 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
     node turns them on. --serve_adapter serves LoRA adapters per
     request (a=). Returns serve_lm's code: 0 after a SIGTERM drain, 43
     (lm_server.EXIT_RESTART) after a wedged-policy escalation."""
-    from dnn_tpu_torch.convert import from_jax_params, load_npz
     from dnn_tpu_torch.models.gpt import GPTConfig
+    from dnn_tpu_torch.models.gpt_moe import GPTMoEConfig
     from dnn_tpu_torch.models.llama import LlamaConfig
     from dnn_tpu_torch.registry import get_model
-    from dnn_tpu_torch.runtime.engine import _DTYPES, load_params
+    from dnn_tpu_torch.runtime.engine import _DTYPES, served_params
     from dnn_tpu_torch.runtime.lm_server import serve_lm
 
     try:
         spec = get_model(config.model)
-        if type(spec.config) not in (GPTConfig, LlamaConfig):
+        if not (isinstance(spec.config, (GPTMoEConfig, LlamaConfig))
+                or type(spec.config) is GPTConfig):
             raise ValueError(f"--serve_lm requires a GPT-family or "
                              f"LLaMA-family model; '{config.model}' is not "
                              "one")
@@ -427,21 +428,23 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
         cfg = spec.config
         device = (resolve_device(args.device) if args.device
                   else config_device(config.device_type))
-        tree = (load_npz(args.weights_npz) if args.weights_npz
-                else load_params(config, spec, args.seed))
-        if args.lora:
-            from dnn_tpu_torch.lora import load_lora, merge_lora
-
-            adapters, alpha = load_lora(args.lora)
-            tree = merge_lora(tree, adapters, alpha=alpha)
-        # int8 weights quantize the f32 tree, as JAX's daemon does; the
-        # batcher casts the rest for compute
-        prepared = from_jax_params(
-            tree, cfg, device,
-            None if args.weights == "int8" else compute_dtype)
+        # int8 weights stay f32 here (the server quantizes them); a MoE
+        # model's random weights are drawn on the card block by block
+        prepared = served_params(config, spec, args.seed, device,
+                                 weights=args.weights,
+                                 compute_dtype=compute_dtype,
+                                 weights_npz=args.weights_npz, lora=args.lora)
     except (OSError, KeyError, ValueError, RuntimeError) as e:
         log.error("%s", e)
         return 1
+    moe_kwargs = {}
+    if isinstance(cfg, GPTMoEConfig):
+        # the GPT-MoE family serves as GPT blocks with the routed FFN
+        # plugged in (JAX node.py:850-868); a Mixtral config's family
+        # adapter resolves its experts from the config
+        from dnn_tpu_torch.runtime.generate_moe import moe_cache_ffn
+
+        moe_kwargs["ffn"] = moe_cache_ffn(cfg, compute_dtype=compute_dtype)
     lora_kwargs = {}
     if args.serve_adapter:
         try:
@@ -484,7 +487,7 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             **({"weights": "int8"} if args.weights == "int8" else {}),
             allow_logit_bias=not spec_kwargs,
             allow_constraints=not spec_kwargs,
-            **spec_kwargs, **lora_kwargs)) or 0
+            **spec_kwargs, **lora_kwargs, **moe_kwargs)) or 0
     except (NotImplementedError, ValueError) as e:
         # e.g. --kv_dtype int4 (ROADMAP item 2), or --kv paged for a
         # softcapped / alternating-window preset (Gemma-2)

@@ -63,17 +63,18 @@ def quantize_tensor(w, *, axis: int = -2):
     """Symmetric int8 quantization of `w` with scales reduced over `axis`
     (kept as size 1). The default is the contraction dim of an (in, out)
     or stacked (L, in, out) kernel: per-output-channel (and per-layer)
-    scales. A stacked kernel is quantized one layer at a time (the
-    scales never mix layers, so the result is the same), which bounds
-    the f32 temporaries at one layer's."""
+    scales. A stacked kernel (a layer or an expert axis in front) is
+    quantized one slice of its leading axis at a time (the scales never
+    mix slices, so the result is the same), which bounds the f32
+    temporaries at one slice's."""
     ax = axis % w.ndim
-    if w.ndim == 3 and ax != 0:
+    if w.ndim >= 3 and ax != 0:
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         sshape = list(w.shape)
         sshape[ax] = 1
         scale = torch.empty(sshape, dtype=torch.float32, device=w.device)
         for i in range(w.shape[0]):
-            q[i], scale[i] = _quantize(w[i], 127, ax - 1)
+            q[i], scale[i] = quantize_tensor(w[i], axis=ax - 1)
         return q, scale
     return _quantize(w, 127, ax)
 
@@ -149,7 +150,16 @@ def quantize_tree(params, *, should_quantize: Optional[Callable] = None,
     "/"-joined path and the kernel) with its quantized form. Raw
     per-layer trees and `prepare_stacked` trees alike; other leaves pass
     through. A new tree is returned; the input's leaves are shared, not
-    copied."""
+    copied.
+
+    MoE expert stacks (JAX :151-177) are found by their structure: a
+    dict holding raw float `wi`/`wo` (parallel/moe.init_moe) or
+    `wg`/`wu`/`wd` (init_moe_gated) arrays, 3-D (E, in, out) or 4-D
+    stacked (L, E, in, out). They become int8 with per-(expert, channel)
+    `*_scale` keys whatever `bits` is (the routed FFN has no int4 path),
+    and the predicate is not asked. An int8 stack, or one that already
+    has its scales, is left as it is, so the rule is idempotent; the
+    router stays f32 (`_default_should_quantize`)."""
     pred = should_quantize or _default_should_quantize
 
     def walk(node, path):
@@ -159,6 +169,16 @@ def quantize_tree(params, *, should_quantize: Optional[Callable] = None,
                     return quantize_linear(node, bits=bits,
                                            int4_group=int4_group)
                 return node
+            for ks in (("wi", "wo"), ("wg", "wu", "wd")):
+                if all(k in node and hasattr(node[k], "ndim")
+                       and node[k].ndim in (3, 4)
+                       and node[k].is_floating_point()
+                       and k + "_scale" not in node for k in ks):
+                    out = {k: walk(v, f"{path}/{k}")
+                           for k, v in node.items() if k not in ks}
+                    for k in ks:
+                        out[k], out[k + "_scale"] = quantize_tensor(node[k])
+                    return out
             return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
         return node
 

@@ -6,11 +6,12 @@ is a function over the slice of the parameter tree named by its
 `param_keys`. Parameters keep the JAX package's tree layout, so one
 checkpoint feeds both packages.
 
-Registered here: `cifar_cnn`, `mlp`, the GPT-2 presets and every
-LLaMA-family preset (models/llama.py; those that need an unported
-switch raise when built or served, not here). The JAX package's MoE
-families are not ported and `get_model` names the ROADMAP item that
-holds them.
+Registered here: `cifar_cnn`, `mlp`, the GPT-2 presets, every
+LLaMA-family preset (models/llama.py) and the MoE families' presets
+(models/gpt_moe.py: gpt2-moe, gpt2-moe-test; models/llama_moe.py:
+mixtral-8x7b, mixtral-test, qwen15-moe-a2.7b, qwen2moe-test). A spec
+whose extras hold "init_prepared" draws its random weights as the served
+stacks, on a device (runtime/engine.served_params).
 """
 
 from __future__ import annotations
@@ -62,9 +63,8 @@ def get_model(name: str) -> ModelSpec:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(
-            f"Unknown model '{name}'. Available: {sorted(_REGISTRY)}. The "
-            "JAX package's MoE families (gpt_moe, llama_moe) are not "
-            "ported to dnn_tpu_torch yet (ROADMAP Queue 1 item 9)") from None
+            f"Unknown model '{name}'. Available: {sorted(_REGISTRY)}"
+        ) from None
 
 
 def available_models():

@@ -36,11 +36,11 @@ _NEG_BIG = -1e30
 def _family_fns(cfg):
     """(forward_with_cache, init_cache) of the config's family: the
     search itself is family-agnostic (every cache leaf has its batch on
-    axis 1)."""
+    axis 1). A Mixtral config routes through its experts
+    (llama.forward_with_cache resolves its default_ffn), as JAX's does."""
     from dnn_tpu_torch.models import llama
 
     if isinstance(cfg, llama.LlamaConfig):
-        llama.check_ported(cfg)
         return llama.forward_with_cache, llama.init_cache
     return forward_with_cache, init_cache
 

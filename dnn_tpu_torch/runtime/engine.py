@@ -40,15 +40,49 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def load_params(config: TopologyConfig, spec, rng_seed: int = 0):
-    """The model's parameter tree (numpy leaves): the checkpoint named
-    by `model_weights`, or a random init from `rng_seed` when it is
-    null."""
+    """The model's parameter tree: the checkpoint named by
+    `model_weights`, or the family's numpy random init from `rng_seed`
+    when it is null."""
     path = config.model_weights
     if not path:
         log.warning("no model_weights in config; using random init "
                     "(seed %d)", rng_seed)
         return spec.init(rng_seed)
     return checkpoint_params(path, spec)
+
+
+def served_params(config: TopologyConfig, spec, seed: int, device, *,
+                  weights: str = "f32", compute_dtype=None,
+                  weights_npz: Optional[str] = None,
+                  lora: Optional[str] = None):
+    """The LM daemon's served (stacked) weights, as `node --serve_lm`
+    loads them: `weights_npz`, the config's checkpoint or a random init
+    from `seed`, a LoRA artifact merged in, at `compute_dtype`; f32 for
+    weights="int8" (the server quantizes them and casts for compute). A
+    random init of a spec whose extras hold "init_prepared" (the MoE
+    families: Mixtral-8x7B is 187 GB as an f32 tree) is drawn, quantized
+    and stacked on `device` one block at a time, in the compute type for
+    f32 weights; never whole on the host or the card."""
+    from dnn_tpu_torch.convert import from_jax_params, load_npz
+
+    int8 = weights == "int8"
+    init_prepared = spec.extras.get("init_prepared")
+    if not (weights_npz or config.model_weights or lora) \
+            and init_prepared is not None:
+        log.warning("no model_weights in config; using random init "
+                    "(seed %d), drawn on %s", seed, device)
+        return init_prepared(seed, device, weights=weights,
+                             compute_dtype=compute_dtype,
+                             dtype=None if int8 else compute_dtype)
+    tree = (load_npz(weights_npz) if weights_npz
+            else load_params(config, spec, seed))
+    if lora:
+        from dnn_tpu_torch.lora import load_lora, merge_lora
+
+        adapters, alpha = load_lora(lora)
+        tree = merge_lora(tree, adapters, alpha=alpha)
+    return from_jax_params(tree, spec.config, device,
+                           None if int8 else compute_dtype)
 
 
 def checkpoint_params(path: str, spec):
@@ -203,28 +237,43 @@ class PipelineEngine:
 
     def make_generator(self, *, max_new_tokens: int, temperature: float = 0.0,
                        top_k: Optional[int] = None,
-                       top_p: Optional[float] = None):
+                       top_p: Optional[float] = None, kv_dtype=None):
         """generate(ids, seed=0) -> (B, max_new_tokens) int32 tokens on
         this engine's weights, through the port's make_generate (K5 for
         the prompt, K6 per token on the card; a LLaMA-family model over a
         KV-head cache, K5 with grouped heads), at the config's compute
-        type (`"dtype": "bfloat16"`: bf16 compute, a bf16 cache). Sampled
-        draws come from a torch.Generator seeded with `seed`; greedy
-        draws equal JAX's."""
+        type (`"dtype": "bfloat16"`: bf16 compute, a bf16 cache) unless
+        `kv_dtype` picks the cache. A GPT-MoE model decodes through
+        generate_moe.make_generate_moe, which refuses `kv_dtype` as JAX's
+        engine does (:480-493); a Mixtral model through make_generate,
+        its experts resolved from the config. Sampled draws come from a
+        torch.Generator seeded with `seed`; greedy draws equal JAX's."""
         from dnn_tpu_torch.models.gpt import GPTConfig
+        from dnn_tpu_torch.models.gpt_moe import GPTMoEConfig
         from dnn_tpu_torch.models.llama import LlamaConfig
         from dnn_tpu_torch.runtime.generate import make_generate
 
         cfg = self.spec.config
         self._require_full_role()
-        if not isinstance(cfg, (GPTConfig, LlamaConfig)):
+        if isinstance(cfg, GPTMoEConfig):
+            from dnn_tpu_torch.runtime.generate_moe import make_generate_moe
+
+            if kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype is not plumbed through the MoE decoder")
+            gen = make_generate_moe(
+                cfg, max_new_tokens=max_new_tokens, temperature=temperature,
+                sample_top_k=top_k, sample_top_p=top_p,
+                compute_dtype=self.compute_dtype, device=self.devices[0])
+            return lambda ids, seed=0: gen(self._prepared(), ids, seed)
+        if not isinstance(cfg, LlamaConfig) and type(cfg) is not GPTConfig:
             raise ValueError(
                 f"generation requires a GPT-family or LLaMA-family model; "
                 f"'{self.config.model}' has config {type(cfg).__name__}")
         gen = make_generate(cfg, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_k=top_k, top_p=top_p,
                             compute_dtype=self.compute_dtype,
-                            device=self.devices[0])
+                            kv_dtype=kv_dtype, device=self.devices[0])
         return lambda ids, seed=0: gen(self._prepared(), ids, seed)
 
     def generate(self, ids, *, max_new_tokens: int, temperature: float = 0.0,

@@ -21,6 +21,7 @@ package's threefry stream for the same seed; greedy draws (temperature
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -73,11 +74,21 @@ def _mlp(bp, h, compute_dtype=None):
                   compute_dtype=compute_dtype)
 
 
+def _ffn_out(bp, h, x, compute_dtype, ffn):
+    """The block's MLP branch over the normed h: GPT-2's MLP, or the
+    `ffn(bp, h)` override (the MoE hook, runtime/generate_moe.
+    moe_cache_ffn) cast to the residual's type, as JAX's blocks do."""
+    if ffn is None:
+        return _mlp(bp, h, compute_dtype)
+    return ffn(bp, h).to(x.dtype)
+
+
 def _block_with_cache(bp, x, layer_cache, start_pos, *, cfg, codec,
-                      compute_dtype=None):
+                      compute_dtype=None, ffn=None):
     """One block over x (B, T, C) at positions [start_pos, start_pos+T):
     writes this layer's K/V, then attends everything cached so far.
-    `start_pos` is an int or a (1,) int32 device tensor (span_positions)."""
+    `start_pos` is an int or a (1,) int32 device tensor (span_positions);
+    `ffn(bp, h)` overrides the MLP."""
     h = layer_norm(bp["ln_1"], x, eps=cfg.ln_eps)
     q, k, v = _qkv_heads(bp, h, cfg=cfg, compute_dtype=compute_dtype)
     codec.write(layer_cache, k, v, start_pos)
@@ -85,7 +96,7 @@ def _block_with_cache(bp, x, layer_cache, start_pos, *, cfg, codec,
     x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
                    compute_dtype=compute_dtype)
     h = layer_norm(bp["ln_2"], x, eps=cfg.ln_eps)
-    return x + _mlp(bp, h, compute_dtype)
+    return x + _ffn_out(bp, h, x, compute_dtype, ffn)
 
 
 def _embed_at(prepared, ids, start_pos, compute_dtype=None):
@@ -98,7 +109,7 @@ def _embed_at(prepared, ids, start_pos, compute_dtype=None):
 
 @torch.no_grad()
 def forward_with_cache(prepared, ids, cache, start_pos, *,
-                       cfg: GPTConfig, compute_dtype=None):
+                       cfg: GPTConfig, compute_dtype=None, ffn=None):
     """ids (B, T) at positions [start_pos, start_pos + T) -> logits
     (B, T, V) f32; the cache — float {"k","v"} or int8 {"k","v","ks",
     "vs"}, every leaf (L, B, H, S[, D]) — is updated in place and
@@ -107,14 +118,16 @@ def forward_with_cache(prepared, ids, cache, start_pos, *,
     step): the same values either way, so the same bits.
     `compute_dtype` (bf16 compute, JAX's forward_with_cache):
     the residual stream and every block product in that type, norms in
-    f32, the head's product bf16 x bf16 -> f32 logits."""
+    f32, the head's product bf16 x bf16 -> f32 logits. `ffn(bp, h)`
+    overrides every block's MLP (the MoE family: it routes the B*T
+    tokens of this forward, runtime/generate_moe.py)."""
     codec = codec_for_cache(cache)
     x = _embed_at(prepared, ids, start_pos, compute_dtype)
     for i in range(cfg.n_layer):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = _block_with_cache(layer_params(prepared["blocks"], i), x,
                               layer_cache, start_pos, cfg=cfg, codec=codec,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, ffn=ffn)
     return head(prepared, x.float(), cfg=cfg,
                 compute_dtype=compute_dtype), cache
 
@@ -130,7 +143,8 @@ def forward_no_cache(prepared, ids, *, cfg):
     """Plain full-sequence causal forward, no cache and no kernel:
     ids (B, T) -> logits (B, T, V). Attention is the masked softmax
     formula (scores / sqrt(D), masked at -1e30); a LlamaConfig runs
-    llama.forward_no_cache (the grouped einsum)."""
+    llama.forward_no_cache (the grouped einsum, its config's MoE hook
+    included)."""
     if _is_llama(cfg):
         from dnn_tpu_torch.models.llama import forward_no_cache as fwd
 
@@ -325,8 +339,8 @@ def make_generate(cfg, *, max_new_tokens: int,
 
     A LlamaConfig (JAX's llama.make_generate) decodes through
     llama.forward_with_cache: K5 with grouped heads for the prompt, K6
-    at n_head / n_kv_head rows a KV head per token; its unported
-    switches raise (llama.check_ported). A uniformly windowed config
+    at n_head / n_kv_head rows a KV head per token (a MoE config's
+    experts resolved from the config). A uniformly windowed config
     (Mistral) whose stream outgrows its window decodes on a rolling ring
     (JAX llama.py:942-990): the prompt runs banded (K5) on a transient
     prompt-length cache, the live band moves into a sliding_window-slot
@@ -337,20 +351,17 @@ def make_generate(cfg, *, max_new_tokens: int,
     Runs on CUDA unless `device="cpu"` is given (without a card the
     default raises); `prepared` must live on that device. JAX's
     `attn_kernel` (a TPU crossover knob) has no counterpart: on CUDA the
-    kernels always run. `ffn` (MoE blocks, ROADMAP PyTorch/CUDA port item
-    7) raises."""
+    kernels always run. `ffn(bp, h)` overrides every block's MLP (JAX
+    :485; the MoE families: runtime/generate_moe.make_generate_moe, and
+    a LlamaConfig's `default_ffn` when no `ffn` is given): the prompt's
+    B*T tokens route as one forward's, then each step's B tokens."""
     compute_dtype = check_compute_dtype(compute_dtype)
-    if ffn is not None:
-        raise NotImplementedError(
-            "ffn: MoE block FFNs are not ported to dnn_tpu_torch yet "
-            "(ROADMAP PyTorch/CUDA port item 7)")
-    forward = forward_with_cache
+    forward = functools.partial(forward_with_cache, ffn=ffn)
     window = None
     if _is_llama(cfg):
         from dnn_tpu_torch.models import llama
 
-        llama.check_ported(cfg)
-        forward = llama.forward_with_cache
+        forward = functools.partial(llama.forward_with_cache, ffn=ffn)
         if not cfg.alt_window:
             window = cfg.sliding_window
     if max_new_tokens < 1:

@@ -1040,6 +1040,16 @@ class LMServer:
         multiple as JAX's daemon pads it (padding after the real tokens
         changes nothing). Runs on the worker thread (`_BatcherWorker.call`)."""
         cfg = self.batcher.cfg
+        if (getattr(self.batcher.family, "ffn", None) is not None
+                and getattr(cfg, "default_ffn", lambda: None)() is None):
+            # the extractor resolves a config's own MLP override
+            # (Mixtral's default_ffn); an ffn set only on the family
+            # adapter (the GPT-MoE daemon) has no hook in it (JAX
+            # lm_server.py:1561-1572)
+            raise ValueError(
+                "the embedding endpoint does not support ffn-overridden "
+                "families whose config carries no default_ffn (the "
+                "GPT-MoE daemon)")
         t = int(prompt.size)
         if t < 1:
             raise ValueError("embedding needs at least one token")

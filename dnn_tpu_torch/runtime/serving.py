@@ -23,12 +23,14 @@ in f32 and f32 logits. With an explicit `family` the family's type wins
 and a different batcher-level one raises.
 
 `family` supplies the model's hooks, as in the JAX batcher; by default
-it follows the config (`default_family`): GPT-2's `GPTFamilyRows`, or
-`models/llama.LlamaFamilyRows` for the LLaMA family, which refuses the
-switches that are not ported yet (`llama.check_ported`) and whose
-decode steps fold each query group into the rows of its KV head (K6 /
-K7 at G rows). Either pool is sized at the model's KV heads
-(`kvcache.cache_shape`).
+it follows the config (`default_family`): GPT-2's `GPTFamilyRows` (with
+`ffn=`, the GPT-MoE family's routed FFN), or
+`models/llama.LlamaFamilyRows` for the LLaMA family (Mixtral's and
+Qwen2-MoE's experts resolved from the config), whose decode steps fold
+each query group into the rows of its KV head (K6 / K7 at G rows).
+Either pool is sized at the model's KV heads (`kvcache.cache_shape`).
+A routed FFN runs inside the captured steps: it routes every row the
+step computes, idle slots and a chunk's padding included, as JAX's.
 
 Sliding windows and softcaps (JAX serving.py:350-503): the codecs take
 the family's `window` and `softcap` (K5-K7 band and cap); an
@@ -176,7 +178,7 @@ from dnn_tpu_torch.runtime.generate import (
     TOP_P_PREFILTER_K,
     _NEG_BIG,
     _cache_dtype,
-    _mlp,
+    _ffn_out,
     _qkv_heads,
     _sample_rows,
     apply_repetition_penalty,
@@ -197,27 +199,6 @@ from dnn_tpu_torch.utils.metrics import labeled
 
 log = logging.getLogger("dnn_tpu_torch.serving")
 
-# JAX-batcher options this port leaves out, with the ROADMAP item each
-# waits on. Passing one at its "off" value is accepted (it changes
-# nothing); any other value raises NotImplementedError.
-_UNPORTED = {
-    "ffn": "item 7 (other model families)",
-}
-
-
-def _reject_unported(table, given: dict):
-    """Raise for any `given` option of `table` set to a live value. None,
-    False, 0 and empty containers are off."""
-    live = {k: v for k, v in given.items() if v}
-    unknown = sorted(set(given) - set(table))
-    if unknown:
-        raise TypeError(f"unexpected arguments {unknown}")
-    if live:
-        raise NotImplementedError(
-            "not ported to dnn_tpu_torch yet: " + ", ".join(
-                f"{k} (ROADMAP PyTorch/CUDA port {table[k]})" for k in live))
-
-
 def install_dense_row(cache, row, slot: int):
     """Copy a finished transient row cache (leaves (L, 1, H, row_len[,
     D])) into `slot` of a dense pool, in place, CLAMPED at the pool's own
@@ -231,11 +212,17 @@ def install_dense_row(cache, row, slot: int):
 class GPTFamilyRows:
     """The GPT family's per-slot hooks: the padded-prompt prefill
     forward and the per-row decode forward, at `compute_dtype` (None:
-    f32; torch.bfloat16: bf16 compute, JAX's GPTFamilyRows)."""
+    f32; torch.bfloat16: bf16 compute, JAX's GPTFamilyRows). `ffn(bp,
+    h)` overrides every block's MLP (the MoE family,
+    runtime/generate_moe.moe_cache_ffn): a prefill chunk routes its
+    padded (1, P) tokens, a decode step every slot's token, idle slots
+    included, and a verify block its (B, T) tokens, as JAX's adapter
+    routes them."""
 
-    def __init__(self, cfg: GPTConfig, *, compute_dtype=None):
+    def __init__(self, cfg: GPTConfig, *, compute_dtype=None, ffn=None):
         self.cfg = cfg
         self.compute_dtype = check_compute_dtype(compute_dtype)
+        self.ffn = ffn
 
     def init_cache(self, batch: int, max_len: int, dtype, device):
         return init_cache(self.cfg, batch, max_len, dtype, device)
@@ -246,7 +233,8 @@ class GPTFamilyRows:
         an int or a (1,) int32 device tensor (the captured mixed step)."""
         logits, _ = forward_with_cache(prepared, padded, row_cache,
                                        start_pos, cfg=self.cfg,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       ffn=self.ffn)
         return logits
 
     @torch.no_grad()
@@ -294,19 +282,20 @@ class GPTFamilyRows:
             x = x + linear(bp["attn"]["proj"], merge_heads(y.to(x.dtype)),
                            compute_dtype=cdt)
             h = layer_norm(bp["ln_2"], x, eps=cfg.ln_eps)
-            x = x + _mlp(bp, h, cdt)
+            x = x + _ffn_out(bp, h, x, cdt, self.ffn)
         return head(prepared, x.float(), cfg=cfg, compute_dtype=cdt)
 
 
-def default_family(cfg, compute_dtype=None):
+def default_family(cfg, compute_dtype=None, ffn=None):
     """The family hooks a config is served with: LlamaFamilyRows for a
-    LlamaConfig (it raises for a switch that is not ported yet), else
-    GPTFamilyRows; either at `compute_dtype`."""
+    LlamaConfig (its MoE hook resolved from the config, Mixtral's
+    default_ffn, unless `ffn` is given), else GPTFamilyRows with `ffn`
+    (the GPT-MoE family's moe_cache_ffn); either at `compute_dtype`."""
     from dnn_tpu_torch.models.llama import LlamaConfig, LlamaFamilyRows
 
     if isinstance(cfg, LlamaConfig):
-        return LlamaFamilyRows(cfg, compute_dtype=compute_dtype)
-    return GPTFamilyRows(cfg, compute_dtype=compute_dtype)
+        return LlamaFamilyRows(cfg, compute_dtype=compute_dtype, ffn=ffn)
+    return GPTFamilyRows(cfg, compute_dtype=compute_dtype, ffn=ffn)
 
 
 
@@ -482,14 +471,14 @@ class ContinuousBatcher:
                  prefill_chunk_tokens: int = 0, overlap: bool = False,
                  allow_constraints: bool = False,
                  constraint_rows: int = 1024,
-                 lora_adapters=None, lora_alphas=None,
-                 device=None, **unported):
+                 lora_adapters=None, lora_alphas=None, ffn=None,
+                 device=None):
         compute_dtype = check_compute_dtype(compute_dtype)
         if family is not None:
             # JAX's batcher (serving.py:300-326): the adapter owns the
             # model's hooks, so knobs beside it are refused, and the
             # model runs at the family's compute type
-            if unported.get("ffn") is not None:
+            if ffn is not None:
                 raise ValueError(
                     "pass ffn on the family adapter, not alongside family=")
             fam_dtype = getattr(family, "compute_dtype", None)
@@ -498,8 +487,7 @@ class ContinuousBatcher:
                     f"compute_dtype mismatch: batcher={compute_dtype} vs "
                     f"family adapter={fam_dtype} — set it on the adapter")
             compute_dtype = fam_dtype
-        _reject_unported(_UNPORTED, unported)
-        self.family = family or default_family(cfg, compute_dtype)
+        self.family = family or default_family(cfg, compute_dtype, ffn)
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         if self.device.type == "cuda":

@@ -34,6 +34,7 @@ batcher's (runtime/serving_spec.py).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -55,22 +56,25 @@ def _cached_lm(cfg, compute_dtype):
     """(init_cache_fn(batch, max_len, device), forward_fn(prepared, ids,
     cache, pos) -> logits) of whichever family `cfg` belongs to. Target
     and draft dispatch independently, so a LLaMA target can verify a GPT
-    draft: the construction needs only matching vocabularies. The MoE
-    families raise (ROADMAP PyTorch/CUDA port item 7)."""
+    draft: the construction needs only matching vocabularies. A Mixtral
+    config routes through its experts (llama.forward_with_cache resolves
+    its default_ffn); a GPT-MoE config is caught before the dense GPT
+    path, whose blocks index "mlp", and decodes with the routed FFN
+    plugged in (JAX :78-84)."""
+    from dnn_tpu_torch.models.gpt_moe import GPTMoEConfig
     from dnn_tpu_torch.models.llama import LlamaConfig
 
     if isinstance(cfg, LlamaConfig):
         from dnn_tpu_torch.models import llama
 
-        llama.check_ported(cfg)
         fwd = llama.forward_with_cache
-    elif type(cfg) is GPTConfig:
-        fwd = forward_with_cache
+    elif isinstance(cfg, GPTMoEConfig):
+        from dnn_tpu_torch.runtime.generate_moe import moe_cache_ffn
+
+        fwd = functools.partial(forward_with_cache, ffn=moe_cache_ffn(
+            cfg, compute_dtype=compute_dtype))
     else:
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: only the dense GPT and LLaMA families "
-            "are ported to dnn_tpu_torch; the MoE families wait for ROADMAP "
-            "PyTorch/CUDA port item 7")
+        fwd = forward_with_cache
     return (lambda b, n, dev: init_cache(cfg, b, n, torch.float32, dev),
             lambda prepared, ids, cache, pos: fwd(
                 prepared, ids, cache, pos, cfg=cfg,

@@ -86,9 +86,9 @@ def test_cache_reference_matches_make_generate(prepared, cache_refs,
 
 
 def test_cache_reference_refuses_other_types(prepared):
-    with pytest.raises(ValueError, match="bf16 or int8"):
+    with pytest.raises(ValueError, match="f32, bf16 or int8"):
         chip_smoke.reference_greedy_cache(prepared, CFG, [1, 2], 2, "cpu",
-                                          "f32")
+                                          "f16")
 
 
 # K3 (dQ) and K4 (dK, dV) at the training shape, B=8 H=12 T=S=512 D=64
@@ -456,12 +456,12 @@ def test_spec_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
 
     init = tgpt.init
 
-    def scaled(seed, cfg):  # decisive greedy argmaxes on a tiny model
+    def scaled(seed, cfg, **kw):  # decisive greedy argmaxes on a tiny model
         def x8(t):
             if isinstance(t, dict):
                 return {k: x8(v) for k, v in t.items()}
-            return t * np.float32(8.0) if t.ndim >= 2 else t
-        return x8(init(seed, cfg))
+            return t * 8.0 if t.ndim >= 2 else t
+        return x8(init(seed, cfg, **kw))
 
     monkeypatch.setattr(tgpt, "init", scaled)
     monkeypatch.setitem(tgpt.PRESETS, "spec-t", tgpt.GPTConfig(
@@ -654,3 +654,61 @@ def test_window_phases_rehearsed_on_the_cpu(monkeypatch, capsys,
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"} <= set(e)
+
+
+def test_moe_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
+                                        one_torch_thread):
+    """chip_smoke's [moe] legs on the CPU at small sizes: M-GA, M-GB,
+    M-Gsolo and M-Gspec on a 2-layer gpt2-moe (block_size 1024, 4
+    experts, the preset's capacity factor 1.25) drafted by gpt2-test;
+    MX-Q8 on mixtral-test widened to block_size 1024 (int8 weights, bf16
+    compute, teacher forcing; the routed FFN against the dense reference)
+    and MX-F32 on its first layers (f32 compute, teacher forcing and the
+    control). Every served stream agrees with its
+    reference loop (reference_moe_batch on the batcher's schedule and
+    routing groups, reference_greedy_cache through the experts), and
+    each forward's dropped selections are printed beside the
+    reference's; the launch counts are the card's (a CPU call launches
+    no kernel). QM's `node --serve_lm` process is held on the CPU by
+    tests/test_torch_mixtral.py's node test (mixtral-test, int8)."""
+    import dataclasses
+
+    import torch
+
+    from dnn_tpu_torch.models import gpt as tgpt
+    from dnn_tpu_torch.models import gpt_moe as tgm
+    from dnn_tpu_torch.models import llama_moe as tlm
+
+    for name, value in (("MOE_PROMPTS", (5, 20, 33, 40)),
+                        ("MX_PROMPTS", (21, 50)), ("MOE_NEW", 6),
+                        ("SPEC_NEW", 6)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    cpu = torch.device("cpu")
+    cfg = tgm.GPTMoEConfig(block_size=1024, vocab_size=256, n_layer=2,
+                           n_head=4, n_embd=32, n_experts=4, d_ff=64)
+    f32 = chip_smoke.moe_gpt_legs(cpu, "cpu", cfg, tgpt.PRESETS["gpt2-test"])
+    mx = dataclasses.replace(tlm.PRESETS["mixtral-test"], block_size=1024)
+    bf16 = chip_smoke.moe_mixtral(cpu, "cpu", mx)
+    f32_slice = chip_smoke.moe_mixtral_f32(cpu, "cpu", mx)
+    out = capsys.readouterr().out
+    for label in ("M-GA", "M-GB"):
+        for i, n in enumerate((5, 20, 33, 40)):
+            assert (f"[main] [moe] {label} request {i} (prompt {n}): "
+                    in out), out
+        assert f"[moe] {label}: dropped selections a forward" in out
+        line = out.split(f"[moe] {label}: dropped selections")[1]
+        assert "the reference's in 9 of 9 forwards" in line.split("\n")[0]
+    assert "[main] [moe] M-Gsolo: " in out, out
+    assert "[moe] M-Gspec: 6 tokens after a 40-token prompt" in out, out
+    for n in (21, 50):
+        assert f"[moe] MX-Q8 teacher-forced, prompt {n}: " in out, out
+    assert "[moe] MX-Q8: teacher-forced logprob error" in out, out
+    assert "[moe] MX-Q8 routed FFN at layer 0 against the dense" in out, out
+    assert "[moe] MX-Q8 control (information" in out, out
+    for n in (21, 50):
+        assert f"[moe] MX-F32 teacher-forced, prompt {n}: " in out, out
+        assert f"[main] [moe] MX-F32 request {n == 50:d} (prompt {n})" \
+            in out, out
+    assert "[moe] MX-F32: teacher-forced logprob error" in out, out
+    for counts in (f32, bf16, f32_slice):
+        assert set(chip_smoke.CACHE_KERNELS) <= set(counts)

@@ -74,7 +74,6 @@ def test_sampling_is_seeded_and_filtered(weights):
 
 @pytest.mark.parametrize("kwargs,exc,match", [
     ({"compute_dtype": torch.float16}, ValueError, "compute_dtype"),
-    ({"ffn": object()}, NotImplementedError, "ROADMAP .* item 7"),
     ({"kv_dtype": "int4"}, NotImplementedError, "ROADMAP .* item 2"),
     ({"kv_dtype": "fp8"}, ValueError, "kv_dtype"),
     ({"min_p": 1.5}, ValueError, "min_p"),
@@ -88,6 +87,46 @@ def test_make_generate_rejects(kwargs, exc, match):
     test_torch_bf16_serving.py)."""
     with pytest.raises(exc, match=match):
         tgen.make_generate(CFG_T, max_new_tokens=4, device="cpu", **kwargs)
+
+
+def test_ffn_hook_matches_jax():
+    """The `ffn` hook (once refused, ROADMAP item 7) on JAX's GPT-MoE
+    family: gpt2-moe-test's routed FFN through make_generate (the prompt
+    routed as one group, each step's B tokens as one) gives JAX's
+    greedy tokens at the preset's capacity factor 1.25 (selections
+    drop); the engine's generator takes the MoE branch and refuses
+    kv_dtype, as JAX's engine does."""
+    from dnn_tpu.models import gpt_moe as jgm
+    from dnn_tpu.runtime.generate_moe import moe_cache_ffn as jffn
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.models import gpt_moe as tgm
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+    from dnn_tpu_torch.runtime.generate_moe import (make_generate_moe,
+                                                    moe_cache_ffn)
+
+    jcfg, tcfg = jgm.PRESETS["gpt2-moe-test"], tgm.PRESETS["gpt2-moe-test"]
+    rng = np.random.default_rng(3)
+    tree = jax.tree.map(
+        lambda a: (rng.standard_normal(a.shape) * 0.3).astype(np.float32),
+        jax.eval_shape(lambda: jgm.init(jax.random.PRNGKey(0), jcfg)))
+    jprep = jgpt.prepare_stacked(jax.tree.map(jnp.asarray, tree), jcfg)
+    tprep = from_jax_params(tree, tcfg, "cpu")
+    ids = np.random.default_rng(4).integers(0, tcfg.vocab_size, (3, 9))
+    want = np.asarray(jgen.make_generate(
+        jcfg, max_new_tokens=N_NEW, ffn=jffn(jcfg))(
+            jprep, jnp.asarray(ids), jax.random.PRNGKey(0)))
+    got = tgen.make_generate(tcfg, max_new_tokens=N_NEW, device="cpu",
+                             ffn=moe_cache_ffn(tcfg))(tprep, ids)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(make_generate_moe(
+        tcfg, max_new_tokens=N_NEW, device="cpu")(tprep, ids).numpy(), want)
+    eng = PipelineEngine(TopologyConfig.from_dict({
+        "model": "gpt2-moe-test", "device_type": "cpu",
+        "nodes": [{"id": "n1", "part_index": 0}]}), params=tree)
+    np.testing.assert_array_equal(
+        eng.generate(ids, max_new_tokens=N_NEW).numpy(), want)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        eng.make_generator(max_new_tokens=4, kv_dtype="int8")
 
 
 def test_prompt_past_block_size_raises(weights):

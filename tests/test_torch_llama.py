@@ -254,13 +254,16 @@ def test_partition_stages_compose_to_the_model(name, parts):
     ("softcap", "item 7, logit softcapping"),
     ("ffn", "item 7, the MoE families")])
 def test_unported_switches_raise_naming_their_item(name, item):
-    """An ffn override (the MoE hook, ROADMAP item 7's MoE families)
-    raises NotImplementedError naming its item when the model is built or
-    served, not when get_model returns it. Sliding windows (Mistral,
-    Gemma-2; item 2) and softcapping (item 7's softcapping) are ported:
-    for them every entry point builds and runs, and LlamaFamilyRows
-    carries JAX's adapter attributes (window, alt_window, softcap,
-    paged_ok) for the batcher."""
+    """Every switch these cases once refused is ported now. An ffn
+    override (the MoE hook, ROADMAP item 7's MoE families) threads
+    through the family adapter and the cached forward: an override that
+    returns the dense MLP gives the dense model's logits, one that
+    returns zeros another's; the batcher still refuses an ffn beside a
+    family adapter, as JAX's (tests/test_torch_mixtral.py holds the MoE
+    families themselves). Sliding windows (Mistral, Gemma-2; item 2) and
+    softcapping (item 7's softcapping): every entry point builds and
+    runs, and LlamaFamilyRows carries JAX's adapter attributes (window,
+    alt_window, softcap, paged_ok) for the batcher."""
     from dnn_tpu.models import llama as jl
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
@@ -269,23 +272,33 @@ def test_unported_switches_raise_naming_their_item(name, item):
         cfg = dataclasses.replace(tllama.PRESETS["llama-test"],
                                   attn_softcap=50.0)
     elif name == "ffn":
-        cfg, ffn = tllama.PRESETS["llama-test"], object()
+        cfg = tllama.PRESETS["llama-test"]
+
+        def ffn(bp, h):
+            return tllama._mlp_out(bp, h, cfg=cfg)
     else:
         cfg = get_model(name).config
     params = tllama.init(0, cfg)
     prep = from_jax_params(params, cfg, "cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
     if ffn is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            tllama.LlamaFamilyRows(cfg, ffn=ffn)
-        with pytest.raises(NotImplementedError, match=item):
-            tllama.check_ported(cfg, ffn)
+        assert tllama.LlamaFamilyRows(cfg, ffn=ffn).ffn is ffn
+        assert tllama.LlamaFamilyRows(cfg).ffn is None  # the dense MLP
+
+        def logits(hook):
+            cache = tllama.init_cache(cfg, 1, 8, torch.float32, "cpu")
+            return tllama.forward_with_cache(prep, ids, cache, 0, cfg=cfg,
+                                             ffn=hook)[0]
+
+        dense = logits(None)
+        assert torch.equal(logits(ffn), dense)
+        assert not torch.equal(
+            logits(lambda bp, h: torch.zeros_like(h)), dense)
         # the batcher refuses an ffn beside a family adapter, as JAX's
         with pytest.raises(ValueError, match="family adapter"):
             ContinuousBatcher(cfg, prep, family=tllama.LlamaFamilyRows(cfg),
                               ffn=ffn, device="cpu")
         return
-    tllama.check_ported(cfg)
     fam = tllama.LlamaFamilyRows(cfg)
     jcfg = dataclasses.replace(jl.PRESETS["llama-test"], attn_softcap=50.0) \
         if name == "softcap" else jl.PRESETS[name]
@@ -310,6 +323,12 @@ HF_FAMILIES = [("llama-test", "LlamaForCausalLM"),
                ("qwen2-test", "Qwen2ForCausalLM"),
                ("phi-test", "PhiForCausalLM"),
                ("mistral-test", "MistralForCausalLM")]
+# loaded, not exported (no exporter, as in JAX): the MoE families
+# (models/llama_moe.py), Mixtral's block_sparse_moe and Qwen2-MoE's
+# experts, shared expert and its gate
+# (io/checkpoint.moe_params_from_state_dict)
+HF_MOE_FAMILIES = [("mixtral-test", "MixtralForCausalLM"),
+                   ("qwen2moe-test", "Qwen2MoeForCausalLM")]
 # loaded, not exported: the exporters omit a tied lm_head, as JAX's do,
 # and transformers' strict load wants one
 HF_TIED_FAMILIES = [("gemma2-test", "Gemma2ForCausalLM")]
@@ -321,8 +340,11 @@ def _hf_model(name, cls_name, seed):
     acts."""
     import transformers
 
-    hf = getattr(transformers, cls_name)(jllama.to_hf_config(
-        jllama.PRESETS[name], attn_implementation="eager")).eval()
+    from dnn_tpu.models import llama_moe as jlm
+
+    fam = jlm if name in jlm.PRESETS else jllama
+    hf = getattr(transformers, cls_name)(fam.to_hf_config(
+        fam.PRESETS[name], attn_implementation="eager")).eval()
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for pname, p in hf.named_parameters():
@@ -337,12 +359,14 @@ def _hf_model(name, cls_name, seed):
 
 
 @pytest.mark.parametrize("fmt", ["safetensors", "pth"])
-@pytest.mark.parametrize("name,cls_name", HF_FAMILIES + HF_TIED_FAMILIES)
+@pytest.mark.parametrize("name,cls_name",
+                         HF_FAMILIES + HF_TIED_FAMILIES + HF_MOE_FAMILIES)
 def test_hf_checkpoint_loads_through_the_registry(tmp_path, name, cls_name,
                                                   fmt):
     """A tiny random HF LLaMA (GQA), Qwen2 (q/k/v biases), Phi (parallel
-    block, partial rotary, LayerNorms), Mistral (a sliding window) or
-    Gemma-2 (four norms, softcaps, the window on even layers) checkpoint,
+    block, partial rotary, LayerNorms), Mistral (a sliding window),
+    Gemma-2 (four norms, softcaps, the window on even layers), Mixtral
+    or Qwen2-MoE (routed experts; a shared expert) checkpoint,
     saved as safetensors and as .pth, loads through the port's
     load_checkpoint and the registry's convert_state_dict: the tree
     equals the JAX converter's bit for bit, and the port's logits on 24
@@ -359,7 +383,7 @@ def test_hf_checkpoint_loads_through_the_registry(tmp_path, name, cls_name,
     else:
         path = str(tmp_path / "model.pth")
         torch.save(hf.state_dict(), path)
-    cfg = tllama.PRESETS[name]
+    cfg = get_model(name).config
     tree = get_model(name).convert_state_dict(load_checkpoint(path))
     want = jax_get_model(name).convert_state_dict(jckpt.load_checkpoint(path))
     assert jax.tree.structure(tree) == jax.tree.structure(want)

@@ -105,11 +105,18 @@ def test_registry_families():
         assert get_model(name).supported_parts == \
             jax_get_model(name).supported_parts
     # the LLaMA family is registered since slice 12 (its parity tests
-    # are tests/test_torch_llama.py); the MoE families are not
+    # are tests/test_torch_llama.py), the MoE families since slice 20
+    # (tests/test_torch_gpt_moe.py, tests/test_torch_mixtral.py), each
+    # preset with JAX's config
     assert {"llama-test", "llama3-8b", "phi-test"} <= set(names)
-    for other in ("gpt-moe-test", "mixtral-test"):
-        with pytest.raises(KeyError, match="Queue 1 item 9"):
-            get_model(other)
+    for other in ("gpt2-moe", "gpt2-moe-test", "mixtral-8x7b",
+                  "mixtral-test", "qwen15-moe-a2.7b", "qwen2moe-test"):
+        j, t = jax_get_model(other).config, get_model(other).config
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), other
+        assert get_model(other).supported_parts == \
+            jax_get_model(other).supported_parts
+    with pytest.raises(KeyError, match="Unknown model"):
+        get_model("gpt-moe-test")
 
 
 def _np_tree(tree):

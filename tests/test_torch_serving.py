@@ -203,21 +203,82 @@ def test_cancel_stop_and_sampling(weights):
     np.testing.assert_array_equal(sampled(), sampled())
 
 
-# allow_constraints (once kwargs1 and kwargs3) is ported now: its
-# positive cases are tests/test_torch_constrain.py::
-# test_constructs_and_serves_on_both_pools; those places hold the MoE
-# switch, still out of scope. lora_adapters (once kwargs2 and kwargs4)
-# is ported too (tests/test_torch_serving_lora.py); those places hold
-# int4 KV and the MoE switch over the paged pool
+# allow_constraints, lora_adapters (tests/test_torch_constrain.py,
+# tests/test_torch_serving_lora.py) and the MoE switch `ffn`
+# (test_moe_ffn_pools_match_jax below) are ported; int4 KV stays out
 @pytest.mark.parametrize("kwargs", [
-    {"kv_dtype": "int4"}, {"ffn": "moe"},
-    {"kv": "paged", "kv_dtype": "int4"}, {"kv": "dense", "ffn": "moe"},
-    {"kv": "paged", "ffn": "moe"},
+    {"kv_dtype": "int4"}, {"kv": "paged", "kv_dtype": "int4"},
     {"kv": "dense", "kv_dtype": "int4"}])
 def test_out_of_scope_options_raise(weights, kwargs):
     _, tprep = weights
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatcher(CFG_T, tprep, device="cpu", **{**POOL, **kwargs})
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    """gpt2-moe-test, every leaf drawn from a numpy seed at 0.3: JAX's
+    prepared tree and the port's."""
+    from dnn_tpu.models import gpt_moe as jgm
+
+    rng = np.random.default_rng(5)
+    tree = jax.tree.map(
+        lambda a: (rng.standard_normal(a.shape) * 0.3).astype(np.float32),
+        jax.eval_shape(lambda: jgm.init(jax.random.PRNGKey(0),
+                                        jgm.PRESETS["gpt2-moe-test"])))
+    cfg = jgm.PRESETS["gpt2-moe-test"]
+    return jgpt.prepare_stacked(jax.tree.map(jnp.asarray, tree), cfg), tree
+
+
+@pytest.fixture(scope="module")
+def moe_jax_streams(moe_weights):
+    """The JAX batcher's streams of the script on gpt2-moe-test with the
+    routed FFN (dense pool): one run held against every pool of the
+    port's, as JAX's paged and dense pools route the same rows."""
+    from dnn_tpu.models import gpt_moe as jgm
+    from dnn_tpu.runtime.generate_moe import moe_cache_ffn as jffn
+
+    jcfg = jgm.PRESETS["gpt2-moe-test"]
+    return _script(JaxBatcher(jcfg, moe_weights[0], ffn=jffn(jcfg),
+                              **{**POOL, "kv": "dense"}))
+
+
+# the MoE switch (once kwargs1, kwargs3 and kwargs4 above, refused)
+@pytest.mark.parametrize("kwargs", [
+    {}, {"kv": "dense"}, {"kv": "paged"}], ids=["auto", "dense", "paged"])
+def test_moe_ffn_pools_match_jax(moe_weights, moe_jax_streams, kwargs,
+                                 monkeypatch):
+    """The GPT-MoE family served as GPT blocks with the routed FFN (the
+    batcher's `ffn=`, JAX's moe_cache_ffn) on each pool against the JAX
+    batcher, at the preset's capacity factor 1.25: the script's prefill
+    chunks (16 tokens, padding included) and decode steps (all 3 slots,
+    idle ones included) drop selections, and drops depend on every row
+    routed, so the streams agree only if the port routes exactly the
+    rows JAX's batcher routes. Greedy tokens identical."""
+    from dnn_tpu_torch.models import gpt_moe as tgm
+    from dnn_tpu_torch.parallel import moe as tmoe
+    from dnn_tpu_torch.runtime.generate_moe import moe_cache_ffn
+
+    _, tree = moe_weights
+    tcfg = tgm.PRESETS["gpt2-moe-test"]
+    pool = {**POOL, **kwargs}
+    want = moe_jax_streams
+    dropped = []
+    route = tmoe.route_topk
+
+    def counting(logits, *, top_k, capacity, normalize=True):
+        out = route(logits, top_k=top_k, capacity=capacity,
+                    normalize=normalize)
+        dropped.append(logits.shape[-2] * top_k - int(out[0].sum()))
+        return out
+
+    monkeypatch.setattr(tmoe, "route_topk", counting)
+    b = ContinuousBatcher(tcfg, from_jax_params(tree, tcfg, "cpu"),
+                          ffn=moe_cache_ffn(tcfg), device="cpu", **pool)
+    got = _script(b)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert sum(dropped) > 0 and b.paged == (kwargs.get("kv") != "dense")
 
 
 # json_depth (once opt2) is no batcher option: the daemon turns j= into
