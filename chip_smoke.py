@@ -370,13 +370,35 @@ Phases (any failure exits non-zero and prints no result):
           and G1-solo (K6 R=8) against the no-cache loop; G1-logprobs
           (the paged pool with logprobs on, within FORCED_F32_TOL of the
           no-cache loop's: the streams repeat one token)
+  6e. slice 21, inside the main path after [resilience]: [int4] C-int4
+     (A's daemon over a paged int4 pool: K5 on the packed row, K7 on the
+     packed pool) and B-int4 (dense + buckets: K6), each stream against
+     the plain int4 cache loop (reference_greedy_cache "int4") with C's
+     near-tie rule; make_generate and make_bucketed_generate (ladder
+     INT4_BUCKETS) at int4 on the 300-token prompt, exact launches, equal
+     tokens, the grows counted; C's and C-int4's captured decode step in
+     turns (information). [obs]: A's daemon with its endpoint and the four
+     SLOs (OBS_SLO), the four prompts each under a client span of its own
+     (tr=): /trace?id= holds each request's lm.request (a child of the
+     client's span), queue_wait, admit, prefill, one prefill_chunk a
+     64-token chunk and decode; /traces lists them; every step's phases
+     on the step clock cover >= OBS_COVERAGE of its wall timed around
+     step(); dnn_tpu_mbu and dnn_tpu_mfu in (0, 1]; three burn rates;
+     cuda_graph_captures_total's rise = the batcher's captures; then a
+     replayed step with obs on and off, OBS_STEPS interleaved steps each,
+     the same launches, the median at most OBS_OVERHEAD apart. [llama]
+     adds L-C-int4 (llama3-8b over a paged int4 pool against the plain
+     int4 loop, exact launches), L-B reads its daemon's MBU/MFU (in (0,
+     1]); every serve_run prints its daemon's goodput gauges over the run
+     (fresh_goodput). The kernel phases hold int4 caches beside f32, bf16
+     and int8 (KV_CASES; the window rows WIN_INT4 only).
   7. one JSON line describing the kernels (the bf16-q rows as entries
      of their own; K6 at [beam]'s decode shape, B*K=8 S=162, and K1 at
      [embed]'s, B=4 T=S=320, as extra shapes of their entries, each
      checked against its plain version and timed beside its bound and
      SDPA), then the result line.
 
-Tolerances against the plain versions: 1e-4 for f32 and int8 caches
+Tolerances against the plain versions: 1e-4 for f32, int8 and int4 caches
 (both sides read the same values; only the summation order differs),
 2e-2 for bf16, and for a bf16 q 2e-2 of the output's largest |value|
 (at least 1); 6d's rows: 1e-4 for every cache type with an f32 q, 2e-2
@@ -392,7 +414,8 @@ Kernel timings cycle over the 12 layers' slices of a full-model cache,
 so each launch reads K/V the previous launches did not leave in the
 50 MB L2 — as on the serving path.
 Bounds: bytes moved (each input read once, each output written once,
-live columns only, int8 scales included) at 3.35 TB/s, or the work at
+live columns only, int8 scales included; int4 at half a byte an element
+plus its scales) at 3.35 TB/s, or the work at
 the inputs' type's peak. K6 and K7: f32 FMAs at 67 TFLOP/s. The flash
 kernels (K1-K4): the function's own products at the card's fastest rate
 for the inputs' type, bf16 on the tensor cores at 989 TFLOP/s and f32
@@ -509,6 +532,8 @@ def kernel_label(mangled: str) -> str:
         return word
     types = {"If": "f32", "I13__nv_bfloat16": "bf16", "Ia": "int8"}
     names = [t for pre, t in types.items() if targs.startswith(pre)]
+    if "4Int4" in targs.split("L", 1)[0]:  # the anonymous namespace's Int4
+        names.append("int4")
     names += re.findall(r"L[ib](-?\d+)", targs)
     return f"{word}<{', '.join(names)}>"
 
@@ -607,19 +632,26 @@ def phase_wire(card):
             "tensor_view_ms": verify_s * 1e3}
 
 
-KV_CASES = (("f32", F32_TOL), ("bf16", BF16_TOL), ("int8", F32_TOL))
+KV_CASES = (("f32", F32_TOL), ("bf16", BF16_TOL), ("int8", F32_TOL),
+            ("int4", F32_TOL))
+DTYPES = tuple(name for name, _ in KV_CASES)  # the cache kernels' types
+QUANT = ("int8", "int4")  # the quantized types: no one-call library
+# counterpart, scales beside the payload
 
 
 def kv_cache(gen, shape, name, dev):
     """(k, v, ks, vs) of `shape` for cache type `name`: f32 draws, cast
-    to bf16, or quantized to int8 with the port's own quantizer (then
-    ks/vs are its per-row scales; None for the float types)."""
-    from dnn_tpu_torch.runtime.kvcache import _quantize_rows
+    to bf16, or quantized to int8 or int4 (packed two values a byte) with
+    the port's own quantizers (then ks/vs are its per-row scales; None
+    for the float types)."""
+    from dnn_tpu_torch.runtime.kvcache import (_quantize_rows,
+                                               _quantize_rows_int4)
 
     k = torch.randn(*shape, generator=gen, device=dev)
     v = torch.randn(*shape, generator=gen, device=dev)
-    if name == "int8":
-        (kq, ks), (vq, vs) = _quantize_rows(k), _quantize_rows(v)
+    if name in QUANT:
+        quant = _quantize_rows if name == "int8" else _quantize_rows_int4
+        (kq, ks), (vq, vs) = quant(k), quant(v)
         return kq, vq, ks, vs
     dt = torch.float32 if name == "f32" else torch.bfloat16
     return k.to(dt), v.to(dt), None, None
@@ -633,9 +665,9 @@ def scales_at(ks, vs, i):
 
 def kv_bytes(name: str, positions: int, d: int) -> int:
     """Bytes of K plus V at `positions` (position, head) rows of width d,
-    int8 scales included."""
-    el = {"f32": 4, "bf16": 2, "int8": 1}[name]
-    return 2 * positions * (d * el + (4 if name == "int8" else 0))
+    quantized scales included (int4: half a byte an element)."""
+    el = {"f32": 4, "bf16": 2, "int8": 1, "int4": 0.5}[name]
+    return int(2 * positions * (d * el + (4 if name in QUANT else 0)))
 
 
 def check(label: str, got, want, tol: float) -> float:
@@ -727,7 +759,7 @@ def phase_k5(dev, gen):
             plain = time_ms(cycling(lambda i: reference_cached_attention(
                 q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
             lib = None
-            if name != "int8":  # no one-call library counterpart for int8
+            if name not in QUANT:  # no one-call library counterpart
                 cols = torch.arange(S, device=dev)
                 mask = cols[None, :] <= (base + torch.arange(T, device=dev))[:, None]
                 qd = q.to(k.dtype)
@@ -890,7 +922,7 @@ def phase_bf16_q_kernels(dev, gen):
             ms = time_ms(cycling(lambda i: call(kernel, i), LAYERS))
             plain_ms = time_ms(cycling(lambda i: call(plain, i), LAYERS))
             lib_ms = None
-            if lib is not None and name != "int8":
+            if lib is not None and name not in QUANT:
                 lib_ms = time_ms(cycling(lambda i: lib(q[i], *cache(i)),
                                          LAYERS))
             if k5 is not None:
@@ -1060,7 +1092,7 @@ def phase_k6(dev, gen):
         plain = time_ms(cycling(lambda i: reference_decode_attention(
             q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
         lib = None
-        if name != "int8":  # no one-call library counterpart for int8
+        if name not in QUANT:  # no one-call library counterpart
             qd = q.to(k.dtype)
             lib = time_ms(cycling(
                 lambda i: torch.nn.functional.scaled_dot_product_attention(
@@ -1142,7 +1174,7 @@ def phase_k6_solo(dev, gen):
         plain = time_ms(cycling(lambda i: reference_decode_attention(
             q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
         lib = None
-        if name != "int8":  # every column is live: SDPA without a mask
+        if name not in QUANT:  # every column is live: SDPA without a mask
             qd = q.to(k.dtype)
             lib = time_ms(cycling(
                 lambda i: torch.nn.functional.scaled_dot_product_attention(
@@ -1184,7 +1216,7 @@ def phase_decode_splits(dev, gen):
             bp = 16
             tables = torch.arange(1, B * S // bp + 1, dtype=torch.int32,
                                   device=dev).reshape(B, S // bp)
-            for name, tol in KV_CASES:
+            for name, tol in KV_CASES[:3]:  # int4: the plan is int8's
                 q = torch.randn(LAYERS, B, 12, 1, 64, generator=gen,
                                 device=dev)
                 shape = ((LAYERS, B * S // bp + 1, 12, bp, 64) if paged
@@ -1566,10 +1598,11 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
                            chunk=None, compute_dtype=None, step_rows=1,
                            forced=None, logits_out=None, ffn=None):
     """Independent greedy loop over a dense cache of type `kv_dtype`
-    ("f32", "bf16" or "int8"): no batcher and no kernel. A cache of prompt +
-    n_new positions (at KV heads for a LlamaConfig); bf16 stores K/V
-    rounded to bf16, int8 quantizes them with the port's _quantize_rows
-    and keeps the scales; attention is the plain version (grouped heads
+    ("f32", "bf16", "int8" or "int4"): no batcher and no kernel. A cache
+    of prompt + n_new positions (at KV heads for a LlamaConfig); bf16
+    stores K/V rounded to bf16, int8 quantizes them with the port's
+    _quantize_rows and keeps the scales, int4 with _quantize_rows_int4
+    (packed two values a byte, unpacked by the plain attention); attention is the plain version (grouped heads
     for llama), its output cast to the cache's type for a bf16 cache, as
     the port's FloatKV.attend does. The blocks around the attention are
     the family's own (gpt2's, or models/llama.py's), at `compute_dtype`
@@ -1595,20 +1628,23 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
         reference_cached_attention)
     from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
     from dnn_tpu_torch.runtime.generate import _ffn_out, _qkv_heads
-    from dnn_tpu_torch.runtime.kvcache import _quantize_rows
+    from dnn_tpu_torch.runtime.kvcache import (_quantize_rows,
+                                               _quantize_rows_int4)
 
     from dnn_tpu_torch.models import llama
     from dnn_tpu_torch.runtime.kvcache import cache_shape
 
-    if kv_dtype not in ("f32", "bf16", "int8"):
-        raise ValueError(f"kv_dtype must be f32, bf16 or int8, got "
+    if kv_dtype not in ("f32", "bf16", "int8", "int4"):
+        raise ValueError(f"kv_dtype must be f32, bf16, int8 or int4, got "
                          f"{kv_dtype!r}")
-    quant = kv_dtype == "int8"
+    quant = kv_dtype in ("int8", "int4")
+    quantize = _quantize_rows_int4 if kv_dtype == "int4" else _quantize_rows
     store = {"f32": torch.float32, "bf16": torch.bfloat16,
-             "int8": torch.int8}[kv_dtype]
+             "int8": torch.int8, "int4": torch.uint8}[kv_dtype]
     is_llama = isinstance(cfg, llama.LlamaConfig)
     padded = len(prompt) if chunk is None else -(-len(prompt) // chunk) * chunk
-    shape = cache_shape(cfg, 1, max(padded, len(prompt) + n_new))
+    shape = cache_shape(cfg, 1, max(padded, len(prompt) + n_new),
+                        packed=kv_dtype == "int4")
     kv = {"k": torch.zeros(shape, dtype=store, device=dev),
           "v": torch.zeros(shape, dtype=store, device=dev)}
     if quant:
@@ -1624,7 +1660,7 @@ def reference_greedy_cache(prepared, cfg, prompt, n_new, dev, kv_dtype,
         t = k.shape[2]
         for name, new in (("k", k), ("v", v)):
             if quant:
-                payload, scale = _quantize_rows(new)
+                payload, scale = quantize(new)
                 kv[name + "s"][i, :, :, start:start + t] = scale
             else:
                 payload = new.to(store)
@@ -1701,6 +1737,18 @@ NEAR_TIE = 1e-4
 # only at a top-2 gap of 1.967e-3, so the tie is that with 2.5x headroom
 # (the [llama] lines print this run's gaps)
 QUANT_TIE = 5e-3
+# int4 KV on gpt2 (C-int4, B-int4) is held at QUANT_TIE too: a level is
+# 1/7 of a row's largest value (int8's 1/127), so the kernels' f32 noise
+# (about 1e-6 against the plain version) flips roundings 18x as often,
+# each 18x as large. On an H100 C-int4's 300-token stream parted from the
+# plain int4 loop (prefilled in the served chunks, stepping the pool's 4
+# rows) at a top-2 gap of 2.4e-4, where both plain loops agree.
+# llama3-8b over an int4 cache (L-C-int4), 32 layers of such flips: its
+# served stream parted from the plain int4 loop at a top-2 gap of 1.0e-2
+# on an H100 (every launch exact, K5/K7 int4 at llama3-8b's shapes within
+# 1e-4 of their plain versions). A 7-level value is coarser than a bf16
+# one (8 mantissa bits), so the tie is BF16_TIE's (the [llama] lines
+# print where two plain int4 loops part).
 # bf16 compute: the served streams are held to the plain loop in bf16
 # compute over a bf16 (or int8) cache, prefilled in the served 64-token
 # chunks, its decode steps at the pool's 4 rows (reference_greedy_cache's
@@ -1716,6 +1764,7 @@ QUANT_TIE = 5e-3
 # the largest parting; the lines print every parting's step and gap, and
 # PERF.md section 2 keeps them
 BF16_TIE = 0.2
+INT4_TIE = BF16_TIE  # llama3-8b over an int4 cache: see QUANT_TIE's note
 
 
 def loop_partings(label, prompts, chunked, whole):
@@ -1991,6 +2040,9 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         mixed0 = (list(graph.counts.get(mixed_kind, [0, 0]))
                   if graph is not None else [0, 0])
         chunks0 = batcher.prefill_chunks_run
+        # the daemon's goodput gauges over this run alone (a fresh
+        # tracker: its window starts here)
+        good = fresh_goodput(stop.servicer)
         spec = hasattr(batcher, "spec_steps")
         spec0 = ((batcher.spec_steps, batcher.spec_proposed,
                   batcher.spec_accepted) if spec else None)
@@ -2014,6 +2066,8 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         wall = time.perf_counter() - t0
         counts = read_counts()
         counts_bf16_q = read_counts(bf16_q=True)
+        goodput = None if good is None else (good.mbu(), good.mfu(),
+                                             good.tokens_per_sec())
         steps = n_steps[0]
         grows = batcher.bucket_grows - grows0
         captures = (graph.captures if graph is not None else 0) - caps0
@@ -2086,6 +2140,11 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
     print(f"[main] run {label}: 4 concurrent requests, {n_tokens} tokens in "
           f"{wall:.3f} s = {n_tokens / wall:.1f} tokens/s; TTFT (300-token "
           f"prompt, idle daemon) {ttft * 1e3:.1f} ms; on {card}", flush=True)
+    if goodput is not None:
+        print(f"[main] run {label}: the daemon's goodput gauges over the "
+              f"run: dnn_tpu_mbu {goodput[0]:.4f}, dnn_tpu_mfu "
+              f"{goodput[1]:.5f} (bf16 peak), goodput "
+              f"{goodput[2]:.1f} tokens/s; on {card}", flush=True)
     if same_as is not None:
         for i, prompt in enumerate(prompts):
             if results[i] != same_as["streams"][i]:
@@ -2101,11 +2160,27 @@ def serve_run(label, cfg, prepared, prompts, n_new, refs, needed, dev,
         info.update(label=label, streams=[results[i]
                                           for i in range(len(prompts))],
                     tokens_per_s=n_tokens / wall, ttft_ms=ttft * 1e3,
-                    steps=steps, spec=spec0)
+                    steps=steps, spec=spec0, goodput=goodput)
     for i, prompt in enumerate(prompts):
         compare_tokens(f"run {label} request {i} (prompt {len(prompt)})",
                        results[i], *refs[i], tie=tie)
     return counts_bf16_q if compute == "bf16" else counts
+
+
+def fresh_goodput(srv):
+    """A fresh GoodputTracker (the daemon's cost model and SLOs) in place
+    of the daemon's, so that its gauges' window starts now; None when obs
+    is off. The MBU and MFU it reads are over the run that follows:
+    bytes and FLOPs the runs' steps priced by the cost model, over the
+    wall since, against the card's peaks."""
+    from dnn_tpu_torch.obs.goodput import GoodputTracker
+
+    old = srv.goodput
+    if old is None:
+        return None
+    g = GoodputTracker(old.cost, slo=old.slo).install()
+    srv.goodput = srv.batcher.goodput = srv.worker.goodput = g
+    return g
 
 
 def phase_solo(cfg, prepared, prompt, n_new, refs, dev):
@@ -2418,7 +2493,7 @@ def phase_serve(cfg, prepared, prompts, refs, a_info, dev, card):
         mixed_profile("serve", "H paged f32", cfg, prepared, prompts, dev,
                       kv="paged")
     return {name: {dt: sum(r[name][dt] for r in runs)
-                   for dt in ("f32", "bf16", "int8")}
+                   for dt in DTYPES}
             for name in CACHE_KERNELS}
 
 
@@ -2644,7 +2719,7 @@ def phase_handoff(start, cfg, prepared, prompts, refs, dev, card):
     from dnn_tpu_torch.control import handoff
     from dnn_tpu_torch.runtime.kvcache import cache_shape
 
-    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+    total = {name: {dt: 0 for dt in DTYPES}
              for name in CACHE_KERNELS}
     pres = {}
     try:
@@ -2717,7 +2792,7 @@ def phase_kvtier(start, cfg, prepared, prompts, refs, dev, card):
     from dnn_tpu_torch.kvtier import migrate
 
     L = cfg.n_layer
-    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+    total = {name: {dt: 0 for dt in DTYPES}
              for name in CACHE_KERNELS}
     kv = dict(kv="paged", prefix_cache=256)
     da, dc, ds, stop_d = daemon(start, cfg, prepared, dev, **kv)
@@ -2882,7 +2957,7 @@ def phase_llama_4e(cfg, prepared, prompts, refs, dev, card):
     from dnn_tpu_torch.runtime.serving import ContinuousBatcher
 
     L, bf16 = cfg.n_layer, torch.bfloat16
-    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+    total = {name: {dt: 0 for dt in DTYPES}
              for name in CACHE_KERNELS}
     pool = dict(slots=4, max_len=1024, prompt_pad=64, block_len=16,
                 kv="paged", compute_dtype=bf16, device=dev)
@@ -3035,7 +3110,7 @@ def phase_item_4e(cfg, prepared, prompts, refs, dev, card):
     finally:
         close()
     return {name: {dt: sum(r[name][dt] for r in runs)
-                   for dt in ("f32", "bf16", "int8")}
+                   for dt in DTYPES}
             for name in CACHE_KERNELS}
 
 
@@ -3821,7 +3896,7 @@ def phase_resilience(cfg, prepared, prompts, refs, a_streams, dev, card,
 
     t_phase = time.perf_counter()
     L = cfg.n_layer
-    total = {name: {dt: 0 for dt in ("f32", "bf16", "int8")}
+    total = {name: {dt: 0 for dt in DTYPES}
              for name in CACHE_KERNELS}
     t0 = time.perf_counter()
     ok, detail, timed_out = subprocess_device_probe(
@@ -4148,13 +4223,371 @@ def phase_constrain(cfg, prepared, prompts, a_info, dev, card):
     if dev.type == "cuda":
         constrained_replay(cfg, prepared, prompts, json1, dev, card)
     return {name: {dt: j_counts[name][dt] + ilv_counts[name][dt]
-                   for dt in ("f32", "bf16", "int8")}
+                   for dt in DTYPES}
             for name in CACHE_KERNELS}
+
+
+INT4_STEPS = 24  # [int4]'s captured decode steps a turn (C against C-int4)
+# the solo bucketed decoder's ladder: the 300-token prompt prefills at
+# 304 positions, and its 16 tokens grow the cache to 512
+INT4_BUCKETS = (304, 512)
+
+
+def captured_step_walls(cfg, prepared, prompts, dev, steps, pools):
+    """The wall of a captured decode step (the batcher driven directly, 3
+    active slots, A's pool settings) on each of `pools` ({label: cache
+    options}), timed in turns (a, b, b, a): {label: [ms, ms]}."""
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    bats = {}
+    for label, kv in pools.items():
+        b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                              prompt_pad=64, block_len=16, device=dev, **kv)
+        for p in prompts[:3]:
+            b.submit(p, 4 * steps + 8)
+        for _ in range(4):  # the eager step, the capture, replays
+            b.step()
+        bats[label] = b
+    order = list(pools) + list(pools)[::-1]
+    walls = {label: [] for label in pools}
+    for label in order:
+        b = bats[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            b.step()
+        torch.cuda.synchronize()
+        walls[label].append((time.perf_counter() - t0) * 1e3 / steps)
+    return walls
+
+
+def phase_int4(cfg, prepared, prompts, n_new, ref_i4, dev, card):
+    """[int4] on the main path's gpt2 (ROADMAP item 2's remainder): C-int4
+    (the LM daemon over a paged int4 pool: K5 on the packed row, K7 on the
+    packed pool) and B-int4 (the dense pool with buckets: K6), each
+    stream against the plain int4 cache loop at QUANT_TIE (C's rule at
+    int4's larger levels: see QUANT_TIE), the loop prefilling in the
+    served 64-token chunks and stepping the
+    pool's 4 rows (so that its matmuls sum as the served ones do: a K/V
+    value within f32 noise of a 7-level rounding boundary moves a whole
+    level, about 1/7 of its row's largest value; the loop prefilling
+    whole, `ref_i4`, is printed beside it as the measure of that noise);
+    solo make_generate int4 and make_bucketed_generate int4 on the
+    300-token prompt against `ref_i4` (both prefill whole, one row), the
+    bucketed decoder's tokens equal to make_generate's, its bucket grows
+    counted; and, as information, C's and C-int4's captured decode step
+    in turns. Returns the launches."""
+    from dnn_tpu_torch.runtime.decode_buckets import make_bucketed_generate
+    from dnn_tpu_torch.runtime.generate import make_generate
+
+    t0 = time.perf_counter()
+    served_i4 = [reference_greedy_cache(prepared, cfg, p, n_new, dev, "int4",
+                                        chunk=64, step_rows=4)
+                 for p in prompts]
+    print(f"[int4] the plain int4 loop in the served chunks and rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    loop_partings("[int4] plain int4 loops", prompts, served_i4, ref_i4)
+    runs = [
+        serve_run("C-int4", cfg, prepared, prompts, n_new, served_i4,
+                  [("cached_attention", "int4"),
+                   ("paged_decode_attention", "int4")], dev, card,
+                  tie=QUANT_TIE, kv="paged", kv_dtype="int4"),
+        serve_run("B-int4", cfg, prepared, prompts, n_new, served_i4,
+                  [("cached_attention", "int4"), ("decode_attention", "int4")],
+                  dev, card, tie=QUANT_TIE, kv="dense", decode_buckets=True,
+                  kv_dtype="int4"),
+    ]
+    prompt = prompts[3]
+    solo = make_generate(cfg, max_new_tokens=n_new, kv_dtype="int4",
+                         device=dev)
+    bucketed = make_bucketed_generate(cfg, max_len=1024, max_new_tokens=n_new,
+                                      buckets=INT4_BUCKETS, kv_dtype="int4",
+                                      device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for gen in (solo, bucketed):
+        gen(prepared, [prompt[:8]])  # warm-up
+    toks = {}
+    for label, gen in (("make_generate", solo),
+                       ("make_bucketed_generate", bucketed)):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = gen(prepared, [prompt])
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {("cached_attention", "int4"): cfg.n_layer,
+                ("decode_attention", "int4"): cfg.n_layer * (n_new - 1)}
+        for (name, dt), n in want.items():
+            if dev.type == "cuda" and counts[name][dt] != n:
+                fail(f"[int4] {label}: {name} ({dt}) launched "
+                     f"{counts[name][dt]} times, expected {n}")
+        toks[label] = out[0].tolist()
+        compare_tokens(f"[int4] {label}", toks[label], *ref_i4[3],
+                       tie=QUANT_TIE)
+        print(f"[int4] {label} int4: {n_new} tokens after a {len(prompt)}-"
+              f"token prompt in {wall * 1e3:.1f} ms"
+              + (f", cache {bucketed.buckets[0]}.. rungs "
+                 f"{list(bucketed.buckets)}, {bucketed.bucket_grows} "
+                 "bucket grows" if gen is bucketed else "")
+              + f"; on {card}", flush=True)
+        runs.append(counts)
+    if toks["make_bucketed_generate"] != toks["make_generate"]:
+        fail(f"[int4] make_bucketed_generate {toks['make_bucketed_generate']}"
+             f" differs from make_generate {toks['make_generate']}")
+    if bucketed.bucket_grows < 1:
+        fail("[int4] make_bucketed_generate never grew its cache")
+    print("[int4] make_bucketed_generate's tokens equal make_generate's",
+          flush=True)
+    if dev.type == "cuda":
+        walls = captured_step_walls(
+            cfg, prepared, prompts, dev, INT4_STEPS,
+            {"C": {"kv": "paged", "kv_dtype": "int8"},
+             "C-int4": {"kv": "paged", "kv_dtype": "int4"}})
+        mean = {k: sum(v) / len(v) for k, v in walls.items()}
+        print(f"[int4] captured decode step (3 active slots, turns C, "
+              f"C-int4, C-int4, C): C {', '.join(f'{w:.4f}' for w in walls['C'])}"
+              f" ms, C-int4 {', '.join(f'{w:.4f}' for w in walls['C-int4'])} "
+              f"ms; C-int4 / C {mean['C-int4'] / mean['C']:.3f}; on {card}",
+              flush=True)
+    return {name: {dt: sum(r[name][dt] for r in runs) for dt in DTYPES}
+            for name in CACHE_KERNELS}
+
+
+OBS_SLO = dict(ttft_s=0.5, inter_token_s=0.05, availability=0.999,
+               target=0.99)  # [obs]: the daemon's four --slo_* settings
+OBS_STEPS = 60    # [obs]: replayed steps a mode, interleaved on/off
+OBS_COVERAGE = 0.95  # JAX's contract: the phases cover >= 95% of a step
+OBS_OVERHEAD = 0.10  # the step's wall with obs on over off, at most
+
+
+def obs_overhead(cfg, prepared, prompts, dev, card, steps=OBS_STEPS):
+    """A replayed decode step's wall with DNN_TPU_OBS on and off, the
+    batcher carrying the daemon's step clock and goodput tracker (3
+    active slots, A's pool): `steps` steps a mode, interleaved step by
+    step; the medians, and the launches and captures identical."""
+    from dnn_tpu_torch import obs
+    from dnn_tpu_torch.obs.goodput import GoodputTracker, model_cost
+    from dnn_tpu_torch.obs.timeline import StepClock
+    from dnn_tpu_torch.runtime.serving import ContinuousBatcher
+
+    b = ContinuousBatcher(cfg, prepared, slots=4, max_len=1024,
+                          prompt_pad=64, block_len=16, device=dev,
+                          kv="paged")
+    b.step_clock = StepClock()
+    b.goodput = GoodputTracker(model_cost(cfg, prepared, kv_dtype="f32"))
+    for p in prompts[:3]:
+        b.submit(p, 2 * steps + 16)
+    for _ in range(4):
+        b.step()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    graph = b._graph_step
+    walls = {True: [], False: []}
+    counts = {}
+    caps0 = graph.captures if graph is not None else 0
+    try:
+        for mode in (True, False):  # one step each to settle the mode
+            obs.set_enabled(mode)
+            b.step()
+        for i in range(2 * steps):
+            mode = i % 2 == 0
+            obs.set_enabled(mode)
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            b.step()
+            sync()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+            c = read_counts()
+            if counts.setdefault(mode, c) != c:
+                fail(f"[obs] obs on/off: a step's launches changed: {c} "
+                     f"against {counts[mode]}")
+    finally:
+        obs.set_enabled(True)
+    caps = (graph.captures if graph is not None else 0) - caps0
+    if counts[True] != counts[False] or caps:
+        fail(f"[obs] obs on/off: launches {counts} or captures ({caps}) "
+             f"differ")
+    med = {m: sorted(w)[len(w) // 2] for m, w in walls.items()}
+    ratio = med[True] / med[False]
+    if dev.type != "cuda":  # a CPU time is no measure of the card's step
+        return med
+    print(f"[obs] a replayed decode step (3 active slots, clock and goodput "
+          f"attached) with obs on {med[True]:.4f} ms, off {med[False]:.4f} "
+          f"ms (medians of {steps} interleaved steps each): on / off "
+          f"{ratio:.3f}; the same launches "
+          f"({counts[True]['paged_decode_attention']['f32']} K7) and no "
+          f"capture; on {card}", flush=True)
+    if ratio > 1 + OBS_OVERHEAD:
+        fail(f"[obs] obs on costs {100 * (ratio - 1):.1f}% of a step's wall "
+             f"(> {100 * OBS_OVERHEAD:.0f}%)")
+    return med
+
+
+def phase_obs(cfg, prepared, prompts, refs, dev, card):
+    """[obs] (ROADMAP Queue 1 item 12, serving half) on run A's settings:
+    the LM daemon with its endpoint, obs on and the four --slo_* settings
+    (OBS_SLO); the four prompts over gRPC concurrently, each tagged with a
+    trace of its own (tr=). Holds: /trace?id= returns each request's
+    spans (lm.request, queue_wait, admit, prefill, prefill_chunk, decode)
+    under that request's trace id and /traces lists every one; the
+    phases of every step /stepz records cover at least OBS_COVERAGE of
+    that step's wall timed outside the clock (around the batcher's
+    step()); dnn_tpu_mbu and dnn_tpu_mfu on /metrics lie in (0, 1]; the
+    capture counters (cuda_graph_captures_total) equal the captures the
+    batcher's CapturedDecode counted; the streams equal run A's
+    references. Then the obs on/off step walls (obs_overhead). Returns
+    the launches."""
+    from dnn_tpu_torch.comm.client import NodeClient
+    from dnn_tpu_torch.obs.goodput import SLOConfig
+    from dnn_tpu_torch.obs.trace import start_span
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_in_background
+    from dnn_tpu_torch.utils.metrics import default_metrics
+
+    def captures_counted():
+        return sum(v for k, v in default_metrics.snapshot()["counters"].items()
+                   if k.startswith("cuda_graph_captures_total"))
+
+    gc.collect()
+    caps0 = captures_counted()
+    port = free_port()
+    _thread, stop = start_lm_server_in_background(
+        cfg, prepared, port=port, slots=4, max_len=1024, prompt_pad=64,
+        block_len=16, seed=0, device=dev, kv="paged", metrics_port=0,
+        slo=SLOConfig(**OBS_SLO))
+    srv = stop.servicer
+    b, sc = srv.batcher, srv.step_clock
+    base = f"http://127.0.0.1:{srv.metrics_server.port}"
+    step, walls = b.step, []
+
+    def timed_step():  # the clock's record of this step, beside its wall
+        n0 = sc.steps_total
+        t0 = time.perf_counter()
+        out = step()
+        t1 = time.perf_counter()
+        if sc.steps_total == n0 + 1:
+            walls.append((t1 - t0, sc.records(last=1)[0]))
+        return out
+
+    b.step = timed_step
+    spans, results, errors = {}, {}, []
+    try:
+        client = NodeClient(f"127.0.0.1:{port}")
+        if not client.wait_healthy(deadline=60):
+            fail("[obs] LM daemon never became healthy")
+        client.generate(prompts[0], max_new_tokens=2, timeout=300)  # warm-up
+        reset_counts()
+        walls.clear()
+
+        def call(i):
+            sp = spans[i] = start_span("smoke.client", request=i)
+            try:
+                results[i] = client.generate(
+                    prompts[i], max_new_tokens=len(refs[i][0]), timeout=300,
+                    trace=sp).tolist()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {e!r}")
+            sp.end()
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        counts = read_counts()
+        if errors or len(results) != len(prompts):
+            fail(f"[obs] generate calls failed: {errors or 'timed out'}")
+        for i, prompt in enumerate(prompts):
+            compare_tokens(f"[obs] request {i} (prompt {len(prompt)})",
+                           results[i], *refs[i])
+        # the spans: each request's under its own trace id
+        for i, prompt in enumerate(prompts):
+            tid = spans[i].trace_id
+            code, body = http(f"{base}/trace?id={tid}")
+            ev = [e for e in json.loads(body)["traceEvents"]
+                  if e["ph"] == "X"]
+            names = sorted({e["name"] for e in ev})
+            root = [e for e in ev if e["name"] == "lm.request"]
+            n_chunks = -(-len(prompt) // 64)
+            if (code != 200 or len(root) != 1
+                    or root[0]["args"]["parent_id"] != spans[i].span_id
+                    or any(e["args"]["trace_id"] != tid for e in ev)
+                    or not {"queue_wait", "admit", "prefill",
+                            "decode"} <= set(names)
+                    or sum(e["name"] == "prefill_chunk" for e in ev)
+                    != n_chunks):
+                fail(f"[obs] request {i}: /trace?id={tid} holds {names} "
+                     f"({len(ev)} spans; {n_chunks} chunks expected)")
+            print(f"[obs] request {i} (prompt {len(prompt)}): /trace?id="
+                  f"{tid}: {len(ev)} spans {names}, lm.request "
+                  f"{root[0]['dur'] / 1e3:.2f} ms under the client's span",
+                  flush=True)
+        _, ids = http(f"{base}/traces")
+        if not {spans[i].trace_id for i in spans} <= set(json.loads(ids)):
+            fail("[obs] /traces misses a request's trace id")
+        # the step clock against the steps' walls timed outside it
+        cover = []
+        for wall, rec in walls:
+            admit = sum(t1 - t0 for t0, t1 in rec["admit_slices"])
+            cover.append((rec["wall"] - admit) / wall)
+        if not walls or min(cover) < OBS_COVERAGE:
+            fail(f"[obs] /stepz phases cover {min(cover or [0]):.4f} of a "
+                 f"step's wall (< {OBS_COVERAGE}) over {len(walls)} steps")
+        _, body = http(f"{base}/stepz")
+        stepz = json.loads(body)
+        phases = {p: d["frac"] for p, d in stepz["phases"].items()}
+        print(f"[obs] /stepz: {len(walls)} steps of the run, the clock's "
+              f"phases cover {min(cover):.4f} .. {max(cover):.4f} of each "
+              f"step's wall timed around step(); window phase fractions "
+              f"{phases}, host_fraction {stepz['host_fraction']}, sync_tax "
+              f"{stepz['sync_tax']}, last step {stepz['last_wall_ms']} ms; "
+              f"on {card}", flush=True)
+        # the goodput gauges and the capture counters on /metrics
+        _, text = http(f"{base}/metrics")
+        gauges = {}
+        for line in text.splitlines():
+            for name in ("dnn_tpu_mbu", "dnn_tpu_mfu",
+                         "dnn_tpu_goodput_tokens_per_sec",
+                         "serving_tokens_per_sec"):
+                if line.startswith(name + " "):
+                    gauges[name] = float(line.split()[1])
+            if line.startswith("dnn_tpu_slo_burn_rate{"):
+                gauges[line.split()[0]] = float(line.split()[1])
+        for name in ("dnn_tpu_mbu", "dnn_tpu_mfu"):
+            # the card's peaks price them; the CPU has none (they read 0)
+            if dev.type == "cuda" and not 0.0 < gauges.get(name, 0.0) <= 1.0:
+                fail(f"[obs] {name} {gauges.get(name)} is not in (0, 1]")
+        if len([k for k in gauges if k.startswith("dnn_tpu_slo")]) != 3:
+            fail(f"[obs] /metrics lacks a burn rate: {gauges}")
+        for name in ("serving_inter_token_seconds", "step_wall_seconds") + (
+                ("cuda_graph_captures_total",) if dev.type == "cuda"
+                else ()):  # the CPU steps eagerly: it captures nothing
+            if name not in text:
+                fail(f"[obs] /metrics lacks {name}")
+        client.close()
+    finally:
+        stop()
+    graph = b._graph_step
+    counted = captures_counted() - caps0
+    if graph is not None and counted != graph.captures:
+        fail(f"[obs] cuda_graph_captures_total rose by {counted}, the "
+             f"daemon's batcher captured {graph.captures} graphs")
+    print(f"[obs] /metrics over the daemon's life (warm-up included): "
+          f"{gauges}; cuda_graph_captures_total +{counted} = the batcher's "
+          f"{graph.captures if graph is not None else 0} captures; on "
+          f"{card}", flush=True)
+    if dev.type == "cuda":
+        require("[obs] run", counts, [("cached_attention", "f32"),
+                                      ("paged_decode_attention", "f32")])
+    obs_overhead(cfg, prepared, prompts, dev, card)
+    return counts
 
 
 def phase_main_path(dev, card: str):
     """Every main-path run: A paged f32, B dense + buckets f32, C paged
-    int8, D paged bf16, then solo make_generate f32, bf16 and int8.
+    int8, D paged bf16, then solo make_generate f32, bf16 and int8, and
+    the later slices' phases on the same model ([int4], [obs] last).
     Returns the launches of all runs summed per (kernel, dtype), and what
     the profile needs."""
     from dnn_tpu_torch.convert import from_jax_params
@@ -4172,11 +4605,11 @@ def phase_main_path(dev, card: str):
     n_new = 16
     t0 = time.perf_counter()
     ref_f32 = [reference_greedy(prepared, cfg, p, n_new, dev) for p in prompts]
-    ref_i8, ref_bf16 = ([reference_greedy_cache(prepared, cfg, p, n_new, dev,
-                                                kv_dtype) for p in prompts]
-                        for kv_dtype in ("int8", "bf16"))
-    print(f"[main] references (no-cache f32, plain int8 and bf16 cache "
-          f"loops) in {time.perf_counter() - t0:.1f} s", flush=True)
+    ref_i8, ref_bf16, ref_i4 = ([reference_greedy_cache(
+        prepared, cfg, p, n_new, dev, kv_dtype) for p in prompts]
+        for kv_dtype in ("int8", "bf16", "int4"))
+    print(f"[main] references (no-cache f32, plain int8, bf16 and int4 "
+          f"cache loops) in {time.perf_counter() - t0:.1f} s", flush=True)
     a_info = {}
     runs = [
         serve_run("A", cfg, prepared, prompts, n_new, ref_f32,
@@ -4204,9 +4637,12 @@ def phase_main_path(dev, card: str):
                       dev, card),
         phase_resilience(cfg, prepared, prompts, ref_f32,
                          a_info["streams"], dev, card),
+        timed("int4", phase_int4, cfg, prepared, prompts, n_new, ref_i4,
+              dev, card),
+        timed("obs", phase_obs, cfg, prepared, prompts, ref_f32, dev, card),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
-                       for dt in ("f32", "bf16", "int8")}
+                       for dt in DTYPES}
                 for name in CACHE_KERNELS}
     return launches, prepared, cfg, prompts
 
@@ -4329,7 +4765,7 @@ def phase_bf16(dev, card, model="gpt2"):
                      dev, kv="dense", decode_buckets=True,
                      compute_dtype=bf16)
     return {name: {dt: sum(r[name][dt] for r in runs)
-                   for dt in ("f32", "bf16", "int8")}
+                   for dt in DTYPES}
             for name in CACHE_KERNELS}
 
 
@@ -4538,10 +4974,11 @@ def pipe_cifar(dev, card):
                  f"predicts {pred}")
         for node, out in zip(("node1", "node2"), outs):
             logged = _wait_for(out, f"device {dev.type}", procs, 60)
+            # the record's message: after the logger's [node id] prefix
             print(f"[pipe] P-a {node}: " + [
                 ln for ln in logged.splitlines()
-                if f"device {dev.type}" in ln][0].split(":", 2)[-1].strip(),
-                flush=True)
+                if f"device {dev.type}" in ln][0].split(
+                    f"[{node}] ", 1)[-1].strip(), flush=True)
         client = NodeClient(raw["nodes"][0]["address"])
         walls = []
         for _ in range(5):
@@ -5085,7 +5522,7 @@ def phase_spec(dev, card, target=SPEC_TARGET, draft=SPEC_DRAFT):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     f32_counts = {name: {dt: sum(r[name][dt] for r in runs)
-                         for dt in ("f32", "bf16", "int8")}
+                         for dt in DTYPES}
                   for name in CACHE_KERNELS}
     verify = {"f32": L_t * (s_info["steps"] + ilv_info["steps"] + iters),
               "bf16": L_t * b_info["steps"]}
@@ -5611,7 +6048,7 @@ def phase_llama_kernels(dev, gen):
         plain = time_ms(cycling(lambda i: reference_cached_attention(
             q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
         lib = None
-        if name != "int8":
+        if name not in QUANT:
             qd = q.to(k.dtype)
             lib = time_ms(cycling(lambda i: sdpa_gqa(qd[i], k[i], v[i], mask),
                                   LAYERS))
@@ -5671,7 +6108,7 @@ def phase_llama_kernels(dev, gen):
         plain = time_ms(cycling(lambda i: reference_decode_attention(
             q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
         lib = None
-        if name != "int8":  # columns <= last; q as 32 heads
+        if name not in QUANT:  # columns <= last; q as 32 heads
             qd = q.reshape(LAYERS, B, H, 1, D).to(k.dtype)
             live = torch.arange(S, device=dev)[None, :] <= last
             lib = time_ms(cycling(lambda i: sdpa_gqa(qd[i], k[i], v[i],
@@ -5703,6 +6140,8 @@ def phase_llama(dev, card, cfg=None):
           below QUANT_TIE (K5, K7 int8, exactly); the same loop
           prefilling each prompt whole is printed beside it, as the
           measure of the int8 noise;
+      L-C-int4 the same with int4 KV against the plain int4 loop (K5,
+          K7 int4, exactly);
       L-solo llama.make_generate on the 300-token prompt, dense f32
           cache, 32 tokens, equal to reference_greedy; K5 once per layer,
           K6 once per layer per token after the first, exactly;
@@ -5741,12 +6180,20 @@ def phase_llama(dev, card, cfg=None):
     # noise that QUANT_TIE allows for
     ref_i8 = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "int8",
                                      chunk=64) for p in prompts]
+    # int4: the pool's 4 rows a step too, as [int4]'s served loop (a
+    # level is 1/7 of a row's largest value, so f32 noise moves more)
+    ref_i4 = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev, "int4",
+                                     chunk=64, step_rows=4) for p in prompts]
+    whole_i4 = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev,
+                                       "int4") for p in prompts]
     whole_i8 = [reference_greedy_cache(prepared, cfg, p, LLAMA_NEW, dev,
                                        "int8") for p in prompts]
     print(f"[llama] references (no-cache f32; plain int8 cache loops, "
-          f"chunked and whole) in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"chunked and whole; the plain int4 loop, chunked) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     loop_partings("[llama] plain int8 loops", prompts, ref_i8, whole_i8)
+    loop_partings("[llama] plain int4 loops (served chunks and rows, and "
+                  "whole prompts a row at a time)", prompts, ref_i4, whole_i4)
     chunks = sum(-(-len(p) // 64) for p in prompts)
 
     def exact(dt):
@@ -5763,6 +6210,13 @@ def phase_llama(dev, card, cfg=None):
                    ("paged_decode_attention", "int8")], dev, card,
                   exact=exact("int8"), tie=QUANT_TIE, kv="paged",
                   kv_dtype="int8"),
+        # [int4] L-C-int4: the same over a paged int4 pool (K5 and K7 on
+        # the packed payload)
+        serve_run("L-C-int4", cfg, prepared, prompts, LLAMA_NEW, ref_i4,
+                  [("cached_attention", "int4"),
+                   ("paged_decode_attention", "int4")], dev, card,
+                  exact=exact("int4"), tie=INT4_TIE, kv="paged",
+                  kv_dtype="int4"),
     ]
     # L-solo
     gen = llama.make_generate(cfg, max_new_tokens=LLAMA_SOLO_NEW, device=dev)
@@ -5793,7 +6247,7 @@ def phase_llama(dev, card, cfg=None):
         step_profile("llama", "L-A paged f32", cfg, prepared, prompts, dev,
                      kv="paged")
     counts = {name: {dt: sum(r[name][dt] for r in runs)
-                     for dt in ("f32", "bf16", "int8")}
+                     for dt in DTYPES}
               for name in CACHE_KERNELS}
     # [quant] Q8-L: this tree quantized on the card, the f32 copy freed
     from dnn_tpu_torch.quant import quantize_gpt
@@ -5884,6 +6338,15 @@ def phase_llama_bf16(dev, card, cfg=None):
         counts = {name: {dt: counts.get(name, {}).get(dt, 0) + n
                          for dt, n in by.items()}
                   for name, by in run.items()}
+    # [obs] at L-B: the daemon's dnn_tpu_mbu over the run (serve_run's
+    # fresh tracker), in (0, 1]
+    mbu, mfu, _ = lb_info.get("goodput") or (0.0, 0.0, 0.0)
+    if dev.type == "cuda" and not (0.0 < mbu <= 1.0 and 0.0 < mfu <= 1.0):
+        fail(f"[obs] L-B: dnn_tpu_mbu {mbu} or dnn_tpu_mfu {mfu} is not in "
+             "(0, 1]")
+    print(f"[obs] L-B: dnn_tpu_mbu {mbu:.4f}, dnn_tpu_mfu {mfu:.5f} over the "
+          f"run (prefill and decode, the daemon's host gaps included); on "
+          f"{card}", flush=True)
     t0 = time.perf_counter()
     run = phase_llama_4e(cfg, prepared, prompts, refs, dev, card)
     print(f"[llama] LH and LK wall {time.perf_counter() - t0:.1f} s",
@@ -5997,7 +6460,7 @@ def phase_quant(cfg, prepared, prompts, dev, card):
         if dev.type == "cuda":
             step_profile("quant", label, cfg, tree, prompts, dev, kv="paged")
     return {name: {dt: sum(r[name][dt] for r in runs)
-                   for dt in ("f32", "bf16", "int8")}
+                   for dt in DTYPES}
             for name in CACHE_KERNELS}
 
 
@@ -6714,6 +7177,11 @@ WIN_ROWS = (
 )
 
 
+# the rows held at an int4 cache too: one banded, one at D = 256 (the
+# card tests hold every variant at int4)
+WIN_INT4 = ("K7 band", "K5 D256 gemma")
+
+
 def band_lo(limit: int, window) -> int:
     """The first live column of a row whose causal limit is `limit`."""
     return 0 if window is None else max(0, limit - window + 1)
@@ -6826,7 +7294,8 @@ def phase_window_kernels(dev, gen):
                 shape = (f"B={b} Hk={hk} R={r} bp={bp} nb_max={nb} pos "
                          f"{pos_list}")
         out[key] = {}
-        for qn, name in ((qn, name) for qn in WIN_Q for name, _ in KV_CASES):
+        for qn, name in ((qn, name) for qn in WIN_Q for name, _ in KV_CASES
+                         if name != "int4" or key in WIN_INT4):
             qdt = torch.float32 if qn == "f32" else torch.bfloat16
             q_bytes = 4 if qn == "f32" else 2
             k, v, ks, vs = kv_cache(gen, kv_shape, name, dev)
@@ -7652,7 +8121,7 @@ def window_records(rows, by_phase):
     the entry's "launches" is their sum."""
     src = "dnn_tpu_torch/ops/cuda/csrc/"
     pallas = "dnn_tpu/ops/pallas/cached_attention.py"
-    zero = {"f32": 0, "bf16": 0, "int8": 0}
+    zero = dict.fromkeys(DTYPES, 0)
     entries = []
     for name, source, line, var, main, main_q, keys in (
             ("cached_attention", "cached_attention.cu", 77, "band",
@@ -8077,7 +8546,7 @@ def moe_gpt_legs(dev, card, cfg=None, d_cfg=None):
           f"attention, f32) in {time.perf_counter() - t0:.1f} s; smallest "
           f"top-2 gap {min(min(g) for _, g in refs):.3e}", flush=True)
     print_drops("moe", "M-GA/M-GB reference", ref_fwd)
-    total = {n: {dt: 0 for dt in ("f32", "bf16", "int8")}
+    total = {n: {dt: 0 for dt in DTYPES}
              for n in CACHE_KERNELS}
     streams = {}
     for label, kv, decode in (
@@ -8464,7 +8933,7 @@ def moe_qwen(dev, card, name="qwen15-moe-a2.7b"):
                        *refs[i], tie=BF16_TIE)
     routing_flips("moe", "QM", prep, cfg, prompts[3], dev, bf16)
     out = {k: {dt: launches.get(k, {}).get(dt, 0)
-               for dt in ("f32", "bf16", "int8")} for k in CACHE_KERNELS}
+               for dt in DTYPES} for k in CACHE_KERNELS}
     if dev.type != "cuda":
         return out
     walls = step_profile("moe", "QM paged bf16", cfg, prep, prompts, dev,
@@ -8545,19 +9014,19 @@ def phase_moe_kernels(dev, gen):
     return out
 
 
-def phase_moe(dev, card):
+def phase_moe(dev, card, mixtral_cfg=None):
     """[moe] (slice 20): the MoE families through the LM daemon's path,
     each leg's launch counts zeroed just before it and read just after,
     exact; every leg's decode step one replay bit-equal to its eager step
     (step_profile); the leg's captured step wall and device busy, the
     routed FFN's share, its weight bytes. Returns (the f32 launches of
     the gpt2-moe legs and MX-F32, the bf16-q launches of MX-Q8 and QM,
-    QM's)."""
+    QM's). `mixtral_cfg`: MX-Q8's config (default mixtral-8x7b's)."""
     t0 = time.perf_counter()
     f32 = timed("moe gpt2-moe", moe_gpt_legs, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    bf16 = timed("moe mixtral", moe_mixtral, dev, card)
+    bf16 = timed("moe mixtral", moe_mixtral, dev, card, mixtral_cfg)
     gc.collect()
     torch.cuda.empty_cache()
     add_into(f32, timed("moe mixtral f32", moe_mixtral_f32, dev, card))
@@ -8630,6 +9099,9 @@ print("TURN " + json.dumps(ms))
 """
 
 
+TURN_DTYPES = ("f32", "bf16", "int8")  # a parent tree may lack int4
+
+
 def decode_turns(parent: str, smi: str):
     """K6/K7 of the tree at `parent` and of this one, timed in turns
     (parent, this tree, this tree, parent) on one card, one process a
@@ -8650,7 +9122,7 @@ def decode_turns(parent: str, smi: str):
         turns.append((label, times))
         print(f"[turns] {label} ({root}): {json.dumps(times)}", flush=True)
     for kernel in ("K6", "K7", "K6 solo", "K7 short"):
-        for dt, _ in KV_CASES:
+        for dt in TURN_DTYPES:
             old = [t[kernel][dt] for label, t in turns if label == "parent"]
             new = [t[kernel][dt] for label, t in turns if label == "tree"]
             print(f"[turns] {kernel} {dt:4s}: parent "
@@ -8660,6 +9132,19 @@ def decode_turns(parent: str, smi: str):
 
 
 T_START = time.perf_counter()
+
+# The whole smoke's depth cuts (widths, heads, vocabularies kept): the
+# run had grown to 1134 s of the 1200 s limit with slice 21's phases, so
+# the three largest later-slice models are served at these depths here
+# (PERF.md section 4); tools/window_phases.py and tools/moe_phases.py
+# still run them at full depth.
+SMOKE_LAYERS = {"mistral-7b": 16, "gemma2-9b": 20, "mixtral-8x7b": 16}
+
+
+def smoke_cut(family, name):
+    """`family.PRESETS[name]` at its SMOKE_LAYERS depth."""
+    return dataclasses.replace(family.PRESETS[name],
+                               n_layer=SMOKE_LAYERS[name])
 
 
 def timed(label, fn, *args):
@@ -8743,10 +9228,15 @@ def main():
     # and gemma2-9b in bf16 compute (their launches all with a bf16 q) and
     # gemma-2b in f32, each model freed before the next is drawn
     win_rows = timed("window kernels", phase_window_kernels, dev, gen)
+    from dnn_tpu_torch.models import llama as tllama
+
     win_variants = {}
-    for tag, phase in (("mistral", phase_mistral), ("gemma2", phase_gemma2),
-                       ("gemma", phase_gemma)):
-        counts, win_variants[tag] = timed(phase.__name__, phase, dev, smi)
+    for tag, phase, cfg in (
+            ("mistral", phase_mistral, smoke_cut(tllama, "mistral-7b")),
+            ("gemma2", phase_gemma2, smoke_cut(tllama, "gemma2-9b")),
+            ("gemma", phase_gemma, None)):
+        counts, win_variants[tag] = timed(phase.__name__, phase, dev, smi,
+                                          cfg)
         gc.collect()
         torch.cuda.empty_cache()
         for q, by_q in counts.items():  # into the f32 or the bf16-q entries
@@ -8757,7 +9247,10 @@ def main():
     # the MoE families (slice 20): K5/K7 at qwen15-moe's shapes, then
     # gpt2-moe (f32), mixtral-8x7b (int8 weights) and qwen15-moe (bf16)
     moe_rows = timed("moe kernels", phase_moe_kernels, dev, gen)
-    moe_f32, moe_bf16, qm_counts = timed("moe", phase_moe, dev, smi)
+    from dnn_tpu_torch.models import llama_moe as tlm
+
+    moe_f32, moe_bf16, qm_counts = timed(
+        "moe", phase_moe, dev, smi, smoke_cut(tlm, "mixtral-8x7b"))
     add_into(launches, moe_f32)
     add_into(bf16_launches, moe_bf16)
 

@@ -417,15 +417,21 @@ class NodeClient:
                 for a in arrs]
 
     def generate(self, prompt_ids, *, max_new_tokens: int = 32,
-                 timeout: float = 120.0, **options) -> np.ndarray:
+                 timeout: float = 120.0, trace=None,
+                 **options) -> np.ndarray:
         """Prompt token ids -> generated tokens (SendTensor). `options`
-        are gen_request_id's keywords (seed, temperature, top_k, ...)."""
+        are gen_request_id's keywords (seed, temperature, top_k, ...).
+        `trace` (an obs.trace span) rides the request id as its `tr=`
+        tag: the daemon continues that trace (obs.tag_request_id)."""
+        from dnn_tpu_torch.obs.trace import tag_request_id
+
         call = self._channel.unary_unary(
             f"/{SERVICE_NAME}/SendTensor",
             request_serializer=wc.serialize_request,
             response_deserializer=wc.parse_response)
+        rid = gen_request_id(max_new_tokens, **options)
         req = wc.TensorRequest(
-            request_id=gen_request_id(max_new_tokens, **options),
+            request_id=tag_request_id(rid, trace) if trace else rid,
             tensor=_tensor_msg(np.asarray(prompt_ids, np.int32).reshape(-1)))
         resp = call(req, timeout=timeout)
         if not resp.HasField("result_tensor"):

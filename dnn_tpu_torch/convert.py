@@ -18,7 +18,12 @@ wi/bi/wo/bo or wg/wu/wd, their int8 `*_scale` leaves, Qwen2-MoE's
 Weight-quantized trees (quant.py: {"q", "scale", "bias"?} linears) cross
 too: int8 q leaves as they are, JAX's int4 q leaves (ml_dtypes int4
 numpy arrays) packed two to a byte on the way in and unpacked on the way
-out."""
+out.
+
+KV caches cross with `int4_cache_from_jax` / `int4_cache_to_jax`: a JAX
+int4 cache (dense or paged: K/V as their int4 values widened to int8 in
+numpy, f32 scales, int32 tables) into the port's packed layout (uint8 K/V
+of last dim D / 2, runtime/kvcache.py's nibble order), and back."""
 
 from __future__ import annotations
 
@@ -148,3 +153,34 @@ def load_npz(path: str):
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree
+
+
+def int4_cache_from_jax(cache, device="cpu"):
+    """A JAX int4 KV cache -> the port's: K/V leaves (int4 values as int8,
+    or ml_dtypes int4, numpy or JAX arrays of last dim D) packed two to a
+    byte (cached_attention.pack_nibbles), every other leaf (the f32
+    scales, a paged pool's int32 tables) as it is, all on `device`."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import pack_nibbles
+
+    out = {}
+    for name, leaf in cache.items():
+        a = np.asarray(leaf)
+        if name in ("k", "v"):
+            out[name] = pack_nibbles(torch.from_numpy(a.astype(np.int8)))
+        else:
+            out[name] = torch.from_numpy(np.array(a))
+        out[name] = out[name].to(device)
+    return out
+
+
+def int4_cache_to_jax(cache):
+    """`int4_cache_from_jax`'s inverse: the port's int4 cache -> numpy
+    leaves, K/V as their int4 values widened to int8 (last dim D; cast
+    with .astype(ml_dtypes.int4), or jnp.int4, for a JAX cache)."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import unpack_nibbles
+
+    out = {}
+    for name, leaf in cache.items():
+        t = leaf.detach().cpu()
+        out[name] = (unpack_nibbles(t) if name in ("k", "v") else t).numpy()
+    return out

@@ -10,9 +10,9 @@ radix.py and store.py).
     returns a run of shared blocks, and a prompt that leaves the cached
     text mid-block copies only the boundary block.
 
-Block migration between replicas and the router's prefix directory
-(the JAX package's migrate.py and directory.py) are not ported (ROADMAP
-PyTorch/CUDA port items 4 e and 11).
+Block migration between replicas is `migrate.py`. Of the JAX package's
+kvtier only the router's prefix directory (directory.py) is left to
+port (ROADMAP Queue 1 item 11).
 """
 
 from dnn_tpu_torch.kvtier.radix import RadixIndex, RadixNode  # noqa: F401

@@ -58,8 +58,8 @@ class RadixNode:
         self.logit_row = None
         self.origin = origin
         self.lru = 0
-        # the observability lens's path key (ROADMAP PyTorch/CUDA port
-        # item 12); always None here
+        # the observability lens's path key (ROADMAP Queue 1 item 12);
+        # always None here
         self.obskey = None
 
     @property

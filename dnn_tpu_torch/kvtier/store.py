@@ -83,8 +83,8 @@ class PrefixStore:
         self.block_hits = 0          # blocks reused across all lookups
         self.remote_block_hits = 0   # ... of adopted (migrated) origin
         self.evictions = 0
-        # the memory-economy observer's hook (ROADMAP PyTorch/CUDA port
-        # item 12): not ported, so always None
+        # the memory-economy observer's hook (ROADMAP Queue 1 item 12):
+        # not ported, so always None
         self.lens = None
 
     @property

@@ -15,7 +15,7 @@
     # the LM daemon
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         --serve_lm [--slots 4] [--max_len 1024] [--prompt_pad 64] \\
-        [--kv {paged,dense,auto}] [--kv_dtype {f32,bf16,int8}] \\
+        [--kv {paged,dense,auto}] [--kv_dtype {f32,bf16,int8,int4}] \\
         [--decode_buckets] [--paged_blocks 0] [--block_len 16] \\
         [--prefix_cache N] [--prefill_chunk_tokens N] [--overlap] \\
         [--seed 0] [--weights_npz params.npz] [--tokenizer bytes|DIR] \\
@@ -25,7 +25,9 @@
         [--role {prefill,decode,both}] [--kv_handoff_ttl_s 120] \\
         [--kv_lease_ttl_s 30] [--min_p P] [--repetition_penalty R] \\
         [--metrics_port PORT] [--watchdog_s S \\
-        [--on_wedged {503,restart,drain}]] [--chaos PLAN]
+        [--on_wedged {503,restart,drain}]] [--chaos PLAN] \\
+        [--slo_ttft_ms MS] [--slo_itl_ms MS] [--slo_avail F] \\
+        [--slo_target F]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
@@ -51,12 +53,31 @@ import torch
 
 from dnn_tpu_torch import resolve_device
 from dnn_tpu_torch.config import TopologyConfig, config_device
+from dnn_tpu_torch.utils.logging import setup_logging
 
 log = logging.getLogger("dnn_tpu_torch.node")
 
-# flags of the JAX CLI whose subsystems are not ported: each exits 2
+# flags of the JAX CLI whose subsystems are not ported: each exits 2 when
+# given a value other than its default
 _UNPORTED = (
     ("supervise", "--supervise: the supervisor", "ROADMAP Queue 1 item 11"),
+    ("route", "--route: the fleet front door", "ROADMAP Queue 1 item 11"),
+    ("route_targets", "--route_targets: the fleet front door",
+     "ROADMAP Queue 1 item 11"),
+    ("route_signals", "--route_signals: the fleet front door",
+     "ROADMAP Queue 1 item 11"),
+    ("policy", "--policy: the fleet front door's routing policies",
+     "ROADMAP Queue 1 item 11"),
+    ("kvtier", "--kvtier: the fleet front door's prefix-aware placement",
+     "ROADMAP Queue 1 item 11"),
+    ("process_id", "--process_id: multi-host runs",
+     "ROADMAP Queue 1 item 10"),
+    ("fleet_port", "--fleet_port: the fleet collector",
+     "ROADMAP Queue 1 item 12"),
+    ("fleet_targets", "--fleet_targets: the fleet collector",
+     "ROADMAP Queue 1 item 12"),
+    ("fleet_interval", "--fleet_interval: the fleet collector",
+     "ROADMAP Queue 1 item 12"),
 )
 
 
@@ -136,7 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="KV cache storage (default f32). int8 quantizes "
                         "with per-(position, head) scales: 4x less cache "
-                        "traffic than f32. int4 is not ported yet")
+                        "traffic than f32; int4 at 7 levels, two values "
+                        "a byte: 8x less")
     p.add_argument("--decode_buckets", action="store_true",
                    help="length-aware bucketed decode: the dense pool "
                         "grows bucket by bucket with the live context "
@@ -214,11 +236,43 @@ def build_parser() -> argparse.ArgumentParser:
                         "decodes within the drain grace, hand queued work "
                         "back retriable, then exit 43. Needs --watchdog_s")
     p.add_argument("--supervise", action="store_true")
+    # the JAX CLI's fleet, router and multi-host flags, with its types and
+    # choices; refused (_UNPORTED)
+    p.add_argument("--route", action="store_true")
+    p.add_argument("--route_targets", default=None)
+    p.add_argument("--route_signals", default=None)
+    p.add_argument("--policy",
+                   choices=["round_robin", "least_queue", "slo_burn"],
+                   default="least_queue")
+    p.add_argument("--kvtier", choices=["auto", "pull", "off"],
+                   default="auto")
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--fleet_port", type=int, default=None, metavar="PORT")
+    p.add_argument("--fleet_targets", default=None)
+    p.add_argument("--fleet_interval", type=float, default=None)
     p.add_argument("--chaos", default=None, metavar="PLAN",
                    help="--serve_lm: install a fault-injection plan in this "
                         "process (dnn_tpu_torch/chaos; a JSON file path or "
                         "inline JSON); each injection is a chaos_inject "
                         "flight event")
+    p.add_argument("--slo_ttft_ms", type=float, default=None,
+                   help="--serve_lm: TTFT objective in ms -- 99%% of "
+                        "requests (see --slo_target) must see their "
+                        "first token within it; exported as the "
+                        "dnn_tpu_slo_burn_rate{slo=\"ttft\"} "
+                        "error-budget gauge with a flight event on "
+                        "breach (dnn_tpu_torch/obs/goodput.py)")
+    p.add_argument("--slo_itl_ms", type=float, default=None,
+                   help="--serve_lm: inter-token latency objective in "
+                        "ms (slo=\"inter_token\" burn-rate gauge)")
+    p.add_argument("--slo_avail", type=float, default=None,
+                   help="--serve_lm: availability objective as a "
+                        "success fraction, e.g. 0.999 "
+                        "(slo=\"availability\" burn-rate gauge)")
+    p.add_argument("--slo_target", type=float, default=None,
+                   help="--serve_lm: fraction of requests that must "
+                        "meet each latency objective (default 0.99; "
+                        "needs at least one --slo_* objective)")
     p.add_argument("--log_level", default="INFO")
     return p
 
@@ -390,6 +444,19 @@ def _resilience_kwargs(args) -> dict:
                              ("watchdog", args.watchdog_s)) if v is not None}
     if args.on_wedged != "503":
         out["on_wedged"] = args.on_wedged
+    if any(v is not None for v in (args.slo_ttft_ms, args.slo_itl_ms,
+                                   args.slo_avail)):
+        # the SLOs the goodput tracker turns into burn rates (JAX
+        # node.py:969-981)
+        from dnn_tpu_torch.obs.goodput import SLOConfig
+
+        out["slo"] = SLOConfig(
+            ttft_s=(args.slo_ttft_ms / 1e3 if args.slo_ttft_ms is not None
+                    else None),
+            inter_token_s=(args.slo_itl_ms / 1e3
+                           if args.slo_itl_ms is not None else None),
+            availability=args.slo_avail,
+            target=args.slo_target if args.slo_target is not None else 0.99)
     return out
 
 
@@ -489,8 +556,8 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
             allow_constraints=not spec_kwargs,
             **spec_kwargs, **lora_kwargs, **moe_kwargs)) or 0
     except (NotImplementedError, ValueError) as e:
-        # e.g. --kv_dtype int4 (ROADMAP item 2), or --kv paged for a
-        # softcapped / alternating-window preset (Gemma-2)
+        # e.g. --kv paged for a softcapped / alternating-window preset
+        # (Gemma-2)
         log.error("%s", e)
         return 2
     except KeyboardInterrupt:
@@ -502,10 +569,11 @@ def _serve_lm(config: TopologyConfig, me, args) -> int:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=args.log_level)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    setup_logging(args.log_level, node_id=args.node_id)
     for attr, what, tag in _UNPORTED:
-        if getattr(args, attr) is not None and getattr(args, attr) is not False:
+        if getattr(args, attr) != parser.get_default(attr):
             log.error("%s is not ported to dnn_tpu_torch yet (%s)", what, tag)
             return 2
     if args.serve and (args.metrics_port is not None
@@ -517,6 +585,17 @@ def main(argv=None) -> int:
     if args.watchdog_s is not None and not args.serve_lm:
         log.error("--watchdog_s applies to --serve_lm only (the watchdog "
                   "monitors the LM daemon's decode loop)")
+        return 1
+    slo_objectives = any(v is not None for v in (
+        args.slo_ttft_ms, args.slo_itl_ms, args.slo_avail))
+    if (slo_objectives or args.slo_target is not None) \
+            and not args.serve_lm:
+        log.error("--slo_* flags apply to --serve_lm only (SLO tracking "
+                  "lives on the LM daemon's request stream)")
+        return 1
+    if args.slo_target is not None and not slo_objectives:
+        log.error("--slo_target needs at least one objective "
+                  "(--slo_ttft_ms / --slo_itl_ms / --slo_avail)")
         return 1
     if (args.min_p is not None or args.repetition_penalty is not None) \
             and not args.serve_lm:

@@ -11,11 +11,18 @@ through):
     host's RSS;
   * the hung-device watchdog (obs/watchdog.py): subprocess-bounded
     device probes and the decode heartbeat -> ok|degraded|wedged on
-    /statusz and /healthz.
+    /statusz and /healthz;
+  * request spans (obs/trace.py): a trace id and a tree of timed spans a
+    request, continued from a client's `tr=` tag, on /trace*;
+  * the step clock (obs/timeline.py): each decode step split into
+    admit/host/dispatch/wait/commit/obs, on /stepz;
+  * goodput (obs/goodput.py): live MFU, MBU, goodput tokens/sec and SLO
+    burn rates;
+  * capture and build counters (obs/compile_watch.py): the CUDA graphs
+    the batchers capture and the kernel libraries built at first use.
 
-Request spans and /trace*, /profilez, /stepz, goodput and SLOs, kvlens,
-caplens, fleet and compile telemetry are ROADMAP Queue 1 item 12; their
-routes answer 404 here.
+/profilez, kvlens, caplens, fleet and trainlens are ROADMAP Queue 1 item
+12's second half; their routes answer 404 here.
 
 Gate: DNN_TPU_OBS=off (or 0/false/no) disables everything, as in the
 JAX package — `metrics()` returns None and `flight.record` returns at
@@ -28,8 +35,17 @@ from __future__ import annotations
 import os
 
 from dnn_tpu_torch.obs import flight  # noqa: F401 — obs.flight.record(...)
+from dnn_tpu_torch.obs.trace import (  # noqa: F401 — obs.start_span(...)
+    NULL_SPAN,
+    continue_or_start,
+    record_span,
+    start_span,
+    tag_request_id,
+)
 
-__all__ = ["enabled", "set_enabled", "metrics", "serve_metrics", "flight"]
+__all__ = ["enabled", "set_enabled", "metrics", "serve_metrics", "flight",
+           "NULL_SPAN", "continue_or_start", "record_span", "start_span",
+           "tag_request_id"]
 
 _enabled = os.environ.get("DNN_TPU_OBS", "on").lower() not in (
     "off", "0", "false", "no")
@@ -64,16 +80,20 @@ def metrics():
 
 
 def serve_metrics(port: int = 0, host: str = "127.0.0.1", *,
-                  healthy=None, status=None, drain=None, device=None):
+                  healthy=None, status=None, drain=None, device=None,
+                  stepclock=None):
     """Start the observability HTTP endpoint on a daemon thread; returns
     the MetricsHTTPServer (`.port` for port=0 binds, `.close()` to stop;
     loopback by default). Serves GET /metrics /healthz /statusz /debugz
-    and, with `drain` (callable -> dict), POST /drainz; installs the
-    memory gauges (obs/mem.py) for `device` (a CUDA device gets device
-    gauges, the CPU none). `healthy`/`status` as on MetricsHTTPServer."""
+    /trace /trace.jsonl /traces, /stepz with `stepclock` (an
+    obs.timeline.StepClock) and, with `drain` (callable -> dict), POST
+    /drainz; installs the memory gauges (obs/mem.py) for `device` (a CUDA
+    device gets device gauges, the CPU none). `healthy`/`status` as on
+    MetricsHTTPServer."""
     from dnn_tpu_torch.obs.http import MetricsHTTPServer
     from dnn_tpu_torch.obs.mem import install_memory_gauges
 
     install_memory_gauges(device=device)
     return MetricsHTTPServer(port=port, host=host, healthy=healthy,
-                             status=status, drain=drain)
+                             status=status, drain=drain,
+                             stepclock=stepclock)

@@ -1,0 +1,501 @@
+"""Live goodput accounting: MFU, MBU, tokens/sec, and SLO burn rates
+(port of dnn_tpu/obs/goodput.py, copied: its logic uses nothing of JAX;
+the peaks are the card's, utils/flops.py, and a MoE family is priced by
+the experts a step reads).
+
+The ROADMAP's "fast as the hardware allows" is unverifiable from raw
+tokens/sec — the number that proves it is UTILIZATION: what fraction of
+the chip's peak FLOPs (MFU) and peak HBM bytes (MBU) the serving stack
+actually achieves, live, while real traffic flows. Benchmarks compute
+these offline (bench.py, utils/flops.py); this module computes them
+continuously from the decode/prefill step stream the batcher already
+produces, and exports them as scrape-time gauges:
+
+    dnn_tpu_mfu                     achieved FLOPs/s over the window /
+                                    chip peak (0 when the peak is
+                                    unknown — see "peaks" below)
+    dnn_tpu_mbu                     achieved HBM bytes/s / peak HBM bw
+    dnn_tpu_goodput_tokens_per_sec  tokens DELIVERED to callers per
+                                    second over the window (first tokens
+                                    + decode commits; padding, rejected
+                                    speculation, and dropped requests
+                                    never count — that's the "good" in
+                                    goodput)
+
+Accounting model (utils/flops.py serving-shape helpers): a decode step
+charges per-token linear FLOPs + 4*context*C attention FLOPs, and
+streams the weights ONCE per step (the whole batch shares the stream —
+batching's whole point) plus every live row's KV positions. Prefill
+charges the full forward. The numbers are analytic, same convention as
+the published MFU bookkeeping (PaLM appendix) — flash kernels that skip
+masked tiles simply bank the savings as higher measured throughput.
+
+Peaks: utils/flops.py's table of cards supplies them (an H100 80GB
+HBM3: 989 TFLOP/s bf16 dense, 3.35 TB/s); elsewhere they are unknown and
+the gauges read 0 unless the operator states a roofline via
+DNN_TPU_PEAK_FLOPS / DNN_TPU_PEAK_HBM_BW (or the explicit constructor
+args). MFU is taken against the bf16 peak whatever the compute dtype.
+
+MoE families (GPT-MoE, Mixtral, Qwen2-MoE): a token's FLOPs are those of
+its top-k experts (and the shared expert, and the router); a step's
+weight bytes are the dense weights plus the experts the step can read,
+min(E, n_tokens * top_k) of the E — `ModelCost.step_weight_bytes`.
+
+SLO tracking: configure objectives (TTFT, inter-token latency,
+availability) and the tracker turns the same event stream into
+error-budget BURN RATES — the multiple of the sustainable error rate
+currently being spent (burn 1.0 = exactly on budget; 14.4 = the classic
+"page now" threshold). Exported as dnn_tpu_slo_burn_rate{slo=...}
+gauges plus an `slo_breach` flight-recorder event when a burn rate
+crosses 1.0 (latched per episode, so a bad hour is one event, not a
+thousand).
+
+Everything is gated like the rest of obs: producers feed the tracker
+only inside their existing `obs.metrics() is not None` blocks, so
+DNN_TPU_OBS=off costs nothing new.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+from dnn_tpu_torch.utils.metrics import Throughput, labeled
+
+__all__ = ["ModelCost", "model_cost", "train_step_flops", "SLOConfig",
+           "GoodputTracker"]
+
+
+@dataclass(frozen=True)
+class ModelCost:
+    """Per-token serving cost model: `flops_per_token(context)` FLOPs to
+    decode one token at `context` live positions, `prefill_flops(n)` for
+    an n-token prompt, `weight_bytes` total parameter bytes (streamed
+    once per decode step), `kv_bytes_per_pos` bytes one cache position
+    occupies."""
+
+    flops_per_token: object  # Callable[[float], float]
+    prefill_flops: object    # Callable[[int], float]
+    weight_bytes: float
+    kv_bytes_per_pos: float
+    # Callable[[int], float]: the weight bytes a step of n tokens reads
+    # (a MoE model's experts); None: all of weight_bytes
+    step_weight_bytes: object = None
+
+    def step_bytes(self, n_tokens: int) -> float:
+        """The weight bytes one forward of `n_tokens` tokens streams."""
+        if self.step_weight_bytes is None:
+            return self.weight_bytes
+        return self.step_weight_bytes(n_tokens)
+
+
+def _moe_shape(cfg):
+    """(E, top_k, dense-equivalent config, router FLOPs a token, expert
+    params, router params) of a MoE config, or None for a dense one.
+    The dense-equivalent config carries the FFN width a token computes
+    (top_k experts plus a shared expert) and no experts."""
+    import dataclasses
+
+    if hasattr(cfg, "n_expert"):  # Mixtral / Qwen2-MoE (LLaMA layout)
+        e, k, f = cfg.n_expert, cfg.router_top_k, cfg.d_ff
+        shared = cfg.d_shared or 0
+        c, l = cfg.n_embd, cfg.n_layer
+        per_tok = dataclasses.replace(cfg, d_ff=k * f + shared)
+        router = l * 2.0 * c * (e + (1 if shared else 0))
+        experts = float(l * e * 3 * c * f)
+        return e, k, per_tok, router, experts, l * c * (e + bool(shared))
+    if hasattr(cfg, "n_experts"):  # GPT-MoE
+        e, k, f = cfg.n_experts, cfg.top_k, cfg.ff_dim
+        c, l = cfg.n_embd, cfg.n_layer
+        return e, k, None, l * 2.0 * c * e, float(l * e * (2 * c * f + f + c)), \
+            l * c * e
+    return None
+
+
+def model_cost(cfg, prepared=None, *, kv_bytes: float = 2,
+               kv_dtype=None,
+               weight_dtype_bytes: int = 2) -> ModelCost:
+    """Build a ModelCost from a model config (GPT or LLaMA family,
+    sniffed by attributes — n_kv_head/d_ff means LLaMA layout; n_expert
+    or n_experts a MoE family). `prepared` (the served param tree) makes
+    weight_bytes EXACT by summing the real leaves; without it the
+    analytic param count x `weight_dtype_bytes` stands in. `kv_dtype` (a
+    dtype or "f32"/"bf16"/"int8"/"int4") prices the KV term exactly,
+    packed int4 width and quantization scale rows included
+    (utils/flops.kv_bytes_per_pos). A MoE model's step reads its dense
+    weights plus min(E, n_tokens * top_k) of its E experts."""
+    from dnn_tpu_torch.utils import flops as F
+
+    moe = _moe_shape(cfg)
+    if hasattr(cfg, "n_kv_head") and hasattr(cfg, "d_ff"):
+        tok_cfg = moe[2] if moe else cfg
+        extra = moe[3] if moe else 0.0
+        per_tok = lambda ctx: (F.llama_decode_token_flops(tok_cfg, ctx)  # noqa: E731
+                               + extra)
+        pf = lambda n: F.llama_forward_flops(tok_cfg, 1, n) + n * extra  # noqa: E731
+        params = F.llama_param_count(cfg)
+        if moe:  # the FFN term counted one expert: add the rest
+            params += moe[4] - cfg.n_layer * 3 * cfg.n_embd * cfg.d_ff \
+                + moe[5] + cfg.n_layer * 3 * cfg.n_embd * (cfg.d_shared or 0)
+    else:
+        c, l = cfg.n_embd, cfg.n_layer
+        params = F.gpt_param_count(cfg)
+        if moe:
+            e, k = moe[0], moe[1]
+            # attention 8C^2, the top-k experts' two matmuls 4CF each
+            ffn = 4.0 * c * cfg.ff_dim * k
+
+            def per_tok(ctx):
+                return (l * (8.0 * c * c + ffn + 4.0 * ctx * c)
+                        + 2.0 * c * cfg.vocab_size + moe[3])
+
+            def pf(n):
+                return n * (l * (8.0 * c * c + ffn) + 2.0 * c * cfg.vocab_size
+                            + moe[3]) + l * 4.0 * n * n * c
+
+            # the dense MLP (8C^2 + 5C a layer) is the experts instead
+            params += moe[4] + moe[5] - l * (8 * c * c + 5 * c)
+        else:
+            per_tok = lambda ctx: F.gpt_decode_token_flops(cfg, ctx)  # noqa: E731
+            pf = lambda n: F.gpt_forward_flops(cfg, 1, n)  # noqa: E731
+    wbytes = params * weight_dtype_bytes
+    if prepared is not None:
+        try:
+            # device-layout pricing (int8 kernels at 1 byte, int4 at
+            # the packed half byte, scale rows at full width)
+            wbytes = F.tree_weight_bytes(prepared)
+        except Exception:  # noqa: BLE001 — an exotic tree falls back to
+            pass           # the analytic count, never breaks serving
+    step_wb = None
+    if moe:
+        e, k, expert_frac = moe[0], moe[1], moe[4] / params
+        expert_b = wbytes * expert_frac
+
+        def step_wb(n, e=e, k=k, dense=wbytes - expert_b, expert=expert_b):
+            return dense + expert * min(e, max(int(n), 1) * k) / e
+    return ModelCost(
+        flops_per_token=per_tok, prefill_flops=pf, weight_bytes=wbytes,
+        kv_bytes_per_pos=F.kv_bytes_per_pos(cfg, kv_bytes=kv_bytes,
+                                            kv_dtype=kv_dtype),
+        step_weight_bytes=step_wb)
+
+
+def train_step_flops(cfg, batch: int, seq: int, *, accum_steps: int = 1,
+                     remat: bool = False) -> float:
+    """Total FLOPs one optimizer step costs for `cfg` at (batch, seq) —
+    the TRAINING counterpart of ModelCost, dispatched by the same
+    family sniff model_cost uses (n_kv_head/d_ff means LLaMA layout).
+    Delegates to utils/flops.{gpt,llama}_train_step_flops so serving
+    and training price from ONE analytic walk: trainlens's MFU
+    numerator and goodput's serving numerators can never drift onto
+    different conventions. `accum_steps` validates divisibility (the
+    total is linear in batch, so accumulation leaves it unchanged);
+    `remat=True` prices the recompute forward (factor 4x instead of
+    3x)."""
+    from dnn_tpu_torch.utils import flops as F
+
+    if hasattr(cfg, "n_kv_head") and hasattr(cfg, "d_ff"):
+        return F.llama_train_step_flops(cfg, batch, seq,
+                                        accum_steps=accum_steps,
+                                        remat=remat)
+    return F.gpt_train_step_flops(cfg, batch, seq,
+                                  accum_steps=accum_steps, remat=remat)
+
+
+@dataclass(frozen=True)
+class SLOConfig:
+    """Service-level objectives. Latency objectives are (threshold,
+    target-fraction) pairs: `ttft_s=0.5, target=0.99` reads "99% of
+    requests see first token within 500 ms", giving an error budget of
+    1% of requests. `availability` is the classic success-fraction
+    objective (0.999 = three nines, budget 0.1% of requests). Burn rate
+    = observed-bad-fraction / budget-fraction over the rolling window —
+    dimensionless, 1.0 = spending exactly the budget."""
+
+    ttft_s: Optional[float] = None
+    inter_token_s: Optional[float] = None
+    availability: Optional[float] = None
+    target: float = 0.99
+    window_s: float = 300.0
+
+
+class _BudgetWindow:
+    """good/bad event counts over a rolling wall-clock window, and the
+    burn rate against `budget_frac`. Thread-safe; `now` injectable.
+
+    Storage is per-SECOND count buckets with running totals, not per
+    event: the inter-token objective feeds one event per decoded token,
+    so a 300 s window at real decode rates would otherwise hold millions
+    of live tuples, and burn_rate is read on the decode hot path (the
+    per-step breach check) — both add() and burn_rate() must stay O(1)
+    amortized. Eviction granularity is therefore one second, far below
+    the window lengths burn rates are read at."""
+
+    def __init__(self, budget_frac: float, window_s: float, now):
+        self.budget_frac = max(budget_frac, 1e-9)
+        self.window_s = window_s
+        self._now = now
+        self._buckets: dict = {}  # int second -> [n, bad]
+        self._min_sec: Optional[int] = None
+        self._n = 0
+        self._bad = 0
+        self._lock = threading.Lock()
+
+    def add(self, bad: bool):
+        self.add_many(1, 1 if bad else 0)
+
+    def add_many(self, n: int, bad: int):
+        """Batch feed: one lock for a whole decode step's samples (the
+        per-token objective calls this every step on the hot path)."""
+        t = self._now()
+        sec = int(t)
+        with self._lock:
+            b = self._buckets.get(sec)
+            if b is None:
+                b = self._buckets[sec] = [0, 0]
+                if self._min_sec is None:
+                    self._min_sec = sec
+            b[0] += n
+            b[1] += bad
+            self._n += n
+            self._bad += bad
+            self._evict(t)
+
+    def _evict(self, t):
+        # min_sec gates the sweep: it runs at most once per second that
+        # actually expires, and the sweep itself is over <= window_s
+        # live buckets
+        cutoff = int(t - self.window_s)
+        if self._min_sec is None or self._min_sec >= cutoff:
+            return
+        for sec in [s for s in self._buckets if s < cutoff]:
+            n, bad = self._buckets.pop(sec)
+            self._n -= n
+            self._bad -= bad
+        self._min_sec = min(self._buckets) if self._buckets else None
+
+    def burn_rate(self) -> float:
+        t = self._now()
+        with self._lock:
+            self._evict(t)
+            if self._n == 0:
+                return 0.0
+            return (self._bad / self._n) / self.budget_frac
+
+
+class GoodputTracker:
+    """Feed it the step stream, scrape the utilization. Producers call
+    `on_prefill` / `on_decode_step` (already inside their obs-gated
+    blocks); `install()` registers the gauges on a registry as
+    scrape-time callables (weakly bound, like the batcher's pool gauges
+    — a dead tracker reads 0, never pins its pool).
+
+    `peak_flops` / `peak_bytes`: explicit rooflines; None consults
+    utils/flops.device_peak_flops / device_peak_hbm_bw lazily at first
+    read (env overrides included)."""
+
+    def __init__(self, cost: ModelCost, *,
+                 peak_flops: Optional[float] = None,
+                 peak_bytes: Optional[float] = None,
+                 window_s: float = 60.0,
+                 slo: Optional[SLOConfig] = None,
+                 now=time.monotonic):
+        self.cost = cost
+        self._peak_flops = peak_flops
+        self._peak_bytes = peak_bytes
+        self._peaks_resolved = (peak_flops is not None
+                                and peak_bytes is not None)
+        self._flops = Throughput(window_s, now=now)
+        self._bytes = Throughput(window_s, now=now)
+        self._tokens = Throughput(window_s, now=now)
+        # decode-step accumulator, flushed into the windows every
+        # _FLUSH_STEPS steps by the ONE producer thread: three
+        # locked deque updates per sub-ms step were measurable against
+        # the serving obs budget, and a 60 s rate window cannot resolve
+        # a <100 ms batching delay anyway. Scrapes read the windows
+        # as-is (≤ _FLUSH_STEPS-steps stale, idle decay unaffected);
+        # only the producer touches the _acc_* fields, so there is no
+        # lock and no race.
+        self._acc_flops = 0.0
+        self._acc_bytes = 0.0
+        self._acc_tokens = 0
+        self._acc_steps = 0
+        self._acc_t = 0.0  # first-unflushed-step stamp, for readers
+        self.slo = slo
+        self._slo_windows = {}
+        self._breach_latched: dict = {}
+        if slo is not None:
+            lat_budget = 1.0 - slo.target
+            if slo.ttft_s is not None:
+                self._slo_windows["ttft"] = _BudgetWindow(
+                    lat_budget, slo.window_s, now)
+            if slo.inter_token_s is not None:
+                self._slo_windows["inter_token"] = _BudgetWindow(
+                    lat_budget, slo.window_s, now)
+            if slo.availability is not None:
+                self._slo_windows["availability"] = _BudgetWindow(
+                    1.0 - slo.availability, slo.window_s, now)
+
+    # -- producer feeds (call only when obs.metrics() is not None) -----
+
+    def on_prefill(self, prompt_len: int):
+        """One admitted prompt finished prefilling (and sampled its
+        first token)."""
+        self._flops.add(self.cost.prefill_flops(prompt_len))
+        # prefill streams the weights once and WRITES prompt_len cache
+        # positions
+        self._bytes.add(self.cost.step_bytes(prompt_len)
+                        + prompt_len * self.cost.kv_bytes_per_pos)
+        self._tokens.add(1)
+
+    def on_decode_step(self, n_tokens: int, live_positions: float):
+        """One pool decode step committed `n_tokens` across the active
+        slots, whose live cache positions sum to `live_positions`."""
+        if n_tokens <= 0:
+            return
+        mean_ctx = live_positions / n_tokens
+        if self._acc_steps == 0:
+            # stamp the batch ONCE (readers age pending out of the
+            # window by it) — the other 31 steps never read the clock
+            self._acc_t = self._flops._now()
+        self._acc_flops += n_tokens * self.cost.flops_per_token(mean_ctx)
+        self._acc_bytes += (self.cost.step_bytes(n_tokens)
+                            + live_positions * self.cost.kv_bytes_per_pos)
+        self._acc_tokens += n_tokens
+        self._acc_steps += 1
+        if self._acc_steps >= self._FLUSH_STEPS:
+            self._flush_steps()
+
+    #: decode-step batching cadence (see __init__; StepClock.FLUSH_EVERY
+    #: is the same idea for histograms)
+    _FLUSH_STEPS = 32
+
+    def _flush_steps(self):
+        """Land the accumulated decode-step work in the rate windows —
+        one clock read, three locked updates, every _FLUSH_STEPS steps
+        instead of every step. Producer-thread only."""
+        t = self._flops._now()
+        self._flops.add_at(t, self._acc_flops)
+        self._bytes.add_at(t, self._acc_bytes)
+        self._tokens.add_at(t, self._acc_tokens)
+        self._acc_flops = 0.0
+        self._acc_bytes = 0.0
+        self._acc_tokens = 0
+        self._acc_steps = 0
+
+    def on_ttft(self, seconds: float):
+        if "ttft" in self._slo_windows:
+            self._slo_event("ttft", bad=seconds > self.slo.ttft_s)
+
+    def on_inter_token(self, samples):
+        w = self._slo_windows.get("inter_token")
+        if w is None:
+            return
+        thr = self.slo.inter_token_s
+        w.add_many(len(samples), sum(1 for s in samples if s > thr))
+        self._check_breach("inter_token")
+
+    def on_outcome(self, ok: bool):
+        self._slo_event("availability", bad=not ok)
+
+    def _slo_event(self, name: str, *, bad: bool):
+        w = self._slo_windows.get(name)
+        if w is None:
+            return
+        w.add(bad)
+        self._check_breach(name)
+
+    def _check_breach(self, name: str):
+        """Flight event when a burn rate crosses 1.0 — latched per
+        episode (set on crossing, cleared when the rate recovers), so a
+        sustained breach is ONE event with the rate that tripped it."""
+        rate = self._slo_windows[name].burn_rate()
+        if rate > 1.0 and not self._breach_latched.get(name):
+            self._breach_latched[name] = True
+            from dnn_tpu_torch import obs
+
+            obs.flight.record("slo_breach", slo=name,
+                              burn_rate=round(rate, 3))
+            m = obs.metrics()
+            if m is not None:
+                m.inc(labeled("dnn_tpu_slo_breach_total", slo=name))
+        elif rate <= 1.0:
+            self._breach_latched[name] = False
+
+    # -- scrape-time reads ---------------------------------------------
+
+    def _resolve_peaks(self):
+        if self._peaks_resolved:
+            return
+        self._peaks_resolved = True
+        try:
+            from dnn_tpu_torch.utils import flops as F
+
+            if self._peak_flops is None:
+                self._peak_flops = F.device_peak_flops()
+            if self._peak_bytes is None:
+                self._peak_bytes = F.device_peak_hbm_bw()
+        except Exception:  # noqa: BLE001 — no backend at scrape time
+            pass           # reads 0, same as "peak unknown"
+
+    def mfu(self) -> float:
+        self._resolve_peaks()
+        if not self._peak_flops:
+            return 0.0
+        return self.achieved_flops_per_sec() / self._peak_flops
+
+    def mbu(self) -> float:
+        self._resolve_peaks()
+        if not self._peak_bytes:
+            return 0.0
+        return self.achieved_bytes_per_sec() / self._peak_bytes
+
+    # every rate read folds in the pending (unflushed) decode-step
+    # batch via per_sec_with — scrapes stay exact between flushes, and
+    # stale pending ages out of the window like landed events
+
+    def tokens_per_sec(self) -> float:
+        return self._tokens.per_sec_with(self._acc_tokens, self._acc_t)
+
+    def achieved_flops_per_sec(self) -> float:
+        return self._flops.per_sec_with(self._acc_flops, self._acc_t)
+
+    def achieved_bytes_per_sec(self) -> float:
+        return self._bytes.per_sec_with(self._acc_bytes, self._acc_t)
+
+    def burn_rates(self) -> dict:
+        return {k: w.burn_rate() for k, w in self._slo_windows.items()}
+
+    def install(self, registry=None) -> "GoodputTracker":
+        """Register the gauges as scrape-time callables on `registry`
+        (default: the shared obs registry). Weakly bound: the registry
+        must not pin a retired tracker (and its pool) alive — a
+        collected tracker's gauges read 0, which is what "no serving"
+        means."""
+        import weakref
+
+        if registry is None:
+            from dnn_tpu_torch.utils.metrics import default_metrics as registry
+        ref = weakref.ref(self)
+
+        def reader(method):
+            def read():
+                t = ref()
+                return getattr(t, method)() if t is not None else 0.0
+            return read
+
+        fns = {
+            "dnn_tpu_mfu": reader("mfu"),
+            "dnn_tpu_mbu": reader("mbu"),
+            "dnn_tpu_goodput_tokens_per_sec": reader("tokens_per_sec"),
+        }
+        for name in self._slo_windows:
+            def burn(n=name):
+                t = ref()
+                return (t._slo_windows[n].burn_rate()
+                        if t is not None else 0.0)
+            fns[labeled("dnn_tpu_slo_burn_rate", slo=name)] = burn
+        registry.bulk(gauge_fns=fns)
+        return self

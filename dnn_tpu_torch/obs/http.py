@@ -14,13 +14,20 @@ a plain curl can watch the daemon.
     GET  /debugz    the flight recorder's ring as JSONL
                     (application/x-ndjson); ?format=json a JSON array;
                     ?kind= ?trace= filter, ?last=N keeps the newest N
+    GET  /trace     Chrome-trace JSON of the collected request spans
+                    (obs/trace.py); ?id=<trace id> keeps one trace
+    GET  /trace.jsonl  the same spans as JSONL, one span a line
+    GET  /traces    the distinct trace ids in the ring (JSON)
+    GET  /stepz     the step clock's phase attribution (obs/timeline.py)
+                    as JSON; ?format=prom|trace; ?last=N the newest N
+                    steps (404 without a clock attached)
     POST /drainz    connection draining (the LM daemon's handler): 202
                     and the drain's state as JSON; idempotent
 
-The JAX endpoint's other routes (/trace, /trace.jsonl, /traces,
-/profilez, /stepz, /kvz, /fleetz, /capz, /trainz) answer 404 naming
-ROADMAP Queue 1 item 12, never an empty 200; any other path answers 404
-"not found". A handler that raises answers 500 (and logs it).
+The JAX endpoint's other routes (/profilez, /kvz, /fleetz, /capz,
+/trainz) answer 404 naming ROADMAP Queue 1 item 12, never an empty 200;
+any other path answers 404 "not found". A handler that raises answers
+500 (and logs it).
 """
 
 from __future__ import annotations
@@ -38,8 +45,7 @@ _STATE_GAUGE = {"ok": 0.0, "degraded": 1.0, "draining": 1.0,
                 "wedged": 2.0}
 
 #: the JAX endpoint's routes this port does not serve yet
-UNPORTED_ROUTES = ("/trace", "/trace.jsonl", "/traces", "/profilez",
-                   "/stepz", "/kvz", "/fleetz", "/capz", "/trainz")
+UNPORTED_ROUTES = ("/profilez", "/kvz", "/fleetz", "/capz", "/trainz")
 _UNPORTED_BODY = ("{path}: not ported to dnn_tpu_torch yet (ROADMAP Queue 1 "
                   "item 12)\n")
 _TEXT = "text/plain; charset=utf-8"
@@ -69,14 +75,18 @@ class MetricsHTTPServer:
     `status`: callable -> dict with at least {"state": ...}, or None
     (and a callable that returns None) for the worker-liveness shape
     built from `healthy`. `drain`: callable -> dict behind POST
-    /drainz."""
+    /drainz. `stepclock`: the obs.timeline.StepClock behind /stepz;
+    `collector`: the span ring behind /trace* (default: the process's,
+    obs.trace.collector())."""
 
     def __init__(self, *, port: int = 0, host: str = "127.0.0.1",
                  registry=None, flight=None,
                  healthy: Optional[Callable[[], bool]] = None,
                  status: Optional[Callable[[], dict]] = None,
-                 drain: Optional[Callable[[], dict]] = None):
+                 drain: Optional[Callable[[], dict]] = None,
+                 stepclock=None, collector=None):
         from dnn_tpu_torch.obs import flight as _flight
+        from dnn_tpu_torch.obs import trace as _trace
         from dnn_tpu_torch.utils import metrics as _metrics
 
         self._registry = (registry if registry is not None
@@ -85,6 +95,9 @@ class MetricsHTTPServer:
         self._healthy = healthy
         self._status = status
         self._drain = drain
+        self._stepclock = stepclock
+        self._collector = (collector if collector is not None
+                           else _trace.collector())
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -148,6 +161,32 @@ class MetricsHTTPServer:
                     self._send(400, f"unknown format {fmt!r} (jsonl|json)\n",
                                _TEXT)
 
+            def _stepz(self, q):
+                clock = outer._stepclock
+                if clock is None:
+                    self._send(404, "no step clock attached\n", _TEXT)
+                    return
+                last = None
+                if "last" in q:
+                    try:
+                        last = int(q["last"][0])
+                    except ValueError:
+                        last = 0
+                    if last < 1:
+                        self._send(400, "last must be an int >= 1\n",
+                                   _TEXT)
+                        return
+                fmt = q.get("format", ["json"])[0]
+                if fmt == "json":
+                    self._send_json(200, clock.summary(last))
+                elif fmt == "prom":
+                    self._send(200, clock.render_prom(last), _PROM)
+                elif fmt == "trace":
+                    self._send_json(200, clock.chrome_trace(last))
+                else:
+                    self._send(400, f"unknown format {fmt!r} "
+                               "(json|prom|trace)\n", _TEXT)
+
             def _route(self, post: bool):
                 url = urlparse(self.path)
                 q = parse_qs(url.query)
@@ -177,6 +216,16 @@ class MetricsHTTPServer:
                                    "(json|prom)\n", _TEXT)
                 elif url.path == "/debugz":
                     self._debugz(q)
+                elif url.path == "/stepz":
+                    self._stepz(q)
+                elif url.path == "/trace":
+                    self._send_json(200, outer._collector.chrome_trace(
+                        q.get("id", [None])[0]))
+                elif url.path == "/trace.jsonl":
+                    self._send(200, outer._collector.jsonl(
+                        q.get("id", [None])[0]), "application/jsonl")
+                elif url.path == "/traces":
+                    self._send_json(200, outer._collector.trace_ids())
                 else:
                     self._send(404, "not found\n", _TEXT)
 

@@ -21,20 +21,28 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from dnn_tpu_torch.obs.compile_watch import note_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
+# --split-compile 0: a source's kernels are optimized on every core the
+# machine has (the libraries build in parallel, and the K5-K7 sources,
+# each hundreds of template instances, are the long poles)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # kernel name -> (source file, C symbol, argtypes). Every pointer and the
 # stream are c_void_p (the scale, lse and workspace pointers too, None
 # where absent): a default ctypes int would cut them to 32 bits. kv_kind is
-# 0 = f32, 1 = bf16, 2 = int8 with scales; q_kind 0 = f32, 1 = bf16. A source and the csrc/
+# 0 = f32, 1 = bf16, 2 = int8 and 3 = int4 (two values a byte) with
+# scales; q_kind 0 = f32, 1 = bf16. A source and the csrc/
 # headers it includes name its library (lib_path); a source may export
 # several entry points (flash_backward.cu: K3 and K4), and then one
 # library serves them all.
@@ -139,6 +147,7 @@ def build(names=None) -> dict:
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in missing:
         out = lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -156,6 +165,7 @@ def build(names=None) -> dict:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            note_build(name, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs

@@ -19,10 +19,15 @@ serving path and their plain PyTorch twins.
     one range of keys, and a merge kernel where the keys fall into more
     than one split.
 
-Each takes an f32, bf16 or int8 cache; an int8 cache comes with its
-per-(position, head) f32 scales `ks`/`vs` (the K scale multiplies the
-scores before 1/sqrt(D), the V scale the probabilities after the
-softmax), a float cache with none. q is f32, or bf16 under bf16 compute;
+Each takes an f32, bf16, int8 or int4 cache; a quantized cache comes
+with its per-(position, head) f32 scales `ks`/`vs` (the K scale
+multiplies the scores before 1/sqrt(D), the V scale the probabilities
+after the softmax), a float cache with none. An int4 cache is uint8 of
+last dim D / 2: two values a byte, element 2i in the low nibble and 2i +
+1 in the high one, two's complement (`pack_nibbles`; the block wire's
+nibble order, kvtier/migrate.py). Its kernels widen each nibble with its
+sign and then run the int8 math; its plain versions unpack to int8
+values (`unpack_nibbles`) and run the int8 plain math. q is f32, or bf16 under bf16 compute;
 the result is of q's type (the kernels read a bf16 q as it is and write
 a bf16 output; no cast is launched for either). Scores, softmax and
 accumulation are f32 for every type. Head dims 32, 64, 128 and 256
@@ -40,7 +45,7 @@ Dispatch is by the tensors' device and nothing else: CPU tensors run the
 plain version (`reference_*`, the JAX package's reference math), CUDA
 tensors launch the kernel or raise. No failure falls back. Each wrapper
 counts its calls that launch kernels in plain int attributes —
-`.launches` in total, `.launches_by_dtype[{"f32", "bf16", "int8"}]` by
+`.launches` in total, `.launches_by_dtype[{"f32", "bf16", "int8", "int4"}]` by
 cache type, one per call, `.launches_bf16_q` by cache type, the calls
 among those with a bf16 q, and `.launches_by_variant[{"band",
 "softcap", "d256"}]` by cache type, the calls with a window, with a
@@ -62,7 +67,8 @@ from dnn_tpu_torch.ops.cuda import _build
 
 _NEG_BIG = -1e30
 _KV_KIND = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
-            torch.int8: (2, "int8")}
+            torch.int8: (2, "int8"), torch.uint8: (3, "int4")}
+_KV_NAMES = ("f32", "bf16", "int8", "int4")
 _Q_KIND = {torch.float32: 0, torch.bfloat16: 1}
 K5_TILE = 64             # K5's query rows a block and keys a tile
 K5_TARGET_BLOCKS = 132   # one block for each of the H100's 132 SMs
@@ -74,6 +80,39 @@ DECODE_MAX_ROWS = 8      # K6/K7's query rows a KV head
 # ----------------------------------------------------------------------
 # plain versions (the CPU path and the kernels' oracle)
 # ----------------------------------------------------------------------
+
+def pack_nibbles(vals):
+    """int values in [-8, 7] of shape (..., D), D even -> uint8 (...,
+    D / 2): element 2i in the low nibble, 2i + 1 in the high one, two's
+    complement (JAX's kvtier/migrate._pack_nibbles, row by row)."""
+    if vals.shape[-1] % 2:
+        raise ValueError(f"int4 packing needs an even last dim, got "
+                         f"{vals.shape[-1]}")
+    v = vals.to(torch.int16) & 0xF
+    return (v[..., 0::2] | (v[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_nibbles(packed):
+    """pack_nibbles' inverse: uint8 (..., D / 2) -> int8 (..., D), each
+    nibble sign-extended."""
+    b = packed.to(torch.int16)
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = (((b >> 4) & 0xF) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+
+
+def _values(kv):
+    """A cache leaf as the plain math reads it: an int4 leaf unpacked to
+    its int8 values, any other as it is."""
+    return unpack_nibbles(kv) if kv.dtype == torch.uint8 else kv
+
+
+def head_dim_of(kv):
+    """The head dim D of a K/V cache leaf (..., D): an int4 leaf holds D
+    / 2 bytes a row."""
+    return kv.shape[-1] * (2 if kv.dtype == torch.uint8 else 1)
+
 
 def band_keep(cols, limit, window):
     """The attention band predicate (JAX's kvcache.band_keep): causal
@@ -97,8 +136,10 @@ def soft_cap(s, softcap):
 def _scaled_softmax_attend(q, k, v, keep, ks, vs, softcap=None):
     """Scores q.k^T in f32 (times ks before / sqrt(D)), soft-capped,
     masked to `keep` at -1e30, softmax, probabilities times vs, then @ v.
-    q (B, H, T, D); k/v (B, H, S, D); ks/vs (B, H, S) or None."""
+    q (B, H, T, D); k/v (B, H, S, D) (int4: (B, H, S, D / 2) packed,
+    unpacked here); ks/vs (B, H, S) or None."""
     d = q.shape[-1]
+    k, v = _values(k), _values(v)
     s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
     if ks is not None:
         s = s * ks[:, :, None, :]
@@ -112,8 +153,8 @@ def _scaled_softmax_attend(q, k, v, keep, ks, vs, softcap=None):
 def reference_cached_attention(q, k, v, pos, *, ks=None, vs=None,
                                window=None, softcap=None):
     """q (B, H, T, D) f32 or bf16 at absolute positions pos[b] + t; k/v
-    (B, Hk, S, D) cache with H = G * Hk (float, or int8 with ks/vs (B,
-    Hk, S) scales); pos (B,) int32. Row (b, t) attends columns <= pos[b]
+    (B, Hk, S, D) cache with H = G * Hk (float, or int8 / packed int4
+    with ks/vs (B, Hk, S) scales); pos (B,) int32. Row (b, t) attends columns <= pos[b]
     + t (and > pos[b] + t - window); query head h reads KV head h / G.
     The group folds into the row dim, as the JAX LLaMA path folds it ((B,
     Hk, G * T, D), row limits tiled G times), so the cache is never
@@ -134,7 +175,7 @@ def reference_decode_attention(q, k, v, pos, *, ks=None, vs=None,
                                window=None, softcap=None):
     """q (B, Hk, R, D) f32 or bf16; every row of slot b attends cache
     columns <= pos[b] (and > pos[b] - window) of k/v (B, Hk, S, D)
-    (float, or int8 with ks/vs (B, Hk, S) scales). f32 math; returns (B,
+    (float, or int8 / packed int4 with ks/vs (B, Hk, S) scales). f32 math; returns (B,
     Hk, R, D) in q's type."""
     cols = torch.arange(k.shape[2], device=q.device)
     keep = band_keep(cols, pos.long()[:, None, None, None], window)
@@ -184,20 +225,22 @@ def _check_dtypes(q, k, v, pos, ks, vs):
     if q.dtype not in _Q_KIND:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != v.dtype or k.dtype not in _KV_KIND:
-        raise TypeError(f"k/v must share float32, bfloat16 or int8, got "
-                        f"{k.dtype}/{v.dtype}")
+        raise TypeError(f"k/v must share float32, bfloat16, int8 or uint8 "
+                        f"(int4), got {k.dtype}/{v.dtype}")
     if pos.dtype != torch.int32:
         raise TypeError(f"pos must be int32, got {pos.dtype}")
-    if k.dtype == torch.int8:
+    if k.dtype in (torch.int8, torch.uint8):
         if ks is None or vs is None:
-            raise TypeError("an int8 cache needs both scale tensors ks/vs")
+            raise TypeError("a quantized cache needs both scale tensors "
+                            "ks/vs")
         if ks.dtype != torch.float32 or vs.dtype != torch.float32:
             raise TypeError(f"ks/vs must be float32, got {ks.dtype}/{vs.dtype}")
         if ks.shape != k.shape[:-1] or vs.shape != k.shape[:-1]:
             raise ValueError(f"ks/vs {tuple(ks.shape)}/{tuple(vs.shape)} must "
                              f"be the cache's {tuple(k.shape[:-1])}")
     elif ks is not None or vs is not None:
-        raise TypeError(f"scales ks/vs go with an int8 cache, not {k.dtype}")
+        raise TypeError(f"scales ks/vs go with a quantized cache, not "
+                        f"{k.dtype}")
     return _KV_KIND[k.dtype]
 
 
@@ -292,9 +335,9 @@ def _launch(wrapper, name, dtype_name, dev, *args, bf16_q=False,
 
 def _counted(fn):
     fn.launches = 0
-    fn.launches_by_dtype = {"f32": 0, "bf16": 0, "int8": 0}
-    fn.launches_bf16_q = {"f32": 0, "bf16": 0, "int8": 0}
-    fn.launches_by_variant = {v: {"f32": 0, "bf16": 0, "int8": 0}
+    fn.launches_by_dtype = dict.fromkeys(_KV_NAMES, 0)
+    fn.launches_bf16_q = dict.fromkeys(_KV_NAMES, 0)
+    fn.launches_by_variant = {v: dict.fromkeys(_KV_NAMES, 0)
                               for v in ("band", "softcap", "d256")}
     return fn
 
@@ -355,7 +398,8 @@ def _decode_rows(r):
 def cached_attention(q, k, v, pos, *, ks=None, vs=None, window=None,
                      softcap=None):
     """K5. q (B, H, T, D) f32 or bf16; k/v (B, Hk, S, D) f32 or bf16, or
-    int8 with ks/vs (B, Hk, S) f32 scales, where H = G * Hk (G = 1: one
+    int8 (int4: uint8 (B, Hk, S, D / 2)) with ks/vs (B, Hk, S) f32
+    scales, where H = G * Hk (G = 1: one
     cache head per query head; query head h reads KV head h / G); pos
     (B,) int32 base positions >= 0 (row t attends columns <= pos[b] + t,
     and with `window` only those > pos[b] + t - window; `softcap` caps
@@ -368,7 +412,7 @@ def cached_attention(q, k, v, pos, *, ks=None, vs=None, window=None,
                          f"v {tuple(v.shape)}: expected (B,H,T,D)/(B,Hk,S,D)")
     b, h, t, d = q.shape
     hk = k.shape[1]
-    if (k.shape[0], k.shape[3]) != (b, d) or hk < 1 or h % hk:
+    if (k.shape[0], head_dim_of(k)) != (b, d) or hk < 1 or h % hk:
         raise ValueError(f"cache {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)} (its heads must divide q's)")
     if tuple(pos.shape) != (b,):
@@ -402,7 +446,7 @@ def decode_attention(q, k, v, pos, *, ks=None, vs=None, window=None,
     attending cache columns <= pos[b] (a pos at or past S attends the
     whole cache), and with `window` only those > pos[b] - window;
     `softcap` caps the scores; k/v (B, Hk, S, D) f32 or bf16, or int8
-    with ks/vs (B, Hk, S) f32 scales; pos (B,) int32. Returns (B, Hk, R,
+    (int4: uint8 (B, Hk, S, D / 2)) with ks/vs (B, Hk, S) f32 scales; pos (B,) int32. Returns (B, Hk, R,
     D) in q's type. CPU tensors run
     `reference_decode_attention`. On CUDA, R <= DECODE_MAX_ROWS; the
     partial results of the key splits (`decode_split`) go to an f32
@@ -413,7 +457,7 @@ def decode_attention(q, k, v, pos, *, ks=None, vs=None, window=None,
                          f"v {tuple(v.shape)}: expected (B,Hk,R,D)/"
                          "(B,Hk,S,D)")
     b, hk, r, d = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (b, hk, d):
+    if (k.shape[0], k.shape[1], head_dim_of(k)) != (b, hk, d):
         raise ValueError(f"cache {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if tuple(pos.shape) != (b,):
@@ -448,8 +492,9 @@ def paged_decode_attention(q, kp, vp, tables, pos, *, ks=None, vs=None,
     attending logical columns <= pos[b], and with `window` only those >
     pos[b] - window (the blocks wholly before the band, a windowed pool's
     reclaimed ones pointing at the junk block, are never read); kp/vp
-    (n_blocks, Hk, bp, D) f32 or bf16 pool, or int8 with ks/vs (n_blocks,
-    Hk, bp) f32 scale blocks; tables (B, nb_max) int32 logical ->
+    (n_blocks, Hk, bp, D) f32 or bf16 pool, or int8 (int4:
+    uint8 (n_blocks, Hk, bp, D / 2)) with ks/vs (n_blocks, Hk, bp) f32
+    scale blocks; tables (B, nb_max) int32 logical ->
     physical block; pos (B,) int32. Returns (B, Hk, R, D) in q's type.
     CPU tensors run `reference_paged_decode_attention`. On CUDA, as
     `decode_attention`, over the nb_max * bp logical columns split in
@@ -459,7 +504,7 @@ def paged_decode_attention(q, kp, vp, tables, pos, *, ks=None, vs=None,
                          f"{tuple(vp.shape)}: expected (B,Hk,R,D)/"
                          "(n_blocks,Hk,bp,D)")
     b, hk, r, d = q.shape
-    if (kp.shape[1], kp.shape[3]) != (hk, d):
+    if (kp.shape[1], head_dim_of(kp)) != (hk, d):
         raise ValueError(f"pool {tuple(kp.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if tables.dim() != 2 or tables.shape[0] != b:

@@ -4,8 +4,8 @@
 // (entry cached_attention) -- a prompt chunk's queries attend a
 // preallocated K/V cache with a RUNTIME base position: row t of batch b
 // sees cache columns <= pos[b] + t. q is f32, or bf16 under bf16
-// compute; the cache is f32, bf16, or int8 with one f32 scale per
-// (position, head) for K and for V; the output is of q's type, as the
+// compute; the cache is f32, bf16, or int8 or int4 with one f32 scale
+// per (position, head) for K and for V; the output is of q's type, as the
 // TPU kernel writes o in q's dtype. Grouped-query attention: the cache may hold fewer heads
 // than q, Hk = H / G, and query head h reads KV head h / G (G = 1 is
 // multi-head attention; llama3-8b has G = 4).
@@ -75,6 +75,12 @@
 //  * Only tiles on the diagonal (a column past the tile's first row's
 //    limit) or past S take the mask; rows at or past T are computed on
 //    zero queries and never stored.
+//  * int4 (two values a byte, hopper_tc.cuh's Int4): the raw stage holds
+//    the packed rows (D / 2 bytes each) and the conversion widens each
+//    nibble with its sign into the bf16 operand tile (exact, |x| <= 8);
+//    from there every step is the int8 path's, scales included. At the
+//    serving shape its live K/V with scales are 1.0 MB, 0.0003 ms at 3.35
+//    TB/s.
 //  * int8: the tile's K and V scales are staged beside the payload. The
 //    K scale multiplies the f32 score column before the softmax; the V
 //    scale folds into P for P.V only, while l sums the unscaled P (the
@@ -121,7 +127,8 @@ constexpr int kRing = 2;         // stages of the K/V ring
 // What a cache type needs beside the ring.
 template <typename KV>
 struct Kind {
-  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr bool kQuant =
+      std::is_same<KV, int8_t>::value || std::is_same<KV, Int4>::value;
   // K and V split into hi and lo (an f32 cache)
   static constexpr bool kSplit = std::is_same<KV, float>::value;
   // the ring holds the raw cache, converted into operand tiles per tile
@@ -145,7 +152,7 @@ struct Direct {
 template <typename KV, int D>
 struct Smem {
   static constexpr int kTile = Layout<D>::kTile;
-  static constexpr int kRaw = kRows * D * (int)sizeof(KV);
+  static constexpr int kRaw = kRows * RowBytes<KV, D>::value;
   static constexpr int kOps = 2 * kTile;
   static constexpr int kOperands =
       Kind<KV>::kStaged ? (Kind<KV>::kSplit ? 4 : 2) : 0;
@@ -167,8 +174,20 @@ __device__ __forceinline__ void widen4(uint32_t x, uint32_t& a, uint32_t& b) {
   b = pack_bf16((float)c.z, (float)c.w);
 }
 
+// Eight int4 values (one 32-bit word, four packed bytes) as four bf16
+// pairs; exact.
+__device__ __forceinline__ void widen8_int4(uint32_t x, uint4& h) {
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) widen_nibble(x >> (8 * i), v[2 * i], v[2 * i + 1]);
+  h.x = pack_bf16(v[0], v[1]);
+  h.y = pack_bf16(v[2], v[3]);
+  h.z = pack_bf16(v[4], v[5]);
+  h.w = pack_bf16(v[6], v[7]);
+}
+
 // A raw stage's K and V into the operand tiles at `ops` (Layout<D>):
-// f32 split into K hi, V hi, K lo, V lo; int8 widened into K, V.
+// f32 split into K hi, V hi, K lo, V lo; int8 and int4 widened into K, V.
 template <typename KV, int D>
 __device__ __forceinline__ void convert(const unsigned char* raw,
                                         unsigned char* ops) {
@@ -181,9 +200,14 @@ __device__ __forceinline__ void convert(const unsigned char* raw,
     const int off = Layout<D>::offset(r, c);
 #pragma unroll
     for (int w = 0; w < 2; ++w) {  // K, then V
-      const KV* src =
-          reinterpret_cast<const KV*>(raw + w * L::kRaw) + r * D + 8 * c;
-      if constexpr (Kind<KV>::kSplit) {
+      const KV* src = reinterpret_cast<const KV*>(raw + w * L::kRaw) +
+                      r * RowBytes<KV, D>::elems +
+                      (std::is_same<KV, Int4>::value ? 4 : 8) * c;
+      if constexpr (std::is_same<KV, Int4>::value) {  // 8 values, 4 bytes
+        uint4 h;
+        widen8_int4(*reinterpret_cast<const uint32_t*>(src), h);
+        *reinterpret_cast<uint4*>(ops + w * L::kTile + off) = h;
+      } else if constexpr (Kind<KV>::kSplit) {
         const float4* f = reinterpret_cast<const float4*>(src);
         uint4 hi, lo;
         split8(f[0], f[1], hi, lo);
@@ -340,8 +364,8 @@ cached_attn_tc_kernel(const Elem<kBF16Q>* __restrict__ q,
   const int first_limit = min(S - 1, base + q0);
   const int last_lo = band_lo(base + q0 + kRows - 1, window);
   const size_t kv_row = (size_t)(bh / G) * S;  // this head's cache rows
-  const KV* kb = k + kv_row * D;
-  const KV* vb = v + kv_row * D;
+  const KV* kb = k + kv_row * RowBytes<KV, D>::elems;
+  const KV* vb = v + kv_row * RowBytes<KV, D>::elems;
 
   auto stage = [&](int j) { return L::kRingOff + L::kStage * (j % kRing); };
   // Starts copying tile j of the split into its stage (Direct: nothing;
@@ -632,7 +656,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // heads a KV head (H / Hk; 1 for multi-head attention). window: the
 // band's width (<= 0: none); softcap: the score cap (<= 0: none). kv_kind:
 // 0 = f32 cache, 1 = bf16,
-// 2 = int8 with ks/vs scales (null for the float kinds). q_kind: 0 = f32
+// 2 = int8 and 3 = int4 (Int4: uint8 rows of D / 2 bytes) with ks/vs
+// scales (null for the float kinds). q_kind: 0 = f32
 // q and out, 1 = bf16 q and out. split_tiles:
 // 64-key tiles per split; the keys fall into n_split = ceil(ceil(S / 64)
 // / split_tiles) splits, and ws is null when n_split is 1, else an f32
@@ -655,8 +680,8 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
   const int n_tiles = (S + kRows - 1) / kRows;
   const int n_split = (n_tiles + split_tiles - 1) / split_tiles;
   if ((n_split > 1) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
-  if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
-                   : (ks != nullptr || vs != nullptr))
+  if (kv_kind >= 2 ? (ks == nullptr || vs == nullptr)
+                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
@@ -683,6 +708,10 @@ extern "C" int dnn_cached_attention(const void* q, const void* k,
                                             BH, H, G, T, S, split_keys,
                                             n_split, scale, window, softcap,
                                             st);
+        case 3:
+          return tc::launch<Int4, kD, kQ>(q, k, v, kss, vss, pp, out, ww, BH,
+                                          H, G, T, S, split_keys, n_split,
+                                          scale, window, softcap, st);
         default:
           return cudaErrorInvalidValue;
       }

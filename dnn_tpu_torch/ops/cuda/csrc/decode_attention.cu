@@ -69,7 +69,12 @@
 //    split-0 block, and the merge skips it; where the plan has one split,
 //    no merge runs.
 //
-// int8 caches store one f32 scale per (position, head) for K and for V.
+// int8 caches store one f32 scale per (position, head) for K and for V,
+// and so do int4 caches (two values a byte, Int4): a lane widens each
+// nibble of its 4 (8 at D = 256) head dims with its sign, two bytes a
+// shared load, and runs the int8 math from there. At gpt2's
+// serving shape the live int4 payload is half of int8's and the scales
+// are the same, so an int4 step moves about 0.9 MB where int8 moves 1.7.
 // The K scale multiplies the score before 1/sqrt(D), as the reference
 // does. The V scale is folded into the probability for the P.V product
 // ONLY: the row sum l adds the unscaled probability (the reference
@@ -131,7 +136,8 @@ cudaError_t launch(const void* q_, const void* k, const void* v,
 }  // namespace
 
 // C entry point (loaded with ctypes). D: 32, 64, 128 or 256. kv_kind: 0 =
-// f32 cache, 1 = bf16, 2 = int8 with ks/vs scales (null for the float
+// f32 cache, 1 = bf16, 2 = int8 and 3 = int4 (Int4: rows of D / 2 bytes)
+// with ks/vs scales (null for the float
 // kinds). q_kind: 0 = f32 q and out, 1 = bf16 q and out. window: the
 // band's width (<= 0: none); softcap: the score cap (<= 0: none).
 // split_keys:
@@ -152,8 +158,8 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const int n_split = (S + split_keys - 1) / split_keys;
   if ((n_split > 1) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
-  if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
-                   : (ks != nullptr || vs != nullptr))
+  if (kv_kind >= 2 ? (ks == nullptr || vs == nullptr)
+                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
@@ -180,6 +186,10 @@ extern "C" int dnn_decode_attention(const void* q, const void* k,
                                               B, Hk, R, S, split_keys,
                                               n_split, scale, window, softcap,
                                               st);
+          case 3:
+            return launch<Int4, kD, kR, kQ>(q, k, v, kss, vss, pp, out, ww, B,
+                                            Hk, R, S, split_keys, n_split,
+                                            scale, window, softcap, st);
           default:
             return cudaErrorInvalidValue;
         }

@@ -9,8 +9,9 @@
 // Layouts. q and out (B, Hk, R, D), f32 or bf16 (Elem<kBF16Q>: bf16
 // under bf16 compute; the scores, softmax statistics, accumulator and
 // workspace stay f32 either way, and only the stored output is rounded to
-// q's type); a dense cache (B, Hk, S, D) with
-// (B, Hk, S) scales; a pool (n_blocks, Hk, bp, D) with (n_blocks, Hk, bp)
+// q's type); a dense cache (B, Hk, S, D) of f32, bf16, int8 or int4
+// (Int4: D / 2 bytes a row, each nibble widened with its sign as it is
+// read, then the int8 math) with (B, Hk, S) scales; a pool (n_blocks, Hk, bp, D) with (n_blocks, Hk, bp)
 // scales, tables (B, nb_max) int32. Both caches are read as an array of
 // D-wide rows: row (bh, col) = bh * S + col, or (tables[b, col / bp] *
 // Hk + hk) * bp + col % bp. A slot's logical length `len` is S, or
@@ -59,8 +60,9 @@ constexpr int kMaxSmem = 227 * 1024;  // an H100 block's shared memory
 // state a row).
 template <typename KV, int D>
 struct Cfg {
-  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  static constexpr int kRowBytes = D * (int)sizeof(KV);
+  static constexpr bool kInt4 = std::is_same<KV, Int4>::value;
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value || kInt4;
+  static constexpr int kRowBytes = RowBytes<KV, D>::value;
   static constexpr int kChunks = kRowBytes / 16;  // 16-byte copies a row
   static constexpr int kVec = D > 128 ? 8 : 4;
   static constexpr int kG = D / kVec;
@@ -119,6 +121,25 @@ __device__ __forceinline__ void load4(const int8_t* p, float* o) {
   o[1] = static_cast<float>(x.y);
   o[2] = static_cast<float>(x.z);
   o[3] = static_cast<float>(x.w);
+}
+
+// 4 int4 values at p (two packed bytes, 2-byte aligned) -> f32.
+__device__ __forceinline__ void load4(const Int4* p, float* o) {
+  const uint32_t x = *reinterpret_cast<const uint16_t*>(p);
+  widen_nibble(x, o[0], o[1]);
+  widen_nibble(x >> 8, o[2], o[3]);
+}
+
+// Head dims d .. d + 3 of row `row` of a staged tile of KV rows -> f32
+// (d a multiple of 4; an int4 row is D / 2 bytes, d / 2 its offset).
+template <typename KV, int D>
+__device__ __forceinline__ void load4_row(const KV* tile, int row, int d,
+                                          float* o) {
+  if constexpr (std::is_same<KV, Int4>::value) {
+    load4(tile + row * (D / 2) + d / 2, o);
+  } else {
+    load4(tile + row * D + d, o);
+  }
 }
 
 // One block of the split grid (n_split, B * Hk): all R <= kR query rows
@@ -266,7 +287,7 @@ __device__ __forceinline__ void split_block(
       const int row = grp + j * C::kGroups;
       float kr[kVec];
 #pragma unroll
-      for (int u = 0; u < kVec; u += 4) load4(sk + row * D + d0 + u, kr + u);
+      for (int u = 0; u < kVec; u += 4) load4_row<KV, D>(sk, row, d0 + u, kr + u);
       // the K scale multiplies the score before 1/sqrt(D)
       const float ksc = C::kQuant ? scale2 * scales[row] : scale2;
 #pragma unroll
@@ -304,7 +325,7 @@ __device__ __forceinline__ void split_block(
       const int row = grp + j * C::kGroups;
       float vr[kVec];
 #pragma unroll
-      for (int u = 0; u < kVec; u += 4) load4(sv + row * D + d0 + u, vr + u);
+      for (int u = 0; u < kVec; u += 4) load4_row<KV, D>(sv, row, d0 + u, vr + u);
       const float vsc = C::kQuant ? scales[C::kTile + row] : 1.f;
 #pragma unroll
       for (int r = 0; r < kR; ++r) {

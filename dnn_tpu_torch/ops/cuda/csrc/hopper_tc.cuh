@@ -16,7 +16,8 @@
 // kernels' shared-memory attributes and the dispatch over the head dims
 // they take; and, for K5-K7, the query and output element type (f32, or
 // bf16 under bf16 compute), its dispatch and its stores, head dim 256
-// (m64n256k16 for K5's P.V), the sliding-window band and the softcap. The library's
+// (m64n256k16 for K5's P.V), the sliding-window band and the softcap, and
+// the int4 cache element (Int4, RowBytes, widen_nibble). The library's
 // hash (_build.lib_path) covers this header, so an edit rebuilds every
 // source that includes it.
 
@@ -68,6 +69,32 @@ __device__ __forceinline__ int band_lo(int limit, int window) {
 // up to cap / 2000.
 __device__ __forceinline__ float soft_cap(float s, float cap) {
   return cap * tanhf(s / cap);
+}
+
+// The int4 cache element of the cache-attention kernels (K5, K6, K7): one
+// byte holds two values, element 2i in the low nibble and 2i + 1 in the
+// high one, two's complement (the port's pack_nibbles; the block wire's
+// nibble order). A row of D values is D / 2 bytes; a pointer to Int4
+// advances by bytes, so a cache of Int4 is addressed in RowBytes.
+struct Int4 {
+  uint8_t b;
+};
+
+// The bytes of one D-wide cache row of element T, and that row in T's
+// own units (the stride of a T*): D * sizeof(T), or D / 2 for Int4.
+template <typename T, int D>
+struct RowBytes {
+  static constexpr int value =
+      std::is_same<T, Int4>::value ? D / 2 : D * (int)sizeof(T);
+  static constexpr int elems = value / (int)sizeof(T);
+};
+
+// The two values of an int4 byte, each nibble widened with its sign:
+// (int8_t)(b << 4) >> 4 for the low one, (int8_t)b >> 4 for the high.
+__device__ __forceinline__ void widen_nibble(uint32_t b, float& lo,
+                                             float& hi) {
+  lo = (float)((int)(int8_t)(uint8_t)(b << 4) >> 4);
+  hi = (float)((int)(int8_t)(uint8_t)b >> 4);
 }
 
 // The query and output element type of the cache-attention kernels (K5,
@@ -482,20 +509,24 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 // Rows [r0, r0 + 64) of a row-major (len, D) matrix of T into shared
 // memory at dst as stored (row-major, unswizzled), for a kernel to convert
 // (cp.async cannot); rows at or past len are zeros. kThr threads of the
-// block take part.
+// block take part (an int4 tile at D = 32 is 64 copies: half of them).
 template <typename T, int D, int kThr = kThreads>
 __device__ __forceinline__ void load_raw(uint32_t dst, const T* g, int r0,
                                          int len) {
-  constexpr int kRowBytes = D * (int)sizeof(T);
+  constexpr int kRowBytes = RowBytes<T, D>::value;
   constexpr int kChunks = kRowBytes / 16;
+  constexpr int kCopies = kRows * kChunks;
+  static_assert(kRowBytes % 16 == 0, "16-byte copies a row");
   const char* gb = reinterpret_cast<const char*>(g);
 #pragma unroll
-  for (int u = 0; u < kRows * kChunks / kThr; ++u) {
+  for (int u = 0; u < (kCopies + kThr - 1) / kThr; ++u) {
     const int i = (int)threadIdx.x + u * kThr;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool in = r0 + r < len;
-    cp_async16(dst + r * kRowBytes + 16 * c,
-               gb + (size_t)(in ? r0 + r : 0) * kRowBytes + 16 * c, in);
+    if (kCopies % kThr == 0 || i < kCopies) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = r0 + r < len;
+      cp_async16(dst + r * kRowBytes + 16 * c,
+                 gb + (size_t)(in ? r0 + r : 0) * kRowBytes + 16 * c, in);
+    }
   }
 }
 

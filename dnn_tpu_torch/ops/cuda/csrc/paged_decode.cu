@@ -88,8 +88,8 @@ cudaError_t launch(const void* q_, const void* kp, const void* vp,
 }  // namespace
 
 // C entry point (loaded with ctypes). D: 32, 64, 128 or 256. kv_kind: 0 =
-// f32 pool, 1 = bf16, 2 = int8 with ks/vs scale blocks (null for the float
-// kinds). q_kind: 0 = f32 q and out, 1 = bf16 q and out. window: the
+// f32 pool, 1 = bf16, 2 = int8 and 3 = int4 (Int4: rows of D / 2 bytes)
+// with ks/vs scale blocks (null for the float kinds). q_kind: 0 = f32 q and out, 1 = bf16 q and out. window: the
 // band's width (<= 0: none; no softcap: the softcapped families never
 // reach a paged pool). split_keys: logical columns a split, a multiple of bp; the nb_max * bp
 // columns fall into n_split = ceil(nb_max * bp / split_keys) splits, and
@@ -109,8 +109,8 @@ extern "C" int dnn_paged_decode_attention(
   const int len = nb_max * bp;
   const int n_split = (len + split_keys - 1) / split_keys;
   if ((n_split > 1) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
-  if (kv_kind == 2 ? (ks == nullptr || vs == nullptr)
-                   : (ks != nullptr || vs != nullptr))
+  if (kv_kind >= 2 ? (ks == nullptr || vs == nullptr)
+                    : (ks != nullptr || vs != nullptr))
     return (int)cudaErrorInvalidValue;
   const float* kss = static_cast<const float*>(ks);
   const float* vss = static_cast<const float*>(vs);
@@ -139,6 +139,11 @@ extern "C" int dnn_paged_decode_attention(
                                               out, ww, B, Hk, R, bp, nb_max,
                                               split_keys, n_split, scale,
                                               window, st);
+          case 3:
+            return launch<Int4, kD, kR, kQ>(q, kp, vp, kss, vss, tt, pp, out,
+                                            ww, B, Hk, R, bp, nb_max,
+                                            split_keys, n_split, scale,
+                                            window, st);
           default:
             return cudaErrorInvalidValue;
         }

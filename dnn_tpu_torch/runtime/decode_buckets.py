@@ -1,5 +1,5 @@
-"""Length-aware bucketed decode for the dense slot pool (port of
-dnn_tpu/runtime/decode_buckets.py:44-114).
+"""Length-aware bucketed decode for the dense slot pool and the solo
+decoder (port of dnn_tpu/runtime/decode_buckets.py:44-270).
 
 The dense pool is allocated at the smallest rung of a ladder of cache
 lengths (powers of two up to `max_len`) that covers the longest live
@@ -9,18 +9,21 @@ every leaf's position axis with zeros: the new columns sit beyond every
 slot's position limit, so attention never sees them until a write
 claims them — greedy tokens are identical to the unbucketed pool.
 
-The solo bucketed decoder (`make_bucketed_generate`) is not ported yet
-(ROADMAP PyTorch/CUDA port item 2).
+The solo bucketed decoder (`make_bucketed_generate`) runs the same
+ladder under one stream: its cache starts at the rung that holds the
+prompt and grows before each step that needs it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["DEFAULT_MIN_BUCKET", "bucket_ladder", "bucket_for",
-           "normalize_ladder", "pad_cache_to"]
+           "make_bucketed_generate", "normalize_ladder", "pad_cache_to"]
 
 DEFAULT_MIN_BUCKET = 64
 
@@ -95,3 +98,118 @@ def pad_cache_to(cache, n: int):
         return out
 
     return {k: pad(v) for k, v in cache.items()}
+
+
+def make_bucketed_generate(cfg, *, max_len: int, max_new_tokens: int,
+                           buckets=None, temperature: float = 0.0,
+                           top_k: Optional[int] = None,
+                           top_p: Optional[float] = None,
+                           min_p: Optional[float] = None,
+                           compute_dtype=None, kv_dtype=None, ffn=None,
+                           family: Optional[str] = None, device=None):
+    """The solo bucketed decoder (JAX's make_bucketed_generate):
+    generate(prepared, ids, seed=0) -> (B, max_new_tokens) int32 token ids
+    on the device, token-identical to generate.make_generate, with the
+    cache allocated at the ladder's rung for the live position: the
+    prompt prefills (K5) into the rung that holds it, and the cache grows
+    (`pad_cache_to`) before the step whose write position needs the next
+    rung; each step is K6 over the current rung.
+
+    `max_len` tops the ladder (prompt + max_new_tokens must fit in it);
+    `buckets=None` is the power-of-two ladder, an ascending tuple
+    overrides it, and `(max_len,)` is the unbucketed program. `family`
+    ("gpt" or "llama") picks the cached forward; None follows the config.
+    A uniformly windowed LLaMA-family config decodes on the rolling ring
+    (make_generate) and is refused here, as JAX's is. `kv_dtype` is any
+    of make_generate's ("f32", "bf16", "int8", "int4"; None follows
+    `compute_dtype`). Sampled draws come from a torch.Generator seeded
+    with `seed`, in make_generate's order, so sampled streams equal its
+    draw for draw. Each call counts its grows in `generate.bucket_grows`
+    and, with obs on, in serving.decode_bucket_grow_total and
+    serving.decode_bucket_dispatch_total{bucket} (the batcher's names).
+    Runs on CUDA unless `device="cpu"` is given."""
+    from dnn_tpu_torch import obs, resolve_device
+    from dnn_tpu_torch.models.gpt import for_compute
+    from dnn_tpu_torch.runtime import generate as gen
+    from dnn_tpu_torch.utils.metrics import labeled
+
+    compute_dtype = gen.check_compute_dtype(compute_dtype)
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if max_len < 2:
+        raise ValueError(f"max_len must be >= 2, got {max_len}")
+    if max_len > cfg.block_size:
+        raise ValueError(
+            f"max_len {max_len} exceeds block_size {cfg.block_size}")
+    ladder = (bucket_ladder(max_len) if buckets is None
+              else normalize_ladder(buckets, max_len))
+    if family is None:
+        family = "llama" if gen._is_llama(cfg) else "gpt"
+    if family == "gpt":
+        forward = functools.partial(gen.forward_with_cache, ffn=ffn)
+    elif family == "llama":
+        from dnn_tpu_torch.models import llama
+
+        if cfg.sliding_window is not None and not cfg.alt_window:
+            raise ValueError(
+                "sliding-window configs decode O(window) on the rolling "
+                "ring (llama.make_generate) — bucketing targets the "
+                "dense full-length cache")
+        forward = functools.partial(llama.forward_with_cache, ffn=ffn)
+    else:
+        raise ValueError(f"unknown family {family!r} (gpt|llama)")
+    dev = resolve_device(device)
+    cache_dtype = gen._cache_dtype(kv_dtype if kv_dtype is not None
+                                   else compute_dtype)
+    sample = functools.partial(gen._sample, temperature=temperature,
+                               top_k=top_k, top_p=top_p, min_p=min_p)
+    if dev.type == "cuda":
+        # the JAX reference computes in f32: no TF32 on the served path
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    @torch.no_grad()
+    def generate(prepared, ids, seed: int = 0):
+        if prepared["wte"]["embedding"].device.type != dev.type:
+            raise ValueError(
+                f"prepared weights are on "
+                f"{prepared['wte']['embedding'].device}, generate on {dev}")
+        prepared = for_compute(prepared, compute_dtype)
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(dev)
+        b, t = ids.shape
+        if t + max_new_tokens > max_len:
+            raise ValueError(
+                f"prompt {t} + max_new_tokens {max_new_tokens} exceeds "
+                f"max_len {max_len}")
+        rng = torch.Generator(device=dev).manual_seed(int(seed))
+        n = bucket_for(ladder, t)
+        cache = gen.init_cache(cfg, b, n, cache_dtype, dev)
+        logits, cache = forward(prepared, ids, cache, 0, cfg=cfg,
+                                compute_dtype=compute_dtype)
+        toks = [sample(logits[:, -1], rng)]
+        dispatch: dict = {}
+        grows = 0
+        for i in range(max_new_tokens - 1):
+            pos = t + i  # this step's cache-write position
+            nb = bucket_for(ladder, pos + 1)
+            if nb != n:
+                cache = pad_cache_to(cache, nb)
+                n = nb
+                grows += 1
+            logits, cache = forward(prepared, toks[-1][:, None], cache, pos,
+                                    cfg=cfg, compute_dtype=compute_dtype)
+            dispatch[n] = dispatch.get(n, 0) + 1
+            toks.append(sample(logits[:, -1], rng))
+        generate.bucket_grows = grows
+        if (m := obs.metrics()) is not None:
+            # tallied here, after the loop: no lock traffic a step
+            for bk, cnt in dispatch.items():
+                m.inc(labeled("serving.decode_bucket_dispatch_total",
+                              bucket=bk), cnt)
+            if grows:
+                m.inc("serving.decode_bucket_grow_total", grows)
+        return torch.stack(toks, dim=1).to(torch.int32)
+
+    generate.buckets = ladder
+    generate.bucket_grows = 0
+    return generate

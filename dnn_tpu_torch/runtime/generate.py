@@ -34,6 +34,7 @@ from dnn_tpu_torch.ops.attention import merge_heads, split_heads
 from dnn_tpu_torch.ops.nn import embedding, gelu, layer_norm, linear
 from dnn_tpu_torch.runtime.kvcache import (
     FloatKV,
+    Int4KV,
     Int8KV,
     band_keep,
     codec_for_cache,
@@ -49,15 +50,14 @@ TOP_P_PREFILTER_K = 256
 def init_cache(cfg, batch: int, max_len: int, dtype, device):
     """Preallocated cache, one leading layer axis: {"k","v"}
     (L, B, H, S, D) in torch.float32 / torch.bfloat16, or dtype="int8"
-    for the quantized cache (int8 K/V plus (L, B, H, S) f32 scales). H
-    is the config's KV heads (kvcache.cache_shape): n_head for GPT-2,
-    n_kv_head for the LLaMA family."""
+    / "int4" for the quantized caches (int8 K/V, or int4 packed two to a
+    byte, plus (L, B, H, S) f32 scales). H is the config's KV heads
+    (kvcache.cache_shape): n_head for GPT-2, n_kv_head for the LLaMA
+    family."""
     if dtype == "int8":
         return Int8KV().init(cfg, batch, max_len, device)
     if dtype == "int4":
-        raise NotImplementedError(
-            "int4 KV caches are not ported to dnn_tpu_torch yet (ROADMAP "
-            "PyTorch/CUDA port item 2)")
+        return Int4KV().init(cfg, batch, max_len, device)
     return FloatKV(dtype).init(cfg, batch, max_len, device)
 
 
@@ -296,18 +296,16 @@ def check_compute_dtype(compute_dtype):
 
 def _cache_dtype(kv_dtype):
     """kv_dtype spec -> init_cache's dtype: None/"f32" -> torch.float32,
-    "bf16" -> torch.bfloat16, "int8" as is; torch dtypes pass."""
+    "bf16" -> torch.bfloat16, "int8" and "int4" as they are; torch dtypes
+    pass."""
     if kv_dtype in (None, "f32", torch.float32):
         return torch.float32
     if kv_dtype in ("bf16", torch.bfloat16):
         return torch.bfloat16
-    if kv_dtype == "int8":
-        return "int8"
-    if kv_dtype == "int4":
-        raise NotImplementedError(
-            "kv_dtype 'int4': int4 KV caches are not ported to dnn_tpu_torch "
-            "yet (ROADMAP PyTorch/CUDA port item 2)")
-    raise ValueError(f"kv_dtype must be f32, bf16 or int8, got {kv_dtype!r}")
+    if kv_dtype in ("int8", "int4"):
+        return kv_dtype
+    raise ValueError(f"kv_dtype must be f32, bf16, int8 or int4, got "
+                     f"{kv_dtype!r}")
 
 
 def make_generate(cfg, *, max_new_tokens: int,
@@ -327,8 +325,8 @@ def make_generate(cfg, *, max_new_tokens: int,
     queries, and the head as bf16 x bf16 -> f32 logits; weights prepared
     at that type (`from_jax_params(..., compute_dtype=)`) are used as
     they are, f32 ones are cast once per call (gpt.for_compute).
-    `kv_dtype` picks the cache: "f32", "bf16", or "int8"
-    (per-(position, head) scales); None follows `compute_dtype` (f32
+    `kv_dtype` picks the cache: "f32", "bf16", "int8" or "int4"
+    (per-(position, head) scales; int4 packed two to a byte); None follows `compute_dtype` (f32
     without it), as JAX's does. `temperature`/`top_k`/`top_p`/`min_p`
     sample as the JAX `_sample` does; `repetition_penalty` (HF/CTRL
     semantics) penalizes every token already in the sequence;

@@ -1,11 +1,15 @@
-"""KV cache codecs: float and int8, banded, soft-capped and rolling (port
-of dnn_tpu/runtime/kvcache.py:74-150, 182-303, 306-312, 330-461,
+"""KV cache codecs: float, int8 and int4, banded, soft-capped and rolling
+(port of dnn_tpu/runtime/kvcache.py:74-150, 182-303, 306-327, 330-487,
 494-637).
 
 A dense cache is {"k", "v"} of shape (L, B, H, S, D) in f32 or bf16, or
 {"k", "v", "ks", "vs"} for int8: int8 K/V plus one f32 scale per
 (position, head), (L, B, H, S), written as amax/127 of the row
-(`_quantize_rows`). H is the model's KV heads: n_head for GPT-2,
+(`_quantize_rows`). An int4 cache has the same leaves with K/V uint8 of
+shape (L, B, H, S, D / 2), two values a byte (element 2i in the low
+nibble, 2i + 1 in the high one, two's complement: the block wire's
+order, so a block's bytes go to the wire as they are) at amax/7 of the
+row (`_quantize_rows_int4`). H is the model's KV heads: n_head for GPT-2,
 n_kv_head for a grouped-query (LLaMA-family) config, whose G = n_head /
 n_kv_head query heads share one cached head. The layer loop hands a
 codec one layer's (B, H, S[, D]) views. Writes are IN PLACE (torch has
@@ -46,7 +50,10 @@ on their order and keys are cached already rotated, so a W-slot ring
 whose written slots are 0 .. min(p, W - 1) is K6 over the ring with pos
 clipped to W - 1 — the JAX codecs' ring-occupancy mask, without one.
 
-Not ported (ROADMAP PyTorch/CUDA port item 2): int4 caches.
+`Int4KV` is Int8KV with the 7-level quantizer: every attend runs K5/K6
+on the packed payload (the kernels widen each nibble with its sign, then
+run the int8 math). JAX's Int4KV keeps its attends on the einsum; the
+function is the same. A rolling int4 cache raises, as JAX's does.
 """
 
 from __future__ import annotations
@@ -59,9 +66,10 @@ from dnn_tpu_torch.ops.cuda.cached_attention import (
     band_keep,
     cached_attention,
     decode_attention,
+    pack_nibbles,
 )
 
-__all__ = ["FloatKV", "Int8KV", "RollingFloatKV", "RollingInt8KV",
+__all__ = ["FloatKV", "Int4KV", "Int8KV", "RollingFloatKV", "RollingInt8KV",
            "band_keep", "cache_shape", "codec_for_cache", "ring_positions",
            "span_positions"]
 
@@ -76,6 +84,19 @@ def _quantize_rows(x):
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def _quantize_rows_int4(x):
+    """x (..., D) -> (packed uint8 (..., D / 2), f32 scales (...,)):
+    symmetric per row at 7 levels, scale amax/7 (1 for an all-zero row),
+    round half to even of x / scale clipped at +-7 — JAX's
+    _quantize_rows_int4 bit for bit — then two values a byte
+    (cached_attention.pack_nibbles)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7)
+    return pack_nibbles(q), scale
 
 
 def span_positions(start, t: int, device):
@@ -141,12 +162,13 @@ def _write_rows(c, new: dict, pos, write_gate):
                                       leaf[b, :, idx])
 
 
-def cache_shape(cfg, batch: int, max_len: int):
+def cache_shape(cfg, batch: int, max_len: int, packed: bool = False):
     """(L, B, KV heads, S, D) of a dense cache for `cfg`: GQA configs
-    (n_kv_head, head_dim) store their KV heads, GPT-2 its n_head."""
+    (n_kv_head, head_dim) store their KV heads, GPT-2 its n_head.
+    `packed`: an int4 leaf's (..., D / 2) bytes."""
     heads = getattr(cfg, "n_kv_head", cfg.n_head)
     d = getattr(cfg, "head_dim", cfg.n_embd // cfg.n_head)
-    return (cfg.n_layer, batch, heads, max_len, d)
+    return (cfg.n_layer, batch, heads, max_len, d // 2 if packed else d)
 
 
 def _slot_positions(base, b: int, device):
@@ -197,7 +219,7 @@ class FloatKV(_Band):
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"KV dtype {dtype}: float caches are f32 or bf16 (int8 is "
-                "Int8KV; int4 waits for ROADMAP PyTorch/CUDA port item 2)")
+                "Int8KV, int4 Int4KV)")
         self.dtype = dtype
         self.window = window
         self.softcap = softcap
@@ -252,23 +274,27 @@ class Int8KV(_Band):
     scores, V scale onto the probabilities); no float copy of the cache
     is ever made. `window` and `softcap` as FloatKV's."""
 
+    _qdtype = torch.int8
+    _quant = staticmethod(_quantize_rows)
+
     def __init__(self, window: Optional[int] = None,
                  softcap: Optional[float] = None):
         self.window = window
         self.softcap = softcap
 
     def init(self, cfg, batch: int, max_len: int, device):
-        shape = cache_shape(cfg, batch, max_len)
+        shape = cache_shape(cfg, batch, max_len,
+                            packed=self._qdtype == torch.uint8)
         return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k": torch.zeros(shape, dtype=self._qdtype, device=device),
+            "v": torch.zeros(shape, dtype=self._qdtype, device=device),
             "ks": torch.ones(shape[:-1], dtype=torch.float32, device=device),
             "vs": torch.ones(shape[:-1], dtype=torch.float32, device=device),
         }
 
     def write(self, c, k, v, start_pos):
-        kq, ks = _quantize_rows(k)
-        vq, vs = _quantize_rows(v)
+        kq, ks = self._quant(k)
+        vq, vs = self._quant(v)
         _write_span(c, {"k": kq, "v": vq, "ks": ks, "vs": vs}, start_pos)
 
     def attend(self, q, c, base, window=None):
@@ -277,8 +303,8 @@ class Int8KV(_Band):
                             **self._kw(window, ks=c["ks"], vs=c["vs"]))
 
     def write_rows(self, c, k, v, pos, write_gate):
-        kq, ks = _quantize_rows(k)   # (B, H, T, D), (B, H, T)
-        vq, vs = _quantize_rows(v)
+        kq, ks = self._quant(k)   # (B, H, T, D[/2]), (B, H, T)
+        vq, vs = self._quant(v)
         _write_rows(c, {"k": kq, "v": vq, "ks": ks, "vs": vs}, pos,
                     write_gate)
 
@@ -293,6 +319,18 @@ class Int8KV(_Band):
         cache, with its scales; returns q's type."""
         return cached_attention(q.contiguous(), c["k"], c["v"], pos,
                                 **self._kw(window, ks=c["ks"], vs=c["vs"]))
+
+
+class Int4KV(Int8KV):
+    """int4 K/V with per-(position, head) f32 scales — 8x less cache
+    payload bandwidth per decode step than f32, 2x less than int8 (JAX's
+    Int4KV). K/V are uint8 (..., D / 2), two values a byte (the module
+    docstring's nibble order). Int8KV's layout and attends with the
+    7-level quantizer: K5/K6 read the packed payload and widen it on the
+    card; the plain versions unpack it."""
+
+    _qdtype = torch.uint8
+    _quant = staticmethod(_quantize_rows_int4)
 
 
 def ring_positions(pos, w: int):
@@ -397,21 +435,27 @@ class RollingInt8KV(_RingStorage, Int8KV):
 def codec_for_cache(cache, *, window=None, rolling: bool = False,
                     softcap=None):
     """The codec of a dense cache, from its structure (JAX's
-    codec_for_cache): scale leaves mean int8. `window` adds the band,
-    `softcap` the score cap; `rolling=True` treats the cache as a
-    `window`-slot ring (a ring leaf looks like a short cache, so rolling
-    cannot be inferred). int4 caches raise (ROADMAP PyTorch/CUDA port
-    item 2)."""
-    if "ks" in cache and cache["k"].dtype != torch.int8:
-        raise NotImplementedError(
-            f"quantized cache of {cache['k'].dtype}: only int8 is ported "
-            "(int4 waits for ROADMAP PyTorch/CUDA port item 2)")
+    codec_for_cache): scale leaves mean a quantized cache, int8 K/V int8
+    and uint8 K/V int4. `window` adds the band, `softcap` the score cap;
+    `rolling=True` treats the cache as a `window`-slot ring (a ring leaf
+    looks like a short cache, so rolling cannot be inferred). A rolling
+    int4 cache raises ValueError, as JAX's does."""
+    int4 = "ks" in cache and cache["k"].dtype == torch.uint8
+    if "ks" in cache and not int4 and cache["k"].dtype != torch.int8:
+        raise TypeError(f"quantized cache of {cache['k'].dtype}: int8 or "
+                        "uint8 (packed int4) K/V")
     if rolling:
         if softcap is not None:
             raise ValueError("softcap is not supported on rolling caches")
+        if int4:
+            raise ValueError(
+                "rolling int4 caches are not built — roll at int8 "
+                "(RollingInt8KV) or keep int4 on a full-length cache")
         if "ks" in cache:
             return RollingInt8KV(window=window)
         return RollingFloatKV(cache["k"].dtype, window=window)
+    if int4:
+        return Int4KV(window=window, softcap=softcap)
     if "ks" in cache:
         return Int8KV(window=window, softcap=softcap)
     return FloatKV(cache["k"].dtype, window=window, softcap=softcap)

@@ -92,11 +92,18 @@ observability it reports through (obs/, utils/metrics.py):
     worker's heartbeat -> ok|degraded|wedged; `on_wedged` "restart" or
     "drain" escalates a wedged episode, and serve_lm then returns
     EXIT_RESTART (43);
-  * `metrics_port` serves GET /metrics /healthz /statusz /debugz and
-    POST /drainz (obs/http.py); the chaos seams (chaos/inject.py)
-    kv_exhaust, step_fault and kv_migrate are consulted at admission,
-    before each pool step and in kvpull.
-Request spans, /profilez, /stepz and goodput are ROADMAP Queue 1 item 12.
+  * `metrics_port` serves GET /metrics /healthz /statusz /debugz
+    /trace /trace.jsonl /traces /stepz and POST /drainz (obs/http.py);
+    the chaos seams (chaos/inject.py) kv_exhaust, step_fault and
+    kv_migrate are consulted at admission, before each pool step and in
+    kvpull.
+  * observability (JAX lm_server.py:418-462, :905-1045), with obs on:
+    each request's root span continues a client's `tr=` trace
+    (obs.continue_or_start), with queue_wait, admit, prefill,
+    prefill_chunk and decode spans under it; the batcher carries a step
+    clock (/stepz) and a goodput tracker (dnn_tpu_mfu, dnn_tpu_mbu,
+    goodput tokens/sec and, with `slo`, SLO burn rates). /profilez is
+    ROADMAP Queue 1 item 12's second half.
 """
 
 from __future__ import annotations
@@ -223,6 +230,7 @@ class _QueuedRequest(NamedTuple):
     t_q: float  # perf_counter at enqueue: the queue-wait and TTFT clock
     fut: concurrent.futures.Future
     attempts: int = 0  # worker-death requeues consumed (the retry budget)
+    trace: object = None  # the request's span (obs/trace.py), or None
 
 
 class _BatcherWorker(threading.Thread):
@@ -257,14 +265,18 @@ class _BatcherWorker(threading.Thread):
         self.on_death = None
         self.heartbeat = None
         self.step_done = None
+        self.goodput = None  # obs/goodput.GoodputTracker: the TTFT feed
         self.tick = None  # housekeeping, called once a loop (rate-limited
         # by itself)
 
     def submit(self, prompt, max_new: int, seed, *, opts=None,
-               on_token=None, cancel_evt=None) -> concurrent.futures.Future:
+               on_token=None, cancel_evt=None,
+               trace=None) -> concurrent.futures.Future:
         """Queue a request. `on_token(tok)` fires on this worker thread
         for every token as it commits; setting `cancel_evt` retires the
-        request at the next step boundary (its future is cancelled)."""
+        request at the next step boundary (its future is cancelled);
+        `trace` (a span) parents its queue_wait, admit and decode
+        spans."""
         fut = concurrent.futures.Future()
         with self._lock:
             if self._draining and self._dead is None:
@@ -278,7 +290,7 @@ class _BatcherWorker(threading.Thread):
             self.q.put(_QueuedRequest(
                 np.asarray(prompt), max_new, seed, dict(opts or {}),
                 on_token, cancel_evt or threading.Event(),
-                time.perf_counter(), fut))
+                time.perf_counter(), fut, trace=trace))
             if (m := obs.metrics()) is not None:
                 # callable: the exits drain the queue without a gauge
                 # update, so the depth is read at scrape time
@@ -403,7 +415,8 @@ class _BatcherWorker(threading.Thread):
             if _chaos_inject.kv_exhaust():
                 raise InsufficientBlocks("chaos: injected KV pool exhaustion")
             rid = self.batcher.submit(item.prompt, item.max_new,
-                                      seed=item.seed, **item.opts)
+                                      seed=item.seed, trace=item.trace,
+                                      **item.opts)
         except InsufficientBlocks:
             # once an item, not once a retry: the held item is retried
             # every step
@@ -420,7 +433,9 @@ class _BatcherWorker(threading.Thread):
         obs.flight.record("admit", rid=rid,
                           queue_wait_ms=round(wait * 1e3, 3),
                           prompt_len=int(item.prompt.size),
-                          max_new=item.max_new, trace_id=None)
+                          max_new=item.max_new,
+                          trace_id=item.trace.trace_id if item.trace
+                          else None)
         # the convoy path samples the first token during submit();
         # interleaved admission defers it to a later step's commit
         first = self.batcher.first_token(rid)
@@ -428,8 +443,12 @@ class _BatcherWorker(threading.Thread):
             m.observe("serving.queue_wait_seconds", wait)
             m.set_fn("serving.queue_depth", self.q.qsize)
             if first is not None:
-                m.observe("serving.ttft_seconds",
-                          time.perf_counter() - item.t_q)
+                ttft = time.perf_counter() - item.t_q
+                m.observe("serving.ttft_seconds", ttft)
+                if (g := self.goodput) is not None:
+                    g.on_ttft(ttft)  # the SLO burn-rate window
+        if item.trace:
+            obs.record_span("queue_wait", item.t_q, wait, parent=item.trace)
         if first is None:
             self._ttft_t0[rid] = item.t_q
         self._futures[rid] = item
@@ -585,7 +604,10 @@ class _BatcherWorker(threading.Thread):
         for rid, tok in stepped.items():
             t0 = self._ttft_t0.pop(rid, None)
             if t0 is not None and (m := obs.metrics()) is not None:
-                m.observe("serving.ttft_seconds", time.perf_counter() - t0)
+                ttft = time.perf_counter() - t0
+                m.observe("serving.ttft_seconds", ttft)
+                if (g := self.goodput) is not None:
+                    g.on_ttft(ttft)
             self._emit(rid, tok)
 
     def run(self):
@@ -665,7 +687,7 @@ class LMServer:
     `spec_k` serve through the speculative batcher. Batcher keyword
     arguments pass through —
     the cache layout and storage (`kv` "paged"/"dense"/"auto", the
-    default; `kv_dtype` f32/bf16/int8; `decode_buckets`; `paged_blocks`,
+    default; `kv_dtype` f32/bf16/int8/int4; `decode_buckets`; `paged_blocks`,
     `block_len`), `compute_dtype` (torch.bfloat16: bf16 compute, the
     cache bf16 unless `kv_dtype` says otherwise), `prefix_cache`,
     `prefill_chunk_tokens`, `overlap`, `lora_adapters`/`lora_alphas`,
@@ -693,7 +715,7 @@ class LMServer:
                  metrics_port: Optional[int] = None, watchdog=None,
                  on_wedged: str = "503", worker_restarts: int = 2,
                  max_request_retries: int = 1, drain_grace_s: float = 30.0,
-                 **batcher_kwargs):
+                 goodput=None, slo=None, **batcher_kwargs):
         native.load()  # the checksum library, built before serving
         if role not in ("prefill", "decode", "both"):
             raise ValueError(f"role must be prefill|decode|both, got {role!r}")
@@ -781,6 +803,7 @@ class LMServer:
         self.default_max_new = default_max_new
         self.request_timeout = request_timeout
         self.tokenizer = tokenizer
+        self._init_obs(cfg, prepared, goodput, slo)
         # JSON mode's constraints, one per depth, compiled at first use
         self._constraint_cache: dict = {}
         self._embed_fns: dict = {}  # pooling -> make_embed's function
@@ -800,7 +823,7 @@ class LMServer:
                     healthy=lambda: (self.worker.is_alive()
                                      and not self._draining),
                     status=self._statusz, drain=self._drainz,
-                    device=self.batcher.device)
+                    device=self.batcher.device, stepclock=self.step_clock)
             if watchdog:
                 self._start_watchdog(watchdog)
         except BaseException:
@@ -809,11 +832,40 @@ class LMServer:
             self.close()
             raise
 
+    def _init_obs(self, cfg, prepared, goodput, slo):
+        """The step clock and the goodput tracker (JAX lm_server.py:
+        905-918, :1011-1045), built when obs is on and attached to the
+        batcher: /stepz serves the clock, /metrics the tracker's
+        dnn_tpu_mfu / dnn_tpu_mbu / dnn_tpu_goodput_tokens_per_sec and,
+        with `slo` (an obs.goodput.SLOConfig), dnn_tpu_slo_burn_rate.
+        `goodput`: None builds one from the model config when obs is on,
+        False turns it off, a GoodputTracker is used as it is. The KV
+        term is priced at the pool's type, the weights at the served
+        tree's bytes."""
+        self.step_clock = None
+        self.goodput = None
+        if not obs.enabled():
+            return
+        from dnn_tpu_torch.obs.goodput import GoodputTracker, model_cost
+        from dnn_tpu_torch.obs.timeline import StepClock
+
+        self.step_clock = StepClock().install()
+        self.batcher.step_clock = self.step_clock
+        if goodput is None:
+            # the pool's resolved type: "int8", "int4" or a torch dtype
+            goodput = GoodputTracker(
+                model_cost(cfg, prepared,
+                           kv_dtype=self.batcher._cache_dtype), slo=slo)
+        if goodput:
+            self.goodput = goodput.install()
+            self.batcher.goodput = self.goodput
+
     def _spawn_worker(self) -> _BatcherWorker:
         """A batcher worker wired to this server: at construction and by
         the worker-death restart, so a successor never drifts from the
         first one's hooks."""
         worker = _BatcherWorker(self.batcher)
+        worker.goodput = self.goodput
         worker.tick = self._housekeeping_tick
         if self.worker_restarts > 0:
             worker.on_death = self._on_worker_death
@@ -871,6 +923,9 @@ class LMServer:
                      "detail": "serving worker thread liveness"}}}
         s["role"] = self.role
         comps = dict(s.get("components") or {})
+        if self.step_clock is not None and self.step_clock.steps_total:
+            # slow-but-healthy vs wedged at a glance (informational)
+            comps["step"] = self.step_clock.status_component()
         if self._kvtier_leases is not None:
             st = self.batcher._prefix_store
             comps["kvtier"] = {
@@ -1168,6 +1223,21 @@ class LMServer:
         cancels the original's generation."""
         max_new, seed, opts, timeout = await self._preflight(request_id,
                                                              context)
+        # the request's root span: a client's tr= tag continues its trace
+        root = obs.continue_or_start("lm.request", request_id,
+                                     method="SendTensor",
+                                     prompt_len=int(prompt.size))
+        try:
+            tokens = await self._generate_traced(prompt, max_new, seed, opts,
+                                                 timeout, root, context)
+        except BaseException as e:
+            root.end(error=type(e).__name__)
+            raise
+        root.end(tokens=len(tokens))
+        return tokens
+
+    async def _generate_traced(self, prompt, max_new, seed, opts, timeout,
+                               root, context):
         dkey = opts.pop("dedup", None)
         cancel_evt = threading.Event()
         fut = None
@@ -1182,10 +1252,12 @@ class LMServer:
         joined = fut is not None
         if joined:
             obs.flight.record("dedup_join", key=str(dkey)[:80],
-                              trace_id=None)
+                              trace_id=root.trace_id)
+            root.set(dedup="join")
         else:
             fut = self.worker.submit(prompt, max_new, seed, opts=opts,
-                                     cancel_evt=cancel_evt)
+                                     cancel_evt=cancel_evt,
+                                     trace=root if root else None)
             if dkey is not None:
                 with self._dedup_lock:
                     self._dedup[dkey] = fut
@@ -1200,7 +1272,7 @@ class LMServer:
             if (m := obs.metrics()) is not None:
                 m.inc("serving.deadline_exceeded_total")
             obs.flight.record("deadline_miss", method="SendTensor",
-                              timeout_s=timeout, trace_id=None)
+                              timeout_s=timeout, trace_id=root.trace_id)
             await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
                                 f"generation exceeded {timeout}s")
         except asyncio.CancelledError:
@@ -1249,6 +1321,9 @@ class LMServer:
         # a stream cannot join another request (its tokens go to one
         # consumer): the dedup key is dropped
         opts.pop("dedup", None)
+        root = obs.continue_or_start("lm.request", request.request_id,
+                                     method="GenerateStream",
+                                     prompt_len=int(prompt.size))
         loop = asyncio.get_running_loop()
         q: "asyncio.Queue" = asyncio.Queue()
         cancel_evt = threading.Event()
@@ -1258,7 +1333,8 @@ class LMServer:
 
         fut = self.worker.submit(prompt.reshape(-1), max_new, seed,
                                  opts=opts, on_token=on_token,
-                                 cancel_evt=cancel_evt)
+                                 cancel_evt=cancel_evt,
+                                 trace=root if root else None)
         # fires after the last on_token call for this request, so the
         # "done" sentinel always trails the last token in the queue
         fut.add_done_callback(
@@ -1275,7 +1351,7 @@ class LMServer:
                     obs.flight.record("deadline_miss",
                                       method="GenerateStream",
                                       timeout_s=timeout, tokens=n,
-                                      trace_id=None)
+                                      trace_id=root.trace_id)
                     await context.abort(grpc.StatusCode.DEADLINE_EXCEEDED,
                                         f"generation exceeded {timeout}s")
                 try:
@@ -1297,6 +1373,8 @@ class LMServer:
         except asyncio.CancelledError:
             cancel_evt.set()
             raise
+        finally:
+            root.end(tokens=n)
 
     # -- KV between replicas (JAX lm_server.py:1607-1885) --------------
 

@@ -4,8 +4,11 @@ of dnn_tpu/runtime/paged_kvcache.py:59-363).
 Layout (per K and per V):
 
     pool   (L, n_blocks, H, block_len, D)   f32, bf16 or int8; H is the
-                                            model's KV heads
-    scales (L, n_blocks, H, block_len)      f32, int8 pools only ("ks"/"vs")
+                                            model's KV heads; int4 pools
+                                            uint8 (..., D / 2), two
+                                            values a byte (kvcache.py)
+    scales (L, n_blocks, H, block_len)      f32, quantized pools only
+                                            ("ks"/"vs")
     tables (B, nb_max)                      int32
 
 The JAX layout replicates the tables over L so its layer scan can peel
@@ -18,9 +21,11 @@ slot's length). All pool updates are in place.
 Decode attention (`attend_rows`) runs the K7 paged-decode wrapper: the
 CUDA kernel chases each slot's table straight into the pool on the card,
 the plain gather-view version on the CPU. An int8 pool quantizes each
-written row (kvcache._quantize_rows) and passes its scale blocks to K7;
-its attention output is f32, a float pool's the pool dtype (the JAX
-codec's output dtypes).
+written row (kvcache._quantize_rows), an int4 pool at 7 levels and packs
+it (kvcache._quantize_rows_int4), and both pass their scale blocks to K7;
+a quantized pool's attention output is q's type, a float pool's the pool
+dtype (the JAX codec's output dtypes). JAX's int4 pool attends on the
+einsum; the port's runs K7 on the packed payload, the same function.
 
 A windowed pool (`PagedKV(window=W)`, Mistral-class sliding windows;
 JAX :181-330) adds the band's lower bound to every decode row: K7 skips
@@ -39,7 +44,11 @@ from typing import List, Optional
 import torch
 
 from dnn_tpu_torch.ops.cuda.cached_attention import paged_decode_attention
-from dnn_tpu_torch.runtime.kvcache import _quantize_rows, cache_shape
+from dnn_tpu_torch.runtime.kvcache import (
+    _quantize_rows,
+    _quantize_rows_int4,
+    cache_shape,
+)
 
 __all__ = ["PagedKV", "BlockAllocator", "InsufficientBlocks",
            "init_paged_cache"]
@@ -114,27 +123,29 @@ def init_paged_cache(cfg, slots: int, max_len: int, *, n_blocks: int,
                      block_len: int, dtype, device):
     """Pool + table for `slots` decode rows of up to `max_len` positions
     sharing `n_blocks` physical blocks of `block_len` positions. `dtype`
-    is torch.float32, torch.bfloat16 or "int8" (int8 K/V blocks plus
-    (L, n_blocks, H, block_len) f32 scale blocks initialised to ones).
+    is torch.float32, torch.bfloat16, "int8" (int8 K/V blocks plus
+    (L, n_blocks, H, block_len) f32 scale blocks initialised to ones) or
+    "int4" (the same with uint8 K/V blocks of D / 2 bytes a row).
     H and D are the dense cache's (`kvcache.cache_shape`): a grouped-query
     family stores its KV heads, as JAX's init_paged_cache(kv_heads=)."""
     if max_len % block_len:
         raise ValueError(f"max_len {max_len} must tile block_len {block_len}")
-    shape = cache_shape(cfg, n_blocks, block_len)
+    shape = cache_shape(cfg, n_blocks, block_len, packed=dtype == "int4")
     tables = torch.zeros((slots, max_len // block_len), dtype=torch.int32,
                          device=device)
-    if dtype == "int8":
+    if dtype in ("int8", "int4"):
+        qdt = torch.int8 if dtype == "int8" else torch.uint8
         return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k": torch.zeros(shape, dtype=qdt, device=device),
+            "v": torch.zeros(shape, dtype=qdt, device=device),
             "ks": torch.ones(shape[:-1], dtype=torch.float32, device=device),
             "vs": torch.ones(shape[:-1], dtype=torch.float32, device=device),
             "tables": tables,
         }
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"paged pool dtype {dtype!r}: the port has f32, bf16 and int8 "
-            "pools (int4 waits for ROADMAP PyTorch/CUDA port item 2)")
+            f"paged pool dtype {dtype!r}: pools are f32, bf16, int8 or "
+            "int4")
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "tables": tables}
@@ -158,8 +169,8 @@ class PagedKV:
         block since reallocated to another request, and restoring it
         would write the old request's K/V into the new owner's cache.
         Collisions between gated slots on the junk block are harmless.
-        An int8 pool quantizes the rows first and scatters their scales
-        alongside."""
+        A quantized pool quantizes the rows first (int4: and packs them)
+        and scatters their scales alongside."""
         bp = self.block_len
         slot = torch.arange(pos.shape[0], device=pos.device)
         live_pos = torch.where(write_gate, pos, 0).long()
@@ -167,8 +178,10 @@ class PagedKV:
         blk = torch.where(write_gate, blk, 0)
         row = torch.where(write_gate, live_pos % bp, 0)
         if "ks" in c:
-            kq, ks = _quantize_rows(k[:, :, 0])  # (B, H, D), (B, H)
-            vq, vs = _quantize_rows(v[:, :, 0])
+            quantize = (_quantize_rows_int4 if c["k"].dtype == torch.uint8
+                        else _quantize_rows)
+            kq, ks = quantize(k[:, :, 0])  # (B, H, D[/2]), (B, H)
+            vq, vs = quantize(v[:, :, 0])
             new = {"k": kq, "v": vq, "ks": ks, "vs": vs}
         else:
             new = {"k": k[:, :, 0], "v": v[:, :, 0]}
@@ -179,8 +192,8 @@ class PagedKV:
         """q (B, H, R, D), R rows a pool head (a GQA config's folded
         query group); every row of slot b attends its logical positions
         <= pos[b], and > pos[b] - window for a windowed pool. Returns (B,
-        H, R, D): q's type for an int8 pool, the pool dtype for a float
-        one. A per-call `window` (the dense codecs' per-layer channel)
+        H, R, D): q's type for a quantized pool, the pool dtype for a
+        float one. A per-call `window` (the dense codecs' per-layer channel)
         raises, as JAX's: alternating-window families never get here."""
         if window is not None:
             raise ValueError(

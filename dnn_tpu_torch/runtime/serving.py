@@ -13,8 +13,9 @@ chosen by `kv` as the JAX batcher chooses it:
   * "auto" (the default): paged whenever the configuration can page,
     else dense — the reason is logged, where the JAX batcher records a
     `kv_fallback_dense` flight event.
-`kv_dtype` stores either layout as f32, bf16 or int8 (per-(position,
-head) scales; the kernels' int8 variants); by default it follows
+`kv_dtype` stores either layout as f32, bf16, int8 or int4
+(per-(position, head) scales; the kernels' int8 and int4 variants); by
+default it follows
 `compute_dtype`. `compute_dtype=torch.bfloat16` serves in bf16 compute,
 as the JAX batcher does: the residual stream and every block product in
 bf16 over matmul weights held in bf16 (gpt.for_compute, cast once at
@@ -142,8 +143,8 @@ Against the JAX batcher:
     interleaved one (whose admission row may hold an in-flight prompt);
     the row's positions past the prompt are blanked (zeros, int8 scales
     ones), as JAX's fresh row has them;
-  * the observability gauges (item 12) and int4 KV (item 2) raise
-    NotImplementedError (ROADMAP, "PyTorch/CUDA port").
+  * JAX's int4 pools attend on the einsum; the port's run K6/K7 on the
+    packed payload (the same function).
 
 The server runs on CUDA unless constructed with device="cpu"; without a
 card the default raises. TF32 is switched off for the matmuls: the JAX
@@ -153,6 +154,8 @@ reference computes in f32.
 from __future__ import annotations
 
 import logging
+import time
+import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
@@ -160,12 +163,20 @@ import numpy as np
 import torch
 
 from dnn_tpu_torch import obs, resolve_device
-from dnn_tpu_torch.control.handoff import as_tensor, np_dtype_name
+from dnn_tpu_torch.obs.compile_watch import note_capture
+from dnn_tpu_torch.control.handoff import (
+    HandoffFormatError,
+    as_tensor,
+    np_dtype_name,
+)
 from dnn_tpu_torch.models.gpt import GPTConfig, for_compute, head, layer_params
 from dnn_tpu_torch.ops.attention import merge_heads
 from dnn_tpu_torch.ops.cuda.cached_attention import (
     LaunchLog,
+    head_dim_of,
+    pack_nibbles,
     recording_launches,
+    unpack_nibbles,
 )
 from dnn_tpu_torch.ops.nn import embedding, layer_norm, linear
 from dnn_tpu_torch.runtime.decode_buckets import (
@@ -195,7 +206,7 @@ from dnn_tpu_torch.runtime.paged_kvcache import (
     PagedKV,
     init_paged_cache,
 )
-from dnn_tpu_torch.utils.metrics import labeled
+from dnn_tpu_torch.utils.metrics import Throughput, labeled
 
 log = logging.getLogger("dnn_tpu_torch.serving")
 
@@ -335,7 +346,7 @@ class CapturedDecode:
     (a test may pass a stand-in with the same contract)."""
 
     def __init__(self, slots: int, device, capture=capture_cuda_graph,
-                 chunk_tokens: int = 0):
+                 chunk_tokens: int = 0, names=None):
         self.tok = torch.zeros((slots,), dtype=torch.int64, device=device)
         self.pos = torch.zeros((slots,), dtype=torch.int32, device=device)
         self.active = torch.zeros((slots,), dtype=torch.bool, device=device)
@@ -343,6 +354,9 @@ class CapturedDecode:
                                   device=device) if chunk_tokens else None)
         self.start = torch.zeros((1,), dtype=torch.int32, device=device)
         self._capture = capture
+        # kind -> the name its captures are counted under
+        # (obs/compile_watch: a constrained pool's graphs say so)
+        self._names = dict(names or {})
         self._graphs: dict = {}  # kind -> (graph, output, LaunchLog, key)
         self.counts = {"decode": [0, 0], "mixed": [0, 0]}  # captures, replays
 
@@ -395,7 +409,10 @@ class CapturedDecode:
             for k in [k for k, v in self._graphs.items()
                       if k == kind or v[3][0] is not key[0]]:
                 del self._graphs[k]
+            t0 = time.perf_counter()
             graph, static, log = self._capture(fn)
+            note_capture(self._names.get(kind, kind),
+                         time.perf_counter() - t0)
             self._graphs[kind] = (graph, static, log, key)
             self.counts.setdefault(kind, [0, 0])[0] += 1
             return out
@@ -669,8 +686,11 @@ class ContinuousBatcher:
         dev, v = self.device, cfg.vocab_size
         # the step forwards' CUDA graphs (the CPU steps eagerly); their
         # static buffers ARE the slots' device state below
-        self._graph_step = (CapturedDecode(slots, dev, chunk_tokens=self._ilv)
-                            if dev.type == "cuda" else None)
+        self._graph_step = (CapturedDecode(
+            slots, dev, chunk_tokens=self._ilv,
+            names=({"decode": "constrained", "mixed": "constrained_mixed"}
+                   if allow_constraints else None))
+            if dev.type == "cuda" else None)
         g = self._graph_step
         # per-slot state on the device, updated there by every step (the
         # tokens a step samples feed the next without a trip through the
@@ -735,6 +755,181 @@ class ContinuousBatcher:
         self.results: Dict[int, np.ndarray] = {}
         self.finish_reasons: Dict[int, str] = {}
         self.token_logprobs: Dict[int, dict] = {}
+        self._init_obs()
+
+    def _init_obs(self):
+        """Observability state (JAX serving.py:574-657), host mirrors
+        only: nothing here reads the card. `goodput`
+        (obs/goodput.GoodputTracker) and `step_clock`
+        (obs/timeline.StepClock) are attached after construction (the LM
+        daemon builds both when obs is on); each costs one attribute read
+        a step when unset, and every feed sits behind the obs gate. Step
+        counters and inter-token samples accumulate in plain fields and
+        land in ONE registry update every _OBS_FLUSH_STEPS steps (and
+        whenever the pool goes idle); the pool gauges are scrape-time
+        callables, weakly bound (a collected pool reads 0)."""
+        self._tps = Throughput()
+        self.goodput = None
+        self.step_clock = None
+        self._n_constrained = 0
+        self._bucket_keys: Dict[int, str] = {}
+        self._kv_live_hw = 0
+        self._active_hw = 0
+        self._obs_acc_steps = 0
+        self._obs_acc_tokens = 0
+        self._obs_acc_bk: Optional[str] = None
+        self._obs_acc_samples: list = []
+        pool_ref = weakref.ref(self)
+
+        def gauge(method):
+            def read():
+                pool = pool_ref()
+                return getattr(pool, method)() if pool is not None else 0.0
+            return read
+
+        self._obs_gauges = {
+            "serving.tokens_per_sec": gauge("_tps_read"),
+            "serving.batch_occupancy": gauge("_occupancy_read"),
+            "serving.kv_slot_utilization": gauge("_kv_util_read"),
+            "serving.kv_live_positions_high_water": gauge("_kv_live_hw_read"),
+            "serving.active_slots_high_water": gauge("_active_hw_read"),
+            # the pool's bytes as allocated: an int4 pool's K/V are
+            # already packed two values a byte, its f32 scales full width
+            "serving.kv_cache_bytes": gauge("_kv_bytes_read"),
+        }
+        if self.paged:
+            self._obs_gauges.update({
+                "serving.paged_blocks_used": gauge("_paged_used_read"),
+                "serving.paged_blocks_free": gauge("_paged_free_read"),
+                "serving.paged_blocks_high_water": gauge("_paged_hw_read"),
+            })
+
+    #: step-obs batching cadence (StepClock.FLUSH_EVERY, goodput's
+    #: _FLUSH_STEPS: the same number)
+    _OBS_FLUSH_STEPS = 32
+
+    def _obs_commit(self, req, m, t_now, n_new: int = 1,
+                    samples: Optional[list] = None):
+        """After committing `n_new` tokens of `req`: the inter-token clock
+        (a speculative chunk spreads its gap over the chunk) and the
+        per-bucket decode span, one child of the request's trace per
+        cache rung it decodes through (JAX serving.py:2509-2533)."""
+        if m is not None:
+            tl = req.get("t_last")
+            if tl is not None and samples is not None:
+                samples.append((t_now - tl) / max(n_new, 1))
+            req["t_last"] = t_now
+        else:
+            # gate off: a runtime re-enable must not observe the whole
+            # disabled gap as one sample
+            req["t_last"] = None
+        tr = req.get("trace")
+        if tr and req.get("b_bucket") != self._cache_len:
+            bs = req.get("b_span")
+            if bs is not None:
+                bs.end(tokens=len(req["emitted"]) - n_new)
+            req["b_span"] = tr.child("decode", bucket=self._cache_len)
+            req["b_bucket"] = self._cache_len
+
+    def _bucket_key(self) -> str:
+        key = self._bucket_keys.get(self._cache_len)
+        if key is None:
+            key = self._bucket_keys[self._cache_len] = labeled(
+                "serving.decode_bucket_dispatch_total",
+                bucket=self._cache_len)
+        return key
+
+    def _obs_step_end(self, m, n_adv: int, samples: Optional[list] = None):
+        """Pool-level series for one committed step (`n_adv` tokens across
+        the slots): the high-water marks, the batched registry feed, and
+        the goodput tracker's numerators (JAX serving.py:2545-2591)."""
+        if m is None:
+            return
+        live = 0
+        n_act = 0
+        for r in self._slot_req:
+            if r is not None and "pending" not in r:
+                live += r["prompt_len"] + len(r["emitted"])
+                n_act += 1
+        if live > self._kv_live_hw:
+            self._kv_live_hw = live
+        if n_act > self._active_hw:
+            self._active_hw = n_act
+        bk = self._bucket_key()
+        if bk is not self._obs_acc_bk:
+            self._obs_flush(m)
+            self._obs_acc_bk = bk
+        self._obs_acc_steps += 1
+        self._obs_acc_tokens += n_adv
+        if samples:
+            self._obs_acc_samples.extend(samples)
+        if self._obs_acc_steps >= self._OBS_FLUSH_STEPS or n_act == 0:
+            self._obs_flush(m)
+        if (g := self.goodput) is not None:
+            g.on_decode_step(n_adv, live)
+            if samples:
+                g.on_inter_token(samples)
+
+    def _obs_flush(self, m):
+        """Land the accumulated step counters and inter-token samples in
+        one bulk registry update (JAX serving.py:2599-2623)."""
+        n = self._obs_acc_steps
+        if not n:
+            return
+        if self._obs_acc_tokens:
+            self._tps.add(self._obs_acc_tokens)
+        samples = self._obs_acc_samples
+        m.bulk(
+            counters={"serving.decode_steps_total": n,
+                      "serving.tokens_total": self._obs_acc_tokens,
+                      self._obs_acc_bk: n},
+            observations={"serving.inter_token_seconds": samples}
+            if samples else None,
+            gauge_fns=self._obs_gauges)
+        self._obs_acc_steps = 0
+        self._obs_acc_tokens = 0
+        if samples:
+            self._obs_acc_samples = []
+
+    def _tps_read(self) -> float:
+        return self._tps.per_sec
+
+    def _occupancy_read(self) -> float:
+        return self.n_active / self.slots
+
+    def _kv_util_read(self) -> float:
+        # live positions over the allocation, from host bookkeeping (a
+        # transiently stale value is fine for a gauge)
+        live = sum(r["prompt_len"] + len(r["emitted"])
+                   for r in self._slot_req if r is not None)
+        return live / (self.slots * self._cache_len)
+
+    def _kv_live_hw_read(self) -> float:
+        return float(self._kv_live_hw)
+
+    def _active_hw_read(self) -> float:
+        return float(self._active_hw)
+
+    def _kv_bytes_read(self) -> float:
+        # shapes and dtypes only: a scrape never touches the card
+        return float(sum(t.numel() * t.element_size()
+                         for t in self.cache.values()))
+
+    def _paged_used_read(self) -> float:
+        return float(self.allocator.n_used)
+
+    def _paged_free_read(self) -> float:
+        return float(self.allocator.n_free)
+
+    def _paged_hw_read(self) -> float:
+        return float(self.allocator.high_water)
+
+    def _note_constrained(self, delta: int):
+        """The live constrained-slot count, mirrored onto the step clock's
+        gauge (one store a transition, nothing a step)."""
+        self._n_constrained += delta
+        if (sc := self.step_clock) is not None:
+            sc.constrained_slots = self._n_constrained
 
     def _lora_view(self, sel):
         """The served weights with every adapted linear reading `sel`
@@ -865,7 +1060,8 @@ class ContinuousBatcher:
                logit_bias: Optional[dict] = None,
                stop: Optional[list] = None, logprobs: bool = False,
                constraint=None, adapter: Optional[int] = None,
-               prefilled: Optional[dict] = None, **unknown) -> int:
+               prefilled: Optional[dict] = None, trace=None,
+               **unknown) -> int:
         """Admit `prompt` (1-D int ids) into a free slot; returns the
         request id. The first token is sampled at the end of the prefill
         and counts toward max_new_tokens. `seed` names the request's rng
@@ -883,15 +1079,34 @@ class ContinuousBatcher:
         `prefilled` is a prefill replica's `export_prefill` payload for
         this prompt (control/handoff.unpack's dict): the row is adopted
         and no prompt chunk runs here (convoy admission and the base
-        model only, as in JAX). Convoy admission prefills here;
+        model only, as in JAX). `trace` (an obs.trace span: the daemon's
+        request span) parents the request's spans: "admit" (the slot's
+        install), under it "prefill" and a "prefill_chunk" a chunk, and
+        a "decode" span a cache rung. Convoy admission prefills here;
         interleaved admission (prefill_chunk_tokens) only queues the
-        prompt, whose chunks the following steps fold in. Raises RuntimeError without a free slot
+        prompt, whose chunks the following steps fold in. Its whole wall
+        is the step clock's "admit" phase of the next step. Raises
+        RuntimeError without a free slot
         and, on the paged pool, InsufficientBlocks while it lacks blocks
         for prompt + budget (after evicting what the prefix store can)."""
         if unknown:
             # JAX's batcher takes no more (the daemon resolves h= into
             # prefilled=; d= is refused before it gets here)
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        sc = self.step_clock
+        t_sub = time.perf_counter() if sc is not None else 0.0
+        try:
+            return self._submit(prompt, max_new_tokens, seed, temperature,
+                                top_k, top_p, min_p, repetition_penalty,
+                                logit_bias, stop, logprobs, constraint,
+                                adapter, prefilled, trace)
+        finally:
+            if sc is not None:
+                sc.note_admit(t_sub)
+
+    def _submit(self, prompt, max_new_tokens, seed, temperature, top_k,
+                top_p, min_p, repetition_penalty, logit_bias, stop,
+                logprobs, constraint, adapter, prefilled, trace) -> int:
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("prompt must have at least one token")
@@ -977,6 +1192,9 @@ class ContinuousBatcher:
                      and prefilled is None)
         kv_hit = self._prefix_store.lookup(prompt) if use_radix else None
         taken, n_shared, cow_tok, install_ids, req = [], 0, 0, None, None
+        # "admit" covers the slot's install end to end
+        adm = (trace.child("admit", slot=slot, prompt_len=len(prompt))
+               if trace else obs.NULL_SPAN)
         try:
             if self.paged:
                 taken, n_shared, cow_tok = self._alloc_blocks(
@@ -997,9 +1215,12 @@ class ContinuousBatcher:
                    "logprobs": bool(logprobs and self._logprobs_k)}
             if req["logprobs"]:
                 req["lp"], req["lp_top"] = [], []
+            if trace:
+                req["trace"] = trace  # the decode spans hang off it
             if constraint is not None:
                 req.update(constraint=constraint, c_state=constraint.start,
                            c_off=c_off)
+                self._note_constrained(1)
             par = {"gen": self._generator(rid, seed) if temp > 0 else None,
                    "t": temp, "k": tk, "p": tp, "mp": mp, "rp": rp,
                    "seen_row": self._seen_row(prompt),
@@ -1023,11 +1244,14 @@ class ContinuousBatcher:
                 req["pending"] = par
                 self._slot_req[slot] = req
                 self._pending_q.append(slot)
+                adm.end(interleaved=True)
                 return rid
             self._admit(slot, req, prompt, par, kv_hit, n_shared, cow_tok,
-                        prefilled)
+                        prefilled, adm)
+            adm.end()
             return rid
-        except BaseException:
+        except BaseException as e:
+            adm.end(error=type(e).__name__)
             # a failure anywhere in the admission returns the blocks, the
             # grammar's reference and the slot, or the pools shrink on
             # every such failure
@@ -1041,6 +1265,8 @@ class ContinuousBatcher:
             if c_off is not None and not (req or {}).get("c_released"):
                 self._ctab_release(constraint)
                 self._crow_d[slot] = 0
+                if req is not None and "constraint" in req:
+                    self._note_constrained(-1)
             self._slot_req[slot] = None
             self.active[slot] = False
             self._active_d[slot] = False
@@ -1111,19 +1337,22 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _admit(self, slot, req, prompt, par, kv_hit, n_shared, cow_tok,
-               prefilled=None):
+               prefilled=None, adm=obs.NULL_SPAN):
         """Convoy admission: the prompt's chunks (resumed after a prefix
         hit) or an adopted row, the first token and the slot's state,
-        inline."""
+        inline. `adm` parents the "prefill" span (host time: the chunks'
+        launches, the finish, and the first token's readback)."""
+        chunks_before = self.prefill_chunks_run
+        sp = adm.child("prefill", prompt_len=len(prompt))
         if prefilled is not None:
             last = self._adopt_prefilled(prefilled, prompt)
         elif kv_hit is not None:
             self._count_lookup(n_shared > 0 or cow_tok > 0)
             boundary: dict = {}
             last = self._radix_prefill(prompt, slot, kv_hit, n_shared,
-                                       cow_tok, boundary)
+                                       cow_tok, boundary, sp)
         else:
-            last = self._prefill(prompt, req["aid"])
+            last = self._prefill(prompt, req["aid"], sp)
         first, lp = self._finish(slot, req, last, par)
         if kv_hit is not None:
             # the prompt's full-block path, now that the install has
@@ -1139,6 +1368,11 @@ class ContinuousBatcher:
             req["ptoks"], req["borig"] = prompt, borig
         host = _Readback([first] + list(lp)).wait()
         first = int(host[0][0])  # the admission's one device -> host sync
+        sp.end(chunks=self.prefill_chunks_run - chunks_before)
+        if obs.metrics() is not None:
+            req["t_last"] = time.perf_counter()  # the inter-token clock
+            if (g := self.goodput) is not None:
+                g.on_prefill(len(prompt))
         self.tok[slot] = first
         req["emitted"].append(first)
         if req["logprobs"]:
@@ -1167,7 +1401,7 @@ class ContinuousBatcher:
         if (m := obs.metrics()) is not None:
             m.inc("serving.prefill_chunks_total")
 
-    def _prefill(self, prompt, aid: int = 0):
+    def _prefill(self, prompt, aid: int = 0, span=obs.NULL_SPAN):
         """The convoy chunk loop into the transient row — full prompt_pad
         chunks and one padded tail, each at its absolute start, through
         adapter `aid`'s weights; on a dense pool with the prefix LRU it
@@ -1201,9 +1435,11 @@ class ContinuousBatcher:
         padded_d = self._upload(padded, torch.int64)
         logits = None
         for c in range(start_chunk, n_chunks):
+            c_sp = span.child("prefill_chunk", chunk=c)
             logits = self.family.prefill(
                 self._row_view, padded_d[:, c * p_pad:(c + 1) * p_pad],
                 self._row, c * p_pad)
+            c_sp.end()
             self._chunk_ran()
             if self._prefix_cache is not None \
                     and (c + 1) * p_pad <= len(prompt):
@@ -1219,7 +1455,7 @@ class ContinuousBatcher:
         return last
 
     def _radix_prefill(self, prompt, slot, kv_hit, n_shared, cow_tok,
-                       boundary):
+                       boundary, span=obs.NULL_SPAN):
         """The radix store's admission prefill (JAX serving.py:2311-2383):
         resume the chunk loop at the first uncached position. A full hit
         (the prompt is exactly the shared block run and its last node
@@ -1249,9 +1485,11 @@ class ContinuousBatcher:
         logits = None
         for i in range(n_k):
             start = resume + i * p_pad
+            c_sp = span.child("prefill_chunk", chunk=start // p_pad)
             logits = self.family.prefill(
                 self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
                 self._row, start)
+            c_sp.end()
             self._chunk_ran()
             for b in range(start // bp, p_len // bp):
                 pos = (b + 1) * bp - 1
@@ -1331,7 +1569,12 @@ class ContinuousBatcher:
     def _row_spec(self):
         """[(leaf name, shape, numpy dtype name)] of the handoff row, in
         the JAX package's pytree order (sorted keys): the admission
-        row's leaves at JAX's row length (prompt_pad-rounded)."""
+        row's leaves at JAX's row length (prompt_pad-rounded). An int4
+        row has no wire form, as in JAX: HandoffFormatError."""
+        if self._cache_dtype == "int4":
+            raise HandoffFormatError(
+                "cache dtype int4 has no wire form (int4 caches cannot hand "
+                "off; serve the prefill/decode split with f32/bf16/int8 KV)")
         out = []
         for kk in sorted(self._row):
             shape = list(self._row[kk].shape)
@@ -1456,19 +1699,29 @@ class ContinuousBatcher:
 
     def kvtier_fingerprint(self) -> dict:
         """The block geometry both sides of a migration must share (JAX's
-        dict): one block's shape and dtype per pool leaf."""
+        dict): one block's shape and dtype per pool leaf — an int4 pool's
+        K/V as JAX reports them, (.., D) "int4" (blocks cross the host
+        boundary as int8 values, and the wire nibble-packs them)."""
         self._require_store()
+        leaves = {}
+        for kk, leaf in self.cache.items():
+            if kk == "tables":
+                continue
+            shape = [leaf.shape[0]] + list(leaf.shape[2:])
+            if leaf.dtype == torch.uint8:
+                leaves[kk] = [shape[:-1] + [head_dim_of(leaf)], "int4"]
+            else:
+                leaves[kk] = [shape, np_dtype_name(leaf.dtype)]
         return {"family": type(self.family).__name__,
                 "vocab_size": int(self.cfg.vocab_size),
                 "block_len": int(self._block_len),
-                "leaves": {kk: [[leaf.shape[0]] + list(leaf.shape[2:]),
-                                np_dtype_name(leaf.dtype)]
-                           for kk, leaf in self.cache.items()
-                           if kk != "tables"}}
+                "leaves": leaves}
 
     def _read_block(self, block_id: int) -> dict:
-        """One physical block's leaves, views of the pool."""
-        return PagedKV.read_block(self.cache, block_id)
+        """One physical block's leaves, views of the pool; an int4 pool's
+        K/V widened to their int8 values (JAX's _read_block)."""
+        return {kk: unpack_nibbles(v) if v.dtype == torch.uint8 else v
+                for kk, v in PagedKV.read_block(self.cache, block_id).items()}
 
     @torch.no_grad()
     def kvtier_export(self, tokens):
@@ -1558,6 +1811,9 @@ class ContinuousBatcher:
             owned = self._alloc_evicting(n_missing)
             vals = {kk: as_tensor(v)[:, n_have:n_total].to(self.device)
                     for kk, v in payload["leaves"].items()}
+            # an int4 pool's blocks arrive as int8 values
+            vals = {kk: pack_nibbles(v) if self.cache[kk].dtype == torch.uint8
+                    else v for kk, v in vals.items()}
             for j, dst in enumerate(owned):
                 PagedKV.write_block(self.cache,
                                     {kk: v[:, j] for kk, v in vals.items()},
@@ -1820,6 +2076,7 @@ class ContinuousBatcher:
             req["c_released"] = True
             self._ctab_release(req["constraint"])
             self._crow_d[slot] = 0
+            self._note_constrained(-1)
         self._slot_req[slot] = None
         self.active[slot] = False
         self._active_d[slot] = False
@@ -1869,14 +2126,22 @@ class ContinuousBatcher:
                     req["blocks"][:n_cover], origin=req["borig"])
         self._release(slot)
 
-    @staticmethod
-    def _obs_retire(req, reason: str):
-        """A leaving request's outcome counter and flight event (host
-        bookkeeping only), shared by retirement and cancel."""
+    def _obs_retire(self, req, reason: str):
+        """A leaving request's decode span, outcome counter, availability
+        sample and flight event (host bookkeeping only), shared by
+        retirement and cancel."""
+        if (bs := req.get("b_span")) is not None:
+            bs.end(tokens=len(req["emitted"]), reason=reason)
         if (m := obs.metrics()) is not None:
             m.inc(labeled("serving.requests_total", outcome=reason))
+            if (g := self.goodput) is not None:
+                # a natural retirement served its caller; a cancel
+                # (client gone, deadline) counts against the budget
+                g.on_outcome(ok=reason != "cancelled")
+        tr = req.get("trace")
         obs.flight.record("retire", rid=req["rid"], reason=reason,
-                          tokens=len(req["emitted"]), trace_id=None)
+                          tokens=len(req["emitted"]),
+                          trace_id=tr.trace_id if tr else None)
 
     def drop_inflight(self):
         """Forget a dispatched but uncommitted overlap step (the LM
@@ -1947,6 +2212,11 @@ class ContinuousBatcher:
         first commit past this dispatch (install_step)."""
         req, p, slot = ilv["req"], ilv["p"], ilv["slot"]
         self._chunk_ran()
+        if (tr := req.get("trace")) and (t0 := ilv.get("t0")) is not None:
+            # the chunk rode this mixed step: its span is the step's
+            # launch, on the host clock
+            obs.record_span("prefill_chunk", t0, time.perf_counter() - t0,
+                            parent=tr, chunk=ilv["c"], interleaved=True)
         if not ilv["last"]:
             p["next"] += 1
             return
@@ -1967,6 +2237,10 @@ class ContinuousBatcher:
         trailing step)."""
         if self.n_active == 0:
             return self.flush_overlap()
+        # the step clock (obs/timeline.py): rec is None without a clock or
+        # with obs off; its marks read the host's perf_counter only
+        sc = self.step_clock
+        rec = sc.begin() if sc is not None else None
         if self.active.any():
             # this step writes each active slot's next position (the host
             # mirror counts every dispatched step, committed or not)
@@ -1975,6 +2249,10 @@ class ContinuousBatcher:
         state = (self.cache, self._tok_d, self._pos_d, self._active_d)
         g = self._graph_step
         pf_logits = None
+        if rec is not None:
+            rec.marks.append(("host", time.perf_counter()))
+        if ilv is not None and ilv["req"].get("trace"):
+            ilv["t0"] = time.perf_counter()
         if ilv is None:
             logits = (g(self._decode, *state) if g is not None
                       else self._decode(*state))
@@ -1996,12 +2274,42 @@ class ContinuousBatcher:
         if ilv is not None:
             self._ilv_after_chunk(ilv, pf_logits, s_idx)
         readback = _Readback([nxt] + list(lp))
+        if rec is not None:
+            # the graph's replay (or the eager launches) and the
+            # sampling's: handing the step to the card
+            rec.marks.append(("dispatch", time.perf_counter()))
+            rec.mixed = ilv is not None
         if self._overlap:
+            if sc is not None:
+                sc.overlap_depth = 1
             prev, self._inflight = self._inflight, (s_idx, readback)
             if prev is None:
-                return {}
-            return self._commit_step(prev[0], prev[1].wait())
-        return self._commit_step(s_idx, readback.wait())
+                return self._pipeline_fill_end(rec, sc)
+            host = prev[1].wait()
+            if rec is not None:
+                # with the pipeline live, the wait is what is left of
+                # step N-1 after this dispatch
+                rec.marks.append(("wait", time.perf_counter()))
+            return self._commit_step(prev[0], host, rec, sc)
+        host = readback.wait()
+        if rec is not None:
+            # the CUDA event's wait before the pinned readback: the
+            # step's one device -> host sync
+            rec.marks.append(("wait", time.perf_counter()))
+        return self._commit_step(s_idx, host, rec, sc)
+
+    def _pipeline_fill_end(self, rec, sc):
+        """Close the record of a pipeline-filling dispatch (overlap's
+        first call: a step went out, nothing commits), as JAX's."""
+        if rec is not None:
+            t = time.perf_counter()
+            rec.marks.append(("wait", t))
+            rec.marks.append(("commit", t))
+        self._obs_step_end(obs.metrics(), 0, None)
+        if rec is not None:
+            rec.marks.append(("obs", time.perf_counter()))
+            sc.end(rec, 0)
+        return {}
 
     def _decode(self, cache, tok, pos, active):
         """The forward of one step over every slot: logits (B, V)."""
@@ -2053,14 +2361,18 @@ class ContinuousBatcher:
               if self._logprobs_k else ())
         return nxt, lp
 
-    def _commit_step(self, s_idx, host) -> Dict[int, int]:
+    def _commit_step(self, s_idx, host, rec=None, sc=None) -> Dict[int, int]:
         """Commit one completed step's tokens (host arrays: tokens, and the
         chosen logprobs, top logprobs and top ids when logprobs_k) to the
         host bookkeeping (JAX's _commit_step). A slot whose install
         happened at or after dispatch `s_idx` had no decode leg in it, so
         its row is skipped; the first commit past an interleaved install
-        takes its deferred first token ahead of the step's own."""
-        toks = host[0]
+        takes its deferred first token ahead of the step's own. `rec`
+        and `sc`: the step clock's record, closed here (commit, obs)."""
+        m = obs.metrics()
+        t_now = time.perf_counter() if m is not None else 0.0
+        samples: list = []
+        n_adv = 0
         out = {}
         for slot, req in enumerate(self._slot_req):
             if req is None or "pending" in req:
@@ -2073,19 +2385,34 @@ class ContinuousBatcher:
                 del req["install_step"]
                 fd = req.pop("first_dev", None)
                 if fd is not None:
+                    if m is not None and (g := self.goodput) is not None:
+                        # prefill goodput is credited when its first
+                        # token commits (the convoy path: at submit)
+                        g.on_prefill(req["prompt_len"])
                     committed.append(self._commit_token(slot, req, fd.wait(),
                                                         0))
             if self._slot_req[slot] is req:
-                committed.append(self._commit_token(slot, req, host, slot))
+                committed.append(self._commit_token(slot, req, host, slot,
+                                                    m, t_now, samples))
             if committed:
+                n_adv += len(committed)
                 out[req["rid"]] = (committed[0] if len(committed) == 1
                                    else committed)
+        if rec is not None:
+            rec.marks.append(("commit", time.perf_counter()))
+        self._obs_step_end(m, n_adv, samples)
+        if rec is not None:
+            rec.marks.append(("obs", time.perf_counter()))
+            sc.end(rec, n_adv)
         return out
 
-    def _commit_token(self, slot, req, host, row) -> int:
+    def _commit_token(self, slot, req, host, row, m=None, t_now=0.0,
+                      samples=None) -> int:
         token = int(host[0][row])
         self.tok[slot] = token
         req["emitted"].append(token)
+        if samples is not None:  # a decode token: its gap and span
+            self._obs_commit(req, m, t_now, samples=samples)
         if req["logprobs"]:
             req["lp"].append(float(host[1][row]))
             req["lp_top"].append((host[3][row], host[2][row]))
@@ -2100,9 +2427,14 @@ class ContinuousBatcher:
         LM daemon's idle worker too."""
         if self._inflight is None:
             return {}
+        sc = self.step_clock
+        rec = sc.begin() if sc is not None else None
         s_idx, readback = self._inflight
         self._inflight = None
-        return self._commit_step(s_idx, readback.wait())
+        host = readback.wait()
+        if rec is not None:
+            rec.marks.append(("wait", time.perf_counter()))
+        return self._commit_step(s_idx, host, rec, sc)
 
     def drain(self) -> Dict[int, np.ndarray]:
         """Run until every submitted request finishes; returns .results."""

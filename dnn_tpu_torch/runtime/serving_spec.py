@@ -53,11 +53,13 @@ the fused finish installs both rows and seeds the draft sync.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from dnn_tpu_torch import obs
 from dnn_tpu_torch.models.gpt import GPTConfig, for_compute
 from dnn_tpu_torch.runtime.decode_buckets import pad_cache_to
 from dnn_tpu_torch.runtime.kvcache import codec_for_cache
@@ -360,6 +362,9 @@ class SpeculativeBatcher(ContinuousBatcher):
         admission and overlap compose as in the plain step."""
         if self.n_active == 0:
             return self.flush_overlap()
+        # the step clock's record (the plain step's phases; obs/timeline)
+        sc = self.step_clock
+        rec = sc.begin() if sc is not None else None
         if self._buckets is not None:
             # this step verifies pos .. pos + k of every active slot;
             # _ensure_cache_len adds the +k and grows the draft pool
@@ -369,6 +374,10 @@ class SpeculativeBatcher(ContinuousBatcher):
         ilv = self._ilv_next() if self._ilv else None
         g = self._graph_step if self._greedy else None
         pf_logits = None
+        if rec is not None:
+            rec.marks.append(("host", time.perf_counter()))
+        if ilv is not None and ilv["req"].get("trace"):
+            ilv["t0"] = time.perf_counter()
         if ilv is None:
             w, m = (g.run("spec", self._spec_core, (self.cache, self.d_cache))
                     if g is not None else self._spec_core())
@@ -386,20 +395,35 @@ class SpeculativeBatcher(ContinuousBatcher):
         if ilv is not None:
             self._ilv_after_chunk(ilv, pf_logits, s_idx)
         readback = _Readback([w, m])
+        if rec is not None:
+            rec.marks.append(("dispatch", time.perf_counter()))
+            rec.mixed = ilv is not None
         if self._overlap:
+            if sc is not None:
+                sc.overlap_depth = 1
             prev, self._inflight = self._inflight, (s_idx, readback)
             if prev is None:
-                return {}
-            return self._commit_spec(prev[0], prev[1].wait())
-        return self._commit_spec(s_idx, readback.wait())
+                return self._pipeline_fill_end(rec, sc)
+            host = prev[1].wait()
+            if rec is not None:
+                rec.marks.append(("wait", time.perf_counter()))
+            return self._commit_spec(prev[0], host, rec, sc)
+        host = readback.wait()
+        if rec is not None:
+            rec.marks.append(("wait", time.perf_counter()))
+        return self._commit_spec(s_idx, host, rec, sc)
 
-    def _commit_spec(self, s_idx, host):
+    def _commit_spec(self, s_idx, host, rec=None, sc=None):
         """Commit one completed step (host: the (B, k+1) token block and
         the (B,) accepted counts), with the plain commit's install
         gating: a slot installed at or after dispatch `s_idx` had no
-        verify in it."""
+        verify in it. `rec`/`sc`: the step clock's record, closed here."""
         w, m = host
         self.spec_steps += 1
+        mt = obs.metrics()
+        t_now = time.perf_counter() if mt is not None else 0.0
+        samples: list = []
+        n_adv = 0
         out = {}
         for slot, req in enumerate(self._slot_req):
             if req is None or "pending" in req:
@@ -412,12 +436,17 @@ class SpeculativeBatcher(ContinuousBatcher):
                 del req["install_step"]
                 fd = req.pop("first_dev", None)
                 if fd is not None:  # the deferred interleaved first token
+                    if mt is not None and (gp := self.goodput) is not None:
+                        gp.on_prefill(req["prompt_len"])
                     emitted.append(self._commit_token(slot, req, fd.wait(),
                                                       0))
             if self._slot_req[slot] is req:
                 n_commit = int(m[slot]) + 1
                 self.spec_proposed += self.spec_k
                 self.spec_accepted += int(m[slot])
+                # the chunk's gap spread over its tokens (JAX's)
+                self._obs_commit(req, mt, t_now, n_new=n_commit,
+                                 samples=samples)
                 for t in w[slot, :n_commit].tolist():
                     self.tok[slot] = t
                     req["emitted"].append(t)
@@ -426,12 +455,24 @@ class SpeculativeBatcher(ContinuousBatcher):
                     if self._slot_req[slot] is not req:
                         break  # budget, stop or eos mid-chunk: rest dropped
             if emitted:
+                n_adv += len(emitted)
                 out[req["rid"]] = emitted
+        if rec is not None:
+            rec.marks.append(("commit", time.perf_counter()))
+        self._obs_step_end(mt, n_adv, samples)
+        if rec is not None:
+            rec.marks.append(("obs", time.perf_counter()))
+            sc.end(rec, n_adv)
         return out
 
     def flush_overlap(self):
         if self._inflight is None:
             return {}
+        sc = self.step_clock
+        rec = sc.begin() if sc is not None else None
         s_idx, readback = self._inflight
         self._inflight = None
-        return self._commit_spec(s_idx, readback.wait())
+        host = readback.wait()
+        if rec is not None:
+            rec.marks.append(("wait", time.perf_counter()))
+        return self._commit_spec(s_idx, host, rec, sc)

@@ -1,9 +1,8 @@
 """Step metrics and observability counters (port of
 dnn_tpu/utils/metrics.py: the registry and its Prometheus rendering
-copied whole, so the same calls render the same text byte for byte and
-the JAX package's scrapers and dashboards read the port's daemon
-unchanged; JAX's Throughput window, which nothing here uses, is left
-out).
+and JAX's Throughput window copied whole, so the same calls render the
+same text byte for byte and the JAX package's scrapers and dashboards
+read the port's daemon unchanged).
 
 Named counters/gauges plus a latency reservoir with percentiles and
 fixed-bucket histograms, as plain dicts / JSON lines and, for the
@@ -24,7 +23,7 @@ import json
 import re
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Dict, List, Optional, Sequence
 
 
@@ -273,6 +272,81 @@ class _Timer:
     def __exit__(self, *exc):
         self.metrics.observe(self.name, time.perf_counter() - self._t0)
         return False
+
+
+class Throughput:
+    """items/sec over a sliding wall-clock window (default 60 s) — the
+    BASELINE.json images/sec / tokens/sec counters, and the
+    `serving.tokens_per_sec` gauge the `/metrics` endpoint exports.
+
+    A real window, not cumulative-since-first-add: events older than
+    `window_s` roll off, so an idle server's rate decays to zero instead
+    of averaging over its whole uptime. The denominator is the WALL
+    window (`min(window_s, lifetime)`), never the span between the
+    window's own events — dividing by event span reads ~1e9/s when one
+    burst lands after an idle gap (one event, dt≈0), which is exactly
+    the gauge spike a scraper must never see. `now` is injectable for
+    tests."""
+
+    def __init__(self, window_s: float = 60.0, now=time.monotonic):
+        if window_s <= 0:
+            raise ValueError(f"window_s must be > 0, got {window_s}")
+        self.window_s = float(window_s)
+        self._now = now
+        self._t0 = now()  # lifetime start: pre-warmup reads under-report
+        self._events: "deque[tuple[float, int]]" = deque()
+        self._items = 0  # sum over the live window
+        # producer (e.g. the batcher worker) and reader (the /metrics
+        # scrape thread, via a callable gauge) are different threads;
+        # _evict's check-then-popleft is not atomic without this
+        self._lock = threading.Lock()
+
+    def _evict(self, t: float):
+        cutoff = t - self.window_s
+        while self._events and self._events[0][0] < cutoff:
+            _, n = self._events.popleft()
+            self._items -= n
+
+    def add(self, n: int):
+        self.add_at(self._now(), n)
+
+    def add_at(self, t: float, n: int):
+        """add() with a caller-supplied timestamp — a producer updating
+        several windows in one step (goodput's flops/bytes/tokens) reads
+        the clock once and shares it; three clock reads per step were
+        measurable against the serving obs budget."""
+        with self._lock:
+            self._evict(t)
+            self._events.append((t, n))
+            self._items += n
+
+    @property
+    def per_sec(self) -> float:
+        t = self._now()
+        with self._lock:
+            self._evict(t)
+            if not self._events or self._items == 0:
+                return 0.0
+            dt = min(self.window_s, max(t - self._t0, 1e-9))
+            return self._items / dt
+
+    def per_sec_with(self, extra: float, t_extra: float) -> float:
+        """per_sec, also counting a producer-side PENDING accumulation
+        of `extra` items stamped at `t_extra` (goodput batches its
+        decode-step updates; a scrape between flushes must still read
+        them). Pending older than the window is ignored, so an idle
+        producer's unflushed tail decays to zero exactly like landed
+        events do."""
+        t = self._now()
+        with self._lock:
+            self._evict(t)
+            items = self._items
+            if extra and t_extra >= t - self.window_s:
+                items += extra
+            if not items:
+                return 0.0
+            dt = min(self.window_s, max(t - self._t0, 1e-9))
+            return items / dt
 
 
 # ----------------------------------------------------------------------

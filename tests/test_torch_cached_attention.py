@@ -4,7 +4,10 @@ in interpret mode, on the same numpy inputs.
 
 Tolerance: atol 1e-5 everywhere. Both sides read the same (f32,
 bf16-rounded, or int8 payload with f32 scales) K/V values and accumulate
-in f32; only the summation order differs. With a bf16 q (bf16 compute)
+in f32; only the summation order differs (an int4 cache: the port's
+packed payload, JAX's int8 payload of the same values widened, the
+"widened values" its reference and interpret-mode kernels read). With a
+bf16 q (bf16 compute)
 the port's output is bf16, rounded once from the f32 result: rtol 2^-7,
 one bf16 step."""
 
@@ -19,21 +22,25 @@ from dnn_tpu_torch.ops.cuda import _build
 from dnn_tpu_torch.ops.cuda import cached_attention as tca
 
 ATOL = 1e-5
-KV_DTYPES = ["f32", "bf16", "int8"]
+KV_DTYPES = ["f32", "bf16", "int8", "int4"]
 
 
 def _inputs(seed, q_shape, kv_shape, dtype):
     """((q, k, v, ks, vs) torch, the same in jax): f32 draws, rounded to
-    bf16, or an int8 payload with positive f32 scales of shape
-    kv_shape[:-1] (None for the float types)."""
+    bf16, or an int8 payload (int4: values in [-8, 7], packed two a byte
+    on the torch side, int8 on the JAX side) with positive f32 scales of
+    shape kv_shape[:-1] (None for the float types)."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal(q_shape).astype(np.float32)
-    if dtype == "int8":
-        k, v = (rng.integers(-127, 128, kv_shape).astype(np.int8)
+    if dtype in ("int8", "int4"):
+        lo, hi = (-127, 128) if dtype == "int8" else (-8, 8)
+        k, v = (rng.integers(lo, hi, kv_shape).astype(np.int8)
                 for _ in range(2))
         ks, vs = (rng.uniform(1e-3, 0.05, kv_shape[:-1]).astype(np.float32)
                   for _ in range(2))
         t = [torch.from_numpy(a) for a in (q, k, v, ks, vs)]
+        if dtype == "int4":
+            t[1:3] = [tca.pack_nibbles(x) for x in t[1:3]]
         return t, [jnp.asarray(a) for a in (q, k, v, ks, vs)]
     k = rng.standard_normal(kv_shape).astype(np.float32)
     v = rng.standard_normal(kv_shape).astype(np.float32)
@@ -186,7 +193,8 @@ def test_cpu_path_launches_no_kernel():
 @pytest.mark.parametrize("bad", ["q_dtype", "pos_dtype", "kv_mismatch",
                                  "pos_shape", "cache_shape",
                                  "int8_without_scales", "scales_on_float",
-                                 "scale_shape"])
+                                 "scale_shape", "int4_without_scales",
+                                 "int4_unpacked_width"])
 def test_wrappers_reject_bad_inputs(bad):
     """Device, dtype and shape checks raise instead of computing; an
     int8 cache is admitted only together with both scale tensors."""
@@ -213,6 +221,11 @@ def test_wrappers_reject_bad_inputs(bad):
     elif bad == "scale_shape":
         k = v = torch.zeros(1, 2, 64, 32, dtype=torch.int8)
         scales = {"ks": torch.ones(1, 2, 63), "vs": torch.ones(1, 2, 63)}
+    elif bad == "int4_without_scales":
+        k = v = torch.zeros(1, 2, 64, 16, dtype=torch.uint8)
+    elif bad == "int4_unpacked_width":  # a packed row is D / 2 bytes
+        k = v = torch.zeros(1, 2, 64, 32, dtype=torch.uint8)
+        scales = {"ks": torch.ones(1, 2, 64), "vs": torch.ones(1, 2, 64)}
     for fn, qq in ((tca.cached_attention, q),
                    (tca.decode_attention, q[:, :, :1])):
         with pytest.raises((TypeError, ValueError)):
@@ -240,7 +253,7 @@ def test_build_fails_loudly_without_nvcc(monkeypatch):
     assert _build.lib_path("flash_bwd_dq").name.startswith("libflash_backward-")
 
 
-@pytest.mark.parametrize("dtype", KV_DTYPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("heads,kv_heads", [(4, 2), (8, 2), (7, 1), (4, 4)],
                          ids=["G2", "G4", "G7", "G1"])
 def test_cached_attention_grouped_heads_match_jax(heads, kv_heads, dtype):
@@ -269,18 +282,19 @@ def test_cached_attention_grouped_heads_match_jax(heads, kv_heads, dtype):
     limit = jnp.asarray(pos)[:, None] + jnp.arange(t)[None, :]  # (B, T)
     qg = jq.reshape(b, kv_heads, g * t, d)
     # the codecs take one limit row for the batch: one call per batch row
-    codec = jkv.Int8KV() if dtype == "int8" else jkv.FloatKV(jk.dtype)
+    quant = dtype in ("int8", "int4")
+    codec = jkv.Int8KV() if quant else jkv.FloatKV(jk.dtype)
     folded = []
     for i in range(b):
         c = {"k": jk[i:i + 1], "v": jv[i:i + 1]}
-        if dtype == "int8":
+        if quant:
             c.update(ks=jks[i:i + 1], vs=jvs[i:i + 1])
         folded.append(np.asarray(codec.attend(
             qg[i:i + 1], c, jnp.tile(limit[i], g)), np.float32))
     folded = np.concatenate(folded).reshape(b, heads, t, d)
     np.testing.assert_allclose(got, folded, rtol=0,
                                atol=2e-2 if dtype == "bf16" else ATOL)
-    if dtype != "int8":
+    if not quant:
         cols = jnp.arange(s)
 
         def mask(scores):
@@ -296,7 +310,7 @@ def _bf16_q(q, jq):
     return q.to(torch.bfloat16), jnp.asarray(jq, jnp.bfloat16)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("dtype", KV_DTYPES)
 @pytest.mark.parametrize("kernel", ["K5", "K6", "K7"])
 def test_plain_versions_take_a_bf16_q(kernel, dtype):
     """Each plain version takes a bf16 q and returns a bf16 output equal

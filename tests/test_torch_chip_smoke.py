@@ -48,7 +48,8 @@ def cache_refs(prepared):
     held to the same loops."""
     return {(dt, i): chip_smoke.reference_greedy_cache(prepared, CFG, p,
                                                        N_NEW, "cpu", dt)
-            for dt in ("bf16", "int8") for i, p in enumerate(_prompts())}
+            for dt in ("bf16", "int8", "int4")
+            for i, p in enumerate(_prompts())}
 
 
 def _agree(got, want, gaps):
@@ -59,7 +60,7 @@ def _agree(got, want, gaps):
             return
 
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("kv", ["paged", "dense"])
 def test_cache_reference_matches_the_batcher(prepared, cache_refs, kv,
                                             kv_dtype):
@@ -75,7 +76,7 @@ def test_cache_reference_matches_the_batcher(prepared, cache_refs, kv,
         _agree(np.asarray(res[rid]).tolist(), want, gaps)
 
 
-@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "int4"])
 def test_cache_reference_matches_make_generate(prepared, cache_refs,
                                                kv_dtype):
     prompt = _prompts()[2]
@@ -86,7 +87,7 @@ def test_cache_reference_matches_make_generate(prepared, cache_refs,
 
 
 def test_cache_reference_refuses_other_types(prepared):
-    with pytest.raises(ValueError, match="f32, bf16 or int8"):
+    with pytest.raises(ValueError, match="f32, bf16, int8 or int4"):
         chip_smoke.reference_greedy_cache(prepared, CFG, [1, 2], 2, "cpu",
                                           "f16")
 
@@ -712,3 +713,49 @@ def test_moe_phase_rehearsed_on_the_cpu(monkeypatch, capsys,
     assert "[moe] MX-F32: teacher-forced logprob error" in out, out
     for counts in (f32, bf16, f32_slice):
         assert set(chip_smoke.CACHE_KERNELS) <= set(counts)
+
+
+def test_int4_and_obs_phases_rehearsed_on_the_cpu(capsys, one_torch_thread):
+    """chip_smoke's [int4] and [obs] phases on the CPU with a 2-layer
+    model of block_size 1024 (run A's pool) and vocab 512: C-int4 and
+    B-int4 served, their streams against the plain int4 loop; solo
+    make_generate and make_bucketed_generate at int4 with equal tokens and
+    bucket grows; the [obs] daemon with its four SLOs: each request's
+    spans under its own trace id, the step clock's coverage of every
+    step's wall, the burn rates on /metrics, the obs on/off steps with the
+    same launches. The launch counts, the card's peaks (MBU/MFU) and the
+    timing ratios apply on the card only."""
+    import torch
+
+    cfg = tgpt.GPTConfig(block_size=1024, vocab_size=512, n_layer=2,
+                         n_head=2, n_embd=32)
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return t * np.float32(8.0) if t.ndim >= 2 else t
+    prepared = from_jax_params(scaled(tgpt.init(1, cfg)), cfg, "cpu")
+    dev = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 130, 300)]
+    ref_i4 = [chip_smoke.reference_greedy_cache(prepared, cfg, p, 16, dev,
+                                                "int4") for p in prompts]
+    refs = [chip_smoke.reference_greedy(prepared, cfg, p, 16, dev)
+            for p in prompts]
+    counts = chip_smoke.phase_int4(cfg, prepared, prompts, 16, ref_i4, dev,
+                                   "cpu")
+    assert set(counts) == set(chip_smoke.CACHE_KERNELS)
+    counts = chip_smoke.phase_obs(cfg, prepared, prompts, refs, dev, "cpu")
+    assert set(counts) >= set(chip_smoke.CACHE_KERNELS)
+    out = capsys.readouterr().out
+    for label in ("C-int4", "B-int4"):
+        for i, n in enumerate((5, 70, 130, 300)):
+            assert f"[main] run {label} request {i} (prompt {n}): " in out
+        assert f"[main] run {label} (" in out
+        assert f"[main] run {label}: the daemon's goodput gauges" in out
+    assert "make_bucketed_generate's tokens equal make_generate's" in out
+    assert "bucket grows" in out
+    for i in range(4):
+        assert f"[obs] request {i} (prompt " in out, out
+    assert "[obs] /stepz: " in out and "[obs] /metrics over" in out

@@ -13,9 +13,9 @@ serving shape, at bases beside its split edges, under each split plan,
 and twice for bit-equality; K6/K7 at S=1024 with positions beside their
 split edges, twice for bit-equality, and replayed from a CUDA graph
 after the positions changed on the device — the serving path itself is
-covered by chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16 and int8
-caches alike (both sides read the same rounded or quantized values and
-accumulate in f32; only the summation order differs)."""
+covered by chip_smoke.py. Tolerance: atol 1e-4 for f32, bf16, int8 and
+int4 caches alike (both sides read the same rounded or quantized values
+and accumulate in f32; only the summation order differs)."""
 
 import pytest
 import torch
@@ -25,7 +25,7 @@ from dnn_tpu_torch.ops.cuda import flash_attention as tfa
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
-KV_DTYPES = ["f32", "bf16", "int8"]
+KV_DTYPES = ["f32", "bf16", "int8", "int4"]
 
 
 @pytest.fixture
@@ -36,17 +36,26 @@ def dev():
 
 
 def _cache(g, shape, kind, dev):
-    """(k, v, ks, vs) of `shape` in cache type `kind` (int8 with random
-    positive per-row scales, the float kinds with none)."""
+    """(k, v, ks, vs) of `shape` in cache type `kind` (int8, and int4
+    packed two values a byte, with random positive per-row scales, the
+    float kinds with none)."""
     k = torch.randn(*shape, generator=g, device=dev)
     v = torch.randn(*shape, generator=g, device=dev)
-    if kind == "int8":
+    if kind in ("int8", "int4"):
         def q8():
+            if kind == "int4":
+                return tca.pack_nibbles(torch.randint(
+                    -8, 8, shape, generator=g, device=dev, dtype=torch.int8))
             return torch.randint(-127, 128, shape, generator=g, device=dev,
                                  dtype=torch.int8)
 
+        # int4 scales 16x int8's, as amax / 7 against amax / 127 makes
+        # them: the values a row dequantizes to span the same range
+        mult = 16.0 if kind == "int4" else 1.0
+
         def sc():
-            return torch.rand(*shape[:-1], generator=g, device=dev) * 0.05 + 1e-3
+            return (torch.rand(*shape[:-1], generator=g, device=dev) * 0.05
+                    + 1e-3) * mult
         return q8(), q8(), sc(), sc()
     dt = torch.float32 if kind == "f32" else torch.bfloat16
     return k.to(dt), v.to(dt), None, None
@@ -1241,7 +1250,7 @@ def test_paged_band_never_reads_reclaimed_blocks(dev, kind):
     dead = tables.clone()
     for b, p in enumerate(pos.tolist()):
         dead[b, :max(0, p - window + 1) // 16] = 0
-    for leaf in (kp, vp) if kind != "int8" else (ks, vs):
+    for leaf in (kp, vp) if ks is None else (ks, vs):
         leaf[0] = float("nan")
     got = tca.paged_decode_attention(q, kp, vp, dead, pos, ks=ks, vs=vs,
                                      window=window)

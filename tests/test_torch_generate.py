@@ -37,13 +37,16 @@ def weights():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {}, {"kv_dtype": "int8"},
+    {}, {"kv_dtype": "int8"}, {"kv_dtype": "int4"},
     {"repetition_penalty": 1.3, "logit_bias": {5: 3.0, 7: -100.0}},
     {"kv_dtype": "int8", "repetition_penalty": 1.3, "logit_bias": {9: 2.5}},
-], ids=["f32", "int8", "f32-penalty-bias", "int8-penalty-bias"])
+    {"kv_dtype": "int4", "repetition_penalty": 1.3, "logit_bias": {9: 2.5}},
+], ids=["f32", "int8", "int4", "f32-penalty-bias", "int8-penalty-bias",
+        "int4-penalty-bias"])
 def test_greedy_tokens_identical_to_jax(weights, kwargs):
     """Two prompts of 11 tokens, 12 new tokens: the prefill runs K5's
-    plain version, every decode step K6's."""
+    plain version, every decode step K6's (an int4 cache: on the packed
+    payload, against JAX's Int4KV einsum)."""
     jprep, tprep = weights
     ids = np.random.default_rng(0).integers(0, CFG_T.vocab_size, (2, 11))
     want = jgen.make_generate(CFG_J, max_new_tokens=N_NEW, attn_kernel=False,
@@ -74,19 +77,47 @@ def test_sampling_is_seeded_and_filtered(weights):
 
 @pytest.mark.parametrize("kwargs,exc,match", [
     ({"compute_dtype": torch.float16}, ValueError, "compute_dtype"),
-    ({"kv_dtype": "int4"}, NotImplementedError, "ROADMAP .* item 2"),
     ({"kv_dtype": "fp8"}, ValueError, "kv_dtype"),
     ({"min_p": 1.5}, ValueError, "min_p"),
     ({"repetition_penalty": 0.0}, ValueError, "repetition_penalty"),
     ({"logit_bias": {CFG_T.vocab_size: 1.0}}, ValueError, "logit_bias"),
 ])
 def test_make_generate_rejects(kwargs, exc, match):
-    """Options this slice leaves out raise naming their ROADMAP item;
-    bad values raise ValueError (a compute type other than f32 or bf16
-    among them; bf16 compute is held against JAX in
+    """Bad values raise ValueError (a compute type other than f32 or
+    bf16 among them; bf16 compute is held against JAX in
     test_torch_bf16_serving.py)."""
     with pytest.raises(exc, match=match):
         tgen.make_generate(CFG_T, max_new_tokens=4, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int4"])
+def test_bucketed_generate_matches_jax_and_make_generate(weights, kv_dtype):
+    """make_bucketed_generate over the ladder (16, 32, 48) from an
+    11-token prompt and 24 new tokens: the cache starts at 16 and grows
+    twice; its greedy tokens equal JAX's make_bucketed_generate on the
+    same ladder, the port's make_generate, and its own unbucketed program
+    (buckets=(max_len,), which never grows)."""
+    from dnn_tpu.runtime import decode_buckets as jdb
+    from dnn_tpu_torch.runtime import decode_buckets as tdb
+
+    jprep, tprep = weights
+    ids = np.random.default_rng(4).integers(0, CFG_T.vocab_size, (2, 11))
+    kw = {"kv_dtype": kv_dtype} if kv_dtype else {}
+    gen = tdb.make_bucketed_generate(CFG_T, max_len=48, max_new_tokens=24,
+                                     buckets=(16, 32), device="cpu", **kw)
+    got = gen(tprep, ids)
+    assert gen.buckets == (16, 32, 48) and gen.bucket_grows == 2
+    want = jdb.make_bucketed_generate(
+        CFG_J, max_len=48, max_new_tokens=24, buckets=(16, 32), **kw)(
+            jprep, jnp.asarray(ids), jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    solo = tgen.make_generate(CFG_T, max_new_tokens=24, device="cpu",
+                              **kw)(tprep, ids)
+    np.testing.assert_array_equal(got.numpy(), solo.numpy())
+    flat = tdb.make_bucketed_generate(CFG_T, max_len=48, max_new_tokens=24,
+                                      buckets=(48,), device="cpu", **kw)
+    np.testing.assert_array_equal(flat(tprep, ids).numpy(), got.numpy())
+    assert flat.bucket_grows == 0
 
 
 def test_ffn_hook_matches_jax():

@@ -208,6 +208,22 @@ def test_an_export_outlives_the_next_one(weights):
                                       _stream(b, p))
 
 
+def test_int4_row_handoff_is_refused_as_in_jax(weights):
+    """An int4 pool serves, but its row has no handoff wire form: the
+    port's export_prefill raises HandoffFormatError with the message of
+    JAX's codec (dnn_tpu/control/handoff.py:74-79). That JAX check tests
+    np.dtype("int4"), which ml_dtypes registers with numpy, so JAX's own
+    pack lets the row through at a byte a value; the port refuses as the
+    message says."""
+    _, tprep = weights
+    p = _prompt(14, 21)
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", kv_dtype="int4",
+                          **POOL)
+    with pytest.raises(th.HandoffFormatError, match="int4"):
+        b.export_prefill(p)
+    assert len(_stream(b, p)) > 0  # the pool itself serves
+
+
 @pytest.mark.parametrize("case", ["geometry", "leaves", "prompt_len",
                                   "logits", "interleaved", "adapter"])
 def test_adoption_rejections(weights, case):

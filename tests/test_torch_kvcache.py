@@ -55,17 +55,57 @@ def test_quantize_rows_bit_equal_to_jax():
     np.testing.assert_array_equal(q.numpy()[0, 6, :6], [127, 2, -4, 0, 0, 126])
 
 
+def test_quantize_rows_int4_bit_equal_to_jax():
+    """The 7-level quantizer: values and scales bit-equal to JAX's
+    _quantize_rows_int4 (random rows, exact .5 ties, an all-zero row,
+    the +-7 clip), and the packed bytes byte-equal to the block wire's
+    nibble packing (dnn_tpu/kvtier/migrate._pack_nibbles) of JAX's
+    values; unpack_nibbles inverts it."""
+    from dnn_tpu.kvtier.migrate import _pack_nibbles
+    from dnn_tpu_torch.ops.cuda.cached_attention import unpack_nibbles
+
+    rng = np.random.default_rng(5)
+    tie = np.zeros((2, 32), np.float32)
+    tie[0, :6] = [7.0, 2.5, -3.5, 0.5, -0.5, 6.5]    # scale exactly 1
+    tie[1, :5] = [14.0, 5.0, -7.0, 1.0, -3.0]        # scale 2: x/s = k.5
+    x = np.concatenate([rng.standard_normal((6, 32)).astype(np.float32) * 3,
+                        tie, np.zeros((1, 32), np.float32),
+                        np.full((1, 32), -4.25, np.float32)])[None]
+    q, s = tkv._quantize_rows_int4(torch.from_numpy(x))
+    jq, js = jkv._quantize_rows_int4(jnp.asarray(x))
+    jvals = np.asarray(jq).astype(np.int8)
+    assert q.dtype == torch.uint8 and q.shape == (1, 10, 16)
+    np.testing.assert_array_equal(unpack_nibbles(q).numpy(), jvals)
+    np.testing.assert_array_equal(s.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+    assert q.numpy().tobytes() == _pack_nibbles(jvals)
+    np.testing.assert_array_equal(jvals[0, 6, :6], [7, 2, -4, 0, 0, 6])
+
+
 def _codecs(kind):
     if kind == "int8":
         return tkv.Int8KV(), jkv.Int8KV()
+    if kind == "int4":
+        return tkv.Int4KV(), jkv.Int4KV()
     return tkv.FloatKV(torch.float32), jkv.FloatKV(jnp.float32)
+
+
+def _vals(x):
+    """A cache leaf's values as numpy: a port int4 leaf unpacked, a JAX
+    int4 leaf widened to int8."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import unpack_nibbles
+
+    if isinstance(x, torch.Tensor):
+        return (unpack_nibbles(x) if x.dtype == torch.uint8 else x).numpy()
+    a = np.asarray(x)
+    return a.astype(np.int8) if a.dtype.name == "int4" else a
 
 
 def _layer0(cache):
     return {k: v[0] for k, v in cache.items()}
 
 
-@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "int8", "int4"])
 @pytest.mark.parametrize("t", [1, 5])
 def test_codec_write_attend_matches_jax(kind, t):
     """write + attend(base): a T-row chunk at start 7 of a 32-position
@@ -84,12 +124,12 @@ def test_codec_write_attend_matches_jax(kind, t):
         want = jc.attend(jnp.asarray(q), jcache, start + jnp.arange(n),
                          base=start)
     for name in jcache:
-        np.testing.assert_array_equal(_np(tcache[name]), np.asarray(jcache[name]))
+        np.testing.assert_array_equal(_vals(tcache[name]), _vals(jcache[name]))
     assert got.dtype == torch.float32  # f32 cache dtype, or int8's f32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "int8", "int4"])
 @pytest.mark.parametrize("rows", [1, 2])
 def test_codec_rows_match_jax(kind, rows):
     """write_rows + attend_rows at per-slot positions, with a gated
@@ -115,7 +155,7 @@ def test_codec_rows_match_jax(kind, rows):
     jcache = jc.write_rows(jcache, jnp.asarray(k1), jnp.asarray(v1),
                            jnp.asarray(pos), jnp.asarray(gate))
     for name in jcache:
-        np.testing.assert_array_equal(_np(tcache[name]), np.asarray(jcache[name]))
+        np.testing.assert_array_equal(_vals(tcache[name]), _vals(jcache[name]))
         np.testing.assert_array_equal(_np(tcache[name])[1], before[name][1])
     q = rng.standard_normal((3, 2, rows, 32)).astype(np.float32)
     got = tc.attend_rows(torch.from_numpy(q), tcache, torch.from_numpy(pos))
@@ -144,8 +184,9 @@ def test_output_dtypes_follow_the_jax_codecs():
 def test_codec_for_cache_refuses_unported(kwargs):
     """The rolling ring, the band and the softcap are ported: each builds
     JAX's codec (codec_for_cache of the JAX package on the same
-    arguments, a rolling ring over a window); only int4 caches still
-    raise, naming ROADMAP item 2."""
+    arguments, a rolling ring over a window), and so does an int4 cache:
+    Int4KV with the band and the cap, and JAX's ValueError for a rolling
+    int4 ring."""
     import jax.numpy as jnp
 
     from dnn_tpu.runtime import kvcache as jkv
@@ -157,10 +198,19 @@ def test_codec_for_cache_refuses_unported(kwargs):
                                 "v": jnp.zeros((1, 2, 8, 32))}, **kw)
     assert type(got).__name__ == type(want).__name__
     assert (got.window, got.softcap) == (want.window, want.softcap)
-    i4 = {**cache, "k": cache["k"].to(torch.uint8), "ks": cache["k"][..., 0],
-          "vs": cache["k"][..., 0]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.codec_for_cache(i4, **kw)
+    i4 = tkv.Int4KV().init(CFG, 1, 8, "cpu")
+    j4 = {"k": jnp.zeros((1, 2, 8, 32), jnp.int4),
+          "v": jnp.zeros((1, 2, 8, 32), jnp.int4),
+          "ks": jnp.ones((1, 2, 8)), "vs": jnp.ones((1, 2, 8))}
+    if "rolling" in kwargs:
+        with pytest.raises(ValueError, match="rolling int4"):
+            jkv.codec_for_cache(j4, **kw)
+        with pytest.raises(ValueError, match="rolling int4"):
+            tkv.codec_for_cache(i4, **kw)
+        return
+    got, want = tkv.codec_for_cache(i4, **kw), jkv.codec_for_cache(j4, **kw)
+    assert type(got).__name__ == type(want).__name__ == "Int4KV"
+    assert (got.window, got.softcap) == (want.window, want.softcap)
 
 
 def test_write_overhang_raises():
@@ -172,17 +222,20 @@ def test_write_overhang_raises():
         codec.write(c, torch.zeros(1, 2, 3, 32), torch.zeros(1, 2, 3, 32), 6)
 
 
-def test_paged_int8_matches_jax():
-    """An int8 pool: install_row of a prefilled transient row (payload
-    AND scale blocks, unowned blocks routed to junk block 0), then
-    write_rows with a gated slot, then attend_rows through the scale
-    blocks — pool leaves equal JAX's PagedKV exactly, outputs within
-    1e-5, f32 out."""
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_paged_int8_matches_jax(dtype):
+    """An int8 (and an int4) pool: install_row of a prefilled transient
+    row (payload AND scale blocks, unowned blocks routed to junk block
+    0), then write_rows with a gated slot, then attend_rows through the
+    scale blocks — pool leaves equal JAX's PagedKV exactly (int4: their
+    values), outputs within 1e-5, f32 out. JAX's int4 pool attends on
+    its einsum, the port's runs K7's plain version."""
     bp, slots, max_len, n_blocks = 4, 2, 16, 9
     tcache = tpk.init_paged_cache(CFG, slots, max_len, n_blocks=n_blocks,
-                                  block_len=bp, dtype="int8", device="cpu")
+                                  block_len=bp, dtype=dtype, device="cpu")
     jcache = jpk.init_paged_cache(CFG, slots, max_len, n_blocks=n_blocks,
-                                  block_len=bp, dtype="int8")
+                                  block_len=bp, dtype=dtype)
+    codec = tkv.Int4KV() if dtype == "int4" else tkv.Int8KV()
     assert tcache["ks"].dtype == torch.float32
     assert (tcache["ks"].numpy() == 1).all()
     tcodec, jcodec = tpk.PagedKV(bp), jpk.PagedKV(bp)
@@ -190,20 +243,21 @@ def test_paged_int8_matches_jax():
     # slot 0 owns blocks 3, 1 (8 positions); slot 1 owns 5, 2, 7
     ids = [np.array([3, 1, 0, 0], np.int32), np.array([5, 2, 7, 0], np.int32)]
     for slot, blk in enumerate(ids):
-        row_t = tkv.Int8KV().init(CFG, 1, max_len, "cpu")
+        row_t = codec.init(CFG, 1, max_len, "cpu")
         k, v = (rng.standard_normal((CFG.n_layer, 1, 2, max_len, 32))
                 .astype(np.float32) for _ in range(2))
         for i in range(CFG.n_layer):
-            tkv.Int8KV().write({n: t[i] for n, t in row_t.items()},
-                               torch.from_numpy(k[i]), torch.from_numpy(v[i]), 0)
-        row_j = {n: jnp.asarray(t.numpy()) for n, t in row_t.items()}
+            codec.write({n: t[i] for n, t in row_t.items()},
+                        torch.from_numpy(k[i]), torch.from_numpy(v[i]), 0)
+        row_j = {n: jnp.asarray(_vals(t), jcache[n].dtype)
+                 for n, t in row_t.items()}
         tcodec.install_row(tcache, row_t, torch.from_numpy(blk))
         jcache = jcodec.install_row(jcache, row_j, jnp.asarray(blk))
         tcache["tables"][slot] = torch.from_numpy(blk)
         jcache["tables"] = jcache["tables"].at[:, slot].set(jnp.asarray(blk))
     for name in ("k", "v", "ks", "vs"):
-        np.testing.assert_array_equal(tcache[name].numpy(),
-                                      np.asarray(jcache[name]))
+        np.testing.assert_array_equal(_vals(tcache[name]),
+                                      _vals(jcache[name]))
     tview = {n: (t if n == "tables" else t[0]) for n, t in tcache.items()}
     jview = {n: t[0] for n, t in jcache.items()}
     pos = np.array([6, 15], np.int32)
@@ -215,8 +269,8 @@ def test_paged_int8_matches_jax():
     jview = jcodec.write_rows(jview, jnp.asarray(k1), jnp.asarray(v1),
                               jnp.asarray(pos), jnp.asarray(gate))
     for name in ("k", "v", "ks", "vs"):
-        np.testing.assert_array_equal(tview[name].numpy(),
-                                      np.asarray(jview[name]))
+        np.testing.assert_array_equal(_vals(tview[name]),
+                                      _vals(jview[name]))
     q = rng.standard_normal((2, 2, 1, 32)).astype(np.float32)
     got = tcodec.attend_rows(torch.from_numpy(q), tview, torch.from_numpy(pos))
     want = jcodec.attend_rows(jnp.asarray(q), jview, jnp.asarray(pos))
@@ -262,3 +316,55 @@ def test_pad_cache_to_matches_jax():
     assert tdb.pad_cache_to(got, 16)["k"] is got["k"]
     with pytest.raises(ValueError, match="shrink"):
         tdb.pad_cache_to(got, 8)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_int4_cache_crosses_both_ways(paged):
+    """convert.int4_cache_from_jax takes a JAX int4 cache (dense, or a
+    paged pool with its tables) written by JAX's codec into the port's
+    packed layout, and int4_cache_to_jax back: the values, scales and
+    tables survive exactly, the packed K/V equal the port's own writes of
+    the same rows, and the port's attention over the carried cache equals
+    JAX's over its own (1e-5)."""
+    from dnn_tpu_torch.convert import int4_cache_from_jax, int4_cache_to_jax
+
+    rng = np.random.default_rng(9)
+    k, v = (rng.standard_normal((2, 2, 12, 32)).astype(np.float32)
+            for _ in range(2))
+    if paged:
+        jcache = jpk.init_paged_cache(CFG, 2, 16, n_blocks=5, block_len=4,
+                                      dtype="int4")
+        jview = {n: t[0] for n, t in jcache.items()}
+        jview["tables"] = jnp.asarray([[1, 2, 0, 0], [3, 4, 0, 0]],
+                                      jnp.int32)
+        for p in range(6):
+            pos = jnp.full((2,), p, jnp.int32)
+            jview = jpk.PagedKV(4).write_rows(
+                jview, jnp.asarray(k[:, :, p:p + 1]),
+                jnp.asarray(v[:, :, p:p + 1]), pos, jnp.ones((2,), bool))
+        tview = int4_cache_from_jax(jview)
+        q = rng.standard_normal((2, 2, 1, 32)).astype(np.float32)
+        pos = np.array([5, 3], np.int32)
+        got = tpk.PagedKV(4).attend_rows(torch.from_numpy(q), tview,
+                                         torch.from_numpy(pos))
+        want = jpk.PagedKV(4).attend_rows(jnp.asarray(q), jview,
+                                          jnp.asarray(pos))
+    else:
+        jview = jkv.Int4KV().write(
+            {n: t[0] for n, t in jkv.Int4KV().init(CFG, 2, 12).items()},
+            jnp.asarray(k), jnp.asarray(v), 0)
+        tview = int4_cache_from_jax(jview)
+        mine = _layer0(tkv.Int4KV().init(CFG, 2, 12, "cpu"))
+        tkv.Int4KV().write(mine, torch.from_numpy(k), torch.from_numpy(v), 0)
+        for name in mine:
+            assert torch.equal(mine[name], tview[name])
+        q = rng.standard_normal((2, 2, 3, 32)).astype(np.float32)
+        got = tkv.Int4KV().attend(torch.from_numpy(q), tview, 9)
+        want = jkv.Int4KV().attend(jnp.asarray(q), jview, 9 + jnp.arange(3),
+                                   base=9)
+    assert tview["k"].dtype == torch.uint8 and tview["k"].shape[-1] == 16
+    back = int4_cache_to_jax(tview)
+    for name, leaf in jview.items():
+        np.testing.assert_array_equal(back[name], _vals(leaf))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)

@@ -177,17 +177,18 @@ def _accounting(b, jax_side):
             b._prefix_store.remote_block_hits)
 
 
-@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8", "int4"])
 def test_stage_export_adopt_match_jax(weights, kv_dtype):
     """stage_prefix on a donor of each package (equal stats and
     fingerprints, exported blocks within 1e-5 of the row's scale, int8
-    values equal), each package's export adopted by the OTHER's adopter
+    values equal; an int4 pool's blocks leave as their int8 values and
+    cross the wire nibble-packed, the fingerprint saying "int4"), each package's export adopted by the OTHER's adopter
     through the wire codec: equal adopted counts, a second adoption 0,
     and after a follow-up generate of the prompt equal block accounting
     (blocks used, high water, resident, chunks, hits, remote hits) and
     greedy streams equal to the donor's local stream."""
     jprep, tprep = weights
-    jkv = {"f32": None, "int8": "int8"}[kv_dtype]
+    jkv = {"f32": None, "int8": "int8", "int4": "int4"}[kv_dtype]
     tkv = None if kv_dtype == "f32" else kv_dtype
 
     def jax_b():

@@ -75,7 +75,8 @@ def _jax_tokens(name, kv_dtype):
     key = (name, kv_dtype)
     if key not in _JAX_TOKENS:
         cfg = jllama.PRESETS[name]
-        jkv = {"f32": None, "bf16": jnp.bfloat16, "int8": "int8"}[kv_dtype]
+        jkv = {"f32": None, "bf16": jnp.bfloat16, "int8": "int8",
+               "int4": "int4"}[kv_dtype]
         b = JaxBatcher(cfg, jax_prepared(name, drawn_tree(name, 1, 0.3)),
                        family=jllama.LlamaFamilyRows(cfg), kv="dense",
                        kv_dtype=jkv, **POOL)
@@ -87,6 +88,26 @@ def _jax_tokens(name, kv_dtype):
 # (each JAX batcher costs a compile), their bf16 and int8 streams held to
 # the port's plain cache loops
 JAX_EVERY_KV = ("llama-test", "qwen3-test")
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_batcher_int4_tokens_match_jax(layout):
+    """int4 KV on llama-test's paged, dense and bucketed pools: the
+    port's batcher (K5 on the packed row, K7 / K6 on the packed pool,
+    their plain versions here) gives the JAX batcher's tokens on its
+    Int4KV einsum (chip_smoke's plain int4 loop is held to the batcher in
+    test_torch_chip_smoke.py)."""
+    name = "llama-test"
+    cfg = tllama.PRESETS[name]
+    prep = from_jax_params(drawn_tree(name, 1, 0.3), cfg, "cpu")
+    b = ContinuousBatcher(cfg, prep, family=tllama.LlamaFamilyRows(cfg),
+                          kv_dtype="int4", device="cpu",
+                          **{**POOL, **LAYOUTS[layout]})
+    assert b.cache["k"].dtype == torch.uint8
+    assert b.cache["k"].shape[-1] * 2 == cfg.head_dim
+    _, got = _script(b, cfg)
+    for g, w in zip(got, _jax_tokens(name, "int4")):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8"])
@@ -223,13 +244,14 @@ def test_daemon_serves_llama_as_make_generate():
         np.testing.assert_array_equal(got[i], want[i])
 
 
-def test_node_serve_lm_accepts_a_llama_config(tmp_path, caplog):
+def test_node_serve_lm_accepts_a_llama_config(tmp_path, monkeypatch):
     """`python -m dnn_tpu_torch.node --serve_lm` with a llama config (a
     real process; seeded random weights) answers a solo batcher's tokens
     on the same weights and drains on SIGTERM. The config is mistral-test,
     a sliding-window preset: the daemon serves it on its windowed paged
-    pool, a stream past the window; an int4 KV cache, still unported,
-    exits 2 naming its ROADMAP item."""
+    pool, a stream past the window; with --kv_dtype int4 the pool is a
+    windowed int4 one (serve_lm stood in for by the LMServer it builds),
+    whose stream equals an int4 batcher's."""
     from dnn_tpu_torch.node import main
 
     port = _free_port()
@@ -268,11 +290,39 @@ def test_node_serve_lm_accepts_a_llama_config(tmp_path, caplog):
     cfg_path.write_text(json.dumps({"model": "mistral-test", "nodes": [
         {"id": "node1", "part_index": 0,
          "address": f"127.0.0.1:{_free_port()}"}]}))
-    with caplog.at_level("ERROR", logger="dnn_tpu_torch.node"):
-        assert main(["--node_id", "node1", "--config", str(cfg_path),
-                     "--serve_lm", "--device", "cpu",
-                     "--kv_dtype", "int4"]) == 2
-    assert "item 2" in caplog.text
+    from dnn_tpu_torch.runtime import lm_server
+
+    served = {}
+
+    async def fake_serve_lm(cfg_, prepared, *, port, **kw):
+        servicer = lm_server.LMServer(cfg_, prepared, **kw)
+        try:
+            b4 = servicer.batcher
+            served["paged"], served["window"] = b4.paged, b4._codec.window
+            served["dtype"] = b4.cache["k"].dtype
+
+            def generate():  # on the worker's thread: it owns the batcher
+                rid = b4.submit(prompt, 6)
+                return b4.drain()[rid]
+
+            served["tokens"] = servicer.worker.call(generate).result(60)
+        finally:
+            servicer.close()
+        return 0
+
+    monkeypatch.setattr(lm_server, "serve_lm", fake_serve_lm)
+    assert main(["--node_id", "node1", "--config", str(cfg_path),
+                 "--serve_lm", "--device", "cpu", "--kv_dtype", "int4",
+                 *pool]) == 0
+    assert served["paged"] and served["dtype"] == torch.uint8
+    assert served["window"] == cfg.sliding_window
+    b = ContinuousBatcher(cfg, from_jax_params(tllama.init(3, cfg), cfg,
+                                               "cpu"),
+                          family=tllama.LlamaFamilyRows(cfg), device="cpu",
+                          slots=2, max_len=64, prompt_pad=16, block_len=8,
+                          kv_dtype="int4")
+    rid = b.submit(prompt, 6)
+    np.testing.assert_array_equal(served["tokens"], b.drain()[rid])
 
 
 def test_llama_phase_rehearsed_on_the_cpu(capsys):

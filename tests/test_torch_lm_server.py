@@ -10,6 +10,7 @@ import threading
 import grpc
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -291,9 +292,11 @@ def test_node_cli_daemon_serves_and_drains_on_sigterm(tmp_path):
             proc.wait(timeout=10)
 
 
-def test_node_cli_kv_flags(tmp_path, caplog):
+def test_node_cli_kv_flags(tmp_path, monkeypatch):
     """The JAX daemon's cache flags parse with its spellings; --kv_dtype
-    int4 exits with the ROADMAP item-2 message instead of serving."""
+    int4 reaches the daemon's batcher as an int4 paged pool (uint8 K/V
+    blocks of D / 2 bytes a row; serve_lm stood in for by the LMServer it
+    builds)."""
     import json
 
     from dnn_tpu_torch.node import build_parser, main
@@ -309,11 +312,25 @@ def test_node_cli_kv_flags(tmp_path, caplog):
     cfg.write_text(json.dumps({"model": "gpt2-test", "nodes": [
         {"id": "node1", "part_index": 0,
          "address": f"127.0.0.1:{_free_port()}"}]}))
-    with caplog.at_level("ERROR", logger="dnn_tpu_torch.node"):
-        assert main(["--node_id", "node1", "--config", str(cfg),
-                     "--serve_lm", "--device", "cpu", "--kv_dtype",
-                     "int4"]) == 2
-    assert "item 2" in caplog.text
+    from dnn_tpu_torch.runtime import lm_server
+
+    built = {}
+
+    async def fake_serve_lm(cfg_, prepared, *, port, **kw):
+        servicer = lm_server.LMServer(cfg_, prepared, **kw)
+        built["cache"] = dict(servicer.batcher.cache)
+        built["paged"] = servicer.batcher.paged
+        servicer.close()
+        return 0
+
+    monkeypatch.setattr(lm_server, "serve_lm", fake_serve_lm)
+    assert main(["--node_id", "node1", "--config", str(cfg), "--serve_lm",
+                 "--device", "cpu", "--kv_dtype", "int4", "--max_len", "64",
+                 "--prompt_pad", "16", "--slots", "2"]) == 0
+    k = built["cache"]["k"]
+    assert built["paged"] and k.dtype == torch.uint8
+    assert k.shape[-1] == CFG_T.n_embd // CFG_T.n_head // 2
+    assert built["cache"]["ks"].dtype == torch.float32
 
 
 def test_lmserver_defaults_match_jax_and_node_turns_them_on(monkeypatch,

@@ -74,14 +74,18 @@ def test_greedy_tokens_identical_to_jax(weights):
     {"kv": "paged", "kv_dtype": "int8"},
     {"kv": "dense", "kv_dtype": "int8"},
     {"kv": "auto", "prompt_pad": 12},
+    {"kv": "paged", "kv_dtype": "int4"},
+    {"kv": "dense", "kv_dtype": "int4", "decode_buckets": (16, 32)},
 ], ids=["dense", "dense-buckets", "paged-int8", "dense-int8",
-        "auto-dense-fallback"])
+        "auto-dense-fallback", "paged-int4", "dense-buckets-int4"])
 def test_layout_greedy_tokens_identical_to_jax(weights, kwargs, caplog):
     """The same script through every other cache layout/dtype the JAX
     batcher serves. The bucketed pool starts at 16 positions and grows
     twice (a 37-token prompt needs 38 columns); prompt_pad 12 does not
     tile block_len 8, so kv="auto" falls back to the dense pool — the
-    shape the first slice refused — and logs why."""
+    shape the first slice refused — and logs why. The int4 pools run
+    K6/K7's plain versions on the packed payload, against JAX's int4
+    einsum."""
     jprep, tprep = weights
     pool = {**POOL, **kwargs}
     want = _script(JaxBatcher(CFG_J, jprep, **pool))
@@ -93,6 +97,9 @@ def test_layout_greedy_tokens_identical_to_jax(weights, kwargs, caplog):
     assert b.paged == (kwargs["kv"] == "paged")
     if kwargs.get("kv_dtype") == "int8":
         assert b.cache["k"].dtype == torch.int8 and "ks" in b.cache
+    if kwargs.get("kv_dtype") == "int4":
+        assert b.cache["k"].dtype == torch.uint8 and "ks" in b.cache
+        assert b.cache["k"].shape[-1] == CFG_T.n_embd // CFG_T.n_head // 2
     if "decode_buckets" in kwargs:
         assert b.bucket_grows == 2 and b.cache["k"].shape[3] == 64
     fell_back = "kv_fallback_dense" in caplog.text
@@ -204,15 +211,26 @@ def test_cancel_stop_and_sampling(weights):
 
 
 # allow_constraints, lora_adapters (tests/test_torch_constrain.py,
-# tests/test_torch_serving_lora.py) and the MoE switch `ffn`
-# (test_moe_ffn_pools_match_jax below) are ported; int4 KV stays out
+# tests/test_torch_serving_lora.py), the MoE switch `ffn`
+# (test_moe_ffn_pools_match_jax below) and int4 KV are ported
 @pytest.mark.parametrize("kwargs", [
     {"kv_dtype": "int4"}, {"kv": "paged", "kv_dtype": "int4"},
     {"kv": "dense", "kv_dtype": "int4"}])
 def test_out_of_scope_options_raise(weights, kwargs):
-    _, tprep = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(CFG_T, tprep, device="cpu", **{**POOL, **kwargs})
+    """int4 KV, once refused here, builds its pool (the port's default
+    kv="auto" pages) with JAX's int4 K/V (packed two a byte here, uint8 of
+    D / 2) and f32 scales of JAX's shape; its streams are held to JAX's in
+    test_layout_greedy_tokens_identical_to_jax."""
+    jprep, tprep = weights
+    b = ContinuousBatcher(CFG_T, tprep, device="cpu", **{**POOL, **kwargs})
+    jb = JaxBatcher(CFG_J, jprep, **{**POOL, **kwargs})
+    assert b.paged == (kwargs.get("kv") != "dense")
+    jk = jb.cache["k"]
+    assert str(jk.dtype) == "int4" and b.cache["k"].dtype == torch.uint8
+    assert b.cache["k"].shape[-1] * 2 == jk.shape[-1]
+    assert b.cache["ks"].shape == b.cache["k"].shape[:-1]
+    assert b.cache["ks"].dtype == torch.float32
+    assert str(jb.cache["ks"].dtype) == "float32"
 
 
 @pytest.fixture(scope="module")

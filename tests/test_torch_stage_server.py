@@ -308,6 +308,17 @@ def test_cli_generate_equals_the_jax_cli(tmp_path, capsys):
     # positive cases are tests/test_torch_beam.py::
     # test_node_generate_beam_equals_the_jax_cli
     (["--supervise"], 2),
+    # the fleet front door (item 11), multi-host (item 10) and the fleet
+    # collector (item 12)
+    (["--route"], 2),
+    (["--route_targets", "127.0.0.1:1"], 2),
+    (["--route_signals", "http://127.0.0.1:1"], 2),
+    (["--policy", "round_robin"], 2),
+    (["--kvtier", "pull"], 2),
+    (["--process_id", "0"], 2),
+    (["--fleet_port", "0", "--serve"], 2),
+    (["--fleet_targets", "http://127.0.0.1:1"], 2),
+    (["--fleet_interval", "1"], 2),
     # the stage servers' chaos and metrics seams: Queue 1 item 7's
     # remainder (with --serve_lm both are served)
     (["--chaos", "plan.json", "--serve"], 2),

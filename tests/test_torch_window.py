@@ -20,6 +20,8 @@ varied tokens). Tolerances: attention and logits 1e-5 absolute in f32
 (both sides compute in f32; only the summation order differs); greedy
 tokens identical. Each JAX program compiles once (module fixtures)."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from dnn_tpu.runtime import paged_kvcache as jpkv
 from dnn_tpu_torch.convert import from_jax_params
 from dnn_tpu_torch.models import llama as tllama
 from dnn_tpu_torch.ops.cuda import cached_attention as tca
+from dnn_tpu_torch.ops.cuda.cached_attention import unpack_nibbles
 from dnn_tpu_torch.runtime import kvcache as tkv
 from dnn_tpu_torch.runtime import paged_kvcache as tpkv
 from dnn_tpu_torch.runtime.generate import make_generate
@@ -68,6 +71,14 @@ def _caches(kind, b, hk, s, d, seed):
               "v": jnp.zeros((b, hk, s, d), jnp.int8),
               "ks": jnp.ones((b, hk, s)), "vs": jnp.ones((b, hk, s))}
         tc = {kk: torch.from_numpy(np.array(v)) for kk, v in jc.items()}
+    elif kind == "int4":
+        jc = {"k": jnp.zeros((b, hk, s, d), jnp.int4),
+              "v": jnp.zeros((b, hk, s, d), jnp.int4),
+              "ks": jnp.ones((b, hk, s)), "vs": jnp.ones((b, hk, s))}
+        tc = tkv.Int4KV().init(
+            types.SimpleNamespace(n_layer=1, n_head=hk, n_embd=hk * d), b, s,
+            "cpu")
+        tc = {kk: v[0] for kk, v in tc.items()}
     else:
         jc = {"k": jnp.zeros((b, hk, s, d)), "v": jnp.zeros((b, hk, s, d))}
         tc = {kk: torch.zeros(b, hk, s, d) for kk in jc}
@@ -77,14 +88,16 @@ def _caches(kind, b, hk, s, d, seed):
 def _codecs(kind, **kw):
     if kind == "int8":
         return jkv.Int8KV(**kw), tkv.Int8KV(**kw)
+    if kind == "int4":
+        return jkv.Int4KV(**kw), tkv.Int4KV(**kw)
     return jkv.FloatKV(**kw), tkv.FloatKV(**kw)
 
 
-@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["f32", "int8", "int4"])
 @pytest.mark.parametrize("window,softcap", [(5, None), (None, 4.0),
                                             (7, 4.0)])
 def test_codecs_band_and_softcap_match_jax(kind, window, softcap):
-    """FloatKV / Int8KV with a window and / or a softcap against JAX's
+    """FloatKV / Int8KV / Int4KV with a window and / or a softcap against JAX's
     codecs: a grouped chunk (attend at base 10, the group folded as JAX's
     LLaMA path folds it), shared-limit decode rows (attend_rows) with a
     per-call window override, and the verify block (attend_rows_causal)
@@ -95,7 +108,11 @@ def test_codecs_band_and_softcap_match_jax(kind, window, softcap):
     jc = jcod.write(jc, jk, jv, 0)
     tcod.write(tc, tk, tv, 0)
     for name in jc:
-        np.testing.assert_array_equal(_np(tc[name]), np.asarray(jc[name]))
+        np.testing.assert_array_equal(
+            _np(unpack_nibbles(tc[name]) if tc[name].dtype == torch.uint8
+                else tc[name]), np.asarray(jc[name]).astype(
+                    np.int8 if jc[name].dtype == jnp.int4
+                    else jc[name].dtype))
     rng = np.random.default_rng(2)
     jq, tq = _pair(rng, (b, hk * g, t, d), 2.0)
     limits = 10 + jnp.arange(t)
@@ -279,8 +296,10 @@ def test_codec_for_cache_builds_jax_codecs():
     with pytest.raises(ValueError, match="positive window"):
         tkv.codec_for_cache(f, rolling=True)
     i4 = dict(i8, k=torch.zeros(1, 1, 4, 4, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tkv.codec_for_cache(i4, window=4)
+    c = tkv.codec_for_cache(i4, window=4, softcap=30.0)
+    assert isinstance(c, tkv.Int4KV) and (c.window, c.softcap) == (4, 30.0)
+    with pytest.raises(ValueError, match="rolling int4"):
+        tkv.codec_for_cache(i4, window=4, rolling=True)
 
 
 # ----------------------------------------------------------------------
