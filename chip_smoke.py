@@ -4584,10 +4584,470 @@ def phase_obs(cfg, prepared, prompts, refs, dev, card):
     return counts
 
 
+# [obs2]: ROADMAP Queue 1 item 12's second half on the main path's gpt2 —
+# /profilez with timeline.analyze, /trainz with fit's gradient sentinel,
+# /kvz and the fleet collector
+OBS2_BUSY_TOL = 0.02   # P: analyze's device busy against _kernel_events
+OBS2_MFU_TOL = 0.02    # T: the clock's MFU against the wall's
+OBS2_GNORM_TOL = 1e-4  # T: the sentinel's grad-norm against a plain norm
+OBS2_TRAIN_STEPS = 8   # T: fit's steps on gpt2
+OBS2_SLEEP_AT = 3      # T: the train_fault sleep's counter (fit step 4)
+OBS2_SLEEP_S = 0.05
+OBS2_NAN_AT = 2        # T: the CIFAR leg's nan fault (fit step 3)
+OBS2_KEEP = 2          # P: the spool's bound for the leg
+OBS2_POOL = 32         # K: the radix store's blocks at pool P
+OBS2_TENANTS = 96      # K: one 16-token block each, 3x P
+OBS2_TURNS = 600       # K: Zipf(1.1)-chosen tenants, seeded
+OBS2_MRC_TOL = 0.10    # K: |predicted at 2x - measured at 2P|
+OBS2_FLASH = {}        # T's flash launches, added beside [train]'s
+
+
+def obs2_profilez(start, cfg, prepared, prompts, dev, card):
+    """P: A's daemon (paged f32, metrics_port) under POST /profilez. The
+    auto trigger at threshold 0 captures one replayed decode step while
+    four requests decode; the step after it runs under _kernel_events
+    (a replay of the same graph at the next position). Then a timed
+    capture of 300 ms under four streams, a concurrent capture refused
+    409, and the spool pruned to OBS2_KEEP. Returns (base URL, stop)."""
+    from dnn_tpu_torch.obs import profile as tprof
+    from dnn_tpu_torch.obs.timeline import (analyze, find_meta,
+                                            find_trace_file, render_report)
+
+    addr, client, srv, stop = daemon(start, cfg, prepared, dev, kv="paged",
+                                     metrics_port=0)
+    base = f"http://127.0.0.1:{srv.metrics_server.port}"
+    b = srv.batcher
+    rep_dir = os.path.join(os.environ["DNN_TPU_OBS_DIR"], "replay")
+    os.makedirs(rep_dir)
+    client.generate(prompts[0], max_new_tokens=4, timeout=300)  # warm-up
+    step, seen = b.step, {"replay_next": False}
+
+    def delta(c1, c0):
+        return {k: {dt: c1[k][dt] - c0[k][dt] for dt in c1[k]} for k in c1}
+
+    def watched():
+        c0 = read_counts()
+        captured = tprof.capturing()
+        if seen["replay_next"]:
+            seen["replay_next"] = False
+            box = []
+            wall, evs = _kernel_events(
+                lambda: box.append(step()),
+                trace_path=os.path.join(rep_dir, "replay.trace.json"))
+            seen["replay"] = (wall, sum(e.self_device_time_total
+                                        for e in evs) / 1e3,
+                              sum(e.count for e in evs))
+            out = box[0]
+        else:
+            out = step()
+        if captured:
+            seen["captured"] = delta(read_counts(), c0)
+            seen["replay_next"] = True
+        return out
+
+    b.step = watched
+    code, body = http(f"{base}/profilez?auto=1&threshold_ms=0", "POST")
+    if code != 200 or json.loads(body)["armed"] is None:
+        fail(f"[obs2] P: arming answered {code} {body[:200]}")
+    results = {}
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+        i, client.generate(prompts[i], max_new_tokens=48, timeout=300)))
+        for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    b.step = step
+    if len(results) != 4 or "captured" not in seen or "replay" not in seen:
+        fail(f"[obs2] P: {len(results)} requests answered; captured "
+             f"{'captured' in seen}, replayed {'replay' in seen}")
+    caps = json.loads(http(f"{base}/profilez")[1])["captures"]
+    path = caps[-1]
+    a = analyze(path, clock=srv.step_clock, top_k=64)
+    k7 = seen["captured"]["paged_decode_attention"]["f32"]
+    n_k7 = sum(op["count"] for op in a["top_ops"]
+               if "paged_decode_kernel" in op["name"])
+    n_merge = sum(op["count"] for op in a["top_ops"]
+                  if "merge" in op["name"])
+    with open(find_trace_file(path)) as f:
+        trace = json.load(f)["traceEvents"]
+    annots = {e.get("name") for e in trace
+              if e.get("cat") == "gpu_user_annotation"}
+    busy_ms = a["device"]["busy_s"] * 1e3
+    # the summed op time: every distinct op is in top_ops (top_k 64)
+    sum_ms = sum(op["total_ms"] for op in a["top_ops"])
+    rep_wall, rep_ms, rep_n = seen["replay"]
+    ra = analyze(os.path.join(rep_dir, "replay.trace.json"))
+    rep_busy = ra["device"]["busy_s"] * 1e3
+    print(render_report(a), flush=True)
+    print(f"[obs2] P auto capture: the captured step launched K7 {k7} "
+          f"times, analyze lists {n_k7} paged_decode_kernel and {n_merge} "
+          f"merge events; device busy (the union of its device ops) "
+          f"{busy_ms:.4f} ms of a {a['window_s'] * 1e3:.3f} ms window "
+          f"({a['device']['ops']} ops in {len(a['top_ops'])} names, summed "
+          f"{sum_ms:.4f} ms); the next step under _kernel_events: summed "
+          f"{rep_ms:.4f} ms ({rep_n} kernels, wall {rep_wall:.3f} ms), "
+          f"the union of its trace {rep_busy:.4f} ms; union / union "
+          f"{busy_ms / rep_busy if rep_busy else float('nan'):.4f}, sum / "
+          f"sum {sum_ms / rep_ms if rep_ms else float('nan'):.4f}; "
+          f"gpu_user_annotation ranges {annots}; "
+          f"steps {a['steps']}; on {card}", flush=True)
+    if dev.type == "cuda":
+        if k7 <= 0 or n_k7 != k7:
+            fail(f"[obs2] P: analyze lists {n_k7} paged_decode_kernel "
+                 f"events, the step launched K7 {k7} times")
+        if len(a["top_ops"]) >= 64:
+            fail("[obs2] P: more than 63 op names: top_ops is cut")
+        if (abs(busy_ms / rep_busy - 1) > OBS2_BUSY_TOL
+                or abs(sum_ms / rep_ms - 1) > OBS2_BUSY_TOL):
+            fail(f"[obs2] P: device busy {busy_ms} ms vs the replay's "
+                 f"{rep_busy} ms, summed {sum_ms} vs {rep_ms} ms "
+                 f"(> {OBS2_BUSY_TOL:.0%})")
+        if annots & {op["name"] for op in a["top_ops"]}:
+            fail(f"[obs2] P: a gpu_user_annotation counted as a device "
+                 f"op: {annots}")
+    # the timed capture under four streams, a concurrent one refused
+    results.clear()
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+        i, client.generate(prompts[i], max_new_tokens=400, timeout=300)))
+        for i in range(4)]
+    for t in threads:
+        t.start()
+    time.sleep(0.5)
+    timed_out = {}
+    first = threading.Thread(target=lambda: timed_out.update(
+        r=http(f"{base}/profilez?ms=300", "POST", timeout=300)))
+    first.start()
+    time.sleep(0.1)
+    busy = http(f"{base}/profilez?ms=10", "POST", timeout=300)
+    first.join()
+    for t in threads:
+        t.join(timeout=600)
+    code, body = timed_out["r"]
+    if code != 200 or busy[0] != 409 or len(results) != 4:
+        fail(f"[obs2] P: timed capture {code} {body[:200]}, the "
+             f"concurrent one {busy[0]} (409 expected), "
+             f"{len(results)} streams")
+    tpath = json.loads(body)["capture"]
+    meta = find_meta(tpath)
+    with open(find_trace_file(tpath)) as f:
+        trace = json.load(f)["traceEvents"]
+    n_ann = sum(e.get("name") == "serving.decode_step"
+                and e.get("cat") == "user_annotation" for e in trace)
+    ta = analyze(tpath, clock=srv.step_clock)
+    n_steps = meta["step_end"] - meta["step_begin"]
+    print(f"[obs2] P timed capture 300 ms: steps {meta['step_begin']}.."
+          f"{meta['step_end']} ({n_steps}) in the window, "
+          f"{n_ann} serving.decode_step ranges of the worker thread in the "
+          f"trace, device busy {ta['device']['busy_frac']:.4f} of the "
+          f"{ta['window_s'] * 1e3:.1f} ms window, host gaps p50 "
+          f"{ta['host_gaps']['p50_ms']} ms; a concurrent POST answered "
+          f"{busy[0]}; on {card}", flush=True)
+    if n_steps < 1 or n_ann < 1:
+        fail(f"[obs2] P: {n_steps} steps, {n_ann} step ranges in the "
+             f"timed capture")
+    for _ in range(OBS2_KEEP):
+        if http(f"{base}/profilez?ms=10", "POST", timeout=300)[0] != 200:
+            fail("[obs2] P: a short capture failed")
+    caps = json.loads(http(f"{base}/profilez")[1])["captures"]
+    if len(caps) != OBS2_KEEP:
+        fail(f"[obs2] P: the spool holds {len(caps)} captures after "
+             f"{OBS2_KEEP + 2} (keep {OBS2_KEEP})")
+    client.close()
+    return base, stop
+
+
+def obs2_train(cfg, prepared, dev, card):
+    """T: fit on gpt2 (B=8 T=512, phase_train's data, a copy of the main
+    path's weights) with a TrainClock, a GradSentinel and grad_stats, a
+    train_fault sleep at step OBS2_SLEEP_AT + 1; then the CIFAR CNN with
+    a nan fault, which must raise loss_nan within 2 steps. Returns the
+    flash launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from dnn_tpu_torch import chaos, optim, train
+    from dnn_tpu_torch.data.tokens import TokenDataset, write_tokens
+    from dnn_tpu_torch.models import cifar
+    from dnn_tpu_torch.models.gpt import make_apply_stacked
+    from dnn_tpu_torch.obs.trainlens import GradSentinel, TrainClock
+    from dnn_tpu_torch.optim import tree_leaves
+    from dnn_tpu_torch.utils.flops import gpt_train_step_flops
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return tree.detach().clone()
+
+    params = clone(prepared)  # the daemons go on serving `prepared`
+    opt = optim.adamw(1e-4)
+    opt_state = opt.init(params)
+    apply = make_apply_stacked(cfg, use_flash=True)
+    step = train.make_train_step(
+        lambda p, bt: train.next_token_loss(apply, p, bt), opt,
+        grad_stats=True, device=dev)
+    stats_seen = []
+
+    def fn(state, batch):
+        p, o, loss, stats = step(*state, batch)
+        stats_seen.append(stats)
+        return (p, o), loss, stats
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs2_")
+    flops = gpt_train_step_flops(cfg, TRAIN_B, TRAIN_T)
+    try:
+        path = os.path.join(tmp, "tokens.bin")
+        write_tokens(path, np.random.default_rng(1).integers(
+            0, cfg.vocab_size, 2_000_000))
+        ds = TokenDataset(path)
+        batches = ds.batches(TRAIN_B, TRAIN_T, seed=2)
+        state = (params, opt_state)
+        state, _ = train.fit(fn, state, batches, num_steps=1)  # warm-up
+        clock = TrainClock(flops_per_step=flops,
+                           tokens_per_step=TRAIN_B * TRAIN_T).install()
+        sentinel = GradSentinel(clock=clock)
+        chaos.install(chaos.FaultPlan.from_cli(json.dumps({
+            "seed": 0, "faults": [{"kind": "train_fault",
+                                   "target": "sleep", "at_n": OBS2_SLEEP_AT,
+                                   "delay_s": OBS2_SLEEP_S}]})))
+        stats_seen.clear()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            state, _ = train.fit(fn, state, batches,
+                                 num_steps=OBS2_TRAIN_STEPS, clock=clock,
+                                 sentinel=sentinel, advance_batches=False)
+        finally:
+            chaos.uninstall()
+        t1 = time.perf_counter()
+        summary = clock.summary()
+        counts = read_counts()
+        require_exact("[obs2] T", counts, per_step(OBS2_TRAIN_STEPS))
+        global OBS2_FLASH
+        OBS2_FLASH = {n: dict(counts[n]) for n in FLASH_KERNELS}
+        recs = clock.records()
+        cover = sum(r["wall"] for r in recs) / (t1 - t0)
+        data = [r["phases"].get("data", 0.0) for r in recs]
+        want = flops * OBS2_TRAIN_STEPS / (t1 - t0) / summary["peak_flops"]
+        gnorm = stats_seen[-1].tolist()[0]
+        plain = math.sqrt(sum(float(leaf.grad.double().square().sum())
+                              for leaf in tree_leaves(state[0])))
+        print(f"[obs2] T fit {OBS2_TRAIN_STEPS} steps gpt2 B={TRAIN_B} "
+              f"T={TRAIN_T}: the clock's phases cover {cover:.4f} of the "
+              f"{(t1 - t0) * 1e3:.1f} ms wall; /trainz MFU "
+              f"{summary['mfu']:.6f} of {summary['peak_flops']:.4g} FLOP/s "
+              f"({summary['peak_flops_source']}), from the wall and "
+              f"gpt_train_step_flops {want:.6f}; data phases (ms) "
+              f"{[round(d * 1e3, 2) for d in data]} (a {OBS2_SLEEP_S} s "
+              f"sleep at step {OBS2_SLEEP_AT + 1}); the last step's "
+              f"grad-norm {gnorm:.9g} vs a plain total norm {plain:.9g}; "
+              f"phase fractions "
+              f"{ {p: d['frac'] for p, d in summary['phases'].items()} }; "
+              f"on {card}", flush=True)
+        if cover < OBS_COVERAGE:
+            fail(f"[obs2] T: phases cover {cover:.4f} (< {OBS_COVERAGE})")
+        if abs(summary["mfu"] / want - 1) > OBS2_MFU_TOL:
+            fail(f"[obs2] T: MFU {summary['mfu']} vs {want}")
+        if abs(gnorm / plain - 1) > OBS2_GNORM_TOL:
+            fail(f"[obs2] T: grad-norm {gnorm} vs {plain}")
+        slow = [i for i, d in enumerate(data) if d >= OBS2_SLEEP_S]
+        if slow != [OBS2_SLEEP_AT]:
+            fail(f"[obs2] T: the sleep landed in steps {slow} "
+                 f"(expected [{OBS2_SLEEP_AT}])")
+        del state, params, opt_state, stats_seen[:]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the CIFAR CNN: float images, so the nan fault poisons the batch
+    cparams = {k: {kk: torch.as_tensor(v, device=dev) for kk, v in d.items()}
+               for k, d in cifar.init(0).items()}
+    copt = optim.sgd(0.01)
+    cstate = (cparams, copt.init(cparams))
+
+    def closs(p, bt):
+        probs = cifar.apply(p, bt["x"])
+        return -torch.log(probs.gather(1, bt["y"][:, None]) + 1e-9).mean()
+
+    cstep = train.make_train_step(closs, copt, grad_stats=True, device=dev)
+    rng = np.random.default_rng(3)
+
+    def cbatches():
+        while True:
+            yield {"x": rng.standard_normal((32, 32, 32, 3),
+                                            dtype=np.float32),
+                   "y": rng.integers(0, 10, 32)}
+
+    fired = []
+    sentinel = GradSentinel()
+    orig = sentinel.observe
+
+    def observe(s, loss, stats=None):
+        out = orig(s, loss, stats)
+        fired.extend((s, k) for k in out)
+        return out
+
+    sentinel.observe = observe
+    chaos.install(chaos.FaultPlan.from_cli(json.dumps({
+        "seed": 0, "faults": [{"kind": "train_fault", "target": "nan",
+                               "at_n": OBS2_NAN_AT}]})))
+    try:
+        train.fit(lambda st, bt: (lambda o: ((o[0], o[1]), o[2], o[3]))(
+            cstep(*st, bt)), cstate, cbatches(), num_steps=6,
+            sentinel=sentinel)
+    finally:
+        chaos.uninstall()
+    nan_at = [s for s, k in fired if k == "loss_nan"]
+    print(f"[obs2] T CIFAR CNN: a nan fault at fit step {OBS2_NAN_AT + 1}; "
+          f"the sentinel fired {fired}; on {card}", flush=True)
+    if not nan_at or nan_at[0] - (OBS2_NAN_AT + 1) > 2:
+        fail(f"[obs2] T: loss_nan {nan_at} not within 2 steps of the "
+             f"fault at step {OBS2_NAN_AT + 1}")
+
+
+def obs2_tenants():
+    """OBS2_TURNS tenant ids, Zipf(1.1) over OBS2_TENANTS by inverse CDF
+    of a seeded stream (JAX's kv_economy_probe shape)."""
+    w = np.array([1.0 / (k + 1) ** 1.1 for k in range(OBS2_TENANTS)])
+    cdf = np.cumsum(w) / w.sum()
+    u = np.random.default_rng(15).random(OBS2_TURNS)
+    return np.minimum(np.searchsorted(cdf, u), OBS2_TENANTS - 1).tolist()
+
+
+def obs2_kvz(start, cfg, prepared, dev, card):
+    """K: the radix prefix cache under a prefix-heavy schedule (one
+    16-token block a tenant, obs2_tenants) at pool P = OBS2_POOL and
+    again at 2P, each daemon over gRPC; the curve of the run at P must
+    predict the hit ratio measured at 2P within OBS2_MRC_TOL. /kvz
+    served by both. Returns (2P's base URL, stop)."""
+    tenants = obs2_tenants()
+    lenses, out = {}, None
+    for cap in (OBS2_POOL, 2 * OBS2_POOL):
+        addr, client, srv, stop = daemon(
+            start, cfg, prepared, dev, kv="paged", prefix_cache=cap,
+            paged_blocks=cap + 4 * 64 + 1, metrics_port=0)
+        base = f"http://127.0.0.1:{srv.metrics_server.port}"
+        t0 = time.perf_counter()
+        for t in tenants:
+            client.generate(((np.arange(16) + 37 * t)
+                             % (cfg.vocab_size - 1) + 1).tolist(),
+                            max_new_tokens=1, timeout=300)
+        wall = time.perf_counter() - t0
+        code, body = http(f"{base}/kvz")
+        kvz = json.loads(body)
+        prom = http(f"{base}/kvz?format=prom")[1]
+        lens = lenses[cap] = srv.batcher._kvlens
+        print(f"[obs2] K pool {cap} blocks: {len(tenants)} turns in "
+              f"{wall:.2f} s; /kvz {code}: sampled "
+              f"{kvz['samples']['sampled']} of {kvz['samples']['accesses']}"
+              f", measured hit ratio {kvz['measured']['hit_ratio']:.4f}, "
+              f"curve { {c['mult']: c['predicted_hit_ratio'] for c in kvz['curve']} }"
+              f", evictions {kvz['lifecycle']['evictions_by_cause']}, "
+              f"refetches {kvz['thrash']['refetch_blocks']}; on {card}",
+              flush=True)
+        if (code != 200 or kvz["samples"]["sampled"] <= 0
+                or "dnn_tpu_kvlens_pred_hit_ratio" not in prom):
+            fail(f"[obs2] K: /kvz at pool {cap} answered {code}, "
+                 f"{kvz['samples']}")
+        client.close()
+        if cap == OBS2_POOL:
+            stop()
+        else:
+            out = (base, stop)
+    pred = lenses[OBS2_POOL].predicted_hit_ratio(2.0)
+    meas = lenses[2 * OBS2_POOL].measured_hit_ratio()
+    print(f"[obs2] K: the curve at P predicts {pred:.4f} at 2x, measured "
+          f"at 2P {meas:.4f}: error {abs(pred - meas):.4f} (limit "
+          f"{OBS2_MRC_TOL}); on {card}", flush=True)
+    if abs(pred - meas) > OBS2_MRC_TOL:
+        fail(f"[obs2] K: predicted {pred} vs measured {meas}")
+    return out
+
+
+def obs2_fleetz(targets, card):
+    """F: a FleetCollector over the P and K daemons' endpoints, served on
+    /fleetz: both healthy, each with its MFU and MBU."""
+    from dnn_tpu_torch import obs
+    from dnn_tpu_torch.obs.fleet import FleetCollector
+
+    col = FleetCollector(targets, interval_s=3600.0)
+    col.poll_once()
+    srv = obs.serve_metrics(0, fleet=col)
+    try:
+        code, body = http(f"http://127.0.0.1:{srv.port}/fleetz")
+        z = json.loads(body)
+        rows = z["stages"]
+        print(f"[obs2] F /fleetz {code}: state {z['state']}, stages "
+              f"{ {n: (r['state'], r.get('mfu'), r.get('mbu')) for n, r in rows.items()} }"
+              f"; on {card}", flush=True)
+        if (code != 200 or len(rows) != len(targets)
+                or any(r["state"] != "ok" or r.get("mfu") is None
+                       or r.get("mbu") is None for r in rows.values())):
+            fail(f"[obs2] F: /fleetz {code} {body[:400]}")
+    finally:
+        srv.close()
+        col.close()
+
+
+def phase_obs2(cfg, prepared, prompts, dev, card):
+    """[obs2] (ROADMAP Queue 1 item 12's second half) on the main path's
+    gpt2: T (obs2_train), P (obs2_profilez), K (obs2_kvz), F
+    (obs2_fleetz), with the profile spool in a temporary
+    DNN_TPU_OBS_DIR bounded to OBS2_KEEP. Returns the cache kernels'
+    launches of its daemons."""
+    import shutil
+    import tempfile
+
+    from dnn_tpu_torch.runtime.lm_server import start_lm_server_loop
+
+    t0 = time.perf_counter()
+    obs2_train(cfg, prepared, dev, card)
+    print(f"[obs2] T wall {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs2_spool_")
+    saved = {k: os.environ.get(k) for k in ("DNN_TPU_OBS_DIR",
+                                            "DNN_TPU_OBS_PROFILE_KEEP")}
+    os.environ.update(DNN_TPU_OBS_DIR=tmp,
+                      DNN_TPU_OBS_PROFILE_KEEP=str(OBS2_KEEP))
+    start, close = start_lm_server_loop()
+    stops = []
+    reset_counts()
+    try:
+        t1 = time.perf_counter()
+        p_base, p_stop = obs2_profilez(start, cfg, prepared, prompts, dev,
+                                       card)
+        stops.append(p_stop)
+        print(f"[obs2] P wall {time.perf_counter() - t1:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        k_base, k_stop = obs2_kvz(start, cfg, prepared, dev, card)
+        stops.append(k_stop)
+        print(f"[obs2] K wall {time.perf_counter() - t1:.1f} s", flush=True)
+        obs2_fleetz([p_base, k_base], card)
+        counts = read_counts()
+    finally:
+        for s in stops:
+            s()
+        close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    if dev.type == "cuda":
+        require("[obs2] daemons", counts, [("cached_attention", "f32"),
+                                           ("paged_decode_attention",
+                                            "f32")])
+    print(f"[obs2] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def phase_main_path(dev, card: str):
     """Every main-path run: A paged f32, B dense + buckets f32, C paged
     int8, D paged bf16, then solo make_generate f32, bf16 and int8, and
-    the later slices' phases on the same model ([int4], [obs] last).
+    the later slices' phases on the same model ([int4], [obs], [obs2]
+    last).
     Returns the launches of all runs summed per (kernel, dtype), and what
     the profile needs."""
     from dnn_tpu_torch.convert import from_jax_params
@@ -4640,6 +5100,7 @@ def phase_main_path(dev, card: str):
         timed("int4", phase_int4, cfg, prepared, prompts, n_new, ref_i4,
               dev, card),
         timed("obs", phase_obs, cfg, prepared, prompts, ref_f32, dev, card),
+        timed("obs2", phase_obs2, cfg, prepared, prompts, dev, card),
     ]
     launches = {name: {dt: sum(r[name][dt] for r in runs)
                        for dt in DTYPES}
@@ -5539,20 +6000,27 @@ def phase_pipe(dev, card, prompt):
     return counts
 
 
-def _kernel_events(fn):
+def _kernel_events(fn, trace_path=None):
     """(wall ms, the device-side events of fn()) under torch.profiler:
     kernels and copies only — an operator's row repeats the time of its
     kernels, and a user annotation (Optimizer.step) the time of the
-    kernels inside it."""
+    kernels inside it. With `trace_path`, the session's Chrome trace is
+    also written there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from dnn_tpu_torch.obs.profile import exclusive
+
+    # the process's one profiler session (ProfilerBusy while a capture of
+    # the daemon records)
+    with exclusive(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     return wall, [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0
@@ -9135,10 +9603,11 @@ T_START = time.perf_counter()
 
 # The whole smoke's depth cuts (widths, heads, vocabularies kept): the
 # run had grown to 1134 s of the 1200 s limit with slice 21's phases, so
-# the three largest later-slice models are served at these depths here
-# (PERF.md section 4); tools/window_phases.py and tools/moe_phases.py
-# still run them at full depth.
-SMOKE_LAYERS = {"mistral-7b": 16, "gemma2-9b": 20, "mixtral-8x7b": 16}
+# the three largest later-slice models are served at these depths here,
+# halved again when [obs2] added its 27 s (PERF.md section 4);
+# tools/window_phases.py and tools/moe_phases.py still run them at full
+# depth.
+SMOKE_LAYERS = {"mistral-7b": 8, "gemma2-9b": 10, "mixtral-8x7b": 8}
 
 
 def smoke_cut(family, name):
@@ -9208,6 +9677,9 @@ def main():
         for dt, n in spec["bf16"][name].items():
             bf16_launches[name][dt] += n
     launches.update(timed("train", phase_train, dev, smi))
+    for name, by_dtype in OBS2_FLASH.items():  # [obs2] T's fit
+        for dt, n in by_dtype.items():
+            launches[name][dt] += n
     for dt, n in item_4d["flash_attention"].items():  # [embed]'s K1
         launches["flash_attention"][dt] += n
     gc.collect()  # the gpt2 phases' tensors go before llama3-8b's 32 GB

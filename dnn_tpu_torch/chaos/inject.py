@@ -33,10 +33,10 @@ degradation discipline as `obs.flight.record`:
 
 Where the port consults them: kv_exhaust() at the LM worker's
 admission, step_fault() before each pool step, kv_migrate() in the
-daemon's kvpull, wedge_detail() in the watchdog's probe and
-perturb_rpc("client") in NodeClient.send_tensor. perturb_rpc("stage")
-and perturb_relay() wait for the stage servers' seams (ROADMAP Queue 1
-item 7's remainder), train_fault() for train.fit's (Queue 1 item 10).
+daemon's kvpull, wedge_detail() in the watchdog's probe,
+perturb_rpc("client") in NodeClient.send_tensor and train_fault() in
+train.fit's data phase. perturb_rpc("stage") and perturb_relay() wait
+for the stage servers' seams (ROADMAP Queue 1 item 7's remainder).
 
 Every firing lands in the flight recorder as a `chaos_inject` event
 (kind, seam, counter, target), so an induced incident reconstructs
@@ -329,7 +329,7 @@ def step_fault():
 
 
 def train_fault() -> Optional[dict]:
-    # no caller yet: train.fit's seam is ROADMAP Queue 1 item 10
+    # train.fit's data phase
     inj = _active
     return inj.train_fault() if inj is not None else None
 

@@ -20,9 +20,9 @@ the transport hello by declining every rung beyond grpc while
 advertising Relay.
 
 Left out of the Relay port: the JAX package's spans and metrics
-(`comm.hop_seconds`, `comm.hop_ack_seconds`, ...; ROADMAP Queue 1 item
-12), the chaos hook in the chunk assembler (Queue 1 item 11), and shm
-ticket copies (no shm rung; Queue 1 item 7's remainder).
+(`comm.hop_seconds`, `comm.hop_ack_seconds`, ...) and shm ticket copies
+(no shm rung), both ROADMAP Queue 1 item 7's remainder, and the chaos
+hook in the chunk assembler (Queue 1 item 11).
 """
 
 from __future__ import annotations

@@ -58,8 +58,10 @@ class RadixNode:
         self.logit_row = None
         self.origin = origin
         self.lru = 0
-        # the observability lens's path key (ROADMAP Queue 1 item 12);
-        # always None here
+        # path digest stamped by obs/kvlens.py at insert time: evicted
+        # nodes are detached, so the key the thrash detector needs is
+        # captured while the path is still walkable; None when no lens
+        # is attached
         self.obskey = None
 
     @property

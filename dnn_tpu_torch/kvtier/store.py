@@ -83,8 +83,9 @@ class PrefixStore:
         self.block_hits = 0          # blocks reused across all lookups
         self.remote_block_hits = 0   # ... of adopted (migrated) origin
         self.evictions = 0
-        # the memory-economy observer's hook (ROADMAP Queue 1 item 12):
-        # not ported, so always None
+        # optional memory-economy observer (obs/kvlens.py), attached by
+        # the batcher when the obs gate is on; every hook below is one
+        # `is not None` test when absent
         self.lens = None
 
     @property
@@ -97,6 +98,10 @@ class PrefixStore:
         side effects — `note_reuse` records what admission actually
         used)."""
         matched, cow_n, cow_node = self.index.match(prompt)
+        if self.lens is not None:
+            # admission demand only: nodes_for serves the export path,
+            # not arriving traffic, and would skew the reuse sample
+            self.lens.on_access(prompt, n_resident=len(matched))
         logit_row = None
         bp = self.block_len
         p = int(np.asarray(prompt).size)
@@ -111,11 +116,16 @@ class PrefixStore:
             cow_origin=cow_node.origin if has_cow else "local",
             logit_row=logit_row)
 
-    def note_reuse(self, n_blocks: int, n_remote: int):
+    def note_reuse(self, n_blocks: int, n_remote: int,
+                   cow: bool = False):
         """Admission succeeded reusing `n_blocks` resident blocks, of
-        which `n_remote` were adopted from a sibling."""
+        which `n_remote` were adopted from a sibling. `cow` marks that
+        the reuse included the boundary copy-on-write block (the lens's
+        lifecycle ledger; the counters are unchanged by it)."""
         self.block_hits += int(n_blocks)
         self.remote_block_hits += int(n_remote)
+        if self.lens is not None:
+            self.lens.on_share(int(n_blocks), int(n_remote), cow=cow)
 
     def insert(self, tokens: np.ndarray, blocks: List[int], *,
                logit_rows: Optional[dict] = None,
@@ -129,17 +139,20 @@ class PrefixStore:
             tokens, blocks, logit_rows=logit_rows, origin=origin)
         if created:
             self.allocator.ref([n.block for n in created])
+            if self.lens is not None:
+                self.lens.on_insert(tokens, created, origin=origin)
         if evicted:
-            self._release(evicted)
+            self._release(evicted, cause="capacity")
         return len(created)
 
-    def evict_one(self) -> bool:
+    def evict_one(self, cause: str = "capacity") -> bool:
         """Evict the LRU leaf (admission's make-room loop). False when
-        nothing is evictable."""
+        nothing is evictable. `cause` attributes the eviction for the
+        lens: "capacity" (pressure) or a housekeeping cause."""
         victim = self.index.evict_lru_leaf()
         if victim is None:
             return False
-        self._release([victim])
+        self._release([victim], cause=cause)
         return True
 
     def nodes_for(self, tokens: np.ndarray) -> List[RadixNode]:
@@ -147,11 +160,14 @@ class PrefixStore:
         export reads their blocks and logits rows)."""
         return self.index.match(tokens)[0]
 
-    def _release(self, nodes: List[RadixNode]):
+    def _release(self, nodes: List[RadixNode], cause: str = "capacity"):
         self.allocator.free([n.block for n in nodes])
         self.evictions += len(nodes)
+        if self.lens is not None:
+            self.lens.on_evict(
+                [getattr(n, "obskey", None) for n in nodes], cause=cause)
 
     def clear(self):
         """Release every resident block (teardown / tests)."""
-        while self.evict_one():
+        while self.evict_one(cause="clear"):
             pass

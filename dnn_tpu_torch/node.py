@@ -27,7 +27,8 @@
         [--metrics_port PORT] [--watchdog_s S \\
         [--on_wedged {503,restart,drain}]] [--chaos PLAN] \\
         [--slo_ttft_ms MS] [--slo_itl_ms MS] [--slo_avail F] \\
-        [--slo_target F]
+        [--slo_target F] [--fleet_port PORT [--fleet_targets URLS] \\
+        [--fleet_interval S]]
 
 The config is the JAX package's topology schema (config.TopologyConfig).
 Weights come from its `model_weights` (.pth, .safetensors or .npz) or,
@@ -38,7 +39,9 @@ runs on the CUDA card unless the config's
 `device_type` is "cpu" or --device cpu is given; without a card the
 default raises. The LM daemon drains on SIGTERM (exit 0) and exits 43
 when its watchdog's wedged policy escalates; --metrics_port serves GET
-/metrics /healthz /statusz /debugz and POST /drainz.
+/metrics /healthz /statusz /debugz /stepz /kvz and GET/POST /profilez,
+and POST /drainz. --fleet_port (with --serve_lm or --serve) runs the
+fleet collector beside the mode and serves the merged /fleetz.
 """
 
 from __future__ import annotations
@@ -72,12 +75,6 @@ _UNPORTED = (
      "ROADMAP Queue 1 item 11"),
     ("process_id", "--process_id: multi-host runs",
      "ROADMAP Queue 1 item 10"),
-    ("fleet_port", "--fleet_port: the fleet collector",
-     "ROADMAP Queue 1 item 12"),
-    ("fleet_targets", "--fleet_targets: the fleet collector",
-     "ROADMAP Queue 1 item 12"),
-    ("fleet_interval", "--fleet_interval: the fleet collector",
-     "ROADMAP Queue 1 item 12"),
 )
 
 
@@ -236,7 +233,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "decodes within the drain grace, hand queued work "
                         "back retriable, then exit 43. Needs --watchdog_s")
     p.add_argument("--supervise", action="store_true")
-    # the JAX CLI's fleet, router and multi-host flags, with its types and
+    # the JAX CLI's router and multi-host flags, with its types and
     # choices; refused (_UNPORTED)
     p.add_argument("--route", action="store_true")
     p.add_argument("--route_targets", default=None)
@@ -247,9 +244,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kvtier", choices=["auto", "pull", "off"],
                    default="auto")
     p.add_argument("--process_id", type=int, default=None)
-    p.add_argument("--fleet_port", type=int, default=None, metavar="PORT")
-    p.add_argument("--fleet_targets", default=None)
-    p.add_argument("--fleet_interval", type=float, default=None)
+    p.add_argument("--fleet_port", type=int, default=None, metavar="PORT",
+                   help="--serve/--serve_lm: also run the fleet collector "
+                        "in this process and serve the merged /fleetz view "
+                        "on this port (obs/fleet.py; 0 = ephemeral). Its "
+                        "targets come from --fleet_targets, or with "
+                        "--serve_lm from the config's node hosts + "
+                        "--metrics_port")
+    p.add_argument("--fleet_targets", default=None,
+                   help="comma-separated obs endpoint base URLs "
+                        "(http://host:port) for --fleet_port, one a stage")
+    p.add_argument("--fleet_interval", type=float, default=None,
+                   help="--fleet_port: poll period in seconds (default 5)")
     p.add_argument("--chaos", default=None, metavar="PLAN",
                    help="--serve_lm: install a fault-injection plan in this "
                         "process (dnn_tpu_torch/chaos; a JSON file path or "
@@ -597,6 +603,24 @@ def main(argv=None) -> int:
         log.error("--slo_target needs at least one objective "
                   "(--slo_ttft_ms / --slo_itl_ms / --slo_avail)")
         return 1
+    # JAX node.py:575-586
+    if args.fleet_port is not None and not (args.serve or args.serve_lm):
+        log.error("--fleet_port applies to the serving modes; for a "
+                  "standalone collector use `python -m dnn_tpu_torch.obs "
+                  "fleet --serve PORT`")
+        return 1
+    if (args.fleet_targets or args.fleet_interval is not None) \
+            and args.fleet_port is None:
+        # a silent no-op would read as "the fleet view is live"
+        log.error("--fleet_targets/--fleet_interval apply only with "
+                  "--fleet_port")
+        return 1
+    if (args.fleet_port is not None and not args.fleet_targets
+            and not args.metrics_port):
+        log.error("fleet collector setup failed: --fleet_port needs "
+                  "--fleet_targets, or a nonzero --metrics_port to derive "
+                  "them from the config")
+        return 1
     if (args.min_p is not None or args.repetition_penalty is not None) \
             and not args.serve_lm:
         log.error("--min_p/--repetition_penalty apply to --serve_lm only")
@@ -672,6 +696,48 @@ def main(argv=None) -> int:
     except (ValueError, KeyError) as e:
         log.error("Invalid config '%s': %s", args.config, e)
         return 1
+    fleet = None
+    if args.fleet_port is not None:
+        try:
+            fleet = _start_fleet(config, args)
+        except Exception as e:  # noqa: BLE001 — CLI boundary
+            log.error("fleet collector setup failed: %s", e)
+            return 1
+    try:
+        return _serve(config, me, args)
+    finally:
+        if fleet is not None:
+            fleet[0].close()
+            fleet[1].close()
+
+
+def _start_fleet(config, args):
+    """The fleet collector riding this serving process (JAX
+    node.py:587-615): polls every stage's obs endpoint, serves the
+    merged /fleetz. Returns (endpoint, collector)."""
+    from dnn_tpu_torch import obs
+    from dnn_tpu_torch.obs.fleet import FleetCollector, targets_from_config
+
+    if args.fleet_targets:
+        targets = [u.strip() for u in args.fleet_targets.split(",")
+                   if u.strip()]
+    else:
+        targets = targets_from_config(config, args.metrics_port)
+    col = FleetCollector(
+        targets, interval_s=args.fleet_interval
+        if args.fleet_interval is not None else 5.0).start()
+    try:
+        srv = obs.serve_metrics(args.fleet_port, fleet=col)
+    except BaseException:
+        col.close()
+        raise
+    log.info("fleet collector on http://127.0.0.1:%d/fleetz (%d stages)",
+             srv.port, len(col.targets))
+    return srv, col
+
+
+def _serve(config, me, args) -> int:
+    """The mode the flags pick, after the config loaded."""
     if args.serve_lm:
         return _serve_lm(config, me, args)
 

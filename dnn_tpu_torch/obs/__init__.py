@@ -19,10 +19,23 @@ through):
   * goodput (obs/goodput.py): live MFU, MBU, goodput tokens/sec and SLO
     burn rates;
   * capture and build counters (obs/compile_watch.py): the CUDA graphs
-    the batchers capture and the kernel libraries built at first use.
+    the batchers capture and the kernel libraries built at first use;
+  * on-demand device profiling (obs/profile.py): POST /profilez drives a
+    torch.profiler capture into a bounded spool, with an auto trigger on
+    the next slow pool step; obs/timeline.analyze reads a capture back
+    (device busy and idle, top ops, host gaps, per-step device busy);
+  * the training-step observatory (obs/trainlens.py): fit's phase
+    clock, MFU, the gradient sentinel and checkpoint freshness, on
+    /trainz;
+  * the memory-economy observatory (obs/kvlens.py): the radix store's
+    sampled reuse distances and hit-ratio curve, on /kvz;
+  * the fleet collector (obs/fleet.py): many endpoints polled into one
+    merged view, on /fleetz;
+  * SLO verdicts and incident bundles (obs/slo.py), and the operator CLI
+    (`python -m dnn_tpu_torch.obs`).
 
-/profilez, kvlens, caplens, fleet and trainlens are ROADMAP Queue 1 item
-12's second half; their routes answer 404 here.
+The capacity observatory (/capz, obs/caplens.py) belongs to the router,
+ROADMAP Queue 1 item 11; its route answers 404 here.
 
 Gate: DNN_TPU_OBS=off (or 0/false/no) disables everything, as in the
 JAX package — `metrics()` returns None and `flight.record` returns at
@@ -37,15 +50,20 @@ import os
 from dnn_tpu_torch.obs import flight  # noqa: F401 — obs.flight.record(...)
 from dnn_tpu_torch.obs.trace import (  # noqa: F401 — obs.start_span(...)
     NULL_SPAN,
+    TraceCollector,
     continue_or_start,
+    parse_wire_tag,
     record_span,
+    span,
     start_span,
+    strip_wire_tag,
     tag_request_id,
 )
 
 __all__ = ["enabled", "set_enabled", "metrics", "serve_metrics", "flight",
-           "NULL_SPAN", "continue_or_start", "record_span", "start_span",
-           "tag_request_id"]
+           "NULL_SPAN", "TraceCollector", "continue_or_start",
+           "parse_wire_tag", "record_span", "span", "start_span",
+           "strip_wire_tag", "tag_request_id"]
 
 _enabled = os.environ.get("DNN_TPU_OBS", "on").lower() not in (
     "off", "0", "false", "no")
@@ -80,13 +98,20 @@ def metrics():
 
 
 def serve_metrics(port: int = 0, host: str = "127.0.0.1", *,
-                  healthy=None, status=None, drain=None, device=None,
-                  stepclock=None):
+                  healthy=None, status=None, profiler=None, fleet=None,
+                  drain=None, stepclock=None, kvlens=None, trainlens=None,
+                  device=None):
     """Start the observability HTTP endpoint on a daemon thread; returns
     the MetricsHTTPServer (`.port` for port=0 binds, `.close()` to stop;
-    loopback by default). Serves GET /metrics /healthz /statusz /debugz
-    /trace /trace.jsonl /traces, /stepz with `stepclock` (an
-    obs.timeline.StepClock) and, with `drain` (callable -> dict), POST
+    loopback by default). JAX's signature without `caplens` (the
+    router's, ROADMAP Queue 1 item 11), plus `device`. Serves GET
+    /metrics /healthz /statusz /debugz /trace /trace.jsonl /traces, GET
+    and POST /profilez (`profiler`: None builds a fresh
+    obs.profile.Profiler, False turns the route off), /stepz with
+    `stepclock` (an obs.timeline.StepClock), /kvz with `kvlens` (an
+    obs.kvlens.KVLens), /trainz with `trainlens` (an
+    obs.trainlens.TrainClock), /fleetz with `fleet` (an
+    obs.fleet.FleetCollector) and, with `drain` (callable -> dict), POST
     /drainz; installs the memory gauges (obs/mem.py) for `device` (a CUDA
     device gets device gauges, the CPU none). `healthy`/`status` as on
     MetricsHTTPServer."""
@@ -94,6 +119,12 @@ def serve_metrics(port: int = 0, host: str = "127.0.0.1", *,
     from dnn_tpu_torch.obs.mem import install_memory_gauges
 
     install_memory_gauges(device=device)
+    if profiler is None:
+        from dnn_tpu_torch.obs.profile import Profiler
+
+        profiler = Profiler()
     return MetricsHTTPServer(port=port, host=host, healthy=healthy,
                              status=status, drain=drain,
-                             stepclock=stepclock)
+                             stepclock=stepclock, profiler=profiler or None,
+                             kvlens=kvlens, trainlens=trainlens,
+                             fleet=fleet)

@@ -21,13 +21,30 @@ a plain curl can watch the daemon.
     GET  /stepz     the step clock's phase attribution (obs/timeline.py)
                     as JSON; ?format=prom|trace; ?last=N the newest N
                     steps (404 without a clock attached)
+    GET  /trainz    the training-step observatory (obs/trainlens.py)
+                    with a TrainClock attached: JSON; ?format=prom|trace;
+                    ?last=N
+    GET  /kvz       the memory-economy observatory (obs/kvlens.py) with
+                    a KVLens attached: JSON; ?format=prom
+    GET  /fleetz    the merged fleet view (obs/fleet.py) with a
+                    FleetCollector attached: JSON; ?format=prom|trace|
+                    report (?id= one request's stitched trace); the
+                    fleet's worst-of state is then /statusz and /healthz
+                    unless a `status` is given
+    GET  /profilez  the capture spool and the auto trigger's arm (JSON)
+    POST /profilez?ms=N   capture N ms of host + device profile into the
+                    bounded spool (obs/profile.py): the capture dir and
+                    its trace files; 409 while another session records
+    POST /profilez?auto=1&threshold_ms=T[&ms=N]   arm the auto trigger
+                    (the LM daemon captures the pool step after one over
+                    T ms); ?auto=0 disarms
     POST /drainz    connection draining (the LM daemon's handler): 202
                     and the drain's state as JSON; idempotent
 
-The JAX endpoint's other routes (/profilez, /kvz, /fleetz, /capz,
-/trainz) answer 404 naming ROADMAP Queue 1 item 12, never an empty 200;
-any other path answers 404 "not found". A handler that raises answers
-500 (and logs it).
+/capz (the capacity observatory, whose only producer is the router)
+answers 404 naming ROADMAP Queue 1 item 11, never an empty 200; any
+other path answers 404 "not found". A handler that raises answers 500
+(and logs it).
 """
 
 from __future__ import annotations
@@ -45,9 +62,9 @@ _STATE_GAUGE = {"ok": 0.0, "degraded": 1.0, "draining": 1.0,
                 "wedged": 2.0}
 
 #: the JAX endpoint's routes this port does not serve yet
-UNPORTED_ROUTES = ("/profilez", "/kvz", "/fleetz", "/capz", "/trainz")
+UNPORTED_ROUTES = ("/capz",)
 _UNPORTED_BODY = ("{path}: not ported to dnn_tpu_torch yet (ROADMAP Queue 1 "
-                  "item 12)\n")
+                  "item 11)\n")
 _TEXT = "text/plain; charset=utf-8"
 _PROM = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -77,14 +94,18 @@ class MetricsHTTPServer:
     built from `healthy`. `drain`: callable -> dict behind POST
     /drainz. `stepclock`: the obs.timeline.StepClock behind /stepz;
     `collector`: the span ring behind /trace* (default: the process's,
-    obs.trace.collector())."""
+    obs.trace.collector()); `profiler` (obs.profile.Profiler) behind
+    /profilez, `kvlens` (obs.kvlens.KVLens) behind /kvz, `trainlens`
+    (obs.trainlens.TrainClock) behind /trainz, `fleet`
+    (obs.fleet.FleetCollector) behind /fleetz."""
 
     def __init__(self, *, port: int = 0, host: str = "127.0.0.1",
                  registry=None, flight=None,
                  healthy: Optional[Callable[[], bool]] = None,
                  status: Optional[Callable[[], dict]] = None,
                  drain: Optional[Callable[[], dict]] = None,
-                 stepclock=None, collector=None):
+                 stepclock=None, collector=None, profiler=None,
+                 kvlens=None, trainlens=None, fleet=None):
         from dnn_tpu_torch.obs import flight as _flight
         from dnn_tpu_torch.obs import trace as _trace
         from dnn_tpu_torch.utils import metrics as _metrics
@@ -98,6 +119,13 @@ class MetricsHTTPServer:
         self._stepclock = stepclock
         self._collector = (collector if collector is not None
                            else _trace.collector())
+        self._profiler = profiler
+        self._kvlens = kvlens
+        self._trainlens = trainlens
+        self._fleet = fleet
+        if fleet is not None and status is None:
+            # the fleet endpoint's health is the fleet's worst-of state
+            self._status = fleet.status
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -162,9 +190,16 @@ class MetricsHTTPServer:
                                _TEXT)
 
             def _stepz(self, q):
-                clock = outer._stepclock
+                self._clock_view(q, outer._stepclock, "step clock")
+
+            def _trainz(self, q):
+                self._clock_view(q, outer._trainlens, "train clock")
+
+            def _clock_view(self, q, clock, what):
+                """/stepz and /trainz: a clock's summary (json), gauges
+                (prom) or host track (trace) over the newest `last`."""
                 if clock is None:
-                    self._send(404, "no step clock attached\n", _TEXT)
+                    self._send(404, f"no {what} attached\n", _TEXT)
                     return
                 last = None
                 if "last" in q:
@@ -187,12 +222,86 @@ class MetricsHTTPServer:
                     self._send(400, f"unknown format {fmt!r} "
                                "(json|prom|trace)\n", _TEXT)
 
+            def _kvz(self, q):
+                lens = outer._kvlens
+                if lens is None:
+                    self._send(404, "no kvlens attached\n", _TEXT)
+                    return
+                fmt = q.get("format", ["json"])[0]
+                if fmt == "json":
+                    self._send_json(200, lens.summary())
+                elif fmt == "prom":
+                    self._send(200, lens.render_prom(), _PROM)
+                else:
+                    self._send(400, f"unknown format {fmt!r} (json|prom)\n",
+                               _TEXT)
+
+            def _fleetz(self, q):
+                fleet = outer._fleet
+                if fleet is None:
+                    self._send(404, "no fleet collector attached\n", _TEXT)
+                    return
+                fmt = q.get("format", ["json"])[0]
+                tid = q.get("id", [None])[0]
+                if fmt == "json":
+                    self._send_json(200, fleet.fleetz())
+                elif fmt == "prom":
+                    self._send(200, fleet.render_prom(), _PROM)
+                elif fmt == "trace":
+                    self._send_json(200, fleet.stitch(tid))
+                elif fmt == "report":
+                    self._send(200, fleet.report(tid) + "\n", _TEXT)
+                else:
+                    self._send(400, f"unknown format {fmt!r} "
+                               "(json|prom|trace|report)\n", _TEXT)
+
+            def _profilez_post(self, q):
+                """POST /profilez: a timed capture, or the auto
+                trigger's arm (?auto=1) and disarm (?auto=0), as JAX's
+                obs/http.py:440-500."""
+                from dnn_tpu_torch.obs.profile import (
+                    ProfilerBusy,
+                    trace_files,
+                )
+
+                prof = outer._profiler
+                if "auto" in q:
+                    if q["auto"][0] in ("0", "false", "off"):
+                        prof.disarm()
+                        self._send_json(200, {"armed": None})
+                        return
+                    try:
+                        prof.arm_auto(
+                            float(q.get("threshold_ms", ["100"])[0]),
+                            float(q.get("ms", ["0"])[0]))
+                    except ValueError as e:
+                        self._send(400, str(e) + "\n", _TEXT)
+                        return
+                    self._send_json(200, prof.status())
+                    return
+                try:
+                    ms = float(q.get("ms", ["1000"])[0])
+                except ValueError:
+                    self._send(400, "ms must be a number\n", _TEXT)
+                    return
+                try:
+                    path = prof.capture(ms)
+                except ProfilerBusy as e:
+                    self._send(409, str(e) + "\n", _TEXT)
+                    return
+                self._send_json(200, {"capture": path, "ms": ms,
+                                      "trace_files": trace_files(path)})
+
             def _route(self, post: bool):
                 url = urlparse(self.path)
                 q = parse_qs(url.query)
                 if url.path in UNPORTED_ROUTES:
                     self._send(404, _UNPORTED_BODY.format(path=url.path),
                                _TEXT)
+                elif url.path == "/profilez" and outer._profiler is None:
+                    self._send(404, "no profiler attached\n", _TEXT)
+                elif post and url.path == "/profilez":
+                    self._profilez_post(q)
                 elif post and url.path == "/drainz":
                     if outer._drain is None:
                         self._send(404, "no drain handler attached\n", _TEXT)
@@ -218,6 +327,14 @@ class MetricsHTTPServer:
                     self._debugz(q)
                 elif url.path == "/stepz":
                     self._stepz(q)
+                elif url.path == "/trainz":
+                    self._trainz(q)
+                elif url.path == "/kvz":
+                    self._kvz(q)
+                elif url.path == "/fleetz":
+                    self._fleetz(q)
+                elif url.path == "/profilez":
+                    self._send_json(200, outer._profiler.status())
                 elif url.path == "/trace":
                     self._send_json(200, outer._collector.chrome_trace(
                         q.get("id", [None])[0]))

@@ -39,12 +39,23 @@ step.constrained_slots) + fixed-bucket histograms
 a Perfetto-loadable host track (`chrome_trace()`, GET
 /stepz?format=trace). Served via GET /stepz (JSON; ?format=prom|trace).
 
-The device-capture analysis (JAX's analyze / render_report) reads a
-profiler capture and waits for ROADMAP Queue 1 item 12's second half.
+**analyze / render_report** — the device half (JAX's :614-947): read
+one profiler capture (obs/profile.py's spool: a torch.profiler Chrome
+trace and its meta.json; a JAX capture reads the same) and compute the
+device ops that took the most time, the device's busy and idle share
+in the capture window, the host gaps between device ops, and, with the
+sidecar meta and a live StepClock, each step's device busy. The same
+JAX-format trace gives the same dict in both packages; a Kineto trace
+is read by its categories (see analyze). CLI: `python -m
+dnn_tpu_torch.obs timeline PATH`.
 """
 
 from __future__ import annotations
 
+import glob
+import gzip
+import json
+import os
 import threading
 import time
 import weakref
@@ -54,7 +65,9 @@ from typing import Dict, List, Optional
 from dnn_tpu_torch import obs as _obs
 from dnn_tpu_torch.utils.metrics import labeled
 
-__all__ = ["StepClock", "PHASES", "STEP_BUCKETS", "active_clock"]
+__all__ = ["StepClock", "PHASES", "STEP_BUCKETS", "analyze",
+           "active_clock", "render_report", "find_trace_file",
+           "find_meta"]
 
 #: phase names, in within-step order (admit precedes the step proper)
 PHASES = ("admit", "host", "dispatch", "wait", "commit", "obs")
@@ -558,3 +571,371 @@ def active_clock() -> Optional[StepClock]:
         return None
     return ref()
 
+
+# ----------------------------------------------------------------------
+# capture analysis: the device half of the attribution
+# ----------------------------------------------------------------------
+
+#: host-gap histogram bounds (seconds between consecutive device ops)
+GAP_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3,
+               5e-3, 0.01, 0.05, 0.25)
+
+#: Kineto's device-activity categories (CUPTI records); a replayed CUDA
+#: graph's kernel nodes arrive as `kernel` events each
+_KINETO_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: Kineto categories that are never device ops, whatever track they sit
+#: on: the record_function ranges mirrored onto the GPU track
+_KINETO_HOST_CATS = ("gpu_user_annotation",)
+
+
+def _merge(intervals: List[tuple]) -> List[tuple]:
+    """Union of [t0, t1) intervals, sorted."""
+    out: List[tuple] = []
+    for t0, t1 in sorted(intervals):
+        if out and t0 <= out[-1][1]:
+            if t1 > out[-1][1]:
+                out[-1] = (out[-1][0], t1)
+        else:
+            out.append((t0, t1))
+    return out
+
+
+def _load_trace(path: str) -> dict:
+    """One Perfetto/Chrome trace JSON, possibly gzipped. ValueError
+    with a plain message for anything that is not one — a truncated
+    spool or a stray file must fail loud, not half-parse."""
+    try:
+        if path.endswith(".gz"):
+            with gzip.open(path, "rt") as f:
+                data = json.load(f)
+        else:
+            with open(path, "r") as f:
+                data = json.load(f)
+    except (OSError, EOFError, gzip.BadGzipFile, json.JSONDecodeError,
+            UnicodeDecodeError) as e:
+        raise ValueError(f"not a readable Perfetto JSON trace: {path} "
+                         f"({e})") from None
+    if isinstance(data, list):  # chrome's bare-array form
+        data = {"traceEvents": data}
+    if not isinstance(data, dict) or not isinstance(
+            data.get("traceEvents"), list):
+        raise ValueError(f"no traceEvents array in {path}")
+    return data
+
+
+def find_trace_file(path: str) -> str:
+    """Resolve a capture DIR (obs/profile.py's spool layout, or JAX's
+    plugins/profile/<run>/ layout) or a direct trace-JSON path to the
+    trace file to analyze (newest when several). torch.profiler's
+    export_chrome_trace writes plain `.json`; the sidecar meta.json is
+    never taken for a trace."""
+    if os.path.isdir(path):
+        hits = sorted(
+            glob.glob(os.path.join(path, "plugins", "profile", "*",
+                                   "*.trace.json.gz"))
+            or glob.glob(os.path.join(path, "*.trace.json.gz"))
+            or glob.glob(os.path.join(path, "*.trace.json"))
+            or glob.glob(os.path.join(path, "*.json.gz"))
+            or [h for h in glob.glob(os.path.join(path, "*.json"))
+                if os.path.basename(h) != "meta.json"])
+        if not hits:
+            raise ValueError(f"no trace json found under {path}")
+        return hits[-1]
+    return path
+
+
+def find_meta(path: str) -> Optional[dict]:
+    """The sidecar meta.json for a capture (profile.py writes it at the
+    capture root; a trace FILE lives a few levels below it)."""
+    d = path if os.path.isdir(path) else os.path.dirname(path)
+    for _ in range(4):
+        cand = os.path.join(d, "meta.json")
+        if os.path.isfile(cand):
+            try:
+                with open(cand) as f:
+                    return json.load(f)
+            except (OSError, json.JSONDecodeError):
+                return None
+        parent = os.path.dirname(d)
+        if parent == d:
+            break
+        d = parent
+    return None
+
+
+def analyze(path: str, *, clock: Optional[StepClock] = None,
+            meta: Optional[dict] = None, top_k: int = 10) -> dict:
+    """Structured numbers out of one device capture.
+
+    `path` is a capture dir (POST /profilez's return) or a trace JSON
+    (.json / .json.gz). Returns:
+
+      window_s            capture window (first event start to last end)
+      tracks              per-(process/thread) busy seconds + fraction
+      device              busy/idle fraction of the union of DEVICE ops:
+                          in a torch.profiler (Kineto) trace the events
+                          of category kernel, gpu_memcpy and gpu_memset
+                          (never gpu_user_annotation: Kineto mirrors
+                          each record_function range onto the GPU
+                          track, and those ranges span kernels); in a
+                          JAX trace the events carrying an hlo_op arg,
+                          or any event on a "/device:*" process
+      host_gaps           histogram of the gaps between consecutive
+                          device ops — each gap is host serialization
+                          the device sat idle through
+      top_ops             top-K op names by summed device time
+      steps               StepClock correlation when a sidecar meta
+                          (and optionally a live clock) places the
+                          capture on the step axis: steps in window,
+                          per-step device busy, device-overlap fraction
+
+    Stdlib only; tolerant of the capture's host-side noise (the
+    profiler's own start_trace span, threadpool markers, Kineto's ac2g
+    flow events and cuda_runtime launches, which are host-side). The
+    window anchors at the end of the first event whose name holds
+    "start_trace": obs/profile.START_MARKER in the port's captures,
+    jax.profiler's own span in JAX's."""
+    trace_file = find_trace_file(path)
+    data = _load_trace(trace_file)
+    if meta is None:
+        meta = find_meta(path)
+
+    proc_names: Dict[int, str] = {}
+    thread_names: Dict[tuple, str] = {}
+    xs = []
+    for e in data["traceEvents"]:
+        ph = e.get("ph")
+        if ph == "M":
+            args = e.get("args") or {}
+            if e.get("name") == "process_name":
+                proc_names[e.get("pid")] = str(args.get("name", ""))
+            elif e.get("name") == "thread_name":
+                thread_names[(e.get("pid"), e.get("tid"))] = str(
+                    args.get("name", ""))
+        elif ph == "X":
+            xs.append(e)
+    if not xs:
+        raise ValueError(f"trace has no complete (ph=X) events: "
+                         f"{trace_file}")
+
+    def _num(e, k):
+        v = e.get(k, 0.0)
+        return float(v) if isinstance(v, (int, float)) else 0.0
+
+    t_min = min(_num(e, "ts") for e in xs)
+    t_max = max(_num(e, "ts") + _num(e, "dur") for e in xs)
+
+    # ts-axis anchor for StepClock correlation: the trace's ts 0 is the
+    # profiler SESSION start (start_trace entry), but the sidecar meta's
+    # perf_begin lands at start_trace RETURN — a first capture pays
+    # seconds of profiler init in between. The host track records that
+    # init as a "start_trace" span; its END is where perf_begin sits on
+    # the ts axis. Synthetic/processed traces without one anchor at 0.
+    anchor = 0.0
+    for e in xs:
+        if "start_trace" in str(e.get("name", "")):
+            anchor = _num(e, "ts") + _num(e, "dur")
+            break
+
+    # analysis window: the ARMED capture window (meta perf bounds,
+    # anchored) when available — a first capture's init seconds must
+    # not read as device idle — else the events' own span
+    w0, w1 = t_min, t_max
+    if meta is not None and isinstance(meta.get("perf_begin"),
+                                       (int, float)) \
+            and isinstance(meta.get("perf_end"), (int, float)):
+        w0 = anchor
+        w1 = anchor + (meta["perf_end"] - meta["perf_begin"]) * 1e6
+    window_s = max(w1 - w0, 1e-9) / 1e6
+
+    def _clipped_busy(merged) -> float:
+        return sum(max(0.0, min(t1, w1) - max(t0, w0))
+                   for t0, t1 in merged) / 1e6
+
+    by_track: Dict[tuple, list] = {}
+    device_ops: list = []
+    for e in xs:
+        key = (e.get("pid"), e.get("tid"))
+        by_track.setdefault(key, []).append(e)
+        args = e.get("args") or {}
+        pname = proc_names.get(e.get("pid"), "")
+        cat = e.get("cat")
+        if cat in _KINETO_DEVICE_CATS:
+            device_ops.append(e)
+        elif cat in _KINETO_HOST_CATS:
+            pass
+        elif "hlo_op" in args or "/device:" in pname \
+                or pname.startswith("/device"):
+            # skip the CPU runtime's zero-width threadpool markers —
+            # they carry no hlo_op but would otherwise ride a /device
+            # pid on some backends
+            if _num(e, "dur") > 0.0 or "hlo_op" in args:
+                device_ops.append(e)
+
+    tracks = {}
+    for (pid, tid), evs in sorted(by_track.items(),
+                                  key=lambda kv: str(kv[0])):
+        merged = _merge([(_num(e, "ts"), _num(e, "ts") + _num(e, "dur"))
+                         for e in evs])
+        busy = _clipped_busy(merged)
+        name = (proc_names.get(pid, str(pid)) + "/"
+                + thread_names.get((pid, tid), str(tid)))
+        tracks[name] = {"events": len(evs),
+                        "busy_s": round(busy, 6),
+                        "busy_frac": round(busy / window_s, 4)}
+
+    dev_ivals = _merge([(_num(e, "ts"), _num(e, "ts") + _num(e, "dur"))
+                        for e in device_ops])
+    dev_busy_s = _clipped_busy(dev_ivals)
+    device = {
+        "ops": len(device_ops),
+        "busy_s": round(dev_busy_s, 6),
+        "busy_frac": round(dev_busy_s / window_s, 4),
+        "idle_frac": round(1.0 - dev_busy_s / window_s, 4),
+    }
+
+    gaps = [(t0 - prev_t1) / 1e6
+            for (_, prev_t1), (t0, _) in zip(dev_ivals, dev_ivals[1:])
+            if t0 > prev_t1]
+    gap_hist: Dict[str, int] = {}
+    for b in GAP_BUCKETS:
+        gap_hist[f"le_{b:g}"] = sum(1 for g in gaps if g <= b)
+    gap_hist["inf"] = len(gaps)
+    gaps_sorted = sorted(gaps)
+
+    def _pct(q):
+        if not gaps_sorted:
+            return 0.0
+        k = min(len(gaps_sorted) - 1,
+                int(round(q / 100.0 * (len(gaps_sorted) - 1))))
+        return gaps_sorted[k]
+
+    host_gaps = {
+        "count": len(gaps),
+        "total_s": round(sum(gaps), 6),
+        "p50_ms": round(_pct(50) * 1e3, 4),
+        "p90_ms": round(_pct(90) * 1e3, 4),
+        "max_ms": round((gaps_sorted[-1] if gaps_sorted else 0.0) * 1e3,
+                        4),
+        "hist": gap_hist,
+    }
+
+    by_op: Dict[str, list] = {}
+    for e in device_ops:
+        by_op.setdefault(str(e.get("name", "?")), [0.0, 0])
+        rec = by_op[str(e.get("name", "?"))]
+        rec[0] += _num(e, "dur") / 1e6
+        rec[1] += 1
+    top_ops = [{"name": n, "total_ms": round(s * 1e3, 4), "count": c,
+                "frac_of_device": round(s / dev_busy_s, 4)
+                if dev_busy_s > 0 else 0.0}
+               for n, (s, c) in sorted(by_op.items(),
+                                       key=lambda kv: -kv[1][0])[:top_k]]
+
+    steps = None
+    if meta is not None:
+        steps = {
+            "backend": meta.get("backend"),
+            "step_begin": meta.get("step_begin"),
+            "step_end": meta.get("step_end"),
+            "steps_in_capture": None,
+            "aligned": False,
+        }
+        sb, se = meta.get("step_begin"), meta.get("step_end")
+        if isinstance(sb, int) and isinstance(se, int):
+            steps["steps_in_capture"] = se - sb
+        pb = meta.get("perf_begin")
+        if clock is None:
+            clock = active_clock()
+        if clock is not None and isinstance(pb, (int, float)):
+            pe = meta.get("perf_end", float("inf"))
+
+            def _ivals(r):
+                # a record's PHYSICAL extent: its admit slices (which
+                # happened before t0 — submit runs between steps) plus
+                # the in-step span; wall is the summed length of these
+                admit_s = sum(t1 - t0 for t0, t1 in r["admit_slices"])
+                return list(r["admit_slices"]) + [
+                    (r["t0"], r["t0"] + (r["wall"] - admit_s))]
+
+            recs = [r for r in clock.records()
+                    if all(pb <= a and b <= pe for a, b in _ivals(r))]
+            if recs:
+                # map each step's perf intervals onto the capture's ts
+                # axis (perf_begin sits at `anchor`) and intersect with
+                # the merged device intervals: per-step device busy
+                per_step = []
+                for r in recs:
+                    busy = 0.0
+                    for ia, ib in _ivals(r):
+                        a = (ia - pb) * 1e6 + anchor
+                        b = (ib - pb) * 1e6 + anchor
+                        busy += sum(max(0.0, min(b, t1) - max(a, t0))
+                                    for t0, t1 in dev_ivals)
+                    per_step.append((r["wall"], busy / 1e6))
+                wall_sum = sum(w for w, _ in per_step)
+                busy_sum = sum(b for _, b in per_step)
+                steps.update({
+                    "aligned": True,
+                    "n_steps": len(per_step),
+                    "mean_wall_ms": round(wall_sum / len(per_step) * 1e3,
+                                          4),
+                    "mean_device_busy_ms": round(
+                        busy_sum / len(per_step) * 1e3, 4),
+                    "device_overlap_frac": round(busy_sum / wall_sum, 4)
+                    if wall_sum > 0 else 0.0,
+                })
+
+    return {
+        "trace_file": trace_file,
+        "window_s": round(window_s, 6),
+        "events": len(xs),
+        "tracks": tracks,
+        "device": device,
+        "host_gaps": host_gaps,
+        "top_ops": top_ops,
+        "steps": steps,
+    }
+
+
+def render_report(a: dict) -> str:
+    """Human-readable one-capture report (the CLI's default output)."""
+    lines = [f"capture: {a['trace_file']}",
+             f"window: {a['window_s'] * 1e3:.2f} ms, "
+             f"{a['events']} events",
+             f"device: busy {a['device']['busy_frac']:.1%} / idle "
+             f"{a['device']['idle_frac']:.1%} "
+             f"({a['device']['ops']} ops, "
+             f"{a['device']['busy_s'] * 1e3:.2f} ms)",
+             f"host gaps between device ops: {a['host_gaps']['count']} "
+             f"(total {a['host_gaps']['total_s'] * 1e3:.2f} ms, "
+             f"p50 {a['host_gaps']['p50_ms']:.3f} ms, "
+             f"p90 {a['host_gaps']['p90_ms']:.3f} ms, "
+             f"max {a['host_gaps']['max_ms']:.3f} ms)"]
+    if a["top_ops"]:
+        lines.append("top device ops:")
+        for op in a["top_ops"]:
+            lines.append(f"  {op['total_ms']:10.3f} ms  "
+                         f"{op['frac_of_device']:6.1%}  x{op['count']:<5d}"
+                         f" {op['name']}")
+    st = a.get("steps")
+    if st:
+        if st.get("aligned"):
+            lines.append(
+                f"steps: {st['n_steps']} aligned to the capture — mean "
+                f"wall {st['mean_wall_ms']:.3f} ms, device busy "
+                f"{st['mean_device_busy_ms']:.3f} ms/step (overlap "
+                f"{st['device_overlap_frac']:.1%})")
+        elif st.get("steps_in_capture") is not None:
+            lines.append(f"steps: {st['steps_in_capture']} in capture "
+                         f"(counter {st['step_begin']}..{st['step_end']},"
+                         f" backend {st.get('backend')}); none aligned "
+                         "(no step records inside the window, or no "
+                         "live clock)")
+    lines.append("tracks:")
+    for name, t in sorted(a["tracks"].items(),
+                          key=lambda kv: -kv[1]["busy_s"]):
+        lines.append(f"  {t['busy_frac']:6.1%} busy "
+                     f"({t['busy_s'] * 1e3:9.2f} ms, {t['events']:6d} ev)"
+                     f"  {name}")
+    return "\n".join(lines)

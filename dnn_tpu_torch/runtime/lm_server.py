@@ -102,8 +102,10 @@ observability it reports through (obs/, utils/metrics.py):
     (obs.continue_or_start), with queue_wait, admit, prefill,
     prefill_chunk and decode spans under it; the batcher carries a step
     clock (/stepz) and a goodput tracker (dnn_tpu_mfu, dnn_tpu_mbu,
-    goodput tokens/sec and, with `slo`, SLO burn rates). /profilez is
-    ROADMAP Queue 1 item 12's second half.
+    goodput tokens/sec and, with `slo`, SLO burn rates); /profilez
+    captures the process on demand, and its auto trigger captures the
+    pool step after one over a threshold (obs/profile.py, JAX
+    lm_server.py:597-625); /kvz serves the radix store's KVLens.
 """
 
 from __future__ import annotations
@@ -268,6 +270,10 @@ class _BatcherWorker(threading.Thread):
         self.goodput = None  # obs/goodput.GoodputTracker: the TTFT feed
         self.tick = None  # housekeeping, called once a loop (rate-limited
         # by itself)
+        # the auto-profile arm (POST /profilez?auto=1): one None check a
+        # step while disarmed
+        self.auto_profile = None
+        self._profile_hit = False
 
     def submit(self, prompt, max_new: int, seed, *, opts=None,
                on_token=None, cancel_evt=None,
@@ -565,10 +571,53 @@ class _BatcherWorker(threading.Thread):
                 held.fut.cancel()
 
     def _step_pool(self, b):
-        """One pool step. The chaos seam fires first: before the step
-        dispatches, so never inside a graph capture."""
+        """One pool step, with the auto-profile arm folded in (JAX
+        lm_server.py:597-625): disarmed, one None check around b.step().
+        Armed, each step is timed; the step after the first one over the
+        threshold runs inside a profiler capture (obs/profile.py) and
+        disarms. A breaching step that captured a new CUDA graph does not
+        count: the capture waits for a step that replays its graphs, so
+        the trace shows the served step and never a graph capture under
+        CUPTI. The chaos seam fires first: before the step dispatches,
+        so never inside a graph capture."""
         _chaos_inject.step_fault()
-        return b.step()
+        ap = self.auto_profile
+        if ap is None:
+            self._profile_hit = False
+            return b.step()
+        if self._profile_hit:
+            from dnn_tpu_torch.obs.profile import (
+                CaptureFailed,
+                ProfilerBusy,
+                capture_step,
+            )
+
+            self.auto_profile = None
+            self._profile_hit = False
+            try:
+                path, stepped = capture_step(
+                    b.step, capture_root=ap.get("capture_root"),
+                    keep=ap.get("keep", 8), extra_s=ap.get("extra_s", 0.0))
+            except ProfilerBusy as e:
+                # the arm is spent and the step runs uncaptured; the
+                # miss is on /debugz and in the log
+                obs.flight.record("profile_capture_busy", error=str(e))
+                log.warning("auto-profile skipped: %s", e)
+                return b.step()
+            except CaptureFailed as e:
+                log.error("auto-profile capture failed: %s", e)
+                return e.result if e.ran else b.step()
+            log.info("auto-profile captured slow-step follow-up to %s",
+                     path)
+            return stepped
+        g = getattr(b, "_graph_step", None)
+        n_cap = g.captures if g is not None else 0
+        t0 = time.perf_counter()
+        stepped = b.step()
+        if (time.perf_counter() - t0 > ap["threshold_s"]
+                and (g is None or g.captures == n_cap)):
+            self._profile_hit = True
+        return stepped
 
     def _died(self, e: Exception):
         """A step raised: hand the survivors to on_death, or fail every
@@ -816,6 +865,8 @@ class LMServer:
         self.worker.start()
         try:
             if metrics_port is not None:
+                from dnn_tpu_torch.obs.profile import Profiler
+
                 # /healthz: the worker alive and not draining, then the
                 # watchdog's ok|degraded|wedged through /statusz
                 self.metrics_server = obs.serve_metrics(
@@ -823,7 +874,9 @@ class LMServer:
                     healthy=lambda: (self.worker.is_alive()
                                      and not self._draining),
                     status=self._statusz, drain=self._drainz,
-                    device=self.batcher.device, stepclock=self.step_clock)
+                    device=self.batcher.device, stepclock=self.step_clock,
+                    profiler=Profiler(arm_target=self),
+                    kvlens=getattr(self.batcher, "_kvlens", None))
             if watchdog:
                 self._start_watchdog(watchdog)
         except BaseException:
@@ -859,6 +912,16 @@ class LMServer:
         if goodput:
             self.goodput = goodput.install()
             self.batcher.goodput = self.goodput
+
+    @property
+    def auto_profile(self):
+        """POST /profilez?auto=1's arm state: the worker's (JAX
+        lm_server.py:1047-1055)."""
+        return self.worker.auto_profile
+
+    @auto_profile.setter
+    def auto_profile(self, value):
+        self.worker.auto_profile = value
 
     def _spawn_worker(self) -> _BatcherWorker:
         """A batcher worker wired to this server: at construction and by

@@ -164,6 +164,7 @@ import torch
 
 from dnn_tpu_torch import obs, resolve_device
 from dnn_tpu_torch.obs.compile_watch import note_capture
+from dnn_tpu_torch.obs.profile import annotation_ctx as _prof_annotation
 from dnn_tpu_torch.control.handoff import (
     HandoffFormatError,
     as_tensor,
@@ -755,9 +756,9 @@ class ContinuousBatcher:
         self.results: Dict[int, np.ndarray] = {}
         self.finish_reasons: Dict[int, str] = {}
         self.token_logprobs: Dict[int, dict] = {}
-        self._init_obs()
+        self._init_obs(seed)
 
-    def _init_obs(self):
+    def _init_obs(self, seed: int = 0):
         """Observability state (JAX serving.py:574-657), host mirrors
         only: nothing here reads the card. `goodput`
         (obs/goodput.GoodputTracker) and `step_clock`
@@ -803,6 +804,27 @@ class ContinuousBatcher:
                 "serving.paged_blocks_free": gauge("_paged_free_read"),
                 "serving.paged_blocks_high_water": gauge("_paged_hw_read"),
             })
+        # the memory-economy observatory (obs/kvlens.py, JAX
+        # serving.py:722-752): reuse-distance sampling, the hit-ratio
+        # curve and block-lifetime forensics over the radix store.
+        # Attached only when the obs gate is on at construction (a
+        # gate-off pool pays one `lens is not None` test a store hook);
+        # the lens re-checks the gate on every call
+        self._kvlens = None
+        if self._prefix_store is not None and obs.enabled():
+            from dnn_tpu_torch.obs.kvlens import KVLens
+
+            n_blocks = self.allocator.n_blocks
+            # the curve's axis is the EFFECTIVE pool: the allocator
+            # (less its reserved null block) may hold fewer blocks than
+            # the prefix_cache knob, and it is what bounds residency
+            self._kvlens = KVLens(
+                min(self._prefix_cap, n_blocks - 1), self._block_len,
+                seed=seed,
+                bytes_per_block=int(self._kv_bytes_read()) // max(
+                    1, n_blocks))
+            self._prefix_store.lens = self._kvlens
+            self._obs_gauges.update(self._kvlens.prom_gauges())
 
     #: step-obs batching cadence (StepClock.FLUSH_EVERY, goodput's
     #: _FLUSH_STEPS: the same number)
@@ -1332,7 +1354,8 @@ class ContinuousBatcher:
         if kv_hit is not None and (n_shared or cow_tok):
             self._prefix_store.note_reuse(
                 n_shared + (1 if cow_tok > 0 else 0),
-                kv_hit.remote_used(n_shared, cow_tok > 0))
+                kv_hit.remote_used(n_shared, cow_tok > 0),
+                cow=cow_tok > 0)
         return taken, n_shared, cow_tok
 
     @torch.no_grad()
@@ -1343,6 +1366,7 @@ class ContinuousBatcher:
         inline. `adm` parents the "prefill" span (host time: the chunks'
         launches, the finish, and the first token's readback)."""
         chunks_before = self.prefill_chunks_run
+        t_pf = time.perf_counter()
         sp = adm.child("prefill", prompt_len=len(prompt))
         if prefilled is not None:
             last = self._adopt_prefilled(prefilled, prompt)
@@ -1369,10 +1393,21 @@ class ContinuousBatcher:
         host = _Readback([first] + list(lp)).wait()
         first = int(host[0][0])  # the admission's one device -> host sync
         sp.end(chunks=self.prefill_chunks_run - chunks_before)
-        if obs.metrics() is not None:
+        if (m := obs.metrics()) is not None:
             req["t_last"] = time.perf_counter()  # the inter-token clock
+            # the pool's scrape-time gauges (the kvlens curve among them)
+            # register on admission too, as JAX's prefill bulk does: a
+            # pool that has only prefilled still shows them on /metrics
+            m.bulk(gauge_fns=self._obs_gauges)
             if (g := self.goodput) is not None:
                 g.on_prefill(len(prompt))
+            if self._kvlens is not None:
+                # the thrash detector's price: what one prefill chunk
+                # costs here now (an evict -> refetch bills this EMA per
+                # re-run chunk)
+                self._kvlens.note_prefill(
+                    self.prefill_chunks_run - chunks_before,
+                    time.perf_counter() - t_pf)
         self.tok[slot] = first
         req["emitted"].append(first)
         if req["logprobs"]:
@@ -1436,9 +1471,10 @@ class ContinuousBatcher:
         logits = None
         for c in range(start_chunk, n_chunks):
             c_sp = span.child("prefill_chunk", chunk=c)
-            logits = self.family.prefill(
-                self._row_view, padded_d[:, c * p_pad:(c + 1) * p_pad],
-                self._row, c * p_pad)
+            with _prof_annotation("serving.prefill_chunk"):
+                logits = self.family.prefill(
+                    self._row_view, padded_d[:, c * p_pad:(c + 1) * p_pad],
+                    self._row, c * p_pad)
             c_sp.end()
             self._chunk_ran()
             if self._prefix_cache is not None \
@@ -1486,9 +1522,10 @@ class ContinuousBatcher:
         for i in range(n_k):
             start = resume + i * p_pad
             c_sp = span.child("prefill_chunk", chunk=start // p_pad)
-            logits = self.family.prefill(
-                self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
-                self._row, start)
+            with _prof_annotation("serving.prefill_chunk"):
+                logits = self.family.prefill(
+                    self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
+                    self._row, start)
             c_sp.end()
             self._chunk_ran()
             for b in range(start // bp, p_len // bp):
@@ -1632,9 +1669,10 @@ class ContinuousBatcher:
         row = self._export_row()
         logits = None
         for c in range(n_chunks):
-            logits = self.family.prefill(
-                self.prepared, padded_d[:, c * p_pad:(c + 1) * p_pad], row,
-                c * p_pad)
+            with _prof_annotation("serving.prefill_chunk"):
+                logits = self.family.prefill(
+                    self.prepared, padded_d[:, c * p_pad:(c + 1) * p_pad],
+                    row, c * p_pad)
             self._chunk_ran()
         end = n_chunks * p_pad
         for kk, leaf in row.items():
@@ -1829,6 +1867,11 @@ class ContinuousBatcher:
             self.allocator.free(owned + have_ids)
         if (m := obs.metrics()) is not None:
             m.inc("serving.kvtier_blocks_adopted_total", n_missing)
+        if self._kvlens is not None:
+            # migration forensics: blocks that crossed the wire, priced
+            # in payload bytes when the transport recorded them
+            self._kvlens.on_migrate(
+                n_missing, int(payload.get("_wire_bytes") or 0))
         return n_missing
 
     @torch.no_grad()
@@ -1855,6 +1898,7 @@ class ContinuousBatcher:
         if shared_ids:
             self.allocator.ref(shared_ids)
         owned = []
+        t_pf = time.perf_counter()
         try:
             owned = self._alloc_evicting(n_cover - n_shared)
             ids_row = np.zeros((self.cache["tables"].shape[-1],), np.int32)
@@ -1872,9 +1916,11 @@ class ContinuousBatcher:
             boundary = {}
             for i in range(n_k):
                 start = resume + i * p_pad
-                logits = self.family.prefill(
-                    self.prepared, padded_d[:, i * p_pad:(i + 1) * p_pad],
-                    self._row, start)
+                with _prof_annotation("serving.prefill_chunk"):
+                    logits = self.family.prefill(
+                        self.prepared,
+                        padded_d[:, i * p_pad:(i + 1) * p_pad], self._row,
+                        start)
                 self._chunk_ran()
                 for b in range(start // bp, n_cover):
                     pos = (b + 1) * bp - 1
@@ -1889,6 +1935,8 @@ class ContinuousBatcher:
             self._prefix_store.insert(prompt[:end],
                                       [int(x) for x in ids_row[:n_cover]],
                                       logit_rows=boundary)
+            if self._kvlens is not None:
+                self._kvlens.note_prefill(n_k, time.perf_counter() - t_pf)
             stats.update(staged_blocks=n_cover - n_shared,
                          computed_chunks=n_k)
             return stats
@@ -2016,7 +2064,7 @@ class ContinuousBatcher:
         reference counts). `cause` labels the eviction ("capacity":
         admission pressure)."""
         if self._prefix_store is not None:
-            if not self._prefix_store.evict_one():
+            if not self._prefix_store.evict_one(cause=cause):
                 return
             left = self._prefix_store.n_blocks
         else:
@@ -2253,21 +2301,25 @@ class ContinuousBatcher:
             rec.marks.append(("host", time.perf_counter()))
         if ilv is not None and ilv["req"].get("trace"):
             ilv["t0"] = time.perf_counter()
-        if ilv is None:
-            logits = (g(self._decode, *state) if g is not None
-                      else self._decode(*state))
-        else:
-            n = self._ilv
-            self._chunk_d.copy_(ilv["p"]["padded"][:, ilv["c"] * n:
-                                                   (ilv["c"] + 1) * n])
-            self._start_d.fill_(ilv["c"] * n)
-            self._select_row_adapter(ilv["req"]["aid"])
-            args = (self._row, self._chunk_d, self._start_d)
-            logits, pf_logits = (
-                g.mixed(self._mixed, self.cache, self._row, *state[1:],
-                        *args[1:])
-                if g is not None else self._mixed(*state, *args))
-        nxt, lp = self._sample_step(logits)
+        # a capture (obs/profile.py) shows each pool step as a named
+        # range on the worker's host track; a shared nullcontext while
+        # no capture records
+        with _prof_annotation("serving.decode_step"):
+            if ilv is None:
+                logits = (g(self._decode, *state) if g is not None
+                          else self._decode(*state))
+            else:
+                n = self._ilv
+                self._chunk_d.copy_(ilv["p"]["padded"][:, ilv["c"] * n:
+                                                       (ilv["c"] + 1) * n])
+                self._start_d.fill_(ilv["c"] * n)
+                self._select_row_adapter(ilv["req"]["aid"])
+                args = (self._row, self._chunk_d, self._start_d)
+                logits, pf_logits = (
+                    g.mixed(self._mixed, self.cache, self._row, *state[1:],
+                            *args[1:])
+                    if g is not None else self._mixed(*state, *args))
+            nxt, lp = self._sample_step(logits)
         self.pos[self.active] += 1
         s_idx = self._step_idx
         self._step_idx += 1

@@ -15,25 +15,32 @@ returns `(params, opt_state, loss)` so callers read like the JAX ones:
     prepared, opt_state, loss = step(prepared, opt_state, batch)
 
 Batches are moved to the step's device (CUDA unless `device` says
-otherwise; no card and no `device` raises). The sharded, ZeRO, FSDP and
-pipeline steps, and the trainlens/chaos hooks of `fit`, stay queued
-(ROADMAP Queue 1 items 10-12).
+otherwise; no card and no `device` raises). `make_train_step(
+grad_stats=True)` adds the gradient-health 3-vector the trainlens
+sentinel reads, and `fit` takes JAX's trainlens clock and sentinel and
+consults the chaos `train_fault` seam in its data phase. The sharded,
+ZeRO, FSDP and pipeline steps stay queued (ROADMAP Queue 1 items 10-11).
 """
 
 from __future__ import annotations
 
 import math
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from dnn_tpu_torch import resolve_device
+from dnn_tpu_torch import obs, resolve_device
+from dnn_tpu_torch.chaos import inject as _chaos
 from dnn_tpu_torch.io.train_ckpt import (
+    checkpoint_path,
     cleanup_old_checkpoints,
     restore_train_state,
     save_train_state,
 )
+from dnn_tpu_torch.obs import trainlens as _trainlens
 from dnn_tpu_torch.optim import tree_leaves
 
 
@@ -155,6 +162,70 @@ def evaluate(apply_fn: Callable, params, batch_iter, *,
             "tokens": int(tokens)}
 
 
+def _sq_norm(tensors):
+    """The sum of squares of a list of tensors, accumulated in float64 on
+    their device (0. for an empty list): a sequential f32 sum over 10^5
+    like-sized squares (an adam update's first step) drifts by ~1e-5,
+    where JAX's tree reductions do not."""
+    if not tensors:
+        return torch.zeros((), dtype=torch.float64)
+    norms = torch._foreach_norm(tensors, 2, dtype=torch.float64)
+    return torch.stack(norms).square().sum()
+
+
+class _HealthStats:
+    """The gradient-health 3-vector JAX's `_health_stats` returns
+    (dnn_tpu/train.py:175-193): [global grad-norm, ||update|| / ||params
+    before the update||, nonfinite grad count], one f32 tensor on the
+    step's device. The optimizer updates the leaves in place, so the
+    update is taken as the difference against a copy of the leaves made
+    just before `opt_state.step()` (one persistent buffer of the
+    parameters' size, reused every step). Nothing is read back here:
+    fit's sentinel reads the vector once a step."""
+
+    def __init__(self):
+        self._old = None
+
+    @torch.no_grad()
+    def before(self, leaves):
+        grads = [p.grad for p in leaves if p.grad is not None]
+        gsq = _sq_norm(grads)
+        nonfinite = torch.zeros((), dtype=torch.float64, device=gsq.device)
+        for g in grads:
+            nonfinite = nonfinite + (~torch.isfinite(g)).sum()
+        psq = _sq_norm(leaves)
+        if self._old is None:
+            self._old = [torch.empty_like(p) for p in leaves]
+        torch._foreach_copy_(self._old, leaves)
+        return gsq, psq, nonfinite
+
+    @torch.no_grad()
+    def after(self, leaves, gsq, psq, nonfinite):
+        torch._foreach_sub_(self._old, leaves)
+        usq = _sq_norm(self._old)
+        return torch.stack([gsq.sqrt(),
+                            usq.sqrt() / psq.sqrt().clamp(min=1e-12),
+                            nonfinite]).float()
+
+
+def poison_batch(batch):
+    """NaN-poison every float leaf of a batch (a tensor or numpy array,
+    or a dict / list / tuple of them): int token batches cannot hold a
+    NaN, so the chaos train_fault's nan mode acts on float inputs only
+    (JAX's :196)."""
+    if isinstance(batch, dict):
+        return {k: poison_batch(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(poison_batch(v) for v in batch)
+    if isinstance(batch, torch.Tensor):
+        return (torch.full_like(batch, float("nan"))
+                if batch.is_floating_point() else batch)
+    if isinstance(batch, np.ndarray) and np.issubdtype(batch.dtype,
+                                                       np.floating):
+        return np.full_like(batch, np.nan)
+    return batch
+
+
 def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                     grad_stats: bool = False, device=None):
     """(params, opt_state, batch) -> (params, opt_state, loss) (JAX's
@@ -167,17 +238,19 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
     `accum_steps > 1` splits the batch's leading axis into that many
     microbatches, sums their gradients and applies their mean, as JAX's
     scan does: exact against the full batch when the loss is a uniform
-    mean over examples."""
+    mean over examples.
+
+    `grad_stats=True` adds the gradient-health 3-vector as a 4th output,
+    (params, opt_state, loss, stats): [global grad-norm, update/param
+    norm ratio, nonfinite grad count] as one f32 tensor (_HealthStats),
+    what trainlens.GradSentinel observes."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if grad_stats:
-        raise NotImplementedError(
-            "grad_stats (the trainlens gradient-health leg) is not ported "
-            "to dnn_tpu_torch yet (ROADMAP Queue 1 items 11/12)")
     if not hasattr(optimizer, "init"):
         raise TypeError(f"optimizer must be a dnn_tpu_torch.optim factory, "
                         f"got {optimizer!r}")
     dev = resolve_device(device)
+    health = _HealthStats() if grad_stats else None
 
     def step(params, opt_state, batch):
         batch = to_device(batch, dev)
@@ -205,8 +278,13 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                 if leaf.grad is not None:
                     leaf.grad.mul_(scale)
             loss = loss * scale
+        if health is None:
+            opt_state.step()
+            return params, opt_state, loss
+        leaves = tree_leaves(params)
+        pre = health.before(leaves)
         opt_state.step()
-        return params, opt_state, loss
+        return params, opt_state, loss, health.after(leaves, *pre)
 
     return step
 
@@ -229,21 +307,37 @@ def _map_split(split, batch, n):
 def resume_or_init(ckpt_dir: Optional[str], init_state):
     """Resume from the newest checkpoint under `ckpt_dir` into
     `init_state` (in place: see io/train_ckpt.restore_train_state), or
-    start fresh. Returns (state, start_step)."""
+    start fresh. Returns (state, start_step). A restore is a
+    `ckpt_restored` flight event and feeds the active TrainClock's
+    checkpoint freshness (trainlens.note_ckpt_restored, JAX's :606)."""
     if ckpt_dir:
+        t0 = time.perf_counter()
         try:
-            return restore_train_state(ckpt_dir, like=init_state)
+            state, step = restore_train_state(ckpt_dir, like=init_state)
         except FileNotFoundError:
             pass
+        else:
+            _trainlens.note_ckpt_restored(step, time.perf_counter() - t0,
+                                          _ckpt_nbytes(ckpt_dir, step))
+            return state, step
     return init_state, 0
 
 
-def _sync(loss):
-    """Wait for the step whose loss this is (the JAX loop's
+def _ckpt_nbytes(ckpt_dir: str, step: int) -> int:
+    """Size of the checkpoint file of `step` (0 when unreadable)."""
+    try:
+        return os.path.getsize(checkpoint_path(ckpt_dir, step))
+    except OSError:
+        return 0
+
+
+def _sync(*outs):
+    """Wait for the step whose outputs these are (the JAX loop's
     block_until_ready): a fault surfaces at its own step."""
-    if isinstance(loss, torch.Tensor) and loss.is_cuda:
-        torch.cuda.synchronize(loss.device)
-    return loss
+    for x in outs:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+            return
 
 
 def fit(step_fn: Callable, state, batch_iter, *, num_steps: int,
@@ -252,19 +346,33 @@ def fit(step_fn: Callable, state, batch_iter, *, num_steps: int,
         on_step: Optional[Callable] = None, advance_batches: bool = True,
         eval_every: int = 0, eval_fn: Optional[Callable] = None,
         clock=None, sentinel=None):
-    """Training loop with periodic checkpointing (JAX's :612).
+    """Training loop with periodic checkpointing, phase-attributed by
+    trainlens (JAX's :612).
 
-    `step_fn(state, batch) -> (state, loss)`; the loop waits for each
-    step's loss before the next. Saves every `ckpt_every` steps into
-    `ckpt_dir` (keeping `keep_checkpoints`); `eval_fn(step, state)` runs
-    every `eval_every` steps; `on_step(step, loss)` after each step. On
-    resume (`start_step > 0`) `advance_batches=True` skips the first
+    `step_fn(state, batch) -> (state, loss)`, or `(state, loss, stats)`
+    for a step built with `grad_stats=True` (the 3-vector feeds the
+    sentinel); the loop waits for each step's outputs before the next.
+    Saves every `ckpt_every` steps into `ckpt_dir` (keeping
+    `keep_checkpoints`); `eval_fn(step, state)` runs every `eval_every`
+    steps; `on_step(step, loss)` after each step. On resume
+    (`start_step > 0`) `advance_batches=True` skips the first
     `start_step` batches so a deterministic pipeline restarted from
-    scratch lines up with the step. Returns (state, last_loss)."""
-    if clock is not None or sentinel is not None:
-        raise NotImplementedError(
-            "fit's trainlens clock and gradient sentinel are not ported to "
-            "dnn_tpu_torch yet (ROADMAP Queue 1 items 11/12)")
+    scratch lines up with the step. Returns (state, last_loss).
+
+    Observability, behind the obs gate as in JAX:
+      * `clock` (a trainlens.TrainClock; default the installed
+        `active_trainlens()`) splits each iteration into data, dispatch,
+        wait, ckpt, eval and obs; "wait" is the wait for the step's
+        outputs on the card;
+      * the first step and every checkpointed step are `train_step`
+        flight events; a save feeds trainlens.note_ckpt_saved;
+      * `sentinel` (a trainlens.GradSentinel) observes each step's loss
+        and stats: grad_spike, loss_nan, train_stall;
+      * the chaos `train_fault` seam is consulted in the data phase:
+        "sleep" stalls the input, "nan" poisons the batch's float
+        leaves (poison_batch)."""
+    if clock is None:
+        clock = _trainlens.active_trainlens()
     if advance_batches:
         for skipped in range(start_step):
             try:
@@ -275,20 +383,56 @@ def fit(step_fn: Callable, state, batch_iter, *, num_steps: int,
                     f"skipping to resume step {start_step}; pass an "
                     "iterator that covers the resume point") from None
     loss = None
+    first = True
     for step in range(start_step, num_steps):
+        rec = clock.begin() if clock is not None else None
         try:
             batch = next(batch_iter)
         except StopIteration:
             raise ValueError(
                 f"batch_iter exhausted at step {step} (wanted {num_steps}); "
                 "pass an infinite iterator or lower num_steps") from None
-        state, loss = step_fn(state, batch)
-        _sync(loss)
+        fault = _chaos.train_fault()
+        if fault is not None:
+            if fault["mode"] == "sleep":
+                time.sleep(fault["delay_s"])
+            elif fault["mode"] == "nan":
+                batch = poison_batch(batch)
+        if rec is not None:
+            clock.mark(rec, "data")
+        out = step_fn(state, batch)
+        stats = None
+        if len(out) == 3:
+            state, loss, stats = out
+        else:
+            state, loss = out
+        if rec is not None:
+            clock.mark(rec, "dispatch")
+        _sync(loss, stats)
+        if rec is not None:
+            clock.mark(rec, "wait")
         if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+            t_ck = time.perf_counter()
             save_train_state(ckpt_dir, step + 1, state)
             cleanup_old_checkpoints(ckpt_dir, keep=keep_checkpoints)
+            _trainlens.note_ckpt_saved(
+                step + 1, time.perf_counter() - t_ck,
+                _ckpt_nbytes(ckpt_dir, step + 1), clock=clock)
+            obs.flight.record("train_step", step=step + 1,
+                              checkpointed=True)
+        if rec is not None:
+            clock.mark(rec, "ckpt")
         if eval_fn is not None and eval_every and (step + 1) % eval_every == 0:
             eval_fn(step + 1, state)
+        if rec is not None:
+            clock.mark(rec, "eval")
+        if first:
+            obs.flight.record("train_step", step=step + 1, first=True)
+            first = False
+        if sentinel is not None:
+            sentinel.observe(step + 1, loss, stats)
         if on_step is not None:
             on_step(step + 1, loss)
+        if rec is not None:
+            clock.end(rec)
     return state, loss

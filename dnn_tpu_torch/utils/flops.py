@@ -73,6 +73,20 @@ def device_peak_flops(device=None) -> Optional[float]:
     return None if peaks is None else peaks[0]
 
 
+def peak_flops_source(device=None) -> Optional[str]:
+    """Where device_peak_flops' number comes from, in words: the
+    DNN_TPU_PEAK_FLOPS env, or the card's table row; None where there is
+    no peak."""
+    if _env_peak(os.environ.get("DNN_TPU_PEAK_FLOPS")) is not None:
+        return "DNN_TPU_PEAK_FLOPS"
+    if _card_peaks(device) is None:
+        return None
+    import torch
+
+    return (f"{torch.cuda.get_device_name(device)}: bf16 dense peak "
+            "(utils/flops._CUDA_PEAKS)")
+
+
 def device_peak_hbm_bw(device=None) -> Optional[float]:
     """Peak device-memory bytes/s of the card (DNN_TPU_PEAK_HBM_BW
     first), or None where unknown."""

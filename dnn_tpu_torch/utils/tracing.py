@@ -1,11 +1,17 @@
 """Profiler captures and the device-completion barrier (port of
 dnn_tpu/utils/tracing.py).
 
-`trace_to` captures a host + device profile with torch.profiler (CUPTI
-on the card) and writes it as a Chrome-trace JSON into `log_dir`, which
-Perfetto loads. `device_sync` is the barrier every honest host-clock
-timing ends in: torch.cuda.synchronize on each card `out` lives on (a
-CPU result needs none). `timed_blocked` runs a callable and times it to
+`span` / `step_span` re-export obs.profile's `annotation` /
+`step_annotation` (obs-gated host ranges, as JAX's shim re-exports
+them). `trace_to` captures a host + device profile with torch.profiler
+(CUPTI on the card) and writes it as a Chrome-trace JSON into `log_dir`,
+which Perfetto loads; it holds the process's one profiler session
+(obs.profile.exclusive: ProfilerBusy when a capture records) and marks
+itself recording, so `span` ranges land in it. Prefer
+obs.profile.capture (a bounded spool, meta.json, flight-logged) for
+server use. `device_sync` is the barrier every honest host-clock timing
+ends in: torch.cuda.synchronize on each card `out` lives on (a CPU
+result needs none). `timed_blocked` runs a callable and times it to
 that barrier.
 """
 
@@ -18,23 +24,30 @@ from typing import Iterator
 
 import torch
 
+from dnn_tpu_torch.obs.profile import (  # noqa: F401 — JAX's re-exports
+    annotation as span,
+    step_annotation as step_span,
+)
+
 
 @contextlib.contextmanager
 def trace_to(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile the body (CPU, and CUDA where a card is present) and write
     `<log_dir>/trace.json` (Chrome trace events) when it ends; yields the
     torch.profiler.profile, whose key_averages() sums kernel time by
-    name."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    name. Raises obs.profile.ProfilerBusy while another session
+    records."""
+    from dnn_tpu_torch.obs import profile as _profile
+
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=acts)
-    prof.__enter__()
-    try:
-        yield prof
-    finally:
-        prof.__exit__(None, None, None)
+    with _profile.exclusive():
+        prof = _profile.new_session()
+        prof.start()
+        try:
+            with _profile.mark_recording():
+                yield prof
+        finally:
+            prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

@@ -127,6 +127,18 @@ def test_the_resilience_modules_are_scanned():
             "dnn_tpu_torch.utils.metrics"} <= names
 
 
+def test_the_profiling_and_lens_modules_are_scanned():
+    """The profiler, the timeline reader, the training, KV and SLO
+    lenses, the fleet collector and the obs CLI are among the modules
+    the two tests above import and scan: each keeps its own copy of the
+    JAX package's pure-Python module, never an import of it."""
+    names = {n for n, _ in _modules()}
+    assert {"dnn_tpu_torch.obs.profile", "dnn_tpu_torch.obs.timeline",
+            "dnn_tpu_torch.obs.trainlens", "dnn_tpu_torch.obs.kvlens",
+            "dnn_tpu_torch.obs.slo", "dnn_tpu_torch.obs.fleet",
+            "dnn_tpu_torch.obs.__main__"} <= names
+
+
 def test_speculative_entry_points_need_a_card():
     """Without device=, the speculative batcher and the solo speculative
     decoder run on CUDA: on a host without a card they raise."""

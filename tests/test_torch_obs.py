@@ -341,4 +341,4 @@ def test_unported_routes_answer_404(endpoint, path):
     base = endpoint[0]
     for method in ("GET", "POST"):
         code, body, _ = _get(base + path, method)
-        assert code == 404 and "ROADMAP Queue 1 item 12" in body, body
+        assert code == 404 and "ROADMAP Queue 1 item 11" in body, body

@@ -327,13 +327,3 @@ def test_fit_resume_matches_uninterrupted(tmp_path, tree):
                                          _train_state(tree, opt))
     assert start == 0
 
-
-def test_fit_and_step_refuse_unported_hooks(tree):
-    opt = topt.sgd(0.1)
-    for kw in ({"clock": object()}, {"sentinel": object()}):
-        with pytest.raises(NotImplementedError, match="items 11/12"):
-            ttrain.fit(_fit_fn(opt), _train_state(tree, opt),
-                       iter([_tokens(0)]), num_steps=1, **kw)
-    with pytest.raises(NotImplementedError, match="items 11/12"):
-        ttrain.make_train_step(lambda p, b: 0, opt, grad_stats=True,
-                               device="cpu")
