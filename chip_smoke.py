@@ -5370,13 +5370,36 @@ def _wait_for(path, text, procs, timeout):
         time.sleep(0.2)
 
 
+# P-g's chaos plan on node1's stage seam: one 50 ms delay before its first
+# forward
+PIPE_CHAOS_PLAN = {"seed": 0, "faults": [
+    {"kind": "rpc_delay", "seam": "stage", "p": 1.0, "count": 1,
+     "delay_s": 0.05}]}
+
+
+def _negotiations(metrics_text, **labels):
+    """The comm.transport_negotiations_total series of a /metrics text
+    whose labels include `labels`."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return [ln for ln in metrics_text.splitlines()
+            if "transport_negotiations_total{" in ln
+            and all(w in ln for w in want)]
+
+
 def pipe_cifar(dev, card):
     """P-a: cifar_cnn on configs/cifar_2stage.json. The in-process
     engine (role full, relay) on the dummy image against the port's
-    apply on the CPU (1e-5, same argmax); then two `node --serve`
-    subprocesses on a native .npz of the same weights, node1 given a
-    missing --input_image (the dummy image): its FINAL PREDICTION must
-    equal the engine's, and each child must log its device."""
+    apply on the CPU (1e-5, same argmax); then two pairs of `node --serve`
+    subprocesses, all four started together, on a native .npz of the same
+    weights, node1 of each given a missing --input_image (the dummy
+    image): the grpc pair (`--transport grpc`) and P-g's shm pair
+    (`--transport shm --metrics_port`, node1 with a `--chaos` plan on the
+    stage seam). Each node1's FINAL PREDICTION must equal the engine's,
+    and each child must log its device; a client's round trips through
+    each node1 (which forwards over its pair's rung) must give the same
+    probabilities bit for bit; the shm pair's counters must say shm on
+    both sides, its node1's /debugz must hold the plan's one delay, and
+    SIGTERM stops all four with rc 0."""
     import shutil
     import tempfile
 
@@ -5411,48 +5434,92 @@ def pipe_cifar(dev, card):
     procs = []
     try:
         save_npz(os.path.join(tmp, "cifar.npz"), params_to_flat(params))
-        cfg_path = os.path.join(tmp, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump({**raw, "model_weights": os.path.join(tmp, "cifar.npz")},
-                      f)
-        outs = [os.path.join(tmp, f"node{i}.out") for i in (1, 2)]
-        env = {**os.environ, "PYTHONPATH": root}
-        for node, out, extra in (
-                ("node2", outs[1], []),
-                ("node1", outs[0], ["--input_image",
-                                    os.path.join(tmp, "missing.png")])):
-            with open(out, "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "dnn_tpu_torch.node", "--node_id",
-                     node, "--config", cfg_path, "--serve", *extra],
-                    cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+        plan = os.path.join(tmp, "plan.json")
+        with open(plan, "w") as f:
+            json.dump(PIPE_CHAOS_PLAN, f)
+        pairs = {}
+        for rung in ("grpc", "shm"):
+            r = raw if rung == "grpc" else pipe_config(
+                "cifar_2stage.json", runtime="relay", **where)
+            cfg_path = os.path.join(tmp, f"cfg_{rung}.json")
+            with open(cfg_path, "w") as f:
+                json.dump({**r, "model_weights":
+                           os.path.join(tmp, "cifar.npz")}, f)
+            mports = [free_port(), free_port()] if rung == "shm" else None
+            pairs[rung] = {"raw": r, "mports": mports, "outs": [
+                os.path.join(tmp, f"{rung}_node{i}.out") for i in (1, 2)]}
+            env = {**os.environ, "PYTHONPATH": root}
+            for i, node in ((1, "node2"), (0, "node1")):
+                extra = ["--transport", rung]
+                if mports:
+                    extra += ["--metrics_port", str(mports[i])]
+                if node == "node1":
+                    extra += ["--input_image", os.path.join(tmp,
+                                                            "missing.png")]
+                    if rung == "shm":
+                        extra += ["--chaos", plan]
+                with open(pairs[rung]["outs"][i], "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "dnn_tpu_torch.node",
+                         "--node_id", node, "--config", cfg_path, "--serve",
+                         *extra], cwd=root, env=env, stdout=f,
+                        stderr=subprocess.STDOUT))
         t0 = time.perf_counter()
-        text = _wait_for(outs[0], "FINAL PREDICTION", procs, 300)
-        first = time.perf_counter() - t0
-        line = [ln for ln in text.splitlines() if "FINAL PREDICTION" in ln][0]
-        if line.strip() != f"***** FINAL PREDICTION (Index): {pred} *****":
-            fail(f"[pipe] P-a node1 printed {line.strip()!r}, the engine "
-                 f"predicts {pred}")
-        for node, out in zip(("node1", "node2"), outs):
-            logged = _wait_for(out, f"device {dev.type}", procs, 60)
-            # the record's message: after the logger's [node id] prefix
-            print(f"[pipe] P-a {node}: " + [
-                ln for ln in logged.splitlines()
-                if f"device {dev.type}" in ln][0].split(
-                    f"[{node}] ", 1)[-1].strip(), flush=True)
-        client = NodeClient(raw["nodes"][0]["address"])
-        walls = []
-        for _ in range(5):
-            t1 = time.perf_counter()
-            status, result = client.send_tensor(x, timeout=pipeline_budget(2))
-            walls.append(time.perf_counter() - t1)
-            if result is None or int(result.argmax()) != pred:
-                fail(f"[pipe] P-a client round trip: {status}")
-        client.close()
+        results = {}
+        for rung, pair in pairs.items():
+            text = _wait_for(pair["outs"][0], "FINAL PREDICTION", procs, 300)
+            pair["first"] = time.perf_counter() - t0
+            line = [ln for ln in text.splitlines()
+                    if "FINAL PREDICTION" in ln][0]
+            if line.strip() != \
+                    f"***** FINAL PREDICTION (Index): {pred} *****":
+                fail(f"[pipe] P-a {rung} node1 printed {line.strip()!r}, "
+                     f"the engine predicts {pred}")
+            for node, out in zip(("node1", "node2"), pair["outs"]):
+                logged = _wait_for(out, f"device {dev.type}", procs, 60)
+                # the record's message: after the logger's [node id] prefix
+                print(f"[pipe] P-a {node}: " + [
+                    ln for ln in logged.splitlines()
+                    if f"device {dev.type}" in ln][0].split(
+                        f"[{node}] ", 1)[-1].strip(), flush=True)
+            client = NodeClient(pair["raw"]["nodes"][0]["address"],
+                                transport="grpc")
+            walls, outs = [], []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                status, result = client.send_tensor(
+                    x, timeout=pipeline_budget(2))
+                walls.append(time.perf_counter() - t1)
+                if result is None or int(result.argmax()) != pred:
+                    fail(f"[pipe] P-a {rung} client round trip: {status}")
+                outs.append(result)
+            client.close()
+            pair["walls"] = walls
+            results[rung] = outs
+        if not all(torch.equal(a, results["grpc"][0])
+                   for a in results["grpc"] + results["shm"]):
+            fail("[pipe] P-g the shm pair's probabilities differ from the "
+                 "grpc pair's")
+        shm = pairs["shm"]
+        base = [f"http://127.0.0.1:{p}" for p in shm["mports"]]
+        m1, m2 = (http(b + "/metrics")[1] for b in base)
+        neg1 = _negotiations(m1, chosen="shm", role="client")
+        neg2 = _negotiations(m2, chosen="shm", role="server", stage="node2")
+        if not neg1 or not neg2 or _negotiations(m1, chosen="grpc"):
+            fail(f"[pipe] P-g the shm pair did not settle on shm: node1 "
+                 f"{_negotiations(m1)}, node2 {_negotiations(m2)}")
+        fired = [e for e in json.loads(http(base[0] + "/debugz?format=json")
+                                       [1])
+                 if e.get("kind") == "chaos_inject"
+                 and e.get("fault") != "install"]
+        if [(e["fault"], e["seam"]) for e in fired] != [("rpc_delay",
+                                                          "stage")]:
+            fail(f"[pipe] P-g node1's /debugz holds {fired}, not the plan's "
+                 "one stage-seam delay")
         for p in procs:
             p.send_signal(signal.SIGTERM)
         rcs = [p.wait(timeout=60) for p in procs]
-        if rcs != [0, 0]:
+        if rcs != [0, 0, 0, 0]:
             fail(f"[pipe] P-a children exited {rcs} on SIGTERM")
     finally:
         for p in procs:
@@ -5460,12 +5527,20 @@ def pipe_cifar(dev, card):
                 p.kill()
                 p.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[pipe] P-a two `node --serve` processes: node1 printed "
-          f"prediction {pred} {first:.1f} s after launch (process start, "
-          f"weights, health wait included); a client's round trip over "
-          f"gRPC (stage 0 on node1, stage 1 on node2) median "
-          f"{sorted(walls)[2] * 1e3:.2f} ms of 5 (min {min(walls) * 1e3:.2f})"
-          f"; on {card}", flush=True)
+    for rung, pair in pairs.items():
+        walls = pair["walls"]
+        print(f"[pipe] P-a two `node --serve --transport {rung}` processes: "
+              f"node1 printed prediction {pred} {pair['first']:.1f} s after "
+              f"launch (process start, weights, health wait included; four "
+              f"children started together); a client's round trip (stage 0 "
+              f"on node1, stage 1 on node2 over {rung}) median "
+              f"{sorted(walls)[2] * 1e3:.2f} ms of 5 (min "
+              f"{min(walls) * 1e3:.2f}); on {card}", flush=True)
+    print(f"[pipe] P-g shm pair: probabilities equal the grpc pair's bit for "
+          f"bit; node1 {neg1[0].rsplit(' ', 1)}, node2 "
+          f"{neg2[0].rsplit(' ', 1)}; node1's /debugz: one chaos_inject "
+          f"rpc_delay on the stage seam, and every request completed; on "
+          f"{card}", flush=True)
 
 
 def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
@@ -5476,7 +5551,10 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
     engine's bit for bit (same card, same operations), and lie within
     5e-2 x max|logit| of an f32 relay run, with the same argmax wherever
     the f32 top-2 gap exceeds 0.1. Then P-d on the same servers
-    (pipe_relay)."""
+    (pipe_relay). The servers and the client run on the grpc rung (P-g
+    reruns them on the device rung, pipe_device_rung). Returns what the
+    later legs reuse: the config, the weights, the ids, these logits and
+    the relay engine."""
     from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
     from dnn_tpu_torch.comm.service import start_stage_servers_in_background
     from dnn_tpu_torch.config import TopologyConfig
@@ -5508,9 +5586,9 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
     last_in = last_in.cpu()
     _, stop = start_stage_servers_in_background([
         (PipelineEngine(config, params=params, role="stage"), node["id"], None)
-        for node in raw["nodes"]])
+        for node in raw["nodes"]], transport="grpc")
     try:
-        client = NodeClient(raw["nodes"][0]["address"])
+        client = NodeClient(raw["nodes"][0]["address"], transport="grpc")
         if not client.wait_healthy(deadline=60):
             fail("[pipe] P-b stage server node1 never became healthy")
         client.send_tensor(ids, timeout=pipeline_budget(8))  # warm-up
@@ -5519,7 +5597,7 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
         wall = time.perf_counter() - t1
         client.close()
         # the last stage alone: one hop in, the logits back
-        last = NodeClient(raw["nodes"][-1]["address"])
+        last = NodeClient(raw["nodes"][-1]["address"], transport="grpc")
         last.send_tensor(last_in, timeout=pipeline_budget(1))
         t1 = time.perf_counter()
         _, got_last = last.send_tensor(last_in, timeout=pipeline_budget(1))
@@ -5542,7 +5620,7 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
     f32 = PipelineEngine(TopologyConfig.from_dict({**raw, "dtype": "float32"}),
                          params=params)
     ref = f32.run(ids).cpu()
-    del relay, f32
+    del f32
     top = ref.abs().max().item()
     err = (got - ref).abs().max().item()
     top2 = torch.topk(ref[0], 2, dim=-1).values
@@ -5565,6 +5643,8 @@ def pipe_gpt_stages(dev, card, model=None, n_tokens=PIPE_B_TOKENS):
           "relay per-stage compute (record_timings) ms "
           + " / ".join(f"{t * 1e3:.2f}" for t in stage_s)
           + f" (sum {sum(stage_s) * 1e3:.1f}); on {card}", flush=True)
+    return {"raw": raw, "params": params, "ids": ids, "logits": got,
+            "relay": relay}
 
 
 def pipe_relay(address, items, wants, card):
@@ -5580,6 +5660,7 @@ def pipe_relay(address, items, wants, card):
     neg = client.negotiated()
     if not neg.relay_ok:
         fail(f"[pipe] P-d the first stage's hello gave no Relay: {neg.reason}")
+    rung = neg.name
     budget = pipeline_budget(8)
     client.send_tensors(items[:1], timeout=budget)  # warm-up
     t0 = time.perf_counter()
@@ -5601,7 +5682,8 @@ def pipe_relay(address, items, wants, card):
         fail(f"[pipe] P-d items without an ack: {acks}")
     n = len(items)
     print(f"[pipe] P-d {n} microbatches of {tuple(items[0].shape)} ids over "
-          f"Relay (hello: grpc, relay): each result equals the relay "
+          f"Relay (hello: {rung} to node1, relay; grpc between the "
+          f"stages): each result equals the relay "
           f"engine's bit for bit; streamed wall {wall * 1e3:.1f} ms "
           f"({wall * 1e3 / n:.1f} ms an item), acks after "
           + " / ".join(f"{a * 1e3:.2f}" for a in acks)
@@ -5664,6 +5746,413 @@ def pipe_generate(dev, card, prompt, model="gpt2", n_new=PIPE_C_NEW,
 SPEC_K = 4
 SPEC_NEW = 16
 SPEC_TARGET, SPEC_DRAFT = "gpt2-xl", "gpt2"
+
+
+PIPE_E_BATCH = 4     # P-e: one request of B=4 T=PIPE_B_TOKENS ids
+PIPE_F_NEW = 16      # P-f: greedy tokens a prompt
+PIPE_F_STAGES = 4
+PIPE_F_LLAMA_LAYERS = 8  # llama3-8b cut to 8 layers for P-f (widths kept)
+
+
+def pipe_device_rung(ctx, card):
+    """P-g's device leg: P-b's eight in-process stage servers restarted on
+    `transport="device"` and a client on the device rung: every hop is a
+    mailbox ticket (the activation stays on the card, its producer's
+    event waited on). The logits of P-b's request must equal the grpc
+    run's bit for bit; the request's trace (a tr= tag from the client's
+    span) must hold one stage.request a stage; the negotiation counters
+    must say device for the 8 hops."""
+    from dnn_tpu_torch import obs
+    from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
+    from dnn_tpu_torch.comm.service import start_stage_servers_in_background
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+    from dnn_tpu_torch.utils.metrics import default_metrics
+
+    raw = {**ctx["raw"], "nodes": [dict(n, address=f"127.0.0.1:{free_port()}")
+                                   for n in ctx["raw"]["nodes"]]}
+    config = TopologyConfig.from_dict(raw)
+    before = {k: v for k, v in default_metrics.snapshot()["counters"].items()
+              if "transport_negotiations_total" in k}
+    _, stop = start_stage_servers_in_background([
+        (PipelineEngine(config, params=ctx["params"], role="stage"),
+         node["id"], None) for node in raw["nodes"]], transport="device")
+    try:
+        client = NodeClient(raw["nodes"][0]["address"], transport="device")
+        if not client.wait_healthy(deadline=60):
+            fail("[pipe] P-g stage server node1 never became healthy")
+        client.send_tensor(ctx["ids"], timeout=pipeline_budget(8))  # warm-up
+        t0 = time.perf_counter()
+        with obs.span("pipe.request") as root:
+            status, got = client.send_tensor(ctx["ids"],
+                                              timeout=pipeline_budget(8))
+        wall = time.perf_counter() - t0
+        client.close()
+    finally:
+        stop()
+    if got is None or not torch.equal(got, ctx["logits"]):
+        fail(f"[pipe] P-g logits over the device rung differ from the grpc "
+             f"run's: {status}")
+    spans = [sp.to_dict() for sp in obs.trace.collector().spans(
+        root.trace_id)] if root is not None else []
+    stages = sorted(sp["attrs"].get("stage") for sp in spans
+                    if sp["name"] == "stage.request")
+    if stages != sorted(n["id"] for n in raw["nodes"]):
+        fail(f"[pipe] P-g the trace holds stage.request spans of {stages}, "
+             "not one a stage")
+    after = {k: v for k, v in default_metrics.snapshot()["counters"].items()
+             if "transport_negotiations_total" in k}
+    new = {k: v - before.get(k, 0) for k, v in after.items()
+           if v != before.get(k, 0)}
+    server = sum(v for k, v in new.items()
+                 if 'chosen="device"' in k and 'role="server"' in k)
+    client_n = sum(v for k, v in new.items()
+                   if 'chosen="device"' in k and 'role="client"' in k)
+    if (server, client_n) != (8, 8) or any('chosen="device"' not in k
+                                           for k in new):
+        fail(f"[pipe] P-g negotiations {new}: want 8 device hops")
+    print(f"[pipe] P-g device rung: 8 stage servers on transport=device, "
+          f"the client on it too: logits equal the grpc run's bit for bit; "
+          f"the trace holds {len(stages)} stage.request spans (one a stage) "
+          f"of {len(spans)}; comm.transport_negotiations_total device "
+          f"{server} server / {client_n} client; request wall "
+          f"{wall * 1e3:.1f} ms (8 hops, no payload on the wire); on {card}",
+          flush=True)
+
+
+def _spmd_profile(fn):
+    """(wall ms, device busy ms, the pipeline.stage{i} ranges) of fn()
+    under torch.profiler (the process's one session)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dnn_tpu_torch.obs.profile import exclusive
+
+    with exclusive(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in evs
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    ranges = sorted({e.key for e in evs if e.key.startswith("pipeline.stage")})
+    return wall, busy, ranges
+
+
+def pipe_spmd(dev, card, ctx):
+    """P-e: configs/gpt2_8stage.json as written (gpt2-medium, bf16,
+    runtime spmd, 4 microbatches) on `devices=[card] * 8`, P-b's seed-0
+    weights: one B=4 request's logits must equal the relay engine's run
+    of the same four microbatches bit for bit. The walls, the device busy
+    of a profiled run and its pipeline.stage{i} ranges are printed as
+    information. Then the CIFAR CNN on the generic path, 2 stages, 2
+    microbatches, placements "stage" and "replicated": probabilities
+    within 1e-5 of the relay engine's."""
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.registry import get_model
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+
+    where = {"device_type": "cpu"} if dev.type == "cpu" else {}
+    raw = pipe_config("gpt2_8stage.json", **where,
+                      **({"model": ctx["raw"]["model"]}
+                         if ctx["raw"]["model"] != "gpt2-medium" else {}))
+    n = raw["num_parts"]
+    engine = PipelineEngine(TopologyConfig.from_dict(raw),
+                            params=ctx["params"], devices=[dev] * n)
+    if (engine.runtime, engine.param_placement) != ("spmd", "stage"):
+        fail(f"[pipe] P-e runtime {engine.runtime}, placement "
+             f"{engine.param_placement}")
+    vocab = get_model(raw["model"]).config.vocab_size
+    t_len = ctx["ids"].shape[1]
+    ids = np.random.default_rng(20).integers(
+        0, vocab, (PIPE_E_BATCH, t_len)).astype(np.int32)
+    relay = ctx["relay"]
+    engine.run(ids)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    got = engine.run(ids)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = torch.cat([relay.run(ids[i:i + 1])
+                      for i in range(PIPE_E_BATCH)])
+    sync(dev)
+    wall_relay = time.perf_counter() - t0
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        fail(f"[pipe] P-e spmd logits differ from the relay engine's run of "
+             f"the same microbatches: max abs "
+             f"{(got.float() - want.float()).abs().max().item():.3e}")
+    info = ""
+    if dev.type == "cuda":
+        p_wall, busy, ranges = _spmd_profile(lambda: engine.run(ids))
+        info = (f"; profiled: wall {p_wall:.1f} ms, device busy {busy:.1f} "
+                f"ms ({100 * busy / p_wall:.1f}%), {len(ranges)} ranges "
+                f"{ranges}")
+    print(f"[pipe] P-e {raw['model']} spmd, {n} stages on one card (a stream "
+          f"a stage), {engine._effective_microbatches(PIPE_E_BATCH)} "
+          f"microbatches, B={PIPE_E_BATCH} T={t_len}: logits equal the relay "
+          f"engine's run of the same microbatches bit for bit; wall "
+          f"{wall * 1e3:.1f} ms, relay {wall_relay * 1e3:.1f} ms (spmd / "
+          f"relay {wall / wall_relay:.2f}){info}; on {card}", flush=True)
+    del engine
+    spec = get_model("cifar_cnn")
+    params = spec.init(0)
+    x = np.random.default_rng(3).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32)
+    craw = pipe_config("cifar_2stage.json", runtime="relay", **where)
+    crelay = PipelineEngine(TopologyConfig.from_dict(craw), params=params)
+    cwant = torch.cat([crelay.run(x[:2]), crelay.run(x[2:])]).cpu()
+    for placement in ("stage", "replicated"):
+        eng = PipelineEngine(TopologyConfig.from_dict(
+            {**craw, "runtime": "spmd", "microbatches": 2,
+             "param_placement": placement}), params=params,
+            devices=[dev] * 2)
+        cgot = eng.run(x).cpu()
+        err = (cgot - cwant).abs().max().item()
+        if eng.param_placement != placement or cgot.shape != cwant.shape \
+                or err > 1e-5:
+            fail(f"[pipe] P-e cifar spmd ({placement}): err {err:.3e}, "
+                 f"placement {eng.param_placement}")
+        print(f"[pipe] P-e cifar_cnn spmd, placement {placement}, 2 stages, 2 "
+              f"microbatches: probabilities within {err:.2e} of the relay "
+              f"engine's; on {card}", flush=True)
+
+
+def pipe_kernel_rows(dev, gen, gpt_heads=12, gpt_t=300, gpt_new=PIPE_F_NEW,
+                     llama=(32, 8, 128)):
+    """K5 and K6 at P-f's stage-local shapes against their plain versions:
+    gpt2's shard (B=1, 12 heads, D=64, a 300-token prompt's chunk at base
+    0, then the last decode step, pos 315 of 316 rows) over f32 and int8
+    caches (1e-4), and llama3-8b's (32 query heads over 8 KV heads, D=128)
+    with a bf16 q over a bf16 cache (2e-2 of the output's scale). Timed
+    against their plain versions and SDPA (causal or grouped, none for
+    int8); bounds as phase_k5's / phase_k6_solo's. Returns {shape:
+    {dtype: row}}."""
+    from dnn_tpu_torch.ops.cuda.cached_attention import (
+        cached_attention, decode_attention, reference_cached_attention,
+        reference_decode_attention)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s_len = gpt_t + gpt_new
+    out = {}
+
+    def row_for(tag, label, kernel, plain, q, k, v, ks, vs, pos, lib,
+                nbytes, flops, peak, tol, scaled):
+        sc = scales_at(ks, vs, 0)
+        args = (q[0], k[0], v[0], pos)
+        err = (check_scaled if scaled else check)(
+            f"[pipe] {tag} {label}", kernel(*args, **sc), plain(*args, **sc),
+            tol)
+        ms = time_ms(cycling(lambda i: kernel(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        plain_ms = time_ms(cycling(lambda i: plain(
+            q[i], k[i], v[i], pos, **scales_at(ks, vs, i)), LAYERS))
+        lib_ms = None if lib is None else time_ms(cycling(
+            lambda i: lib(q[i], k[i], v[i]), LAYERS))
+        b_ms, b_by, byte_ms, op_ms = bound(nbytes, flops, peak)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        report("pipe", f"{tag} {label}", row, nbytes, byte_ms, op_ms)
+        return row
+
+    cols = torch.arange(s_len, device=dev)
+    causal = cols[None, :] <= torch.arange(gpt_t, device=dev)[:, None]
+    base0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    last = torch.tensor([s_len - 1], dtype=torch.int32, device=dev)
+    for name, tol in (("f32", F32_TOL), ("int8", F32_TOL)):
+        h, d = gpt_heads, 64
+        k, v, ks, vs = kv_cache(gen, (LAYERS, 1, h, s_len, d), name, dev)
+        q = torch.randn(LAYERS, 1, h, gpt_t, d, generator=gen, device=dev)
+        nbytes, scores, _, _ = k5_bound(name, 1, h, h, gpt_t, s_len, 0, d)
+        lib = None if name in QUANT else (
+            lambda qq, kk, vv: sdpa(qq, kk, vv, attn_mask=causal))
+        out.setdefault("gpt2 K5", {})[name] = row_for(
+            "gpt2 K5", f"{name} B=1 H={h} T={gpt_t} S={s_len} base 0",
+            cached_attention, reference_cached_attention, q, k, v, ks, vs,
+            base0, lib, nbytes, 4 * d * scores,
+            TF32_FLOPS_PER_S if name == "f32" else BF16_FLOPS_PER_S, tol,
+            False)
+        q1 = torch.randn(LAYERS, 1, h, 1, d, generator=gen, device=dev)
+        nbytes = 2 * h * d * 4 + h * kv_bytes(name, s_len, d) + 4
+        out.setdefault("gpt2 K6", {})[name] = row_for(
+            "gpt2 K6", f"{name} B=1 Hk={h} R=1 S={s_len} pos {s_len - 1}",
+            decode_attention, reference_decode_attention, q1, k, v, ks, vs,
+            last, None if name in QUANT else sdpa, nbytes,
+            4 * d * h * s_len, F32_FLOPS_PER_S, tol, False)
+    hq, hk, d = llama
+    g = hq // hk
+    k, v, _, _ = kv_cache(gen, (LAYERS, 1, hk, s_len, d), "bf16", dev)
+    q = torch.randn(LAYERS, 1, hq, gpt_t, d, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    nbytes, scores, _, _ = k5_bound("bf16", 1, hq, hk, gpt_t, s_len, 0, d,
+                                    q_bytes=2)
+    out["llama K5"] = {"bf16": row_for(
+        "llama K5", f"bf16 q, bf16 cache B=1 H={hq} Hk={hk} T={gpt_t} "
+        f"S={s_len} D={d} base 0", cached_attention,
+        reference_cached_attention, q, k, v, None, None, base0,
+        lambda qq, kk, vv: sdpa_gqa(qq, kk, vv, causal), nbytes,
+        4 * d * scores, BF16_FLOPS_PER_S, BF16_TOL, True)}
+    q1 = torch.randn(LAYERS, 1, hk, g, d, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    nbytes = 2 * hk * g * d * 2 + hk * kv_bytes("bf16", s_len, d) + 4
+    out["llama K6"] = {"bf16": row_for(
+        "llama K6", f"bf16 q, bf16 cache B=1 Hk={hk} R={g} S={s_len} D={d} "
+        f"pos {s_len - 1}", decode_attention, reference_decode_attention,
+        q1, k, v, None, None, last,
+        lambda qq, kk, vv: sdpa_gqa(qq.reshape(1, hq, 1, d), kk, vv),
+        nbytes, 4 * d * hk * g * s_len, F32_FLOPS_PER_S, BF16_TOL, True)}
+    return out
+
+
+def _same_launches(tag, got, want, kernels=("cached_attention",
+                                            "decode_attention")):
+    """The ring's launches must equal make_generate's exactly, and each
+    kernel must have launched."""
+    for name in kernels:
+        if got[name] != want[name] or sum(got[name].values()) <= 0:
+            fail(f"[pipe] {tag}: {name} launched {got[name]} on the ring, "
+                 f"{want[name]} in make_generate")
+
+
+def pipe_decode(dev, card, prompts, model="gpt2", llama_cfg=None,
+                n_new=PIPE_F_NEW):
+    """P-f: pipeline-parallel decode. `engine.make_generator` on the spmd
+    runtime (`model`, full width and depth, PIPE_F_STAGES stages on one
+    card) for each of the main path's prompts, n_new greedy tokens, with
+    f32 shards; then the same ring with int8 shards
+    (make_pipeline_generate with GPTPipelineFamily(kv_dtype="int8"): the
+    engine refuses kv_dtype on this path, as JAX's does); then
+    `llama_cfg` (llama3-8b cut to PIPE_F_LLAMA_LAYERS layers, bf16
+    compute) through llama.make_pipeline_generate on prompts[-1]. Each
+    stream must equal the port's make_generate token for token, and the
+    K5/K6 launches, zeroed before each run, must equal make_generate's
+    for the same request exactly (bf16-q launches for llama). Returns
+    ({kernel: {dtype: launches}} of the gpt2 rings, the llama ring's
+    bf16-q launches)."""
+    from dnn_tpu_torch.config import TopologyConfig
+    from dnn_tpu_torch.convert import from_jax_params
+    from dnn_tpu_torch.models import llama as tllama
+    from dnn_tpu_torch.models.gpt import PRESETS
+    from dnn_tpu_torch.parallel.pipeline import sync
+    from dnn_tpu_torch.runtime.engine import PipelineEngine
+    from dnn_tpu_torch.runtime.generate import (
+        GPTPipelineFamily, make_generate, make_pipeline_generate,
+        prepare_pipeline_stacked)
+
+    cfg = PRESETS[model]
+    stages = PIPE_F_STAGES
+    raw = {"nodes": [{"id": f"node{i + 1}", "part_index": i,
+                      "address": f"127.0.0.1:{free_port()}"}
+                     for i in range(stages)],
+           "model": model, "num_parts": stages, "runtime": "spmd",
+           "device_type": "cpu" if dev.type == "cpu" else "tpu"}
+    engine = PipelineEngine(TopologyConfig.from_dict(raw),
+                            devices=[dev] * stages)
+    prepared = from_jax_params(engine.params, cfg, dev)
+    sb, aux = engine._gen_parts
+    total = {name: {dt: 0 for dt in DTYPES} for name in CACHE_KERNELS}
+    walls = {}
+    for kv in (None, "int8"):
+        label = "int8" if kv else "f32"
+        if kv is None:
+            ring = engine.make_generator(max_new_tokens=n_new)
+        else:
+            gen = make_pipeline_generate(
+                cfg, engine.mesh, max_new_tokens=n_new,
+                family=GPTPipelineFamily(cfg, kv_dtype=kv))
+            ring = lambda ids, _g=gen: _g(sb, aux, ids)  # noqa: E731
+        solo = make_generate(cfg, max_new_tokens=n_new, kv_dtype=kv,
+                             device=dev)
+        ring([prompts[0]])  # warm-up
+        solo(prepared, [prompts[0]])
+        sync(dev)
+        walls[label] = walls["solo " + label] = 0.0
+        for i, p in enumerate(prompts):
+            reset_counts()
+            t0 = time.perf_counter()
+            got = ring([p])
+            sync(dev)
+            walls[label] += time.perf_counter() - t0
+            counts = read_counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            want = solo(prepared, [p])
+            sync(dev)
+            walls["solo " + label] += time.perf_counter() - t0
+            if dev.type == "cuda":
+                _same_launches(f"P-f {model} {label} prompt {i}", counts,
+                               read_counts())
+            if not torch.equal(got, want):
+                fail(f"[pipe] P-f {model} {label} prompt {i}: the ring's "
+                     f"tokens {got.tolist()} differ from make_generate's "
+                     f"{want.tolist()}")
+            add_into(total, counts)
+    print(f"[pipe] P-f {model} ring, {stages} stages on one card: "
+          f"{len(prompts)} prompts ({', '.join(str(len(p)) for p in prompts)}"
+          f" tokens) x {n_new} greedy tokens, f32 and int8 shards: every "
+          f"stream equals make_generate's token for token, K5/K6 launches "
+          f"exactly its ({total['cached_attention']}, "
+          f"{total['decode_attention']}); ring walls f32 "
+          f"{walls['f32'] * 1e3:.1f} ms, int8 {walls['int8'] * 1e3:.1f} ms "
+          f"for the {len(prompts)} requests, make_generate's "
+          f"{walls['solo f32'] * 1e3:.1f} and "
+          f"{walls['solo int8'] * 1e3:.1f} ms (ring / solo "
+          f"{walls['f32'] / walls['solo f32']:.2f} and "
+          f"{walls['int8'] / walls['solo int8']:.2f}); on {card}",
+          flush=True)
+    del engine, prepared, sb, aux
+    gc.collect()
+    llama_counts = {name: {dt: 0 for dt in DTYPES} for name in CACHE_KERNELS}
+    if llama_cfg is not None:
+        t0 = time.perf_counter()
+        tree = tllama.init(0, llama_cfg, device=dev)
+        lprep = from_jax_params(tree, llama_cfg, dev, torch.bfloat16)
+        del tree
+        mesh = [dev] * stages
+        lsb, laux = prepare_pipeline_stacked(lprep, llama_cfg, mesh)
+        sync(dev)
+        drawn = time.perf_counter() - t0
+        ring = tllama.make_pipeline_generate(
+            llama_cfg, mesh, max_new_tokens=n_new,
+            compute_dtype=torch.bfloat16)
+        solo = tllama.make_generate(llama_cfg, max_new_tokens=n_new,
+                                    compute_dtype=torch.bfloat16, device=dev)
+        p = prompts[-1]
+        ring(lsb, laux, [p[:8]])  # warm-up
+        solo(lprep, [p[:8]])
+        reset_counts()
+        t0 = time.perf_counter()
+        got = ring(lsb, laux, [p])
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts(bf16_q=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        want = solo(lprep, [p])
+        sync(dev)
+        wall_solo = time.perf_counter() - t0
+        if dev.type == "cuda":
+            _same_launches(f"P-f llama bf16", counts, read_counts(bf16_q=True))
+        if not torch.equal(got, want):
+            fail(f"[pipe] P-f llama ring tokens {got.tolist()} differ from "
+                 f"make_generate's {want.tolist()}")
+        add_into(llama_counts, counts)
+        print(f"[pipe] P-f llama ({llama_cfg.n_layer} layers of "
+              f"{llama_cfg.n_embd}, GQA {llama_cfg.n_head}/"
+              f"{llama_cfg.n_kv_head}, bf16 compute), {stages} stages on one "
+              f"card: a {len(p)}-token prompt x {n_new} tokens equal "
+              f"make_generate's, K5/K6 (bf16 q) launches exactly its "
+              f"({counts['cached_attention']}, {counts['decode_attention']})"
+              f"; ring wall {wall * 1e3:.1f} ms, make_generate's "
+              f"{wall_solo * 1e3:.1f} ms (weights drawn and stacked in "
+              f"{drawn:.2f} s); on {card}", flush=True)
+        del lprep, lsb, laux
+        gc.collect()
+    return total, llama_counts
 
 
 def spec_exact(l_target, l_draft, k, chunks, dt="f32"):
@@ -5990,14 +6479,34 @@ def phase_spec(dev, card, target=SPEC_TARGET, draft=SPEC_DRAFT):
     return {"f32": f32_counts, "bf16": b_counts}, verify
 
 
-def phase_pipe(dev, card, prompt):
-    """The staged pipeline: P-a, P-b, P-c. Returns P-c's launches."""
+def phase_pipe(dev, card, prompts, gen=None):
+    """The staged pipeline: P-a (with P-g's shm pair), P-b, P-d and P-g's
+    device rung, P-e, P-c, P-f (and, with `gen`, K5/K6 at P-f's
+    stage-local shapes). Returns {"counts": P-c's and the P-f gpt2 rings'
+    launches, "bf16_q": the P-f llama ring's, "rows": the kernel rows,
+    "pipe_f": the P-f gpt2 rings' alone}."""
+    from dnn_tpu_torch.models import llama as tllama
+
     t0 = time.perf_counter()
     pipe_cifar(dev, card)
-    pipe_gpt_stages(dev, card)
-    counts = pipe_generate(dev, card, prompt)
+    ctx = pipe_gpt_stages(dev, card)
+    t1 = time.perf_counter()
+    pipe_device_rung(ctx, card)
+    pipe_spmd(dev, card, ctx)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = pipe_generate(dev, card, prompts[-1])
+    llama_cfg = dataclasses.replace(tllama.PRESETS["llama3-8b"],
+                                    n_layer=PIPE_F_LLAMA_LAYERS)
+    ring, ring_bf16 = pipe_decode(dev, card, prompts, llama_cfg=llama_cfg)
+    rows = pipe_kernel_rows(dev, gen) if gen is not None else {}
+    print(f"[wall] pipe item 7 legs (P-e, P-f, P-g device rung, kernel "
+          f"rows) {time.perf_counter() - t1:.1f} s", flush=True)
+    add_into(counts, ring)
     print(f"[pipe] done in {time.perf_counter() - t0:.1f} s", flush=True)
-    return counts
+    return {"counts": counts, "bf16_q": ring_bf16, "rows": rows,
+            "pipe_f": ring}
 
 
 def _kernel_events(fn, trace_path=None):
@@ -9665,7 +10174,8 @@ def main():
     del prepared
     bf16_q_rows = phase_bf16_q_kernels(dev, gen)
     bf16_launches = timed("bf16", phase_bf16, dev, smi)
-    pipe = timed("pipe", phase_pipe, dev, smi, prompts[3])
+    pipe_all = timed("pipe", phase_pipe, dev, smi, prompts, gen)
+    pipe = pipe_all["counts"]
     gc.collect()
     torch.cuda.empty_cache()
     spec, verify_launches = timed("spec", phase_spec, dev, smi)
@@ -9673,9 +10183,10 @@ def main():
         for name in CACHE_KERNELS:
             for dt, n in counts[name].items():
                 launches[name][dt] += n
-    for name in CACHE_KERNELS:
-        for dt, n in spec["bf16"][name].items():
-            bf16_launches[name][dt] += n
+    for counts in (spec["bf16"], pipe_all["bf16_q"]):
+        for name in CACHE_KERNELS:
+            for dt, n in counts[name].items():
+                bf16_launches[name][dt] += n
     launches.update(timed("train", phase_train, dev, smi))
     for name, by_dtype in OBS2_FLASH.items():  # [obs2] T's fit
         for dt, n in by_dtype.items():
@@ -9827,6 +10338,30 @@ def main():
         "B": 4, "H": 12, "T": EMBED_T, "S": EMBED_T, "D": 64,
         "by_dtype": {dt: {"launches": item_4d["flash_attention"][dt], **row}
                      for dt, row in beam_embed_rows["K1 embed"].items()}}
+    # P-f's stage-local shapes (the ring decoder): gpt2's shard, f32 and int8
+    # caches, with the gpt2 rings' launches; llama3-8b's shard with a bf16
+    # q, with the llama ring's
+    prow, pf = pipe_all["rows"], pipe_all["pipe_f"]
+    pl = pipe_all["bf16_q"]
+    for name, key, shape in (
+            ("cached_attention", "gpt2 K5",
+             {"B": 1, "H": 12, "T": 300, "S": 316, "D": 64, "base": 0}),
+            ("decode_attention", "gpt2 K6",
+             {"B": 1, "Hk": 12, "R": 1, "S": 316, "D": 64, "pos": 315})):
+        kern = next(k for k in kernels if k["name"] == name)
+        kern["pipe_shape"] = {**shape, "by_dtype": {
+            dt: {"launches": pf[name][dt], **row}
+            for dt, row in prow[key].items()}}
+    for name, key, shape in (
+            ("cached_attention (bf16 q)", "llama K5",
+             {"B": 1, "H": 32, "Hk": 8, "T": 300, "S": 316, "D": 128,
+              "base": 0}),
+            ("decode_attention (bf16 q)", "llama K6",
+             {"B": 1, "Hk": 8, "R": 4, "S": 316, "D": 128, "pos": 315})):
+        kern = next(k for k in kernels if k["name"] == name)
+        kern["pipe_llama_shape"] = {**shape, "by_dtype": {
+            "bf16": {"launches": pl[name.split(" ")[0]]["bf16"],
+                     **prow[key]["bf16"]}}}
     kernels += window_records(win_rows, win_variants)
     # qwen15-moe-a2.7b's MHA shapes (D = 128, no grouping), bf16 q over a
     # bf16 cache: the launches those of QM's node

@@ -34,9 +34,11 @@ degradation discipline as `obs.flight.record`:
 Where the port consults them: kv_exhaust() at the LM worker's
 admission, step_fault() before each pool step, kv_migrate() in the
 daemon's kvpull, wedge_detail() in the watchdog's probe,
-perturb_rpc("client") in NodeClient.send_tensor and train_fault() in
-train.fit's data phase. perturb_rpc("stage") and perturb_relay() wait
-for the stage servers' seams (ROADMAP Queue 1 item 7's remainder).
+perturb_rpc("client") in NodeClient.send_tensor, perturb_rpc("stage")
+before each downstream send of a stage server (StageServer._forward),
+perturb_relay() for every inbound Relay frame
+(transport.ChunkAssembler.add) and train_fault() in train.fit's data
+phase.
 
 Every firing lands in the flight recorder as a `chaos_inject` event
 (kind, seam, counter, target), so an induced incident reconstructs
@@ -303,16 +305,14 @@ def active() -> Optional[Injector]:
 
 
 def perturb_rpc(seam_group: str, target: str = ""):
-    # "client": NodeClient.send_tensor; "stage" has no caller yet (the
-    # stage servers' seam, ROADMAP Queue 1 item 7's remainder)
+    # "client": NodeClient.send_tensor; "stage": StageServer._forward
     inj = _active
     if inj is not None:
         inj.perturb_rpc(seam_group, target)
 
 
 def perturb_relay() -> bool:
-    # no caller yet: Relay's ingress seam is ROADMAP Queue 1 item 7's
-    # remainder
+    # Relay's ingress: transport.ChunkAssembler.add
     inj = _active
     return inj.perturb_relay() if inj is not None else False
 

@@ -1,7 +1,9 @@
 """Synchronous client for a NodeService endpoint (the subset of
 dnn_tpu/comm/client.NodeClient this port needs): health checks, the
-transport hello, `send_tensor` into a stage pipeline and `send_tensors`
-over the streamed Relay RPC, unary and streaming generation from the LM
+transport hello (the device -> shm -> grpc ladder of comm/transport.py;
+`transport=` as JAX's client takes it), `send_tensor` into a stage
+pipeline and `send_tensors` over the streamed Relay RPC, both over the
+negotiated rung (a ticket lives until its response or ack lands), unary and streaming generation from the LM
 daemon over the same wire and the same request-id option grammar
 ("gen:max_new[:seed][:t=..][:k=..][:p=..][:m=..][:r=..]"), its text
 front over SendMessage, and the daemon's KV movement between replicas:
@@ -16,7 +18,10 @@ a cooldown; a channel that answered UNAVAILABLE `REBUILD_AFTER` times in
 a row is replaced by a fresh one (a channel parked in gRPC's reconnect
 backoff can miss a server that has since come up); `dedup=` makes a
 generate exactly-once on the daemon (d=). send_tensor consults the chaos
-seam perturb_rpc("client") before each attempt."""
+seam perturb_rpc("client") before each attempt, runs under an
+`rpc.SendTensor` span whose `tr=` tag the stage servers continue, and
+observes `comm.rpc_latency_seconds`, `comm.hop_seconds` and
+`comm.payload_bytes_total` as JAX's does."""
 
 from __future__ import annotations
 
@@ -185,10 +190,14 @@ class NodeClient:
 
     REBUILD_AFTER = 2  # consecutive UNAVAILABLEs before a fresh channel
 
-    def __init__(self, address: str, *, breaker=True,
-                 rebuild_after: Optional[int] = None):
+    def __init__(self, address: str, *, transport: str = "auto",
+                 breaker=True, rebuild_after: Optional[int] = None):
         native.load()  # the checksum library, built before the first call
+        if transport not in tx.TRANSPORTS:
+            raise ValueError(f"transport must be one of {tx.TRANSPORTS}, "
+                             f"got {transport!r}")
         self.address = address
+        self.transport = transport
         self._channel = grpc.insecure_channel(address,
                                               options=GRPC_MSG_OPTIONS)
         self._chan_lock = threading.Lock()
@@ -275,7 +284,8 @@ class NodeClient:
                 return self._negotiated
             try:
                 neg = tx.negotiate_over(
-                    lambda sid, text: self.send_message(sid, text, 10.0))
+                    lambda sid, text: self.send_message(sid, text, 10.0),
+                    transport=self.transport, target=self.address)
             except grpc.RpcError as e:
                 if e.code() != grpc.StatusCode.UNIMPLEMENTED:
                     return tx.Negotiated("grpc", tx.GrpcSender(),
@@ -310,26 +320,46 @@ class NodeClient:
             raise CircuitOpenError(
                 f"circuit open for {self.address}: shedding fast "
                 f"(cooldown {self.breaker._cooldown:.1f}s)")
-        request = wc.TensorRequest(request_id=request_id,
-                                   tensor=_tensor_msg(arr))
+        neg = self.negotiated()
+        sp = obs.start_span("rpc.SendTensor", parent=obs.trace.current_span(),
+                            target=self.address, transport=neg.name)
+        rid = obs.tag_request_id(request_id, sp)
+        request = neg.sender.make_request(arr, tag_deadline(rid, timeout))
+        m = obs.metrics()
         deadline = time.monotonic() + timeout
         attempt = 0
         completed = False
         try:
             while True:
                 remaining = deadline - time.monotonic()
-                request.request_id = tag_deadline(request_id, remaining)
+                request.request_id = tag_deadline(rid, remaining)
+                if m is not None:
+                    m.inc(labeled("comm.payload_bytes_total",
+                                  direction="out"), request.ByteSize())
                 # per attempt: a rebuild between attempts takes effect on
                 # the next one
                 call = self._channel.unary_unary(
                     f"/{SERVICE_NAME}/SendTensor",
                     request_serializer=wc.serialize_request,
                     response_deserializer=wc.parse_response)
+                t_try = time.perf_counter()
                 try:
                     _chaos_inject.perturb_rpc("client", self.address)
                     resp = call(request, timeout=max(remaining, 0.001))
+                    dt = time.perf_counter() - t_try
+                    if m is not None:
+                        m.observe_hist(labeled(
+                            "comm.rpc_latency_seconds", method="SendTensor",
+                            role="client", transport=neg.name), dt)
+                        m.observe(labeled("comm.hop_seconds",
+                                          target=self.address,
+                                          transport=neg.name, mode="nested"),
+                                  dt)
+                        m.inc(labeled("comm.payload_bytes_total",
+                                      direction="in"), resp.ByteSize())
                     result = (wc.tensor_torch(resp.result_tensor)
                               if resp.HasField("result_tensor") else None)
+                    sp.set(attempts=attempt + 1)
                     completed = True
                     self._note_conn_result(None)
                     return resp.status, result
@@ -337,15 +367,31 @@ class NodeClient:
                     code = (e.code() if isinstance(e, grpc.RpcError)
                             else grpc.StatusCode.DATA_LOSS)
                     self._note_conn_result(code)
+                    if m is not None and \
+                            code == grpc.StatusCode.DEADLINE_EXCEEDED:
+                        m.inc(labeled("comm.deadline_exceeded_total",
+                                      target=self.address))
                     worst = backoff * (2 ** attempt)
                     if (code not in RETRYABLE_CODES or attempt >= retries
                             or deadline - time.monotonic() <= worst):
+                        sp.set(error=str(code), attempts=attempt + 1)
                         raise
+                    if m is not None:
+                        m.inc(labeled("comm.retries_total",
+                                      target=self.address,
+                                      outcome=code.name.lower()))
                     time.sleep(full_jitter_delay(backoff, attempt))
                     attempt += 1
         finally:
+            # a ticket (mailbox entry, shm slot) lives until the hop
+            # resolves, so retries resend it
+            if completed:
+                neg.sender.sent_ok(request)
+            else:
+                neg.sender.cleanup(request)
             if self.breaker is not None:
                 self.breaker.record(completed)
+            sp.end()
 
     def send_tensors(self, arrs, *, request_id: str = "req",
                      timeout: float = 120.0,
@@ -371,11 +417,12 @@ class NodeClient:
         neg = self.negotiated()
         if neg.relay_known and not neg.relay_ok:
             return self._send_each(arrs, request_id, timeout)
-        sent_at = {}
+        sent_at, pending = {}, {}
 
         def frames():
             for seq, arr in enumerate(arrs):
                 req = neg.sender.make_request(arr, request_id)
+                pending[seq] = req
                 sent_at[seq] = time.perf_counter()
                 yield from tx.split_requests(req, seq)
 
@@ -391,6 +438,8 @@ class NodeClient:
                 if seq is not None:
                     if 0 <= seq < len(arrs) and seq in sent_at:
                         ack_s[seq] = time.perf_counter() - sent_at[seq]
+                    if seq in pending:  # the ack frees the ticket
+                        neg.sender.sent_ok(pending.pop(seq))
                     continue
                 seq, human = tx.parse_result(resp.status)
                 if seq is None or seq < 0:
@@ -402,9 +451,14 @@ class NodeClient:
         except grpc.RpcError as e:
             if e.code() != grpc.StatusCode.UNIMPLEMENTED:
                 raise
+            for req in pending.values():
+                neg.sender.cleanup(req)
+            pending.clear()
             return self._send_each(arrs, request_id, timeout)
         finally:
             stream.cancel()  # a no-op on a finished stream
+            for req in pending.values():
+                neg.sender.cleanup(req)
         missing = [i for i in range(len(arrs)) if i not in results]
         if missing:
             raise RuntimeError(
@@ -562,4 +616,7 @@ class NodeClient:
             request_id="kvpull", timeout=timeout)[0]
 
     def close(self):
+        neg, self._negotiated = self._negotiated, None
+        if neg is not None:
+            neg.sender.close()  # an shm ring's segments
         self._channel.close()

@@ -1,28 +1,42 @@
 """gRPC service for the NodeService wire (port of
-dnn_tpu/comm/service.py:90-967, the grpc rung).
+dnn_tpu/comm/service.py:90-967).
 
 Methods are registered with explicit (de)serializer callables — the
 hand-coded codec for the Tensor messages, the generated protobuf classes
 for the rest — so a peer running either package, or real protobuf,
 interoperates byte for byte.
 
-`StageServer` serves one pipeline stage. Unary SendTensor decodes the
-activation, computes the stage off the event loop, and either answers
-with the last stage's result ("Processing complete. Prediction: N") or
-forwards to the next node over one shared channel, with bounded retries
-on transient codes inside a deadline that covers the rest of the
-pipeline. The streamed `Relay` RPC acks each microbatch as soon as it is
-accepted, computes the accepted ones in order, forwards each over a
-downstream Relay stream when the next peer's hello advertises it (else
-over the unary chain), and pumps the results back upstream as
-`res:<seq>:` frames (framing in comm/transport.py). SendMessage answers
-the transport hello by declining every rung beyond grpc while
-advertising Relay.
+`StageServer` serves one pipeline stage. An activation comes in inline,
+or as a transport ticket (comm/transport.py: a device ticket resolves to
+the parked CUDA tensor after its producer's event, an shm ticket's
+payload is copied out of its ring slot), on unary SendTensor and on
+Relay's ingress. The stage computes off the event loop and its output
+stays on the card; the negotiated downstream sender decides whether host
+bytes ever exist. The last stage answers "Processing complete.
+Prediction: N"; the others forward over the hop they negotiated with the
+next node (device, shm or grpc, per `transport`), with bounded retries
+on transient codes inside a budget derived from the rung
+(transport.hop_budget_s). The streamed `Relay` RPC acks each microbatch
+as soon as it is accepted, computes the accepted ones in order, forwards
+each over a downstream Relay stream when the next peer's hello
+advertises it (else over the unary chain), and pumps the results back
+upstream as `res:<seq>:` frames; a downstream ack frees the sent
+ticket's slot or mailbox entry. SendMessage answers the transport hello
+(TransportHost: the highest rung this process can prove, with Relay).
 
-Left out of the Relay port: the JAX package's spans and metrics
-(`comm.hop_seconds`, `comm.hop_ack_seconds`, ...) and shm ticket copies
-(no shm rung), both ROADMAP Queue 1 item 7's remainder, and the chaos
-hook in the chunk assembler (Queue 1 item 11).
+Observability, with JAX's names and labels: a `stage.request` root span
+a request, continued from the sender's `tr=` tag, with `stage.compute`
+and `rpc.forward` children (the forwarded request id tagged with the
+forward's span, so the downstream stage's spans nest under it);
+`comm.hop_seconds{stage,transport,mode}`, `comm.hop_ack_seconds`,
+`comm.rpc_latency_seconds{method,role,stage,transport}`,
+`comm.payload_bytes_total{direction,stage}`,
+`comm.deadline_exceeded_total` and `comm.retries_total`. Chaos seams:
+`perturb_rpc("stage", next_address)` before each downstream send,
+`perturb_relay()` for every inbound Relay frame (transport.ChunkAssembler).
+`serve_stage(..., metrics_port=)` serves /metrics, /healthz, /debugz and
+/profilez beside the stage; kernel builds count themselves
+(obs/compile_watch.py).
 """
 
 from __future__ import annotations
@@ -40,16 +54,19 @@ import grpc
 import numpy as np
 import torch
 
-from dnn_tpu_torch import native
+from dnn_tpu_torch import native, obs
+from dnn_tpu_torch.chaos import inject as _chaos_inject
 from dnn_tpu_torch.comm import transport as tx
 from dnn_tpu_torch.comm import wire_pb2 as pb
 from dnn_tpu_torch.comm import wirecodec as wc
 from dnn_tpu_torch.comm.transport import (
     HELLO_SENDER,
+    PER_STAGE_BUDGET_S,
     extract_deadline,
     tag_deadline,
 )
 from dnn_tpu_torch.parallel.pipeline import sync
+from dnn_tpu_torch.utils.metrics import labeled
 
 log = logging.getLogger("dnn_tpu_torch.comm")
 
@@ -71,9 +88,9 @@ RETRYABLE_CODES = frozenset({
     grpc.StatusCode.DATA_LOSS,
 })
 
-# One stage's slice of a pipeline deadline: compute (first calls
-# included) plus the wire margin, as the JAX package's gRPC budget.
-PER_STAGE_BUDGET_S = 30.0
+__all__ = ["PER_STAGE_BUDGET_S", "RETRYABLE_CODES", "SERVICE_NAME",
+           "StageServer", "serve_stage", "start_stage_servers_in_background",
+           "start_stage_server_in_background"]
 
 
 def full_jitter_delay(backoff: float, attempt: int) -> float:
@@ -131,9 +148,12 @@ def _handlers(servicer):
 class StageServer:
     """Serves the stage of `node_id` (its part of the topology config)
     from `engine` (a PipelineEngine, usually role="stage").
-    `transport` is the downstream hop's: "auto" negotiates (and so learns
-    whether the next peer speaks Relay), "grpc" skips the hello and
-    forwards over the unary chain."""
+    `transport` is the downstream hop's preference (auto | grpc | shm |
+    device; None follows the engine's config): "auto" negotiates device
+    -> shm -> grpc (and so learns whether the next peer speaks Relay),
+    "grpc" skips the hello, an explicit "device" or "shm" that the next
+    peer cannot grant raises TransportMisconfigError at the first
+    forward."""
 
     #: how many accepted microbatches a Relay stream may hold acked but
     #: not yet computed; a full queue stalls the reads, so the acks, so
@@ -143,10 +163,8 @@ class StageServer:
     def __init__(self, engine, node_id: str, transport: Optional[str] = None):
         transport = engine.transport if transport is None else transport
         if transport not in tx.TRANSPORTS:
-            raise NotImplementedError(
-                f"transport {transport!r}: the shm and device transports are "
-                "not ported to dnn_tpu_torch yet (ROADMAP Queue 1 item 7's "
-                "remainder); use grpc or auto")
+            raise ValueError(f"transport must be one of {tx.TRANSPORTS}, "
+                             f"got {transport!r}")
         native.load()  # build the checksum library before serving
         self.engine = engine
         self.config = engine.config
@@ -156,16 +174,29 @@ class StageServer:
         nxt = self.config.next_node(self.node)
         self.next_address = nxt.address if nxt else None
         self.transport = transport
+        self._thost = tx.TransportHost(stage=self.node.id)
         self._next_channel: Optional[grpc.aio.Channel] = None
         self._negotiated: Optional[tx.Negotiated] = None
+        self._hop_warm = False  # one send on the downstream hop succeeded
         self._neg_lock = asyncio.Lock()
 
+    def _ingress(self, tensor):
+        """Inbound payload -> (activation, the rung it came by): tickets
+        through the transport host (an shm payload copied out of its
+        slot, a device ticket's tensor after its event), inline tensors
+        decoded (checksum verified)."""
+        if self._thost.is_ticket(tensor):
+            rung = ("device" if tensor.dtype == tx.TICKET_DTYPE_DEV
+                    else "shm")
+            return self._thost.resolve(tensor), rung
+        return wc.tensor_torch(tensor), "grpc"
+
     def _compute_stage(self, x):
-        """This stage on its device, then the result on the host (runs
-        on a worker thread)."""
+        """This stage on its device, waited for (honest compute spans);
+        the output stays on the device (runs on a worker thread)."""
         y = self.engine.run_stage(self.part_index, x)
         sync(y.device)
-        return y.cpu()
+        return y
 
     def _result(self, y):
         """The last stage's (status, result Tensor) for output y (runs on
@@ -175,6 +206,16 @@ class StageServer:
                  pred)
         return (f"[{self.node.id}] Processing complete. Prediction: {pred}",
                 wc.make_tensor(y))
+
+    def _next_device(self):
+        """The downstream stage's device when this engine runs it too
+        (lets the device sender start the copy before the control
+        message)."""
+        relay = getattr(self.engine, "_relay", None)
+        nxt = self.part_index + 1
+        if relay is not None and nxt < len(relay.devices):
+            return relay.devices[nxt]
+        return None
 
     def _channel(self) -> grpc.aio.Channel:
         """The one channel to the next node, opened on first use (on the
@@ -188,15 +229,29 @@ class StageServer:
         nid = self.node.id
         t_handler = time.perf_counter()
         inbound_dl = extract_deadline(request.request_id)
+        m = obs.metrics()
+        if m is not None:
+            m.inc(labeled("comm.payload_bytes_total", direction="in",
+                          stage=nid), request.ByteSize())
+        root = obs.continue_or_start("stage.request", request.request_id,
+                                     stage=nid, part=self.part_index)
         result_msg = None
+        t_in = "grpc"
         try:
             try:
-                x = wc.tensor_torch(request.tensor)
+                x, t_in = self._ingress(request.tensor)
             except wc.PayloadCorruptError as e:
                 # fail the RPC itself so the sender's retry sees DATA_LOSS
                 log.warning("corrupt payload on %s: %s", nid, e)
+                root.end(error="payload_corrupt")
                 await context.abort(grpc.StatusCode.DATA_LOSS, str(e))
-            y = await asyncio.to_thread(self._compute_stage, x)
+            except tx.TransportError as e:
+                log.warning("transport ticket error on %s: %s", nid, e)
+                root.end(error="transport_ticket")
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            root.set(transport=t_in)
+            with root.child("stage.compute", part=self.part_index):
+                y = await asyncio.to_thread(self._compute_stage, x)
             if self.is_last:
                 status, result_msg = await asyncio.to_thread(self._result, y)
             else:
@@ -204,9 +259,11 @@ class StageServer:
                 if inbound_dl is not None:
                     budget = inbound_dl - (time.perf_counter() - t_handler)
                 resp = await self._forward(request.request_id, y,
+                                           parent=root,
                                            inbound_budget=budget)
                 status = f"[{nid}] Forwarded. Next node status: {resp.status}"
-                result_msg = resp.result_tensor
+                if resp.HasField("result_tensor"):
+                    result_msg = resp.result_tensor
         except grpc.aio.AbortError:
             raise
         except grpc.aio.AioRpcError as e:
@@ -216,32 +273,46 @@ class StageServer:
         except Exception as e:  # noqa: BLE001 — relayed as a status string
             log.exception("error processing tensor on %s", nid)
             status = f"[{nid}] Error: {e}"
-        return wc.TensorResponse(status=status, result_tensor=result_msg)
+        finally:
+            root.end()
+        if m is not None:
+            m.observe_hist(labeled("comm.rpc_latency_seconds",
+                                   method="SendTensor", role="server",
+                                   stage=nid, transport=t_in),
+                           time.perf_counter() - t_handler)
+        resp_msg = wc.TensorResponse(status=status, result_tensor=result_msg)
+        if m is not None:
+            m.inc(labeled("comm.payload_bytes_total", direction="out",
+                          stage=nid), resp_msg.ByteSize())
+        return resp_msg
 
     async def HealthCheck(self, request, context):  # noqa: N802
         return pb.HealthCheckResponse(is_healthy=True)
 
     async def SendMessage(self, request, context):  # noqa: N802
         if request.sender_id.startswith(HELLO_SENDER):
-            return pb.MessageReply(
-                confirmation_text=tx.answer_hello(request.message_text))
+            return pb.MessageReply(confirmation_text=self._thost.answer_hello(
+                request.message_text))
         log.info("message for %s from %s", self.node.id, request.sender_id)
         return pb.MessageReply(confirmation_text=(
             f"[{self.node.id}] got msg '{request.message_text}'"))
 
     async def Relay(self, request_iterator, context):  # noqa: N802
         """The streamed relay. Each inbound microbatch (one frame, or the
-        chunks of one payload) is acked upstream as soon as it is
-        accepted into a bounded queue (ACCEPT_WINDOW deep), and one loop
-        computes the accepted microbatches in order off the event loop,
-        so the upstream sender moves on while this stage computes. A
-        computed microbatch goes downstream over a Relay stream when the
-        next peer's hello advertised one, else over the unary chain; the
-        results come back up as `res:<seq>:` frames. A microbatch that
-        fails (a corrupt payload, a compute error, a failed unary
-        forward) answers its own seq with an error status and the stream
-        goes on; a frame that breaks the framing ends the stream with
-        `res:-1:`. Never retried: the acks already released the sender.
+        chunks of one payload; a ticket is one frame) is acked upstream as
+        soon as it is accepted into a bounded queue (ACCEPT_WINDOW deep;
+        an shm payload is copied out of its slot first: the ack licenses
+        the sender to reuse it), and one loop computes the accepted
+        microbatches in order off the event loop, so the upstream sender
+        moves on while this stage computes. A computed microbatch goes
+        downstream over a Relay stream when the next peer's hello
+        advertised one, else over the unary chain; the results come back
+        up as `res:<seq>:` frames, and a downstream ack releases the sent
+        ticket (`comm.hop_ack_seconds`: submit to downstream accept). A
+        microbatch that fails answers its own seq with an error status
+        and the stream goes on; a frame that breaks the framing ends the
+        stream with `res:-1:`. Never retried: the acks already released
+        the sender.
 
         Backpressure: the downstream frames go through a writer queue of
         2 x ACCEPT_WINDOW, so a slow downstream stalls the compute loop,
@@ -249,10 +320,12 @@ class StageServer:
         upstream queue without bound, so the downstream pump never waits
         on this stream's consumer."""
         nid = self.node.id
+        m = obs.metrics()
         out_q: asyncio.Queue = asyncio.Queue()
         accept_q: asyncio.Queue = asyncio.Queue(maxsize=self.ACCEPT_WINDOW)
         done = object()
-        ds: dict = {"call": None, "wq": None, "writer": None, "pump": None}
+        ds: dict = {"call": None, "wq": None, "writer": None, "pump": None,
+                    "pending": {}, "sent_at": {}}
 
         async def write_downstream(call, wq):
             try:
@@ -270,18 +343,33 @@ class StageServer:
                 except Exception:  # noqa: BLE001 — an already broken call
                     pass
 
-        async def pump_downstream(call):
+        async def pump_downstream(call, neg):
             try:
                 async for resp in call:
-                    if tx.parse_ack(resp.status) is None:
+                    seq = tx.parse_ack(resp.status)
+                    if seq is None:
                         await out_q.put(resp)
+                        continue
+                    req = ds["pending"].pop(seq, None)
+                    if req is not None:
+                        neg.sender.sent_ok(req)
+                    t_sent = ds["sent_at"].pop(seq, None)
+                    if m is not None and t_sent is not None:
+                        dt = time.perf_counter() - t_sent
+                        m.observe(labeled("comm.hop_ack_seconds", stage=nid,
+                                          transport=neg.name), dt)
+                        m.observe_hist(labeled(
+                            "comm.rpc_latency_seconds", method="relay_hop",
+                            role="client", stage=nid, transport=neg.name),
+                            dt)
+                    self._hop_warm = True
             except grpc.aio.AioRpcError as e:
                 await out_q.put(wc.TensorResponse(status=tx.result_status(
                     -1, f"[{nid}] Error forwarding: {e.details()}")))
             finally:
                 await out_q.put(done)
 
-        def open_downstream():
+        def open_downstream(neg):
             call = self._channel().stream_stream(
                 f"/{SERVICE_NAME}/Relay",
                 request_serializer=wc.serialize_request,
@@ -290,23 +378,39 @@ class StageServer:
             ds["wq"] = asyncio.Queue(maxsize=2 * self.ACCEPT_WINDOW)
             ds["writer"] = asyncio.ensure_future(
                 write_downstream(call, ds["wq"]))
-            ds["pump"] = asyncio.ensure_future(pump_downstream(call))
+            ds["pump"] = asyncio.ensure_future(pump_downstream(call, neg))
 
-        async def forward_one(base_rid, seq, y):
+        async def forward_one(base_rid, seq, y, root):
             neg = await self._ensure_negotiated()
             if neg.relay_ok:
                 if ds["call"] is None:
-                    open_downstream()
-                req = neg.sender.make_request(y, base_rid)
+                    open_downstream(neg)
+                sp = obs.start_span("rpc.forward", parent=root,
+                                    target=self.next_address,
+                                    transport=neg.name, streamed=True)
+                t0 = time.perf_counter()
+                rid_out = obs.tag_request_id(base_rid, sp)
+                req = neg.sender.make_request_nowait(y, rid_out)
+                if req is None:  # a full shm ring: wait off the loop
+                    req = await asyncio.to_thread(neg.sender.make_request,
+                                                  y, rid_out)
+                ds["pending"][seq] = req
+                ds["sent_at"][seq] = t0
                 for frame in tx.split_requests(req, seq):
                     await ds["wq"].put(frame)
+                if m is not None:
+                    m.observe(labeled("comm.hop_seconds", stage=nid,
+                                      transport=neg.name, mode="streamed"),
+                              time.perf_counter() - t0)
+                sp.end()
                 return
-            resp = await self._forward(base_rid, y)
+            resp = await self._forward(base_rid, y, parent=root)
             await out_q.put(wc.TensorResponse(
                 status=tx.result_status(
                     seq, f"[{nid}] Forwarded. Next node status: "
                          f"{resp.status}"),
-                result_tensor=resp.result_tensor))
+                result_tensor=resp.result_tensor
+                if resp.HasField("result_tensor") else None))
 
         async def read_inputs():
             asm = tx.ChunkAssembler()
@@ -316,14 +420,15 @@ class StageServer:
                     if whole is None:
                         continue
                     base_rid, seq, tensor = whole
+                    t0 = time.perf_counter()
                     try:
-                        x = wc.tensor_torch(tensor)
+                        x, t_in = self._ingress(tensor)
                     except ValueError as e:  # PayloadCorruptError included
-                        x = e
-                    await accept_q.put((base_rid, seq, x))
+                        x, t_in = e, "grpc"
+                    await accept_q.put((base_rid, seq, x, t_in, t0))
                     await out_q.put(wc.TensorResponse(
                         status=tx.ack_status(seq)))
-            except tx.TransportError as e:
+            except (tx.TransportError, wc.PayloadCorruptError) as e:
                 log.warning("relay framing error on %s: %s", nid, e)
                 await out_q.put(wc.TensorResponse(status=tx.result_status(
                     -1, f"[{nid}] Error: {e}")))
@@ -332,23 +437,35 @@ class StageServer:
 
         async def compute_loop():
             while (item := await accept_q.get()) is not None:
-                base_rid, seq, x = item
+                base_rid, seq, x, t_in, t0 = item
+                root = obs.continue_or_start(
+                    "stage.request", base_rid, stage=nid,
+                    part=self.part_index, transport=t_in, seq=seq)
                 try:
                     if isinstance(x, Exception):
                         raise x
-                    y = await asyncio.to_thread(self._compute_stage, x)
+                    with root.child("stage.compute", part=self.part_index):
+                        y = await asyncio.to_thread(self._compute_stage, x)
                     if self.is_last:
                         status, msg = await asyncio.to_thread(self._result, y)
                         await out_q.put(wc.TensorResponse(
                             status=tx.result_status(seq, status),
                             result_tensor=msg))
                     else:
-                        await forward_one(base_rid, seq, y)
+                        await forward_one(base_rid, seq, y, root)
                 except Exception as e:  # noqa: BLE001 — this item's error
                     log.warning("relay item %s failed on %s: %s", seq, nid,
                                 e)
+                    root.set(error=str(e))
                     await out_q.put(wc.TensorResponse(status=tx.result_status(
                         seq, f"[{nid}] Error: {e}")))
+                finally:
+                    root.end()
+                if m is not None:
+                    m.observe_hist(labeled(
+                        "comm.rpc_latency_seconds", method="Relay",
+                        role="server", stage=nid, transport=t_in),
+                        time.perf_counter() - t0)
             if ds["writer"] is None:
                 await out_q.put(done)
             else:
@@ -368,11 +485,17 @@ class StageServer:
                     task.cancel()
             if ds["call"] is not None:
                 ds["call"].cancel()
+            neg = self._negotiated
+            if neg is not None:
+                for req in ds["pending"].values():
+                    neg.sender.cleanup(req)
+            ds["pending"].clear()
 
     async def _ensure_negotiated(self) -> tx.Negotiated:
         """The downstream hop's handshake, once. A hello that fails
         (the next node not up yet) gives an uncached grpc verdict without
-        Relay, so the next forward asks again."""
+        Relay, so the next forward asks again; an explicit rung the peer
+        refuses raises TransportMisconfigError."""
         async with self._neg_lock:
             if self._negotiated is not None:
                 return self._negotiated
@@ -384,57 +507,117 @@ class StageServer:
                 f"/{SERVICE_NAME}/SendMessage",
                 request_serializer=pb.MessageRequest.SerializeToString,
                 response_deserializer=pb.MessageReply.FromString)
-            offer = tx.build_offer()
+            offer, probe = tx.build_offer(self.transport)
             try:
-                reply = await call(pb.MessageRequest(
-                    sender_id=HELLO_SENDER, message_text=json.dumps(offer)),
-                    timeout=10.0)
-            except grpc.aio.AioRpcError as e:
-                return tx.Negotiated("grpc", tx.GrpcSender(),
-                                     reason=f"hello failed: {e.code()}")
-            self._negotiated = tx.conclude(offer, reply.confirmation_text)
-            return self._negotiated
+                try:
+                    reply = await call(pb.MessageRequest(
+                        sender_id=HELLO_SENDER,
+                        message_text=json.dumps(offer)), timeout=10.0)
+                except grpc.aio.AioRpcError as e:
+                    return tx.Negotiated("grpc", tx.GrpcSender(),
+                                         reason=f"hello failed: {e.code()}")
+                self._negotiated = tx.conclude(
+                    offer, reply.confirmation_text, transport=self.transport,
+                    target=self.next_address, device=self._next_device())
+                return self._negotiated
+            finally:
+                tx.close_probe(probe)
 
     async def _forward(self, request_id: str, y, *, retries: int = 2,
-                       backoff: float = 0.2,
+                       backoff: float = 0.2, parent=None,
                        inbound_budget: Optional[float] = None):
-        """Send y downstream. One budget covers every attempt and backoff
-        sleep: PER_STAGE_BUDGET_S per remaining stage, capped by what the
-        sender still had; each attempt's deadline (and its dl= tag) is
-        what is left of it."""
-        timeout = PER_STAGE_BUDGET_S * max(
-            self.config.num_parts - self.part_index - 1, 1)
+        """Send y downstream over the negotiated rung, under an
+        `rpc.forward` span whose id tags the forwarded request. One budget
+        covers every attempt and backoff sleep: transport.hop_budget_s
+        for the remaining stages (a warm device or shm hop budgets
+        seconds), capped by what the sender still had; each attempt's
+        deadline (and its dl= tag) is what is left of it. A ticket lives
+        until the response lands, so a retry resends it; it is released
+        in every outcome, a cancellation included."""
+        neg = await self._ensure_negotiated()
+        nid = self.node.id
+        sp = obs.start_span("rpc.forward", parent=parent,
+                            target=self.next_address, transport=neg.name)
+        downstream = max(self.config.num_parts - self.part_index - 1, 1)
+        timeout = tx.hop_budget_s(neg.name, downstream, warm=self._hop_warm)
         if inbound_budget is not None:
             timeout = max(min(timeout, inbound_budget), 0.001)
+        rid_out = tag_deadline(obs.tag_request_id(request_id, sp), timeout)
+        request = neg.sender.make_request_nowait(y, rid_out)
+        if request is None:
+            request = await asyncio.to_thread(neg.sender.make_request, y,
+                                              rid_out)
         call = self._channel().unary_unary(
             f"/{SERVICE_NAME}/SendTensor",
             request_serializer=wc.serialize_request,
             response_deserializer=wc.parse_response)
-        request = wc.TensorRequest(request_id=request_id,
-                                   tensor=wc.make_tensor(y))
+        m = obs.metrics()
         deadline = time.monotonic() + timeout
         attempt = 0
-        while True:
-            remaining = deadline - time.monotonic()
-            request.request_id = tag_deadline(request_id, remaining)
-            try:
-                return await call(request, timeout=max(remaining, 0.001))
-            except grpc.RpcError as e:
-                worst = backoff * (2 ** attempt)
-                if (e.code() not in RETRYABLE_CODES or attempt >= retries
-                        or deadline - time.monotonic() <= worst):
-                    raise
-                delay = full_jitter_delay(backoff, attempt)
-                log.warning("forward %s -> %s failed (%s), retry %d/%d in "
-                            "%.2fs", self.node.id, self.next_address,
-                            e.code(), attempt + 1, retries, delay)
-                await asyncio.sleep(delay)
-                attempt += 1
+        completed = False
+        try:
+            while True:
+                remaining = deadline - time.monotonic()
+                request.request_id = tag_deadline(rid_out,
+                                                  max(remaining, 0.001))
+                t_try = time.perf_counter()
+                if m is not None:
+                    m.inc(labeled("comm.payload_bytes_total",
+                                  direction="out", stage=nid),
+                          request.ByteSize())
+                try:
+                    _chaos_inject.perturb_rpc("stage", self.next_address)
+                    resp = await call(request, timeout=max(remaining, 0.001))
+                    dt = time.perf_counter() - t_try
+                    if m is not None:
+                        m.observe_hist(labeled(
+                            "comm.rpc_latency_seconds", method="forward",
+                            role="client", stage=nid, transport=neg.name),
+                            dt)
+                        m.observe(labeled("comm.hop_seconds", stage=nid,
+                                          transport=neg.name, mode="nested"),
+                                  dt)
+                    sp.set(attempts=attempt + 1)
+                    completed = True
+                    self._hop_warm = True
+                    return resp
+                except (grpc.RpcError, wc.PayloadCorruptError) as e:
+                    code = (e.code() if isinstance(e, grpc.RpcError)
+                            else grpc.StatusCode.DATA_LOSS)
+                    if m is not None and \
+                            code == grpc.StatusCode.DEADLINE_EXCEEDED:
+                        m.inc(labeled("comm.deadline_exceeded_total",
+                                      stage=nid))
+                    worst = backoff * (2 ** attempt)
+                    if (code not in RETRYABLE_CODES or attempt >= retries
+                            or deadline - time.monotonic() <= worst):
+                        sp.set(error=str(code), attempts=attempt + 1)
+                        raise
+                    delay = full_jitter_delay(backoff, attempt)
+                    if m is not None:
+                        m.inc(labeled("comm.retries_total", stage=nid,
+                                      outcome=code.name.lower()))
+                    log.warning("forward %s -> %s failed (%s), retry %d/%d "
+                                "in %.2fs [trace=%s]", nid,
+                                self.next_address, code, attempt + 1,
+                                retries, delay, sp.trace_id or "-")
+                    await asyncio.sleep(delay)
+                    attempt += 1
+        finally:
+            if completed:
+                neg.sender.sent_ok(request)
+            else:
+                neg.sender.cleanup(request)
+            sp.end()
 
     async def close(self):
         if self._next_channel is not None:
             await self._next_channel.close()
             self._next_channel = None
+        neg, self._negotiated = self._negotiated, None
+        if neg is not None:
+            neg.sender.close()
+        self._thost.close()
 
 
 async def _start_stage(engine, node_id, port, transport):
@@ -448,8 +631,9 @@ async def _start_stage(engine, node_id, port, transport):
     if server.add_insecure_port(f"[::]:{bind_port}") == 0:
         raise RuntimeError(f"failed to bind gRPC server to [::]:{bind_port}")
     await server.start()
-    log.info("gRPC stage server %s listening on [::]:%d (part %d)", node_id,
-             bind_port, servicer.part_index)
+    log.info("gRPC stage server %s listening on [::]:%d (part %d, "
+             "transport=%s)", node_id, bind_port, servicer.part_index,
+             servicer.transport)
     return servicer, server
 
 
@@ -479,14 +663,28 @@ async def serve_until_terminated(server) -> int:
 
 
 async def serve_stage(engine, node_id: str, *, port: Optional[int] = None,
-                      transport: Optional[str] = None) -> int:
+                      transport: Optional[str] = None,
+                      metrics_port: Optional[int] = None) -> int:
     """Serve this node's stage until termination; SIGTERM stops it
-    cleanly (rc 0)."""
+    cleanly (rc 0). `metrics_port` (None = off, 0 = ephemeral) also
+    serves the observability endpoint (JAX :517-563): /metrics (the
+    per-stage RPC latencies by rung, payload bytes, retries, deadlines,
+    negotiations, kernel builds, the card's memory gauges), /healthz,
+    /trace, /debugz (the flight ring: chaos_inject, transport_fallback)
+    and /profilez."""
     servicer, server = await _start_stage(engine, node_id, port, transport)
+    metrics_srv = None
+    if metrics_port is not None:
+        metrics_srv = obs.serve_metrics(metrics_port,
+                                        device=engine.devices[0])
+        log.info("stage %s observability on http://127.0.0.1:%d/metrics",
+                 node_id, metrics_srv.port)
     try:
         return await serve_until_terminated(server)
     finally:
         await servicer.close()
+        if metrics_srv is not None:
+            metrics_srv.close()
 
 
 def start_stage_servers_in_background(stages, *,

@@ -133,6 +133,10 @@ class Tensor:
             parts.append(b"\x20" + _encode_varint(self.crc32c & 0xFFFFFFFF))
         return parts
 
+    def ByteSize(self) -> int:  # noqa: N802 — pb API
+        """The serialized size (the payload is not copied)."""
+        return sum(len(p) for p in self._parts())
+
 
 def _parse_tensor(buf: memoryview) -> Tensor:
     t = Tensor()
@@ -171,6 +175,10 @@ class TensorRequest:
         parts.extend(sub)
         return parts
 
+    def ByteSize(self) -> int:  # noqa: N802 — pb API
+        """The serialized size (the payload is not copied)."""
+        return sum(len(p) for p in self._parts())
+
 
 class TensorResponse:
     __slots__ = ("status", "result_tensor")
@@ -195,6 +203,10 @@ class TensorResponse:
             parts.append(b"\x12" + _encode_varint(sum(len(p) for p in sub)))
             parts.extend(sub)
         return parts
+
+    def ByteSize(self) -> int:  # noqa: N802 — pb API
+        """The serialized size (the payload is not copied)."""
+        return sum(len(p) for p in self._parts())
 
 
 def serialize_request(msg: TensorRequest) -> bytes:

@@ -857,6 +857,80 @@ class LlamaFamilyRows:
 # pipeline partitioning + registry
 # --------------------------------------------------------------------------
 
+class LlamaPipelineFamily:
+    """Pipeline-parallel decode hooks (JAX :1401; see
+    runtime/generate.GPTPipelineFamily): stage-local cache shards at
+    KV-head width, RoPE at the ring's absolute positions. Alternating
+    windows and MoE configs are refused with JAX's messages."""
+
+    def __init__(self, cfg: LlamaConfig, *, compute_dtype=None,
+                 kv_dtype=None):
+        from dnn_tpu_torch.runtime.generate import check_compute_dtype
+
+        if cfg.alt_window:
+            raise ValueError(
+                "alternating-window configs (Gemma-2) are not supported on "
+                "the pipeline decode path: the stage scan has no per-layer "
+                "window channel (use the solo decoder or the batcher)")
+        if cfg.default_ffn(compute_dtype) is not None:
+            raise ValueError(
+                "MoE configs are not supported on this pipeline decode "
+                "path (MoE pipeline decode is runtime/generate_moe's "
+                "machinery)")
+        self.cfg = cfg
+        self.compute_dtype = check_compute_dtype(compute_dtype)
+        self.kv_dtype = kv_dtype
+
+    def stage_cache(self, per_stage, batch, s_max, device):
+        from dnn_tpu_torch.runtime.generate import _cache_dtype
+
+        dt = _cache_dtype(self.kv_dtype if self.kv_dtype is not None
+                          else self.compute_dtype)
+        stage_cfg = dataclasses.replace(self.cfg, n_layer=per_stage)
+        return init_cache(stage_cfg, batch, s_max, dt, device)
+
+    def codec(self, cache):
+        from dnn_tpu_torch.runtime.kvcache import codec_for_cache
+
+        return codec_for_cache(cache, window=self.cfg.sliding_window,
+                               softcap=self.cfg.attn_softcap)
+
+    def block_with_cache(self, bp, x, layer_cache, start_pos, codec):
+        return _block_with_cache(bp, x, layer_cache, start_pos, cfg=self.cfg,
+                                 codec=codec,
+                                 compute_dtype=self.compute_dtype)
+
+    def embed(self, aux, ids, start_pos):
+        return _embedded(aux, ids, self.cfg, self.compute_dtype)
+
+    def head(self, aux, h):
+        return head(aux, h.float(), cfg=self.cfg,
+                    compute_dtype=self.compute_dtype)
+
+
+def make_pipeline_generate(cfg: LlamaConfig, mesh, *, max_new_tokens: int,
+                           temperature: float = 0.0,
+                           top_k: Optional[int] = None,
+                           top_p: Optional[float] = None,
+                           compute_dtype=None, axis_name=None,
+                           kv_dtype=None):
+    """Pipeline-parallel generation for the LLaMA family (JAX :1448):
+    runtime/generate.make_pipeline_generate with LlamaPipelineFamily;
+    each stage keeps its blocks and its KV-head cache shard. Tokens equal
+    llama.make_generate's for the same seed (a uniformly windowed config
+    keeps a full-length banded shard where the solo decoder rolls a
+    ring: the same function)."""
+    from dnn_tpu_torch.runtime.generate import (
+        make_pipeline_generate as _mk,
+    )
+
+    return _mk(cfg, mesh, max_new_tokens=max_new_tokens,
+               temperature=temperature, top_k=top_k, top_p=top_p,
+               compute_dtype=compute_dtype, axis_name=axis_name,
+               family=LlamaPipelineFamily(cfg, compute_dtype=compute_dtype,
+                                          kv_dtype=kv_dtype))
+
+
 def make_partition(cfg: LlamaConfig, *, compute_dtype=None):
     """partition(num_parts) -> StageSpecs over the per-layer tree (JAX's
     make_partition :1474): the first stage embeds, the last runs the

@@ -3,7 +3,8 @@
     # a pipeline stage behind gRPC; part 0 with --input_image also sends
     # the image through the pipeline and prints the prediction
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json --serve \\
-        [--input_image img.png] [--transport {auto,grpc}]
+        [--input_image img.png] [--transport {auto,grpc,shm,device}] \\
+        [--metrics_port PORT] [--chaos PLAN]
     # the whole pipeline in this process (the single-controller default)
     python -m dnn_tpu_torch.node --node_id node1 --config cfg.json \\
         [--input_image img.png]
@@ -40,7 +41,10 @@ runs on the CUDA card unless the config's
 default raises. The LM daemon drains on SIGTERM (exit 0) and exits 43
 when its watchdog's wedged policy escalates; --metrics_port serves GET
 /metrics /healthz /statusz /debugz /stepz /kvz and GET/POST /profilez,
-and POST /drainz. --fleet_port (with --serve_lm or --serve) runs the
+and POST /drainz; with --serve, /metrics /healthz /debugz /trace and
+/profilez of the stage server. --chaos installs a fault plan in either
+serving mode (the stage server's seams: perturb_rpc("stage") before
+each forward, perturb_relay() on Relay frames). --fleet_port (with --serve_lm or --serve) runs the
 fleet collector beside the mode and serves the merged /fleetz.
 """
 
@@ -50,6 +54,7 @@ import argparse
 import asyncio
 import logging
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -123,8 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host this node's stage behind gRPC")
     p.add_argument("--transport", choices=["auto", "grpc", "shm", "device"],
                    default=None,
-                   help="--serve: the hop transport; this port speaks grpc "
-                        "(auto resolves to it)")
+                   help="--serve: the inter-stage hop transport "
+                        "(comm/transport.py). 'auto' (default, or the "
+                        "config's `transport` key) negotiates device -> "
+                        "shm -> grpc per hop; an explicit device or shm "
+                        "that the next node cannot grant fails loud")
     p.add_argument("--serve_lm", action="store_true",
                    help="run the LM daemon")
     p.add_argument("--role", choices=["prefill", "decode", "both"],
@@ -212,8 +220,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="override the config's device_type")
     p.add_argument("--metrics_port", type=int, default=None,
-                   help="--serve_lm: also serve the observability endpoint "
-                        "on this port over plain HTTP: GET /metrics "
+                   help="--serve_lm / --serve: also serve the "
+                        "observability endpoint on this port over plain "
+                        "HTTP: GET /metrics "
                         "(Prometheus text), /healthz, /statusz (the "
                         "watchdog's per-component state), /debugz (the "
                         "flight recorder's ring), POST /drainz (0 = an "
@@ -257,7 +266,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fleet_interval", type=float, default=None,
                    help="--fleet_port: poll period in seconds (default 5)")
     p.add_argument("--chaos", default=None, metavar="PLAN",
-                   help="--serve_lm: install a fault-injection plan in this "
+                   help="--serve_lm / --serve: install a fault-injection "
+                        "plan in this "
                         "process (dnn_tpu_torch/chaos; a JSON file path or "
                         "inline JSON); each injection is a chaos_inject "
                         "flight event")
@@ -297,10 +307,12 @@ def _initiate_local(engine, image_path) -> int:
 
 
 async def _initiate_edge(engine, node_id: str, image_path: str,
-                         health_deadline: float = 60.0):
-    """Stage 0 here, then the activation down the gRPC pipeline once the
-    next node answers its health check; prints the prediction from the
-    response chain. Blocking work runs on worker threads, so this
+                         health_deadline: float = 60.0,
+                         transport: Optional[str] = None):
+    """Stage 0 here, then the activation down the pipeline once the next
+    node answers its health check, over the hop `transport` (None: the
+    config's, "auto" by default) negotiates; prints the prediction from
+    the response chain. Blocking work runs on worker threads, so this
     node's own server stays responsive."""
     from dnn_tpu_torch.comm.client import NodeClient, pipeline_budget
     from dnn_tpu_torch.io.preprocess import load_image_or_dummy
@@ -323,7 +335,8 @@ async def _initiate_edge(engine, node_id: str, image_path: str,
         pred = int(torch.argmax(y.float().flatten()))
         print(f"***** FINAL PREDICTION (Index): {pred} *****", flush=True)
         return
-    client = NodeClient(nxt.address)
+    client = NodeClient(nxt.address,
+                        transport=transport or cfg.transport)
     try:
         if not await asyncio.to_thread(client.wait_healthy,
                                        deadline=health_deadline):
@@ -582,12 +595,6 @@ def main(argv=None) -> int:
         if getattr(args, attr) != parser.get_default(attr):
             log.error("%s is not ported to dnn_tpu_torch yet (%s)", what, tag)
             return 2
-    if args.serve and (args.metrics_port is not None
-                       or args.chaos is not None):
-        log.error("--metrics_port/--chaos with --serve are not ported to "
-                  "dnn_tpu_torch yet (ROADMAP Queue 1 item 7's remainder: "
-                  "the stage servers' metrics and chaos seams)")
-        return 2
     if args.watchdog_s is not None and not args.serve_lm:
         log.error("--watchdog_s applies to --serve_lm only (the watchdog "
                   "monitors the LM daemon's decode loop)")
@@ -634,7 +641,7 @@ def main(argv=None) -> int:
                   "declares wedged)", args.on_wedged)
         return 1
     if args.chaos is not None:
-        if not args.serve_lm:
+        if not (args.serve or args.serve_lm):
             log.error("--chaos applies to the serving modes (--serve / "
                       "--serve_lm)")
             return 1
@@ -648,11 +655,6 @@ def main(argv=None) -> int:
         log.warning("chaos fault plan INSTALLED (%s): injected faults are "
                     "recorded as chaos_inject flight events",
                     args.chaos[:120])
-    if args.transport in ("shm", "device"):
-        log.error("--transport %s is not ported to dnn_tpu_torch yet (ROADMAP "
-                  "Queue 1 item 7's remainder); this port speaks grpc",
-                  args.transport)
-        return 2
     if args.transport is not None and not args.serve:
         log.error("--transport applies to --serve (the gRPC edge "
                   "deployment's inter-stage hops)")
@@ -763,10 +765,12 @@ def _serve(config, me, args) -> int:
 
         async def _run():
             tasks = [asyncio.create_task(serve_stage(
-                engine, args.node_id, transport=args.transport))]
+                engine, args.node_id, transport=args.transport,
+                metrics_port=args.metrics_port))]
             if me.part_index == 0 and args.input_image:
                 tasks.append(asyncio.create_task(
-                    _initiate_edge(engine, args.node_id, args.input_image)))
+                    _initiate_edge(engine, args.node_id, args.input_image,
+                                   transport=args.transport)))
             await asyncio.gather(*tasks)
 
         try:

@@ -9,10 +9,17 @@ Roles:
                  (`comm/service.StageServer`): only that stage's
                  parameters go to the device, at its first call.
 
-Runtimes: "relay" is ported; "spmd" (one program over a mesh of
-devices) is not. `runtime="spmd"` with fewer devices than parts raises
-the JAX package's message, and with enough devices NotImplementedError;
-"auto" resolves to relay.
+Runtimes (JAX's rule, `_pick_runtime`): "auto" is relay for one part,
+spmd when there are at least as many devices as parts, relay otherwise;
+an explicit spmd short of devices raises JAX's message. "spmd" runs the
+single-process stage mesh (parallel/pipeline.py: one stream a stage on
+`devices`, which may name one card several times): a dense GPT whose
+layers divide by the parts takes the stacked path (embed on stage 0,
+the head on the last stage, each stage's blocks on its device), every
+other model the heterogeneous path with its stages' weights packed a
+row a stage ("stage") or on every stage device ("replicated"), as
+`param_placement` resolves (`engine.param_placement`). A dense GPT on
+spmd decodes pipeline-parallel (runtime/generate.make_pipeline_generate).
 
 Weights come from the config's `model_weights` (`.pth`, `.safetensors`
 or `.npz`: a native flat tree, or a foreign state dict through the
@@ -24,6 +31,8 @@ with `rng_seed`; `lora_path` merges a LoRA artifact into them at load
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import logging
 from typing import Any, Optional
 
@@ -31,7 +40,8 @@ import numpy as np
 import torch
 
 from dnn_tpu_torch.config import TopologyConfig, config_device
-from dnn_tpu_torch.parallel.pipeline import RelayExecutor, place
+from dnn_tpu_torch.parallel.mesh import mesh_from_config
+from dnn_tpu_torch.parallel.pipeline import RelayExecutor, _leaves, place
 from dnn_tpu_torch.registry import get_model
 
 log = logging.getLogger("dnn_tpu_torch.engine")
@@ -156,32 +166,148 @@ class PipelineEngine:
         self._stage_params = [s.slice_params(self.params)
                               for s in self.stages]
         self._stage_params_on_device: dict = {}
+        self.mesh = None
+        self._relay = None
+        self._pipeline_fn = None
         if role == "stage":
             self.runtime = "stage"
-            self._relay = None
         else:
             self.runtime = self._pick_runtime()
-            self._relay = RelayExecutor([s.apply for s in self.stages],
-                                        self._stage_params, self.devices)
+            if self.runtime == "spmd":
+                self.mesh = mesh_from_config(config, self.devices)
+                self._pipeline_fn = self._build_spmd_fn()
+            else:
+                self._relay = RelayExecutor([s.apply for s in self.stages],
+                                            self._stage_params, self.devices)
         log.info("engine ready: model=%s parts=%d runtime=%s devices=%s "
                  "dtype=%s", config.model, config.num_parts, self.runtime,
                  ",".join(str(d) for d in self.devices), config.dtype)
 
     def _pick_runtime(self) -> str:
+        """JAX's rule (engine.py:198-226, one process): "auto" is relay
+        for one part, spmd when there are at least as many devices as
+        parts, else relay; spmd short of devices raises."""
         rt = self.config.runtime
         if rt == "auto":
-            return "relay"
+            if self.config.num_parts == 1:
+                return "relay"
+            rt = ("spmd" if len(self.devices) >= self.config.num_parts
+                  else "relay")
         if rt == "spmd" and len(self.devices) < self.config.num_parts:
             raise ValueError(
                 f"runtime=spmd needs >= {self.config.num_parts} devices, "
                 f"have {len(self.devices)} (use --serve / role='stage' to "
                 "host a single stage on a small host)")
-        if rt == "spmd":
-            raise NotImplementedError(
-                "runtime=spmd (one program over a device mesh) is not ported "
-                "to dnn_tpu_torch yet (ROADMAP Queue 1 item 7's remainder); "
-                "use runtime relay")
         return rt
+
+    # --- the spmd runtime -------------------------------------------------
+
+    def _effective_microbatches(self, batch: int) -> int:
+        """The config's microbatches for a batch: as given, or for 0
+        (auto) the largest divisor of the batch up to 2 * num_parts (JAX
+        :228)."""
+        m = self.config.microbatches
+        if m != 0:
+            return m
+        desired = max(2 * self.config.num_parts, 1)
+        for cand in range(min(desired, batch), 0, -1):
+            if batch % cand == 0:
+                return cand
+        return 1
+
+    def _gpt_stacked_ready(self) -> bool:
+        """The dense-GPT stacked path: equal blocks a stage, more than
+        one stage, an exact GPTConfig (JAX :245)."""
+        from dnn_tpu_torch.models.gpt import GPTConfig
+
+        cfg = self.spec.config
+        return (type(cfg) is GPTConfig
+                and cfg.n_layer % self.config.num_parts == 0
+                and self.config.num_parts > 1)
+
+    #: below this many parameter bytes "auto" placement replicates (JAX
+    #: :260: the per-device saving of a packed row cannot matter there)
+    PLACEMENT_AUTO_BYTES = 32 * 1024 * 1024
+
+    def _resolve_param_placement(self) -> str:
+        pp = self.config.param_placement
+        if pp != "auto":
+            return pp
+        total = sum(l.numel() * l.element_size()
+                    if isinstance(l, torch.Tensor) else np.asarray(l).nbytes
+                    for l in _leaves(self._stage_params))
+        return "stage" if total > self.PLACEMENT_AUTO_BYTES else "replicated"
+
+    def _build_spmd_fn(self):
+        from dnn_tpu_torch.parallel.pipeline import (
+            pack_stage_params,
+            place_packed,
+            place_replicated,
+            spmd_pipeline,
+        )
+
+        if self._gpt_stacked_ready():
+            return self._build_gpt_stacked_fn()
+        applies = [s.apply for s in self.stages]
+        mesh = self.mesh
+        self.param_placement = self._resolve_param_placement()
+        if self.param_placement == "replicated":
+            placed = place_replicated(self._stage_params, mesh)
+            return lambda x: spmd_pipeline(
+                applies, self._stage_params, x, mesh=mesh,
+                num_microbatches=self._effective_microbatches(x.shape[0]),
+                param_placement="replicated", replicated=placed)
+        # packed once at load, on the host: each stage device holds only
+        # its own row
+        packed = place_packed(pack_stage_params(self._stage_params), mesh)
+        self._spmd_packed = packed
+        return lambda x: spmd_pipeline(
+            applies, self._stage_params, x, mesh=mesh,
+            num_microbatches=self._effective_microbatches(x.shape[0]),
+            packed=packed)
+
+    def _build_gpt_stacked_fn(self):
+        """embed on stage 0, each stage's blocks (the einsum attention,
+        as the relay's stages) on its device, the head on the last stage:
+        a microbatch goes through the same operations as the relay
+        engine's run of it. The stage-major layout is also the
+        pipeline-parallel decoder's (`_gen_parts`)."""
+        from dnn_tpu_torch.models import gpt
+        from dnn_tpu_torch.parallel.pipeline import run_stages
+        from dnn_tpu_torch.runtime.generate import prepare_pipeline_stacked
+
+        cfg = self.spec.config
+        cd = self.compute_dtype
+        mesh = self.mesh
+        if self.config.param_placement == "replicated":
+            log.warning("param_placement='replicated' ignored: the stacked "
+                        "GPT runtime always places block weights per stage")
+        self.param_placement = "stage"
+        stage_blocks, aux = prepare_pipeline_stacked(self.params, cfg, mesh)
+        self._gen_parts = (stage_blocks, aux)
+        last = mesh.devices[-1]
+        head_p = {k: place(aux[k], last) for k in ("ln_f", "lm_head")
+                  if k in aux}
+        head_p.setdefault("wte", aux["wte"])
+        per_stage = cfg.n_layer // self.config.num_parts
+        stage_cfg = dataclasses.replace(cfg, n_layer=per_stage)
+        n = self.config.num_parts
+
+        def stage(d, blocks, h):
+            if d == 0:
+                h = gpt.embed(aux, h, cfg=cfg)
+                if cd is not None:
+                    h = h.to(cd)
+            h = gpt.blocks_scan(blocks, h, cfg=stage_cfg, compute_dtype=cd)
+            if d == n - 1:
+                h = gpt.head(head_p, h.float(), cfg=cfg, compute_dtype=cd)
+            return h
+
+        steps = [functools.partial(stage, d, b)
+                 for d, b in enumerate(stage_blocks)]
+        return lambda ids: run_stages(
+            steps, ids.to(torch.int64), mesh=mesh,
+            num_microbatches=self._effective_microbatches(ids.shape[0]))
 
     def _input(self, x, device):
         if not isinstance(x, torch.Tensor):
@@ -194,6 +320,8 @@ class PipelineEngine:
             raise RuntimeError(
                 "engine was built with role='stage' (serves one part); use "
                 "run_stage, or build with role='full'")
+        if self.runtime == "spmd":
+            return self._pipeline_fn(self._input(x, self.devices[0]))
         return self._relay(self._input(x, self.devices[0]))
 
     @torch.no_grad()
@@ -246,8 +374,11 @@ class PipelineEngine:
         `kv_dtype` picks the cache. A GPT-MoE model decodes through
         generate_moe.make_generate_moe, which refuses `kv_dtype` as JAX's
         engine does (:480-493); a Mixtral model through make_generate,
-        its experts resolved from the config. Sampled draws come from a
-        torch.Generator seeded with `seed`; greedy draws equal JAX's."""
+        its experts resolved from the config. A dense GPT on the spmd
+        runtime decodes pipeline-parallel (make_pipeline_generate: each
+        stage's cache shard on its stage device, K5 and K6 there) and
+        refuses `kv_dtype`, as JAX's engine does. Sampled draws come from
+        a torch.Generator seeded with `seed`; greedy draws equal JAX's."""
         from dnn_tpu_torch.models.gpt import GPTConfig
         from dnn_tpu_torch.models.gpt_moe import GPTMoEConfig
         from dnn_tpu_torch.models.llama import LlamaConfig
@@ -270,6 +401,22 @@ class PipelineEngine:
             raise ValueError(
                 f"generation requires a GPT-family or LLaMA-family model; "
                 f"'{self.config.model}' has config {type(cfg).__name__}")
+        if self.runtime == "spmd" and self._gpt_stacked_ready():
+            # JAX :500-513: the ring keeps its stage shards at the compute
+            # type; a cache type goes on a family adapter
+            if kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype applies to the single-program decoders; "
+                    "pass kv_dtype on a family adapter for the "
+                    "pipeline-parallel ring (generate.GPTPipelineFamily)")
+            from dnn_tpu_torch.runtime.generate import make_pipeline_generate
+
+            gen = make_pipeline_generate(
+                cfg, self.mesh, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                compute_dtype=self.compute_dtype)
+            stage_blocks, aux = self._gen_parts
+            return lambda ids, seed=0: gen(stage_blocks, aux, ids, seed)
         gen = make_generate(cfg, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_k=top_k, top_p=top_p,
                             compute_dtype=self.compute_dtype,
@@ -319,7 +466,8 @@ class PipelineEngine:
         """One instrumented relay run: (output, per-stage compute
         seconds)."""
         if self._relay is None:
-            raise RuntimeError("stage_times needs role='full'")
+            raise RuntimeError("stage_times needs the relay runtime "
+                               "(role='full', runtime relay)")
         y = self._relay(self._input(x, self.devices[0]), record_timings=True)
         return y, list(self._relay.last_stage_times)
 

@@ -1,5 +1,5 @@
-"""Cached forward, sampling and solo generation for the GPT and LLaMA
-families (port of dnn_tpu/runtime/generate.py:50-255, 474-566).
+"""Cached forward, sampling, solo and pipeline-parallel generation for
+the GPT and LLaMA families (port of dnn_tpu/runtime/generate.py:50-566).
 
 `forward_with_cache` runs one chunk of tokens at positions
 [start_pos, start_pos + T) through every layer — a Python loop over the
@@ -10,6 +10,9 @@ forward the cached paths are held against. `make_generate` is the solo
 decoder: the prompt in one forward, then one forward per token; given a
 LlamaConfig it runs the LLaMA family's cached forward (models/llama.py)
 over a KV-head-width cache, as JAX's make_generate for that family does.
+`make_pipeline_generate` decodes over a stage mesh, each stage's cache
+shard on its own stage device (GPTPipelineFamily; LLaMA's adapter is
+models/llama.LlamaPipelineFamily).
 
 Sampling (`_sample`, `_sample_rows`) keeps the JAX package's filter
 arithmetic — temperature, top-k, min-p and nucleus over the same top-256
@@ -429,6 +432,199 @@ def make_generate(cfg, *, max_new_tokens: int,
                 prepared, toks[-1][:, None], cache, t + i, cfg=cfg,
                 compute_dtype=compute_dtype, **ring)
             toks.append(pick(logits[:, -1]))
+        return torch.stack(toks, dim=1).to(torch.int32)
+
+    return generate
+
+
+# ----------------------------------------------------------------------
+# pipeline-parallel decode (JAX generate.py:271-470)
+# ----------------------------------------------------------------------
+
+def prepare_pipeline_stacked(params, cfg, mesh):
+    """The stage-major layout of pipeline-parallel generation (JAX
+    :271): the L blocks split into S stacks of L / S, stack d on mesh
+    device d (each stage device holds only its own blocks), and the
+    other leaves (`aux`: embeddings, final norm, head) on stage 0's
+    device. `params` is the per-layer tree ("h_i" blocks, numpy or
+    tensor leaves) or the prepare_stacked layout. Returns (stage_blocks,
+    a list of S block trees with leading axis L / S, aux)."""
+    from dnn_tpu_torch.models.gpt import _map, prepare_streamed
+    from dnn_tpu_torch.parallel.mesh import as_mesh
+    from dnn_tpu_torch.parallel.pipeline import place
+
+    mesh = as_mesh(mesh)
+    num_stages = len(mesh)
+    if cfg.n_layer % num_stages != 0:
+        raise ValueError(
+            f"n_layer {cfg.n_layer} not divisible by {num_stages} stages")
+    per_stage = cfg.n_layer // num_stages
+    if "blocks" in params:
+        stage_blocks = [
+            _map(lambda t, _d=d, _dev=dev:
+                 t[_d * per_stage:(_d + 1) * per_stage].to(_dev),
+                 params["blocks"])
+            for d, dev in enumerate(mesh.devices)]
+        top = {k: v for k, v in params.items() if k != "blocks"}
+    else:
+        stage_blocks = [
+            prepare_streamed({}, lambda i, _lo=d * per_stage:
+                             params[f"h_{_lo + i}"], per_stage,
+                             dev)["blocks"]
+            for d, dev in enumerate(mesh.devices)]
+        top = {k: v for k, v in params.items() if not k.startswith("h_")}
+    return stage_blocks, place(top, mesh.devices[0])
+
+
+def _blocks_for_compute(blocks, compute_dtype):
+    """A stage's block stack in the compute type (gpt.for_compute on the
+    blocks alone)."""
+    return for_compute({"blocks": blocks, "lm_head": {}},
+                       compute_dtype)["blocks"]
+
+
+class GPTPipelineFamily:
+    """Per-stage hooks of the pipeline-parallel decoder (JAX :304): the
+    stage-local cache layout, the cached block, embed and head; the ring
+    and the sampling stay family-agnostic. `ffn(bp, h)` overrides the
+    block MLP (the MoE family, generate_moe.moe_cache_ffn); `kv_dtype`
+    picks the stage shards' type (None follows compute_dtype; "bf16",
+    "int8", "int4" as make_generate takes them). LLaMA's adapter is
+    models/llama.LlamaPipelineFamily."""
+
+    def __init__(self, cfg, *, compute_dtype=None, ffn=None, kv_dtype=None):
+        self.cfg = cfg
+        self.compute_dtype = check_compute_dtype(compute_dtype)
+        self.ffn = ffn
+        self.kv_dtype = kv_dtype
+
+    def stage_cache(self, per_stage: int, batch: int, s_max: int, device):
+        """A dense cache of the stage's `per_stage` layers on its device:
+        a cache whose layer count is the stage's slice."""
+        import dataclasses
+
+        dt = _cache_dtype(self.kv_dtype if self.kv_dtype is not None
+                          else self.compute_dtype)
+        stage_cfg = dataclasses.replace(self.cfg, n_layer=per_stage)
+        return init_cache(stage_cfg, batch, s_max, dt, device)
+
+    def codec(self, cache):
+        return codec_for_cache(cache)
+
+    def block_with_cache(self, bp, x, layer_cache, start_pos, codec):
+        return _block_with_cache(bp, x, layer_cache, start_pos, cfg=self.cfg,
+                                 codec=codec,
+                                 compute_dtype=self.compute_dtype,
+                                 ffn=self.ffn)
+
+    def embed(self, aux, ids, start_pos):
+        return _embed_at(aux, ids, start_pos, self.compute_dtype)
+
+    def head(self, aux, h):
+        return head(aux, h.float(), cfg=self.cfg,
+                    compute_dtype=self.compute_dtype)
+
+
+def make_pipeline_generate(cfg, mesh, *, max_new_tokens: int,
+                           temperature: float = 0.0,
+                           top_k: Optional[int] = None,
+                           top_p: Optional[float] = None,
+                           compute_dtype=None, axis_name=None, family=None,
+                           kv_dtype=None):
+    """Pipeline-parallel KV-cache generation over a stage mesh (JAX
+    :343): generate(stage_blocks, aux, ids, seed=0) -> (B,
+    max_new_tokens) int32 over prepare_pipeline_stacked's layout.
+
+    Each stage keeps its blocks and its own dense cache shard on its
+    stage device; nothing cache-shaped crosses a device boundary. The
+    hidden state makes one trip through the stages a token: stage d
+    runs its layers against its shard (K5 for the prompt chunk, K6 for
+    every decode step, on the card), then hands the state to stage
+    d + 1's device; after the last stage it returns to stage 0's device,
+    where the head runs and the token is sampled. Only the active stage
+    computes: JAX's one SPMD program computes every stage at every
+    sub-step and keeps the active stage's cache update (`where` on the
+    stage coordinate), an artifact of SPMD that costs energy, not time.
+    The head covers every prompt position, as make_generate's forward
+    does, so greedy and sampled tokens equal the port's make_generate
+    for the same `seed` (one torch.Generator on stage 0's device), and
+    launch counts equal its: K5 once a layer for the prompt, K6 once a
+    layer a decode step. `family` supplies the hooks (GPTPipelineFamily
+    by default; LLaMA: llama.LlamaPipelineFamily); a family carries its
+    own compute and cache types."""
+    from dnn_tpu_torch.parallel.mesh import STAGE_AXIS, as_mesh
+
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    mesh = as_mesh(mesh)
+    num_stages = mesh.shape[axis_name or STAGE_AXIS]
+    if cfg.n_layer % num_stages != 0:
+        raise ValueError(
+            f"n_layer {cfg.n_layer} not divisible by {num_stages} stages")
+    per_stage = cfg.n_layer // num_stages
+    if family is not None:
+        fam_dtype = getattr(family, "compute_dtype", None)
+        if compute_dtype is not None and fam_dtype != compute_dtype:
+            raise ValueError(
+                f"compute_dtype mismatch: make_pipeline_generate="
+                f"{compute_dtype} vs family adapter={fam_dtype} — set it "
+                f"on the adapter")
+        if kv_dtype is not None:
+            raise ValueError("pass kv_dtype on the family adapter, not "
+                             "alongside family=")
+    fam = family or GPTPipelineFamily(cfg, compute_dtype=compute_dtype,
+                                      kv_dtype=kv_dtype)
+    devices = mesh.devices
+    dev0 = devices[0]
+    if any(d.type == "cuda" for d in devices):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    @torch.no_grad()
+    def generate(stage_blocks, aux, ids, seed: int = 0):
+        from torch.profiler import record_function
+
+        if len(stage_blocks) != num_stages:
+            raise ValueError(f"{len(stage_blocks)} stage stacks for "
+                             f"{num_stages} stages")
+        cd = fam.compute_dtype
+        blocks = [_blocks_for_compute(b, cd) for b in stage_blocks]
+        aux_c = for_compute({**aux, "blocks": {}}, cd)
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(dev0)
+        b, t = ids.shape
+        if t + max_new_tokens > cfg.block_size:
+            raise ValueError(
+                f"prompt {t} + max_new_tokens {max_new_tokens} exceeds "
+                f"block_size {cfg.block_size}")
+        caches = [fam.stage_cache(per_stage, b, t + max_new_tokens, dev)
+                  for dev in devices]
+        codecs = [fam.codec(c) for c in caches]
+        gen = torch.Generator(device=dev0).manual_seed(int(seed))
+
+        def ring(x, start_pos):
+            """x on stage 0's device -> through every stage in order ->
+            back on stage 0's device (the wraparound hop)."""
+            for d in range(num_stages):
+                x = x.to(devices[d])
+                with record_function(f"pipeline.stage{d}"):
+                    for i in range(per_stage):
+                        layer_cache = {k: leaf[i]
+                                       for k, leaf in caches[d].items()}
+                        x = fam.block_with_cache(
+                            layer_params(blocks[d], i), x, layer_cache,
+                            start_pos, codecs[d])
+            return x.to(dev0)
+
+        def pick(h):
+            logits = fam.head(aux_c, h)
+            return _sample(logits[:, -1], gen, temperature=temperature,
+                           top_k=top_k, top_p=top_p)
+
+        toks = [pick(ring(fam.embed(aux_c, ids, 0), 0))]
+        for i in range(max_new_tokens - 1):
+            # token i sits at sequence position t + i
+            x = fam.embed(aux_c, toks[-1][:, None], t + i)
+            toks.append(pick(ring(x, t + i)))
         return torch.stack(toks, dim=1).to(torch.int32)
 
     return generate

@@ -9,9 +9,12 @@ each decode step. Without drops (capacity_factor >= n_experts) top-k
 routing is per token, so decode equals the full-sequence forward; with
 drops the result depends on the tokens routed together, as in JAX.
 
-The expert-parallel and pipeline decoders (`make_generate_moe_ep`,
-`make_pipeline_generate_moe`, `make_pipeline_generate_moe_ep`) need a
-device mesh and are not ported (ROADMAP Queue 1 item 10).
+`make_pipeline_generate_moe` is PP x dense MoE: the pipeline-parallel
+decoder (runtime/generate.make_pipeline_generate) with the routed FFN
+plugged into GPTPipelineFamily, each stage keeping its layers' full
+expert sets. The expert-parallel decoders (`make_generate_moe_ep`,
+`make_pipeline_generate_moe_ep`) shard experts across ranks and need
+torch.distributed (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -73,7 +76,29 @@ def make_generate_moe(cfg: GPTMoEConfig, *, max_new_tokens: int,
 
 make_generate_moe_ep = unported_ep("make_generate_moe_ep",
                                    "runtime/generate_moe.py:312")
-make_pipeline_generate_moe = unported_ep("make_pipeline_generate_moe",
-                                         "runtime/generate_moe.py:106")
+def make_pipeline_generate_moe(cfg: GPTMoEConfig, mesh, *,
+                               max_new_tokens: int,
+                               temperature: float = 0.0,
+                               sample_top_k: Optional[int] = None,
+                               compute_dtype=None, groups: int = 1,
+                               axis_name=None, kv_dtype=None):
+    """Pipeline-parallel MoE decode over the stage mesh (JAX :106):
+    generate(stage_blocks, aux, ids, seed=0) over
+    generate.prepare_pipeline_stacked's layout. Experts are not sharded
+    (each stage holds its layers' experts); tokens equal
+    make_generate_moe's on the same grouping."""
+    from dnn_tpu_torch.runtime.generate import (
+        GPTPipelineFamily,
+        make_pipeline_generate,
+    )
+
+    fam = GPTPipelineFamily(
+        cfg, compute_dtype=compute_dtype, kv_dtype=kv_dtype,
+        ffn=moe_cache_ffn(cfg, groups=groups, compute_dtype=compute_dtype))
+    return make_pipeline_generate(
+        cfg, mesh, max_new_tokens=max_new_tokens, temperature=temperature,
+        top_k=sample_top_k, axis_name=axis_name, family=fam)
+
+
 make_pipeline_generate_moe_ep = unported_ep("make_pipeline_generate_moe_ep",
                                             "runtime/generate_moe.py:132")

@@ -314,6 +314,46 @@ def test_relay_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert "each result equals the relay engine's bit for bit" in out
 
 
+def test_pipe_item7_legs_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke's item-7 legs of [pipe] on the CPU at small sizes: P-g's
+    device rung (P-b's servers on an 8-layer gpt2-test-wide model) against
+    the grpc run, P-e (the 8-stage config on spmd against the relay
+    engine, the CIFAR CNN in both placements), P-f (gpt2-test and
+    llama-test rings, 4 stages, 4 prompts, 6 tokens, f32 and int8 shards)
+    against make_generate; every check applies except the launch counts
+    (a CPU call launches no kernel)."""
+    import torch
+
+    from dnn_tpu_torch import registry
+    from dnn_tpu_torch.models import llama as tllama
+
+    cfg8 = tgpt.GPTConfig(block_size=64, vocab_size=256, n_layer=8,
+                          n_head=4, n_embd=64)
+    monkeypatch.setitem(tgpt.PRESETS, "gpt2-test8", cfg8)
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    tgpt._register("gpt2-test8", cfg8)
+    dev = torch.device("cpu")
+    ctx = chip_smoke.pipe_gpt_stages(dev, "cpu", model="gpt2-test8",
+                                     n_tokens=12)
+    chip_smoke.pipe_device_rung(ctx, "cpu")
+    chip_smoke.pipe_spmd(dev, "cpu", ctx)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (5, 9, 13, 20)]
+    ring, ring_bf16 = chip_smoke.pipe_decode(
+        dev, "cpu", prompts, model="gpt2-test",
+        llama_cfg=tllama.PRESETS["llama-test"], n_new=6)
+    out = capsys.readouterr().out
+    for tag in ("P-g device rung: 8 stage servers on transport=device",
+                "the trace holds 8 stage.request spans",
+                "P-e gpt2-test8 spmd, 8 stages",
+                "equal the relay engine's run of the same microbatches",
+                "P-e cifar_cnn spmd, placement replicated",
+                "P-f gpt2-test ring, 4 stages on one card: 4 prompts",
+                "P-f llama (4 layers of 64, GQA 4/2, bf16 compute)"):
+        assert tag in out, out
+    assert set(ring) == set(ring_bf16) == set(chip_smoke.CACHE_KERNELS)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """Every test of this module on one intra-op thread: the models are

@@ -156,3 +156,27 @@ def test_speculative_entry_points_need_a_card():
                            prompt_pad=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_speculative_generate(cfg, cfg, max_new_tokens=4)
+
+
+def test_the_pipeline_and_transport_modules_are_scanned():
+    """The stage mesh, the spmd runtime, the ring decoders and the
+    transport ladder are among the modules the two tests above import
+    and scan."""
+    names = {n for n, _ in _modules()}
+    assert {"dnn_tpu_torch.parallel.mesh", "dnn_tpu_torch.parallel.pipeline",
+            "dnn_tpu_torch.runtime.engine", "dnn_tpu_torch.runtime.generate",
+            "dnn_tpu_torch.runtime.generate_moe",
+            "dnn_tpu_torch.comm.transport", "dnn_tpu_torch.comm.service",
+            "dnn_tpu_torch.comm.client", "dnn_tpu_torch.models.llama"} \
+        <= names
+
+
+def test_pipeline_entry_points_need_a_card():
+    """Without devices, the stage mesh and the ring decoder run on CUDA:
+    on a host without a card they raise instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default is satisfiable")
+    from dnn_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh({"stage": 2})

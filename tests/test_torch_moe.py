@@ -197,5 +197,14 @@ def test_expert_parallel_builders_name_their_item(builder):
 
     mod, name = builder.rsplit(".", 1)
     fn = getattr(importlib.import_module(f"dnn_tpu_torch.{mod}"), name)
+    if name == "make_pipeline_generate_moe":
+        # PP x dense MoE needs no expert parallelism and is ported with
+        # the pipeline decoders: it builds on a CPU stage mesh (its tokens
+        # are held against JAX's in test_torch_pipeline_generate.py)
+        from dnn_tpu_torch.models.gpt_moe import PRESETS
+
+        assert callable(fn(PRESETS["gpt2-moe-test"], ["cpu"] * 2,
+                           max_new_tokens=2))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         fn(None, None)

@@ -65,6 +65,18 @@ def params():
     return get_model("mlp").init(5)
 
 
+@pytest.fixture(autouse=True)
+def grpc_rung(monkeypatch):
+    """These tests hold the grpc rung's framing (chunks, checksums, acks):
+    the stage servers of both packages decline the device and shm rungs
+    (still advertising Relay), so every hop's payload rides the wire.
+    The ladder itself is tests/test_torch_transport.py's."""
+    for mod in (tx, jtx):
+        monkeypatch.setattr(mod, "answer_hello",
+                            lambda text, _f=mod.answer_hello, **kw:
+                            _f(text, **{**kw, "allow": ()}))
+
+
 def _inputs(n=3):
     return [np.random.default_rng(i).standard_normal(
         (BATCH, 784)).astype(np.float32) for i in range(n)]
@@ -164,17 +176,18 @@ def test_framing_helpers_agree_with_jax():
 
 
 def test_hello_keeps_relay_on_the_grpc_rung_both_ways():
-    """A port stage declines every rung with "relay": true, so a JAX
-    client concludes grpc + Relay; the port's offer wants no rung, a JAX
-    server declines it with Relay; a non-JSON reply leaves Relay off."""
-    offer, probe = jtx.build_offer("auto")
-    try:
-        neg = jtx.conclude(offer, tx.answer_hello(json.dumps(offer)),
-                           transport="auto")
-    finally:
-        jtx.close_probe(probe)
+    """An offer that wants no rung beyond grpc (explicit grpc) is
+    declined with "relay": true both ways, so either package concludes
+    grpc + Relay; a non-JSON reply leaves Relay off. (The ladder's higher
+    rungs, shm between the packages and device within the port, are
+    tests/test_torch_transport.py's.)"""
+    offer, probe = jtx.build_offer("grpc")
+    assert probe is None and offer["want"] == []
+    neg = jtx.conclude(offer, tx.answer_hello(json.dumps(offer)),
+                       transport="auto")
     assert (neg.name, neg.relay_ok, neg.relay_known) == ("grpc", True, True)
-    mine = tx.build_offer()
+    mine, probe = tx.build_offer("grpc")
+    assert probe is None and mine["want"] == []
     neg = tx.conclude(mine, jtx.answer_hello(json.dumps(mine)))
     assert (neg.name, neg.relay_ok, neg.relay_known) == ("grpc", True, True)
     neg = tx.conclude(mine, "[node2] got msg 'hello'")

@@ -302,8 +302,8 @@ def test_cli_generate_equals_the_jax_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,rc", [
-    (["--serve", "--transport", "shm"], 2),
-    (["--serve", "--transport", "device"], 2),
+    # --transport shm|device, --chaos and --metrics_port with --serve are
+    # ported: their positive cases are the test_cli_serve_* tests below
     # --beam and --lora (once these places) are ported now: their
     # positive cases are tests/test_torch_beam.py::
     # test_node_generate_beam_equals_the_jax_cli
@@ -322,10 +322,6 @@ def test_cli_generate_equals_the_jax_cli(tmp_path, capsys):
     (["--fleet_port", "0", "--serve"], 1),
     (["--fleet_targets", "http://127.0.0.1:1"], 1),
     (["--fleet_interval", "1"], 1),
-    # the stage servers' chaos and metrics seams: Queue 1 item 7's
-    # remainder (with --serve_lm both are served)
-    (["--chaos", "plan.json", "--serve"], 2),
-    (["--metrics_port", "0", "--serve"], 2),
     (["--transport", "grpc"], 1),
 ])
 def test_cli_unported_flags_exit(tmp_path, flags, rc):
@@ -336,15 +332,148 @@ def test_cli_unported_flags_exit(tmp_path, flags, rc):
     assert main(["--node_id", "node1", "--config", str(cfg), *flags]) == rc
 
 
-def test_cli_transport_shm_process_exits_2(tmp_path):
-    cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps(_raw("cifar_cnn", 2)))
-    proc = subprocess.run(
-        _node("--node_id", "node1", "--config", str(cfg), "--serve",
-              "--transport", "shm"),
-        cwd=ROOT, capture_output=True, text=True, timeout=60)
-    assert proc.returncode == 2
-    assert "ROADMAP" in proc.stderr
+def _get(url, timeout=5.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+# the stage seam's plan: one 50 ms delay before node1's first forward
+STAGE_DELAY_PLAN = {"seed": 0, "faults": [
+    {"kind": "rpc_delay", "seam": "stage", "p": 1.0, "count": 1,
+     "delay_s": 0.05}]}
+
+
+@pytest.fixture(scope="module")
+def served_pair(cifar, tmp_path_factory):
+    """Two `node --serve --transport shm --metrics_port P` processes,
+    node1 with a --chaos plan on the stage seam and --input_image (a
+    missing file: the dummy image). Once node1 printed its prediction, a
+    client's send_tensor goes through node1's server (which forwards to
+    node2 over shm, the chaos delay first); then the endpoints are read,
+    node3 (--transport device, towards node2 in another process) is run
+    to its exit, and SIGTERM stops the pair. Returns what the tests
+    check."""
+    tmp = tmp_path_factory.mktemp("served_pair")
+    params, x, _, _ = cifar
+    weights = tmp / "cifar.npz"
+    ckpt.save_npz(str(weights), ckpt.params_to_flat(params))
+    raw = _raw("cifar_cnn", 2, model_weights=str(weights))
+    cfg = tmp / "cfg.json"
+    cfg.write_text(json.dumps(raw))
+    plan = tmp / "plan.json"
+    plan.write_text(json.dumps(STAGE_DELAY_PLAN))
+    mports = [_free_port(), _free_port()]
+    outs = [tmp / "node1.out", tmp / "node2.out"]
+    got, procs = {}, []
+    try:
+        for node, out, mport, extra in (
+                ("node2", outs[1], mports[1], []),
+                ("node1", outs[0], mports[0],
+                 ["--chaos", str(plan), "--input_image",
+                  str(tmp / "missing.png")])):
+            with open(out, "w") as f:
+                procs.append(subprocess.Popen(
+                    _node("--node_id", node, "--config", str(cfg), "--serve",
+                          "--transport", "shm", "--metrics_port",
+                          str(mport), *extra),
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+        t_end = time.monotonic() + 120
+        while "FINAL PREDICTION" not in outs[0].read_text():
+            assert time.monotonic() < t_end, outs[0].read_text()[-2000:]
+            assert procs[1].poll() is None, outs[0].read_text()[-2000:]
+            time.sleep(0.2)
+        got["node1_out"] = outs[0].read_text()
+        client = NodeClient(raw["nodes"][0]["address"], transport="grpc")
+        got["relayed"] = client.send_tensor(x, timeout=60)
+        client.close()
+        base = [f"http://127.0.0.1:{p}" for p in mports]
+        got["metrics"] = [_get(b + "/metrics") for b in base]
+        got["healthz"] = [_get(b + "/healthz") for b in base]
+        got["debugz"] = [json.loads(_get(b + "/debugz?format=json")[1])
+                         for b in base]
+        dev_raw = {**raw, "nodes": [raw["nodes"][0] | {
+            "address": f"127.0.0.1:{_free_port()}"}, raw["nodes"][1]]}
+        dev_cfg = tmp / "dev.json"
+        dev_cfg.write_text(json.dumps(dev_raw))
+        got["device"] = subprocess.run(
+            _node("--node_id", "node1", "--config", str(dev_cfg), "--serve",
+                  "--transport", "device", "--input_image",
+                  str(tmp / "missing.png")),
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        got["rcs"] = [p.wait(timeout=30) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+    return got
+
+
+def _negotiations(metrics_text, **labels):
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return [ln for ln in metrics_text.splitlines()
+            if "transport_negotiations_total{" in ln
+            and all(w in ln for w in want)]
+
+
+def test_cli_transport_shm_process_serves(served_pair, cifar):
+    """`node --serve --transport shm` as two processes: node1 prints the
+    JAX engine's prediction, and SIGTERM stops both with rc 0."""
+    pred = cifar[3]
+    assert (f"***** FINAL PREDICTION (Index): {pred} *****"
+            in served_pair["node1_out"]), served_pair["node1_out"][-2000:]
+    assert served_pair["rcs"] == [0, 0]
+
+
+def test_cli_serve_transport_shm_negotiates_shm(served_pair, cifar):
+    """Both hops out of node1 (its edge client and its stage server's
+    forward) settle on shm, which node2 granted: the counters of both
+    sides say so, and the relayed answer is the JAX prediction."""
+    m1, m2 = (t for _, t in served_pair["metrics"])
+    assert len(_negotiations(m1, chosen="shm", role="client")) >= 1, m1
+    assert _negotiations(m2, chosen="shm", role="server", stage="node2"), m2
+    assert not _negotiations(m1, chosen="grpc")
+    status, y = served_pair["relayed"]
+    assert status.startswith("[node1] Forwarded. Next node status: [node2] "
+                             f"Processing complete. Prediction: {cifar[3]}")
+    np.testing.assert_allclose(y.numpy(), cifar[2], rtol=0, atol=F32_TOL)
+
+
+def test_cli_serve_transport_device_across_processes_fails_loud(served_pair):
+    """--transport device towards a stage in another process cannot be
+    satisfied: the hop raises TransportMisconfigError and the node exits
+    1, never downgrading to a slower rung."""
+    proc = served_pair["device"]
+    assert proc.returncode == 1, proc.stderr[-2000:]
+    assert "transport='device'" in proc.stderr and "refused" in proc.stderr
+
+
+def test_cli_serve_metrics_port_serves_the_stage(served_pair):
+    """--metrics_port with --serve: /healthz answers, /metrics holds the
+    stage server's RPC latency and payload series."""
+    assert [c for c, _ in served_pair["healthz"]] == [200, 200]
+    m1, m2 = (t for _, t in served_pair["metrics"])
+    assert 'comm_rpc_latency_seconds_bucket{' in m2 and 'stage="node2"' in m2
+    assert 'method="SendTensor"' in m2 and 'transport="shm"' in m2
+    assert 'method="forward"' in m1 and "comm_payload_bytes_total" in m1
+
+
+def test_cli_serve_chaos_fires_on_the_stage_seam(served_pair):
+    """--chaos with --serve: the plan's stage-seam delay fires once, before
+    node1's forward, shows as a chaos_inject event in /debugz, and the
+    request still completes."""
+    events = [e for e in served_pair["debugz"][0]
+              if e.get("kind") == "chaos_inject"
+              and e.get("fault") != "install"]
+    assert len(events) == 1, served_pair["debugz"][0]
+    assert (events[0]["fault"], events[0]["seam"]) == ("rpc_delay", "stage")
+    assert not [e for e in served_pair["debugz"][1]
+                if e.get("kind") == "chaos_inject"]
+    assert "Processing complete" in served_pair["relayed"][0]
 
 
 def test_cli_distributed_config_exits_2(tmp_path):
